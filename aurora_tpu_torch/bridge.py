@@ -1,0 +1,161 @@
+"""Weight and config bridge from the JAX package's trees to the port.
+
+The JAX package keeps parameters as nested dicts of arrays: dense kernels
+[in, out], LLM layers stacked [L, ...], the ViT patch embedding as an
+unfold kernel [p·p·C, D]. The functions here take such a tree with numpy
+leaves (e.g. `jax.device_get(params)`) and return the port's modules:
+transposed into `nn.Linear` weights [out, in], the LLM layers unstacked,
+the patch kernel reshaped into a conv weight [D, C, p, p]. Configs cross
+by field name from any object with the same attributes; reference
+settings the port does not carry raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from aurora_tpu_torch.models.aurora import AuroraConfig, AuroraModel
+from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from aurora_tpu_torch.models.projector import Projector, ProjectorConfig
+from aurora_tpu_torch.models.vit import ViTConfig, VisionTransformer
+
+# reference LlamaConfig knobs of other families, with the value at which
+# they are off; the port's decoder is the plain llama case
+_LLAMA_FAMILY_OFF = {
+    "qkv_bias": False, "qk_norm": False, "norm_type": "rmsnorm",
+    "partial_rotary_factor": 1.0, "rope_interleaved": False,
+    "clip_qkv": None, "mlp_style": "gated", "sliding_window": None,
+    "num_experts": 0, "head_dim_override": None,
+    "attn_logit_softcap": 0.0, "final_logit_softcap": 0.0,
+    "scale_embeddings": False, "hidden_act": "silu",
+    "query_pre_attn_scalar": None, "swa_every_other": False,
+    "norm_upcast_mul": False, "mla_kv_lora_rank": None,
+    "parallel_block": False, "logit_scale": None, "learned_pos": False,
+    "embed_scale": None, "residual_scale": None, "first_k_dense": 0,
+    "rope_inv_freq": None,
+}
+
+
+def _config_from(ref, cls):
+    return cls(**{f.name: getattr(ref, f.name)
+                  for f in dataclasses.fields(cls) if hasattr(ref, f.name)})
+
+
+def llama_config_from(ref) -> LlamaConfig:
+    for name, off in _LLAMA_FAMILY_OFF.items():
+        val = getattr(ref, name, off)
+        if val != off:
+            raise NotImplementedError(
+                f"{name}={val!r}: the port serves the llama family only "
+                "(MLA, MoE, Gemma2, Qwen, ... are not ported yet)")
+    return _config_from(ref, LlamaConfig)
+
+
+def aurora_config_from(ref) -> AuroraConfig:
+    return AuroraConfig(vit=_config_from(ref.vit, ViTConfig),
+                        llm=llama_config_from(ref.llm),
+                        projector=_config_from(ref.projector,
+                                               ProjectorConfig),
+                        visual_select_layer=ref.visual_select_layer,
+                        slowfast=ref.slowfast)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x))
+
+
+def _linear(sd, prefix, p):
+    sd[prefix + ".weight"] = _t(p["kernel"]).T
+    if "bias" in p:
+        sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def _ln(sd, prefix, p):
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def _load(module, sd, device, dtype):
+    module = module.to_empty(device=device or "cpu")
+    module.load_state_dict({k: v.to(dtype) if dtype else v
+                            for k, v in sd.items()}, strict=True)
+    return module
+
+
+def vit_state_dict(tree: Dict[str, Any], cfg: ViTConfig):
+    emb = tree["embeddings"]
+    ps, C, D = cfg.patch_size, cfg.num_channels, cfg.hidden_size
+    sd = {
+        # unfold rows are (c, i, j) channel-major → conv weight [D, C, p, p]
+        "patch_embed.weight": _t(emb["patch_kernel"]).T.reshape(D, C, ps,
+                                                                 ps),
+        "class_embedding": _t(emb["class_embedding"]),
+        "position_embedding": _t(emb["position_embedding"]),
+    }
+    _ln(sd, "pre_layernorm", tree["pre_layernorm"])
+    for i, lp in enumerate(tree["layers"]):
+        pre = f"layers.{i}."
+        _ln(sd, pre + "ln1", lp["ln1"])
+        _ln(sd, pre + "ln2", lp["ln2"])
+        for name in ("q", "k", "v", "o"):
+            _linear(sd, pre + name, lp["attn"][name])
+        for name in ("fc1", "fc2"):
+            _linear(sd, pre + name, lp["mlp"][name])
+    return sd
+
+
+def projector_state_dict(tree: Dict[str, Any]):
+    sd = {}
+    for i, lp in enumerate(tree["layers"]):
+        if "ln_scale" in lp:
+            raise NotImplementedError("projector LayerNorms (Yi-VL) are "
+                                      "not ported")
+        _linear(sd, f"layers.{i}", lp)
+    return sd
+
+
+def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
+    layers = tree["layers"]
+    sd = {"embed_tokens": _t(tree["embed_tokens"]),
+          "final_norm": _t(tree["final_norm"]),
+          "lm_head.weight": _t(tree["lm_head"]).T}
+    for l in range(cfg.num_hidden_layers):
+        pre = f"layers.{l}."
+        sd[pre + "input_norm"] = _t(layers["input_norm"][l])
+        sd[pre + "post_attn_norm"] = _t(layers["post_attn_norm"][l])
+        for name in ("q", "k", "v", "o", "gate", "up", "down"):
+            sd[pre + name + ".weight"] = _t(layers[name][l]).T
+    return sd
+
+
+def vit_from_params(tree, cfg: ViTConfig, device=None, dtype=None):
+    return _load(VisionTransformer(cfg, device="meta", dtype=dtype),
+                 vit_state_dict(tree, cfg), device, dtype)
+
+
+def projector_from_params(tree, cfg: ProjectorConfig, device=None,
+                          dtype=None):
+    return _load(Projector(cfg, device="meta", dtype=dtype),
+                 projector_state_dict(tree), device, dtype)
+
+
+def llama_from_params(tree, cfg: LlamaConfig, device=None, dtype=None):
+    return _load(LlamaModel(cfg, device="meta", dtype=dtype),
+                 llama_state_dict(tree, cfg), device, dtype)
+
+
+def aurora_from_params(tree, cfg: AuroraConfig, device=None, dtype=None):
+    """The composite {"visual_encoder", "projector", "llm"} tree."""
+    sd = {}
+    for prefix, part in (
+            ("visual_encoder.",
+             vit_state_dict(tree["visual_encoder"], cfg.vit)),
+            ("projector.", projector_state_dict(tree["projector"])),
+            ("llm.", llama_state_dict(tree["llm"], cfg.llm))):
+        sd.update({prefix + k: v for k, v in part.items()})
+    return _load(AuroraModel(cfg, device="meta", dtype=dtype), sd, device,
+                 dtype)

@@ -1,0 +1,262 @@
+// Extend (prefill) attention over row-contiguous KV buffers, bf16, sm_90a.
+//
+// Replaces: aurora_tpu/ops/pallas/ragged_attention.py `ragged_attention`
+// (Pallas kernel `_kernel`). Contract: causal attention of each lane's T
+// new queries (global positions q_offsets[i] + t) against KV row
+// row_ids[i] of layer `layer` in k_rows/v_rows [L, B, Hkv, S, hd], reading
+// only keys < kv_lens[i]; fp32 online softmax; lanes with kv_lens == 0
+// and fully masked query rows produce zeros.
+//
+// What bounds it on the H100: at the serving shape (T = 1536 new tokens
+// against ~1.4k keys, hd = 128) every K/V tile is reused by 64 query rows,
+// so the kernel does ~64 FLOP per KV byte: it is compute-bound, and the
+// tensor cores are the resource that matters.
+//
+// Design: one block per (query tile of 64 folded rows, KV head, lane).
+// GQA folds the G query heads of a KV head into the query-row axis as
+// row = t * G + g, so one K/V tile load serves all G heads and the causal
+// bound of a tile stays tight. QK^T and PV run on the tensor cores through
+// WMMA bf16 16x16x16 fragments with fp32 accumulation; the scores, the
+// probabilities and the output accumulator live in shared memory, where
+// each warp rescales its own 16 rows for the online softmax. The loop over
+// key tiles stops at min(kv_len, last query position + 1). Loads are plain
+// 16-byte loads; cp.async/TMA pipelining and wgmma are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int HD = 128;        // head_dim taken by this kernel
+constexpr int BQ = 64;         // folded query rows per block
+constexpr int BK = 64;         // keys per tile
+constexpr int NTHREADS = 128;  // 4 warps, 16 query rows each
+constexpr int LDH = HD + 8;    // bf16 Q/K/V tile row stride (elements)
+constexpr int LDS = BK + 4;    // fp32 score tile row stride
+constexpr int LDP = BK + 8;    // bf16 probability tile row stride
+constexpr int LDO = HD + 4;    // fp32 output accumulator row stride
+constexpr float NEG = -1e30f;
+
+constexpr size_t SMEM_Q = size_t(BQ) * LDH * sizeof(bf16);
+constexpr size_t SMEM_KV = size_t(BK) * LDH * sizeof(bf16);
+constexpr size_t SMEM_S = size_t(BQ) * LDS * sizeof(float);
+constexpr size_t SMEM_P = size_t(BQ) * LDP * sizeof(bf16);
+constexpr size_t SMEM_O = size_t(BQ) * LDO * sizeof(float);
+constexpr size_t SMEM_ROW = size_t(BQ) * 3 * sizeof(float);
+constexpr size_t SMEM_TOTAL =
+    SMEM_Q + 2 * SMEM_KV + SMEM_S + SMEM_P + SMEM_O + SMEM_ROW;
+
+__global__ void __launch_bounds__(NTHREADS)
+extend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_rows,
+              const bf16* __restrict__ v_rows, bf16* __restrict__ out,
+              const int* __restrict__ kv_lens,
+              const int* __restrict__ q_offsets,
+              const int* __restrict__ row_ids,
+              const int* __restrict__ layer_ptr, int T, int Hq, int Hkv,
+              int B, int S, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + BQ * LDH;
+  bf16* sV = sK + BK * LDH;
+  float* sS = reinterpret_cast<float*>(sV + BK * LDH);
+  bf16* sP = reinterpret_cast<bf16*>(sS + BQ * LDS);
+  float* sO = reinterpret_cast<float*>(sP + BQ * LDP);
+  float* sM = sO + BQ * LDO;
+  float* sL = sM + BQ;
+
+  const int qt = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int lane_b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int rows_total = G * T;
+  const int r0 = qt * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+
+  const int kv_len = min(kv_lens[lane_b], S);
+  const int q_off = q_offsets[lane_b];
+  const int row = row_ids[lane_b];
+  const int layer = *layer_ptr;
+  const size_t slab =
+      ((size_t(layer) * B + row) * Hkv + kvh) * size_t(S) * HD;
+  const bf16* Kp = k_rows + slab;
+  const bf16* Vp = v_rows + slab;
+
+  // Q tile: BQ folded rows x HD, 16-byte chunks; padded rows are zero
+  for (int c = tid; c < BQ * (HD / 8); c += NTHREADS) {
+    const int r = c / (HD / 8);
+    const int col = (c % (HD / 8)) * 8;
+    const int rr = r0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (rr < rows_total) {
+      const int t = rr / G, g = rr % G;
+      val = *reinterpret_cast<const uint4*>(
+          q + ((size_t(lane_b) * T + t) * Hq + kvh * G + g) * HD + col);
+    }
+    *reinterpret_cast<uint4*>(sQ + r * LDH + col) = val;
+  }
+  for (int i = tid; i < BQ * LDO; i += NTHREADS) sO[i] = 0.f;
+  if (tid < BQ) {
+    sM[tid] = NEG;
+    sL[tid] = 0.f;
+  }
+
+  // causal bound of this tile: the last live row's position + 1
+  const int last_rr = min(r0 + BQ, rows_total) - 1;
+  int kend = 0;
+  if (last_rr >= r0) kend = min(kv_len, q_off + last_rr / G + 1);
+  __syncthreads();
+
+  // softmax ownership: thread -> (row tid/2, 32-column half tid&1); the
+  // row lies in the strip of the thread's own warp
+  const int srow = tid >> 1;
+  const int shalf = tid & 1;
+  const int srr = r0 + srow;
+  const int sqpos = srr < rows_total ? q_off + srr / G : -1;
+
+  for (int kb = 0; kb < kend; kb += BK) {
+    for (int c = tid; c < BK * (HD / 8); c += NTHREADS) {
+      const int r = c / (HD / 8);
+      const int col = (c % (HD / 8)) * 8;
+      const int s = kb + r;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+      uint4 vv = kv;
+      if (s < kend) {
+        kv = *reinterpret_cast<const uint4*>(Kp + size_t(s) * HD + col);
+        vv = *reinterpret_cast<const uint4*>(Vp + size_t(s) * HD + col);
+      }
+      *reinterpret_cast<uint4*>(sK + r * LDH + col) = kv;
+      *reinterpret_cast<uint4*>(sV + r * LDH + col) = vv;
+    }
+    __syncthreads();
+
+    // scores for this warp's 16 rows x 64 keys
+    {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+#pragma unroll
+      for (int kk = 0; kk < HD; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, sQ + warp * 16 * LDH + kk, LDH);
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j) {
+          // B = K^T: element (d, s) sits at sK[s * LDH + d] (column-major)
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
+              bfr;
+          wmma::load_matrix_sync(bfr, sK + j * 16 * LDH + kk, LDH);
+          wmma::mma_sync(acc[j], a, bfr, acc[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+        wmma::store_matrix_sync(sS + warp * 16 * LDS + j * 16, acc[j], LDS,
+                                wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // online softmax over this thread's 32 columns of its row
+    {
+      const float* srow_s = sS + srow * LDS + shalf * 32;
+      bf16* prow = sP + srow * LDP + shalf * 32;
+      const int s0 = kb + shalf * 32;
+      float mx = NEG;
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const int s = s0 + c;
+        if (s < kv_len && s <= sqpos) mx = fmaxf(mx, srow_s[c] * scale);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      const float m_old = sM[srow];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const int s = s0 + c;
+        float p = 0.f;
+        if (s < kv_len && s <= sqpos) p = expf(srow_s[c] * scale - m_new);
+        sum += p;
+        prow[c] = __float2bfloat16(p);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      const float alpha = expf(m_old - m_new);
+      float* orow = sO + srow * LDO + shalf * 64;
+#pragma unroll 8
+      for (int c = 0; c < 64; ++c) orow[c] *= alpha;
+      __syncwarp();
+      if (shalf == 0) {
+        sM[srow] = m_new;
+        sL[srow] = sL[srow] * alpha + sum;
+      }
+    }
+    __syncwarp();
+
+    // O[strip] += P[strip] @ V
+    {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+          pa[BK / 16];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wmma::load_matrix_sync(pa[kk], sP + warp * 16 * LDP + kk * 16, LDP);
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
+        float* optr = sO + warp * 16 * LDO + j * 16;
+        wmma::load_matrix_sync(o, optr, LDO, wmma::mem_row_major);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+              vb;
+          wmma::load_matrix_sync(vb, sV + kk * 16 * LDH + j * 16, LDH);
+          wmma::mma_sync(o, pa[kk], vb, o);
+        }
+        wmma::store_matrix_sync(optr, o, LDO, wmma::mem_row_major);
+      }
+    }
+    __syncthreads();  // every warp is done with sK/sV before the next load
+  }
+  __syncwarp();
+
+  if (srr < rows_total) {
+    const int t = srr / G, g = srr % G;
+    const float inv = 1.f / fmaxf(sL[srow], 1e-30f);
+    const float* orow = sO + srow * LDO + shalf * 64;
+    bf16* dst = out + ((size_t(lane_b) * T + t) * Hq + kvh * G + g) * HD +
+                shalf * 64;
+#pragma unroll 8
+    for (int c = 0; c < 64; c += 2) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+          __floats2bfloat162_rn(orow[c] * inv, orow[c + 1] * inv);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int aurora_ragged_extend_bf16(
+    const void* q, const void* k_rows, const void* v_rows, void* out,
+    const void* kv_lens, const void* q_offsets, const void* row_ids,
+    const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
+    int head_dim, float scale, void* stream) {
+  if (head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || Bk <= 0 || T <= 0)
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      extend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(SMEM_TOTAL));
+  if (err != cudaSuccess) return int(err);
+  const int G = Hq / Hkv;
+  dim3 grid((G * T + BQ - 1) / BQ, Hkv, Bk);
+  extend_kernel<<<grid, NTHREADS, SMEM_TOTAL,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k_rows),
+      static_cast<const bf16*>(v_rows), static_cast<bf16*>(out),
+      static_cast<const int*>(kv_lens), static_cast<const int*>(q_offsets),
+      static_cast<const int*>(row_ids), static_cast<const int*>(layer), T,
+      Hq, Hkv, B, S, scale);
+  return int(cudaGetLastError());
+}

@@ -1,0 +1,82 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every `*.cu` under `aurora_tpu_torch/csrc/` is compiled by `nvcc` for
+sm_90a into one shared library with a plain C interface, loaded with
+ctypes. The library lands in `build/kernels/` at the repository root,
+named by a hash of the sources and flags, so a changed source rebuilds
+and an unchanged one loads the existing build. Nothing here runs at
+import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of csrc/*.cu, every pointer and the stream as c_void_p
+SIGNATURES = {
+    "aurora_ragged_extend_bf16":
+        [_P] * 8 + [_I] * 7 + [_F, _P],
+    "aurora_ragged_decode_bf16":
+        [_P] * 9 + [_I] * 6 + [_F, _P],
+}
+
+_lib = None
+build_seconds = 0.0   # wall time of the last compile in this process
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libaurora_kernels_{h.hexdigest()[:16]}.so"
+
+
+def load_library() -> ctypes.CDLL:
+    """Compile (when the sources changed) and load the kernel library."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    out = library_path()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *map(str, sorted(CSRC.glob("*.cu")))]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, out)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib

@@ -1,0 +1,260 @@
+"""Ragged attention over row-contiguous KV buffers — the serving engine's
+two attention kernels (aurora_tpu/ops/pallas/ragged_attention.py).
+
+KV lives in head-major rows [L, B, Hkv, S, hd]: each request owns one row
+per layer. The layer, the row of each lane, its query offset and its KV
+length are device int32 tensors that the kernels read themselves.
+
+* `ragged_attention` — EXTEND: causal attention of each lane's T new
+  tokens (already written into its row) against the row.
+* `ragged_decode_attention` — DECODE: write each lane's new K/V token at
+  kv_lens-1 of its row in place, then attend over the row.
+
+Each public function takes its plain PyTorch twin (`*_plain`) when the
+tensors lie on the CPU, and launches its CUDA kernel
+(csrc/ragged_extend.cu, csrc/ragged_decode.cu) for CUDA tensors; it never
+falls back from one to the other. `*.launches` (kernels) and
+`*_plain.calls` (twins) count how often each path ran.
+The int8 / packed-int4 KV modes, the sliding window and the logit
+softcap are not ported yet and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_NEG_INF = -2.3819763e38
+
+
+def _check_unported(k_scales, v_scales, kv_pack, window, logit_cap):
+    if k_scales is not None or v_scales is not None or kv_pack:
+        raise NotImplementedError(
+            "int8/int4 KV (k_scales/v_scales/kv_pack) is not ported yet")
+    if window is not None or logit_cap:
+        raise NotImplementedError(
+            "sliding window and logit softcap are not ported yet")
+
+
+def _as_index(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int32, device=device).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Plain twins (the contract; CPU path and the card's reference)
+# ---------------------------------------------------------------------------
+
+def _attend_plain(q, k_rows, v_rows, lens, offs, rows, lay, scale):
+    Bk, T, Hq, hd = q.shape
+    Hkv, S = k_rows.shape[2], k_rows.shape[3]
+    G = Hq // Hkv
+    if scale is None:
+        scale = hd ** -0.5
+    dev = q.device
+    spos = torch.arange(S, device=dev)
+    out = torch.empty_like(q)
+    for i in range(Bk):       # one lane at a time bounds the fp32 logits
+        k = k_rows[lay, rows[i]].to(torch.float32)           # [Hkv, S, hd]
+        v = v_rows[lay, rows[i]].to(torch.float32)
+        qi = q[i].to(torch.float32).reshape(T, Hkv, G, hd)
+        logits = torch.einsum("thgd,hsd->hgts", qi * scale, k)
+        qpos = offs[i] + torch.arange(T, device=dev)
+        mask = (spos[None, :] <= qpos[:, None]) & (spos[None, :] < lens[i])
+        logits = torch.where(mask, logits, _NEG_INF)
+        probs = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
+        o = torch.einsum("hgts,hsd->thgd", probs, v)
+        out[i] = o.reshape(T, Hq, hd).to(q.dtype)
+    return out
+
+
+def ragged_attention_plain(q, k_rows, v_rows, kv_lens, q_offsets, row_ids,
+                           *, layer, scale=None):
+    """fp32 reference of `ragged_attention` (ragged_attention_reference's
+    twin, with the layer picked from the 5-D buffers). Fully masked query
+    rows and padded lanes (kv_len 0) give zeros."""
+    ragged_attention_plain.calls += 1
+    dev = q.device
+    return _attend_plain(q, k_rows, v_rows,
+                         _as_index(kv_lens, dev).long(),
+                         _as_index(q_offsets, dev).long(),
+                         _as_index(row_ids, dev).long(), int(layer), scale)
+
+
+ragged_attention_plain.calls = 0
+
+
+def ragged_decode_attention_plain(q, k_new, v_new, k_rows, v_rows, kv_lens,
+                                  row_ids, *, layer, scale=None):
+    """Reference of `ragged_decode_attention`: in-place write of each
+    active lane's token at kv_lens-1, then the extend reference with
+    T = 1 at that position."""
+    ragged_decode_attention_plain.calls += 1
+    dev = q.device
+    lens = _as_index(kv_lens, dev).long()
+    rows = _as_index(row_ids, dev).long()
+    lay = int(layer)
+    lanes = ((lens > 0) & (lens <= k_rows.shape[3])).nonzero(
+        as_tuple=True)[0]
+    pos = lens[lanes] - 1
+    k_rows[lay, rows[lanes], :, pos] = k_new[lanes].to(k_rows.dtype)
+    v_rows[lay, rows[lanes], :, pos] = v_new[lanes].to(v_rows.dtype)
+    out = _attend_plain(q, k_rows, v_rows, lens, (lens - 1).clamp_min(0),
+                        rows, lay, scale)
+    return out, k_rows, v_rows
+
+
+ragged_decode_attention_plain.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda(name, floats, ints):
+    """Every tensor on one device and contiguous; floats bf16, ints int32."""
+    dev = floats[0][1].device
+    for label, t in floats + list(ints.items()):
+        if t.device != dev:
+            raise ValueError(f"{name}: {label} is on {t.device}, "
+                             f"expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    for label, t in floats:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: {label} must be bfloat16 on the "
+                            f"card, got {t.dtype}")
+
+
+def _int_args(name, dev, n, **idx):
+    """Index arguments as contiguous int32 device tensors; `layer` holds
+    one entry, every other argument one per lane."""
+    out = {}
+    for label, x in idx.items():
+        t = _as_index(x, dev).contiguous()
+        want = 1 if label == "layer" else n
+        if t.numel() != want:
+            raise ValueError(f"{name}: {label} must have {want} entries, "
+                             f"got {t.numel()}")
+        out[label] = t
+    return out
+
+
+def _validate(name, q, k_rows, v_rows, hd_expected=128):
+    if k_rows.dim() != 5 or v_rows.shape != k_rows.shape:
+        raise ValueError(f"{name}: k_rows/v_rows must be one [L, B, Hkv, S, "
+                         f"hd] shape, got {tuple(k_rows.shape)} / "
+                         f"{tuple(v_rows.shape)}")
+    Hq, hd = q.shape[2], q.shape[3]
+    Hkv = k_rows.shape[2]
+    if hd != hd_expected or k_rows.shape[4] != hd:
+        raise ValueError(f"{name}: the CUDA kernel takes head_dim "
+                         f"{hd_expected}, got {hd}")
+    if Hq % Hkv:
+        raise ValueError(f"{name}: Hq={Hq} is not a multiple of Hkv={Hkv}")
+
+
+def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
+                     layer=None, scale=None, window=None,
+                     logit_cap: float = 0.0, k_scales=None, v_scales=None,
+                     kv_pack: bool = False):
+    """Causal attention of new tokens against row-contiguous KV.
+
+    q [Bk, T, Hq, hd]; k_rows/v_rows [L, B, Hkv, S, hd] (or [B, Hkv, S,
+    hd] with layer None), new tokens already written at their positions;
+    kv_lens [Bk] valid KV length per lane including the new tokens (0 for
+    a padded lane, whose output is zeros); q_offsets [Bk] global position
+    of q[:, 0]; row_ids [Bk] the KV row of each lane; layer: int or 1-elem
+    int32 device tensor. Returns [Bk, T, Hq, hd] in q's dtype.
+    """
+    _check_unported(k_scales, v_scales, kv_pack, window, logit_cap)
+    if k_rows.dim() == 4:
+        if layer is not None:
+            raise ValueError("layer must be None for 4-D KV rows")
+        k_rows, v_rows, layer = k_rows[None], v_rows[None], 0
+    elif layer is None:
+        raise ValueError("layer is required for 5-D KV rows")
+    if q.device.type == "cpu":
+        return ragged_attention_plain(q, k_rows, v_rows, kv_lens, q_offsets,
+                                      row_ids, layer=layer, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_attention: unsupported device {q.device}")
+    name = "ragged_attention"
+    _validate(name, q, k_rows, v_rows)
+    Bk, T, Hq, hd = q.shape
+    L, B, Hkv, S, _ = k_rows.shape
+    idx = _int_args(name, q.device, Bk, kv_lens=kv_lens,
+                    q_offsets=q_offsets, row_ids=row_ids, layer=layer)
+    _check_cuda(name, [("q", q), ("k_rows", k_rows), ("v_rows", v_rows)],
+                idx)
+    out = torch.empty_like(q)
+    from aurora_tpu_torch.ops.cuda_build import load_library
+    lib = load_library()
+    if scale is None:
+        scale = hd ** -0.5
+    err = lib.aurora_ragged_extend_bf16(
+        q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(), out.data_ptr(),
+        idx["kv_lens"].data_ptr(), idx["q_offsets"].data_ptr(),
+        idx["row_ids"].data_ptr(), idx["layer"].data_ptr(),
+        Bk, T, Hq, Hkv, B, S, hd, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    ragged_attention.launches += 1
+    return out
+
+
+ragged_attention.launches = 0
+
+
+def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
+                            row_ids, *, layer, scale=None, window=None,
+                            logit_cap: float = 0.0, k_scales=None,
+                            v_scales=None, kv_pack: bool = False):
+    """Fused decode step: write each lane's new K/V token into its row at
+    kv_lens-1 (in place; no write where kv_lens is 0), then attend.
+
+    q [B, 1, Hq, hd]; k_new/v_new [B, Hkv, hd]; k_rows/v_rows [L, B, Hkv,
+    S, hd]; kv_lens [B] row length including the new token; row_ids [B]
+    distinct per lane. Returns (attn [B, 1, Hq, hd], k_rows, v_rows) —
+    the row tensors are the inputs, updated in place.
+    """
+    _check_unported(k_scales, v_scales, kv_pack, window, logit_cap)
+    if q.shape[1] != 1:
+        raise ValueError("ragged_decode_attention takes one query token")
+    if q.device.type == "cpu":
+        return ragged_decode_attention_plain(
+            q, k_new, v_new, k_rows, v_rows, kv_lens, row_ids,
+            layer=layer, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"ragged_decode_attention: unsupported device {q.device}")
+    name = "ragged_decode_attention"
+    _validate(name, q, k_rows, v_rows)
+    Bq, _, Hq, hd = q.shape
+    L, B, Hkv, S, _ = k_rows.shape
+    if Hq // Hkv > 8:
+        raise ValueError(f"{name}: the CUDA kernel takes at most 8 query "
+                         f"heads per KV head, got {Hq // Hkv}")
+    if k_new.shape != (Bq, Hkv, hd) or v_new.shape != (Bq, Hkv, hd):
+        raise ValueError(f"{name}: k_new/v_new must be [{Bq}, {Hkv}, {hd}]")
+    idx = _int_args(name, q.device, Bq, kv_lens=kv_lens, row_ids=row_ids,
+                    layer=layer)
+    _check_cuda(name, [("q", q), ("k_new", k_new), ("v_new", v_new),
+                       ("k_rows", k_rows), ("v_rows", v_rows)], idx)
+    out = torch.empty_like(q)
+    from aurora_tpu_torch.ops.cuda_build import load_library
+    lib = load_library()
+    if scale is None:
+        scale = hd ** -0.5
+    err = lib.aurora_ragged_decode_bf16(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_rows.data_ptr(),
+        v_rows.data_ptr(), out.data_ptr(), idx["kv_lens"].data_ptr(),
+        idx["row_ids"].data_ptr(), idx["layer"].data_ptr(),
+        Bq, Hq, Hkv, B, S, hd, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    ragged_decode_attention.launches += 1
+    return out, k_rows, v_rows
+
+
+ragged_decode_attention.launches = 0

@@ -1,0 +1,694 @@
+"""Continuous-batching serving engine over row-contiguous KV
+(aurora_tpu/serve/engine.py), bf16 weights and bf16 KV on one GPU.
+
+Each running request owns one row of the [L, B, Hkv, S, hd] K and V
+buffers. All requests admitted in a step prefill in ONE batched extend
+(lanes indexed by row_ids / q_offsets / kv_lens); decode runs K steps per
+host sync with the sampled tokens fed back on the device. Attention in
+both modes goes through the hand-written CUDA kernels of
+ops/pallas/ragged_attention.py (their plain twins on CPU tensors).
+
+The module splits
+  * the device half — `_forward_rows`, `_write_kv_window`, `_lm_head`,
+    `_sample_core`, and `DeviceRunner`, which holds the KV rows and
+    sampler histograms and runs the reference's `_extend_step` and
+    `_decode_block` as `extend` and `decode_block`; from
+  * the host half — `ServeEngine`: admission, waves, token acceptance,
+    release and stats.
+
+Not ported yet (each raises NotImplementedError when asked for): the
+radix prefix cache and slot pool, chunked/interleaved prefill, jump-
+forward and constrained decoding, stop strings, int8/int4 KV, int8/int4
+weights and fused serving weights, tensor parallelism, and the other
+model families (MLA, MoE, windowed or soft-capped attention).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from aurora_tpu_torch.ops.norms import family_act as _act
+from aurora_tpu_torch.ops.norms import family_norm as _norm
+from aurora_tpu_torch.ops.pallas.ragged_attention import (
+    ragged_attention, ragged_decode_attention)
+from aurora_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from aurora_tpu_torch.serve.scheduler import (FinishReason, Request,
+                                              Scheduler, SchedulePolicy)
+
+_TOPK_LOGPROBS = 5  # top alternatives returned per sampled token
+_MAX_TOPK = 256     # sampling candidate bound (see _sample_core)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_batch: int = 8
+    max_seq_len: int = 2048          # per-request KV row capacity
+    prefill_buckets: Tuple[int, ...] = (32, 128, 512, 2048)
+    policy: SchedulePolicy = SchedulePolicy.LPM
+    kv_dtype: Any = torch.bfloat16
+    kv_chunk: int = 1024             # KV rows are a multiple of this width
+    decode_steps: int = 1            # decode steps per host sync
+    kv_quant: str = "none"
+    weight_quant: str = "none"
+    tp: int = 1
+    # the port runs the reference's ChunkCache mode only: every request
+    # prefills from scratch and no prompt KV is cached
+    disable_radix_cache: bool = True
+    max_extend_lanes: int = 16       # lanes per extend sub-wave
+
+    def __post_init__(self):
+        if self.kv_quant != "none":
+            raise NotImplementedError(
+                f"kv_quant={self.kv_quant!r}: int8/int4 KV is not ported "
+                "yet (bf16 KV only)")
+        if self.weight_quant != "none":
+            raise NotImplementedError(
+                f"weight_quant={self.weight_quant!r}: W8/W4 weights are "
+                "not ported yet (bf16 weights only)")
+        if self.tp != 1:
+            raise NotImplementedError(
+                f"tp={self.tp}: tensor-parallel serving is not ported yet")
+        if not self.disable_radix_cache:
+            raise NotImplementedError(
+                "the radix prefix cache and slot pool are not ported yet: "
+                "set disable_radix_cache=True")
+
+    @property
+    def s_row(self) -> int:
+        """KV row width: max_seq_len rounded up to a kv_chunk multiple."""
+        c = min(self.kv_chunk, self.max_seq_len)
+        return -(-self.max_seq_len // c) * c
+
+
+def kv_bytes_per_token_layer(cfg: LlamaConfig, kv_dtype) -> int:
+    """K + V bytes of one token in one layer."""
+    itemsize = torch.empty((), dtype=kv_dtype).element_size()
+    return 2 * cfg.num_key_value_heads * cfg.head_dim * itemsize
+
+
+def row_buffer_bytes(cfg: LlamaConfig, ecfg: EngineConfig) -> int:
+    """Device bytes of the KV rows plus the sampler histograms."""
+    rows = (cfg.num_hidden_layers * ecfg.max_batch * ecfg.s_row
+            * kv_bytes_per_token_layer(cfg, ecfg.kv_dtype))
+    hist = ecfg.max_batch * cfg.vocab_size * 5     # counts i32 + seen b8
+    return rows + hist
+
+
+# ---------------------------------------------------------------------------
+# Device half: row-KV llama forward, LM head, sampler
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVWriteIndex:
+    """Where an extend wave's new K/V land: token t_idx of lane lane_idx
+    goes to position pos_idx of row row_idx. Built once per wave and
+    reused by every layer."""
+    lane_idx: torch.Tensor
+    t_idx: torch.Tensor
+    row_idx: torch.Tensor
+    pos_idx: torch.Tensor
+
+
+def _kv_write_index(row_ids, q_offsets, kv_lens, T: int, S: int,
+                    device) -> KVWriteIndex:
+    """Host-side plan of the extend write: positions [q_offset, q_offset +
+    T) ∩ [0, kv_len) ∩ [0, S) of each lane. Query padding past kv_len and
+    bucket padding past the row are dropped, as the reference's windowed
+    write drops them."""
+    lanes, ts, rows, pos = [], [], [], []
+    for i, (row, off, ln) in enumerate(zip(row_ids, q_offsets, kv_lens)):
+        off, ln = int(off), int(ln)
+        end = min(ln, off + T, S)
+        if end > off >= 0:
+            n = end - off
+            lanes.append(np.full(n, i))
+            ts.append(np.arange(n))
+            rows.append(np.full(n, int(row)))
+            pos.append(np.arange(off, end))
+
+    def cat(parts):
+        arr = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+        return torch.as_tensor(arr, dtype=torch.int64, device=device)
+
+    return KVWriteIndex(cat(lanes), cat(ts), cat(rows), cat(pos))
+
+
+def _write_kv_window(rows, l: int, k, v, widx: KVWriteIndex) -> None:
+    """Write the wave's new tokens into layer l of the rows, in place."""
+    rows["k"][l][widx.row_idx, :, widx.pos_idx] = \
+        k[widx.lane_idx, widx.t_idx].to(rows["k"].dtype)
+    rows["v"][l][widx.row_idx, :, widx.pos_idx] = \
+        v[widx.lane_idx, widx.t_idx].to(rows["v"].dtype)
+
+
+def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
+                  row_ids, q_offsets, kv_lens, layer_ids,
+                  kv_write: Optional[KVWriteIndex] = None):
+    """Shared EXTEND/DECODE forward over row-contiguous KV.
+
+    embeds [Bk, T, D]; rows {"k", "v": [L, B, Hkv, S, hd]}; row_ids,
+    q_offsets, kv_lens [Bk] int32 device tensors (kv_lens is the row
+    length AFTER the new tokens, 0 for a padded lane); layer_ids [L] int32
+    device tensor (each kernel reads its layer index from it). EXTEND
+    (T > 1) writes the new K/V through `kv_write`, then attends; DECODE
+    (T == 1) writes and attends in one kernel. Returns the last valid
+    token's final hidden state per lane, [Bk, D].
+    """
+    x = embeds
+    Bk, T, _ = x.shape
+    H, Hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    positions = q_offsets[:, None].long() + torch.arange(T, device=x.device)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta,
+                            cfg.rope_linear_scaling)
+    for l, lp in enumerate(model.layers):
+        h = _norm(cfg, x, lp.input_norm)
+        q = lp.q(h).view(Bk, T, H, hd)
+        k = lp.k(h).view(Bk, T, Hkv, hd)
+        v = lp.v(h).view(Bk, T, Hkv, hd)
+        q, k = apply_rope(q, k, cos, sin)
+        layer = layer_ids[l:l + 1]
+        if T == 1:
+            attn, _, _ = ragged_decode_attention(
+                q, k[:, 0], v[:, 0], rows["k"], rows["v"], kv_lens, row_ids,
+                layer=layer, scale=cfg.attn_scale)
+        else:
+            _write_kv_window(rows, l, k, v, kv_write)
+            attn = ragged_attention(q, rows["k"], rows["v"], kv_lens,
+                                    q_offsets, row_ids, layer=layer,
+                                    scale=cfg.attn_scale)
+        x = x + lp.o(attn.reshape(Bk, T, H * hd).to(x.dtype))
+        h = _norm(cfg, x, lp.post_attn_norm)
+        x = x + lp.down(_act(cfg, lp.gate(h)) * lp.up(h))
+    x = _norm(cfg, x, model.final_norm)
+    last = (kv_lens.long() - q_offsets.long() - 1).clamp(0, T - 1)
+    return x[torch.arange(Bk, device=x.device), last]
+
+
+def _lm_head(model: LlamaModel, x) -> torch.Tensor:
+    """Logits in fp32 (the matmul runs in the weights' dtype)."""
+    return torch.nn.functional.linear(x, model.lm_head.weight).float()
+
+
+def _sample_core(logits, counts, seen, samp, allowed, generator,
+                 all_greedy: bool = False):
+    """logits [N, V] fp32 → (sampled [N] int64, raw log-probs [N, V]).
+
+    Per row: repetition penalty over `seen` (prompt + output), frequency
+    and presence penalties over the output histogram `counts`, the allowed
+    mask, temperature, top-k, top-p and min-p over at most _MAX_TOPK
+    candidates, then a draw from `generator`. temperature <= 0 is greedy.
+    Log-probs come from the raw (pre-penalty) distribution."""
+    V = logits.shape[-1]
+    raw_lp = torch.log_softmax(logits, dim=-1)
+    rep = samp["rep"][:, None]
+    logits = torch.where(seen, torch.where(logits > 0, logits / rep,
+                                           logits * rep), logits)
+    counts = counts.float()
+    logits = logits - samp["freq"][:, None] * counts
+    logits = logits - samp["pres"][:, None] * (counts > 0).float()
+    if allowed is not None:
+        logits = logits.masked_fill(~allowed, float("-inf"))
+    greedy = logits.argmax(dim=-1)
+    if all_greedy:
+        return greedy, raw_lp
+    kc = min(V, _MAX_TOPK)
+    lt = logits / samp["temp"][:, None].clamp_min(1e-6)
+    cand, cand_ids = lt.topk(kc, dim=-1)               # descending
+    ks = samp["top_k"][:, None]
+    rank = torch.arange(kc, device=logits.device)[None, :]
+    cand = cand.masked_fill((ks > 0) & (rank >= ks), float("-inf"))
+    probs = torch.softmax(cand, dim=-1)
+    cum = probs.cumsum(dim=-1)
+    cand = cand.masked_fill((cum - probs) > samp["top_p"][:, None],
+                            float("-inf"))
+    p_c = torch.softmax(cand, dim=-1)
+    min_p = samp["min_p"][:, None]
+    cand = cand.masked_fill((min_p > 0) & (p_c < min_p * p_c[:, :1]),
+                            float("-inf"))
+    choice = torch.multinomial(torch.softmax(cand, dim=-1), 1,
+                               generator=generator)
+    sampled = cand_ids.gather(1, choice)[:, 0]
+    return torch.where(samp["temp"] <= 0.0, greedy, sampled), raw_lp
+
+
+def _logprob_outputs(raw_lp, sampled, want_logprobs: bool):
+    tok_lp = raw_lp.gather(1, sampled[:, None])[:, 0]
+    N = raw_lp.shape[0]
+    if want_logprobs:
+        top_lp, top_ids = raw_lp.topk(_TOPK_LOGPROBS, dim=-1)
+    else:
+        top_lp = raw_lp.new_zeros((N, _TOPK_LOGPROBS))
+        top_ids = torch.zeros((N, _TOPK_LOGPROBS), dtype=torch.int64,
+                              device=raw_lp.device)
+    return tok_lp, top_lp, top_ids
+
+
+def _samp_arrays(reqs, n, rows=None) -> Dict[str, np.ndarray]:
+    """Per-request SamplingParams → host [n] arrays (dense lanes when
+    rows is None, else one entry per listed row)."""
+    out = {"temp": np.zeros(n, np.float32),
+           "top_k": np.zeros(n, np.int64),
+           "top_p": np.ones(n, np.float32),
+           "min_p": np.zeros(n, np.float32),
+           "freq": np.zeros(n, np.float32),
+           "pres": np.zeros(n, np.float32),
+           "rep": np.ones(n, np.float32)}
+    for i, r in enumerate(reqs):
+        j = i if rows is None else rows[i]
+        s = r.sampling
+        out["temp"][j] = s.temperature
+        out["top_k"][j] = s.top_k
+        out["top_p"][j] = s.top_p
+        out["min_p"][j] = s.min_p
+        out["freq"][j] = s.frequency_penalty
+        out["pres"][j] = s.presence_penalty
+        out["rep"][j] = s.repetition_penalty
+    return out
+
+
+class DeviceRunner:
+    """The device half of the engine: weights, KV rows, per-row sampler
+    histograms and the sampling generator, with the extend, first-token
+    sampling and K-step decode programs over them. Host code passes numpy
+    arrays in and gets numpy arrays back; everything between stays on the
+    device."""
+
+    def __init__(self, model: LlamaModel, cfg: LlamaConfig,
+                 ecfg: EngineConfig, device, seed: int = 0):
+        self.model, self.cfg, self.ecfg = model, cfg, ecfg
+        self.device = torch.device(device)
+        B, S = ecfg.max_batch, ecfg.s_row
+        L, Hkv, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        shape = (L, B, Hkv, S, hd)
+        self.rows = {"k": torch.zeros(shape, dtype=ecfg.kv_dtype,
+                                      device=self.device),
+                     "v": torch.zeros(shape, dtype=ecfg.kv_dtype,
+                                      device=self.device)}
+        self.counts = torch.zeros((B, cfg.vocab_size), dtype=torch.int32,
+                                  device=self.device)
+        self.seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool,
+                                device=self.device)
+        self.layer_ids = torch.arange(L, dtype=torch.int32,
+                                      device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+
+    def _idx(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                               device=self.device)
+
+    def _samp(self, samp_np):
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in samp_np.items()}
+
+    def embed(self, ids) -> torch.Tensor:
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64,
+                              device=self.device)
+        return self.model.embed_tokens[ids]
+
+    @torch.no_grad()
+    def extend(self, embeds, row_ids, q_offsets, kv_lens) -> torch.Tensor:
+        """_extend_step: one batched extend wave → logits [Bk, V] fp32.
+        row_ids / q_offsets / kv_lens are host arrays of the wave."""
+        widx = _kv_write_index(row_ids, q_offsets, kv_lens,
+                               embeds.shape[1], self.ecfg.s_row,
+                               self.device)
+        x = _forward_rows(self.model, self.cfg, embeds, self.rows,
+                          self._idx(row_ids), self._idx(q_offsets),
+                          self._idx(kv_lens), self.layer_ids, widx)
+        return _lm_head(self.model, x)
+
+    @torch.no_grad()
+    def reset_row_stats(self, row: int, prompt_seen: np.ndarray) -> None:
+        self.counts[row] = 0
+        self.seen[row] = torch.as_tensor(prompt_seen, device=self.device)
+
+    @torch.no_grad()
+    def sample_after_extend(self, logits, row_ids, samp_np, allowed,
+                            all_greedy: bool, want_logprobs: bool):
+        """First token for freshly extended lanes → host arrays."""
+        rows = torch.as_tensor(np.asarray(row_ids), dtype=torch.int64,
+                               device=self.device)
+        allowed_t = (None if allowed is None
+                     else torch.as_tensor(allowed, device=self.device))
+        sampled, raw_lp = _sample_core(
+            logits, self.counts[rows], self.seen[rows], self._samp(samp_np),
+            allowed_t, self.generator, all_greedy=all_greedy)
+        outs = _logprob_outputs(raw_lp, sampled, want_logprobs)
+        self.counts.index_put_((rows, sampled),
+                               torch.ones_like(rows, dtype=torch.int32),
+                               accumulate=True)
+        self.seen[rows, sampled] = True
+        return tuple(t.cpu().numpy() for t in (sampled,) + outs)
+
+    @torch.no_grad()
+    def decode_block(self, tokens, positions, active, samp_np, K: int,
+                     allowed, all_greedy: bool, want_logprobs: bool):
+        """_decode_block: K decode steps for every row, the sampled token
+        of each step fed back on the device; one host sync at the end.
+        Positions clamp to the row's last slot, inactive rows decode with
+        kv_len 0 (no KV write). Returns K tuples (sampled, tok_lp, top_lp,
+        top_ids) of host arrays."""
+        dev = self.device
+        B = len(tokens)
+        S_row = self.ecfg.s_row
+        tok = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                              device=dev)
+        pos0 = torch.as_tensor(np.asarray(positions), dtype=torch.int32,
+                               device=dev)
+        act = torch.as_tensor(np.asarray(active), device=dev)
+        samp = self._samp(samp_np)
+        allowed_t = (None if allowed is None
+                     else torch.as_tensor(allowed, device=dev))
+        row_ids = torch.arange(B, dtype=torch.int32, device=dev)
+        ar = row_ids.long()
+        steps = []
+        for j in range(K):
+            pos_j = (pos0 + j).clamp_max(S_row - 1)
+            kv_lens = torch.where(act, pos_j + 1, 0).to(torch.int32)
+            embeds = self.model.embed_tokens[tok][:, None]
+            x = _forward_rows(self.model, self.cfg, embeds, self.rows,
+                              row_ids, pos_j, kv_lens, self.layer_ids)
+            sampled, raw_lp = _sample_core(
+                _lm_head(self.model, x), self.counts, self.seen, samp,
+                allowed_t, self.generator, all_greedy=all_greedy)
+            outs = _logprob_outputs(raw_lp, sampled, want_logprobs)
+            self.counts.index_put_((ar, sampled), act.to(torch.int32),
+                                   accumulate=True)
+            self.seen[ar, sampled] |= act
+            steps.append((sampled,) + outs)
+            tok = sampled
+        host = [torch.stack(parts).cpu().numpy() for parts in zip(*steps)]
+        return [tuple(h[j] for h in host) for j in range(K)]
+
+
+# ---------------------------------------------------------------------------
+# Host half
+# ---------------------------------------------------------------------------
+
+class ServeEngine:
+    """Single-GPU engine: schedule → batched extend / K-step decode."""
+
+    def __init__(self, model: LlamaModel, cfg: LlamaConfig,
+                 ecfg: EngineConfig = EngineConfig(), embed_fn=None,
+                 device=None, seed: int = 0):
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.embed_fn = embed_fn  # multimodal hook: req → [T, D] embeds
+        device = device if device is not None else \
+            model.embed_tokens.device
+        self.runner = DeviceRunner(model, cfg, ecfg, device, seed)
+        self.sched = Scheduler(ecfg.max_batch,
+                               ecfg.max_batch * ecfg.max_seq_len,
+                               ecfg.policy)
+        self.row_reqs: List[Optional[Request]] = [None] * ecfg.max_batch
+        self._done_buffer: List[Request] = []
+        self._gen_total = 0
+        self._steps = 0
+        self.t_extend_s = 0.0   # cumulative extend wall time (step())
+        self.t_decode_s = 0.0   # cumulative decode wall time (step())
+
+    # -- public API ----------------------------------------------------------
+
+    def add_request(self, req: Request) -> None:
+        if req.stop_strs:
+            raise NotImplementedError("stop strings are not ported yet")
+        if req.constraint is not None:
+            raise NotImplementedError(
+                "constrained and jump-forward decoding are not ported yet")
+        if len(req.input_ids) > max(self.ecfg.prefill_buckets):
+            raise NotImplementedError(
+                f"request {req.rid}: prompt of {len(req.input_ids)} tokens "
+                f"exceeds the largest prefill bucket "
+                f"{max(self.ecfg.prefill_buckets)}; chunked prefill is not "
+                "ported yet")
+        if not req.input_ids:
+            req.finished = FinishReason.ABORT
+            req.error = "empty prompt (input_ids must be non-empty)"
+            self._done_buffer.append(req)
+            return
+        if req.max_new_tokens <= 0:
+            req.finished = FinishReason.LENGTH
+            self._done_buffer.append(req)
+            return
+        self.sched.add(req)
+
+    def abort(self, rid: str) -> bool:
+        return self.sched.abort(rid)
+
+    def has_work(self) -> bool:
+        return bool(self.sched.waiting or self.sched.running
+                    or self._done_buffer)
+
+    def step(self) -> List[Request]:
+        """One engine iteration → requests finished this step. Both phases
+        end in a host read of the sampled tokens, so their wall times
+        include the device work."""
+        t0 = time.perf_counter()
+        self._admit()
+        t1 = time.perf_counter()
+        self._decode()
+        self.t_extend_s += t1 - t0
+        self.t_decode_s += time.perf_counter() - t1
+        done, self._done_buffer = self._done_buffer, []
+        for req in self.sched.retire_finished():
+            self._release(req)
+            done.append(req)
+        return done
+
+    def decode_stats(self) -> Dict[str, float]:
+        """Running/queued counts, generated tokens per second since the
+        previous call (0.0 on the first) and the cumulative phase times."""
+        now = time.perf_counter()
+        toks = self._gen_total
+        last_t, last_n = getattr(self, "_stats_mark", (now, toks))
+        self._stats_mark = (now, toks)
+        return {"running": len(self.sched.running),
+                "queued": len(self.sched.waiting),
+                "gen_tokens_per_s": round(
+                    max(toks - last_n, 0) / max(now - last_t, 1e-9), 1),
+                "extend_s": round(self.t_extend_s, 3),
+                "decode_s": round(self.t_decode_s, 3)}
+
+    # -- admission and extend ------------------------------------------------
+
+    def _free_row(self) -> int:
+        for i, r in enumerate(self.row_reqs):
+            if r is None:
+                return i
+        return -1
+
+    def _bucket(self, n: int) -> int:
+        for b in self.ecfg.prefill_buckets:
+            if n <= b:
+                return b
+        raise NotImplementedError("chunked prefill is not ported yet")
+
+    @staticmethod
+    def _lane_bucket(n: int) -> int:
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def _wave_bucket(self, n: int) -> int:
+        return min(self._lane_bucket(n), self.ecfg.max_extend_lanes)
+
+    def _admit(self) -> None:
+        free_rows = sum(r is None for r in self.row_reqs)
+        admitted = self.sched.get_prefill_batch(
+            free_rows * self.ecfg.max_seq_len)
+        wave: List[Request] = []
+        for req in admitted:
+            row = self._free_row()
+            if row < 0:
+                self.sched.waiting.insert(0, req)
+                continue
+            try:
+                self._prepare(req, row)
+            except ValueError as e:   # invalid request: abort only it
+                self._abort_admission(req, row, e)
+                continue
+            wave.append(req)
+        if wave:
+            self._run_wave_chunks(wave)
+
+    def _run_wave_chunks(self, wave: List[Request]) -> None:
+        """Sub-waves of ≤ max_extend_lanes; a failure aborts the failing
+        sub-wave and every later one (their rows are already claimed)
+        before it propagates."""
+        cap = max(1, self.ecfg.max_extend_lanes)
+        for at in range(0, len(wave), cap):
+            try:
+                self._run_wave(wave[at:at + cap])
+            except Exception as e:
+                for req in wave[at + cap:]:
+                    self._abort_admission(req, req.batch_row, e)
+                raise
+
+    def _run_wave(self, wave: List[Request]) -> None:
+        """A failed extend is taken as a failure of the deployment (kernel
+        build or launch, device memory), not of a request: the wave is
+        aborted and the error reaches the step() caller."""
+        try:
+            self._extend_wave(wave)
+        except Exception as e:
+            for req in wave:
+                self._abort_admission(req, req.batch_row, e)
+            raise
+        self.sched.running.extend(wave)
+
+    def _abort_admission(self, req: Request, row: int, e: Exception):
+        req.finished = FinishReason.ABORT
+        req.error = str(e)
+        if 0 <= row < len(self.row_reqs) and self.row_reqs[row] is req:
+            self.row_reqs[row] = None
+        self.sched.aborted.append(req)
+
+    def _prepare(self, req: Request, row: int) -> None:
+        """Claim a row and reset its sampler histograms (no prefix load:
+        every prompt extends from position 0)."""
+        ids = req.input_ids
+        if len(ids) + req.max_new_tokens > self.ecfg.max_seq_len:
+            raise ValueError(
+                f"request {req.rid}: prompt ({len(ids)}) + max_new_tokens "
+                f"({req.max_new_tokens}) exceeds max_seq_len "
+                f"{self.ecfg.max_seq_len}")
+        req.batch_row = row
+        req.n_cached = 0
+        req.extend_len_pending = len(ids)
+        self.row_reqs[row] = req
+        prompt_seen = np.zeros((self.cfg.vocab_size,), bool)
+        valid = np.asarray([t for t in ids if 0 <= t < self.cfg.vocab_size],
+                           np.int64)
+        prompt_seen[valid] = True
+        self.runner.reset_row_stats(row, prompt_seen)
+
+    def _assemble_wave(self, ids, mm_lanes) -> torch.Tensor:
+        """[Bk, T, D] wave embeds: the text-id lookup, with each multimodal
+        lane's fused embeds (embed_fn) spliced over its row."""
+        embeds = self.runner.embed(ids).to(self.ecfg.kv_dtype)
+        for i, req in mm_lanes:
+            e = torch.as_tensor(self.embed_fn(req),
+                                device=self.runner.device)[req.n_cached:]
+            embeds[i, :e.shape[0]] = e.to(embeds.dtype)
+        return embeds
+
+    def _extend_wave(self, wave: List[Request]) -> None:
+        """One batched extend for every admitted request of the wave."""
+        T = self._bucket(max(r.extend_len_pending for r in wave))
+        Bk = self._wave_bucket(len(wave))
+        ids = np.zeros((Bk, T), np.int64)
+        row_ids = np.zeros((Bk,), np.int32)
+        offs = np.zeros((Bk,), np.int32)
+        lens = np.zeros((Bk,), np.int32)
+        mm_lanes = []
+        for i, req in enumerate(wave):
+            n_new = req.extend_len_pending
+            if self.embed_fn is not None and req.pixel_values is not None:
+                mm_lanes.append((i, req))
+            else:
+                ids[i, :n_new] = np.clip(
+                    np.asarray(req.input_ids[req.n_cached:], np.int64),
+                    0, self.cfg.vocab_size - 1)
+            row_ids[i] = req.batch_row
+            offs[i] = req.n_cached
+            lens[i] = req.n_cached + n_new
+        embeds = self._assemble_wave(ids, mm_lanes)
+        logits = self.runner.extend(embeds, row_ids, offs, lens)
+        self._emit(wave, logits[:len(wave)], row_ids[:len(wave)])
+
+    def _allowed_mask(self, reqs, rows, n) -> Optional[np.ndarray]:
+        """[n, V] allowed-token mask while a request is below its
+        min_new_tokens (eos suppressed); None when no request needs one."""
+        need = any(len(r.output_ids) < r.sampling.min_new_tokens
+                   for r in reqs)
+        if not need:
+            return None
+        mask = np.ones((n, self.cfg.vocab_size), bool)
+        for r, j in zip(reqs, rows):
+            if len(r.output_ids) < r.sampling.min_new_tokens:
+                for eos in r.eos_ids:
+                    if 0 <= eos < self.cfg.vocab_size:
+                        mask[j, eos] = False
+        return mask
+
+    def _emit(self, reqs: List[Request], logits, row_ids) -> None:
+        """Sample the first token for freshly extended lanes."""
+        out = self.runner.sample_after_extend(
+            logits, row_ids, _samp_arrays(reqs, len(reqs)),
+            self._allowed_mask(reqs, range(len(reqs)), len(reqs)),
+            all_greedy=all(r.sampling.temperature <= 0.0 for r in reqs),
+            want_logprobs=any(r.logprobs for r in reqs))
+        for i, req in enumerate(reqs):
+            self._accept_token(req, int(out[0][i]), float(out[1][i]),
+                               out[2][i], out[3][i])
+
+    def _accept_token(self, req: Request, tok: int, logprob: float,
+                      top_lp, top_ids) -> None:
+        req.output_ids.append(tok)
+        self._gen_total += 1
+        if req.logprobs:
+            req.output_logprobs.append(logprob)
+            req.output_top_logprobs.append(
+                [(int(i), float(v)) for i, v in zip(top_ids, top_lp)])
+        req.check_finished()
+
+    # -- decode --------------------------------------------------------------
+
+    def _decode(self) -> None:
+        active = [r for r in self.row_reqs if r is not None
+                  and r.finished is None and r.output_ids]
+        if not active:
+            return
+        B = self.ecfg.max_batch
+        tokens = np.zeros((B,), np.int64)
+        positions = np.zeros((B,), np.int32)
+        act = np.zeros((B,), bool)
+        rows = []
+        for req in active:
+            b = req.batch_row
+            pos = req.seq_len - 1          # position of the new token
+            if pos >= self.ecfg.s_row:
+                req.finished = FinishReason.LENGTH
+                continue
+            tokens[b] = req.output_ids[-1]
+            positions[b] = pos
+            act[b] = True
+            rows.append(req)
+        if not rows:
+            return
+        row_list = [r.batch_row for r in rows]
+        allowed = self._allowed_mask(rows, row_list, B)
+        K = self.ecfg.decode_steps
+        if allowed is not None:
+            K = 1  # a per-step mask cannot lag
+        K = max(1, min(K, min(r.max_new_tokens - len(r.output_ids)
+                              for r in rows)))
+        steps = self.runner.decode_block(
+            tokens, positions, act, _samp_arrays(rows, B, row_list), K,
+            allowed, all_greedy=all(r.sampling.temperature <= 0.0
+                                    for r in rows),
+            want_logprobs=any(r.logprobs for r in rows))
+        for s, tlp, toplp, topids in steps:
+            for req in rows:
+                if req.finished is not None:
+                    continue  # finished inside the block: discard the rest
+                b = req.batch_row
+                self._accept_token(req, int(s[b]), float(tlp[b]),
+                                   toplp[b], topids[b])
+        self._steps += K
+
+    def _release(self, req: Request) -> None:
+        """Free the request's row (no prompt-KV caching in this port)."""
+        row = req.batch_row
+        if 0 <= row < len(self.row_reqs) and self.row_reqs[row] is req:
+            self.row_reqs[row] = None

@@ -1,0 +1,60 @@
+"""The port stands alone: importing every module of aurora_tpu_torch and
+serving a tiny multimodal request on the CPU loads neither JAX nor the
+JAX package. Runs in a fresh interpreter (this test process has JAX)."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r'''
+import importlib, pkgutil, sys
+import numpy as np
+import torch
+import aurora_tpu_torch
+for m in pkgutil.walk_packages(aurora_tpu_torch.__path__, "aurora_tpu_torch."):
+    importlib.import_module(m.name)
+
+from aurora_tpu_torch.models.aurora import AuroraConfig, init_aurora
+from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+from aurora_tpu_torch.serve.multimodal import AuroraCapServing
+
+
+class Tok:
+    def encode(self, text, add_special_tokens=True):
+        ids = [3 + b % 200 for b in text.encode()]
+        return [1] + ids if add_special_tokens else ids
+
+
+cfg = AuroraConfig.tiny()
+model = init_aurora(cfg, device="cpu", dtype=torch.float32,
+                    generator=torch.Generator().manual_seed(0))
+mm = AuroraCapServing(model, Tok(), kept_ratio=0.5, image_size=56)
+eng = ServeEngine(model.llm, cfg.llm, EngineConfig(
+    max_batch=2, max_seq_len=96, prefill_buckets=(64,),
+    kv_dtype=torch.float32, kv_chunk=32, decode_steps=4),
+    embed_fn=mm.embed_fn)
+rng = np.random.default_rng(0)
+for i in range(2):
+    frames = rng.integers(0, 256, size=(2, 56, 56, 3), dtype=np.uint8)
+    eng.add_request(mm.build_request(f"r{i}", "<image> <image> Describe.",
+                                     frames, max_new_tokens=5, eos_ids=()))
+done = []
+while eng.has_work():
+    done += eng.step()
+assert sorted(r.rid for r in done) == ["r0", "r1"]
+assert all(len(r.output_ids) == 5 for r in done)
+assert "jax" not in sys.modules, "jax was imported"
+assert not any(m == "aurora_tpu" or m.startswith("aurora_tpu.")
+               for m in sys.modules), "aurora_tpu was imported"
+print("OK")
+'''
+
+
+def test_port_imports_and_serves_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("OK")

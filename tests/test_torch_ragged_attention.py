@@ -1,0 +1,122 @@
+"""The port's ragged attention vs the JAX Pallas kernels.
+
+On CPU tensors the port's public functions run their plain PyTorch twins;
+the JAX kernels run in interpret mode (off-TPU default), as
+tests/test_ragged_attention.py runs them. Inputs come from one numpy
+generator; float32 on both sides; tolerance 2e-5 (the JAX kernel tests'
+own bound: online vs one-shot softmax). Row writes are compared exactly.
+The CUDA kernels themselves are held against these twins on the card by
+tests/test_torch_cuda_kernels.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aurora_tpu.ops.pallas import ragged_attention as jra
+from aurora_tpu_torch.ops.pallas import ragged_attention as tra
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+L, B, S, HD = 3, 4, 256, 64
+
+
+def _rows(rng, hkv):
+    k = rng.standard_normal((L, B, hkv, S, HD)).astype(np.float32)
+    v = rng.standard_normal((L, B, hkv, S, HD)).astype(np.float32)
+    return k, v
+
+
+def _counts():
+    return (tra.ragged_attention.launches,
+            tra.ragged_decode_attention.launches)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_extend_plain_matches_jax(G):
+    rng = np.random.default_rng(G)
+    hkv, T = 2, 24
+    k, v = _rows(rng, hkv)
+    q = rng.standard_normal((4, T, hkv * G, HD)).astype(np.float32)
+    # lane 0 from scratch, lane 1 after a cached prefix, lane 2 partially
+    # padded queries, lane 3 a padded lane (kv_len 0); rows permuted
+    offs = np.array([0, 100, 7, 0], np.int32)
+    lens = np.array([T, 100 + T, 7 + T - 5, 0], np.int32)
+    rows = np.array([2, 0, 3, 1], np.int32)
+    layer = 1
+    before = _counts()
+    want = jra.ragged_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+        jnp.asarray(offs), jnp.asarray(rows), layer=layer, chunk=128)
+    got = tra.ragged_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lens), torch.from_numpy(offs),
+        torch.from_numpy(rows), layer=layer)
+    assert _counts() == before            # CPU tensors never launch
+    np.testing.assert_allclose(got.numpy()[:3], np.asarray(want)[:3], **TOL)
+    # padded lane: zeros, not NaN
+    np.testing.assert_array_equal(got.numpy()[3], 0.0)
+
+
+def test_extend_plain_4d_rows_and_unported_options():
+    rng = np.random.default_rng(7)
+    k, v = _rows(rng, 1)
+    q = rng.standard_normal((2, 1, 1, HD)).astype(np.float32)
+    lens = np.array([60, 200], np.int32)
+    offs = lens - 1
+    rows = np.array([3, 1], np.int32)
+    want = jra.ragged_attention_reference(
+        jnp.asarray(q), jnp.asarray(k[0]), jnp.asarray(v[0]),
+        jnp.asarray(lens), jnp.asarray(offs), jnp.asarray(rows))
+    got = tra.ragged_attention(
+        torch.from_numpy(q), torch.from_numpy(k[0]), torch.from_numpy(v[0]),
+        lens, offs, rows)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for kw in (dict(window=16), dict(logit_cap=30.0), dict(kv_pack=True),
+               dict(k_scales=torch.ones(1))):
+        with pytest.raises(NotImplementedError):
+            tra.ragged_attention(torch.from_numpy(q), torch.from_numpy(k[0]),
+                                 torch.from_numpy(v[0]), lens, offs, rows,
+                                 **kw)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_decode_plain_matches_jax(G):
+    rng = np.random.default_rng(10 + G)
+    hkv = 2
+    k, v = _rows(rng, hkv)
+    q = rng.standard_normal((B, 1, hkv * G, HD)).astype(np.float32)
+    k_new = rng.standard_normal((B, hkv, HD)).astype(np.float32)
+    v_new = rng.standard_normal((B, hkv, HD)).astype(np.float32)
+    lens = np.array([5, 130, 0, 256], np.int32)     # lane 2 inactive
+    rows = np.array([1, 3, 0, 2], np.int32)
+    layer = 2
+    before = _counts()
+    w_out, w_k, w_v = jra.ragged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new),
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens), jnp.asarray(rows),
+        layer=layer, chunk=128)
+    tk, tv = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
+    g_out, g_k, g_v = tra.ragged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k_new), torch.from_numpy(v_new),
+        tk, tv, torch.from_numpy(lens), torch.from_numpy(rows), layer=layer)
+    assert _counts() == before
+    assert g_k is tk and g_v is tv                   # updated in place
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(w_k))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(w_v))
+    np.testing.assert_allclose(g_out.numpy()[[0, 1, 3]],
+                               np.asarray(w_out)[[0, 1, 3]], **TOL)
+    np.testing.assert_array_equal(g_out.numpy()[2], 0.0)
+
+
+def test_plain_counters_count_twin_calls():
+    rng = np.random.default_rng(20)
+    k, v = _rows(rng, 1)
+    q = torch.from_numpy(rng.standard_normal((1, 1, 1, HD)).astype(
+        np.float32))
+    e0 = tra.ragged_attention_plain.calls
+    d0 = tra.ragged_decode_attention_plain.calls
+    tra.ragged_decode_attention(q, q[:, 0], q[:, 0], torch.from_numpy(k),
+                                torch.from_numpy(v), [3], [0], layer=0)
+    assert tra.ragged_decode_attention_plain.calls == d0 + 1
+    assert tra.ragged_attention_plain.calls == e0
