@@ -8,6 +8,13 @@ transposed into `nn.Linear` weights [out, in], the LLM layers unstacked,
 the patch kernel reshaped into a conv weight [D, C, p, p]. Configs cross
 by field name from any object with the same attributes; reference
 settings the port does not carry raise NotImplementedError.
+
+The reference's W4 trees (quantize_weights_int4, optionally
+fuse_serving_weights and w4_decode_layout_params) cross with their bytes
+and scales unchanged: flat [L, G, g/2, O] or tile-contiguous
+[L, Nb, Kb, bk, bn] packed stacks with their `<name>_scale4`, per-name or
+fused qkv/gateup, and the int8 `lm_head` with its `lm_head_scale`. They
+become W4Linear/W8Linear modules in the port's layout.
 """
 
 from __future__ import annotations
@@ -19,9 +26,11 @@ import numpy as np
 import torch
 
 from aurora_tpu_torch.models.aurora import AuroraConfig, AuroraModel
-from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
+                                           projection_shapes)
 from aurora_tpu_torch.models.projector import Projector, ProjectorConfig
 from aurora_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from aurora_tpu_torch.ops.pallas.quant_matmul import w4_from_flat
 
 # reference LlamaConfig knobs of other families, with the value at which
 # they are off; the port's decoder is the plain llama case
@@ -79,10 +88,12 @@ def _ln(sd, prefix, p):
     sd[prefix + ".bias"] = _t(p["bias"])
 
 
-def _load(module, sd, device, dtype):
+def _load(module, sd, device):
+    """Fill a module built on the meta device; each tensor is converted
+    to the dtype the module declares (int8 and fp32-scale buffers keep
+    theirs)."""
     module = module.to_empty(device=device or "cpu")
-    module.load_state_dict({k: v.to(dtype) if dtype else v
-                            for k, v in sd.items()}, strict=True)
+    module.load_state_dict(sd, strict=True)
     return module
 
 
@@ -118,34 +129,69 @@ def projector_state_dict(tree: Dict[str, Any]):
     return sd
 
 
+def _w4_layer(pk, s_w):
+    """One layer of a reference W4 stack → the port's (packed, scale).
+    The tile-contiguous layout [Nb, Kb, bk, bn] + [Nb, Gb, gk, bn] is
+    undone first, as the reference's w4_untile_layout does."""
+    pk, s_w = np.asarray(pk), np.asarray(s_w)
+    if pk.ndim == 4:
+        Nb, Kb, bk, bn = pk.shape
+        gh = bk // s_w.shape[2]
+        G, N = Kb * bk // gh, Nb * bn
+        pk = pk.transpose(1, 2, 0, 3).reshape(G, gh, N)
+        s_w = s_w.transpose(1, 2, 0, 3).reshape(G, 1, N)
+    return w4_from_flat(pk, s_w)
+
+
+def llama_layout(tree: Dict[str, Any]):
+    """(weight_quant, fused) of a reference llama tree."""
+    layers = tree["layers"]
+    if any(k.endswith("_scale") for k in layers):
+        raise NotImplementedError("W8 (int8) layer weights are not ported "
+                                  "yet (W4 and dense only)")
+    w4 = any(k.endswith("_scale4") for k in layers)
+    return ("int4" if w4 else "none"), "qkv" in layers
+
+
 def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
     layers = tree["layers"]
+    quant, fused = llama_layout(tree)
     sd = {"embed_tokens": _t(tree["embed_tokens"]),
           "final_norm": _t(tree["final_norm"]),
           "lm_head.weight": _t(tree["lm_head"]).T}
+    if quant == "int4":
+        sd["lm_head.scale"] = _t(tree["lm_head_scale"]).reshape(-1)
     for l in range(cfg.num_hidden_layers):
         pre = f"layers.{l}."
         sd[pre + "input_norm"] = _t(layers["input_norm"][l])
         sd[pre + "post_attn_norm"] = _t(layers["post_attn_norm"][l])
-        for name in ("q", "k", "v", "o", "gate", "up", "down"):
-            sd[pre + name + ".weight"] = _t(layers[name][l]).T
+        for name in projection_shapes(cfg, fused):
+            if quant == "int4":
+                sd[pre + name + ".packed"], sd[pre + name + ".scale"] = \
+                    _w4_layer(layers[name][l], layers[name + "_scale4"][l])
+            else:
+                sd[pre + name + ".weight"] = _t(layers[name][l]).T
     return sd
 
 
 def vit_from_params(tree, cfg: ViTConfig, device=None, dtype=None):
     return _load(VisionTransformer(cfg, device="meta", dtype=dtype),
-                 vit_state_dict(tree, cfg), device, dtype)
+                 vit_state_dict(tree, cfg), device)
 
 
 def projector_from_params(tree, cfg: ProjectorConfig, device=None,
                           dtype=None):
     return _load(Projector(cfg, device="meta", dtype=dtype),
-                 projector_state_dict(tree), device, dtype)
+                 projector_state_dict(tree), device)
 
 
 def llama_from_params(tree, cfg: LlamaConfig, device=None, dtype=None):
-    return _load(LlamaModel(cfg, device="meta", dtype=dtype),
-                 llama_state_dict(tree, cfg), device, dtype)
+    """Dense, or W4 (flat or tiled, per-name or fused) reference trees;
+    dtype applies to the dense weights, embeddings and norms."""
+    quant, fused = llama_layout(tree)
+    return _load(LlamaModel(cfg, device="meta", dtype=dtype,
+                            weight_quant=quant, fused=fused),
+                 llama_state_dict(tree, cfg), device)
 
 
 def aurora_from_params(tree, cfg: AuroraConfig, device=None, dtype=None):
@@ -157,5 +203,4 @@ def aurora_from_params(tree, cfg: AuroraConfig, device=None, dtype=None):
             ("projector.", projector_state_dict(tree["projector"])),
             ("llm.", llama_state_dict(tree["llm"], cfg.llm))):
         sd.update({prefix + k: v for k, v in part.items()})
-    return _load(AuroraModel(cfg, device="meta", dtype=dtype), sd, device,
-                 dtype)
+    return _load(AuroraModel(cfg, device="meta", dtype=dtype), sd, device)

@@ -1,25 +1,37 @@
-// Fused decode step over row-contiguous KV buffers, bf16, sm_90a.
+// Fused decode step over row-contiguous KV buffers, sm_90a: bf16 KV, or
+// int8 KV with per-token fp32 scales.
 //
 // Replaces: aurora_tpu/ops/pallas/ragged_attention.py
-// `ragged_decode_attention` (Pallas kernel `_decode_kernel`). Contract:
-// write each lane's new K/V token at position kv_lens[b] - 1 of its row
-// (in place; no write when kv_lens[b] == 0), then attend the lane's single
-// query (all G heads of the KV head) over positions [0, kv_lens[b]).
+// `ragged_decode_attention` (Pallas kernel `_decode_kernel`, its bf16 and
+// int8 `quant` modes). Contract: write each lane's new K/V token at
+// position kv_lens[b] - 1 of its row (in place; no write when
+// kv_lens[b] == 0), then attend the lane's single query (all G heads of
+// the KV head) over positions [0, kv_lens[b]). In int8 mode the new token
+// is quantized in the kernel onto the reference's per-token grid,
+//   s = max(max_d |x_d|, 1e-8) * (1 / kv_maxq),
+//   x8 = clamp(rint(x / s), -kv_maxq, kv_maxq),
+// (the multiply by the fp32 reciprocal is what XLA compiles the
+// reference's division by the constant kv_maxq to; x / s is an IEEE
+// division and rint rounds half to even, so the written row and scale are
+// bitwise the plain twin's), and the logits are scaled by the key's scale
+// after `scale`, the probabilities by the value's scale before P·V.
 //
 // What bounds it on the H100: each step reads every live K/V byte of the
 // batch once and does 2 FLOP per byte per query head, far below the
 // ~295 FLOP/byte where bf16 tensor cores become the limit, so it is bound
 // by KV bytes from HBM (and, at batch 4, by having enough loads in flight).
+// int8 KV halves those bytes (plus 4 scale bytes per token and head).
 //
 // Design: one block (256 threads) per (KV head, lane); the block first
-// writes the new token of its own (lane, head) stripe, then, after a
-// block barrier, streams the stripe in 256-key tiles: a half-warp reads one
-// 256-byte key row with 16-byte loads and reduces the dot products for all
-// G query heads by shuffles; the tile's softmax runs one warp per head; the
-// PV pass reads V rows as bf16 pairs with four key groups per block and an
-// fp32 online softmax carries across tiles. Row ids must be distinct per
-// lane (each lane owns its row). A split-KV (flash-decoding) grid that
-// fills all SMs is later speed work.
+// writes the new token of its own (lane, head) stripe (int8: one warp each
+// for K and V, a warp max over hd = 128), then, after a block barrier,
+// streams the stripe in 256-key tiles: a half-warp reads one key row with
+// one 16-byte (bf16) or 8-byte (int8) load per lane and reduces the dot
+// products for all G query heads by shuffles; the tile's softmax runs one
+// warp per head; the PV pass reads V rows as pairs with four key groups
+// per block and an fp32 online softmax carries across tiles. Row ids must
+// be distinct per lane (each lane owns its row). A split-KV
+// (flash-decoding) grid that fills all SMs is later speed work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,9 +46,13 @@ constexpr int TILE = 256;
 constexpr int NT = 256;
 constexpr int MAXG = 8;
 constexpr int KGROUPS = NT / (HD / 2);  // 4 key groups in the PV pass
+static_assert(NT == TILE, "one thread per tile key stages the int8 scales");
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+// 8 consecutive values of a row as floats: one 16-byte load for bf16, one
+// 8-byte load for int8
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -45,19 +61,74 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
     f[2 * i + 1] = x.y;
   }
 }
+// int8 → float without a conversion instruction: the byte, biased to
+// b + 128 (xor 0x80), goes into the low mantissa bits of 2^23 and
+// 2^23 + 128 is subtracted; exact for every int8
+__device__ __forceinline__ float s8_to_f(unsigned biased, int i) {
+  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + i)) -
+         8388736.f;
+}
+__device__ __forceinline__ void load8(const int8_t* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const unsigned lo = u.x ^ 0x80808080u, hi = u.y ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = s8_to_f(lo, i);
+    f[4 + i] = s8_to_f(hi, i);
+  }
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const int8_t* p) {
+  const unsigned b =
+      unsigned(*reinterpret_cast<const unsigned short*>(p)) ^ 0x8080u;
+  return make_float2(s8_to_f(b, 0), s8_to_f(b, 1));
+}
 
-// k_rows/v_rows are written and then read by the same block: they are
-// deliberately not declared const __restrict__ (no read-only-cache loads)
+// int8 mode: one warp quantizes one new hd = 128 vector (4 values a lane)
+// and writes it and its scale at the write position
+__device__ __forceinline__ void write_quantized(const bf16* src, int8_t* dst,
+                                                float* dst_scale, int lane,
+                                                float kv_maxq,
+                                                float inv_maxq) {
+  float x[4];
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[i] = __bfloat162float(src[lane * 4 + i]);
+    m = fmaxf(m, fabsf(x[i]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float s = fmaxf(m, 1e-8f) * inv_maxq;
+  char4 q;
+  q.x = int8_t(fminf(fmaxf(rintf(x[0] / s), -kv_maxq), kv_maxq));
+  q.y = int8_t(fminf(fmaxf(rintf(x[1] / s), -kv_maxq), kv_maxq));
+  q.z = int8_t(fminf(fmaxf(rintf(x[2] / s), -kv_maxq), kv_maxq));
+  q.w = int8_t(fminf(fmaxf(rintf(x[3] / s), -kv_maxq), kv_maxq));
+  reinterpret_cast<char4*>(dst)[lane] = q;
+  if (lane == 0) *dst_scale = s;
+}
+
+// k_rows/v_rows (and the int8 scale planes) are written and then read by
+// the same block: they are deliberately not declared const __restrict__
+// (no read-only-cache loads)
+template <typename KV>
 __global__ void __launch_bounds__(NT)
 decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
-              const bf16* __restrict__ v_new, bf16* k_rows, bf16* v_rows,
-              bf16* __restrict__ out, const int* __restrict__ kv_lens,
+              const bf16* __restrict__ v_new, KV* k_rows, KV* v_rows,
+              float* k_scales, float* v_scales, bf16* __restrict__ out,
+              const int* __restrict__ kv_lens,
               const int* __restrict__ row_ids,
               const int* __restrict__ layer_ptr, int Hq, int Hkv, int B,
-              int S, float scale) {
+              int S, float scale, float kv_maxq, float inv_maxq) {
+  constexpr bool QUANT = sizeof(KV) == 1;
   __shared__ float sP[MAXG][TILE];
   __shared__ float sRed[KGROUPS][MAXG][HD];
   __shared__ float sM[MAXG], sL[MAXG], sA[MAXG];
+  __shared__ float sKs[TILE], sVs[TILE];  // int8: the tile's scales
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -71,22 +142,33 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   const int kv_len = min(kv_len_raw, S);
   const int row = row_ids[b];
   const int layer = *layer_ptr;
-  const size_t slab =
-      ((size_t(layer) * B + row) * Hkv + kvh) * size_t(S) * HD;
-  bf16* Kp = k_rows + slab;
-  bf16* Vp = v_rows + slab;
+  const size_t stripe = (size_t(layer) * B + row) * Hkv + kvh;
+  KV* Kp = k_rows + stripe * size_t(S) * HD;
+  KV* Vp = v_rows + stripe * size_t(S) * HD;
+  float* Ks = QUANT ? k_scales + stripe * size_t(S) : nullptr;
+  float* Vs = QUANT ? v_scales + stripe * size_t(S) : nullptr;
 
   // 1. write the new token first (position kv_len - 1)
   if (kv_len_raw > 0 && kv_len_raw <= S) {
     const size_t src = (size_t(b) * Hkv + kvh) * HD;
-    const size_t dst = size_t(kv_len_raw - 1) * HD;
-    if (tid < HD / 8) {
-      reinterpret_cast<uint4*>(Kp + dst)[tid] =
-          reinterpret_cast<const uint4*>(k_new + src)[tid];
-    } else if (tid < 2 * (HD / 8)) {
-      const int c = tid - HD / 8;
-      reinterpret_cast<uint4*>(Vp + dst)[c] =
-          reinterpret_cast<const uint4*>(v_new + src)[c];
+    const int pos = kv_len_raw - 1;
+    const size_t dst = size_t(pos) * HD;
+    if constexpr (QUANT) {
+      if (warp == 0)
+        write_quantized(k_new + src, reinterpret_cast<int8_t*>(Kp + dst),
+                        Ks + pos, lane, kv_maxq, inv_maxq);
+      else if (warp == 1)
+        write_quantized(v_new + src, reinterpret_cast<int8_t*>(Vp + dst),
+                        Vs + pos, lane, kv_maxq, inv_maxq);
+    } else {
+      if (tid < HD / 8) {
+        reinterpret_cast<uint4*>(Kp + dst)[tid] =
+            reinterpret_cast<const uint4*>(k_new + src)[tid];
+      } else if (tid < 2 * (HD / 8)) {
+        const int c = tid - HD / 8;
+        reinterpret_cast<uint4*>(Vp + dst)[c] =
+            reinterpret_cast<const uint4*>(v_new + src)[c];
+      }
     }
   }
   if (tid < MAXG) {
@@ -99,9 +181,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     if (g < G) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          q + (size_t(b) * Hq + kvh * G + g) * HD + lane16 * 8);
-      unpack8(u, qf[g]);
+      load8(q + (size_t(b) * Hq + kvh * G + g) * HD + lane16 * 8, qf[g]);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) qf[g][i] = 0.f;
@@ -115,6 +195,12 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   __syncthreads();  // the written token is visible to the whole block
 
   for (int base = 0; base < kv_len; base += TILE) {
+    if constexpr (QUANT) {  // one coalesced read of the tile's scales
+      const bool live = base + tid < kv_len;
+      sKs[tid] = live ? Ks[base + tid] : 0.f;
+      sVs[tid] = live ? Vs[base + tid] : 0.f;
+      __syncthreads();
+    }
     // scores: warp w covers tile keys [32w, 32w + 32), two per iteration
 #pragma unroll 4
     for (int it = 0; it < 16; ++it) {
@@ -125,9 +211,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
       for (int g = 0; g < MAXG; ++g) part[g] = 0.f;
       if (s < kv_len) {
         float kf[8];
-        unpack8(*reinterpret_cast<const uint4*>(Kp + size_t(s) * HD +
-                                                 lane16 * 8),
-                kf);
+        load8(Kp + size_t(s) * HD + lane16 * 8, kf);
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
           if (g < G) {
@@ -145,14 +229,21 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
         }
       }
       if (lane16 == 0) {
+        const float ks = QUANT ? sKs[kl] : 1.f;
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g)
-          if (g < G) sP[g][kl] = s < kv_len ? part[g] * scale : NEG;
+        for (int g = 0; g < MAXG; ++g) {
+          if (g < G) {
+            float x = part[g] * scale;
+            if (QUANT) x *= ks;
+            sP[g][kl] = s < kv_len ? x : NEG;
+          }
+        }
       }
     }
     __syncthreads();
 
-    // softmax of the tile: one warp per query head
+    // softmax of the tile: one warp per query head; int8 mode folds the
+    // value scales into p after the row sum
     if (warp < G) {
       const int g = warp;
       float mx = NEG;
@@ -170,10 +261,10 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
 #pragma unroll
       for (int i = 0; i < TILE / 32; ++i) {
         const int kl = lane * (TILE / 32) + i;
-        const float p =
-            base + kl < kv_len ? expf(sP[g][kl] - m_new) : 0.f;
-        sP[g][kl] = p;
+        const bool live = base + kl < kv_len;
+        const float p = live ? expf(sP[g][kl] - m_new) : 0.f;
         sum += p;
+        sP[g][kl] = QUANT ? p * sVs[kl] : p;
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -198,9 +289,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
     }
     const int nk = min(TILE, kv_len - base);
     for (int kl = kg; kl < nk; kl += KGROUPS) {
-      const float2 vf = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(
-              Vp + size_t(base + kl) * HD + 2 * dp));
+      const float2 vf = load2(Vp + size_t(base + kl) * HD + 2 * dp);
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
         if (g < G) {
@@ -231,6 +320,11 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   }
 }
 
+bool bad_shape(int Bq, int Hq, int Hkv, int head_dim) {
+  return head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG ||
+         Bq <= 0;
+}
+
 }  // namespace
 
 extern "C" int aurora_ragged_decode_bf16(
@@ -238,15 +332,34 @@ extern "C" int aurora_ragged_decode_bf16(
     void* v_rows, void* out, const void* kv_lens, const void* row_ids,
     const void* layer, int Bq, int Hq, int Hkv, int B, int S, int head_dim,
     float scale, void* stream) {
-  if (head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG ||
-      Bq <= 0)
-    return int(cudaErrorInvalidValue);
+  if (bad_shape(Bq, Hq, Hkv, head_dim)) return int(cudaErrorInvalidValue);
   dim3 grid(Hkv, Bq);
-  decode_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  decode_kernel<bf16><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
       static_cast<const bf16*>(v_new), static_cast<bf16*>(k_rows),
-      static_cast<bf16*>(v_rows), static_cast<bf16*>(out),
+      static_cast<bf16*>(v_rows), nullptr, nullptr, static_cast<bf16*>(out),
       static_cast<const int*>(kv_lens), static_cast<const int*>(row_ids),
-      static_cast<const int*>(layer), Hq, Hkv, B, S, scale);
+      static_cast<const int*>(layer), Hq, Hkv, B, S, scale, 0.f, 0.f);
+  return int(cudaGetLastError());
+}
+
+// int8 rows [L, B, Hkv, S, hd] with fp32 scale planes [L, B, Hkv, S];
+// q, k_new, v_new and out stay bf16. inv_maxq is fp32(1) / fp32(kv_maxq).
+extern "C" int aurora_ragged_decode_int8(
+    const void* q, const void* k_new, const void* v_new, void* k_rows,
+    void* v_rows, void* k_scales, void* v_scales, void* out,
+    const void* kv_lens, const void* row_ids, const void* layer, int Bq,
+    int Hq, int Hkv, int B, int S, int head_dim, float scale, float kv_maxq,
+    float inv_maxq, void* stream) {
+  if (bad_shape(Bq, Hq, Hkv, head_dim)) return int(cudaErrorInvalidValue);
+  dim3 grid(Hkv, Bq);
+  decode_kernel<int8_t><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
+      static_cast<const bf16*>(v_new), static_cast<int8_t*>(k_rows),
+      static_cast<int8_t*>(v_rows), static_cast<float*>(k_scales),
+      static_cast<float*>(v_scales), static_cast<bf16*>(out),
+      static_cast<const int*>(kv_lens), static_cast<const int*>(row_ids),
+      static_cast<const int*>(layer), Hq, Hkv, B, S, scale, kv_maxq,
+      inv_maxq);
   return int(cudaGetLastError());
 }

@@ -1,11 +1,16 @@
-// Extend (prefill) attention over row-contiguous KV buffers, bf16, sm_90a.
+// Extend (prefill) attention over row-contiguous KV buffers, sm_90a: bf16
+// KV, or int8 KV with per-token fp32 scales.
 //
 // Replaces: aurora_tpu/ops/pallas/ragged_attention.py `ragged_attention`
-// (Pallas kernel `_kernel`). Contract: causal attention of each lane's T
-// new queries (global positions q_offsets[i] + t) against KV row
-// row_ids[i] of layer `layer` in k_rows/v_rows [L, B, Hkv, S, hd], reading
-// only keys < kv_lens[i]; fp32 online softmax; lanes with kv_lens == 0
-// and fully masked query rows produce zeros.
+// (Pallas kernel `_kernel`, its bf16 and int8 `quant` modes). Contract:
+// causal attention of each lane's T new queries (global positions
+// q_offsets[i] + t) against KV row row_ids[i] of layer `layer` in
+// k_rows/v_rows [L, B, Hkv, S, hd], reading only keys < kv_lens[i]; fp32
+// online softmax; lanes with kv_lens == 0 and fully masked query rows
+// produce zeros. In int8 mode the logits are multiplied by the key's scale
+// after `scale` and before the mask, and the probabilities by the value's
+// scale (after the row sum) before P·V, as the reference does; scales are
+// the [L, B, Hkv, S] fp32 planes.
 //
 // What bounds it on the H100: at the serving shape (T = 1536 new tokens
 // against ~1.4k keys, hd = 128) every K/V tile is reused by 64 query rows,
@@ -19,8 +24,11 @@
 // WMMA bf16 16x16x16 fragments with fp32 accumulation; the scores, the
 // probabilities and the output accumulator live in shared memory, where
 // each warp rescales its own 16 rows for the online softmax. The loop over
-// key tiles stops at min(kv_len, last query position + 1). Loads are plain
-// 16-byte loads; cp.async/TMA pipelining and wgmma are later work.
+// key tiles stops at min(kv_len, last query position + 1). int8 tiles are
+// converted to bf16 as they are stored to shared memory (exact for
+// |v| <= 127), so both modes share the tensor-core code; the tile's scales
+// sit beside it in shared memory. Loads are plain 16-byte loads;
+// cp.async/TMA pipelining and wgmma are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,17 +56,56 @@ constexpr size_t SMEM_S = size_t(BQ) * LDS * sizeof(float);
 constexpr size_t SMEM_P = size_t(BQ) * LDP * sizeof(bf16);
 constexpr size_t SMEM_O = size_t(BQ) * LDO * sizeof(float);
 constexpr size_t SMEM_ROW = size_t(BQ) * 3 * sizeof(float);
+constexpr size_t SMEM_SC = size_t(2) * BK * sizeof(float);
 constexpr size_t SMEM_TOTAL =
-    SMEM_Q + 2 * SMEM_KV + SMEM_S + SMEM_P + SMEM_O + SMEM_ROW;
+    SMEM_Q + 2 * SMEM_KV + SMEM_S + SMEM_P + SMEM_O + SMEM_ROW + SMEM_SC;
 
+// one tile row chunk of K or V into shared memory as bf16: 8 values of a
+// bf16 row, or 16 values of an int8 row (two 16-byte stores)
+__device__ __forceinline__ void stage(const bf16* src, bf16* dst, bool live) {
+  uint4 val = make_uint4(0u, 0u, 0u, 0u);
+  if (live) val = *reinterpret_cast<const uint4*>(src);
+  *reinterpret_cast<uint4*>(dst) = val;
+}
+// int8 → float without a conversion instruction: the byte, biased to
+// b + 128 (xor 0x80), goes into the low mantissa bits of 2^23 and
+// 2^23 + 128 is subtracted; exact for every int8. Such a float has at
+// most 8 significant bits, so its high 16 bits are its exact bf16.
+__device__ __forceinline__ unsigned s8_to_f_bits(unsigned biased, int i) {
+  return __float_as_uint(
+      __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + i)) -
+      8388736.f);
+}
+__device__ __forceinline__ void stage(const int8_t* src, bf16* dst,
+                                      bool live) {
+  uint4 val = make_uint4(0u, 0u, 0u, 0u);
+  if (live) val = *reinterpret_cast<const uint4*>(src);
+  const unsigned in[4] = {val.x, val.y, val.z, val.w};
+  unsigned w[8];  // bf16 pairs, the lower-addressed value in the low half
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned b = in[j] ^ 0x80808080u;
+    w[2 * j] = __byte_perm(s8_to_f_bits(b, 0), s8_to_f_bits(b, 1), 0x7632);
+    w[2 * j + 1] =
+        __byte_perm(s8_to_f_bits(b, 2), s8_to_f_bits(b, 3), 0x7632);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+template <typename KV>
 __global__ void __launch_bounds__(NTHREADS)
-extend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_rows,
-              const bf16* __restrict__ v_rows, bf16* __restrict__ out,
+extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
+              const KV* __restrict__ v_rows,
+              const float* __restrict__ k_scales,
+              const float* __restrict__ v_scales, bf16* __restrict__ out,
               const int* __restrict__ kv_lens,
               const int* __restrict__ q_offsets,
               const int* __restrict__ row_ids,
               const int* __restrict__ layer_ptr, int T, int Hq, int Hkv,
               int B, int S, float scale) {
+  constexpr bool QUANT = sizeof(KV) == 1;
+  constexpr int CW = 16 / sizeof(KV);  // values per 16-byte global load
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + BQ * LDH;
@@ -68,6 +115,8 @@ extend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_rows,
   float* sO = reinterpret_cast<float*>(sP + BQ * LDP);
   float* sM = sO + BQ * LDO;
   float* sL = sM + BQ;
+  float* sKs = sL + 2 * BQ;  // after sM, sL and one spare row of floats
+  float* sVs = sKs + BK;
 
   const int qt = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -82,10 +131,9 @@ extend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_rows,
   const int q_off = q_offsets[lane_b];
   const int row = row_ids[lane_b];
   const int layer = *layer_ptr;
-  const size_t slab =
-      ((size_t(layer) * B + row) * Hkv + kvh) * size_t(S) * HD;
-  const bf16* Kp = k_rows + slab;
-  const bf16* Vp = v_rows + slab;
+  const size_t stripe = (size_t(layer) * B + row) * Hkv + kvh;
+  const KV* Kp = k_rows + stripe * size_t(S) * HD;
+  const KV* Vp = v_rows + stripe * size_t(S) * HD;
 
   // Q tile: BQ folded rows x HD, 16-byte chunks; padded rows are zero
   for (int c = tid; c < BQ * (HD / 8); c += NTHREADS) {
@@ -120,18 +168,17 @@ extend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_rows,
   const int sqpos = srr < rows_total ? q_off + srr / G : -1;
 
   for (int kb = 0; kb < kend; kb += BK) {
-    for (int c = tid; c < BK * (HD / 8); c += NTHREADS) {
-      const int r = c / (HD / 8);
-      const int col = (c % (HD / 8)) * 8;
+    for (int c = tid; c < BK * (HD / CW); c += NTHREADS) {
+      const int r = c / (HD / CW);
+      const int col = (c % (HD / CW)) * CW;
       const int s = kb + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = kv;
-      if (s < kend) {
-        kv = *reinterpret_cast<const uint4*>(Kp + size_t(s) * HD + col);
-        vv = *reinterpret_cast<const uint4*>(Vp + size_t(s) * HD + col);
-      }
-      *reinterpret_cast<uint4*>(sK + r * LDH + col) = kv;
-      *reinterpret_cast<uint4*>(sV + r * LDH + col) = vv;
+      stage(Kp + size_t(s) * HD + col, sK + r * LDH + col, s < kend);
+      stage(Vp + size_t(s) * HD + col, sV + r * LDH + col, s < kend);
+    }
+    if (QUANT && tid < BK) {
+      const int s = kb + tid;
+      sKs[tid] = s < kend ? k_scales[stripe * size_t(S) + s] : 0.f;
+      sVs[tid] = s < kend ? v_scales[stripe * size_t(S) + s] : 0.f;
     }
     __syncthreads();
 
@@ -164,12 +211,18 @@ extend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_rows,
     {
       const float* srow_s = sS + srow * LDS + shalf * 32;
       bf16* prow = sP + srow * LDP + shalf * 32;
+      const float* ks = sKs + shalf * 32;
+      const float* vs = sVs + shalf * 32;
       const int s0 = kb + shalf * 32;
+      auto logit = [&](int c) {
+        const float x = srow_s[c] * scale;
+        return QUANT ? x * ks[c] : x;
+      };
       float mx = NEG;
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
         const int s = s0 + c;
-        if (s < kv_len && s <= sqpos) mx = fmaxf(mx, srow_s[c] * scale);
+        if (s < kv_len && s <= sqpos) mx = fmaxf(mx, logit(c));
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       const float m_old = sM[srow];
@@ -179,9 +232,9 @@ extend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_rows,
       for (int c = 0; c < 32; ++c) {
         const int s = s0 + c;
         float p = 0.f;
-        if (s < kv_len && s <= sqpos) p = expf(srow_s[c] * scale - m_new);
+        if (s < kv_len && s <= sqpos) p = expf(logit(c) - m_new);
         sum += p;
-        prow[c] = __float2bfloat16(p);
+        prow[c] = __float2bfloat16(QUANT ? p * vs[c] : p);
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       const float alpha = expf(m_old - m_new);
@@ -236,6 +289,31 @@ extend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_rows,
   }
 }
 
+template <typename KV>
+int launch(const void* q, const void* k_rows, const void* v_rows,
+           const void* k_scales, const void* v_scales, void* out,
+           const void* kv_lens, const void* q_offsets, const void* row_ids,
+           const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
+           int head_dim, float scale, void* stream) {
+  if (head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || Bk <= 0 || T <= 0)
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      extend_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(SMEM_TOTAL));
+  if (err != cudaSuccess) return int(err);
+  const int G = Hq / Hkv;
+  dim3 grid((G * T + BQ - 1) / BQ, Hkv, Bk);
+  extend_kernel<KV><<<grid, NTHREADS, SMEM_TOTAL,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const KV*>(k_rows),
+      static_cast<const KV*>(v_rows), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales), static_cast<bf16*>(out),
+      static_cast<const int*>(kv_lens), static_cast<const int*>(q_offsets),
+      static_cast<const int*>(row_ids), static_cast<const int*>(layer), T,
+      Hq, Hkv, B, S, scale);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int aurora_ragged_extend_bf16(
@@ -243,20 +321,20 @@ extern "C" int aurora_ragged_extend_bf16(
     const void* kv_lens, const void* q_offsets, const void* row_ids,
     const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
     int head_dim, float scale, void* stream) {
-  if (head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || Bk <= 0 || T <= 0)
-    return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      extend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(SMEM_TOTAL));
-  if (err != cudaSuccess) return int(err);
-  const int G = Hq / Hkv;
-  dim3 grid((G * T + BQ - 1) / BQ, Hkv, Bk);
-  extend_kernel<<<grid, NTHREADS, SMEM_TOTAL,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_rows),
-      static_cast<const bf16*>(v_rows), static_cast<bf16*>(out),
-      static_cast<const int*>(kv_lens), static_cast<const int*>(q_offsets),
-      static_cast<const int*>(row_ids), static_cast<const int*>(layer), T,
-      Hq, Hkv, B, S, scale);
-  return int(cudaGetLastError());
+  return launch<bf16>(q, k_rows, v_rows, nullptr, nullptr, out, kv_lens,
+                      q_offsets, row_ids, layer, Bk, T, Hq, Hkv, B, S,
+                      head_dim, scale, stream);
+}
+
+// int8 rows [L, B, Hkv, S, hd] with fp32 scale planes [L, B, Hkv, S];
+// q and out stay bf16
+extern "C" int aurora_ragged_extend_int8(
+    const void* q, const void* k_rows, const void* v_rows,
+    const void* k_scales, const void* v_scales, void* out,
+    const void* kv_lens, const void* q_offsets, const void* row_ids,
+    const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
+    int head_dim, float scale, void* stream) {
+  return launch<int8_t>(q, k_rows, v_rows, k_scales, v_scales, out, kv_lens,
+                        q_offsets, row_ids, layer, Bk, T, Hq, Hkv, B, S,
+                        head_dim, scale, stream);
 }

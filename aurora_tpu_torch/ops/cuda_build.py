@@ -1,11 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `*.cu` under `aurora_tpu_torch/csrc/` is compiled by `nvcc` for
-sm_90a into one shared library with a plain C interface, loaded with
-ctypes. The library lands in `build/kernels/` at the repository root,
-named by a hash of the sources and flags, so a changed source rebuilds
-and an unchanged one loads the existing build. Nothing here runs at
-import time.
+Every `*.cu` under `aurora_tpu_torch/csrc/` is compiled by its own `nvcc`
+for sm_90a (all sources at once, in parallel), and the objects are linked
+into one shared library with a plain C interface, loaded with ctypes. The
+library lands in `build/kernels/` at the repository root, named by a hash
+of the sources and flags, so a changed source rebuilds and an unchanged
+one loads the existing build. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +32,12 @@ SIGNATURES = {
         [_P] * 8 + [_I] * 7 + [_F, _P],
     "aurora_ragged_decode_bf16":
         [_P] * 9 + [_I] * 6 + [_F, _P],
+    "aurora_ragged_extend_int8":
+        [_P] * 10 + [_I] * 7 + [_F, _P],
+    "aurora_ragged_decode_int8":
+        [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
+    "aurora_w4a8_matmul":
+        [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -55,6 +61,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libaurora_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (source, Popen) pair; raise on the first failure."""
+    errors = []
+    for src, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src} ({proc.returncode}):\n"
+                          f"{stdout}\n{stderr}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def _build(out: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        _run(procs)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        _run([("link", subprocess.Popen(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+
+
 def load_library() -> ctypes.CDLL:
     """Compile (when the sources changed) and load the kernel library."""
     global _lib, build_seconds
@@ -62,16 +104,8 @@ def load_library() -> ctypes.CDLL:
         return _lib
     out = library_path()
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
+        _build(out)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():

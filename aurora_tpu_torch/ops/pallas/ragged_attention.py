@@ -3,36 +3,57 @@ two attention kernels (aurora_tpu/ops/pallas/ragged_attention.py).
 
 KV lives in head-major rows [L, B, Hkv, S, hd]: each request owns one row
 per layer. The layer, the row of each lane, its query offset and its KV
-length are device int32 tensors that the kernels read themselves.
+length are device int32 tensors that the kernels read themselves. Rows are
+bf16 (the activation dtype on the CPU), or int8 with per-token fp32 scale
+planes [L, B, Hkv, S] (`k_scales`/`v_scales`, the reference's `quant`
+mode): the logits are scaled by the key's scale, the probabilities by the
+value's scale.
 
 * `ragged_attention` — EXTEND: causal attention of each lane's T new
   tokens (already written into its row) against the row.
 * `ragged_decode_attention` — DECODE: write each lane's new K/V token at
-  kv_lens-1 of its row in place, then attend over the row.
+  kv_lens-1 of its row in place (int8: quantized onto the `kv_quantize`
+  grid), then attend over the row.
 
 Each public function takes its plain PyTorch twin (`*_plain`) when the
 tensors lie on the CPU, and launches its CUDA kernel
 (csrc/ragged_extend.cu, csrc/ragged_decode.cu) for CUDA tensors; it never
-falls back from one to the other. `*.launches` (kernels) and
-`*_plain.calls` (twins) count how often each path ran.
-The int8 / packed-int4 KV modes, the sliding window and the logit
-softcap are not ported yet and raise NotImplementedError.
+falls back from one to the other. `*.launches` (bf16 kernels),
+`*.launches_int8` (int8 kernels) and `*_plain.calls` (twins, either mode)
+count how often each path ran. Packed-int4 KV (`kv_pack`), the sliding
+window and the logit softcap are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _NEG_INF = -2.3819763e38
 
 
 def _check_unported(k_scales, v_scales, kv_pack, window, logit_cap):
-    if k_scales is not None or v_scales is not None or kv_pack:
+    if kv_pack:
         raise NotImplementedError(
-            "int8/int4 KV (k_scales/v_scales/kv_pack) is not ported yet")
+            "nibble-packed int4 KV (kv_pack) is not ported yet")
     if window is not None or logit_cap:
         raise NotImplementedError(
             "sliding window and logit softcap are not ported yet")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales go together")
+
+
+def kv_quantize(x, maxq: float = 127.0):
+    """[..., hd] → (int8 values, per-token fp32 scales [...]): the
+    engine's `_kv_quantize`. The reference divides by the constant maxq
+    under jit, which XLA compiles to a multiply by its fp32 reciprocal; the
+    port does the same so that rows and scales agree bit for bit."""
+    xf = x.float()
+    inv = float(np.float32(1.0) / np.float32(maxq))
+    s = xf.abs().amax(dim=-1).clamp_min(1e-8) * inv
+    q = torch.clamp(torch.round(xf / s[..., None]), -maxq, maxq)
+    return q.to(torch.int8), s
 
 
 def _as_index(x, device) -> torch.Tensor:
@@ -43,7 +64,8 @@ def _as_index(x, device) -> torch.Tensor:
 # Plain twins (the contract; CPU path and the card's reference)
 # ---------------------------------------------------------------------------
 
-def _attend_plain(q, k_rows, v_rows, lens, offs, rows, lay, scale):
+def _attend_plain(q, k_rows, v_rows, lens, offs, rows, lay, scale,
+                  k_scales=None, v_scales=None):
     Bk, T, Hq, hd = q.shape
     Hkv, S = k_rows.shape[2], k_rows.shape[3]
     G = Hq // Hkv
@@ -57,36 +79,45 @@ def _attend_plain(q, k_rows, v_rows, lens, offs, rows, lay, scale):
         v = v_rows[lay, rows[i]].to(torch.float32)
         qi = q[i].to(torch.float32).reshape(T, Hkv, G, hd)
         logits = torch.einsum("thgd,hsd->hgts", qi * scale, k)
+        if k_scales is not None:        # per-key dequant on the logits
+            logits = logits * k_scales[lay, rows[i]][:, None, None, :]
         qpos = offs[i] + torch.arange(T, device=dev)
         mask = (spos[None, :] <= qpos[:, None]) & (spos[None, :] < lens[i])
         logits = torch.where(mask, logits, _NEG_INF)
         probs = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
+        if v_scales is not None:        # per-value dequant on p
+            probs = probs * v_scales[lay, rows[i]][:, None, None, :]
         o = torch.einsum("hgts,hsd->thgd", probs, v)
         out[i] = o.reshape(T, Hq, hd).to(q.dtype)
     return out
 
 
 def ragged_attention_plain(q, k_rows, v_rows, kv_lens, q_offsets, row_ids,
-                           *, layer, scale=None):
+                           *, layer, scale=None, k_scales=None,
+                           v_scales=None):
     """fp32 reference of `ragged_attention` (ragged_attention_reference's
-    twin, with the layer picked from the 5-D buffers). Fully masked query
-    rows and padded lanes (kv_len 0) give zeros."""
+    twin, with the layer picked from the 5-D buffers; int8 rows with their
+    [L, B, Hkv, S] scale planes as the reference's quant mode). Fully
+    masked query rows and padded lanes (kv_len 0) give zeros."""
     ragged_attention_plain.calls += 1
     dev = q.device
     return _attend_plain(q, k_rows, v_rows,
                          _as_index(kv_lens, dev).long(),
                          _as_index(q_offsets, dev).long(),
-                         _as_index(row_ids, dev).long(), int(layer), scale)
+                         _as_index(row_ids, dev).long(), int(layer), scale,
+                         k_scales, v_scales)
 
 
 ragged_attention_plain.calls = 0
 
 
 def ragged_decode_attention_plain(q, k_new, v_new, k_rows, v_rows, kv_lens,
-                                  row_ids, *, layer, scale=None):
+                                  row_ids, *, layer, scale=None,
+                                  k_scales=None, v_scales=None,
+                                  kv_maxq: float = 127.0):
     """Reference of `ragged_decode_attention`: in-place write of each
-    active lane's token at kv_lens-1, then the extend reference with
-    T = 1 at that position."""
+    active lane's token at kv_lens-1 (int8: its `kv_quantize` values and
+    scales), then the extend reference with T = 1 at that position."""
     ragged_decode_attention_plain.calls += 1
     dev = q.device
     lens = _as_index(kv_lens, dev).long()
@@ -95,10 +126,18 @@ def ragged_decode_attention_plain(q, k_new, v_new, k_rows, v_rows, kv_lens,
     lanes = ((lens > 0) & (lens <= k_rows.shape[3])).nonzero(
         as_tuple=True)[0]
     pos = lens[lanes] - 1
-    k_rows[lay, rows[lanes], :, pos] = k_new[lanes].to(k_rows.dtype)
-    v_rows[lay, rows[lanes], :, pos] = v_new[lanes].to(v_rows.dtype)
+    kn, vn = k_new[lanes], v_new[lanes]
+    if k_scales is not None:
+        kn, ksn = kv_quantize(kn, kv_maxq)
+        vn, vsn = kv_quantize(vn, kv_maxq)
+        k_scales[lay, rows[lanes], :, pos] = ksn
+        v_scales[lay, rows[lanes], :, pos] = vsn
+    k_rows[lay, rows[lanes], :, pos] = kn.to(k_rows.dtype)
+    v_rows[lay, rows[lanes], :, pos] = vn.to(v_rows.dtype)
     out = _attend_plain(q, k_rows, v_rows, lens, (lens - 1).clamp_min(0),
-                        rows, lay, scale)
+                        rows, lay, scale, k_scales, v_scales)
+    if k_scales is not None:
+        return out, k_rows, v_rows, k_scales, v_scales
     return out, k_rows, v_rows
 
 
@@ -109,19 +148,36 @@ ragged_decode_attention_plain.calls = 0
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cuda(name, floats, ints):
-    """Every tensor on one device and contiguous; floats bf16, ints int32."""
-    dev = floats[0][1].device
-    for label, t in floats + list(ints.items()):
+def _check_cuda(name, tensors, ints):
+    """Every tensor on one device and contiguous, each of its listed
+    dtype; index tensors int32."""
+    dev = tensors[0][1].device
+    for label, t in [(lb, t) for lb, t, _ in tensors] + list(ints.items()):
         if t.device != dev:
             raise ValueError(f"{name}: {label} is on {t.device}, "
                              f"expected {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
-    for label, t in floats:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: {label} must be bfloat16 on the "
+    for label, t, dtype in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {label} must be {dtype} on the "
                             f"card, got {t.dtype}")
+
+
+def _kv_tensors(k_rows, v_rows, k_scales, v_scales):
+    """(label, tensor, dtype) of the KV operands: bf16 rows, or int8 rows
+    with fp32 scale planes of the rows' [L, B, Hkv, S] shape."""
+    if k_scales is None:
+        return [("k_rows", k_rows, torch.bfloat16),
+                ("v_rows", v_rows, torch.bfloat16)]
+    want = tuple(k_rows.shape[:4])
+    if tuple(k_scales.shape) != want or tuple(v_scales.shape) != want:
+        raise ValueError(f"k_scales/v_scales must be {list(want)}, got "
+                         f"{tuple(k_scales.shape)} / "
+                         f"{tuple(v_scales.shape)}")
+    return [("k_rows", k_rows, torch.int8), ("v_rows", v_rows, torch.int8),
+            ("k_scales", k_scales, torch.float32),
+            ("v_scales", v_scales, torch.float32)]
 
 
 def _int_args(name, dev, n, **idx):
@@ -163,18 +219,23 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
     kv_lens [Bk] valid KV length per lane including the new tokens (0 for
     a padded lane, whose output is zeros); q_offsets [Bk] global position
     of q[:, 0]; row_ids [Bk] the KV row of each lane; layer: int or 1-elem
-    int32 device tensor. Returns [Bk, T, Hq, hd] in q's dtype.
+    int32 device tensor; k_scales/v_scales [L, B, Hkv, S] (or [B, Hkv, S])
+    fp32 with int8 rows. Returns [Bk, T, Hq, hd] in q's dtype.
     """
     _check_unported(k_scales, v_scales, kv_pack, window, logit_cap)
+    quant = k_scales is not None
     if k_rows.dim() == 4:
         if layer is not None:
             raise ValueError("layer must be None for 4-D KV rows")
         k_rows, v_rows, layer = k_rows[None], v_rows[None], 0
+        if quant:
+            k_scales, v_scales = k_scales[None], v_scales[None]
     elif layer is None:
         raise ValueError("layer is required for 5-D KV rows")
     if q.device.type == "cpu":
         return ragged_attention_plain(q, k_rows, v_rows, kv_lens, q_offsets,
-                                      row_ids, layer=layer, scale=scale)
+                                      row_ids, layer=layer, scale=scale,
+                                      k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_attention: unsupported device {q.device}")
     name = "ragged_attention"
@@ -183,47 +244,62 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
     L, B, Hkv, S, _ = k_rows.shape
     idx = _int_args(name, q.device, Bk, kv_lens=kv_lens,
                     q_offsets=q_offsets, row_ids=row_ids, layer=layer)
-    _check_cuda(name, [("q", q), ("k_rows", k_rows), ("v_rows", v_rows)],
-                idx)
+    _check_cuda(name, [("q", q, torch.bfloat16)]
+                + _kv_tensors(k_rows, v_rows, k_scales, v_scales), idx)
     out = torch.empty_like(q)
     from aurora_tpu_torch.ops.cuda_build import load_library
     lib = load_library()
     if scale is None:
         scale = hd ** -0.5
-    err = lib.aurora_ragged_extend_bf16(
-        q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(), out.data_ptr(),
-        idx["kv_lens"].data_ptr(), idx["q_offsets"].data_ptr(),
-        idx["row_ids"].data_ptr(), idx["layer"].data_ptr(),
-        Bk, T, Hq, Hkv, B, S, hd, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    tail = (out.data_ptr(), idx["kv_lens"].data_ptr(),
+            idx["q_offsets"].data_ptr(), idx["row_ids"].data_ptr(),
+            idx["layer"].data_ptr(), Bk, T, Hq, Hkv, B, S, hd, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if quant:
+        err = lib.aurora_ragged_extend_int8(
+            q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(), *tail)
+    else:
+        err = lib.aurora_ragged_extend_bf16(
+            q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(), *tail)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    ragged_attention.launches += 1
+    if quant:
+        ragged_attention.launches_int8 += 1
+    else:
+        ragged_attention.launches += 1
     return out
 
 
 ragged_attention.launches = 0
+ragged_attention.launches_int8 = 0
 
 
 def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
                             row_ids, *, layer, scale=None, window=None,
                             logit_cap: float = 0.0, k_scales=None,
-                            v_scales=None, kv_pack: bool = False):
+                            v_scales=None, kv_maxq: float = 127.0,
+                            kv_pack: bool = False):
     """Fused decode step: write each lane's new K/V token into its row at
     kv_lens-1 (in place; no write where kv_lens is 0), then attend.
 
     q [B, 1, Hq, hd]; k_new/v_new [B, Hkv, hd]; k_rows/v_rows [L, B, Hkv,
     S, hd]; kv_lens [B] row length including the new token; row_ids [B]
-    distinct per lane. Returns (attn [B, 1, Hq, hd], k_rows, v_rows) —
-    the row tensors are the inputs, updated in place.
+    distinct per lane. With k_scales/v_scales ([L, B, Hkv, S] fp32, int8
+    rows) the new token is quantized onto the `kv_quantize` grid of
+    kv_maxq. Returns (attn [B, 1, Hq, hd], k_rows, v_rows[, k_scales,
+    v_scales]) — the row and scale tensors are the inputs, updated in
+    place.
     """
     _check_unported(k_scales, v_scales, kv_pack, window, logit_cap)
+    quant = k_scales is not None
     if q.shape[1] != 1:
         raise ValueError("ragged_decode_attention takes one query token")
     if q.device.type == "cpu":
         return ragged_decode_attention_plain(
             q, k_new, v_new, k_rows, v_rows, kv_lens, row_ids,
-            layer=layer, scale=scale)
+            layer=layer, scale=scale, k_scales=k_scales, v_scales=v_scales,
+            kv_maxq=kv_maxq)
     if q.device.type != "cuda":
         raise ValueError(
             f"ragged_decode_attention: unsupported device {q.device}")
@@ -238,23 +314,36 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
         raise ValueError(f"{name}: k_new/v_new must be [{Bq}, {Hkv}, {hd}]")
     idx = _int_args(name, q.device, Bq, kv_lens=kv_lens, row_ids=row_ids,
                     layer=layer)
-    _check_cuda(name, [("q", q), ("k_new", k_new), ("v_new", v_new),
-                       ("k_rows", k_rows), ("v_rows", v_rows)], idx)
+    bf = torch.bfloat16
+    _check_cuda(name, [("q", q, bf), ("k_new", k_new, bf),
+                       ("v_new", v_new, bf)]
+                + _kv_tensors(k_rows, v_rows, k_scales, v_scales), idx)
     out = torch.empty_like(q)
     from aurora_tpu_torch.ops.cuda_build import load_library
     lib = load_library()
     if scale is None:
         scale = hd ** -0.5
-    err = lib.aurora_ragged_decode_bf16(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_rows.data_ptr(),
-        v_rows.data_ptr(), out.data_ptr(), idx["kv_lens"].data_ptr(),
-        idx["row_ids"].data_ptr(), idx["layer"].data_ptr(),
-        Bq, Hq, Hkv, B, S, hd, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    head = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_rows.data_ptr(), v_rows.data_ptr())
+    tail = (out.data_ptr(), idx["kv_lens"].data_ptr(),
+            idx["row_ids"].data_ptr(), idx["layer"].data_ptr(),
+            Bq, Hq, Hkv, B, S, hd, float(scale))
+    if quant:
+        inv = float(np.float32(1.0) / np.float32(kv_maxq))
+        err = lib.aurora_ragged_decode_int8(
+            *head, k_scales.data_ptr(), v_scales.data_ptr(), *tail,
+            float(kv_maxq), inv, stream)
+    else:
+        err = lib.aurora_ragged_decode_bf16(*head, *tail, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    if quant:
+        ragged_decode_attention.launches_int8 += 1
+        return out, k_rows, v_rows, k_scales, v_scales
     ragged_decode_attention.launches += 1
     return out, k_rows, v_rows
 
 
 ragged_decode_attention.launches = 0
+ragged_decode_attention.launches_int8 = 0

@@ -1,12 +1,15 @@
 """Continuous-batching serving engine over row-contiguous KV
-(aurora_tpu/serve/engine.py), bf16 weights and bf16 KV on one GPU.
+(aurora_tpu/serve/engine.py) on one GPU: bf16 or W4 (int4-packed,
+group-scaled) weights, bf16 or int8 KV.
 
 Each running request owns one row of the [L, B, Hkv, S, hd] K and V
-buffers. All requests admitted in a step prefill in ONE batched extend
-(lanes indexed by row_ids / q_offsets / kv_lens); decode runs K steps per
-host sync with the sampled tokens fed back on the device. Attention in
-both modes goes through the hand-written CUDA kernels of
-ops/pallas/ragged_attention.py (their plain twins on CPU tensors).
+buffers (int8 KV adds per-token fp32 scale planes [L, B, Hkv, S]). All
+requests admitted in a step prefill in ONE batched extend (lanes indexed
+by row_ids / q_offsets / kv_lens); decode runs K steps per host sync with
+the sampled tokens fed back on the device. Attention in both modes goes
+through the hand-written CUDA kernels of ops/pallas/ragged_attention.py,
+and W4 matmuls of at most 64 tokens through the kernel of
+ops/pallas/quant_matmul.py (their plain twins on CPU tensors).
 
 The module splits
   * the device half — `_forward_rows`, `_write_kv_window`, `_lm_head`,
@@ -18,25 +21,33 @@ The module splits
 
 Not ported yet (each raises NotImplementedError when asked for): the
 radix prefix cache and slot pool, chunked/interleaved prefill, jump-
-forward and constrained decoding, stop strings, int8/int4 KV, int8/int4
-weights and fused serving weights, tensor parallelism, and the other
-model families (MLA, MoE, windowed or soft-capped attention).
+forward and constrained decoding, stop strings, nibble-packed int4 KV,
+W8 (int8) weights, tensor parallelism, and the other model families
+(MLA, MoE, windowed or soft-capped attention).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
+                                           W4Linear, W8Linear,
+                                           projection_shapes, w4_group)
 from aurora_tpu_torch.ops.norms import family_act as _act
 from aurora_tpu_torch.ops.norms import family_norm as _norm
+from aurora_tpu_torch.ops.pallas.quant_matmul import (INV127,
+                                                      quantize_activations,
+                                                      w4_dequantize, w4_pack,
+                                                      w4a8_matmul_tiled)
 from aurora_tpu_torch.ops.pallas.ragged_attention import (
-    ragged_attention, ragged_decode_attention)
+    kv_quantize as _kv_quantize, ragged_attention, ragged_decode_attention)
 from aurora_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from aurora_tpu_torch.serve.scheduler import (FinishReason, Request,
                                               Scheduler, SchedulePolicy)
@@ -63,14 +74,14 @@ class EngineConfig:
     max_extend_lanes: int = 16       # lanes per extend sub-wave
 
     def __post_init__(self):
-        if self.kv_quant != "none":
+        if self.kv_quant not in ("none", "int8"):
             raise NotImplementedError(
-                f"kv_quant={self.kv_quant!r}: int8/int4 KV is not ported "
-                "yet (bf16 KV only)")
-        if self.weight_quant != "none":
+                f"kv_quant={self.kv_quant!r}: nibble-packed int4 KV is not "
+                "ported yet (none or int8)")
+        if self.weight_quant not in ("none", "int4"):
             raise NotImplementedError(
-                f"weight_quant={self.weight_quant!r}: W8/W4 weights are "
-                "not ported yet (bf16 weights only)")
+                f"weight_quant={self.weight_quant!r}: W8 weights are not "
+                "ported yet (none or int4)")
         if self.tp != 1:
             raise NotImplementedError(
                 f"tp={self.tp}: tensor-parallel serving is not ported yet")
@@ -86,23 +97,161 @@ class EngineConfig:
         return -(-self.max_seq_len // c) * c
 
 
-def kv_bytes_per_token_layer(cfg: LlamaConfig, kv_dtype) -> int:
-    """K + V bytes of one token in one layer."""
+def kv_bytes_per_token_layer(cfg: LlamaConfig, kv_quant: str,
+                             kv_dtype) -> int:
+    """K + V bytes of one token in one layer (int8: values plus the fp32
+    scale of each head)."""
+    hkv, hd = cfg.num_key_value_heads, cfg.head_dim
+    if kv_quant == "int8":
+        return 2 * hkv * (hd + 4)
     itemsize = torch.empty((), dtype=kv_dtype).element_size()
-    return 2 * cfg.num_key_value_heads * cfg.head_dim * itemsize
+    return 2 * hkv * hd * itemsize
 
 
 def row_buffer_bytes(cfg: LlamaConfig, ecfg: EngineConfig) -> int:
     """Device bytes of the KV rows plus the sampler histograms."""
     rows = (cfg.num_hidden_layers * ecfg.max_batch * ecfg.s_row
-            * kv_bytes_per_token_layer(cfg, ecfg.kv_dtype))
+            * kv_bytes_per_token_layer(cfg, ecfg.kv_quant, ecfg.kv_dtype))
     hist = ecfg.max_batch * cfg.vocab_size * 5     # counts i32 + seen b8
     return rows + hist
 
 
 # ---------------------------------------------------------------------------
+# Weight quantization (the reference's quantize_weights_int4 and
+# fuse_serving_weights, over the port's modules)
+# ---------------------------------------------------------------------------
+
+_INV7 = float(np.float32(1.0) / np.float32(7.0))
+
+
+def _w8(w: torch.Tensor):
+    """[out, in] weight → (int8 [out, in], per-output-channel fp32 scale
+    [out]). The reference's division by the constant 127 runs as XLA
+    compiles it, a multiply by the fp32 reciprocal (so does _w4's by 7)."""
+    wf = w.float()
+    s = (wf.abs().amax(dim=1) * INV127).clamp_min(1e-12)
+    return torch.clamp(torch.round(wf / s[:, None]), -127,
+                       127).to(torch.int8), s
+
+
+def _w4(w: torch.Tensor):
+    """[out, in] weight → (packed int8 [out, in/2], fp32 scales [out, G]):
+    symmetric absmax per (output channel, group of min(128, in) input
+    rows), values rounded half to even into [-8, 7]."""
+    O, D = w.shape
+    group = w4_group(D)
+    wf = w.float().reshape(O, D // group, group)
+    s = (wf.abs().amax(dim=2) * _INV7).clamp_min(1e-12)
+    q = torch.clamp(torch.round(wf / s[:, :, None]), -8, 7)
+    return w4_pack(q.reshape(O, D)), s
+
+
+def quantize_weights_int4(model: LlamaModel,
+                          free_source: bool = False) -> LlamaModel:
+    """A W4 model from a dense one: every layer projection → W4Linear,
+    the LM head → W8Linear (int8 for logit quality); the embeddings and
+    norms are shared with `model`, not copied. Quantizes one projection
+    at a time. free_source=True drops each source nn.Linear from `model`
+    as it is quantized, so peak memory stays about the dense model plus
+    one projection's fp32 transient; `model` is then left without them."""
+    cfg = model.cfg
+    fused = hasattr(model.layers[0], "qkv")
+    out = LlamaModel(cfg, device="meta", weight_quant="int4", fused=fused)
+    out.embed_tokens = model.embed_tokens
+    out.final_norm = model.final_norm
+    for src, dst in zip(model.layers, out.layers):
+        dst.input_norm = src.input_norm
+        dst.post_attn_norm = src.post_attn_norm
+        for name in projection_shapes(cfg, fused):
+            setattr(dst, name,
+                    W4Linear(*_w4(getattr(src, name).weight.detach())))
+            if free_source:
+                setattr(src, name, None)
+    out.lm_head = W8Linear(*_w8(model.lm_head.weight.detach()))
+    if free_source:
+        model.lm_head = None
+    return out
+
+
+def _cat_out(parts):
+    """Projections → one projection, concatenated on the output axis
+    (exact for per-output-channel and per-group scales)."""
+    if all(isinstance(p, W4Linear) for p in parts):
+        return W4Linear(torch.cat([p.packed for p in parts]),
+                        torch.cat([p.scale for p in parts]))
+    w = torch.cat([p.weight.detach() for p in parts])
+    lin = nn.Linear(w.shape[1], w.shape[0], bias=False, device="meta")
+    lin.weight = nn.Parameter(w, requires_grad=False)
+    return lin
+
+
+def fuse_serving_weights(model: LlamaModel) -> LlamaModel:
+    """q/k/v → qkv and gate/up → gateup in every layer, IN PLACE (each
+    layer's sources are dropped as its fused stream is built, so peak
+    memory stays about one model). Returns `model`."""
+    for layer in model.layers:
+        for fused, names in (("qkv", ("q", "k", "v")),
+                             ("gateup", ("gate", "up"))):
+            if not all(hasattr(layer, n) for n in names):
+                continue
+            setattr(layer, fused, _cat_out([getattr(layer, n)
+                                            for n in names]))
+            for n in names:
+                delattr(layer, n)
+    return model
+
+
+# ---------------------------------------------------------------------------
 # Device half: row-KV llama forward, LM head, sampler
 # ---------------------------------------------------------------------------
+
+# Above this many tokens (lanes × bucket) `_w4dot` dequantizes the layer's
+# weights to the activation dtype and runs a dense matmul (the reference's
+# prefill branch); at or below it runs the W4A8 kernel.
+_W4_GROUPED_MAX_TOKENS = 64
+
+
+def _w4dot(h, w: W4Linear):
+    """h [..., K] @ W4 → [..., N] in h's dtype. Few tokens (decode): the
+    W4A8 kernel, with per-token int8 activations. Many tokens (extend):
+    the weights dequantized to h's dtype, a dense matmul, no activation
+    quantization. The two branches differ numerically, as the
+    reference's do."""
+    lead, K = h.shape[:-1], h.shape[-1]
+    if math.prod(lead) <= _W4_GROUPED_MAX_TOKENS:
+        out = w4a8_matmul_tiled(h.reshape(-1, K), w.packed, w.scale)
+        return out.reshape(*lead, -1)
+    return torch.nn.functional.linear(
+        h, w4_dequantize(w.packed, w.scale, h.dtype))
+
+
+def _wdot(h, proj):
+    """h @ W for one projection module: W4 (_w4dot) or dense."""
+    if isinstance(proj, W4Linear):
+        return _w4dot(h, proj)
+    return proj(h)
+
+
+def _qkv(cfg: LlamaConfig, lp, h):
+    Bk, T, _ = h.shape
+    H, Hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    if hasattr(lp, "qkv"):          # fused stream
+        q, k, v = _wdot(h, lp.qkv).split([H * hd, Hkv * hd, Hkv * hd],
+                                         dim=-1)
+    else:
+        q, k, v = _wdot(h, lp.q), _wdot(h, lp.k), _wdot(h, lp.v)
+    return (q.reshape(Bk, T, H, hd), k.reshape(Bk, T, Hkv, hd),
+            v.contiguous().reshape(Bk, T, Hkv, hd))
+
+
+def _mlp(cfg: LlamaConfig, lp, h):
+    if hasattr(lp, "gateup"):       # fused stream
+        gate, up = _wdot(h, lp.gateup).chunk(2, dim=-1)
+    else:
+        gate, up = _wdot(h, lp.gate), _wdot(h, lp.up)
+    return _wdot(_act(cfg, gate) * up, lp.down)
+
 
 @dataclasses.dataclass
 class KVWriteIndex:
@@ -139,12 +288,17 @@ def _kv_write_index(row_ids, q_offsets, kv_lens, T: int, S: int,
     return KVWriteIndex(cat(lanes), cat(ts), cat(rows), cat(pos))
 
 
-def _write_kv_window(rows, l: int, k, v, widx: KVWriteIndex) -> None:
-    """Write the wave's new tokens into layer l of the rows, in place."""
-    rows["k"][l][widx.row_idx, :, widx.pos_idx] = \
-        k[widx.lane_idx, widx.t_idx].to(rows["k"].dtype)
-    rows["v"][l][widx.row_idx, :, widx.pos_idx] = \
-        v[widx.lane_idx, widx.t_idx].to(rows["v"].dtype)
+def _write_kv_window(rows, l: int, k, v, widx: KVWriteIndex,
+                     scales=None) -> None:
+    """Write the wave's new tokens into layer l of the rows, in place
+    (with int8 rows, their per-token scales [Bk, T, Hkv] into ks/vs)."""
+    at = (widx.row_idx, slice(None), widx.pos_idx)
+    new = (widx.lane_idx, widx.t_idx)
+    rows["k"][l][at] = k[new].to(rows["k"].dtype)
+    rows["v"][l][at] = v[new].to(rows["v"].dtype)
+    if scales is not None:
+        rows["ks"][l][at] = scales[0][new]
+        rows["vs"][l][at] = scales[1][new]
 
 
 def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
@@ -152,48 +306,65 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
                   kv_write: Optional[KVWriteIndex] = None):
     """Shared EXTEND/DECODE forward over row-contiguous KV.
 
-    embeds [Bk, T, D]; rows {"k", "v": [L, B, Hkv, S, hd]}; row_ids,
+    embeds [Bk, T, D]; rows {"k", "v": [L, B, Hkv, S, hd]} (+ "ks", "vs"
+    [L, B, Hkv, S] fp32 scales when the rows are int8); row_ids,
     q_offsets, kv_lens [Bk] int32 device tensors (kv_lens is the row
     length AFTER the new tokens, 0 for a padded lane); layer_ids [L] int32
     device tensor (each kernel reads its layer index from it). EXTEND
-    (T > 1) writes the new K/V through `kv_write`, then attends; DECODE
-    (T == 1) writes and attends in one kernel. Returns the last valid
-    token's final hidden state per lane, [Bk, D].
+    (T > 1) writes the new K/V through `kv_write` (int8: quantized first,
+    and the extend attends over the quantized rows, new tokens included),
+    then attends; DECODE (T == 1) writes (int8: quantizing the token in
+    the kernel) and attends in one kernel. Each projection dispatches on
+    its module: W4 or dense. Returns the last valid token's final hidden
+    state per lane, [Bk, D].
     """
     x = embeds
     Bk, T, _ = x.shape
-    H, Hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
+    hd = cfg.head_dim
+    quant = "ks" in rows
+    scales = dict(k_scales=rows.get("ks"), v_scales=rows.get("vs"))
     positions = q_offsets[:, None].long() + torch.arange(T, device=x.device)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta,
                             cfg.rope_linear_scaling)
     for l, lp in enumerate(model.layers):
         h = _norm(cfg, x, lp.input_norm)
-        q = lp.q(h).view(Bk, T, H, hd)
-        k = lp.k(h).view(Bk, T, Hkv, hd)
-        v = lp.v(h).view(Bk, T, Hkv, hd)
+        q, k, v = _qkv(cfg, lp, h)
         q, k = apply_rope(q, k, cos, sin)
         layer = layer_ids[l:l + 1]
         if T == 1:
-            attn, _, _ = ragged_decode_attention(
+            attn = ragged_decode_attention(
                 q, k[:, 0], v[:, 0], rows["k"], rows["v"], kv_lens, row_ids,
-                layer=layer, scale=cfg.attn_scale)
+                layer=layer, scale=cfg.attn_scale, **scales)[0]
         else:
-            _write_kv_window(rows, l, k, v, kv_write)
+            if quant:
+                (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
+                _write_kv_window(rows, l, k, v, kv_write, (ks, vs))
+            else:
+                _write_kv_window(rows, l, k, v, kv_write)
             attn = ragged_attention(q, rows["k"], rows["v"], kv_lens,
                                     q_offsets, row_ids, layer=layer,
-                                    scale=cfg.attn_scale)
-        x = x + lp.o(attn.reshape(Bk, T, H * hd).to(x.dtype))
-        h = _norm(cfg, x, lp.post_attn_norm)
-        x = x + lp.down(_act(cfg, lp.gate(h)) * lp.up(h))
+                                    scale=cfg.attn_scale, **scales)
+        x = x + _wdot(attn.reshape(Bk, T, -1).to(x.dtype), lp.o)
+        x = x + _mlp(cfg, lp, _norm(cfg, x, lp.post_attn_norm))
     x = _norm(cfg, x, model.final_norm)
     last = (kv_lens.long() - q_offsets.long() - 1).clamp(0, T - 1)
     return x[torch.arange(Bk, device=x.device), last]
 
 
 def _lm_head(model: LlamaModel, x) -> torch.Tensor:
-    """Logits in fp32 (the matmul runs in the weights' dtype)."""
-    return torch.nn.functional.linear(x, model.lm_head.weight).float()
+    """Logits in fp32. A dense head runs in the weights' dtype; the int8
+    head (W4 models) runs W8A8: per-token int8 activations, an int32
+    matmul, then both scales. torch._int_mm on the card needs more than
+    16 rows, so the rows are zero-padded to at least 32."""
+    head = model.lm_head
+    if not isinstance(head, W8Linear):
+        return torch.nn.functional.linear(x, head.weight).float()
+    x8, s_a = quantize_activations(x)
+    n = x8.shape[0]
+    pad = max(32, -(-n // 8) * 8) - n
+    acc = torch._int_mm(torch.nn.functional.pad(x8, (0, 0, 0, pad)),
+                        head.weight.t())[:n]
+    return acc.float() * s_a * head.scale
 
 
 def _sample_core(logits, counts, seen, samp, allowed, generator,
@@ -288,10 +459,17 @@ class DeviceRunner:
         L, Hkv, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                       cfg.head_dim)
         shape = (L, B, Hkv, S, hd)
-        self.rows = {"k": torch.zeros(shape, dtype=ecfg.kv_dtype,
+        quant = ecfg.kv_quant == "int8"
+        store = torch.int8 if quant else ecfg.kv_dtype
+        self.rows = {"k": torch.zeros(shape, dtype=store,
                                       device=self.device),
-                     "v": torch.zeros(shape, dtype=ecfg.kv_dtype,
+                     "v": torch.zeros(shape, dtype=store,
                                       device=self.device)}
+        if quant:       # per-token fp32 scales of the int8 rows
+            for name in ("ks", "vs"):
+                self.rows[name] = torch.zeros(shape[:4],
+                                              dtype=torch.float32,
+                                              device=self.device)
         self.counts = torch.zeros((B, cfg.vocab_size), dtype=torch.int32,
                                   device=self.device)
         self.seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool,
@@ -395,13 +573,21 @@ class DeviceRunner:
 # ---------------------------------------------------------------------------
 
 class ServeEngine:
-    """Single-GPU engine: schedule → batched extend / K-step decode."""
+    """Single-GPU engine: schedule → batched extend / K-step decode.
+
+    weight_quant="int4" serves a W4 model: a dense `model` is quantized
+    (quantize_weights_int4 into a new model; `model` stays as it is) and
+    its streams fused (fuse_serving_weights); a model that is already W4,
+    fused or not, is served as given."""
 
     def __init__(self, model: LlamaModel, cfg: LlamaConfig,
                  ecfg: EngineConfig = EngineConfig(), embed_fn=None,
                  device=None, seed: int = 0):
         self.cfg = cfg
         self.ecfg = ecfg
+        if ecfg.weight_quant == "int4" and \
+                not isinstance(model.lm_head, W8Linear):
+            model = fuse_serving_weights(quantize_weights_int4(model))
         self.embed_fn = embed_fn  # multimodal hook: req → [T, D] embeds
         device = device if device is not None else \
             model.embed_tokens.device

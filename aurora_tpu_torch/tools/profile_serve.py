@@ -2,12 +2,14 @@
 K-step decode block of the port's DeviceRunner, on one GPU.
 
     python3 -m aurora_tpu_torch.tools.profile_serve          # from the repo root
+    python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8  # W4 weights, int8 KV
     python3 -m aurora_tpu_torch.tools.profile_serve --tiny --device cpu  # logic check
 
 Builds Vicuna-7B-v1.5-16k (the AuroraCap-7B decoder) at full width with
 random bf16 weights from a seed and the engine configuration of
 chip_smoke.py (4 rows, kv_chunk 256, 1536 bucket, KV rows of prompt +
-256), fills the rows with one extend wave of text embeddings (the ViT is
+256; with --w4kv8 the LLM quantized to W4 weights with an int8 LM head
+and int8 KV), fills the rows with one extend wave of text embeddings (the ViT is
 not run here; chip_smoke.py times it), then reads:
 
 * wall      — median host wall time of an extend wave and of a K-step
@@ -90,6 +92,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiny", action="store_true",
                     help="LlamaConfig.tiny() with a short prompt")
+    ap.add_argument("--w4kv8", action="store_true",
+                    help="W4 weights (quantized on the device) and int8 KV")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="build/profile_serve")
     args = ap.parse_args(argv)
@@ -98,7 +102,9 @@ def main(argv=None) -> int:
     from aurora_tpu_torch.models.init import build
     from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from aurora_tpu_torch.serve.engine import (DeviceRunner, EngineConfig,
-                                               _forward_rows, _lm_head)
+                                               _forward_rows, _lm_head,
+                                               fuse_serving_weights,
+                                               quantize_weights_int4)
 
     dev = torch.device(args.device)
     on_gpu = dev.type == "cuda"
@@ -115,8 +121,14 @@ def main(argv=None) -> int:
     if K * (args.reps + 3) > 256:
         ap.error("steps × (reps + 3) decode positions must fit the 256 "
                  "generated tokens of a row")
+    quant = {}
+    if args.w4kv8:
+        model = fuse_serving_weights(quantize_weights_int4(model,
+                                                           free_source=True))
+        quant = dict(weight_quant="int4", kv_quant="int8")
     ecfg = EngineConfig(max_batch=B, kv_chunk=256, prefill_buckets=(bucket,),
-                        decode_steps=K, kv_dtype=dtype, max_seq_len=P + 256)
+                        decode_steps=K, kv_dtype=dtype, max_seq_len=P + 256,
+                        **quant)
     runner = DeviceRunner(model, cfg, ecfg, dev, seed=args.seed)
     os.makedirs(args.out, exist_ok=True)
 
@@ -201,6 +213,8 @@ def main(argv=None) -> int:
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_gpu
                                      else [])
     res = {"card": card, "K": K, "batch": B, "prompt": P,
+           "weights": "w4" if args.w4kv8 else str(dtype).split(".")[-1],
+           "kv": "int8" if args.w4kv8 else str(dtype).split(".")[-1],
            "extend_wall_ms": extend_ms, "decode_wall_ms_per_step":
            decode_ms / K, "issue_ms_per_step": issue_ms / K,
            "drain_ms_after_issue": drain_ms}

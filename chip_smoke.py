@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
 AuroraCap-7B caption serving at full published widths with random bf16
 weights (seeded): uint8 frames → CLIP normalize → ViT-H/14 with ToMe →
 projector → fusion → one batched extend → 256-token greedy decode via
-`aurora_tpu_torch.serve.engine.ServeEngine` with bf16 KV. Phases, one
-line each; any failure raises and exits non-zero:
+`aurora_tpu_torch.serve.engine.ServeEngine`, first with bf16 weights and
+bf16 KV, then with the LLM quantized on the card to W4 weights (int8 LM
+head) and int8 KV. Phases, one line each; any failure raises and exits
+non-zero:
 
-1. device   — requires CUDA; prints the card's name and power limit
-2. build    — compiles the CUDA kernels from aurora_tpu_torch/csrc
-3. kernels  — each kernel vs its plain PyTorch twin at the slice's shapes
-              (bf16 in, fp32 reference; decode row writes exact)
-4. serve    — 4 requests of 8 frames each to 256 tokens; the kernels'
-              launch counts must rise and the plain twins' stay 0
-5. logits   — one extend wave's logits through the kernels vs through the
-              plain twins, on the same engine state
-6. the kernels' JSON line, then {"ok": true, "device": {...}} last.
+1. device        — requires CUDA; prints the card's name and power limit
+2. build         — compiles the CUDA kernels from aurora_tpu_torch/csrc
+3. kernels       — each kernel and mode vs its plain PyTorch twin at the
+                   slice's shapes: both attention kernels with bf16 and
+                   with int8 KV (bf16 in, fp32 reference; decode row and
+                   scale writes exact), and the W4A8 matmul at the 7B's
+                   four decode projections
+4. serve         — bf16: 4 requests of 8 frames each to 256 tokens; the
+                   bf16 kernels' launch counts must rise and the plain
+                   twins' stay 0
+5. logits        — one bf16 extend wave's logits through the kernels vs
+                   through the plain twins, on the same engine state
+6. quantize      — the LLM to W4 on the card (quantize_weights_int4,
+                   fuse_serving_weights), timed
+7. serve-w4kv8   — the same 4 requests (new clips) with W4 weights and
+                   int8 KV; the int8 attention and W4A8 launch counts must
+                   rise and every plain twin's stay 0
+8. logits-w4kv8  — as 5, on the W4 + int8-KV engine
+9. the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
 float32 references run with TF32 disabled for matmuls and cuDNN
 convolutions, so they are true fp32.
@@ -46,7 +58,18 @@ EXTEND_ABS_TOL = 2e-2     # measured 1.05e-2
 EXTEND_REL_TOL = 1e-2     # measured 3.0e-3
 DECODE_ABS_TOL = 3e-3     # measured 6.3e-4
 DECODE_REL_TOL = 8e-3     # measured 2.6e-3
+# With int8 KV the dequantized values are not bf16 numbers (a one-key
+# lane's output is v8 * vs itself), so the abs bounds sit on top of the
+# output's own bf16 rounding: |got - want| <= tol + 2^-8 |want|.
+INT8_ROUNDING = 2.0 ** -8
+# W4A8 matmul vs its twin with fp32 output: the int32 group partials are
+# exact on both sides, only the fp32 order of the group sum differs
+W4A8_REL_TOL = 1e-5       # max |Δ| / max |want|
 LOGITS_REL_TOL = 5e-2     # max |Δlogits| / max |logits| after 32 bf16 layers
+LOGITS_W4_REL_TOL = 5e-2  # the same on the W4 + int8-KV engine
+# the 7B's decode projections (fused streams): name, K, N
+W4_SHAPES = (("qkv", 4096, 12288), ("o", 4096, 4096),
+             ("gateup", 4096, 22016), ("down", 11008, 4096))
 
 
 def check(cond, msg):
@@ -100,72 +123,177 @@ class ByteTokenizer:
         return ([1] + ids) if add_special_tokens else ids
 
 
-def kernel_phase(torch, ra, dev):
-    """Each kernel vs its plain twin at the serving shapes (L = 32,
-    S = 1792, hd = 128, bf16 KV), including GQA, permuted rows, a query
-    offset > 0 and a padded / inactive lane."""
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    L, B, S, hd, T = 32, 4, 1792, 128, 1536
-    results = {}
-    for hkv in (32, 8):
-        bf = dict(device=dev, dtype=torch.bfloat16)
-        k = torch.randn((L, B, hkv, S, hd), generator=g, **bf)
-        v = torch.randn((L, B, hkv, S, hd), generator=g, **bf)
-        i32 = dict(device=dev, dtype=torch.int32)
-        layer = torch.tensor([17], **i32)
-        rows = torch.tensor([2, 0, 3, 1], **i32)
+def attention_case(torch, ra, dev, g, hkv, int8, L=32, S=1792, T=1536,
+                   offs=(0, 256, 0, 0), lens=(1392, 256 + 1400, 1536, 0),
+                   dlens=(1648, 700, 0, 1)):
+    """Both attention kernels vs their plain twins at the serving shapes
+    (L = 32, S = 1792, hd = 128), bf16 KV or int8 KV on the kv_quantize
+    grid, with GQA, permuted rows, a query offset > 0 and a padded /
+    inactive lane → (extend err, ms, plain ms, decode err, ms, plain ms)."""
+    B, hd = 4, 128
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    i32 = dict(device=dev, dtype=torch.int32)
+    k = torch.randn((L, B, hkv, S, hd), generator=g, **bf)
+    v = torch.randn((L, B, hkv, S, hd), generator=g, **bf)
+    kv = {}
+    if int8:
+        (k, ks), (v, vs) = ra.kv_quantize(k), ra.kv_quantize(v)
+        kv = dict(k_scales=ks, v_scales=vs)
+    rnd = INT8_ROUNDING if int8 else 0.0
+    lay = min(17, L - 1)
+    layer = torch.tensor([lay], **i32)
+    rows = torch.tensor([2, 0, 3, 1], **i32)
+    mode = "int8" if int8 else "bf16"
 
-        q = torch.randn((B, T, 32, hd), generator=g, **bf)
-        offs = torch.tensor([0, 256, 0, 0], **i32)
-        lens = torch.tensor([1392, 256 + 1400, 1536, 0], **i32)
-        got = ra.ragged_attention(q, k, v, lens, offs, rows, layer=layer)
-        want = ra.ragged_attention_plain(q.float(), k, v, lens, offs, rows,
-                                         layer=17)
-        torch.cuda.synchronize()
-        err_e = (got.float() - want).abs().max().item()
-        rel_e = lane_rel_err(got, want, (0, 1, 2))
-        check(bool(torch.isfinite(got).all()), "extend output not finite")
-        check(bool((got[3] == 0).all()), "padded extend lane not zero")
-        check(err_e <= EXTEND_ABS_TOL, f"extend hkv={hkv} err {err_e}")
-        check(rel_e <= EXTEND_REL_TOL, f"extend hkv={hkv} rel err {rel_e}")
-        ms_e = cuda_ms(lambda: ra.ragged_attention(q, k, v, lens, offs,
-                                                   rows, layer=layer))
-        ms_ep = cuda_ms(lambda: ra.ragged_attention_plain(
-            q, k, v, lens, offs, rows, layer=17), reps=3)
-        del q, got, want
+    q = torch.randn((B, T, 32, hd), generator=g, **bf)
+    offs = torch.tensor(offs, **i32)
+    lens = torch.tensor(lens, **i32)
+    got = ra.ragged_attention(q, k, v, lens, offs, rows, layer=layer, **kv)
+    want = ra.ragged_attention_plain(q.float(), k, v, lens, offs, rows,
+                                     layer=lay, **kv)
+    torch.cuda.synchronize()
+    diff = (got.float() - want).abs()
+    err_e = diff.max().item()
+    rel_e = lane_rel_err(got, want, (0, 1, 2))
+    check(bool(torch.isfinite(got).all()), "extend output not finite")
+    check(bool((got[3] == 0).all()), "padded extend lane not zero")
+    check(bool((diff <= EXTEND_ABS_TOL + rnd * want.abs()).all()),
+          f"extend {mode} hkv={hkv} err {err_e}")
+    check(rel_e <= EXTEND_REL_TOL, f"extend {mode} hkv={hkv} rel {rel_e}")
+    ms_e = cuda_ms(lambda: ra.ragged_attention(q, k, v, lens, offs, rows,
+                                               layer=layer, **kv))
+    ms_ep = cuda_ms(lambda: ra.ragged_attention_plain(
+        q, k, v, lens, offs, rows, layer=lay, **kv), reps=3)
+    del q, got, want, diff
 
-        qd = torch.randn((B, 1, 32, hd), generator=g, **bf)
-        kn = torch.randn((B, hkv, hd), generator=g, **bf)
-        vn = torch.randn((B, hkv, hd), generator=g, **bf)
-        dlens = torch.tensor([1648, 700, 0, 1], **i32)
-        kp, vp = k.clone(), v.clone()
-        out, _, _ = ra.ragged_decode_attention(qd, kn, vn, k, v, dlens, rows,
-                                               layer=layer)
-        want, _, _ = ra.ragged_decode_attention_plain(
-            qd.float(), kn, vn, kp, vp, dlens, rows, layer=17)
+    qd = torch.randn((B, 1, 32, hd), generator=g, **bf)
+    kn = torch.randn((B, hkv, hd), generator=g, **bf)
+    vn = torch.randn((B, hkv, hd), generator=g, **bf)
+    vn[3, 1] = 0                          # an all-zero token: the 1e-8 floor
+    dlens = torch.tensor(dlens, **i32)
+    state = [k, v] + list(kv.values())
+    plain = [t.clone() for t in state]
+    pkv = dict(zip(kv, plain[2:]))
+    out = ra.ragged_decode_attention(qd, kn, vn, k, v, dlens, rows,
+                                     layer=layer, **kv)[0]
+    want = ra.ragged_decode_attention_plain(qd.float(), kn, vn, *plain[:2],
+                                            dlens, rows, layer=lay, **pkv)[0]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(state, plain)),
+          f"decode {mode} row/scale writes differ from the plain twin")
+    diff = (out.float() - want).abs()
+    err_d = diff.max().item()
+    rel_d = lane_rel_err(out, want, (0, 1, 3))
+    check(bool((out[2] == 0).all()), "inactive decode lane not zero")
+    check(bool((diff <= DECODE_ABS_TOL + rnd * want.abs()).all()),
+          f"decode {mode} hkv={hkv} err {err_d}")
+    check(rel_d <= DECODE_REL_TOL, f"decode {mode} hkv={hkv} rel {rel_d}")
+    ms_d = cuda_ms(lambda: ra.ragged_decode_attention(
+        qd, kn, vn, k, v, dlens, rows, layer=layer, **kv), reps=20)
+    ms_dp = cuda_ms(lambda: ra.ragged_decode_attention_plain(
+        qd, kn, vn, *plain[:2], dlens, rows, layer=lay, **pkv), reps=20)
+    phase("kernels", kv=mode, hkv=hkv, extend_err=f"{err_e:.3e}",
+          extend_rel=f"{rel_e:.3e}", extend_ms=f"{ms_e:.3f}",
+          extend_plain_ms=f"{ms_ep:.3f}", decode_err=f"{err_d:.3e}",
+          decode_rel=f"{rel_d:.3e}", decode_ms=f"{ms_d:.4f}",
+          decode_plain_ms=f"{ms_dp:.4f}",
+          tol=f"extend:{EXTEND_ABS_TOL}/{EXTEND_REL_TOL},"
+              f"decode:{DECODE_ABS_TOL}/{DECODE_REL_TOL}"
+              + (f",+{rnd:g}|want|" if int8 else ""))
+    return err_e, ms_e, ms_ep, err_d, ms_d, ms_dp
+
+
+def w4a8_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
+    """The W4A8 kernel vs its plain twin at the 7B's four decode
+    projections, B = 4 → (max rel err, summed ms, summed plain ms)."""
+    B = 4
+    errs, ms, plain_ms = [], 0.0, 0.0
+    for name, K, N in shapes:
+        w = torch.randn((N, K), generator=g, device=dev) * 0.02
+        packed, scale = quantize_w4(w)
+        del w
+        h = torch.randn((B, K), generator=g, device=dev, dtype=torch.bfloat16)
+        got = qm.w4a8_matmul_tiled(h, packed, scale, out_dtype=torch.float32)
+        again = qm.w4a8_matmul_tiled(h, packed, scale,
+                                     out_dtype=torch.float32)
+        got16 = qm.w4a8_matmul_tiled(h, packed, scale)
+        want = qm.w4a8_matmul_tiled_plain(h, packed, scale,
+                                          out_dtype=torch.float32)
         torch.cuda.synchronize()
-        check(torch.equal(k, kp) and torch.equal(v, vp),
-              "decode row writes differ from the plain twin")
-        err_d = (out.float() - want).abs().max().item()
-        rel_d = lane_rel_err(out, want, (0, 1, 3))
-        check(bool((out[2] == 0).all()), "inactive decode lane not zero")
-        check(err_d <= DECODE_ABS_TOL, f"decode hkv={hkv} err {err_d}")
-        check(rel_d <= DECODE_REL_TOL, f"decode hkv={hkv} rel err {rel_d}")
-        ms_d = cuda_ms(lambda: ra.ragged_decode_attention(
-            qd, kn, vn, k, v, dlens, rows, layer=layer), reps=20)
-        ms_dp = cuda_ms(lambda: ra.ragged_decode_attention_plain(
-            qd, kn, vn, kp, vp, dlens, rows, layer=17), reps=20)
-        phase("kernels", hkv=hkv, extend_err=f"{err_e:.3e}",
-              extend_rel=f"{rel_e:.3e}", extend_ms=f"{ms_e:.3f}",
-              extend_plain_ms=f"{ms_ep:.3f}", decode_err=f"{err_d:.3e}",
-              decode_rel=f"{rel_d:.3e}", decode_ms=f"{ms_d:.4f}",
-              decode_plain_ms=f"{ms_dp:.4f}",
-              tol=f"extend:{EXTEND_ABS_TOL}/{EXTEND_REL_TOL},"
-                  f"decode:{DECODE_ABS_TOL}/{DECODE_REL_TOL}")
-        results[hkv] = (err_e, ms_e, ms_ep, err_d, ms_d, ms_dp)
-        del k, v, kp, vp
-        torch.cuda.empty_cache()
-    return results
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        check(torch.equal(got, again), f"w4a8 {name}: runs differ")
+        check(rel <= W4A8_REL_TOL, f"w4a8 {name}: rel err {rel}")
+        # bf16 output: one bf16 rounding of the twin, plus the fp32 slack
+        bound = want.abs() * INT8_ROUNDING + W4A8_REL_TOL * want.abs().max()
+        check(bool(((got16.float() - want).abs() <= bound).all()),
+              f"w4a8 {name}: bf16 output off the twin")
+        t = cuda_ms(lambda: qm.w4a8_matmul_tiled(h, packed, scale), reps=20)
+        tp = cuda_ms(lambda: qm.w4a8_matmul_tiled_plain(h, packed, scale),
+                     reps=3)
+        phase("kernels", w4a8=name, B=B, K=K, N=N, rel_err=f"{rel:.3e}",
+              tol=W4A8_REL_TOL, ms=f"{t:.4f}", plain_ms=f"{tp:.4f}",
+              weight_mb=f"{(packed.numel() + 4 * scale.numel()) / 1e6:.1f}")
+        errs.append((got - want).abs().max().item())
+        ms += t
+        plain_ms += tp
+        del packed, scale, got, again, got16, want
+    torch.cuda.empty_cache()
+    return max(errs), ms, plain_ms
+
+
+def serve(torch, engine, reqs, counters):
+    """Drive the engine through `reqs` with every count in `counters` set
+    to 0 just before; check 256 tokens each → (wall s, counts)."""
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.add_request(r)
+    done = {}
+    while engine.has_work():
+        for r in engine.step():
+            done[r.rid] = r
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+              for obj, attr in counters}
+    from aurora_tpu_torch.serve.scheduler import FinishReason
+    V = engine.cfg.vocab_size
+    check(len(done) == len(reqs), f"{len(done)} requests finished")
+    for r in done.values():
+        check(r.finished == FinishReason.LENGTH and r.error is None,
+              f"{r.rid}: finished={r.finished} error={r.error}")
+        check(len(r.output_ids) == MAX_NEW,
+              f"{r.rid}: {len(r.output_ids)} tokens")
+        check(all(0 <= t < V for t in r.output_ids), f"{r.rid}: bad ids")
+    return wall, counts
+
+
+def logits_check(torch, engine_mod, runner, mm, reqs, P, tol, name, plain):
+    """One extend wave's logits through the kernels and through the plain
+    twins (patched into the engine module for that call only)."""
+    dev = runner.device
+    T = runner.ecfg.prefill_buckets[0]
+    n = len(reqs)
+    embeds = torch.zeros((n, T, runner.cfg.hidden_size),
+                         dtype=torch.bfloat16, device=dev)
+    for i, r in enumerate(reqs):
+        embeds[i, :P] = mm.embed_fn(r)
+    row_ids = np.arange(n, dtype=np.int32)
+    offs = np.zeros(n, np.int32)
+    lens = np.full(n, P, np.int32)
+    logits_k = runner.extend(embeds, row_ids, offs, lens)
+    with mock.patch.multiple(engine_mod, **plain):
+        logits_p = runner.extend(embeds, row_ids, offs, lens)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits_k).all()), f"{name} logits not finite")
+    check(tuple(logits_k.shape) == (n, runner.cfg.vocab_size),
+          f"{name} logits shape")
+    rel = ((logits_k - logits_p).abs().max()
+           / logits_p.abs().max()).item()
+    agree = int((logits_k.argmax(-1) == logits_p.argmax(-1)).sum())
+    phase(name, rel_err=f"{rel:.3e}", tol=tol, argmax_agree=f"{agree}/{n}")
+    check(rel <= tol, f"{name} rel err {rel}")
 
 
 def main():
@@ -177,12 +305,12 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from aurora_tpu_torch.models.aurora import AuroraConfig, init_aurora
     from aurora_tpu_torch.ops import cuda_build
+    from aurora_tpu_torch.ops.pallas import quant_matmul as qm
     from aurora_tpu_torch.ops.pallas import ragged_attention as ra
     from aurora_tpu_torch.serve import engine as engine_mod
     from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
     from aurora_tpu_torch.serve.multimodal import (_PLACEHOLDER_BASE,
                                                    AuroraCapServing)
-    from aurora_tpu_torch.serve.scheduler import FinishReason
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -199,9 +327,14 @@ def main():
           nvcc_seconds=f"{cuda_build.build_seconds:.1f}",
           library=cuda_build.library_path().name)
 
-    kres = kernel_phase(torch, ra, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    kres = {(mode, hkv): attention_case(torch, ra, dev, g, hkv,
+                                        mode == "int8")
+            for mode in ("bf16", "int8") for hkv in (32, 8)}
+    torch.cuda.empty_cache()
+    w4res = w4a8_phase(torch, qm, engine_mod._w4, dev, g)
 
-    # ---- main path at full width ------------------------------------------
+    # ---- main path at full width, bf16 ------------------------------------
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = AuroraConfig.auroracap_7b()
@@ -215,18 +348,24 @@ def main():
     check(n_vis == 171, f"visual tokens per frame {n_vis} != 171")
     rng = np.random.default_rng(SEED)
     size = cfg.vit.image_size
+    # clips 0-3 for the bf16 run, 4-7 for the W4 run (the embed cache would
+    # skip the ViT on a repeated clip), 8 to warm the ViT
     clips = [rng.integers(0, 256, size=(N_FRAMES, size, size, 3),
-                          dtype=np.uint8) for _ in range(N_REQUESTS + 1)]
+                          dtype=np.uint8) for _ in range(2 * N_REQUESTS + 1)]
     prompt = " ".join(["<image>"] * N_FRAMES) + \
         "\nDescribe the video in detail."
-    reqs = [mm.build_request(f"clip{i}", prompt, clips[i],
-                             max_new_tokens=MAX_NEW, eos_ids=())
-            for i in range(N_REQUESTS)]
+
+    def requests(first):
+        return [mm.build_request(f"clip{i}", prompt, clips[i],
+                                 max_new_tokens=MAX_NEW, eos_ids=())
+                for i in range(first, first + N_REQUESTS)]
+
+    reqs = requests(0)
     P = len(reqs[0].input_ids)
     for r in reqs:
         n_ph = sum(t >= _PLACEHOLDER_BASE for t in r.input_ids)
         check(n_ph == N_FRAMES * 171, f"{r.rid}: {n_ph} visual tokens")
-    # warm the ViT (cuDNN/cuBLAS set-up) on a clip the run does not use
+    # warm the ViT (cuDNN/cuBLAS set-up) on a clip the runs do not use
     warm = mm.build_request("warm", prompt, clips[-1], max_new_tokens=1)
     mm._visual_groups(warm)
     torch.cuda.synchronize()
@@ -241,93 +380,115 @@ def main():
         vit_times.append(time.perf_counter() - t)
         return out
 
+    def report(engine, wall, counts):
+        vit_s = float(np.mean(vit_times))
+        llm_extend_s = engine.t_extend_s - sum(vit_times)
+        decode_ms = engine.t_decode_s / max(engine._steps, 1) * 1e3
+        return dict(card=repr(card), requests=N_REQUESTS, prompt_tokens=P,
+                    visual_tokens=N_FRAMES * n_vis,
+                    vit_proj_s_per_clip=f"{vit_s:.4f}",
+                    extend_s=f"{llm_extend_s:.4f}",
+                    decode_ms_per_step=f"{decode_ms:.3f}",
+                    decode_steps=engine._steps,
+                    tokens_per_s=f"{N_REQUESTS * MAX_NEW / wall:.1f}",
+                    wall_s=f"{wall:.2f}",
+                    peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+                    launches=json.dumps(counts).replace(" ", ""))
+
+    kernels_bf16 = [(ra.ragged_attention, "launches"),
+                    (ra.ragged_decode_attention, "launches")]
+    kernels_int8 = [(ra.ragged_attention, "launches_int8"),
+                    (ra.ragged_decode_attention, "launches_int8"),
+                    (qm.w4a8_matmul_tiled, "launches")]
+    plains = [(ra.ragged_attention_plain, "calls"),
+              (ra.ragged_decode_attention_plain, "calls"),
+              (qm.w4a8_matmul_tiled_plain, "calls")]
+
     ecfg = EngineConfig(max_batch=N_REQUESTS, kv_chunk=256,
                         prefill_buckets=(1536,), decode_steps=16,
                         disable_radix_cache=True, max_seq_len=P + MAX_NEW)
     engine = ServeEngine(model.llm, cfg.llm, ecfg, embed_fn=timed_embed_fn,
                          device=dev, seed=SEED)
-    for fn in (ra.ragged_attention, ra.ragged_decode_attention):
-        fn.launches = 0
-    for fn in (ra.ragged_attention_plain, ra.ragged_decode_attention_plain):
-        fn.calls = 0
+    wall, counts = serve(torch, engine, reqs,
+                         kernels_bf16 + kernels_int8 + plains)
+    phase("serve", init_s=f"{init_s:.1f}",
+          **report(engine, wall, counts))
+    launches_bf16 = [counts[f"{f.__name__}.{a}"] for f, a in kernels_bf16]
+    check(all(n > 0 for n in launches_bf16), f"launches {counts}")
+    check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+          f"plain twins ran: {counts}")
+
+    logits_check(torch, engine_mod, engine.runner, mm, reqs, P,
+                 LOGITS_REL_TOL, "logits",
+                 {"ragged_attention": ra.ragged_attention_plain})
+    del engine
+    torch.cuda.empty_cache()
+
+    # ---- main path at full width, W4 weights + int8 KV ---------------------
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for r in reqs:
-        engine.add_request(r)
-    done = {}
-    while engine.has_work():
-        for r in engine.step():
-            done[r.rid] = r
+    llm_w4 = engine_mod.fuse_serving_weights(
+        engine_mod.quantize_weights_int4(model.llm, free_source=True))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"ragged_attention": ra.ragged_attention.launches,
-                "ragged_decode_attention": ra.ragged_decode_attention.launches}
-    plain_calls = (ra.ragged_attention_plain.calls,
-                   ra.ragged_decode_attention_plain.calls)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    quant_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    w4_bytes = sum(b.numel() * b.element_size()
+                   for b in llm_w4.layers.buffers())
+    head_bytes = sum(b.numel() * b.element_size()
+                     for b in llm_w4.lm_head.buffers())
+    phase("quantize", seconds=f"{quant_s:.2f}",
+          w4_layer_gb=f"{w4_bytes / 1e9:.3f}",
+          int8_head_gb=f"{head_bytes / 1e9:.3f}")
 
-    check(len(done) == N_REQUESTS, f"{len(done)} requests finished")
-    V = cfg.llm.vocab_size
-    for r in done.values():
-        check(r.finished == FinishReason.LENGTH and r.error is None,
-              f"{r.rid}: finished={r.finished} error={r.error}")
-        check(len(r.output_ids) == MAX_NEW,
-              f"{r.rid}: {len(r.output_ids)} tokens")
-        check(all(0 <= t < V for t in r.output_ids), f"{r.rid}: bad ids")
-    check(all(n > 0 for n in launches.values()), f"launches {launches}")
-    check(plain_calls == (0, 0), f"plain twins ran: {plain_calls}")
-    vit_s = float(np.mean(vit_times))
-    gen_tokens = sum(len(r.output_ids) for r in done.values())
-    llm_extend_s = engine.t_extend_s - sum(vit_times)
-    decode_ms = engine.t_decode_s / max(engine._steps, 1) * 1e3
-    phase("serve", card=repr(card), requests=len(done), prompt_tokens=P,
-          visual_tokens=N_FRAMES * n_vis, init_s=f"{init_s:.1f}",
-          vit_proj_s_per_clip=f"{vit_s:.4f}",
-          extend_s=f"{llm_extend_s:.4f}",
-          decode_ms_per_step=f"{decode_ms:.3f}",
-          decode_steps=engine._steps,
-          tokens_per_s=f"{gen_tokens / wall:.1f}",
-          wall_s=f"{wall:.2f}", peak_gb=f"{peak_gb:.2f}",
-          launches=json.dumps(launches).replace(" ", ""))
+    vit_times.clear()
+    reqs = requests(N_REQUESTS)
+    ecfg_q = EngineConfig(max_batch=N_REQUESTS, kv_chunk=256,
+                          prefill_buckets=(1536,), decode_steps=16,
+                          disable_radix_cache=True, max_seq_len=P + MAX_NEW,
+                          weight_quant="int4", kv_quant="int8")
+    engine = ServeEngine(llm_w4, cfg.llm, ecfg_q, embed_fn=timed_embed_fn,
+                         device=dev, seed=SEED)
+    check(engine.runner.model is llm_w4, "the W4 model was not served as is")
+    wall, counts_q = serve(torch, engine, reqs,
+                           kernels_bf16 + kernels_int8 + plains)
+    phase("serve-w4kv8", w4_weight_gb=f"{(w4_bytes + head_bytes) / 1e9:.3f}",
+          **report(engine, wall, counts_q))
+    launches_q = [counts_q[f"{f.__name__}.{a}"] for f, a in kernels_int8]
+    check(all(n > 0 for n in launches_q), f"launches {counts_q}")
+    check(all(counts_q[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+          f"plain twins ran: {counts_q}")
 
-    # ---- extend logits: kernels vs plain twins, same engine state ---------
-    runner = engine.runner
-    T = ecfg.prefill_buckets[0]
-    embeds = torch.zeros((N_REQUESTS, T, cfg.llm.hidden_size),
-                         dtype=torch.bfloat16, device=dev)
-    for i, r in enumerate(reqs):
-        embeds[i, :P] = mm.embed_fn(r)
-    row_ids = np.arange(N_REQUESTS, dtype=np.int32)
-    offs = np.zeros(N_REQUESTS, np.int32)
-    lens = np.full(N_REQUESTS, P, np.int32)
-    logits_k = runner.extend(embeds, row_ids, offs, lens)
-    # the plain twin stands in for the kernel in this call only
-    with mock.patch.object(engine_mod, "ragged_attention",
-                           ra.ragged_attention_plain):
-        logits_p = runner.extend(embeds, row_ids, offs, lens)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(logits_k).all()), "extend logits not finite")
-    check(tuple(logits_k.shape) == (N_REQUESTS, V), "extend logits shape")
-    rel = ((logits_k - logits_p).abs().max()
-           / logits_p.abs().max()).item()
-    agree = int((logits_k.argmax(-1) == logits_p.argmax(-1)).sum())
-    phase("logits", rel_err=f"{rel:.3e}", tol=LOGITS_REL_TOL,
-          argmax_agree=f"{agree}/{N_REQUESTS}")
-    check(rel <= LOGITS_REL_TOL, f"extend logits rel err {rel}")
+    logits_check(torch, engine_mod, engine.runner, mm, reqs, P,
+                 LOGITS_W4_REL_TOL, "logits-w4kv8",
+                 {"ragged_attention": ra.ragged_attention_plain,
+                  "w4a8_matmul_tiled": qm.w4a8_matmul_tiled_plain})
 
-    r32 = kres[32]     # the Vicuna shape: Hq = Hkv = 32
+    def entry(name, source, replaces, launches, mode, col):
+        """col: 0 for the extend kernel's columns of kres, 3 for decode."""
+        r32 = kres[(mode, 32)]       # the Vicuna shape: Hq = Hkv = 32
+        return {"name": name, "route": "cuda",
+                "source": f"aurora_tpu_torch/csrc/{source}",
+                "replaces": f"aurora_tpu/ops/pallas/{replaces}",
+                "launches": launches,
+                "max_abs_err": max(kres[(mode, h)][col] for h in (32, 8)),
+                "ms": r32[col + 1], "plain_ms": r32[col + 2]}
+
     kernels = [
-        {"name": "ragged_attention", "route": "cuda",
-         "source": "aurora_tpu_torch/csrc/ragged_extend.cu",
-         "replaces": "aurora_tpu/ops/pallas/ragged_attention.py:287",
-         "launches": launches["ragged_attention"],
-         "max_abs_err": max(kres[h][0] for h in kres),
-         "ms": r32[1], "plain_ms": r32[2]},
-        {"name": "ragged_decode_attention", "route": "cuda",
-         "source": "aurora_tpu_torch/csrc/ragged_decode.cu",
-         "replaces": "aurora_tpu/ops/pallas/ragged_attention.py:645",
-         "launches": launches["ragged_decode_attention"],
-         "max_abs_err": max(kres[h][3] for h in kres),
-         "ms": r32[4], "plain_ms": r32[5]},
+        entry("ragged_attention[bf16]", "ragged_extend.cu",
+              "ragged_attention.py:287", launches_bf16[0], "bf16", 0),
+        entry("ragged_decode_attention[bf16]", "ragged_decode.cu",
+              "ragged_attention.py:645", launches_bf16[1], "bf16", 3),
+        entry("ragged_attention[int8]", "ragged_extend.cu",
+              "ragged_attention.py:287", launches_q[0], "int8", 0),
+        entry("ragged_decode_attention[int8]", "ragged_decode.cu",
+              "ragged_attention.py:645", launches_q[1], "int8", 3),
+        # ms: the four decode projections of one layer at B = 4, summed
+        {"name": "w4a8_matmul_tiled", "route": "cuda",
+         "source": "aurora_tpu_torch/csrc/w4a8_matmul.cu",
+         "replaces": "aurora_tpu/ops/pallas/quant_matmul.py:305",
+         "launches": launches_q[2], "max_abs_err": w4res[0],
+         "ms": w4res[1], "plain_ms": w4res[2]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -73,7 +73,8 @@ def test_extend_plain_4d_rows_and_unported_options():
         lens, offs, rows)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     for kw in (dict(window=16), dict(logit_cap=30.0), dict(kv_pack=True),
-               dict(k_scales=torch.ones(1))):
+               dict(kv_pack=True, window=16, k_scales=torch.ones(1),
+                    v_scales=torch.ones(1))):
         with pytest.raises(NotImplementedError):
             tra.ragged_attention(torch.from_numpy(q), torch.from_numpy(k[0]),
                                  torch.from_numpy(v[0]), lens, offs, rows,
