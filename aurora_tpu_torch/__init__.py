@@ -5,12 +5,15 @@ sits at the same relative path. This package imports torch and numpy
 only: never `jax`, and nothing from `aurora_tpu` (whose serve package
 pulls in the JAX engine at import time).
 
-The slice ported so far is AuroraCap-7B caption serving with bf16
-weights and bf16 KV: uint8 frames → CLIP normalize → ViT-H/14 with ToMe
-→ projector → multimodal fusion → batched extend → multi-step decode
-through `serve.engine.ServeEngine`. The two serving attention kernels
-(`ops/pallas/ragged_attention.py`) are hand-written CUDA C++ for sm_90a
-under `csrc/`, built on first use (`ops/cuda_build.py`).
+Ported so far: AuroraCap-7B caption serving (uint8 frames → CLIP
+normalize → ViT-H/14 with ToMe → projector → multimodal fusion → batched
+extend → multi-step decode through `serve.engine.ServeEngine`) with bf16
+weights and KV or W4 weights and int8 KV, and the training step
+(`train.trainer.make_train_step` over `models.aurora.aurora_forward`).
+Every kernel is hand-written CUDA C++ for sm_90a under `csrc/` (the
+ragged extend and decode attention, the W4A8 matmul, flash attention
+forward and backward), built on first use (`ops/cuda_build.py`).
 """
 
-__all__ = ["bridge", "data", "generate", "models", "ops", "serve", "utils"]
+__all__ = ["bridge", "data", "generate", "models", "ops", "serve", "train",
+           "utils"]

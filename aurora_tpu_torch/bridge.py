@@ -194,8 +194,10 @@ def llama_from_params(tree, cfg: LlamaConfig, device=None, dtype=None):
                  llama_state_dict(tree, cfg), device)
 
 
-def aurora_from_params(tree, cfg: AuroraConfig, device=None, dtype=None):
-    """The composite {"visual_encoder", "projector", "llm"} tree."""
+def aurora_state_dict(tree, cfg: AuroraConfig) -> Dict[str, torch.Tensor]:
+    """The composite {"visual_encoder", "projector", "llm"} tree as the
+    port's AuroraModel state dict (e.g. to compare a JAX train step's
+    updated params with the port's model)."""
     sd = {}
     for prefix, part in (
             ("visual_encoder.",
@@ -203,4 +205,10 @@ def aurora_from_params(tree, cfg: AuroraConfig, device=None, dtype=None):
             ("projector.", projector_state_dict(tree["projector"])),
             ("llm.", llama_state_dict(tree["llm"], cfg.llm))):
         sd.update({prefix + k: v for k, v in part.items()})
-    return _load(AuroraModel(cfg, device="meta", dtype=dtype), sd, device)
+    return sd
+
+
+def aurora_from_params(tree, cfg: AuroraConfig, device=None, dtype=None):
+    """The composite {"visual_encoder", "projector", "llm"} tree."""
+    return _load(AuroraModel(cfg, device="meta", dtype=dtype),
+                 aurora_state_dict(tree, cfg), device)

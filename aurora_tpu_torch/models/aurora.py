@@ -3,8 +3,10 @@
 Ported: the configuration, the static visual token count, the visual
 encode (frames folded into the batch, select layer −2, CLS dropped,
 projected) and the multimodal fusion that splices the visual embeddings
-over the prompt's image markers. `aurora_forward` waits for the training
-slice.
+over the prompt's image markers, and the composite forward
+`aurora_forward` (modes "loss", "tensor"/"predict" and "inference").
+Packed batches (segment_ids) raise NotImplementedError: the fusion carries
+no segment ids yet.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from torch import nn
 
 from aurora_tpu_torch.models.init import build
-from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
+                                           llama_apply, llama_lm_loss)
 from aurora_tpu_torch.models.projector import (Projector, ProjectorConfig,
                                                apply_projector)
 from aurora_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
@@ -88,23 +91,24 @@ def num_visual_tokens(cfg: AuroraConfig, kept_ratio: float,
 
 
 def encode_visual(model: AuroraModel, pixel_values: torch.Tensor,
-                  kept_ratio: float) -> torch.Tensor:
+                  kept_ratio: float, remat=False) -> torch.Tensor:
     """[B, F, C, H, W] → projected visual embeds [B, F, N, D_llm]."""
     B, F, C, H, W = pixel_values.shape
     feats = vit_encode(model.visual_encoder,
                        pixel_values.reshape(B * F, C, H, W),
                        kept_ratio=kept_ratio,
-                       select_layer=model.cfg.visual_select_layer)
+                       select_layer=model.cfg.visual_select_layer,
+                       remat=remat)
     feats = apply_projector(model.projector, feats)
     return feats.reshape(B, F, feats.shape[1], feats.shape[2])
 
 
 def encode_visual_slowfast(model: AuroraModel, pixel_values: torch.Tensor,
-                           kept_ratio: float
+                           kept_ratio: float, remat=False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Frame 0 un-merged, frames 1..F-1 at kept_ratio → (hi, lo)."""
-    hi = encode_visual(model, pixel_values[:, :1], 1.0)
-    lo = encode_visual(model, pixel_values[:, 1:], kept_ratio)
+    hi = encode_visual(model, pixel_values[:, :1], 1.0, remat)
+    lo = encode_visual(model, pixel_values[:, 1:], kept_ratio, remat)
     return hi, lo
 
 
@@ -175,3 +179,49 @@ def fuse_multimodal(embed_table: torch.Tensor, input_ids: torch.Tensor,
     return {"inputs_embeds": out, "attention_mask": out_mask,
             "position_ids": position_ids, "labels": out_labels}
 
+
+def aurora_forward(model: AuroraModel, input_ids: torch.Tensor,
+                   pixel_values: Optional[torch.Tensor] = None,
+                   attention_mask: Optional[torch.Tensor] = None,
+                   labels: Optional[torch.Tensor] = None,
+                   kept_ratio: float = 1.0, mode: str = "loss",
+                   remat=False, segment_ids: Optional[torch.Tensor] = None):
+    """mode "loss" → (mean loss, valid-token count); "tensor"/"predict" →
+    logits [B, T_out, V] fp32; "inference" → the fused-input dict.
+
+    pixel_values [B, F, C, H, W] (or [B, C, H, W], one frame) splice the
+    visual embeddings over the IMAGE_TOKEN_INDEX markers (frame 0 un-merged
+    with cfg.slowfast); without them the batch is text. remat applies to
+    the ViT and the LLM layers alike. Attention takes the flash kernels
+    for CUDA tensors without an attention mask (`mha`'s rule).
+    """
+    if segment_ids is not None:
+        raise NotImplementedError("packed batches (segment_ids) are not "
+                                  "ported: fuse_multimodal has no segment "
+                                  "ids yet")
+    cfg = model.cfg
+    if pixel_values is not None:
+        if pixel_values.dim() == 4:     # one image → a one-frame video
+            pixel_values = pixel_values[:, None]
+        if cfg.slowfast and pixel_values.shape[1] != 1:
+            groups = list(encode_visual_slowfast(model, pixel_values,
+                                                 kept_ratio, remat))
+        else:
+            groups = [encode_visual(model, pixel_values, kept_ratio, remat)]
+        fused = fuse_multimodal(model.llm.embed_tokens, input_ids, groups,
+                                attention_mask, labels)
+    else:
+        fused = {"inputs_embeds": model.llm.embed_tokens[input_ids],
+                 "attention_mask": attention_mask, "position_ids": None,
+                 "labels": labels}
+    if mode == "inference":
+        return fused
+    logits = llama_apply(model.llm, cfg.llm,
+                         inputs_embeds=fused["inputs_embeds"],
+                         attention_mask=fused["attention_mask"],
+                         position_ids=fused["position_ids"], remat=remat)
+    if mode in ("tensor", "predict"):
+        return logits
+    if mode == "loss":
+        return llama_lm_loss(logits, fused["labels"])
+    raise ValueError(f"unknown mode {mode!r}")

@@ -8,9 +8,14 @@ of `nn.Linear`s ([out, in] weights), or, for W4 serving, of `W4Linear`s
 (nibble-packed int4 + group scales, the port's layout of
 ops/pallas/quant_matmul.py) with an int8 `W8Linear` LM head. A layer
 holds either the per-name projections (q, k, v, o, gate, up, down) or the
-fused serving streams (qkv, o, gateup, down). The serving forward lives in
-serve/engine.py; the offline `llama_apply` and loss wait for the
-training slice.
+fused serving streams (qkv, o, gateup, down).
+
+The serving forward over KV rows lives in serve/engine.py. Here is the
+offline forward `llama_apply` (no KV cache), the training and scoring
+path: attention through `ops.attention.mha` (the flash kernels on the
+card), per-layer remat (models/remat.py), fp32 logits. `llama_lm_loss` is
+the shifted cross-entropy. Dense bf16/fp32 layers only; W4/W8 layers
+raise NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -19,7 +24,14 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from aurora_tpu_torch.models.remat import remat_call
+from aurora_tpu_torch.ops.attention import mha
+from aurora_tpu_torch.ops.norms import family_act, family_norm
+from aurora_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from aurora_tpu_torch.utils.constants import IGNORE_INDEX
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,3 +174,129 @@ class LlamaModel(nn.Module):
             self.lm_head = W8Linear.empty(d, cfg.vocab_size, device=device)
         else:
             self.lm_head = nn.Linear(d, cfg.vocab_size, bias=False, **kw)
+
+
+def _dense(h, proj):
+    return proj(h)
+
+
+def layer_qkv(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense):
+    """h [B, T, D] → q [B, T, H, hd], k, v [B, T, Hkv, hd] through the
+    per-name or the fused (qkv) projections; `dot(h, proj)` computes one
+    projection (the serving engine passes its W4-aware one)."""
+    B, T, _ = h.shape
+    H, Hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    if hasattr(lp, "qkv"):          # fused stream
+        q, k, v = dot(h, lp.qkv).split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    else:
+        q, k, v = dot(h, lp.q), dot(h, lp.k), dot(h, lp.v)
+    return (q.reshape(B, T, H, hd), k.reshape(B, T, Hkv, hd),
+            v.contiguous().reshape(B, T, Hkv, hd))
+
+
+def layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense):
+    """The SiLU-gated MLP, per-name or fused (gateup)."""
+    if hasattr(lp, "gateup"):       # fused stream
+        gate, up = dot(h, lp.gateup).chunk(2, dim=-1)
+    else:
+        gate, up = dot(h, lp.gate), dot(h, lp.up)
+    return dot(family_act(cfg, gate) * up, lp.down)
+
+
+def _layer(cfg: LlamaConfig, lp: LlamaLayer, x, cos, sin, mask,
+           segment_ids, use_flash):
+    B, T, _ = x.shape
+    q, k, v = layer_qkv(cfg, lp, family_norm(cfg, x, lp.input_norm))
+    q, k = apply_rope(q, k, cos, sin)
+    attn = mha(q, k, v, causal=True, mask=mask, q_segment_ids=segment_ids,
+               kv_segment_ids=segment_ids, scale=cfg.attn_scale,
+               use_flash=use_flash)
+    x = x + lp.o(attn.reshape(B, T, -1))
+    return x + layer_mlp(cfg, lp, family_norm(cfg, x, lp.post_attn_norm))
+
+
+class _Fp32Logits(torch.autograd.Function):
+    """x [N, D] @ W^T accumulated and returned in fp32 for bf16/fp16 x and
+    W, as the reference's dot with preferred_element_type=f32; the
+    backward rounds the fp32 cotangent to the input dtype and runs its two
+    matmuls in it (what the TPU's default matmul precision does)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ w if ctx.needs_input_grad[0] else None
+        dw = g.t() @ x if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def _head_logits(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Logits in fp32: fp32 inputs through F.linear, narrower ones through
+    `_Fp32Logits` (no rounding of the logits to the input dtype)."""
+    if x.dtype == torch.float32:
+        return F.linear(x, weight)
+    lead = x.shape[:-1]
+    out = _Fp32Logits.apply(x.reshape(-1, x.shape[-1]), weight)
+    return out.reshape(*lead, -1)
+
+
+def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
+                input_ids: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                remat=False,
+                use_flash: Optional[bool] = None) -> torch.Tensor:
+    """Forward pass without a KV cache → logits [B, T, V] fp32.
+
+    attention_mask [B, T] bool: key-side padding mask (True = attend);
+    it sends attention to `mha_reference`, as in the reference. position_ids
+    [B, T] (default 0..T-1); segment_ids [B, T]: packed sequences attend
+    within their segment. remat: False, True/"full" or a policy name
+    (models/remat.py), per layer. use_flash: None lets `mha` decide.
+    """
+    if any(not isinstance(m, nn.Linear) for lp in model.layers
+           for m in lp.children()) or not isinstance(model.lm_head,
+                                                     nn.Linear):
+        raise NotImplementedError("llama_apply runs dense layers only; "
+                                  "W4/W8 (QLoRA) layers are not ported")
+    x = model.embed_tokens[input_ids] if inputs_embeds is None \
+        else inputs_embeds
+    B, T, _ = x.shape
+    if position_ids is None:
+        position_ids = torch.arange(T, device=x.device)[None].expand(B, T)
+    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_linear_scaling)
+    mask = None
+    if attention_mask is not None:
+        mask = attention_mask.to(torch.bool)[:, None, None, :]
+    for lp in model.layers:
+        x = remat_call(_layer, remat, cfg, lp, x, cos, sin, mask,
+                       segment_ids, use_flash)
+    x = family_norm(cfg, x, model.final_norm)
+    return _head_logits(x, model.lm_head.weight)
+
+
+def llama_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                  reduce: bool = True):
+    """Shifted next-token cross-entropy with IGNORE_INDEX (-100) masking →
+    (mean loss over the valid tokens, their count); reduce=False gives the
+    per-token losses [B, T-1] instead of the mean."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels, 0)
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    token_ll = logp.gather(-1, safe[..., None])[..., 0]
+    token_loss = torch.where(valid, -token_ll, 0.0)
+    n = valid.sum()
+    if reduce:
+        return token_loss.sum() / n.clamp_min(1), n
+    return token_loss, n

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aurora_tpu_torch.models.remat import remat_call
 from aurora_tpu_torch.ops.attention import mha_reference
 from aurora_tpu_torch.ops.norms import layer_norm, quick_gelu
 from aurora_tpu_torch.ops.tome import (bipartite_soft_matching, merge_wavg,
@@ -168,11 +169,11 @@ def vit_tome_r(cfg: ViTConfig, kept_ratio: float, h: int, w: int) -> int:
 
 
 def vit_encode(vit: VisionTransformer, pixel_values: torch.Tensor, *,
-               kept_ratio: float = 1.0, select_layer: int = -2
-               ) -> torch.Tensor:
+               kept_ratio: float = 1.0, select_layer: int = -2,
+               remat=False) -> torch.Tensor:
     """[B, C, H, W] → hidden state entering layer `select_layer` (the
     final output for −1), token 0 dropped: [B, T_sel - 1, D]. Layers past
-    the selected one are not run."""
+    the selected one are not run. remat: per layer (models/remat.py)."""
     cfg = vit.cfg
     _, _, H, W = pixel_values.shape
     x = vit.pre_layernorm(vit.embed(pixel_values))
@@ -181,5 +182,5 @@ def vit_encode(vit: VisionTransformer, pixel_values: torch.Tensor, *,
     n_run = select_layer % (cfg.num_hidden_layers + 1)
     size = None
     for li in range(n_run):
-        x, size = vit.layers[li](x, size, sched[li].r)
+        x, size = remat_call(vit.layers[li], remat, x, size, sched[li].r)
     return x[:, 1:]

@@ -38,6 +38,12 @@ SIGNATURES = {
         [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
     "aurora_w4a8_matmul":
         [_P] * 7 + [_I] * 6 + [_P],
+    "aurora_flash_fwd":
+        [_P] * 7 + [_I] * 7 + [_F, _P],
+    "aurora_flash_bwd_dkv":
+        [_P] * 10 + [_I] * 7 + [_F, _P],
+    "aurora_flash_bwd_dq":
+        [_P] * 9 + [_I] * 7 + [_F, _P],
 }
 
 _lib = None

@@ -38,9 +38,9 @@ import torch
 from torch import nn
 
 from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
-                                           W4Linear, W8Linear,
-                                           projection_shapes, w4_group)
-from aurora_tpu_torch.ops.norms import family_act as _act
+                                           W4Linear, W8Linear, layer_mlp,
+                                           layer_qkv, projection_shapes,
+                                           w4_group)
 from aurora_tpu_torch.ops.norms import family_norm as _norm
 from aurora_tpu_torch.ops.pallas.quant_matmul import (INV127,
                                                       quantize_activations,
@@ -232,27 +232,6 @@ def _wdot(h, proj):
     return proj(h)
 
 
-def _qkv(cfg: LlamaConfig, lp, h):
-    Bk, T, _ = h.shape
-    H, Hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
-    if hasattr(lp, "qkv"):          # fused stream
-        q, k, v = _wdot(h, lp.qkv).split([H * hd, Hkv * hd, Hkv * hd],
-                                         dim=-1)
-    else:
-        q, k, v = _wdot(h, lp.q), _wdot(h, lp.k), _wdot(h, lp.v)
-    return (q.reshape(Bk, T, H, hd), k.reshape(Bk, T, Hkv, hd),
-            v.contiguous().reshape(Bk, T, Hkv, hd))
-
-
-def _mlp(cfg: LlamaConfig, lp, h):
-    if hasattr(lp, "gateup"):       # fused stream
-        gate, up = _wdot(h, lp.gateup).chunk(2, dim=-1)
-    else:
-        gate, up = _wdot(h, lp.gate), _wdot(h, lp.up)
-    return _wdot(_act(cfg, gate) * up, lp.down)
-
-
 @dataclasses.dataclass
 class KVWriteIndex:
     """Where an extend wave's new K/V land: token t_idx of lane lane_idx
@@ -328,7 +307,7 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
                             cfg.rope_linear_scaling)
     for l, lp in enumerate(model.layers):
         h = _norm(cfg, x, lp.input_norm)
-        q, k, v = _qkv(cfg, lp, h)
+        q, k, v = layer_qkv(cfg, lp, h, _wdot)
         q, k = apply_rope(q, k, cos, sin)
         layer = layer_ids[l:l + 1]
         if T == 1:
@@ -345,7 +324,7 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
                                     q_offsets, row_ids, layer=layer,
                                     scale=cfg.attn_scale, **scales)
         x = x + _wdot(attn.reshape(Bk, T, -1).to(x.dtype), lp.o)
-        x = x + _mlp(cfg, lp, _norm(cfg, x, lp.post_attn_norm))
+        x = x + layer_mlp(cfg, lp, _norm(cfg, x, lp.post_attn_norm), _wdot)
     x = _norm(cfg, x, model.final_norm)
     last = (kv_lens.long() - q_offsets.long() - 1).clamp(0, T - 1)
     return x[torch.arange(Bk, device=x.device), last]

@@ -8,8 +8,11 @@ weights (seeded): uint8 frames → CLIP normalize → ViT-H/14 with ToMe →
 projector → fusion → one batched extend → 256-token greedy decode via
 `aurora_tpu_torch.serve.engine.ServeEngine`, first with bf16 weights and
 bf16 KV, then with the LLM quantized on the card to W4 weights (int8 LM
-head) and int8 KV. Phases, one line each; any failure raises and exits
-non-zero:
+head) and int8 KV. Then the training step of bench.py's training stage
+(`aurora_tpu_torch.train.trainer.make_train_step`): Vicuna-7B widths at
+depth 4, seq 2048, batch 4, bf16, AdamW, full remat, text-only batches
+without an attention mask, so that attention runs the flash kernels.
+Phases, one line each; any failure raises and exits non-zero:
 
 1. device        — requires CUDA; prints the card's name and power limit
 2. build         — compiles the CUDA kernels from aurora_tpu_torch/csrc
@@ -29,12 +32,29 @@ non-zero:
                    int8 KV; the int8 attention and W4A8 launch counts must
                    rise and every plain twin's stay 0
 8. logits-w4kv8  — as 5, on the W4 + int8-KV engine
-9. the kernels' JSON line, then {"ok": true, "device": {...}} last.
+9. kernels flash — the flash forward, dK/dV and dQ kernels vs the fp32
+                   twin (out, lse, dQ/dK/dV from one seeded dO) at the
+                   training shape (B 4, T 2048, H 32, D 128, causal),
+                   again with segment ids and q_offset 128 (T 384, S 512) and
+                   with GQA and a random lse cotangent through
+                   flash_attention_lse (Hkv 8); backward bitwise
+                   repeatable; timed against the twin and against
+                   F.scaled_dot_product_attention (the yardstick only)
+10. train        — one warm-up and 5 timed steps; losses and grad norms
+                   finite, each flash kernel's launch count rises (the
+                   forward twice a layer with remat), the plain twins' stay 0
+11. train-parity — one depth-2 step with the kernels and one through
+                   mha_reference (the same batch with an all-true
+                   attention_mask), same weights: loss, grad norm and each
+                   layer's q/k/v/o weight gradients
+12. the kernels' JSON line (each kernel's bound and library time
+   included), then {"ok": true, "device": {...}} last.
 
 float32 references run with TF32 disabled for matmuls and cuDNN
 convolutions, so they are true fp32.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -70,6 +90,26 @@ LOGITS_W4_REL_TOL = 5e-2  # the same on the W4 + int8-KV engine
 # the 7B's decode projections (fused streams): name, K, N
 W4_SHAPES = (("qkv", 4096, 12288), ("o", 4096, 4096),
              ("gateup", 4096, 22016), ("down", 11008, 4096))
+# Flash kernels vs their fp32 twin, bf16 inputs: out max abs, per query
+# row max abs over the row's max |out|, lse max abs, and per gradient
+# max |Δ| / max |want|; measured on an H100 (PERF.md): 1.03e-2, 6.2e-3,
+# 1.4e-6, 5.0e-3
+FLASH_ABS_TOL = 2e-2
+FLASH_ROW_TOL = 1.5e-2
+FLASH_LSE_TOL = 1e-4
+FLASH_GRAD_TOL = 1.5e-2
+# one depth-2 bf16 train step, kernels vs mha_reference (SDPA): relative
+# difference of the loss and of the grad norm (measured 1.2e-5, 1.9e-6),
+# and over each layer's q/k/v/o weight gradients the worst max |Δ| / max
+# |want| (measured 1.96e-2; median over the 8 weights 1.21e-2)
+TRAIN_PARITY_TOL = 1e-3
+TRAIN_GRAD_TOL = 4e-2
+# steps of bench.py's training stage (train/bench_stage.py)
+TRAIN_STEPS = 6
+# H100 SXM5 data sheet: dense bf16 tensor-core peak, int8 peak, HBM rate
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(cond, msg):
@@ -114,6 +154,20 @@ def cuda_ms(fn, reps=5):
     return float(np.median(times))
 
 
+def least_ms(ops, nbytes, peak=PEAK_BF16):
+    """(least ms on the card, "bytes" or "operations"): the larger of the
+    bytes over the HBM rate and the operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def grad_ms(torch, outs, leaves, cots, reps=5):
+    """Median ms of one backward through a kept graph."""
+    return cuda_ms(lambda: torch.autograd.grad(outs, leaves, cots,
+                                               retain_graph=True), reps)
+
+
 class ByteTokenizer:
     """Stand-in tokenizer (no tokenizer files exist): BOS 1, then one id
     per UTF-8 byte, offset past the special ids."""
@@ -129,8 +183,12 @@ def attention_case(torch, ra, dev, g, hkv, int8, L=32, S=1792, T=1536,
     """Both attention kernels vs their plain twins at the serving shapes
     (L = 32, S = 1792, hd = 128), bf16 KV or int8 KV on the kv_quantize
     grid, with GQA, permuted rows, a query offset > 0 and a padded /
-    inactive lane → (extend err, ms, plain ms, decode err, ms, plain ms)."""
-    B, hd = 4, 128
+    inactive lane → {"extend"|"decode": {err, ms, plain_ms, library_ms,
+    bound_ms, bound_by}}. The library call (bf16 KV, Hkv = Hq only) is one
+    F.scaled_dot_product_attention over the lanes' rows, gathered
+    beforehand, with a boolean mask."""
+    import torch.nn.functional as F
+    B, hd, Hq = 4, 128, 32
     bf = dict(device=dev, dtype=torch.bfloat16)
     i32 = dict(device=dev, dtype=torch.int32)
     k = torch.randn((L, B, hkv, S, hd), generator=g, **bf)
@@ -142,14 +200,23 @@ def attention_case(torch, ra, dev, g, hkv, int8, L=32, S=1792, T=1536,
     rnd = INT8_ROUNDING if int8 else 0.0
     lay = min(17, L - 1)
     layer = torch.tensor([lay], **i32)
-    rows = torch.tensor([2, 0, 3, 1], **i32)
+    rows_l = [2, 0, 3, 1]
+    rows = torch.tensor(rows_l, **i32)
     mode = "int8" if int8 else "bf16"
+    # bytes of one key (K and V, scales with int8) of one KV head
+    key_bytes = 2 * hd * (1 if int8 else 2) + (8 if int8 else 0)
+    library = not int8 and hkv == Hq
+    if library:     # the lanes' rows, for the library call
+        krow = torch.stack([k[lay, r] for r in rows_l])   # [B, Hkv, S, hd]
+        vrow = torch.stack([v[lay, r] for r in rows_l])
+    spos = torch.arange(S, device=dev)
 
-    q = torch.randn((B, T, 32, hd), generator=g, **bf)
-    offs = torch.tensor(offs, **i32)
-    lens = torch.tensor(lens, **i32)
-    got = ra.ragged_attention(q, k, v, lens, offs, rows, layer=layer, **kv)
-    want = ra.ragged_attention_plain(q.float(), k, v, lens, offs, rows,
+    q = torch.randn((B, T, Hq, hd), generator=g, **bf)
+    offs_t = torch.tensor(offs, **i32)
+    lens_t = torch.tensor(lens, **i32)
+    got = ra.ragged_attention(q, k, v, lens_t, offs_t, rows, layer=layer,
+                              **kv)
+    want = ra.ragged_attention_plain(q.float(), k, v, lens_t, offs_t, rows,
                                      layer=lay, **kv)
     torch.cuda.synchronize()
     diff = (got.float() - want).abs()
@@ -160,24 +227,39 @@ def attention_case(torch, ra, dev, g, hkv, int8, L=32, S=1792, T=1536,
     check(bool((diff <= EXTEND_ABS_TOL + rnd * want.abs()).all()),
           f"extend {mode} hkv={hkv} err {err_e}")
     check(rel_e <= EXTEND_REL_TOL, f"extend {mode} hkv={hkv} rel {rel_e}")
-    ms_e = cuda_ms(lambda: ra.ragged_attention(q, k, v, lens, offs, rows,
+    ms_e = cuda_ms(lambda: ra.ragged_attention(q, k, v, lens_t, offs_t, rows,
                                                layer=layer, **kv))
     ms_ep = cuda_ms(lambda: ra.ragged_attention_plain(
-        q, k, v, lens, offs, rows, layer=lay, **kv), reps=3)
+        q, k, v, lens_t, offs_t, rows, layer=lay, **kv), reps=3)
+    # work of these inputs: query row t of lane i sees min(off + t + 1,
+    # len) keys; K/V rows read up to each lane's length
+    seen = sum(int(np.minimum(o + np.arange(T) + 1, n).sum())
+               for o, n in zip(offs, lens) if n > 0)
+    extend_bound = least_ms(seen * Hq * 4 * hd,
+                         2 * q.numel() * 2 + sum(lens) * hkv * key_bytes)
+    lib_e = None
+    if library:
+        qpos = offs_t[:, None].long() + torch.arange(T, device=dev)
+        emask = ((spos[None, None, :] <= qpos[:, :, None])
+                 & (spos[None, None, :] < lens_t[:, None, None]))[:, None]
+        qt = q.transpose(1, 2)
+        lib_e = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, krow, vrow, attn_mask=emask))
     del q, got, want, diff
 
-    qd = torch.randn((B, 1, 32, hd), generator=g, **bf)
+    qd = torch.randn((B, 1, Hq, hd), generator=g, **bf)
     kn = torch.randn((B, hkv, hd), generator=g, **bf)
     vn = torch.randn((B, hkv, hd), generator=g, **bf)
     vn[3, 1] = 0                          # an all-zero token: the 1e-8 floor
-    dlens = torch.tensor(dlens, **i32)
+    dlens_t = torch.tensor(dlens, **i32)
     state = [k, v] + list(kv.values())
     plain = [t.clone() for t in state]
     pkv = dict(zip(kv, plain[2:]))
-    out = ra.ragged_decode_attention(qd, kn, vn, k, v, dlens, rows,
+    out = ra.ragged_decode_attention(qd, kn, vn, k, v, dlens_t, rows,
                                      layer=layer, **kv)[0]
     want = ra.ragged_decode_attention_plain(qd.float(), kn, vn, *plain[:2],
-                                            dlens, rows, layer=lay, **pkv)[0]
+                                            dlens_t, rows, layer=lay,
+                                            **pkv)[0]
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(state, plain)),
           f"decode {mode} row/scale writes differ from the plain twin")
@@ -189,25 +271,47 @@ def attention_case(torch, ra, dev, g, hkv, int8, L=32, S=1792, T=1536,
           f"decode {mode} hkv={hkv} err {err_d}")
     check(rel_d <= DECODE_REL_TOL, f"decode {mode} hkv={hkv} rel {rel_d}")
     ms_d = cuda_ms(lambda: ra.ragged_decode_attention(
-        qd, kn, vn, k, v, dlens, rows, layer=layer, **kv), reps=20)
+        qd, kn, vn, k, v, dlens_t, rows, layer=layer, **kv), reps=20)
     ms_dp = cuda_ms(lambda: ra.ragged_decode_attention_plain(
-        qd, kn, vn, *plain[:2], dlens, rows, layer=lay, **pkv), reps=20)
+        qd, kn, vn, *plain[:2], dlens_t, rows, layer=lay, **pkv), reps=20)
+    # the KV rows each lane reads, the new tokens, q and out
+    decode_bound = least_ms(sum(dlens) * Hq * 4 * hd,
+                         sum(dlens) * hkv * key_bytes
+                         + 2 * qd.numel() * 2 + 2 * kn.numel() * 2)
+    lib_d = None
+    if library:
+        dmask = (spos[None, :] < dlens_t[:, None])[:, None, None, :]
+        qdt = qd.transpose(1, 2)
+        lib_d = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qdt, krow, vrow, attn_mask=dmask), reps=20)
     phase("kernels", kv=mode, hkv=hkv, extend_err=f"{err_e:.3e}",
           extend_rel=f"{rel_e:.3e}", extend_ms=f"{ms_e:.3f}",
-          extend_plain_ms=f"{ms_ep:.3f}", decode_err=f"{err_d:.3e}",
-          decode_rel=f"{rel_d:.3e}", decode_ms=f"{ms_d:.4f}",
-          decode_plain_ms=f"{ms_dp:.4f}",
+          extend_plain_ms=f"{ms_ep:.3f}",
+          extend_bound_ms=f"{extend_bound[0]:.4f}",
+          extend_library_ms=lib_e and f"{lib_e:.3f}",
+          decode_err=f"{err_d:.3e}", decode_rel=f"{rel_d:.3e}",
+          decode_ms=f"{ms_d:.4f}", decode_plain_ms=f"{ms_dp:.4f}",
+          decode_bound_ms=f"{decode_bound[0]:.4f}",
+          decode_library_ms=lib_d and f"{lib_d:.4f}",
           tol=f"extend:{EXTEND_ABS_TOL}/{EXTEND_REL_TOL},"
               f"decode:{DECODE_ABS_TOL}/{DECODE_REL_TOL}"
               + (f",+{rnd:g}|want|" if int8 else ""))
-    return err_e, ms_e, ms_ep, err_d, ms_d, ms_dp
+    return {"extend": dict(err=err_e, ms=ms_e, plain_ms=ms_ep,
+                           library_ms=lib_e, bound_ms=extend_bound[0],
+                           bound_by=extend_bound[1]),
+            "decode": dict(err=err_d, ms=ms_d, plain_ms=ms_dp,
+                           library_ms=lib_d, bound_ms=decode_bound[0],
+                           bound_by=decode_bound[1])}
 
 
 def w4a8_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
     """The W4A8 kernel vs its plain twin at the 7B's four decode
-    projections, B = 4 → (max rel err, summed ms, summed plain ms)."""
+    projections, B = 4 → (max abs err, summed ms, summed plain ms, bound
+    (ms, by) of the four: packed weights, scales, activations and output
+    once each, int8 operations at the int8 peak)."""
     B = 4
     errs, ms, plain_ms = [], 0.0, 0.0
+    nbytes, ops = 0, 0
     for name, K, N in shapes:
         w = torch.randn((N, K), generator=g, device=dev) * 0.02
         packed, scale = quantize_w4(w)
@@ -236,9 +340,269 @@ def w4a8_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
         errs.append((got - want).abs().max().item())
         ms += t
         plain_ms += tp
+        nbytes += packed.numel() + 4 * scale.numel() + 2 * h.numel() \
+            + 2 * B * N
+        ops += 2 * B * K * N
         del packed, scale, got, again, got16, want
     torch.cuda.empty_cache()
-    return max(errs), ms, plain_ms
+    return max(errs), ms, plain_ms, least_ms(ops, nbytes, PEAK_INT8)
+
+
+def flash_case(torch, fa, dev, g, B, T, H, Hkv, q_offset=0,
+               segments=False, with_lse=False, timed=False):
+    """The flash kernels vs the fp32 twin on one seeded case (causal, D =
+    128): out, lse, and dQ/dK/dV from one backward with a random dO (and
+    a random lse cotangent with with_lse); a second backward must agree
+    bitwise → errors, and with timed (H == Hkv, no segments) the kernels',
+    the twin's and SDPA's times and the three kernels' bounds."""
+    import torch.nn.functional as F
+    D, S = 128, T + q_offset
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q = torch.randn((B, T, H, D), generator=g, **bf)
+    k = torch.randn((B, S, Hkv, D), generator=g, **bf)
+    v = torch.randn((B, S, Hkv, D), generator=g, **bf)
+    dout = torch.randn((B, T, H, D), generator=g, **bf)
+    kw = dict(causal=True, q_offset=q_offset)
+    segs = (None, None)
+    if segments:
+        # three packed documents; the last row's tail carries an id no
+        # key has, so those queries see nothing
+        seg = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        seg[:, S // 3:] = 1
+        seg[:, 2 * S // 3:] = 2
+        qseg = seg[:, q_offset:].clone()
+        qseg[-1, 3 * T // 4:] = 9
+        segs = (qseg, seg)
+        kw.update(q_segment_ids=qseg, kv_segment_ids=seg)
+    cots = [dout]
+    if with_lse:
+        cots.append(torch.randn((B, H, T), generator=g, device=dev))
+
+    def run(fn, leaves):
+        outs = fn(*leaves)
+        outs = outs if with_lse else outs[:1]
+        cot = [c.to(outs[0].dtype) if i == 0 else c
+               for i, c in enumerate(cots)]
+        return outs, torch.autograd.grad(outs, leaves, cot)
+
+    def kernel(*a):
+        if with_lse:
+            return fa.flash_attention_lse(*a, **kw)
+        return fa.flash_attention(*a, **kw), None
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (out, *lse), grads = run(kernel, leaves)
+    _, again = run(kernel, [t.clone().requires_grad_() for t in (q, k, v)])
+    fleaves = [t.float().requires_grad_() for t in (q, k, v)]
+    (w_out, *w_lse), w_grads = run(
+        lambda *a: fa.flash_attention_plain(*a, **kw), fleaves)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          "flash backward is not bitwise repeatable")
+    diff = (out.float() - w_out).abs()
+    res = {"out_err": diff.max().item(),
+           "row_rel": (diff.amax(-1) / w_out.abs().amax(-1).clamp_min(
+               1e-6)).max().item()}
+    if with_lse:
+        res["lse_err"] = (lse[0] - w_lse[0]).abs().max().item()
+    else:   # the kernels' lse of the same inputs, through the forward op
+        qf, kf, vf, qs, ks = fa._card_inputs(q, k, v, *segs)
+        _, lse_k = torch.ops.aurora_tpu_torch.flash_fwd(
+            qf, kf, vf, qs, ks, True, D ** -0.5, q_offset)
+        w_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                         **kw)[1]
+        res["lse_err"] = (lse_k - w_lse).abs().max().item()
+    for name, a, b in zip(("dq", "dk", "dv"), grads, w_grads):
+        res[name + "_err"] = (a.float() - b).abs().max().item()
+        res[name + "_rel"] = ((a.float() - b).abs().max()
+                              / b.abs().max()).item()
+    if segments:
+        check(bool((out[-1, 3 * T // 4:] == 0).all()),
+              "flash rows that see no key are not zero")
+    check(bool(torch.isfinite(out).all())
+          and all(bool(torch.isfinite(t).all()) for t in grads),
+          "flash outputs not finite")
+    check(res["out_err"] <= FLASH_ABS_TOL, f"flash out err {res}")
+    check(res["row_rel"] <= FLASH_ROW_TOL, f"flash out row rel {res}")
+    check(res["lse_err"] <= FLASH_LSE_TOL, f"flash lse err {res}")
+    check(all(res[n + "_rel"] <= FLASH_GRAD_TOL for n in ("dq", "dk", "dv")),
+          f"flash grad rel {res}")
+    del out, lse, grads, again, w_out, w_lse, w_grads, fleaves
+    if timed:
+        res.update(flash_times(torch, F, fa, q, k, v, dout))
+    phase("kernels", flash=f"B{B}/T{T}/S{S}/H{H}/Hkv{Hkv}/D{D}",
+          q_offset=q_offset, segments=segments, lse_cotangent=with_lse,
+          **{k_: (f"{x:.4g}" if isinstance(x, float) else x)
+             for k_, x in res.items()},
+          tol=f"{FLASH_ABS_TOL}/{FLASH_ROW_TOL}/{FLASH_LSE_TOL}/"
+              f"{FLASH_GRAD_TOL}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def flash_times(torch, F, fa, q, k, v, dout):
+    """Each flash kernel alone, the wrapper forward + backward, the fp32
+    twin's and SDPA's (is_causal) forward, backward and forward +
+    backward — CUDA-event medians — with the three kernels' bounds at
+    these inputs."""
+    B, T, H, D = q.shape
+    scale = D ** -0.5
+    out, lse = torch.ops.aurora_tpu_torch.flash_fwd(q, k, v, None, None,
+                                                    True, scale, 0)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    args = (q, k, v, dout, lse, delta, None, None, True, scale, 0)
+    t = {"fwd_ms": cuda_ms(lambda: torch.ops.aurora_tpu_torch.flash_fwd(
+        q, k, v, None, None, True, scale, 0), reps=10),
+         "dkv_ms": cuda_ms(lambda: fa.bwd_dkv(*args), reps=10),
+         "dq_ms": cuda_ms(lambda: fa.bwd_dq(*args), reps=10)}
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    t["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        fa.flash_attention(*leaves, causal=True), leaves, dout), reps=10)
+    fleaves = [x.float().requires_grad_() for x in (q, k, v)]
+    with torch.no_grad():
+        t["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+            *fleaves, causal=True), reps=3)
+    t["plain_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        fa.flash_attention_plain(*fleaves, causal=True)[0], fleaves,
+        dout.float()), reps=3)
+    w_out = fa.flash_attention_plain(*fleaves, causal=True)[0]
+    t["plain_bwd_ms"] = grad_ms(torch, w_out, fleaves, dout.float(), reps=3)
+    del w_out, fleaves
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+    with torch.no_grad():
+        t["library_fwd_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True), reps=10)
+    t["library_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), leaves,
+        dout.transpose(1, 2)), reps=10)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    t["library_bwd_ms"] = grad_ms(torch, lib_out, leaves,
+                                  dout.transpose(1, 2), reps=10)
+    # each visible (query, key) pair costs 2D multiply-adds per product:
+    # forward QK^T and PV; dK/dV S^T, dP^T, dV, dK; dQ S, dP, dQ
+    pairs = B * H * int(np.minimum(np.arange(T) + 1, T).sum())
+    elem = q.numel() * 2
+    rows = B * H * T * 4
+    t["fwd_bound"] = least_ms(pairs * 4 * D, 4 * elem + rows)
+    t["dkv_bound"] = least_ms(pairs * 8 * D, 6 * elem + 2 * rows)
+    t["dq_bound"] = least_ms(pairs * 6 * D, 5 * elem + 2 * rows)
+    return t
+
+
+def train_phase(torch, bs, dev, card, counters, plains):
+    """bench.py's training stage on the port (train/bench_stage.py): 1
+    warm-up + 5 timed steps, every count set to 0 just before and read
+    just after → the flash kernels' launch counts."""
+    from aurora_tpu_torch.train.metrics import megatron_tflops_per_device
+    from aurora_tpu_torch.train.trainer import (init_train_state,
+                                                make_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = bs.aurora_config()
+    model = bs.init_model(cfg, dev, SEED + 3)
+    tcfg = bs.train_config()
+    state = init_train_state(model, tcfg)
+    step = make_train_step(cfg, tcfg)
+    batch = bs.text_batch(cfg, dev)
+    for obj, attr in counters + plains:
+        setattr(obj, attr, 0)
+    times = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        phase("train-step", step=i, ms=f"{times[-1] * 1e3:.1f}",
+              loss=f"{loss:.5f}", grad_norm=f"{gnorm:.5f}",
+              lr=f"{m['lr']:.4e}")
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"step {i}: loss {loss} grad_norm {gnorm}")
+    counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+              for obj, attr in counters + plains}
+    step_s = float(np.median(times[1:]))
+    llm = cfg.llm
+    B, T = batch["input_ids"].shape
+    tflops = megatron_tflops_per_device(
+        B * T, step_s, llm.hidden_size, llm.num_hidden_layers,
+        llm.vocab_size, T, intermediate=llm.intermediate_size)
+    n_layer_steps = llm.num_hidden_layers * TRAIN_STEPS
+    fwd, dkv, dq = (counts[f"{obj.__name__}.{attr}"]
+                    for obj, attr in counters)
+    phase("train", card=repr(card),
+          config=f"vicuna-7b-widths/L{llm.num_hidden_layers}/seq{T}/"
+                 f"b{B}/bf16/adamw/remat-full/text-no-mask",
+          step_ms=f"{step_s * 1e3:.1f}",
+          tokens_per_s=f"{B * T / step_s:.1f}",
+          tflops=f"{tflops:.1f}",
+          mfu_pct=f"{tflops * 1e12 / PEAK_BF16 * 100:.1f}",
+          first_step_ms=f"{times[0] * 1e3:.1f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          launches=json.dumps(counts).replace(" ", ""))
+    check(fwd >= 2 * n_layer_steps and dkv >= n_layer_steps
+          and dq >= n_layer_steps, f"flash launches {counts}")
+    check(all(counts[f"{obj.__name__}.{attr}"] == 0 for obj, attr in plains),
+          f"plain twins ran: {counts}")
+    return fwd, dkv, dq
+
+
+def train_parity(torch, bs, fa, dev):
+    """One depth-2 step at the training widths through the flash kernels
+    and one through mha_reference (SDPA), from the same weights: the
+    second batch adds an all-true attention_mask, the same function,
+    which `mha` sends off the kernels → relative differences of the loss
+    and the grad norm, and the worst of each layer's q/k/v/o weight
+    gradients (max |Δ| / max |want|)."""
+    from aurora_tpu_torch.train.trainer import (Optimizer,
+                                                init_train_state,
+                                                make_train_step)
+
+    class Recording(Optimizer):
+        """The step's optimizer, keeping the attention weights' grads."""
+
+        def update(self, grads, state, model, gnorm=None):
+            self.grads = {n: g.clone() for n, g in zip(self.names, grads)
+                          if n.split(".")[-2] in ("q", "k", "v", "o")}
+            super().update(grads, state, model, gnorm)
+
+    cfg = bs.aurora_config(layers=2)
+    model = bs.init_model(cfg, dev, SEED + 4)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    tcfg = bs.train_config()
+    batch = bs.text_batch(cfg, dev, seed=6)
+    masked = dict(batch, attention_mask=torch.ones_like(
+        batch["input_ids"], dtype=torch.bool))
+    got = []
+    for b in (batch, masked):
+        model.load_state_dict(weights)
+        state = init_train_state(model, tcfg)
+        opt = Recording(model, tcfg)
+        launches = fa.flash_attention.launches_fwd
+        _, m = make_train_step(cfg, tcfg, opt)(state, b)
+        got.append((m["loss"].item(), m["grad_norm"].item(),
+                    fa.flash_attention.launches_fwd - launches, opt.grads))
+    (lk, gk, nk, wk), (lr_, gr, nr, wr) = got
+    check(nk > 0 and nr == 0, f"flash launches {nk} / {nr}")
+    check(len(wk) == 4 * cfg.llm.num_hidden_layers and set(wk) == set(wr),
+          f"attention weight grads {sorted(wk)}")
+    rel_loss, rel_gn = abs(lk - lr_) / abs(lr_), abs(gk - gr) / gr
+    rel_w = {n: ((wk[n].float() - wr[n].float()).abs().max()
+                 / wr[n].float().abs().max()).item() for n in wr}
+    worst = max(rel_w, key=rel_w.get)
+    phase("train-parity", layers=2, loss_kernels=f"{lk:.6f}",
+          loss_sdpa=f"{lr_:.6f}", grad_norm_kernels=f"{gk:.6f}",
+          grad_norm_sdpa=f"{gr:.6f}", rel_loss=f"{rel_loss:.3e}",
+          rel_grad_norm=f"{rel_gn:.3e}", tol=TRAIN_PARITY_TOL,
+          attn_grad_rel_worst=f"{rel_w[worst]:.3e}", worst_leaf=worst,
+          attn_grad_rel_median=f"{float(np.median(list(rel_w.values()))):.3e}",
+          grad_tol=TRAIN_GRAD_TOL)
+    check(rel_loss <= TRAIN_PARITY_TOL and rel_gn <= TRAIN_PARITY_TOL,
+          f"train parity {rel_loss} / {rel_gn}")
+    check(rel_w[worst] <= TRAIN_GRAD_TOL,
+          f"train parity attention grads {rel_w}")
 
 
 def serve(torch, engine, reqs, counters):
@@ -305,12 +669,14 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from aurora_tpu_torch.models.aurora import AuroraConfig, init_aurora
     from aurora_tpu_torch.ops import cuda_build
+    from aurora_tpu_torch.ops.pallas import flash_attention as fa
     from aurora_tpu_torch.ops.pallas import quant_matmul as qm
     from aurora_tpu_torch.ops.pallas import ragged_attention as ra
     from aurora_tpu_torch.serve import engine as engine_mod
     from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
     from aurora_tpu_torch.serve.multimodal import (_PLACEHOLDER_BASE,
                                                    AuroraCapServing)
+    from aurora_tpu_torch.train import bench_stage
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -333,6 +699,13 @@ def main():
             for mode in ("bf16", "int8") for hkv in (32, 8)}
     torch.cuda.empty_cache()
     w4res = w4a8_phase(torch, qm, engine_mod._w4, dev, g)
+    flash_res = [
+        flash_case(torch, fa, dev, g, bench_stage.BATCH, bench_stage.SEQ,
+                   32, 32, timed=True),
+        flash_case(torch, fa, dev, g, 2, 384, 8, 8, q_offset=128,
+                   segments=True),
+        flash_case(torch, fa, dev, g, 2, 1024, 32, 8, with_lse=True)]
+    flash_t = flash_res[0]
 
     # ---- main path at full width, bf16 ------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -464,31 +837,70 @@ def main():
                  {"ragged_attention": ra.ragged_attention_plain,
                   "w4a8_matmul_tiled": qm.w4a8_matmul_tiled_plain})
 
-    def entry(name, source, replaces, launches, mode, col):
-        """col: 0 for the extend kernel's columns of kres, 3 for decode."""
-        r32 = kres[(mode, 32)]       # the Vicuna shape: Hq = Hkv = 32
+    # ---- training at 7B widths (bench.py's training stage) --------------
+    del engine, llm_w4, model, mm
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_counters = [(fa.flash_attention, "launches_fwd"),
+                      (fa.flash_attention, "launches_dkv"),
+                      (fa.flash_attention, "launches_dq")]
+    launches_fwd, launches_dkv, launches_dq = train_phase(
+        torch, bench_stage, dev, card, flash_counters,
+        plains + [(fa.flash_attention_plain, "calls")])
+    torch.cuda.empty_cache()
+    train_parity(torch, bench_stage, fa, dev)
+
+    def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
+              bound_ms, library_ms):
         return {"name": name, "route": "cuda",
                 "source": f"aurora_tpu_torch/csrc/{source}",
                 "replaces": f"aurora_tpu/ops/pallas/{replaces}",
-                "launches": launches,
-                "max_abs_err": max(kres[(mode, h)][col] for h in (32, 8)),
-                "ms": r32[col + 1], "plain_ms": r32[col + 2]}
+                "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms[0],
+                "bound_by": bound_ms[1], "library_ms": library_ms}
+
+    def attn_entry(name, source, replaces, launches, mode, kind):
+        r = kres[(mode, 32)][kind]   # the Vicuna shape: Hq = Hkv = 32
+        err = max(kres[(mode, h)][kind]["err"] for h in (32, 8))
+        return entry(name, source, replaces, launches, err, r["ms"],
+                     r["plain_ms"], (r["bound_ms"], r["bound_by"]),
+                     r["library_ms"])
+
+    def flash_err(*names):
+        return max(res[n] for res in flash_res for n in names)
 
     kernels = [
-        entry("ragged_attention[bf16]", "ragged_extend.cu",
-              "ragged_attention.py:287", launches_bf16[0], "bf16", 0),
-        entry("ragged_decode_attention[bf16]", "ragged_decode.cu",
-              "ragged_attention.py:645", launches_bf16[1], "bf16", 3),
-        entry("ragged_attention[int8]", "ragged_extend.cu",
-              "ragged_attention.py:287", launches_q[0], "int8", 0),
-        entry("ragged_decode_attention[int8]", "ragged_decode.cu",
-              "ragged_attention.py:645", launches_q[1], "int8", 3),
+        attn_entry("ragged_attention[bf16]", "ragged_extend.cu",
+                   "ragged_attention.py:287", launches_bf16[0], "bf16",
+                   "extend"),
+        attn_entry("ragged_decode_attention[bf16]", "ragged_decode.cu",
+                   "ragged_attention.py:645", launches_bf16[1], "bf16",
+                   "decode"),
+        attn_entry("ragged_attention[int8]", "ragged_extend.cu",
+                   "ragged_attention.py:287", launches_q[0], "int8",
+                   "extend"),
+        attn_entry("ragged_decode_attention[int8]", "ragged_decode.cu",
+                   "ragged_attention.py:645", launches_q[1], "int8",
+                   "decode"),
         # ms: the four decode projections of one layer at B = 4, summed
-        {"name": "w4a8_matmul_tiled", "route": "cuda",
-         "source": "aurora_tpu_torch/csrc/w4a8_matmul.cu",
-         "replaces": "aurora_tpu/ops/pallas/quant_matmul.py:305",
-         "launches": launches_q[2], "max_abs_err": w4res[0],
-         "ms": w4res[1], "plain_ms": w4res[2]},
+        entry("w4a8_matmul_tiled", "w4a8_matmul.cu", "quant_matmul.py:305",
+              launches_q[2], w4res[0], w4res[1], w4res[2], w4res[3], None),
+        # flash at B 4, T 2048, H 32, D 128, causal; the two backward
+        # kernels share the twin's and SDPA's backward times
+        entry("flash_attention_fwd", "flash_attention.cu",
+              "flash_attention.py:121", launches_fwd,
+              flash_err("out_err"), flash_t["fwd_ms"],
+              flash_t["plain_fwd_ms"], flash_t["fwd_bound"],
+              flash_t["library_fwd_ms"]),
+        entry("flash_attention_bwd_dkv", "flash_attention.cu",
+              "flash_attention.py:176", launches_dkv,
+              flash_err("dk_err", "dv_err"), flash_t["dkv_ms"],
+              flash_t["plain_bwd_ms"], flash_t["dkv_bound"],
+              flash_t["library_bwd_ms"]),
+        entry("flash_attention_bwd_dq", "flash_attention.cu",
+              "flash_attention.py:237", launches_dq, flash_err("dq_err"),
+              flash_t["dq_ms"], flash_t["plain_bwd_ms"],
+              flash_t["dq_bound"], flash_t["library_bwd_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

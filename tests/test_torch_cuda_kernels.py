@@ -16,7 +16,15 @@ are not bf16 numbers, and each active lane's max error over its max
 (int8: values and scales) are exact. W4A8 matmul: max |Δ| / max |want|
 ≤ 1e-5 with fp32 output (only the fp32 order of the group sum differs),
 and bf16 output within one bf16 rounding of the twin's; repeated launches
-agree bitwise.
+agree bitwise. Flash attention (bf16 in, the fp32 twin on the same bf16
+values, causal, GQA, q_offset, segment ids with rows that see no key):
+out within 2e-2 max abs and, per query row, 1.5e-2 of that row's max
+|out|; lse within 1e-4 (fp32 on both sides from the same bf16 scores);
+each of dQ, dK, dV within 1.5e-2 of its max |want| (bf16 P and dS in the
+tensor-core products) — chip_smoke.py's bounds; repeated backward passes
+agree bitwise. The remat policies of a bf16 train step on the card give
+the same loss and grad norm (1e-5) and keep or recompute the flash
+forward as their names say.
 """
 
 
@@ -27,6 +35,7 @@ def _lane_rel(got, want, lanes):
 import pytest
 import torch
 
+from aurora_tpu_torch.ops.pallas import flash_attention as tfa
 from aurora_tpu_torch.ops.pallas import quant_matmul as tqm
 from aurora_tpu_torch.ops.pallas import ragged_attention as tra
 
@@ -178,3 +187,144 @@ def test_w4a8_kernel_matches_plain_on_card(cuda_device, B, K, N):
     # one bf16 rounding of the twin (2^-8 relative), plus the fp32 slack
     bound = want.abs() * 2.0 ** -8 + 1e-5 * want.abs().max()
     assert bool(((got16.float() - want).abs() <= bound).all())
+
+
+def _flash_inputs(dev, seed, B, T, S, H, Hkv, D):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(device=dev, dtype=torch.bfloat16)
+    q, g = (torch.randn((B, T, H, D), generator=gen, **kw) for _ in "qg")
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, **kw) for _ in "kv")
+    return q, k, v, g
+
+
+def _grads(fn, q, k, v, *cot):
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    grads = torch.autograd.grad(outs, leaves, cot)
+    return [o.detach() for o in outs], list(grads)
+
+
+def _grad_rel(got, want):
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hkv,D,q_offset,segments", [
+    (8, 128, 0, False), (2, 128, 0, False), (8, 128, 64, True),
+    (8, 64, 0, False)])
+def test_flash_kernels_match_plain_on_card(cuda_device, Hkv, D, q_offset,
+                                           segments):
+    B, T, H = 2, 300, 8
+    S = T + q_offset
+    q, k, v, g = _flash_inputs(cuda_device, D + Hkv, B, T, S, H, Hkv, D)
+    kw = dict(causal=True, q_offset=q_offset)
+    if segments:
+        seg = torch.zeros((B, S), dtype=torch.int32, device=cuda_device)
+        seg[:, 100:230] = 1
+        seg[:, 230:] = 2
+        qseg = seg[:, q_offset:].clone()
+        qseg[1, 200:] = 9                    # rows that see no key
+        kw.update(q_segment_ids=qseg, kv_segment_ids=seg)
+    counters = ("launches_fwd", "launches_dkv", "launches_dq")
+    launches = [getattr(tfa.flash_attention, c) for c in counters]
+    (got,), got_g = _grads(
+        lambda *a: tfa.flash_attention(*a, **kw), q, k, v, g)
+    (want,), want_g = _grads(
+        lambda *a: tfa.flash_attention_plain(*a, **kw)[0],
+        q.float(), k.float(), v.float(), g.float())
+    torch.cuda.synchronize()
+    assert [getattr(tfa.flash_attention, c) for c in counters] == [
+        n + 1 for n in launches]
+    diff = (got.float() - want).abs()
+    assert diff.max().item() <= 2e-2
+    row_max = want.abs().amax(-1).clamp_min(1e-6)
+    assert (diff.amax(-1) / row_max).max().item() <= 1.5e-2
+    if segments:
+        assert bool((got[1, 200:] == 0).all())
+        assert bool((got_g[0][1, 200:] == 0).all())
+    for name, a, b in zip("qkv", got_g, want_g):
+        assert _grad_rel(a, b) <= 1.5e-2, name
+
+
+@pytest.mark.cuda
+def test_flash_lse_kernel_matches_plain_on_card(cuda_device):
+    B, T, H, Hkv, D = 2, 256, 8, 4, 128
+    q, k, v, g = _flash_inputs(cuda_device, 77, B, T, T, H, Hkv, D)
+    g_lse = torch.randn((B, H, T), device=cuda_device)
+    (out, lse), got_g = _grads(
+        lambda *a: tfa.flash_attention_lse(*a, causal=True), q, k, v, g,
+        g_lse)
+    (w_out, w_lse), want_g = _grads(
+        lambda *a: tfa.flash_attention_plain(*a, causal=True),
+        q.float(), k.float(), v.float(), g.float(), g_lse)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32
+    assert (out.float() - w_out).abs().max().item() <= 2e-2
+    assert (lse - w_lse).abs().max().item() <= 1e-4
+    for name, a, b in zip("qkv", got_g, want_g):
+        assert _grad_rel(a, b) <= 1.5e-2, name
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic_on_card(cuda_device):
+    q, k, v, g = _flash_inputs(cuda_device, 5, 2, 512, 512, 8, 8, 128)
+    runs = [_grads(lambda *a: tfa.flash_attention(*a, causal=True),
+                   q, k, v, g)[1] for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+@pytest.mark.cuda
+def test_flash_rejects_what_the_kernels_do_not_take(cuda_device):
+    q, k, v, _ = _flash_inputs(cuda_device, 6, 1, 128, 128, 2, 2, 128)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.float(), k.float(), v.float())
+    q72, k72, v72, _ = _flash_inputs(cuda_device, 7, 1, 128, 128, 2, 2, 72)
+    with pytest.raises(ValueError):          # head_dim % 16 != 0
+        tfa.flash_attention(q72, k72, v72)
+
+
+@pytest.mark.cuda
+def test_remat_policies_on_card(cuda_device):
+    """One bf16 train step of a 2-layer model with 128-wide heads (so the
+    flash kernels run) under each remat setting: the same loss and grad
+    norm; the forward kernel runs once a layer without remat and with
+    dots_saveable (its output is kept), twice with full remat and with
+    dots_with_no_batch_dims_saveable (recomputed)."""
+    import dataclasses
+
+    from aurora_tpu_torch.models.aurora import AuroraConfig, init_aurora
+    from aurora_tpu_torch.models.llama import LlamaConfig
+    from aurora_tpu_torch.train import trainer
+
+    tiny = AuroraConfig.tiny()
+    llm = dataclasses.replace(LlamaConfig.tiny(vocab_size=512),
+                              hidden_size=256, intermediate_size=512,
+                              num_hidden_layers=2, num_attention_heads=2,
+                              num_key_value_heads=2)
+    cfg = dataclasses.replace(tiny, llm=llm, projector=dataclasses.replace(
+        tiny.projector, llm_hidden_size=256))
+    ids = torch.randint(3, 500, (2, 128), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(1))
+    got = {}
+    for remat, policy in ((False, None), (True, None),
+                          (True, "dots_with_no_batch_dims_saveable"),
+                          (True, "dots_saveable")):
+        model = init_aurora(cfg, device=cuda_device, dtype=torch.bfloat16,
+                            generator=torch.Generator(
+                                cuda_device).manual_seed(0))
+        tcfg = trainer.TrainConfig(remat=remat, remat_policy=policy,
+                                   max_steps=10)
+        before = tfa.flash_attention.launches_fwd
+        _, m = trainer.make_train_step(cfg, tcfg)(
+            trainer.init_train_state(model, tcfg),
+            {"input_ids": ids, "labels": ids})
+        got[(remat, policy)] = (m["loss"].item(), m["grad_norm"].item(),
+                                tfa.flash_attention.launches_fwd - before)
+    base = got[(False, None)]
+    for key, (loss, gnorm, _) in got.items():
+        assert abs(loss - base[0]) <= 1e-5 * abs(base[0]), key
+        assert abs(gnorm - base[1]) <= 1e-5 * base[1], key
+    assert [n for _, _, n in got.values()] == [2, 4, 4, 2]

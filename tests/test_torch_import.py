@@ -1,6 +1,7 @@
-"""The port stands alone: importing every module of aurora_tpu_torch and
-serving a tiny multimodal request on the CPU loads neither JAX nor the
-JAX package. Runs in a fresh interpreter (this test process has JAX)."""
+"""The port stands alone: importing every module of aurora_tpu_torch,
+serving a tiny multimodal request and taking one multimodal train step on
+the CPU loads neither JAX nor the JAX package. Runs in a fresh interpreter
+(this test process has JAX)."""
 
 import os
 import subprocess
@@ -45,6 +46,15 @@ while eng.has_work():
     done += eng.step()
 assert sorted(r.rid for r in done) == ["r0", "r1"]
 assert all(len(r.output_ids) == 5 for r in done)
+from aurora_tpu_torch.train.trainer import (TrainConfig, init_train_state,
+                                            make_train_step)
+tcfg = TrainConfig(lr=1e-3, max_steps=10, kept_ratio=0.5)
+state = init_train_state(model, tcfg)
+ids = torch.tensor([[5, -200, 7, 8, 9, 10, 11, 12]] * 2)
+state, m = make_train_step(cfg, tcfg)(state, {
+    "input_ids": ids, "labels": ids,
+    "pixel_values": torch.rand((2, 1, 3, 56, 56))})
+assert torch.isfinite(m["loss"]) and state.step == 1
 assert "jax" not in sys.modules, "jax was imported"
 assert not any(m == "aurora_tpu" or m.startswith("aurora_tpu.")
                for m in sys.modules), "aurora_tpu was imported"
