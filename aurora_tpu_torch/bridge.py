@@ -14,7 +14,9 @@ fuse_serving_weights and w4_decode_layout_params) cross with their bytes
 and scales unchanged: flat [L, G, g/2, O] or tile-contiguous
 [L, Nb, Kb, bk, bn] packed stacks with their `<name>_scale4`, per-name or
 fused qkv/gateup, and the int8 `lm_head` with its `lm_head_scale`. They
-become W4Linear/W8Linear modules in the port's layout.
+become W4Linear/W8Linear modules in the port's layout. So do its W8 trees
+(quantize_weights_int8, optionally fused): int8 `<name>` stacks [L, in,
+out] with `<name>_scale` [L, 1, out], and the int8 head.
 """
 
 from __future__ import annotations
@@ -146,11 +148,13 @@ def _w4_layer(pk, s_w):
 def llama_layout(tree: Dict[str, Any]):
     """(weight_quant, fused) of a reference llama tree."""
     layers = tree["layers"]
-    if any(k.endswith("_scale") for k in layers):
-        raise NotImplementedError("W8 (int8) layer weights are not ported "
-                                  "yet (W4 and dense only)")
-    w4 = any(k.endswith("_scale4") for k in layers)
-    return ("int4" if w4 else "none"), "qkv" in layers
+    if any(k.endswith("_scale4") for k in layers):
+        quant = "int4"
+    elif any(k.endswith("_scale") for k in layers):
+        quant = "int8"
+    else:
+        quant = "none"
+    return quant, "qkv" in layers
 
 
 def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
@@ -159,7 +163,7 @@ def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
     sd = {"embed_tokens": _t(tree["embed_tokens"]),
           "final_norm": _t(tree["final_norm"]),
           "lm_head.weight": _t(tree["lm_head"]).T}
-    if quant == "int4":
+    if quant != "none":
         sd["lm_head.scale"] = _t(tree["lm_head_scale"]).reshape(-1)
     for l in range(cfg.num_hidden_layers):
         pre = f"layers.{l}."
@@ -169,6 +173,10 @@ def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
             if quant == "int4":
                 sd[pre + name + ".packed"], sd[pre + name + ".scale"] = \
                     _w4_layer(layers[name][l], layers[name + "_scale4"][l])
+            elif quant == "int8":
+                sd[pre + name + ".weight"] = _t(layers[name][l]).T
+                sd[pre + name + ".scale"] = _t(
+                    layers[name + "_scale"][l]).reshape(-1)
             else:
                 sd[pre + name + ".weight"] = _t(layers[name][l]).T
     return sd
@@ -186,8 +194,8 @@ def projector_from_params(tree, cfg: ProjectorConfig, device=None,
 
 
 def llama_from_params(tree, cfg: LlamaConfig, device=None, dtype=None):
-    """Dense, or W4 (flat or tiled, per-name or fused) reference trees;
-    dtype applies to the dense weights, embeddings and norms."""
+    """Dense, W4 (flat or tiled) or W8 reference trees, per-name or
+    fused; dtype applies to the dense weights, embeddings and norms."""
     quant, fused = llama_layout(tree)
     return _load(LlamaModel(cfg, device="meta", dtype=dtype,
                             weight_quant=quant, fused=fused),

@@ -1,9 +1,11 @@
-// Fused decode step over row-contiguous KV buffers, sm_90a: bf16 KV, or
-// int8 KV with per-token fp32 scales.
+// Fused decode step over row-contiguous KV buffers, sm_90a: bf16 KV, int8
+// KV with per-token fp32 scales, or nibble-packed int4 KV with the same
+// scales.
 //
 // Replaces: aurora_tpu/ops/pallas/ragged_attention.py
-// `ragged_decode_attention` (Pallas kernel `_decode_kernel`, its bf16 and
-// int8 `quant` modes). Contract: write each lane's new K/V token at
+// `ragged_decode_attention` (Pallas kernel `_decode_kernel`, its bf16,
+// int8 `quant` and packed int4 `kv_pack` modes). Contract: write each
+// lane's new K/V token at
 // position kv_lens[b] - 1 of its row (in place; no write when
 // kv_lens[b] == 0), then attend the lane's single query (all G heads of
 // the KV head) over positions [0, kv_lens[b]). In int8 mode the new token
@@ -14,13 +16,20 @@
 // reference's division by the constant kv_maxq to; x / s is an IEEE
 // division and rint rounds half to even, so the written row and scale are
 // bitwise the plain twin's), and the logits are scaled by the key's scale
-// after `scale`, the probabilities by the value's scale before P·V.
+// after `scale`, the probabilities by the value's scale before P·V. In
+// int4 mode (kv_maxq 7) the rows are [L, B, Hkv, S/2, hd] bytes, token
+// seg*256 + j (j < 128) in the low nibble and seg*256 + 128 + j in the
+// high nibble of packed row seg*128 + j; the new token's nibbles replace
+// those of its plane and its mate token's nibbles stay as they were (the
+// reference's `merged_packed`), and its scales go to the token-space
+// planes.
 //
 // What bounds it on the H100: each step reads every live K/V byte of the
 // batch once and does 2 FLOP per byte per query head, far below the
 // ~295 FLOP/byte where bf16 tensor cores become the limit, so it is bound
 // by KV bytes from HBM (and, at batch 4, by having enough loads in flight).
-// int8 KV halves those bytes (plus 4 scale bytes per token and head).
+// int8 KV halves those bytes (plus 4 scale bytes per token and head),
+// int4 KV halves them again.
 //
 // Design: one block (256 threads) per (KV head, lane); the block first
 // writes the new token of its own (lane, head) stripe (int8: one warp each
@@ -29,8 +38,13 @@
 // one 16-byte (bf16) or 8-byte (int8) load per lane and reduces the dot
 // products for all G query heads by shuffles; the tile's softmax runs one
 // warp per head; the PV pass reads V rows as pairs with four key groups
-// per block and an fp32 online softmax carries across tiles. Row ids must
-// be distinct per lane (each lane owns its row). A split-KV
+// per block and an fp32 online softmax carries across tiles. In int4 mode
+// a 256-key tile is one packing segment: keys 0-127 read the low nibbles
+// of the segment's 128 packed rows and keys 128-255 the high ones (a row's
+// bytes are read twice, the second time from the L1). Only this block
+// writes its (lane, head) stripe, so the read-modify-write of the new
+// token's bytes needs no atomics. Row ids must be distinct per lane (each
+// lane owns its row). A split-KV
 // (flash-decoding) grid that fills all SMs is later speed work.
 
 #include <cuda_bf16.h>
@@ -85,13 +99,41 @@ __device__ __forceinline__ float2 load2(const int8_t* p) {
       unsigned(*reinterpret_cast<const unsigned short*>(p)) ^ 0x8080u;
   return make_float2(s8_to_f(b, 0), s8_to_f(b, 1));
 }
+// int4: the nibbles of one plane of a packed row. (w << 4) & 0xF0F0F0F0
+// holds 16 * each low nibble as a signed byte, w & 0xF0F0F0F0 16 * each
+// high one; the 1/16 is exact.
+__device__ __forceinline__ unsigned plane16(unsigned w, bool hi) {
+  return (hi ? (w & 0xF0F0F0F0u) : ((w << 4) & 0xF0F0F0F0u)) ^ 0x80808080u;
+}
+__device__ __forceinline__ void load8_int4(const int8_t* p, bool hi,
+                                           float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const unsigned lo = plane16(u.x, hi), up = plane16(u.y, hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = s8_to_f(lo, i) * 0.0625f;
+    f[4 + i] = s8_to_f(up, i) * 0.0625f;
+  }
+}
+__device__ __forceinline__ float2 load2_int4(const int8_t* p, bool hi) {
+  const unsigned b = plane16(
+      unsigned(*reinterpret_cast<const unsigned short*>(p)), hi);
+  return make_float2(s8_to_f(b, 0) * 0.0625f, s8_to_f(b, 1) * 0.0625f);
+}
+// packed row of token position s, and whether s is in its high plane
+__device__ __forceinline__ int packed_row(int s) {
+  return (s >> 8) * 128 + (s & 127);
+}
+__device__ __forceinline__ bool high_plane(int s) { return (s & 255) >= 128; }
 
-// int8 mode: one warp quantizes one new hd = 128 vector (4 values a lane)
-// and writes it and its scale at the write position
+// int8 / int4 mode: one warp quantizes one new hd = 128 vector (4 values
+// a lane) and writes it and its scale at the write position: whole bytes
+// (plane < 0), or the low (plane 0) or high (plane 1) nibbles of the
+// packed row, the other nibbles kept
 __device__ __forceinline__ void write_quantized(const bf16* src, int8_t* dst,
                                                 float* dst_scale, int lane,
                                                 float kv_maxq,
-                                                float inv_maxq) {
+                                                float inv_maxq, int plane) {
   float x[4];
   float m = 0.f;
 #pragma unroll
@@ -108,6 +150,14 @@ __device__ __forceinline__ void write_quantized(const bf16* src, int8_t* dst,
   q.y = int8_t(fminf(fmaxf(rintf(x[1] / s), -kv_maxq), kv_maxq));
   q.z = int8_t(fminf(fmaxf(rintf(x[2] / s), -kv_maxq), kv_maxq));
   q.w = int8_t(fminf(fmaxf(rintf(x[3] / s), -kv_maxq), kv_maxq));
+  if (plane >= 0) {
+    const char4 old = reinterpret_cast<const char4*>(dst)[lane];
+    const int keep = plane ? 0x0F : 0xF0, sh = plane ? 4 : 0;
+    q.x = int8_t((old.x & keep) | ((q.x & 0xF) << sh));
+    q.y = int8_t((old.y & keep) | ((q.y & 0xF) << sh));
+    q.z = int8_t((old.z & keep) | ((q.z & 0xF) << sh));
+    q.w = int8_t((old.w & keep) | ((q.w & 0xF) << sh));
+  }
   reinterpret_cast<char4*>(dst)[lane] = q;
   if (lane == 0) *dst_scale = s;
 }
@@ -115,7 +165,7 @@ __device__ __forceinline__ void write_quantized(const bf16* src, int8_t* dst,
 // k_rows/v_rows (and the int8 scale planes) are written and then read by
 // the same block: they are deliberately not declared const __restrict__
 // (no read-only-cache loads)
-template <typename KV>
+template <typename KV, bool PACK>
 __global__ void __launch_bounds__(NT)
 decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
               const bf16* __restrict__ v_new, KV* k_rows, KV* v_rows,
@@ -125,10 +175,12 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
               const int* __restrict__ layer_ptr, int Hq, int Hkv, int B,
               int S, float scale, float kv_maxq, float inv_maxq) {
   constexpr bool QUANT = sizeof(KV) == 1;
+  static_assert(!PACK || QUANT, "packed rows are int8 bytes");
+  static_assert(!PACK || TILE == 256, "an int4 tile is one segment");
   __shared__ float sP[MAXG][TILE];
   __shared__ float sRed[KGROUPS][MAXG][HD];
   __shared__ float sM[MAXG], sL[MAXG], sA[MAXG];
-  __shared__ float sKs[TILE], sVs[TILE];  // int8: the tile's scales
+  __shared__ float sKs[TILE], sVs[TILE];  // int8/int4: tile scales
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -143,8 +195,9 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   const int row = row_ids[b];
   const int layer = *layer_ptr;
   const size_t stripe = (size_t(layer) * B + row) * Hkv + kvh;
-  KV* Kp = k_rows + stripe * size_t(S) * HD;
-  KV* Vp = v_rows + stripe * size_t(S) * HD;
+  const size_t row_elems = size_t(PACK ? S / 2 : S) * HD;
+  KV* Kp = k_rows + stripe * row_elems;
+  KV* Vp = v_rows + stripe * row_elems;
   float* Ks = QUANT ? k_scales + stripe * size_t(S) : nullptr;
   float* Vs = QUANT ? v_scales + stripe * size_t(S) : nullptr;
 
@@ -152,14 +205,15 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   if (kv_len_raw > 0 && kv_len_raw <= S) {
     const size_t src = (size_t(b) * Hkv + kvh) * HD;
     const int pos = kv_len_raw - 1;
-    const size_t dst = size_t(pos) * HD;
+    const size_t dst = size_t(PACK ? packed_row(pos) : pos) * HD;
+    const int plane = PACK ? int(high_plane(pos)) : -1;
     if constexpr (QUANT) {
       if (warp == 0)
         write_quantized(k_new + src, reinterpret_cast<int8_t*>(Kp + dst),
-                        Ks + pos, lane, kv_maxq, inv_maxq);
+                        Ks + pos, lane, kv_maxq, inv_maxq, plane);
       else if (warp == 1)
         write_quantized(v_new + src, reinterpret_cast<int8_t*>(Vp + dst),
-                        Vs + pos, lane, kv_maxq, inv_maxq);
+                        Vs + pos, lane, kv_maxq, inv_maxq, plane);
     } else {
       if (tid < HD / 8) {
         reinterpret_cast<uint4*>(Kp + dst)[tid] =
@@ -211,7 +265,11 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
       for (int g = 0; g < MAXG; ++g) part[g] = 0.f;
       if (s < kv_len) {
         float kf[8];
-        load8(Kp + size_t(s) * HD + lane16 * 8, kf);
+        if constexpr (PACK)
+          load8_int4(Kp + size_t(packed_row(s)) * HD + lane16 * 8,
+                     high_plane(s), kf);
+        else
+          load8(Kp + size_t(s) * HD + lane16 * 8, kf);
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
           if (g < G) {
@@ -289,7 +347,13 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
     }
     const int nk = min(TILE, kv_len - base);
     for (int kl = kg; kl < nk; kl += KGROUPS) {
-      const float2 vf = load2(Vp + size_t(base + kl) * HD + 2 * dp);
+      const int s = base + kl;
+      float2 vf;
+      if constexpr (PACK)
+        vf = load2_int4(Vp + size_t(packed_row(s)) * HD + 2 * dp,
+                        high_plane(s));
+      else
+        vf = load2(Vp + size_t(s) * HD + 2 * dp);
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
         if (g < G) {
@@ -325,6 +389,28 @@ bool bad_shape(int Bq, int Hq, int Hkv, int head_dim) {
          Bq <= 0;
 }
 
+template <bool PACK>
+int launch_quant(const void* q, const void* k_new, const void* v_new,
+                 void* k_rows, void* v_rows, void* k_scales, void* v_scales,
+                 void* out, const void* kv_lens, const void* row_ids,
+                 const void* layer, int Bq, int Hq, int Hkv, int B, int S,
+                 int head_dim, float scale, float kv_maxq, float inv_maxq,
+                 void* stream) {
+  if (bad_shape(Bq, Hq, Hkv, head_dim) || (PACK && S % TILE != 0))
+    return int(cudaErrorInvalidValue);
+  dim3 grid(Hkv, Bq);
+  decode_kernel<int8_t, PACK>
+      <<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
+          static_cast<const bf16*>(v_new), static_cast<int8_t*>(k_rows),
+          static_cast<int8_t*>(v_rows), static_cast<float*>(k_scales),
+          static_cast<float*>(v_scales), static_cast<bf16*>(out),
+          static_cast<const int*>(kv_lens), static_cast<const int*>(row_ids),
+          static_cast<const int*>(layer), Hq, Hkv, B, S, scale, kv_maxq,
+          inv_maxq);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int aurora_ragged_decode_bf16(
@@ -334,12 +420,14 @@ extern "C" int aurora_ragged_decode_bf16(
     float scale, void* stream) {
   if (bad_shape(Bq, Hq, Hkv, head_dim)) return int(cudaErrorInvalidValue);
   dim3 grid(Hkv, Bq);
-  decode_kernel<bf16><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
-      static_cast<const bf16*>(v_new), static_cast<bf16*>(k_rows),
-      static_cast<bf16*>(v_rows), nullptr, nullptr, static_cast<bf16*>(out),
-      static_cast<const int*>(kv_lens), static_cast<const int*>(row_ids),
-      static_cast<const int*>(layer), Hq, Hkv, B, S, scale, 0.f, 0.f);
+  decode_kernel<bf16, false>
+      <<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
+          static_cast<const bf16*>(v_new), static_cast<bf16*>(k_rows),
+          static_cast<bf16*>(v_rows), nullptr, nullptr,
+          static_cast<bf16*>(out), static_cast<const int*>(kv_lens),
+          static_cast<const int*>(row_ids), static_cast<const int*>(layer),
+          Hq, Hkv, B, S, scale, 0.f, 0.f);
   return int(cudaGetLastError());
 }
 
@@ -351,15 +439,23 @@ extern "C" int aurora_ragged_decode_int8(
     const void* kv_lens, const void* row_ids, const void* layer, int Bq,
     int Hq, int Hkv, int B, int S, int head_dim, float scale, float kv_maxq,
     float inv_maxq, void* stream) {
-  if (bad_shape(Bq, Hq, Hkv, head_dim)) return int(cudaErrorInvalidValue);
-  dim3 grid(Hkv, Bq);
-  decode_kernel<int8_t><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
-      static_cast<const bf16*>(v_new), static_cast<int8_t*>(k_rows),
-      static_cast<int8_t*>(v_rows), static_cast<float*>(k_scales),
-      static_cast<float*>(v_scales), static_cast<bf16*>(out),
-      static_cast<const int*>(kv_lens), static_cast<const int*>(row_ids),
-      static_cast<const int*>(layer), Hq, Hkv, B, S, scale, kv_maxq,
-      inv_maxq);
-  return int(cudaGetLastError());
+  return launch_quant<false>(q, k_new, v_new, k_rows, v_rows, k_scales,
+                             v_scales, out, kv_lens, row_ids, layer, Bq, Hq,
+                             Hkv, B, S, head_dim, scale, kv_maxq, inv_maxq,
+                             stream);
+}
+
+// packed int4 rows [L, B, Hkv, S/2, hd] with fp32 scale planes
+// [L, B, Hkv, S] (S, the token count, a multiple of 256); kv_maxq <= 7
+extern "C" int aurora_ragged_decode_int4(
+    const void* q, const void* k_new, const void* v_new, void* k_rows,
+    void* v_rows, void* k_scales, void* v_scales, void* out,
+    const void* kv_lens, const void* row_ids, const void* layer, int Bq,
+    int Hq, int Hkv, int B, int S, int head_dim, float scale, float kv_maxq,
+    float inv_maxq, void* stream) {
+  if (kv_maxq > 7.f) return int(cudaErrorInvalidValue);
+  return launch_quant<true>(q, k_new, v_new, k_rows, v_rows, k_scales,
+                            v_scales, out, kv_lens, row_ids, layer, Bq, Hq,
+                            Hkv, B, S, head_dim, scale, kv_maxq, inv_maxq,
+                            stream);
 }

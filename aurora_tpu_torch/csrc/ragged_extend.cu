@@ -1,8 +1,10 @@
 // Extend (prefill) attention over row-contiguous KV buffers, sm_90a: bf16
-// KV, or int8 KV with per-token fp32 scales.
+// KV, int8 KV with per-token fp32 scales, or nibble-packed int4 KV with the
+// same scales.
 //
 // Replaces: aurora_tpu/ops/pallas/ragged_attention.py `ragged_attention`
-// (Pallas kernel `_kernel`, its bf16 and int8 `quant` modes). Contract:
+// (Pallas kernel `_kernel`, its bf16, int8 `quant` and packed int4
+// `kv_pack` modes). Contract:
 // causal attention of each lane's T new queries (global positions
 // q_offsets[i] + t) against KV row row_ids[i] of layer `layer` in
 // k_rows/v_rows [L, B, Hkv, S, hd], reading only keys < kv_lens[i]; fp32
@@ -10,7 +12,10 @@
 // produce zeros. In int8 mode the logits are multiplied by the key's scale
 // after `scale` and before the mask, and the probabilities by the value's
 // scale (after the row sum) before P·V, as the reference does; scales are
-// the [L, B, Hkv, S] fp32 planes.
+// the [L, B, Hkv, S] fp32 planes. In int4 mode the rows are [L, B, Hkv,
+// S/2, hd] bytes: token seg*256 + j (j < 128) in the low nibble and token
+// seg*256 + 128 + j in the high nibble of packed row seg*128 + j, each a
+// signed 4-bit value (the grid is [-7, 7]); the scales stay token-space.
 //
 // What bounds it on the H100: at the serving shape (T = 1536 new tokens
 // against ~1.4k keys, hd = 128) every K/V tile is reused by 64 query rows,
@@ -27,8 +32,13 @@
 // key tiles stops at min(kv_len, last query position + 1). int8 tiles are
 // converted to bf16 as they are stored to shared memory (exact for
 // |v| <= 127), so both modes share the tensor-core code; the tile's scales
-// sit beside it in shared memory. Loads are plain 16-byte loads;
-// cp.async/TMA pipelining and wgmma are later work.
+// sit beside it in shared memory. In int4 mode a key tile is 32 packed
+// rows read once: their low nibbles become tile keys 0-31 (positions
+// base + [0, 32)) and their high nibbles tile keys 32-63 (base + 128 +
+// [0, 32)), so each softmax thread's half of a tile row is one contiguous
+// run of positions; both nibbles are sign-extended on the way to bf16
+// (exact). Loads are plain 16-byte loads; cp.async/TMA pipelining and
+// wgmma are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,10 +81,21 @@ __device__ __forceinline__ void stage(const bf16* src, bf16* dst, bool live) {
 // b + 128 (xor 0x80), goes into the low mantissa bits of 2^23 and
 // 2^23 + 128 is subtracted; exact for every int8. Such a float has at
 // most 8 significant bits, so its high 16 bits are its exact bf16.
-__device__ __forceinline__ unsigned s8_to_f_bits(unsigned biased, int i) {
+// `mul` rescales it exactly (a power of two).
+__device__ __forceinline__ unsigned s8_to_f_bits(unsigned biased, int i,
+                                                 float mul = 1.f) {
   return __float_as_uint(
-      __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + i)) -
-      8388736.f);
+      (__int_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + i)) -
+       8388736.f) * mul);
+}
+// four biased bytes → two bf16 pairs, the lower-addressed value in the low
+// half of each
+__device__ __forceinline__ void bf16x4(unsigned biased, float mul,
+                                       unsigned* w) {
+  w[0] = __byte_perm(s8_to_f_bits(biased, 0, mul),
+                     s8_to_f_bits(biased, 1, mul), 0x7632);
+  w[1] = __byte_perm(s8_to_f_bits(biased, 2, mul),
+                     s8_to_f_bits(biased, 3, mul), 0x7632);
 }
 __device__ __forceinline__ void stage(const int8_t* src, bf16* dst,
                                       bool live) {
@@ -83,17 +104,49 @@ __device__ __forceinline__ void stage(const int8_t* src, bf16* dst,
   const unsigned in[4] = {val.x, val.y, val.z, val.w};
   unsigned w[8];  // bf16 pairs, the lower-addressed value in the low half
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const unsigned b = in[j] ^ 0x80808080u;
-    w[2 * j] = __byte_perm(s8_to_f_bits(b, 0), s8_to_f_bits(b, 1), 0x7632);
-    w[2 * j + 1] =
-        __byte_perm(s8_to_f_bits(b, 2), s8_to_f_bits(b, 3), 0x7632);
-  }
+  for (int j = 0; j < 4; ++j) bf16x4(in[j] ^ 0x80808080u, 1.f, w + 2 * j);
   reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
   reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
+// int4: 16 bytes of one packed row → its 16 low-nibble values to dst_lo
+// and its 16 high-nibble values to dst_hi. (w << 4) & 0xF0F0F0F0 holds
+// 16 * each low nibble as a signed byte, w & 0xF0F0F0F0 16 * each high
+// one; the 1/16 is exact.
+__device__ __forceinline__ void stage4(const int8_t* src, bf16* dst_lo,
+                                       bf16* dst_hi, bool live_lo,
+                                       bool live_hi) {
+  uint4 val = make_uint4(0u, 0u, 0u, 0u);
+  if (live_lo || live_hi) val = *reinterpret_cast<const uint4*>(src);
+  const unsigned in[4] = {val.x, val.y, val.z, val.w};
+  unsigned lo[8], hi[8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bf16x4(((in[j] << 4) & 0xF0F0F0F0u) ^ 0x80808080u, 0.0625f, lo + 2 * j);
+    bf16x4((in[j] & 0xF0F0F0F0u) ^ 0x80808080u, 0.0625f, hi + 2 * j);
+  }
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  reinterpret_cast<uint4*>(dst_lo)[0] =
+      live_lo ? make_uint4(lo[0], lo[1], lo[2], lo[3]) : z;
+  reinterpret_cast<uint4*>(dst_lo)[1] =
+      live_lo ? make_uint4(lo[4], lo[5], lo[6], lo[7]) : z;
+  reinterpret_cast<uint4*>(dst_hi)[0] =
+      live_hi ? make_uint4(hi[0], hi[1], hi[2], hi[3]) : z;
+  reinterpret_cast<uint4*>(dst_hi)[1] =
+      live_hi ? make_uint4(hi[4], hi[5], hi[6], hi[7]) : z;
+}
 
-template <typename KV>
+// int4 tiles: tile `it` covers packed rows seg*128 + h*32 + [0, 32) of
+// segment seg = it / 4, h = it % 4, i.e. positions base + [0, 32) (low
+// nibbles) and base + 128 + [0, 32) (high nibbles), base = seg*256 + h*32
+__device__ __forceinline__ int tile_base(int it, bool pack) {
+  return pack ? (it >> 2) * 256 + (it & 3) * 32 : it * BK;
+}
+// position of tile key c (c < BK)
+__device__ __forceinline__ int tile_pos(int base, int c, bool pack) {
+  return base + c + (pack && c >= BK / 2 ? 128 - BK / 2 : 0);
+}
+
+template <typename KV, bool PACK>
 __global__ void __launch_bounds__(NTHREADS)
 extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
               const KV* __restrict__ v_rows,
@@ -106,6 +159,7 @@ extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
               int B, int S, float scale) {
   constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int CW = 16 / sizeof(KV);  // values per 16-byte global load
+  static_assert(!PACK || QUANT, "packed rows are int8 bytes");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + BQ * LDH;
@@ -132,8 +186,9 @@ extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
   const int row = row_ids[lane_b];
   const int layer = *layer_ptr;
   const size_t stripe = (size_t(layer) * B + row) * Hkv + kvh;
-  const KV* Kp = k_rows + stripe * size_t(S) * HD;
-  const KV* Vp = v_rows + stripe * size_t(S) * HD;
+  const size_t row_elems = size_t(PACK ? S / 2 : S) * HD;
+  const KV* Kp = k_rows + stripe * row_elems;
+  const KV* Vp = v_rows + stripe * row_elems;
 
   // Q tile: BQ folded rows x HD, 16-byte chunks; padded rows are zero
   for (int c = tid; c < BQ * (HD / 8); c += NTHREADS) {
@@ -167,16 +222,32 @@ extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
   const int srr = r0 + srow;
   const int sqpos = srr < rows_total ? q_off + srr / G : -1;
 
-  for (int kb = 0; kb < kend; kb += BK) {
-    for (int c = tid; c < BK * (HD / CW); c += NTHREADS) {
-      const int r = c / (HD / CW);
-      const int col = (c % (HD / CW)) * CW;
-      const int s = kb + r;
-      stage(Kp + size_t(s) * HD + col, sK + r * LDH + col, s < kend);
-      stage(Vp + size_t(s) * HD + col, sV + r * LDH + col, s < kend);
+  for (int it = 0;; ++it) {
+    const int kb = tile_base(it, PACK);  // increases with it
+    if (kb >= kend) break;
+    if constexpr (PACK) {
+      const int brow = (kb >> 8) * 128 + (kb & 255);  // first packed row
+      for (int c = tid; c < (BK / 2) * (HD / 16); c += NTHREADS) {
+        const int r = c / (HD / 16);
+        const int col = (c % (HD / 16)) * 16;
+        const size_t src = size_t(brow + r) * HD + col;
+        const bool lo = kb + r < kend, hi = kb + 128 + r < kend;
+        stage4(Kp + src, sK + r * LDH + col, sK + (BK / 2 + r) * LDH + col,
+               lo, hi);
+        stage4(Vp + src, sV + r * LDH + col, sV + (BK / 2 + r) * LDH + col,
+               lo, hi);
+      }
+    } else {
+      for (int c = tid; c < BK * (HD / CW); c += NTHREADS) {
+        const int r = c / (HD / CW);
+        const int col = (c % (HD / CW)) * CW;
+        const int s = kb + r;
+        stage(Kp + size_t(s) * HD + col, sK + r * LDH + col, s < kend);
+        stage(Vp + size_t(s) * HD + col, sV + r * LDH + col, s < kend);
+      }
     }
     if (QUANT && tid < BK) {
-      const int s = kb + tid;
+      const int s = tile_pos(kb, tid, PACK);
       sKs[tid] = s < kend ? k_scales[stripe * size_t(S) + s] : 0.f;
       sVs[tid] = s < kend ? v_scales[stripe * size_t(S) + s] : 0.f;
     }
@@ -213,7 +284,8 @@ extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
       bf16* prow = sP + srow * LDP + shalf * 32;
       const float* ks = sKs + shalf * 32;
       const float* vs = sVs + shalf * 32;
-      const int s0 = kb + shalf * 32;
+      // this half's 32 keys sit at 32 consecutive positions from s0
+      const int s0 = tile_pos(kb, shalf * 32, PACK);
       auto logit = [&](int c) {
         const float x = srow_s[c] * scale;
         return QUANT ? x * ks[c] : x;
@@ -289,21 +361,22 @@ extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
   }
 }
 
-template <typename KV>
+template <typename KV, bool PACK>
 int launch(const void* q, const void* k_rows, const void* v_rows,
            const void* k_scales, const void* v_scales, void* out,
            const void* kv_lens, const void* q_offsets, const void* row_ids,
            const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
            int head_dim, float scale, void* stream) {
-  if (head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || Bk <= 0 || T <= 0)
+  if (head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || Bk <= 0 || T <= 0 ||
+      (PACK && S % 256 != 0))
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      extend_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      extend_kernel<KV, PACK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(SMEM_TOTAL));
   if (err != cudaSuccess) return int(err);
   const int G = Hq / Hkv;
   dim3 grid((G * T + BQ - 1) / BQ, Hkv, Bk);
-  extend_kernel<KV><<<grid, NTHREADS, SMEM_TOTAL,
+  extend_kernel<KV, PACK><<<grid, NTHREADS, SMEM_TOTAL,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const KV*>(k_rows),
       static_cast<const KV*>(v_rows), static_cast<const float*>(k_scales),
@@ -321,9 +394,9 @@ extern "C" int aurora_ragged_extend_bf16(
     const void* kv_lens, const void* q_offsets, const void* row_ids,
     const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
     int head_dim, float scale, void* stream) {
-  return launch<bf16>(q, k_rows, v_rows, nullptr, nullptr, out, kv_lens,
-                      q_offsets, row_ids, layer, Bk, T, Hq, Hkv, B, S,
-                      head_dim, scale, stream);
+  return launch<bf16, false>(q, k_rows, v_rows, nullptr, nullptr, out,
+                             kv_lens, q_offsets, row_ids, layer, Bk, T, Hq,
+                             Hkv, B, S, head_dim, scale, stream);
 }
 
 // int8 rows [L, B, Hkv, S, hd] with fp32 scale planes [L, B, Hkv, S];
@@ -334,7 +407,20 @@ extern "C" int aurora_ragged_extend_int8(
     const void* kv_lens, const void* q_offsets, const void* row_ids,
     const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
     int head_dim, float scale, void* stream) {
-  return launch<int8_t>(q, k_rows, v_rows, k_scales, v_scales, out, kv_lens,
-                        q_offsets, row_ids, layer, Bk, T, Hq, Hkv, B, S,
-                        head_dim, scale, stream);
+  return launch<int8_t, false>(q, k_rows, v_rows, k_scales, v_scales, out,
+                               kv_lens, q_offsets, row_ids, layer, Bk, T, Hq,
+                               Hkv, B, S, head_dim, scale, stream);
+}
+
+// packed int4 rows [L, B, Hkv, S/2, hd] with fp32 scale planes
+// [L, B, Hkv, S]; S is the token count (a multiple of 256)
+extern "C" int aurora_ragged_extend_int4(
+    const void* q, const void* k_rows, const void* v_rows,
+    const void* k_scales, const void* v_scales, void* out,
+    const void* kv_lens, const void* q_offsets, const void* row_ids,
+    const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
+    int head_dim, float scale, void* stream) {
+  return launch<int8_t, true>(q, k_rows, v_rows, k_scales, v_scales, out,
+                              kv_lens, q_offsets, row_ids, layer, Bk, T, Hq,
+                              Hkv, B, S, head_dim, scale, stream);
 }

@@ -6,7 +6,9 @@ optional linear scaling, GQA, no biases). The reference stacks layers as
 [L, ...] arrays with dense kernels [in, out]; here each layer is a module
 of `nn.Linear`s ([out, in] weights), or, for W4 serving, of `W4Linear`s
 (nibble-packed int4 + group scales, the port's layout of
-ops/pallas/quant_matmul.py) with an int8 `W8Linear` LM head. A layer
+ops/pallas/quant_matmul.py), or, for W8 serving, of `W8Linear`s (int8 +
+per-output-channel scales); both quantized models have an int8
+`W8Linear` LM head. A layer
 holds either the per-name projections (q, k, v, o, gate, up, down) or the
 fused serving streams (qkv, o, gateup, down).
 
@@ -103,7 +105,8 @@ class W4Linear(nn.Module):
 
 class W8Linear(nn.Module):
     """y = x @ W^T with W int8 per output channel: `weight` [out, in]
-    int8 and `scale` [out] fp32 (the W8A8 LM head of the W4 tree)."""
+    int8 and `scale` [out] fp32 (the W8 projections and the W8A8 LM head
+    of both quantized trees). The engine's `_w8dot` computes with it."""
 
     def __init__(self, weight: torch.Tensor, scale: torch.Tensor):
         super().__init__()
@@ -144,6 +147,8 @@ class LlamaLayer(nn.Module):
         for name, (n_in, n_out) in projection_shapes(cfg, fused).items():
             if weight_quant == "int4":
                 proj = W4Linear.empty(n_in, n_out, device=device)
+            elif weight_quant == "int8":
+                proj = W8Linear.empty(n_in, n_out, device=device)
             else:
                 proj = nn.Linear(n_in, n_out, bias=False, **kw)
             setattr(self, name, proj)
@@ -152,16 +157,17 @@ class LlamaLayer(nn.Module):
 class LlamaModel(nn.Module):
     """Parameters of the decoder; the forward is the serving engine's.
     weight_quant="int4" lays the layers out as W4Linear projections (per
-    name, or fused with fused=True) and the LM head as W8Linear."""
+    name, or fused with fused=True), "int8" as W8Linear ones; both with a
+    W8Linear LM head."""
 
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
                  weight_quant: str = "none", fused: bool = False):
         super().__init__()
         if cfg.tie_word_embeddings:
             raise NotImplementedError("tied embeddings are not ported")
-        if weight_quant not in ("none", "int4"):
+        if weight_quant not in ("none", "int4", "int8"):
             raise NotImplementedError(
-                f"weight_quant={weight_quant!r}: only int4 is ported")
+                f"weight_quant={weight_quant!r}: none, int4 or int8")
         kw = dict(device=device, dtype=dtype)
         d = cfg.hidden_size
         self.cfg = cfg
@@ -170,7 +176,7 @@ class LlamaModel(nn.Module):
             LlamaLayer(cfg, weight_quant=weight_quant, fused=fused, **kw)
             for _ in range(cfg.num_hidden_layers))
         self.final_norm = nn.Parameter(torch.ones(d, **kw))
-        if weight_quant == "int4":
+        if weight_quant != "none":
             self.lm_head = W8Linear.empty(d, cfg.vocab_size, device=device)
         else:
             self.lm_head = nn.Linear(d, cfg.vocab_size, bias=False, **kw)

@@ -36,8 +36,14 @@ SIGNATURES = {
         [_P] * 10 + [_I] * 7 + [_F, _P],
     "aurora_ragged_decode_int8":
         [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
+    "aurora_ragged_extend_int4":
+        [_P] * 10 + [_I] * 7 + [_F, _P],
+    "aurora_ragged_decode_int4":
+        [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
     "aurora_w4a8_matmul":
         [_P] * 7 + [_I] * 6 + [_P],
+    "aurora_w8a8_matmul":
+        [_P] * 5 + [_I] * 4 + [_P],
     "aurora_flash_fwd":
         [_P] * 7 + [_I] * 7 + [_F, _P],
     "aurora_flash_bwd_dkv":

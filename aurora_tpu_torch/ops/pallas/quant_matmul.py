@@ -1,5 +1,6 @@
-"""W4A8 decode matmul over nibble-packed int4 weights
-(aurora_tpu/ops/pallas/quant_matmul.py `w4a8_matmul_tiled`).
+"""Quantized decode matmuls: W4A8 over nibble-packed int4 weights
+(aurora_tpu/ops/pallas/quant_matmul.py `w4a8_matmul_tiled`) and W8A8 over
+int8 weights (`w8a8_matmul`).
 
 The port's W4 layout, converted once when weights load (the reference's
 TPU tile layout `w4_tile_layout` answers a VMEM budget the card does not
@@ -14,11 +15,14 @@ so each output channel's weights are one contiguous stripe. The bytes are
 the reference's flat layout ([G, g/2, N] packed, [G, 1, N] scales)
 transposed: `w4_from_flat` converts.
 
-`w4a8_matmul_tiled` takes its plain PyTorch twin
-(`w4a8_matmul_tiled_plain`) for CPU tensors and launches the CUDA kernel
-(csrc/w4a8_matmul.cu, which also quantizes the activations) for CUDA
-tensors; it never falls back from one to the other. `.launches` and
-`_plain.calls` count each path.
+The W8 layout is the nn.Linear one: weight [N, K] int8, one fp32 scale
+per output channel [N].
+
+`w4a8_matmul_tiled` and `w8a8_matmul` take their plain PyTorch twins
+(`*_plain`) for CPU tensors and launch their CUDA kernels
+(csrc/w4a8_matmul.cu, which also quantizes the activations, and
+csrc/w8a8_matmul.cu) for CUDA tensors; they never fall back from one to
+the other. `.launches` and `_plain.calls` count each path.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-MAX_TOKENS = 64      # rows the kernel takes (the engine sends at most 64)
+MAX_TOKENS = 64      # rows the kernels take (the engine sends at most 64)
 
 # The reference divides by constants (127, 7) inside jit, which XLA
 # compiles to a multiply by the fp32 reciprocal; the port multiplies by the
@@ -102,6 +106,18 @@ def w4a8_matmul_tiled_plain(h, packed, scale, *, out_dtype=None):
 
 
 w4a8_matmul_tiled_plain.calls = 0
+
+
+def w8a8_matmul_plain(h8, s_a, w8, s_w, *, out_dtype=torch.bfloat16):
+    """Reference of `w8a8_matmul`. The int32 dot of each output is exact in
+    fp64 (|sum| ≤ 127² K < 2^53) and rounds to fp32 as the int32 does;
+    then acc · s_a · s_w in fp32, in that order."""
+    w8a8_matmul_plain.calls += 1
+    acc = (h8.double() @ w8.double().t()).float()
+    return (acc * s_a * s_w.reshape(1, -1)).to(out_dtype)
+
+
+w8a8_matmul_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -181,3 +197,55 @@ def w4a8_matmul_tiled(h, packed, scale, *, out_dtype=None):
 
 
 w4a8_matmul_tiled.launches = 0
+
+
+def w8a8_matmul(h8, s_a, w8, s_w, *, out_dtype=torch.bfloat16):
+    """[B, K] int8 × W8 (weight [N, K] int8, s_w [N] fp32) → [B, N] in
+    out_dtype: the int32 product times the per-token activation scale s_a
+    [B, 1] fp32, then the weight scale (the reference's `w8a8_matmul`
+    with the weight in the nn.Linear layout). B ≤ 64 on the card."""
+    name = "w8a8_matmul"
+    if h8.dim() != 2 or w8.dim() != 2 or h8.shape[1] != w8.shape[1] \
+            or s_a.shape != (h8.shape[0], 1) or s_w.numel() != w8.shape[0]:
+        raise ValueError(f"{name}: shapes h8 {tuple(h8.shape)}, s_a "
+                         f"{tuple(s_a.shape)}, w8 {tuple(w8.shape)}, s_w "
+                         f"{tuple(s_w.shape)} do not match")
+    if h8.device.type == "cpu":
+        return w8a8_matmul_plain(h8, s_a, w8, s_w, out_dtype=out_dtype)
+    if h8.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {h8.device}")
+    for label, t, dtype in (("h8", h8, torch.int8), ("s_a", s_a,
+                                                     torch.float32),
+                            ("w8", w8, torch.int8),
+                            ("s_w", s_w, torch.float32)):
+        if t.device != h8.device:
+            raise ValueError(f"{name}: {label} is on {t.device}, expected "
+                             f"{h8.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+        if t.dtype == torch.int8 and t.data_ptr() % 16:   # 16-byte loads
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {label} must be {dtype}, got "
+                            f"{t.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: out_dtype must be bfloat16 or float32, "
+                        f"got {out_dtype}")
+    B, K = h8.shape
+    N = w8.shape[0]
+    if not 0 < B <= MAX_TOKENS or K % 16:
+        raise ValueError(f"{name}: the CUDA kernel takes 1..{MAX_TOKENS} "
+                         f"rows and K % 16 == 0; got B={B}, K={K}")
+    out = torch.empty((B, N), dtype=out_dtype, device=h8.device)
+    from aurora_tpu_torch.ops.cuda_build import load_library
+    err = load_library().aurora_w8a8_matmul(
+        h8.data_ptr(), s_a.data_ptr(), w8.data_ptr(), s_w.data_ptr(),
+        out.data_ptr(), B, K, N, int(out_dtype == torch.float32),
+        torch.cuda.current_stream(h8.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    w8a8_matmul.launches += 1
+    return out
+
+
+w8a8_matmul.launches = 0

@@ -7,21 +7,24 @@ length are device int32 tensors that the kernels read themselves. Rows are
 bf16 (the activation dtype on the CPU), or int8 with per-token fp32 scale
 planes [L, B, Hkv, S] (`k_scales`/`v_scales`, the reference's `quant`
 mode): the logits are scaled by the key's scale, the probabilities by the
-value's scale.
+value's scale. With `kv_pack` the int8 rows hold nibble-packed int4 values
+[L, B, Hkv, S/2, hd] (two tokens a byte, the PACK_SEG pairing below, grid
+values in [-7, 7]) beside the same token-space scale planes.
 
 * `ragged_attention` — EXTEND: causal attention of each lane's T new
   tokens (already written into its row) against the row.
 * `ragged_decode_attention` — DECODE: write each lane's new K/V token at
   kv_lens-1 of its row in place (int8: quantized onto the `kv_quantize`
-  grid), then attend over the row.
+  grid; packed: its nibble merged into the byte it shares with its mate
+  token), then attend over the row.
 
 Each public function takes its plain PyTorch twin (`*_plain`) when the
 tensors lie on the CPU, and launches its CUDA kernel
 (csrc/ragged_extend.cu, csrc/ragged_decode.cu) for CUDA tensors; it never
 falls back from one to the other. `*.launches` (bf16 kernels),
-`*.launches_int8` (int8 kernels) and `*_plain.calls` (twins, either mode)
-count how often each path ran. Packed-int4 KV (`kv_pack`), the sliding
-window and the logit softcap are not ported yet and raise
+`*.launches_int8` (int8 kernels), `*.launches_int4` (packed int4 kernels)
+and `*_plain.calls` (twins, any mode) count how often each path ran. The
+sliding window and the logit softcap are not ported yet and raise
 NotImplementedError.
 """
 
@@ -31,17 +34,65 @@ import numpy as np
 import torch
 
 _NEG_INF = -2.3819763e38
+# nibble-packed int4 KV: token seg*256 + j (j < 128) sits in the low nibble
+# and token seg*256 + j + 128 in the high nibble of packed row seg*128 + j
+# (the reference's pairing, so that packed rows compare byte for byte)
+PACK_SEG = 256
 
 
 def _check_unported(k_scales, v_scales, kv_pack, window, logit_cap):
-    if kv_pack:
-        raise NotImplementedError(
-            "nibble-packed int4 KV (kv_pack) is not ported yet")
     if window is not None or logit_cap:
         raise NotImplementedError(
             "sliding window and logit softcap are not ported yet")
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales go together")
+    if kv_pack and k_scales is None:
+        raise ValueError("packed int4 KV (kv_pack) needs k_scales/v_scales")
+
+
+def pack_int4_rows(q4: torch.Tensor) -> torch.Tensor:
+    """Token-space grid values [..., S, hd] (int, each in [-7, 7]) →
+    nibble-packed rows [..., S/2, hd] int8 with the PACK_SEG pairing."""
+    *lead, S, hd = q4.shape
+    if S % PACK_SEG:
+        raise ValueError(f"S={S} is not a multiple of {PACK_SEG}")
+    x = q4.to(torch.int32).reshape(*lead, S // PACK_SEG, 2, PACK_SEG // 2,
+                                   hd)
+    b = (x[..., 0, :, :] & 0xF) | ((x[..., 1, :, :] & 0xF) << 4)
+    return b.to(torch.uint8).view(torch.int8).reshape(*lead, S // 2, hd)
+
+
+def unpack_int4_rows(pk: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4_rows: [..., S/2, hd] → [..., S, hd] int8."""
+    *lead, S2, hd = pk.shape
+    half = PACK_SEG // 2
+    if S2 % half:
+        raise ValueError(f"{S2} packed rows are not a multiple of {half}")
+    b = pk.to(torch.int32) & 0xFF
+    lo = (((b & 0xF) ^ 8) - 8).reshape(*lead, S2 // half, half, hd)
+    hi = (((b >> 4) ^ 8) - 8).reshape(*lead, S2 // half, half, hd)
+    return torch.cat([lo, hi], dim=-2).reshape(*lead, 2 * S2, hd).to(
+        torch.int8)
+
+
+def packed_slot(pos):
+    """(packed row, high nibble?) of token position(s) `pos` under the
+    PACK_SEG pairing."""
+    half = PACK_SEG // 2
+    return (pos // PACK_SEG) * half + pos % half, pos % PACK_SEG >= half
+
+
+def blend_nibbles(packed, new_lo, take_lo, new_hi, take_hi):
+    """Packed bytes [n, ...] whose low / high nibbles become the low four
+    bits of new_lo / new_hi ([n, ...] grid values) where take_lo / take_hi
+    ([n] bool) are set, and stay as they are elsewhere."""
+    b = packed.to(torch.int32) & 0xFF
+    shape = (-1,) + (1,) * (b.dim() - 1)
+    lo = torch.where(take_lo.reshape(shape), new_lo.to(torch.int32) & 0xF,
+                     b & 0xF)
+    hi = torch.where(take_hi.reshape(shape), new_hi.to(torch.int32) & 0xF,
+                     b >> 4)
+    return (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
 
 
 def kv_quantize(x, maxq: float = 127.0):
@@ -65,9 +116,9 @@ def _as_index(x, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _attend_plain(q, k_rows, v_rows, lens, offs, rows, lay, scale,
-                  k_scales=None, v_scales=None):
+                  k_scales=None, v_scales=None, kv_pack=False):
     Bk, T, Hq, hd = q.shape
-    Hkv, S = k_rows.shape[2], k_rows.shape[3]
+    Hkv, S = k_rows.shape[2], k_rows.shape[3] * (2 if kv_pack else 1)
     G = Hq // Hkv
     if scale is None:
         scale = hd ** -0.5
@@ -75,8 +126,10 @@ def _attend_plain(q, k_rows, v_rows, lens, offs, rows, lay, scale,
     spos = torch.arange(S, device=dev)
     out = torch.empty_like(q)
     for i in range(Bk):       # one lane at a time bounds the fp32 logits
-        k = k_rows[lay, rows[i]].to(torch.float32)           # [Hkv, S, hd]
-        v = v_rows[lay, rows[i]].to(torch.float32)
+        k, v = k_rows[lay, rows[i]], v_rows[lay, rows[i]]   # [Hkv, S, hd]
+        if kv_pack:
+            k, v = unpack_int4_rows(k), unpack_int4_rows(v)
+        k, v = k.to(torch.float32), v.to(torch.float32)
         qi = q[i].to(torch.float32).reshape(T, Hkv, G, hd)
         logits = torch.einsum("thgd,hsd->hgts", qi * scale, k)
         if k_scales is not None:        # per-key dequant on the logits
@@ -94,18 +147,19 @@ def _attend_plain(q, k_rows, v_rows, lens, offs, rows, lay, scale,
 
 def ragged_attention_plain(q, k_rows, v_rows, kv_lens, q_offsets, row_ids,
                            *, layer, scale=None, k_scales=None,
-                           v_scales=None):
+                           v_scales=None, kv_pack=False):
     """fp32 reference of `ragged_attention` (ragged_attention_reference's
     twin, with the layer picked from the 5-D buffers; int8 rows with their
-    [L, B, Hkv, S] scale planes as the reference's quant mode). Fully
-    masked query rows and padded lanes (kv_len 0) give zeros."""
+    [L, B, Hkv, S] scale planes as the reference's quant mode, packed int4
+    rows unpacked first). Fully masked query rows and padded lanes (kv_len
+    0) give zeros."""
     ragged_attention_plain.calls += 1
     dev = q.device
     return _attend_plain(q, k_rows, v_rows,
                          _as_index(kv_lens, dev).long(),
                          _as_index(q_offsets, dev).long(),
                          _as_index(row_ids, dev).long(), int(layer), scale,
-                         k_scales, v_scales)
+                         k_scales, v_scales, kv_pack)
 
 
 ragged_attention_plain.calls = 0
@@ -114,17 +168,19 @@ ragged_attention_plain.calls = 0
 def ragged_decode_attention_plain(q, k_new, v_new, k_rows, v_rows, kv_lens,
                                   row_ids, *, layer, scale=None,
                                   k_scales=None, v_scales=None,
-                                  kv_maxq: float = 127.0):
+                                  kv_maxq: float = 127.0,
+                                  kv_pack: bool = False):
     """Reference of `ragged_decode_attention`: in-place write of each
     active lane's token at kv_lens-1 (int8: its `kv_quantize` values and
-    scales), then the extend reference with T = 1 at that position."""
+    scales; packed: its nibble merged into the shared byte), then the
+    extend reference with T = 1 at that position."""
     ragged_decode_attention_plain.calls += 1
     dev = q.device
     lens = _as_index(kv_lens, dev).long()
     rows = _as_index(row_ids, dev).long()
     lay = int(layer)
-    lanes = ((lens > 0) & (lens <= k_rows.shape[3])).nonzero(
-        as_tuple=True)[0]
+    S = k_rows.shape[3] * (2 if kv_pack else 1)
+    lanes = ((lens > 0) & (lens <= S)).nonzero(as_tuple=True)[0]
     pos = lens[lanes] - 1
     kn, vn = k_new[lanes], v_new[lanes]
     if k_scales is not None:
@@ -132,10 +188,16 @@ def ragged_decode_attention_plain(q, k_new, v_new, k_rows, v_rows, kv_lens,
         vn, vsn = kv_quantize(vn, kv_maxq)
         k_scales[lay, rows[lanes], :, pos] = ksn
         v_scales[lay, rows[lanes], :, pos] = vsn
-    k_rows[lay, rows[lanes], :, pos] = kn.to(k_rows.dtype)
-    v_rows[lay, rows[lanes], :, pos] = vn.to(v_rows.dtype)
+    at = (lay, rows[lanes], slice(None), pos)
+    if kv_pack:       # the token's nibbles into its plane, the mates kept
+        prow, high = packed_slot(pos)
+        at = at[:3] + (prow,)
+        kn = blend_nibbles(k_rows[at], kn, ~high, kn, high)
+        vn = blend_nibbles(v_rows[at], vn, ~high, vn, high)
+    k_rows[at] = kn.to(k_rows.dtype)
+    v_rows[at] = vn.to(v_rows.dtype)
     out = _attend_plain(q, k_rows, v_rows, lens, (lens - 1).clamp_min(0),
-                        rows, lay, scale, k_scales, v_scales)
+                        rows, lay, scale, k_scales, v_scales, kv_pack)
     if k_scales is not None:
         return out, k_rows, v_rows, k_scales, v_scales
     return out, k_rows, v_rows
@@ -164,13 +226,18 @@ def _check_cuda(name, tensors, ints):
                             f"card, got {t.dtype}")
 
 
-def _kv_tensors(k_rows, v_rows, k_scales, v_scales):
+def _kv_tensors(k_rows, v_rows, k_scales, v_scales, kv_pack=False):
     """(label, tensor, dtype) of the KV operands: bf16 rows, or int8 rows
-    with fp32 scale planes of the rows' [L, B, Hkv, S] shape."""
+    with fp32 scale planes of the rows' [L, B, Hkv, S] shape (packed int4
+    rows [L, B, Hkv, S/2, hd] with S a PACK_SEG multiple)."""
     if k_scales is None:
         return [("k_rows", k_rows, torch.bfloat16),
                 ("v_rows", v_rows, torch.bfloat16)]
-    want = tuple(k_rows.shape[:4])
+    want = tuple(k_rows.shape[:3]) + (k_rows.shape[3] * (2 if kv_pack
+                                                         else 1),)
+    if kv_pack and want[3] % PACK_SEG:
+        raise ValueError(f"packed KV rows must hold a multiple of "
+                         f"{PACK_SEG} tokens, got {want[3]}")
     if tuple(k_scales.shape) != want or tuple(v_scales.shape) != want:
         raise ValueError(f"k_scales/v_scales must be {list(want)}, got "
                          f"{tuple(k_scales.shape)} / "
@@ -208,6 +275,13 @@ def _validate(name, q, k_rows, v_rows, hd_expected=128):
         raise ValueError(f"{name}: Hq={Hq} is not a multiple of Hkv={Hkv}")
 
 
+def _mode(quant, kv_pack):
+    """Kernel name suffix and launch counter of a KV mode."""
+    if kv_pack:
+        return "int4", "launches_int4"
+    return ("int8", "launches_int8") if quant else ("bf16", "launches")
+
+
 def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
                      layer=None, scale=None, window=None,
                      logit_cap: float = 0.0, k_scales=None, v_scales=None,
@@ -220,7 +294,9 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
     a padded lane, whose output is zeros); q_offsets [Bk] global position
     of q[:, 0]; row_ids [Bk] the KV row of each lane; layer: int or 1-elem
     int32 device tensor; k_scales/v_scales [L, B, Hkv, S] (or [B, Hkv, S])
-    fp32 with int8 rows. Returns [Bk, T, Hq, hd] in q's dtype.
+    fp32 with int8 rows; kv_pack: the int8 rows are nibble-packed
+    [..., S/2, hd] (PACK_SEG pairing). Returns [Bk, T, Hq, hd] in q's
+    dtype.
     """
     _check_unported(k_scales, v_scales, kv_pack, window, logit_cap)
     quant = k_scales is not None
@@ -235,17 +311,20 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
     if q.device.type == "cpu":
         return ragged_attention_plain(q, k_rows, v_rows, kv_lens, q_offsets,
                                       row_ids, layer=layer, scale=scale,
-                                      k_scales=k_scales, v_scales=v_scales)
+                                      k_scales=k_scales, v_scales=v_scales,
+                                      kv_pack=kv_pack)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_attention: unsupported device {q.device}")
     name = "ragged_attention"
     _validate(name, q, k_rows, v_rows)
     Bk, T, Hq, hd = q.shape
     L, B, Hkv, S, _ = k_rows.shape
+    S *= 2 if kv_pack else 1          # the kernels take token-space S
     idx = _int_args(name, q.device, Bk, kv_lens=kv_lens,
                     q_offsets=q_offsets, row_ids=row_ids, layer=layer)
     _check_cuda(name, [("q", q, torch.bfloat16)]
-                + _kv_tensors(k_rows, v_rows, k_scales, v_scales), idx)
+                + _kv_tensors(k_rows, v_rows, k_scales, v_scales, kv_pack),
+                idx)
     out = torch.empty_like(q)
     from aurora_tpu_torch.ops.cuda_build import load_library
     lib = load_library()
@@ -255,24 +334,19 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
             idx["q_offsets"].data_ptr(), idx["row_ids"].data_ptr(),
             idx["layer"].data_ptr(), Bk, T, Hq, Hkv, B, S, hd, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
-    if quant:
-        err = lib.aurora_ragged_extend_int8(
-            q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
-            k_scales.data_ptr(), v_scales.data_ptr(), *tail)
-    else:
-        err = lib.aurora_ragged_extend_bf16(
-            q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(), *tail)
+    suffix, counter = _mode(quant, kv_pack)
+    scales = (k_scales.data_ptr(), v_scales.data_ptr()) if quant else ()
+    err = getattr(lib, "aurora_ragged_extend_" + suffix)(
+        q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(), *scales, *tail)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    if quant:
-        ragged_attention.launches_int8 += 1
-    else:
-        ragged_attention.launches += 1
+    setattr(ragged_attention, counter, getattr(ragged_attention, counter) + 1)
     return out
 
 
 ragged_attention.launches = 0
 ragged_attention.launches_int8 = 0
+ragged_attention.launches_int4 = 0
 
 
 def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
@@ -287,19 +361,23 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
     S, hd]; kv_lens [B] row length including the new token; row_ids [B]
     distinct per lane. With k_scales/v_scales ([L, B, Hkv, S] fp32, int8
     rows) the new token is quantized onto the `kv_quantize` grid of
-    kv_maxq. Returns (attn [B, 1, Hq, hd], k_rows, v_rows[, k_scales,
-    v_scales]) — the row and scale tensors are the inputs, updated in
-    place.
+    kv_maxq; with kv_pack (rows [L, B, Hkv, S/2, hd], kv_maxq ≤ 7) its
+    nibbles are merged into the bytes it shares with its mate token.
+    Returns (attn [B, 1, Hq, hd], k_rows, v_rows[, k_scales, v_scales]) —
+    the row and scale tensors are the inputs, updated in place.
     """
     _check_unported(k_scales, v_scales, kv_pack, window, logit_cap)
     quant = k_scales is not None
     if q.shape[1] != 1:
         raise ValueError("ragged_decode_attention takes one query token")
+    if kv_pack and not 0 < kv_maxq <= 7:
+        raise ValueError(f"packed int4 KV holds grid values up to 7, got "
+                         f"kv_maxq={kv_maxq}")
     if q.device.type == "cpu":
         return ragged_decode_attention_plain(
             q, k_new, v_new, k_rows, v_rows, kv_lens, row_ids,
             layer=layer, scale=scale, k_scales=k_scales, v_scales=v_scales,
-            kv_maxq=kv_maxq)
+            kv_maxq=kv_maxq, kv_pack=kv_pack)
     if q.device.type != "cuda":
         raise ValueError(
             f"ragged_decode_attention: unsupported device {q.device}")
@@ -307,6 +385,7 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
     _validate(name, q, k_rows, v_rows)
     Bq, _, Hq, hd = q.shape
     L, B, Hkv, S, _ = k_rows.shape
+    S *= 2 if kv_pack else 1          # the kernels take token-space S
     if Hq // Hkv > 8:
         raise ValueError(f"{name}: the CUDA kernel takes at most 8 query "
                          f"heads per KV head, got {Hq // Hkv}")
@@ -317,7 +396,8 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
     bf = torch.bfloat16
     _check_cuda(name, [("q", q, bf), ("k_new", k_new, bf),
                        ("v_new", v_new, bf)]
-                + _kv_tensors(k_rows, v_rows, k_scales, v_scales), idx)
+                + _kv_tensors(k_rows, v_rows, k_scales, v_scales, kv_pack),
+                idx)
     out = torch.empty_like(q)
     from aurora_tpu_torch.ops.cuda_build import load_library
     lib = load_library()
@@ -329,21 +409,23 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
     tail = (out.data_ptr(), idx["kv_lens"].data_ptr(),
             idx["row_ids"].data_ptr(), idx["layer"].data_ptr(),
             Bq, Hq, Hkv, B, S, hd, float(scale))
+    suffix, counter = _mode(quant, kv_pack)
     if quant:
         inv = float(np.float32(1.0) / np.float32(kv_maxq))
-        err = lib.aurora_ragged_decode_int8(
+        err = getattr(lib, "aurora_ragged_decode_" + suffix)(
             *head, k_scales.data_ptr(), v_scales.data_ptr(), *tail,
             float(kv_maxq), inv, stream)
     else:
         err = lib.aurora_ragged_decode_bf16(*head, *tail, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    setattr(ragged_decode_attention, counter,
+            getattr(ragged_decode_attention, counter) + 1)
     if quant:
-        ragged_decode_attention.launches_int8 += 1
         return out, k_rows, v_rows, k_scales, v_scales
-    ragged_decode_attention.launches += 1
     return out, k_rows, v_rows
 
 
 ragged_decode_attention.launches = 0
 ragged_decode_attention.launches_int8 = 0
+ragged_decode_attention.launches_int4 = 0

@@ -1,14 +1,16 @@
 """Continuous-batching serving engine over row-contiguous KV
-(aurora_tpu/serve/engine.py) on one GPU: bf16 or W4 (int4-packed,
-group-scaled) weights, bf16 or int8 KV.
+(aurora_tpu/serve/engine.py) on one GPU: bf16, W8 (int8, per-channel
+scales) or W4 (int4-packed, group-scaled) weights; bf16, int8 or
+nibble-packed int4 KV.
 
 Each running request owns one row of the [L, B, Hkv, S, hd] K and V
-buffers (int8 KV adds per-token fp32 scale planes [L, B, Hkv, S]). All
+buffers (int8 KV adds per-token fp32 scale planes [L, B, Hkv, S]; int4 KV
+keeps S/2 packed rows [L, B, Hkv, S/2, hd] beside the same planes). All
 requests admitted in a step prefill in ONE batched extend (lanes indexed
 by row_ids / q_offsets / kv_lens); decode runs K steps per host sync with
 the sampled tokens fed back on the device. Attention in both modes goes
 through the hand-written CUDA kernels of ops/pallas/ragged_attention.py,
-and W4 matmuls of at most 64 tokens through the kernel of
+and W4 and W8 matmuls of at most 64 tokens through the kernels of
 ops/pallas/quant_matmul.py (their plain twins on CPU tensors).
 
 The module splits
@@ -21,9 +23,8 @@ The module splits
 
 Not ported yet (each raises NotImplementedError when asked for): the
 radix prefix cache and slot pool, chunked/interleaved prefill, jump-
-forward and constrained decoding, stop strings, nibble-packed int4 KV,
-W8 (int8) weights, tensor parallelism, and the other model families
-(MLA, MoE, windowed or soft-capped attention).
+forward and constrained decoding, stop strings, tensor parallelism, and
+the other model families (MLA, MoE, windowed or soft-capped attention).
 """
 
 from __future__ import annotations
@@ -45,9 +46,11 @@ from aurora_tpu_torch.ops.norms import family_norm as _norm
 from aurora_tpu_torch.ops.pallas.quant_matmul import (INV127,
                                                       quantize_activations,
                                                       w4_dequantize, w4_pack,
-                                                      w4a8_matmul_tiled)
+                                                      w4a8_matmul_tiled,
+                                                      w8a8_matmul)
 from aurora_tpu_torch.ops.pallas.ragged_attention import (
-    kv_quantize as _kv_quantize, ragged_attention, ragged_decode_attention)
+    PACK_SEG, blend_nibbles, kv_quantize as _kv_quantize, packed_slot,
+    ragged_attention, ragged_decode_attention)
 from aurora_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from aurora_tpu_torch.serve.scheduler import (FinishReason, Request,
                                               Scheduler, SchedulePolicy)
@@ -74,14 +77,12 @@ class EngineConfig:
     max_extend_lanes: int = 16       # lanes per extend sub-wave
 
     def __post_init__(self):
-        if self.kv_quant not in ("none", "int8"):
+        if self.kv_quant not in ("none", "int8", "int4"):
             raise NotImplementedError(
-                f"kv_quant={self.kv_quant!r}: nibble-packed int4 KV is not "
-                "ported yet (none or int8)")
-        if self.weight_quant not in ("none", "int4"):
+                f"kv_quant={self.kv_quant!r}: none, int8 or int4")
+        if self.weight_quant not in ("none", "int4", "int8"):
             raise NotImplementedError(
-                f"weight_quant={self.weight_quant!r}: W8 weights are not "
-                "ported yet (none or int4)")
+                f"weight_quant={self.weight_quant!r}: none, int4 or int8")
         if self.tp != 1:
             raise NotImplementedError(
                 f"tp={self.tp}: tensor-parallel serving is not ported yet")
@@ -92,18 +93,23 @@ class EngineConfig:
 
     @property
     def s_row(self) -> int:
-        """KV row width: max_seq_len rounded up to a kv_chunk multiple."""
+        """KV row width: max_seq_len rounded up to a kv_chunk multiple
+        (int4 KV: the chunk rounded up to the 256-token packing segment)."""
         c = min(self.kv_chunk, self.max_seq_len)
+        if self.kv_quant == "int4":
+            c = max(-(-c // PACK_SEG) * PACK_SEG, PACK_SEG)
         return -(-self.max_seq_len // c) * c
 
 
 def kv_bytes_per_token_layer(cfg: LlamaConfig, kv_quant: str,
                              kv_dtype) -> int:
     """K + V bytes of one token in one layer (int8: values plus the fp32
-    scale of each head)."""
+    scale of each head; int4: nibble-packed values plus the scales)."""
     hkv, hd = cfg.num_key_value_heads, cfg.head_dim
     if kv_quant == "int8":
         return 2 * hkv * (hd + 4)
+    if kv_quant == "int4":
+        return 2 * hkv * (hd // 2 + 4)
     itemsize = torch.empty((), dtype=kv_dtype).element_size()
     return 2 * hkv * hd * itemsize
 
@@ -117,7 +123,7 @@ def row_buffer_bytes(cfg: LlamaConfig, ecfg: EngineConfig) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Weight quantization (the reference's quantize_weights_int4 and
+# Weight quantization (the reference's quantize_weights_int4/_int8 and
 # fuse_serving_weights, over the port's modules)
 # ---------------------------------------------------------------------------
 
@@ -146,25 +152,19 @@ def _w4(w: torch.Tensor):
     return w4_pack(q.reshape(O, D)), s
 
 
-def quantize_weights_int4(model: LlamaModel,
-                          free_source: bool = False) -> LlamaModel:
-    """A W4 model from a dense one: every layer projection → W4Linear,
-    the LM head → W8Linear (int8 for logit quality); the embeddings and
-    norms are shared with `model`, not copied. Quantizes one projection
-    at a time. free_source=True drops each source nn.Linear from `model`
-    as it is quantized, so peak memory stays about the dense model plus
-    one projection's fp32 transient; `model` is then left without them."""
+def _quantize_model(model: LlamaModel, weight_quant: str, quantize,
+                    free_source: bool) -> LlamaModel:
     cfg = model.cfg
     fused = hasattr(model.layers[0], "qkv")
-    out = LlamaModel(cfg, device="meta", weight_quant="int4", fused=fused)
+    out = LlamaModel(cfg, device="meta", weight_quant=weight_quant,
+                     fused=fused)
     out.embed_tokens = model.embed_tokens
     out.final_norm = model.final_norm
     for src, dst in zip(model.layers, out.layers):
         dst.input_norm = src.input_norm
         dst.post_attn_norm = src.post_attn_norm
         for name in projection_shapes(cfg, fused):
-            setattr(dst, name,
-                    W4Linear(*_w4(getattr(src, name).weight.detach())))
+            setattr(dst, name, quantize(getattr(src, name).weight.detach()))
             if free_source:
                 setattr(src, name, None)
     out.lm_head = W8Linear(*_w8(model.lm_head.weight.detach()))
@@ -173,11 +173,44 @@ def quantize_weights_int4(model: LlamaModel,
     return out
 
 
+def quantize_weights_int4(model: LlamaModel,
+                          free_source: bool = False) -> LlamaModel:
+    """A W4 model from a dense one: every layer projection → W4Linear,
+    the LM head → W8Linear (int8 for logit quality); the embeddings and
+    norms are shared with `model`, not copied. Quantizes one projection
+    at a time. free_source=True drops each source nn.Linear from `model`
+    as it is quantized, so peak memory stays about the dense model plus
+    one projection's fp32 transient; `model` is then left without them."""
+    return _quantize_model(model, "int4", lambda w: W4Linear(*_w4(w)),
+                           free_source)
+
+
+def quantize_weights_int8(model: LlamaModel,
+                          free_source: bool = False) -> LlamaModel:
+    """A W8 model from a dense one: every layer projection and the LM
+    head → W8Linear (int8, one fp32 scale per output channel), as
+    quantize_weights_int4 does it (shared embeddings and norms,
+    free_source)."""
+    return _quantize_model(model, "int8", lambda w: W8Linear(*_w8(w)),
+                           free_source)
+
+
+def weight_quant_of(model: LlamaModel) -> str:
+    """"int4", "int8" or "none": how `model`'s layer weights are stored."""
+    proj = model.layers[0].o
+    if isinstance(proj, W4Linear):
+        return "int4"
+    return "int8" if isinstance(proj, W8Linear) else "none"
+
+
 def _cat_out(parts):
     """Projections → one projection, concatenated on the output axis
     (exact for per-output-channel and per-group scales)."""
     if all(isinstance(p, W4Linear) for p in parts):
         return W4Linear(torch.cat([p.packed for p in parts]),
+                        torch.cat([p.scale for p in parts]))
+    if all(isinstance(p, W8Linear) for p in parts):
+        return W8Linear(torch.cat([p.weight for p in parts]),
                         torch.cat([p.scale for p in parts]))
     w = torch.cat([p.weight.detach() for p in parts])
     lin = nn.Linear(w.shape[1], w.shape[0], bias=False, device="meta")
@@ -207,7 +240,8 @@ def fuse_serving_weights(model: LlamaModel) -> LlamaModel:
 
 # Above this many tokens (lanes × bucket) `_w4dot` dequantizes the layer's
 # weights to the activation dtype and runs a dense matmul (the reference's
-# prefill branch); at or below it runs the W4A8 kernel.
+# prefill branch) and `_w8dot` runs torch._int_mm; at or below it they run
+# the W4A8 and W8A8 kernels.
 _W4_GROUPED_MAX_TOKENS = 64
 
 
@@ -225,10 +259,39 @@ def _w4dot(h, w: W4Linear):
         h, w4_dequantize(w.packed, w.scale, h.dtype))
 
 
+def _int8_linear(x8, s_a, w: W8Linear) -> torch.Tensor:
+    """Per-token int8 rows x8 [n, K] (scales s_a [n, 1]) @ W8 → fp32
+    [n, N]: the int32 product by torch._int_mm, whose card version needs
+    more than 16 rows (the rows are zero-padded to at least 32), then
+    acc · s_a · s_w."""
+    n = x8.shape[0]
+    pad = max(32, -(-n // 8) * 8) - n
+    acc = torch._int_mm(torch.nn.functional.pad(x8, (0, 0, 0, pad)),
+                        w.weight.t())[:n]
+    return acc.float() * s_a * w.scale
+
+
+def _w8dot(h, w: W8Linear):
+    """h [..., K] @ W8 → [..., N] in h's dtype (the reference's W8A8
+    `_wdot` branch): per-token int8 activations, the exact int32 product,
+    then acc · s_a · s_w in fp32. Few tokens (decode): the W8A8 kernel;
+    many (extend): torch._int_mm. Both give the same numbers."""
+    lead, K = h.shape[:-1], h.shape[-1]
+    h8, s_a = quantize_activations(h.reshape(-1, K))
+    if math.prod(lead) <= _W4_GROUPED_MAX_TOKENS:
+        out = w8a8_matmul(h8, s_a, w.weight, w.scale, out_dtype=h.dtype)
+    else:
+        out = _int8_linear(h8, s_a, w).to(h.dtype)
+    return out.reshape(*lead, -1)
+
+
 def _wdot(h, proj):
-    """h @ W for one projection module: W4 (_w4dot) or dense."""
+    """h @ W for one projection module: W4 (_w4dot), W8 (_w8dot) or
+    dense."""
     if isinstance(proj, W4Linear):
         return _w4dot(h, proj)
+    if isinstance(proj, W8Linear):
+        return _w8dot(h, proj)
     return proj(h)
 
 
@@ -236,19 +299,27 @@ def _wdot(h, proj):
 class KVWriteIndex:
     """Where an extend wave's new K/V land: token t_idx of lane lane_idx
     goes to position pos_idx of row row_idx. Built once per wave and
-    reused by every layer."""
+    reused by every layer. For packed int4 rows also each byte the wave
+    touches, once: packed row byte_pos of row byte_row, whose low and high
+    nibbles come from the wave's flattened token src_lo / src_hi (lane ·
+    T + t), or, where that is -1, stay as they are."""
     lane_idx: torch.Tensor
     t_idx: torch.Tensor
     row_idx: torch.Tensor
     pos_idx: torch.Tensor
+    byte_row: Optional[torch.Tensor] = None
+    byte_pos: Optional[torch.Tensor] = None
+    src_lo: Optional[torch.Tensor] = None
+    src_hi: Optional[torch.Tensor] = None
 
 
 def _kv_write_index(row_ids, q_offsets, kv_lens, T: int, S: int,
-                    device) -> KVWriteIndex:
+                    device, pack: bool = False) -> KVWriteIndex:
     """Host-side plan of the extend write: positions [q_offset, q_offset +
     T) ∩ [0, kv_len) ∩ [0, S) of each lane. Query padding past kv_len and
     bucket padding past the row are dropped, as the reference's windowed
-    write drops them."""
+    write drops them. pack: plan the packed int4 bytes too, each byte once
+    even where the wave writes both of its tokens."""
     lanes, ts, rows, pos = [], [], [], []
     for i, (row, off, ln) in enumerate(zip(row_ids, q_offsets, kv_lens)):
         off, ln = int(off), int(ln)
@@ -261,20 +332,44 @@ def _kv_write_index(row_ids, q_offsets, kv_lens, T: int, S: int,
             pos.append(np.arange(off, end))
 
     def cat(parts):
-        arr = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+        return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+    def dev(arr):
         return torch.as_tensor(arr, dtype=torch.int64, device=device)
 
-    return KVWriteIndex(cat(lanes), cat(ts), cat(rows), cat(pos))
+    lanes, ts, rows, pos = cat(lanes), cat(ts), cat(rows), cat(pos)
+    widx = KVWriteIndex(dev(lanes), dev(ts), dev(rows), dev(pos))
+    if pack:
+        prow, high = packed_slot(pos)
+        key = rows * (S // 2) + prow
+        uniq, inv = np.unique(key, return_inverse=True)
+        src = np.full((2, len(uniq)), -1, np.int64)
+        src[high.astype(np.int64), inv] = lanes * T + ts
+        widx.byte_row, widx.byte_pos = dev(uniq // (S // 2)), \
+            dev(uniq % (S // 2))
+        widx.src_lo, widx.src_hi = dev(src[0]), dev(src[1])
+    return widx
 
 
 def _write_kv_window(rows, l: int, k, v, widx: KVWriteIndex,
                      scales=None) -> None:
     """Write the wave's new tokens into layer l of the rows, in place
-    (with int8 rows, their per-token scales [Bk, T, Hkv] into ks/vs)."""
+    (with int8 rows, their per-token scales [Bk, T, Hkv] into ks/vs; with
+    packed int4 rows, each touched byte rebuilt once from both of its
+    nibbles, the reference's _write_kv_window_packed)."""
     at = (widx.row_idx, slice(None), widx.pos_idx)
     new = (widx.lane_idx, widx.t_idx)
-    rows["k"][l][at] = k[new].to(rows["k"].dtype)
-    rows["v"][l][at] = v[new].to(rows["v"].dtype)
+    if widx.byte_row is None:
+        rows["k"][l][at] = k[new].to(rows["k"].dtype)
+        rows["v"][l][at] = v[new].to(rows["v"].dtype)
+    else:
+        bat = (widx.byte_row, slice(None), widx.byte_pos)
+        lo, hi = widx.src_lo.clamp_min(0), widx.src_hi.clamp_min(0)
+        for name, x in (("k", k), ("v", v)):
+            x = x.flatten(0, 1)
+            rows[name][l][bat] = blend_nibbles(
+                rows[name][l][bat], x[lo], widx.src_lo >= 0, x[hi],
+                widx.src_hi >= 0)
     if scales is not None:
         rows["ks"][l][at] = scales[0][new]
         rows["vs"][l][at] = scales[1][new]
@@ -286,22 +381,27 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
     """Shared EXTEND/DECODE forward over row-contiguous KV.
 
     embeds [Bk, T, D]; rows {"k", "v": [L, B, Hkv, S, hd]} (+ "ks", "vs"
-    [L, B, Hkv, S] fp32 scales when the rows are int8); row_ids,
+    [L, B, Hkv, S] fp32 scales when the rows are int8; packed int4 rows
+    are [L, B, Hkv, S/2, hd], and that shape is the packing flag, as in the
+    reference); row_ids,
     q_offsets, kv_lens [Bk] int32 device tensors (kv_lens is the row
     length AFTER the new tokens, 0 for a padded lane); layer_ids [L] int32
     device tensor (each kernel reads its layer index from it). EXTEND
-    (T > 1) writes the new K/V through `kv_write` (int8: quantized first,
-    and the extend attends over the quantized rows, new tokens included),
-    then attends; DECODE (T == 1) writes (int8: quantizing the token in
-    the kernel) and attends in one kernel. Each projection dispatches on
-    its module: W4 or dense. Returns the last valid token's final hidden
-    state per lane, [Bk, D].
+    (T > 1) writes the new K/V through `kv_write` (int8/int4: quantized
+    first, to maxq 127/7, and the extend attends over the quantized rows,
+    new tokens included), then attends; DECODE (T == 1) writes (quantizing
+    the token in the kernel) and attends in one kernel. Each projection
+    dispatches on its module: W4, W8 or dense. Returns the last valid
+    token's final hidden state per lane, [Bk, D].
     """
     x = embeds
     Bk, T, _ = x.shape
     hd = cfg.head_dim
     quant = "ks" in rows
-    scales = dict(k_scales=rows.get("ks"), v_scales=rows.get("vs"))
+    kv_pack = quant and rows["k"].shape[3] * 2 == rows["ks"].shape[3]
+    maxq = 7.0 if kv_pack else 127.0
+    scales = dict(k_scales=rows.get("ks"), v_scales=rows.get("vs"),
+                  kv_pack=kv_pack)
     positions = q_offsets[:, None].long() + torch.arange(T, device=x.device)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta,
                             cfg.rope_linear_scaling)
@@ -313,10 +413,12 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
         if T == 1:
             attn = ragged_decode_attention(
                 q, k[:, 0], v[:, 0], rows["k"], rows["v"], kv_lens, row_ids,
-                layer=layer, scale=cfg.attn_scale, **scales)[0]
+                layer=layer, scale=cfg.attn_scale, kv_maxq=maxq,
+                **scales)[0]
         else:
             if quant:
-                (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
+                (k, ks), (v, vs) = (_kv_quantize(k, maxq),
+                                    _kv_quantize(v, maxq))
                 _write_kv_window(rows, l, k, v, kv_write, (ks, vs))
             else:
                 _write_kv_window(rows, l, k, v, kv_write)
@@ -332,18 +434,12 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
 
 def _lm_head(model: LlamaModel, x) -> torch.Tensor:
     """Logits in fp32. A dense head runs in the weights' dtype; the int8
-    head (W4 models) runs W8A8: per-token int8 activations, an int32
-    matmul, then both scales. torch._int_mm on the card needs more than
-    16 rows, so the rows are zero-padded to at least 32."""
+    head (W4 and W8 models) runs W8A8: per-token int8 activations, an
+    int32 matmul (torch._int_mm), then both scales."""
     head = model.lm_head
     if not isinstance(head, W8Linear):
         return torch.nn.functional.linear(x, head.weight).float()
-    x8, s_a = quantize_activations(x)
-    n = x8.shape[0]
-    pad = max(32, -(-n // 8) * 8) - n
-    acc = torch._int_mm(torch.nn.functional.pad(x8, (0, 0, 0, pad)),
-                        head.weight.t())[:n]
-    return acc.float() * s_a * head.scale
+    return _int8_linear(*quantize_activations(x), head)
 
 
 def _sample_core(logits, counts, seen, samp, allowed, generator,
@@ -437,16 +533,17 @@ class DeviceRunner:
         B, S = ecfg.max_batch, ecfg.s_row
         L, Hkv, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                       cfg.head_dim)
-        shape = (L, B, Hkv, S, hd)
-        quant = ecfg.kv_quant == "int8"
+        quant = ecfg.kv_quant in ("int8", "int4")
         store = torch.int8 if quant else ecfg.kv_dtype
-        self.rows = {"k": torch.zeros(shape, dtype=store,
+        # int4: S/2 nibble-packed rows beside full-S scale planes
+        Sv = S // 2 if ecfg.kv_quant == "int4" else S
+        self.rows = {"k": torch.zeros((L, B, Hkv, Sv, hd), dtype=store,
                                       device=self.device),
-                     "v": torch.zeros(shape, dtype=store,
+                     "v": torch.zeros((L, B, Hkv, Sv, hd), dtype=store,
                                       device=self.device)}
-        if quant:       # per-token fp32 scales of the int8 rows
+        if quant:       # per-token fp32 scales of the int8/int4 rows
             for name in ("ks", "vs"):
-                self.rows[name] = torch.zeros(shape[:4],
+                self.rows[name] = torch.zeros((L, B, Hkv, S),
                                               dtype=torch.float32,
                                               device=self.device)
         self.counts = torch.zeros((B, cfg.vocab_size), dtype=torch.int32,
@@ -477,7 +574,8 @@ class DeviceRunner:
         row_ids / q_offsets / kv_lens are host arrays of the wave."""
         widx = _kv_write_index(row_ids, q_offsets, kv_lens,
                                embeds.shape[1], self.ecfg.s_row,
-                               self.device)
+                               self.device,
+                               pack=self.ecfg.kv_quant == "int4")
         x = _forward_rows(self.model, self.cfg, embeds, self.rows,
                           self._idx(row_ids), self._idx(q_offsets),
                           self._idx(kv_lens), self.layer_ids, widx)
@@ -554,19 +652,24 @@ class DeviceRunner:
 class ServeEngine:
     """Single-GPU engine: schedule → batched extend / K-step decode.
 
-    weight_quant="int4" serves a W4 model: a dense `model` is quantized
-    (quantize_weights_int4 into a new model; `model` stays as it is) and
-    its streams fused (fuse_serving_weights); a model that is already W4,
-    fused or not, is served as given."""
+    weight_quant="int4" / "int8" serves a W4 / W8 model: a dense `model`
+    is quantized (quantize_weights_int4 / _int8 into a new model; `model`
+    stays as it is) and its streams fused (fuse_serving_weights); a model
+    that is already quantized so, fused or not, is served as given."""
 
     def __init__(self, model: LlamaModel, cfg: LlamaConfig,
                  ecfg: EngineConfig = EngineConfig(), embed_fn=None,
                  device=None, seed: int = 0):
         self.cfg = cfg
         self.ecfg = ecfg
-        if ecfg.weight_quant == "int4" and \
-                not isinstance(model.lm_head, W8Linear):
-            model = fuse_serving_weights(quantize_weights_int4(model))
+        have = weight_quant_of(model)
+        if have != ecfg.weight_quant:
+            if have != "none":
+                raise ValueError(f"a {have} model cannot be served with "
+                                 f"weight_quant={ecfg.weight_quant!r}")
+            quantize = {"int4": quantize_weights_int4,
+                        "int8": quantize_weights_int8}[ecfg.weight_quant]
+            model = fuse_serving_weights(quantize(model))
         self.embed_fn = embed_fn  # multimodal hook: req → [T, D] embeds
         device = device if device is not None else \
             model.embed_tokens.device

@@ -3,14 +3,17 @@ K-step decode block of the port's DeviceRunner, on one GPU.
 
     python3 -m aurora_tpu_torch.tools.profile_serve          # from the repo root
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8  # W4 weights, int8 KV
+    python3 -m aurora_tpu_torch.tools.profile_serve --w8kv8  # W8 weights, int8 KV
+    python3 -m aurora_tpu_torch.tools.profile_serve --w4kv4  # W4, packed int4 KV
     python3 -m aurora_tpu_torch.tools.profile_serve --tiny --device cpu  # logic check
 
 Builds Vicuna-7B-v1.5-16k (the AuroraCap-7B decoder) at full width with
 random bf16 weights from a seed and the engine configuration of
 chip_smoke.py (4 rows, kv_chunk 256, 1536 bucket, KV rows of prompt +
-256; with --w4kv8 the LLM quantized to W4 weights with an int8 LM head
-and int8 KV), fills the rows with one extend wave of text embeddings (the ViT is
-not run here; chip_smoke.py times it), then reads:
+256; with --w4kv8 / --w8kv8 / --w4kv4 the LLM quantized on the device to
+W4 or W8 weights with an int8 LM head, and int8 or packed int4 KV), fills
+the rows with one extend wave of text embeddings (the ViT is not run
+here; chip_smoke.py times it), then reads:
 
 * wall      — median host wall time of an extend wave and of a K-step
               decode block, unprofiled. Both end in a host read of their
@@ -45,6 +48,9 @@ from collections import defaultdict
 import numpy as np
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# flag → (weight_quant, kv_quant)
+_QUANT_MODES = {"w4kv8": ("int4", "int8"), "w8kv8": ("int8", "int8"),
+                "w4kv4": ("int4", "int4")}
 
 
 def device_events(trace_path):
@@ -92,8 +98,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiny", action="store_true",
                     help="LlamaConfig.tiny() with a short prompt")
-    ap.add_argument("--w4kv8", action="store_true",
-                    help="W4 weights (quantized on the device) and int8 KV")
+    for flag, what in _QUANT_MODES.items():
+        ap.add_argument("--" + flag, action="store_true",
+                        help=f"{what[0]} weights (quantized on the device) "
+                             f"and {what[1]} KV")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="build/profile_serve")
     args = ap.parse_args(argv)
@@ -104,7 +112,8 @@ def main(argv=None) -> int:
     from aurora_tpu_torch.serve.engine import (DeviceRunner, EngineConfig,
                                                _forward_rows, _lm_head,
                                                fuse_serving_weights,
-                                               quantize_weights_int4)
+                                               quantize_weights_int4,
+                                               quantize_weights_int8)
 
     dev = torch.device(args.device)
     on_gpu = dev.type == "cuda"
@@ -121,11 +130,16 @@ def main(argv=None) -> int:
     if K * (args.reps + 3) > 256:
         ap.error("steps × (reps + 3) decode positions must fit the 256 "
                  "generated tokens of a row")
+    modes = [m for m in _QUANT_MODES if getattr(args, m)]
+    if len(modes) > 1:
+        ap.error("at most one of --" + ", --".join(_QUANT_MODES))
+    wq, kq = _QUANT_MODES[modes[0]] if modes else (None, None)
     quant = {}
-    if args.w4kv8:
-        model = fuse_serving_weights(quantize_weights_int4(model,
-                                                           free_source=True))
-        quant = dict(weight_quant="int4", kv_quant="int8")
+    if modes:
+        quantize = {"int4": quantize_weights_int4,
+                    "int8": quantize_weights_int8}[wq]
+        model = fuse_serving_weights(quantize(model, free_source=True))
+        quant = dict(weight_quant=wq, kv_quant=kq)
     ecfg = EngineConfig(max_batch=B, kv_chunk=256, prefill_buckets=(bucket,),
                         decode_steps=K, kv_dtype=dtype, max_seq_len=P + 256,
                         **quant)
@@ -213,8 +227,8 @@ def main(argv=None) -> int:
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_gpu
                                      else [])
     res = {"card": card, "K": K, "batch": B, "prompt": P,
-           "weights": "w4" if args.w4kv8 else str(dtype).split(".")[-1],
-           "kv": "int8" if args.w4kv8 else str(dtype).split(".")[-1],
+           "weights": wq or str(dtype).split(".")[-1],
+           "kv": kq or str(dtype).split(".")[-1],
            "extend_wall_ms": extend_ms, "decode_wall_ms_per_step":
            decode_ms / K, "issue_ms_per_step": issue_ms / K,
            "drain_ms_after_issue": drain_ms}

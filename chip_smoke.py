@@ -7,8 +7,10 @@ AuroraCap-7B caption serving at full published widths with random bf16
 weights (seeded): uint8 frames → CLIP normalize → ViT-H/14 with ToMe →
 projector → fusion → one batched extend → 256-token greedy decode via
 `aurora_tpu_torch.serve.engine.ServeEngine`, first with bf16 weights and
-bf16 KV, then with the LLM quantized on the card to W4 weights (int8 LM
-head) and int8 KV. Then the training step of bench.py's training stage
+bf16 KV, then with the LLM quantized on the card to W8 weights and int8
+KV, to W4 weights and int8 KV, and (the same W4 weights) nibble-packed
+int4 KV; both quantized models keep an int8 LM head. Then the training
+step of bench.py's training stage
 (`aurora_tpu_torch.train.trainer.make_train_step`): Vicuna-7B widths at
 depth 4, seq 2048, batch 4, bf16, AdamW, full remat, text-only batches
 without an attention mask, so that attention runs the flash kernels.
@@ -17,22 +19,34 @@ Phases, one line each; any failure raises and exits non-zero:
 1. device        — requires CUDA; prints the card's name and power limit
 2. build         — compiles the CUDA kernels from aurora_tpu_torch/csrc
 3. kernels       — each kernel and mode vs its plain PyTorch twin at the
-                   slice's shapes: both attention kernels with bf16 and
-                   with int8 KV (bf16 in, fp32 reference; decode row and
-                   scale writes exact), and the W4A8 matmul at the 7B's
-                   four decode projections
+                   slice's shapes: both attention kernels with bf16, int8
+                   and packed int4 KV (bf16 in, fp32 reference; decode row
+                   and scale writes exact, int4 mate nibbles included), the
+                   W4A8 and the W8A8 matmuls at the 7B's four decode
+                   projections
 4. serve         — bf16: 4 requests of 8 frames each to 256 tokens; the
                    bf16 kernels' launch counts must rise and the plain
                    twins' stay 0
 5. logits        — one bf16 extend wave's logits through the kernels vs
                    through the plain twins, on the same engine state
-6. quantize      — the LLM to W4 on the card (quantize_weights_int4,
-                   fuse_serving_weights), timed
-7. serve-w4kv8   — the same 4 requests (new clips) with W4 weights and
+6. serve-w8kv8   — the LLM quantized to W8 on the card (the bf16 source
+                   kept; quantize_weights_int8, fuse_serving_weights,
+                   timed), the same 4 requests (new clips) with int8 KV; the
+                   int8 attention and W8A8 launch counts must rise and
+                   every plain twin's stay 0
+7. logits-w8kv8  — as 5, on the W8 + int8-KV engine; then the W8 model
+                   is freed
+8. quantize      — the LLM to W4 on the card (quantize_weights_int4,
+                   fuse_serving_weights, the bf16 source freed), timed
+9. serve-w4kv8   — the same 4 requests (new clips) with W4 weights and
                    int8 KV; the int8 attention and W4A8 launch counts must
                    rise and every plain twin's stay 0
-8. logits-w4kv8  — as 5, on the W4 + int8-KV engine
-9. kernels flash — the flash forward, dK/dV and dQ kernels vs the fp32
+10. logits-w4kv8 — as 5, on the W4 + int8-KV engine
+11. serve-w4kv4  — the same W4 weights with packed int4 KV (new clips);
+                   the int4 attention and W4A8 launch counts must rise and
+                   every plain twin's stay 0
+12. logits-w4kv4 — as 5, on the W4 + int4-KV engine
+13. kernels flash — the flash forward, dK/dV and dQ kernels vs the fp32
                    twin (out, lse, dQ/dK/dV from one seeded dO) at the
                    training shape (B 4, T 2048, H 32, D 128, causal),
                    again with segment ids and q_offset 128 (T 384, S 512) and
@@ -40,14 +54,14 @@ Phases, one line each; any failure raises and exits non-zero:
                    flash_attention_lse (Hkv 8); backward bitwise
                    repeatable; timed against the twin and against
                    F.scaled_dot_product_attention (the yardstick only)
-10. train        — one warm-up and 5 timed steps; losses and grad norms
+14. train        — one warm-up and 5 timed steps; losses and grad norms
                    finite, each flash kernel's launch count rises (the
                    forward twice a layer with remat), the plain twins' stay 0
-11. train-parity — one depth-2 step with the kernels and one through
+15. train-parity — one depth-2 step with the kernels and one through
                    mha_reference (the same batch with an all-true
                    attention_mask), same weights: loss, grad norm and each
                    layer's q/k/v/o weight gradients
-12. the kernels' JSON line (each kernel's bound and library time
+16. the kernels' JSON line (each kernel's bound and library time
    included), then {"ok": true, "device": {...}} last.
 
 float32 references run with TF32 disabled for matmuls and cuDNN
@@ -85,8 +99,19 @@ INT8_ROUNDING = 2.0 ** -8
 # W4A8 matmul vs its twin with fp32 output: the int32 group partials are
 # exact on both sides, only the fp32 order of the group sum differs
 W4A8_REL_TOL = 1e-5       # max |Δ| / max |want|
+# W8A8 matmul vs its twin with fp32 output: exact int32 sums and the same
+# two fp32 multiplies on both sides
+W8A8_REL_TOL = 1e-5       # max |Δ| / max |want|
 LOGITS_REL_TOL = 5e-2     # max |Δlogits| / max |logits| after 32 bf16 layers
 LOGITS_W4_REL_TOL = 5e-2  # the same on the W4 + int8-KV engine
+# The W8 extend quantizes every projection's input per token to int8, and
+# int4 KV rounds K/V onto 15 levels: the kernel's bf16 attention output
+# flips codes of those quantizers in every layer, which spreads the
+# kernel-vs-twin difference further than in the two engines above
+# (measured on an H100: 1.18e-1 / 1.16e-1 for W8 + int8 KV, 4.05e-2 for
+# W4 + int4 KV; PERF.md)
+LOGITS_W8_REL_TOL = 2.5e-1
+LOGITS_W4KV4_REL_TOL = 1e-1
 # the 7B's decode projections (fused streams): name, K, N
 W4_SHAPES = (("qkv", 4096, 12288), ("o", 4096, 4096),
              ("gateup", 4096, 22016), ("down", 11008, 4096))
@@ -177,14 +202,15 @@ class ByteTokenizer:
         return ([1] + ids) if add_special_tokens else ids
 
 
-def attention_case(torch, ra, dev, g, hkv, int8, L=32, S=1792, T=1536,
+def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
                    offs=(0, 256, 0, 0), lens=(1392, 256 + 1400, 1536, 0),
                    dlens=(1648, 700, 0, 1)):
     """Both attention kernels vs their plain twins at the serving shapes
-    (L = 32, S = 1792, hd = 128), bf16 KV or int8 KV on the kv_quantize
-    grid, with GQA, permuted rows, a query offset > 0 and a padded /
-    inactive lane → {"extend"|"decode": {err, ms, plain_ms, library_ms,
-    bound_ms, bound_by}}. The library call (bf16 KV, Hkv = Hq only) is one
+    (L = 32, S = 1792, hd = 128), with bf16 KV, int8 KV on the kv_quantize
+    grid or nibble-packed int4 KV on its maxq-7 grid (`mode`), with GQA,
+    permuted rows, a query offset > 0 and a padded / inactive lane →
+    {"extend"|"decode": {err, ms, plain_ms, library_ms, bound_ms,
+    bound_by}}. The library call (bf16 KV, Hkv = Hq only) is one
     F.scaled_dot_product_attention over the lanes' rows, gathered
     beforehand, with a boolean mask."""
     import torch.nn.functional as F
@@ -193,19 +219,24 @@ def attention_case(torch, ra, dev, g, hkv, int8, L=32, S=1792, T=1536,
     i32 = dict(device=dev, dtype=torch.int32)
     k = torch.randn((L, B, hkv, S, hd), generator=g, **bf)
     v = torch.randn((L, B, hkv, S, hd), generator=g, **bf)
-    kv = {}
-    if int8:
-        (k, ks), (v, vs) = ra.kv_quantize(k), ra.kv_quantize(v)
+    kv, dkv = {}, {}            # the extend's and the decode's KV options
+    if mode != "bf16":
+        maxq = 127.0 if mode == "int8" else 7.0
+        (k, ks), (v, vs) = ra.kv_quantize(k, maxq), ra.kv_quantize(v, maxq)
         kv = dict(k_scales=ks, v_scales=vs)
-    rnd = INT8_ROUNDING if int8 else 0.0
+        if mode == "int4":
+            k, v = ra.pack_int4_rows(k), ra.pack_int4_rows(v)
+            kv["kv_pack"] = True
+        dkv = dict(kv, kv_maxq=maxq)
+    rnd = INT8_ROUNDING if kv else 0.0
     lay = min(17, L - 1)
     layer = torch.tensor([lay], **i32)
     rows_l = [2, 0, 3, 1]
     rows = torch.tensor(rows_l, **i32)
-    mode = "int8" if int8 else "bf16"
-    # bytes of one key (K and V, scales with int8) of one KV head
-    key_bytes = 2 * hd * (1 if int8 else 2) + (8 if int8 else 0)
-    library = not int8 and hkv == Hq
+    # bytes of one key (K and V, with their scales when quantized) of one
+    # KV head
+    key_bytes = {"bf16": 4 * hd, "int8": 2 * hd + 8, "int4": hd + 8}[mode]
+    library = mode == "bf16" and hkv == Hq
     if library:     # the lanes' rows, for the library call
         krow = torch.stack([k[lay, r] for r in rows_l])   # [B, Hkv, S, hd]
         vrow = torch.stack([v[lay, r] for r in rows_l])
@@ -252,15 +283,16 @@ def attention_case(torch, ra, dev, g, hkv, int8, L=32, S=1792, T=1536,
     vn = torch.randn((B, hkv, hd), generator=g, **bf)
     vn[3, 1] = 0                          # an all-zero token: the 1e-8 floor
     dlens_t = torch.tensor(dlens, **i32)
-    state = [k, v] + list(kv.values())
+    state = [k, v] + [kv[n] for n in ("k_scales", "v_scales") if n in kv]
     plain = [t.clone() for t in state]
-    pkv = dict(zip(kv, plain[2:]))
+    pkv = dict(dkv, **dict(zip(("k_scales", "v_scales"), plain[2:])))
     out = ra.ragged_decode_attention(qd, kn, vn, k, v, dlens_t, rows,
-                                     layer=layer, **kv)[0]
+                                     layer=layer, **dkv)[0]
     want = ra.ragged_decode_attention_plain(qd.float(), kn, vn, *plain[:2],
                                             dlens_t, rows, layer=lay,
                                             **pkv)[0]
     torch.cuda.synchronize()
+    # int4: the packed bytes, mate nibbles included
     check(all(torch.equal(a, b) for a, b in zip(state, plain)),
           f"decode {mode} row/scale writes differ from the plain twin")
     diff = (out.float() - want).abs()
@@ -271,7 +303,7 @@ def attention_case(torch, ra, dev, g, hkv, int8, L=32, S=1792, T=1536,
           f"decode {mode} hkv={hkv} err {err_d}")
     check(rel_d <= DECODE_REL_TOL, f"decode {mode} hkv={hkv} rel {rel_d}")
     ms_d = cuda_ms(lambda: ra.ragged_decode_attention(
-        qd, kn, vn, k, v, dlens_t, rows, layer=layer, **kv), reps=20)
+        qd, kn, vn, k, v, dlens_t, rows, layer=layer, **dkv), reps=20)
     ms_dp = cuda_ms(lambda: ra.ragged_decode_attention_plain(
         qd, kn, vn, *plain[:2], dlens_t, rows, layer=lay, **pkv), reps=20)
     # the KV rows each lane reads, the new tokens, q and out
@@ -295,7 +327,7 @@ def attention_case(torch, ra, dev, g, hkv, int8, L=32, S=1792, T=1536,
           decode_library_ms=lib_d and f"{lib_d:.4f}",
           tol=f"extend:{EXTEND_ABS_TOL}/{EXTEND_REL_TOL},"
               f"decode:{DECODE_ABS_TOL}/{DECODE_REL_TOL}"
-              + (f",+{rnd:g}|want|" if int8 else ""))
+              + (f",+{rnd:g}|want|" if kv else ""))
     return {"extend": dict(err=err_e, ms=ms_e, plain_ms=ms_ep,
                            library_ms=lib_e, bound_ms=extend_bound[0],
                            bound_by=extend_bound[1]),
@@ -346,6 +378,53 @@ def w4a8_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
         del packed, scale, got, again, got16, want
     torch.cuda.empty_cache()
     return max(errs), ms, plain_ms, least_ms(ops, nbytes, PEAK_INT8)
+
+
+def w8a8_phase(torch, qm, quantize_w8, dev, g, shapes=W4_SHAPES):
+    """The W8A8 kernel vs its plain twin at the 7B's four decode
+    projections, B = 4, and torch._int_mm on the same int8 operands (rows
+    padded to 32, the int32 product alone) → (max abs err, summed ms,
+    summed plain ms, bound (ms, by) of the four: int8 weights, their
+    scales, activations and scales and output once each, int8 operations
+    at the int8 peak, summed _int_mm ms)."""
+    B = 4
+    errs, ms, plain_ms, lib_ms = [], 0.0, 0.0, 0.0
+    nbytes, ops = 0, 0
+    for name, K, N in shapes:
+        w8, s_w = quantize_w8(torch.randn((N, K), generator=g, device=dev)
+                              * 0.02)
+        h8, s_a = qm.quantize_activations(torch.randn(
+            (B, K), generator=g, device=dev, dtype=torch.bfloat16))
+        got = qm.w8a8_matmul(h8, s_a, w8, s_w, out_dtype=torch.float32)
+        got16 = qm.w8a8_matmul(h8, s_a, w8, s_w)
+        want = qm.w8a8_matmul_plain(h8, s_a, w8, s_w,
+                                    out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        check(rel <= W8A8_REL_TOL, f"w8a8 {name}: rel err {rel}")
+        bound = want.abs() * INT8_ROUNDING + W8A8_REL_TOL * want.abs().max()
+        check(bool(((got16.float() - want).abs() <= bound).all()),
+              f"w8a8 {name}: bf16 output off the twin")
+        t = cuda_ms(lambda: qm.w8a8_matmul(h8, s_a, w8, s_w), reps=20)
+        tp = cuda_ms(lambda: qm.w8a8_matmul_plain(h8, s_a, w8, s_w), reps=3)
+        hp = torch.nn.functional.pad(h8, (0, 0, 0, 32 - B))
+        wt = w8.t()
+        tl = cuda_ms(lambda: torch._int_mm(hp, wt), reps=20)
+        phase("kernels", w8a8=name, B=B, K=K, N=N, rel_err=f"{rel:.3e}",
+              bitwise=bool(torch.equal(got, want)), tol=W8A8_REL_TOL,
+              ms=f"{t:.4f}", plain_ms=f"{tp:.4f}", int_mm_ms=f"{tl:.4f}",
+              weight_mb=f"{(w8.numel() + 4 * s_w.numel()) / 1e6:.1f}")
+        errs.append((got - want).abs().max().item())
+        ms += t
+        plain_ms += tp
+        lib_ms += tl
+        nbytes += w8.numel() + 4 * s_w.numel() + h8.numel() + 4 * B \
+            + 2 * B * N
+        ops += 2 * B * K * N
+        del w8, s_w, got, got16, want, hp, wt
+    torch.cuda.empty_cache()
+    return (max(errs), ms, plain_ms, least_ms(ops, nbytes, PEAK_INT8),
+            lib_ms)
 
 
 def flash_case(torch, fa, dev, g, B, T, H, Hkv, q_offset=0,
@@ -694,11 +773,11 @@ def main():
           library=cuda_build.library_path().name)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    kres = {(mode, hkv): attention_case(torch, ra, dev, g, hkv,
-                                        mode == "int8")
-            for mode in ("bf16", "int8") for hkv in (32, 8)}
+    kres = {(mode, hkv): attention_case(torch, ra, dev, g, hkv, mode)
+            for mode in ("bf16", "int8", "int4") for hkv in (32, 8)}
     torch.cuda.empty_cache()
     w4res = w4a8_phase(torch, qm, engine_mod._w4, dev, g)
+    w8res = w8a8_phase(torch, qm, engine_mod._w8, dev, g)
     flash_res = [
         flash_case(torch, fa, dev, g, bench_stage.BATCH, bench_stage.SEQ,
                    32, 32, timed=True),
@@ -721,19 +800,22 @@ def main():
     check(n_vis == 171, f"visual tokens per frame {n_vis} != 171")
     rng = np.random.default_rng(SEED)
     size = cfg.vit.image_size
-    # clips 0-3 for the bf16 run, 4-7 for the W4 run (the embed cache would
-    # skip the ViT on a repeated clip), 8 to warm the ViT
+    # four clips for each served configuration (the embed cache would skip
+    # the ViT on a repeated clip), one more to warm the ViT
+    runs = ("bf16", "w8kv8", "w4kv8", "w4kv4")
     clips = [rng.integers(0, 256, size=(N_FRAMES, size, size, 3),
-                          dtype=np.uint8) for _ in range(2 * N_REQUESTS + 1)]
+                          dtype=np.uint8)
+             for _ in range(len(runs) * N_REQUESTS + 1)]
     prompt = " ".join(["<image>"] * N_FRAMES) + \
         "\nDescribe the video in detail."
 
-    def requests(first):
+    def requests(run):
+        first = runs.index(run) * N_REQUESTS
         return [mm.build_request(f"clip{i}", prompt, clips[i],
                                  max_new_tokens=MAX_NEW, eos_ids=())
                 for i in range(first, first + N_REQUESTS)]
 
-    reqs = requests(0)
+    reqs = requests("bf16")
     P = len(reqs[0].input_ids)
     for r in reqs:
         n_ph = sum(t >= _PLACEHOLDER_BASE for t in r.input_ids)
@@ -768,36 +850,92 @@ def main():
                     peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
                     launches=json.dumps(counts).replace(" ", ""))
 
-    kernels_bf16 = [(ra.ragged_attention, "launches"),
-                    (ra.ragged_decode_attention, "launches")]
-    kernels_int8 = [(ra.ragged_attention, "launches_int8"),
-                    (ra.ragged_decode_attention, "launches_int8"),
-                    (qm.w4a8_matmul_tiled, "launches")]
+    kernels = {"bf16": [(ra.ragged_attention, "launches"),
+                        (ra.ragged_decode_attention, "launches")],
+               "w8kv8": [(ra.ragged_attention, "launches_int8"),
+                         (ra.ragged_decode_attention, "launches_int8"),
+                         (qm.w8a8_matmul, "launches")],
+               "w4kv8": [(ra.ragged_attention, "launches_int8"),
+                         (ra.ragged_decode_attention, "launches_int8"),
+                         (qm.w4a8_matmul_tiled, "launches")],
+               "w4kv4": [(ra.ragged_attention, "launches_int4"),
+                         (ra.ragged_decode_attention, "launches_int4"),
+                         (qm.w4a8_matmul_tiled, "launches")]}
     plains = [(ra.ragged_attention_plain, "calls"),
               (ra.ragged_decode_attention_plain, "calls"),
-              (qm.w4a8_matmul_tiled_plain, "calls")]
+              (qm.w4a8_matmul_tiled_plain, "calls"),
+              (qm.w8a8_matmul_plain, "calls")]
+    counters = sorted({c for ks in kernels.values() for c in ks},
+                      key=lambda c: (c[0].__name__, c[1])) + plains
+    # the plain twins patched into the engine module for each logits check
+    plain_patch = {"bf16": {"ragged_attention": ra.ragged_attention_plain},
+                   "w8kv8": {"ragged_attention": ra.ragged_attention_plain,
+                             "w8a8_matmul": qm.w8a8_matmul_plain},
+                   "w4kv8": {"ragged_attention": ra.ragged_attention_plain,
+                             "w4a8_matmul_tiled":
+                                 qm.w4a8_matmul_tiled_plain},
+                   "w4kv4": {"ragged_attention": ra.ragged_attention_plain,
+                             "w4a8_matmul_tiled":
+                                 qm.w4a8_matmul_tiled_plain}}
+    tols = {"bf16": LOGITS_REL_TOL, "w8kv8": LOGITS_W8_REL_TOL,
+            "w4kv8": LOGITS_W4_REL_TOL, "w4kv4": LOGITS_W4KV4_REL_TOL}
+    launches = {}
 
-    ecfg = EngineConfig(max_batch=N_REQUESTS, kv_chunk=256,
-                        prefill_buckets=(1536,), decode_steps=16,
-                        disable_radix_cache=True, max_seq_len=P + MAX_NEW)
-    engine = ServeEngine(model.llm, cfg.llm, ecfg, embed_fn=timed_embed_fn,
-                         device=dev, seed=SEED)
-    wall, counts = serve(torch, engine, reqs,
-                         kernels_bf16 + kernels_int8 + plains)
-    phase("serve", init_s=f"{init_s:.1f}",
-          **report(engine, wall, counts))
-    launches_bf16 = [counts[f"{f.__name__}.{a}"] for f, a in kernels_bf16]
-    check(all(n > 0 for n in launches_bf16), f"launches {counts}")
-    check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
-          f"plain twins ran: {counts}")
+    def serve_run(run, llm, names, weight_quant="none", kv_quant="none",
+                  **fields):
+        """Serve the run's 4 requests from `llm` as given; check its
+        kernels' launch counts rose and every plain twin's stayed 0; then
+        its logits check. names: (serve phase, logits phase)."""
+        vit_times.clear()
+        ecfg = EngineConfig(max_batch=N_REQUESTS, kv_chunk=256,
+                            prefill_buckets=(1536,), decode_steps=16,
+                            disable_radix_cache=True,
+                            max_seq_len=P + MAX_NEW,
+                            weight_quant=weight_quant, kv_quant=kv_quant)
+        engine = ServeEngine(llm, cfg.llm, ecfg, embed_fn=timed_embed_fn,
+                             device=dev, seed=SEED)
+        check(engine.runner.model is llm, f"{run}: the model was not "
+                                          "served as given")
+        reqs = requests(run)
+        wall, counts = serve(torch, engine, reqs, counters)
+        phase(names[0], **fields, **report(engine, wall, counts))
+        launches[run] = [counts[f"{f.__name__}.{a}"] for f, a in
+                         kernels[run]]
+        check(all(n > 0 for n in launches[run]), f"launches {counts}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"plain twins ran: {counts}")
+        logits_check(torch, engine_mod, engine.runner, mm, reqs, P,
+                     tols[run], names[1], plain_patch[run])
+        del engine
+        torch.cuda.empty_cache()
 
-    logits_check(torch, engine_mod, engine.runner, mm, reqs, P,
-                 LOGITS_REL_TOL, "logits",
-                 {"ragged_attention": ra.ragged_attention_plain})
-    del engine
+    def layer_gb(llm):
+        return sum(b.numel() * b.element_size()
+                   for b in llm.layers.buffers()) / 1e9
+
+    def head_gb(llm):
+        return sum(b.numel() * b.element_size()
+                   for b in llm.lm_head.buffers()) / 1e9
+
+    serve_run("bf16", model.llm, ("serve", "logits"), init_s=f"{init_s:.1f}")
+
+    # ---- W8 weights + int8 KV (the bf16 source kept) ------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    llm_w8 = engine_mod.fuse_serving_weights(
+        engine_mod.quantize_weights_int8(model.llm))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    serve_run("w8kv8", llm_w8, ("serve-w8kv8", "logits-w8kv8"),
+              weight_quant="int8", kv_quant="int8",
+              quantize_s=f"{quant_s:.2f}",
+              w8_weight_gb=f"{layer_gb(llm_w8) + head_gb(llm_w8):.3f}")
+    del llm_w8
+    gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- main path at full width, W4 weights + int8 KV ---------------------
+    # ---- W4 weights + int8 KV, then + packed int4 KV -------------------------
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     llm_w4 = engine_mod.fuse_serving_weights(
@@ -806,39 +944,18 @@ def main():
     quant_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    w4_bytes = sum(b.numel() * b.element_size()
-                   for b in llm_w4.layers.buffers())
-    head_bytes = sum(b.numel() * b.element_size()
-                     for b in llm_w4.lm_head.buffers())
     phase("quantize", seconds=f"{quant_s:.2f}",
-          w4_layer_gb=f"{w4_bytes / 1e9:.3f}",
-          int8_head_gb=f"{head_bytes / 1e9:.3f}")
-
-    vit_times.clear()
-    reqs = requests(N_REQUESTS)
-    ecfg_q = EngineConfig(max_batch=N_REQUESTS, kv_chunk=256,
-                          prefill_buckets=(1536,), decode_steps=16,
-                          disable_radix_cache=True, max_seq_len=P + MAX_NEW,
-                          weight_quant="int4", kv_quant="int8")
-    engine = ServeEngine(llm_w4, cfg.llm, ecfg_q, embed_fn=timed_embed_fn,
-                         device=dev, seed=SEED)
-    check(engine.runner.model is llm_w4, "the W4 model was not served as is")
-    wall, counts_q = serve(torch, engine, reqs,
-                           kernels_bf16 + kernels_int8 + plains)
-    phase("serve-w4kv8", w4_weight_gb=f"{(w4_bytes + head_bytes) / 1e9:.3f}",
-          **report(engine, wall, counts_q))
-    launches_q = [counts_q[f"{f.__name__}.{a}"] for f, a in kernels_int8]
-    check(all(n > 0 for n in launches_q), f"launches {counts_q}")
-    check(all(counts_q[f"{f.__name__}.{a}"] == 0 for f, a in plains),
-          f"plain twins ran: {counts_q}")
-
-    logits_check(torch, engine_mod, engine.runner, mm, reqs, P,
-                 LOGITS_W4_REL_TOL, "logits-w4kv8",
-                 {"ragged_attention": ra.ragged_attention_plain,
-                  "w4a8_matmul_tiled": qm.w4a8_matmul_tiled_plain})
+          w4_layer_gb=f"{layer_gb(llm_w4):.3f}",
+          int8_head_gb=f"{head_gb(llm_w4):.3f}")
+    w4_gb = f"{layer_gb(llm_w4) + head_gb(llm_w4):.3f}"
+    serve_run("w4kv8", llm_w4, ("serve-w4kv8", "logits-w4kv8"),
+              weight_quant="int4", kv_quant="int8", w4_weight_gb=w4_gb)
+    torch.cuda.reset_peak_memory_stats()
+    serve_run("w4kv4", llm_w4, ("serve-w4kv4", "logits-w4kv4"),
+              weight_quant="int4", kv_quant="int4", w4_weight_gb=w4_gb)
 
     # ---- training at 7B widths (bench.py's training stage) --------------
-    del engine, llm_w4, model, mm
+    del llm_w4, model, mm
     gc.collect()
     torch.cuda.empty_cache()
     flash_counters = [(fa.flash_attention, "launches_fwd"),
@@ -871,20 +988,33 @@ def main():
 
     kernels = [
         attn_entry("ragged_attention[bf16]", "ragged_extend.cu",
-                   "ragged_attention.py:287", launches_bf16[0], "bf16",
+                   "ragged_attention.py:287", launches["bf16"][0], "bf16",
                    "extend"),
         attn_entry("ragged_decode_attention[bf16]", "ragged_decode.cu",
-                   "ragged_attention.py:645", launches_bf16[1], "bf16",
+                   "ragged_attention.py:645", launches["bf16"][1], "bf16",
                    "decode"),
         attn_entry("ragged_attention[int8]", "ragged_extend.cu",
-                   "ragged_attention.py:287", launches_q[0], "int8",
+                   "ragged_attention.py:287", launches["w4kv8"][0], "int8",
                    "extend"),
         attn_entry("ragged_decode_attention[int8]", "ragged_decode.cu",
-                   "ragged_attention.py:645", launches_q[1], "int8",
+                   "ragged_attention.py:645", launches["w4kv8"][1], "int8",
                    "decode"),
-        # ms: the four decode projections of one layer at B = 4, summed
+        attn_entry("ragged_attention[int4]", "ragged_extend.cu",
+                   "ragged_attention.py:287", launches["w4kv4"][0], "int4",
+                   "extend"),
+        attn_entry("ragged_decode_attention[int4]", "ragged_decode.cu",
+                   "ragged_attention.py:645", launches["w4kv4"][1], "int4",
+                   "decode"),
+        # ms: the four decode projections of one layer at B = 4, summed;
+        # launches from the W4 + int8-KV run
         entry("w4a8_matmul_tiled", "w4a8_matmul.cu", "quant_matmul.py:305",
-              launches_q[2], w4res[0], w4res[1], w4res[2], w4res[3], None),
+              launches["w4kv8"][2], w4res[0], w4res[1], w4res[2], w4res[3],
+              None),
+        # the same four projections; library: torch._int_mm's int32
+        # product on the same operands
+        entry("w8a8_matmul", "w8a8_matmul.cu", "quant_matmul.py:41",
+              launches["w8kv8"][2], w8res[0], w8res[1], w8res[2], w8res[3],
+              w8res[4]),
         # flash at B 4, T 2048, H 32, D 128, causal; the two backward
         # kernels share the twin's and SDPA's backward times
         entry("flash_attention_fwd", "flash_attention.cu",

@@ -13,10 +13,13 @@ for decode (fp32 probabilities). With int8 KV the same bounds sit on top
 of the output's own bf16 rounding (2^-8 |want|), since dequantized values
 are not bf16 numbers, and each active lane's max error over its max
 |output| stays within 1e-2 (extend) and 8e-3 (decode). Decode row writes
-(int8: values and scales) are exact. W4A8 matmul: max |Δ| / max |want|
-≤ 1e-5 with fp32 output (only the fp32 order of the group sum differs),
-and bf16 output within one bf16 rounding of the twin's; repeated launches
-agree bitwise. Flash attention (bf16 in, the fp32 twin on the same bf16
+(int8: values and scales) are exact. Packed int4 KV: the int8 bounds,
+and the decode kernel's packed bytes (mate nibbles included) and scales
+exact. W4A8 matmul: max |Δ| / max |want| ≤ 1e-5 with fp32 output (only
+the fp32 order of the group sum differs), and bf16 output within one bf16
+rounding of the twin's; repeated launches agree bitwise. W8A8 matmul:
+bitwise the twin's, fp32 and bf16 output (exact int32 sums, then the same
+two fp32 multiplies). Flash attention (bf16 in, the fp32 twin on the same bf16
 values, causal, GQA, q_offset, segment ids with rows that see no key):
 out within 2e-2 max abs and, per query row, 1.5e-2 of that row's max
 |out|; lse within 1e-4 (fp32 on both sides from the same bf16 scores);
@@ -187,6 +190,100 @@ def test_w4a8_kernel_matches_plain_on_card(cuda_device, B, K, N):
     # one bf16 rounding of the twin (2^-8 relative), plus the fp32 slack
     bound = want.abs() * 2.0 ** -8 + 1e-5 * want.abs().max()
     assert bool(((got16.float() - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,N", [(1, 512, 1024), (4, 4096, 4096),
+                                   (9, 11008, 512), (64, 256, 768)])
+def test_w8a8_kernel_matches_plain_on_card(cuda_device, B, K, N):
+    from aurora_tpu_torch.serve.engine import _w8
+    gen = torch.Generator(device=cuda_device).manual_seed(B + N)
+    w8, s_w = _w8(torch.randn((N, K), generator=gen, device=cuda_device))
+    h8, s_a = tqm.quantize_activations(torch.randn(
+        (B, K), generator=gen, device=cuda_device, dtype=torch.bfloat16))
+    launches = tqm.w8a8_matmul.launches
+    got = tqm.w8a8_matmul(h8, s_a, w8, s_w, out_dtype=torch.float32)
+    got16 = tqm.w8a8_matmul(h8, s_a, w8, s_w)
+    want = tqm.w8a8_matmul_plain(h8, s_a, w8, s_w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tqm.w8a8_matmul.launches == launches + 2
+    assert torch.equal(got, want)
+    assert got16.dtype == torch.bfloat16
+    assert torch.equal(got16, want.to(torch.bfloat16))
+
+
+def _int4_rows(gen, dev, hkv, Sr=512, hd=128):
+    """Packed int4 rows (maxq-7 grid) and their token-space scales."""
+    out = []
+    for _ in "kv":
+        x4, s = tra.kv_quantize(torch.randn((2, 4, hkv, Sr, hd), generator=gen,
+                                            device=dev,
+                                            dtype=torch.bfloat16), 7.0)
+        out.append((tra.pack_int4_rows(x4), s))
+    (k4, ks), (v4, vs) = out
+    return k4, v4, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4])
+def test_int4_extend_kernel_matches_plain_on_card(cuda_device, G):
+    gen = torch.Generator(device=cuda_device).manual_seed(50 + G)
+    hkv, T = 4, 200
+    k4, v4, ks, vs = _int4_rows(gen, cuda_device, hkv)
+    q = torch.randn((4, T, hkv * G, 128), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    offs = torch.tensor([0, 150, 3, 0], **i32)
+    lens = torch.tensor([T, 150 + T, 3 + T - 9, 0], **i32)
+    rows = torch.tensor([3, 1, 0, 2], **i32)
+    kw = dict(k_scales=ks, v_scales=vs, kv_pack=True)
+    launches = tra.ragged_attention.launches_int4
+    got = tra.ragged_attention(q, k4, v4, lens, offs, rows,
+                               layer=torch.tensor([1], **i32), **kw)
+    want = tra.ragged_attention_plain(q.float(), k4, v4, lens, offs, rows,
+                                      layer=1, **kw)
+    torch.cuda.synchronize()
+    assert tra.ragged_attention.launches_int4 == launches + 1
+    assert bool(((got.float() - want).abs()
+                 <= 2e-2 + 2.0 ** -8 * want.abs()).all())
+    assert _lane_rel(got, want, (0, 1, 2)) <= 1e-2
+    assert bool((got[3] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4])
+def test_int4_decode_kernel_matches_plain_on_card(cuda_device, G):
+    """Writes into the low plane (position 299 - 256 = 43 of segment 1),
+    none (inactive lane), the high plane (position 200) and the row's last
+    position (511, high plane): packed bytes and scales exact."""
+    gen = torch.Generator(device=cuda_device).manual_seed(60 + G)
+    hkv = 4
+    k4, v4, ks, vs = _int4_rows(gen, cuda_device, hkv)
+    kw = dict(device=cuda_device, dtype=torch.bfloat16)
+    q = torch.randn((4, 1, hkv * G, 128), generator=gen, **kw)
+    kn = torch.randn((4, hkv, 128), generator=gen, **kw)
+    vn = torch.randn((4, hkv, 128), generator=gen, **kw)
+    vn[3, 1] = 0                         # an all-zero token: the 1e-8 floor
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    lens = torch.tensor([300, 0, 201, 512], **i32)
+    rows = torch.tensor([2, 0, 3, 1], **i32)
+    plain = [t.clone() for t in (k4, v4, ks, vs)]
+    launches = tra.ragged_decode_attention.launches_int4
+    out = tra.ragged_decode_attention(q, kn, vn, k4, v4, lens, rows,
+                                      layer=torch.tensor([0], **i32),
+                                      k_scales=ks, v_scales=vs, kv_maxq=7.0,
+                                      kv_pack=True)[0]
+    want = tra.ragged_decode_attention_plain(
+        q.float(), kn, vn, *plain[:2], lens, rows, layer=0,
+        k_scales=plain[2], v_scales=plain[3], kv_maxq=7.0, kv_pack=True)[0]
+    torch.cuda.synchronize()
+    assert tra.ragged_decode_attention.launches_int4 == launches + 1
+    for got_t, want_t in zip((k4, v4, ks, vs), plain):
+        assert torch.equal(got_t, want_t)
+    assert bool(((out.float() - want).abs()
+                 <= 3e-3 + 2.0 ** -8 * want.abs()).all())
+    assert _lane_rel(out, want, (0, 2, 3)) <= 8e-3
+    assert bool((out[1] == 0).all())
 
 
 def _flash_inputs(dev, seed, B, T, S, H, Hkv, D):

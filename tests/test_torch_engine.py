@@ -184,8 +184,7 @@ def test_multimodal_greedy_matches_jax_engine(tiny, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kv_quant", "int4"), ("weight_quant", "int8"), ("tp", 2),
-    ("disable_radix_cache", False)])
+    ("tp", 2), ("disable_radix_cache", False)])
 def test_unported_engine_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         EngineConfig(**{field: value})

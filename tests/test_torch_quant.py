@@ -1,13 +1,15 @@
-"""The port's quantizers, W4 layout bridge, W4A8 matmul twin and int8-KV
-attention twins vs the JAX package, on the CPU.
+"""The port's quantizers, W4 and W8 bridges, W4A8 and W8A8 matmul twins,
+int8-KV attention twins and the packed int4 extend write vs the JAX
+package, on the CPU.
 
 Inputs come from numpy generators; the JAX side runs as its own tests run
 it (Pallas kernels in interpret mode, jitted XLA where the engine jits).
 Tolerances: quantized bytes, int8 values and scales, activation
-quantization, `_kv_quantize` and the decode kernels' row and scale writes
-are compared bitwise; the W4A8 matmul (fp32 group sums in another order)
-to rtol 1e-5; the int8 attention outputs to atol 1e-5 (online vs one-shot
-softmax in fp32).
+quantization, `_kv_quantize`, the decode kernels' row and scale writes,
+the packed extend write and the W8A8 matmul (exact int32 products, then
+the same two fp32 multiplies) are compared bitwise; the W4A8 matmul (fp32
+group sums in another order) to rtol 1e-5; the int8 attention outputs to
+atol 1e-5 (online vs one-shot softmax in fp32).
 """
 
 import copy
@@ -24,7 +26,7 @@ from aurora_tpu.ops.pallas import quant_matmul as jqm
 from aurora_tpu.ops.pallas import ragged_attention as jra
 from aurora_tpu.serve import engine as jeng
 from aurora_tpu_torch import bridge
-from aurora_tpu_torch.models.llama import W4Linear
+from aurora_tpu_torch.models.llama import W4Linear, W8Linear
 from aurora_tpu_torch.ops.pallas import quant_matmul as tqm
 from aurora_tpu_torch.ops.pallas import ragged_attention as tra
 from aurora_tpu_torch.serve import engine as teng
@@ -301,3 +303,151 @@ def test_int8_kv_bytes_per_token_layer_matches_jax():
                             ("none", jnp.float32, torch.float32)):
         assert teng.kv_bytes_per_token_layer(tc, quant, tdt) == \
             jeng.kv_bytes_per_token_layer(jc, quant, jdt)
+
+
+# --- W8 weights ------------------------------------------------------------
+
+def test_quantize_int8_and_fuse_match_jax(dense):
+    tree, model = dense
+    jq = jax.device_get(jeng.quantize_weights_int8(dict(tree)))
+    tq = teng.quantize_weights_int8(model)
+    assert teng.weight_quant_of(tq) == "int8"
+    for l in range(CFG.num_hidden_layers):
+        for name in NAMES:
+            proj = getattr(tq.layers[l], name)
+            assert isinstance(proj, W8Linear)
+            np.testing.assert_array_equal(_np(proj.weight),
+                                          jq["layers"][name][l].T)
+            np.testing.assert_array_equal(
+                _np(proj.scale), jq["layers"][name + "_scale"][l].reshape(-1))
+    np.testing.assert_array_equal(_np(tq.lm_head.weight), jq["lm_head"].T)
+    np.testing.assert_array_equal(_np(tq.lm_head.scale),
+                                  jq["lm_head_scale"].reshape(-1))
+    assert tq.embed_tokens is model.embed_tokens
+    jf = jax.device_get(jeng.fuse_serving_weights(jq))
+    tf = teng.fuse_serving_weights(tq)
+    for l in range(CFG.num_hidden_layers):
+        for name in ("qkv", "o", "gateup", "down"):
+            proj = getattr(tf.layers[l], name)
+            np.testing.assert_array_equal(_np(proj.weight),
+                                          jf["layers"][name][l].T)
+            np.testing.assert_array_equal(
+                _np(proj.scale), jf["layers"][name + "_scale"][l].reshape(-1))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_bridge_carries_jax_w8_trees_bytewise(dense, fused):
+    """The reference's W8 trees (per-name and fused) bridge into the
+    bytes and scales of the port quantizing the dense model itself."""
+    tree, model = dense
+    jq = jeng.quantize_weights_int8(dict(tree))
+    want = teng.quantize_weights_int8(model)
+    if fused:
+        jq = jeng.fuse_serving_weights(jq)
+        want = teng.fuse_serving_weights(want)
+    assert bridge.llama_layout(jq) == ("int8", fused)
+    got = bridge.llama_from_params(jax.device_get(jq),
+                                   bridge.llama_config_from(CFG),
+                                   dtype=torch.float32)
+    want_sd, got_sd = want.state_dict(), got.state_dict()
+    assert sorted(got_sd) == sorted(want_sd)
+    for key, val in want_sd.items():
+        assert got_sd[key].dtype == val.dtype, key
+        assert torch.equal(got_sd[key], val), key
+
+
+def _w8_case(rng, B, K, N):
+    """A reference W8 weight ([K, N] int8, [1, N] scales) and activations,
+    with an outlier-heavy token and an all-zero output channel."""
+    w = rng.standard_normal((K, N)).astype(np.float32) * 0.05
+    w[:, 5] = 0.0
+    w8, s_w = jeng._w8(jnp.asarray(w))
+    h = rng.standard_normal((B, K)).astype(np.float32)
+    h[0, :7] *= 40.0
+    lin = W8Linear(torch.from_numpy(np.array(w8).T.copy()),
+                   torch.from_numpy(np.array(s_w).reshape(-1)))
+    return h, w8, s_w, lin
+
+
+@pytest.mark.parametrize("B,K,N", [(1, 256, 512), (4, 512, 768),
+                                   (9, 384, 256)])
+def test_w8a8_plain_matches_jax_kernel_bitwise(B, K, N):
+    rng = np.random.default_rng(B * 100 + K)
+    h, w8, s_w, lin = _w8_case(rng, B, K, N)
+    h8, s_a = jax.jit(jqm.quantize_activations)(jnp.asarray(h))
+    th8, ts_a = (torch.from_numpy(np.array(a)) for a in (h8, s_a))
+    calls = tqm.w8a8_matmul_plain.calls
+    launches = tqm.w8a8_matmul.launches
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        want = jqm.w8a8_matmul(h8, s_a, w8, s_w, out_dtype=jdt,
+                               interpret=True)
+        got = tqm.w8a8_matmul(th8, ts_a, lin.weight, lin.scale,
+                              out_dtype=tdt)
+        assert got.dtype == tdt and got.shape == (B, N)
+        np.testing.assert_array_equal(_np(got.float()),
+                                      np.asarray(want.astype(jnp.float32)))
+    assert tqm.w8a8_matmul_plain.calls == calls + 2
+    assert tqm.w8a8_matmul.launches == launches          # CPU: no launch
+
+
+@pytest.mark.parametrize("shape", [(3, 5), (5, 16)])
+def test_w8dot_both_branches_match_jax_wdot_bitwise(shape):
+    """The engine's `_w8dot` at ≤ 64 tokens (the W8A8 kernel's twin) and
+    above (torch._int_mm) vs the reference's jitted int8 `_wdot`."""
+    rng = np.random.default_rng(shape[1])
+    h, w8, s_w, lin = _w8_case(rng, shape[0] * shape[1], 256, 512)
+    h3 = h.reshape(*shape, 256)
+    calls = tqm.w8a8_matmul_plain.calls
+    want = jax.jit(lambda x, lp: jeng._wdot(x, lp, "o"))(
+        jnp.asarray(h3), {"o": w8, "o_scale": s_w})
+    got = teng._w8dot(torch.from_numpy(h3), lin)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    kernel_branch = shape[0] * shape[1] <= teng._W4_GROUPED_MAX_TOKENS
+    assert tqm.w8a8_matmul_plain.calls == calls + int(kernel_branch)
+
+
+# --- packed int4 KV: the extend write --------------------------------------
+
+def test_packed_extend_write_matches_jax_bytewise():
+    """Two waves through `_write_kv_window` with packed rows vs the
+    reference's _write_kv_window_packed from the same random rows. Wave
+    1: lane 0 writes tokens 0-199 (both nibbles of bytes 0-71 in one
+    wave), lane 1 tokens 100-149 (the high nibbles of bytes 0-21 beside
+    untouched low ones), lane 2 tokens 300-511 (bucket padding past the
+    row), lane 3 is padding. Wave 2: lane 0 writes tokens 200-259, beside
+    the low nibbles wave 1 wrote, and into the second segment."""
+    rng = np.random.default_rng(80)
+    Lw, Bw, hkv, S, hd, l = 2, 4, 2, 512, 16, 1
+    r = {"k": rng.integers(-128, 128, (Lw, Bw, hkv, S // 2, hd)),
+         "v": rng.integers(-128, 128, (Lw, Bw, hkv, S // 2, hd))}
+    r = {n: a.astype(np.int8) for n, a in r.items()}
+    for n in ("ks", "vs"):
+        r[n] = rng.random((Lw, Bw, hkv, S)).astype(np.float32)
+    trows = {n: torch.from_numpy(a.copy()) for n, a in r.items()}
+    jrows = {n: jnp.asarray(a) for n, a in r.items()}
+    waves = [(256, [2, 0, 3, 1], [0, 100, 300, 0], [200, 150, 556, 0]),
+             (64, [2], [200], [260])]
+    for T, rows, offs, lens in waves:
+        Bk = len(rows)
+        kf = rng.standard_normal((Bk, T, hkv, hd)).astype(np.float32)
+        vf = rng.standard_normal((Bk, T, hkv, hd)).astype(np.float32)
+        quant = jax.jit(jeng._kv_quantize, static_argnums=1)
+        (k4, ks), (v4, vs) = quant(jnp.asarray(kf), 7.0), quant(
+            jnp.asarray(vf), 7.0)
+        ids = [jnp.asarray(np.array(x, np.int32)) for x in (rows, offs,
+                                                           lens)]
+        jrows = jeng._write_kv_window_packed(jrows, l, k4, v4, (ks, vs),
+                                             *ids)
+        widx = teng._kv_write_index(rows, offs, lens, T, S, "cpu",
+                                    pack=True)
+        teng._write_kv_window(trows, l, *(torch.from_numpy(np.array(a))
+                                          for a in (k4, v4)), widx,
+                              tuple(torch.from_numpy(np.array(a))
+                                    for a in (ks, vs)))
+        # each touched byte is planned once
+        key = widx.byte_row * (S // 2) + widx.byte_pos
+        assert len(torch.unique(key)) == len(key)
+    for n in ("k", "v", "ks", "vs"):
+        np.testing.assert_array_equal(_np(trows[n]), np.asarray(jrows[n]))
+    assert not np.array_equal(_np(trows["k"]), r["k"])

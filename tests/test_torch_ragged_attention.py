@@ -4,17 +4,20 @@ On CPU tensors the port's public functions run their plain PyTorch twins;
 the JAX kernels run in interpret mode (off-TPU default), as
 tests/test_ragged_attention.py runs them. Inputs come from one numpy
 generator; float32 on both sides; tolerance 2e-5 (the JAX kernel tests'
-own bound: online vs one-shot softmax). Row writes are compared exactly.
+own bound: online vs one-shot softmax), 1e-5 for the packed int4 mode.
+Row writes, packed bytes and scales are compared exactly.
 The CUDA kernels themselves are held against these twins on the card by
 tests/test_torch_cuda_kernels.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from aurora_tpu.ops.pallas import ragged_attention as jra
+from aurora_tpu.serve.engine import _kv_quantize
 from aurora_tpu_torch.ops.pallas import ragged_attention as tra
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -72,13 +75,17 @@ def test_extend_plain_4d_rows_and_unported_options():
         torch.from_numpy(q), torch.from_numpy(k[0]), torch.from_numpy(v[0]),
         lens, offs, rows)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    for kw in (dict(window=16), dict(logit_cap=30.0), dict(kv_pack=True),
+    args = (torch.from_numpy(q), torch.from_numpy(k[0]),
+            torch.from_numpy(v[0]), lens, offs, rows)
+    for kw in (dict(window=16), dict(logit_cap=30.0),
                dict(kv_pack=True, window=16, k_scales=torch.ones(1),
+                    v_scales=torch.ones(1)),
+               dict(kv_pack=True, logit_cap=30.0, k_scales=torch.ones(1),
                     v_scales=torch.ones(1))):
         with pytest.raises(NotImplementedError):
-            tra.ragged_attention(torch.from_numpy(q), torch.from_numpy(k[0]),
-                                 torch.from_numpy(v[0]), lens, offs, rows,
-                                 **kw)
+            tra.ragged_attention(*args, **kw)
+    with pytest.raises(ValueError):      # packed int4 rows need scales
+        tra.ragged_attention(*args, kv_pack=True)
 
 
 @pytest.mark.parametrize("G", [1, 2, 4])
@@ -121,3 +128,106 @@ def test_plain_counters_count_twin_calls():
                                 torch.from_numpy(v), [3], [0], layer=0)
     assert tra.ragged_decode_attention_plain.calls == d0 + 1
     assert tra.ragged_attention_plain.calls == e0
+
+
+# --- nibble-packed int4 KV (kv_pack) ---------------------------------------
+
+SP = 512                 # two 256-token packing segments
+PACK_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _jax_kv_quantize(x):
+    """The JAX engine's jitted _kv_quantize to the int4 grid (maxq 7)."""
+    q, s = jax.jit(_kv_quantize, static_argnums=1)(jnp.asarray(x), 7.0)
+    return np.array(q), np.array(s)
+
+
+def _grid_rows(rng, hkv):
+    """Packed K/V rows on the maxq-7 grid with their token-space scales,
+    as the JAX package packs them → numpy (k4, v4, ks, vs) with k4/v4
+    [L, B, hkv, SP/2, HD]."""
+    out = []
+    for _ in "kv":
+        q4, s = _jax_kv_quantize(rng.standard_normal(
+            (L, B, hkv, SP, HD)).astype(np.float32))
+        out.append((np.array(jra.pack_int4_rows(jnp.asarray(q4))), s))
+    (k4, ks), (v4, vs) = out
+    return k4, v4, ks, vs
+
+
+def test_pack_unpack_int4_rows_match_jax():
+    rng = np.random.default_rng(50)
+    q4 = rng.integers(-7, 8, size=(2, 3, SP, HD)).astype(np.int8)
+    want = np.asarray(jra.pack_int4_rows(jnp.asarray(q4)))
+    got = tra.pack_int4_rows(torch.from_numpy(q4))
+    assert got.dtype == torch.int8 and got.shape == (2, 3, SP // 2, HD)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tra.unpack_int4_rows(got).numpy(), q4)
+    np.testing.assert_array_equal(
+        tra.unpack_int4_rows(got).numpy(),
+        np.asarray(jra.unpack_int4_rows(jnp.asarray(want))))
+
+
+@pytest.mark.parametrize("G", [1, 4])
+def test_packed_extend_plain_matches_jax(G):
+    rng = np.random.default_rng(60 + G)
+    hkv, T = 2, 40
+    k4, v4, ks, vs = _grid_rows(rng, hkv)
+    q = rng.standard_normal((B, T, hkv * G, HD)).astype(np.float32)
+    # lane 0 from scratch, lane 1 across the first segment's two planes
+    # and into the second segment, lane 2 padded queries, lane 3 padded
+    offs = np.array([0, 300, 100, 0], np.int32)
+    lens = np.array([T, 300 + T, 100 + T - 7, 0], np.int32)
+    rows = np.array([2, 0, 3, 1], np.int32)
+    want = jra.ragged_attention(
+        jnp.asarray(q), jnp.asarray(k4), jnp.asarray(v4), jnp.asarray(lens),
+        jnp.asarray(offs), jnp.asarray(rows), layer=1, chunk=256,
+        k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs), kv_pack=True)
+    before = tra.ragged_attention.launches_int4
+    got = tra.ragged_attention(
+        torch.from_numpy(q), torch.from_numpy(k4), torch.from_numpy(v4),
+        lens, offs, rows, layer=1, k_scales=torch.from_numpy(ks),
+        v_scales=torch.from_numpy(vs), kv_pack=True)
+    assert tra.ragged_attention.launches_int4 == before
+    np.testing.assert_allclose(got.numpy()[:3], np.asarray(want)[:3],
+                               **PACK_TOL)
+    np.testing.assert_array_equal(got.numpy()[3], 0.0)
+
+
+@pytest.mark.parametrize("G", [1, 4])
+def test_packed_decode_plain_matches_jax(G):
+    """The new token's nibble lands in the low plane (position 4), the
+    high plane (299), the second segment's high plane (511, the row's
+    last) and nowhere (inactive lane); packed bytes, mate nibbles and
+    scales are bitwise the reference kernel's."""
+    rng = np.random.default_rng(70 + G)
+    hkv = 2
+    k4, v4, ks, vs = _grid_rows(rng, hkv)
+    q = rng.standard_normal((B, 1, hkv * G, HD)).astype(np.float32)
+    k_new = rng.standard_normal((B, hkv, HD)).astype(np.float32)
+    v_new = rng.standard_normal((B, hkv, HD)).astype(np.float32)
+    v_new[3, 1] = 0.0                            # all-zero token: 1e-8 floor
+    lens = np.array([5, 300, 0, SP], np.int32)   # lane 2 inactive
+    rows = np.array([1, 3, 0, 2], np.int32)
+    w_out, w_k, w_v, w_ks, w_vs = jra.ragged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new),
+        jnp.asarray(k4), jnp.asarray(v4), jnp.asarray(lens),
+        jnp.asarray(rows), layer=1, chunk=256, k_scales=jnp.asarray(ks),
+        v_scales=jnp.asarray(vs), kv_maxq=7.0, kv_pack=True)
+    tk, tv, tks, tvs = (torch.from_numpy(a.copy()) for a in (k4, v4, ks, vs))
+    res = tra.ragged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k_new), torch.from_numpy(v_new),
+        tk, tv, lens, rows, layer=1, k_scales=tks, v_scales=tvs,
+        kv_maxq=7.0, kv_pack=True)
+    assert all(a is b for a, b in zip(res[1:], (tk, tv, tks, tvs)))
+    for got, want in ((tk, w_k), (tv, w_v), (tks, w_ks), (tvs, w_vs)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(tk.numpy(), k4)    # the writes happened
+    np.testing.assert_allclose(res[0].numpy()[[0, 1, 3]],
+                               np.asarray(w_out)[[0, 1, 3]], **PACK_TOL)
+    np.testing.assert_array_equal(res[0].numpy()[2], 0.0)
+    with pytest.raises(ValueError):              # a nibble holds ±7 at most
+        tra.ragged_decode_attention(
+            torch.from_numpy(q), torch.from_numpy(k_new),
+            torch.from_numpy(v_new), tk, tv, lens, rows, layer=1,
+            k_scales=tks, v_scales=tvs, kv_pack=True)
