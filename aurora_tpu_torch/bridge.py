@@ -7,14 +7,18 @@ leaves (e.g. `jax.device_get(params)`) and return the port's modules:
 transposed into `nn.Linear` weights [out, in], the LLM layers unstacked,
 the patch kernel reshaped into a conv weight [D, C, p, p]. Configs cross
 by field name from any object with the same attributes; reference
-settings the port does not carry raise NotImplementedError.
+settings the port does not carry raise NotImplementedError. The modules
+are built on the card unless the caller passes a device (the CPU tests
+pass device="cpu").
 
 The reference's W4 trees (quantize_weights_int4, optionally
 fuse_serving_weights and w4_decode_layout_params) cross with their bytes
 and scales unchanged: flat [L, G, g/2, O] or tile-contiguous
 [L, Nb, Kb, bk, bn] packed stacks with their `<name>_scale4`, per-name or
-fused qkv/gateup, and the int8 `lm_head` with its `lm_head_scale`. They
-become W4Linear/W8Linear modules in the port's layout. So do its W8 trees
+fused qkv/gateup, the fused-MLP tiles `mlp_gu/mlp_gs/mlp_dw/mlp_ds`
+(AURORA_W4_FUSED_MLP=1, untiled back into gateup/down), and the int8
+`lm_head` with its `lm_head_scale`. They become W4Linear/W8Linear modules
+in the port's layout. So do its W8 trees
 (quantize_weights_int8, optionally fused): int8 `<name>` stacks [L, in,
 out] with `<name>_scale` [L, 1, out], and the int8 head.
 """
@@ -32,7 +36,8 @@ from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
                                            projection_shapes)
 from aurora_tpu_torch.models.projector import Projector, ProjectorConfig
 from aurora_tpu_torch.models.vit import ViTConfig, VisionTransformer
-from aurora_tpu_torch.ops.pallas.quant_matmul import w4_from_flat
+from aurora_tpu_torch.ops.pallas.quant_matmul import (w4_from_flat,
+                                                      w4_mlp_untile_layout)
 
 # reference LlamaConfig knobs of other families, with the value at which
 # they are off; the port's decoder is the plain llama case
@@ -91,10 +96,10 @@ def _ln(sd, prefix, p):
 
 
 def _load(module, sd, device):
-    """Fill a module built on the meta device; each tensor is converted
-    to the dtype the module declares (int8 and fp32-scale buffers keep
-    theirs)."""
-    module = module.to_empty(device=device or "cpu")
+    """Fill a module built on the meta device, on `device` (default the
+    card); each tensor is converted to the dtype the module declares (int8
+    and fp32-scale buffers keep theirs)."""
+    module = module.to_empty(device=device or "cuda")
     module.load_state_dict(sd, strict=True)
     return module
 
@@ -169,8 +174,19 @@ def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
         pre = f"layers.{l}."
         sd[pre + "input_norm"] = _t(layers["input_norm"][l])
         sd[pre + "post_attn_norm"] = _t(layers["post_attn_norm"][l])
+        mlp = {}
+        if "mlp_gu" in layers:      # AURORA_W4_FUSED_MLP=1 tiles
+            tiles = (torch.from_numpy(np.array(layers[k][l]))
+                     for k in ("mlp_gu", "mlp_gs", "mlp_dw", "mlp_ds"))
+            gu_pk, gu_s, dn_pk, dn_s = (
+                t.numpy() for t in w4_mlp_untile_layout(*tiles))
+            mlp = {"gateup": w4_from_flat(gu_pk, gu_s),
+                   "down": w4_from_flat(dn_pk, dn_s)}
         for name in projection_shapes(cfg, fused):
-            if quant == "int4":
+            if name in mlp:
+                sd[pre + name + ".packed"], sd[pre + name + ".scale"] = \
+                    mlp[name]
+            elif quant == "int4":
                 sd[pre + name + ".packed"], sd[pre + name + ".scale"] = \
                     _w4_layer(layers[name][l], layers[name + "_scale4"][l])
             elif quant == "int8":
@@ -194,8 +210,9 @@ def projector_from_params(tree, cfg: ProjectorConfig, device=None,
 
 
 def llama_from_params(tree, cfg: LlamaConfig, device=None, dtype=None):
-    """Dense, W4 (flat or tiled) or W8 reference trees, per-name or
-    fused; dtype applies to the dense weights, embeddings and norms."""
+    """Dense, W4 (flat, tiled or fused-MLP) or W8 reference trees,
+    per-name or fused; dtype applies to the dense weights, embeddings and
+    norms."""
     quant, fused = llama_layout(tree)
     return _load(LlamaModel(cfg, device="meta", dtype=dtype,
                             weight_quant=quant, fused=fused),

@@ -39,74 +39,13 @@
 // grid. int8 mma/wgmma tiles and a shared-memory activation stage are
 // later speed work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "w4_common.cuh"
 
 namespace {
 
 constexpr int NT = 256;            // 8 warps
 constexpr int WARPS = NT / 32;     // output channels per block
 constexpr int RB = 8;              // token rows per pass
-constexpr int MAX_B = 64;
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<bf16>(bf16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-quantize_rows(const T* __restrict__ h, int8_t* __restrict__ he,
-              int8_t* __restrict__ ho, float* __restrict__ s_a, int K) {
-  __shared__ float red[WARPS];
-  __shared__ float s_sh;
-  const int b = blockIdx.x;
-  const T* row = h + size_t(b) * K;
-  float m = 0.f;
-  for (int k = threadIdx.x; k < K; k += NT) m = fmaxf(m, fabsf(to_f(row[k])));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float mx = red[0];
-    for (int w = 1; w < WARPS; ++w) mx = fmaxf(mx, red[w]);
-    // the reference divides by the constant 127 as XLA compiles it: a
-    // multiply by the fp32 reciprocal
-    const float s = fmaxf(mx * (1.0f / 127.0f), 1e-12f);
-    s_sh = s;
-    s_a[b] = s;
-  }
-  __syncthreads();
-  const float s = s_sh;
-  const int K2 = K / 2;
-  for (int j = threadIdx.x; j < K2; j += NT) {
-    const float e = fminf(fmaxf(rintf(to_f(row[2 * j]) / s), -127.f), 127.f);
-    const float o =
-        fminf(fmaxf(rintf(to_f(row[2 * j + 1]) / s), -127.f), 127.f);
-    he[size_t(b) * K2 + j] = int8_t(e);
-    ho[size_t(b) * K2 + j] = int8_t(o);
-  }
-}
-
-template <typename TO>
-__device__ __forceinline__ void store_out(TO* p, float v);
-template <>
-__device__ __forceinline__ void store_out<float>(float* p, float v) {
-  *p = v;
-}
-template <>
-__device__ __forceinline__ void store_out<bf16>(bf16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ int dot16(const uint4& w, const uint4& a_even,
                                      const uint4& a_odd, int acc) {

@@ -10,7 +10,8 @@ ops/pallas/quant_matmul.py), or, for W8 serving, of `W8Linear`s (int8 +
 per-output-channel scales); both quantized models have an int8
 `W8Linear` LM head. A layer
 holds either the per-name projections (q, k, v, o, gate, up, down) or the
-fused serving streams (qkv, o, gateup, down).
+fused serving streams (qkv, o, gateup, down); a W4 layer may hold its
+gateup and down as one `W4FusedMLP` (`mlp`).
 
 The serving forward over KV rows lives in serve/engine.py. Here is the
 offline forward `llama_apply` (no KV cache), the training and scoring
@@ -23,6 +24,7 @@ raise NotImplementedError there.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -32,6 +34,9 @@ from torch import nn
 from aurora_tpu_torch.models.remat import remat_call
 from aurora_tpu_torch.ops.attention import mha
 from aurora_tpu_torch.ops.norms import family_act, family_norm
+from aurora_tpu_torch.ops.pallas.quant_matmul import (MAX_TOKENS,
+                                                      fused_mlp_w4,
+                                                      w4_mlp_untile_layout)
 from aurora_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from aurora_tpu_torch.utils.constants import IGNORE_INDEX
 
@@ -80,15 +85,21 @@ def w4_group(in_features: int) -> int:
 
 
 class W4Linear(nn.Module):
-    """y = x @ W^T with W nibble-packed int4: `packed` [out, in/2] int8
-    (even input row in the low nibble) and `scale` [out, G] fp32 for G
-    groups of in/G input rows (see ops/pallas/quant_matmul.py). The
-    engine's `_w4dot` computes with it."""
+    """y = x @ W^T with W nibble-packed int4 (even input row in the low
+    nibble), in one of two layouts (see ops/pallas/quant_matmul.py):
+    the port's stripes, `packed` [out, in/2] int8 and `scale` [out, G]
+    fp32 for G groups of in/G input rows; or the reference's flat layout
+    (`EngineConfig(w4_tiled=False)`), `packed` [G, g/2, out] and `scale`
+    [G, 1, out]. The engine's `_w4dot` computes with either."""
 
     def __init__(self, packed: torch.Tensor, scale: torch.Tensor):
         super().__init__()
         self.register_buffer("packed", packed)
         self.register_buffer("scale", scale)
+
+    @property
+    def flat(self) -> bool:
+        return self.packed.dim() == 3
 
     @classmethod
     def empty(cls, in_features: int, out_features: int,
@@ -101,6 +112,28 @@ class W4Linear(nn.Module):
                                dtype=torch.int8, device=device),
                    torch.zeros((out_features, in_features // group),
                                dtype=torch.float32, device=device))
+
+
+class W4FusedMLP(nn.Module):
+    """A layer's W4 gateup and down in the fused-MLP layout of
+    ops/pallas/quant_matmul.py `w4_mlp_tile_layout` (mgu [Ib, D/2, 2ti],
+    mgs [Ib, G, 2ti], mdw [Gd, gd/2, D], mds [Gd, 1, D]): decode runs the
+    whole MLP as one `fused_mlp_w4` call (`EngineConfig(w4_fused_mlp=
+    True)`). It takes the place of the layer's gateup and down."""
+
+    def __init__(self, mgu, mgs, mdw, mds):
+        super().__init__()
+        for name, t in (("mgu", mgu), ("mgs", mgs), ("mdw", mdw),
+                        ("mds", mds)):
+            self.register_buffer(name, t)
+
+    def tensors(self):
+        return self.mgu, self.mgs, self.mdw, self.mds
+
+    def untile(self) -> Tuple["W4Linear", "W4Linear"]:
+        """(gateup, down) as flat W4Linears over the same bytes."""
+        gu_pk, gu_s, dn_pk, dn_s = w4_mlp_untile_layout(*self.tensors())
+        return W4Linear(gu_pk, gu_s), W4Linear(dn_pk, dn_s)
 
 
 class W8Linear(nn.Module):
@@ -202,7 +235,19 @@ def layer_qkv(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense):
 
 
 def layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense):
-    """The SiLU-gated MLP, per-name or fused (gateup)."""
+    """The SiLU-gated MLP, per-name, fused (gateup) or a W4FusedMLP (the
+    reference's `_mlp`): with a W4FusedMLP, at most MAX_TOKENS tokens
+    run as one `fused_mlp_w4` call; more (prefill) untile the weights and
+    run gateup and down through `dot`, silu(gate)·up in h's dtype between
+    them."""
+    if hasattr(lp, "mlp"):          # fused-MLP W4 layout
+        lead = h.shape[:-1]
+        if math.prod(lead) <= MAX_TOKENS:
+            out = fused_mlp_w4(h.reshape(-1, h.shape[-1]), *lp.mlp.tensors())
+            return out.reshape(*lead, -1)
+        gateup, down = lp.mlp.untile()
+        gate, up = dot(h, gateup).chunk(2, dim=-1)
+        return dot(family_act(cfg, gate) * up, down)
     if hasattr(lp, "gateup"):       # fused stream
         gate, up = dot(h, lp.gateup).chunk(2, dim=-1)
     else:

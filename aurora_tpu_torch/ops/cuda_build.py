@@ -4,8 +4,9 @@ Every `*.cu` under `aurora_tpu_torch/csrc/` is compiled by its own `nvcc`
 for sm_90a (all sources at once, in parallel), and the objects are linked
 into one shared library with a plain C interface, loaded with ctypes. The
 library lands in `build/kernels/` at the repository root, named by a hash
-of the sources and flags, so a changed source rebuilds and an unchanged
-one loads the existing build. Nothing here runs at import time.
+of the sources (the shared `*.cuh` headers included) and flags, so a
+changed source rebuilds and an unchanged one loads the existing build.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -42,6 +43,12 @@ SIGNATURES = {
         [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
     "aurora_w4a8_matmul":
         [_P] * 7 + [_I] * 6 + [_P],
+    "aurora_w4a8_flat_matmul":
+        [_P] * 7 + [_I] * 6 + [_P],
+    "aurora_w4a16_matmul":
+        [_P] * 4 + [_I] * 6 + [_P],
+    "aurora_fused_mlp_w4":
+        [_P] * 10 + [_I] * 7 + [_P],
     "aurora_w8a8_matmul":
         [_P] * 5 + [_I] * 4 + [_P],
     "aurora_flash_fwd":
@@ -65,7 +72,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())

@@ -5,13 +5,17 @@ K-step decode block of the port's DeviceRunner, on one GPU.
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8  # W4 weights, int8 KV
     python3 -m aurora_tpu_torch.tools.profile_serve --w8kv8  # W8 weights, int8 KV
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv4  # W4, packed int4 KV
+    python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8-fused  # W4 fused MLP
+    python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8-flat   # W4 flat layout
     python3 -m aurora_tpu_torch.tools.profile_serve --tiny --device cpu  # logic check
 
 Builds Vicuna-7B-v1.5-16k (the AuroraCap-7B decoder) at full width with
 random bf16 weights from a seed and the engine configuration of
 chip_smoke.py (4 rows, kv_chunk 256, 1536 bucket, KV rows of prompt +
 256; with --w4kv8 / --w8kv8 / --w4kv4 the LLM quantized on the device to
-W4 or W8 weights with an int8 LM head, and int8 or packed int4 KV), fills
+W4 or W8 weights with an int8 LM head, and int8 or packed int4 KV;
+--w4kv8-fused / --w4kv8-flat lay the W4 weights out as
+`EngineConfig(w4_fused_mlp=True)` / `(w4_tiled=False)` do), fills
 the rows with one extend wave of text embeddings (the ViT is not run
 here; chip_smoke.py times it), then reads:
 
@@ -33,7 +37,11 @@ Two busy shares are printed for the decode block: device time /
 unprofiled wall (kernels of one stream do not overlap, so this is the
 share of an unprofiled step the device computes), and trace union /
 profiled wall (lower: the profiler slows the host, not the kernels).
-The trace and a per-kernel table go to --out.
+The decode block's device time is also split by kernel family, in ms
+per step: attention (the ragged decode kernel), W4A8 (either layout),
+the fused MLP (its tile kernel and its reduction), the activation
+quantizer that W4A8 and the fused MLP launch first, and the rest. The
+trace and a per-kernel table go to --out.
 """
 
 from __future__ import annotations
@@ -48,9 +56,16 @@ from collections import defaultdict
 import numpy as np
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# flag → (weight_quant, kv_quant)
-_QUANT_MODES = {"w4kv8": ("int4", "int8"), "w8kv8": ("int8", "int8"),
-                "w4kv4": ("int4", "int4")}
+# flag → (weight_quant, kv_quant, W4 layout switches of EngineConfig)
+_QUANT_MODES = {"w4kv8": ("int4", "int8", {}), "w8kv8": ("int8", "int8", {}),
+                "w4kv4": ("int4", "int4", {}),
+                "w4kv8-fused": ("int4", "int8", {"w4_fused_mlp": True}),
+                "w4kv8-flat": ("int4", "int8", {"w4_tiled": False})}
+# decode kernel families: name → substrings of the device kernels' names
+_FAMILIES = {"attention": ("decode_kernel", "extend_kernel"),
+             "w4a8": ("w4a8_kernel", "w4a8_flat_kernel"),
+             "fused_mlp": ("mlp_tile_kernel", "mlp_reduce"),
+             "quantizer": ("quantize_rows",)}
 
 
 def device_events(trace_path):
@@ -86,6 +101,16 @@ def kernel_table(events, per: int, top: int = 15):
              "calls_per": c / per} for n, (t, c) in rows]
 
 
+def family_ms(events, per: int):
+    """Device ms per `per` of each family of _FAMILIES, and "other"."""
+    out = dict.fromkeys(list(_FAMILIES) + ["other"], 0.0)
+    for name, _, dur in events:
+        fam = next((f for f, keys in _FAMILIES.items()
+                    if any(k in name for k in keys)), "other")
+        out[fam] += dur / 1e3 / per
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=16,
@@ -99,7 +124,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tiny", action="store_true",
                     help="LlamaConfig.tiny() with a short prompt")
     for flag, what in _QUANT_MODES.items():
-        ap.add_argument("--" + flag, action="store_true",
+        ap.add_argument("--" + flag, dest=flag.replace("-", "_"),
+                        action="store_true",
                         help=f"{what[0]} weights (quantized on the device) "
                              f"and {what[1]} KV")
     ap.add_argument("--device", default="cuda")
@@ -113,7 +139,8 @@ def main(argv=None) -> int:
                                                _forward_rows, _lm_head,
                                                fuse_serving_weights,
                                                quantize_weights_int4,
-                                               quantize_weights_int8)
+                                               quantize_weights_int8,
+                                               w4_decode_layout)
 
     dev = torch.device(args.device)
     on_gpu = dev.type == "cuda"
@@ -130,19 +157,20 @@ def main(argv=None) -> int:
     if K * (args.reps + 3) > 256:
         ap.error("steps × (reps + 3) decode positions must fit the 256 "
                  "generated tokens of a row")
-    modes = [m for m in _QUANT_MODES if getattr(args, m)]
+    modes = [m for m in _QUANT_MODES if getattr(args, m.replace("-", "_"))]
     if len(modes) > 1:
         ap.error("at most one of --" + ", --".join(_QUANT_MODES))
-    wq, kq = _QUANT_MODES[modes[0]] if modes else (None, None)
+    wq, kq, layout = _QUANT_MODES[modes[0]] if modes else (None, None, {})
     quant = {}
     if modes:
         quantize = {"int4": quantize_weights_int4,
                     "int8": quantize_weights_int8}[wq]
         model = fuse_serving_weights(quantize(model, free_source=True))
-        quant = dict(weight_quant=wq, kv_quant=kq)
+        quant = dict(weight_quant=wq, kv_quant=kq, **layout)
     ecfg = EngineConfig(max_batch=B, kv_chunk=256, prefill_buckets=(bucket,),
                         decode_steps=K, kv_dtype=dtype, max_seq_len=P + 256,
                         **quant)
+    model = w4_decode_layout(model, cfg, ecfg)
     runner = DeviceRunner(model, cfg, ecfg, dev, seed=args.seed)
     os.makedirs(args.out, exist_ok=True)
 
@@ -228,6 +256,7 @@ def main(argv=None) -> int:
                                      else [])
     res = {"card": card, "K": K, "batch": B, "prompt": P,
            "weights": wq or str(dtype).split(".")[-1],
+           "mode": modes[0] if modes else None,
            "kv": kq or str(dtype).split(".")[-1],
            "extend_wall_ms": extend_ms, "decode_wall_ms_per_step":
            decode_ms / K, "issue_ms_per_step": issue_ms / K,
@@ -250,6 +279,8 @@ def main(argv=None) -> int:
         res[f"{name}_device_ms"] = dev_ms
         res[f"{name}_device_union_ms"] = uni_ms
         res[f"{name}_kernels"] = kernel_table(evs, per)
+        if name == "decode":
+            res["decode_ms_per_step_by_family"] = family_ms(evs, per)
         print(f"{name}: {len(evs)} device events, device {dev_ms:.3f} ms, "
               f"union {uni_ms:.3f} ms, profiled wall {wall:.3f} ms",
               flush=True)

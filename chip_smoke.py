@@ -9,7 +9,8 @@ projector → fusion → one batched extend → 256-token greedy decode via
 `aurora_tpu_torch.serve.engine.ServeEngine`, first with bf16 weights and
 bf16 KV, then with the LLM quantized on the card to W8 weights and int8
 KV, to W4 weights and int8 KV, and (the same W4 weights) nibble-packed
-int4 KV; both quantized models keep an int8 LM head. Then the training
+int4 KV, then int8 KV again with the W4 weights in the fused-MLP and in
+the flat layout; both quantized models keep an int8 LM head. Then the training
 step of bench.py's training stage
 (`aurora_tpu_torch.train.trainer.make_train_step`): Vicuna-7B widths at
 depth 4, seq 2048, batch 4, bf16, AdamW, full remat, text-only batches
@@ -22,8 +23,10 @@ Phases, one line each; any failure raises and exits non-zero:
                    slice's shapes: both attention kernels with bf16, int8
                    and packed int4 KV (bf16 in, fp32 reference; decode row
                    and scale writes exact, int4 mate nibbles included), the
-                   W4A8 and the W8A8 matmuls at the 7B's four decode
-                   projections
+                   W4A8 (stripe and flat layouts), W4A16 and W8A8 matmuls
+                   at the 7B's four decode projections, the fused W4 MLP
+                   at one 7B layer's MLP (bitwise repeatable; beside the
+                   two-call W4A8 path of the same layer)
 4. serve         — bf16: 4 requests of 8 frames each to 256 tokens; the
                    bf16 kernels' launch counts must rise and the plain
                    twins' stay 0
@@ -41,12 +44,25 @@ Phases, one line each; any failure raises and exits non-zero:
 9. serve-w4kv8   — the same 4 requests (new clips) with W4 weights and
                    int8 KV; the int8 attention and W4A8 launch counts must
                    rise and every plain twin's stay 0
-10. logits-w4kv8 — as 5, on the W4 + int8-KV engine
+10. logits-w4kv8 — as 5, on the W4 + int8-KV engine, then one decode
+                   step's logits (1 token a lane) through the kernels vs
+                   through the plain twins
 11. serve-w4kv4  — the same W4 weights with packed int4 KV (new clips);
                    the int4 attention and W4A8 launch counts must rise and
                    every plain twin's stay 0
 12. logits-w4kv4 — as 5, on the W4 + int4-KV engine
-13. kernels flash — the flash forward, dK/dV and dQ kernels vs the fp32
+13. serve-w4kv8-fused — the same W4 weights laid out first (timed) with
+                   the fused MLP (`EngineConfig(w4_fused_mlp=True)`, the
+                   reference's AURORA_W4_FUSED_MLP=1), int8 KV, new clips;
+                   the fused-MLP, W4A8 (qkv, o) and int8 attention launch
+                   counts must rise and every plain twin's stay 0
+14. logits-w4kv8-fused — as 10 (the decode step runs the fused MLP)
+15. serve-w4kv8-flat — the same W4 weights in the reference's flat layout
+                   (`w4_tiled=False`, its AURORA_W4_TILED=0); the flat
+                   W4A8 launch count must rise, the stripe W4A8's stay 0,
+                   every plain twin's stay 0
+16. logits-w4kv8-flat — as 10, on the flat-layout engine
+17. kernels flash — the flash forward, dK/dV and dQ kernels vs the fp32
                    twin (out, lse, dQ/dK/dV from one seeded dO) at the
                    training shape (B 4, T 2048, H 32, D 128, causal),
                    again with segment ids and q_offset 128 (T 384, S 512) and
@@ -54,14 +70,14 @@ Phases, one line each; any failure raises and exits non-zero:
                    flash_attention_lse (Hkv 8); backward bitwise
                    repeatable; timed against the twin and against
                    F.scaled_dot_product_attention (the yardstick only)
-14. train        — one warm-up and 5 timed steps; losses and grad norms
+18. train        — one warm-up and 5 timed steps; losses and grad norms
                    finite, each flash kernel's launch count rises (the
                    forward twice a layer with remat), the plain twins' stay 0
-15. train-parity — one depth-2 step with the kernels and one through
+19. train-parity — one depth-2 step with the kernels and one through
                    mha_reference (the same batch with an all-true
                    attention_mask), same weights: loss, grad norm and each
                    layer's q/k/v/o weight gradients
-16. the kernels' JSON line (each kernel's bound and library time
+20. the kernels' JSON line (each kernel's bound and library time
    included), then {"ok": true, "device": {...}} last.
 
 float32 references run with TF32 disabled for matmuls and cuDNN
@@ -102,8 +118,23 @@ W4A8_REL_TOL = 1e-5       # max |Δ| / max |want|
 # W8A8 matmul vs its twin with fp32 output: exact int32 sums and the same
 # two fp32 multiplies on both sides
 W8A8_REL_TOL = 1e-5       # max |Δ| / max |want|
+# W4A16 matmul vs its twin with fp32 output: exact bf16 products on both
+# sides, fp32 sums in another order
+W4A16_REL_TOL = 1e-5      # max |Δ| / max |want|
+# fused W4 MLP vs its bf16 twin with fp32 output: the fp32 order of the
+# gate/up and down sums differs, which can move a bf16 activation by one
+# rounding here and there (measured on an H100: 1.7e-5, PERF.md); the same
+# MLP in fp32 (the twin's compute_dtype=float32) must fall outside it
+FUSED_MLP_REL_TOL = 5e-5  # max |Δ| / max |want|
 LOGITS_REL_TOL = 5e-2     # max |Δlogits| / max |logits| after 32 bf16 layers
-LOGITS_W4_REL_TOL = 5e-2  # the same on the W4 + int8-KV engine
+LOGITS_W4_REL_TOL = 5e-2  # the same on the W4 + int8-KV engines (all
+                          # three layouts)
+# One decode step's logits, kernels vs twins, on the three W4 + int8-KV
+# engines: in decode every projection quantizes its input per token to
+# int8 (W4A8), so, as in the W8 extend below, the decode attention
+# kernel's bf16 rounding flips activation codes in every layer (measured
+# on an H100: 4.42e-2 fused MLP, 7.34e-2 flat; PERF.md)
+LOGITS_DECODE_REL_TOL = 2e-1
 # The W8 extend quantizes every projection's input per token to int8, and
 # int4 KV rounds K/V onto 15 levels: the kernel's bf16 attention output
 # flips codes of those quantizers in every layer, which spreads the
@@ -378,6 +409,112 @@ def w4a8_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
         del packed, scale, got, again, got16, want
     torch.cuda.empty_cache()
     return max(errs), ms, plain_ms, least_ms(ops, nbytes, PEAK_INT8)
+
+
+def w4_flat_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
+    """The flat-layout W4A8 and W4A16 kernels vs their plain twins at the
+    7B's four decode projections, B = 4, fp32 output → {"w4a8" |
+    "w4a16": (max abs err, summed ms, summed plain ms, bound (ms, by))};
+    both move the same bytes: packed weights, scales, activations and
+    output once each."""
+    B = 4
+    res = {}
+    for kname, kernel, plain, tol in (
+            ("w4a8", qm.w4a8_matmul, qm.w4a8_matmul_plain, W4A8_REL_TOL),
+            ("w4a16", qm.w4a16_matmul, qm.w4a16_matmul_plain,
+             W4A16_REL_TOL)):
+        errs, ms, plain_ms, nbytes, ops = [], 0.0, 0.0, 0, 0
+        for name, K, N in shapes:
+            w = torch.randn((N, K), generator=g, device=dev) * 0.02
+            pk, s = qm.w4_to_flat(*quantize_w4(w))
+            del w
+            h = torch.randn((B, K), generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            got = kernel(h, pk, s, out_dtype=torch.float32)
+            again = kernel(h, pk, s, out_dtype=torch.float32)
+            want = plain(h, pk, s, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            check(torch.equal(got, again), f"{kname} {name}: runs differ")
+            check(rel <= tol, f"{kname} {name}: rel err {rel}")
+            t = cuda_ms(lambda: kernel(h, pk, s), reps=20)
+            tp = cuda_ms(lambda: plain(h, pk, s), reps=3)
+            phase("kernels", **{kname: name}, layout="flat", B=B, K=K, N=N,
+                  rel_err=f"{rel:.3e}", tol=tol, ms=f"{t:.4f}",
+                  plain_ms=f"{tp:.4f}")
+            errs.append((got - want).abs().max().item())
+            ms += t
+            plain_ms += tp
+            nbytes += pk.numel() + 4 * s.numel() + 2 * h.numel() + 2 * B * N
+            ops += 2 * B * K * N
+            del pk, s, got, again, want
+        peak = PEAK_INT8 if kname == "w4a8" else PEAK_BF16
+        res[kname] = (max(errs), ms, plain_ms, least_ms(ops, nbytes, peak))
+    torch.cuda.empty_cache()
+    return res
+
+
+def fused_mlp_phase(torch, qm, quantize_w4, dev, g, D=4096, I=11008, B=4):
+    """The fused W4 MLP kernel vs its bf16 plain twin at one 7B layer's
+    MLP, B = 4: error, bitwise repeatability, kernel, twin and bound ms;
+    and, as the fusion's yardstick, the separate-call path of the same
+    layer (w4a8_matmul_tiled gateup, silu·mul, w4a8_matmul_tiled down,
+    as the engine runs it without the fused MLP) → (max abs err, ms,
+    plain ms, bound (ms, by), two-call ms)."""
+    gu = quantize_w4(torch.randn((2 * I, D), generator=g, device=dev) * 0.02)
+    dn = quantize_w4(torch.randn((D, I), generator=g, device=dev) * 0.02)
+    tiles = qm.w4_mlp_tile_layout(*qm.w4_to_flat(*gu), *qm.w4_to_flat(*dn))
+    h = torch.randn((B, D), generator=g, device=dev, dtype=torch.bfloat16)
+    got = qm.fused_mlp_w4(h, *tiles, out_dtype=torch.float32)
+    again = qm.fused_mlp_w4(h, *tiles, out_dtype=torch.float32)
+    got16 = qm.fused_mlp_w4(h, *tiles)
+    want = qm.fused_mlp_w4_plain(h, *tiles, out_dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    check(torch.equal(got, again), "fused_mlp_w4: runs differ")
+    check(bool(torch.isfinite(got).all()), "fused_mlp_w4 not finite")
+    check(rel <= FUSED_MLP_REL_TOL, f"fused_mlp_w4: rel err {rel}")
+    bound16 = want.abs() * INT8_ROUNDING + FUSED_MLP_REL_TOL * \
+        want.abs().max()
+    check(bool(((got16.float() - want).abs() <= bound16).all()),
+          "fused_mlp_w4: bf16 output off the twin")
+    # control: the same MLP computed in fp32 (no bf16 rounding of the
+    # activation or the down weights) must fall outside the bound
+    f32 = qm.fused_mlp_w4_plain(h, *tiles, out_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    rel32 = ((f32 - want).abs().max() / want.abs().max()).item()
+    check(rel32 > FUSED_MLP_REL_TOL, f"fused_mlp_w4: the fp32 control is "
+                                     f"within the bound ({rel32})")
+    t = cuda_ms(lambda: qm.fused_mlp_w4(h, *tiles), reps=20)
+    tp = cuda_ms(lambda: qm.fused_mlp_w4_plain(h, *tiles), reps=3)
+
+    def two_call(x):
+        gate, up = qm.w4a8_matmul_tiled(x, *gu).chunk(2, dim=-1)
+        return qm.w4a8_matmul_tiled(torch.nn.functional.silu(gate) * up, *dn)
+
+    t2 = cuda_ms(lambda: two_call(h), reps=20)
+    # the engine sends up to MAX_TOKENS decode rows: both paths at 64
+    # (from a generator of its own, so the later phases' inputs stay)
+    g64 = torch.Generator(device=dev).manual_seed(SEED + qm.MAX_TOKENS)
+    h64 = torch.randn((qm.MAX_TOKENS, D), generator=g64, device=dev,
+                      dtype=torch.bfloat16)
+    t64 = cuda_ms(lambda: qm.fused_mlp_w4(h64, *tiles), reps=20)
+    t2_64 = cuda_ms(lambda: two_call(h64), reps=20)
+    nbytes = sum(x.numel() * x.element_size() for x in tiles) \
+        + 2 * h.numel() + 2 * B * D
+    bound = least_ms(2 * B * D * 3 * I, nbytes, PEAK_INT8)
+    phase("kernels", fused_mlp_w4=f"B{B}/D{D}/I{I}", rel_err=f"{rel:.3e}",
+          max_abs_err=f"{err:.3e}", tol=FUSED_MLP_REL_TOL,
+          fp32_control_rel=f"{rel32:.3e}", bitwise_repeat=True,
+          ms=f"{t:.4f}", plain_ms=f"{tp:.4f}", two_call_ms=f"{t2:.4f}",
+          bound_ms=f"{bound[0]:.4f}", ms_b64=f"{t64:.4f}",
+          two_call_ms_b64=f"{t2_64:.4f}",
+          weight_mb=f"{(nbytes - 2 * h.numel() - 2 * B * D) / 1e6:.1f}")
+    del gu, dn, tiles, got, again, got16, want, f32
+    torch.cuda.empty_cache()
+    return err, t, tp, bound, t2
 
 
 def w8a8_phase(torch, qm, quantize_w8, dev, g, shapes=W4_SHAPES):
@@ -712,9 +849,25 @@ def serve(torch, engine, reqs, counters):
     return wall, counts
 
 
-def logits_check(torch, engine_mod, runner, mm, reqs, P, tol, name, plain):
+def logits_check(torch, engine_mod, runner, mm, reqs, P, tol, name, plain,
+                 decode=False):
     """One extend wave's logits through the kernels and through the plain
-    twins (patched into the engine module for that call only)."""
+    twins (patched into the engine module, and into models/llama.py for
+    the fused MLP, for that call only); with `decode`, then one decode
+    step of every lane (the kernels' greedy token at position P) both
+    ways. Each decode forward writes its own token's K/V before it
+    attends, so the second overwrites the first's."""
+    import contextlib
+    from aurora_tpu_torch.models import llama as llama_mod
+
+    def plain_twins():
+        stack = contextlib.ExitStack()
+        for mod in (engine_mod, llama_mod):
+            names = {k: v for k, v in plain.items() if hasattr(mod, k)}
+            if names:
+                stack.enter_context(mock.patch.multiple(mod, **names))
+        return stack
+
     dev = runner.device
     T = runner.ecfg.prefill_buckets[0]
     n = len(reqs)
@@ -726,8 +879,31 @@ def logits_check(torch, engine_mod, runner, mm, reqs, P, tol, name, plain):
     offs = np.zeros(n, np.int32)
     lens = np.full(n, P, np.int32)
     logits_k = runner.extend(embeds, row_ids, offs, lens)
-    with mock.patch.multiple(engine_mod, **plain):
+    with plain_twins():
         logits_p = runner.extend(embeds, row_ids, offs, lens)
+    fields = {}
+    if decode:
+        ids = torch.as_tensor(row_ids, device=dev)
+        pos = torch.full((n,), P, dtype=torch.int32, device=dev)
+        x = runner.model.embed_tokens[logits_k.argmax(-1)][:, None]
+
+        def step():
+            with torch.no_grad():
+                h = engine_mod._forward_rows(runner.model, runner.cfg, x,
+                                             runner.rows, ids, pos, pos + 1,
+                                             runner.layer_ids)
+                return engine_mod._lm_head(runner.model, h)
+
+        dec_k = step()
+        with plain_twins():
+            dec_p = step()
+        check(bool(torch.isfinite(dec_k).all()),
+              f"{name} decode logits not finite")
+        dec_rel = ((dec_k - dec_p).abs().max() / dec_p.abs().max()).item()
+        dec_agree = int((dec_k.argmax(-1) == dec_p.argmax(-1)).sum())
+        fields = dict(decode_rel_err=f"{dec_rel:.3e}",
+                      decode_tol=LOGITS_DECODE_REL_TOL,
+                      decode_argmax_agree=f"{dec_agree}/{n}")
     torch.cuda.synchronize()
     check(bool(torch.isfinite(logits_k).all()), f"{name} logits not finite")
     check(tuple(logits_k.shape) == (n, runner.cfg.vocab_size),
@@ -735,8 +911,12 @@ def logits_check(torch, engine_mod, runner, mm, reqs, P, tol, name, plain):
     rel = ((logits_k - logits_p).abs().max()
            / logits_p.abs().max()).item()
     agree = int((logits_k.argmax(-1) == logits_p.argmax(-1)).sum())
-    phase(name, rel_err=f"{rel:.3e}", tol=tol, argmax_agree=f"{agree}/{n}")
+    phase(name, rel_err=f"{rel:.3e}", tol=tol, argmax_agree=f"{agree}/{n}",
+          **fields)
     check(rel <= tol, f"{name} rel err {rel}")
+    if decode:
+        check(dec_rel <= LOGITS_DECODE_REL_TOL,
+              f"{name} decode rel err {dec_rel}")
 
 
 def main():
@@ -777,6 +957,8 @@ def main():
             for mode in ("bf16", "int8", "int4") for hkv in (32, 8)}
     torch.cuda.empty_cache()
     w4res = w4a8_phase(torch, qm, engine_mod._w4, dev, g)
+    flat_res = w4_flat_phase(torch, qm, engine_mod._w4, dev, g)
+    mlp_res = fused_mlp_phase(torch, qm, engine_mod._w4, dev, g)
     w8res = w8a8_phase(torch, qm, engine_mod._w8, dev, g)
     flash_res = [
         flash_case(torch, fa, dev, g, bench_stage.BATCH, bench_stage.SEQ,
@@ -802,7 +984,7 @@ def main():
     size = cfg.vit.image_size
     # four clips for each served configuration (the embed cache would skip
     # the ViT on a repeated clip), one more to warm the ViT
-    runs = ("bf16", "w8kv8", "w4kv8", "w4kv4")
+    runs = ("bf16", "w8kv8", "w4kv8", "w4kv4", "w4kv8-fused", "w4kv8-flat")
     clips = [rng.integers(0, 256, size=(N_FRAMES, size, size, 3),
                           dtype=np.uint8)
              for _ in range(len(runs) * N_REQUESTS + 1)]
@@ -860,12 +1042,31 @@ def main():
                          (qm.w4a8_matmul_tiled, "launches")],
                "w4kv4": [(ra.ragged_attention, "launches_int4"),
                          (ra.ragged_decode_attention, "launches_int4"),
-                         (qm.w4a8_matmul_tiled, "launches")]}
+                         (qm.w4a8_matmul_tiled, "launches")],
+               "w4kv8-fused": [(ra.ragged_attention, "launches_int8"),
+                               (ra.ragged_decode_attention, "launches_int8"),
+                               (qm.w4a8_matmul_tiled, "launches"),
+                               (qm.fused_mlp_w4, "launches")],
+               "w4kv8-flat": [(ra.ragged_attention, "launches_int8"),
+                              (ra.ragged_decode_attention, "launches_int8"),
+                              (qm.w4a8_matmul, "launches")]}
+    # kernels a run must not launch: the other W4A8 layout, and W4A16,
+    # which no serving path calls (its count in the JSON line is the one
+    # the flat-layout run reads)
+    absent = {"w4kv8-fused": [(qm.w4a8_matmul, "launches"),
+                              (qm.w4a16_matmul, "launches")],
+              "w4kv8-flat": [(qm.w4a8_matmul_tiled, "launches"),
+                             (qm.fused_mlp_w4, "launches"),
+                             (qm.w4a16_matmul, "launches")]}
     plains = [(ra.ragged_attention_plain, "calls"),
               (ra.ragged_decode_attention_plain, "calls"),
               (qm.w4a8_matmul_tiled_plain, "calls"),
-              (qm.w8a8_matmul_plain, "calls")]
-    counters = sorted({c for ks in kernels.values() for c in ks},
+              (qm.w8a8_matmul_plain, "calls"),
+              (qm.w4a8_matmul_plain, "calls"),
+              (qm.w4a16_matmul_plain, "calls"),
+              (qm.fused_mlp_w4_plain, "calls")]
+    counters = sorted({c for ks in (*kernels.values(), *absent.values())
+                       for c in ks},
                       key=lambda c: (c[0].__name__, c[1])) + plains
     # the plain twins patched into the engine module for each logits check
     plain_patch = {"bf16": {"ragged_attention": ra.ragged_attention_plain},
@@ -877,21 +1078,42 @@ def main():
                    "w4kv4": {"ragged_attention": ra.ragged_attention_plain,
                              "w4a8_matmul_tiled":
                                  qm.w4a8_matmul_tiled_plain}}
+    # the three W4 + int8-KV runs also check a decode step, so their
+    # patches take the decode attention too; the fused MLP is called from
+    # models/llama.py
+    decode_plain = {"ragged_attention": ra.ragged_attention_plain,
+                    "ragged_decode_attention":
+                        ra.ragged_decode_attention_plain}
+    plain_patch["w4kv8"] = {**decode_plain,
+                            "w4a8_matmul_tiled": qm.w4a8_matmul_tiled_plain}
+    plain_patch["w4kv8-fused"] = {
+        **decode_plain, "w4a8_matmul_tiled": qm.w4a8_matmul_tiled_plain,
+        "fused_mlp_w4": qm.fused_mlp_w4_plain}
+    plain_patch["w4kv8-flat"] = {**decode_plain,
+                                 "w4a8_matmul": qm.w4a8_matmul_plain}
     tols = {"bf16": LOGITS_REL_TOL, "w8kv8": LOGITS_W8_REL_TOL,
-            "w4kv8": LOGITS_W4_REL_TOL, "w4kv4": LOGITS_W4KV4_REL_TOL}
+            "w4kv8": LOGITS_W4_REL_TOL, "w4kv4": LOGITS_W4KV4_REL_TOL,
+            "w4kv8-fused": LOGITS_W4_REL_TOL,
+            "w4kv8-flat": LOGITS_W4_REL_TOL}
     launches = {}
+    run_counts = {}
 
-    def serve_run(run, llm, names, weight_quant="none", kv_quant="none",
-                  **fields):
-        """Serve the run's 4 requests from `llm` as given; check its
-        kernels' launch counts rose and every plain twin's stayed 0; then
-        its logits check. names: (serve phase, logits phase)."""
-        vit_times.clear()
-        ecfg = EngineConfig(max_batch=N_REQUESTS, kv_chunk=256,
+    def engine_config(weight_quant="none", kv_quant="none", **layout):
+        return EngineConfig(max_batch=N_REQUESTS, kv_chunk=256,
                             prefill_buckets=(1536,), decode_steps=16,
                             disable_radix_cache=True,
                             max_seq_len=P + MAX_NEW,
-                            weight_quant=weight_quant, kv_quant=kv_quant)
+                            weight_quant=weight_quant, kv_quant=kv_quant,
+                            **layout)
+
+    def serve_run(run, llm, names, weight_quant="none", kv_quant="none",
+                  layout=None, **fields):
+        """Serve the run's 4 requests from `llm` as given; check its
+        kernels' launch counts rose and every plain twin's stayed 0; then
+        its logits check. names: (serve phase, logits phase); layout: the
+        W4 layout switches of EngineConfig."""
+        vit_times.clear()
+        ecfg = engine_config(weight_quant, kv_quant, **(layout or {}))
         engine = ServeEngine(llm, cfg.llm, ecfg, embed_fn=timed_embed_fn,
                              device=dev, seed=SEED)
         check(engine.runner.model is llm, f"{run}: the model was not "
@@ -899,13 +1121,16 @@ def main():
         reqs = requests(run)
         wall, counts = serve(torch, engine, reqs, counters)
         phase(names[0], **fields, **report(engine, wall, counts))
+        run_counts[run] = counts
         launches[run] = [counts[f"{f.__name__}.{a}"] for f, a in
                          kernels[run]]
         check(all(n > 0 for n in launches[run]), f"launches {counts}")
-        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
-              f"plain twins ran: {counts}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0
+                  for f, a in plains + absent.get(run, [])),
+              f"plain twins or another layout's kernel ran: {counts}")
         logits_check(torch, engine_mod, engine.runner, mm, reqs, P,
-                     tols[run], names[1], plain_patch[run])
+                     tols[run], names[1], plain_patch[run],
+                     decode=run in ("w4kv8", "w4kv8-fused", "w4kv8-flat"))
         del engine
         torch.cuda.empty_cache()
 
@@ -953,6 +1178,26 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     serve_run("w4kv4", llm_w4, ("serve-w4kv4", "logits-w4kv4"),
               weight_quant="int4", kv_quant="int4", w4_weight_gb=w4_gb)
+
+    # ---- the same W4 weights in the fused-MLP and the flat layouts --------
+    for run, layout in (("w4kv8-fused", dict(w4_fused_mlp=True)),
+                        ("w4kv8-flat", dict(w4_tiled=False))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm_laid = engine_mod.w4_decode_layout(
+            llm_w4, cfg.llm, engine_config("int4", "int8", **layout))
+        torch.cuda.synchronize()
+        layout_s = time.perf_counter() - t0
+        check(llm_laid is not llm_w4, f"{run}: the layout did not change")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        serve_run(run, llm_laid, ("serve-" + run, "logits-" + run),
+                  weight_quant="int4", kv_quant="int8", layout=layout,
+                  layout_s=f"{layout_s:.2f}",
+                  w4_weight_gb=f"{layer_gb(llm_laid) + head_gb(llm_laid):.3f}")
+        del llm_laid
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # ---- training at 7B widths (bench.py's training stage) --------------
     del llm_w4, model, mm
@@ -1010,6 +1255,19 @@ def main():
         entry("w4a8_matmul_tiled", "w4a8_matmul.cu", "quant_matmul.py:305",
               launches["w4kv8"][2], w4res[0], w4res[1], w4res[2], w4res[3],
               None),
+        # the same four projections in the flat layout; launches from the
+        # flat-layout run
+        entry("w4a8_matmul", "w4_flat_matmul.cu", "quant_matmul.py:204",
+              launches["w4kv8-flat"][2], *flat_res["w4a8"], None),
+        # no serving path calls it (nor the reference's): timed at the
+        # same four projections; launches as read after the flat-layout
+        # run, whose counts were all set to 0 before it
+        entry("w4a16_matmul", "w4_flat_matmul.cu", "quant_matmul.py:104",
+              run_counts["w4kv8-flat"]["w4a16_matmul.launches"],
+              *flat_res["w4a16"], None),
+        # one 7B layer's MLP at B = 4; launches from the fused-MLP run
+        entry("fused_mlp_w4", "fused_mlp_w4.cu", "quant_matmul.py:474",
+              launches["w4kv8-fused"][3], *mlp_res[:4], None),
         # the same four projections; library: torch._int_mm's int32
         # product on the same operands
         entry("w8a8_matmul", "w8a8_matmul.cu", "quant_matmul.py:41",

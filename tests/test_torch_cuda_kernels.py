@@ -212,6 +212,106 @@ def test_w8a8_kernel_matches_plain_on_card(cuda_device, B, K, N):
     assert torch.equal(got16, want.to(torch.bfloat16))
 
 
+def _flat_w4(gen, dev, K, N):
+    """Random W4 weights [K → N] in the reference's flat layout."""
+    from aurora_tpu_torch.serve.engine import _w4
+    return tqm.w4_to_flat(*_w4(torch.randn((N, K), generator=gen,
+                                           device=dev) * 0.02))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,N", [(1, 512, 1028), (4, 4096, 4096),
+                                   (9, 11008, 516), (64, 256, 772)])
+def test_w4a8_flat_kernel_matches_plain_on_card(cuda_device, B, K, N):
+    gen = torch.Generator(device=cuda_device).manual_seed(B + K + N)
+    pk, s = _flat_w4(gen, cuda_device, K, N)
+    h = torch.randn((B, K), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    launches = tqm.w4a8_matmul.launches
+    got = tqm.w4a8_matmul(h, pk, s, out_dtype=torch.float32)
+    again = tqm.w4a8_matmul(h, pk, s, out_dtype=torch.float32)
+    got16 = tqm.w4a8_matmul(h, pk, s)
+    want = tqm.w4a8_matmul_plain(h, pk, s, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tqm.w4a8_matmul.launches == launches + 3
+    assert torch.equal(got, again)                   # deterministic
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert got16.dtype == torch.bfloat16
+    bound = want.abs() * 2.0 ** -8 + 1e-5 * want.abs().max()
+    assert bool(((got16.float() - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,N,h_dtype", [
+    (1, 512, 1028, torch.bfloat16), (4, 4096, 4096, torch.bfloat16),
+    (9, 11008, 516, torch.float32), (64, 256, 772, torch.bfloat16)])
+def test_w4a16_kernel_matches_plain_on_card(cuda_device, B, K, N, h_dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(B + K)
+    pk, s = _flat_w4(gen, cuda_device, K, N)
+    h = torch.randn((B, K), generator=gen, device=cuda_device, dtype=h_dtype)
+    launches = tqm.w4a16_matmul.launches
+    got = tqm.w4a16_matmul(h, pk, s, out_dtype=torch.float32)
+    again = tqm.w4a16_matmul(h, pk, s, out_dtype=torch.float32)
+    want = tqm.w4a16_matmul_plain(h, pk, s, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tqm.w4a16_matmul.launches == launches + 2
+    assert torch.equal(got, again)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def _mlp_tiles(gen, dev, D, I):
+    gu_pk, gu_s = _flat_w4(gen, dev, D, 2 * I)
+    dn_pk, dn_s = _flat_w4(gen, dev, I, D)
+    return tqm.w4_mlp_tile_layout(gu_pk, gu_s, dn_pk, dn_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,I,tol", [(4, 4096, 11008, 5e-5),
+                                       (9, 384, 384, 1e-3),
+                                       (64, 256, 512, 1e-3),
+                                       (1, 256, 128, 1e-3)])
+def test_fused_mlp_kernel_matches_plain_on_card(cuda_device, B, D, I, tol):
+    """The fused W4 MLP vs its bf16 twin: only the fp32 order of the
+    gate/up and down sums differs, which can move a bf16 activation by
+    one rounding here and there. At the 7B MLP the bound is chip_smoke.py's
+    (5e-5, from a measured 1.7e-5). At I ≤ 512 one flipped activation
+    alone moves the output by up to 2^-8 · |act| · |w| against a max of
+    only ~4 sqrt(I) such terms, several 1e-4 of it, hence 1e-3 there. In
+    every case the same MLP computed in fp32 (no bf16 activation or down
+    weights) must fall outside the bound."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B + D + I)
+    tiles = _mlp_tiles(gen, cuda_device, D, I)
+    h = torch.randn((B, D), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    launches = tqm.fused_mlp_w4.launches
+    got = tqm.fused_mlp_w4(h, *tiles, out_dtype=torch.float32)
+    got16 = tqm.fused_mlp_w4(h, *tiles)
+    want = tqm.fused_mlp_w4_plain(h, *tiles, out_dtype=torch.float32)
+    f32 = tqm.fused_mlp_w4_plain(h, *tiles, out_dtype=torch.float32,
+                                 compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tqm.fused_mlp_w4.launches == launches + 2
+    assert got.shape == (B, D) and got16.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel <= tol, rel
+    assert ((f32 - want).abs().max() / want.abs().max()).item() > tol
+    bound = want.abs() * 2.0 ** -8 + tol * want.abs().max()
+    assert bool(((got16.float() - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_fused_mlp_kernel_is_bitwise_repeatable_on_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    tiles = _mlp_tiles(gen, cuda_device, 4096, 11008)
+    h = torch.randn((4, 4096), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    runs = [tqm.fused_mlp_w4(h, *tiles, out_dtype=torch.float32)
+            for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
 def _int4_rows(gen, dev, hkv, Sr=512, hd=128):
     """Packed int4 rows (maxq-7 grid) and their token-space scales."""
     out = []

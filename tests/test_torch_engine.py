@@ -49,7 +49,7 @@ def tiny():
          "projector": init_projector_params(keys[1], cfg.projector),
          "llm": init_llama_params(keys[2], cfg.llm)})
     model = bridge.aurora_from_params(tree, bridge.aurora_config_from(cfg),
-                                      dtype=torch.float32)
+                                      dtype=torch.float32, device="cpu")
     return cfg, tree, model
 
 

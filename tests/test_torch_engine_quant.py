@@ -97,7 +97,7 @@ def llm(request):
     tree = jax.device_get(init_llama_params(jax.random.PRNGKey(3), cfg,
                                             dtype=jnp.float32))
     model = bridge.llama_from_params(tree, bridge.llama_config_from(cfg),
-                                     dtype=torch.float32)
+                                     dtype=torch.float32, device="cpu")
     return cfg, tree, model
 
 
@@ -207,7 +207,7 @@ def test_engine_serves_prequantized_jax_tree(llm):
     want = serve(model)
     for qtree in trees:
         q = bridge.llama_from_params(jax.device_get(qtree), tcfg,
-                                     dtype=torch.float32)
+                                     dtype=torch.float32, device="cpu")
         assert isinstance(q.lm_head, W8Linear)
         assert serve(q) == want
 
@@ -236,7 +236,7 @@ def test_engine_serves_prequantized_jax_w8_tree(llm):
     want = serve(model)
     for qtree in (q, fuse_serving_weights(q)):
         m = bridge.llama_from_params(jax.device_get(qtree), tcfg,
-                                     dtype=torch.float32)
+                                     dtype=torch.float32, device="cpu")
         assert isinstance(m.layers[0].o, W8Linear)
         assert serve(m) == want
     with pytest.raises(ValueError):     # a W8 model is not served as W4
@@ -279,7 +279,8 @@ def main():
         tree = jax.device_get(init_llama_params(jax.random.PRNGKey(3), cfg,
                                                 dtype=jnp.float32))
         model = bridge.llama_from_params(
-            tree, bridge.llama_config_from(cfg), dtype=torch.float32)
+            tree, bridge.llama_config_from(cfg), dtype=torch.float32,
+            device="cpu")
         for mode, quant in modes.items():
             for steps in (1, 4):
                 seen = _check_engine_parity((cfg, tree, model), steps, quant)

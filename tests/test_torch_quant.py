@@ -48,7 +48,7 @@ def dense():
     tree = jax.device_get(init_llama_params(jax.random.PRNGKey(7), CFG,
                                             dtype=jnp.float32))
     model = bridge.llama_from_params(tree, bridge.llama_config_from(CFG),
-                                     dtype=torch.float32)
+                                     dtype=torch.float32, device="cpu")
     return tree, model
 
 
@@ -91,7 +91,7 @@ def test_fuse_dense_matches_jax_and_bridge(dense):
     tree, model = dense
     jf = jax.device_get(jeng.fuse_serving_weights(dict(tree)))
     got = bridge.llama_from_params(jf, bridge.llama_config_from(CFG),
-                                   dtype=torch.float32)
+                                   dtype=torch.float32, device="cpu")
     want = teng.fuse_serving_weights(copy.deepcopy(model))
     want_sd, got_sd = want.state_dict(), got.state_dict()
     assert sorted(got_sd) == sorted(want_sd)
@@ -130,7 +130,7 @@ def test_bridge_carries_jax_w4_trees_bytewise(dense, layout):
         want = teng.fuse_serving_weights(want)
     got = bridge.llama_from_params(jax.device_get(jq),
                                    bridge.llama_config_from(CFG),
-                                   dtype=torch.float32)
+                                   dtype=torch.float32, device="cpu")
     want_sd, got_sd = want.state_dict(), got.state_dict()
     assert sorted(got_sd) == sorted(want_sd)
     for key, val in want_sd.items():
@@ -348,7 +348,7 @@ def test_bridge_carries_jax_w8_trees_bytewise(dense, fused):
     assert bridge.llama_layout(jq) == ("int8", fused)
     got = bridge.llama_from_params(jax.device_get(jq),
                                    bridge.llama_config_from(CFG),
-                                   dtype=torch.float32)
+                                   dtype=torch.float32, device="cpu")
     want_sd, got_sd = want.state_dict(), got.state_dict()
     assert sorted(got_sd) == sorted(want_sd)
     for key, val in want_sd.items():

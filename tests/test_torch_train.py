@@ -54,7 +54,7 @@ def tiny():
 
 def _model(cfg, tree):
     return bridge.aurora_from_params(tree, bridge.aurora_config_from(cfg),
-                                     dtype=torch.float32)
+                                     dtype=torch.float32, device="cpu")
 
 
 def _batch(kind, seed=0, B=2, T=16):

@@ -42,7 +42,7 @@ def tiny():
             "llm": init_llama_params(keys[2], cfg.llm)}
     tree = _perturb(jax.device_get(tree), np.random.default_rng(0))
     model = bridge.aurora_from_params(tree, bridge.aurora_config_from(cfg),
-                                      dtype=torch.float32)
+                                      dtype=torch.float32, device="cpu")
     return cfg, tree, model
 
 

@@ -1,0 +1,298 @@
+"""The port's two further W4 decode layouts vs the JAX package, on the CPU:
+the reference's flat layout (`EngineConfig(w4_tiled=False)`, its
+AURORA_W4_TILED=0) with `w4a8_matmul` and `w4a16_matmul`, and the
+fused MLP (`EngineConfig(w4_fused_mlp=True)`, its AURORA_W4_FUSED_MLP=1)
+with `fused_mlp_w4`.
+
+Inputs come from numpy generators; the JAX kernels run in interpret mode,
+as tests/test_quant_matmul.py and tests/test_fused_mlp_w4.py run them.
+Tolerances: layouts and bridged bytes bitwise; the W4A8 twin (exact int32
+group partials, fp32 group sums in another order), the W4A16 twin (exact
+products, fp32 sums in another order) and the fused MLP twin in fp32 (the
+reference's interpret-mode numerics) to rtol 1e-5, the last two with an
+atol of 1e-6 of the output's max |value| (the fp32 sums' rounding scales
+with the summed magnitudes, not with each output: a W4A16 output near 0
+read 7.6e-6 off, 3e-8 of the max); the engines under the near-tie
+contract of tests/test_torch_engine_quant.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aurora_tpu.models.llama import init_llama_params
+from aurora_tpu.ops.pallas import quant_matmul as jqm
+from aurora_tpu.serve import engine as jeng
+from aurora_tpu.serve.engine import EngineConfig as JEngineConfig
+from aurora_tpu.serve.engine import ServeEngine as JServeEngine
+from aurora_tpu.serve.scheduler import Request as JRequest
+from aurora_tpu_torch import bridge
+from aurora_tpu_torch.models.llama import W4FusedMLP, W4Linear
+from aurora_tpu_torch.ops.pallas import quant_matmul as tqm
+from aurora_tpu_torch.serve import engine as teng
+from aurora_tpu_torch.serve.scheduler import Request
+
+from test_torch_engine_quant import (BUCKETS, CONFIGS, W4KV8,
+                                     assert_near_tie_parity)
+from utils import drain_engine
+
+MM_TOL = dict(rtol=1e-5, atol=1e-6)
+D, GROUP = 256, 128
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(_np(got), want, rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def _flat(rng, K, N, scale=0.05):
+    """A random [K → N] weight quantized by the reference's _w4, one
+    layer of its flat layout ([G, g/2, N], [G, 1, N]) as numpy."""
+    w = jnp.asarray(rng.standard_normal((1, K, N)) * scale, jnp.float32)
+    pk, s = jeng._w4(w, group=min(GROUP, K))
+    return np.array(pk[0]), np.array(s[0])
+
+
+def _h(rng, B, K):
+    h = rng.standard_normal((B, K)).astype(np.float32)
+    h[0, :7] *= 40.0                      # one outlier-heavy token
+    return h
+
+
+@pytest.mark.parametrize("K,N", [(256, 512), (384, 768)])
+def test_flat_and_stripe_layouts_convert_bytewise(K, N):
+    rng = np.random.default_rng(K)
+    pk, s = map(np.array, _flat(rng, K, N))
+    packed, scale = tqm.w4_from_flat(pk, s)
+    assert packed.shape == (N, K // 2) and scale.shape == (N, K // GROUP)
+    back_pk, back_s = tqm.w4_to_flat(packed, scale)
+    assert np.array_equal(_np(back_pk), pk) and np.array_equal(_np(back_s), s)
+    # both layouts dequantize to the same dense weights
+    np.testing.assert_array_equal(
+        _np(tqm.w4_flat_dequantize(back_pk, back_s, torch.float32)),
+        _np(tqm.w4_dequantize(packed, scale, torch.float32)).T)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 33])
+def test_w4a8_flat_plain_matches_jax_kernel(B):
+    rng = np.random.default_rng(B)
+    pk, s = _flat(rng, D, 512)
+    h = _h(rng, B, D)
+    calls, launches = tqm.w4a8_matmul_plain.calls, tqm.w4a8_matmul.launches
+    got = tqm.w4a8_matmul(torch.from_numpy(h), torch.from_numpy(pk),
+                          torch.from_numpy(s))
+    assert tqm.w4a8_matmul_plain.calls == calls + 1
+    assert tqm.w4a8_matmul.launches == launches          # CPU: no launch
+    want = jqm.w4a8_matmul(jnp.asarray(h), pk, s, block_n=256,
+                           out_dtype=jnp.float32, interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **MM_TOL)
+    # the engine's _w4dot on a flat module, both sides (JAX: XLA branch)
+    got_dot = teng._w4dot(torch.from_numpy(h),
+                          W4Linear(torch.from_numpy(pk), torch.from_numpy(s)))
+    np.testing.assert_allclose(_np(got_dot),
+                               np.asarray(jeng._w4dot(jnp.asarray(h), pk, s)),
+                               **MM_TOL)
+
+
+def test_w4dot_flat_above_64_tokens_dequantizes_like_jax():
+    rng = np.random.default_rng(9)
+    pk, s = _flat(rng, D, 512)
+    h = _h(rng, 80, D).reshape(5, 16, D)
+    calls = tqm.w4a8_matmul_plain.calls
+    got = teng._w4dot(torch.from_numpy(h),
+                      W4Linear(torch.from_numpy(pk), torch.from_numpy(s)))
+    assert tqm.w4a8_matmul_plain.calls == calls
+    np.testing.assert_allclose(_np(got),
+                               np.asarray(jeng._w4dot(jnp.asarray(h), pk, s)),
+                               **MM_TOL)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 33])
+def test_w4a16_plain_matches_jax_kernel(B):
+    rng = np.random.default_rng(100 + B)
+    pk, s = _flat(rng, D, 512, scale=1.0)
+    h = _h(rng, B, D)
+    calls = tqm.w4a16_matmul_plain.calls
+    got = tqm.w4a16_matmul(torch.from_numpy(h), torch.from_numpy(pk),
+                           torch.from_numpy(s), out_dtype=torch.float32)
+    assert tqm.w4a16_matmul_plain.calls == calls + 1
+    want = jqm.w4a16_matmul(jnp.asarray(h), pk, s, block_n=256,
+                            out_dtype=jnp.float32, interpret=True)
+    _close(got, want)
+
+
+def _mlp_case(rng, I):
+    gu = _flat(rng, D, 2 * I)
+    dn = _flat(rng, I, D)
+    return gu + dn
+
+
+@pytest.mark.parametrize("I,B", [(384, 1), (384, 33), (512, 3), (512, 8)])
+def test_fused_mlp_plain_matches_jax_kernel(I, B):
+    """fp32 compute (the reference's interpret-mode numerics) against
+    JAX's fused_mlp_w4 with several I-tiles on both sides (JAX ti 128 or
+    256, the port 64), batches that are not multiples of 8."""
+    rng = np.random.default_rng(I + B)
+    flat = _mlp_case(rng, I)
+    h = _h(rng, B, D)
+    tiles = tqm.w4_mlp_tile_layout(*map(torch.from_numpy, flat))
+    assert tiles[0].shape[0] == I // tqm.MLP_TILE
+    # the port's layout round-trips to the flat bytes
+    assert all(np.array_equal(_np(a), b)
+               for a, b in zip(tqm.w4_mlp_untile_layout(*tiles), flat))
+    calls, launches = tqm.fused_mlp_w4_plain.calls, tqm.fused_mlp_w4.launches
+    got = tqm.fused_mlp_w4(torch.from_numpy(h), *tiles)
+    assert tqm.fused_mlp_w4_plain.calls == calls + 1
+    assert tqm.fused_mlp_w4.launches == launches
+    jtiles = jqm.w4_mlp_tile_layout(*flat, ti=256 if I % 256 == 0 else 128)
+    want = jqm.fused_mlp_w4(jnp.asarray(h), *jtiles, out_dtype=jnp.float32,
+                            interpret=True)
+    _close(got, want)
+
+
+def _fused_mlp_tree(cfg, monkeypatch):
+    """The reference's W4 tree as its engine lays it out under
+    AURORA_W4_FUSED_MLP=1 (fused streams first, as its callers do)."""
+    tree = init_llama_params(jax.random.PRNGKey(3), cfg, dtype=jnp.float32)
+    q = jeng.fuse_serving_weights(jeng.quantize_weights_int4(tree))
+    monkeypatch.setenv("AURORA_W4_FUSED_MLP", "1")
+    jax.clear_caches()
+    return tree, q, jax.device_get(jeng.w4_decode_layout_params(q, cfg))
+
+
+def test_bridge_reads_a_fused_mlp_tree(monkeypatch):
+    cfg = CONFIGS["tiled256"]
+    _, q, fused = _fused_mlp_tree(cfg, monkeypatch)
+    assert "mlp_gu" in fused["layers"] and "gateup" not in fused["layers"]
+    tcfg = bridge.llama_config_from(cfg)
+    model = bridge.llama_from_params(fused, tcfg, dtype=torch.float32,
+                                     device="cpu")
+    for l, layer in enumerate(model.layers):
+        for name in ("gateup", "down"):
+            want = tqm.w4_from_flat(np.asarray(q["layers"][name][l]),
+                                    np.asarray(q["layers"][name
+                                                           + "_scale4"][l]))
+            got = getattr(layer, name)
+            assert torch.equal(got.packed, want[0])
+            assert torch.equal(got.scale, want[1])
+    # the engine fuses them again, in its own layout
+    laid = teng.w4_decode_layout(model, tcfg, teng.EngineConfig(
+        weight_quant="int4", w4_fused_mlp=True))
+    assert isinstance(laid.layers[0].mlp, W4FusedMLP)
+    assert not hasattr(laid.layers[0], "gateup")
+    assert laid.layers[0].qkv is model.layers[0].qkv
+    assert teng.w4_decode_layout(laid, tcfg, teng.EngineConfig(
+        weight_quant="int4", w4_fused_mlp=True)) is laid
+
+
+def test_fuse_rejects_mismatched_scales():
+    cfg = bridge.llama_config_from(CONFIGS["tiled256"])
+    model = teng.LlamaModel(cfg, device="cpu", weight_quant="int4",
+                            fused=True)
+    ecfg = teng.EngineConfig(weight_quant="int4", w4_fused_mlp=True)
+    assert isinstance(teng.w4_decode_layout(model, cfg, ecfg).layers[0].mlp,
+                      W4FusedMLP)
+    layer = model.layers[1]
+    layer.down.scale = layer.down.scale[:, :1].contiguous()
+    with pytest.raises(ValueError, match="down"):
+        teng.w4_decode_layout(model, cfg, ecfg)
+    layer.down.scale = torch.zeros(cfg.hidden_size + 1, 4)
+    with pytest.raises(ValueError, match="down"):
+        teng.w4_decode_layout(model, cfg, ecfg)
+    for bad in (dict(w4_fused_mlp=True), dict(w4_tiled=False)):
+        with pytest.raises(ValueError, match="int4"):
+            teng.EngineConfig(weight_quant="int8", **bad)
+
+
+def _parity(cfg, jtree, model, **layout):
+    """The port's engine (quantizing the dense model itself, in the given
+    layout) and the JAX engine (serving `jtree`) through the same
+    requests, W4 + int8 KV, decode_steps 4: request 0 alone first (a
+    32-token extend: the decode kernels), then three more in one wave of
+    4 lanes × 64 tokens (the prefill branch); decode runs 4 rows."""
+    rng = np.random.default_rng(4)
+    # five tokens each: the first from the extend, four from one decode
+    # block, so each engine compiles one decode block
+    lens, news = [9, 40, 17, 33], [5] * 4
+    prompts = [[int(x) for x in rng.integers(3, 128, size=n)] for n in lens]
+    common = dict(max_seq_len=96, prefill_buckets=BUCKETS, kv_chunk=32,
+                  disable_radix_cache=True, max_batch=4, decode_steps=4,
+                  **W4KV8)
+    jeng_ = JServeEngine(jtree, cfg, JEngineConfig(kv_dtype=jnp.float32,
+                                                   **common))
+    teng_ = teng.ServeEngine(model, model.cfg, teng.EngineConfig(
+        kv_dtype=torch.float32, **common, **layout))
+
+    def reqs(cls):
+        return [cls(rid=str(i), input_ids=list(p), max_new_tokens=m,
+                    eos_ids=(), logprobs=True)
+                for i, (p, m) in enumerate(zip(prompts, news))]
+
+    jreqs, treqs = reqs(JRequest), reqs(Request)
+    want = drain_engine(jeng_, jreqs[:1])
+    got = drain_engine(teng_, treqs[:1])
+    want.update(drain_engine(jeng_, jreqs[1:]))
+    got.update(drain_engine(teng_, treqs[1:]))
+    assert_near_tie_parity(got, want)
+    return jeng_, teng_.runner.model
+
+
+def test_engine_fused_mlp_matches_jax_engine(monkeypatch):
+    cfg = CONFIGS["tiled256"]
+    tree, _, _ = _fused_mlp_tree(cfg, monkeypatch)
+    model = bridge.llama_from_params(jax.device_get(tree),
+                                     bridge.llama_config_from(cfg),
+                                     dtype=torch.float32, device="cpu")
+    calls = tqm.fused_mlp_w4_plain.calls
+    jeng_, served = _parity(cfg, jeng.fuse_serving_weights(
+        jeng.quantize_weights_int4(tree)), model, w4_fused_mlp=True)
+    assert "mlp_gu" in jeng_.params["layers"]
+    assert all(isinstance(l.mlp, W4FusedMLP) for l in served.layers)
+    # the 32-token extend and every decode step run it once a layer
+    assert tqm.fused_mlp_w4_plain.calls - calls >= 2 * cfg.num_hidden_layers
+    jax.clear_caches()
+
+
+def test_engine_flat_layout_matches_jax_engine(monkeypatch):
+    cfg = CONFIGS["tiled256"]
+    tree = init_llama_params(jax.random.PRNGKey(3), cfg, dtype=jnp.float32)
+    model = bridge.llama_from_params(jax.device_get(tree),
+                                     bridge.llama_config_from(cfg),
+                                     dtype=torch.float32, device="cpu")
+    monkeypatch.setenv("AURORA_W4_TILED", "0")
+    jax.clear_caches()
+    calls = tqm.w4a8_matmul_plain.calls
+    tiled = tqm.w4a8_matmul_tiled_plain.calls
+    jeng_, served = _parity(cfg, tree, model, w4_tiled=False)
+    assert jeng_.params["layers"]["q"].ndim == 4          # stayed flat
+    assert all(m.flat for l in served.layers for m in l.children())
+    assert tqm.w4a8_matmul_plain.calls > calls
+    assert tqm.w4a8_matmul_tiled_plain.calls == tiled
+    jax.clear_caches()
+
+
+def test_profile_serve_fused_mlp_runs_on_cpu(tmp_path, capsys):
+    """The profile's W4 layout flags and its family split, on the tiny
+    config (no device events on the CPU, so every family reads 0)."""
+    import json
+
+    from aurora_tpu_torch.tools import profile_serve
+    assert profile_serve.main(["--tiny", "--device", "cpu", "--reps", "1",
+                               "--steps", "4", "--batch", "2",
+                               "--w4kv8-fused", "--out", str(tmp_path)]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["mode"] == "w4kv8-fused" and res["weights"] == "int4"
+    assert set(res["decode_ms_per_step_by_family"]) == {
+        "attention", "w4a8", "fused_mlp", "quantizer", "other"}
+    events = [("mlp_tile_kernel", 0.0, 30.0), ("quantize_rows<bf16>", 0, 2.0),
+              ("w4a8_flat_kernel<bf16>", 0, 8.0), ("elementwise", 0, 4.0)]
+    assert profile_serve.family_ms(events, 2) == {
+        "attention": 0.0, "w4a8": 0.004, "fused_mlp": 0.015,
+        "quantizer": 0.001, "other": 0.002}
