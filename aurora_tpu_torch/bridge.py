@@ -40,13 +40,14 @@ from aurora_tpu_torch.ops.pallas.quant_matmul import (w4_from_flat,
                                                       w4_mlp_untile_layout)
 
 # reference LlamaConfig knobs of other families, with the value at which
-# they are off; the port's decoder is the plain llama case
+# they are off; the port's decoder is the llama case with Mistral's
+# sliding window and the attention logit softcap (LlamaConfig's fields)
 _LLAMA_FAMILY_OFF = {
     "qkv_bias": False, "qk_norm": False, "norm_type": "rmsnorm",
     "partial_rotary_factor": 1.0, "rope_interleaved": False,
-    "clip_qkv": None, "mlp_style": "gated", "sliding_window": None,
+    "clip_qkv": None, "mlp_style": "gated",
     "num_experts": 0, "head_dim_override": None,
-    "attn_logit_softcap": 0.0, "final_logit_softcap": 0.0,
+    "final_logit_softcap": 0.0,
     "scale_embeddings": False, "hidden_act": "silu",
     "query_pre_attn_scalar": None, "swa_every_other": False,
     "norm_upcast_mul": False, "mla_kv_lora_rank": None,

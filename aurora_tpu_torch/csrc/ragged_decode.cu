@@ -22,7 +22,14 @@
 // high nibble of packed row seg*128 + j; the new token's nibbles replace
 // those of its plane and its mate token's nibbles stay as they were (the
 // reference's `merged_packed`), and its scales go to the token-space
-// planes.
+// planes. Options of every mode, the reference's `window=` and
+// `logit_cap=`: with window w > 0 the query (at pos = kv_lens[b] - 1)
+// sees only the keys in (pos - w, pos], and the new token, at pos, always
+// lies inside; with cap c > 0 each logit x becomes c * tanhf(x * inv_c)
+// (inv_c = fp32(1 / c), the multiply XLA makes of the reference's
+// division by a constant) after the scale and the int8 key scale, before
+// the mask. tanhf, not tanh.approx.f32, whose ~2^-11 relative error is
+// larger than the twins' bounds.
 //
 // What bounds it on the H100: each step reads every live K/V byte of the
 // batch once and does 2 FLOP per byte per query head, far below the
@@ -44,8 +51,12 @@
 // bytes are read twice, the second time from the L1). Only this block
 // writes its (lane, head) stripe, so the read-modify-write of the new
 // token's bytes needs no atomics. Row ids must be distinct per lane (each
-// lane owns its row). A split-KV
-// (flash-decoding) grid that fills all SMs is later speed work.
+// lane owns its row). With a window the tile loop starts at the tile that
+// holds the first visible key (a 256-key tile is one packing segment, so
+// the int4 plane walk starts at a segment boundary) and masks the keys
+// below it per element; the PV pass skips them. A split-KV
+// (flash-decoding) grid that fills all SMs is later speed work: with GQA
+// 32/8 at 4 lanes the grid is 32 blocks on 132 SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -173,7 +184,8 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
               const int* __restrict__ kv_lens,
               const int* __restrict__ row_ids,
               const int* __restrict__ layer_ptr, int Hq, int Hkv, int B,
-              int S, float scale, float kv_maxq, float inv_maxq) {
+              int S, float scale, int window, float cap, float inv_cap,
+              float kv_maxq, float inv_maxq) {
   constexpr bool QUANT = sizeof(KV) == 1;
   static_assert(!PACK || QUANT, "packed rows are int8 bytes");
   static_assert(!PACK || TILE == 256, "an int4 tile is one segment");
@@ -192,6 +204,8 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
 
   const int kv_len_raw = kv_lens[b];
   const int kv_len = min(kv_len_raw, S);
+  // the first key the query (at kv_len_raw - 1) sees
+  const int kstart = window > 0 ? max(0, kv_len_raw - window) : 0;
   const int row = row_ids[b];
   const int layer = *layer_ptr;
   const size_t stripe = (size_t(layer) * B + row) * Hkv + kvh;
@@ -248,7 +262,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   const int kg = tid / (HD / 2);
   __syncthreads();  // the written token is visible to the whole block
 
-  for (int base = 0; base < kv_len; base += TILE) {
+  for (int base = kstart / TILE * TILE; base < kv_len; base += TILE) {
     if constexpr (QUANT) {  // one coalesced read of the tile's scales
       const bool live = base + tid < kv_len;
       sKs[tid] = live ? Ks[base + tid] : 0.f;
@@ -263,7 +277,8 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
       float part[MAXG];
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) part[g] = 0.f;
-      if (s < kv_len) {
+      const bool live = s >= kstart && s < kv_len;
+      if (live) {
         float kf[8];
         if constexpr (PACK)
           load8_int4(Kp + size_t(packed_row(s)) * HD + lane16 * 8,
@@ -293,7 +308,8 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
           if (g < G) {
             float x = part[g] * scale;
             if (QUANT) x *= ks;
-            sP[g][kl] = s < kv_len ? x : NEG;
+            if (cap > 0.f) x = cap * tanhf(x * inv_cap);
+            sP[g][kl] = live ? x : NEG;
           }
         }
       }
@@ -308,7 +324,8 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
 #pragma unroll
       for (int i = 0; i < TILE / 32; ++i) {
         const int kl = lane * (TILE / 32) + i;
-        if (base + kl < kv_len) mx = fmaxf(mx, sP[g][kl]);
+        if (base + kl >= kstart && base + kl < kv_len)
+          mx = fmaxf(mx, sP[g][kl]);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -319,7 +336,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
 #pragma unroll
       for (int i = 0; i < TILE / 32; ++i) {
         const int kl = lane * (TILE / 32) + i;
-        const bool live = base + kl < kv_len;
+        const bool live = base + kl >= kstart && base + kl < kv_len;
         const float p = live ? expf(sP[g][kl] - m_new) : 0.f;
         sum += p;
         sP[g][kl] = QUANT ? p * sVs[kl] : p;
@@ -346,7 +363,10 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
       }
     }
     const int nk = min(TILE, kv_len - base);
-    for (int kl = kg; kl < nk; kl += KGROUPS) {
+    // keys below the window have p = 0: start at the first group of
+    // KGROUPS that holds a live one
+    const int k0 = max(0, kstart - base) / KGROUPS * KGROUPS;
+    for (int kl = k0 + kg; kl < nk; kl += KGROUPS) {
       const int s = base + kl;
       float2 vf;
       if constexpr (PACK)
@@ -384,9 +404,9 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   }
 }
 
-bool bad_shape(int Bq, int Hq, int Hkv, int head_dim) {
+bool bad_shape(int Bq, int Hq, int Hkv, int head_dim, float cap) {
   return head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG ||
-         Bq <= 0;
+         Bq <= 0 || cap < 0.f;
 }
 
 template <bool PACK>
@@ -394,9 +414,10 @@ int launch_quant(const void* q, const void* k_new, const void* v_new,
                  void* k_rows, void* v_rows, void* k_scales, void* v_scales,
                  void* out, const void* kv_lens, const void* row_ids,
                  const void* layer, int Bq, int Hq, int Hkv, int B, int S,
-                 int head_dim, float scale, float kv_maxq, float inv_maxq,
+                 int head_dim, float scale, int window, float cap,
+                 float inv_cap, float kv_maxq, float inv_maxq,
                  void* stream) {
-  if (bad_shape(Bq, Hq, Hkv, head_dim) || (PACK && S % TILE != 0))
+  if (bad_shape(Bq, Hq, Hkv, head_dim, cap) || (PACK && S % TILE != 0))
     return int(cudaErrorInvalidValue);
   dim3 grid(Hkv, Bq);
   decode_kernel<int8_t, PACK>
@@ -406,8 +427,8 @@ int launch_quant(const void* q, const void* k_new, const void* v_new,
           static_cast<int8_t*>(v_rows), static_cast<float*>(k_scales),
           static_cast<float*>(v_scales), static_cast<bf16*>(out),
           static_cast<const int*>(kv_lens), static_cast<const int*>(row_ids),
-          static_cast<const int*>(layer), Hq, Hkv, B, S, scale, kv_maxq,
-          inv_maxq);
+          static_cast<const int*>(layer), Hq, Hkv, B, S, scale, window, cap,
+          inv_cap, kv_maxq, inv_maxq);
   return int(cudaGetLastError());
 }
 
@@ -417,8 +438,9 @@ extern "C" int aurora_ragged_decode_bf16(
     const void* q, const void* k_new, const void* v_new, void* k_rows,
     void* v_rows, void* out, const void* kv_lens, const void* row_ids,
     const void* layer, int Bq, int Hq, int Hkv, int B, int S, int head_dim,
-    float scale, void* stream) {
-  if (bad_shape(Bq, Hq, Hkv, head_dim)) return int(cudaErrorInvalidValue);
+    float scale, int window, float cap, float inv_cap, void* stream) {
+  if (bad_shape(Bq, Hq, Hkv, head_dim, cap))
+    return int(cudaErrorInvalidValue);
   dim3 grid(Hkv, Bq);
   decode_kernel<bf16, false>
       <<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -427,7 +449,7 @@ extern "C" int aurora_ragged_decode_bf16(
           static_cast<bf16*>(v_rows), nullptr, nullptr,
           static_cast<bf16*>(out), static_cast<const int*>(kv_lens),
           static_cast<const int*>(row_ids), static_cast<const int*>(layer),
-          Hq, Hkv, B, S, scale, 0.f, 0.f);
+          Hq, Hkv, B, S, scale, window, cap, inv_cap, 0.f, 0.f);
   return int(cudaGetLastError());
 }
 
@@ -437,12 +459,12 @@ extern "C" int aurora_ragged_decode_int8(
     const void* q, const void* k_new, const void* v_new, void* k_rows,
     void* v_rows, void* k_scales, void* v_scales, void* out,
     const void* kv_lens, const void* row_ids, const void* layer, int Bq,
-    int Hq, int Hkv, int B, int S, int head_dim, float scale, float kv_maxq,
-    float inv_maxq, void* stream) {
+    int Hq, int Hkv, int B, int S, int head_dim, float scale, int window,
+    float cap, float inv_cap, float kv_maxq, float inv_maxq, void* stream) {
   return launch_quant<false>(q, k_new, v_new, k_rows, v_rows, k_scales,
                              v_scales, out, kv_lens, row_ids, layer, Bq, Hq,
-                             Hkv, B, S, head_dim, scale, kv_maxq, inv_maxq,
-                             stream);
+                             Hkv, B, S, head_dim, scale, window, cap, inv_cap,
+                             kv_maxq, inv_maxq, stream);
 }
 
 // packed int4 rows [L, B, Hkv, S/2, hd] with fp32 scale planes
@@ -451,11 +473,11 @@ extern "C" int aurora_ragged_decode_int4(
     const void* q, const void* k_new, const void* v_new, void* k_rows,
     void* v_rows, void* k_scales, void* v_scales, void* out,
     const void* kv_lens, const void* row_ids, const void* layer, int Bq,
-    int Hq, int Hkv, int B, int S, int head_dim, float scale, float kv_maxq,
-    float inv_maxq, void* stream) {
+    int Hq, int Hkv, int B, int S, int head_dim, float scale, int window,
+    float cap, float inv_cap, float kv_maxq, float inv_maxq, void* stream) {
   if (kv_maxq > 7.f) return int(cudaErrorInvalidValue);
   return launch_quant<true>(q, k_new, v_new, k_rows, v_rows, k_scales,
                             v_scales, out, kv_lens, row_ids, layer, Bq, Hq,
-                            Hkv, B, S, head_dim, scale, kv_maxq, inv_maxq,
-                            stream);
+                            Hkv, B, S, head_dim, scale, window, cap, inv_cap,
+                            kv_maxq, inv_maxq, stream);
 }

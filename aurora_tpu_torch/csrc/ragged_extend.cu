@@ -16,6 +16,13 @@
 // S/2, hd] bytes: token seg*256 + j (j < 128) in the low nibble and token
 // seg*256 + 128 + j in the high nibble of packed row seg*128 + j, each a
 // signed 4-bit value (the grid is [-7, 7]); the scales stay token-space.
+// Options of every mode, the reference's `window=` and `logit_cap=`: with
+// window w > 0 a query at position p sees only the keys in (p - w, p];
+// with cap c > 0 each logit x becomes c * tanhf(x * inv_c) (inv_c =
+// fp32(1 / c), the multiply XLA makes of the reference's division by a
+// constant) after the scale and the int8 key scale, before the mask.
+// tanhf, not tanh.approx.f32, whose ~2^-11 relative error is larger than
+// the twins' bounds.
 //
 // What bounds it on the H100: at the serving shape (T = 1536 new tokens
 // against ~1.4k keys, hd = 128) every K/V tile is reused by 64 query rows,
@@ -29,7 +36,11 @@
 // WMMA bf16 16x16x16 fragments with fp32 accumulation; the scores, the
 // probabilities and the output accumulator live in shared memory, where
 // each warp rescales its own 16 rows for the online softmax. The loop over
-// key tiles stops at min(kv_len, last query position + 1). int8 tiles are
+// key tiles stops at min(kv_len, last query position + 1) and, with a
+// window, starts at the tile that holds the block's first visible key,
+// max(0, first query position - w + 1): tiles wholly below every row's
+// window are neither loaded nor computed, and the keys of the first tiles
+// that lie below a row's window are masked per element. int8 tiles are
 // converted to bf16 as they are stored to shared memory (exact for
 // |v| <= 127), so both modes share the tensor-core code; the tile's scales
 // sit beside it in shared memory. In int4 mode a key tile is 32 packed
@@ -141,6 +152,12 @@ __device__ __forceinline__ void stage4(const int8_t* src, bf16* dst_lo,
 __device__ __forceinline__ int tile_base(int it, bool pack) {
   return pack ? (it >> 2) * 256 + (it & 3) * 32 : it * BK;
 }
+// the first tile that can hold key position s: packed rows skip whole
+// 256-token segments only, since a tile pairs the low keys base + [0, 32)
+// with the high keys base + 128 + [0, 32), and s may sit in either plane
+__device__ __forceinline__ int first_tile(int s, bool pack) {
+  return pack ? (s >> 8) * 4 : s / BK;
+}
 // position of tile key c (c < BK)
 __device__ __forceinline__ int tile_pos(int base, int c, bool pack) {
   return base + c + (pack && c >= BK / 2 ? 128 - BK / 2 : 0);
@@ -156,7 +173,8 @@ extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
               const int* __restrict__ q_offsets,
               const int* __restrict__ row_ids,
               const int* __restrict__ layer_ptr, int T, int Hq, int Hkv,
-              int B, int S, float scale) {
+              int B, int S, float scale, int window, float cap,
+              float inv_cap) {
   constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int CW = 16 / sizeof(KV);  // values per 16-byte global load
   static_assert(!PACK || QUANT, "packed rows are int8 bytes");
@@ -209,10 +227,12 @@ extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
     sL[tid] = 0.f;
   }
 
-  // causal bound of this tile: the last live row's position + 1
+  // causal bound of this tile: the last live row's position + 1; with a
+  // window, the first row's first visible key
   const int last_rr = min(r0 + BQ, rows_total) - 1;
   int kend = 0;
   if (last_rr >= r0) kend = min(kv_len, q_off + last_rr / G + 1);
+  const int kstart = window > 0 ? max(0, q_off + r0 / G - window + 1) : 0;
   __syncthreads();
 
   // softmax ownership: thread -> (row tid/2, 32-column half tid&1); the
@@ -221,8 +241,10 @@ extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
   const int shalf = tid & 1;
   const int srr = r0 + srow;
   const int sqpos = srr < rows_total ? q_off + srr / G : -1;
+  // keys at or below wlo lie outside the row's window
+  const int wlo = window > 0 ? sqpos - window : -1;
 
-  for (int it = 0;; ++it) {
+  for (int it = first_tile(kstart, PACK);; ++it) {
     const int kb = tile_base(it, PACK);  // increases with it
     if (kb >= kend) break;
     if constexpr (PACK) {
@@ -286,15 +308,16 @@ extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
       const float* vs = sVs + shalf * 32;
       // this half's 32 keys sit at 32 consecutive positions from s0
       const int s0 = tile_pos(kb, shalf * 32, PACK);
-      auto logit = [&](int c) {
-        const float x = srow_s[c] * scale;
-        return QUANT ? x * ks[c] : x;
-      };
+      float lg[32];
       float mx = NEG;
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
+        float x = srow_s[c] * scale;
+        if (QUANT) x *= ks[c];
+        if (cap > 0.f) x = cap * tanhf(x * inv_cap);
+        lg[c] = x;
         const int s = s0 + c;
-        if (s < kv_len && s <= sqpos) mx = fmaxf(mx, logit(c));
+        if (s < kv_len && s <= sqpos && s > wlo) mx = fmaxf(mx, x);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       const float m_old = sM[srow];
@@ -304,7 +327,7 @@ extend_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
       for (int c = 0; c < 32; ++c) {
         const int s = s0 + c;
         float p = 0.f;
-        if (s < kv_len && s <= sqpos) p = expf(logit(c) - m_new);
+        if (s < kv_len && s <= sqpos && s > wlo) p = expf(lg[c] - m_new);
         sum += p;
         prow[c] = __float2bfloat16(QUANT ? p * vs[c] : p);
       }
@@ -366,9 +389,10 @@ int launch(const void* q, const void* k_rows, const void* v_rows,
            const void* k_scales, const void* v_scales, void* out,
            const void* kv_lens, const void* q_offsets, const void* row_ids,
            const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
-           int head_dim, float scale, void* stream) {
+           int head_dim, float scale, int window, float cap, float inv_cap,
+           void* stream) {
   if (head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || Bk <= 0 || T <= 0 ||
-      (PACK && S % 256 != 0))
+      (PACK && S % 256 != 0) || cap < 0.f)
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       extend_kernel<KV, PACK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -383,7 +407,7 @@ int launch(const void* q, const void* k_rows, const void* v_rows,
       static_cast<const float*>(v_scales), static_cast<bf16*>(out),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_offsets),
       static_cast<const int*>(row_ids), static_cast<const int*>(layer), T,
-      Hq, Hkv, B, S, scale);
+      Hq, Hkv, B, S, scale, window, cap, inv_cap);
   return int(cudaGetLastError());
 }
 
@@ -393,10 +417,12 @@ extern "C" int aurora_ragged_extend_bf16(
     const void* q, const void* k_rows, const void* v_rows, void* out,
     const void* kv_lens, const void* q_offsets, const void* row_ids,
     const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
-    int head_dim, float scale, void* stream) {
+    int head_dim, float scale, int window, float cap, float inv_cap,
+    void* stream) {
   return launch<bf16, false>(q, k_rows, v_rows, nullptr, nullptr, out,
                              kv_lens, q_offsets, row_ids, layer, Bk, T, Hq,
-                             Hkv, B, S, head_dim, scale, stream);
+                             Hkv, B, S, head_dim, scale, window, cap, inv_cap,
+                             stream);
 }
 
 // int8 rows [L, B, Hkv, S, hd] with fp32 scale planes [L, B, Hkv, S];
@@ -406,10 +432,12 @@ extern "C" int aurora_ragged_extend_int8(
     const void* k_scales, const void* v_scales, void* out,
     const void* kv_lens, const void* q_offsets, const void* row_ids,
     const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
-    int head_dim, float scale, void* stream) {
+    int head_dim, float scale, int window, float cap, float inv_cap,
+    void* stream) {
   return launch<int8_t, false>(q, k_rows, v_rows, k_scales, v_scales, out,
                                kv_lens, q_offsets, row_ids, layer, Bk, T, Hq,
-                               Hkv, B, S, head_dim, scale, stream);
+                               Hkv, B, S, head_dim, scale, window, cap,
+                               inv_cap, stream);
 }
 
 // packed int4 rows [L, B, Hkv, S/2, hd] with fp32 scale planes
@@ -419,8 +447,10 @@ extern "C" int aurora_ragged_extend_int4(
     const void* k_scales, const void* v_scales, void* out,
     const void* kv_lens, const void* q_offsets, const void* row_ids,
     const void* layer, int Bk, int T, int Hq, int Hkv, int B, int S,
-    int head_dim, float scale, void* stream) {
+    int head_dim, float scale, int window, float cap, float inv_cap,
+    void* stream) {
   return launch<int8_t, true>(q, k_rows, v_rows, k_scales, v_scales, out,
                               kv_lens, q_offsets, row_ids, layer, Bk, T, Hq,
-                              Hkv, B, S, head_dim, scale, stream);
+                              Hkv, B, S, head_dim, scale, window, cap,
+                              inv_cap, stream);
 }

@@ -2,7 +2,10 @@
 (aurora_tpu/models/llama.py). Vicuna-7B-v1.5-16k is the AuroraCap LLM.
 
 Only the llama case is ported (RMSNorm, SiLU-gated MLP, rotary with
-optional linear scaling, GQA, no biases). The reference stacks layers as
+optional linear scaling, GQA, no biases), with two attention options of
+other members of the family: Mistral's sliding window (`sliding_window`,
+the same width in every layer) and the tanh softcap of the attention
+logits (`attn_logit_softcap`). The reference stacks layers as
 [L, ...] arrays with dense kernels [in, out]; here each layer is a module
 of `nn.Linear`s ([out, in] weights), or, for W4 serving, of `W4Linear`s
 (nibble-packed int4 + group scales, the port's layout of
@@ -54,6 +57,11 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rope_linear_scaling: Optional[float] = None
     tie_word_embeddings: bool = False
+    # Mistral's sliding window: a query at position p attends to the keys
+    # in (p - w, p]; None or 0 is full causal attention
+    sliding_window: Optional[int] = None
+    # c > 0: each attention score s becomes c * tanh(s / c) before the mask
+    attn_logit_softcap: float = 0.0
 
     @property
     def head_dim(self) -> int:
@@ -67,6 +75,16 @@ class LlamaConfig:
     def vicuna_7b_v15_16k(cls) -> "LlamaConfig":
         """lmsys/vicuna-7b-v1.5-16k, the AuroraCap-7B decoder."""
         return cls(rope_linear_scaling=4.0)
+
+    @classmethod
+    def mistral_7b(cls) -> "LlamaConfig":
+        """mistralai/Mistral-7B-v0.1: the llama decoder with GQA 32/8 and
+        a sliding window of 4096 in every layer."""
+        return cls(vocab_size=32000, hidden_size=4096,
+                   intermediate_size=14336, num_hidden_layers=32,
+                   num_attention_heads=32, num_key_value_heads=8,
+                   max_position_embeddings=32768, rope_theta=10000.0,
+                   sliding_window=4096)
 
     @classmethod
     def tiny(cls, vocab_size: int = 256) -> "LlamaConfig":
@@ -262,7 +280,7 @@ def _layer(cfg: LlamaConfig, lp: LlamaLayer, x, cos, sin, mask,
     q, k = apply_rope(q, k, cos, sin)
     attn = mha(q, k, v, causal=True, mask=mask, q_segment_ids=segment_ids,
                kv_segment_ids=segment_ids, scale=cfg.attn_scale,
-               use_flash=use_flash)
+               logit_cap=cfg.attn_logit_softcap, use_flash=use_flash)
     x = x + lp.o(attn.reshape(B, T, -1))
     return x + layer_mlp(cfg, lp, family_norm(cfg, x, lp.post_attn_norm))
 
@@ -311,7 +329,10 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
     it sends attention to `mha_reference`, as in the reference. position_ids
     [B, T] (default 0..T-1); segment_ids [B, T]: packed sequences attend
     within their segment. remat: False, True/"full" or a policy name
-    (models/remat.py), per layer. use_flash: None lets `mha` decide.
+    (models/remat.py), per layer. use_flash: None lets `mha` decide. A
+    sliding window (a key mask on (query - key) position, as in the
+    reference) or a logit softcap keeps attention off the flash kernels,
+    which take neither.
     """
     if any(not isinstance(m, nn.Linear) for lp in model.layers
            for m in lp.children()) or not isinstance(model.lm_head,
@@ -328,6 +349,13 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
     mask = None
     if attention_mask is not None:
         mask = attention_mask.to(torch.bool)[:, None, None, :]
+    if cfg.sliding_window:
+        pos = torch.arange(T, device=x.device)
+        wmask = ((pos[:, None] - pos[None, :])
+                 < cfg.sliding_window)[None, None]
+        mask = wmask if mask is None else mask & wmask
+    if cfg.sliding_window or cfg.attn_logit_softcap > 0:
+        use_flash = False
     for lp in model.layers:
         x = remat_call(_layer, remat, cfg, lp, x, cos, sin, mask,
                        segment_ids, use_flash)

@@ -29,18 +29,20 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of csrc/*.cu, every pointer and the stream as c_void_p
 SIGNATURES = {
+    # ragged attention: ..., scale, window, cap, 1/cap[, kv_maxq,
+    # 1/kv_maxq], stream
     "aurora_ragged_extend_bf16":
-        [_P] * 8 + [_I] * 7 + [_F, _P],
+        [_P] * 8 + [_I] * 7 + [_F, _I, _F, _F, _P],
     "aurora_ragged_decode_bf16":
-        [_P] * 9 + [_I] * 6 + [_F, _P],
+        [_P] * 9 + [_I] * 6 + [_F, _I, _F, _F, _P],
     "aurora_ragged_extend_int8":
-        [_P] * 10 + [_I] * 7 + [_F, _P],
+        [_P] * 10 + [_I] * 7 + [_F, _I, _F, _F, _P],
     "aurora_ragged_decode_int8":
-        [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
+        [_P] * 11 + [_I] * 6 + [_F, _I] + [_F] * 4 + [_P],
     "aurora_ragged_extend_int4":
-        [_P] * 10 + [_I] * 7 + [_F, _P],
+        [_P] * 10 + [_I] * 7 + [_F, _I, _F, _F, _P],
     "aurora_ragged_decode_int4":
-        [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
+        [_P] * 11 + [_I] * 6 + [_F, _I] + [_F] * 4 + [_P],
     "aurora_w4a8_matmul":
         [_P] * 7 + [_I] * 6 + [_P],
     "aurora_w4a8_flat_matmul":

@@ -23,9 +23,18 @@ tensors lie on the CPU, and launches its CUDA kernel
 (csrc/ragged_extend.cu, csrc/ragged_decode.cu) for CUDA tensors; it never
 falls back from one to the other. `*.launches` (bf16 kernels),
 `*.launches_int8` (int8 kernels), `*.launches_int4` (packed int4 kernels)
-and `*_plain.calls` (twins, any mode) count how often each path ran. The
-sliding window and the logit softcap are not ported yet and raise
-NotImplementedError.
+and `*_plain.calls` (twins, any mode) count how often each path ran;
+`*.launches_window` counts, beside them, the launches of any mode that ran
+with a sliding window or a logit softcap.
+
+Both functions take the reference's two options. `window` w (Mistral's
+sliding window; None or <= 0 disables it): a query at position p sees
+only the keys in (p - w, p], and the kernels skip the key tiles wholly
+below a query block's window. `logit_cap` c > 0 (Gemma2's attention
+softcap): each score s becomes c * tanh(s / c), after the scale and the
+int8 key scale and before the mask. The reference's `s / c` by a Python
+constant compiles under jit to a multiply by the fp32 reciprocal, so the
+port multiplies by fp32(1 / c) too.
 """
 
 from __future__ import annotations
@@ -40,10 +49,14 @@ _NEG_INF = -2.3819763e38
 PACK_SEG = 256
 
 
-def _check_unported(k_scales, v_scales, kv_pack, window, logit_cap):
-    if window is not None or logit_cap:
-        raise NotImplementedError(
-            "sliding window and logit softcap are not ported yet")
+# the twin computes its fp32 logits in query blocks of at most this many
+# elements (T 6144 against 7168 keys and 32 heads would be 5.6 GB a lane)
+_PLAIN_LOGITS = 1 << 26
+
+
+def _check_kv_options(k_scales, v_scales, kv_pack, logit_cap):
+    if logit_cap < 0:
+        raise ValueError(f"logit_cap must be >= 0, got {logit_cap}")
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales go together")
     if kv_pack and k_scales is None:
@@ -111,12 +124,25 @@ def _as_index(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int32, device=device).reshape(-1)
 
 
+def _window_width(window) -> int:
+    """The sliding window as a Python int, 0 when it is off (None or
+    <= 0, as in the reference)."""
+    return 0 if window is None else max(int(window), 0)
+
+
+def _inv_cap(logit_cap: float) -> float:
+    """fp32(1) / fp32(c): what XLA multiplies by for the reference's
+    division by the constant c."""
+    return float(np.float32(1.0) / np.float32(logit_cap))
+
+
 # ---------------------------------------------------------------------------
 # Plain twins (the contract; CPU path and the card's reference)
 # ---------------------------------------------------------------------------
 
 def _attend_plain(q, k_rows, v_rows, lens, offs, rows, lay, scale,
-                  k_scales=None, v_scales=None, kv_pack=False):
+                  k_scales=None, v_scales=None, kv_pack=False, window=0,
+                  logit_cap=0.0):
     Bk, T, Hq, hd = q.shape
     Hkv, S = k_rows.shape[2], k_rows.shape[3] * (2 if kv_pack else 1)
     G = Hq // Hkv
@@ -125,41 +151,56 @@ def _attend_plain(q, k_rows, v_rows, lens, offs, rows, lay, scale,
     dev = q.device
     spos = torch.arange(S, device=dev)
     out = torch.empty_like(q)
-    for i in range(Bk):       # one lane at a time bounds the fp32 logits
+    # one lane, and within it one block of queries, at a time bounds the
+    # fp32 logits; softmax is per query row, so the blocks change nothing
+    tb = max(1, _PLAIN_LOGITS // (Hq * S))
+    inv_cap = _inv_cap(logit_cap) if logit_cap > 0 else 0.0
+    for i in range(Bk):
         k, v = k_rows[lay, rows[i]], v_rows[lay, rows[i]]   # [Hkv, S, hd]
         if kv_pack:
             k, v = unpack_int4_rows(k), unpack_int4_rows(v)
         k, v = k.to(torch.float32), v.to(torch.float32)
-        qi = q[i].to(torch.float32).reshape(T, Hkv, G, hd)
-        logits = torch.einsum("thgd,hsd->hgts", qi * scale, k)
-        if k_scales is not None:        # per-key dequant on the logits
-            logits = logits * k_scales[lay, rows[i]][:, None, None, :]
-        qpos = offs[i] + torch.arange(T, device=dev)
-        mask = (spos[None, :] <= qpos[:, None]) & (spos[None, :] < lens[i])
-        logits = torch.where(mask, logits, _NEG_INF)
-        probs = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
-        if v_scales is not None:        # per-value dequant on p
-            probs = probs * v_scales[lay, rows[i]][:, None, None, :]
-        o = torch.einsum("hgts,hsd->thgd", probs, v)
-        out[i] = o.reshape(T, Hq, hd).to(q.dtype)
+        for t0 in range(0, T, tb):
+            qi = q[i, t0:t0 + tb].to(torch.float32)
+            n = qi.shape[0]
+            qi = qi.reshape(n, Hkv, G, hd)
+            logits = torch.einsum("thgd,hsd->hgts", qi * scale, k)
+            if k_scales is not None:        # per-key dequant on the logits
+                logits = logits * k_scales[lay, rows[i]][:, None, None, :]
+            if logit_cap > 0:
+                logits = logit_cap * torch.tanh(logits * inv_cap)
+            qpos = offs[i] + t0 + torch.arange(n, device=dev)
+            mask = ((spos[None, :] <= qpos[:, None])
+                    & (spos[None, :] < lens[i]))
+            if window > 0:
+                mask &= spos[None, :] > qpos[:, None] - window
+            logits = torch.where(mask, logits, _NEG_INF)
+            probs = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
+            if v_scales is not None:        # per-value dequant on p
+                probs = probs * v_scales[lay, rows[i]][:, None, None, :]
+            o = torch.einsum("hgts,hsd->thgd", probs, v)
+            out[i, t0:t0 + n] = o.reshape(n, Hq, hd).to(q.dtype)
     return out
 
 
 def ragged_attention_plain(q, k_rows, v_rows, kv_lens, q_offsets, row_ids,
-                           *, layer, scale=None, k_scales=None,
+                           *, layer, scale=None, window=None,
+                           logit_cap: float = 0.0, k_scales=None,
                            v_scales=None, kv_pack=False):
     """fp32 reference of `ragged_attention` (ragged_attention_reference's
     twin, with the layer picked from the 5-D buffers; int8 rows with their
     [L, B, Hkv, S] scale planes as the reference's quant mode, packed int4
-    rows unpacked first). Fully masked query rows and padded lanes (kv_len
-    0) give zeros."""
+    rows unpacked first; the window and the cap as the module docstring
+    says). Fully masked query rows and padded lanes (kv_len 0) give
+    zeros."""
     ragged_attention_plain.calls += 1
     dev = q.device
     return _attend_plain(q, k_rows, v_rows,
                          _as_index(kv_lens, dev).long(),
                          _as_index(q_offsets, dev).long(),
                          _as_index(row_ids, dev).long(), int(layer), scale,
-                         k_scales, v_scales, kv_pack)
+                         k_scales, v_scales, kv_pack, _window_width(window),
+                         logit_cap)
 
 
 ragged_attention_plain.calls = 0
@@ -167,6 +208,7 @@ ragged_attention_plain.calls = 0
 
 def ragged_decode_attention_plain(q, k_new, v_new, k_rows, v_rows, kv_lens,
                                   row_ids, *, layer, scale=None,
+                                  window=None, logit_cap: float = 0.0,
                                   k_scales=None, v_scales=None,
                                   kv_maxq: float = 127.0,
                                   kv_pack: bool = False):
@@ -197,7 +239,8 @@ def ragged_decode_attention_plain(q, k_new, v_new, k_rows, v_rows, kv_lens,
     k_rows[at] = kn.to(k_rows.dtype)
     v_rows[at] = vn.to(v_rows.dtype)
     out = _attend_plain(q, k_rows, v_rows, lens, (lens - 1).clamp_min(0),
-                        rows, lay, scale, k_scales, v_scales, kv_pack)
+                        rows, lay, scale, k_scales, v_scales, kv_pack,
+                        _window_width(window), logit_cap)
     if k_scales is not None:
         return out, k_rows, v_rows, k_scales, v_scales
     return out, k_rows, v_rows
@@ -282,6 +325,20 @@ def _mode(quant, kv_pack):
     return ("int8", "launches_int8") if quant else ("bf16", "launches")
 
 
+def _option_args(window: int, logit_cap: float):
+    """The kernels' window, cap and fp32 reciprocal of the cap."""
+    cap = float(logit_cap)
+    return window, cap, (_inv_cap(cap) if cap > 0 else 0.0)
+
+
+def _count(fn, counter, window, logit_cap):
+    """One launch on the mode's counter, and on launches_window when the
+    window or the cap was on."""
+    setattr(fn, counter, getattr(fn, counter) + 1)
+    if window > 0 or logit_cap > 0:
+        fn.launches_window += 1
+
+
 def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
                      layer=None, scale=None, window=None,
                      logit_cap: float = 0.0, k_scales=None, v_scales=None,
@@ -293,12 +350,14 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
     kv_lens [Bk] valid KV length per lane including the new tokens (0 for
     a padded lane, whose output is zeros); q_offsets [Bk] global position
     of q[:, 0]; row_ids [Bk] the KV row of each lane; layer: int or 1-elem
-    int32 device tensor; k_scales/v_scales [L, B, Hkv, S] (or [B, Hkv, S])
-    fp32 with int8 rows; kv_pack: the int8 rows are nibble-packed
-    [..., S/2, hd] (PACK_SEG pairing). Returns [Bk, T, Hq, hd] in q's
-    dtype.
+    int32 device tensor; window: sliding-window width, an int (None or
+    <= 0: off); logit_cap: tanh softcap (0: off); k_scales/v_scales
+    [L, B, Hkv, S] (or [B, Hkv, S]) fp32 with int8 rows; kv_pack: the int8
+    rows are nibble-packed [..., S/2, hd] (PACK_SEG pairing). Returns
+    [Bk, T, Hq, hd] in q's dtype.
     """
-    _check_unported(k_scales, v_scales, kv_pack, window, logit_cap)
+    _check_kv_options(k_scales, v_scales, kv_pack, logit_cap)
+    window = _window_width(window)
     quant = k_scales is not None
     if k_rows.dim() == 4:
         if layer is not None:
@@ -311,6 +370,7 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
     if q.device.type == "cpu":
         return ragged_attention_plain(q, k_rows, v_rows, kv_lens, q_offsets,
                                       row_ids, layer=layer, scale=scale,
+                                      window=window, logit_cap=logit_cap,
                                       k_scales=k_scales, v_scales=v_scales,
                                       kv_pack=kv_pack)
     if q.device.type != "cuda":
@@ -333,6 +393,7 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
     tail = (out.data_ptr(), idx["kv_lens"].data_ptr(),
             idx["q_offsets"].data_ptr(), idx["row_ids"].data_ptr(),
             idx["layer"].data_ptr(), Bk, T, Hq, Hkv, B, S, hd, float(scale),
+            *_option_args(window, logit_cap),
             torch.cuda.current_stream(q.device).cuda_stream)
     suffix, counter = _mode(quant, kv_pack)
     scales = (k_scales.data_ptr(), v_scales.data_ptr()) if quant else ()
@@ -340,13 +401,14 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
         q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(), *scales, *tail)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    setattr(ragged_attention, counter, getattr(ragged_attention, counter) + 1)
+    _count(ragged_attention, counter, window, logit_cap)
     return out
 
 
 ragged_attention.launches = 0
 ragged_attention.launches_int8 = 0
 ragged_attention.launches_int4 = 0
+ragged_attention.launches_window = 0
 
 
 def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
@@ -363,10 +425,13 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
     rows) the new token is quantized onto the `kv_quantize` grid of
     kv_maxq; with kv_pack (rows [L, B, Hkv, S/2, hd], kv_maxq ≤ 7) its
     nibbles are merged into the bytes it shares with its mate token.
-    Returns (attn [B, 1, Hq, hd], k_rows, v_rows[, k_scales, v_scales]) —
-    the row and scale tensors are the inputs, updated in place.
+    window and logit_cap as in `ragged_attention` (the query sits at
+    kv_lens-1). Returns (attn [B, 1, Hq, hd], k_rows, v_rows[, k_scales,
+    v_scales]) — the row and scale tensors are the inputs, updated in
+    place.
     """
-    _check_unported(k_scales, v_scales, kv_pack, window, logit_cap)
+    _check_kv_options(k_scales, v_scales, kv_pack, logit_cap)
+    window = _window_width(window)
     quant = k_scales is not None
     if q.shape[1] != 1:
         raise ValueError("ragged_decode_attention takes one query token")
@@ -376,8 +441,9 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
     if q.device.type == "cpu":
         return ragged_decode_attention_plain(
             q, k_new, v_new, k_rows, v_rows, kv_lens, row_ids,
-            layer=layer, scale=scale, k_scales=k_scales, v_scales=v_scales,
-            kv_maxq=kv_maxq, kv_pack=kv_pack)
+            layer=layer, scale=scale, window=window, logit_cap=logit_cap,
+            k_scales=k_scales, v_scales=v_scales, kv_maxq=kv_maxq,
+            kv_pack=kv_pack)
     if q.device.type != "cuda":
         raise ValueError(
             f"ragged_decode_attention: unsupported device {q.device}")
@@ -408,7 +474,8 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
             k_rows.data_ptr(), v_rows.data_ptr())
     tail = (out.data_ptr(), idx["kv_lens"].data_ptr(),
             idx["row_ids"].data_ptr(), idx["layer"].data_ptr(),
-            Bq, Hq, Hkv, B, S, hd, float(scale))
+            Bq, Hq, Hkv, B, S, hd, float(scale),
+            *_option_args(window, logit_cap))
     suffix, counter = _mode(quant, kv_pack)
     if quant:
         inv = float(np.float32(1.0) / np.float32(kv_maxq))
@@ -419,8 +486,7 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
         err = lib.aurora_ragged_decode_bf16(*head, *tail, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    setattr(ragged_decode_attention, counter,
-            getattr(ragged_decode_attention, counter) + 1)
+    _count(ragged_decode_attention, counter, window, logit_cap)
     if quant:
         return out, k_rows, v_rows, k_scales, v_scales
     return out, k_rows, v_rows
@@ -429,3 +495,4 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
 ragged_decode_attention.launches = 0
 ragged_decode_attention.launches_int8 = 0
 ragged_decode_attention.launches_int4 = 0
+ragged_decode_attention.launches_window = 0

@@ -21,10 +21,13 @@ The module splits
   * the host half — `ServeEngine`: admission, waves, token acceptance,
     release and stats.
 
+A config's sliding window (Mistral: the same width in every layer) and
+attention logit softcap go into both attention kernels.
+
 Not ported yet (each raises NotImplementedError when asked for): the
 radix prefix cache and slot pool, chunked/interleaved prefill, jump-
 forward and constrained decoding, stop strings, tensor parallelism, and
-the other model families (MLA, MoE, windowed or soft-capped attention).
+the other model families (MLA, MoE, Gemma2's alternating windows).
 """
 
 from __future__ import annotations
@@ -215,10 +218,12 @@ def quantize_weights_int8(model: LlamaModel,
 def _w4_mlp_fuse(layer) -> Optional[W4FusedMLP]:
     """A layer's W4 gateup/down → a W4FusedMLP (the reference's
     `_w4_mlp_fuse_params` for one layer), or None where the shapes are
-    not eligible: I-tiles of MLP_TILE columns must divide the
-    intermediate width and the down group. Unlike the reference, which
-    checks only the packed stacks, mismatched scale stacks raise
-    ValueError."""
+    not eligible: exactly where the reference keeps the two-call MLP (no
+    I-tile t in (256, 128) with I % t == 0, t % gd == 0 and t <= I, for
+    intermediate width I and down group gd), and where the port's own
+    I-tiles of MLP_TILE columns do not divide I and gd. Unlike the
+    reference, which checks only the packed stacks, mismatched scale
+    stacks raise ValueError."""
     gu, dn = getattr(layer, "gateup", None), getattr(layer, "down", None)
     if not (isinstance(gu, W4Linear) and isinstance(dn, W4Linear)) \
             or gu.flat or dn.flat:
@@ -232,6 +237,8 @@ def _w4_mlp_fuse(layer) -> Optional[W4FusedMLP]:
                              f"match packed {tuple(w.packed.shape)}")
     I, gd = I2 // 2, w4_group(2 * I_2)
     if D != 2 * D2 or 2 * I_2 != I or I % MLP_TILE or gd % MLP_TILE:
+        return None
+    if not any(I % t == 0 and t % gd == 0 and t <= I for t in (256, 128)):
         return None
     return W4FusedMLP(*w4_mlp_tile_layout(*w4_to_flat(gu.packed, gu.scale),
                                           *w4_to_flat(dn.packed, dn.scale)))
@@ -480,8 +487,11 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
     first, to maxq 127/7, and the extend attends over the quantized rows,
     new tokens included), then attends; DECODE (T == 1) writes (quantizing
     the token in the kernel) and attends in one kernel. Each projection
-    dispatches on its module: W4, W8 or dense. Returns the last valid
-    token's final hidden state per lane, [Bk, D].
+    dispatches on its module: W4, W8 or dense. Both kernels take every
+    layer's sliding window (cfg.sliding_window; Gemma2's alternating
+    layers are not ported) and cfg.attn_logit_softcap, as the reference's
+    `_window(l)` and kernel calls do. Returns the last valid token's final
+    hidden state per lane, [Bk, D].
     """
     x = embeds
     Bk, T, _ = x.shape
@@ -490,7 +500,8 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
     kv_pack = quant and rows["k"].shape[3] * 2 == rows["ks"].shape[3]
     maxq = 7.0 if kv_pack else 127.0
     scales = dict(k_scales=rows.get("ks"), v_scales=rows.get("vs"),
-                  kv_pack=kv_pack)
+                  kv_pack=kv_pack, window=cfg.sliding_window,
+                  logit_cap=cfg.attn_logit_softcap)
     positions = q_offsets[:, None].long() + torch.arange(T, device=x.device)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta,
                             cfg.rope_linear_scaling)

@@ -7,6 +7,7 @@ K-step decode block of the port's DeviceRunner, on one GPU.
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv4  # W4, packed int4 KV
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8-fused  # W4 fused MLP
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8-flat   # W4 flat layout
+    python3 -m aurora_tpu_torch.tools.profile_serve --mistral  # sliding window
     python3 -m aurora_tpu_torch.tools.profile_serve --tiny --device cpu  # logic check
 
 Builds Vicuna-7B-v1.5-16k (the AuroraCap-7B decoder) at full width with
@@ -15,7 +16,10 @@ chip_smoke.py (4 rows, kv_chunk 256, 1536 bucket, KV rows of prompt +
 256; with --w4kv8 / --w8kv8 / --w4kv4 the LLM quantized on the device to
 W4 or W8 weights with an int8 LM head, and int8 or packed int4 KV;
 --w4kv8-fused / --w4kv8-flat lay the W4 weights out as
-`EngineConfig(w4_fused_mlp=True)` / `(w4_tiled=False)` do), fills
+`EngineConfig(w4_fused_mlp=True)` / `(w4_tiled=False)` do; --mistral
+builds Mistral-7B instead, GQA 32/8 with its 4096-token sliding window,
+bf16 weights and KV, a prompt of 6000 tokens in a 6144 bucket and rows
+of 7168, so that both attention kernels run windowed), fills
 the rows with one extend wave of text embeddings (the ViT is not run
 here; chip_smoke.py times it), then reads:
 
@@ -40,13 +44,15 @@ profiled wall (lower: the profiler slows the host, not the kernels).
 The decode block's device time is also split by kernel family, in ms
 per step: attention (the ragged decode kernel), W4A8 (either layout),
 the fused MLP (its tile kernel and its reduction), the activation
-quantizer that W4A8 and the fused MLP launch first, and the rest. The
-trace and a per-kernel table go to --out.
+quantizer that W4A8 and the fused MLP launch first, and the rest; the
+cuBLAS matmuls within the rest (the bf16 weight stream) are also summed
+on their own. The trace and a per-kernel table go to --out.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,6 +72,8 @@ _FAMILIES = {"attention": ("decode_kernel", "extend_kernel"),
              "w4a8": ("w4a8_kernel", "w4a8_flat_kernel"),
              "fused_mlp": ("mlp_tile_kernel", "mlp_reduce"),
              "quantizer": ("quantize_rows",)}
+# dense matmul kernels (cuBLAS, CUTLASS), a part of "other"
+_MATMUL = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
 
 
 def device_events(trace_path):
@@ -111,14 +119,23 @@ def family_ms(events, per: int):
     return out
 
 
+def matmul_ms(events, per: int) -> float:
+    """Device ms per `per` of the dense matmul kernels (_MATMUL) outside
+    the families of _FAMILIES."""
+    return sum(dur for name, _, dur in events
+               if any(k in name for k in _MATMUL)
+               and not any(k in name for keys in _FAMILIES.values()
+                           for k in keys)) / 1e3 / per
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=16,
                     help="decode steps per block (K)")
     ap.add_argument("--reps", type=int, default=5,
                     help="unprofiled repetitions per timing")
-    ap.add_argument("--prompt", type=int, default=1406,
-                    help="prompt tokens per row")
+    ap.add_argument("--prompt", type=int, default=None,
+                    help="prompt tokens per row (1406; 6000 with --mistral)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiny", action="store_true",
@@ -128,6 +145,9 @@ def main(argv=None) -> int:
                         action="store_true",
                         help=f"{what[0]} weights (quantized on the device) "
                              f"and {what[1]} KV")
+    ap.add_argument("--mistral", action="store_true",
+                    help="Mistral-7B with its sliding window, bf16 weights "
+                         "and KV")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="build/profile_serve")
     args = ap.parse_args(argv)
@@ -147,9 +167,17 @@ def main(argv=None) -> int:
     if on_gpu and not torch.cuda.is_available():
         print("profile_serve: CUDA is not available")
         return 1
-    cfg = LlamaConfig.tiny() if args.tiny else LlamaConfig.vicuna_7b_v15_16k()
-    P = 20 if args.tiny else args.prompt
-    bucket = 32 if args.tiny else 1536
+    if args.tiny:       # --mistral: a window shorter than the prompt
+        cfg = LlamaConfig.tiny()
+        if args.mistral:
+            cfg = dataclasses.replace(cfg, sliding_window=8)
+    elif args.mistral:
+        cfg = LlamaConfig.mistral_7b()
+    else:
+        cfg = LlamaConfig.vicuna_7b_v15_16k()
+    P = 20 if args.tiny else args.prompt or (6000 if args.mistral else 1406)
+    bucket = 32 if args.tiny else 6144 if args.mistral else 1536
+    kv_chunk = 1024 if args.mistral and not args.tiny else 256
     dtype = torch.bfloat16 if on_gpu else torch.float32
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = build(LlamaModel, cfg, device=dev, dtype=dtype, generator=gen)
@@ -158,8 +186,8 @@ def main(argv=None) -> int:
         ap.error("steps × (reps + 3) decode positions must fit the 256 "
                  "generated tokens of a row")
     modes = [m for m in _QUANT_MODES if getattr(args, m.replace("-", "_"))]
-    if len(modes) > 1:
-        ap.error("at most one of --" + ", --".join(_QUANT_MODES))
+    if len(modes) > 1 or (modes and args.mistral):
+        ap.error("at most one of --mistral, --" + ", --".join(_QUANT_MODES))
     wq, kq, layout = _QUANT_MODES[modes[0]] if modes else (None, None, {})
     quant = {}
     if modes:
@@ -167,7 +195,8 @@ def main(argv=None) -> int:
                     "int8": quantize_weights_int8}[wq]
         model = fuse_serving_weights(quantize(model, free_source=True))
         quant = dict(weight_quant=wq, kv_quant=kq, **layout)
-    ecfg = EngineConfig(max_batch=B, kv_chunk=256, prefill_buckets=(bucket,),
+    ecfg = EngineConfig(max_batch=B, kv_chunk=kv_chunk,
+                        prefill_buckets=(bucket,),
                         decode_steps=K, kv_dtype=dtype, max_seq_len=P + 256,
                         **quant)
     model = w4_decode_layout(model, cfg, ecfg)
@@ -254,7 +283,9 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_gpu
                                      else [])
-    res = {"card": card, "K": K, "batch": B, "prompt": P,
+    res = {"card": card, "model": "mistral-7b" if args.mistral else
+           "vicuna-7b-v1.5-16k", "window": cfg.sliding_window,
+           "K": K, "batch": B, "prompt": P,
            "weights": wq or str(dtype).split(".")[-1],
            "mode": modes[0] if modes else None,
            "kv": kq or str(dtype).split(".")[-1],
@@ -281,6 +312,7 @@ def main(argv=None) -> int:
         res[f"{name}_kernels"] = kernel_table(evs, per)
         if name == "decode":
             res["decode_ms_per_step_by_family"] = family_ms(evs, per)
+            res["decode_ms_per_step_dense_matmul"] = matmul_ms(evs, per)
         print(f"{name}: {len(evs)} device events, device {dev_ms:.3f} ms, "
               f"union {uni_ms:.3f} ms, profiled wall {wall:.3f} ms",
               flush=True)

@@ -10,8 +10,11 @@ projector → fusion → one batched extend → 256-token greedy decode via
 bf16 KV, then with the LLM quantized on the card to W8 weights and int8
 KV, to W4 weights and int8 KV, and (the same W4 weights) nibble-packed
 int4 KV, then int8 KV again with the W4 weights in the fused-MLP and in
-the flat layout; both quantized models keep an int8 LM head. Then the training
-step of bench.py's training stage
+the flat layout; both quantized models keep an int8 LM head. Then
+Mistral-7B at full widths and depth (random bf16 weights) serving prompts
+longer than its 4096-token sliding window with bf16, int8 and packed int4
+KV, so that the window runs through both attention kernels. Then the
+training step of bench.py's training stage
 (`aurora_tpu_torch.train.trainer.make_train_step`): Vicuna-7B widths at
 depth 4, seq 2048, batch 4, bf16, AdamW, full remat, text-only batches
 without an attention mask, so that attention runs the flash kernels.
@@ -22,7 +25,13 @@ Phases, one line each; any failure raises and exits non-zero:
 3. kernels       — each kernel and mode vs its plain PyTorch twin at the
                    slice's shapes: both attention kernels with bf16, int8
                    and packed int4 KV (bf16 in, fp32 reference; decode row
-                   and scale writes exact, int4 mate nibbles included), the
+                   and scale writes exact, int4 mate nibbles included),
+                   then in every mode with a window of 512, a logit cap
+                   of 50 and both, and at Mistral-7B's shapes (rows of
+                   7168, Hkv 8, a 6144-token extend, decode past the
+                   window) with its window of 4096, each windowed or
+                   capped result also 10x further from the twin without
+                   the option than from the twin with it; the
                    W4A8 (stripe and flat layouts), W4A16 and W8A8 matmuls
                    at the 7B's four decode projections, the fused W4 MLP
                    at one 7B layer's MLP (bitwise repeatable; beside the
@@ -62,6 +71,15 @@ Phases, one line each; any failure raises and exits non-zero:
                    W4A8 launch count must rise, the stripe W4A8's stay 0,
                    every plain twin's stay 0
 16. logits-w4kv8-flat — as 10, on the flat-layout engine
+    serve-mistral-bf16 / -kv8 / -kv4 — the AuroraCap weights freed,
+                   Mistral-7B (32 layers, GQA 32/8, window 4096, random
+                   bf16 weights) serves 4 prompts of 5,000-6,100 random
+                   token ids in one extend wave, then 256 (bf16 KV) or
+                   64 (int8, packed int4 KV) greedy tokens each; the
+                   windowed launch counts must be 32 a wave and 32 a
+                   decode step, the plain twins' 0
+    logits-mistral-* — as 10 (extend wave and one decode step), with
+                   its bound's reason
 17. kernels flash — the flash forward, dK/dV and dQ kernels vs the fp32
                    twin (out, lse, dQ/dK/dV from one seeded dO) at the
                    training shape (B 4, T 2048, H 32, D 128, causal),
@@ -78,7 +96,8 @@ Phases, one line each; any failure raises and exits non-zero:
                    attention_mask), same weights: loss, grad norm and each
                    layer's q/k/v/o weight gradients
 20. the kernels' JSON line (each kernel's bound and library time
-   included), then {"ok": true, "device": {...}} last.
+   included; the windowed entries from Mistral's shapes and runs), then
+   {"ok": true, "device": {...}} last.
 
 float32 references run with TF32 disabled for matmuls and cuDNN
 convolutions, so they are true fp32.
@@ -108,6 +127,10 @@ EXTEND_ABS_TOL = 2e-2     # measured 1.05e-2
 EXTEND_REL_TOL = 1e-2     # measured 3.0e-3
 DECODE_ABS_TOL = 3e-3     # measured 6.3e-4
 DECODE_REL_TOL = 8e-3     # measured 2.6e-3
+# A windowed or capped kernel result must differ from the twin's without
+# the option by more than this many times its error against the twin with
+# it: the option reached the kernel.
+OFF_CONTROL = 10.0
 # With int8 KV the dequantized values are not bf16 numbers (a one-key
 # lane's output is v8 * vs itself), so the abs bounds sit on top of the
 # output's own bf16 rounding: |got - want| <= tol + 2^-8 |want|.
@@ -143,6 +166,36 @@ LOGITS_DECODE_REL_TOL = 2e-1
 # W4 + int4 KV; PERF.md)
 LOGITS_W8_REL_TOL = 2.5e-1
 LOGITS_W4KV4_REL_TOL = 1e-1
+# Mistral-7B serving (bf16 weights): prompt lengths (all past the 4096-
+# token window; bucket 6144, rows of 7168) and the three KV runs: name,
+# kv_quant, launch counter of the mode, new tokens per request (every
+# int8 / int4 decode step already lies past the window, so fewer do)
+MISTRAL_PROMPT = (5000, 6100)
+MISTRAL_RUNS = (("bf16", "none", "launches", 256),
+                ("kv8", "int8", "launches_int8", 64),
+                ("kv4", "int4", "launches_int4", 64))
+# One extend wave's and one decode step's logits, kernels vs twins, after
+# 32 layers of random bf16 weights, which amplify single bf16 roundings:
+# the decode check runs both sides over the same KV rows, and the windowed
+# decode kernel, within 2.4e-4 of its twin per call, still moves one
+# step's logits by 3.2-4.0e-2. Measured on an H100 (PERF.md): extend
+# 5.41e-2 / 5.46e-2 / 6.50e-2 (bf16 / int8 / int4 KV), decode 3.68e-2 /
+# 3.98e-2 / 3.23e-2; the bound sits at 2.3-2.8x the extend readings
+MISTRAL_LOGITS_TOL = {"bf16": 1.5e-1, "kv8": 1.5e-1, "kv4": 1.5e-1}
+MISTRAL_LOGITS_REASON = {
+    "bf16": "32 random bf16 layers amplify single bf16 roundings",
+    "kv8": "as bf16, and a rounding can flip an int8 KV code",
+    "kv4": "as bf16, and a rounding can flip an int4 KV code (15 levels)"}
+# window and cap cases of the attention kernels at the serving shapes: a
+# window of 512 (lanes of 1392-1656 keys), Gemma2's cap of 50 on q scaled
+# by 8 (scores of std ~8, so the cap bends them), and both
+SERVING_OPTIONS = (dict(window=512), dict(logit_cap=50.0, q_gain=8.0),
+                   dict(window=512, logit_cap=50.0, q_gain=8.0))
+# the kernels at Mistral-7B's shapes: rows of 7168 tokens, Hkv 8, an
+# extend of 6144 tokens at offset 0, decode queries past the window
+MISTRAL_CASE = dict(S=7168, T=6144, offs=(0, 0, 0, 0),
+                    lens=(6144, 6100, 5000, 0), dlens=(7168, 4097, 0, 5000),
+                    window=4096)
 # the 7B's decode projections (fused streams): name, K, N
 W4_SHAPES = (("qkv", 4096, 12288), ("o", 4096, 4096),
              ("gateup", 4096, 22016), ("down", 11008, 4096))
@@ -235,17 +288,26 @@ class ByteTokenizer:
 
 def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
                    offs=(0, 256, 0, 0), lens=(1392, 256 + 1400, 1536, 0),
-                   dlens=(1648, 700, 0, 1)):
+                   dlens=(1648, 700, 0, 1), window=None, logit_cap=0.0,
+                   q_gain=1.0):
     """Both attention kernels vs their plain twins at the serving shapes
-    (L = 32, S = 1792, hd = 128), with bf16 KV, int8 KV on the kv_quantize
-    grid or nibble-packed int4 KV on its maxq-7 grid (`mode`), with GQA,
-    permuted rows, a query offset > 0 and a padded / inactive lane →
+    (L = 32, S = 1792, hd = 128) or at Mistral's (S = 7168), with bf16 KV,
+    int8 KV on the kv_quantize grid or nibble-packed int4 KV on its
+    maxq-7 grid (`mode`), with GQA, permuted rows, a query offset > 0 and
+    a padded / inactive lane, optionally with a sliding window and a
+    logit cap (q scaled by q_gain so that scores reach the cap) →
     {"extend"|"decode": {err, ms, plain_ms, library_ms, bound_ms,
-    bound_by}}. The library call (bf16 KV, Hkv = Hq only) is one
-    F.scaled_dot_product_attention over the lanes' rows, gathered
-    beforehand, with a boolean mask."""
+    bound_by}}. With an option on, the kernel's result must differ from
+    the twin's without it by more than OFF_CONTROL times its error (the
+    option reached the kernel), both taken over the query rows the option
+    changes. The library call (bf16 KV, no cap) is one
+    F.scaled_dot_product_attention over the lanes' rows, gathered (and
+    for GQA repeated to Hq heads) beforehand, with a boolean mask; for a
+    windowed decode over each lane's last `window` keys only."""
     import torch.nn.functional as F
     B, hd, Hq = 4, 128, 32
+    w = window or 0
+    opts = dict(window=window, logit_cap=logit_cap)
     bf = dict(device=dev, dtype=torch.bfloat16)
     i32 = dict(device=dev, dtype=torch.int32)
     k = torch.randn((L, B, hkv, S, hd), generator=g, **bf)
@@ -259,7 +321,10 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
             k, v = ra.pack_int4_rows(k), ra.pack_int4_rows(v)
             kv["kv_pack"] = True
         dkv = dict(kv, kv_maxq=maxq)
-    rnd = INT8_ROUNDING if kv else 0.0
+    # int8 / int4 KV, and the option cases (a window leaves fewer keys to
+    # average, q_gain peaks the softmax): outputs approach single V rows,
+    # so the output's own bf16 rounding enters the bound
+    rnd = INT8_ROUNDING if kv or w or logit_cap else 0.0
     lay = min(17, L - 1)
     layer = torch.tensor([lay], **i32)
     rows_l = [2, 0, 3, 1]
@@ -267,19 +332,23 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     # bytes of one key (K and V, with their scales when quantized) of one
     # KV head
     key_bytes = {"bf16": 4 * hd, "int8": 2 * hd + 8, "int4": hd + 8}[mode]
-    library = mode == "bf16" and hkv == Hq
+    library = mode == "bf16" and not logit_cap
     if library:     # the lanes' rows, for the library call
         krow = torch.stack([k[lay, r] for r in rows_l])   # [B, Hkv, S, hd]
         vrow = torch.stack([v[lay, r] for r in rows_l])
+        if hkv != Hq:
+            krow = krow.repeat_interleave(Hq // hkv, dim=1)
+            vrow = vrow.repeat_interleave(Hq // hkv, dim=1)
     spos = torch.arange(S, device=dev)
+    tag = dict(kv=mode, hkv=hkv, S=S, T=T, window=w, cap=logit_cap)
 
-    q = torch.randn((B, T, Hq, hd), generator=g, **bf)
+    q = q_gain * torch.randn((B, T, Hq, hd), generator=g, **bf)
     offs_t = torch.tensor(offs, **i32)
     lens_t = torch.tensor(lens, **i32)
     got = ra.ragged_attention(q, k, v, lens_t, offs_t, rows, layer=layer,
-                              **kv)
+                              **kv, **opts)
     want = ra.ragged_attention_plain(q.float(), k, v, lens_t, offs_t, rows,
-                                     layer=lay, **kv)
+                                     layer=lay, **kv, **opts)
     torch.cuda.synchronize()
     diff = (got.float() - want).abs()
     err_e = diff.max().item()
@@ -287,29 +356,55 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     check(bool(torch.isfinite(got).all()), "extend output not finite")
     check(bool((got[3] == 0).all()), "padded extend lane not zero")
     check(bool((diff <= EXTEND_ABS_TOL + rnd * want.abs()).all()),
-          f"extend {mode} hkv={hkv} err {err_e}")
-    check(rel_e <= EXTEND_REL_TOL, f"extend {mode} hkv={hkv} rel {rel_e}")
+          f"extend {tag} err {err_e}")
+    check(rel_e <= EXTEND_REL_TOL, f"extend {tag} rel {rel_e}")
+    control = {}
+    if w or logit_cap:
+        # on the query rows the option changes: with a window those whose
+        # window cuts keys (position >= w), with the cap alone every row
+        off = ra.ragged_attention_plain(q.float(), k, v, lens_t, offs_t,
+                                        rows, layer=lay, **kv)
+        qpos = offs_t[:, None] + torch.arange(T, device=dev)
+        cut = (qpos < lens_t[:, None]) & (qpos >= w)
+        control["extend_err_cut"] = diff[cut].max().item()
+        control["extend_off_diff"] = (got.float() - off)[cut].abs().max() \
+            .item()
+        del off
+        check(control["extend_off_diff"]
+              > OFF_CONTROL * control["extend_err_cut"],
+              f"extend {tag}: {control}")
     ms_e = cuda_ms(lambda: ra.ragged_attention(q, k, v, lens_t, offs_t, rows,
-                                               layer=layer, **kv))
+                                               layer=layer, **kv, **opts))
     ms_ep = cuda_ms(lambda: ra.ragged_attention_plain(
-        q, k, v, lens_t, offs_t, rows, layer=lay, **kv), reps=3)
-    # work of these inputs: query row t of lane i sees min(off + t + 1,
-    # len) keys; K/V rows read up to each lane's length
-    seen = sum(int(np.minimum(o + np.arange(T) + 1, n).sum())
-               for o, n in zip(offs, lens) if n > 0)
+        q, k, v, lens_t, offs_t, rows, layer=lay, **kv, **opts), reps=3)
+    # work of these inputs: query t of lane i (position p = off + t) sees
+    # the keys in [max(0, p - w + 1), min(p + 1, len)); K/V rows read from
+    # the lane's first visible key up to its length
+    seen, read = 0, 0
+    for o, n in zip(offs, lens):
+        if n <= 0:
+            continue
+        p = o + np.arange(T)
+        lo = np.maximum(p - w + 1, 0) if w else np.zeros_like(p)
+        seen += int(np.maximum(np.minimum(p + 1, n) - lo, 0).sum())
+        read += n - (max(o - w + 1, 0) if w else 0)
     extend_bound = least_ms(seen * Hq * 4 * hd,
-                         2 * q.numel() * 2 + sum(lens) * hkv * key_bytes)
+                            2 * q.numel() * 2 + read * hkv * key_bytes)
     lib_e = None
     if library:
         qpos = offs_t[:, None].long() + torch.arange(T, device=dev)
         emask = ((spos[None, None, :] <= qpos[:, :, None])
-                 & (spos[None, None, :] < lens_t[:, None, None]))[:, None]
+                 & (spos[None, None, :] < lens_t[:, None, None]))
+        if w:
+            emask &= spos[None, None, :] > qpos[:, :, None] - w
+        emask = emask[:, None]
         qt = q.transpose(1, 2)
         lib_e = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, krow, vrow, attn_mask=emask))
+        del emask
     del q, got, want, diff
 
-    qd = torch.randn((B, 1, Hq, hd), generator=g, **bf)
+    qd = q_gain * torch.randn((B, 1, Hq, hd), generator=g, **bf)
     kn = torch.randn((B, hkv, hd), generator=g, **bf)
     vn = torch.randn((B, hkv, hd), generator=g, **bf)
     vn[3, 1] = 0                          # an all-zero token: the 1e-8 floor
@@ -318,36 +413,67 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     plain = [t.clone() for t in state]
     pkv = dict(dkv, **dict(zip(("k_scales", "v_scales"), plain[2:])))
     out = ra.ragged_decode_attention(qd, kn, vn, k, v, dlens_t, rows,
-                                     layer=layer, **dkv)[0]
+                                     layer=layer, **dkv, **opts)[0]
     want = ra.ragged_decode_attention_plain(qd.float(), kn, vn, *plain[:2],
                                             dlens_t, rows, layer=lay,
-                                            **pkv)[0]
+                                            **pkv, **opts)[0]
     torch.cuda.synchronize()
     # int4: the packed bytes, mate nibbles included
     check(all(torch.equal(a, b) for a, b in zip(state, plain)),
-          f"decode {mode} row/scale writes differ from the plain twin")
+          f"decode {tag} row/scale writes differ from the plain twin")
     diff = (out.float() - want).abs()
     err_d = diff.max().item()
     rel_d = lane_rel_err(out, want, (0, 1, 3))
     check(bool((out[2] == 0).all()), "inactive decode lane not zero")
     check(bool((diff <= DECODE_ABS_TOL + rnd * want.abs()).all()),
-          f"decode {mode} hkv={hkv} err {err_d}")
-    check(rel_d <= DECODE_REL_TOL, f"decode {mode} hkv={hkv} rel {rel_d}")
+          f"decode {tag} err {err_d}")
+    check(rel_d <= DECODE_REL_TOL, f"decode {tag} rel {rel_d}")
+    if w or logit_cap:
+        off = ra.ragged_decode_attention_plain(qd.float(), kn, vn, *plain[:2],
+                                               dlens_t, rows, layer=lay,
+                                               **pkv)[0]
+        cut = (dlens_t > 0) & (dlens_t > w)     # lanes the option changes
+        control["decode_err_cut"] = diff[cut].max().item()
+        control["decode_off_diff"] = (out.float() - off)[cut].abs().max() \
+            .item()
+        check(control["decode_off_diff"]
+              > OFF_CONTROL * control["decode_err_cut"],
+              f"decode {tag}: {control}")
     ms_d = cuda_ms(lambda: ra.ragged_decode_attention(
-        qd, kn, vn, k, v, dlens_t, rows, layer=layer, **dkv), reps=20)
+        qd, kn, vn, k, v, dlens_t, rows, layer=layer, **dkv, **opts),
+        reps=20)
     ms_dp = cuda_ms(lambda: ra.ragged_decode_attention_plain(
-        qd, kn, vn, *plain[:2], dlens_t, rows, layer=lay, **pkv), reps=20)
-    # the KV rows each lane reads, the new tokens, q and out
-    decode_bound = least_ms(sum(dlens) * Hq * 4 * hd,
-                         sum(dlens) * hkv * key_bytes
-                         + 2 * qd.numel() * 2 + 2 * kn.numel() * 2)
+        qd, kn, vn, *plain[:2], dlens_t, rows, layer=lay, **pkv, **opts),
+        reps=20)
+    # the KV rows each lane reads (its last w keys with a window), the new
+    # tokens, q and out
+    keys = sum(min(n, w) if w else n for n in dlens)
+    decode_bound = least_ms(keys * Hq * 4 * hd,
+                            keys * hkv * key_bytes
+                            + 2 * qd.numel() * 2 + 2 * kn.numel() * 2)
     lib_d = None
     if library:
-        dmask = (spos[None, :] < dlens_t[:, None])[:, None, None, :]
         qdt = qd.transpose(1, 2)
-        lib_d = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qdt, krow, vrow, attn_mask=dmask), reps=20)
-    phase("kernels", kv=mode, hkv=hkv, extend_err=f"{err_e:.3e}",
+        if w:       # each lane's last w keys, gathered beforehand
+            nd = [min(n, w) for n in dlens]
+            W = max(nd)
+            start = torch.tensor([n - m for n, m in zip(dlens, nd)],
+                                 device=dev)
+            idx = (start[:, None] + torch.arange(W, device=dev)).clamp(
+                max=S - 1)
+            kw_ = torch.stack([krow[i][:, idx[i]] for i in range(B)])
+            vw_ = torch.stack([vrow[i][:, idx[i]] for i in range(B)])
+            dmask = (torch.arange(W, device=dev)[None, :]
+                     < torch.tensor(nd, device=dev)[:, None])
+            dmask = dmask[:, None, None, :]
+            lib_d = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qdt, kw_, vw_, attn_mask=dmask), reps=20)
+            del kw_, vw_
+        else:
+            dmask = (spos[None, :] < dlens_t[:, None])[:, None, None, :]
+            lib_d = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qdt, krow, vrow, attn_mask=dmask), reps=20)
+    phase("kernels", **tag, extend_err=f"{err_e:.3e}",
           extend_rel=f"{rel_e:.3e}", extend_ms=f"{ms_e:.3f}",
           extend_plain_ms=f"{ms_ep:.3f}",
           extend_bound_ms=f"{extend_bound[0]:.4f}",
@@ -356,9 +482,15 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
           decode_ms=f"{ms_d:.4f}", decode_plain_ms=f"{ms_dp:.4f}",
           decode_bound_ms=f"{decode_bound[0]:.4f}",
           decode_library_ms=lib_d and f"{lib_d:.4f}",
+          **{k_: f"{x:.3e}" for k_, x in control.items()},
           tol=f"extend:{EXTEND_ABS_TOL}/{EXTEND_REL_TOL},"
               f"decode:{DECODE_ABS_TOL}/{DECODE_REL_TOL}"
-              + (f",+{rnd:g}|want|" if kv else ""))
+              + (f",+{rnd:g}|want|" if rnd else "")
+              + (f",off>{OFF_CONTROL}x" if control else ""))
+    del k, v, state, plain, kv, dkv, pkv
+    if library:
+        del krow, vrow
+    torch.cuda.empty_cache()
     return {"extend": dict(err=err_e, ms=ms_e, plain_ms=ms_ep,
                            library_ms=lib_e, bound_ms=extend_bound[0],
                            bound_by=extend_bound[1]),
@@ -821,9 +953,9 @@ def train_parity(torch, bs, fa, dev):
           f"train parity attention grads {rel_w}")
 
 
-def serve(torch, engine, reqs, counters):
+def serve(torch, engine, reqs, counters, max_new=MAX_NEW):
     """Drive the engine through `reqs` with every count in `counters` set
-    to 0 just before; check 256 tokens each → (wall s, counts)."""
+    to 0 just before; check max_new tokens each → (wall s, counts)."""
     for obj, attr in counters:
         setattr(obj, attr, 0)
     t0 = time.perf_counter()
@@ -843,20 +975,23 @@ def serve(torch, engine, reqs, counters):
     for r in done.values():
         check(r.finished == FinishReason.LENGTH and r.error is None,
               f"{r.rid}: finished={r.finished} error={r.error}")
-        check(len(r.output_ids) == MAX_NEW,
+        check(len(r.output_ids) == max_new,
               f"{r.rid}: {len(r.output_ids)} tokens")
         check(all(0 <= t < V for t in r.output_ids), f"{r.rid}: bad ids")
     return wall, counts
 
 
-def logits_check(torch, engine_mod, runner, mm, reqs, P, tol, name, plain,
-                 decode=False):
-    """One extend wave's logits through the kernels and through the plain
-    twins (patched into the engine module, and into models/llama.py for
-    the fused MLP, for that call only); with `decode`, then one decode
-    step of every lane (the kernels' greedy token at position P) both
-    ways. Each decode forward writes its own token's K/V before it
-    attends, so the second overwrites the first's."""
+def logits_check(torch, engine_mod, runner, embed, reqs, tol, name, plain,
+                 decode=False, decode_tol=LOGITS_DECODE_REL_TOL,
+                 reason=None):
+    """One extend wave's logits (each request's prompt embeds, `embed(r)`
+    [n_i, D], in a lane of the smallest bucket that holds them all)
+    through the kernels and through the plain twins (patched into the
+    engine module, and into models/llama.py for the fused MLP, for that
+    call only); with `decode`, then one decode step of every lane (the
+    kernels' greedy token at the position after its prompt) both ways.
+    Each decode forward writes its own token's K/V before it attends, so
+    the second overwrites the first's."""
     import contextlib
     from aurora_tpu_torch.models import llama as llama_mod
 
@@ -869,22 +1004,23 @@ def logits_check(torch, engine_mod, runner, mm, reqs, P, tol, name, plain,
         return stack
 
     dev = runner.device
-    T = runner.ecfg.prefill_buckets[0]
+    plens = [len(r.input_ids) for r in reqs]
+    T = min(b for b in runner.ecfg.prefill_buckets if b >= max(plens))
     n = len(reqs)
     embeds = torch.zeros((n, T, runner.cfg.hidden_size),
                          dtype=torch.bfloat16, device=dev)
     for i, r in enumerate(reqs):
-        embeds[i, :P] = mm.embed_fn(r)
+        embeds[i, :plens[i]] = embed(r)
     row_ids = np.arange(n, dtype=np.int32)
     offs = np.zeros(n, np.int32)
-    lens = np.full(n, P, np.int32)
+    lens = np.asarray(plens, np.int32)
     logits_k = runner.extend(embeds, row_ids, offs, lens)
     with plain_twins():
         logits_p = runner.extend(embeds, row_ids, offs, lens)
     fields = {}
     if decode:
         ids = torch.as_tensor(row_ids, device=dev)
-        pos = torch.full((n,), P, dtype=torch.int32, device=dev)
+        pos = torch.as_tensor(lens, device=dev)
         x = runner.model.embed_tokens[logits_k.argmax(-1)][:, None]
 
         def step():
@@ -902,7 +1038,7 @@ def logits_check(torch, engine_mod, runner, mm, reqs, P, tol, name, plain,
         dec_rel = ((dec_k - dec_p).abs().max() / dec_p.abs().max()).item()
         dec_agree = int((dec_k.argmax(-1) == dec_p.argmax(-1)).sum())
         fields = dict(decode_rel_err=f"{dec_rel:.3e}",
-                      decode_tol=LOGITS_DECODE_REL_TOL,
+                      decode_tol=decode_tol,
                       decode_argmax_agree=f"{dec_agree}/{n}")
     torch.cuda.synchronize()
     check(bool(torch.isfinite(logits_k).all()), f"{name} logits not finite")
@@ -911,12 +1047,110 @@ def logits_check(torch, engine_mod, runner, mm, reqs, P, tol, name, plain,
     rel = ((logits_k - logits_p).abs().max()
            / logits_p.abs().max()).item()
     agree = int((logits_k.argmax(-1) == logits_p.argmax(-1)).sum())
+    if reason:
+        fields["reason"] = repr(reason)
     phase(name, rel_err=f"{rel:.3e}", tol=tol, argmax_agree=f"{agree}/{n}",
           **fields)
     check(rel <= tol, f"{name} rel err {rel}")
     if decode:
-        check(dec_rel <= LOGITS_DECODE_REL_TOL,
-              f"{name} decode rel err {dec_rel}")
+        check(dec_rel <= decode_tol, f"{name} decode rel err {dec_rel}")
+
+
+def mistral_phase(torch, engine_mod, ra, dev, card, plains):
+    """Mistral-7B at its published widths and depth, random bf16 weights
+    from the seed, serving N_REQUESTS prompts of MISTRAL_PROMPT random
+    token ids (all longer than the 4096-token window, so the window masks
+    real keys in every extend wave and decode step) through ServeEngine
+    with bf16, int8 and packed int4 KV; each run's windowed launch counts
+    (32 a wave, 32 a decode step), the twins' (0), and its logits check →
+    {run: (windowed extend launches, windowed decode launches)}."""
+    from aurora_tpu_torch.models.init import build
+    from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    cfg = LlamaConfig.mistral_7b()
+    L, w = cfg.num_hidden_layers, cfg.sliding_window
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    llm = build(LlamaModel, cfg, device=dev, dtype=torch.bfloat16,
+                generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in llm.parameters()) / 1e9
+    rng = np.random.default_rng(SEED + 7)
+    plens = rng.integers(MISTRAL_PROMPT[0], MISTRAL_PROMPT[1] + 1,
+                         size=N_REQUESTS)
+    check(plens.min() > w, f"prompts {plens} within the window {w}")
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in plens]
+    plain = {"ragged_attention": ra.ragged_attention_plain,
+             "ragged_decode_attention": ra.ragged_decode_attention_plain}
+    out = {}
+    for run, kv_quant, counter, max_new in MISTRAL_RUNS:
+        ecfg = EngineConfig(max_batch=N_REQUESTS, max_seq_len=6400,
+                            kv_chunk=1024, prefill_buckets=(6144,),
+                            decode_steps=16, kv_quant=kv_quant,
+                            disable_radix_cache=True)
+        check(ecfg.s_row == 7168, f"s_row {ecfg.s_row}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(llm, cfg, ecfg, device=dev, seed=SEED)
+        check(engine.runner.model is llm, f"{run}: the model was not served "
+                                          "as given")
+        waves = []
+        extend_wave = engine._extend_wave
+
+        def counted_wave(wave, extend_wave=extend_wave):
+            waves.append(len(wave))
+            return extend_wave(wave)
+
+        engine._extend_wave = counted_wave
+        counters = [(ra.ragged_attention, "launches_window"),
+                    (ra.ragged_decode_attention, "launches_window"),
+                    (ra.ragged_attention, counter),
+                    (ra.ragged_decode_attention, counter)] + plains
+        reqs = [Request(rid=f"m{i}", input_ids=list(p),
+                        max_new_tokens=max_new, eos_ids=())
+                for i, p in enumerate(prompts)]
+        wall, counts = serve(torch, engine, reqs, counters, max_new)
+        ext_w, dec_w, ext_n, dec_n = (counts[f"{f.__name__}.{a}"]
+                                      for f, a in counters[:4])
+        steps = engine._steps
+        phase("serve-mistral-" + run, card=repr(card),
+              config=f"mistral-7b/L{L}/window{w}/bf16-weights/kv-{run}",
+              requests=N_REQUESTS,
+              prompt_tokens=",".join(str(int(n)) for n in plens),
+              new_tokens=max_new, waves=len(waves), init_s=f"{init_s:.1f}",
+              weight_gb=f"{weight_gb:.2f}",
+              extend_s_per_wave=f"{engine.t_extend_s / len(waves):.4f}",
+              decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+              decode_steps=steps,
+              tokens_per_s=f"{N_REQUESTS * max_new / wall:.1f}",
+              wall_s=f"{wall:.2f}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              launches=json.dumps(counts).replace(" ", ""))
+        check(len(waves) == 1 and waves[0] == N_REQUESTS, f"waves {waves}")
+        check(ext_w == L * len(waves) == ext_n,
+              f"windowed extend launches {ext_w} / {ext_n}, waves {waves}")
+        check(dec_w == L * steps == dec_n,
+              f"windowed decode launches {dec_w} / {dec_n}, steps {steps}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"plain twins ran: {counts}")
+        logits_check(torch, engine_mod, engine.runner,
+                     lambda r: llm.embed_tokens[torch.tensor(r.input_ids,
+                                                             device=dev)],
+                     reqs, MISTRAL_LOGITS_TOL[run], "logits-mistral-" + run,
+                     plain, decode=True, decode_tol=MISTRAL_LOGITS_TOL[run],
+                     reason=MISTRAL_LOGITS_REASON[run])
+        out[run] = (ext_w, dec_w)
+        del engine, counted_wave
+        gc.collect()
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -955,6 +1189,16 @@ def main():
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     kres = {(mode, hkv): attention_case(torch, ra, dev, g, hkv, mode)
             for mode in ("bf16", "int8", "int4") for hkv in (32, 8)}
+    # the sliding window and the logit cap (Gemma2's 50) at the serving
+    # shapes, then the window at Mistral-7B's (from a generator of their
+    # own, so the later phases' inputs stay)
+    gw = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for mode in ("bf16", "int8", "int4"):
+        for hkv in (32, 8):
+            for opts in SERVING_OPTIONS:
+                attention_case(torch, ra, dev, gw, hkv, mode, **opts)
+    mres = {mode: attention_case(torch, ra, dev, gw, 8, mode, **MISTRAL_CASE)
+            for mode in ("bf16", "int8", "int4")}
     torch.cuda.empty_cache()
     w4res = w4a8_phase(torch, qm, engine_mod._w4, dev, g)
     flat_res = w4_flat_phase(torch, qm, engine_mod._w4, dev, g)
@@ -1128,7 +1372,7 @@ def main():
         check(all(counts[f"{f.__name__}.{a}"] == 0
                   for f, a in plains + absent.get(run, [])),
               f"plain twins or another layout's kernel ran: {counts}")
-        logits_check(torch, engine_mod, engine.runner, mm, reqs, P,
+        logits_check(torch, engine_mod, engine.runner, mm.embed_fn, reqs,
                      tols[run], names[1], plain_patch[run],
                      decode=run in ("w4kv8", "w4kv8-fused", "w4kv8-flat"))
         del engine
@@ -1199,10 +1443,13 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
 
-    # ---- training at 7B widths (bench.py's training stage) --------------
+    # ---- Mistral-7B: the sliding window on the serving path -------------
     del llm_w4, model, mm
     gc.collect()
     torch.cuda.empty_cache()
+    mistral = mistral_phase(torch, engine_mod, ra, dev, card, plains)
+
+    # ---- training at 7B widths (bench.py's training stage) --------------
     flash_counters = [(fa.flash_attention, "launches_fwd"),
                       (fa.flash_attention, "launches_dkv"),
                       (fa.flash_attention, "launches_dq")]
@@ -1228,6 +1475,12 @@ def main():
                      r["plain_ms"], (r["bound_ms"], r["bound_by"]),
                      r["library_ms"])
 
+    def window_entry(name, source, replaces, launches, mode, kind):
+        r = mres[mode][kind]        # Mistral-7B's shapes, window 4096
+        return entry(f"{name}[{mode},window]", source, replaces, launches,
+                     r["err"], r["ms"], r["plain_ms"],
+                     (r["bound_ms"], r["bound_by"]), r["library_ms"])
+
     def flash_err(*names):
         return max(res[n] for res in flash_res for n in names)
 
@@ -1250,6 +1503,16 @@ def main():
         attn_entry("ragged_decode_attention[int4]", "ragged_decode.cu",
                    "ragged_attention.py:645", launches["w4kv4"][1], "int4",
                    "decode"),
+        # the sliding window at Mistral-7B's shapes; launches from the
+        # Mistral runs (every launch there is windowed)
+        *(window_entry(name, source, "ragged_attention.py:" + line,
+                       mistral[run][i], mode, kind)
+          for mode, run in (("bf16", "bf16"), ("int8", "kv8"),
+                            ("int4", "kv4"))
+          for i, (name, source, line, kind) in enumerate((
+              ("ragged_attention", "ragged_extend.cu", "287", "extend"),
+              ("ragged_decode_attention", "ragged_decode.cu", "645",
+               "decode")))),
         # ms: the four decode projections of one layer at B = 4, summed;
         # launches from the W4 + int8-KV run
         entry("w4a8_matmul_tiled", "w4a8_matmul.cu", "quant_matmul.py:305",

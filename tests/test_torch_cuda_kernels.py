@@ -15,7 +15,10 @@ are not bf16 numbers, and each active lane's max error over its max
 |output| stays within 1e-2 (extend) and 8e-3 (decode). Decode row writes
 (int8: values and scales) are exact. Packed int4 KV: the int8 bounds,
 and the decode kernel's packed bytes (mate nibbles included) and scales
-exact. W4A8 matmul: max |Δ| / max |want| ≤ 1e-5 with fp32 output (only
+exact. The sliding window and the logit softcap, in every KV mode and
+with GQA, under the same bounds; each result must also sit more than 10×
+its error away from the twin without the option. W4A8 matmul: max |Δ| /
+max |want| ≤ 1e-5 with fp32 output (only
 the fp32 order of the group sum differs), and bf16 output within one bf16
 rounding of the twin's; repeated launches agree bitwise. W8A8 matmul:
 bitwise the twin's, fp32 and bf16 output (exact int32 sums, then the same
@@ -384,6 +387,106 @@ def test_int4_decode_kernel_matches_plain_on_card(cuda_device, G):
                  <= 3e-3 + 2.0 ** -8 * want.abs()).all())
     assert _lane_rel(out, want, (0, 2, 3)) <= 8e-3
     assert bool((out[1] == 0).all())
+
+
+def _mode_rows(gen, dev, mode, hkv):
+    """bf16, int8 or packed int4 rows of 512 tokens → (k, v, the KV
+    keyword arguments of both functions' extend call)."""
+    if mode == "bf16":
+        kw = dict(device=dev, dtype=torch.bfloat16)
+        k = torch.randn((2, 4, hkv, 512, 128), generator=gen, **kw)
+        v = torch.randn((2, 4, hkv, 512, 128), generator=gen, **kw)
+        return k, v, {}
+    if mode == "int8":
+        k, v, ks, vs = _int8_rows(gen, dev, hkv)
+        return k, v, dict(k_scales=ks, v_scales=vs)
+    k, v, ks, vs = _int4_rows(gen, dev, hkv)
+    return k, v, dict(k_scales=ks, v_scales=vs, kv_pack=True)
+
+
+# window 100 starts inside packing segments (lanes at 150-349 and 3-185);
+# a cap of 50 (Gemma2's) on q scaled by 8, so that scores reach it. The
+# scaled q peaks the softmax, so outputs approach single V rows and the
+# bounds take the output's own bf16 rounding (2^-8 |want|) in every mode
+RND = 2.0 ** -8
+WINDOW_CAP = [dict(window=100), dict(logit_cap=50.0),
+              dict(window=100, logit_cap=50.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", WINDOW_CAP, ids=["window", "cap", "both"])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_window_cap_extend_kernel_matches_plain_on_card(cuda_device, mode, G,
+                                                        opts):
+    gen = torch.Generator(device=cuda_device).manual_seed(70 + G)
+    hkv, T = 4, 200
+    k, v, kv = _mode_rows(gen, cuda_device, mode, hkv)
+    q = 8 * torch.randn((4, T, hkv * G, 128), generator=gen,
+                        device=cuda_device, dtype=torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    offs = torch.tensor([0, 150, 3, 0], **i32)
+    lens = torch.tensor([T, 150 + T, 3 + T - 9, 0], **i32)
+    rows = torch.tensor([3, 1, 0, 2], **i32)
+    launches = tra.ragged_attention.launches_window
+    got = tra.ragged_attention(q, k, v, lens, offs, rows,
+                               layer=torch.tensor([1], **i32), **kv, **opts)
+    want = tra.ragged_attention_plain(q.float(), k, v, lens, offs, rows,
+                                      layer=1, **kv, **opts)
+    off = tra.ragged_attention_plain(q.float(), k, v, lens, offs, rows,
+                                     layer=1, **kv)
+    torch.cuda.synchronize()
+    assert tra.ragged_attention.launches_window == launches + 1
+    diff = (got.float() - want).abs()
+    assert bool((diff <= 2e-2 + RND * want.abs()).all())
+    assert _lane_rel(got, want, (0, 1, 2)) <= 1e-2
+    assert bool((got[3] == 0).all())
+    # the options reached the kernel: without them the twin is far off
+    assert (got.float() - off).abs().max().item() > 10 * diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", WINDOW_CAP, ids=["window", "cap", "both"])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_window_cap_decode_kernel_matches_plain_on_card(cuda_device, mode, G,
+                                                        opts):
+    """Queries at 299 (a window of 100 starts at 200, in segment 0's high
+    plane), nowhere, 200 (starts at 101, low plane) and 511: row writes
+    (packed bytes, scales) exact."""
+    gen = torch.Generator(device=cuda_device).manual_seed(80 + G)
+    hkv = 4
+    k, v, kv = _mode_rows(gen, cuda_device, mode, hkv)
+    if mode != "bf16":
+        kv = dict(kv, kv_maxq=7.0 if mode == "int4" else 127.0)
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+    q = 8 * torch.randn((4, 1, hkv * G, 128), generator=gen, **bf)
+    kn = torch.randn((4, hkv, 128), generator=gen, **bf)
+    vn = torch.randn((4, hkv, 128), generator=gen, **bf)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    lens = torch.tensor([300, 0, 201, 512], **i32)
+    rows = torch.tensor([2, 0, 3, 1], **i32)
+    state = [k, v] + [kv[n] for n in ("k_scales", "v_scales") if n in kv]
+    plain = [t.clone() for t in state]
+    pkv = dict(kv, **dict(zip(("k_scales", "v_scales"), plain[2:])))
+    launches = tra.ragged_decode_attention.launches_window
+    out = tra.ragged_decode_attention(q, kn, vn, k, v, lens, rows,
+                                      layer=torch.tensor([0], **i32), **kv,
+                                      **opts)[0]
+    want = tra.ragged_decode_attention_plain(
+        q.float(), kn, vn, *plain[:2], lens, rows, layer=0, **pkv,
+        **opts)[0]
+    off = tra.ragged_decode_attention_plain(
+        q.float(), kn, vn, *plain[:2], lens, rows, layer=0, **pkv)[0]
+    torch.cuda.synchronize()
+    assert tra.ragged_decode_attention.launches_window == launches + 1
+    for got_t, want_t in zip(state, plain):
+        assert torch.equal(got_t, want_t)
+    diff = (out.float() - want).abs()
+    assert bool((diff <= 3e-3 + RND * want.abs()).all())
+    assert _lane_rel(out, want, (0, 2, 3)) <= 8e-3
+    assert bool((out[1] == 0).all())
+    assert (out.float() - off).abs().max().item() > 10 * diff.max().item()
 
 
 def _flash_inputs(dev, seed, B, T, S, H, Hkv, D):

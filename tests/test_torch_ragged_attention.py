@@ -5,10 +5,15 @@ the JAX kernels run in interpret mode (off-TPU default), as
 tests/test_ragged_attention.py runs them. Inputs come from one numpy
 generator; float32 on both sides; tolerance 2e-5 (the JAX kernel tests'
 own bound: online vs one-shot softmax), 1e-5 for the packed int4 mode.
-Row writes, packed bytes and scales are compared exactly.
+Row writes, packed bytes and scales are compared exactly. The sliding
+window and the logit softcap run in every KV mode; there the JAX kernels
+are jitted with the window as a traced scalar (as the JAX engine passes
+it), so each (mode, G, cap) compiles once.
 The CUDA kernels themselves are held against these twins on the card by
 tests/test_torch_cuda_kernels.py.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -62,28 +67,24 @@ def test_extend_plain_matches_jax(G):
 
 
 def test_extend_plain_4d_rows_and_unported_options():
+    """4-D rows (no layer axis) against the XLA oracle, plain and with
+    the sliding window, the logit cap and both (options the port once
+    refused); packed rows without scales still raise ValueError."""
     rng = np.random.default_rng(7)
     k, v = _rows(rng, 1)
-    q = rng.standard_normal((2, 1, 1, HD)).astype(np.float32)
+    q = 3 * rng.standard_normal((2, 1, 1, HD)).astype(np.float32)
     lens = np.array([60, 200], np.int32)
     offs = lens - 1
     rows = np.array([3, 1], np.int32)
-    want = jra.ragged_attention_reference(
-        jnp.asarray(q), jnp.asarray(k[0]), jnp.asarray(v[0]),
-        jnp.asarray(lens), jnp.asarray(offs), jnp.asarray(rows))
-    got = tra.ragged_attention(
-        torch.from_numpy(q), torch.from_numpy(k[0]), torch.from_numpy(v[0]),
-        lens, offs, rows)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     args = (torch.from_numpy(q), torch.from_numpy(k[0]),
             torch.from_numpy(v[0]), lens, offs, rows)
-    for kw in (dict(window=16), dict(logit_cap=30.0),
-               dict(kv_pack=True, window=16, k_scales=torch.ones(1),
-                    v_scales=torch.ones(1)),
-               dict(kv_pack=True, logit_cap=30.0, k_scales=torch.ones(1),
-                    v_scales=torch.ones(1))):
-        with pytest.raises(NotImplementedError):
-            tra.ragged_attention(*args, **kw)
+    for kw in (dict(), dict(window=16), dict(logit_cap=30.0),
+               dict(window=16, logit_cap=30.0)):
+        want = jra.ragged_attention_reference(
+            jnp.asarray(q), jnp.asarray(k[0]), jnp.asarray(v[0]),
+            jnp.asarray(lens), jnp.asarray(offs), jnp.asarray(rows), **kw)
+        got = tra.ragged_attention(*args, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     with pytest.raises(ValueError):      # packed int4 rows need scales
         tra.ragged_attention(*args, kv_pack=True)
 
@@ -231,3 +232,145 @@ def test_packed_decode_plain_matches_jax(G):
             torch.from_numpy(q), torch.from_numpy(k_new),
             torch.from_numpy(v_new), tk, tv, lens, rows, layer=1,
             k_scales=tks, v_scales=tvs, kv_pack=True)
+
+
+# --- sliding window and logit softcap, every KV mode -----------------------
+
+WINDOWS = [0, 8, 100]    # off, inside a 24-token wave, mid-segment start
+CAPS = [0.0, 30.0]
+
+
+@functools.partial(jax.jit, static_argnames=("cap", "pack"))
+def _jax_extend(q, k, v, lens, offs, rows, ks, vs, w, cap, pack):
+    return jra.ragged_attention(q, k, v, lens, offs, rows, layer=1,
+                                chunk=256, k_scales=ks, v_scales=vs,
+                                window=w, logit_cap=cap, kv_pack=pack)
+
+
+@functools.partial(jax.jit, static_argnames=("cap", "pack", "maxq"))
+def _jax_decode(q, kn, vn, k, v, lens, rows, ks, vs, w, cap, pack, maxq):
+    return jra.ragged_decode_attention(q, kn, vn, k, v, lens, rows, layer=1,
+                                       chunk=256, k_scales=ks, v_scales=vs,
+                                       window=w, logit_cap=cap,
+                                       kv_maxq=maxq, kv_pack=pack)
+
+
+@functools.lru_cache(maxsize=None)
+def _mode_rows(mode, hkv):
+    """(k, v, k_scales, v_scales, maxq) numpy rows of one seeded draw
+    (cached: callers copy what they write into):
+    fp32, int8 on the JAX engine's _kv_quantize grid, or packed int4
+    (S = 256, one packing segment)."""
+    rng = np.random.default_rng({"fp32": 80, "int8": 81, "int4": 82}[mode])
+    if mode == "int4":
+        return _grid_rows_s(rng, hkv, S) + (7.0,)
+    k, v = _rows(rng, hkv)
+    if mode == "fp32":
+        return k, v, None, None, 127.0
+    quant = jax.jit(_kv_quantize, static_argnums=1)
+    (k8, ks), (v8, vs) = quant(jnp.asarray(k), 127.0), quant(jnp.asarray(v),
+                                                              127.0)
+    return (np.array(k8), np.array(v8), np.array(ks), np.array(vs), 127.0)
+
+
+def _grid_rows_s(rng, hkv, s_tokens):
+    out = []
+    for _ in "kv":
+        q4, sc = _jax_kv_quantize(rng.standard_normal(
+            (L, B, hkv, s_tokens, HD)).astype(np.float32))
+        out.append((np.array(jra.pack_int4_rows(jnp.asarray(q4))), sc))
+    (k4, ks), (v4, vs) = out
+    return k4, v4, ks, vs
+
+
+def _opt(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("mode", ["fp32", "int8", "int4"])
+def test_window_cap_extend_plain_matches_jax(mode, G, window, cap):
+    """Lane 0 from scratch, lane 1 at offset 200 (a window of 100 then
+    starts in the segment's high plane), lane 2 with padded queries, lane
+    3 padded; q scaled by 3 so that the cap of 30 bends the scores."""
+    hkv, T = 2, 24
+    k, v, ks, vs, _ = _mode_rows(mode, hkv)
+    rng = np.random.default_rng(90 + G)
+    q = 3 * rng.standard_normal((B, T, hkv * G, HD)).astype(np.float32)
+    offs = np.array([0, 200, 30, 0], np.int32)
+    lens = np.array([T, 200 + T, 30 + T - 5, 0], np.int32)
+    rows = np.array([2, 0, 3, 1], np.int32)
+    pack = mode == "int4"
+    want = _jax_extend(q, k, v, lens, offs, rows, ks, vs, window, cap=cap,
+                       pack=pack)
+    before = (tra.ragged_attention.launches_window,
+              tra.ragged_attention_plain.calls)
+    got = tra.ragged_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        lens, offs, rows, layer=1, window=window, logit_cap=cap,
+        k_scales=_opt(ks), v_scales=_opt(vs), kv_pack=pack)
+    assert (tra.ragged_attention.launches_window,
+            tra.ragged_attention_plain.calls) == (before[0], before[1] + 1)
+    tol = PACK_TOL if pack else TOL
+    np.testing.assert_allclose(got.numpy()[:3], np.asarray(want)[:3], **tol)
+    np.testing.assert_array_equal(got.numpy()[3], 0.0)
+
+
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("mode", ["fp32", "int8", "int4"])
+def test_window_cap_decode_plain_matches_jax(mode, G, window, cap):
+    """Queries at 4 (the window of 8 sees the row start), 129 (a window
+    of 100 starts in the low plane), nowhere (inactive lane) and 255 (it
+    starts in the high plane, the new token in the high plane too); row
+    writes and scales bitwise the reference kernel's."""
+    hkv = 2
+    k, v, ks, vs, maxq = _mode_rows(mode, hkv)
+    rng = np.random.default_rng(95 + G)
+    q = 3 * rng.standard_normal((B, 1, hkv * G, HD)).astype(np.float32)
+    k_new = rng.standard_normal((B, hkv, HD)).astype(np.float32)
+    v_new = rng.standard_normal((B, hkv, HD)).astype(np.float32)
+    lens = np.array([5, 130, 0, S], np.int32)
+    rows = np.array([1, 3, 0, 2], np.int32)
+    pack = mode == "int4"
+    want = _jax_decode(q, k_new, v_new, k, v, lens, rows, ks, vs, window,
+                       cap=cap, pack=pack, maxq=maxq)
+    state = [torch.from_numpy(a.copy()) for a in (k, v) + (
+        () if ks is None else (ks, vs))]
+    res = tra.ragged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k_new), torch.from_numpy(v_new),
+        state[0], state[1], lens, rows, layer=1, window=window,
+        logit_cap=cap, k_scales=state[2] if ks is not None else None,
+        v_scales=state[3] if ks is not None else None, kv_maxq=maxq,
+        kv_pack=pack)
+    for got_t, want_t in zip(state, want[1:]):
+        np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+    tol = PACK_TOL if pack else TOL
+    np.testing.assert_allclose(res[0].numpy()[[0, 1, 3]],
+                               np.asarray(want[0])[[0, 1, 3]], **tol)
+    np.testing.assert_array_equal(res[0].numpy()[2], 0.0)
+
+
+def test_window_cap_change_the_twins():
+    """The window and the cap each move the twins' output (so the parity
+    cases above are not passing on options that were ignored), and a
+    window of None, 0 or -3 is the unwindowed result bitwise."""
+    hkv, T = 2, 24
+    k, v, _, _, _ = _mode_rows("fp32", hkv)
+    rng = np.random.default_rng(99)
+    q = torch.from_numpy(
+        3 * rng.standard_normal((B, T, hkv * 4, HD)).astype(np.float32))
+    lens, offs, rows = [T, 200 + T, 49, 0], [0, 200, 30, 0], [2, 0, 3, 1]
+    args = (q, torch.from_numpy(k), torch.from_numpy(v), lens, offs, rows)
+    base = tra.ragged_attention(*args, layer=1)
+    for w in (None, 0, -3):
+        assert torch.equal(tra.ragged_attention(*args, layer=1, window=w),
+                           base)
+    for kw in (dict(window=8), dict(logit_cap=30.0)):
+        moved = (tra.ragged_attention(*args, layer=1, **kw) - base).abs()
+        assert moved[:3].max().item() > 1e-2, kw
+    with pytest.raises(ValueError):
+        tra.ragged_attention(*args, layer=1, logit_cap=-1.0)

@@ -5,6 +5,8 @@ trivial) cross through `aurora_tpu_torch.bridge`. Tolerances: 1e-5 for
 the bridge, projector and normalize (one op deep), 1e-4 for the ViT and
 the encode/fuse path (fp32 summation order over a few layers)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -72,10 +74,16 @@ def test_bridge_layouts(tiny):
 
 
 def test_bridge_rejects_other_families():
-    with pytest.raises(NotImplementedError):
-        bridge.llama_config_from(JLlamaConfig.mistral_7b())
+    # Mistral (llama with GQA and a sliding window) crosses since the
+    # window was ported; Qwen2's biases and Gemma2's alternating windows
+    # still raise
+    assert bridge.llama_config_from(
+        JLlamaConfig.mistral_7b()).sliding_window == 4096
     with pytest.raises(NotImplementedError):
         bridge.llama_config_from(JLlamaConfig.qwen2_7b())
+    with pytest.raises(NotImplementedError):
+        bridge.llama_config_from(dataclasses.replace(
+            JLlamaConfig.mistral_7b(), swa_every_other=True))
     assert bridge.llama_config_from(
         JLlamaConfig.vicuna_7b_v15_16k()).rope_linear_scaling == 4.0
 

@@ -260,6 +260,30 @@ def test_engine_fused_mlp_matches_jax_engine(monkeypatch):
     jax.clear_caches()
 
 
+def test_engine_keeps_two_call_mlp_where_the_reference_does(monkeypatch):
+    """At intermediate width 64 no reference I-tile (256 or 128) fits, so
+    the JAX engine keeps the two-call MLP under AURORA_W4_FUSED_MLP=1;
+    the port's 64-column tile alone would fuse it. The port follows the
+    reference: no W4FusedMLP, and the same greedy tokens."""
+    import dataclasses
+    cfg = dataclasses.replace(CONFIGS["tiny"], intermediate_size=64)
+    tree, q, laid = _fused_mlp_tree(cfg, monkeypatch)
+    assert "mlp_gu" not in laid["layers"] and "gateup" in laid["layers"]
+    tcfg = bridge.llama_config_from(cfg)
+    model = bridge.llama_from_params(jax.device_get(tree), tcfg,
+                                     dtype=torch.float32, device="cpu")
+    ecfg = teng.EngineConfig(weight_quant="int4", w4_fused_mlp=True)
+    w4 = teng.fuse_serving_weights(teng.quantize_weights_int4(model))
+    assert teng.w4_decode_layout(w4, tcfg, ecfg) is w4
+    calls = tqm.fused_mlp_w4_plain.calls
+    jeng_, served = _parity(cfg, q, model, w4_fused_mlp=True)
+    assert "mlp_gu" not in jeng_.params["layers"]
+    assert not any(hasattr(l, "mlp") for l in served.layers)
+    assert all(isinstance(l.gateup, W4Linear) for l in served.layers)
+    assert tqm.fused_mlp_w4_plain.calls == calls
+    jax.clear_caches()
+
+
 def test_engine_flat_layout_matches_jax_engine(monkeypatch):
     cfg = CONFIGS["tiled256"]
     tree = init_llama_params(jax.random.PRNGKey(3), cfg, dtype=jnp.float32)
