@@ -15,451 +15,596 @@
 // dV = p^T dO, dS = p (dO V^T - delta) scale, dK = dS^T q, dQ = dS k.
 //
 // What bounds it on the H100: at the training shape (B 4, T 2048, H 32,
-// D 128, causal) each K/V tile is reused by every query tile below it, so
-// the work is ~1.4e11 multiply-adds (x2 FLOPs) in the forward against ~0.2
-// GB of q/k/v/out: compute-bound, tensor cores are what matters.
+// D 128, causal) there are 2.69e8 visible (query, key) pairs; the forward
+// does 2 D multiply-adds per pair (q.k and p.v), 1.375e11 FLOPs, against
+// 0.27 GB of q, k, v and out: 0.139 ms at 989 TFLOP/s, 0.08 ms at 3.35
+// TB/s. dK/dV does 4 D multiply-adds per pair, dQ 3 D. So all three are
+// compute-bound, and only wgmma reaches the tensor cores' full rate.
 //
-// Design: tiles of 64 rows, 4 warps of 16 rows, WMMA bf16 16x16x16 products
-// with fp32 accumulation; a block loops over the other sequence axis (the
-// Pallas grid's sequential kv axis) inside itself, stopping at the causal
-// limit. Heads narrower than 128 are zero-padded in shared memory, which
-// leaves every product unchanged. Forward: one block per (q tile, b·h); the
-// scores, probabilities and output accumulator live in shared memory, where
-// each warp rescales its own rows (WMMA fragments are opaque). dK/dV: one
-// block per (kv tile, b·h), looping over the q tiles that can see it; each
-// warp computes S^T and dP^T for its 16 keys, so P^T and dS^T never cross
-// warps, and dK/dV stay in WMMA fragments for the whole loop. dQ: one block
-// per (q tile, b·h), looping over kv tiles, dQ in fragments. No atomics:
-// every output element has one writer, so runs agree bitwise. Loads are
-// plain 16-byte loads; cp.async/TMA pipelining and wgmma are later work.
+// Design (hopper_common.cuh holds the building blocks): 256 threads a
+// block, two warpgroups of 64 rows each, so ptxas may give a thread up to
+// 255 registers (a third, producer warpgroup caps every thread at 168,
+// and ptxas did not allocate past that for setmaxnreg: the dK/dV kernel,
+// with 128 accumulator registers a thread for the whole loop, spilled).
+// Tiles arrive by TMA (4-D maps over [B, L, H, D], boxes of 64 columns
+// with the 128-byte swizzle; rows past T or S and columns past D arrive as
+// zeros) into a ring of 3 stages, each with a full mbarrier; thread 0
+// issues the first loads, and the last of the 8 warps to finish with a
+// stage (a shared counter) refills it. Products are wgmma bf16 -> fp32
+// with the accumulators in registers; a probability tile is converted to
+// bf16 in registers and is the register A operand of the next product,
+// its B operand the same shared tile read MN-major. Masking is decided per
+// tile: only a tile that crosses the causal diagonal, the edge at T or S,
+// or that has segment ids tests each element; key tiles past the causal
+// limit are never loaded. Exponentials are exp2 with scale * log2(e)
+// folded in.
+// Forward: one block per (128-row q tile, b h), the heaviest causal tiles
+// first; key tiles of 128; O, the row max and the row sum stay in
+// registers for the whole key loop (the max is reduced over the 4 threads
+// of a row by shuffles). Each warpgroup waits for its own products, and
+// the other warpgroup's products fill the tensor cores meanwhile: FA3's
+// software pipeline (the scores of tile j beside P V of tile j - 1) and its
+// ping-pong of the two warpgroups, measured on the card, were slower
+// (ptxas serialized the pipelined products). dK/dV: one block per
+// (128-key tile, b h), each warpgroup owning 64 keys, looping over the
+// 64-row q tiles that can see them; S^T = K Q^T and dP^T = V dO^T into
+// registers as two wgmma groups (P^T forms while dP^T is computed), then
+// dV += P^T dO and dK += dS^T Q; lse, delta and the segment ids of each q
+// tile ride in the ring beside it. dQ: one block per (128-row q tile,
+// b h), key tiles of 64, the same two groups, dQ in registers. No atomics
+// on the outputs: every output element has one writer, so runs agree
+// bitwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
 
-using namespace nvcuda;
+#include "hopper_common.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int HD = 128;        // widest head_dim; narrower heads are padded
-constexpr int BT = 64;         // rows per tile, both sequence axes
-constexpr int NTHREADS = 128;  // 4 warps, 16 rows each
-constexpr int LDH = HD + 8;    // bf16 [64][HD] tile row stride (elements)
-constexpr int LDF = BT + 4;    // fp32 [64][64] tile row stride
-constexpr int LDB = BT + 8;    // bf16 [64][64] tile row stride
-constexpr int LDO = HD + 4;    // fp32 [64][HD] tile row stride
+constexpr int HD = 128;        // widest head_dim; narrower heads read zeros
+constexpr int NTHREADS = 256;  // two warpgroups
+constexpr int WARPS = NTHREADS / 32;
+constexpr int STAGES = 3;
+constexpr uint32_t BOX64 = 64 * 128;    // bytes of a [64][64] bf16 box
+constexpr uint32_t BOX128 = 128 * 128;  // bytes of a [128][64] bf16 box
 constexpr float NEG_INF = -2.3819763e38f;  // the reference's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-constexpr size_t TILE_H = size_t(BT) * LDH * sizeof(bf16);
-constexpr size_t TILE_F = size_t(BT) * LDF * sizeof(float);
-constexpr size_t TILE_B = size_t(BT) * LDB * sizeof(bf16);
-constexpr size_t TILE_O = size_t(BT) * LDO * sizeof(float);
-constexpr size_t ROWS = size_t(BT) * 4 * sizeof(float);  // 4 per-row arrays
-constexpr size_t SMEM_FWD = 3 * TILE_H + TILE_F + TILE_B + TILE_O + ROWS;
-constexpr size_t SMEM_DKV = 4 * TILE_H + 2 * TILE_F + 2 * TILE_B + ROWS;
-constexpr size_t SMEM_DQ = 4 * TILE_H + 2 * TILE_F + TILE_B + ROWS;
-static_assert(TILE_O <= 2 * TILE_F, "dK/dV/dQ staging reuses two fp32 tiles");
+// 1024 bytes of alignment slack, the tiles loaded once, the ring's stages
+// (two head-wide tiles each: K and V, or Q and dO), [dK/dV: 64 rows each of
+// lse * log2(e), delta and q segment ids a stage], then the barriers and
+// the counters
+constexpr size_t RING = 8 * (1 + STAGES) + 4 * STAGES;
+constexpr size_t SMEM_FWD = 1024 + 2 * BOX128 + STAGES * 4 * BOX128 + RING;
+constexpr size_t SMEM_DKV =
+    1024 + 4 * BOX128 + STAGES * 4 * BOX64 + STAGES * 192 * 4 + RING;
+constexpr size_t SMEM_DQ = 1024 + 4 * BOX128 + STAGES * 4 * BOX64 + RING;
 
 struct Shape {
   int T, S, H, D, causal, q_offset, use_seg;
   float scale;
 };
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
-
-// rows [row0, row0 + 64) of one head (row r at src + r * row_stride) into a
-// [64][LDH] tile; rows >= n and columns >= D are zero
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int row0, int n, int row_stride,
-                                          int D) {
-  for (int c = threadIdx.x; c < BT * (HD / 8); c += NTHREADS) {
-    const int r = c / (HD / 8);
-    const int col = (c % (HD / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n && col < D)
-      val = *reinterpret_cast<const uint4*>(
-          src + size_t(row0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * LDH + col) = val;
-  }
-}
-
-// out[16][64] (fp32, stride ldo) = A[16][HD] . Bm[64][HD]^T, both bf16
-// tiles of stride LDH
-__device__ __forceinline__ void mm_abt(float* out, int ldo, const bf16* A,
-                                       const bf16* Bm) {
-  Acc acc[BT / 16];
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < HD; kk += 16) {
-    ARow a;
-    wmma::load_matrix_sync(a, A + kk, LDH);
-#pragma unroll
-    for (int j = 0; j < BT / 16; ++j) {
-      // B = Bm^T: element (d, j) sits at Bm[j * LDH + d] (column-major)
-      BCol b;
-      wmma::load_matrix_sync(b, Bm + j * 16 * LDH + kk, LDH);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j)
-    wmma::store_matrix_sync(out + j * 16, acc[j], ldo, wmma::mem_row_major);
-}
-
-// acc[16][HD] += A[16][64] (bf16, stride LDB) . Bm[64][HD] (stride LDH)
-__device__ __forceinline__ void mm_acc(Acc (&acc)[HD / 16], const bf16* A,
-                                       const bf16* Bm) {
-#pragma unroll
-  for (int kq = 0; kq < BT / 16; ++kq) {
-    ARow a;
-    wmma::load_matrix_sync(a, A + kq * 16, LDB);
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      BRow b;
-      wmma::load_matrix_sync(b, Bm + kq * 16 * LDH + j * 16, LDH);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-}
-
-// segment id of row r of a [B, n] plane, or 0 without segments / past n
-__device__ __forceinline__ int seg_at(const int* seg, int b, int n, int r) {
-  return (seg != nullptr && r < n) ? seg[size_t(b) * n + r] : 0;
-}
-
-// the accumulators of this warp's 16 rows of the tile starting at row0 →
-// bf16 rows of one head, through the warp's part of a [64][LDO] fp32
-// staging tile
-__device__ __forceinline__ void store_rows(Acc (&acc)[HD / 16], float* stage,
-                                           bf16* dst, int row0, int n,
-                                           int row_stride, int D) {
-  const int warp = threadIdx.x >> 5;
-  float* mine = stage + warp * 16 * LDO;
-#pragma unroll
-  for (int j = 0; j < HD / 16; ++j)
-    wmma::store_matrix_sync(mine + j * 16, acc[j], LDO, wmma::mem_row_major);
-  __syncwarp();
-  const int r = threadIdx.x >> 1;  // a row of this warp's strip
-  const int half = threadIdx.x & 1;
-  if (row0 + r < n) {
-    const float* src = stage + r * LDO + half * 64;
-    bf16* out = dst + size_t(row0 + r) * row_stride + half * 64;
-    for (int c = 0; c < 64 && half * 64 + c < D; c += 2)
-      *reinterpret_cast<__nv_bfloat162*>(out + c) =
-          __floats2bfloat162_rn(src[c], src[c + 1]);
-  }
-  __syncwarp();
-}
-
-// last key a query tile [q0, q0 + 64) can see, + 1
-__device__ __forceinline__ int key_end(const Shape& sh, int q0) {
+// last key a q tile [q0, q0 + rows) can see, + 1
+__device__ __forceinline__ int key_end(const Shape& sh, int q0, int rows) {
   int kend = sh.S;
-  if (sh.causal) {
-    const int last_t = min(q0 + BT, sh.T) - 1;
-    kend = min(kend, last_t + sh.q_offset + 1);
-  }
+  if (sh.causal) kend = min(kend, min(q0 + rows, sh.T) + sh.q_offset);
   return max(kend, 0);
 }
 
-__device__ __forceinline__ bool visible(const Shape& sh, int t, int s,
-                                        int qs, int ks) {
-  return t < sh.T && s < sh.S && (!sh.causal || t + sh.q_offset >= s) &&
-         (!sh.use_seg || qs == ks);
+// both 64-column boxes of a tile of rows [row0, row0 + box rows)
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int head, int row0,
+                                          int b, uint32_t box_bytes) {
+  hopper::tma_load_4d(dst, map, bar, 0, head, row0, b);
+  hopper::tma_load_4d(dst + box_bytes, map, bar, 64, head, row0, b);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const int* __restrict__ q_seg,
-           const int* __restrict__ kv_seg, bf16* __restrict__ out,
-           float* __restrict__ lse, Shape sh) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BT * LDH;
-  bf16* sV = sK + BT * LDH;
-  float* sS = reinterpret_cast<float*>(sV + BT * LDH);
-  bf16* sP = reinterpret_cast<bf16*>(sS + BT * LDF);
-  float* sO = reinterpret_cast<float*>(sP + BT * LDB);
-  float* sM = sO + BT * LDO;
-  float* sL = sM + BT;
-  int* sQs = reinterpret_cast<int*>(sL + BT);
-  int* sKs = sQs + BT;
+// tiles j of two maps (rows [j rows, (j + 1) rows)) into ring stage st;
+// one thread
+__device__ __forceinline__ void fill_pair(uint8_t* ring, uint64_t* full,
+                                          int st, int j,
+                                          const CUtensorMap* a,
+                                          const CUtensorMap* b_map, int head,
+                                          int b, int rows, uint32_t box) {
+  uint8_t* dst = ring + st * 4 * box;
+  hopper::mbar_expect_tx(&full[st], 4 * box);
+  load_tile(dst, a, &full[st], head, j * rows, b, box);
+  load_tile(dst + 2 * box, b_map, &full[st], head, j * rows, b, box);
+}
 
-  const int bh = blockIdx.y;
-  const int b = bh / sh.H, h = bh % sh.H;
-  const int q0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int rs = sh.H * sh.D;  // sequence stride of [B, L, H, D]
-  const size_t qh = (size_t(b) * sh.T * sh.H + h) * sh.D;
-  const size_t kh = (size_t(b) * sh.S * sh.H + h) * sh.D;
+// offset of k16 step kk of a head-wide K-major operand whose boxes are
+// box_bytes apart
+__device__ __forceinline__ uint32_t k_step(int kk, uint32_t box_bytes) {
+  return (kk / 4) * box_bytes + (kk % 4) * 32;
+}
 
-  load_rows(sQ, q + qh, q0, sh.T, rs, sh.D);
-  for (int i = tid; i < BT * LDO; i += NTHREADS) sO[i] = 0.f;
-  if (tid < BT) {
-    sM[tid] = NEG_INF;
-    sL[tid] = 0.f;
-    sQs[tid] = seg_at(q_seg, b, sh.T, q0 + tid);
+// element i of an m64nN accumulator: row half (0: the thread's first row,
+// 1: that row + 8) and column
+__device__ __forceinline__ int acc_half(int i) { return (i >> 1) & 1; }
+__device__ __forceinline__ int acc_col(int i, int lane) {
+  return 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+}
+
+// bf16 row of an m64n128 accumulator (the thread's columns) to dst
+__device__ __forceinline__ void store_row(bf16* dst, const float (&acc)[64],
+                                          int half, int lane, int D,
+                                          float mul) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+    if (col < D)
+      *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
   }
-  const int kend = key_end(sh, q0);
+}
+
+// bar[0]: the tiles loaded once; bar[1 + s]: stage s is full (full_count
+// arrivals and the TMA bytes); done[s]: warps finished with stage s
+__device__ __forceinline__ void init_ring(uint64_t* bar, int* done,
+                                          uint32_t full_count) {
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(bar + 1 + s, full_count);
+      done[s] = 0;
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
+}
 
-  // softmax ownership: thread -> (row tid/2, 32-column half tid&1); the row
-  // lies in the strip of the thread's own warp
-  const int srow = tid >> 1;
-  const int shalf = tid & 1;
-  const int t = q0 + srow;
-
-  for (int kb = 0; kb < kend; kb += BT) {
-    load_rows(sK, k + kh, kb, sh.S, rs, sh.D);
-    load_rows(sV, v + kh, kb, sh.S, rs, sh.D);
-    if (tid < BT) sKs[tid] = seg_at(kv_seg, b, sh.S, kb + tid);
-    __syncthreads();
-
-    mm_abt(sS + warp * 16 * LDF, LDF, sQ + warp * 16 * LDH, sK);
-    __syncwarp();
-
-    {
-      const float* srow_s = sS + srow * LDF + shalf * 32;
-      bf16* prow = sP + srow * LDB + shalf * 32;
-      const int c0 = shalf * 32;
-      float mx = NEG_INF;
-#pragma unroll 8
-      for (int c = 0; c < 32; ++c) {
-        if (visible(sh, t, kb + c0 + c, sQs[srow], sKs[c0 + c]))
-          mx = fmaxf(mx, srow_s[c] * sh.scale);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = sM[srow];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < 32; ++c) {
-        float p = 0.f;
-        if (visible(sh, t, kb + c0 + c, sQs[srow], sKs[c0 + c]))
-          p = expf(srow_s[c] * sh.scale - m_new);
-        sum += p;
-        prow[c] = __float2bfloat16(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      const float alpha = expf(m_old - m_new);
-      float* orow = sO + srow * LDO + shalf * 64;
-#pragma unroll 8
-      for (int c = 0; c < 64; ++c) orow[c] *= alpha;
-      __syncwarp();
-      if (shalf == 0) {
-        sM[srow] = m_new;
-        sL[srow] = sL[srow] * alpha + sum;
-      }
-    }
-    __syncwarp();
-
-    // O[strip] += P[strip] . V
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      Acc o;
-      float* optr = sO + warp * 16 * LDO + j * 16;
-      wmma::load_matrix_sync(o, optr, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kq = 0; kq < BT / 16; ++kq) {
-        ARow a;
-        wmma::load_matrix_sync(a, sP + warp * 16 * LDB + kq * 16, LDB);
-        BRow vb;
-        wmma::load_matrix_sync(vb, sV + kq * 16 * LDH + j * 16, LDH);
-        wmma::mma_sync(o, a, vb, o);
-      }
-      wmma::store_matrix_sync(optr, o, LDO, wmma::mem_row_major);
-    }
-    __syncthreads();  // every warp is done with sK/sV before the next load
-  }
+// a warp is done with stage st (its products on it have completed) → true
+// in every lane of the warp that completes the stage, which then refills
+// it
+__device__ __forceinline__ bool release(int* done, int st) {
   __syncwarp();
+  int last = 0;
+  if (threadIdx.x % 32 == 0) {
+    __threadfence_block();
+    last = atomicAdd(&done[st], 1) == WARPS - 1;
+    if (last) done[st] = 0;
+  }
+  return __shfl_sync(0xffffffffu, last, 0);
+}
 
-  if (t < sh.T) {
-    const float l = fmaxf(sL[srow], 1e-30f);
-    const float* orow = sO + srow * LDO + shalf * 64;
-    bf16* dst = out + qh + size_t(t) * rs + shalf * 64;
-    for (int c = 0; c < 64 && shalf * 64 + c < sh.D; c += 2)
-      *reinterpret_cast<__nv_bfloat162*>(dst + c) =
-          __floats2bfloat162_rn(orow[c] / l, orow[c + 1] / l);
-    if (shalf == 0) lse[size_t(bh) * sh.T + t] = sM[srow] + logf(l);
+// the scores of key tile [k0, k0 + 128) → probabilities in place (exp2 of
+// s c - m, 0 off the visible pairs), the running max m and sum l of the
+// thread's two rows updated, alpha = the factor that rescales their O; a
+// row's 4 threads agree on its max through the quad shuffles
+__device__ __forceinline__ void online_softmax(
+    float (&s)[64], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    const Shape& sh, float c, int q0w, int t0, int k0, int lane,
+    const int (&qs)[2], const int* kv_seg, int b) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] *= c;
+  if (sh.use_seg || k0 + 128 > sh.S ||
+      (sh.causal && k0 + 127 > q0w + sh.q_offset)) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int t = t0 + 8 * acc_half(i);
+      const int key = k0 + acc_col(i, lane);
+      const bool vis =
+          key < sh.S && (!sh.causal || t + sh.q_offset >= key) &&
+          (!sh.use_seg || qs[acc_half(i)] == kv_seg[size_t(b) * sh.S + key]);
+      if (!vis) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[acc_half(i)] = fmaxf(mx[acc_half(i)], s[i]);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+    alpha[hf] = exp2f(m[hf] - mx[hf]);
+    m[hf] = mx[hf];
+    l[hf] *= alpha[hf];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = exp2f(s[i] - m[acc_half(i)]);
+    l[acc_half(i)] += s[i];
   }
 }
 
-// the per-row lse / delta / segment of q rows [q0, q0 + 64) into shared
-__device__ __forceinline__ void load_q_rows(float* sLse, float* sDel,
-                                            int* sQs, const float* lse,
-                                            const float* delta,
-                                            const int* q_seg, int b, int bh,
-                                            int q0, const Shape& sh) {
-  const int tid = threadIdx.x;
-  if (tid < BT) {
-    const int t = q0 + tid;
-    const bool live = t < sh.T;
-    sLse[tid] = live ? lse[size_t(bh) * sh.T + t] : 0.f;
-    sDel[tid] = live ? delta[size_t(bh) * sh.T + t] : 0.f;
-    sQs[tid] = seg_at(q_seg, b, sh.T, t);
-  }
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta, const int* __restrict__ q_seg,
-               const int* __restrict__ kv_seg, bf16* __restrict__ dk,
-               bf16* __restrict__ dv, Shape sh) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BT * LDH;
-  bf16* sQ = sV + BT * LDH;
-  bf16* sdO = sQ + BT * LDH;
-  float* sS = reinterpret_cast<float*>(sdO + BT * LDH);  // S^T [key][q]
-  float* sdP = sS + BT * LDF;                            // dP^T [key][q]
-  bf16* sPt = reinterpret_cast<bf16*>(sdP + BT * LDF);
-  bf16* sdSt = sPt + BT * LDB;
-  float* sLse = reinterpret_cast<float*>(sdSt + BT * LDB);
-  float* sDel = sLse + BT;
-  int* sQs = reinterpret_cast<int*>(sDel + BT);
-  int* sKs = sQs + BT;
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const int* __restrict__ q_seg,
+                 const int* __restrict__ kv_seg, bf16* __restrict__ out,
+                 float* __restrict__ lse, Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = hopper::align1024(smem_raw);
+  uint8_t* sKV = sQ + 2 * BOX128;  // stage st: K, then V, 2 boxes each
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sKV + STAGES * 4 * BOX128);
+  uint64_t* full = bar + 1;
+  int* done = reinterpret_cast<int*>(bar + 1 + STAGES);
 
   const int bh = blockIdx.y;
-  const int b = bh / sh.H, h = bh % sh.H;
-  const int k0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int rs = sh.H * sh.D;
-  const size_t qh = (size_t(b) * sh.T * sh.H + h) * sh.D;
-  const size_t kh = (size_t(b) * sh.S * sh.H + h) * sh.D;
+  const int b = bh / sh.H, head = bh % sh.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 128;  // heaviest tiles first
+  const int ntiles = (key_end(sh, q0, 128) + 127) / 128;
+  init_ring(bar, done, 1);
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(bar, 2 * BOX128);
+    load_tile(sQ, &tm_q, bar, head, q0, b, BOX128);
+    for (int j = 0; j < min(STAGES, ntiles); ++j)
+      fill_pair(sKV, full, j, j, &tm_k, &tm_v, head, b, 128, BOX128);
+  }
 
-  load_rows(sK, k + kh, k0, sh.S, rs, sh.D);
-  load_rows(sV, v + kh, k0, sh.S, rs, sh.D);
-  if (tid < BT) sKs[tid] = seg_at(kv_seg, b, sh.S, k0 + tid);
-
-  Acc dk_acc[HD / 16], dv_acc[HD / 16];
+  const int cw = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int q0w = q0 + 64 * cw;
+  const int t0 = q0w + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+  const float c = sh.scale * LOG2E;
+  int qs[2] = {0, 0};
+  if (sh.use_seg) {
 #pragma unroll
-  for (int j = 0; j < HD / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.f);
-    wmma::fill_fragment(dv_acc[j], 0.f);
+    for (int hf = 0; hf < 2; ++hf)
+      if (t0 + 8 * hf < sh.T) qs[hf] = q_seg[size_t(b) * sh.T + t0 + 8 * hf];
   }
-  // the first q tile with a row that can see key k0
-  int qstart = 0;
-  if (sh.causal) qstart = max(0, k0 - sh.q_offset) / BT * BT;
+  float o[64], s[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  // elementwise ownership: thread -> (key row tid/2 of its warp's strip,
-  // 32 query columns tid&1)
-  const int krow = tid >> 1;
-  const int khalf = tid & 1;
-  const int s = k0 + krow;
+  hopper::mbar_wait(bar, 0);
+  const uint64_t dq = hopper::desc_k(sQ + cw * 64 * 128);
+  uint32_t pa[8][4];  // P as bf16 register operands
+  float alpha[2];
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % STAGES;
+    uint8_t* sK = sKV + st * 4 * BOX128;
+    hopper::mbar_wait(&full[st], (j / STAGES) & 1);
 
-  for (int qb = qstart; qb < sh.T; qb += BT) {
-    __syncthreads();  // the previous tile's readers of sQ/sdO are done
-    load_rows(sQ, q + qh, qb, sh.T, rs, sh.D);
-    load_rows(sdO, dout + qh, qb, sh.T, rs, sh.D);
-    load_q_rows(sLse, sDel, sQs, lse, delta, q_seg, b, bh, qb, sh);
-    __syncthreads();
+    // S = Q K^T, the warpgroup's 64 rows x 128 keys
+    const uint64_t dk = hopper::desc_k(sK);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::mma_64x128_ss(s, hopper::desc_add(dq, k_step(kk, BOX128)),
+                            hopper::desc_add(dk, k_step(kk, BOX128)), kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    online_softmax(s, m, l, alpha, sh, c, q0w, t0, j * 128, lane, qs, kv_seg,
+                   b);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] *= alpha[acc_half(i)];
 
-    mm_abt(sS + warp * 16 * LDF, LDF, sK + warp * 16 * LDH, sQ);
-    mm_abt(sdP + warp * 16 * LDF, LDF, sV + warp * 16 * LDH, sdO);
-    __syncwarp();
-    {
-      const int c0 = khalf * 32;
-      const float* srow_s = sS + krow * LDF + c0;
-      const float* drow = sdP + krow * LDF + c0;
-      bf16* prow = sPt + krow * LDB + c0;
-      bf16* dsrow = sdSt + krow * LDB + c0;
-#pragma unroll 8
-      for (int c = 0; c < 32; ++c) {
-        const int cc = c0 + c;
-        float p = 0.f;
-        if (visible(sh, qb + cc, s, sQs[cc], sKs[krow]))
-          p = expf(srow_s[c] * sh.scale - sLse[cc]);
-        prow[c] = __float2bfloat16(p);
-        dsrow[c] = __float2bfloat16(p * (drow[c] - sDel[cc]) * sh.scale);
-      }
+    // O += P V
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) hopper::acc_to_a(s, kk, pa[kk]);
+    const uint64_t dv = hopper::desc_mn(sK + 2 * BOX128, BOX128);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 128 / 16; ++kk)
+      hopper::mma_64x128_rs(o, pa[kk], hopper::desc_add(dv, kk * 2048));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    if (release(done, st) && lane == 0 && j + STAGES < ntiles)
+      fill_pair(sKV, full, st, j + STAGES, &tm_k, &tm_v, head, b, 128,
+                BOX128);
+  }
+
+  const int rs = sh.H * sh.D;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    const int t = t0 + 8 * hf;
+    if (t < sh.T) {
+      const float lc = fmaxf(l[hf], 1e-30f);
+      store_row(out + (size_t(b) * sh.T + t) * rs + size_t(head) * sh.D, o,
+                hf, lane, sh.D, 1.f / lc);
+      if (lane % 4 == 0)
+        lse[size_t(bh) * sh.T + t] =
+            m[hf] == NEG_INF ? NEG_INF : m[hf] * LN2 + logf(lc);
     }
-    __syncwarp();
-    mm_acc(dv_acc, sPt + warp * 16 * LDB, sdO);
-    mm_acc(dk_acc, sdSt + warp * 16 * LDB, sQ);
   }
-  __syncthreads();  // sS/sdP become the staging tile
-  store_rows(dk_acc, sS, dk + kh, k0, sh.S, rs, sh.D);
-  store_rows(dv_acc, sS, dv + kh, k0, sh.S, rs, sh.D);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-              bf16* __restrict__ dq, Shape sh) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BT * LDH;
-  bf16* sK = sdO + BT * LDH;
-  bf16* sV = sK + BT * LDH;
-  float* sS = reinterpret_cast<float*>(sV + BT * LDH);
-  float* sdP = sS + BT * LDF;
-  bf16* sdS = reinterpret_cast<bf16*>(sdP + BT * LDF);
-  float* sLse = reinterpret_cast<float*>(sdS + BT * LDB);
-  float* sDel = sLse + BT;
-  int* sQs = reinterpret_cast<int*>(sDel + BT);
-  int* sKs = sQs + BT;
+// q tile j of the dK/dV loop (rows [qb, qb + 64)) into ring stage st, by
+// one whole warp: its lanes write the tile's lse * log2(e), delta and q
+// segment ids (0 past T) and arrive, lane 0 loads Q and dO
+__device__ __forceinline__ void fill_q_tile(
+    uint8_t* ring, float* rows, uint64_t* full, int st, int qb,
+    const CUtensorMap* tm_q, const CUtensorMap* tm_do, const float* lse,
+    const float* delta, const int* q_seg, int b, int bh, int head,
+    const Shape& sh) {
+  const int lane = threadIdx.x % 32;
+  float* rv = rows + st * 192;
+  for (int r = lane; r < 64; r += 32) {
+    const bool live = qb + r < sh.T;
+    rv[r] = live ? lse[size_t(bh) * sh.T + qb + r] * LOG2E : 0.f;
+    rv[64 + r] = live ? delta[size_t(bh) * sh.T + qb + r] : 0.f;
+    reinterpret_cast<int*>(rv)[128 + r] =
+        live && sh.use_seg ? q_seg[size_t(b) * sh.T + qb + r] : 0;
+  }
+  if (lane == 0) {
+    uint8_t* dst = ring + st * 4 * BOX64;
+    hopper::mbar_expect_tx(&full[st], 4 * BOX64);
+    load_tile(dst, tm_q, &full[st], head, qb, b, BOX64);
+    load_tile(dst + 2 * BOX64, tm_do, &full[st], head, qb, b, BOX64);
+  } else {
+    hopper::mbar_arrive(&full[st]);
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ q_seg,
+                     const int* __restrict__ kv_seg, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = hopper::align1024(smem_raw);
+  uint8_t* sV = sK + 2 * BOX128;
+  uint8_t* sQd = sV + 2 * BOX128;  // stage st: Q, then dO, 2 boxes each
+  float* rows = reinterpret_cast<float*>(sQd + STAGES * 4 * BOX64);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(rows + STAGES * 192);
+  uint64_t* full = bar + 1;
+  int* done = reinterpret_cast<int*>(bar + 1 + STAGES);
 
   const int bh = blockIdx.y;
-  const int b = bh / sh.H, h = bh % sh.H;
-  const int q0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int rs = sh.H * sh.D;
-  const size_t qh = (size_t(b) * sh.T * sh.H + h) * sh.D;
-  const size_t kh = (size_t(b) * sh.S * sh.H + h) * sh.D;
-
-  load_rows(sQ, q + qh, q0, sh.T, rs, sh.D);
-  load_rows(sdO, dout + qh, q0, sh.T, rs, sh.D);
-  load_q_rows(sLse, sDel, sQs, lse, delta, q_seg, b, bh, q0, sh);
-  const int kend = key_end(sh, q0);
-
-  Acc dq_acc[HD / 16];
-#pragma unroll
-  for (int j = 0; j < HD / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.f);
-
-  const int qrow = tid >> 1;
-  const int qhalf = tid & 1;
-  const int t = q0 + qrow;
-
-  for (int kb = 0; kb < kend; kb += BT) {
-    __syncthreads();  // the previous tile's readers of sK/sV are done
-    load_rows(sK, k + kh, kb, sh.S, rs, sh.D);
-    load_rows(sV, v + kh, kb, sh.S, rs, sh.D);
-    if (tid < BT) sKs[tid] = seg_at(kv_seg, b, sh.S, kb + tid);
-    __syncthreads();
-
-    mm_abt(sS + warp * 16 * LDF, LDF, sQ + warp * 16 * LDH, sK);
-    mm_abt(sdP + warp * 16 * LDF, LDF, sdO + warp * 16 * LDH, sV);
-    __syncwarp();
-    {
-      const int c0 = qhalf * 32;
-      const float* srow_s = sS + qrow * LDF + c0;
-      const float* drow = sdP + qrow * LDF + c0;
-      bf16* dsrow = sdS + qrow * LDB + c0;
-#pragma unroll 8
-      for (int c = 0; c < 32; ++c) {
-        float p = 0.f;
-        if (visible(sh, t, kb + c0 + c, sQs[qrow], sKs[c0 + c]))
-          p = expf(srow_s[c] * sh.scale - sLse[qrow]);
-        dsrow[c] = __float2bfloat16(p * (drow[c] - sDel[qrow]) * sh.scale);
-      }
+  const int b = bh / sh.H, head = bh % sh.H;
+  const int k0 = blockIdx.x * 128;
+  // the first 64-row q tile with a row that can see key k0
+  const int qstart = sh.causal ? max(0, k0 - sh.q_offset) / 64 * 64 : 0;
+  const int ntiles = qstart < sh.T ? (sh.T - qstart + 63) / 64 : 0;
+  init_ring(bar, done, 32);
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(bar, 4 * BOX128);
+      load_tile(sK, &tm_k, bar, head, k0, b, BOX128);
+      load_tile(sV, &tm_v, bar, head, k0, b, BOX128);
     }
-    __syncwarp();
-    mm_acc(dq_acc, sdS + warp * 16 * LDB, sK);
+    for (int j = 0; j < min(STAGES, ntiles); ++j)
+      fill_q_tile(sQd, rows, full, j, qstart + 64 * j, &tm_q, &tm_do, lse,
+                  delta, q_seg, b, bh, head, sh);
   }
-  __syncthreads();  // sS/sdP become the staging tile
-  store_rows(dq_acc, sS, dq + qh, q0, sh.T, rs, sh.D);
+
+  const int cw = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int k0w = k0 + 64 * cw;
+  const int s0 = k0w + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+  const float c = sh.scale * LOG2E;
+  int ks[2] = {0, 0};
+  if (sh.use_seg) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (s0 + 8 * hf < sh.S) ks[hf] = kv_seg[size_t(b) * sh.S + s0 + 8 * hf];
+  }
+  float dk_acc[64], dv_acc[64], st_acc[32], dp_acc[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  hopper::mbar_wait(bar, 0);
+  const uint64_t dK = hopper::desc_k(sK + cw * 64 * 128);
+  const uint64_t dV = hopper::desc_k(sV + cw * 64 * 128);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % STAGES;
+    const int qb = qstart + 64 * j;
+    uint8_t* sQ = sQd + st * 4 * BOX64;
+    uint8_t* sdO = sQ + 2 * BOX64;
+    const float* rv = rows + st * 192;
+    hopper::mbar_wait(&full[st], (j / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, this warpgroup's 64 keys x 64 rows,
+    // as two groups: P^T forms while dP^T is still in the tensor cores
+    const uint64_t dQ = hopper::desc_k(sQ), dO = hopper::desc_k(sdO);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::mma_64x64_ss(st_acc, hopper::desc_add(dK, k_step(kk, BOX128)),
+                           hopper::desc_add(dQ, k_step(kk, BOX64)), kk);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::mma_64x64_ss(dp_acc, hopper::desc_add(dV, k_step(kk, BOX128)),
+                           hopper::desc_add(dO, k_step(kk, BOX64)), kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(st_acc);
+
+    // P^T = exp2(S^T c - lse log2 e), 0 off the visible pairs
+    const bool masked = sh.use_seg || qb + 64 > sh.T || k0w + 64 > sh.S ||
+                        (sh.causal && qb + sh.q_offset < k0w + 63);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = acc_col(i, lane);
+      float p = exp2f(st_acc[i] * c - rv[col]);
+      if (masked) {
+        const int t = qb + col, key = s0 + 8 * acc_half(i);
+        const bool vis =
+            t < sh.T && key < sh.S && (!sh.causal || t + sh.q_offset >= key) &&
+            (!sh.use_seg ||
+             reinterpret_cast<const int*>(rv)[128 + col] == ks[acc_half(i)]);
+        if (!vis) p = 0.f;
+      }
+      st_acc[i] = p;
+    }
+    uint32_t pa[4][4], da[4][4];  // bf16 A operands, 16 q rows each
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(st_acc, kk, pa[kk]);
+
+    // dS^T = P^T (dP^T - delta) scale
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp_acc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp_acc[i] =
+          st_acc[i] * (dp_acc[i] - rv[64 + acc_col(i, lane)]) * sh.scale;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(dp_acc, kk, da[kk]);
+
+    // dV += P^T dO, dK += dS^T Q
+    const uint64_t mdO = hopper::desc_mn(sdO, BOX64);
+    const uint64_t mQ = hopper::desc_mn(sQ, BOX64);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::mma_64x128_rs(dv_acc, pa[kk], hopper::desc_add(mdO, kk * 2048));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::mma_64x128_rs(dk_acc, da[kk], hopper::desc_add(mQ, kk * 2048));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    if (release(done, st) && j + STAGES < ntiles)
+      fill_q_tile(sQd, rows, full, st, qb + 64 * STAGES, &tm_q, &tm_do, lse,
+                  delta, q_seg, b, bh, head, sh);
+  }
+
+  const int rs = sh.H * sh.D;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = s0 + 8 * hf;
+    if (key < sh.S) {
+      const size_t at = (size_t(b) * sh.S + key) * rs + size_t(head) * sh.D;
+      store_row(dk + at, dk_acc, hf, lane, sh.D, 1.f);
+      store_row(dv + at, dv_acc, hf, lane, sh.D, 1.f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ q_seg,
+                    const int* __restrict__ kv_seg, bf16* __restrict__ dq,
+                    Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = hopper::align1024(smem_raw);
+  uint8_t* sdO = sQ + 2 * BOX128;
+  uint8_t* sKV = sdO + 2 * BOX128;  // stage st: K, then V, 2 boxes each
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sKV + STAGES * 4 * BOX64);
+  uint64_t* full = bar + 1;
+  int* done = reinterpret_cast<int*>(bar + 1 + STAGES);
+
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H, head = bh % sh.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 128;  // heaviest tiles first
+  const int ntiles = (key_end(sh, q0, 128) + 63) / 64;
+  init_ring(bar, done, 1);
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(bar, 4 * BOX128);
+    load_tile(sQ, &tm_q, bar, head, q0, b, BOX128);
+    load_tile(sdO, &tm_do, bar, head, q0, b, BOX128);
+    for (int j = 0; j < min(STAGES, ntiles); ++j)
+      fill_pair(sKV, full, j, j, &tm_k, &tm_v, head, b, 64, BOX64);
+  }
+
+  const int cw = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int q0w = q0 + 64 * cw;
+  const int t0 = q0w + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+  const float c = sh.scale * LOG2E;
+  float lse2[2] = {0.f, 0.f}, del[2] = {0.f, 0.f};
+  int qs[2] = {0, 0};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int t = t0 + 8 * hf;
+    if (t < sh.T) {
+      lse2[hf] = lse[size_t(bh) * sh.T + t] * LOG2E;
+      del[hf] = delta[size_t(bh) * sh.T + t];
+      if (sh.use_seg) qs[hf] = q_seg[size_t(b) * sh.T + t];
+    }
+  }
+  float dq_acc[64], s_acc[32], dp_acc[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+
+  hopper::mbar_wait(bar, 0);
+  const uint64_t dQ = hopper::desc_k(sQ + cw * 64 * 128);
+  const uint64_t dO = hopper::desc_k(sdO + cw * 64 * 128);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % STAGES;
+    const int kb = 64 * j;
+    uint8_t* sK = sKV + st * 4 * BOX64;
+    hopper::mbar_wait(&full[st], (j / STAGES) & 1);
+
+    // S = Q K^T and dP = dO V^T, this warpgroup's 64 rows x 64 keys, as
+    // two groups: P forms while dP is still in the tensor cores
+    const uint64_t dK = hopper::desc_k(sK);
+    const uint64_t dV = hopper::desc_k(sK + 2 * BOX64);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::mma_64x64_ss(s_acc, hopper::desc_add(dQ, k_step(kk, BOX128)),
+                           hopper::desc_add(dK, k_step(kk, BOX64)), kk);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::mma_64x64_ss(dp_acc, hopper::desc_add(dO, k_step(kk, BOX128)),
+                           hopper::desc_add(dV, k_step(kk, BOX64)), kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(s_acc);
+
+    const bool masked = sh.use_seg || kb + 64 > sh.S ||
+                        (sh.causal && kb + 63 > q0w + sh.q_offset);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hf = acc_half(i);
+      float p = exp2f(s_acc[i] * c - lse2[hf]);
+      if (masked) {
+        const int t = t0 + 8 * hf, key = kb + acc_col(i, lane);
+        const bool vis =
+            key < sh.S && (!sh.causal || t + sh.q_offset >= key) &&
+            (!sh.use_seg || qs[hf] == kv_seg[size_t(b) * sh.S + key]);
+        if (!vis) p = 0.f;
+      }
+      s_acc[i] = p;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp_acc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp_acc[i] = s_acc[i] * (dp_acc[i] - del[acc_half(i)]) * sh.scale;
+
+    // dQ += dS K
+    const uint64_t mK = hopper::desc_mn(sK, BOX64);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 64 / 16; ++kk) {
+      uint32_t a[4];
+      hopper::acc_to_a(dp_acc, kk, a);
+      hopper::mma_64x128_rs(dq_acc, a, hopper::desc_add(mK, kk * 2048));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq_acc);
+    if (release(done, st) && lane == 0 && j + STAGES < ntiles)
+      fill_pair(sKV, full, st, j + STAGES, &tm_k, &tm_v, head, b, 64, BOX64);
+  }
+
+  const int rs = sh.H * sh.D;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int t = t0 + 8 * hf;
+    if (t < sh.T)
+      store_row(dq + (size_t(b) * sh.T + t) * rs + size_t(head) * sh.D,
+                dq_acc, hf, lane, sh.D, 1.f);
+  }
 }
 
 bool bad_shape(int B, int T, int S, int H, int D) {
@@ -485,13 +630,17 @@ extern "C" int aurora_flash_fwd(const void* q, const void* k, const void* v,
                                 float scale, void* stream) {
   if (bad_shape(B, T, S, H, D) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return int(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(fwd_kernel, SMEM_FWD);
+  CUtensorMap mq, mk, mv;
+  if (!hopper::map_blhd(&mq, q, B, T, H, D, 128) ||
+      !hopper::map_blhd(&mk, k, B, S, H, D, 128) ||
+      !hopper::map_blhd(&mv, v, B, S, H, D, 128))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(flash_fwd_kernel, SMEM_FWD);
   if (err != cudaSuccess) return int(err);
   const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
-  dim3 grid((T + BT - 1) / BT, B * H);
-  fwd_kernel<<<grid, NTHREADS, SMEM_FWD, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(q_seg),
+  dim3 grid((T + 127) / 128, B * H);
+  flash_fwd_kernel<<<grid, NTHREADS, SMEM_FWD, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, static_cast<const int*>(q_seg),
       static_cast<const int*>(kv_seg), static_cast<bf16*>(out),
       static_cast<float*>(lse), sh);
   return int(cudaGetLastError());
@@ -507,17 +656,22 @@ extern "C" int aurora_flash_bwd_dkv(const void* q, const void* k,
                                     float scale, void* stream) {
   if (bad_shape(B, T, S, H, D) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return int(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(bwd_dkv_kernel, SMEM_DKV);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::map_blhd(&mq, q, B, T, H, D, 64) ||
+      !hopper::map_blhd(&mk, k, B, S, H, D, 128) ||
+      !hopper::map_blhd(&mv, v, B, S, H, D, 128) ||
+      !hopper::map_blhd(&mdo, dout, B, T, H, D, 64))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel, SMEM_DKV);
   if (err != cudaSuccess) return int(err);
   const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
-  dim3 grid((S + BT - 1) / BT, B * H);
-  bwd_dkv_kernel<<<grid, NTHREADS, SMEM_DKV,
+  dim3 grid((S + 127) / 128, B * H);
+  flash_bwd_dkv_kernel<<<grid, NTHREADS, SMEM_DKV,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sh);
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(q_seg),
+      static_cast<const int*>(kv_seg), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), sh);
   return int(cudaGetLastError());
 }
 
@@ -531,16 +685,48 @@ extern "C" int aurora_flash_bwd_dq(const void* q, const void* k,
                                    float scale, void* stream) {
   if (bad_shape(B, T, S, H, D) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return int(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(bwd_dq_kernel, SMEM_DQ);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::map_blhd(&mq, q, B, T, H, D, 128) ||
+      !hopper::map_blhd(&mk, k, B, S, H, D, 64) ||
+      !hopper::map_blhd(&mv, v, B, S, H, D, 64) ||
+      !hopper::map_blhd(&mdo, dout, B, T, H, D, 128))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel, SMEM_DQ);
   if (err != cudaSuccess) return int(err);
   const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
-  dim3 grid((T + BT - 1) / BT, B * H);
-  bwd_dq_kernel<<<grid, NTHREADS, SMEM_DQ,
+  dim3 grid((T + 127) / 128, B * H);
+  flash_bwd_dq_kernel<<<grid, NTHREADS, SMEM_DQ,
                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
-      static_cast<bf16*>(dq), sh);
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(q_seg),
+      static_cast<const int*>(kv_seg), static_cast<bf16*>(dq), sh);
   return int(cudaGetLastError());
+}
+
+// registers a thread, local (spill) bytes a thread and dynamic shared bytes
+// a block of one of this file's kernels: "flash_fwd", "flash_bwd_dkv" or
+// "flash_bwd_dq"
+extern "C" int aurora_kernel_attrs(const char* name, int* regs,
+                                   int* local_bytes, int* smem) {
+  const void* fn = nullptr;
+  size_t dynamic = 0;
+  if (strcmp(name, "flash_fwd") == 0) {
+    fn = reinterpret_cast<const void*>(flash_fwd_kernel);
+    dynamic = SMEM_FWD;
+  } else if (strcmp(name, "flash_bwd_dkv") == 0) {
+    fn = reinterpret_cast<const void*>(flash_bwd_dkv_kernel);
+    dynamic = SMEM_DKV;
+  } else if (strcmp(name, "flash_bwd_dq") == 0) {
+    fn = reinterpret_cast<const void*>(flash_bwd_dq_kernel);
+    dynamic = SMEM_DQ;
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return int(err);
+  *regs = attr.numRegs;
+  *local_bytes = int(attr.localSizeBytes);
+  *smem = int(attr.sharedSizeBytes + dynamic);
+  return 0;
 }

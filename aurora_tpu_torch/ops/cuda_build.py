@@ -59,6 +59,9 @@ SIGNATURES = {
         [_P] * 10 + [_I] * 7 + [_F, _P],
     "aurora_flash_bwd_dq":
         [_P] * 9 + [_I] * 7 + [_F, _P],
+    # name, then int* registers, local (spill) bytes, dynamic shared bytes
+    "aurora_kernel_attrs":
+        [ctypes.c_char_p, _P, _P, _P],
 }
 
 _lib = None
@@ -135,3 +138,16 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def kernel_attrs(name: str) -> dict:
+    """Registers a thread, local (spill) bytes a thread and dynamic shared
+    bytes a block of one kernel of the library, by the name that
+    `aurora_kernel_attrs` knows (e.g. "flash_fwd")."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = load_library().aurora_kernel_attrs(
+        name.encode(), *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"aurora_kernel_attrs({name!r}) failed "
+                           f"(cudaError {err})")
+    return dict(zip(("regs", "local_bytes", "smem"), (v.value for v in vals)))

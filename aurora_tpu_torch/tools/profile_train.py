@@ -36,7 +36,8 @@ from aurora_tpu_torch.tools.profile_serve import (device_events,
 
 _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 # the kernels of csrc/flash_attention.cu as the trace names them
-_FLASH_MARKS = ("::fwd_kernel(", "::bwd_dkv_kernel(", "::bwd_dq_kernel(")
+_FLASH_MARKS = ("::flash_fwd_kernel(", "::flash_bwd_dkv_kernel(",
+                "::flash_bwd_dq_kernel(")
 REPS = 3          # timed steps per setting, after one warm-up
 
 

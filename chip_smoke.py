@@ -21,7 +21,9 @@ without an attention mask, so that attention runs the flash kernels.
 Phases, one line each; any failure raises and exits non-zero:
 
 1. device        — requires CUDA; prints the card's name and power limit
-2. build         — compiles the CUDA kernels from aurora_tpu_torch/csrc
+2. build         — compiles the CUDA kernels from aurora_tpu_torch/csrc;
+                   prints each flash kernel's registers a thread, local
+                   (spill) bytes a thread and dynamic shared bytes a block
 3. kernels       — each kernel and mode vs its plain PyTorch twin at the
                    slice's shapes: both attention kernels with bf16, int8
                    and packed int4 KV (bf16 in, fp32 reference; decode row
@@ -837,6 +839,13 @@ def flash_times(torch, F, fa, q, k, v, dout):
     t["fwd_bound"] = least_ms(pairs * 4 * D, 4 * elem + rows)
     t["dkv_bound"] = least_ms(pairs * 8 * D, 6 * elem + 2 * rows)
     t["dq_bound"] = least_ms(pairs * 6 * D, 5 * elem + 2 * rows)
+    # achieved TFLOP/s; SDPA's backward at the 5 products (10 D a pair)
+    # of its own algorithm, ours at 14 D
+    for name, ms, per_pair in (
+            ("fwd", t["fwd_ms"], 4), ("dkv", t["dkv_ms"], 8),
+            ("dq", t["dq_ms"], 6), ("library_fwd", t["library_fwd_ms"], 4),
+            ("library_bwd", t["library_bwd_ms"], 10)):
+        t[name + "_tflops"] = pairs * per_pair * D / ms / 1e9
     return t
 
 
@@ -1182,9 +1191,13 @@ def main():
 
     t0 = time.perf_counter()
     cuda_build.load_library()
+    attrs = {n: cuda_build.kernel_attrs(n)
+             for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
           nvcc_seconds=f"{cuda_build.build_seconds:.1f}",
-          library=cuda_build.library_path().name)
+          library=cuda_build.library_path().name,
+          **{n: "regs={regs}/local={local_bytes}/smem={smem}".format(**a)
+             for n, a in attrs.items()})
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     kres = {(mode, hkv): attention_case(torch, ra, dev, g, hkv, mode)

@@ -509,22 +509,19 @@ def _grad_rel(got, want):
     return ((got.float() - want).abs().max() / want.abs().max()).item()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("Hkv,D,q_offset,segments", [
-    (8, 128, 0, False), (2, 128, 0, False), (8, 128, 64, True),
-    (8, 64, 0, False)])
-def test_flash_kernels_match_plain_on_card(cuda_device, Hkv, D, q_offset,
-                                           segments):
-    B, T, H = 2, 300, 8
-    S = T + q_offset
-    q, k, v, g = _flash_inputs(cuda_device, D + Hkv, B, T, S, H, Hkv, D)
-    kw = dict(causal=True, q_offset=q_offset)
+def _flash_check(dev, seed, B, T, S, H, Hkv, D, causal, q_offset, segments):
+    """The kernels vs the fp32 twin: out, the per-row error, q/k/v grads
+    and the launch counts; with segments (S = T + q_offset) three
+    documents whose boundaries fall inside tiles, and rows 200.. of the
+    last batch row carry an id no key has."""
+    q, k, v, g = _flash_inputs(dev, seed, B, T, S, H, Hkv, D)
+    kw = dict(causal=causal, q_offset=q_offset)
     if segments:
-        seg = torch.zeros((B, S), dtype=torch.int32, device=cuda_device)
+        seg = torch.zeros((B, S), dtype=torch.int32, device=dev)
         seg[:, 100:230] = 1
         seg[:, 230:] = 2
         qseg = seg[:, q_offset:].clone()
-        qseg[1, 200:] = 9                    # rows that see no key
+        qseg[-1, 200:] = 9                   # rows that see no key
         kw.update(q_segment_ids=qseg, kv_segment_ids=seg)
     counters = ("launches_fwd", "launches_dkv", "launches_dq")
     launches = [getattr(tfa.flash_attention, c) for c in counters]
@@ -541,10 +538,33 @@ def test_flash_kernels_match_plain_on_card(cuda_device, Hkv, D, q_offset,
     row_max = want.abs().amax(-1).clamp_min(1e-6)
     assert (diff.amax(-1) / row_max).max().item() <= 1.5e-2
     if segments:
-        assert bool((got[1, 200:] == 0).all())
-        assert bool((got_g[0][1, 200:] == 0).all())
+        assert bool((got[-1, 200:] == 0).all())
+        assert bool((got_g[0][-1, 200:] == 0).all())
     for name, a, b in zip("qkv", got_g, want_g):
         assert _grad_rel(a, b) <= 1.5e-2, name
+
+
+# T and S off the tiles of 64 and 128, the causal diagonal across two key
+# tiles (q_offset 64, 200), heads of 64 and 96 (zero-filled by the TMA
+# boxes of 64 columns), non-causal with S != T, segment boundaries inside
+# tiles
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,Hkv,D,causal,q_offset,segments", [
+    (300, 300, 8, 128, True, 0, False), (300, 300, 2, 128, True, 0, False),
+    (300, 364, 8, 128, True, 64, True), (300, 300, 8, 64, True, 0, False),
+    (300, 500, 8, 128, True, 200, False), (300, 300, 8, 96, True, 0, False),
+    (300, 200, 8, 128, False, 0, False), (200, 330, 4, 128, False, 0, False),
+    (300, 300, 8, 128, False, 0, True), (300, 300, 8, 128, True, 0, True)])
+def test_flash_kernels_match_plain_on_card(cuda_device, T, S, Hkv, D, causal,
+                                           q_offset, segments):
+    _flash_check(cuda_device, D + Hkv + q_offset, 2, T, S, 8, Hkv, D, causal,
+                 q_offset, segments)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_match_plain_at_training_width_on_card(cuda_device):
+    """B x H = 4 x 32 at T 2048, causal: forward and backward."""
+    _flash_check(cuda_device, 3, 4, 2048, 2048, 32, 32, 128, True, 0, False)
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@ JAX package's Pallas `flash_attention` / `flash_attention_lse` (interpret
 mode on the CPU, blocks of 128), float32, inputs made with numpy from a
 seed. Tolerances as the JAX package's own flash tests: 2e-5 for the
 forward (out, lse), 1e-4 for the q/k/v gradients (fp32 summation order
-over up to 300 keys). Also the dispatch `mha` and `mha_reference` with
+over up to 500 keys). Also the dispatch `mha` and `mha_reference` with
 segment ids."""
 
 import jax
@@ -21,7 +21,7 @@ TOL_FWD = dict(rtol=2e-5, atol=2e-5)
 TOL_GRAD = dict(rtol=1e-4, atol=1e-4)
 BLOCKS = dict(block_q=128, block_kv=128)
 
-# name: (T, S, H, Hkv, causal, q_offset, segments)
+# name: (T, S, H, Hkv, causal, q_offset, segments[, head_dim])
 CASES = {
     "t128": (128, 128, 2, 2, False, 0, False),
     "t128_causal": (128, 128, 2, 2, True, 0, False),
@@ -32,11 +32,16 @@ CASES = {
     "gqa": (160, 160, 4, 2, True, 0, False),
     "q_offset": (128, 256, 2, 2, True, 128, False),
     "segments": (200, 200, 2, 2, True, 0, True),
+    # the diagonal crosses two key tiles of 128, T ends inside a tile
+    "t300_q_offset200": (300, 500, 2, 2, True, 200, False),
+    "t200_s330": (200, 330, 2, 2, False, 0, False),
+    "d64_causal": (160, 160, 2, 2, True, 0, False, 64),
 }
 
 
-def _inputs(case, seed=0, B=2, D=128):
-    T, S, H, Hkv, causal, off, segs = CASES[case]
+def _inputs(case, seed=0, B=2, D=None):
+    T, S, H, Hkv, causal, off, segs, *head = CASES[case]
+    D = D or (head[0] if head else 128)
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, T, H, D)).astype(np.float32)
     k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)

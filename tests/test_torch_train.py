@@ -354,6 +354,10 @@ def test_profile_train_runs_on_cpu(tmp_path):
     assert res["profiled"] == "full" and res["device_ms"] == 0.0
     assert set(res["group_ms"]) == {"flash", "matmul", "other"}
     assert (tmp_path / "train_step_trace.json").exists()
-    assert profile_train.group_of("void (anonymous namespace)::"
-                                  "bwd_dq_kernel(bf16 const*)") == "flash"
+    for name in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                 "flash_bwd_dq_kernel"):
+        assert profile_train.group_of(
+            f"(anonymous namespace)::{name}(CUtensorMap, CUtensorMap, "
+            "CUtensorMap, int const*, int const*, __nv_bfloat16*, "
+            "float*, (anonymous namespace)::Shape)") == "flash"
     assert profile_train.group_of("nvjet_hsh_128x256") == "matmul"
