@@ -58,6 +58,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 #include <string.h>
 
 #include "hopper_common.cuh"
@@ -703,30 +704,47 @@ extern "C" int aurora_flash_bwd_dq(const void* q, const void* k,
   return int(cudaGetLastError());
 }
 
-// registers a thread, local (spill) bytes a thread and dynamic shared bytes
-// a block of one of this file's kernels: "flash_fwd", "flash_bwd_dkv" or
-// "flash_bwd_dq"
+// the ragged attention kernels (ragged_decode.cu, ragged_extend.cu)
+extern "C" int aurora_ragged_decode_kernel(const char* mode, int gm,
+                                           const void** fn, int* smem);
+extern "C" int aurora_ragged_extend_kernel(const char* mode, const void** fn,
+                                           int* smem);
+
+// registers a thread, local (spill) bytes a thread and shared bytes a block
+// (static and dynamic) of one kernel of the library: "flash_fwd",
+// "flash_bwd_dkv", "flash_bwd_dq", "ragged_extend_<mode>" or
+// "ragged_decode_<mode>_g<1|2|4|8>", mode bf16, int8 or int4
 extern "C" int aurora_kernel_attrs(const char* name, int* regs,
                                    int* local_bytes, int* smem) {
   const void* fn = nullptr;
-  size_t dynamic = 0;
+  int dynamic = 0;
+  int err_name = 0;
+  char mode[8] = {0};
+  int gm = 0;
   if (strcmp(name, "flash_fwd") == 0) {
     fn = reinterpret_cast<const void*>(flash_fwd_kernel);
-    dynamic = SMEM_FWD;
+    dynamic = int(SMEM_FWD);
   } else if (strcmp(name, "flash_bwd_dkv") == 0) {
     fn = reinterpret_cast<const void*>(flash_bwd_dkv_kernel);
-    dynamic = SMEM_DKV;
+    dynamic = int(SMEM_DKV);
   } else if (strcmp(name, "flash_bwd_dq") == 0) {
     fn = reinterpret_cast<const void*>(flash_bwd_dq_kernel);
-    dynamic = SMEM_DQ;
+    dynamic = int(SMEM_DQ);
+  } else if (strncmp(name, "ragged_extend_", 14) == 0 &&
+             strlen(name + 14) < sizeof(mode)) {
+    err_name = aurora_ragged_extend_kernel(name + 14, &fn, &dynamic);
+  } else if (strncmp(name, "ragged_decode_", 14) == 0 &&
+             sscanf(name + 14, "%4[a-z0-9]_g%d", mode, &gm) == 2) {
+    err_name = aurora_ragged_decode_kernel(mode, gm, &fn, &dynamic);
   } else {
     return int(cudaErrorInvalidValue);
   }
+  if (err_name != 0 || fn == nullptr) return int(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return int(err);
   *regs = attr.numRegs;
   *local_bytes = int(attr.localSizeBytes);
-  *smem = int(attr.sharedSizeBytes + dynamic);
+  *smem = int(attr.sharedSizeBytes) + dynamic;
   return 0;
 }

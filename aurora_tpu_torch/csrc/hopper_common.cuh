@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: TMA tensor
-// maps and loads, mbarriers, and wgmma with shared-memory descriptors for
-// the 128-byte swizzle.
+// maps and loads, 1-D bulk copies, mbarriers, and wgmma with shared-memory
+// descriptors for the 128-byte swizzle.
 //
 // Tiles: a [rows][64] bf16 box of 128-byte rows, as TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_128B (the 16-byte chunk c of row r sits at chunk
@@ -17,7 +17,9 @@
 // (warp w, lane l) holds d[4j + 2h + e] = D[16w + l/4 + 8h][8j + 2(l%4) + e]
 // for j < N/8, h, e in {0, 1}; that is also the layout of a register A
 // operand of 16 columns (4 x bf16x2), so a bf16 copy of the accumulator
-// feeds the next product without leaving registers.
+// feeds the next product without leaving registers. A tile that threads
+// write themselves (a dequantized K/V tile) takes the same layout through
+// swz128(), and fence_proxy_async() before a wgmma reads it.
 
 #pragma once
 
@@ -77,10 +79,43 @@ inline bool map_blhd(CUtensorMap* map, const void* base, int B, int L, int H,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// stripes of `rows` rows of `row_bytes` bytes each ([stripes][rows][row],
+// one stripe after the other) as the 3-D map (row, rows, stripes) of
+// `elem_bytes`-byte elements (2: bf16, 1: bytes), boxes of `box_cols`
+// elements x `box_rows` rows x 1 stripe; rows past `rows` read as zeros
+// within each stripe. row_bytes % 16 == 0.
+inline bool map_stripes(CUtensorMap* map, const void* base, int elem_bytes,
+                        int row_bytes, int rows, long long stripes,
+                        int box_cols, int box_rows, bool swizzle128) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(row_bytes / elem_bytes),
+                              cuuint64_t(rows), cuuint64_t(stripes)};
+  const cuuint64_t strides[2] = {cuuint64_t(row_bytes),
+                                 cuuint64_t(row_bytes) * cuuint64_t(rows)};
+  const cuuint32_t box[3] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map,
+            elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                            : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+            3, const_cast<void*>(base), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---------------------------------------------------------------- device
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk `chunk` (< 8) of row r in a [rows][64] bf16
+// box with the 128-byte swizzle
+__device__ __forceinline__ uint32_t swz128(int r, int chunk) {
+  return uint32_t(r) * 128u + uint32_t((chunk ^ (r & 7)) * 16);
 }
 
 // the first 1024-byte boundary at or after p, in shared memory
@@ -127,6 +162,36 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (spin == (1u << 28)) __trap();
   }
+}
+
+// order this thread's earlier generic-proxy accesses to shared memory
+// before later async-proxy ones (a bulk copy or TMA load into it, a wgmma
+// reading it)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) of global
+// memory at src into shared memory at dst; completes on bar
+__device__ __forceinline__ void bulk_copy_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one box of `map` at (c0, c1, c2) into dst; completes on bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
 }
 
 // one box of `map` at (c0, c1, c2, c3) into dst; completes on bar

@@ -30,19 +30,20 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu, every pointer and the stream as c_void_p
 SIGNATURES = {
     # ragged attention: ..., scale, window, cap, 1/cap[, kv_maxq,
-    # 1/kv_maxq], stream
+    # 1/kv_maxq], stream; extend: ..., Hkv, L, B, S, head_dim, scale, ...;
+    # decode: ..., head_dim, split, nsplit, scale, ...
     "aurora_ragged_extend_bf16":
-        [_P] * 8 + [_I] * 7 + [_F, _I, _F, _F, _P],
+        [_P] * 8 + [_I] * 8 + [_F, _I, _F, _F, _P],
     "aurora_ragged_decode_bf16":
-        [_P] * 9 + [_I] * 6 + [_F, _I, _F, _F, _P],
+        [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _P],
     "aurora_ragged_extend_int8":
-        [_P] * 10 + [_I] * 7 + [_F, _I, _F, _F, _P],
+        [_P] * 10 + [_I] * 8 + [_F, _I, _F, _F, _P],
     "aurora_ragged_decode_int8":
-        [_P] * 11 + [_I] * 6 + [_F, _I] + [_F] * 4 + [_P],
+        [_P] * 13 + [_I] * 8 + [_F, _I] + [_F] * 4 + [_P],
     "aurora_ragged_extend_int4":
-        [_P] * 10 + [_I] * 7 + [_F, _I, _F, _F, _P],
+        [_P] * 10 + [_I] * 8 + [_F, _I, _F, _F, _P],
     "aurora_ragged_decode_int4":
-        [_P] * 11 + [_I] * 6 + [_F, _I] + [_F] * 4 + [_P],
+        [_P] * 13 + [_I] * 8 + [_F, _I] + [_F] * 4 + [_P],
     "aurora_w4a8_matmul":
         [_P] * 7 + [_I] * 6 + [_P],
     "aurora_w4a8_flat_matmul":
@@ -59,7 +60,7 @@ SIGNATURES = {
         [_P] * 10 + [_I] * 7 + [_F, _P],
     "aurora_flash_bwd_dq":
         [_P] * 9 + [_I] * 7 + [_F, _P],
-    # name, then int* registers, local (spill) bytes, dynamic shared bytes
+    # name, then int* registers, local (spill) bytes, shared bytes
     "aurora_kernel_attrs":
         [ctypes.c_char_p, _P, _P, _P],
 }
@@ -141,9 +142,10 @@ def load_library() -> ctypes.CDLL:
 
 
 def kernel_attrs(name: str) -> dict:
-    """Registers a thread, local (spill) bytes a thread and dynamic shared
-    bytes a block of one kernel of the library, by the name that
-    `aurora_kernel_attrs` knows (e.g. "flash_fwd")."""
+    """Registers a thread, local (spill) bytes a thread and shared bytes a
+    block of one kernel of the library, by the name that
+    `aurora_kernel_attrs` knows (e.g. "flash_fwd", "ragged_extend_int8",
+    "ragged_decode_bf16_g4")."""
     vals = [ctypes.c_int(0) for _ in range(3)]
     err = load_library().aurora_kernel_attrs(
         name.encode(), *(ctypes.byref(v) for v in vals))

@@ -25,7 +25,11 @@ falls back from one to the other. `*.launches` (bf16 kernels),
 `*.launches_int8` (int8 kernels), `*.launches_int4` (packed int4 kernels)
 and `*_plain.calls` (twins, any mode) count how often each path ran;
 `*.launches_window` counts, beside them, the launches of any mode that ran
-with a sliding window or a logit softcap.
+with a sliding window or a logit softcap. The decode kernel's split-KV
+grid is planned on the host by `decode_plan`. Its splits merge through
+one buffer of tickets per device, so decode launches on one device must
+run one at a time: on one stream, or ordered between streams (two graph
+replays that capture it included).
 
 Both functions take the reference's two options. `window` w (Mistral's
 sliding window; None or <= 0 disables it): a query at position p sees
@@ -134,6 +138,62 @@ def _inv_cap(logit_cap: float) -> float:
     """fp32(1) / fp32(c): what XLA multiplies by for the reference's
     division by the constant c."""
     return float(np.float32(1.0) / np.float32(logit_cap))
+
+
+# ---------------------------------------------------------------------------
+# The decode kernel's split-KV grid (csrc/ragged_decode.cu)
+# ---------------------------------------------------------------------------
+
+# the decode kernel's grid aims at no more than this many blocks an SM
+# before it makes a split longer than one packing segment
+_DECODE_BLOCKS_PER_SM = 4
+
+
+def decode_plan(S: int, window: int, heads: int, sm_count: int):
+    """(split, nsplit) of the decode kernel's grid of (split, KV head,
+    lane) blocks, from what the host knows: S (token-space row width),
+    the window (0: off), heads = lanes x KV heads and the SM count; never
+    kv_lens, which lives on the device. A split is a multiple of PACK_SEG
+    keys, so an int4 segment and its mate tokens stay in one block. The
+    splits start at 0, or with a window at the segment of the lane's first
+    visible key, so they must span min(S, window + PACK_SEG - 1) keys;
+    splits of one segment each unless that gives more than
+    _DECODE_BLOCKS_PER_SM blocks an SM."""
+    span = S if window <= 0 else min(S, window + PACK_SEG - 1)
+    segs = max(1, -(-span // PACK_SEG))
+    per = max(1, segs * heads // (_DECODE_BLOCKS_PER_SM * sm_count))
+    split = per * PACK_SEG
+    return split, -(-max(span, 1) // split)
+
+
+_sm_counts: dict = {}
+_tickets: dict = {}
+
+
+def _sm_count(dev) -> int:
+    key = torch.cuda._get_device_index(dev, optional=True)
+    if key not in _sm_counts:
+        _sm_counts[key] = torch.cuda.get_device_properties(
+            key).multi_processor_count
+    return _sm_counts[key]
+
+
+def _decode_tickets(dev, n: int) -> torch.Tensor:
+    """The decode kernel's per-(lane, KV head) merge tickets: int32 zeros
+    kept per device across launches (the merging block resets its own),
+    grown outside any CUDA graph capture. A buffer once handed out is never
+    freed, since a captured graph keeps its address: a larger one is added
+    beside it, and the newest serves later launches."""
+    key = torch.cuda._get_device_index(dev, optional=True)
+    kept = _tickets.setdefault(key, [])
+    if not kept or kept[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("ragged_decode_attention: the merge tickets "
+                               f"must hold {n} entries before a capture; "
+                               "launch once outside it first")
+        size = max(n, 2 * kept[-1].numel() if kept else 4096)
+        kept.append(torch.zeros(size, dtype=torch.int32, device=dev))
+    return kept[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +327,9 @@ def _check_cuda(name, tensors, ints):
         if t.dtype != dtype:
             raise TypeError(f"{name}: {label} must be {dtype} on the "
                             f"card, got {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must start on a 16-byte "
+                             "boundary (bulk copies)")
 
 
 def _kv_tensors(k_rows, v_rows, k_scales, v_scales, kv_pack=False):
@@ -281,6 +344,9 @@ def _kv_tensors(k_rows, v_rows, k_scales, v_scales, kv_pack=False):
     if kv_pack and want[3] % PACK_SEG:
         raise ValueError(f"packed KV rows must hold a multiple of "
                          f"{PACK_SEG} tokens, got {want[3]}")
+    if want[3] % 4:       # the kernels copy scale planes in 16-byte units
+        raise ValueError(f"int8 KV rows must hold a multiple of 4 tokens "
+                         f"on the card, got {want[3]}")
     if tuple(k_scales.shape) != want or tuple(v_scales.shape) != want:
         raise ValueError(f"k_scales/v_scales must be {list(want)}, got "
                          f"{tuple(k_scales.shape)} / "
@@ -392,7 +458,8 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
         scale = hd ** -0.5
     tail = (out.data_ptr(), idx["kv_lens"].data_ptr(),
             idx["q_offsets"].data_ptr(), idx["row_ids"].data_ptr(),
-            idx["layer"].data_ptr(), Bk, T, Hq, Hkv, B, S, hd, float(scale),
+            idx["layer"].data_ptr(), Bk, T, Hq, Hkv, L, B, S, hd,
+            float(scale),
             *_option_args(window, logit_cap),
             torch.cuda.current_stream(q.device).cuda_stream)
     suffix, counter = _mode(quant, kv_pack)
@@ -469,12 +536,21 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
     lib = load_library()
     if scale is None:
         scale = hd ** -0.5
+    G = Hq // Hkv
+    split, nsplit = decode_plan(S, window, Bq * Hkv, _sm_count(q.device))
+    part = tickets = None
+    if nsplit > 1:    # partials of the splits, merged by the last block
+        part = torch.empty(Bq * Hkv * nsplit * G * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+        tickets = _decode_tickets(q.device, Bq * Hkv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_rows.data_ptr(), v_rows.data_ptr())
-    tail = (out.data_ptr(), idx["kv_lens"].data_ptr(),
-            idx["row_ids"].data_ptr(), idx["layer"].data_ptr(),
-            Bq, Hq, Hkv, B, S, hd, float(scale),
+    tail = (out.data_ptr(), *(t.data_ptr() if t is not None else None
+                              for t in (part, tickets)),
+            idx["kv_lens"].data_ptr(), idx["row_ids"].data_ptr(),
+            idx["layer"].data_ptr(),
+            Bq, Hq, Hkv, B, S, hd, split, nsplit, float(scale),
             *_option_args(window, logit_cap))
     suffix, counter = _mode(quant, kv_pack)
     if quant:

@@ -22,8 +22,11 @@ Phases, one line each; any failure raises and exits non-zero:
 
 1. device        — requires CUDA; prints the card's name and power limit
 2. build         — compiles the CUDA kernels from aurora_tpu_torch/csrc;
-                   prints each flash kernel's registers a thread, local
-                   (spill) bytes a thread and dynamic shared bytes a block
+                   prints the registers a thread, local (spill) bytes a
+                   thread and shared bytes a block of each flash kernel,
+                   of the extend kernel in each KV mode and of the decode
+                   kernel in each KV mode for 1 and 4 query heads a KV
+                   head
 3. kernels       — each kernel and mode vs its plain PyTorch twin at the
                    slice's shapes: both attention kernels with bf16, int8
                    and packed int4 KV (bf16 in, fp32 reference; decode row
@@ -33,7 +36,12 @@ Phases, one line each; any failure raises and exits non-zero:
                    7168, Hkv 8, a 6144-token extend, decode past the
                    window) with its window of 4096, each windowed or
                    capped result also 10x further from the twin without
-                   the option than from the twin with it; the
+                   the option than from the twin with it; every decode
+                   case called twice more must repeat its output
+                   bitwise; decode lengths on the decode kernel's split
+                   boundaries (256, 257, 512, 1025, 1536, 1792; with a
+                   window of 512 whose edge falls on and inside a
+                   split); the
                    W4A8 (stripe and flat layouts), W4A16 and W8A8 matmuls
                    at the 7B's four decode projections, the fused W4 MLP
                    at one 7B layer's MLP (bitwise repeatable; beside the
@@ -198,6 +206,14 @@ SERVING_OPTIONS = (dict(window=512), dict(logit_cap=50.0, q_gain=8.0),
 MISTRAL_CASE = dict(S=7168, T=6144, offs=(0, 0, 0, 0),
                     lens=(6144, 6100, 5000, 0), dlens=(7168, 4097, 0, 5000),
                     window=4096)
+KV_MODES = ("bf16", "int8", "int4")
+# decode lengths on the decode kernel's split boundaries (splits of 256
+# keys) at the serving shape, lane 2 inactive as in every case: the new
+# token last and first in a split, a full row; with a window of 512 its
+# lower edge on a boundary (768 - 512) and inside a split (1000 - 512)
+SPLIT_BOUNDARY_CASES = (dict(dlens=(256, 257, 0, 1536)),
+                        dict(dlens=(1792, 512, 0, 1025)),
+                        dict(dlens=(768, 1000, 0, 513), window=512))
 # the 7B's decode projections (fused streams): name, K, N
 W4_SHAPES = (("qkv", 4096, 12288), ("o", 4096, 4096),
              ("gateup", 4096, 22016), ("down", 11008, 4096))
@@ -262,6 +278,38 @@ def cuda_ms(fn, reps=5):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def graph_ms(fn, reps=5, inner=20):
+    """Median milliseconds of one fn() replayed from a CUDA graph: CUDA
+    events around `inner` back-to-back replays, after a warm-up call and
+    the capture. This is the device time of what fn launches without the
+    host's time to issue it (a Python wrapper's ~0.1 ms would otherwise
+    be most of a decode kernel's reading), as the engine's decode block
+    will run once it is captured (ROADMAP queue 1 item 2)."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    del graph
     return float(np.median(times))
 
 
@@ -342,7 +390,8 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
             krow = krow.repeat_interleave(Hq // hkv, dim=1)
             vrow = vrow.repeat_interleave(Hq // hkv, dim=1)
     spos = torch.arange(S, device=dev)
-    tag = dict(kv=mode, hkv=hkv, S=S, T=T, window=w, cap=logit_cap)
+    tag = dict(kv=mode, hkv=hkv, S=S, T=T, window=w, cap=logit_cap,
+               dlens=",".join(map(str, dlens)))
 
     q = q_gain * torch.randn((B, T, Hq, hd), generator=g, **bf)
     offs_t = torch.tensor(offs, **i32)
@@ -375,8 +424,11 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
         check(control["extend_off_diff"]
               > OFF_CONTROL * control["extend_err_cut"],
               f"extend {tag}: {control}")
-    ms_e = cuda_ms(lambda: ra.ragged_attention(q, k, v, lens_t, offs_t, rows,
-                                               layer=layer, **kv, **opts))
+    def extend_kernel():
+        return ra.ragged_attention(q, k, v, lens_t, offs_t, rows,
+                                   layer=layer, **kv, **opts)
+    ms_e = graph_ms(extend_kernel)
+    eager_e = cuda_ms(extend_kernel)
     ms_ep = cuda_ms(lambda: ra.ragged_attention_plain(
         q, k, v, lens_t, offs_t, rows, layer=lay, **kv, **opts), reps=3)
     # work of these inputs: query t of lane i (position p = off + t) sees
@@ -401,8 +453,11 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
             emask &= spos[None, None, :] > qpos[:, :, None] - w
         emask = emask[:, None]
         qt = q.transpose(1, 2)
-        lib_e = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, krow, vrow, attn_mask=emask))
+        def extend_library():
+            return F.scaled_dot_product_attention(qt, krow, vrow,
+                                                  attn_mask=emask)
+        lib_e = graph_ms(extend_library)
+        eager_lib_e = cuda_ms(extend_library)
         del emask
     del q, got, want, diff
 
@@ -430,6 +485,14 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     check(bool((diff <= DECODE_ABS_TOL + rnd * want.abs()).all()),
           f"decode {tag} err {err_d}")
     check(rel_d <= DECODE_REL_TOL, f"decode {tag} rel {rel_d}")
+    # two more calls on the same inputs (each rewrites the same token in
+    # place): the splits' partials merge in split order whichever block
+    # merges, so the output repeats bitwise
+    for _ in range(2):
+        again = ra.ragged_decode_attention(qd, kn, vn, k, v, dlens_t, rows,
+                                           layer=layer, **dkv, **opts)[0]
+        check(torch.equal(again, out),
+              f"decode {tag} is not bitwise repeatable")
     if w or logit_cap:
         off = ra.ragged_decode_attention_plain(qd.float(), kn, vn, *plain[:2],
                                                dlens_t, rows, layer=lay,
@@ -441,9 +504,11 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
         check(control["decode_off_diff"]
               > OFF_CONTROL * control["decode_err_cut"],
               f"decode {tag}: {control}")
-    ms_d = cuda_ms(lambda: ra.ragged_decode_attention(
-        qd, kn, vn, k, v, dlens_t, rows, layer=layer, **dkv, **opts),
-        reps=20)
+    def decode_kernel():
+        return ra.ragged_decode_attention(qd, kn, vn, k, v, dlens_t, rows,
+                                          layer=layer, **dkv, **opts)
+    ms_d = graph_ms(decode_kernel, inner=100)
+    eager_d = cuda_ms(decode_kernel, reps=20)
     ms_dp = cuda_ms(lambda: ra.ragged_decode_attention_plain(
         qd, kn, vn, *plain[:2], dlens_t, rows, layer=lay, **pkv, **opts),
         reps=20)
@@ -468,22 +533,32 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
             dmask = (torch.arange(W, device=dev)[None, :]
                      < torch.tensor(nd, device=dev)[:, None])
             dmask = dmask[:, None, None, :]
-            lib_d = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qdt, kw_, vw_, attn_mask=dmask), reps=20)
-            del kw_, vw_
+            kd, vd = kw_, vw_
         else:
             dmask = (spos[None, :] < dlens_t[:, None])[:, None, None, :]
-            lib_d = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qdt, krow, vrow, attn_mask=dmask), reps=20)
+            kd, vd = krow, vrow
+
+        def decode_library():
+            return F.scaled_dot_product_attention(qdt, kd, vd,
+                                                  attn_mask=dmask)
+        lib_d = graph_ms(decode_library, inner=100)
+        eager_lib_d = cuda_ms(decode_library, reps=20)
+        del kd, vd
+    # ms: CUDA-graph replays (device time); eager_ms: one call between
+    # two events, the host's issue time included (PRs 1-7's readings)
     phase("kernels", **tag, extend_err=f"{err_e:.3e}",
-          extend_rel=f"{rel_e:.3e}", extend_ms=f"{ms_e:.3f}",
+          extend_rel=f"{rel_e:.3e}", extend_ms=f"{ms_e:.4f}",
+          extend_eager_ms=f"{eager_e:.4f}",
           extend_plain_ms=f"{ms_ep:.3f}",
           extend_bound_ms=f"{extend_bound[0]:.4f}",
-          extend_library_ms=lib_e and f"{lib_e:.3f}",
+          extend_library_ms=lib_e and f"{lib_e:.4f}",
+          extend_library_eager_ms=lib_e and f"{eager_lib_e:.4f}",
           decode_err=f"{err_d:.3e}", decode_rel=f"{rel_d:.3e}",
-          decode_ms=f"{ms_d:.4f}", decode_plain_ms=f"{ms_dp:.4f}",
+          decode_ms=f"{ms_d:.4f}", decode_eager_ms=f"{eager_d:.4f}",
+          decode_plain_ms=f"{ms_dp:.4f}",
           decode_bound_ms=f"{decode_bound[0]:.4f}",
           decode_library_ms=lib_d and f"{lib_d:.4f}",
+          decode_library_eager_ms=lib_d and f"{eager_lib_d:.4f}",
           **{k_: f"{x:.3e}" for k_, x in control.items()},
           tol=f"extend:{EXTEND_ABS_TOL}/{EXTEND_REL_TOL},"
               f"decode:{DECODE_ABS_TOL}/{DECODE_REL_TOL}"
@@ -545,12 +620,38 @@ def w4a8_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
     return max(errs), ms, plain_ms, least_ms(ops, nbytes, PEAK_INT8)
 
 
+def int4pack_ms(torch, packed, scale, h, reps=20):
+    """The library yardstick of W4A16: (ms of one
+    torch._weight_int4pack_mm on the same W4 weights, converted once
+    beforehand by torch._convert_weight_to_int4pack with a zero point of
+    0, and its result), or (None, the reason) where this torch lacks the
+    op or refuses the layout. packed [N, K/2] / scale [N, K/g] as
+    quantize_w4 gives them (grid values in [-8, 7])."""
+    N, K = packed.shape[0], 2 * packed.shape[1]
+    group = K // scale.shape[1]
+    b = packed.view(torch.uint8).to(torch.int32)
+    u = torch.stack([(b & 0xF) ^ 8, (b >> 4) ^ 8], -1).reshape(N, K)
+    try:
+        # unsigned nibbles u = q + 8: the op computes (u - 8) * s + zero;
+        # even inputs in the high nibble, as the op's packer expects
+        w = torch._convert_weight_to_int4pack(
+            ((u[:, 0::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+        sz = torch.stack([scale.t(), torch.zeros_like(scale.t())],
+                         -1).to(torch.bfloat16).contiguous()
+        out = torch._weight_int4pack_mm(h, w, group, sz)
+        return cuda_ms(lambda: torch._weight_int4pack_mm(h, w, group, sz),
+                       reps=reps), out
+    except (AttributeError, RuntimeError, TypeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+
+
 def w4_flat_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
     """The flat-layout W4A8 and W4A16 kernels vs their plain twins at the
     7B's four decode projections, B = 4, fp32 output → {"w4a8" |
-    "w4a16": (max abs err, summed ms, summed plain ms, bound (ms, by))};
-    both move the same bytes: packed weights, scales, activations and
-    output once each."""
+    "w4a16": (max abs err, summed ms, summed plain ms, bound (ms, by),
+    library ms or None)}; both move the same bytes: packed weights,
+    scales, activations and output once each. W4A16's library yardstick is
+    torch._weight_int4pack_mm (int4pack_ms)."""
     B = 4
     res = {}
     for kname, kernel, plain, tol in (
@@ -558,9 +659,11 @@ def w4_flat_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
             ("w4a16", qm.w4a16_matmul, qm.w4a16_matmul_plain,
              W4A16_REL_TOL)):
         errs, ms, plain_ms, nbytes, ops = [], 0.0, 0.0, 0, 0
+        lib_ms = 0.0 if kname == "w4a16" else None
         for name, K, N in shapes:
             w = torch.randn((N, K), generator=g, device=dev) * 0.02
-            pk, s = qm.w4_to_flat(*quantize_w4(w))
+            packed, scale = quantize_w4(w)
+            pk, s = qm.w4_to_flat(packed, scale)
             del w
             h = torch.randn((B, K), generator=g, device=dev,
                             dtype=torch.bfloat16)
@@ -573,17 +676,28 @@ def w4_flat_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
             check(rel <= tol, f"{kname} {name}: rel err {rel}")
             t = cuda_ms(lambda: kernel(h, pk, s), reps=20)
             tp = cuda_ms(lambda: plain(h, pk, s), reps=3)
+            lib = {}
+            if lib_ms is not None:
+                t_lib, lib_out = int4pack_ms(torch, packed, scale, h)
+                if t_lib is None:
+                    lib_ms = None
+                    lib = dict(library="none", reason=repr(lib_out))
+                else:
+                    lib_ms += t_lib
+                    lib = dict(library_ms=f"{t_lib:.4f}", library_rel=(
+                        f"{((lib_out.float() - want).abs().max() / want.abs().max()).item():.3e}"))
             phase("kernels", **{kname: name}, layout="flat", B=B, K=K, N=N,
                   rel_err=f"{rel:.3e}", tol=tol, ms=f"{t:.4f}",
-                  plain_ms=f"{tp:.4f}")
+                  plain_ms=f"{tp:.4f}", **lib)
             errs.append((got - want).abs().max().item())
             ms += t
             plain_ms += tp
             nbytes += pk.numel() + 4 * s.numel() + 2 * h.numel() + 2 * B * N
             ops += 2 * B * K * N
-            del pk, s, got, again, want
+            del pk, s, packed, scale, got, again, want
         peak = PEAK_INT8 if kname == "w4a8" else PEAK_BF16
-        res[kname] = (max(errs), ms, plain_ms, least_ms(ops, nbytes, peak))
+        res[kname] = (max(errs), ms, plain_ms, least_ms(ops, nbytes, peak),
+                      lib_ms)
     torch.cuda.empty_cache()
     return res
 
@@ -1192,7 +1306,10 @@ def main():
     t0 = time.perf_counter()
     cuda_build.load_library()
     attrs = {n: cuda_build.kernel_attrs(n)
-             for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+             for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                       *(f"ragged_extend_{m}" for m in KV_MODES),
+                       *(f"ragged_decode_{m}_g{g}" for m in KV_MODES
+                         for g in (1, 4)))}
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
           nvcc_seconds=f"{cuda_build.build_seconds:.1f}",
           library=cuda_build.library_path().name,
@@ -1212,6 +1329,11 @@ def main():
                 attention_case(torch, ra, dev, gw, hkv, mode, **opts)
     mres = {mode: attention_case(torch, ra, dev, gw, 8, mode, **MISTRAL_CASE)
             for mode in ("bf16", "int8", "int4")}
+    # decode lengths on the split boundaries (2 layers of rows suffice)
+    for mode in KV_MODES:
+        for hkv in (32, 8):
+            for case in SPLIT_BOUNDARY_CASES:
+                attention_case(torch, ra, dev, gw, hkv, mode, L=2, **case)
     torch.cuda.empty_cache()
     w4res = w4a8_phase(torch, qm, engine_mod._w4, dev, g)
     flat_res = w4_flat_phase(torch, qm, engine_mod._w4, dev, g)
@@ -1534,13 +1656,13 @@ def main():
         # the same four projections in the flat layout; launches from the
         # flat-layout run
         entry("w4a8_matmul", "w4_flat_matmul.cu", "quant_matmul.py:204",
-              launches["w4kv8-flat"][2], *flat_res["w4a8"], None),
+              launches["w4kv8-flat"][2], *flat_res["w4a8"]),
         # no serving path calls it (nor the reference's): timed at the
         # same four projections; launches as read after the flat-layout
         # run, whose counts were all set to 0 before it
         entry("w4a16_matmul", "w4_flat_matmul.cu", "quant_matmul.py:104",
               run_counts["w4kv8-flat"]["w4a16_matmul.launches"],
-              *flat_res["w4a16"], None),
+              *flat_res["w4a16"]),
         # one 7B layer's MLP at B = 4; launches from the fused-MLP run
         entry("fused_mlp_w4", "fused_mlp_w4.cu", "quant_matmul.py:474",
               launches["w4kv8-fused"][3], *mlp_res[:4], None),

@@ -17,7 +17,13 @@ are not bf16 numbers, and each active lane's max error over its max
 and the decode kernel's packed bytes (mate nibbles included) and scales
 exact. The sliding window and the logit softcap, in every KV mode and
 with GQA, under the same bounds; each result must also sit more than 10×
-its error away from the twin without the option. W4A8 matmul: max |Δ| /
+its error away from the twin without the option. The decode kernel's
+split-KV grid at its edges (kv_len at 1, 255, 256, 257 and on split
+boundaries, windows whose edge falls on or inside a split, G 1, 4, 8)
+under the decode bounds, and two decode calls on the same inputs agree
+bitwise; the extend kernel at its tile edges (T off the tile, q_offset
+with a window, an int4 tile's high half partly past kv_len) under the
+extend bounds. W4A8 matmul: max |Δ| /
 max |want| ≤ 1e-5 with fp32 output (only
 the fp32 order of the group sum differs), and bf16 output within one bf16
 rounding of the twin's; repeated launches agree bitwise. W8A8 matmul:
@@ -76,7 +82,7 @@ def test_extend_kernel_matches_plain_on_card(cuda_device, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 8])
 def test_decode_kernel_matches_plain_on_card(cuda_device, G):
     gen = torch.Generator(device=cuda_device).manual_seed(10 + G)
     hkv, Sr, hd = 4, 512, 128
@@ -136,7 +142,7 @@ def test_int8_extend_kernel_matches_plain_on_card(cuda_device, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 8])
 def test_int8_decode_kernel_matches_plain_on_card(cuda_device, G):
     gen = torch.Generator(device=cuda_device).manual_seed(30 + G)
     hkv = 4
@@ -354,7 +360,7 @@ def test_int4_extend_kernel_matches_plain_on_card(cuda_device, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 8])
 def test_int4_decode_kernel_matches_plain_on_card(cuda_device, G):
     """Writes into the low plane (position 299 - 256 = 43 of segment 1),
     none (inactive lane), the high plane (position 200) and the row's last
@@ -389,18 +395,18 @@ def test_int4_decode_kernel_matches_plain_on_card(cuda_device, G):
     assert bool((out[1] == 0).all())
 
 
-def _mode_rows(gen, dev, mode, hkv):
-    """bf16, int8 or packed int4 rows of 512 tokens → (k, v, the KV
+def _mode_rows(gen, dev, mode, hkv, Sr=512):
+    """bf16, int8 or packed int4 rows of Sr tokens → (k, v, the KV
     keyword arguments of both functions' extend call)."""
     if mode == "bf16":
         kw = dict(device=dev, dtype=torch.bfloat16)
-        k = torch.randn((2, 4, hkv, 512, 128), generator=gen, **kw)
-        v = torch.randn((2, 4, hkv, 512, 128), generator=gen, **kw)
+        k = torch.randn((2, 4, hkv, Sr, 128), generator=gen, **kw)
+        v = torch.randn((2, 4, hkv, Sr, 128), generator=gen, **kw)
         return k, v, {}
     if mode == "int8":
-        k, v, ks, vs = _int8_rows(gen, dev, hkv)
+        k, v, ks, vs = _int8_rows(gen, dev, hkv, Sr)
         return k, v, dict(k_scales=ks, v_scales=vs)
-    k, v, ks, vs = _int4_rows(gen, dev, hkv)
+    k, v, ks, vs = _int4_rows(gen, dev, hkv, Sr)
     return k, v, dict(k_scales=ks, v_scales=vs, kv_pack=True)
 
 
@@ -447,7 +453,7 @@ def test_window_cap_extend_kernel_matches_plain_on_card(cuda_device, mode, G,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("opts", WINDOW_CAP, ids=["window", "cap", "both"])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 8])
 @pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
 def test_window_cap_decode_kernel_matches_plain_on_card(cuda_device, mode, G,
                                                         opts):
@@ -487,6 +493,151 @@ def test_window_cap_decode_kernel_matches_plain_on_card(cuda_device, mode, G,
     assert _lane_rel(out, want, (0, 2, 3)) <= 8e-3
     assert bool((out[1] == 0).all())
     assert (out.float() - off).abs().max().item() > 10 * diff.max().item()
+
+
+# the decode kernel's split-KV grid (splits of 256 keys over rows of 1024):
+# lengths at 1, inside the first split, on a split boundary and one past
+# it; lengths on later boundaries; a window whose lower edge falls on a
+# split boundary (kv_len - w = 512, 768, 256, 0) and one whose edge falls
+# inside a split
+SPLIT_EDGES = {"edges": (dict(), (1, 255, 256, 257)),
+               "boundaries": (dict(), (512, 513, 768, 1024)),
+               "window-on-boundary": (dict(window=256), (768, 1024, 512, 256)),
+               "window-inside": (dict(window=300), (900, 301, 1000, 1))}
+
+
+def _decode_case(dev, seed, mode, hkv, G, lens, Sr, opts, q_gain=1.0):
+    """One decode call through the kernel and through the twin on copies
+    of the same rows → (out, want, state, plain): the state tensors (rows
+    and scales) as the kernel left them and as the twin did."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k, v, kv = _mode_rows(gen, dev, mode, hkv, Sr)
+    if mode != "bf16":
+        kv = dict(kv, kv_maxq=7.0 if mode == "int4" else 127.0)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q = q_gain * torch.randn((4, 1, hkv * G, 128), generator=gen, **bf)
+    kn = torch.randn((4, hkv, 128), generator=gen, **bf)
+    vn = torch.randn((4, hkv, 128), generator=gen, **bf)
+    i32 = dict(dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(lens, **i32)
+    rows = torch.tensor([2, 0, 3, 1], **i32)
+    state = [k, v] + [kv[n] for n in ("k_scales", "v_scales") if n in kv]
+    plain = [t.clone() for t in state]
+    pkv = dict(kv, **dict(zip(("k_scales", "v_scales"), plain[2:])))
+    out = tra.ragged_decode_attention(q, kn, vn, k, v, lens_t, rows,
+                                      layer=torch.tensor([1], **i32), **kv,
+                                      **opts)[0]
+    want = tra.ragged_decode_attention_plain(
+        q.float(), kn, vn, *plain[:2], lens_t, rows, layer=1, **pkv,
+        **opts)[0]
+    torch.cuda.synchronize()
+    return out, want, state, plain, (q, kn, vn, lens_t, rows, kv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPLIT_EDGES))
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_decode_kernel_split_edges_on_card(cuda_device, mode, G, case):
+    """Rows of 1024 tokens (4 splits of 256): the new token at either end
+    of a split, windows whose edge falls on and inside a split; row and
+    scale writes exact, the output within the decode bounds (bf16
+    rounding of the output on top in the quantized modes)."""
+    opts, lens = SPLIT_EDGES[case]
+    out, want, state, plain, _ = _decode_case(
+        cuda_device, 90 + G, mode, 4, G, lens, 1024, opts)
+    for got_t, want_t in zip(state, plain):
+        assert torch.equal(got_t, want_t)
+    rnd = 0.0 if mode == "bf16" else RND
+    diff = (out.float() - want).abs()
+    assert bool((diff <= 3e-3 + rnd * want.abs()).all()), diff.max().item()
+    assert _lane_rel(out, want, range(4)) <= 8e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("Sr", [513, 1030])
+def test_bf16_decode_kernel_takes_any_row_width_on_card(cuda_device, Sr, G,
+                                                        window):
+    """bf16 rows need no width of a multiple of 4 tokens (only quantized
+    rows copy scale planes): rows of 513 and 1030 tokens, the last split
+    partly past S, lengths at the row's end and inside a split."""
+    lens = (Sr, 257, 0, Sr - 1)
+    out, want, state, plain, _ = _decode_case(
+        cuda_device, 70 + G, "bf16", 4, G, lens, Sr, dict(window=window))
+    for got_t, want_t in zip(state, plain):
+        assert torch.equal(got_t, want_t)
+    assert (out.float() - want).abs().max().item() <= 3e-3
+    assert _lane_rel(out, want, (0, 1, 3)) <= 8e-3
+    assert bool((out[2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 512])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_decode_kernel_is_bitwise_repeatable_on_card(cuda_device, mode,
+                                                     window):
+    """Two decode calls on the same inputs agree bitwise: the splits'
+    partials merge in split order whichever block merges (rows of 1792,
+    GQA 4, the serving lengths). The second call rewrites the same token
+    into the same place."""
+    lens = (1648, 700, 0, 1)
+    out, _, state, _, (q, kn, vn, lens_t, rows, kv) = _decode_case(
+        cuda_device, 7, mode, 8, 4, lens, 1792, dict(window=window))
+    layer = torch.tensor([1], dtype=torch.int32, device=cuda_device)
+    for _ in range(2):
+        again = tra.ragged_decode_attention(q, kn, vn, *state[:2], lens_t,
+                                            rows, layer=layer, window=window,
+                                            **kv)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(again, out)
+
+
+# the extend kernel's tiles (128 folded query rows, 128 keys; int4: 64
+# packed rows, keys base + [0, 64) and base + 128 + [0, 64)): T = 77 and
+# 333 (neither rows nor keys on a tile edge), q_offset > 0 with a window
+# (the first key tile starts past 0, its lower part below every window),
+# and lengths whose last int4 tile's high-nibble half lies partly past
+# kv_len (kv_len % 256 = 160 and 230) — lanes: (q_offset, T_lane)
+EXTEND_EDGES = {"ragged-T": (dict(), 77, ((0, 77), (40, 77), (3, 60),
+                                         (0, 0))),
+                "offset-window": (dict(window=100), 333,
+                                  ((300, 333), (0, 333), (500, 200), (0, 0))),
+                "int4-high-half": (dict(), 200, ((216, 200), (30, 200),
+                                                 (0, 160), (0, 0)))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EXTEND_EDGES))
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_extend_kernel_tile_edges_on_card(cuda_device, mode, G, case):
+    """Rows of 1024 tokens; each lane's kv_len = q_offset + its own token
+    count (the last lane padded): the extend bounds, a padded lane of
+    zeros."""
+    opts, T, lanes = EXTEND_EDGES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + G)
+    hkv = 4
+    k, v, kv = _mode_rows(gen, cuda_device, mode, hkv, 1024)
+    q = torch.randn((4, T, hkv * G, 128), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    offs = torch.tensor([o for o, _ in lanes], **i32)
+    lens = torch.tensor([o + n if n else 0 for o, n in lanes], **i32)
+    rows = torch.tensor([3, 1, 0, 2], **i32)
+    got = tra.ragged_attention(q, k, v, lens, offs, rows,
+                               layer=torch.tensor([1], **i32), **kv, **opts)
+    want = tra.ragged_attention_plain(q.float(), k, v, lens, offs, rows,
+                                      layer=1, **kv, **opts)
+    torch.cuda.synchronize()
+    rnd = 0.0 if mode == "bf16" and not opts else RND
+    diff = (got.float() - want).abs()
+    assert bool((diff <= 2e-2 + rnd * want.abs()).all()), diff.max().item()
+    # rows past a lane's own token count see keys up to kv_len only
+    live = [i for i, (_, n) in enumerate(lanes) if n]
+    assert _lane_rel(got, want, live) <= 1e-2
+    assert bool((got[3] == 0).all())
 
 
 def _flash_inputs(dev, seed, B, T, S, H, Hkv, D):
