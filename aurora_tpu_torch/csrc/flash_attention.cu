@@ -709,18 +709,24 @@ extern "C" int aurora_ragged_decode_kernel(const char* mode, int gm,
                                            const void** fn, int* smem);
 extern "C" int aurora_ragged_extend_kernel(const char* mode, const void** fn,
                                            int* smem);
+// the weight streamers (w8a8_matmul.cu, w4_flat_matmul.cu)
+extern "C" int aurora_w8a8_kernel(int rows, const void** fn, int* smem,
+                                  int* blocks);
+extern "C" int aurora_w4a16_kernel(int rows, int group, const void** fn,
+                                   int* smem, int* blocks);
 
 // registers a thread, local (spill) bytes a thread and shared bytes a block
 // (static and dynamic) of one kernel of the library: "flash_fwd",
-// "flash_bwd_dkv", "flash_bwd_dq", "ragged_extend_<mode>" or
-// "ragged_decode_<mode>_g<1|2|4|8>", mode bf16, int8 or int4
+// "flash_bwd_dkv", "flash_bwd_dq", "ragged_extend_<mode>",
+// "ragged_decode_<mode>_g<1|2|4|8>" (mode bf16, int8 or int4),
+// "w8a8_b<rows>" or "w4a16_b<rows>" (rows 8, 16, 32, 64)
 extern "C" int aurora_kernel_attrs(const char* name, int* regs,
                                    int* local_bytes, int* smem) {
   const void* fn = nullptr;
   int dynamic = 0;
   int err_name = 0;
   char mode[8] = {0};
-  int gm = 0;
+  int gm = 0, blocks = 0;
   if (strcmp(name, "flash_fwd") == 0) {
     fn = reinterpret_cast<const void*>(flash_fwd_kernel);
     dynamic = int(SMEM_FWD);
@@ -736,6 +742,10 @@ extern "C" int aurora_kernel_attrs(const char* name, int* regs,
   } else if (strncmp(name, "ragged_decode_", 14) == 0 &&
              sscanf(name + 14, "%4[a-z0-9]_g%d", mode, &gm) == 2) {
     err_name = aurora_ragged_decode_kernel(mode, gm, &fn, &dynamic);
+  } else if (sscanf(name, "w8a8_b%d", &gm) == 1) {
+    err_name = aurora_w8a8_kernel(gm, &fn, &dynamic, &blocks);
+  } else if (sscanf(name, "w4a16_b%d", &gm) == 1) {
+    err_name = aurora_w4a16_kernel(gm, 128, &fn, &dynamic, &blocks);
   } else {
     return int(cudaErrorInvalidValue);
   }

@@ -53,8 +53,10 @@ __device__ __forceinline__ float bf16_round(float x) {
 // Per-token absmax int8 quantization, one block per token row:
 //   s_a[b] = max(max_k |h[b, k]| * (1/127), 1e-12)
 //   h8[b, k] = clamp(rint(h[b, k] / s_a[b]), -127, 127)
-// written as even and odd planes he/ho [B, K/2] (he[b, j] = h8[b, 2j]).
-template <typename T>
+// written as even and odd planes he/ho [B, K/2] (he[b, j] = h8[b, 2j]),
+// or with PLANES false as one contiguous [B, K] array at he (the W8A8
+// path; ho unused).
+template <typename T, bool PLANES = true>
 __global__ void __launch_bounds__(QNT)
 quantize_rows(const T* __restrict__ h, int8_t* __restrict__ he,
               int8_t* __restrict__ ho, float* __restrict__ s_a, int K) {
@@ -80,6 +82,12 @@ quantize_rows(const T* __restrict__ h, int8_t* __restrict__ he,
   }
   __syncthreads();
   const float s = s_sh;
+  if (!PLANES) {
+    for (int k = threadIdx.x; k < K; k += QNT)
+      he[size_t(b) * K + k] = int8_t(
+          fminf(fmaxf(rintf(to_f(row[k]) / s), -127.f), 127.f));
+    return;
+  }
   const int K2 = K / 2;
   for (int j = threadIdx.x; j < K2; j += QNT) {
     const float e = fminf(fmaxf(rintf(to_f(row[2 * j]) / s), -127.f), 127.f);

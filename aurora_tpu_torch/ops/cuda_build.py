@@ -48,12 +48,21 @@ SIGNATURES = {
         [_P] * 7 + [_I] * 6 + [_P],
     "aurora_w4a8_flat_matmul":
         [_P] * 7 + [_I] * 6 + [_P],
+    # weight streamers: ..., part, tickets, B, K, N[, G], span, nsplit,
+    # flags, stream
     "aurora_w4a16_matmul":
-        [_P] * 4 + [_I] * 6 + [_P],
+        [_P] * 6 + [_I] * 8 + [_P],
     "aurora_fused_mlp_w4":
         [_P] * 10 + [_I] * 7 + [_P],
     "aurora_w8a8_matmul":
-        [_P] * 5 + [_I] * 4 + [_P],
+        [_P] * 7 + [_I] * 6 + [_P],
+    # rows[, group], then the kernel, int* shared bytes, int* blocks an SM
+    "aurora_w8a8_kernel":
+        [_I, _P, _P, _P],
+    "aurora_w4a16_kernel":
+        [_I, _I, _P, _P, _P],
+    "aurora_quantize_rows":
+        [_P] * 3 + [_I] * 3 + [_P],
     "aurora_flash_fwd":
         [_P] * 7 + [_I] * 7 + [_F, _P],
     "aurora_flash_bwd_dkv":
@@ -145,7 +154,7 @@ def kernel_attrs(name: str) -> dict:
     """Registers a thread, local (spill) bytes a thread and shared bytes a
     block of one kernel of the library, by the name that
     `aurora_kernel_attrs` knows (e.g. "flash_fwd", "ragged_extend_int8",
-    "ragged_decode_bf16_g4")."""
+    "ragged_decode_bf16_g4", "w8a8_b64")."""
     vals = [ctypes.c_int(0) for _ in range(3)]
     err = load_library().aurora_kernel_attrs(
         name.encode(), *(ctypes.byref(v) for v in vals))

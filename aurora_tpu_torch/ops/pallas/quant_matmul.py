@@ -31,6 +31,14 @@ tensors and launches its CUDA kernel for CUDA tensors
 csrc/w8a8_matmul.cu; the W4A8 ones and the fused MLP also quantize the
 activations on the card); it never falls back from one to the other.
 `.launches` and `_plain.calls` count each path.
+
+`w8a8_matmul` and `w4a16_matmul` are tensor-core weight streamers
+(csrc/weight_stream.cuh): a grid of (column tile, K split) blocks that
+`weight_plan` picks on the host, whose splits meet through a partial-sum
+scratch and a ticket per column tile that are kept per device
+(`_stream_buffers`), so launches of one of them on one device must not
+overlap (one stream; a CUDA graph replays them in order). `quantize_rows`
+is `quantize_activations` in one kernel launch, for the W8A8 decode path.
 """
 
 from __future__ import annotations
@@ -253,6 +261,99 @@ fused_mlp_w4_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------
+# The weight streamers' grid (csrc/weight_stream.cuh)
+# ---------------------------------------------------------------------------
+
+WEIGHT_TILE = 128    # output channels per block of the weight streamers
+W8_GROUP = 128       # the W8A8 split unit: k bytes of one ring stage
+# blocks of a streamer one SM holds at few rows (csrc/weight_stream.cuh
+# `min_blocks`): the plan's default
+_WEIGHT_BLOCKS_PER_SM = 3
+
+
+def weight_plan(N: int, K: int, group: int, sm_count: int,
+                blocks_per_sm: int = _WEIGHT_BLOCKS_PER_SM):
+    """(tile, per, nsplit) of a weight streamer's grid of (column tile,
+    K split) blocks: ceil(N / tile) column tiles, and the G = ceil(K /
+    group) groups of K split into nsplit runs of `per` groups (the last
+    one shorter where per does not divide G), so that every split starts
+    and ends on a group boundary (W4: a scale group; W8: W8_GROUP); split
+    s takes k in [s·per·group, min((s+1)·per·group, K)). The most splits
+    whose blocks the card holds at once (sm_count · blocks_per_sm, the
+    kernel's occupancy): one wave, with no tail of late blocks."""
+    tiles = -(-N // WEIGHT_TILE)
+    G = -(-K // group)
+    most = max(1, sm_count * blocks_per_sm // tiles)
+    per = -(-G // min(G, most))
+    return WEIGHT_TILE, per, -(-G // per)
+
+
+_stream_bufs: dict = {}
+
+
+def _stream_buffers(name: str, dev, tiles: int, nscratch: int):
+    """The weight streamer `name`'s per-device (tickets, part): int32
+    zeros, one a column tile (the last block of a tile resets its own),
+    and a 4-byte scratch for the splits' partial sums, int32. Kept across
+    launches and grown outside any CUDA graph capture; a buffer once
+    handed out is never freed, since a captured graph keeps its address:
+    a larger one is added beside it, and the newest serves later
+    launches."""
+    key = (name, torch.cuda._get_device_index(dev, optional=True))
+    kept = _stream_bufs.setdefault(key, [])
+    if not kept or kept[-1][0].numel() < tiles \
+            or kept[-1][1].numel() < nscratch:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: the split scratch must hold "
+                               f"{tiles} tickets and {nscratch} partials "
+                               "before a capture; launch once outside it "
+                               "first")
+        old = kept[-1] if kept else None
+        t = max(tiles, 2 * old[0].numel() if old else 1024)
+        n = max(nscratch, 2 * old[1].numel() if old else 1 << 20)
+        kept.append((torch.zeros(t, dtype=torch.int32, device=dev),
+                     torch.empty(n, dtype=torch.int32, device=dev)))
+    return kept[-1]
+
+
+_resident: dict = {}
+
+
+def _blocks_per_sm(name: str, B: int, group: int) -> int:
+    """Blocks of the streamer `name` at B rows that one SM holds (its
+    registers and shared bytes, from the CUDA occupancy API), cached."""
+    key = (name, B, group)
+    if key not in _resident:
+        import ctypes
+        from aurora_tpu_torch.ops.cuda_build import load_library
+        lib = load_library()
+        fn, smem, blocks = ctypes.c_void_p(), ctypes.c_int(), ctypes.c_int()
+        if name == "w8a8_matmul":
+            err = lib.aurora_w8a8_kernel(B, ctypes.byref(fn),
+                                         ctypes.byref(smem),
+                                         ctypes.byref(blocks))
+        else:
+            err = lib.aurora_w4a16_kernel(B, group, ctypes.byref(fn),
+                                          ctypes.byref(smem),
+                                          ctypes.byref(blocks))
+        _launch(name, err)
+        _resident[key] = max(1, blocks.value)
+    return _resident[key]
+
+
+def _stream_grid(name, dev, B, N, K, group):
+    """(span, nsplit, part pointer, tickets pointer) of one launch."""
+    from aurora_tpu_torch.ops.pallas.ragged_attention import _sm_count
+    tile, per, nsplit = weight_plan(N, K, group, _sm_count(dev),
+                                    _blocks_per_sm(name, B, group))
+    if nsplit == 1:
+        return per * group, 1, None, None
+    tickets, part = _stream_buffers(name, dev, -(-N // tile),
+                                    nsplit * B * N)
+    return per * group, nsplit, part.data_ptr(), tickets.data_ptr()
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -290,12 +391,13 @@ def _flat_shapes(name, h, pk, s_w):
     return h.shape[0], h.shape[1], pk.shape[2], pk.shape[0]
 
 
-def _flat_kernel_shapes(name, pk, N):
-    """The flat kernels read 4 columns and 4 packed rows at a time."""
-    if N % 4 or pk.shape[1] % 4:
+def _flat_kernel_shapes(name, pk, N, group_rows=8):
+    """The flat kernels read 4 columns at a time, and groups of a
+    multiple of `group_rows` input rows (W4A8: 8; W4A16's mma steps: 16)."""
+    if N % 4 or (2 * pk.shape[1]) % group_rows:
         raise ValueError(f"{name}: the CUDA kernel takes N % 4 == 0 and "
-                         f"groups of a multiple of 8 rows; got N={N}, "
-                         f"group={2 * pk.shape[1]}")
+                         f"groups of a multiple of {group_rows} rows; got "
+                         f"N={N}, group={2 * pk.shape[1]}")
 
 
 def _launch(name, err):
@@ -358,11 +460,47 @@ def w4a8_matmul_tiled(h, packed, scale, *, out_dtype=None):
 w4a8_matmul_tiled.launches = 0
 
 
+def quantize_rows(h):
+    """`quantize_activations` of h [B, K] (bf16 or fp32) → (h8 int8
+    [B, K], s_a fp32 [B, 1]), bit for bit, in one kernel launch on the
+    card (csrc/w4_common.cuh `quantize_rows`, contiguous layout) instead
+    of ~8 elementwise launches; CPU tensors take quantize_activations
+    itself."""
+    name = "quantize_rows"
+    if h.dim() != 2 or h.shape[0] == 0:
+        raise ValueError(f"{name}: h must be [B, K] with B > 0, got "
+                         f"{tuple(h.shape)}")
+    if h.device.type == "cpu":
+        return quantize_activations(h)
+    if h.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {h.device}")
+    if h.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: h must be bfloat16 or float32, got "
+                        f"{h.dtype}")
+    if not h.is_contiguous():
+        raise ValueError(f"{name}: h must be contiguous")
+    B, K = h.shape
+    h8 = torch.empty((B, K), dtype=torch.int8, device=h.device)
+    s_a = torch.empty((B, 1), dtype=torch.float32, device=h.device)
+    from aurora_tpu_torch.ops.cuda_build import load_library
+    _launch(name, load_library().aurora_quantize_rows(
+        h.data_ptr(), h8.data_ptr(), s_a.data_ptr(), B, K,
+        int(h.dtype == torch.float32),
+        torch.cuda.current_stream(h.device).cuda_stream))
+    quantize_rows.launches += 1
+    return h8, s_a
+
+
+quantize_rows.launches = 0
+
+
 def w8a8_matmul(h8, s_a, w8, s_w, *, out_dtype=torch.bfloat16):
     """[B, K] int8 × W8 (weight [N, K] int8, s_w [N] fp32) → [B, N] in
     out_dtype: the int32 product times the per-token activation scale s_a
     [B, 1] fp32, then the weight scale (the reference's `w8a8_matmul`
-    with the weight in the nn.Linear layout). B ≤ 64 on the card."""
+    with the weight in the nn.Linear layout). B ≤ 64 on the card, where
+    the kernel streams the weights once for all rows; its launches on
+    one device must not overlap (the module's docstring)."""
     name = "w8a8_matmul"
     if h8.dim() != 2 or w8.dim() != 2 or h8.shape[1] != w8.shape[1] \
             or s_a.shape != (h8.shape[0], 1) or s_w.numel() != w8.shape[0]:
@@ -396,13 +534,14 @@ def w8a8_matmul(h8, s_a, w8, s_w, *, out_dtype=torch.bfloat16):
         raise ValueError(f"{name}: the CUDA kernel takes 1..{MAX_TOKENS} "
                          f"rows and K % 16 == 0; got B={B}, K={K}")
     out = torch.empty((B, N), dtype=out_dtype, device=h8.device)
+    span, nsplit, part, tickets = _stream_grid(name, h8.device, B, N, K,
+                                               W8_GROUP)
     from aurora_tpu_torch.ops.cuda_build import load_library
-    err = load_library().aurora_w8a8_matmul(
+    _launch(name, load_library().aurora_w8a8_matmul(
         h8.data_ptr(), s_a.data_ptr(), w8.data_ptr(), s_w.data_ptr(),
-        out.data_ptr(), B, K, N, int(out_dtype == torch.float32),
-        torch.cuda.current_stream(h8.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+        out.data_ptr(), part, tickets, B, K, N, span, nsplit,
+        int(out_dtype == torch.float32),
+        torch.cuda.current_stream(h8.device).cuda_stream))
     w8a8_matmul.launches += 1
     return out
 
@@ -443,7 +582,10 @@ w4a8_matmul.launches = 0
 def w4a16_matmul(h, pk, s_w, *, out_dtype=None):
     """[B, K] float (rounded to bf16) × flat W4 → [B, N] in out_dtype
     (default h's): the reference's `w4a16_matmul`, weights dequantized as
-    bf16(bf16(q) · bf16(s)), fp32 accumulation. B ≤ 64 on the card."""
+    bf16(bf16(q) · bf16(s)), fp32 accumulation. B ≤ 64 and groups of a
+    multiple of 16 rows on the card, where the kernel streams the weights
+    once for all rows; its launches on one device must not overlap (the
+    module's docstring)."""
     name = "w4a16_matmul"
     B, K, N, G = _flat_shapes(name, h, pk, s_w)
     out_dtype = out_dtype or h.dtype
@@ -453,12 +595,15 @@ def w4a16_matmul(h, pk, s_w, *, out_dtype=None):
         raise ValueError(f"{name}: unsupported device {h.device}")
     _check_cuda(name, h, (("h", h, None), ("packed", pk, torch.int8),
                           ("scale", s_w, torch.float32)), out_dtype)
-    _flat_kernel_shapes(name, pk, N)
+    _flat_kernel_shapes(name, pk, N, group_rows=16)
     out = torch.empty((B, N), dtype=out_dtype, device=h.device)
+    span, nsplit, part, tickets = _stream_grid(name, h.device, B, N, K,
+                                               K // G)
     from aurora_tpu_torch.ops.cuda_build import load_library
     _launch(name, load_library().aurora_w4a16_matmul(
-        h.data_ptr(), pk.data_ptr(), s_w.data_ptr(), out.data_ptr(), B, K,
-        N, G, int(h.dtype == torch.float32), int(out_dtype == torch.float32),
+        h.data_ptr(), pk.data_ptr(), s_w.data_ptr(), out.data_ptr(), part,
+        tickets, B, K, N, G, span, nsplit, int(h.dtype == torch.float32),
+        int(out_dtype == torch.float32),
         torch.cuda.current_stream(h.device).cuda_stream))
     w4a16_matmul.launches += 1
     return out

@@ -49,6 +49,7 @@ from aurora_tpu_torch.ops.norms import family_norm as _norm
 from aurora_tpu_torch.ops.pallas.quant_matmul import (INV127, MAX_TOKENS,
                                                       MLP_TILE,
                                                       quantize_activations,
+                                                      quantize_rows,
                                                       w4_dequantize,
                                                       w4_flat_dequantize,
                                                       w4_mlp_tile_layout,
@@ -370,14 +371,16 @@ def _int8_linear(x8, s_a, w: W8Linear) -> torch.Tensor:
 def _w8dot(h, w: W8Linear):
     """h [..., K] @ W8 → [..., N] in h's dtype (the reference's W8A8
     `_wdot` branch): per-token int8 activations, the exact int32 product,
-    then acc · s_a · s_w in fp32. Few tokens (decode): the W8A8 kernel;
-    many (extend): torch._int_mm. Both give the same numbers."""
+    then acc · s_a · s_w in fp32. Few tokens (decode): the quantizer in
+    one launch (quantize_rows) and the W8A8 kernel; many (extend):
+    quantize_activations and torch._int_mm. Both give the same numbers."""
     lead, K = h.shape[:-1], h.shape[-1]
-    h8, s_a = quantize_activations(h.reshape(-1, K))
+    h2 = h.reshape(-1, K)
     if math.prod(lead) <= _W4_GROUPED_MAX_TOKENS:
+        h8, s_a = quantize_rows(h2.contiguous())
         out = w8a8_matmul(h8, s_a, w.weight, w.scale, out_dtype=h.dtype)
     else:
-        out = _int8_linear(h8, s_a, w).to(h.dtype)
+        out = _int8_linear(*quantize_activations(h2), w).to(h.dtype)
     return out.reshape(*lead, -1)
 
 

@@ -44,9 +44,11 @@ profiled wall (lower: the profiler slows the host, not the kernels).
 The decode block's device time is also split by kernel family, in ms
 per step: attention (the ragged decode kernel), W4A8 (either layout),
 the fused MLP (its tile kernel and its reduction), the activation
-quantizer that W4A8 and the fused MLP launch first, and the rest; the
+quantizer that W4A8, the fused MLP and the W8A8 path launch, and the
+rest (W8A8's kernel is in the rest and in the per-kernel table); the
 cuBLAS matmuls within the rest (the bf16 weight stream) are also summed
-on their own. The trace and a per-kernel table go to --out.
+on their own, and the device events (kernels, copies, sets) a step are
+counted. The trace and a per-kernel table go to --out.
 """
 
 from __future__ import annotations
@@ -313,6 +315,7 @@ def main(argv=None) -> int:
         if name == "decode":
             res["decode_ms_per_step_by_family"] = family_ms(evs, per)
             res["decode_ms_per_step_dense_matmul"] = matmul_ms(evs, per)
+            res["decode_device_events_per_step"] = len(evs) / per
         print(f"{name}: {len(evs)} device events, device {dev_ms:.3f} ms, "
               f"union {uni_ms:.3f} ms, profiled wall {wall:.3f} ms",
               flush=True)

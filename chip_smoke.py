@@ -24,9 +24,10 @@ Phases, one line each; any failure raises and exits non-zero:
 2. build         — compiles the CUDA kernels from aurora_tpu_torch/csrc;
                    prints the registers a thread, local (spill) bytes a
                    thread and shared bytes a block of each flash kernel,
-                   of the extend kernel in each KV mode and of the decode
+                   of the extend kernel in each KV mode, of the decode
                    kernel in each KV mode for 1 and 4 query heads a KV
-                   head
+                   head, and of the W8A8 and W4A16 weight streamers for
+                   up to 8 and up to 64 token rows
 3. kernels       — each kernel and mode vs its plain PyTorch twin at the
                    slice's shapes: both attention kernels with bf16, int8
                    and packed int4 KV (bf16 in, fp32 reference; decode row
@@ -43,9 +44,16 @@ Phases, one line each; any failure raises and exits non-zero:
                    window of 512 whose edge falls on and inside a
                    split); the
                    W4A8 (stripe and flat layouts), W4A16 and W8A8 matmuls
-                   at the 7B's four decode projections, the fused W4 MLP
-                   at one 7B layer's MLP (bitwise repeatable; beside the
-                   two-call W4A8 path of the same layer)
+                   at the 7B's four decode projections, B 4 and (flat
+                   W4A8, W4A16, W8A8) B 64 (W8A8 bitwise the twin's, the
+                   others bitwise repeatable), the fused W4 MLP at one
+                   7B layer's MLP (bitwise repeatable; beside the
+                   two-call W4A8 path of the same layer), the W8A8 path's
+                   one-launch activation quantizer (bitwise
+                   quantize_activations); these kernels and their
+                   library calls are timed as CUDA-graph replays
+                   (`ms`, `library_ms`) and as eager single calls
+                   (`eager_ms`, `library_eager_ms`)
 4. serve         — bf16: 4 requests of 8 frames each to 256 tokens; the
                    bf16 kernels' launch counts must rise and the plain
                    twins' stay 0
@@ -54,8 +62,8 @@ Phases, one line each; any failure raises and exits non-zero:
 6. serve-w8kv8   — the LLM quantized to W8 on the card (the bf16 source
                    kept; quantize_weights_int8, fuse_serving_weights,
                    timed), the same 4 requests (new clips) with int8 KV; the
-                   int8 attention and W8A8 launch counts must rise and
-                   every plain twin's stay 0
+                   int8 attention, W8A8 and activation quantizer launch
+                   counts must rise and every plain twin's stay 0
 7. logits-w8kv8  — as 5, on the W8 + int8-KV engine; then the W8 model
                    is freed
 8. quantize      — the LLM to W4 on the card (quantize_weights_int4,
@@ -217,6 +225,9 @@ SPLIT_BOUNDARY_CASES = (dict(dlens=(256, 257, 0, 1536)),
 # the 7B's decode projections (fused streams): name, K, N
 W4_SHAPES = (("qkv", 4096, 12288), ("o", 4096, 4096),
              ("gateup", 4096, 22016), ("down", 11008, 4096))
+# the weight kernels' row counts: chip_smoke's 4 lanes, and the most
+# decode rows the engine sends (MAX_TOKENS)
+WEIGHT_ROWS = (4, 64)
 # Flash kernels vs their fp32 twin, bf16 inputs: out max abs, per query
 # row max abs over the row's max |out|, lse max abs, and per gradient
 # max |Δ| / max |want|; measured on an H100 (PERF.md): 1.03e-2, 6.2e-3,
@@ -576,14 +587,49 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
                            bound_by=decode_bound[1])}
 
 
+def weight_sums():
+    """Sums over the four projections of one weight kernel at one row
+    count: max abs error, graph and eager ms of the kernel and of its
+    library call, the plain twin's ms, bytes and operations."""
+    return dict(err=0.0, ms=0.0, eager_ms=0.0, plain_ms=0.0,
+                library_ms=0.0, library_eager_ms=0.0, nbytes=0, ops=0)
+
+
+def add_times(acc, kernel, plain=None, library=None):
+    """Time `kernel` and `library` (CUDA-graph replays and eager calls)
+    and `plain` (eager, 3 calls) into the sums `acc`; a library of None
+    leaves its sums None. Returns the readings as phase-line fields."""
+    t, te = graph_ms(kernel), cuda_ms(kernel, reps=20)
+    acc["ms"] += t
+    acc["eager_ms"] += te
+    out = dict(ms=f"{t:.4f}", eager_ms=f"{te:.4f}")
+    if plain is not None:
+        tp = cuda_ms(plain, reps=3)
+        acc["plain_ms"] += tp
+        out["plain_ms"] = f"{tp:.4f}"
+    if library is None or acc["library_ms"] is None:
+        acc["library_ms"] = acc["library_eager_ms"] = None
+    else:
+        tl, tle = graph_ms(library), cuda_ms(library, reps=20)
+        acc["library_ms"] += tl
+        acc["library_eager_ms"] += tle
+        out.update(library_ms=f"{tl:.4f}", library_eager_ms=f"{tle:.4f}")
+    return out
+
+
+def finish_sums(acc, peak):
+    """acc with its bound (ms, by) from the summed bytes and operations."""
+    acc["bound"] = least_ms(acc["ops"], acc["nbytes"], peak)
+    return acc
+
+
 def w4a8_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
     """The W4A8 kernel vs its plain twin at the 7B's four decode
-    projections, B = 4 → (max abs err, summed ms, summed plain ms, bound
-    (ms, by) of the four: packed weights, scales, activations and output
-    once each, int8 operations at the int8 peak)."""
+    projections, B = 4 → weight_sums of the four (bound: packed weights,
+    scales, activations and output once each, int8 operations at the
+    int8 peak; no library call)."""
     B = 4
-    errs, ms, plain_ms = [], 0.0, 0.0
-    nbytes, ops = 0, 0
+    acc = weight_sums()
     for name, K, N in shapes:
         w = torch.randn((N, K), generator=g, device=dev) * 0.02
         packed, scale = quantize_w4(w)
@@ -603,25 +649,23 @@ def w4a8_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
         bound = want.abs() * INT8_ROUNDING + W4A8_REL_TOL * want.abs().max()
         check(bool(((got16.float() - want).abs() <= bound).all()),
               f"w4a8 {name}: bf16 output off the twin")
-        t = cuda_ms(lambda: qm.w4a8_matmul_tiled(h, packed, scale), reps=20)
-        tp = cuda_ms(lambda: qm.w4a8_matmul_tiled_plain(h, packed, scale),
-                     reps=3)
+        times = add_times(
+            acc, lambda: qm.w4a8_matmul_tiled(h, packed, scale),
+            plain=lambda: qm.w4a8_matmul_tiled_plain(h, packed, scale))
         phase("kernels", w4a8=name, B=B, K=K, N=N, rel_err=f"{rel:.3e}",
-              tol=W4A8_REL_TOL, ms=f"{t:.4f}", plain_ms=f"{tp:.4f}",
+              tol=W4A8_REL_TOL, **times,
               weight_mb=f"{(packed.numel() + 4 * scale.numel()) / 1e6:.1f}")
-        errs.append((got - want).abs().max().item())
-        ms += t
-        plain_ms += tp
-        nbytes += packed.numel() + 4 * scale.numel() + 2 * h.numel() \
-            + 2 * B * N
-        ops += 2 * B * K * N
+        acc["err"] = max(acc["err"], (got - want).abs().max().item())
+        acc["nbytes"] += packed.numel() + 4 * scale.numel() \
+            + 2 * h.numel() + 2 * B * N
+        acc["ops"] += 2 * B * K * N
         del packed, scale, got, again, got16, want
     torch.cuda.empty_cache()
-    return max(errs), ms, plain_ms, least_ms(ops, nbytes, PEAK_INT8)
+    return finish_sums(acc, PEAK_INT8)
 
 
-def int4pack_ms(torch, packed, scale, h, reps=20):
-    """The library yardstick of W4A16: (ms of one
+def int4pack_call(torch, packed, scale, h):
+    """The library yardstick of W4A16: (a function making one
     torch._weight_int4pack_mm on the same W4 weights, converted once
     beforehand by torch._convert_weight_to_int4pack with a zero point of
     0, and its result), or (None, the reason) where this torch lacks the
@@ -639,65 +683,72 @@ def int4pack_ms(torch, packed, scale, h, reps=20):
         sz = torch.stack([scale.t(), torch.zeros_like(scale.t())],
                          -1).to(torch.bfloat16).contiguous()
         out = torch._weight_int4pack_mm(h, w, group, sz)
-        return cuda_ms(lambda: torch._weight_int4pack_mm(h, w, group, sz),
-                       reps=reps), out
+        return (lambda: torch._weight_int4pack_mm(h, w, group, sz)), out
     except (AttributeError, RuntimeError, TypeError) as e:
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
 
 
-def w4_flat_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES):
+def w4_flat_phase(torch, qm, quantize_w4, dev, g, shapes=W4_SHAPES,
+                  rows=WEIGHT_ROWS):
     """The flat-layout W4A8 and W4A16 kernels vs their plain twins at the
-    7B's four decode projections, B = 4, fp32 output → {"w4a8" |
-    "w4a16": (max abs err, summed ms, summed plain ms, bound (ms, by),
-    library ms or None)}; both move the same bytes: packed weights,
-    scales, activations and output once each. W4A16's library yardstick is
-    torch._weight_int4pack_mm (int4pack_ms)."""
-    B = 4
+    7B's four decode projections, B 4 and B 64, fp32 output, each run
+    twice (bitwise equal) → {("w4a8" | "w4a16", B): weight_sums}; both
+    move the same bytes: packed weights, scales, activations and output
+    once each. W4A16's library yardstick is torch._weight_int4pack_mm
+    (int4pack_call); the plain twins are timed at B 4 only."""
     res = {}
+    # rows past 4 from a generator of their own, so that the B 4 inputs
+    # and the later phases' stay
+    g64 = torch.Generator(device=dev).manual_seed(SEED + qm.MAX_TOKENS)
     for kname, kernel, plain, tol in (
             ("w4a8", qm.w4a8_matmul, qm.w4a8_matmul_plain, W4A8_REL_TOL),
             ("w4a16", qm.w4a16_matmul, qm.w4a16_matmul_plain,
              W4A16_REL_TOL)):
-        errs, ms, plain_ms, nbytes, ops = [], 0.0, 0.0, 0, 0
-        lib_ms = 0.0 if kname == "w4a16" else None
+        peak = PEAK_INT8 if kname == "w4a8" else PEAK_BF16
+        accs = {B: weight_sums() for B in rows}
+        if kname == "w4a8":
+            for acc in accs.values():
+                acc["library_ms"] = acc["library_eager_ms"] = None
         for name, K, N in shapes:
             w = torch.randn((N, K), generator=g, device=dev) * 0.02
             packed, scale = quantize_w4(w)
             pk, s = qm.w4_to_flat(packed, scale)
             del w
-            h = torch.randn((B, K), generator=g, device=dev,
-                            dtype=torch.bfloat16)
-            got = kernel(h, pk, s, out_dtype=torch.float32)
-            again = kernel(h, pk, s, out_dtype=torch.float32)
-            want = plain(h, pk, s, out_dtype=torch.float32)
-            torch.cuda.synchronize()
-            rel = ((got - want).abs().max() / want.abs().max()).item()
-            check(torch.equal(got, again), f"{kname} {name}: runs differ")
-            check(rel <= tol, f"{kname} {name}: rel err {rel}")
-            t = cuda_ms(lambda: kernel(h, pk, s), reps=20)
-            tp = cuda_ms(lambda: plain(h, pk, s), reps=3)
-            lib = {}
-            if lib_ms is not None:
-                t_lib, lib_out = int4pack_ms(torch, packed, scale, h)
-                if t_lib is None:
-                    lib_ms = None
-                    lib = dict(library="none", reason=repr(lib_out))
-                else:
-                    lib_ms += t_lib
-                    lib = dict(library_ms=f"{t_lib:.4f}", library_rel=(
-                        f"{((lib_out.float() - want).abs().max() / want.abs().max()).item():.3e}"))
-            phase("kernels", **{kname: name}, layout="flat", B=B, K=K, N=N,
-                  rel_err=f"{rel:.3e}", tol=tol, ms=f"{t:.4f}",
-                  plain_ms=f"{tp:.4f}", **lib)
-            errs.append((got - want).abs().max().item())
-            ms += t
-            plain_ms += tp
-            nbytes += pk.numel() + 4 * s.numel() + 2 * h.numel() + 2 * B * N
-            ops += 2 * B * K * N
-            del pk, s, packed, scale, got, again, want
-        peak = PEAK_INT8 if kname == "w4a8" else PEAK_BF16
-        res[kname] = (max(errs), ms, plain_ms, least_ms(ops, nbytes, peak),
-                      lib_ms)
+            for B, acc in accs.items():
+                h = torch.randn((B, K), generator=g if B == 4 else g64,
+                                device=dev, dtype=torch.bfloat16)
+                got = kernel(h, pk, s, out_dtype=torch.float32)
+                again = kernel(h, pk, s, out_dtype=torch.float32)
+                want = plain(h, pk, s, out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                rel = ((got - want).abs().max() / want.abs().max()).item()
+                check(torch.equal(got, again),
+                      f"{kname} {name} B{B}: runs differ")
+                check(rel <= tol, f"{kname} {name} B{B}: rel err {rel}")
+                lib, lib_fields = None, {}
+                if acc["library_ms"] is not None:
+                    lib, lib_out = int4pack_call(torch, packed, scale, h)
+                    if lib is None:
+                        lib_fields = dict(library="none",
+                                          reason=repr(lib_out))
+                    else:
+                        lib_fields = dict(library_rel=(
+                            f"{((lib_out.float() - want).abs().max() / want.abs().max()).item():.3e}"))
+                times = add_times(
+                    acc, lambda: kernel(h, pk, s),
+                    plain=(lambda: plain(h, pk, s)) if B == 4 else None,
+                    library=lib)
+                phase("kernels", **{kname: name}, layout="flat", B=B, K=K,
+                      N=N, rel_err=f"{rel:.3e}", tol=tol,
+                      bitwise_repeat=True, **times, **lib_fields)
+                acc["err"] = max(acc["err"], (got - want).abs().max().item())
+                acc["nbytes"] += pk.numel() + 4 * s.numel() + 2 * h.numel() \
+                    + 2 * B * N
+                acc["ops"] += 2 * B * K * N
+                del got, again, want, lib
+            del pk, s, packed, scale
+        for B, acc in accs.items():
+            res[(kname, B)] = finish_sums(acc, peak)
     torch.cuda.empty_cache()
     return res
 
@@ -707,8 +758,9 @@ def fused_mlp_phase(torch, qm, quantize_w4, dev, g, D=4096, I=11008, B=4):
     MLP, B = 4: error, bitwise repeatability, kernel, twin and bound ms;
     and, as the fusion's yardstick, the separate-call path of the same
     layer (w4a8_matmul_tiled gateup, silu·mul, w4a8_matmul_tiled down,
-    as the engine runs it without the fused MLP) → (max abs err, ms,
-    plain ms, bound (ms, by), two-call ms)."""
+    as the engine runs it without the fused MLP), both as CUDA-graph
+    replays and eager calls, at B 4 and B 64 → weight_sums at B 4 with
+    two_call_ms (graph) beside."""
     gu = quantize_w4(torch.randn((2 * I, D), generator=g, device=dev) * 0.02)
     dn = quantize_w4(torch.randn((D, I), generator=g, device=dev) * 0.02)
     tiles = qm.w4_mlp_tile_layout(*qm.w4_to_flat(*gu), *qm.w4_to_flat(*dn))
@@ -735,81 +787,114 @@ def fused_mlp_phase(torch, qm, quantize_w4, dev, g, D=4096, I=11008, B=4):
     rel32 = ((f32 - want).abs().max() / want.abs().max()).item()
     check(rel32 > FUSED_MLP_REL_TOL, f"fused_mlp_w4: the fp32 control is "
                                      f"within the bound ({rel32})")
-    t = cuda_ms(lambda: qm.fused_mlp_w4(h, *tiles), reps=20)
-    tp = cuda_ms(lambda: qm.fused_mlp_w4_plain(h, *tiles), reps=3)
+    acc = weight_sums()
+    acc["library_ms"] = acc["library_eager_ms"] = None
+    times = add_times(acc, lambda: qm.fused_mlp_w4(h, *tiles),
+                      plain=lambda: qm.fused_mlp_w4_plain(h, *tiles))
 
     def two_call(x):
         gate, up = qm.w4a8_matmul_tiled(x, *gu).chunk(2, dim=-1)
         return qm.w4a8_matmul_tiled(torch.nn.functional.silu(gate) * up, *dn)
 
-    t2 = cuda_ms(lambda: two_call(h), reps=20)
+    t2, t2e = graph_ms(lambda: two_call(h)), cuda_ms(lambda: two_call(h),
+                                                      reps=20)
     # the engine sends up to MAX_TOKENS decode rows: both paths at 64
-    # (from a generator of its own, so the later phases' inputs stay)
+    # (from a generator of their own, so the later phases' inputs stay)
     g64 = torch.Generator(device=dev).manual_seed(SEED + qm.MAX_TOKENS)
     h64 = torch.randn((qm.MAX_TOKENS, D), generator=g64, device=dev,
                       dtype=torch.bfloat16)
-    t64 = cuda_ms(lambda: qm.fused_mlp_w4(h64, *tiles), reps=20)
-    t2_64 = cuda_ms(lambda: two_call(h64), reps=20)
-    nbytes = sum(x.numel() * x.element_size() for x in tiles) \
+    t64 = graph_ms(lambda: qm.fused_mlp_w4(h64, *tiles))
+    t2_64 = graph_ms(lambda: two_call(h64))
+    acc["err"] = err
+    acc["nbytes"] = sum(x.numel() * x.element_size() for x in tiles) \
         + 2 * h.numel() + 2 * B * D
-    bound = least_ms(2 * B * D * 3 * I, nbytes, PEAK_INT8)
+    acc["ops"] = 2 * B * D * 3 * I
+    finish_sums(acc, PEAK_INT8)
+    acc["two_call_ms"] = t2
     phase("kernels", fused_mlp_w4=f"B{B}/D{D}/I{I}", rel_err=f"{rel:.3e}",
           max_abs_err=f"{err:.3e}", tol=FUSED_MLP_REL_TOL,
-          fp32_control_rel=f"{rel32:.3e}", bitwise_repeat=True,
-          ms=f"{t:.4f}", plain_ms=f"{tp:.4f}", two_call_ms=f"{t2:.4f}",
-          bound_ms=f"{bound[0]:.4f}", ms_b64=f"{t64:.4f}",
+          fp32_control_rel=f"{rel32:.3e}", bitwise_repeat=True, **times,
+          two_call_ms=f"{t2:.4f}", two_call_eager_ms=f"{t2e:.4f}",
+          bound_ms=f"{acc['bound'][0]:.4f}", ms_b64=f"{t64:.4f}",
           two_call_ms_b64=f"{t2_64:.4f}",
-          weight_mb=f"{(nbytes - 2 * h.numel() - 2 * B * D) / 1e6:.1f}")
+          weight_mb=f"{(acc['nbytes'] - 2 * h.numel() - 2 * B * D) / 1e6:.1f}")
     del gu, dn, tiles, got, again, got16, want, f32
     torch.cuda.empty_cache()
-    return err, t, tp, bound, t2
+    return acc
 
 
-def w8a8_phase(torch, qm, quantize_w8, dev, g, shapes=W4_SHAPES):
+def w8a8_phase(torch, qm, quantize_w8, dev, g, shapes=W4_SHAPES,
+               rows=WEIGHT_ROWS):
     """The W8A8 kernel vs its plain twin at the 7B's four decode
-    projections, B = 4, and torch._int_mm on the same int8 operands (rows
-    padded to 32, the int32 product alone) → (max abs err, summed ms,
-    summed plain ms, bound (ms, by) of the four: int8 weights, their
-    scales, activations and scales and output once each, int8 operations
-    at the int8 peak, summed _int_mm ms)."""
-    B = 4
-    errs, ms, plain_ms, lib_ms = [], 0.0, 0.0, 0.0
-    nbytes, ops = 0, 0
+    projections, B 4 and B 64: bitwise the twin's with fp32 and with bf16
+    output; timed beside torch._int_mm's int32 product on the same int8
+    operands (the rows zero-padded to at least 32, as the engine's extend
+    pads them) → {B: weight_sums} (bound: int8 weights, their scales,
+    activations and scales and output once each, int8 operations at the
+    int8 peak); the plain twin is timed at B 4 only."""
+    accs = {B: weight_sums() for B in rows}
+    g64 = torch.Generator(device=dev).manual_seed(SEED + qm.MAX_TOKENS)
     for name, K, N in shapes:
         w8, s_w = quantize_w8(torch.randn((N, K), generator=g, device=dev)
                               * 0.02)
-        h8, s_a = qm.quantize_activations(torch.randn(
-            (B, K), generator=g, device=dev, dtype=torch.bfloat16))
-        got = qm.w8a8_matmul(h8, s_a, w8, s_w, out_dtype=torch.float32)
-        got16 = qm.w8a8_matmul(h8, s_a, w8, s_w)
-        want = qm.w8a8_matmul_plain(h8, s_a, w8, s_w,
-                                    out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        rel = ((got - want).abs().max() / want.abs().max()).item()
-        check(rel <= W8A8_REL_TOL, f"w8a8 {name}: rel err {rel}")
-        bound = want.abs() * INT8_ROUNDING + W8A8_REL_TOL * want.abs().max()
-        check(bool(((got16.float() - want).abs() <= bound).all()),
-              f"w8a8 {name}: bf16 output off the twin")
-        t = cuda_ms(lambda: qm.w8a8_matmul(h8, s_a, w8, s_w), reps=20)
-        tp = cuda_ms(lambda: qm.w8a8_matmul_plain(h8, s_a, w8, s_w), reps=3)
-        hp = torch.nn.functional.pad(h8, (0, 0, 0, 32 - B))
-        wt = w8.t()
-        tl = cuda_ms(lambda: torch._int_mm(hp, wt), reps=20)
-        phase("kernels", w8a8=name, B=B, K=K, N=N, rel_err=f"{rel:.3e}",
-              bitwise=bool(torch.equal(got, want)), tol=W8A8_REL_TOL,
-              ms=f"{t:.4f}", plain_ms=f"{tp:.4f}", int_mm_ms=f"{tl:.4f}",
-              weight_mb=f"{(w8.numel() + 4 * s_w.numel()) / 1e6:.1f}")
-        errs.append((got - want).abs().max().item())
-        ms += t
-        plain_ms += tp
-        lib_ms += tl
-        nbytes += w8.numel() + 4 * s_w.numel() + h8.numel() + 4 * B \
-            + 2 * B * N
-        ops += 2 * B * K * N
-        del w8, s_w, got, got16, want, hp, wt
+        for B, acc in accs.items():
+            h8, s_a = qm.quantize_activations(torch.randn(
+                (B, K), generator=g if B == 4 else g64, device=dev,
+                dtype=torch.bfloat16))
+            got = qm.w8a8_matmul(h8, s_a, w8, s_w, out_dtype=torch.float32)
+            got16 = qm.w8a8_matmul(h8, s_a, w8, s_w)
+            want = qm.w8a8_matmul_plain(h8, s_a, w8, s_w,
+                                        out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            check(rel <= W8A8_REL_TOL, f"w8a8 {name} B{B}: rel err {rel}")
+            check(torch.equal(got, want), f"w8a8 {name} B{B}: fp32 output "
+                                          f"not bitwise the twin's")
+            check(torch.equal(got16, want.to(torch.bfloat16)),
+                  f"w8a8 {name} B{B}: bf16 output not bitwise the twin's")
+            hp = torch.nn.functional.pad(h8, (0, 0, 0, max(32, B) - B))
+            wt = w8.t()
+            times = add_times(
+                acc, lambda: qm.w8a8_matmul(h8, s_a, w8, s_w),
+                plain=((lambda: qm.w8a8_matmul_plain(h8, s_a, w8, s_w))
+                       if B == 4 else None),
+                library=lambda: torch._int_mm(hp, wt))
+            phase("kernels", w8a8=name, B=B, K=K, N=N, rel_err=f"{rel:.3e}",
+                  bitwise=True, tol=W8A8_REL_TOL, **times,
+                  weight_mb=f"{(w8.numel() + 4 * s_w.numel()) / 1e6:.1f}")
+            acc["err"] = max(acc["err"], (got - want).abs().max().item())
+            acc["nbytes"] += w8.numel() + 4 * s_w.numel() + h8.numel() \
+                + 4 * B + 2 * B * N
+            acc["ops"] += 2 * B * K * N
+            del got, got16, want, hp, wt
+        del w8, s_w
     torch.cuda.empty_cache()
-    return (max(errs), ms, plain_ms, least_ms(ops, nbytes, PEAK_INT8),
-            lib_ms)
+    return {B: finish_sums(acc, PEAK_INT8) for B, acc in accs.items()}
+
+
+def quantize_phase(torch, qm, dev, shapes=W4_SHAPES, B=4):
+    """The one-launch activation quantizer of the W8A8 decode path vs
+    quantize_activations (its plain twin, ~8 launches) on the four
+    projections' bf16 inputs, B 4 (from a generator of its own): h8 and
+    s_a bitwise equal → weight_sums (bound: bf16 in, int8 and scales out
+    once each; err is 0 when every check passed)."""
+    gq = torch.Generator(device=dev).manual_seed(SEED + 9)
+    acc = weight_sums()
+    acc["library_ms"] = acc["library_eager_ms"] = None
+    for name, K, _ in shapes:
+        h = torch.randn((B, K), generator=gq, device=dev,
+                        dtype=torch.bfloat16)
+        h8, s_a = qm.quantize_rows(h)
+        w8, ws_a = qm.quantize_activations(h)
+        torch.cuda.synchronize()
+        check(torch.equal(h8, w8) and torch.equal(s_a, ws_a),
+              f"quantize_rows {name}: not bitwise quantize_activations")
+        times = add_times(acc, lambda: qm.quantize_rows(h),
+                          plain=lambda: qm.quantize_activations(h))
+        phase("kernels", quantize_rows=name, B=B, K=K, bitwise=True, **times)
+        acc["nbytes"] += 2 * B * K + B * K + 4 * B
+        acc["ops"] += 3 * B * K
+    return finish_sums(acc, PEAK_BF16)
 
 
 def flash_case(torch, fa, dev, g, B, T, H, Hkv, q_offset=0,
@@ -1309,7 +1394,9 @@ def main():
              for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
                        *(f"ragged_extend_{m}" for m in KV_MODES),
                        *(f"ragged_decode_{m}_g{g}" for m in KV_MODES
-                         for g in (1, 4)))}
+                         for g in (1, 4)),
+                       *(f"{k}_b{b}" for k in ("w8a8", "w4a16")
+                         for b in (8, 64)))}
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
           nvcc_seconds=f"{cuda_build.build_seconds:.1f}",
           library=cuda_build.library_path().name,
@@ -1339,6 +1426,7 @@ def main():
     flat_res = w4_flat_phase(torch, qm, engine_mod._w4, dev, g)
     mlp_res = fused_mlp_phase(torch, qm, engine_mod._w4, dev, g)
     w8res = w8a8_phase(torch, qm, engine_mod._w8, dev, g)
+    qres = quantize_phase(torch, qm, dev)
     flash_res = [
         flash_case(torch, fa, dev, g, bench_stage.BATCH, bench_stage.SEQ,
                    32, 32, timed=True),
@@ -1415,7 +1503,8 @@ def main():
                         (ra.ragged_decode_attention, "launches")],
                "w8kv8": [(ra.ragged_attention, "launches_int8"),
                          (ra.ragged_decode_attention, "launches_int8"),
-                         (qm.w8a8_matmul, "launches")],
+                         (qm.w8a8_matmul, "launches"),
+                         (qm.quantize_rows, "launches")],
                "w4kv8": [(ra.ragged_attention, "launches_int8"),
                          (ra.ragged_decode_attention, "launches_int8"),
                          (qm.w4a8_matmul_tiled, "launches")],
@@ -1595,13 +1684,29 @@ def main():
     train_parity(torch, bench_stage, fa, dev)
 
     def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
-              bound_ms, library_ms):
+              bound_ms, library_ms, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"aurora_tpu_torch/csrc/{source}",
                 "replaces": f"aurora_tpu/ops/pallas/{replaces}",
                 "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms[0],
-                "bound_by": bound_ms[1], "library_ms": library_ms}
+                "bound_by": bound_ms[1], "library_ms": library_ms, **extra}
+
+    def weight_entry(name, source, replaces, launches, acc, acc64=None,
+                     **extra):
+        """ms and library_ms: CUDA-graph replays (device time), summed
+        over the four projections at B 4; eager single calls beside them,
+        and the B 64 readings where the phase took them."""
+        if acc64 is not None:
+            extra.update(ms_b64=acc64["ms"], eager_ms_b64=acc64["eager_ms"],
+                         library_ms_b64=acc64["library_ms"],
+                         bound_ms_b64=acc64["bound"][0],
+                         max_abs_err=max(acc["err"], acc64["err"]))
+        return entry(name, source, replaces, launches,
+                     extra.pop("max_abs_err", acc["err"]), acc["ms"],
+                     acc["plain_ms"], acc["bound"], acc["library_ms"],
+                     eager_ms=acc["eager_ms"],
+                     library_eager_ms=acc["library_eager_ms"], **extra)
 
     def attn_entry(name, source, replaces, launches, mode, kind):
         r = kres[(mode, 32)][kind]   # the Vicuna shape: Hq = Hkv = 32
@@ -1648,29 +1753,36 @@ def main():
               ("ragged_attention", "ragged_extend.cu", "287", "extend"),
               ("ragged_decode_attention", "ragged_decode.cu", "645",
                "decode")))),
-        # ms: the four decode projections of one layer at B = 4, summed;
-        # launches from the W4 + int8-KV run
-        entry("w4a8_matmul_tiled", "w4a8_matmul.cu", "quant_matmul.py:305",
-              launches["w4kv8"][2], w4res[0], w4res[1], w4res[2], w4res[3],
-              None),
-        # the same four projections in the flat layout; launches from the
-        # flat-layout run
-        entry("w4a8_matmul", "w4_flat_matmul.cu", "quant_matmul.py:204",
-              launches["w4kv8-flat"][2], *flat_res["w4a8"]),
+        # ms: the four decode projections of one layer at B = 4, summed,
+        # as CUDA-graph replays; launches from the W4 + int8-KV run
+        weight_entry("w4a8_matmul_tiled", "w4a8_matmul.cu",
+                     "quant_matmul.py:305", launches["w4kv8"][2], w4res),
+        # the same four projections in the flat layout (and at B 64);
+        # launches from the flat-layout run
+        weight_entry("w4a8_matmul", "w4_flat_matmul.cu",
+                     "quant_matmul.py:204", launches["w4kv8-flat"][2],
+                     flat_res[("w4a8", 4)], flat_res[("w4a8", 64)]),
         # no serving path calls it (nor the reference's): timed at the
         # same four projections; launches as read after the flat-layout
         # run, whose counts were all set to 0 before it
-        entry("w4a16_matmul", "w4_flat_matmul.cu", "quant_matmul.py:104",
-              run_counts["w4kv8-flat"]["w4a16_matmul.launches"],
-              *flat_res["w4a16"]),
+        weight_entry("w4a16_matmul", "w4_flat_matmul.cu",
+                     "quant_matmul.py:104",
+                     run_counts["w4kv8-flat"]["w4a16_matmul.launches"],
+                     flat_res[("w4a16", 4)], flat_res[("w4a16", 64)]),
         # one 7B layer's MLP at B = 4; launches from the fused-MLP run
-        entry("fused_mlp_w4", "fused_mlp_w4.cu", "quant_matmul.py:474",
-              launches["w4kv8-fused"][3], *mlp_res[:4], None),
-        # the same four projections; library: torch._int_mm's int32
-        # product on the same operands
-        entry("w8a8_matmul", "w8a8_matmul.cu", "quant_matmul.py:41",
-              launches["w8kv8"][2], w8res[0], w8res[1], w8res[2], w8res[3],
-              w8res[4]),
+        weight_entry("fused_mlp_w4", "fused_mlp_w4.cu",
+                     "quant_matmul.py:474", launches["w4kv8-fused"][3],
+                     mlp_res, two_call_ms=mlp_res["two_call_ms"]),
+        # the same four projections (and at B 64); library: torch._int_mm's
+        # int32 product on the same operands
+        weight_entry("w8a8_matmul", "w8a8_matmul.cu", "quant_matmul.py:41",
+                     launches["w8kv8"][2], w8res[4], w8res[64]),
+        # the W8A8 decode path's activation quantizer, at the four
+        # projections' inputs, B 4: it replaces the reference's jnp
+        # quantize_activations (no Pallas kernel there); launches from the
+        # W8 + int8-KV run
+        weight_entry("quantize_rows", "w8a8_matmul.cu",
+                     "quant_matmul.py:527", launches["w8kv8"][3], qres),
         # flash at B 4, T 2048, H 32, D 128, causal; the two backward
         # kernels share the twin's and SDPA's backward times
         entry("flash_attention_fwd", "flash_attention.cu",

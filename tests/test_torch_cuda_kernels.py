@@ -28,7 +28,12 @@ max |want| ≤ 1e-5 with fp32 output (only
 the fp32 order of the group sum differs), and bf16 output within one bf16
 rounding of the twin's; repeated launches agree bitwise. W8A8 matmul:
 bitwise the twin's, fp32 and bf16 output (exact int32 sums, then the same
-two fp32 multiplies). Flash attention (bf16 in, the fp32 twin on the same bf16
+two fp32 multiplies). The weight streamers (W8A8, W4A16) at B 1, 4, 8,
+9, 17, 64 with K 11008, N off the column tile (W4A16's packed rows then
+off 16-byte boundaries) and a split-K grid whose last split is short:
+W8A8 bitwise the twin's, W4A16 within 1e-5 and bitwise repeatable; both
+captured in one CUDA graph, whose replays equal the eager results. The
+W8A8 path's one-launch quantizer: bitwise quantize_activations. Flash attention (bf16 in, the fp32 twin on the same bf16
 values, causal, GQA, q_offset, segment ids with rows that see no key):
 out within 2e-2 max abs and, per query row, 1.5e-2 of that row's max
 |out|; lse within 1e-4 (fp32 on both sides from the same bf16 scores);
@@ -266,6 +271,112 @@ def test_w4a16_kernel_matches_plain_on_card(cuda_device, B, K, N, h_dtype):
     assert tqm.w4a16_matmul.launches == launches + 2
     assert torch.equal(got, again)
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+# the weight streamers (w8a8_matmul, w4a16_matmul) at every token-tile
+# count, K = 11008 (86 groups of 128), N off the 128-column tile (W4A16:
+# N % 16 == 4, so packed rows start off 16-byte boundaries) and, with N
+# 4096, a grid whose last K split is shorter than the others
+STREAM_ROWS = [1, 4, 8, 9, 17, 64]
+STREAM_N = [1028, 4096]
+
+
+def _short_last_split(dev, N, K, group):
+    _, per, nsplit = tqm.weight_plan(N, K, group, tra._sm_count(dev))
+    return nsplit > 1 and -(-K // group) - (nsplit - 1) * per < per
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", STREAM_N)
+@pytest.mark.parametrize("B", STREAM_ROWS)
+def test_w8a8_kernel_rows_and_splits_on_card(cuda_device, B, N):
+    from aurora_tpu_torch.serve.engine import _w8
+    K = 11008
+    gen = torch.Generator(device=cuda_device).manual_seed(7 * B + N)
+    w8, s_w = _w8(torch.randn((N, K), generator=gen, device=cuda_device))
+    h8, s_a = tqm.quantize_activations(torch.randn(
+        (B, K), generator=gen, device=cuda_device, dtype=torch.bfloat16))
+    if N == 4096:
+        assert _short_last_split(cuda_device, N, K, tqm.W8_GROUP)
+    got = tqm.w8a8_matmul(h8, s_a, w8, s_w, out_dtype=torch.float32)
+    again = tqm.w8a8_matmul(h8, s_a, w8, s_w, out_dtype=torch.float32)
+    got16 = tqm.w8a8_matmul(h8, s_a, w8, s_w)
+    want = tqm.w8a8_matmul_plain(h8, s_a, w8, s_w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+    assert torch.equal(got16, want.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", STREAM_N)
+@pytest.mark.parametrize("B", STREAM_ROWS)
+def test_w4a16_kernel_rows_and_splits_on_card(cuda_device, B, N):
+    K = 11008
+    gen = torch.Generator(device=cuda_device).manual_seed(7 * B + N)
+    pk, s = _flat_w4(gen, cuda_device, K, N)
+    if N == 4096:
+        assert _short_last_split(cuda_device, N, K, K // s.shape[0])
+    h = torch.randn((B, K), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    got = tqm.w4a16_matmul(h, pk, s, out_dtype=torch.float32)
+    again = tqm.w4a16_matmul(h, pk, s, out_dtype=torch.float32)
+    got16 = tqm.w4a16_matmul(h, pk, s)
+    want = tqm.w4a16_matmul_plain(h, pk, s, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert torch.equal(got16, got.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_weight_streamers_replay_in_a_cuda_graph_on_card(cuda_device):
+    """One capture of both streamers (split grids, so the per-device
+    scratch and tickets are in the graph): each replay equals the eager
+    result bitwise."""
+    from aurora_tpu_torch.serve.engine import _w8
+    K, N, B = 11008, 4096, 9
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    w8, s_w = _w8(torch.randn((N, K), generator=gen, device=cuda_device))
+    pk, s = _flat_w4(gen, cuda_device, K, N)
+    h = torch.randn((B, K), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    h8, s_a = tqm.quantize_activations(h)
+
+    def step():
+        return (tqm.w8a8_matmul(h8, s_a, w8, s_w),
+                tqm.w4a16_matmul(h, pk, s, out_dtype=torch.float32))
+
+    eager = step()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,K", [(1, 4096), (4, 11008), (64, 4096)])
+def test_quantize_rows_kernel_matches_plain_on_card(cuda_device, B, K,
+                                                    dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(B + K)
+    h = torch.randn((B, K), generator=gen, device=cuda_device) * 3
+    h[0, :7] = 0.0                       # zeros in a row
+    h = h.to(dtype)
+    launches = tqm.quantize_rows.launches
+    h8, s_a = tqm.quantize_rows(h)
+    w8, ws_a = tqm.quantize_activations(h)
+    torch.cuda.synchronize()
+    assert tqm.quantize_rows.launches == launches + 1
+    assert h8.dtype == torch.int8 and s_a.shape == (B, 1)
+    assert torch.equal(h8, w8)
+    assert torch.equal(s_a, ws_a)
 
 
 def _mlp_tiles(gen, dev, D, I):
