@@ -36,8 +36,8 @@ from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
                                            projection_shapes)
 from aurora_tpu_torch.models.projector import Projector, ProjectorConfig
 from aurora_tpu_torch.models.vit import ViTConfig, VisionTransformer
-from aurora_tpu_torch.ops.pallas.quant_matmul import (w4_from_flat,
-                                                      w4_mlp_untile_layout)
+from aurora_tpu_torch.ops.pallas.quant_matmul import (
+    w4_from_flat, w4_mlp_untile_reference)
 
 # reference LlamaConfig knobs of other families, with the value at which
 # they are off; the port's decoder is the llama case with Mistral's
@@ -180,7 +180,7 @@ def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
             tiles = (torch.from_numpy(np.array(layers[k][l]))
                      for k in ("mlp_gu", "mlp_gs", "mlp_dw", "mlp_ds"))
             gu_pk, gu_s, dn_pk, dn_s = (
-                t.numpy() for t in w4_mlp_untile_layout(*tiles))
+                t.numpy() for t in w4_mlp_untile_reference(*tiles))
             mlp = {"gateup": w4_from_flat(gu_pk, gu_s),
                    "down": w4_from_flat(dn_pk, dn_s)}
         for name in projection_shapes(cfg, fused):

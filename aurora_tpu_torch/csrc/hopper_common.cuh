@@ -164,6 +164,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// programmatic dependent launch: a kernel launched with the
+// programmatic stream serialization attribute may start while the kernel
+// before it on the stream still runs, once every block of that one has
+// called launch_dependents() or exited; wait() blocks this thread until
+// that kernel has completed and its writes are visible
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void grid_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
 // order this thread's earlier generic-proxy accesses to shared memory
 // before later async-proxy ones (a bulk copy or TMA load into it, a wgmma
 // reading it)

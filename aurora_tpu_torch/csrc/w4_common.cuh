@@ -1,11 +1,12 @@
-// Device code shared by the W4 kernels (w4a8_matmul.cu, w4_flat_matmul.cu,
-// fused_mlp_w4.cu): the per-token int8 activation quantizer, element
-// conversions, and the two inner routines over the reference's flat W4
-// layout (packed [K/2, N] int8, K-major: byte (p, n) holds input rows 2p in
-// its low and 2p + 1 in its high nibble for output column n; scales
-// [G, N] fp32 for G groups of K/G input rows).
+// Device code shared by the W4 and W8 kernels (w4a8_matmul.cu,
+// w4_flat_matmul.cu, fused_mlp_w4.cu, w8a8_matmul.cu): the per-token int8
+// activation quantizer, element conversions, and the flat W4A8 kernel's
+// inner routine over the reference's flat W4 layout (packed [K/2, N] int8,
+// K-major: byte (p, n) holds input rows 2p in its low and 2p + 1 in its
+// high nibble for output column n; scales [G, N] fp32 for G groups of K/G
+// input rows).
 //
-// Each routine is run by one thread for 4 consecutive output columns (one
+// That routine is run by one thread for 4 consecutive output columns (one
 // 32-bit word of every packed row) and up to FR token rows; the caller
 // picks the packed rows it walks and sums the threads' partial results in
 // a fixed order, so no kernel uses atomics and every run repeats bit for
@@ -21,7 +22,8 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int QNT = 256;            // quantize_rows threads
+constexpr int QNT = 1024;           // quantize_rows threads
+constexpr int QPER = 12;            // row values a thread keeps in registers
 constexpr int FR = 4;               // token rows per pass of the flat routines
 constexpr int MAX_B = 64;
 
@@ -55,46 +57,73 @@ __device__ __forceinline__ float bf16_round(float x) {
 //   h8[b, k] = clamp(rint(h[b, k] / s_a[b]), -127, 127)
 // written as even and odd planes he/ho [B, K/2] (he[b, j] = h8[b, 2j]),
 // or with PLANES false as one contiguous [B, K] array at he (the W8A8
-// path; ho unused).
+// path; ho unused). A row of up to QPER * QNT values is read once and
+// kept in registers; longer rows are read twice.
+template <typename T, bool PLANES>
+__device__ __forceinline__ void quantize_put(int8_t* he, int8_t* ho, int b,
+                                             int K, int k, float x,
+                                             float s) {
+  const int8_t v = int8_t(fminf(fmaxf(rintf(x / s), -127.f), 127.f));
+  if (!PLANES)
+    he[size_t(b) * K + k] = v;
+  else
+    ((k & 1) ? ho : he)[size_t(b) * (K / 2) + k / 2] = v;
+}
+
 template <typename T, bool PLANES = true>
 __global__ void __launch_bounds__(QNT)
 quantize_rows(const T* __restrict__ h, int8_t* __restrict__ he,
               int8_t* __restrict__ ho, float* __restrict__ s_a, int K) {
   __shared__ float red[QNT / 32];
   __shared__ float s_sh;
+  // the weight streamer launched behind this kernel (programmatic
+  // dependent launch) may start its weight loads now
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const int b = blockIdx.x;
   const T* row = h + size_t(b) * K;
+  const bool kept = K <= QPER * QNT;
+  float v[QPER];
   float m = 0.f;
-  for (int k = threadIdx.x; k < K; k += QNT) m = fmaxf(m, fabsf(to_f(row[k])));
+  if (kept) {
+#pragma unroll
+    for (int u = 0; u < QPER; ++u) {
+      const int k = threadIdx.x + u * QNT;
+      v[u] = k < K ? to_f(row[k]) : 0.f;
+      m = fmaxf(m, fabsf(v[u]));
+    }
+  } else {
+    for (int k = threadIdx.x; k < K; k += QNT)
+      m = fmaxf(m, fabsf(to_f(row[k])));
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float mx = red[0];
-    for (int w = 1; w < QNT / 32; ++w) mx = fmaxf(mx, red[w]);
-    // the reference divides by the constant 127 as XLA compiles it: a
-    // multiply by the fp32 reciprocal
-    const float s = fmaxf(mx * (1.0f / 127.0f), 1e-12f);
-    s_sh = s;
-    s_a[b] = s;
+  if (threadIdx.x < 32) {
+    float mx = red[threadIdx.x];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (threadIdx.x == 0) {
+      // the reference divides by the constant 127 as XLA compiles it: a
+      // multiply by the fp32 reciprocal
+      const float s = fmaxf(mx * (1.0f / 127.0f), 1e-12f);
+      s_sh = s;
+      s_a[b] = s;
+    }
   }
   __syncthreads();
   const float s = s_sh;
-  if (!PLANES) {
+  if (kept) {
+#pragma unroll
+    for (int u = 0; u < QPER; ++u) {
+      const int k = threadIdx.x + u * QNT;
+      if (k < K) quantize_put<T, PLANES>(he, ho, b, K, k, v[u], s);
+    }
+  } else {
     for (int k = threadIdx.x; k < K; k += QNT)
-      he[size_t(b) * K + k] = int8_t(
-          fminf(fmaxf(rintf(to_f(row[k]) / s), -127.f), 127.f));
-    return;
-  }
-  const int K2 = K / 2;
-  for (int j = threadIdx.x; j < K2; j += QNT) {
-    const float e = fminf(fmaxf(rintf(to_f(row[2 * j]) / s), -127.f), 127.f);
-    const float o =
-        fminf(fmaxf(rintf(to_f(row[2 * j + 1]) / s), -127.f), 127.f);
-    he[size_t(b) * K2 + j] = int8_t(e);
-    ho[size_t(b) * K2 + j] = int8_t(o);
+      quantize_put<T, PLANES>(he, ho, b, K, k, to_f(row[k]), s);
   }
 }
 
@@ -143,39 +172,6 @@ __device__ __forceinline__ void a8_group(int (&part)[FR][4], const int8_t* w,
           part[r][c] = __dp4a(int((x[c] << 4) & 0xF0F0F0F0u), e, part[r][c]);
           part[r][c] = __dp4a(int(x[c] & 0xF0F0F0F0u), o, part[r][c]);
         }
-      }
-    }
-  }
-}
-
-// W4A16 over packed rows [0, n) of the flat layout at `w` (row stride `ld`
-// bytes), this thread's 4 columns, with their bf16 scales sbf[c] (already
-// rounded). Each weight is bf16(bf16(q) * sbf) -- q * sbf is exact in fp32,
-// so one rounding gives the reference's bf16 product -- and each product
-// with a bf16 activation is exact in fp32: acc[r][c] += a * w by fmaf.
-// act(r, k) returns token row r's activation of input row k (a bf16
-// value as float).
-template <typename Act>
-__device__ __forceinline__ void a16_rows(float (&acc)[FR][4], const int8_t* w,
-                                         int ld, int n, const float (&sbf)[4],
-                                         int nr, Act act) {
-#pragma unroll 4
-  for (int p = 0; p < n; ++p) {
-    const unsigned word = ld32(w + size_t(p) * ld);
-    float wl[4], wh[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int byte = int(word << (24 - 8 * c)) >> 24;   // sign-extended
-      wl[c] = bf16_round(float(int(unsigned(byte) << 28) >> 28) * sbf[c]);
-      wh[c] = bf16_round(float(byte >> 4) * sbf[c]);
-    }
-#pragma unroll
-    for (int r = 0; r < FR; ++r) {
-      if (r < nr) {
-        const float ae = act(r, 2 * p), ao = act(r, 2 * p + 1);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[r][c] = fmaf(ao, wh[c], fmaf(ae, wl[c], acc[r][c]));
       }
     }
   }

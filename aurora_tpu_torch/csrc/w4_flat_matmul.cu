@@ -145,16 +145,6 @@ size_t w4a16_red_bytes(int B) {
   return size_t(ws::KW) * B * ws::BN * sizeof(float);
 }
 
-// bf16x2 of the two nibbles at bits 0-3 and 16-19 of t, times s2
-__device__ __forceinline__ uint32_t dq_pair(uint32_t t, uint32_t s2) {
-  const uint32_t v = (t & 0x000F000Fu) ^ 0x43084308u;
-  __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&v);
-  const uint32_t k136 = 0x43084308u;
-  x = __hsub2(x, *reinterpret_cast<const __nv_bfloat162*>(&k136));
-  x = __hmul2(x, *reinterpret_cast<const __nv_bfloat162*>(&s2));
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
 // the B fragment of token row `row` of the activation boxes at `act`
 // (boxes of 8 * TT rows) for k 4q .. 4q + 3 of step j: (k 4q, 4q + 2),
 // (k 4q + 1, 4q + 3), rounded to bf16
@@ -162,11 +152,7 @@ template <int TT>
 __device__ __forceinline__ void act_pair(const uint8_t* act, const bf16*,
                                          int row, int j, int q, uint32_t& b0,
                                          uint32_t& b1) {
-  const uint8_t* box = act + (j >> 2) * (8 * TT * 128);
-  const uint2 u = *reinterpret_cast<const uint2*>(
-      box + hopper::swz128(row, 2 * (j & 3) + (q >> 1)) + 8 * (q & 1));
-  b0 = __byte_perm(u.x, u.y, 0x5410);
-  b1 = __byte_perm(u.x, u.y, 0x7632);
+  ws::act_pair_bf16(act, 8 * TT * 128, row, j, q, b0, b1);
 }
 template <int TT>
 __device__ __forceinline__ void act_pair(const uint8_t* act, const float*,
@@ -185,21 +171,6 @@ __device__ __forceinline__ int act_row(const bf16*, int g) {
 }
 __device__ __forceinline__ int act_row(const float*, int g) {
   return ws::spread4(g);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   hopper::smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-// the mbarrier's phase waits, besides its arrivals, for this thread's
-// cp.async copies so far
-__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(
-                   hopper::smem_u32(bar))
-               : "memory");
 }
 
 template <int TT, typename TI, typename TO>
@@ -237,10 +208,10 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_w,
         for (int e = lane; e < len / 2 * 32; e += 32) {
           const int p = e >> 5, w = e & 31;
           if (4 * w < nv)
-            cp_async4(st + hopper::swz128(p, w >> 2) + 4 * (w & 3),
+            ws::cp_async4(st + hopper::swz128(p, w >> 2) + 4 * (w & 3),
                       packed + size_t(kc / 2 + p) * N + n0 + 4 * w);
         }
-        cp_async_mbar_arrive(full);
+        ws::cp_async_mbar_arrive(full);
         __syncwarp();
       }
       if (lane == 0) {
@@ -287,19 +258,8 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_w,
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) s2[jj] = hopper::pack_bf16(sv[jj], sv[jj]);
       }
-      const uint2 wa =
-          *reinterpret_cast<const uint2*>(st + 1024 * j + w_off0);
-      const uint2 wb =
-          *reinterpret_cast<const uint2*>(st + 1024 * j + w_off1);
       uint32_t a[4][4];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const uint32_t t = __byte_perm(jj < 4 ? wa.x : wa.y,
-                                       jj < 4 ? wb.x : wb.y,
-                                       (jj & 3) | ((4 + (jj & 3)) << 8));
-        a[jj >> 1][jj & 1] = dq_pair(t, s2[jj]);
-        a[jj >> 1][2 + (jj & 1)] = dq_pair(t >> 4, s2[jj]);
-      }
+      ws::w4a16_frag(st, w_off0, w_off1, j, s2, a);
 #pragma unroll
       for (int t = 0; t < TT; ++t) {
         uint32_t b0, b1;

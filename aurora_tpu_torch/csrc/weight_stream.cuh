@@ -1,7 +1,9 @@
 // The tensor-core weight streamers of the decode matmuls, sm_90a: the
 // block shape, the ring of stages that one producer warp fills by TMA,
-// the mma.sync wrappers and the deterministic split-K ending. Used by
-// w8a8_matmul.cu (`w8a8_kernel`) and w4_flat_matmul.cu (`w4a16_kernel`).
+// the mma.sync wrappers, the W4A8 unit on the int8 tensor cores, the W4
+// dequantization to bf16 fragments and the deterministic split-K ending.
+// Used by w8a8_matmul.cu (`w8a8_kernel`), w4_flat_matmul.cu
+// (`w4a16_kernel`), w4a8_matmul.cu (`w4a8_kernel`) and fused_mlp_w4.cu.
 //
 // What bounds them on the H100: at decode (B <= 64 token rows) each
 // weight byte feeds at most 2 * 64 int8 operations (W8) or 4 * 64 bf16
@@ -25,19 +27,21 @@
 // values each: a TMA box of the weight tile and boxes of the token rows'
 // activations (the 128-byte swizzle; rows past B, columns past N or K
 // read as zeros), and for W4 the scale rows the stage touches (1-D bulk
-// copies); each stage completes on its `full` mbarrier, and is refilled
+// copies, or 4-byte cp.async by the producer's lanes where they are
+// strided); each stage completes on its `full` mbarrier, and is refilled
 // once the 8 consumer warps have arrived on its `empty` mbarrier.
-// Consumer warp w owns channels [64 * (w % CW), + 64) and the mma k-steps
-// w / CW, w / CW + KW, ... of each stage. At the end the four k-slices'
-// partial sums meet in shared memory (the ring's bytes, read no more) and
-// are added in k-slice order. With one split the block then writes the
-// output. With more, each block stores its partial to part[split][B][N]
-// and takes a ticket on its column tile; the last block adds the
-// partials in split order, writes the output and resets the ticket. The
-// sums are thus taken in the same order whichever block comes last, and
-// every run gives the same bits. part and the tickets are per device and
-// reused by every launch (see quant_matmul.py), so launches of one kernel
-// on one device must not overlap.
+// Consumer warps split the tile's channels and the stage's k between
+// them (W8A8, W4A16: 2 channel slices of 64 by 4 k-slices of the mma
+// k-steps; W4A8: `A8` below, k-slices of whole scale groups). At the end
+// the k-slices' partial sums meet in shared memory (the ring's bytes,
+// read no more) and are added in k-slice order. With one split the block
+// then writes the output. With more, each block stores its partial to
+// part[split][B][N] and takes a ticket on its column tile; the last block
+// adds the partials in split order, writes the output and resets the
+// ticket. The sums are thus taken in the same order whichever block comes
+// last, and every run gives the same bits. part and the tickets are per
+// device and reused by every launch (see quant_matmul.py), so launches of
+// one kernel on one device must not overlap.
 
 #pragma once
 
@@ -129,6 +133,21 @@ __device__ __forceinline__ void consumer_release(Bars& b, int slot) {
   if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&b.empty[slot]);
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// the mbarrier's phase waits, besides its arrivals, for this thread's
+// cp.async copies so far
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(
+                   hopper::smem_u32(bar))
+               : "memory");
+}
+
 // D[16][8] += A[16][16] . B[16][8], bf16 in, fp32 accumulation. Fragments
 // (g = lane / 4, q = lane % 4): a0 (row g, k 2q, 2q + 1), a1 (row g + 8,
 // same k), a2 (row g, k 2q + 8, 2q + 9), a3 (row g + 8, those k); b0 (k
@@ -154,14 +173,262 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The consumers' ending. red holds the k-slices' partial sums
-// [KW][B][BN] (T: float or int) in shared memory, written by every
+// ---------------------------------------------------------------- W4A16
+// bf16x2 of the two nibbles at bits 0-3 and 16-19 of t, times s2 (the
+// bf16 scale pair): (nibble & 0xF) ^ 0x4308 is the bf16 of 128 + (v + 8)
+// for the signed value v, less 136 (exact) gives v, and one bf16 multiply
+// rounds v * s once: bf16(bf16(v) * bf16(s)), since v * s is exact in
+// fp32 (w4_flat_matmul.cu's W4A16 kernel and the fused MLP's down stream)
+__device__ __forceinline__ uint32_t dq_pair(uint32_t t, uint32_t s2) {
+  const uint32_t v = (t & 0x000F000Fu) ^ 0x43084308u;
+  __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  const uint32_t k136 = 0x43084308u;
+  x = __hsub2(x, *reinterpret_cast<const __nv_bfloat162*>(&k136));
+  x = __hmul2(x, *reinterpret_cast<const __nv_bfloat162*>(&s2));
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// The B fragment of bf16 token row `row` for k 4q .. 4q + 3 of k-step j
+// (16 k) from boxes of `abox` bytes (rows of 128 bytes, 64 k, 128-byte
+// swizzle): (k 4q, 4q + 2), (k 4q + 1, 4q + 3), the pairing of the W4A16
+// A fragment below
+__device__ __forceinline__ void act_pair_bf16(const uint8_t* act, int abox,
+                                              int row, int j, int q,
+                                              uint32_t& b0, uint32_t& b1) {
+  const uint8_t* box = act + (j >> 2) * abox;
+  const uint2 u = *reinterpret_cast<const uint2*>(
+      box + hopper::swz128(row, 2 * (j & 3) + (q >> 1)) + 8 * (q & 1));
+  b0 = __byte_perm(u.x, u.y, 0x5410);
+  b1 = __byte_perm(u.x, u.y, 0x7632);
+}
+
+// The A fragments of W4A16 k-step j from a box of flat W4 (64 packed rows
+// of 128 columns, 128-byte swizzle, packed row p holding k 2p and 2p + 1
+// of each column): thread (g, q) owns the 8 consecutive columns col ..
+// col + 7 and the packed rows 8j + 2q and 8j + 2q + 1, whose bytes give,
+// column by column, bf16 pairs (k 2p, 2p + 2) and (k 2p + 1, 2p + 3):
+// fragment k pairs q and q + 4. Column col + jj is fragment row jj / 2 *
+// 16 + jj % 2 * 8 + g; s2[jj] its bf16 scale pair. off0 / off1: the
+// thread's byte offsets of its two rows at j = 0 (the swizzle repeats
+// every 8 rows, so step j adds 1024 j).
+__device__ __forceinline__ void w4a16_frag(const uint8_t* box, int off0,
+                                           int off1, int j,
+                                           const uint32_t (&s2)[8],
+                                           uint32_t (&a)[4][4]) {
+  const uint2 wa = *reinterpret_cast<const uint2*>(box + 1024 * j + off0);
+  const uint2 wb = *reinterpret_cast<const uint2*>(box + 1024 * j + off1);
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const uint32_t t = __byte_perm(jj < 4 ? wa.x : wa.y, jj < 4 ? wb.x : wb.y,
+                                   (jj & 3) | ((4 + (jj & 3)) << 8));
+    a[jj >> 1][jj & 1] = dq_pair(t, s2[jj]);
+    a[jj >> 1][2 + (jj & 1)] = dq_pair(t >> 4, s2[jj]);
+  }
+}
+
+// ---------------------------------------------------------------- W4A8
+// W4A8 on the int8 tensor cores (w4a8_matmul.cu, fused_mlp_w4.cu). A
+// weight box holds channel rows of packed W4 (byte p: k 2p in the low
+// nibble, 2p + 1 in the high one; 128 bytes, 256 k, a row); the token
+// rows' int8 activations come as two planes he (even k) and ho (odd k),
+// byte p of each lining up with packed byte p. A packed word w of a
+// channel row gives 16 x its four low nibbles as (w << 4) & 0xF0F0F0F0
+// and 16 x its four high ones as w & 0xF0F0F0F0, signed int8 each: the A
+// registers of one mma m16n8k32 whose k 4q .. and 16 + 4q .. take the
+// same four bytes of he and of ho as B. One mma is thus 16 x the exact
+// int32 dot of 16 packed bytes (32 k), in a permutation of k shared by A
+// and B, which the exact int32 sum does not see.
+//
+// A unit is the k a thread reads at once from each of its rows: RW = 16
+// bytes (groups of a multiple of 128 k) make a unit of 64 packed bytes
+// (128 k, four mma): thread q reads chunk 4u + q of the 128-byte row, and
+// word i of it feeds mma i; RW = 4 (groups of 32 or 64 k) a unit of one
+// 16-byte chunk (32 k, one mma): thread q reads its bytes 4q .. 4q + 3.
+// Fragment row (and token column) g reads box row 8i + a8_row<RW>(g), so
+// that the reads of a quarter-warp (RW 16) or of the warp (RW 4) fall on
+// distinct banks. A unit never spans two scale groups, and the warps
+// split k by whole groups, so a group's int32 partial is whole in its
+// accumulator when the group ends: it is shifted down by 4 (exact),
+// converted, multiplied by the group's scale with one rounding
+// (__fmul_rn: no fma contraction, the plain twin's rounded product) and
+// added to the fp32 sum. Only the order of the sum over the groups then
+// differs from the twin (quant_matmul.py `_w4a8_fp32`).
+
+template <int RW>
+__host__ __device__ constexpr int a8_row(int g) {
+  return RW == 16 ? spread4(g) : g;
+}
+
+// the consumer geometry at TT token tiles over a box of CB channel rows
+// (128, or 64 for the fused MLP's small blocks): MT m-tiles of 16
+// channels a warp, CW channel slices, TW token slices of TPW tiles each,
+// KW group slices (slice kw takes the groups g with g % KW == kw; the
+// same KW for both CB). A warp holds an int32 and an fp32 accumulator for
+// each of its TPW x MT tiles: MT falls past one token tile (2 blocks an
+// SM cap a thread at 96 registers) and the tokens split at 8 tiles (one
+// block an SM, 168 registers), so that no geometry spills
+template <int TT, int CB = BN>
+struct A8 {
+  static constexpr int MT = (TT == 1 ? 4 : 2) * CB / BN;
+  static constexpr int TW = TT == 8 ? 2 : 1;
+  static constexpr int TPW = TT / TW;
+  static constexpr int CW = CB / (16 * MT);
+  static constexpr int KW = (CONSUMERS / 32) / (CW * TW);
+  // warp w's (channel slice, token slice, group slice)
+  __device__ static int cw(int w) { return w % CW; }
+  __device__ static int tw(int w) { return (w / CW) % TW; }
+  __device__ static int kw(int w) { return w / (CW * TW); }
+};
+
+__device__ __forceinline__ uint32_t lo16(uint32_t w) {
+  return (w << 4) & 0xF0F0F0F0u;
+}
+__device__ __forceinline__ uint32_t hi16(uint32_t w) {
+  return w & 0xF0F0F0F0u;
+}
+
+template <int RW>
+__device__ __forceinline__ void ld_words(uint32_t (&v)[RW / 4],
+                                         const uint8_t* p) {
+  if constexpr (RW == 16) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    v[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// One consumer warp's W4A8 state: ai the int32 partials (16 x) of its
+// current group, af the fp32 sums of the groups done, for its TPW token
+// tiles (from tile t0) x MT m-tiles; c0 the warp's first channel row of
+// the box.
+template <int TT, int RW, int CB = BN>
+struct A8Warp {
+  static constexpr int MT = A8<TT, CB>::MT;
+  static constexpr int TPW = A8<TT, CB>::TPW;
+  static constexpr int NW = RW / 4;      // mma k-steps of a unit
+  int t0;
+  int ai[TPW][MT][4];
+  float af[TPW][MT][4];
+
+  __device__ __forceinline__ void clear(int tile0) {
+    t0 = tile0;
+#pragma unroll
+    for (int t = 0; t < TPW; ++t)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ai[t][mt][e] = 0;
+          af[t][mt][e] = 0.f;
+        }
+  }
+
+  // unit u of a stage: the weight box at w (rows of 128 bytes), the
+  // planes' boxes at he and ho (8 * TT rows each)
+  __device__ __forceinline__ void unit(const uint8_t* w, const uint8_t* he,
+                                       const uint8_t* ho, int c0, int u,
+                                       int g, int q) {
+    const int chunk = RW == 16 ? 4 * u + q : u;
+    const int off = RW == 16 ? 0 : 4 * q;
+    const int rg = a8_row<RW>(g);
+    // the weight words: held across the token tiles where MT is 1 or 2,
+    // read again for each tile at MT 4 (registers for 2 blocks an SM)
+    uint32_t wv[MT][2][NW];
+    auto load_w = [&]() {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          ld_words<RW>(wv[mt][h], w + hopper::swz128(c0 + 16 * mt + 8 * h +
+                                                         rg, chunk) + off);
+    };
+    if constexpr (MT != 4) load_w();
+#pragma unroll
+    for (int t = 0; t < TPW; ++t) {
+      if constexpr (MT == 4) load_w();
+      uint32_t e[NW], o[NW];
+      const uint32_t at = hopper::swz128(8 * (t0 + t) + rg, chunk) + off;
+      ld_words<RW>(e, he + at);
+      ld_words<RW>(o, ho + at);
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t a[4] = {lo16(wv[mt][0][i]), lo16(wv[mt][1][i]),
+                                 hi16(wv[mt][0][i]), hi16(wv[mt][1][i])};
+          mma_s8(ai[t][mt], a, e[i], o[i]);
+        }
+    }
+  }
+
+  // the current group ends: sc holds its scales of the box's CB channels
+  __device__ __forceinline__ void flush(const float* sc, int c0, int g) {
+    const int rg = a8_row<RW>(g);
+    float s[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) s[mt][h] = sc[c0 + 16 * mt + 8 * h + rg];
+#pragma unroll
+    for (int t = 0; t < TPW; ++t)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          af[t][mt][e] += __fmul_rn(float(ai[t][mt][e] >> 4), s[mt][e >> 1]);
+          ai[t][mt][e] = 0;
+        }
+  }
+
+  // every unit of one stage that falls in this warp's groups: the
+  // stage's k are [kc, kc + len), groups of 1 << lg k (a power of two of
+  // at least 8 * RW), the stage's scale rows sc[(grp - (kc >> lg)) * CB +
+  // channel]
+  __device__ __forceinline__ void stage(const uint8_t* w, const uint8_t* he,
+                                        const uint8_t* ho, const float* sc,
+                                        int kc, int len, int lg, int kw,
+                                        int c0, int g, int q) {
+    constexpr int UK = 8 * RW;             // k of a unit
+    constexpr int KW = A8<TT, CB>::KW;
+    const int g0 = kc >> lg;
+    for (int u = 0; u * UK < len; ++u) {
+      const int k = kc + u * UK, grp = k >> lg;
+      if ((grp & (KW - 1)) != kw) continue;
+      unit(w, he, ho, c0, u, g, q);
+      if (((k + UK) & ((1 << lg) - 1)) == 0)
+        flush(sc + (grp - g0) * CB, c0, g);
+    }
+  }
+
+  // output (token, channel) of accumulator element (t, mt, e): tok =
+  // 8 (t0 + t) + a8_row(2 q + e % 2), channel c0 + 16 mt + 8 (e / 2) +
+  // a8_row(g)
+  template <typename F>
+  __device__ __forceinline__ void each(int c0, int g, int q, F f) const {
+#pragma unroll
+    for (int t = 0; t < TPW; ++t)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          f(8 * (t0 + t) + a8_row<RW>(2 * q + (e & 1)),
+            c0 + 16 * mt + 8 * (e >> 1) + a8_row<RW>(g), af[t][mt][e]);
+  }
+};
+
+// The consumers' ending. red holds the nk k-slices' partial sums
+// [nk][B][BN] (T: float or int) in shared memory, written by every
 // consumer thread before the call. store(b, n, sum) writes output (b, n)
 // of the column tile at n0; part and tickets serve nsplit > 1.
 template <typename T, typename Store>
 __device__ __forceinline__ void finish(Bars& bars, const T* red, T* part,
                                        int* tickets, int B, int N, int n0,
-                                       int split, int nsplit, Store store) {
+                                       int split, int nsplit, Store store,
+                                       int nk = KW) {
   consumers_sync();
   const int nv = min(BN, N - n0);
   const int tid = threadIdx.x;
@@ -169,8 +436,7 @@ __device__ __forceinline__ void finish(Bars& bars, const T* red, T* part,
     const int b = e / BN, c = e % BN;
     if (c >= nv) continue;
     T v = red[size_t(b) * BN + c];
-#pragma unroll
-    for (int k = 1; k < KW; ++k) v += red[(size_t(k) * B + b) * BN + c];
+    for (int k = 1; k < nk; ++k) v += red[(size_t(k) * B + b) * BN + c];
     if (nsplit == 1)
       store(b, n0 + c, v);
     else

@@ -134,7 +134,7 @@ class W4Linear(nn.Module):
 
 class W4FusedMLP(nn.Module):
     """A layer's W4 gateup and down in the fused-MLP layout of
-    ops/pallas/quant_matmul.py `w4_mlp_tile_layout` (mgu [Ib, D/2, 2ti],
+    ops/pallas/quant_matmul.py `w4_mlp_tile_layout` (mgu [Ib, 2ti, D/2],
     mgs [Ib, G, 2ti], mdw [Gd, gd/2, D], mds [Gd, 1, D]): decode runs the
     whole MLP as one `fused_mlp_w4` call (`EngineConfig(w4_fused_mlp=
     True)`). It takes the place of the layer's gateup and down."""

@@ -19,8 +19,9 @@ transposed: `w4_from_flat` converts.
 
 The flat layout itself (`w4_to_flat` converts back) is kept for
 `EngineConfig(w4_tiled=False)`, and the fused-MLP layout
-(`w4_mlp_tile_layout`: gate/up tiles of MLP_TILE intermediate columns
-beside the flat down stream) for `EngineConfig(w4_fused_mlp=True)`.
+(`w4_mlp_tile_layout`: gate/up I-tiles of the reference's width as
+channel stripes, beside the flat down stream) for
+`EngineConfig(w4_fused_mlp=True)`.
 
 The W8 layout is the nn.Linear one: weight [N, K] int8, one fp32 scale
 per output channel [N].
@@ -32,13 +33,15 @@ csrc/w8a8_matmul.cu; the W4A8 ones and the fused MLP also quantize the
 activations on the card); it never falls back from one to the other.
 `.launches` and `_plain.calls` count each path.
 
-`w8a8_matmul` and `w4a16_matmul` are tensor-core weight streamers
-(csrc/weight_stream.cuh): a grid of (column tile, K split) blocks that
-`weight_plan` picks on the host, whose splits meet through a partial-sum
-scratch and a ticket per column tile that are kept per device
-(`_stream_buffers`), so launches of one of them on one device must not
-overlap (one stream; a CUDA graph replays them in order). `quantize_rows`
-is `quantize_activations` in one kernel launch, for the W8A8 decode path.
+`w4a8_matmul_tiled`, `w8a8_matmul` and `w4a16_matmul` are tensor-core
+weight streamers (csrc/weight_stream.cuh): a grid of (column tile, K
+split) blocks that `weight_plan` picks on the host, whose splits meet
+through a partial-sum scratch and a ticket per column tile that are kept
+per device (`_stream_buffers`), so launches of one of them on one device
+must not overlap (one stream; a CUDA graph replays them in order).
+`quantize_rows` is `quantize_activations` in one kernel launch, for the
+W8A8 decode path. `fused_mlp_w4_bound` bounds the fused MLP kernel's
+difference from its bf16 twin, from the two orders of summation.
 """
 
 from __future__ import annotations
@@ -120,41 +123,77 @@ def w4_flat_dequantize(pk: torch.Tensor, s_w: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # The fused-MLP layout (the counterpart of the reference's
-# w4_mlp_tile_layout / w4_mlp_untile_layout, with the port's own I-tile)
+# w4_mlp_tile_layout / w4_mlp_untile_layout, with the reference's I-tile)
 # ---------------------------------------------------------------------------
 
-MLP_TILE = 64        # intermediate columns per block of the fused-MLP kernel
+MLP_TILES = (256, 128)   # the reference's I-tile widths, in order of choice
 
 
-def w4_mlp_tile_layout(gu_pk, gu_s, dn_pk, dn_s, ti: int = MLP_TILE):
+def w4_mlp_tile(I: int, gd: int):
+    """The reference's I-tile for intermediate width I and down group gd
+    (`_w4_mlp_fuse_params`: the first t in MLP_TILES with I % t == 0,
+    t % gd == 0 and t <= I), or None where it keeps the two-call MLP."""
+    return next((t for t in MLP_TILES if I % t == 0 and t % gd == 0
+                 and t <= I), None)
+
+
+def w4_mlp_tile_layout(gu_pk, gu_s, dn_pk, dn_s, ti=None):
     """Flat W4 gateup ([G, g/2, 2I] packed, [G, 1, 2I] scales; gate
     columns then up columns) and down ([Gd, gd/2, D], [Gd, 1, D]) →
-    the fused-MLP layout:
+    the fused-MLP layout, I-tiles of ti (default the reference's,
+    `w4_mlp_tile`):
 
-      mgu [Ib, D/2, 2ti] int8   tile j = gate cols of tile j ‖ up cols
-      mgs [Ib, G,   2ti] fp32
+      mgu [Ib, 2ti, D/2] int8   tile j's channels as stripes of D/2
+                                packed bytes (the stripe layout of
+                                `w4a8_matmul_tiled`), in groups of 16:
+                                gate columns j·ti + 8m .. + 7, then the
+                                up columns of the same 8
+      mgs [Ib, G,   2ti] fp32   their scales, in that channel order
       mdw [Gd, gd/2, D]  int8   the flat down stream as it is: tile j
       mds [Gd, 1,    D]  fp32   is its packed rows [j·ti/2, (j+1)·ti/2)
 
-    so that each block of the kernel reads one contiguous gate/up tile.
-    Unlike the reference (ti of 128 or 256, a multiple of the down group)
-    ti divides the down group, so a tile's down rows share one scale row."""
+    so that every 16 channels of a tile hold 8 whole (gate, up) pairs.
+    The reference's own tiles are K-major ([Ib, D/2, 2ti], gate block
+    then up block): `w4_mlp_untile_reference` reads those."""
     G, gh, I2 = gu_pk.shape
     I, D2 = I2 // 2, G * gh
-    Ib = I // ti
-    mgu = (gu_pk.reshape(D2, 2, Ib, ti).permute(2, 0, 1, 3)
-           .reshape(Ib, D2, 2 * ti).contiguous())
-    mgs = (gu_s.float().reshape(G, 2, Ib, ti).permute(2, 0, 1, 3)
+    Gd, ghd = dn_pk.shape[:2]
+    ti = ti or w4_mlp_tile(I, I // Gd)
+    if ti is None or I % ti or ti % 8:
+        raise ValueError(f"no I-tile of {MLP_TILES} fits I={I} with down "
+                         f"groups of {I // Gd}")
+    Ib, m = I // ti, ti // 8
+    mgu = (gu_pk.reshape(D2, 2, Ib, m, 8).permute(2, 3, 1, 4, 0)
+           .reshape(Ib, 2 * ti, D2).contiguous())
+    mgs = (gu_s.float().reshape(G, 2, Ib, m, 8).permute(2, 0, 3, 1, 4)
            .reshape(Ib, G, 2 * ti).contiguous())
     return mgu, mgs, dn_pk.contiguous(), dn_s.float().contiguous()
 
 
+def _untile_gateup(mgu, mgs):
+    """mgu, mgs of `w4_mlp_tile_layout` → the flat gateup (gu_pk [G, g/2,
+    2I], gu_s [G, 1, 2I])."""
+    Ib, ti2, D2 = mgu.shape
+    G, m = mgs.shape[1], ti2 // 16
+    gu_pk = (mgu.reshape(Ib, m, 2, 8, D2).permute(4, 2, 0, 1, 3)
+             .reshape(G, D2 // G, Ib * ti2))
+    gu_s = (mgs.reshape(Ib, G, m, 2, 8).permute(1, 3, 0, 2, 4)
+            .reshape(G, 1, Ib * ti2))
+    return gu_pk, gu_s
+
+
 def w4_mlp_untile_layout(mgu, mgs, mdw, mds):
     """Inverse of `w4_mlp_tile_layout` → flat (gu_pk, gu_s, dn_pk, dn_s)
-    for the paths that want the two projections (prefill). It also
-    untiles the reference's layout (any ti; its down stream as tiles, mdw
-    [Ib, ti/2, D] and mds [Ib, ti/group, D]): both down layouts reshape
-    to the flat [Gd, group/2, D]."""
+    for the paths that want the two projections (prefill) and for the
+    plain twin."""
+    return (*_untile_gateup(mgu, mgs), mdw, mds)
+
+
+def w4_mlp_untile_reference(mgu, mgs, mdw, mds):
+    """The reference's fused-MLP tiles (its `w4_mlp_tile_layout`: mgu
+    [Ib, D/2, 2ti] K-major, gate columns then up columns; mgs [Ib, G,
+    2ti]; mdw [Ib, ti/2, D]; mds [Ib, ti/group, D]) → flat (gu_pk, gu_s,
+    dn_pk, dn_s), for the bridge."""
     Ib, D2, ti2 = mgu.shape
     ti, G = ti2 // 2, mgs.shape[1]
     gu_pk = (mgu.reshape(Ib, D2, 2, ti).permute(1, 2, 0, 3)
@@ -169,12 +208,12 @@ def w4_mlp_untile_layout(mgu, mgs, mdw, mds):
 # Plain twin (the contract; CPU path and the card's reference)
 # ---------------------------------------------------------------------------
 
-def _w4a8_fp32(h, pk, s_w):
-    """The W4A8 recipe in fp32 on the flat layout (pk [G, g/2, N], s_w
-    [G, 1, N]): h [B, K] → [B, N] fp32. Each group's int32 partial is at
-    most 127·8·g < 2^24 in magnitude, so fp32 products of the unpacked
-    planes give it exactly (with TF32 off on the card); the group sum then
-    runs in fp32, and the activation scale comes last."""
+def _w4a8_terms(h, pk, s_w):
+    """The W4A8 recipe's group terms on the flat layout (pk [G, g/2, N],
+    s_w [G, 1, N]): h [B, K] → (terms [B, G, N] fp32, s_a [B, 1]). Each
+    group's int32 partial is at most 127·8·g < 2^24 in magnitude, so fp32
+    products of the unpacked planes give it exactly (with TF32 off on the
+    card); a term is that partial times its scale, rounded once."""
     B = h.shape[0]
     G, gh, N = pk.shape
     h8, s_a = quantize_activations(h)
@@ -182,7 +221,14 @@ def _w4a8_fp32(h, pk, s_w):
     lo, hi = w4_unpack(pk)
     part = (torch.einsum("bgj,gjn->bgn", x[..., 0], lo.float())
             + torch.einsum("bgj,gjn->bgn", x[..., 1], hi.float()))
-    return (part * s_w.reshape(1, G, N)).sum(dim=1) * s_a
+    return part * s_w.reshape(1, G, N), s_a
+
+
+def _w4a8_fp32(h, pk, s_w):
+    """The W4A8 recipe in fp32 on the flat layout: h [B, K] → [B, N]
+    fp32, the group terms summed in fp32, the activation scale last."""
+    terms, s_a = _w4a8_terms(h, pk, s_w)
+    return terms.sum(dim=1) * s_a
 
 
 def w4a8_matmul_tiled_plain(h, packed, scale, *, out_dtype=None):
@@ -261,6 +307,144 @@ fused_mlp_w4_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------
+# The fused MLP kernel's bound against its bf16 twin
+# ---------------------------------------------------------------------------
+#
+# Kernel (csrc/fused_mlp_w4.cu) and twin (`fused_mlp_w4_plain`, bf16
+# compute) take the same rounded group terms x_g = fp32(part_g · s_g) and
+# differ only in the order of two fp32 sums:
+#   * gate/up: the twin sums its G terms in torch's order; the kernel in
+#     KW running sums (slice s takes the groups g ≡ s mod KW in increasing
+#     g, its first addition 0 + x exact), which it adds in slice order.
+#     Each addition rounds by at most u = 2^-24 of its result, so the
+#     kernel is within u · Σ |partial sums| of the exact sum, and the
+#     twin's distance from it is measured. Through · s_a and silu(g) · up
+#     (exp to 2 ulps, then IEEE add, divide and multiply on both sides)
+#     the two fp32 activations differ by at most E_act (`fused_mlp_act`).
+#   * Where no bf16 rounding midpoint lies within E_act of the twin's
+#     activation, both round it to the same bf16; where one does (a near
+#     tie) the kernel's may be the neighbour: bf16(a ± E_act) bounds the
+#     change. The down product then moves by Σ over those near-tie i of
+#     that change · |Wd[i, d]|, Wd the bf16 down weights.
+#   * down: the products act · Wd are exact in fp32. The twin's fp32
+#     matmul is measured against the exact sum; the kernel sums a tile's
+#     ti rows in 16-row mma k-steps, in order, and the tile partials in
+#     tile order (mlp_reduce). One bf16 mma with fp32 accumulation (the
+#     products exact, aligned to the largest and truncated, then
+#     normalized) errs by less than 18 ulps of its largest addend, below
+#     TC_MMA · (|C| + Σ|products|); each tile addition by u of its result.
+# The sum of these is the per-output bound (`fused_mlp_down_bound`).
+
+U32 = 2.0 ** -24         # fp32 unit roundoff (round to nearest)
+TC_MMA = 2.0 ** -18      # one bf16 mma's fp32 accumulation, over |C| + Σ|p|
+MMA_K = 16               # rows of one bf16 mma k-step
+
+
+def fused_kslices(B: int) -> int:
+    """The kernel's gate/up group slices at B rows (weight_stream.cuh
+    `A8<TT>::KW`: 4 at up to 8 rows, 2 at up to 32, else 1)."""
+    return 4 if B <= 8 else 2 if B <= 32 else 1
+
+
+def _slice_order_bound(terms, nslice):
+    """u · Σ |partial sums| (and a second-order term) of the kernel's
+    order over the last dim of terms (fp64, exact): nslice running sums
+    of every nslice-th term, then their sum in slice order."""
+    n = terms.shape[-1]
+    tot = torch.zeros(terms.shape[:-1], dtype=torch.float64,
+                      device=terms.device)
+    run = None
+    for s in range(nslice):
+        cs = terms[..., s::nslice].cumsum(-1)
+        if cs.shape[-1] == 0:
+            continue
+        tot += cs[..., 1:].abs().sum(-1)
+        run = cs[..., -1] if run is None else run + cs[..., -1]
+        if s:
+            tot += run.abs()
+    nu = (n + nslice) * U32
+    return U32 * tot * (1 + 2 * nu) + nu * nu * terms.abs().sum(-1)
+
+
+def fused_mlp_act(h, mgu, mgs):
+    """The twin's fp32 activation [B, I] of `fused_mlp_w4` (before its
+    bf16 rounding) and E_act [B, I] (fp64), the most by which the
+    kernel's fp32 activation can differ from it (see above)."""
+    G = mgs.shape[1]
+    terms, s_a = _w4a8_terms(h, *_untile_gateup(mgu, mgs))
+    twin = terms.sum(dim=1)                       # the twin's fp32 sums
+    x = terms.double().transpose(1, 2)            # [B, 2I, G]
+    exact = x.sum(-1)
+    e_sum = ((twin.double() - exact).abs()
+             + _slice_order_bound(x, fused_kslices(h.shape[0]))
+             + G * 2.0 ** -53 * x.abs().sum(-1))
+    gu = twin * s_a
+    sa = s_a.double()
+    e_gu = e_sum * sa * (1 + 2 * U32) + 2 * U32 * gu.double().abs() * (
+        1 + 2 * U32)
+    gate, up = gu.chunk(2, dim=-1)
+    e_g, e_u = e_gu.chunk(2, dim=-1)
+    act = gate / (1.0 + torch.exp(-gate)) * up
+    g64, u64 = gate.double().abs(), up.double().abs()
+    e_act = (1.1 * (u64 + e_u) * e_g + (g64 + e_g) * e_u
+             + 20 * U32 * act.double().abs()) * (1 + 1e-3) + 1e-37
+    return act, e_act
+
+
+def fused_mlp_down_bound(act, e_act, mdw, mds, ti: int):
+    """Per-output bound [B, D] (fp32) of |kernel − twin| for the fused
+    MLP's down product, from the twin's fp32 activation act [B, I], its
+    bound e_act [B, I] (fp64) and the down stream (mdw [Gd, gd/2, D],
+    mds [Gd, 1, D]) in I-tiles of ti rows (see above)."""
+    a64 = act.double()
+    r = act.to(torch.bfloat16).double()
+    lo32 = torch.nextafter((a64 - e_act).float(),
+                           torch.tensor(-float("inf"), device=act.device))
+    hi32 = torch.nextafter((a64 + e_act).float(),
+                           torch.tensor(float("inf"), device=act.device))
+    lo = lo32.to(torch.bfloat16).double()
+    hi = hi32.to(torch.bfloat16).double()
+    delta = torch.maximum(hi - r, r - lo)          # 0 away from a near tie
+    wd = _w4a16_weight(mdw, mds, torch.bfloat16)
+    wd64 = wd.double()
+    flip = delta @ wd64.abs()
+    exact = r @ wd64
+    twin = (r.float() @ wd.float()).double()       # the twin's own sum
+    B, I = act.shape
+    D = wd.shape[1]
+    ra = r.abs()
+    err = torch.zeros((B, D), dtype=torch.float64, device=act.device)
+    run = None
+    for j in range(I // ti):
+        x = r[:, j * ti:(j + 1) * ti].reshape(B, -1, MMA_K)
+        xa = ra[:, j * ti:(j + 1) * ti].reshape(B, -1, MMA_K)
+        w = wd64[j * ti:(j + 1) * ti].reshape(-1, MMA_K, D)
+        step = torch.einsum("bck,ckd->bcd", x, w)          # each k-step
+        step_abs = torch.einsum("bck,ckd->bcd", xa, w.abs())
+        prev = step.cumsum(1) - step                        # C before it
+        err += TC_MMA * (prev.abs() + step_abs).sum(1)
+        tile = step.sum(1)
+        if run is None:
+            run = tile
+        else:
+            run = run + tile
+            err += U32 * run.abs()
+    n_add = I // MMA_K + I // ti
+    err = err * (1 + 1e-3) + (TC_MMA + U32) * n_add * flip \
+        + I * 2.0 ** -53 * (ra @ wd64.abs())
+    return (flip + err + (twin - exact).abs()).float()
+
+
+def fused_mlp_w4_bound(h, mgu, mgs, mdw, mds):
+    """Per-output bound [B, D] of |fused_mlp_w4 − fused_mlp_w4_plain(
+    compute_dtype=bf16)|, both with fp32 output, on the same inputs and
+    device: `fused_mlp_act`, then `fused_mlp_down_bound`."""
+    act, e_act = fused_mlp_act(h, mgu, mgs)
+    ti = mgu.shape[1] // 2
+    return fused_mlp_down_bound(act, e_act, mdw, mds, ti)
+
+
+# ---------------------------------------------------------------------------
 # The weight streamers' grid (csrc/weight_stream.cuh)
 # ---------------------------------------------------------------------------
 
@@ -294,7 +478,8 @@ _stream_bufs: dict = {}
 def _stream_buffers(name: str, dev, tiles: int, nscratch: int):
     """The weight streamer `name`'s per-device (tickets, part): int32
     zeros, one a column tile (the last block of a tile resets its own),
-    and a 4-byte scratch for the splits' partial sums, int32. Kept across
+    and a 4-byte scratch for the splits' partial sums (int32, read as fp32
+    by the W4 streamers). Kept across
     launches and grown outside any CUDA graph capture; a buffer once
     handed out is never freed, since a captured graph keeps its address:
     a larger one is added beside it, and the newest serves later
@@ -319,23 +504,30 @@ def _stream_buffers(name: str, dev, tiles: int, nscratch: int):
 _resident: dict = {}
 
 
+# each weight streamer's occupancy entry point in the kernel library:
+# (rows, [group,] kernel, shared bytes, blocks an SM)
+_OCCUPANCY = {"w8a8_matmul": ("aurora_w8a8_kernel", False),
+              "w4a16_matmul": ("aurora_w4a16_kernel", True),
+              "w4a8_matmul_tiled": ("aurora_w4a8_kernel", True)}
+
+
 def _blocks_per_sm(name: str, B: int, group: int) -> int:
     """Blocks of the streamer `name` at B rows that one SM holds (its
-    registers and shared bytes, from the CUDA occupancy API), cached."""
+    registers and shared bytes, from the CUDA occupancy API), cached.
+    Raises on a name that is not a weight streamer."""
+    if name not in _OCCUPANCY:
+        raise ValueError(f"{name!r} is not a weight streamer (one of "
+                         f"{sorted(_OCCUPANCY)})")
     key = (name, B, group)
     if key not in _resident:
         import ctypes
         from aurora_tpu_torch.ops.cuda_build import load_library
-        lib = load_library()
+        entry, grouped = _OCCUPANCY[name]
         fn, smem, blocks = ctypes.c_void_p(), ctypes.c_int(), ctypes.c_int()
-        if name == "w8a8_matmul":
-            err = lib.aurora_w8a8_kernel(B, ctypes.byref(fn),
-                                         ctypes.byref(smem),
-                                         ctypes.byref(blocks))
-        else:
-            err = lib.aurora_w4a16_kernel(B, group, ctypes.byref(fn),
-                                          ctypes.byref(smem),
-                                          ctypes.byref(blocks))
+        args = (B, group) if grouped else (B,)
+        err = getattr(load_library(), entry)(
+            *args, ctypes.byref(fn), ctypes.byref(smem),
+            ctypes.byref(blocks))
         _launch(name, err)
         _resident[key] = max(1, blocks.value)
     return _resident[key]
@@ -423,7 +615,10 @@ def w4a8_matmul_tiled(h, packed, scale, *, out_dtype=None):
 
     Per-token int8 activations (quantize_activations), int32 partial sums
     per K-group, group scales applied in fp32, the activation scale last
-    (the reference's exact _w4dot numerics). B ≤ 64 on the card."""
+    (the reference's exact _w4dot numerics). B ≤ 64 and groups of
+    32·2^i rows on the card, where the kernel streams the weights once
+    for all rows; its launches on one device must not overlap (the
+    module's docstring)."""
     if h.dim() != 2 or packed.dim() != 2 or scale.dim() != 2 \
             or packed.shape != (scale.shape[0], h.shape[1] // 2) \
             or h.shape[1] % 2:
@@ -440,18 +635,19 @@ def w4a8_matmul_tiled(h, packed, scale, *, out_dtype=None):
                           ("scale", scale, torch.float32)), out_dtype)
     B, K = h.shape
     N, G = scale.shape
-    cpg = (K // 32) // G if G else 0
-    if K % 32 or G <= 0 or (K // 32) % G or cpg > 32 or cpg & (cpg - 1):
+    group = K // G if G and K % G == 0 else 0
+    if K % 32 or group < 32 or group & (group - 1):
         raise ValueError(f"{name}: the CUDA kernel takes K % 32 == 0 and "
-                         f"groups of 32·2^i (≤ 1024) rows; got K={K}, "
-                         f"G={G}")
+                         f"groups of 32·2^i rows; got K={K}, G={G}")
     scratch, he, ho, s_a = _act_scratch(h)
     out = torch.empty((B, N), dtype=out_dtype, device=h.device)
+    span, nsplit, part, tickets = _stream_grid(name, h.device, B, N, K,
+                                               group)
     from aurora_tpu_torch.ops.cuda_build import load_library
     _launch(name, load_library().aurora_w4a8_matmul(
         h.data_ptr(), packed.data_ptr(), scale.data_ptr(), he, ho, s_a,
-        out.data_ptr(), B, K, N, G, int(h.dtype == torch.float32),
-        int(out_dtype == torch.float32),
+        out.data_ptr(), part, tickets, B, K, N, G, span, nsplit,
+        int(h.dtype == torch.float32), int(out_dtype == torch.float32),
         torch.cuda.current_stream(h.device).cuda_stream))
     w4a8_matmul_tiled.launches += 1
     return out
@@ -612,19 +808,34 @@ def w4a16_matmul(h, pk, s_w, *, out_dtype=None):
 w4a16_matmul.launches = 0
 
 
+def fused_mlp_grid(B: int, mgu, mgs, mdw):
+    """(cluster size C, channels a block) that `fused_mlp_w4`'s tile
+    kernel takes on the card for B rows of this fused MLP: I/ti clusters
+    of C blocks (csrc/fused_mlp_w4.cu `plan_tile`)."""
+    import ctypes
+    from aurora_tpu_torch.ops.cuda_build import load_library
+    Ib, ti2, D2 = mgu.shape
+    G, (Gd, ghd, _) = mgs.shape[1], mdw.shape
+    C, CB = ctypes.c_int(), ctypes.c_int()
+    _launch("fused_mlp_w4", load_library().aurora_fused_mlp_cluster(
+        B, 2 * D2, ti2 // 2, Ib, 2 * D2 // G, 2 * ghd, ctypes.byref(C),
+        ctypes.byref(CB)))
+    return C.value, CB.value
+
+
 def fused_mlp_w4(h, mgu, mgs, mdw, mds, *, out_dtype=None):
     """silu(h @ Wg) · (h @ Wu) @ Wd over the fused-MLP layout
     (`w4_mlp_tile_layout`): h [B, D] float → [B, D] in out_dtype (default
     h's). Gate/up by the W4A8 recipe kept in fp32, silu·mul in fp32, the
     activation in bf16, the down projection W4A16 (`fused_mlp_w4_plain`).
     CPU tensors compute in fp32, as the reference's interpret mode does;
-    the card's kernel in bf16, as the reference's chip kernel. B ≤ 64 on
-    the card."""
+    the card's kernel in bf16, as the reference's chip kernel, within
+    `fused_mlp_w4_bound` of its bf16 twin. B ≤ 64 on the card."""
     name = "fused_mlp_w4"
-    Ib, D2, ti2 = mgu.shape
+    Ib, ti2, D2 = mgu.shape
     G, (Gd, ghd, D) = mgs.shape[1], mdw.shape
     if h.dim() != 2 or h.shape[1] != 2 * D2 or D != 2 * D2 \
-            or mgs.shape != (Ib, G, ti2) or D2 % G \
+            or mgs.shape != (Ib, G, ti2) or D2 % G or ti2 % 16 \
             or mds.shape != (Gd, 1, D) or 2 * Gd * ghd != Ib * ti2 // 2:
         raise ValueError(f"{name}: shapes h {tuple(h.shape)}, mgu "
                          f"{tuple(mgu.shape)}, mgs {tuple(mgs.shape)}, mdw "
@@ -640,14 +851,14 @@ def fused_mlp_w4(h, mgu, mgs, mdw, mds, *, out_dtype=None):
                           ("mgs", mgs, torch.float32),
                           ("mdw", mdw, torch.int8),
                           ("mds", mds, torch.float32)), out_dtype)
-    if ti2 != 2 * MLP_TILE or (2 * ghd) % MLP_TILE or (D2 // G) % 4 \
-            or D % 4:
+    ti, group, gd = ti2 // 2, D // G, 2 * ghd
+    if ti not in MLP_TILES or D % 32 or group < 32 or group & (group - 1) \
+            or ti % gd or gd % 16:
         raise ValueError(f"{name}: the CUDA kernel takes I-tiles of "
-                         f"{MLP_TILE}, a down group that is a multiple of "
-                         f"{MLP_TILE}, gate/up groups of a multiple of 8 "
-                         f"rows and D % 4 == 0; got tile {ti2 // 2}, down "
-                         f"group {2 * ghd}, gate/up group {2 * D2 // G}, "
-                         f"D={D}")
+                         f"{MLP_TILES}, D % 32 == 0, gate/up groups of "
+                         f"32·2^i rows and down groups of a multiple of 16 "
+                         f"dividing the tile; got tile {ti}, D={D}, gate/up "
+                         f"group {group}, down group {gd}")
     B = h.shape[0]
     scratch, he, ho, s_a = _act_scratch(h)
     part = torch.empty((Ib, B, D), dtype=torch.float32, device=h.device)
@@ -656,7 +867,7 @@ def fused_mlp_w4(h, mgu, mgs, mdw, mds, *, out_dtype=None):
     _launch(name, load_library().aurora_fused_mlp_w4(
         h.data_ptr(), mgu.data_ptr(), mgs.data_ptr(), mdw.data_ptr(),
         mds.data_ptr(), he, ho, s_a, part.data_ptr(), out.data_ptr(), B, D,
-        Ib * MLP_TILE, G, Gd, int(h.dtype == torch.float32),
+        Ib * ti, G, Gd, ti, int(h.dtype == torch.float32),
         int(out_dtype == torch.float32),
         torch.cuda.current_stream(h.device).cuda_stream))
     fused_mlp_w4.launches += 1

@@ -47,11 +47,11 @@ from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
                                            projection_shapes, w4_group)
 from aurora_tpu_torch.ops.norms import family_norm as _norm
 from aurora_tpu_torch.ops.pallas.quant_matmul import (INV127, MAX_TOKENS,
-                                                      MLP_TILE,
                                                       quantize_activations,
                                                       quantize_rows,
                                                       w4_dequantize,
                                                       w4_flat_dequantize,
+                                                      w4_mlp_tile,
                                                       w4_mlp_tile_layout,
                                                       w4_pack, w4_to_flat,
                                                       w4a8_matmul,
@@ -218,13 +218,12 @@ def quantize_weights_int8(model: LlamaModel,
 
 def _w4_mlp_fuse(layer) -> Optional[W4FusedMLP]:
     """A layer's W4 gateup/down → a W4FusedMLP (the reference's
-    `_w4_mlp_fuse_params` for one layer), or None where the shapes are
-    not eligible: exactly where the reference keeps the two-call MLP (no
-    I-tile t in (256, 128) with I % t == 0, t % gd == 0 and t <= I, for
-    intermediate width I and down group gd), and where the port's own
-    I-tiles of MLP_TILE columns do not divide I and gd. Unlike the
-    reference, which checks only the packed stacks, mismatched scale
-    stacks raise ValueError."""
+    `_w4_mlp_fuse_params` for one layer, in the port's layout with the
+    reference's I-tile), or None exactly where the reference keeps the
+    two-call MLP (`w4_mlp_tile`: no I-tile t in (256, 128) with I % t ==
+    0, t % gd == 0 and t <= I, for intermediate width I and down group
+    gd). Unlike the reference, which checks only the packed stacks,
+    mismatched scale stacks raise ValueError."""
     gu, dn = getattr(layer, "gateup", None), getattr(layer, "down", None)
     if not (isinstance(gu, W4Linear) and isinstance(dn, W4Linear)) \
             or gu.flat or dn.flat:
@@ -237,9 +236,7 @@ def _w4_mlp_fuse(layer) -> Optional[W4FusedMLP]:
             raise ValueError(f"{name}: scales {tuple(w.scale.shape)} do not "
                              f"match packed {tuple(w.packed.shape)}")
     I, gd = I2 // 2, w4_group(2 * I_2)
-    if D != 2 * D2 or 2 * I_2 != I or I % MLP_TILE or gd % MLP_TILE:
-        return None
-    if not any(I % t == 0 and t % gd == 0 and t <= I for t in (256, 128)):
+    if D != 2 * D2 or 2 * I_2 != I or w4_mlp_tile(I, gd) is None:
         return None
     return W4FusedMLP(*w4_mlp_tile_layout(*w4_to_flat(gu.packed, gu.scale),
                                           *w4_to_flat(dn.packed, dn.scale)))

@@ -8,9 +8,10 @@ two trees can be compared in one call on one card:
 The cases and the timing are chip_smoke.py's own (`w4a8_phase`,
 `w4_flat_phase`, `fused_mlp_phase`, `w8a8_phase`, loaded from this
 checkout whatever the tree): a 7B layer's four decode projections (qkv,
-o, gateup, down) at B 4, and at B 64 for the flat W4A8, W4A16 and W8A8
-kernels, and one 7B layer's fused MLP. Each case holds the tree's kernel
-against the tree's plain twin at chip_smoke's bounds and prints
+o, gateup, down) at B 4 and B 64, and one 7B layer's fused MLP at B 4
+and B 64 beside the two-call W4A8 path. Each case holds the tree's kernel
+against the tree's plain twin at chip_smoke's bounds (the fused MLP's
+where the tree has `fused_mlp_w4_bound`) and prints
 chip_smoke's `[kernels]` line: `ms` and `library_ms` are CUDA-graph
 replays (device time), `eager_ms` and `library_eager_ms` one call
 between two CUDA events (the host's issue time included). A last
@@ -71,23 +72,29 @@ def main(argv=None) -> int:
     smoke.check = check
     cuda_build.load_library()
     g = torch.Generator(device=dev).manual_seed(smoke.SEED + 1)
-    sums = {("w4a8_matmul_tiled", 4): smoke.w4a8_phase(
-        torch, qm, engine_mod._w4, dev, g)}
+    sums = {("w4a8_matmul_tiled", B): acc for B, acc in smoke.w4a8_phase(
+        torch, qm, engine_mod._w4, dev, g).items()}
     for (kname, B), acc in smoke.w4_flat_phase(
             torch, qm, engine_mod._w4, dev, g).items():
         sums[(kname + "_matmul", B)] = acc
-    sums[("fused_mlp_w4", 4)] = smoke.fused_mlp_phase(
-        torch, qm, engine_mod._w4, dev, g)
+    mlp = smoke.fused_mlp_phase(torch, qm, engine_mod._w4, dev, g)
+    sums[("fused_mlp_w4", 4)] = mlp
+    sums[("fused_mlp_w4", qm.MAX_TOKENS)] = dict(
+        ms=mlp["ms_b64"], eager_ms=mlp["eager_ms_b64"], library_ms=None,
+        bound=mlp["bound_b64"], two_call_ms=mlp["two_call_ms_b64"])
     for B, acc in smoke.w8a8_phase(torch, qm, engine_mod._w8, dev,
                                    g).items():
         sums[("w8a8_matmul", B)] = acc
     for (name, B), acc in sums.items():
         lib = acc["library_ms"]
+        extra = ({"two_call_ms": f"{acc['two_call_ms']:.4f}"}
+                 if "two_call_ms" in acc else {})
         smoke.phase("weights", kernel=name, B=B, ms=f"{acc['ms']:.4f}",
                     eager_ms=f"{acc['eager_ms']:.4f}",
                     library_ms="none" if lib is None else f"{lib:.4f}",
                     bound_ms=f"{acc['bound'][0]:.4f}",
-                    bound_share=f"{acc['bound'][0] / acc['ms']:.3f}")
+                    bound_share=f"{acc['bound'][0] / acc['ms']:.3f}",
+                    **extra)
     return 1 if failed else 0
 
 

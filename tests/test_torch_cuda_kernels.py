@@ -31,8 +31,12 @@ bitwise the twin's, fp32 and bf16 output (exact int32 sums, then the same
 two fp32 multiplies). The weight streamers (W8A8, W4A16) at B 1, 4, 8,
 9, 17, 64 with K 11008, N off the column tile (W4A16's packed rows then
 off 16-byte boundaries) and a split-K grid whose last split is short:
-W8A8 bitwise the twin's, W4A16 within 1e-5 and bitwise repeatable; both
-captured in one CUDA graph, whose replays equal the eager results. The
+W8A8 bitwise the twin's, W4A16 within 1e-5 and bitwise repeatable; the
+W4A8 streamer at B 1, 4, 9, 64 with groups of 32, 128 and 1024 the same
+way, within 1e-5; the three captured in one CUDA graph, whose replays
+equal the eager results. The fused W4 MLP: every output within the
+bound `fused_mlp_w4_bound` derives (its fp32 control outside it), bitwise
+repeatable. The
 W8A8 path's one-launch quantizer: bitwise quantize_activations. Flash attention (bf16 in, the fp32 twin on the same bf16
 values, causal, GQA, q_offset, segment ids with rows that see no key):
 out within 2e-2 max abs and, per query row, 1.5e-2 of that row's max
@@ -206,6 +210,42 @@ def test_w4a8_kernel_matches_plain_on_card(cuda_device, B, K, N):
     assert bool(((got16.float() - want).abs() <= bound).all())
 
 
+def _stripe_w4(gen, dev, K, N, group):
+    """Random W4 stripes [N, K/2] and scales [N, K/group] with groups of
+    `group` rows (the engine's _w4 recipe at any group)."""
+    w = torch.randn((N, K // group, group), generator=gen, device=dev) * 0.02
+    s = (w.abs().amax(dim=2) / 7.0).clamp_min(1e-12)
+    q = torch.clamp(torch.round(w / s[:, :, None]), -8, 7)
+    return tqm.w4_pack(q.reshape(N, K)), s
+
+
+# the W4A8 weight streamer at every token-tile count and at groups of 32
+# (units of one mma), 128 (the 7B's) and 1024 (a group over four ring
+# stages); N off the column tile; with N 4096 and groups of 128, a split
+# grid whose last K split is short
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1028, 4096])
+@pytest.mark.parametrize("K,group", [(11008, 128), (4096, 32), (8192, 1024)])
+@pytest.mark.parametrize("B", [1, 4, 9, 64])
+def test_w4a8_kernel_rows_groups_and_splits_on_card(cuda_device, B, K,
+                                                     group, N):
+    gen = torch.Generator(device=cuda_device).manual_seed(B + K + N + group)
+    packed, scale = _stripe_w4(gen, cuda_device, K, N, group)
+    if N == 4096 and group == 128:
+        assert _short_last_split(cuda_device, N, K, group)
+    h = torch.randn((B, K), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    got = tqm.w4a8_matmul_tiled(h, packed, scale, out_dtype=torch.float32)
+    again = tqm.w4a8_matmul_tiled(h, packed, scale, out_dtype=torch.float32)
+    got16 = tqm.w4a8_matmul_tiled(h, packed, scale)
+    want = tqm.w4a8_matmul_tiled_plain(h, packed, scale,
+                                       out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert torch.equal(got16, got.to(torch.bfloat16))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,K,N", [(1, 512, 1024), (4, 4096, 4096),
                                    (9, 11008, 512), (64, 256, 768)])
@@ -331,21 +371,24 @@ def test_w4a16_kernel_rows_and_splits_on_card(cuda_device, B, N):
 
 @pytest.mark.cuda
 def test_weight_streamers_replay_in_a_cuda_graph_on_card(cuda_device):
-    """One capture of both streamers (split grids, so the per-device
-    scratch and tickets are in the graph): each replay equals the eager
-    result bitwise."""
+    """One capture of the three streamers (split grids, so the
+    per-device scratch and tickets are in the graph): each replay equals
+    the eager result bitwise."""
     from aurora_tpu_torch.serve.engine import _w8
     K, N, B = 11008, 4096, 9
     gen = torch.Generator(device=cuda_device).manual_seed(11)
     w8, s_w = _w8(torch.randn((N, K), generator=gen, device=cuda_device))
     pk, s = _flat_w4(gen, cuda_device, K, N)
+    packed, scale = _stripe_w4(gen, cuda_device, K, N, 128)
     h = torch.randn((B, K), generator=gen, device=cuda_device,
                     dtype=torch.bfloat16)
     h8, s_a = tqm.quantize_activations(h)
 
     def step():
         return (tqm.w8a8_matmul(h8, s_a, w8, s_w),
-                tqm.w4a16_matmul(h, pk, s, out_dtype=torch.float32))
+                tqm.w4a16_matmul(h, pk, s, out_dtype=torch.float32),
+                tqm.w4a8_matmul_tiled(h, packed, scale,
+                                      out_dtype=torch.float32))
 
     eager = step()
     graph = torch.cuda.CUDAGraph()
@@ -362,7 +405,8 @@ def test_weight_streamers_replay_in_a_cuda_graph_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,K", [(1, 4096), (4, 11008), (64, 4096)])
+@pytest.mark.parametrize("B,K", [(1, 4096), (4, 11008), (64, 4096),
+                                 (2, 14336)])
 def test_quantize_rows_kernel_matches_plain_on_card(cuda_device, B, K,
                                                     dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(B + K)
@@ -386,19 +430,15 @@ def _mlp_tiles(gen, dev, D, I):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,D,I,tol", [(4, 4096, 11008, 5e-5),
-                                       (9, 384, 384, 1e-3),
-                                       (64, 256, 512, 1e-3),
-                                       (1, 256, 128, 1e-3)])
-def test_fused_mlp_kernel_matches_plain_on_card(cuda_device, B, D, I, tol):
-    """The fused W4 MLP vs its bf16 twin: only the fp32 order of the
-    gate/up and down sums differs, which can move a bf16 activation by
-    one rounding here and there. At the 7B MLP the bound is chip_smoke.py's
-    (5e-5, from a measured 1.7e-5). At I ≤ 512 one flipped activation
-    alone moves the output by up to 2^-8 · |act| · |w| against a max of
-    only ~4 sqrt(I) such terms, several 1e-4 of it, hence 1e-3 there. In
-    every case the same MLP computed in fp32 (no bf16 activation or down
-    weights) must fall outside the bound."""
+@pytest.mark.parametrize("B,D,I", [(4, 4096, 11008), (9, 384, 384),
+                                   (64, 256, 512), (1, 256, 128)])
+def test_fused_mlp_kernel_matches_plain_on_card(cuda_device, B, D, I):
+    """The fused W4 MLP vs its bf16 twin: the two differ only in the fp32
+    order of the gate/up and down sums, which can flip a near-tie bf16
+    activation; every output lies within the bound fused_mlp_w4_bound
+    derives from that (chip_smoke.py's check), and the same MLP computed
+    in fp32 (no bf16 activation or down weights) falls outside it on most
+    outputs."""
     gen = torch.Generator(device=cuda_device).manual_seed(B + D + I)
     tiles = _mlp_tiles(gen, cuda_device, D, I)
     h = torch.randn((B, D), generator=gen, device=cuda_device,
@@ -409,15 +449,15 @@ def test_fused_mlp_kernel_matches_plain_on_card(cuda_device, B, D, I, tol):
     want = tqm.fused_mlp_w4_plain(h, *tiles, out_dtype=torch.float32)
     f32 = tqm.fused_mlp_w4_plain(h, *tiles, out_dtype=torch.float32,
                                  compute_dtype=torch.float32)
+    bound = tqm.fused_mlp_w4_bound(h, *tiles)
     torch.cuda.synchronize()
     assert tqm.fused_mlp_w4.launches == launches + 2
     assert got.shape == (B, D) and got16.dtype == torch.bfloat16
     assert bool(torch.isfinite(got).all())
-    rel = ((got - want).abs().max() / want.abs().max()).item()
-    assert rel <= tol, rel
-    assert ((f32 - want).abs().max() / want.abs().max()).item() > tol
-    bound = want.abs() * 2.0 ** -8 + tol * want.abs().max()
-    assert bool(((got16.float() - want).abs() <= bound).all())
+    assert bool(((got - want).abs() <= bound).all())
+    assert ((f32 - want).abs() > bound).float().mean().item() >= 0.5
+    assert bool(((got16.float() - want).abs()
+                 <= want.abs() * 2.0 ** -8 + 2 * bound).all())
 
 
 @pytest.mark.cuda

@@ -137,13 +137,16 @@ def _mlp_case(rng, I):
 @pytest.mark.parametrize("I,B", [(384, 1), (384, 33), (512, 3), (512, 8)])
 def test_fused_mlp_plain_matches_jax_kernel(I, B):
     """fp32 compute (the reference's interpret-mode numerics) against
-    JAX's fused_mlp_w4 with several I-tiles on both sides (JAX ti 128 or
-    256, the port 64), batches that are not multiples of 8."""
+    JAX's fused_mlp_w4 with several I-tiles on both sides (ti 128 or 256,
+    the reference's choice on both), batches that are not multiples of
+    8."""
     rng = np.random.default_rng(I + B)
     flat = _mlp_case(rng, I)
     h = _h(rng, B, D)
     tiles = tqm.w4_mlp_tile_layout(*map(torch.from_numpy, flat))
-    assert tiles[0].shape[0] == I // tqm.MLP_TILE
+    ti = 256 if I % 256 == 0 else 128
+    assert tiles[0].shape == (I // ti, 2 * ti, D // 2)
+    assert tiles[1].shape == (I // ti, D // GROUP, 2 * ti)
     # the port's layout round-trips to the flat bytes
     assert all(np.array_equal(_np(a), b)
                for a, b in zip(tqm.w4_mlp_untile_layout(*tiles), flat))
@@ -155,6 +158,75 @@ def test_fused_mlp_plain_matches_jax_kernel(I, B):
     want = jqm.fused_mlp_w4(jnp.asarray(h), *jtiles, out_dtype=jnp.float32,
                             interpret=True)
     _close(got, want)
+
+
+@pytest.mark.parametrize("Dm,I,ti", [(256, 512, 256), (256, 512, 128),
+                                     (384, 384, 128), (128, 256, 64),
+                                     (1024, 2816, 256)])
+def test_fused_mlp_layout_round_trips(Dm, I, ti):
+    """tile → untile gives back the flat bytes, and each 16-channel group
+    of a tile is 8 gate columns then the same 8 up columns, their
+    scales in the same order."""
+    rng = np.random.default_rng(Dm + I + ti)
+    flat = tuple(map(torch.from_numpy, _flat(rng, Dm, 2 * I)
+                     + _flat(rng, I, Dm)))
+    tiles = tqm.w4_mlp_tile_layout(*flat, ti=ti)
+    assert tiles[0].shape == (I // ti, 2 * ti, Dm // 2)
+    assert all(torch.equal(a, b)
+               for a, b in zip(tqm.w4_mlp_untile_layout(*tiles), flat))
+    gu_pk, gu_s = flat[:2]
+    j, m, c = I // ti - 1, ti // 8 - 1, 3
+    col = j * ti + 8 * m + c
+    for half, n in ((0, col), (1, I + col)):
+        ch = 16 * m + 8 * half + c
+        assert torch.equal(tiles[0][j, ch], gu_pk.reshape(Dm // 2, -1)[:, n])
+        assert torch.equal(tiles[1][j, :, ch], gu_s[:, 0, n])
+
+
+def test_fused_mlp_bound_holds_a_near_tie_flip():
+    """An activation planted one fp32 ulp above a bf16 rounding midpoint:
+    a kernel whose fp32 sum lands one ulp below it rounds to the other
+    bf16 neighbour. That flip moves the down product, and stays within
+    fused_mlp_down_bound; the same MLP in fp32 falls outside the bound."""
+    rng = np.random.default_rng(21)
+    Dm, I, B = 256, 256, 2
+    flat = tuple(map(torch.from_numpy, _flat(rng, Dm, 2 * I)
+                     + _flat(rng, I, Dm)))
+    tiles = tqm.w4_mlp_tile_layout(*flat)
+    h = torch.from_numpy(_h(rng, B, Dm))
+    act, e_act = tqm.fused_mlp_act(h, tiles[0], tiles[1])
+    i0 = int(act[0].abs().argmax())
+    v = act[0, i0]
+    down = v.to(torch.bfloat16).float()
+    if down > v:                           # the bf16 value just below v
+        down = torch.nextafter(down.to(torch.bfloat16),
+                               torch.tensor(-1e30, dtype=torch.bfloat16)
+                               ).float()
+    up = torch.nextafter(down.to(torch.bfloat16),
+                         torch.tensor(1e30, dtype=torch.bfloat16)).float()
+    mid = (down + up) / 2                  # exact in fp32
+    inf = torch.tensor(float("inf"))
+    twin_a, kern_a = torch.nextafter(mid, inf), torch.nextafter(mid, -inf)
+    assert twin_a.to(torch.bfloat16) != kern_a.to(torch.bfloat16)
+    planted = act.clone()
+    planted[0, i0] = twin_a
+    flipped = planted.clone()
+    flipped[0, i0] = kern_a
+    mdw, mds = tiles[2], tiles[3]
+    wd = tqm._w4a16_weight(mdw, mds, torch.bfloat16).float()
+    want = planted.to(torch.bfloat16).float() @ wd
+    got = flipped.to(torch.bfloat16).float() @ wd
+    bound = tqm.fused_mlp_down_bound(planted, e_act, mdw, mds,
+                                     tiles[0].shape[1] // 2)
+    assert (got - want).abs().max() > 0                 # the flip shows
+    assert bool(((got - want).abs() <= bound).all())
+    # the planted row's bound holds the flip's own term: one bf16 step
+    step = (up - down).double()
+    assert bool((bound[0].double() >= step * wd[i0].double().abs()
+                 * (1 - 1e-6)).all())
+    w32 = (tqm.w4_flat_dequantize(mdw, mds, torch.float32))
+    f32 = planted @ w32
+    assert ((f32 - want).abs() > bound).float().mean().item() >= 0.5
 
 
 def _fused_mlp_tree(cfg, monkeypatch):
@@ -262,9 +334,9 @@ def test_engine_fused_mlp_matches_jax_engine(monkeypatch):
 
 def test_engine_keeps_two_call_mlp_where_the_reference_does(monkeypatch):
     """At intermediate width 64 no reference I-tile (256 or 128) fits, so
-    the JAX engine keeps the two-call MLP under AURORA_W4_FUSED_MLP=1;
-    the port's 64-column tile alone would fuse it. The port follows the
-    reference: no W4FusedMLP, and the same greedy tokens."""
+    the JAX engine keeps the two-call MLP under AURORA_W4_FUSED_MLP=1.
+    The port follows the reference: no W4FusedMLP, and the same greedy
+    tokens."""
     import dataclasses
     cfg = dataclasses.replace(CONFIGS["tiny"], intermediate_size=64)
     tree, q, laid = _fused_mlp_tree(cfg, monkeypatch)

@@ -8,6 +8,7 @@ blocks per SM at the 7B decode projections."""
 
 import pytest
 
+from aurora_tpu_torch.ops.pallas import quant_matmul as qm
 from aurora_tpu_torch.ops.pallas.quant_matmul import (W8_GROUP, WEIGHT_TILE,
                                                       weight_plan)
 
@@ -74,3 +75,26 @@ def test_weight_plan_has_a_short_last_split_at_7b_down():
     last one is the short one."""
     _, per, nsplit = weight_plan(4096, 11008, 128, H100_SMS)
     assert nsplit > 1 and 86 - (nsplit - 1) * per < per
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+@pytest.mark.parametrize("N,K", SHAPES_7B)
+def test_weight_plan_w4a8_grid_at_the_7b_projections(N, K, blocks_per_sm):
+    """The W4A8 stripe streamer's grid (groups of 128 k, 2 blocks an SM at
+    up to 16 rows and 1 at 64): splits on group boundaries, every column
+    and group once, and no more blocks than the card holds at once."""
+    tile, per, nsplit = weight_plan(N, K, 128, H100_SMS, blocks_per_sm)
+    _, ks = _check_cover(N, K, 128, H100_SMS)
+    cols = -(-N // tile)
+    assert per * 128 * (nsplit - 1) < K <= per * 128 * nsplit
+    assert cols * nsplit <= max(cols, H100_SMS * blocks_per_sm)
+
+
+@pytest.mark.parametrize("name", ["w4a8_matmul", "fused_mlp_w4", "w8a8"])
+def test_blocks_per_sm_names_each_streamer(name):
+    """Each weight streamer has its own occupancy entry; any other name
+    raises before the kernel library is touched."""
+    assert set(qm._OCCUPANCY) == {"w8a8_matmul", "w4a16_matmul",
+                                  "w4a8_matmul_tiled"}
+    with pytest.raises(ValueError, match="not a weight streamer"):
+        qm._blocks_per_sm(name, 4, 128)
