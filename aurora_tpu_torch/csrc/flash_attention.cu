@@ -717,14 +717,16 @@ extern "C" int aurora_w4a16_kernel(int rows, int group, const void** fn,
                                    int* smem, int* blocks);
 extern "C" int aurora_w4a8_kernel(int rows, int group, const void** fn,
                                   int* smem, int* blocks);
+extern "C" int aurora_w4a8_flat_kernel(int rows, int group, const void** fn,
+                                       int* smem, int* blocks);
 extern "C" int aurora_fused_mlp_kernel(int rows, const void** fn, int* smem);
 
 // registers a thread, local (spill) bytes a thread and shared bytes a block
 // (static and dynamic) of one kernel of the library: "flash_fwd",
 // "flash_bwd_dkv", "flash_bwd_dq", "ragged_extend_<mode>",
 // "ragged_decode_<mode>_g<1|2|4|8>" (mode bf16, int8 or int4),
-// "w8a8_b<rows>", "w4a16_b<rows>", "w4a8_b<rows>" (groups of 128) or
-// "fused_mlp_b<rows>" (rows 8, 16, 32, 64)
+// "w8a8_b<rows>", "w4a16_b<rows>", "w4a8_b<rows>", "w4a8_flat_b<rows>"
+// (groups of 128) or "fused_mlp_b<rows>" (rows 8, 16, 32, 64)
 extern "C" int aurora_kernel_attrs(const char* name, int* regs,
                                    int* local_bytes, int* smem) {
   const void* fn = nullptr;
@@ -751,6 +753,8 @@ extern "C" int aurora_kernel_attrs(const char* name, int* regs,
     err_name = aurora_w8a8_kernel(gm, &fn, &dynamic, &blocks);
   } else if (sscanf(name, "w4a16_b%d", &gm) == 1) {
     err_name = aurora_w4a16_kernel(gm, 128, &fn, &dynamic, &blocks);
+  } else if (sscanf(name, "w4a8_flat_b%d", &gm) == 1) {
+    err_name = aurora_w4a8_flat_kernel(gm, 128, &fn, &dynamic, &blocks);
   } else if (sscanf(name, "w4a8_b%d", &gm) == 1) {
     err_name = aurora_w4a8_kernel(gm, 128, &fn, &dynamic, &blocks);
   } else if (sscanf(name, "fused_mlp_b%d", &gm) == 1) {

@@ -1,16 +1,6 @@
 // Device code shared by the W4 and W8 kernels (w4a8_matmul.cu,
 // w4_flat_matmul.cu, fused_mlp_w4.cu, w8a8_matmul.cu): the per-token int8
-// activation quantizer, element conversions, and the flat W4A8 kernel's
-// inner routine over the reference's flat W4 layout (packed [K/2, N] int8,
-// K-major: byte (p, n) holds input rows 2p in its low and 2p + 1 in its
-// high nibble for output column n; scales [G, N] fp32 for G groups of K/G
-// input rows).
-//
-// That routine is run by one thread for 4 consecutive output columns (one
-// 32-bit word of every packed row) and up to FR token rows; the caller
-// picks the packed rows it walks and sums the threads' partial results in
-// a fixed order, so no kernel uses atomics and every run repeats bit for
-// bit.
+// activation quantizer and element conversions.
 
 #pragma once
 
@@ -24,7 +14,6 @@ namespace {
 
 constexpr int QNT = 1024;           // quantize_rows threads
 constexpr int QPER = 12;            // row values a thread keeps in registers
-constexpr int FR = 4;               // token rows per pass of the flat routines
 constexpr int MAX_B = 64;
 
 template <typename T>
@@ -124,56 +113,6 @@ quantize_rows(const T* __restrict__ h, int8_t* __restrict__ he,
   } else {
     for (int k = threadIdx.x; k < K; k += QNT)
       quantize_put<T, PLANES>(he, ho, b, K, k, to_f(row[k]), s);
-  }
-}
-
-__device__ __forceinline__ unsigned ld32(const int8_t* p) {
-  return __ldg(reinterpret_cast<const unsigned*>(p));
-}
-
-// W4A8 over one group of the flat layout: packed rows [p0, p0 + gh) (gh a
-// multiple of 4), this thread's 4 columns at `w` (the group's first row,
-// row stride `ld` bytes), token rows r < nr of the int8 planes he/ho (row
-// stride K2, the group's first packed row at p0). Four packed rows x four
-// columns are transposed with __byte_perm so that each column's word holds
-// four consecutive rows; (x << 4) & 0xF0F0F0F0 and x & 0xF0F0F0F0 are then
-// 16 * the low and high nibbles as signed bytes, and __dp4a takes them
-// against four even and four odd activations. Returns 16 * the exact int32
-// group partials in part[r][c].
-__device__ __forceinline__ void a8_group(int (&part)[FR][4], const int8_t* w,
-                                         int ld, const int8_t* he,
-                                         const int8_t* ho, int K2, int p0,
-                                         int gh, int nr) {
-#pragma unroll
-  for (int r = 0; r < FR; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) part[r][c] = 0;
-#pragma unroll 2
-  for (int p = 0; p < gh; p += 4) {
-    const int8_t* wp = w + size_t(p) * ld;
-    const unsigned w0 = ld32(wp), w1 = ld32(wp + ld), w2 = ld32(wp + 2 * ld),
-                   w3 = ld32(wp + 3 * ld);
-    const unsigned t01l = __byte_perm(w0, w1, 0x5140);
-    const unsigned t01h = __byte_perm(w0, w1, 0x7362);
-    const unsigned t23l = __byte_perm(w2, w3, 0x5140);
-    const unsigned t23h = __byte_perm(w2, w3, 0x7362);
-    const unsigned x[4] = {__byte_perm(t01l, t23l, 0x5410),
-                           __byte_perm(t01l, t23l, 0x7632),
-                           __byte_perm(t01h, t23h, 0x5410),
-                           __byte_perm(t01h, t23h, 0x7632)};
-#pragma unroll
-    for (int r = 0; r < FR; ++r) {
-      if (r < nr) {
-        const size_t off = size_t(r) * K2 + p0 + p;
-        const int e = int(ld32(he + off));
-        const int o = int(ld32(ho + off));
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          part[r][c] = __dp4a(int((x[c] << 4) & 0xF0F0F0F0u), e, part[r][c]);
-          part[r][c] = __dp4a(int(x[c] & 0xF0F0F0F0u), o, part[r][c]);
-        }
-      }
-    }
   }
 }
 

@@ -1,22 +1,26 @@
 // W4A8 decode matmul: per-token int8 activations x nibble-packed int4
-// weights with per-(output channel, K-group) fp32 scales, sm_90a.
+// weights with per-(output channel, K-group) fp32 scales, sm_90a, over
+// either W4 layout.
 //
 // Replaces: aurora_tpu/ops/pallas/quant_matmul.py `w4a8_matmul_tiled`
-// (Pallas kernel `_kernel_w4a8`). Contract, for h [B, K] (B <= 64) and a
-// W4 stream of N output channels in groups of `group` input rows:
+// and `w4a8_matmul` (the Pallas kernel `_kernel_w4a8` of each).
+// Contract, for h [B, K] (B <= 64) and a W4 stream of N output channels
+// in groups of `group` input rows:
 //   s_a[b] = max(max_k |h[b, k]| * (1/127), 1e-12)
 //   h8[b, k] = clamp(rint(h[b, k] / s_a[b]), -127, 127)
 //   part[b, g, n] = sum_{k in group g} h8[b, k] * w4[k, n]       (int32)
 //   out[b, n] = (sum_g part[b, g, n] * scale[n, g]) * s_a[b]
 // The int32 group partials are exact and each is scaled with one fp32
-// rounding, as in the plain twin; only the fp32 order of the group sum
-// differs from it.
+// rounding, as in the plain twins; only the fp32 order of the group sum
+// differs from them.
 //
-// Layout (the port's own, converted once at load): packed [N, K/2] int8,
-// row n holding output channel n; byte j carries input row 2j in its low
-// nibble and row 2j+1 in its high nibble, each a signed 4-bit value.
-// scale [N, G] fp32. Every output channel's weights are one contiguous
-// K/2-byte stripe.
+// Layouts. Stripes (the port's own, converted once at load): packed
+// [N, K/2] int8, row n holding output channel n; byte j carries input
+// row 2j in its low nibble and row 2j+1 in its high nibble, each a
+// signed 4-bit value; scale [N, G] fp32. Every output channel's weights
+// are one contiguous K/2-byte stripe. Flat (the reference's, FLAT):
+// packed [K/2, N], K-major (byte (j, n) holds input rows 2j and 2j + 1
+// of channel n), scale [G, N].
 //
 // What bounds it on the H100: at decode each weight byte feeds 4 * B
 // int8 operations (B <= 64), so the kernel is bound by the packed weight
@@ -30,18 +34,25 @@
 // in flight before the planes are ready. `w4a8_kernel` is
 // weight_stream.cuh's streamer with the nibble unpack of its `A8Warp`: a
 // block owns 128 channels and a K split from `weight_plan` (splits on
-// group boundaries); each stage holds one TMA box of the weights (128
-// channel rows x 128 packed bytes, 256 k, 16 KB), one box of each
-// activation plane (8 * TT token rows x 128 bytes) and the scales of the
-// groups the stage touches, which scale[N, G] keeps strided by channel:
-// the producer's lanes copy them by 4-byte cp.async into [group][channel]
-// rows, joined to the stage's mbarrier. Consumer warp (cw, tw, kw) owns
-// MT m-tiles of channels, TPW token tiles and the groups g with g % KW ==
-// kw (weight_stream.cuh `A8`); it keeps each group's int32 partial in
-// registers until the group ends and its fp32 sums across its groups.
-// The k-slices' sums meet in shared memory, are added in k-slice order,
-// then the splits in split order (ws::finish), and s_a multiplies last.
-// No float atomics: every run gives the same bits.
+// group boundaries); each stage holds one TMA box of the weights (256 k,
+// 16 KB: 128 channel rows x 128 packed bytes, or flat 128 packed rows x
+// 128 channels), one box of each activation plane (8 * TT token rows x
+// 128 bytes) and the scales of the groups the stage touches as
+// [group][channel] rows. Stripe scales [N, G] lie strided by channel:
+// the producer's lanes copy them by 4-byte cp.async, joined to the
+// stage's mbarrier. Flat scales [G, N] lie in rows: one 1-D bulk copy a
+// group. Where N % 16 != 0 the flat packed rows do not start on the
+// 16-byte boundaries TMA needs: the producer's lanes then copy the weight
+// box by 4-byte cp.async into the same swizzled places (as W4A16 does).
+// Consumer warp (cw, tw, kw) owns MT m-tiles of channels, TPW token
+// tiles and the groups g with g % KW == kw (weight_stream.cuh `A8`); it
+// keeps each group's int32 partial in registers until the group ends and
+// its fp32 sums across its groups. A flat fragment takes a 4 x 4 byte
+// transpose per 4 channels and 4 packed rows on top of the stripe's
+// unpack (`A8Warp`'s FLAT policy). The k-slices' sums meet in shared
+// memory, are added in k-slice order, then the splits in split order
+// (ws::finish), and s_a multiplies last. No float atomics: every run
+// gives the same bits.
 
 #include "weight_stream.cuh"
 
@@ -76,14 +87,15 @@ __host__ __device__ constexpr int w4a8_min_blocks() {
   return TT <= 2 ? 2 : 1;
 }
 
-template <int TT, int RW, typename TO>
+template <int TT, int RW, bool FLAT, typename TO>
 __global__ void __launch_bounds__(ws::NT, w4a8_min_blocks<TT>())
 w4a8_kernel(const __grid_constant__ CUtensorMap tm_w,
             const __grid_constant__ CUtensorMap tm_h,
+            const int8_t* __restrict__ packed,
             const float* __restrict__ scale, const float* __restrict__ s_a,
             TO* __restrict__ out, float* __restrict__ part,
             int* __restrict__ tickets, int B, int K, int N, int G, int lg,
-            int span, int nsplit, int scr) {
+            int span, int nsplit, int scr, int tma_w) {
   using Geo = ws::A8<TT>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = hopper::align1024(smem_raw);
@@ -107,17 +119,39 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_w,
       const int g0 = kc >> lg, ng = ((kc + len - 1) >> lg) - g0 + 1;
       uint8_t* st = smem + size_t(slot) * stage;
       uint64_t* full = &bars.full[slot];
-      for (int e = lane; e < ng * ws::BN; e += 32) {
-        const int r = e / ws::BN, c = e % ws::BN;
-        if (c < nv)
-          ws::cp_async4(st + sbase + 4 * e,
-                        scale + size_t(n0 + c) * G + g0 + r);
-      }
-      ws::cp_async_mbar_arrive(full);
-      __syncwarp();
-      if (lane == 0) {
-        hopper::mbar_expect_tx(full, WBOX + 2 * act_box<TT>());
-        hopper::tma_load_3d(st, &tm_w, full, kc / 2, n0, 0);
+      if constexpr (FLAT) {
+        if (!tma_w) {
+          for (int e = lane; e < len / 2 * 32; e += 32) {
+            const int p = e >> 5, w = e & 31;
+            if (4 * w < nv)
+              ws::cp_async4(st + hopper::swz128(p, w >> 2) + 4 * (w & 3),
+                            packed + size_t(kc / 2 + p) * N + n0 + 4 * w);
+          }
+          ws::cp_async_mbar_arrive(full);
+          __syncwarp();
+        }
+        if (lane == 0) {
+          hopper::mbar_expect_tx(
+              full, (tma_w ? WBOX : 0) + 2 * act_box<TT>() + ng * 4 * nv);
+          if (tma_w) hopper::tma_load_3d(st, &tm_w, full, n0, kc / 2, 0);
+          for (int r = 0; r < ng; ++r)
+            hopper::bulk_copy_1d(st + sbase + r * ws::BN * 4,
+                                 scale + size_t(g0 + r) * N + n0, 4 * nv,
+                                 full);
+        }
+      } else {
+        for (int e = lane; e < ng * ws::BN; e += 32) {
+          const int r = e / ws::BN, c = e % ws::BN;
+          if (c < nv)
+            ws::cp_async4(st + sbase + 4 * e,
+                          scale + size_t(n0 + c) * G + g0 + r);
+        }
+        ws::cp_async_mbar_arrive(full);
+        __syncwarp();
+        if (lane == 0) {
+          hopper::mbar_expect_tx(full, WBOX + 2 * act_box<TT>());
+          hopper::tma_load_3d(st, &tm_w, full, kc / 2, n0, 0);
+        }
       }
       if (i + 1 < pre) continue;
       if (i + 1 == pre) hopper::grid_wait();
@@ -135,7 +169,7 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_w,
 
   const int g = lane >> 2, q = lane & 3;
   const int c0 = Geo::cw(warp) * Geo::MT * 16, kw = Geo::kw(warp);
-  ws::A8Warp<TT, RW> acc;
+  ws::A8Warp<TT, RW, ws::BN, FLAT> acc;
   acc.clear(Geo::tw(warp) * Geo::TPW);
   for (int i = 0; i < nst; ++i) {
     const int slot = ws::consumer_wait(bars, i);
@@ -162,21 +196,29 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_w,
              Geo::KW);
 }
 
-template <int TT, int RW, typename TO>
+// the launch behind the quantizer: FLAT picks the layout of packed and
+// scale
+template <int TT, int RW, bool FLAT, typename TO>
 int launch(const void* packed, const void* scale, const void* he,
            const void* s_a, void* out, void* part, void* tickets, int B,
            int K, int N, int G, int span, int nsplit, cudaStream_t stream) {
   const int group = K / G, scr = scale_rows(group);
-  CUtensorMap tm_w, tm_h;
-  // the planes he/ho [2][B][K/2] as two stripes of B rows
-  if (!hopper::map_stripes(&tm_w, packed, 1, K / 2, N, 1, 128, ws::BN,
-                           true) ||
+  // flat weights by TMA where the packed rows are 16-byte aligned
+  int tma_w = !FLAT || N % 16 == 0;
+  CUtensorMap tm_w = {}, tm_h;
+  // the weights as boxes of 128 rows of 128 bytes (channels of K/2 bytes,
+  // or flat packed rows of N bytes); the planes he/ho [2][B][K/2] as two
+  // stripes of B rows
+  if ((tma_w && !(FLAT ? hopper::map_stripes(&tm_w, packed, 1, N, K / 2, 1,
+                                             ws::BN, 128, true)
+                       : hopper::map_stripes(&tm_w, packed, 1, K / 2, N, 1,
+                                             128, ws::BN, true))) ||
       !hopper::map_stripes(&tm_h, he, 1, K / 2, B, 2, 128, 8 * TT, true))
     return int(cudaErrorInvalidValue);
+  auto kernel = w4a8_kernel<TT, RW, FLAT, TO>;
   const size_t smem = ws::ring_smem(stage_bytes<TT>(scr), red_bytes<TT>(B));
   cudaError_t err = cudaFuncSetAttribute(
-      w4a8_kernel<TT, RW, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   // launched behind the quantizer with programmatic stream serialization:
   // the weight loads start while it runs
@@ -190,66 +232,58 @@ int launch(const void* packed, const void* scale, const void* he,
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
+  const int8_t* pk = static_cast<const int8_t*>(packed);
   const float* sc = static_cast<const float*>(scale);
   const float* sa = static_cast<const float*>(s_a);
   TO* o = static_cast<TO*>(out);
   float* pt = static_cast<float*>(part);
   int* tk = static_cast<int*>(tickets);
   int lg = __builtin_ctz(group);
-  void* args[] = {&tm_w, &tm_h, &sc, &sa, &o, &pt, &tk, &B, &K, &N, &G,
-                  &lg, &span, &nsplit, const_cast<int*>(&scr)};
+  void* args[] = {&tm_w, &tm_h, &pk, &sc, &sa, &o, &pt, &tk, &B, &K, &N,
+                  &G, &lg, &span, &nsplit, const_cast<int*>(&scr), &tma_w};
   return int(cudaLaunchKernelExC(
-      &cfg, reinterpret_cast<const void*>(w4a8_kernel<TT, RW, TO>), args));
+      &cfg, reinterpret_cast<const void*>(kernel), args));
 }
 
-template <int RW, typename TO>
+template <int RW, bool FLAT, typename TO>
 int launch_b(const void* packed, const void* scale, const void* he,
              const void* s_a, void* out, void* part, void* tickets, int B,
              int K, int N, int G, int span, int nsplit, cudaStream_t st) {
   switch (ws::token_tiles(B)) {
     case 1:
-      return launch<1, RW, TO>(packed, scale, he, s_a, out, part, tickets, B,
-                               K, N, G, span, nsplit, st);
+      return launch<1, RW, FLAT, TO>(packed, scale, he, s_a, out, part,
+                                     tickets, B, K, N, G, span, nsplit, st);
     case 2:
-      return launch<2, RW, TO>(packed, scale, he, s_a, out, part, tickets, B,
-                               K, N, G, span, nsplit, st);
+      return launch<2, RW, FLAT, TO>(packed, scale, he, s_a, out, part,
+                                     tickets, B, K, N, G, span, nsplit, st);
     case 4:
-      return launch<4, RW, TO>(packed, scale, he, s_a, out, part, tickets, B,
-                               K, N, G, span, nsplit, st);
+      return launch<4, RW, FLAT, TO>(packed, scale, he, s_a, out, part,
+                                     tickets, B, K, N, G, span, nsplit, st);
     default:
-      return launch<8, RW, TO>(packed, scale, he, s_a, out, part, tickets, B,
-                               K, N, G, span, nsplit, st);
+      return launch<8, RW, FLAT, TO>(packed, scale, he, s_a, out, part,
+                                     tickets, B, K, N, G, span, nsplit, st);
   }
 }
 
-template <typename TO>
+template <bool FLAT, typename TO>
 int launch_rw(const void* packed, const void* scale, const void* he,
               const void* s_a, void* out, void* part, void* tickets, int B,
               int K, int N, int G, int span, int nsplit, cudaStream_t st) {
   return (K / G) % 128 == 0
-             ? launch_b<16, TO>(packed, scale, he, s_a, out, part, tickets, B,
-                                K, N, G, span, nsplit, st)
-             : launch_b<4, TO>(packed, scale, he, s_a, out, part, tickets, B,
-                               K, N, G, span, nsplit, st);
+             ? launch_b<16, FLAT, TO>(packed, scale, he, s_a, out, part,
+                                      tickets, B, K, N, G, span, nsplit, st)
+             : launch_b<4, FLAT, TO>(packed, scale, he, s_a, out, part,
+                                     tickets, B, K, N, G, span, nsplit, st);
 }
 
-}  // namespace
-
-// h [B, K] (bf16 or fp32: h_f32), packed [N, K/2] int8, scale [N, G]
-// fp32; he/ho [B, K/2] int8 (ho right after he) and s_a [B] fp32 are
-// caller-allocated scratch; out [B, N] (bf16 or fp32: out_f32). Groups of
-// K/G = 32 * 2^i input rows. The grid: column tiles of 128 x nsplit
-// splits of `span` k (a multiple of the group: weight_plan); with
-// nsplit > 1, part holds nsplit * B * N fp32 and tickets one zero int32
-// per column tile (left zero). packed and he 16-byte aligned.
-extern "C" int aurora_w4a8_matmul(const void* h, const void* packed,
-                                  const void* scale, void* he, void* ho,
-                                  void* s_a, void* out, void* part,
-                                  void* tickets, int B, int K, int N, int G,
-                                  int span, int nsplit, int h_f32,
-                                  int out_f32, void* stream) {
+// both entry points: check, quantize, then the streamer
+template <bool FLAT>
+int w4a8_matmul(const void* h, const void* packed, const void* scale,
+                void* he, void* ho, void* s_a, void* out, void* part,
+                void* tickets, int B, int K, int N, int G, int span,
+                int nsplit, int h_f32, int out_f32, void* stream) {
   if (B <= 0 || B > MAX_B || N <= 0 || G <= 0 || K % 32 != 0 ||
-      K % G != 0)
+      K % G != 0 || (FLAT && N % 4 != 0))
     return int(cudaErrorInvalidValue);
   const int group = K / G;
   if (group < 32 || (group & (group - 1)) != 0 || span <= 0 ||
@@ -270,45 +304,93 @@ extern "C" int aurora_w4a8_matmul(const void* h, const void* packed,
         static_cast<int8_t*>(ho), static_cast<float*>(s_a), K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  return out_f32 ? launch_rw<float>(packed, scale, he, s_a, out, part,
-                                    tickets, B, K, N, G, span, nsplit, st)
-                 : launch_rw<bf16>(packed, scale, he, s_a, out, part, tickets,
-                                   B, K, N, G, span, nsplit, st);
+  return out_f32
+             ? launch_rw<FLAT, float>(packed, scale, he, s_a, out, part,
+                                      tickets, B, K, N, G, span, nsplit, st)
+             : launch_rw<FLAT, bf16>(packed, scale, he, s_a, out, part,
+                                     tickets, B, K, N, G, span, nsplit, st);
 }
 
 // the W4A8 kernel for up to `rows` token rows (1..64) with groups of
 // `group` k, bf16 out, its dynamic shared bytes and the blocks of it one
 // SM holds, for aurora_kernel_attrs and weight_plan
-template <int TT, int RW>
+template <int TT, int RW, bool FLAT>
 int w4a8_attrs(int rows, int group, const void** fn, int* smem,
                int* blocks) {
-  *fn = reinterpret_cast<const void*>(w4a8_kernel<TT, RW, bf16>);
+  auto kernel = w4a8_kernel<TT, RW, FLAT, bf16>;
+  *fn = reinterpret_cast<const void*>(kernel);
   *smem = int(ws::ring_smem(stage_bytes<TT>(scale_rows(group)),
                             red_bytes<TT>(rows)));
   cudaError_t err = cudaFuncSetAttribute(
-      w4a8_kernel<TT, RW, bf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      *smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, w4a8_kernel<TT, RW, bf16>, ws::NT, *smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                        ws::NT, *smem);
   return int(err);
 }
 
-template <int RW>
+template <int RW, bool FLAT>
 int w4a8_attrs_b(int rows, int group, const void** fn, int* smem,
                  int* blocks) {
   switch (ws::token_tiles(rows)) {
-    case 1: return w4a8_attrs<1, RW>(rows, group, fn, smem, blocks);
-    case 2: return w4a8_attrs<2, RW>(rows, group, fn, smem, blocks);
-    case 4: return w4a8_attrs<4, RW>(rows, group, fn, smem, blocks);
-    default: return w4a8_attrs<8, RW>(rows, group, fn, smem, blocks);
+    case 1: return w4a8_attrs<1, RW, FLAT>(rows, group, fn, smem, blocks);
+    case 2: return w4a8_attrs<2, RW, FLAT>(rows, group, fn, smem, blocks);
+    case 4: return w4a8_attrs<4, RW, FLAT>(rows, group, fn, smem, blocks);
+    default: return w4a8_attrs<8, RW, FLAT>(rows, group, fn, smem, blocks);
   }
+}
+
+template <bool FLAT>
+int w4a8_kernel_attrs(int rows, int group, const void** fn, int* smem,
+                      int* blocks) {
+  if (rows <= 0 || rows > MAX_B || group < 32 || (group & (group - 1)) != 0)
+    return int(cudaErrorInvalidValue);
+  return group % 128 == 0
+             ? w4a8_attrs_b<16, FLAT>(rows, group, fn, smem, blocks)
+             : w4a8_attrs_b<4, FLAT>(rows, group, fn, smem, blocks);
+}
+
+}  // namespace
+
+// h [B, K] (bf16 or fp32: h_f32), packed [N, K/2] int8, scale [N, G]
+// fp32; he/ho [B, K/2] int8 (ho right after he) and s_a [B] fp32 are
+// caller-allocated scratch; out [B, N] (bf16 or fp32: out_f32). Groups of
+// K/G = 32 * 2^i input rows. The grid: column tiles of 128 x nsplit
+// splits of `span` k (a multiple of the group: weight_plan); with
+// nsplit > 1, part holds nsplit * B * N fp32 and tickets one zero int32
+// per column tile (left zero). packed and he 16-byte aligned.
+extern "C" int aurora_w4a8_matmul(const void* h, const void* packed,
+                                  const void* scale, void* he, void* ho,
+                                  void* s_a, void* out, void* part,
+                                  void* tickets, int B, int K, int N, int G,
+                                  int span, int nsplit, int h_f32,
+                                  int out_f32, void* stream) {
+  return w4a8_matmul<false>(h, packed, scale, he, ho, s_a, out, part,
+                            tickets, B, K, N, G, span, nsplit, h_f32,
+                            out_f32, stream);
+}
+
+// The same over the flat layout: packed [K/2, N] int8 and scale [G, N]
+// fp32 (the reference's [G, g/2, N] and [G, 1, N]); N % 4 == 0, scale
+// 16-byte aligned.
+extern "C" int aurora_w4a8_flat_matmul(const void* h, const void* packed,
+                                       const void* scale, void* he, void* ho,
+                                       void* s_a, void* out, void* part,
+                                       void* tickets, int B, int K, int N,
+                                       int G, int span, int nsplit,
+                                       int h_f32, int out_f32,
+                                       void* stream) {
+  return w4a8_matmul<true>(h, packed, scale, he, ho, s_a, out, part,
+                           tickets, B, K, N, G, span, nsplit, h_f32, out_f32,
+                           stream);
 }
 
 extern "C" int aurora_w4a8_kernel(int rows, int group, const void** fn,
                                   int* smem, int* blocks) {
-  if (rows <= 0 || rows > MAX_B || group < 32 || (group & (group - 1)) != 0)
-    return int(cudaErrorInvalidValue);
-  return group % 128 == 0 ? w4a8_attrs_b<16>(rows, group, fn, smem, blocks)
-                          : w4a8_attrs_b<4>(rows, group, fn, smem, blocks);
+  return w4a8_kernel_attrs<false>(rows, group, fn, smem, blocks);
+}
+
+extern "C" int aurora_w4a8_flat_kernel(int rows, int group, const void** fn,
+                                       int* smem, int* blocks) {
+  return w4a8_kernel_attrs<true>(rows, group, fn, smem, blocks);
 }

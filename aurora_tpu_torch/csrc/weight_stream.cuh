@@ -3,7 +3,8 @@
 // the mma.sync wrappers, the W4A8 unit on the int8 tensor cores, the W4
 // dequantization to bf16 fragments and the deterministic split-K ending.
 // Used by w8a8_matmul.cu (`w8a8_kernel`), w4_flat_matmul.cu
-// (`w4a16_kernel`), w4a8_matmul.cu (`w4a8_kernel`) and fused_mlp_w4.cu.
+// (`w4a16_kernel`), w4a8_matmul.cu (`w4a8_kernel`, stripe and flat W4)
+// and fused_mlp_w4.cu.
 //
 // What bounds them on the H100: at decode (B <= 64 token rows) each
 // weight byte feeds at most 2 * 64 int8 operations (W8) or 4 * 64 bf16
@@ -227,32 +228,51 @@ __device__ __forceinline__ void w4a16_frag(const uint8_t* box, int off0,
 }
 
 // ---------------------------------------------------------------- W4A8
-// W4A8 on the int8 tensor cores (w4a8_matmul.cu, fused_mlp_w4.cu). A
-// weight box holds channel rows of packed W4 (byte p: k 2p in the low
-// nibble, 2p + 1 in the high one; 128 bytes, 256 k, a row); the token
-// rows' int8 activations come as two planes he (even k) and ho (odd k),
-// byte p of each lining up with packed byte p. A packed word w of a
-// channel row gives 16 x its four low nibbles as (w << 4) & 0xF0F0F0F0
-// and 16 x its four high ones as w & 0xF0F0F0F0, signed int8 each: the A
+// W4A8 on the int8 tensor cores (w4a8_matmul.cu, fused_mlp_w4.cu). The
+// token rows' int8 activations come as two planes he (even k) and ho
+// (odd k), byte p of each lining up with packed byte p (k 2p in the low
+// nibble, 2p + 1 in the high one). A word w of four packed bytes of one
+// channel gives 16 x its four low nibbles as (w << 4) & 0xF0F0F0F0 and
+// 16 x its four high ones as w & 0xF0F0F0F0, signed int8 each: the A
 // registers of one mma m16n8k32 whose k 4q .. and 16 + 4q .. take the
 // same four bytes of he and of ho as B. One mma is thus 16 x the exact
 // int32 dot of 16 packed bytes (32 k), in a permutation of k shared by A
 // and B, which the exact int32 sum does not see.
 //
-// A unit is the k a thread reads at once from each of its rows: RW = 16
-// bytes (groups of a multiple of 128 k) make a unit of 64 packed bytes
-// (128 k, four mma): thread q reads chunk 4u + q of the 128-byte row, and
-// word i of it feeds mma i; RW = 4 (groups of 32 or 64 k) a unit of one
-// 16-byte chunk (32 k, one mma): thread q reads its bytes 4q .. 4q + 3.
-// Fragment row (and token column) g reads box row 8i + a8_row<RW>(g), so
-// that the reads of a quarter-warp (RW 16) or of the warp (RW 4) fall on
-// distinct banks. A unit never spans two scale groups, and the warps
-// split k by whole groups, so a group's int32 partial is whole in its
-// accumulator when the group ends: it is shifted down by 4 (exact),
-// converted, multiplied by the group's scale with one rounding
-// (__fmul_rn: no fma contraction, the plain twin's rounded product) and
-// added to the fp32 sum. Only the order of the sum over the groups then
-// differs from the twin (quant_matmul.py `_w4a8_fp32`).
+// The weight-fragment policy (A8Warp's FLAT) says where a thread finds
+// those words. Stripes (w4a8_matmul_tiled, the fused MLP's gate/up): a
+// weight box holds channel rows of packed W4 (128 bytes, 256 k, a row),
+// so a word is four consecutive bytes of one row. A unit is the k a
+// thread reads at once from each of its rows: RW = 16 bytes (groups of a
+// multiple of 128 k) make a unit of 64 packed bytes (128 k, four mma):
+// thread q reads chunk 4u + q of the 128-byte row, and word i of it
+// feeds mma i; RW = 4 (groups of 32 or 64 k) a unit of one 16-byte chunk
+// (32 k, one mma): thread q reads its bytes 4q .. 4q + 3. Fragment row
+// (and token column) g reads box row 8i + a8_row<RW>(g), so that the
+// reads of a quarter-warp (RW 16) or of the warp (RW 4) fall on distinct
+// banks.
+//
+// Flat (w4a8_matmul): the reference's K-major layout, a weight box of
+// 128 packed rows x 128 channels, so consecutive bytes are consecutive
+// channels. Thread (g, q) owns the 2 MT consecutive channels c0 + 2 MT g
+// .. + 2 MT - 1 (W4A16's ownership): column jj is fragment row g + 8
+// (jj % 2) of m-tile jj / 2. mma i of unit u covers the 16 packed rows
+// of chunk NW u + i (NW = RW / 4 mma a unit, as above), and thread q
+// reads its rows 4q .. 4q + 3 there (2 MT bytes each); a 4 x 4 byte
+// transpose (__byte_perm) per 4 channels turns them into one word of
+// four consecutive packed bytes a channel. B is bytes 4q .. 4q + 3 of
+// the chunk in he / ho for token row 8i + g, on distinct banks across
+// the warp. The weight reads of q and q + 2 share a swizzle phase (2-way
+// bank conflicts); an order of the rows that avoids them read no faster
+// on an H100 (PERF.md §6).
+//
+// A unit never spans two scale groups, and the warps split k by whole
+// groups, so a group's int32 partial is whole in its accumulator when
+// the group ends: it is shifted down by 4 (exact), converted, multiplied
+// by the group's scale with one rounding (__fmul_rn: no fma contraction,
+// the plain twin's rounded product) and added to the fp32 sum. Only the
+// order of the sum over the groups then differs from the twin
+// (quant_matmul.py `_w4a8_fp32`).
 
 template <int RW>
 __host__ __device__ constexpr int a8_row(int g) {
@@ -301,18 +321,42 @@ __device__ __forceinline__ void ld_words(uint32_t (&v)[RW / 4],
   }
 }
 
+// 4 x 4 byte transpose: v[t] holds four channels' bytes of packed row t
+// → x[c] the four rows' bytes of channel c, row 0 in the low byte
+__device__ __forceinline__ void transpose4(const uint32_t (&v)[4],
+                                           uint32_t* x) {
+  const uint32_t t01l = __byte_perm(v[0], v[1], 0x5140);
+  const uint32_t t01h = __byte_perm(v[0], v[1], 0x7362);
+  const uint32_t t23l = __byte_perm(v[2], v[3], 0x5140);
+  const uint32_t t23h = __byte_perm(v[2], v[3], 0x7362);
+  x[0] = __byte_perm(t01l, t23l, 0x5410);
+  x[1] = __byte_perm(t01l, t23l, 0x7632);
+  x[2] = __byte_perm(t01h, t23h, 0x5410);
+  x[3] = __byte_perm(t01h, t23h, 0x7632);
+}
+
 // One consumer warp's W4A8 state: ai the int32 partials (16 x) of its
 // current group, af the fp32 sums of the groups done, for its TPW token
-// tiles (from tile t0) x MT m-tiles; c0 the warp's first channel row of
-// the box.
-template <int TT, int RW, int CB = BN>
+// tiles (from tile t0) x MT m-tiles; c0 the warp's first channel of the
+// box; FLAT the weight-fragment policy (above).
+template <int TT, int RW, int CB = BN, bool FLAT = false>
 struct A8Warp {
   static constexpr int MT = A8<TT, CB>::MT;
   static constexpr int TPW = A8<TT, CB>::TPW;
   static constexpr int NW = RW / 4;      // mma k-steps of a unit
+  static_assert(!FLAT || (CB == BN && (MT == 2 || MT == 4)),
+                "flat fragments: 4 or 8 channels a thread");
   int t0;
   int ai[TPW][MT][4];
   float af[TPW][MT][4];
+
+  // the token row of fragment column g in its tile, and the box channel
+  // of fragment row g + 8 h of m-tile mt
+  __device__ static int trow(int g) { return FLAT ? g : a8_row<RW>(g); }
+  __device__ static int chan(int c0, int mt, int h, int g) {
+    return FLAT ? c0 + 2 * MT * g + 2 * mt + h
+                : c0 + 16 * mt + 8 * h + a8_row<RW>(g);
+  }
 
   __device__ __forceinline__ void clear(int tile0) {
     t0 = tile0;
@@ -332,6 +376,17 @@ struct A8Warp {
   __device__ __forceinline__ void unit(const uint8_t* w, const uint8_t* he,
                                        const uint8_t* ho, int c0, int u,
                                        int g, int q) {
+    if constexpr (FLAT)
+      unit_flat(w, he, ho, c0, u, g, q);
+    else
+      unit_stripe(w, he, ho, c0, u, g, q);
+  }
+
+  // unit u of a stripe weight box (128 channel rows of 128 packed bytes)
+  __device__ __forceinline__ void unit_stripe(const uint8_t* w,
+                                              const uint8_t* he,
+                                              const uint8_t* ho, int c0,
+                                              int u, int g, int q) {
     const int chunk = RW == 16 ? 4 * u + q : u;
     const int off = RW == 16 ? 0 : 4 * q;
     const int rg = a8_row<RW>(g);
@@ -365,14 +420,67 @@ struct A8Warp {
     }
   }
 
+  // unit u of a flat weight box (128 packed rows of 128 channels)
+  __device__ __forceinline__ void unit_flat(const uint8_t* w,
+                                            const uint8_t* he,
+                                            const uint8_t* ho, int c0, int u,
+                                            int g, int q) {
+    constexpr int CPT = 2 * MT;            // channels a thread
+    const int col = c0 + CPT * g;
+    // the thread's four rows of chunk 0; the swizzle repeats every 8
+    // rows, so chunk c adds 2048 c
+    int off[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      off[t] = hopper::swz128(4 * q + t, col >> 4) + (col & 15);
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int chunk = NW * u + i;
+      const uint8_t* wc = w + 2048 * chunk;
+      uint32_t x[CPT];
+      if constexpr (MT == 4) {
+        uint32_t v0[4], v1[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const uint2 d = *reinterpret_cast<const uint2*>(wc + off[t]);
+          v0[t] = d.x;
+          v1[t] = d.y;
+        }
+        transpose4(v0, x);
+        transpose4(v1, x + 4);
+      } else {
+        uint32_t v[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          v[t] = *reinterpret_cast<const uint32_t*>(wc + off[t]);
+        transpose4(v, x);
+      }
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = lo16(x[2 * mt]);
+        a[mt][1] = lo16(x[2 * mt + 1]);
+        a[mt][2] = hi16(x[2 * mt]);
+        a[mt][3] = hi16(x[2 * mt + 1]);
+      }
+#pragma unroll
+      for (int t = 0; t < TPW; ++t) {
+        const uint32_t at = hopper::swz128(8 * (t0 + t) + g, chunk) + 4 * q;
+        const uint32_t e = *reinterpret_cast<const uint32_t*>(he + at);
+        const uint32_t o = *reinterpret_cast<const uint32_t*>(ho + at);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_s8(ai[t][mt], a[mt], e, o);
+      }
+    }
+  }
+
   // the current group ends: sc holds its scales of the box's CB channels
   __device__ __forceinline__ void flush(const float* sc, int c0, int g) {
-    const int rg = a8_row<RW>(g);
     float s[MT][2];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) s[mt][h] = sc[c0 + 16 * mt + 8 * h + rg];
+      for (int h = 0; h < 2; ++h) s[mt][h] = sc[chan(c0, mt, h, g)];
 #pragma unroll
     for (int t = 0; t < TPW; ++t)
 #pragma unroll
@@ -405,8 +513,7 @@ struct A8Warp {
   }
 
   // output (token, channel) of accumulator element (t, mt, e): tok =
-  // 8 (t0 + t) + a8_row(2 q + e % 2), channel c0 + 16 mt + 8 (e / 2) +
-  // a8_row(g)
+  // 8 (t0 + t) + trow(2 q + e % 2), channel chan(c0, mt, e / 2, g)
   template <typename F>
   __device__ __forceinline__ void each(int c0, int g, int q, F f) const {
 #pragma unroll
@@ -415,8 +522,8 @@ struct A8Warp {
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          f(8 * (t0 + t) + a8_row<RW>(2 * q + (e & 1)),
-            c0 + 16 * mt + 8 * (e >> 1) + a8_row<RW>(g), af[t][mt][e]);
+          f(8 * (t0 + t) + trow(2 * q + (e & 1)), chan(c0, mt, e >> 1, g),
+            af[t][mt][e]);
   }
 };
 

@@ -44,13 +44,13 @@ SIGNATURES = {
         [_P] * 10 + [_I] * 8 + [_F, _I, _F, _F, _P],
     "aurora_ragged_decode_int4":
         [_P] * 13 + [_I] * 8 + [_F, _I] + [_F] * 4 + [_P],
-    "aurora_w4a8_flat_matmul":
-        [_P] * 7 + [_I] * 6 + [_P],
     # weight streamers: ..., part, tickets, B, K, N[, G], span, nsplit,
     # flags, stream
     "aurora_w4a16_matmul":
         [_P] * 6 + [_I] * 8 + [_P],
     "aurora_w4a8_matmul":
+        [_P] * 9 + [_I] * 8 + [_P],
+    "aurora_w4a8_flat_matmul":
         [_P] * 9 + [_I] * 8 + [_P],
     # ..., part, out, B, D, I, G, Gd, ti, flags, stream
     "aurora_fused_mlp_w4":
@@ -63,6 +63,8 @@ SIGNATURES = {
     "aurora_w4a16_kernel":
         [_I, _I, _P, _P, _P],
     "aurora_w4a8_kernel":
+        [_I, _I, _P, _P, _P],
+    "aurora_w4a8_flat_kernel":
         [_I, _I, _P, _P, _P],
     # B, D, ti, Ib, group, down group, int* cluster size, int* channels
     "aurora_fused_mlp_cluster":

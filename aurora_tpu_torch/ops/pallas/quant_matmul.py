@@ -33,9 +33,9 @@ csrc/w8a8_matmul.cu; the W4A8 ones and the fused MLP also quantize the
 activations on the card); it never falls back from one to the other.
 `.launches` and `_plain.calls` count each path.
 
-`w4a8_matmul_tiled`, `w8a8_matmul` and `w4a16_matmul` are tensor-core
-weight streamers (csrc/weight_stream.cuh): a grid of (column tile, K
-split) blocks that `weight_plan` picks on the host, whose splits meet
+`w4a8_matmul_tiled`, `w4a8_matmul`, `w8a8_matmul` and `w4a16_matmul` are
+tensor-core weight streamers (csrc/weight_stream.cuh): a grid of (column
+tile, K split) blocks that `weight_plan` picks on the host, whose splits meet
 through a partial-sum scratch and a ticket per column tile that are kept
 per device (`_stream_buffers`), so launches of one of them on one device
 must not overlap (one stream; a CUDA graph replays them in order).
@@ -508,7 +508,8 @@ _resident: dict = {}
 # (rows, [group,] kernel, shared bytes, blocks an SM)
 _OCCUPANCY = {"w8a8_matmul": ("aurora_w8a8_kernel", False),
               "w4a16_matmul": ("aurora_w4a16_kernel", True),
-              "w4a8_matmul_tiled": ("aurora_w4a8_kernel", True)}
+              "w4a8_matmul_tiled": ("aurora_w4a8_kernel", True),
+              "w4a8_matmul": ("aurora_w4a8_flat_kernel", True)}
 
 
 def _blocks_per_sm(name: str, B: int, group: int) -> int:
@@ -583,13 +584,14 @@ def _flat_shapes(name, h, pk, s_w):
     return h.shape[0], h.shape[1], pk.shape[2], pk.shape[0]
 
 
-def _flat_kernel_shapes(name, pk, N, group_rows=8):
-    """The flat kernels read 4 columns at a time, and groups of a
-    multiple of `group_rows` input rows (W4A8: 8; W4A16's mma steps: 16)."""
-    if N % 4 or (2 * pk.shape[1]) % group_rows:
-        raise ValueError(f"{name}: the CUDA kernel takes N % 4 == 0 and "
-                         f"groups of a multiple of {group_rows} rows; got "
-                         f"N={N}, group={2 * pk.shape[1]}")
+def _w4a8_group(name, K, G):
+    """The group of K/G rows the W4A8 streamer takes: 32·2^i (its units
+    are whole int8 mma k-steps of 32 k, its groups a power of two)."""
+    group = K // G if G and K % G == 0 else 0
+    if K % 32 or group < 32 or group & (group - 1):
+        raise ValueError(f"{name}: the CUDA kernel takes K % 32 == 0 and "
+                         f"groups of 32·2^i rows; got K={K}, G={G}")
+    return group
 
 
 def _launch(name, err):
@@ -635,10 +637,7 @@ def w4a8_matmul_tiled(h, packed, scale, *, out_dtype=None):
                           ("scale", scale, torch.float32)), out_dtype)
     B, K = h.shape
     N, G = scale.shape
-    group = K // G if G and K % G == 0 else 0
-    if K % 32 or group < 32 or group & (group - 1):
-        raise ValueError(f"{name}: the CUDA kernel takes K % 32 == 0 and "
-                         f"groups of 32·2^i rows; got K={K}, G={G}")
+    group = _w4a8_group(name, K, G)
     scratch, he, ho, s_a = _act_scratch(h)
     out = torch.empty((B, N), dtype=out_dtype, device=h.device)
     span, nsplit, part, tickets = _stream_grid(name, h.device, B, N, K,
@@ -749,7 +748,10 @@ def w4a8_matmul(h, pk, s_w, *, out_dtype=None):
     """[B, K] float × flat W4 (packed [G, g/2, N] int8, scales [G, 1, N]
     fp32, the reference's layout) → [B, N] in out_dtype (default h's):
     the reference's `w4a8_matmul`, i.e. the W4A8 recipe of
-    `w4a8_matmul_tiled` on K-major bytes. B ≤ 64 on the card."""
+    `w4a8_matmul_tiled` on K-major bytes. B ≤ 64, N % 4 == 0 and groups
+    of 32·2^i rows on the card, where the kernel streams the weights once
+    for all rows; its launches on one device must not overlap (the
+    module's docstring)."""
     name = "w4a8_matmul"
     B, K, N, G = _flat_shapes(name, h, pk, s_w)
     out_dtype = out_dtype or h.dtype
@@ -759,14 +761,19 @@ def w4a8_matmul(h, pk, s_w, *, out_dtype=None):
         raise ValueError(f"{name}: unsupported device {h.device}")
     _check_cuda(name, h, (("h", h, None), ("packed", pk, torch.int8),
                           ("scale", s_w, torch.float32)), out_dtype)
-    _flat_kernel_shapes(name, pk, N)
+    group = _w4a8_group(name, K, G)
+    if N % 4:
+        raise ValueError(f"{name}: the CUDA kernel takes N % 4 == 0; got "
+                         f"N={N}")
     scratch, he, ho, s_a = _act_scratch(h)
     out = torch.empty((B, N), dtype=out_dtype, device=h.device)
+    span, nsplit, part, tickets = _stream_grid(name, h.device, B, N, K,
+                                               group)
     from aurora_tpu_torch.ops.cuda_build import load_library
     _launch(name, load_library().aurora_w4a8_flat_matmul(
         h.data_ptr(), pk.data_ptr(), s_w.data_ptr(), he, ho, s_a,
-        out.data_ptr(), B, K, N, G, int(h.dtype == torch.float32),
-        int(out_dtype == torch.float32),
+        out.data_ptr(), part, tickets, B, K, N, G, span, nsplit,
+        int(h.dtype == torch.float32), int(out_dtype == torch.float32),
         torch.cuda.current_stream(h.device).cuda_stream))
     w4a8_matmul.launches += 1
     return out
@@ -791,7 +798,10 @@ def w4a16_matmul(h, pk, s_w, *, out_dtype=None):
         raise ValueError(f"{name}: unsupported device {h.device}")
     _check_cuda(name, h, (("h", h, None), ("packed", pk, torch.int8),
                           ("scale", s_w, torch.float32)), out_dtype)
-    _flat_kernel_shapes(name, pk, N, group_rows=16)
+    if N % 4 or (2 * pk.shape[1]) % 16:
+        raise ValueError(f"{name}: the CUDA kernel takes N % 4 == 0 and "
+                         f"groups of a multiple of 16 rows; got N={N}, "
+                         f"group={2 * pk.shape[1]}")
     out = torch.empty((B, N), dtype=out_dtype, device=h.device)
     span, nsplit, part, tickets = _stream_grid(name, h.device, B, N, K,
                                                K // G)

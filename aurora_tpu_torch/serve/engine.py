@@ -87,9 +87,15 @@ class EngineConfig:
     # the reference's W4 decode layouts (its AURORA_W4_FUSED_MLP and
     # AURORA_W4_TILED): gateup/down as one fused-MLP kernel per layer; and
     # False keeps the W4 projections in the reference's flat layout. Both
-    # exist for parity with the reference: on an H100 both are slower per
-    # decode step than the default stripe layout with two MLP calls
-    # (PERF.md), which stays the default
+    # exist for parity with the reference. Measured on an "NVIDIA H100
+    # 80GB HBM3, 700.00 W" as CUDA-graph replays against the stripes
+    # (PERF.md §6): the fused MLP ties the stripes' two MLP calls at 4
+    # rows (0.0485 against 0.0483 ms a 7B layer) and takes 1.8x their
+    # time at 64 (0.1906 against 0.1080); the flat layout's W4A8 takes
+    # 1.06x the stripes' at 4 rows (0.0673 against 0.0638 ms over a 7B
+    # layer's four projections), 1.03x at 64, and 2.12 against 2.10 ms
+    # of W4A8 a decode step. The stripes, the reference's default, stay
+    # the default
     w4_fused_mlp: bool = False
     w4_tiled: bool = True
 

@@ -71,7 +71,7 @@ _QUANT_MODES = {"w4kv8": ("int4", "int8", {}), "w8kv8": ("int8", "int8", {}),
                 "w4kv8-flat": ("int4", "int8", {"w4_tiled": False})}
 # decode kernel families: name → substrings of the device kernels' names
 _FAMILIES = {"attention": ("decode_kernel", "extend_kernel"),
-             "w4a8": ("w4a8_kernel", "w4a8_flat_kernel"),
+             "w4a8": ("w4a8_kernel",),
              "fused_mlp": ("mlp_tile_kernel", "mlp_reduce"),
              "quantizer": ("quantize_rows",)}
 # dense matmul kernels (cuBLAS, CUTLASS), a part of "other"

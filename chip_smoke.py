@@ -1459,7 +1459,7 @@ def main():
                        *(f"ragged_decode_{m}_g{g}" for m in KV_MODES
                          for g in (1, 4)),
                        *(f"{k}_b{b}" for k in ("w8a8", "w4a16", "w4a8",
-                                                "fused_mlp")
+                                                "w4a8_flat", "fused_mlp")
                          for b in (8, 64)))}
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
           nvcc_seconds=f"{cuda_build.build_seconds:.1f}",
@@ -1836,7 +1836,7 @@ def main():
                      w4res[64]),
         # the same four projections in the flat layout (and at B 64);
         # launches from the flat-layout run
-        weight_entry("w4a8_matmul", "w4_flat_matmul.cu",
+        weight_entry("w4a8_matmul", "w4a8_matmul.cu",
                      "quant_matmul.py:204", launches["w4kv8-flat"][2],
                      flat_res[("w4a8", 4)], flat_res[("w4a8", 64)]),
         # no serving path calls it (nor the reference's): timed at the

@@ -32,9 +32,10 @@ two fp32 multiplies). The weight streamers (W8A8, W4A16) at B 1, 4, 8,
 9, 17, 64 with K 11008, N off the column tile (W4A16's packed rows then
 off 16-byte boundaries) and a split-K grid whose last split is short:
 W8A8 bitwise the twin's, W4A16 within 1e-5 and bitwise repeatable; the
-W4A8 streamer at B 1, 4, 9, 64 with groups of 32, 128 and 1024 the same
-way, within 1e-5; the three captured in one CUDA graph, whose replays
-equal the eager results. The fused W4 MLP: every output within the
+W4A8 streamers (stripe and flat layouts) at B 1, 4, 9, 64 with groups of
+32, 128 and 1024 the same way, within 1e-5, their bf16 output their fp32
+output rounded; the four captured in one CUDA graph, whose replays equal
+the eager results. The fused W4 MLP: every output within the
 bound `fused_mlp_w4_bound` derives (its fp32 control outside it), bitwise
 repeatable. The
 W8A8 path's one-launch quantizer: bitwise quantize_activations. Flash attention (bf16 in, the fp32 twin on the same bf16
@@ -291,8 +292,33 @@ def test_w4a8_flat_kernel_matches_plain_on_card(cuda_device, B, K, N):
     assert torch.equal(got, again)                   # deterministic
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
     assert got16.dtype == torch.bfloat16
-    bound = want.abs() * 2.0 ** -8 + 1e-5 * want.abs().max()
-    assert bool(((got16.float() - want).abs() <= bound).all())
+    assert torch.equal(got16, got.to(torch.bfloat16))
+
+
+# the flat W4A8 streamer as the stripe one above: every token-tile count,
+# groups of 32, 128 and 1024, N off the column tile (N % 16 == 4: the
+# packed rows then start off 16-byte boundaries and the weights come by
+# cp.async) and a split grid whose last K split is short
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1028, 4096])
+@pytest.mark.parametrize("K,group", [(11008, 128), (4096, 32), (8192, 1024)])
+@pytest.mark.parametrize("B", [1, 4, 9, 64])
+def test_w4a8_flat_kernel_rows_groups_and_splits_on_card(cuda_device, B, K,
+                                                         group, N):
+    gen = torch.Generator(device=cuda_device).manual_seed(B + K + N + group)
+    pk, s = tqm.w4_to_flat(*_stripe_w4(gen, cuda_device, K, N, group))
+    if N == 4096 and group == 128:
+        assert _short_last_split(cuda_device, N, K, group)
+    h = torch.randn((B, K), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    got = tqm.w4a8_matmul(h, pk, s, out_dtype=torch.float32)
+    again = tqm.w4a8_matmul(h, pk, s, out_dtype=torch.float32)
+    got16 = tqm.w4a8_matmul(h, pk, s)
+    want = tqm.w4a8_matmul_plain(h, pk, s, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert torch.equal(got16, got.to(torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -371,7 +397,7 @@ def test_w4a16_kernel_rows_and_splits_on_card(cuda_device, B, N):
 
 @pytest.mark.cuda
 def test_weight_streamers_replay_in_a_cuda_graph_on_card(cuda_device):
-    """One capture of the three streamers (split grids, so the
+    """One capture of the four streamers (split grids, so the
     per-device scratch and tickets are in the graph): each replay equals
     the eager result bitwise."""
     from aurora_tpu_torch.serve.engine import _w8
@@ -388,7 +414,8 @@ def test_weight_streamers_replay_in_a_cuda_graph_on_card(cuda_device):
         return (tqm.w8a8_matmul(h8, s_a, w8, s_w),
                 tqm.w4a16_matmul(h, pk, s, out_dtype=torch.float32),
                 tqm.w4a8_matmul_tiled(h, packed, scale,
-                                      out_dtype=torch.float32))
+                                      out_dtype=torch.float32),
+                tqm.w4a8_matmul(h, pk, s, out_dtype=torch.float32))
 
     eager = step()
     graph = torch.cuda.CUDAGraph()

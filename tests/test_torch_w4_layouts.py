@@ -101,6 +101,163 @@ def test_w4a8_flat_plain_matches_jax_kernel(B):
                                **MM_TOL)
 
 
+# ---- the flat W4A8 kernel's fragment map (csrc/weight_stream.cuh
+# `A8Warp` with FLAT, csrc/w4a8_matmul.cu), emulated in numpy: the
+# byte addresses of the 128-byte swizzle, the 4 x 4 byte transposes,
+# the int8 mma m16n8k32 fragments and the channel / token maps that
+# `flush` and `each` use
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm (selectors 0-7) on uint32 arrays."""
+    b = (np.asarray(y, np.uint64) << np.uint64(32)) | np.asarray(x,
+                                                                 np.uint64)
+    sel = np.broadcast_to(np.asarray(sel, np.uint64), b.shape)
+    out = np.zeros(b.shape, np.uint64)
+    for i in range(4):
+        idx = (sel >> np.uint64(4 * i)) & np.uint64(7)
+        out |= ((b >> (np.uint64(8) * idx)) & np.uint64(0xFF)) \
+            << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _swz128(r, chunk):
+    return r * 128 + ((chunk ^ (r & 7)) * 16)
+
+
+def _word(mem, off, nbytes=4):
+    """Little-endian words of nbytes at byte offsets off [lanes] of a
+    shared-memory image → [lanes, nbytes // 4] uint32."""
+    idx = np.asarray(off)[:, None] + np.arange(nbytes)
+    b = mem[idx].astype(np.uint32).reshape(len(off), nbytes // 4, 4)
+    return (b << (np.arange(4, dtype=np.uint32) * 8)).sum(-1,
+                                                          dtype=np.uint32)
+
+
+def _bytes(w):
+    """uint32 words [...] → their 4 bytes as signed int8 [..., 4]."""
+    return ((np.asarray(w, np.uint32)[..., None]
+             >> (np.arange(4, dtype=np.uint32) * 8)) & 0xFF
+            ).astype(np.uint8).view(np.int8)
+
+
+def _flat_kernel_partials(pk, he, ho, B):
+    """16 x the int32 group partials [B, G, N] as the flat W4A8 kernel
+    forms them: per column tile of 128 and stage of 256 k, the weight box
+    and the plane boxes in their swizzled shared-memory places, then
+    every consumer warp's units of its groups, mma by mma."""
+    G, gh, N = pk.shape
+    K2 = G * gh
+    group = 2 * gh
+    TT = 1 if B <= 8 else 2 if B <= 16 else 4 if B <= 32 else 8
+    MT = 4 if TT == 1 else 2
+    TW = 2 if TT == 8 else 1
+    TPW, CW = TT // TW, 128 // (16 * MT)
+    KW = 8 // (CW * TW)
+    NW = 4 if group % 128 == 0 else 1
+    flat = pk.reshape(K2, N).view(np.uint8)
+    lane = np.arange(32)
+    g, q = lane >> 2, lane & 3
+    rows = np.zeros((8 * TT, K2), np.uint8)
+    out = np.zeros((B, G, N), np.int64)
+    for n0 in range(0, N, 128):
+        for kc in range(0, 2 * K2, 256):
+            p0, np_ = kc // 2, min(128, K2 - kc // 2)
+            wbox = np.zeros(128 * 128, np.uint8)
+            ebox = np.zeros(8 * TT * 128, np.uint8)
+            obox = np.zeros(8 * TT * 128, np.uint8)
+            for p in range(np_):
+                for c in range(min(128, N - n0)):
+                    wbox[_swz128(p, c >> 4) + (c & 15)] = flat[p0 + p,
+                                                               n0 + c]
+                for t in range(B):
+                    a = _swz128(t, p >> 4) + (p & 15)
+                    ebox[a] = he[t, p0 + p]
+                    obox[a] = ho[t, p0 + p]
+            for warp in range(8):
+                cw, tw, kw = warp % CW, (warp // CW) % TW, warp // (CW * TW)
+                c0, t0 = cw * MT * 16, tw * TPW
+                col = c0 + 2 * MT * g
+                off = [_swz128(4 * q + t, col >> 4) + (col & 15)
+                       for t in range(4)]
+                for u in range(256 // (32 * NW)):
+                    k = kc + u * 32 * NW
+                    grp = k // group
+                    if k >= 2 * K2 or grp % KW != kw:
+                        continue
+                    for i in range(NW):
+                        chunk = NW * u + i
+                        v = np.stack([_word(wbox, 2048 * chunk + off[t],
+                                            2 * MT) for t in range(4)])
+                        x = []
+                        for half in range(MT // 2):
+                            t01l = _byte_perm(v[0, :, half], v[1, :, half],
+                                              0x5140)
+                            t01h = _byte_perm(v[0, :, half], v[1, :, half],
+                                              0x7362)
+                            t23l = _byte_perm(v[2, :, half], v[3, :, half],
+                                              0x5140)
+                            t23h = _byte_perm(v[2, :, half], v[3, :, half],
+                                              0x7362)
+                            x += [_byte_perm(t01l, t23l, 0x5410),
+                                  _byte_perm(t01l, t23l, 0x7632),
+                                  _byte_perm(t01h, t23h, 0x5410),
+                                  _byte_perm(t01h, t23h, 0x7632)]
+                        lo = [(xw << np.uint32(4)) & np.uint32(0xF0F0F0F0)
+                              for xw in x]
+                        hi = [xw & np.uint32(0xF0F0F0F0) for xw in x]
+                        for t in range(TPW):
+                            at = _swz128(8 * (t0 + t) + g, chunk) + 4 * q
+                            e = _bytes(_word(ebox, at)[:, 0])
+                            o = _bytes(_word(obox, at)[:, 0])
+                            bm = np.zeros((32, 8), np.int64)
+                            bm[4 * q[:, None] + np.arange(4), g[:, None]] = e
+                            bm[16 + 4 * q[:, None] + np.arange(4),
+                               g[:, None]] = o
+                            for mt in range(MT):
+                                am = np.zeros((16, 32), np.int64)
+                                kk = 4 * q[:, None] + np.arange(4)
+                                am[g[:, None], kk] = _bytes(lo[2 * mt])
+                                am[g[:, None] + 8, kk] = _bytes(lo[2 * mt + 1])
+                                am[g[:, None], 16 + kk] = _bytes(hi[2 * mt])
+                                am[g[:, None] + 8, 16 + kk] = _bytes(
+                                    hi[2 * mt + 1])
+                                d = am @ bm           # [16 rows, 8 tokens]
+                                # each: row r -> channel chan(c0, mt, r // 8,
+                                # r % 8), column c -> token 8 (t0 + t) + c
+                                r = np.arange(16)
+                                ch = n0 + c0 + 2 * MT * (r % 8) + 2 * mt \
+                                    + r // 8
+                                for c in range(8):
+                                    tok = 8 * (t0 + t) + c
+                                    keep = (ch < N) & (tok < B)
+                                    if tok < B:
+                                        out[tok, grp, ch[keep]] += d[keep, c]
+    return out
+
+
+@pytest.mark.parametrize("B,K,N,group", [(3, 512, 192, 128),
+                                         (12, 512, 256, 32),
+                                         (5, 768, 128, 64)])
+def test_w4a8_flat_kernel_fragment_map_gives_exact_partials(B, K, N, group):
+    """The flat W4A8 kernel's index map, emulated, against the twin's
+    exact int32 group partials (`_w4a8_terms` with unit scales): 8 and 4
+    channels a thread (B 3: one token tile, B 12: two), units of four mma
+    (groups of 128) and of one (32, 64), a column tile past N."""
+    rng = np.random.default_rng(K + group)
+    q4 = rng.integers(-8, 8, size=(K, N))
+    pk = _np(tqm.w4_pack(torch.from_numpy(q4.T.copy())).t().contiguous()
+             .reshape(K // group, group // 2, N))
+    h = torch.from_numpy(_h(rng, B, K))
+    h8, _ = tqm.quantize_activations(h)
+    h8 = _np(h8)
+    got = _flat_kernel_partials(pk, h8[:, 0::2], h8[:, 1::2], B)
+    ones = torch.ones((K // group, 1, N), dtype=torch.float32)
+    terms, _ = tqm._w4a8_terms(h, torch.from_numpy(pk), ones)
+    want = _np(terms).astype(np.int64)
+    assert np.array_equal(got, 16 * want)
+
+
 def test_w4dot_flat_above_64_tokens_dequantizes_like_jax():
     rng = np.random.default_rng(9)
     pk, s = _flat(rng, D, 512)
@@ -388,7 +545,8 @@ def test_profile_serve_fused_mlp_runs_on_cpu(tmp_path, capsys):
     assert set(res["decode_ms_per_step_by_family"]) == {
         "attention", "w4a8", "fused_mlp", "quantizer", "other"}
     events = [("mlp_tile_kernel", 0.0, 30.0), ("quantize_rows<bf16>", 0, 2.0),
-              ("w4a8_flat_kernel<bf16>", 0, 8.0), ("elementwise", 0, 4.0)]
+              ("w4a8_kernel<1, 16, true, __nv_bfloat16>", 0, 8.0),
+              ("elementwise", 0, 4.0)]
     assert profile_serve.family_ms(events, 2) == {
         "attention": 0.0, "w4a8": 0.004, "fused_mlp": 0.015,
         "quantizer": 0.001, "other": 0.002}

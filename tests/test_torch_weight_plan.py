@@ -90,11 +90,11 @@ def test_weight_plan_w4a8_grid_at_the_7b_projections(N, K, blocks_per_sm):
     assert cols * nsplit <= max(cols, H100_SMS * blocks_per_sm)
 
 
-@pytest.mark.parametrize("name", ["w4a8_matmul", "fused_mlp_w4", "w8a8"])
+@pytest.mark.parametrize("name", ["quantize_rows", "fused_mlp_w4", "w8a8"])
 def test_blocks_per_sm_names_each_streamer(name):
     """Each weight streamer has its own occupancy entry; any other name
     raises before the kernel library is touched."""
     assert set(qm._OCCUPANCY) == {"w8a8_matmul", "w4a16_matmul",
-                                  "w4a8_matmul_tiled"}
+                                  "w4a8_matmul_tiled", "w4a8_matmul"}
     with pytest.raises(ValueError, match="not a weight streamer"):
         qm._blocks_per_sm(name, 4, 128)
