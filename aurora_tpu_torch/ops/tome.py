@@ -6,7 +6,11 @@ of the merge metric); the r best proposals merge into their targets by a
 size-weighted sum; with class_token the CLS token never merges and the
 surviving A tokens are kept in ascending order. The proposal ranking is
 a stable descending sort, so merge indices equal the reference's exactly
-for the same metric. Only the bipartite variant is ported.
+for the same metric. The merge adds the tokens into their targets in
+a fixed order, on every device: on the card scatter_add's atomics add
+them in any order, and the bf16 sums then differ from run to run, which
+later layers' rankings turn into other merges. Only the bipartite
+variant is ported.
 """
 
 from __future__ import annotations
@@ -70,6 +74,17 @@ def _gather_tokens(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+def _merge_add(b: torch.Tensor, idx: torch.Tensor,
+               src: torch.Tensor) -> torch.Tensor:
+    """b.scatter_add(1, idx, src) for rows b [B, tB, C], idx [B, r], src
+    [B, r, C]: the sums in fp32, as a product with idx's one-hot, rounded
+    to b's dtype once. A matmul adds in the same order on every call,
+    where scatter_add's atomics on the card do not."""
+    onehot = torch.zeros(*idx.shape, b.shape[1], dtype=torch.float32,
+                         device=b.device).scatter_(2, idx[..., None], 1.0)
+    return (b.float() + onehot.transpose(1, 2) @ src.float()).to(b.dtype)
+
+
 def apply_merge(x: torch.Tensor, unm_idx: torch.Tensor,
                 src_idx: torch.Tensor, dst_idx: torch.Tensor
                 ) -> torch.Tensor:
@@ -77,9 +92,7 @@ def apply_merge(x: torch.Tensor, unm_idx: torch.Tensor,
     a, b = x[:, 0::2], x[:, 1::2]
     unm = _gather_tokens(a, unm_idx)
     src = _gather_tokens(a, src_idx).to(b.dtype)
-    dst = b.scatter_add(
-        1, dst_idx[..., None].expand(-1, -1, x.shape[-1]), src)
-    return torch.cat([unm, dst], dim=1)
+    return torch.cat([unm, _merge_add(b, dst_idx, src)], dim=1)
 
 
 def bipartite_soft_matching(metric: torch.Tensor, r: int,

@@ -24,16 +24,26 @@ The module splits
 A config's sliding window (Mistral: the same width in every layer) and
 attention logit softcap go into both attention kernels.
 
-Not ported yet (each raises NotImplementedError when asked for): the
-radix prefix cache and slot pool, chunked/interleaved prefill, jump-
-forward and constrained decoding, stop strings, tensor parallelism, and
-the other model families (MLA, MoE, Gemma2's alternating windows).
+Prefix caching, the reference's default: finished prompts' KV is copied
+from the rows into a token-granular slot pool (serve/kv_pool.py) and
+indexed by a radix tree over their token ids (the C++ tree of
+aurora_tpu_torch/native, else serve/radix_cache.py); an admitted request
+whose prompt starts with a cached prefix has that prefix copied into its
+row (`_load_prefix`) and extends only the rest. `disable_radix_cache=True`
+is the reference's ChunkCache mode: every prompt extends from position 0.
+
+Not ported yet (each raises NotImplementedError when asked for): chunked/
+interleaved prefill, jump-forward and constrained decoding, stop strings,
+tensor parallelism, and the other model families (MLA, MoE, Gemma2's
+alternating windows).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import subprocess
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -61,6 +71,9 @@ from aurora_tpu_torch.ops.pallas.ragged_attention import (
     PACK_SEG, blend_nibbles, kv_quantize as _kv_quantize, packed_slot,
     ragged_attention, ragged_decode_attention)
 from aurora_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from aurora_tpu_torch.native import NativeRadixCache
+from aurora_tpu_torch.serve.kv_pool import KVPool, SlotAllocator
+from aurora_tpu_torch.serve.radix_cache import NullPrefixCache, RadixCache
 from aurora_tpu_torch.serve.scheduler import (FinishReason, Request,
                                               Scheduler, SchedulePolicy)
 
@@ -68,10 +81,25 @@ _TOPK_LOGPROBS = 5  # top alternatives returned per sampled token
 _MAX_TOPK = 256     # sampling candidate bound (see _sample_core)
 
 
+def make_radix(free_slots):
+    """→ (tree, "native" or "python", why the C++ tree failed or None):
+    the C++ radix tree unless AURORA_NATIVE_RADIX=0, else, or when it
+    cannot be built or loaded, the Python one (the reference's
+    `_make_radix`, which falls back silently; the engine keeps the name
+    as `radix_impl` and the failure as `radix_error`)."""
+    if os.environ.get("AURORA_NATIVE_RADIX", "1") != "0":
+        try:
+            return NativeRadixCache(free_slots=free_slots), "native", None
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            return RadixCache(free_slots=free_slots), "python", str(e)
+    return RadixCache(free_slots=free_slots), "python", None
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     max_batch: int = 8
     max_seq_len: int = 2048          # per-request KV row capacity
+    num_slots: int = 8192            # radix-cache pool (prefix KV only)
     prefill_buckets: Tuple[int, ...] = (32, 128, 512, 2048)
     policy: SchedulePolicy = SchedulePolicy.LPM
     kv_dtype: Any = torch.bfloat16
@@ -80,9 +108,9 @@ class EngineConfig:
     kv_quant: str = "none"
     weight_quant: str = "none"
     tp: int = 1
-    # the port runs the reference's ChunkCache mode only: every request
-    # prefills from scratch and no prompt KV is cached
-    disable_radix_cache: bool = True
+    # True: the reference's ChunkCache passthrough, every request
+    # prefills from scratch and no prompt KV is copied into the pool
+    disable_radix_cache: bool = False
     max_extend_lanes: int = 16       # lanes per extend sub-wave
     # the reference's W4 decode layouts (its AURORA_W4_FUSED_MLP and
     # AURORA_W4_TILED): gateup/down as one fused-MLP kernel per layer; and
@@ -113,10 +141,6 @@ class EngineConfig:
                                             or not self.w4_tiled):
             raise ValueError("w4_fused_mlp and w4_tiled are W4 layouts: "
                              "they need weight_quant='int4'")
-        if not self.disable_radix_cache:
-            raise NotImplementedError(
-                "the radix prefix cache and slot pool are not ported yet: "
-                "set disable_radix_cache=True")
 
     @property
     def s_row(self) -> int:
@@ -443,14 +467,22 @@ def _kv_write_index(row_ids, q_offsets, kv_lens, T: int, S: int,
     widx = KVWriteIndex(dev(lanes), dev(ts), dev(rows), dev(pos))
     if pack:
         prow, high = packed_slot(pos)
-        key = rows * (S // 2) + prow
-        uniq, inv = np.unique(key, return_inverse=True)
-        src = np.full((2, len(uniq)), -1, np.int64)
-        src[high.astype(np.int64), inv] = lanes * T + ts
+        uniq, src = _nibble_plan(rows * (S // 2) + prow, high,
+                                 lanes * T + ts)
         widx.byte_row, widx.byte_pos = dev(uniq // (S // 2)), \
             dev(uniq % (S // 2))
         widx.src_lo, widx.src_hi = dev(src[0]), dev(src[1])
     return widx
+
+
+def _nibble_plan(key, high, token):
+    """Packed bytes touched by tokens at byte keys `key` (high nibble where
+    `high`): → (each key once, sorted; [2, n] the token in its low / high
+    nibble, -1 where no token writes it)."""
+    uniq, inv = np.unique(key, return_inverse=True)
+    src = np.full((2, len(uniq)), -1, np.int64)
+    src[high.astype(np.int64), inv] = token
+    return uniq, src
 
 
 def _write_kv_window(rows, l: int, k, v, widx: KVWriteIndex,
@@ -475,6 +507,80 @@ def _write_kv_window(rows, l: int, k, v, widx: KVWriteIndex,
     if scales is not None:
         rows["ks"][l][at] = scales[0][new]
         rows["vs"][l][at] = scales[1][new]
+
+
+def _is_packed(rows) -> bool:
+    """Packed int4 rows: S/2 value rows beside full-S scale planes."""
+    return "ks" in rows and rows["k"].shape[3] * 2 == rows["ks"].shape[3]
+
+
+@torch.no_grad()
+def _load_prefix(rows, pool, slots, row: int, start: int, n_valid: int):
+    """Copy a radix-cached prefix chunk into row `row`, in place: position
+    start + i takes pool slot slots[i] for i < n_valid; every other
+    position, and positions past the row, stay as they are. rows / pool:
+    the engine's {"k", "v"(, "ks", "vs")} row buffers and pool planes.
+    Packed int4 rows take each token's nibble into its byte and keep the
+    mate nibble (the pool holds int4 grid values in int8). One gather from
+    the pool and one scatter into the row a plane, over all layers.
+    Returns rows."""
+    packed = _is_packed(rows)
+    S = rows["ks"].shape[3] if packed else rows["k"].shape[3]
+    n = min(int(n_valid), S - int(start))
+    if n <= 0:
+        return rows
+    dev = rows["k"].device
+    sl = torch.as_tensor(np.asarray(slots[:n], np.int64), device=dev)
+    pos = np.arange(start, start + n)
+    for name, buf in rows.items():
+        c = pool[name].index_select(1, sl).transpose(1, 2)  # [L, Hkv, n..]
+        dst = buf[:, row]
+        if packed and buf.dim() == 5:
+            prow, high = packed_slot(pos)
+            uniq, src = _nibble_plan(prow, high, np.arange(n))
+            at = torch.as_tensor(uniq, device=dev)
+            lo, hi = (torch.as_tensor(x, device=dev) for x in src)
+            x = c.permute(2, 0, 1, 3)                        # [n, L, Hkv, hd]
+            cur = dst.index_select(2, at).permute(2, 0, 1, 3)
+            new = blend_nibbles(cur, x[lo.clamp_min(0)], lo >= 0,
+                                x[hi.clamp_min(0)], hi >= 0)
+            dst.index_copy_(2, at, new.permute(1, 2, 0, 3))
+        else:
+            dst.index_copy_(2, torch.as_tensor(pos, device=dev),
+                            c.to(buf.dtype))
+    return rows
+
+
+@torch.no_grad()
+def _store_prompt(pool, rows, row: int, start: int, slots):
+    """Copy row `row`'s positions start + i into pool slot slots[i], in
+    place; a slot equal to the pool's size is padding and is dropped.
+    Packed int4 rows are unpacked (sign-extended nibbles) into the int8
+    pool. One gather from the row and one scatter into the pool a plane,
+    over all layers. Returns pool."""
+    packed = _is_packed(rows)
+    S = rows["ks"].shape[3] if packed else rows["k"].shape[3]
+    num_slots = pool["k"].shape[1]
+    slots = np.asarray(slots, np.int64)
+    keep = slots != num_slots
+    pos = np.clip(start + np.arange(len(slots)), 0, S - 1)[keep]
+    if not len(pos):
+        return pool
+    dev = rows["k"].device
+    sl = torch.as_tensor(slots[keep], device=dev)
+    for name, buf in rows.items():
+        src = buf[:, row]
+        if packed and buf.dim() == 5:
+            prow, high = packed_slot(pos)
+            b = src.index_select(2, torch.as_tensor(prow, device=dev))
+            b = b.to(torch.int32)
+            nib = torch.where(torch.as_tensor(high, device=dev)[:, None],
+                              b >> 4, b) & 0xF
+            x = ((nib ^ 8) - 8).to(torch.int8)
+        else:
+            x = src.index_select(2, torch.as_tensor(pos, device=dev))
+        pool[name].index_copy_(1, sl, x.transpose(1, 2).to(pool[name].dtype))
+    return pool
 
 
 def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
@@ -503,7 +609,7 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
     Bk, T, _ = x.shape
     hd = cfg.head_dim
     quant = "ks" in rows
-    kv_pack = quant and rows["k"].shape[3] * 2 == rows["ks"].shape[3]
+    kv_pack = _is_packed(rows)
     maxq = 7.0 if kv_pack else 127.0
     scales = dict(k_scales=rows.get("ks"), v_scales=rows.get("vs"),
                   kv_pack=kv_pack, window=cfg.sliding_window,
@@ -783,9 +889,23 @@ class ServeEngine:
         device = device if device is not None else \
             model.embed_tokens.device
         self.runner = DeviceRunner(model, cfg, ecfg, device, seed)
+        self.alloc = SlotAllocator(ecfg.num_slots)
+        self.radix_error = None
+        if ecfg.disable_radix_cache:
+            # nothing is ever stored or loaded: no pool on the device
+            self.pool = None
+            self.radix, self.radix_impl = NullPrefixCache(), "null"
+        else:
+            # int8 and int4 KV: an int8 pool with scale planes (int4 rows
+            # unpack into it: slots are token-granular, packing positional)
+            self.pool = KVPool(cfg, ecfg.num_slots, ecfg.kv_dtype,
+                               quant=ecfg.kv_quant in ("int8", "int4"),
+                               device=self.runner.device)
+            self.radix, self.radix_impl, self.radix_error = make_radix(
+                self.alloc.free)
         self.sched = Scheduler(ecfg.max_batch,
                                ecfg.max_batch * ecfg.max_seq_len,
-                               ecfg.policy)
+                               ecfg.policy, self.radix)
         self.row_reqs: List[Optional[Request]] = [None] * ecfg.max_batch
         self._done_buffer: List[Request] = []
         self._gen_total = 0
@@ -841,15 +961,34 @@ class ServeEngine:
             done.append(req)
         return done
 
+    def flush_cache(self) -> int:
+        """Drop every unlocked cached prefix; → the cached tokens left (those
+        of locked paths)."""
+        self.radix.evict(self.ecfg.num_slots)
+        return self.radix.total_cached_tokens()
+
+    def check_memory(self) -> Dict[str, int]:
+        """Pool accounting: free slots, cached tokens, tokens in the rows,
+        and `leaked` = slots neither free nor cached (0 unless slots leak)."""
+        cached = self.radix.total_cached_tokens()
+        free = self.alloc.available()
+        return {"free": free, "cached": cached,
+                "in_flight": sum(r.seq_len for r in self.row_reqs
+                                 if r is not None),
+                "leaked": self.ecfg.num_slots - free - cached}
+
     def decode_stats(self) -> Dict[str, float]:
-        """Running/queued counts, generated tokens per second since the
-        previous call (0.0 on the first) and the cumulative phase times."""
+        """Running/queued counts, the pool's used share, generated tokens per
+        second since the previous call (0.0 on the first) and the
+        cumulative phase times."""
         now = time.perf_counter()
         toks = self._gen_total
         last_t, last_n = getattr(self, "_stats_mark", (now, toks))
         self._stats_mark = (now, toks)
+        used = self.ecfg.num_slots - self.alloc.available()
         return {"running": len(self.sched.running),
                 "queued": len(self.sched.waiting),
+                "slot_usage": round(used / max(self.ecfg.num_slots, 1), 4),
                 "gen_tokens_per_s": round(
                     max(toks - last_n, 0) / max(now - last_t, 1e-9), 1),
                 "extend_s": round(self.t_extend_s, 3),
@@ -891,7 +1030,7 @@ class ServeEngine:
                 continue
             try:
                 self._prepare(req, row)
-            except ValueError as e:   # invalid request: abort only it
+            except Exception as e:  # noqa: BLE001 - abort only this request
                 self._abort_admission(req, row, e)
                 continue
             wave.append(req)
@@ -928,21 +1067,42 @@ class ServeEngine:
         req.error = str(e)
         if 0 <= row < len(self.row_reqs) and self.row_reqs[row] is req:
             self.row_reqs[row] = None
+        self._unlock(req)
         self.sched.aborted.append(req)
 
+    def _unlock(self, req: Request) -> None:
+        """Drop the prefix lock that _prepare took, if it took one (the LPM
+        pre-match sets prefix_node without a lock)."""
+        if req.prefix_locked:
+            self.radix.lock(req.prefix_node, -1)
+            req.prefix_locked = False
+        req.prefix_node = None
+
     def _prepare(self, req: Request, row: int) -> None:
-        """Claim a row and reset its sampler histograms (no prefix load:
-        every prompt extends from position 0)."""
+        """Claim a row: match the prompt again (LPM's pre-match held no
+        lock, so an eviction since may have freed its slots), lock the
+        prefix, copy it into the row, and reset the row's sampler
+        histograms. A full hit extends its last token again, so that the
+        extend has a token to sample from."""
         ids = req.input_ids
         if len(ids) + req.max_new_tokens > self.ecfg.max_seq_len:
             raise ValueError(
                 f"request {req.rid}: prompt ({len(ids)}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds max_seq_len "
                 f"{self.ecfg.max_seq_len}")
+        req.prefix_slots, req.prefix_node = self.radix.match_prefix(ids)
+        self.radix.lock(req.prefix_node, +1)
+        req.prefix_locked = True
+        n_cached = min(len(req.prefix_slots), len(ids) - 1)
         req.batch_row = row
-        req.n_cached = 0
-        req.extend_len_pending = len(ids)
+        req.n_cached = n_cached
+        req.extend_len_pending = len(ids) - n_cached
         self.row_reqs[row] = req
+        chunk = max(self.ecfg.prefill_buckets)
+        for start in range(0, n_cached, chunk):
+            n = min(chunk, n_cached - start)
+            _load_prefix(self.runner.rows, self.pool.planes,
+                         req.prefix_slots[start:start + n], row, start, n)
         prompt_seen = np.zeros((self.cfg.vocab_size,), bool)
         valid = np.asarray([t for t in ids if 0 <= t < self.cfg.vocab_size],
                            np.int64)
@@ -1065,7 +1225,41 @@ class ServeEngine:
         self._steps += K
 
     def _release(self, req: Request) -> None:
-        """Free the request's row (no prompt-KV caching in this port)."""
+        """Free the request's row, first caching the prompt KV it extended
+        (best effort). The prefix lock is held through the eviction and
+        the insert, so that eviction cannot take the very prefix being
+        extended; it is dropped whatever happens."""
         row = req.batch_row
         if 0 <= row < len(self.row_reqs) and self.row_reqs[row] is req:
             self.row_reqs[row] = None
+        try:
+            # a request aborted while waiting, or whose admission failed,
+            # holds no lock and extended nothing
+            if req.prefix_locked and row >= 0 and self.pool is not None:
+                self._cache_prompt(req, row)
+        finally:
+            self._unlock(req)
+
+    def _cache_prompt(self, req: Request, row: int) -> None:
+        """Copy the extended part of the prompt's KV into fresh pool slots
+        and insert the prompt into the tree; evict when the pool is short,
+        skip when it is full of locked prefixes, and free the slots of a
+        prefix that another request cached meanwhile."""
+        ids, n_cached = req.input_ids, req.n_cached
+        n_new = len(ids) - n_cached
+        if n_new <= 0:
+            return
+        if self.alloc.available() < n_new:
+            self.radix.evict(n_new - self.alloc.available())
+        slots = self.alloc.alloc(n_new)
+        if slots is None:
+            return
+        chunk = max(self.ecfg.prefill_buckets)
+        for start in range(0, n_new, chunk):
+            _store_prompt(self.pool.planes, self.runner.rows, row,
+                          n_cached + start, slots[start:start + chunk])
+        full = np.concatenate([
+            np.asarray(req.prefix_slots[:n_cached], np.int32), slots])
+        dup = self.radix.insert(ids, full)
+        if dup > n_cached:
+            self.alloc.free(slots[:dup - n_cached])

@@ -2,8 +2,9 @@
 
 A JAX-free copy on the port's SamplingParams: requests wait in a queue, a
 policy orders them, and a token-budget admission loop moves them into the
-running batch. Prefix caching is not ported yet, so the LPM policy sees
-no cached prefixes unless a prefix cache is passed in.
+running batch. The LPM policy orders them by the prefix the engine's radix
+tree holds for each (matched without a lock; the engine matches again and
+locks at admission).
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ class Request:
         default_factory=list)
     prefix_slots: Optional[np.ndarray] = None
     prefix_node: Any = None
+    prefix_locked: bool = False    # the LPM pre-match takes no lock
     n_cached: int = 0              # prefix length at admission
     extend_len_pending: int = 0    # new prompt tokens at admission
     batch_row: int = -1

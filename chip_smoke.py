@@ -94,6 +94,24 @@ Phases, one line each; any failure raises and exits non-zero:
                    W4A8 launch count must rise, the stripe W4A8's stay 0,
                    every plain twin's stay 0
 16. logits-w4kv8-flat — as 10, on the flat-layout engine
+    resize-crop    — 4 synthetic videos (16 frames of 360x640 uint8, as
+                   bench.py writes them) saved as .npy, read by the port's
+                   read_video (8 frames), resized and center-cropped on the
+                   card by clip_resize_crop_device; the same function on
+                   the CPU must agree within 1 level of 0-255
+    serve-prefix   — the reference engine's defaults (max_batch 8, 8192
+                   pool slots, max_seq_len 2048, buckets 32/128/512/2048,
+                   LPM, the radix cache on its C++ tree, which must be the
+                   one in use) on the same W4 weights with int8 KV: the 4
+                   clips as uint8, the first prompt of each of VDC's five
+                   caption pools on each (vicuna template, 64 greedy
+                   tokens): the first prompt of every clip, then the other
+                   16 at 8 lanes, each of which must hit at least its
+                   clip's visual prefix; check_memory() must find no
+                   leaked slot and flush_cache() must empty the tree
+    serve-prefix-off — the same 20 requests with the radix cache off; its
+                   tokens must equal the radix run's up to the first flip,
+                   which must sit on a top-2 logprob gap below 2e-2
     serve-mistral-bf16 / -kv8 / -kv4 — the AuroraCap weights freed,
                    Mistral-7B (32 layers, GQA 32/8, window 4096, random
                    bf16 weights) serves 4 prompts of 5,000-6,100 random
@@ -251,6 +269,33 @@ TRAIN_PARITY_TOL = 1e-3
 TRAIN_GRAD_TOL = 4e-2
 # steps of bench.py's training stage (train/bench_stage.py)
 TRAIN_STEPS = 6
+# [serve-prefix]: VDC asks each video for five captions; the first prompt of
+# each of its pools (lmms-eval's tasks/vdc/utils.py, copied verbatim into
+# aurora_tpu/eval/tasks/vdc_prompts.py): detailed, background, short, main
+# object, camera
+VDC_PROMPTS = (
+    "Please imagine the video based on the sequence of frames, and provide "
+    "a faithfully detailed description of this video in more than three "
+    "sentences.",
+    "The images are given containing equally spaced video frames.Summary of "
+    "the background. This should also include the objects, location, "
+    "weather, and time.",
+    "Write a one-sentence summary of the video.",
+    "Description of the main subject actions or status sequence. This "
+    "suggests including the main subjects (person, object, animal, or none) "
+    "and their attributes, their action, their position, and movements "
+    "during the video frames.",
+    "Summary of the view shot, camera movement and changes in shooting "
+    "angles in the sequence of video frames.")
+PREFIX_VIDEOS = 4
+PREFIX_VIDEO_SHAPE = (16, 360, 640, 3)   # bench.py's synthetic videos
+PREFIX_MAX_NEW = 64
+# the radix run's tokens against the radix-off run's: equal until the first
+# flip, which must sit on a top-2 logprob gap below this (the near-tie
+# contract of tests/test_torch_engine_quant.py)
+NEAR_TIE = 2e-2
+# the card's resize-crop against the CPU's, levels of 0-255 after rounding
+RESIZE_TOL = 1.0
 # H100 SXM5 data sheet: dense bf16 tensor-core peak, int8 peak, HBM rate
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
@@ -1424,6 +1469,202 @@ def mistral_phase(torch, engine_mod, ra, dev, card, plains):
     return out
 
 
+def near_tie(got, want):
+    """got / want: {rid: Request} run greedy with logprobs. Tokens must be
+    equal up to the first step where they differ, whose top-2 logprob gap
+    in `want` must be below NEAR_TIE → (flips, the largest gap at a flip,
+    the worst top-1 logprob difference before a flip)."""
+    flips, worst_gap, worst_lp = 0, 0.0, 0.0
+    for rid, w in want.items():
+        g = got[rid]
+        check(len(g.output_ids) == len(w.output_ids), f"{rid}: lengths")
+        for j, (gt, wt) in enumerate(zip(g.output_ids, w.output_ids)):
+            worst_lp = max(worst_lp, abs(g.output_top_logprobs[j][0][1]
+                                         - w.output_top_logprobs[j][0][1]))
+            if gt != wt:
+                top = w.output_top_logprobs[j]
+                gap = top[0][1] - top[1][1]
+                check(gap < NEAR_TIE, f"{rid}: token {j} flipped on a top-2 "
+                                      f"gap of {gap}")
+                flips += 1
+                worst_gap = max(worst_gap, gap)
+                break
+    return flips, worst_gap, worst_lp
+
+
+def prefix_phase(torch, engine_mod, mm, llm, llm_cfg, dev, card, kernels,
+                 plains):
+    """[resize-crop], [serve-prefix] and [serve-prefix-off]: the front of
+    the path from video files, then AuroraCap serving at the reference
+    engine's defaults with the radix cache on and off (module docstring).
+    kernels: the (function, counter) pairs the runs must launch, the W4A8
+    one last; plains: those that must stay 0."""
+    import tempfile
+    from aurora_tpu_torch.data.preprocess import clip_resize_crop_device
+    from aurora_tpu_torch.data.video import read_video
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    size = mm.image_size
+    host = np.random.default_rng(SEED + 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in range(PREFIX_VIDEOS):
+            paths.append(os.path.join(tmp, f"v{i}.npy"))
+            np.save(paths[-1], host.integers(0, 255, size=PREFIX_VIDEO_SHAPE,
+                                             dtype=np.uint8))
+        t0 = time.perf_counter()
+        videos = [read_video(p, N_FRAMES) for p in paths]
+        read_s = time.perf_counter() - t0
+    check(all(v.shape == (N_FRAMES,) + PREFIX_VIDEO_SHAPE[1:]
+              for v in videos), f"read_video: {[v.shape for v in videos]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    crops = [clip_resize_crop_device(torch.as_tensor(v, device=dev), size,
+                                     size) for v in videos]
+    torch.cuda.synchronize()
+    resize_s = time.perf_counter() - t0
+    err = max((c.cpu() - clip_resize_crop_device(torch.as_tensor(v), size,
+                                                 size)).abs().max().item()
+              for c, v in zip(crops, videos))
+    phase("resize-crop", videos=PREFIX_VIDEOS,
+          video=f"{PREFIX_VIDEO_SHAPE[0]}x{PREFIX_VIDEO_SHAPE[1]}x"
+                f"{PREFIX_VIDEO_SHAPE[2]}", frames=N_FRAMES,
+          read_s=f"{read_s:.4f}", resize_s=f"{resize_s:.4f}",
+          max_abs_err_vs_cpu=err, tol=RESIZE_TOL)
+    check(err <= RESIZE_TOL, f"resize-crop card vs CPU {err}")
+    clips = [c.to(torch.uint8).cpu().numpy() for c in crops]
+    check(all(c.shape == (N_FRAMES, size, size, 3) for c in clips),
+          "crop shapes")
+    images = " ".join(["<image>"] * N_FRAMES)
+    prompts = [f"USER: {images}\n{q} ASSISTANT:" for q in VDC_PROMPTS]
+
+    def waves():
+        def req(v, q):
+            return mm.build_request(f"v{v}q{q}", prompts[q], clips[v],
+                                    max_new_tokens=PREFIX_MAX_NEW,
+                                    eos_ids=(), logprobs=True)
+        return ([req(v, 0) for v in range(PREFIX_VIDEOS)],
+                [req(v, q) for v in range(PREFIX_VIDEOS)
+                 for q in range(1, len(prompts))])
+
+    first, second = waves()
+    # the ViT (ToMe merges added in a fixed order) repeats bit for bit: the
+    # two runs below each encode their clips
+    embeds = []
+    for _ in range(2):
+        mm._cache.clear()
+        embeds.append(mm.embed_fn(first[0]).float())
+    vit_diff = (embeds[0] - embeds[1]).abs().max().item()
+    check(vit_diff == 0, f"the ViT repeats within {vit_diff}")
+    shared = {}
+    for v in range(PREFIX_VIDEOS):
+        ids = [r.input_ids for r in first + second
+               if r.rid.startswith(f"v{v}q")]
+        shared[v] = len(os.path.commonprefix(ids))
+    submitted = sum(len(r.input_ids) for r in first + second)
+    copy_s = {"_load_prefix": 0.0, "_store_prompt": 0.0}
+
+    def timed(name):
+        fn = getattr(engine_mod, name)
+
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            copy_s[name] += time.perf_counter() - t
+            return out
+        return call
+
+    out = {}
+    for run, radix_off in (("serve-prefix", False), ("serve-prefix-off",
+                                                      True)):
+        ecfg = EngineConfig(weight_quant="int4", kv_quant="int8",
+                            disable_radix_cache=radix_off)
+        engine = ServeEngine(llm, llm_cfg, ecfg, embed_fn=mm.embed_fn,
+                             device=dev, seed=SEED)
+        check(engine.runner.model is llm, f"{run}: the model was not served "
+                                          "as given")
+        mm._cache.clear()    # each run encodes its clips once, in wave 1
+        done, marks = {}, []
+        run_counts = {}
+        for name in copy_s:
+            copy_s[name] = 0.0
+        t0 = time.perf_counter()
+        for wave in waves():
+            ext, dec, steps = (engine.t_extend_s, engine.t_decode_s,
+                               engine._steps)
+            with mock.patch.multiple(engine_mod, **{
+                    n: timed(n) for n in copy_s}):
+                _, c = serve(torch, engine, wave, kernels + plains,
+                             PREFIX_MAX_NEW)
+            run_counts = {k: run_counts.get(k, 0) + n for k, n in c.items()}
+            done.update({r.rid: r for r in wave})
+            marks.append((engine.t_extend_s - ext, engine.t_decode_s - dec,
+                          engine._steps - steps))
+        wall = time.perf_counter() - t0
+        mem = engine.check_memory()
+        L = llm_cfg.num_hidden_layers
+        fields = dict(
+            card=repr(card), tree=engine.radix_impl,
+            config="auroracap-7b/w4-stripes/kv-int8/reference-engine-defaults",
+            max_batch=ecfg.max_batch, num_slots=ecfg.num_slots,
+            max_seq_len=ecfg.max_seq_len,
+            buckets="/".join(map(str, ecfg.prefill_buckets)),
+            policy=ecfg.policy.value, requests=len(done),
+            new_tokens=PREFIX_MAX_NEW,
+            n_cached=",".join(f"{r}:{done[r].n_cached}" for r in done),
+            hit_tokens=f"{sum(r.n_cached for r in done.values())}"
+                       f"/{submitted}",
+            extend_s_wave1=f"{marks[0][0]:.4f}",
+            extend_s_wave2=f"{marks[1][0]:.4f}",
+            prefix_load_s=f"{copy_s['_load_prefix']:.4f}",
+            prompt_store_s=f"{copy_s['_store_prompt']:.4f}",
+            decode_ms_per_step_wave2_8_lanes=(
+                f"{marks[1][1] / max(marks[1][2], 1) * 1e3:.3f}"),
+            decode_steps=engine._steps, wall_s=f"{wall:.2f}",
+            check_memory=json.dumps(mem).replace(" ", ""),
+            slot_usage=engine.decode_stats()["slot_usage"],
+            launches=json.dumps(run_counts).replace(" ", ""))
+        flushed = engine.flush_cache()
+        fields["flush_cache"] = flushed
+        phase(run, **fields)
+        check(mem["leaked"] == 0, f"{run}: leaked slots {mem}")
+        check(flushed == 0 and engine.check_memory()["free"]
+              == ecfg.num_slots, f"{run}: flush left {flushed} tokens")
+        check(all(run_counts[f"{f.__name__}.{a}"] > 0 for f, a in kernels),
+              f"{run}: launches {run_counts}")
+        check(all(run_counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"{run}: plain twins ran: {run_counts}")
+        if kernels:   # every extend wave holds more than MAX_TOKENS rows
+            f, a = kernels[-1]
+            want = 4 * L * engine._steps
+            check(run_counts[f"{f.__name__}.{a}"] == want,
+                  f"{run}: {f.__name__}.{a} {run_counts} != 4 a layer and "
+                  f"a decode step, {want}")
+        if radix_off:
+            check(engine.radix_impl == "null", engine.radix_impl)
+            check(all(r.n_cached == 0 for r in done.values()),
+                  f"{run}: a hit with the cache off")
+        else:
+            check(engine.radix_impl == "native",
+                  f"the radix tree is {engine.radix_impl}: "
+                  f"{engine.radix_error}")
+            for r in done.values():
+                v, q = int(r.rid[1]), int(r.rid[3])
+                check(q == 0 or r.n_cached >= shared[v],
+                      f"{r.rid}: {r.n_cached} cached tokens, the clip's "
+                      f"shared prefix is {shared[v]}")
+        out[run] = done
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    flips, gap, lp = near_tie(out["serve-prefix"], out["serve-prefix-off"])
+    phase("serve-prefix-parity", requests=len(out["serve-prefix"]),
+          vit_repeat_max_diff=vit_diff, flips=flips,
+          worst_flip_gap=f"{gap:.3e}", near_tie=NEAR_TIE,
+          worst_top1_logprob_diff=f"{lp:.3e}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1742,6 +1983,11 @@ def main():
         del llm_laid
         gc.collect()
         torch.cuda.empty_cache()
+
+    # ---- from video files, at the reference engine's defaults --------------
+    torch.cuda.reset_peak_memory_stats()
+    prefix_phase(torch, engine_mod, mm, llm_w4, cfg.llm, dev, card,
+                 kernels["w4kv8"], plains)
 
     # ---- Mistral-7B: the sliding window on the serving path -------------
     del llm_w4, model, mm

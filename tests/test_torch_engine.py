@@ -61,8 +61,8 @@ def _engines(tiny, decode_steps, embed_fns=(None, None)):
         disable_radix_cache=True), embed_fn=embed_fns[0])
     teng = ServeEngine(model.llm, model.cfg.llm, EngineConfig(
         max_batch=4, max_seq_len=128, prefill_buckets=BUCKETS,
-        kv_dtype=torch.float32, kv_chunk=64, decode_steps=decode_steps),
-        embed_fn=embed_fns[1])
+        kv_dtype=torch.float32, kv_chunk=64, decode_steps=decode_steps,
+        disable_radix_cache=True), embed_fn=embed_fns[1])
     return jeng, teng
 
 
@@ -183,8 +183,7 @@ def test_multimodal_greedy_matches_jax_engine(tiny, tmp_path):
                                jmm.embed_fn(jreqs[0]), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("tp", 2), ("disable_radix_cache", False)])
+@pytest.mark.parametrize("field,value", [("tp", 2)])
 def test_unported_engine_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         EngineConfig(**{field: value})

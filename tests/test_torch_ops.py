@@ -114,3 +114,25 @@ def test_tome_merge_wavg():
     assert tx.shape == (2, 15, 12)
     np.testing.assert_allclose(_np(tx), _np(jx), **TOL)
     np.testing.assert_allclose(_np(ts), _np(js), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tome_merge_sums_in_fp32(dtype):
+    """The merge's sum, many proposals to one target included, is the
+    exact sum rounded to the dtype within one fp32 rounding of it: a
+    one-hot product, which adds in a fixed order on the card too (where
+    scatter_add's atomics add in any order)."""
+    g = torch.Generator().manual_seed(0)
+    tol = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}[dtype]
+    for trial in range(40):
+        t_b = int(torch.randint(3, 40, (1,), generator=g))
+        r = int(torch.randint(1, 30, (1,), generator=g))
+        b = torch.randn(2, t_b, 16, generator=g).to(dtype)
+        idx = torch.randint(0, max(1, t_b // (1 + trial % 5)), (2, r),
+                            generator=g)
+        src = torch.randn(2, r, 16, generator=g).to(dtype)
+        exact = b.double().scatter_add(
+            1, idx[..., None].expand(-1, -1, 16), src.double())
+        got = ttome._merge_add(b, idx, src)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.double(), exact, rtol=tol, atol=tol)
