@@ -65,6 +65,9 @@ def _config_from(ref, cls):
 def llama_config_from(ref) -> LlamaConfig:
     for name, off in _LLAMA_FAMILY_OFF.items():
         val = getattr(ref, name, off)
+        if name == "head_dim_override" and val == (
+                ref.hidden_size // ref.num_attention_heads):
+            continue    # HF configs name the llama head_dim explicitly
         if val != off:
             raise NotImplementedError(
                 f"{name}={val!r}: the port serves the llama family only "

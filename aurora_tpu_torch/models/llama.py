@@ -17,11 +17,12 @@ fused serving streams (qkv, o, gateup, down); a W4 layer may hold its
 gateup and down as one `W4FusedMLP` (`mlp`).
 
 The serving forward over KV rows lives in serve/engine.py. Here is the
-offline forward `llama_apply` (no KV cache), the training and scoring
-path: attention through `ops.attention.mha` (the flash kernels on the
-card), per-layer remat (models/remat.py), fp32 logits. `llama_lm_loss` is
-the shifted cross-entropy. Dense bf16/fp32 layers only; W4/W8 layers
-raise NotImplementedError there.
+offline forward `llama_apply`, the training and scoring path and, over a
+dense KV cache (`init_kv_cache`), the offline generation path of
+generate/: attention through `ops.attention.mha` (the flash kernels on
+the card for unmasked calls), per-layer remat (models/remat.py), fp32
+logits. `llama_lm_loss` is the shifted cross-entropy. Dense bf16/fp32
+layers only; W4/W8 layers raise NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from aurora_tpu_torch.models.remat import remat_call
 from aurora_tpu_torch.ops.attention import mha
@@ -274,13 +276,21 @@ def layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense):
 
 
 def _layer(cfg: LlamaConfig, lp: LlamaLayer, x, cos, sin, mask,
-           segment_ids, use_flash):
+           segment_ids, use_flash, kv=None, cache_len: int = 0):
+    """One decoder layer. kv: this layer's (k, v) cache [B, S, Hkv, hd],
+    written in place at [cache_len, cache_len + T) and attended whole."""
     B, T, _ = x.shape
     q, k, v = layer_qkv(cfg, lp, family_norm(cfg, x, lp.input_norm))
     q, k = apply_rope(q, k, cos, sin)
+    if kv is not None:
+        ck, cv = kv
+        ck[:, cache_len:cache_len + T] = k.to(ck.dtype)
+        cv[:, cache_len:cache_len + T] = v.to(cv.dtype)
+        k, v = ck.to(k.dtype), cv.to(v.dtype)
     attn = mha(q, k, v, causal=True, mask=mask, q_segment_ids=segment_ids,
-               kv_segment_ids=segment_ids, scale=cfg.attn_scale,
-               logit_cap=cfg.attn_logit_softcap, use_flash=use_flash)
+               kv_segment_ids=segment_ids, q_offset=cache_len,
+               scale=cfg.attn_scale, logit_cap=cfg.attn_logit_softcap,
+               use_flash=use_flash)
     x = x + lp.o(attn.reshape(B, T, -1))
     return x + layer_mlp(cfg, lp, family_norm(cfg, x, lp.post_attn_norm))
 
@@ -315,25 +325,52 @@ def _head_logits(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, -1)
 
 
+# SDPA's backends that repeat bit for bit on the card. A dense KV-cache
+# decode keeps to them: PyTorch 2.11 picks cuDNN attention for masked
+# calls on an H100, and there a 7B greedy decode gave other tokens on its
+# second run, where XLA's attention and SDPA's other backends repeat.
+_REPEATABLE_SDPA = [SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    """A dense KV cache {"k", "v"}: [L, batch, max_len, Hkv, hd] zeros."""
+    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
                 input_ids: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
+                kv_cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_len: int = 0,
                 remat=False,
-                use_flash: Optional[bool] = None) -> torch.Tensor:
-    """Forward pass without a KV cache → logits [B, T, V] fp32.
+                use_flash: Optional[bool] = None):
+    """Forward pass → logits [B, T, V] fp32; with `kv_cache`, (logits,
+    kv_cache).
 
-    attention_mask [B, T] bool: key-side padding mask (True = attend);
-    it sends attention to `mha_reference`, as in the reference. position_ids
-    [B, T] (default 0..T-1); segment_ids [B, T]: packed sequences attend
-    within their segment. remat: False, True/"full" or a policy name
-    (models/remat.py), per layer. use_flash: None lets `mha` decide. A
-    sliding window (a key mask on (query - key) position, as in the
+    attention_mask bool, True = attend: a key-side padding mask [B, T],
+    or [B, S] over the cache's S slots when `kv_cache` is given; it sends
+    attention to `mha_reference`, as in the reference. position_ids [B, T]
+    (default cache_len..cache_len+T-1); segment_ids [B, T]: packed
+    sequences attend within their segment (not with a cache). kv_cache:
+    from `init_kv_cache`; the step's K/V are written in place at slots
+    [cache_len, cache_len + T) and the queries sit at those slots for the
+    causal mask; attention then keeps SDPA off cuDNN (`_REPEATABLE_SDPA`).
+    remat: False, True/"full" or a policy name (models/remat.py), per
+    layer. use_flash: None lets `mha` decide. A sliding window (a key mask on (query - key) slot, as in the
     reference) or a logit softcap keeps attention off the flash kernels,
     which take neither.
     """
+    if kv_cache is not None and segment_ids is not None:
+        raise ValueError("packed segments over a KV cache are unsupported: "
+                         "the cache tracks no segment ids")
     if any(not isinstance(m, nn.Linear) for lp in model.layers
            for m in lp.children()) or not isinstance(model.lm_head,
                                                      nn.Linear):
@@ -343,24 +380,33 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
         else inputs_embeds
     B, T, _ = x.shape
     if position_ids is None:
-        position_ids = torch.arange(T, device=x.device)[None].expand(B, T)
+        position_ids = (torch.arange(T, device=x.device)[None]
+                        + cache_len).expand(B, T)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_linear_scaling)
     mask = None
     if attention_mask is not None:
         mask = attention_mask.to(torch.bool)[:, None, None, :]
     if cfg.sliding_window:
-        pos = torch.arange(T, device=x.device)
-        wmask = ((pos[:, None] - pos[None, :])
-                 < cfg.sliding_window)[None, None]
+        S = T if kv_cache is None else kv_cache["k"].shape[2]
+        qpos = torch.arange(T, device=x.device)[:, None] + cache_len
+        kpos = torch.arange(S, device=x.device)[None, :]
+        wmask = ((qpos - kpos) < cfg.sliding_window)[None, None]
         mask = wmask if mask is None else mask & wmask
     if cfg.sliding_window or cfg.attn_logit_softcap > 0:
         use_flash = False
-    for lp in model.layers:
-        x = remat_call(_layer, remat, cfg, lp, x, cos, sin, mask,
-                       segment_ids, use_flash)
+    if kv_cache is None:
+        for lp in model.layers:
+            x = remat_call(_layer, remat, cfg, lp, x, cos, sin, mask,
+                           segment_ids, use_flash)
+    else:
+        with sdpa_kernel(_REPEATABLE_SDPA):
+            for i, lp in enumerate(model.layers):
+                x = _layer(cfg, lp, x, cos, sin, mask, None, use_flash,
+                           (kv_cache["k"][i], kv_cache["v"][i]), cache_len)
     x = family_norm(cfg, x, model.final_norm)
-    return _head_logits(x, model.lm_head.weight)
+    logits = _head_logits(x, model.lm_head.weight)
+    return logits if kv_cache is None else (logits, kv_cache)
 
 
 def llama_lm_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -32,9 +32,15 @@ whose prompt starts with a cached prefix has that prefix copied into its
 row (`_load_prefix`) and extends only the rest. `disable_radix_cache=True`
 is the reference's ChunkCache mode: every prompt extends from position 0.
 
+Stop strings: after each accepted token a bounded tail of the output is
+decoded with the engine's tokenizer; a request whose tail holds one of its
+stop strings finishes (FinishReason.EOS) with `stop_trim` set, and the
+caller trims its text there (serve/runtime.py). Within a decode block the
+tokens after the stop are discarded, as after an EOS.
+
 Not ported yet (each raises NotImplementedError when asked for): chunked/
-interleaved prefill, jump-forward and constrained decoding, stop strings,
-tensor parallelism, and the other model families (MLA, MoE, Gemma2's
+interleaved prefill, jump-forward and constrained decoding, tensor
+parallelism, and the other model families (MLA, MoE, Gemma2's
 alternating windows).
 """
 
@@ -869,13 +875,16 @@ class ServeEngine:
     stays as it is) and its streams fused (fuse_serving_weights); a model
     that is already quantized so, fused or not, is served as given. A W4
     model then takes the decode layout that ecfg asks for
-    (`w4_decode_layout`: a new model, unless it is laid out so already)."""
+    (`w4_decode_layout`: a new model, unless it is laid out so already).
+    tokenizer: decodes output tails for stop strings (requests with
+    stop_strs need one)."""
 
     def __init__(self, model: LlamaModel, cfg: LlamaConfig,
                  ecfg: EngineConfig = EngineConfig(), embed_fn=None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, tokenizer=None):
         self.cfg = cfg
         self.ecfg = ecfg
+        self.tokenizer = tokenizer
         have = weight_quant_of(model)
         if have != ecfg.weight_quant:
             if have != "none":
@@ -916,8 +925,9 @@ class ServeEngine:
     # -- public API ----------------------------------------------------------
 
     def add_request(self, req: Request) -> None:
-        if req.stop_strs:
-            raise NotImplementedError("stop strings are not ported yet")
+        if req.stop_strs and self.tokenizer is None:
+            raise ValueError(f"request {req.rid}: stop strings need an "
+                             "engine built with a tokenizer")
         if req.constraint is not None:
             raise NotImplementedError(
                 "constrained and jump-forward decoding are not ported yet")
@@ -1178,6 +1188,24 @@ class ServeEngine:
             req.output_top_logprobs.append(
                 [(int(i), float(v)) for i, v in zip(top_ids, top_lp)])
         req.check_finished()
+        self._check_stop_strs(req)
+
+    def _check_stop_strs(self, req: Request) -> None:
+        """Finish a request whose output holds one of its stop strings
+        (the reference's StopWordStoppingCriteria / OpenAI `stop`). Only a
+        bounded tail is decoded a token, as the reference does: a stop of C
+        characters spans at most C non-special tokens, and the window is
+        padded for tokens of several characters."""
+        if req.finished is not None or not req.stop_strs:
+            return
+        window = 2 * max(len(stop) for stop in req.stop_strs) + 16
+        text = self.tokenizer.decode(req.output_ids[-window:],
+                                     skip_special_tokens=True)
+        for stop in req.stop_strs:
+            if stop in text:
+                req.finished = FinishReason.EOS
+                req.stop_trim = stop
+                return
 
     # -- decode --------------------------------------------------------------
 

@@ -62,6 +62,7 @@ class Request:
     batch_row: int = -1
     finished: Optional[FinishReason] = None
     error: Optional[str] = None
+    stop_trim: Optional[str] = None   # the stop string that finished it
     # filled by AuroraCapServing.build_request for multimodal requests
     pixel_values: Optional[np.ndarray] = None
     kept_ratio: float = 0.8

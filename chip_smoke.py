@@ -57,9 +57,27 @@ Phases, one line each; any failure raises and exits non-zero:
                    library calls are timed as CUDA-graph replays
                    (`ms`, `library_ms`) and as eager single calls
                    (`eager_ms`, `library_eager_ms`)
+    infer-load     — an xtuner-format directory written by this script
+                   (the LLM at Vicuna-7B widths and 2 layers as two bf16
+                   safetensors shards and an index, ViT-H/14-378 whole as
+                   one fp16 file, the projector as an fp32 .bin; ~2.7 GB)
+                   loaded onto the card in bf16 by
+                   models.convert.load_auroracap_dir: every tensor equal to
+                   the written one after the same cast; bytes, seconds,
+                   GB/s; the directory is deleted
 4. serve         — bf16: 4 requests of 8 frames each to 256 tokens; the
                    bf16 kernels' launch counts must rise and the plain
                    twins' stay 0
+    infer          — cli/infer.caption (the inference.py path: generate/
+                   engine.py over a dense KV cache, SDPA, cuBLAS) on the
+                   bf16 model, the first resize-crop video read and
+                   preprocessed on the card, 64 greedy tokens; equal to
+                   ServeEngine's tokens for the same fused prompt up to a
+                   near tie (2e-2); prefill s, decode ms/token, tokens/s
+    infer-beam     — the same prompt with 4 beams and 32 tokens: EOS-
+                   trimmed, its mean token log-probability at least
+                   greedy's less 1e-2 (one bf16 forward scores each);
+                   num_beams=1 repeats infer's tokens exactly
 5. logits        — one bf16 extend wave's logits through the kernels vs
                    through the plain twins, on the same engine state
 6. serve-w8kv8   — the LLM quantized to W8 on the card (the bf16 source
@@ -112,6 +130,14 @@ Phases, one line each; any failure raises and exits non-zero:
     serve-prefix-off — the same 20 requests with the radix cache off; its
                    tokens must equal the radix run's up to the first flip,
                    which must sit on a top-2 logprob gap below 2e-2
+    runtime        — serve.runtime.Runtime over the same W4 weights with
+                   int8 KV at EngineConfig's defaults: 8 text prompts
+                   (ByteTokenizer), 64 tokens; then again (the prefix cache
+                   flushed) with a 4-character stop string from inside
+                   request 0's text: request 0 finishes "stop" with its
+                   text cut just before the stop and its tokens the first
+                   run's up to it, the other 7 keep their tokens; both runs
+                   launch the int8 attention and W4A8 kernels, no plain twin
     serve-mistral-bf16 / -kv8 / -kv4 — the AuroraCap weights freed,
                    Mistral-7B (32 layers, GQA 32/8, window 4096, random
                    bf16 weights) serves 4 prompts of 5,000-6,100 random
@@ -290,10 +316,24 @@ VDC_PROMPTS = (
 PREFIX_VIDEOS = 4
 PREFIX_VIDEO_SHAPE = (16, 360, 640, 3)   # bench.py's synthetic videos
 PREFIX_MAX_NEW = 64
+# [infer-load]: the xtuner directory's LLM at Vicuna-7B widths, cut to this
+# depth (the ViT and projector whole): about 2.7 GB on disk
+INFER_LOAD_LAYERS = 2
+# [infer] / [infer-beam] / [runtime]
+INFER_PROMPT = "Describe the video in detail."
+INFER_MAX_NEW = 64
+INFER_BEAMS = 4
+INFER_BEAM_MAX_NEW = 32
+RUNTIME_PROMPTS = 8
+RUNTIME_MAX_NEW = 64
 # the radix run's tokens against the radix-off run's: equal until the first
 # flip, which must sit on a top-2 logprob gap below this (the near-tie
 # contract of tests/test_torch_engine_quant.py)
 NEAR_TIE = 2e-2
+# [infer-beam]: the beam's mean token log-probability against greedy's, both
+# from one bf16 forward each: half the near-tie gap, the drift between two
+# decode paths' top-1 log-probabilities that NEAR_TIE allows
+BEAM_SCORE_TOL = NEAR_TIE / 2
 # the card's resize-crop against the CPU's, levels of 0-255 after rounding
 RESIZE_TOL = 1.0
 # H100 SXM5 data sheet: dense bf16 tensor-core peak, int8 peak, HBM rate
@@ -350,7 +390,7 @@ def graph_ms(fn, reps=5, inner=20):
     the capture. This is the device time of what fn launches without the
     host's time to issue it (a Python wrapper's ~0.1 ms would otherwise
     be most of a decode kernel's reading), as the engine's decode block
-    will run once it is captured (ROADMAP queue 1 item 2)."""
+    will run once it is captured (ROADMAP queue 1 item 3)."""
     import torch
     fn()
     side = torch.cuda.Stream()
@@ -392,11 +432,20 @@ def grad_ms(torch, outs, leaves, cots, reps=5):
 
 class ByteTokenizer:
     """Stand-in tokenizer (no tokenizer files exist): BOS 1, then one id
-    per UTF-8 byte, offset past the special ids."""
+    per UTF-8 byte, offset past the special ids; EOS 2. decode gives one
+    character a non-special id (the byte for ASCII, else a CJK-block
+    character), so that any 32000-token output reads as text and a stop
+    string of C characters spans exactly C tokens."""
+
+    eos_token_id = 2
 
     def encode(self, text, add_special_tokens=True):
         ids = [b + 3 for b in text.encode("utf-8")]
         return ([1] + ids) if add_special_tokens else ids
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(i - 3) if i < 131 else chr(0x4E00 + i)
+                       for i in ids if i > 2)
 
 
 def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
@@ -1492,6 +1541,19 @@ def near_tie(got, want):
     return flips, worst_gap, worst_lp
 
 
+def write_videos(tmp, n):
+    """The first n of the synthetic .npy videos (bench.py's shape) from
+    one seeded stream → their paths; [infer] reads the first of
+    [resize-crop]'s."""
+    host = np.random.default_rng(SEED + 8)
+    paths = []
+    for i in range(n):
+        paths.append(os.path.join(tmp, f"v{i}.npy"))
+        np.save(paths[-1], host.integers(0, 255, size=PREFIX_VIDEO_SHAPE,
+                                         dtype=np.uint8))
+    return paths
+
+
 def prefix_phase(torch, engine_mod, mm, llm, llm_cfg, dev, card, kernels,
                  plains):
     """[resize-crop], [serve-prefix] and [serve-prefix-off]: the front of
@@ -1504,13 +1566,8 @@ def prefix_phase(torch, engine_mod, mm, llm, llm_cfg, dev, card, kernels,
     from aurora_tpu_torch.data.video import read_video
     from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
     size = mm.image_size
-    host = np.random.default_rng(SEED + 8)
     with tempfile.TemporaryDirectory() as tmp:
-        paths = []
-        for i in range(PREFIX_VIDEOS):
-            paths.append(os.path.join(tmp, f"v{i}.npy"))
-            np.save(paths[-1], host.integers(0, 255, size=PREFIX_VIDEO_SHAPE,
-                                             dtype=np.uint8))
+        paths = write_videos(tmp, PREFIX_VIDEOS)
         t0 = time.perf_counter()
         videos = [read_video(p, N_FRAMES) for p in paths]
         read_s = time.perf_counter() - t0
@@ -1665,6 +1722,435 @@ def prefix_phase(torch, engine_mod, mm, llm, llm_cfg, dev, card, kernels,
           worst_top1_logprob_diff=f"{lp:.3e}")
 
 
+def _write_safetensors(torch, path, tensors):
+    """{name: CPU tensor} → one .safetensors file, written here without
+    the port's reader: an 8-byte little-endian header length, the JSON
+    header (padded to 8 bytes), then each tensor's raw bytes."""
+    codes = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+    header, off = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(-1).view(torch.uint8).numpy())
+    return 8 + len(raw) + off
+
+
+def hf_llm_names(cfg):
+    """(HF name, the port's LlamaModel name, shape) of a llama checkpoint."""
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    yield "model.embed_tokens.weight", "embed_tokens", (V, D)
+    yield "model.norm.weight", "final_norm", (D,)
+    yield "lm_head.weight", "lm_head.weight", (V, D)
+    for i in range(cfg.num_hidden_layers):
+        hf, ours = f"model.layers.{i}.", f"layers.{i}."
+        yield hf + "input_layernorm.weight", ours + "input_norm", (D,)
+        yield (hf + "post_attention_layernorm.weight",
+               ours + "post_attn_norm", (D,))
+        for theirs, name, shape in (
+                ("self_attn.q_proj", "q", (D, D)),
+                ("self_attn.k_proj", "k", (D, D)),
+                ("self_attn.v_proj", "v", (D, D)),
+                ("self_attn.o_proj", "o", (D, D)),
+                ("mlp.gate_proj", "gate", (I, D)),
+                ("mlp.up_proj", "up", (I, D)),
+                ("mlp.down_proj", "down", (D, I))):
+            yield hf + theirs + ".weight", ours + name + ".weight", shape
+
+
+def hf_vit_names(cfg):
+    """(HF CLIPVisionModel name, the port's VisionTransformer name or None
+    for the unused post_layernorm, shape)."""
+    D, I, p = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size
+    e = "vision_model.embeddings."
+    yield e + "class_embedding", "class_embedding", (D,)
+    yield e + "patch_embedding.weight", "patch_embed.weight", (D, 3, p, p)
+    yield (e + "position_embedding.weight", "position_embedding",
+           (cfg.num_positions, D))
+    for suf in ("weight", "bias"):
+        yield f"vision_model.pre_layrnorm.{suf}", f"pre_layernorm.{suf}", (D,)
+        yield f"vision_model.post_layernorm.{suf}", None, (D,)
+    for i in range(cfg.num_hidden_layers):
+        hf, ours = f"vision_model.encoder.layers.{i}.", f"layers.{i}."
+        for theirs, name, shape in (
+                ("layer_norm1", "ln1", None), ("layer_norm2", "ln2", None),
+                ("self_attn.q_proj", "q", (D, D)),
+                ("self_attn.k_proj", "k", (D, D)),
+                ("self_attn.v_proj", "v", (D, D)),
+                ("self_attn.out_proj", "o", (D, D)),
+                ("mlp.fc1", "fc1", (I, D)), ("mlp.fc2", "fc2", (D, I))):
+            out = shape[0] if shape else D
+            yield hf + theirs + ".weight", ours + name + ".weight", \
+                shape or (D,)
+            yield hf + theirs + ".bias", ours + name + ".bias", (out,)
+
+
+def infer_load_phase(torch, dev, card):
+    """[infer-load]: an xtuner-format directory at AuroraCap-7B's widths
+    (the LLM cut to INFER_LOAD_LAYERS layers) written by this script, read
+    by the port's load_auroracap_dir onto the card in bf16; every tensor
+    must equal the written one after the same cast, bit for bit."""
+    import dataclasses
+    import shutil
+    from aurora_tpu_torch.models.convert import load_auroracap_dir
+    from aurora_tpu_torch.models.llama import LlamaConfig
+    from aurora_tpu_torch.models.vit import ViTConfig
+    llm_cfg = dataclasses.replace(LlamaConfig.vicuna_7b_v15_16k(),
+                                  num_hidden_layers=INFER_LOAD_LAYERS)
+    vit_cfg = ViTConfig.dfn5b_vit_h_378()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "infer_load")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "visual_encoder"))
+    os.makedirs(os.path.join(root, "projector"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def rand(shape, dtype):
+        return (torch.randn(shape, generator=g, device=dev) * 0.02).to(
+            dtype).cpu()
+
+    want = {}       # part → {the port's name: the tensor as written}
+    t0 = time.perf_counter()
+    # the LLM: bf16, two shards and their index
+    llm = {hf: rand(shape, torch.bfloat16)
+           for hf, _, shape in hf_llm_names(llm_cfg)}
+    want["llm"] = {ours: llm[hf] for hf, ours, _ in hf_llm_names(llm_cfg)}
+    names = list(llm)
+    shards = {"model-00001-of-00002.safetensors": names[:len(names) // 2],
+              "model-00002-of-00002.safetensors": names[len(names) // 2:]}
+    nbytes = 0
+    for fn, keys in shards.items():
+        nbytes += _write_safetensors(torch, os.path.join(root, fn),
+                                     {k: llm[k] for k in keys})
+    with open(os.path.join(root, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": {
+            k: fn for fn, keys in shards.items() for k in keys}}, f)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump({"model_type": "llama",
+                   "architectures": ["LlamaForCausalLM"],
+                   "vocab_size": llm_cfg.vocab_size,
+                   "hidden_size": llm_cfg.hidden_size,
+                   "intermediate_size": llm_cfg.intermediate_size,
+                   "num_hidden_layers": llm_cfg.num_hidden_layers,
+                   "num_attention_heads": llm_cfg.num_attention_heads,
+                   "num_key_value_heads": llm_cfg.num_key_value_heads,
+                   "max_position_embeddings":
+                       llm_cfg.max_position_embeddings,
+                   "rms_norm_eps": llm_cfg.rms_norm_eps,
+                   "rope_theta": llm_cfg.rope_theta,
+                   "rope_scaling": {"type": "linear", "factor": 4.0},
+                   "hidden_act": "silu", "tie_word_embeddings": False,
+                   "torch_dtype": "bfloat16"}, f)
+    del llm
+    # the vision tower: fp16, one file
+    vit = {hf: rand(shape, torch.float16)
+           for hf, _, shape in hf_vit_names(vit_cfg)}
+    want["vit"] = {ours: vit[hf] for hf, ours, _ in hf_vit_names(vit_cfg)
+                   if ours is not None}
+    ve = os.path.join(root, "visual_encoder")
+    nbytes += _write_safetensors(torch, os.path.join(ve, "model.safetensors"), vit)
+    with open(os.path.join(ve, "config.json"), "w") as f:
+        json.dump({"model_type": "clip_vision_model",
+                   "hidden_size": vit_cfg.hidden_size,
+                   "intermediate_size": vit_cfg.intermediate_size,
+                   "num_hidden_layers": vit_cfg.num_hidden_layers,
+                   "num_attention_heads": vit_cfg.num_attention_heads,
+                   "image_size": vit_cfg.image_size,
+                   "patch_size": vit_cfg.patch_size,
+                   "layer_norm_eps": vit_cfg.layer_norm_eps,
+                   "hidden_act": "quick_gelu", "torch_dtype": "float16"}, f)
+    del vit
+    # the projector: fp32, torch.save
+    Dv, D = vit_cfg.hidden_size, llm_cfg.hidden_size
+    pj = {"model.0.weight": rand((D, Dv), torch.float32),
+          "model.0.bias": rand((D,), torch.float32),
+          "model.2.weight": rand((D, D), torch.float32),
+          "model.2.bias": rand((D,), torch.float32)}
+    want["pj"] = {f"layers.{int(k[6]) // 2}.{k.split('.')[-1]}": v
+                  for k, v in pj.items()}
+    pj_dir = os.path.join(root, "projector")
+    torch.save(pj, os.path.join(pj_dir, "pytorch_model.bin"))
+    nbytes += os.path.getsize(os.path.join(pj_dir, "pytorch_model.bin"))
+    with open(os.path.join(pj_dir, "config.json"), "w") as f:
+        json.dump({"model_type": "projector", "visual_hidden_size": Dv,
+                   "llm_hidden_size": D, "depth": 2, "hidden_act": "gelu",
+                   "bias": True}, f)
+    write_s = time.perf_counter() - t0
+    del pj
+    gc.collect()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_auroracap_dir(root, llm_dtype=torch.bfloat16,
+                                vit_dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mods = {"llm": loaded[0], "vit": loaded[2], "pj": loaded[4]}
+    check(loaded[1] == llm_cfg, f"LLM config {loaded[1]} != {llm_cfg}")
+    check(loaded[3] == vit_cfg, f"ViT config {loaded[3]} != {vit_cfg}")
+    n_tensors = mismatched = 0
+    for part, mod in mods.items():
+        sd = mod.state_dict()
+        check(sorted(sd) == sorted(want[part]),
+              f"{part}: loaded names differ from the written ones")
+        for name, t in sd.items():
+            n_tensors += 1
+            check(t.device == dev and t.dtype == torch.bfloat16,
+                  f"{part}.{name}: {t.device} {t.dtype}")
+            mismatched += not torch.equal(
+                t, want[part][name].to(dev).to(torch.bfloat16))
+    shutil.rmtree(root)
+    phase("infer-load", card=repr(card),
+          layout="xtuner:llm-2-bf16-shards+vit-fp16+projector-fp32-bin",
+          llm=f"vicuna-7b-widths/{INFER_LOAD_LAYERS}-layers",
+          vit="vit-h-14-378/32-layers", tensors=n_tensors,
+          mismatched=mismatched, bytes=nbytes, write_s=f"{write_s:.2f}",
+          load_s=f"{load_s:.3f}", load_gb_per_s=f"{nbytes / load_s / 1e9:.3f}")
+    check(mismatched == 0, f"{mismatched} tensors differ from the written")
+    del loaded, mods
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed_llama_apply(torch, times):
+    """llama_apply with each call's seconds appended to `times` (a
+    synchronize before and after)."""
+    from aurora_tpu_torch.models.llama import llama_apply as real
+
+    def call(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+    return call
+
+
+def seq_score(torch, model, embeds, tokens):
+    """Mean log-probability of `tokens` after the prompt `embeds` [1, T, D]
+    in one forward (the beam test's length-penalised score with
+    length_penalty 1)."""
+    from aurora_tpu_torch.models.llama import llama_apply
+    emb = model.llm.embed_tokens
+    ids = torch.tensor(tokens, device=emb.device)
+    x = torch.cat([embeds, emb[ids][None]], dim=1)
+    with torch.no_grad():
+        logits = llama_apply(model.llm, model.cfg.llm, inputs_embeds=x,
+                             attention_mask=torch.ones(
+                                 x.shape[:2], dtype=torch.bool,
+                                 device=emb.device))
+    T = embeds.shape[1]
+    lp = torch.log_softmax(logits[0, T - 1:-1].float(), dim=-1)
+    return lp.gather(1, ids[:, None]).sum().item() / len(tokens)
+
+
+def infer_phase(torch, model, cfg, mm, ecfg, dev, card):
+    """[infer] and [infer-beam]: cli/infer.caption at full width and depth
+    on the bf16 model, from the first [resize-crop] video through the
+    device preprocessing; its greedy tokens against ServeEngine's for the
+    same fused prompt (near-tie rule), then 4 beams, then num_beams=1."""
+    import tempfile
+    from types import SimpleNamespace
+    from aurora_tpu_torch.cli import infer as infer_mod
+    from aurora_tpu_torch.data.preprocess import clip_resize_crop_device
+    from aurora_tpu_torch.data.text import build_video_prompt
+    from aurora_tpu_torch.data.video import read_video
+    from aurora_tpu_torch.serve.engine import ServeEngine
+    from aurora_tpu_torch.utils.templates import PROMPT_TEMPLATE
+    size = cfg.vit.image_size
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = read_video(write_videos(tmp, 1)[0], N_FRAMES)
+    tok = ByteTokenizer()
+    px = infer_mod.preprocess_frames(frames, size, dev)
+    captured = {}
+    real_generate, real_beam = infer_mod.generate, infer_mod.beam_generate
+
+    def generate(*a, **k):
+        captured["embeds"] = a[2]
+        captured["result"] = real_generate(*a, return_logprobs=True, **k)
+        return captured["result"]
+
+    def beam_generate(*a, **k):
+        captured["embeds"] = a[2]
+        captured["beam"] = real_beam(*a, **k)
+        return captured["beam"]
+
+    def run(num_beams, max_new):
+        times = []
+        timed = _timed_llama_apply(torch, times)
+        with mock.patch.multiple(infer_mod, generate=generate,
+                                 beam_generate=beam_generate), \
+                mock.patch("aurora_tpu_torch.generate.engine.llama_apply",
+                           timed), \
+                mock.patch("aurora_tpu_torch.generate.beam.llama_apply",
+                           timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            text = infer_mod.caption(model, cfg, tok, pixel_values=px,
+                                     prompt=INFER_PROMPT,
+                                     token_kept_ratio=KEPT_RATIO,
+                                     num_beams=num_beams,
+                                     max_new_tokens=max_new,
+                                     image_size=size)
+            torch.cuda.synchronize()
+        return text, time.perf_counter() - t0, times
+
+    infer_mod.caption(model, cfg, tok, pixel_values=px, prompt=INFER_PROMPT,
+                      token_kept_ratio=KEPT_RATIO, max_new_tokens=2)  # warm
+    text, wall, times = run(1, INFER_MAX_NEW)
+    res = captured["result"]
+    n = int(res.lengths[0])
+    greedy = res.tokens[0, :n].tolist()
+    lps = res.logprobs[0, :n].tolist()
+    prompt_tokens = captured["embeds"].shape[1]
+    check(text == tok.decode([t for t in greedy if t not in (2,)]),
+          "caption text is not its tokens")
+    # the serving engine on the same fused prompt (bf16 kernels)
+    crops = clip_resize_crop_device(torch.as_tensor(frames, device=dev),
+                                    size, size)
+    clip = crops.to(torch.uint8).cpu().numpy()
+    prompt_text = build_video_prompt(INFER_PROMPT, N_FRAMES,
+                                     PROMPT_TEMPLATE.vicuna)
+    req = mm.build_request("infer", prompt_text, clip,
+                           max_new_tokens=INFER_MAX_NEW, eos_ids=(2,),
+                           logprobs=True)
+    check(len(req.input_ids) == prompt_tokens,
+          f"engine prompt {len(req.input_ids)} != caption's {prompt_tokens}")
+    mm._cache.clear()
+    engine = ServeEngine(model.llm, cfg.llm, ecfg, embed_fn=mm.embed_fn,
+                         device=dev, seed=SEED)
+    engine.add_request(req)
+    while engine.has_work():
+        engine.step()
+    del engine
+    got = SimpleNamespace(output_ids=greedy,
+                          output_top_logprobs=[[(t, lp)] for t, lp in
+                                               zip(greedy, lps)])
+    flips, gap, lp_diff = near_tie({"infer": got}, {"infer": req})
+    decode_s = sum(times[1:])
+    phase("infer", card=repr(card), config="auroracap-7b/bf16/dense-kv",
+          video=f"{PREFIX_VIDEO_SHAPE[0]}x{PREFIX_VIDEO_SHAPE[1]}x"
+                f"{PREFIX_VIDEO_SHAPE[2]}.npy", frames=N_FRAMES,
+          prompt_tokens=prompt_tokens, new_tokens=n,
+          caption_s=f"{wall:.3f}", prefill_s=f"{times[0]:.4f}",
+          decode_ms_per_token=f"{decode_s / max(len(times) - 1, 1) * 1e3:.3f}",
+          tokens_per_s=f"{n / wall:.1f}",
+          vs_engine_flips=flips, worst_flip_gap=f"{gap:.3e}",
+          near_tie=NEAR_TIE, worst_top1_logprob_diff=f"{lp_diff:.3e}")
+    check(n == INFER_MAX_NEW or greedy[-1] == 2, f"{n} tokens, no EOS")
+
+    text_b, wall_b, times_b = run(INFER_BEAMS, INFER_BEAM_MAX_NEW)
+    toks_b, n_b = captured["beam"]
+    beam = toks_b[:n_b].tolist()
+    check(1 <= n_b <= INFER_BEAM_MAX_NEW and 2 not in beam[:-1],
+          f"beam: {n_b} tokens, EOS inside")
+    check(text_b == tok.decode(beam), "beam text is not its tokens")
+    embeds = captured["embeds"]
+
+    def trimmed(ts):
+        return ts[:-1] if ts and ts[-1] == 2 else ts
+    b_score = seq_score(torch, model, embeds, trimmed(beam))
+    g_score = seq_score(torch, model, embeds,
+                        trimmed(greedy[:INFER_BEAM_MAX_NEW]))
+    beam_step_ms = sum(times_b[1:]) / max(len(times_b) - 1, 1) * 1e3
+    text_1, _, _ = run(1, INFER_MAX_NEW)
+    one = captured["result"].tokens[0, :int(captured["result"].lengths[0])]
+    phase("infer-beam", card=repr(card), beams=INFER_BEAMS,
+          max_new=INFER_BEAM_MAX_NEW, new_tokens=n_b,
+          beam_s=f"{wall_b:.3f}", prefill_s=f"{times_b[0]:.4f}",
+          decode_ms_per_step=f"{beam_step_ms:.3f}",
+          beam_score=f"{b_score:.6f}", greedy_score=f"{g_score:.6f}",
+          tol=BEAM_SCORE_TOL, beams1_equal_greedy=one.tolist() == greedy)
+    check(np.isfinite(b_score) and np.isfinite(g_score), "scores not finite")
+    check(b_score >= g_score - BEAM_SCORE_TOL,
+          f"beam score {b_score} below greedy's {g_score}")
+    check(one.tolist() == greedy and text_1 == text,
+          "num_beams=1 differs from [infer]'s greedy tokens")
+
+
+def runtime_phase(torch, llm, llm_cfg, dev, card, kernels, plains):
+    """[runtime]: serve.runtime.Runtime over the W4-stripe + int8-KV engine
+    at EngineConfig's defaults: 8 prompts, 64 tokens, then again with a
+    stop string taken from inside request 0's text."""
+    from aurora_tpu_torch.serve.engine import EngineConfig
+    from aurora_tpu_torch.serve.runtime import Runtime
+    tok = ByteTokenizer()
+    rt = Runtime(llm, llm_cfg, tok, engine_config=EngineConfig(
+        weight_quant="int4", kv_quant="int8"))
+    check(rt.engine.runner.model is llm, "runtime: the model was not "
+                                         "served as given")
+    prompts = [f"USER: {VDC_PROMPTS[i % len(VDC_PROMPTS)]} ({i}) ASSISTANT:"
+               for i in range(RUNTIME_PROMPTS)]
+
+    def run(**kw):
+        for obj, attr in kernels + plains:
+            setattr(obj, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rt.generate(prompts, max_new_tokens=RUNTIME_MAX_NEW, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            f"{obj.__name__}.{attr}": getattr(obj, attr)
+            for obj, attr in kernels + plains}
+
+    first, wall1, counts1 = run()
+    check(rt.flush_cache() == 0, "runtime: flush left cached tokens")
+    text0 = first[0]["text"]
+    check(len(text0) >= 8, f"request 0's text {text0!r}")
+    # the first 4 characters inside request 0's text that the fewest other
+    # texts hold (a random model may repeat itself across prompts)
+    stop = min((text0[i:i + 4] for i in range(1, len(text0) - 3)),
+               key=lambda c: sum(c in o["text"] for o in first[1:]))
+    second, wall2, counts2 = run(stop=[stop])
+    stopped = [i for i, o in enumerate(first) if stop in o["text"]]
+    n_tokens = sum(len(o["output_ids"]) for o in first)
+    phase("runtime", card=repr(card),
+          config="auroracap-7b-llm/w4-stripes/kv-int8/engine-defaults",
+          prompts=len(prompts), max_new=RUNTIME_MAX_NEW,
+          tokens=n_tokens, wall_s=f"{wall1:.3f}",
+          tokens_per_s=f"{n_tokens / wall1:.1f}",
+          stop=json.dumps(stop), stop_wall_s=f"{wall2:.3f}",
+          stopped=",".join(map(str, stopped)),
+          req0_tokens=f"{len(second[0]['output_ids'])}/"
+                      f"{len(first[0]['output_ids'])}",
+          req0_finish=second[0]["finish_reason"],
+          launches=json.dumps(counts1).replace(" ", ""),
+          launches_stop=json.dumps(counts2).replace(" ", ""))
+    check(second[0]["finish_reason"] == "stop",
+          f"request 0 finished with {second[0]['finish_reason']}")
+    for i, (a, b) in enumerate(zip(first, second)):
+        if i not in stopped:
+            check(b == a, f"request {i} changed, though its text holds no "
+                          "stop")
+            continue
+        ids = a["output_ids"]
+        cut = next(k for k in range(1, len(ids) + 1)
+                   if stop in tok.decode(ids[:k]))
+        check(b["finish_reason"] == "stop"
+              and b["text"] == a["text"][:a["text"].find(stop)],
+              f"request {i}: {b['finish_reason']}, text not cut just "
+              "before the stop")
+        check(b["output_ids"] == ids[:cut],
+              f"request {i}: tokens are not the first run's up to the stop")
+    for counts in (counts1, counts2):
+        check(all(counts[f"{f.__name__}.{a}"] > 0 for f, a in kernels),
+              f"runtime: launches {counts}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"runtime: plain twins ran: {counts}")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1739,6 +2225,10 @@ def main():
                    segments=True),
         flash_case(torch, fa, dev, g, 2, 1024, 32, 8, with_lse=True)]
     flash_t = flash_res[0]
+
+    # ---- checkpoint loading from an xtuner-format directory --------------
+    torch.cuda.empty_cache()
+    infer_load_phase(torch, dev, card)
 
     # ---- main path at full width, bf16 ------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1929,6 +2419,11 @@ def main():
 
     serve_run("bf16", model.llm, ("serve", "logits"), init_s=f"{init_s:.1f}")
 
+    # ---- the inference.py caption path on the same bf16 model -------------
+    torch.cuda.reset_peak_memory_stats()
+    infer_phase(torch, model, cfg, mm, engine_config(), dev, card)
+    torch.cuda.empty_cache()
+
     # ---- W8 weights + int8 KV (the bf16 source kept) ------------------------
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1988,6 +2483,10 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     prefix_phase(torch, engine_mod, mm, llm_w4, cfg.llm, dev, card,
                  kernels["w4kv8"], plains)
+
+    # ---- the in-process Runtime at the engine's defaults, stop strings ----
+    runtime_phase(torch, llm_w4, cfg.llm, dev, card, kernels["w4kv8"],
+                  plains)
 
     # ---- Mistral-7B: the sliding window on the serving path -------------
     del llm_w4, model, mm

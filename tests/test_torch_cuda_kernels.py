@@ -46,7 +46,8 @@ each of dQ, dK, dV within 1.5e-2 of its max |want| (bf16 P and dS in the
 tensor-core products) — chip_smoke.py's bounds; repeated backward passes
 agree bitwise. The remat policies of a bf16 train step on the card give
 the same loss and grad norm (1e-5) and keep or recompute the flash
-forward as their names say.
+forward as their names say. The dense greedy decode of the caption path
+repeats bit for bit.
 """
 
 
@@ -977,3 +978,33 @@ def test_remat_policies_on_card(cuda_device):
         assert abs(loss - base[0]) <= 1e-5 * abs(base[0]), key
         assert abs(gnorm - base[1]) <= 1e-5 * base[1], key
     assert [n for _, _, n in got.values()] == [2, 4, 4, 2]
+
+
+@pytest.mark.cuda
+def test_dense_generate_repeats_on_card(cuda_device):
+    """The caption path's dense greedy decode (masked attention over a KV
+    cache, `mha_reference`) run three times on the same prompt: equal
+    tokens and logprobs, bit for bit. SDPA's cuDNN backend, which PyTorch
+    picks for these masked calls on an H100, did not repeat (chip_smoke
+    `[infer-beam]`); `llama_apply` keeps it off over a KV cache
+    (models/llama.py `_REPEATABLE_SDPA`). 7B widths and the
+    caption's 1,423-token prompt at 8 layers: with cuDNN allowed the
+    decode failed to repeat here, at 2 layers it repeated."""
+    from aurora_tpu_torch.generate.engine import generate
+    from aurora_tpu_torch.models.init import build
+    from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=4096,
+                      intermediate_size=8192, num_hidden_layers=8,
+                      num_attention_heads=32, num_key_value_heads=32)
+    model = build(LlamaModel, cfg, device=cuda_device, dtype=torch.bfloat16,
+                  generator=torch.Generator(cuda_device).manual_seed(0))
+    ids = torch.randint(3, 32000, (1, 1423), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(1))
+    emb = model.embed_tokens[ids].detach()
+    mask = torch.ones(ids.shape, dtype=torch.bool, device=cuda_device)
+    runs = [generate(model, cfg, emb, mask, max_new_tokens=16,
+                     return_logprobs=True, eos_ids=(-1,)) for _ in range(3)]
+    for r in runs[1:]:
+        assert torch.equal(r.tokens, runs[0].tokens)
+        assert torch.equal(r.logprobs, runs[0].logprobs)

@@ -189,14 +189,13 @@ def test_unported_engine_options_raise(field, value):
         EngineConfig(**{field: value})
 
 
-@pytest.mark.parametrize("kind", ["stop_strs", "constraint", "chunked"])
+@pytest.mark.parametrize("kind", ["constraint", "chunked"])
 def test_unported_request_features_raise(tiny, kind):
     _, _, model = tiny
     eng = ServeEngine(model.llm, model.cfg.llm, EngineConfig(
         max_batch=2, max_seq_len=128, prefill_buckets=BUCKETS,
         kv_dtype=torch.float32, kv_chunk=64))
-    kw = {"stop_strs": dict(stop_strs=("x",)),
-          "constraint": dict(constraint=object()),
+    kw = {"constraint": dict(constraint=object()),
           "chunked": dict(input_ids=list(range(3, 3 + 65)))}[kind]
     req = Request(**{"rid": "r", "input_ids": [5, 6, 7], **kw})
     with pytest.raises(NotImplementedError):
