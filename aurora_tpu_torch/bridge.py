@@ -174,6 +174,8 @@ def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
           "lm_head.weight": _t(tree["lm_head"]).T}
     if quant != "none":
         sd["lm_head.scale"] = _t(tree["lm_head_scale"]).reshape(-1)
+    if "score" in tree:         # the classification head, [D, num_labels]
+        sd["score.weight"] = _t(tree["score"]).T
     for l in range(cfg.num_hidden_layers):
         pre = f"layers.{l}."
         sd[pre + "input_norm"] = _t(layers["input_norm"][l])
@@ -215,11 +217,13 @@ def projector_from_params(tree, cfg: ProjectorConfig, device=None,
 
 def llama_from_params(tree, cfg: LlamaConfig, device=None, dtype=None):
     """Dense, W4 (flat, tiled or fused-MLP) or W8 reference trees,
-    per-name or fused; dtype applies to the dense weights, embeddings and
-    norms."""
+    per-name or fused, with the classification head `score` where the tree
+    has one; dtype applies to the dense weights, embeddings and norms."""
     quant, fused = llama_layout(tree)
+    num_labels = np.shape(tree["score"])[1] if "score" in tree else 0
     return _load(LlamaModel(cfg, device="meta", dtype=dtype,
-                            weight_quant=quant, fused=fused),
+                            weight_quant=quant, fused=fused,
+                            num_labels=num_labels),
                  llama_state_dict(tree, cfg), device)
 
 

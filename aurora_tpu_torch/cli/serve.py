@@ -1,0 +1,150 @@
+"""Serving launch CLI (aurora_tpu/cli/serve.py): the HTTP server of
+serve/api.py over one ServeEngine on the card.
+
+    python -m aurora_tpu_torch serve --model_path <hf-or-xtuner dir> \
+        --port 30000 --max-batch 8 --mem-fraction 0.8 [--aurora]
+
+The reference's flags (its launch_server_auroracap and launch_server
+surface), plus --device (default cuda). --aurora loads an xtuner-format
+AuroraCap directory (models/convert.py `load_auroracap_dir`) and serves
+/generate with videos; otherwise a HF llama or mistral directory. The
+checkpoint's tokenizer loads through transformers. --max-batch 0 or
+--num-slots 0 sizes the engine from the free device memory
+(`auto_engine_config`). Not ported, each exits 2 naming its ROADMAP.md
+item: --dp or --tp above 1, and Gemma2 or DeepseekV2 checkpoints.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_PARALLEL = "ROADMAP.md queue 1 item 9 (data and tensor parallelism)"
+_FAMILIES = "ROADMAP.md queue 1 item 8 (the other model families)"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.
+                                RawDescriptionHelpFormatter)
+    p.add_argument("--model_path", required=True,
+                   help="HF llama dir or xtuner-format AuroraCap dir")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=30000)
+    p.add_argument("--max-batch", type=int, default=8,
+                   help="running-batch rows; 0 → auto from free memory")
+    p.add_argument("--max-seq-len", type=int, default=4096)
+    p.add_argument("--num-slots", type=int, default=0,
+                   help="KV slots; 0 → sized from free device memory x "
+                        "--mem-fraction")
+    p.add_argument("--mem-fraction", type=float, default=0.8)
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel replicas (not ported: above 1 "
+                        "exits 2)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel devices per replica (not ported: "
+                        "above 1 exits 2)")
+    p.add_argument("--dispatch", default="shortest_queue",
+                   choices=["shortest_queue", "round_robin"])
+    p.add_argument("--decode-steps", type=int, default=1,
+                   help="decode steps per host sync")
+    p.add_argument("--schedule-policy", default="lpm",
+                   choices=["lpm", "fcfs", "lof", "random", "dfs-weight"])
+    p.add_argument("--dtype", default="bfloat16", choices=sorted(_DTYPES))
+    p.add_argument("--kv-quant", default="none",
+                   choices=["none", "int8", "int4"],
+                   help="int8 KV with per-token scales, or nibble-packed "
+                        "int4")
+    p.add_argument("--weight-quant", default="none",
+                   choices=["none", "int8", "int4"],
+                   help="int8 weights (per output channel) or int4 "
+                        "(nibble-packed, groups of 128)")
+    p.add_argument("--disable-radix-cache", action="store_true",
+                   help="no prefix caching: every request prefills from "
+                        "scratch")
+    p.add_argument("--aurora", action="store_true",
+                   help="model_path is an xtuner-format AuroraCap dir; "
+                        "enables multimodal /generate")
+    p.add_argument("--token-kept-ratio", type=float, default=0.1,
+                   help="ToMe ratio for serving "
+                        "(launch_server_auroracap.py:18 tome_ratio)")
+    p.add_argument("--image-size", type=int, default=378)
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.dp > 1 or args.tp > 1:
+        print(f"--dp {args.dp} --tp {args.tp}: not ported yet: {_PARALLEL}",
+              file=sys.stderr)
+        return 2
+
+    from aurora_tpu_torch.data.text import auto_tokenizer
+    from aurora_tpu_torch.models.convert import (_read_config,
+                                                 llama_config_from_hf,
+                                                 llama_params_from_hf,
+                                                 load_torch_state_dict)
+    from aurora_tpu_torch.serve.api import launch_server
+    from aurora_tpu_torch.serve.engine import (EngineConfig,
+                                               auto_engine_config,
+                                               fuse_serving_weights,
+                                               quantize_weights_int4,
+                                               quantize_weights_int8)
+    from aurora_tpu_torch.serve.scheduler import SchedulePolicy
+
+    dtype = _DTYPES[args.dtype]
+    mm = None
+    if args.aurora:
+        from aurora_tpu_torch.cli.infer import load_model
+        from aurora_tpu_torch.serve.multimodal import AuroraCapServing
+        aurora, acfg, tokenizer = load_model(args.model_path, dtype,
+                                             args.device)
+        model, cfg = aurora.llm, acfg.llm
+        mm = AuroraCapServing(aurora, tokenizer,
+                              kept_ratio=args.token_kept_ratio,
+                              image_size=args.image_size)
+    else:
+        hf_cfg = _read_config(args.model_path)
+        archs = " ".join(hf_cfg.get("architectures") or [])
+        if "Gemma2" in archs or "DeepseekV2" in archs:
+            print(f"{archs}: not ported yet: {_FAMILIES}", file=sys.stderr)
+            return 2
+        cfg = llama_config_from_hf(hf_cfg)
+        model = llama_params_from_hf(load_torch_state_dict(args.model_path),
+                                     cfg, dtype, args.device)
+        tokenizer = auto_tokenizer(args.model_path)
+
+    # quantize and fuse before the engine, dropping each dense source as it
+    # goes, so that the peak stays about one model
+    if args.weight_quant == "int8":
+        model = quantize_weights_int8(model, free_source=True)
+    elif args.weight_quant == "int4":
+        model = quantize_weights_int4(model, free_source=True)
+    if args.weight_quant != "none":
+        model = fuse_serving_weights(model)
+
+    ecfg = EngineConfig(max_batch=args.max_batch,
+                        max_seq_len=args.max_seq_len,
+                        num_slots=args.num_slots,
+                        policy=SchedulePolicy(args.schedule_policy),
+                        kv_dtype=dtype, kv_quant=args.kv_quant,
+                        weight_quant=args.weight_quant,
+                        decode_steps=args.decode_steps,
+                        disable_radix_cache=args.disable_radix_cache)
+    if args.max_batch <= 0 or args.num_slots <= 0:
+        # the weights are resident, so the free memory excludes them
+        ecfg = auto_engine_config(cfg, ecfg, mem_fraction=args.mem_fraction,
+                                  device=args.device)
+        print(f"[serve] auto-sized from free memory: max_batch="
+              f"{ecfg.max_batch} num_slots={ecfg.num_slots}", flush=True)
+    launch_server(model, cfg, tokenizer, host=args.host, port=args.port,
+                  engine_cfg=ecfg, mm=mm, dp=args.dp, dispatch=args.dispatch)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

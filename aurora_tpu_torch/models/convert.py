@@ -223,12 +223,21 @@ def vit_params_from_hf(sd: StateDict, cfg: ViTConfig, dtype=torch.float32,
 
 def llama_params_from_hf(sd: StateDict, cfg: LlamaConfig,
                          dtype=torch.bfloat16, device=None) -> LlamaModel:
-    """LlamaForCausalLM / MistralForCausalLM names → LlamaModel."""
+    """LlamaForCausalLM / MistralForCausalLM names → LlamaModel. A
+    LlamaForSequenceClassification checkpoint's `score.weight` becomes the
+    `score` head; such a checkpoint has no lm_head, and its embedding is
+    copied into the LM head (the reference's tied fallback, convert.py:
+    748-749), so that it still loads for generation."""
     sd = {k[len("model."):] if k.startswith("model.") else k: v
           for k, v in sd.items()}
     out = {"embed_tokens": sd["embed_tokens.weight"],
            "final_norm": sd["norm.weight"],
-           "lm_head.weight": sd["lm_head.weight"]}
+           "lm_head.weight": sd.get("lm_head.weight",
+                                    sd["embed_tokens.weight"])}
+    num_labels = 0
+    if "score.weight" in sd:
+        out["score.weight"] = sd["score.weight"]
+        num_labels = sd["score.weight"].shape[0]
     names = (("input_norm", "input_layernorm.weight"),
              ("post_attn_norm", "post_attention_layernorm.weight"),
              ("q.weight", "self_attn.q_proj.weight"),
@@ -241,7 +250,8 @@ def llama_params_from_hf(sd: StateDict, cfg: LlamaConfig,
     for i in range(cfg.num_hidden_layers):
         for ours, theirs in names:
             out[f"layers.{i}.{ours}"] = sd[f"layers.{i}.{theirs}"]
-    return _load(LlamaModel(cfg, device="meta", dtype=dtype), out, device)
+    return _load(LlamaModel(cfg, device="meta", dtype=dtype,
+                            num_labels=num_labels), out, device)
 
 
 def projector_params_from_hf(sd: StateDict, cfg: ProjectorConfig,

@@ -14,7 +14,9 @@ per-output-channel scales); both quantized models have an int8
 `W8Linear` LM head. A layer
 holds either the per-name projections (q, k, v, o, gate, up, down) or the
 fused serving streams (qkv, o, gateup, down); a W4 layer may hold its
-gateup and down as one `W4FusedMLP` (`mlp`).
+gateup and down as one `W4FusedMLP` (`mlp`). A sequence-classification
+checkpoint adds a `score` head [num_labels, D] (the /v1/classify endpoint
+of serve/api.py reads it over `llama_apply(..., return_hidden=True)`).
 
 The serving forward over KV rows lives in serve/engine.py. Here is the
 offline forward `llama_apply`, the training and scoring path and, over a
@@ -211,10 +213,12 @@ class LlamaModel(nn.Module):
     """Parameters of the decoder; the forward is the serving engine's.
     weight_quant="int4" lays the layers out as W4Linear projections (per
     name, or fused with fused=True), "int8" as W8Linear ones; both with a
-    W8Linear LM head."""
+    W8Linear LM head. num_labels > 0 adds the classification head `score`
+    (LlamaForSequenceClassification's score.weight, [num_labels, D])."""
 
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
-                 weight_quant: str = "none", fused: bool = False):
+                 weight_quant: str = "none", fused: bool = False,
+                 num_labels: int = 0):
         super().__init__()
         if cfg.tie_word_embeddings:
             raise NotImplementedError("tied embeddings are not ported")
@@ -233,6 +237,8 @@ class LlamaModel(nn.Module):
             self.lm_head = W8Linear.empty(d, cfg.vocab_size, device=device)
         else:
             self.lm_head = nn.Linear(d, cfg.vocab_size, bias=False, **kw)
+        if num_labels > 0:
+            self.score = nn.Linear(d, num_labels, bias=False, **kw)
 
 
 def _dense(h, proj):
@@ -351,9 +357,12 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
                 kv_cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_len: int = 0,
                 remat=False,
-                use_flash: Optional[bool] = None):
+                use_flash: Optional[bool] = None,
+                return_hidden: bool = False):
     """Forward pass → logits [B, T, V] fp32; with `kv_cache`, (logits,
-    kv_cache).
+    kv_cache). return_hidden=True skips the LM head and returns the hidden
+    states after the final norm [B, T, D] in their place (the embedding
+    and classification endpoints).
 
     attention_mask bool, True = attend: a key-side padding mask [B, T],
     or [B, S] over the cache's S slots when `kv_cache` is given; it sends
@@ -405,8 +414,8 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
                 x = _layer(cfg, lp, x, cos, sin, mask, None, use_flash,
                            (kv_cache["k"][i], kv_cache["v"][i]), cache_len)
     x = family_norm(cfg, x, model.final_norm)
-    logits = _head_logits(x, model.lm_head.weight)
-    return logits if kv_cache is None else (logits, kv_cache)
+    out = x if return_hidden else _head_logits(x, model.lm_head.weight)
+    return out if kv_cache is None else (out, kv_cache)
 
 
 def llama_lm_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -32,6 +32,11 @@ whose prompt starts with a cached prefix has that prefix copied into its
 row (`_load_prefix`) and extends only the rest. `disable_radix_cache=True`
 is the reference's ChunkCache mode: every prompt extends from position 0.
 
+The HTTP server (serve/api.py) also calls `fail_running` after a step
+that raised, `update_weights` to swap weights in place (the same layout,
+every tensor at its address), and `auto_engine_config` / `free_hbm_bytes`
+to size the rows and the pool from the free device memory.
+
 Stop strings: after each accepted token a bounded tail of the output is
 decoded with the engine's tokenizer; a request whose tail holds one of its
 stop strings finishes (FinishReason.EOS) with `stop_trim` set, and the
@@ -85,6 +90,8 @@ from aurora_tpu_torch.serve.scheduler import (FinishReason, Request,
 
 _TOPK_LOGPROBS = 5  # top alternatives returned per sampled token
 _MAX_TOPK = 256     # sampling candidate bound (see _sample_core)
+# update_weights' answer while requests run (the caller may retry)
+BUSY = "requests in flight; retry when idle"
 
 
 def make_radix(free_slots):
@@ -179,6 +186,54 @@ def row_buffer_bytes(cfg: LlamaConfig, ecfg: EngineConfig) -> int:
     return rows + hist
 
 
+def free_hbm_bytes(device=None) -> Optional[int]:
+    """Device bytes free right now for new tensors, or None on the CPU:
+    the free memory CUDA reports (`mem_get_info`) plus what PyTorch's
+    caching allocator holds unused. Call it once the weights are on the device, so that they are
+    already counted as in use."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(free + torch.cuda.memory_reserved(device)
+               - torch.cuda.memory_allocated(device))
+
+
+def auto_engine_config(cfg: LlamaConfig, base: EngineConfig, *,
+                       budget_bytes: Optional[int] = None,
+                       mem_fraction: float = 0.85,
+                       device=None) -> EngineConfig:
+    """Fill in max_batch (if <= 0) and num_slots (if <= 0) from the free
+    device memory (the reference's rule): max_batch doubles from 1 while
+    the KV rows of twice as many take at most 88% of the budget (the rest
+    stays for the radix pool and the work space), up to 256; num_slots
+    takes what the rows leave, at least a full batch of rows plus one.
+    budget_bytes defaults to mem_fraction of free_hbm_bytes(device), or of
+    4.7e9 where the device reports none (the CPU)."""
+    if budget_bytes is None:
+        free = free_hbm_bytes(device)
+        budget_bytes = int((free if free is not None else 4.7e9)
+                           * mem_fraction)
+    out = base
+    if out.max_batch <= 0:
+        b = 1
+        while b < 256:
+            probe = dataclasses.replace(out, max_batch=b * 2, num_slots=1)
+            if row_buffer_bytes(cfg, probe) > budget_bytes * 0.88:
+                break
+            b *= 2
+        out = dataclasses.replace(out, max_batch=b)
+    if out.num_slots <= 0:
+        left = budget_bytes - row_buffer_bytes(cfg, out)
+        per_slot = (cfg.num_hidden_layers
+                    * kv_bytes_per_token_layer(cfg, out.kv_quant,
+                                               out.kv_dtype))
+        out = dataclasses.replace(
+            out, num_slots=int(max(out.max_batch * out.s_row + 1,
+                                   left // per_slot)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Weight quantization (the reference's quantize_weights_int4/_int8 and
 # fuse_serving_weights, over the port's modules)
@@ -225,6 +280,8 @@ def _quantize_model(model: LlamaModel, weight_quant: str, quantize,
             if free_source:
                 setattr(src, name, None)
     out.lm_head = W8Linear(*_w8(model.lm_head.weight.detach()))
+    if hasattr(model, "score"):
+        out.score = model.score
     if free_source:
         model.lm_head = None
     return out
@@ -276,6 +333,9 @@ def _w4_mlp_fuse(layer) -> Optional[W4FusedMLP]:
         return None
     return W4FusedMLP(*w4_mlp_tile_layout(*w4_to_flat(gu.packed, gu.scale),
                                           *w4_to_flat(dn.packed, dn.scale)))
+
+
+_QUANTIZE = {"int4": quantize_weights_int4, "int8": quantize_weights_int8}
 
 
 def w4_decode_layout(model: LlamaModel, cfg: LlamaConfig,
@@ -890,9 +950,7 @@ class ServeEngine:
             if have != "none":
                 raise ValueError(f"a {have} model cannot be served with "
                                  f"weight_quant={ecfg.weight_quant!r}")
-            quantize = {"int4": quantize_weights_int4,
-                        "int8": quantize_weights_int8}[ecfg.weight_quant]
-            model = fuse_serving_weights(quantize(model))
+            model = fuse_serving_weights(_QUANTIZE[ecfg.weight_quant](model))
         model = w4_decode_layout(model, cfg, ecfg)
         self.embed_fn = embed_fn  # multimodal hook: req → [T, D] embeds
         device = device if device is not None else \
@@ -952,8 +1010,78 @@ class ServeEngine:
         return self.sched.abort(rid)
 
     def has_work(self) -> bool:
+        """Requests to step: waiting, running, or finished and not yet
+        returned (among them a wave whose admission failed, which a raising
+        step leaves in sched.aborted)."""
         return bool(self.sched.waiting or self.sched.running
-                    or self._done_buffer)
+                    or self._done_buffer or self.sched.aborted)
+
+    def fail_running(self) -> List[Request]:
+        """Tear down the in-flight batch after a step raised: each running
+        request finishes ABORT, its row is freed and its prefix lock
+        dropped, and nothing of it is cached (its KV is suspect); the
+        waiting queue is left as it is. Returns the failed requests. The
+        reference also rebuilds the buffers that a failed compiled step had
+        donated; torch tensors are not donated, so the rows, the sampler
+        histograms and the pool stay valid."""
+        failed, self.sched.running = self.sched.running, []
+        for req in failed:
+            req.finished = FinishReason.ABORT
+            if 0 <= req.batch_row < len(self.row_reqs) \
+                    and self.row_reqs[req.batch_row] is req:
+                self.row_reqs[req.batch_row] = None
+            self._unlock(req)
+        return failed
+
+    def update_weights(self, model: LlamaModel) -> Tuple[bool, str]:
+        """Live weight reload with rollback (the reference's update_weights,
+        sglang's /update_weights) → (done, message). `model` (of this
+        engine's config, dense or quantized so) is brought to the live
+        layout (`_live_layout`); every tensor is checked against the live
+        one of its name for shape and dtype, and only when all match are
+        they copied in place (`copy_`), so that every live tensor keeps its
+        address; on a mismatch nothing changes. The radix cache is flushed,
+        its KV being the old weights'. Refused (BUSY) while requests run:
+        their KV would mix two models."""
+        if self.sched.running:
+            return False, BUSY
+        try:
+            new = self._live_layout(model).state_dict()
+        except (ValueError, NotImplementedError) as e:
+            return False, str(e)
+        live = self.runner.model.state_dict()
+        if new.keys() != live.keys():
+            missing = sorted(live.keys() - new.keys())[:4]
+            extra = sorted(new.keys() - live.keys())[:4]
+            return False, (f"parameter names differ: missing {missing}, "
+                           f"unexpected {extra}")
+        for name, t in live.items():
+            if new[name].shape != t.shape or new[name].dtype != t.dtype:
+                return False, (f"{name}: {tuple(new[name].shape)} "
+                               f"{new[name].dtype} where the live weights "
+                               f"hold {tuple(t.shape)} {t.dtype}")
+        with torch.no_grad():
+            for name, t in live.items():
+                t.copy_(new[name])
+        self.flush_cache()
+        return True, "weights updated"
+
+    def _live_layout(self, model: LlamaModel) -> LlamaModel:
+        """`model` as the engine serves its own: quantized as the engine
+        quantizes (into a new model; `model` keeps its dense weights), its
+        streams fused where the live ones are (in place), then the W4
+        decode layout (`w4_decode_layout`: stripes, flat or the fused MLP).
+        Each step leaves a model already so laid out as it is."""
+        have = weight_quant_of(model)
+        if have != self.ecfg.weight_quant:
+            if have != "none":
+                raise ValueError(f"a {have} model cannot replace the "
+                                 f"weights of a {self.ecfg.weight_quant!r} "
+                                 "engine")
+            model = _QUANTIZE[self.ecfg.weight_quant](model)
+        if hasattr(self.runner.model.layers[0], "qkv"):
+            model = fuse_serving_weights(model)
+        return w4_decode_layout(model, self.cfg, self.ecfg)
 
     def step(self) -> List[Request]:
         """One engine iteration → requests finished this step. Both phases

@@ -136,6 +136,16 @@ class AuroraCapServing:
                 self._cache[key] = groups
         return groups
 
+    def prewarm(self, req: Request) -> None:
+        """Decode-ahead: encode the request's clip (ViT with ToMe, the
+        projector) into the cache now, from the HTTP server's worker
+        thread, so that the extend's embed_fn finds it there instead of
+        running the ViT on the step's path. The ViT calls none of the
+        serving kernels, so it shares no per-device scratch with a step
+        that runs meanwhile; on the card both queue on the device's
+        default stream."""
+        self._visual_groups(req)
+
     @torch.no_grad()
     def embed_fn(self, req: Request) -> torch.Tensor:
         """Engine hook: the fused embedding sequence [T_total, D] of the

@@ -138,6 +138,24 @@ Phases, one line each; any failure raises and exits non-zero:
                    text cut just before the stop and its tokens the first
                    run's up to it, the other 7 keep their tokens; both runs
                    launch the int8 attention and W4A8 kernels, no plain twin
+    serve-http     — the HTTP server (serve/api.py, a thread on 127.0.0.1)
+                   over the same weights and engine configuration, the
+                   ViT behind /generate's videos: cli/bench_serving's 16
+                   requests, 8 in flight, 64 tokens (requests/s, tokens/s,
+                   p50/p90/p99); runtime's 8 prompts through
+                   /v1/completions, each Runtime's tokens up to a near
+                   tie; a streamed chat equal to the same chat alone (time
+                   to the first chunk); a video, then a second question
+                   on it that hits its prefix; an abort in mid-decode;
+                   the ops endpoints 200, /v1/embeddings 400 on W4; the
+                   decode step's wall with 8 chats plain and with the same
+                   8 streamed beside two new clips' ViT (plain, streamed,
+                   streamed, plain); the kernels launch, no twin
+    serve-http-update — /update_weights on a second server at Vicuna-7B
+                   widths and 2 layers from two HF directories written
+                   here: other tokens after the swap, equal to a fresh
+                   engine's on the new weights; every live tensor at its
+                   address; a missing directory 400, the tokens kept
     serve-mistral-bf16 / -kv8 / -kv4 — the AuroraCap weights freed,
                    Mistral-7B (32 layers, GQA 32/8, window 4096, random
                    bf16 weights) serves 4 prompts of 5,000-6,100 random
@@ -326,6 +344,16 @@ INFER_BEAMS = 4
 INFER_BEAM_MAX_NEW = 32
 RUNTIME_PROMPTS = 8
 RUNTIME_MAX_NEW = 64
+# [serve-http]: cli/bench_serving's load (requests, in flight at once, prompt
+# characters, greedy tokens each), then the other requests' new tokens;
+# /update_weights on a second server at Vicuna-7B widths and this depth
+HTTP_LOAD = dict(num_requests=16, concurrency=8, prompt_len=128,
+                 max_tokens=64)
+HTTP_MAX_NEW = 64
+HTTP_LANES = 8            # chats plain, then streamed beside 2 videos
+HTTP_ABORT_MAX_NEW = 1500
+HTTP_UPDATE_LAYERS = 2
+HTTP_UPDATE_MAX_NEW = 32
 # the radix run's tokens against the radix-off run's: equal until the first
 # flip, which must sit on a top-2 logprob gap below this (the near-tie
 # contract of tests/test_torch_engine_quant.py)
@@ -446,6 +474,14 @@ class ByteTokenizer:
     def decode(self, ids, skip_special_tokens=True):
         return "".join(chr(i - 3) if i < 131 else chr(0x4E00 + i)
                        for i in ids if i > 2)
+
+    def id_of(self, piece):
+        """The id that decodes to `piece` (one character); the empty
+        decode of a special id (0, 1, EOS) gives EOS."""
+        if not piece:
+            return self.eos_token_id
+        c = ord(piece)
+        return c + 3 if c < 128 else c - 0x4E00
 
 
 def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
@@ -1766,6 +1802,21 @@ def hf_llm_names(cfg):
             yield hf + theirs + ".weight", ours + name + ".weight", shape
 
 
+def hf_llm_config(cfg):
+    """The config.json of a Vicuna-7B-v1.5-16k-like llama checkpoint."""
+    return {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_hidden_layers,
+            "num_attention_heads": cfg.num_attention_heads,
+            "num_key_value_heads": cfg.num_key_value_heads,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+            "rope_scaling": {"type": "linear", "factor": 4.0},
+            "hidden_act": "silu", "tie_word_embeddings": False,
+            "torch_dtype": "bfloat16"}
+
+
 def hf_vit_names(cfg):
     """(HF CLIPVisionModel name, the port's VisionTransformer name or None
     for the unused post_layernorm, shape)."""
@@ -1834,21 +1885,7 @@ def infer_load_phase(torch, dev, card):
         json.dump({"metadata": {}, "weight_map": {
             k: fn for fn, keys in shards.items() for k in keys}}, f)
     with open(os.path.join(root, "config.json"), "w") as f:
-        json.dump({"model_type": "llama",
-                   "architectures": ["LlamaForCausalLM"],
-                   "vocab_size": llm_cfg.vocab_size,
-                   "hidden_size": llm_cfg.hidden_size,
-                   "intermediate_size": llm_cfg.intermediate_size,
-                   "num_hidden_layers": llm_cfg.num_hidden_layers,
-                   "num_attention_heads": llm_cfg.num_attention_heads,
-                   "num_key_value_heads": llm_cfg.num_key_value_heads,
-                   "max_position_embeddings":
-                       llm_cfg.max_position_embeddings,
-                   "rms_norm_eps": llm_cfg.rms_norm_eps,
-                   "rope_theta": llm_cfg.rope_theta,
-                   "rope_scaling": {"type": "linear", "factor": 4.0},
-                   "hidden_act": "silu", "tie_word_embeddings": False,
-                   "torch_dtype": "bfloat16"}, f)
+        json.dump(hf_llm_config(llm_cfg), f)
     del llm
     # the vision tower: fp16, one file
     vit = {hf: rand(shape, torch.float16)
@@ -2147,6 +2184,364 @@ def runtime_phase(torch, llm, llm_cfg, dev, card, kernels, plains):
         check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
               f"runtime: plain twins ran: {counts}")
     del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prompts, first
+
+
+def http_call(url, method, path, body=None, timeout=600):
+    """One request to a server at `url` → (status, the JSON answer)."""
+    import http.client
+    import urllib.parse
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def http_stream(url, path, body, timeout=600):
+    """One streamed request → (its deltas joined, seconds to the first
+    chunk, seconds to the end)."""
+    import http.client
+    import urllib.parse
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, json.dumps({**body, "stream": True}),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if r.status != 200:
+            check(False, f"{path} streamed: {r.status} {r.read()}")
+        text, first = "", None
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if first is None:
+                first = time.perf_counter() - t0
+            if line == "data: [DONE]":
+                break
+            e = json.loads(line[6:])
+            check("error" not in e, f"{path} streamed: {e}")
+            c = e["choices"][0] if "choices" in e else e
+            text += c["delta"]["content"] if "delta" in c else c["text"]
+        return text, first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def http_phase(torch, llm, llm_cfg, mm, dev, card, kernels, plains,
+               runtime_prompts, runtime_first):
+    """[serve-http]: the port's HTTP server (serve/api.py, in a thread on
+    127.0.0.1) over the W4-stripe + int8-KV engine at EngineConfig's
+    defaults, AuroraCap's ViT behind /generate's videos, ByteTokenizer:
+    cli/bench_serving's load; [runtime]'s prompts through /v1/completions,
+    each equal to Runtime's tokens up to a near tie; a streamed chat equal
+    to the same chat sent alone; a video and a second question on it,
+    which hits its prefix; an abort in mid-decode; the decode step's wall
+    with 8 chats plain and with the same 8 streamed beside two videos'
+    ViT (the GIL's cost); the ops endpoints; /v1/embeddings refused on
+    W4. The int8 attention and W4A8 kernels launch, no plain twin does."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    from aurora_tpu_torch.cli import bench_serving
+    from aurora_tpu_torch.serve.api import ServerThread, ServingLoop
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    tok = ByteTokenizer()
+    engine = ServeEngine(llm, llm_cfg, EngineConfig(weight_quant="int4",
+                                                    kv_quant="int8"),
+                         embed_fn=mm.embed_fn, tokenizer=tok)
+    check(engine.runner.model is llm, "serve-http: the model was not "
+                                      "served as given")
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "serve_http")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    videos = write_videos(tmp, 5)
+    for obj, attr in kernels + plains:
+        setattr(obj, attr, 0)
+    out = {}
+    t_phase = time.perf_counter()
+
+    def decode_ms(fn):
+        """fn() → (its result, the engine's decode ms a step meanwhile)."""
+        s0, d0 = engine._steps, engine.t_decode_s
+        res = fn()
+        return res, (engine.t_decode_s - d0) / max(engine._steps - s0,
+                                                   1) * 1e3
+
+    srv = ServerThread(ServingLoop(engine, tok, mm=mm), "auroracap").start()
+    url = srv.url
+    try:
+        # 1. load, through cli/bench_serving's client
+        load, out["load_decode_ms_per_step"] = decode_ms(
+            lambda: bench_serving.run(url, **HTTP_LOAD))
+        check(load["ok"] == HTTP_LOAD["num_requests"], f"load: {load}")
+        # 2. [runtime]'s prompts, all at once, against Runtime's tokens
+        with ThreadPoolExecutor(len(runtime_prompts)) as pool:
+            comps = list(pool.map(lambda p: http_call(
+                url, "POST", "/v1/completions",
+                {"prompt": p, "max_tokens": RUNTIME_MAX_NEW,
+                 "temperature": 0.0, "logprobs": 5}), runtime_prompts))
+        equal, flips, worst_gap = 0, 0, 0.0
+        for i, ((status, body), want) in enumerate(zip(comps,
+                                                       runtime_first)):
+            check(status == 200, f"completion {i}: {status} {body}")
+            lp = body["choices"][0]["logprobs"]
+            got = [tok.id_of(t) for t in lp["tokens"]]
+            want = [t if t > 2 else tok.eos_token_id
+                    for t in want["output_ids"]]
+            if got == want:
+                equal += 1
+                continue
+            j = next((k for k, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+            top = sorted(lp["top_logprobs"][min(j, len(got) - 1)].values(),
+                         reverse=True)
+            gap = top[0] - top[1] if len(top) > 1 else float("inf")
+            check(gap < NEAR_TIE, f"completion {i}: token {j} is not "
+                                  f"Runtime's, on a top-2 gap of {gap}")
+            flips += 1
+            worst_gap = max(worst_gap, gap)
+        out.update(runtime_equal=f"{equal}/{len(comps)}", flips=flips,
+                   worst_flip_gap=f"{worst_gap:.3e}", near_tie=NEAR_TIE)
+        # 3. a streamed chat against the same chat alone (each from an
+        # empty cache, so that both extend the whole prompt)
+        chat = {"messages": [{"role": "user", "content": VDC_PROMPTS[2]}],
+                "max_tokens": HTTP_MAX_NEW, "temperature": 0.0}
+        http_call(url, "POST", "/flush_cache", {})
+        status, plain = http_call(url, "POST", "/v1/chat/completions", chat)
+        check(status == 200, f"chat: {status} {plain}")
+        http_call(url, "POST", "/flush_cache", {})
+        text, ttfc, stream_s = http_stream(url, "/v1/chat/completions", chat)
+        check(text == plain["choices"][0]["message"]["content"],
+              f"streamed chat {text!r} != {plain}")
+        out.update(stream_chars=len(text), stream_first_chunk_s=f"{ttfc:.4f}",
+                   stream_s=f"{stream_s:.3f}")
+        # 4. a video, then a second question on it: its prefix is cached
+        http_call(url, "POST", "/flush_cache", {})
+        cached = []
+        for q in (0, 2):
+            status, v = http_call(url, "POST", "/generate", {
+                "video_path": videos[0], "num_frames": N_FRAMES,
+                "text": VDC_PROMPTS[q], "max_new_tokens": HTTP_MAX_NEW,
+                "temperature": 0.0})
+            check(status == 200 and v["output_ids"], f"video: {v}")
+            cached.append((v["meta_info"]["prompt_tokens"], http_call(
+                url, "GET", "/get_model_info")[1]["memory"]["cached"]))
+        (p1, c1), (p2, c2) = cached
+        n_vis = N_FRAMES * mm.n_visual_tokens()
+        check(c1 >= p1 > n_vis, f"video 1: {p1} prompt tokens, {c1} cached")
+        check(c2 - c1 <= p2 - n_vis, f"video 2 cached {c2 - c1} of its {p2} "
+                                     "prompt tokens anew: no prefix hit")
+        out.update(video_prompt_tokens=f"{p1},{p2}",
+                   video_cached=f"{c1},{c2}")
+        # 5. an abort in mid-decode
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(http_call, url, "POST", "/generate", {
+                "text": f"USER: {INFER_PROMPT} ASSISTANT:",
+                "max_new_tokens": HTTP_ABORT_MAX_NEW, "temperature": 0.0,
+                "rid": "long"})
+            for _ in range(6000):
+                if http_call(url, "GET", "/decode_stats")[1]["running"]:
+                    break
+                time.sleep(0.005)
+            time.sleep(0.2)
+            aborted = http_call(url, "POST", "/abort_request",
+                                {"rid": "long"})
+            status, long = fut.result(timeout=600)
+        n_long = long["meta_info"]["completion_tokens"]
+        check(aborted == (200, {"aborted": True}) and status == 200
+              and long["meta_info"]["finish_reason"] == "abort"
+              and n_long < HTTP_ABORT_MAX_NEW, f"abort: {aborted} {long}")
+        out["aborted_after_tokens"] = n_long
+
+        # 6. the GIL: 8 chats sent plain, then the same 8 streamed with two
+        # new clips' requests (1 token each) sent once all 8 decode, so
+        # that their read, resize and ViT run in the server's worker
+        # threads beside the 8-lane decode; twice each, in turns
+        chats = [{"messages": [{"role": "user",
+                                "content": f"{VDC_PROMPTS[i % 5]} ({i})"}],
+                  "max_tokens": HTTP_MAX_NEW, "temperature": 0.0}
+                 for i in range(HTTP_LANES)]
+
+        def lanes(streamed, clips=()):
+            send = ((lambda c: http_stream(url, "/v1/chat/completions", c))
+                    if streamed else
+                    (lambda c: http_call(url, "POST", "/v1/chat/completions",
+                                         c)))
+            with ThreadPoolExecutor(HTTP_LANES + len(clips)) as pool:
+                futs = [pool.submit(send, c) for c in chats]
+                for _ in range(6000 if clips else 0):
+                    if http_call(url, "GET", "/decode_stats")[1][
+                            "running"] == HTTP_LANES:
+                        break
+                    time.sleep(0.005)
+                vids = [pool.submit(http_call, url, "POST", "/generate", {
+                    "video_path": v, "num_frames": N_FRAMES,
+                    "text": VDC_PROMPTS[1], "max_new_tokens": 1})
+                    for v in clips]
+                res = [f.result() for f in futs + vids]
+            check(streamed or all(r[0] == 200 for r in res),
+                  f"plain chats: {res}")
+            check(all(r[0] == 200 for r in res[HTTP_LANES:]),
+                  f"videos beside streams: {res[HTTP_LANES:]}")
+
+        gil = []
+        for streamed, clips in ((False, ()), (True, videos[1:3]),
+                                (True, videos[3:5]), (False, ())):
+            http_call(url, "POST", "/flush_cache", {})
+            gil.append(decode_ms(lambda: lanes(streamed, clips))[1])
+        out["plain_decode_ms_per_step"] = f"{gil[0]:.3f},{gil[3]:.3f}"
+        out["streams_videos_decode_ms_per_step"] = f"{gil[1]:.3f},{gil[2]:.3f}"
+        # 7. the ops endpoints, and the offline forward refused on W4
+        for method, path in (("POST", "/flush_cache"), ("GET", "/health"),
+                             ("GET", "/v1/models"),
+                             ("GET", "/get_model_info"),
+                             ("GET", "/decode_stats")):
+            status, body = http_call(url, method, path,
+                                     {} if method == "POST" else None)
+            check(status == 200, f"{path}: {status} {body}")
+        status, body = http_call(url, "POST", "/v1/embeddings",
+                                 {"input": "hello"})
+        check(status == 400, f"/v1/embeddings on W4: {status} {body}")
+    finally:
+        srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+              for obj, attr in kernels + plains}
+    phase("serve-http", card=repr(card),
+          config="auroracap-7b-llm/w4-stripes/kv-int8/engine-defaults",
+          seconds=f"{time.perf_counter() - t_phase:.1f}",
+          requests=load["num_requests"], concurrency=load["concurrency"],
+          max_tokens=HTTP_LOAD["max_tokens"], wall_s=load["wall_s"],
+          requests_per_s=load["requests_per_s"],
+          output_tokens_per_s=load["output_tokens_per_s"],
+          p50_s=load["latency_s"]["p50"], p90_s=load["latency_s"]["p90"],
+          p99_s=load["latency_s"]["p99"],
+          **{k: (f"{v:.3f}" if isinstance(v, float) else v)
+             for k, v in out.items()},
+          launches=json.dumps(counts).replace(" ", ""))
+    check(all(counts[f"{f.__name__}.{a}"] > 0 for f, a in kernels),
+          f"serve-http: launches {counts}")
+    check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+          f"serve-http: plain twins ran: {counts}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def http_update_phase(torch, dev, card, plains):
+    """[serve-http-update]: /update_weights on a second, short-lived server
+    (W4 stripes + int8 KV at EngineConfig's defaults) at Vicuna-7B widths
+    and HTTP_UPDATE_LAYERS layers, from two HF directories of bf16
+    safetensors written here: the swap answers 200 and gives other
+    tokens, every live tensor keeps its address, a missing directory
+    answers 400 and leaves the tokens as they were, and the tokens equal
+    those of an engine built fresh from the second directory."""
+    import dataclasses
+    import shutil
+    from aurora_tpu_torch.models.convert import (llama_params_from_hf,
+                                                 load_torch_state_dict)
+    from aurora_tpu_torch.models.llama import LlamaConfig
+    from aurora_tpu_torch.serve.api import ServerThread, ServingLoop
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    cfg = dataclasses.replace(LlamaConfig.vicuna_7b_v15_16k(),
+                              num_hidden_layers=HTTP_UPDATE_LAYERS)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "serve_http_update")
+    shutil.rmtree(root, ignore_errors=True)
+    dirs, nbytes = [], 0
+    t_phase = t0 = time.perf_counter()
+    for k in range(2):
+        g = torch.Generator(device=dev).manual_seed(SEED + 20 + k)
+        tensors = {hf: (torch.ones(shape, dtype=torch.bfloat16)
+                        if len(shape) == 1 else
+                        (torch.randn(shape, generator=g, device=dev) * 0.02)
+                        .to(torch.bfloat16).cpu())
+                   for hf, _, shape in hf_llm_names(cfg)}
+        dirs.append(os.path.join(root, f"w{k}"))
+        os.makedirs(dirs[-1])
+        nbytes += _write_safetensors(torch, os.path.join(
+            dirs[-1], "model.safetensors"), tensors)
+        with open(os.path.join(dirs[-1], "config.json"), "w") as f:
+            json.dump(hf_llm_config(cfg), f)
+        del tensors
+    write_s = time.perf_counter() - t0
+
+    def load(d):
+        return llama_params_from_hf(load_torch_state_dict(d), cfg,
+                                    torch.bfloat16, dev)
+
+    tok = ByteTokenizer()
+    ecfg = EngineConfig(weight_quant="int4", kv_quant="int8")
+    engine = ServeEngine(load(dirs[0]), cfg, ecfg, tokenizer=tok)
+    live = engine.runner.model.state_dict()
+    ptrs = {k: t.data_ptr() for k, t in live.items()}
+    q = {"text": f"USER: {INFER_PROMPT} ASSISTANT:",
+         "max_new_tokens": HTTP_UPDATE_MAX_NEW, "temperature": 0.0}
+    for obj, attr in plains:
+        setattr(obj, attr, 0)
+    srv = ServerThread(ServingLoop(engine, tok)).start()
+    url = srv.url
+    try:
+        def ids():
+            status, body = http_call(url, "POST", "/generate", q)
+            check(status == 200, f"generate: {status} {body}")
+            return body["output_ids"]
+
+        before = ids()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        status, up = http_call(url, "POST", "/update_weights",
+                               {"model_dir": dirs[1]})
+        update_s = time.perf_counter() - t0
+        check(status == 200 and up["success"], f"update: {status} {up}")
+        after = ids()
+        check(after != before, "the swap left the tokens as they were")
+        status, miss = http_call(url, "POST", "/update_weights",
+                                 {"model_dir": os.path.join(root, "nope")})
+        check(status == 400 and miss["success"] is False,
+              f"missing directory: {status} {miss}")
+        http_call(url, "POST", "/flush_cache", {})
+        check(ids() == after, "a refused update changed the tokens")
+    finally:
+        srv.stop()
+    moved = sum(t.data_ptr() != ptrs[k] for k, t in
+                engine.runner.model.state_dict().items())
+    check(moved == 0, f"{moved} live tensors moved")
+    del engine, live
+    gc.collect()
+    fresh = ServeEngine(load(dirs[1]), cfg, ecfg, tokenizer=tok)
+    fresh.add_request(Request(rid="fresh", input_ids=tok.encode(q["text"]),
+                              max_new_tokens=HTTP_UPDATE_MAX_NEW,
+                              eos_ids=(tok.eos_token_id,)))
+    done = []
+    while fresh.has_work():
+        done += fresh.step()
+    check(done[0].output_ids == after, "the swapped server's tokens are "
+                                       "not a fresh engine's")
+    counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+              for obj, attr in plains}
+    check(all(v == 0 for v in counts.values()),
+          f"serve-http-update: plain twins ran: {counts}")
+    phase("serve-http-update", card=repr(card),
+          config=f"vicuna-7b-widths/{HTTP_UPDATE_LAYERS}-layers/w4-stripes/"
+                 "kv-int8", seconds=f"{time.perf_counter() - t_phase:.1f}",
+          dir_bytes=nbytes // 2,
+          write_s=f"{write_s:.2f}", update_s=f"{update_s:.3f}",
+          tensors=len(ptrs), moved=moved, tokens=len(after),
+          equal_fresh=True, missing_dir_status=400)
+    del fresh
+    shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2485,8 +2880,13 @@ def main():
                  kernels["w4kv8"], plains)
 
     # ---- the in-process Runtime at the engine's defaults, stop strings ----
-    runtime_phase(torch, llm_w4, cfg.llm, dev, card, kernels["w4kv8"],
-                  plains)
+    rt_prompts, rt_first = runtime_phase(torch, llm_w4, cfg.llm, dev, card,
+                                         kernels["w4kv8"], plains)
+
+    # ---- the HTTP server over the same engine configuration ---------------
+    http_phase(torch, llm_w4, cfg.llm, mm, dev, card, kernels["w4kv8"],
+               plains, rt_prompts, rt_first)
+    http_update_phase(torch, dev, card, plains)
 
     # ---- Mistral-7B: the sliding window on the serving path -------------
     del llm_w4, model, mm

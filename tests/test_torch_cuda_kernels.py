@@ -47,7 +47,9 @@ tensor-core products) — chip_smoke.py's bounds; repeated backward passes
 agree bitwise. The remat policies of a bf16 train step on the card give
 the same loss and grad norm (1e-5) and keep or recompute the flash
 forward as their names say. The dense greedy decode of the caption path
-repeats bit for bit.
+repeats bit for bit. The HTTP server (serve/api.py) at 8 layers of 7B
+widths, W4 + int8 KV, streams the text it answers plain, through the
+kernels and never their twins.
 """
 
 
@@ -1008,3 +1010,73 @@ def test_dense_generate_repeats_on_card(cuda_device):
     for r in runs[1:]:
         assert torch.equal(r.tokens, runs[0].tokens)
         assert torch.equal(r.logprobs, runs[0].logprobs)
+
+
+@pytest.mark.cuda
+def test_http_server_streams_what_it_answers_on_card(cuda_device):
+    """The port's HTTP server (serve/api.py) on the card at 8 layers of 7B
+    widths, W4 stripes + int8 KV: a streamed /generate and the same
+    request sent plain (each from an empty prefix cache) give the same
+    text; the W4A8 and int8 attention kernels launch, the plain twins
+    never."""
+    import http.client
+    import json
+
+    from aurora_tpu_torch.models.init import build
+    from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from aurora_tpu_torch.serve.api import ServerThread, ServingLoop
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+
+    class Tok:
+        eos_token_id = 2
+
+        def encode(self, text, add_special_tokens=True):
+            return [1] + [b + 3 for b in text.encode()]
+
+        def decode(self, ids, skip_special_tokens=True):
+            return "".join(chr(0x4E00 + i) for i in ids if i > 2)
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=4096,
+                      intermediate_size=11008, num_hidden_layers=8,
+                      num_attention_heads=32, num_key_value_heads=32,
+                      rope_linear_scaling=4.0)
+    model = build(LlamaModel, cfg, device=cuda_device, dtype=torch.bfloat16,
+                  generator=torch.Generator(cuda_device).manual_seed(0))
+    engine = ServeEngine(model, cfg, EngineConfig(
+        weight_quant="int4", kv_quant="int8", max_batch=4,
+        max_seq_len=512, prefill_buckets=(64,)), tokenizer=Tok())
+    del model
+    kernels = [(tra.ragged_attention, "launches_int8"),
+               (tra.ragged_decode_attention, "launches_int8"),
+               (tqm.w4a8_matmul_tiled, "launches")]
+    plains = [(tra.ragged_attention_plain, "calls"),
+              (tra.ragged_decode_attention_plain, "calls"),
+              (tqm.w4a8_matmul_tiled_plain, "calls")]
+    for obj, attr in kernels + plains:
+        setattr(obj, attr, 0)
+    body = {"text": "USER: Describe the video in detail. ASSISTANT:",
+            "max_new_tokens": 24, "temperature": 0.0}
+
+    def send(port, path, payload):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request("POST", path, json.dumps(payload),
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, r.read()
+        finally:
+            conn.close()
+
+    with ServerThread(ServingLoop(engine, Tok())) as srv:
+        status, plain = send(srv.port, "/generate", body)
+        assert status == 200
+        assert send(srv.port, "/flush_cache", {})[0] == 200
+        status, raw = send(srv.port, "/generate", {**body, "stream": True})
+        assert status == 200
+    events = [ln[6:] for ln in raw.decode().splitlines()
+              if ln.startswith("data: ")]
+    assert events[-1] == "[DONE]"
+    streamed = "".join(json.loads(e)["text"] for e in events[:-1])
+    assert streamed == json.loads(plain)["text"] and streamed
+    assert all(getattr(obj, attr) > 0 for obj, attr in kernels)
+    assert all(getattr(obj, attr) == 0 for obj, attr in plains)

@@ -1,9 +1,12 @@
 """The port stands alone: importing every module of aurora_tpu_torch (the
 entry points of cli.infer, serve.runtime, apis and __main__, the loader
-models.convert and generate.engine / generate.beam named among them),
-serving a tiny multimodal request, generating greedy and beam captions
-and running the Runtime with a stop string, and taking one multimodal
-train step on the CPU loads neither JAX nor the JAX package. Runs in a
+models.convert, generate.engine / generate.beam and the HTTP server
+serve.api with its CLIs named among them),
+serving a tiny multimodal request, generating greedy and beam captions,
+starting the HTTP server (serve/api.py) and having /health and /generate
+answer 200, running the Runtime with a stop string, and taking one
+multimodal train step on the CPU loads neither JAX nor the JAX package,
+nor aiohttp, which the script blocks (the GPU host has none). Runs in a
 fresh interpreter (this test process has JAX)."""
 
 import os
@@ -13,14 +16,17 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r'''
-import importlib, pkgutil, sys
+import http.client, importlib, json, pkgutil, sys
+sys.modules["aiohttp"] = None       # the GPU host has none: block it
 import numpy as np
 import torch
 import aurora_tpu_torch
 for m in pkgutil.walk_packages(aurora_tpu_torch.__path__, "aurora_tpu_torch."):
     importlib.import_module(m.name)
 for name in ("cli.infer", "serve.runtime", "apis", "__main__",
-             "models.convert", "generate.engine", "generate.beam"):
+             "models.convert", "generate.engine", "generate.beam",
+             "serve.api", "cli.serve", "cli.chat", "cli.bench_latency",
+             "cli.bench_serving", "utils.http"):
     importlib.import_module("aurora_tpu_torch." + name)
 
 from aurora_tpu_torch.models.aurora import AuroraConfig, init_aurora
@@ -64,6 +70,20 @@ for beams in (1, 2):
     assert isinstance(caption(model, cfg, Tok(), pixel_values=px,
                               prompt="Describe.", token_kept_ratio=0.5,
                               max_new_tokens=4, num_beams=beams), str)
+from aurora_tpu_torch.serve.api import ServerThread, ServingLoop
+engine = ServeEngine(model.llm, cfg.llm, EngineConfig(
+    max_batch=2, max_seq_len=96, prefill_buckets=(64,),
+    kv_dtype=torch.float32, kv_chunk=32), tokenizer=Tok())
+with ServerThread(ServingLoop(engine, Tok())) as srv:
+    for method, path, body in (("GET", "/health", None),
+                               ("POST", "/generate", {"text": "hi",
+                                                      "max_new_tokens": 3})):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        conn.request(method, path, body and json.dumps(body))
+        r = conn.getresponse()
+        assert r.status == 200, (path, r.status, r.read())
+        r.read()
+        conn.close()
 rt = Runtime(model.llm, cfg.llm, Tok(), engine_config=EngineConfig(
     max_batch=2, max_seq_len=96, prefill_buckets=(64,),
     kv_dtype=torch.float32, kv_chunk=32))
@@ -83,6 +103,9 @@ assert torch.isfinite(m["loss"]) and state.step == 1
 assert "jax" not in sys.modules, "jax was imported"
 assert not any(m == "aurora_tpu" or m.startswith("aurora_tpu.")
                for m in sys.modules), "aurora_tpu was imported"
+assert not any(m.startswith("aiohttp.") or m == "aiohttp" and
+               sys.modules[m] is not None for m in sys.modules), \
+    "aiohttp was imported"
 print("OK")
 '''
 

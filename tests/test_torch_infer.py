@@ -91,6 +91,6 @@ def test_module_entry_infer_help():
 
 
 def test_module_entry_unported_mode_fails():
-    res = _module("serve", "--port", "1")
+    res = _module("train", "--max_steps", "1")
     assert res.returncode != 0
     assert "not ported yet" in res.stderr and "ROADMAP" in res.stderr
