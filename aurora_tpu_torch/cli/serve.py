@@ -10,8 +10,10 @@ AuroraCap directory (models/convert.py `load_auroracap_dir`) and serves
 /generate with videos; otherwise a HF llama or mistral directory. The
 checkpoint's tokenizer loads through transformers. --max-batch 0 or
 --num-slots 0 sizes the engine from the free device memory
-(`auto_engine_config`). Not ported, each exits 2 naming its ROADMAP.md
-item: --dp or --tp above 1, and Gemma2 or DeepseekV2 checkpoints.
+(`auto_engine_config`). Requests may take `regex` or
+`choices_constraint` (constrained decoding) and prompts up to
+--max-seq-len. Not ported, each exits 2 naming its ROADMAP.md item: --dp
+or --tp above 1, and Gemma2 or DeepseekV2 checkpoints.
 """
 
 from __future__ import annotations
@@ -36,7 +38,10 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=30000)
     p.add_argument("--max-batch", type=int, default=8,
                    help="running-batch rows; 0 → auto from free memory")
-    p.add_argument("--max-seq-len", type=int, default=4096)
+    p.add_argument("--max-seq-len", type=int, default=4096,
+                   help="prompt + output tokens a request may hold; a "
+                        "prompt past the largest prefill bucket (2048) "
+                        "prefills in chunks beside the running decode")
     p.add_argument("--num-slots", type=int, default=0,
                    help="KV slots; 0 → sized from free device memory x "
                         "--mem-fraction")

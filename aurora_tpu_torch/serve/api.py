@@ -31,9 +31,19 @@ headers and a Content-Length body (an `Expect: 100-continue` is
 answered); path parameters; JSON answers with Content-Length and
 keep-alive; SSE streams with `Transfer-Encoding: chunked`; multipart
 uploads parsed by `email.parser.BytesParser`. Status codes: 400 for bad
-input, 404 for an unknown route, 405 for a wrong method, 409 when
-/update_weights cannot drain the running batch, 500 for an engine error,
-501 for what the port has not ported.
+input (a malformed or over-complex `regex` among it), 404 for an unknown
+route, 405 for a wrong method, 409 when /update_weights cannot drain the
+running batch, 500 for an engine error, 501 for what the port has not
+ported.
+
+Constrained decoding: `regex` (serve/fsm.py RegexConstraint, with
+jump-forward) or `choices_constraint` (serve/constrained.py
+ChoiceConstraint) on /generate, /v1/completions and /v1/chat/completions,
+as the reference takes them (api.py:257-270). A regex's token table walks
+the whole vocabulary, so such a request is built in the worker threads
+that also read videos, not on the event loop. Prompts up to max_seq_len
+are answered: the engine prefills those past its largest bucket in
+chunks, beside the running decode.
 
 Where the port differs from the reference:
 - A video request's frames are resized and center-cropped on the device
@@ -41,11 +51,10 @@ Where the port differs from the reference:
   `build_request`, where the reference runs PIL's geometry on the host
   (api.py:409, :425): the two agree within 2 levels (tests/test_data.py),
   and the GPU host has no PIL.
-- `regex` and `choices_constraint` answer 501 (ROADMAP.md queue 1 item
-  6, constrained decoding); `dp > 1` raises NotImplementedError (item 9).
-- A request that the engine refuses at admission answers 501 with the
-  engine's reason (a prompt past the largest prefill bucket: chunked
-  prefill, item 4, is not ported); the reference's engine refuses none.
+- `dp > 1` raises NotImplementedError (ROADMAP.md queue 1 item 9).
+- A request that the engine refuses at admission answers with the
+  engine's reason (400 for a ValueError, 500 otherwise); the reference's
+  engine refuses none.
 - /v1/embeddings and /v1/classify run one `llama_apply(...,
   return_hidden=True)` under `torch.inference_mode` in a worker thread in
   place of the reference's jitted `_embed_fwd`.
@@ -86,16 +95,16 @@ from aurora_tpu_torch.generate.sampler import SamplingParams
 from aurora_tpu_torch.models.convert import (llama_params_from_hf,
                                              load_torch_state_dict)
 from aurora_tpu_torch.models.llama import llama_apply
+from aurora_tpu_torch.serve.constrained import ChoiceConstraint
 from aurora_tpu_torch.serve.engine import (BUSY, EngineConfig, ServeEngine,
                                            weight_quant_of)
+from aurora_tpu_torch.serve.fsm import RegexConstraint
 from aurora_tpu_torch.serve.scheduler import Request
 from aurora_tpu_torch.utils.templates import (PROMPT_TEMPLATE,
                                               render_conversation)
 
 log = logging.getLogger(__name__)
 
-_CONSTRAINED = ("constrained decoding (regex, choices_constraint) is not "
-                "ported yet: ROADMAP.md queue 1 item 6")
 _MAX_BODY = 1 << 30          # bytes of one request body
 _MAX_HEADERS = 100
 
@@ -624,7 +633,7 @@ def build_app(loop_: ServingLoop, model_name: str = "auroracap") -> App:
     eos_default = tuple(
         {loop_.tokenizer.eos_token_id} - {None}) or (2,)
     # multimodal host work (video decode, the device resize-crop and the
-    # ViT prewarm) runs here, off the event loop
+    # ViT prewarm) and constraint builds run here, off the event loop
     mm_pool = ThreadPoolExecutor(max_workers=2, thread_name_prefix="aurora-mm")
     app.on_close.append(lambda: mm_pool.shutdown(wait=False,
                                                  cancel_futures=True))
@@ -637,18 +646,36 @@ def build_app(loop_: ServingLoop, model_name: str = "auroracap") -> App:
         if len(prompt_ids) + max_new > ecfg.max_seq_len:
             raise _error(400, "prompt+max_tokens exceeds max_seq_len "
                               f"{ecfg.max_seq_len}")
-        if body.get("choices_constraint") or body.get("regex"):
-            raise _error(501, _CONSTRAINED)
         stop = body.get("stop") or ()
         if isinstance(stop, str):
             stop = (stop,)
+        constraint = None
+        try:
+            if body.get("choices_constraint"):
+                constraint = ChoiceConstraint.from_strings(
+                    loop_.tokenizer, body["choices_constraint"])
+            elif body.get("regex"):
+                constraint = RegexConstraint(
+                    body["regex"], loop_.tokenizer,
+                    loop_.engine.cfg.vocab_size, eos_ids=eos_default)
+        except (ValueError, IndexError) as e:
+            raise _error(400, f"invalid constraint: {e}") from None
         return Request(
+            constraint=constraint,
             rid=body.get("rid", uuid.uuid4().hex),
             input_ids=[int(t) for t in prompt_ids],
             sampling=_sampling_from(body),
             max_new_tokens=max_new,
             logprobs=bool(body.get("logprobs")),
             eos_ids=eos_default, stop_strs=tuple(stop), stream=stream)
+
+    async def new_request(prompt_ids, body, stream=False) -> Request:
+        """make_request, in a worker thread when the body asks for a
+        constraint (a regex's token table walks the whole vocabulary)."""
+        if body.get("choices_constraint") or body.get("regex"):
+            return await asyncio.get_running_loop().run_in_executor(
+                mm_pool, make_request, prompt_ids, body, stream)
+        return make_request(prompt_ids, body, stream)
 
     async def run_request(req: Request):
         q = await loop_.submit(req)
@@ -709,11 +736,12 @@ def build_app(loop_: ServingLoop, model_name: str = "auroracap") -> App:
             req = await asyncio.get_running_loop().run_in_executor(
                 mm_pool, _multimodal_request, body)
         elif "input_ids" in body:
-            req = make_request(body["input_ids"], body,
-                               stream=bool(body.get("stream")))
+            req = await new_request(body["input_ids"], body,
+                                    stream=bool(body.get("stream")))
         else:
             ids = loop_.tokenizer.encode(body["text"])
-            req = make_request(ids, body, stream=bool(body.get("stream")))
+            req = await new_request(ids, body,
+                                    stream=bool(body.get("stream")))
         if not req.stream:
             done = await run_request(req)
             meta = {"finish_reason": done.finished.value,
@@ -773,7 +801,7 @@ def build_app(loop_: ServingLoop, model_name: str = "auroracap") -> App:
     async def h_completions(request):
         body = request.json()
         ids = loop_.tokenizer.encode(body.get("prompt", ""))
-        req = make_request(ids, body, stream=bool(body.get("stream")))
+        req = await new_request(ids, body, stream=bool(body.get("stream")))
         if req.stream:
             return await _stream_response(request, req, "completions")
         done = await run_request(req)
@@ -794,7 +822,7 @@ def build_app(loop_: ServingLoop, model_name: str = "auroracap") -> App:
                       PROMPT_TEMPLATE.vicuna)
         prompt = render_conversation(tpl, body.get("messages", []))
         ids = loop_.tokenizer.encode(prompt)
-        req = make_request(ids, body, stream=bool(body.get("stream")))
+        req = await new_request(ids, body, stream=bool(body.get("stream")))
         if req.stream:
             return await _stream_response(request, req, "chat")
         done = await run_request(req)
@@ -867,7 +895,7 @@ def build_app(loop_: ServingLoop, model_name: str = "auroracap") -> App:
                 else:
                     prompt = body.get("prompt", "")
                 ids = loop_.tokenizer.encode(prompt)
-                req = make_request(ids, body)
+                req = await new_request(ids, body)
                 done = await run_request(req)
                 return {"id": "batch_req_" + uuid.uuid4().hex[:16],
                         "custom_id": rec.get("custom_id"),

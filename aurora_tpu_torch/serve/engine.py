@@ -43,10 +43,26 @@ stop strings finishes (FinishReason.EOS) with `stop_trim` set, and the
 caller trims its text there (serve/runtime.py). Within a decode block the
 tokens after the stop are discarded, as after an EOS.
 
-Not ported yet (each raises NotImplementedError when asked for): chunked/
-interleaved prefill, jump-forward and constrained decoding, tensor
-parallelism, and the other model families (MLA, MoE, Gemma2's
-alternating windows).
+Interleaved chunked prefill: a prompt whose new tokens exceed the largest
+prefill bucket gets its row and its prefix hit at admission, its
+embeddings are built once on the device (`prefill_embeds`), and each
+engine step extends one chunk of at most the largest bucket at its offset
+in the row, beside the running batch's decode step, until the last chunk
+samples its first token. A row that is still prefilling never enters the
+radix cache.
+
+Constrained decoding: a request's `constraint` (serve/constrained.py
+ChoiceConstraint, serve/fsm.py RegexConstraint) gives a [V] allowed-token
+mask a step (the decode block then runs one step a sync) and advances on
+each accepted token; its end finishes the request. Jump-forward: where a
+regex allows exactly one token, the forced run is written through one
+extend call, re-tokenized first (token healing: the row is rewound to the
+first token that the canonical tokenization changes); requests that want
+logprobs are not jumped.
+
+Not ported yet (each raises NotImplementedError when asked for): tensor
+parallelism and the other model families (MLA, MoE, Gemma2's alternating
+windows).
 """
 
 from __future__ import annotations
@@ -92,6 +108,17 @@ _TOPK_LOGPROBS = 5  # top alternatives returned per sampled token
 _MAX_TOPK = 256     # sampling candidate bound (see _sample_core)
 # update_weights' answer while requests run (the caller may retry)
 BUSY = "requests in flight; retry when idle"
+
+
+def _is_system_error(e: BaseException) -> bool:
+    """A failure of the deployment (a kernel that does not build or
+    launch, device memory, a CUDA error: the kernels' launchers, the build
+    and torch raise RuntimeError, OutOfMemoryError included, or OSError)
+    rather than of a request: every request would repeat it, so it reaches
+    the step() caller (the reference's test over XLA's runtime errors).
+    NotImplementedError is a RuntimeError and is not one."""
+    return (isinstance(e, (RuntimeError, OSError))
+            and not isinstance(e, NotImplementedError))
 
 
 def make_radix(free_slots):
@@ -865,6 +892,20 @@ class DeviceRunner:
         self.seen[row] = torch.as_tensor(prompt_seen, device=self.device)
 
     @torch.no_grad()
+    def count_tokens(self, row: int, token_ids) -> None:
+        """Fold a token run into row `row`'s penalty histograms (the
+        reference's `_count_tokens`: jump-forward writes tokens that were
+        never sampled); ids outside the vocabulary are skipped."""
+        ids = np.asarray(token_ids, np.int64)
+        ids = ids[(ids >= 0) & (ids < self.cfg.vocab_size)]
+        if not len(ids):
+            return
+        t = torch.as_tensor(ids, device=self.device)
+        self.counts[row].index_put_(
+            (t,), torch.ones_like(t, dtype=torch.int32), accumulate=True)
+        self.seen[row, t] = True
+
+    @torch.no_grad()
     def sample_after_extend(self, logits, row_ids, samp_np, allowed,
                             all_greedy: bool, want_logprobs: bool):
         """First token for freshly extended lanes → host arrays."""
@@ -974,6 +1015,7 @@ class ServeEngine:
                                ecfg.max_batch * ecfg.max_seq_len,
                                ecfg.policy, self.radix)
         self.row_reqs: List[Optional[Request]] = [None] * ecfg.max_batch
+        self.prefilling: List[Request] = []   # interleaved chunked prefill
         self._done_buffer: List[Request] = []
         self._gen_total = 0
         self._steps = 0
@@ -983,18 +1025,25 @@ class ServeEngine:
     # -- public API ----------------------------------------------------------
 
     def add_request(self, req: Request) -> None:
+        """Queue a request. Refused here (ValueError, TypeError): stop
+        strings without a tokenizer, a constraint without the mask /
+        advance / finished interface, a prompt and max_new_tokens past
+        max_seq_len (the row's capacity). A prompt past the largest prefill
+        bucket is prefilled in chunks."""
         if req.stop_strs and self.tokenizer is None:
             raise ValueError(f"request {req.rid}: stop strings need an "
                              "engine built with a tokenizer")
-        if req.constraint is not None:
-            raise NotImplementedError(
-                "constrained and jump-forward decoding are not ported yet")
-        if len(req.input_ids) > max(self.ecfg.prefill_buckets):
-            raise NotImplementedError(
-                f"request {req.rid}: prompt of {len(req.input_ids)} tokens "
-                f"exceeds the largest prefill bucket "
-                f"{max(self.ecfg.prefill_buckets)}; chunked prefill is not "
-                "ported yet")
+        if req.constraint is not None and not all(
+                hasattr(req.constraint, a)
+                for a in ("mask", "advance", "finished")):
+            raise TypeError(f"request {req.rid}: a constraint needs mask(), "
+                            "advance() and finished (serve/constrained.py, "
+                            "serve/fsm.py)")
+        if len(req.input_ids) + req.max_new_tokens > self.ecfg.max_seq_len:
+            raise ValueError(
+                f"request {req.rid}: prompt ({len(req.input_ids)}) + "
+                f"max_new_tokens ({req.max_new_tokens}) exceeds max_seq_len "
+                f"{self.ecfg.max_seq_len}")
         if not req.input_ids:
             req.finished = FinishReason.ABORT
             req.error = "empty prompt (input_ids must be non-empty)"
@@ -1025,8 +1074,11 @@ class ServeEngine:
         donated; torch tensors are not donated, so the rows, the sampler
         histograms and the pool stay valid."""
         failed, self.sched.running = self.sched.running, []
+        self.prefilling = []
         for req in failed:
             req.finished = FinishReason.ABORT
+            req.prefill_active = False
+            req.prefill_embeds = None
             if 0 <= req.batch_row < len(self.row_reqs) \
                     and self.row_reqs[req.batch_row] is req:
                 self.row_reqs[req.batch_row] = None
@@ -1084,13 +1136,20 @@ class ServeEngine:
         return w4_decode_layout(model, self.cfg, self.ecfg)
 
     def step(self) -> List[Request]:
-        """One engine iteration → requests finished this step. Both phases
-        end in a host read of the sampled tokens, so their wall times
-        include the device work."""
+        """One engine iteration → requests finished this step, in the
+        reference's order: admit (one batched extend wave), one chunk of
+        every chunked prefill, jump-forwards, the decode block,
+        jump-forwards again. Both phases end in a host read of the sampled
+        tokens, so their wall times include the device work (a chunk that
+        samples nothing ends in none: its device time lands in the decode
+        phase)."""
         t0 = time.perf_counter()
         self._admit()
+        self._prefill_tick()
+        self._jump_forwards()
         t1 = time.perf_counter()
         self._decode()
+        self._jump_forwards()
         self.t_extend_s += t1 - t0
         self.t_decode_s += time.perf_counter() - t1
         done, self._done_buffer = self._done_buffer, []
@@ -1144,7 +1203,7 @@ class ServeEngine:
         for b in self.ecfg.prefill_buckets:
             if n <= b:
                 return b
-        raise NotImplementedError("chunked prefill is not ported yet")
+        return max(self.ecfg.prefill_buckets)   # chunked prefill
 
     @staticmethod
     def _lane_bucket(n: int) -> int:
@@ -1161,6 +1220,7 @@ class ServeEngine:
         admitted = self.sched.get_prefill_batch(
             free_rows * self.ecfg.max_seq_len)
         wave: List[Request] = []
+        max_bucket = max(self.ecfg.prefill_buckets)
         for req in admitted:
             row = self._free_row()
             if row < 0:
@@ -1168,10 +1228,20 @@ class ServeEngine:
                 continue
             try:
                 self._prepare(req, row)
+                if req.extend_len_pending > max_bucket:
+                    # past the largest bucket: one chunk a step from
+                    # _prefill_tick, beside the running batch's decode
+                    req.prefill_embeds = self._embeds_for(req)
             except Exception as e:  # noqa: BLE001 - abort only this request
                 self._abort_admission(req, row, e)
                 continue
-            wave.append(req)
+            if req.prefill_embeds is not None:
+                req.prefill_done = 0
+                req.prefill_active = True
+                self.prefilling.append(req)
+                self.sched.running.append(req)
+            else:
+                wave.append(req)
         if wave:
             self._run_wave_chunks(wave)
 
@@ -1223,11 +1293,6 @@ class ServeEngine:
         histograms. A full hit extends its last token again, so that the
         extend has a token to sample from."""
         ids = req.input_ids
-        if len(ids) + req.max_new_tokens > self.ecfg.max_seq_len:
-            raise ValueError(
-                f"request {req.rid}: prompt ({len(ids)}) + max_new_tokens "
-                f"({req.max_new_tokens}) exceeds max_seq_len "
-                f"{self.ecfg.max_seq_len}")
         req.prefix_slots, req.prefix_node = self.radix.match_prefix(ids)
         self.radix.lock(req.prefix_node, +1)
         req.prefix_locked = True
@@ -1241,20 +1306,36 @@ class ServeEngine:
             n = min(chunk, n_cached - start)
             _load_prefix(self.runner.rows, self.pool.planes,
                          req.prefix_slots[start:start + n], row, start, n)
-        prompt_seen = np.zeros((self.cfg.vocab_size,), bool)
-        valid = np.asarray([t for t in ids if 0 <= t < self.cfg.vocab_size],
-                           np.int64)
-        prompt_seen[valid] = True
-        self.runner.reset_row_stats(row, prompt_seen)
+        self.runner.reset_row_stats(row, self._prompt_seen(req))
+
+    def _prompt_seen(self, req: Request) -> np.ndarray:
+        """[V] bool: the vocabulary ids the prompt holds (the repetition
+        penalty's start)."""
+        seen = np.zeros((self.cfg.vocab_size,), bool)
+        seen[np.asarray([t for t in req.input_ids
+                         if 0 <= t < self.cfg.vocab_size], np.int64)] = True
+        return seen
+
+    def _embeds_for(self, req: Request) -> torch.Tensor:
+        """The request's new prompt tokens' embeddings on the device, [n_new,
+        D] in the KV dtype: its fused embeds (embed_fn) past n_cached, or
+        the lookup of its ids (clipped into the vocabulary)."""
+        if self.embed_fn is not None and req.pixel_values is not None:
+            e = torch.as_tensor(self.embed_fn(req),
+                                device=self.runner.device)[req.n_cached:]
+        else:
+            e = self.runner.embed(np.clip(
+                np.asarray(req.input_ids[req.n_cached:], np.int64), 0,
+                self.cfg.vocab_size - 1))
+        return e.to(self.ecfg.kv_dtype)
 
     def _assemble_wave(self, ids, mm_lanes) -> torch.Tensor:
         """[Bk, T, D] wave embeds: the text-id lookup, with each multimodal
         lane's fused embeds (embed_fn) spliced over its row."""
         embeds = self.runner.embed(ids).to(self.ecfg.kv_dtype)
         for i, req in mm_lanes:
-            e = torch.as_tensor(self.embed_fn(req),
-                                device=self.runner.device)[req.n_cached:]
-            embeds[i, :e.shape[0]] = e.to(embeds.dtype)
+            e = self._embeds_for(req)
+            embeds[i, :e.shape[0]] = e
         return embeds
 
     def _extend_wave(self, wave: List[Request]) -> None:
@@ -1281,15 +1362,74 @@ class ServeEngine:
         logits = self.runner.extend(embeds, row_ids, offs, lens)
         self._emit(wave, logits[:len(wave)], row_ids[:len(wave)])
 
+    def _prefill_tick(self) -> None:
+        """One chunk for every chunked prefill in flight, in extend calls of
+        at most max_extend_lanes lanes; a request whose last chunk lands
+        samples its first token and decodes from the next step on."""
+        self.prefilling = [r for r in self.prefilling if r.finished is None]
+        cap = max(1, self.ecfg.max_extend_lanes)
+        work = list(self.prefilling)
+        for at in range(0, len(work), cap):
+            self._prefill_chunk(work[at:at + cap])
+
+    def _prefill_chunk(self, work: List[Request]) -> None:
+        """One extend of the next chunk (at most the largest bucket) of each
+        request, written at n_cached + prefill_done of its row. A failure
+        aborts these requests only, unless it is a system error, which then
+        reaches the step() caller."""
+        bucket = max(self.ecfg.prefill_buckets)
+        lanes = [(req, req.prefill_done,
+                  min(bucket, req.prefill_embeds.shape[0] - req.prefill_done))
+                 for req in work]
+        T = self._bucket(max(n for _, _, n in lanes))
+        Bk = self._wave_bucket(len(lanes))
+        embeds = torch.zeros((Bk, T, work[0].prefill_embeds.shape[1]),
+                             dtype=self.ecfg.kv_dtype,
+                             device=self.runner.device)
+        row_ids = np.zeros((Bk,), np.int32)
+        offs = np.zeros((Bk,), np.int32)
+        lens = np.zeros((Bk,), np.int32)
+        for i, (req, start, n) in enumerate(lanes):
+            embeds[i, :n] = req.prefill_embeds[start:start + n]
+            row_ids[i] = req.batch_row
+            offs[i] = req.n_cached + start
+            lens[i] = req.n_cached + start + n
+        try:
+            logits = self.runner.extend(embeds, row_ids, offs, lens)
+        except Exception as e:
+            for req, _, _ in lanes:
+                req.finished = FinishReason.ABORT
+                req.error = str(e)
+            self.prefilling = [r for r in self.prefilling
+                               if r.finished is None]
+            if _is_system_error(e):
+                raise
+            return
+        emit = []
+        for i, (req, start, n) in enumerate(lanes):
+            req.prefill_done += n
+            if req.prefill_done >= req.prefill_embeds.shape[0]:
+                req.prefill_active = False
+                req.prefill_embeds = None    # ~40 MB for a 4.9k-token video
+                self.prefilling.remove(req)
+                emit.append(i)
+        if emit:
+            self._emit([lanes[i][0] for i in emit], logits[emit],
+                       row_ids[emit])
+
     def _allowed_mask(self, reqs, rows, n) -> Optional[np.ndarray]:
-        """[n, V] allowed-token mask while a request is below its
-        min_new_tokens (eos suppressed); None when no request needs one."""
-        need = any(len(r.output_ids) < r.sampling.min_new_tokens
+        """[n, V] allowed-token mask when a request is constrained (its
+        constraint's mask) or below its min_new_tokens (eos suppressed);
+        None when no request needs one."""
+        need = any(r.constraint is not None
+                   or len(r.output_ids) < r.sampling.min_new_tokens
                    for r in reqs)
         if not need:
             return None
         mask = np.ones((n, self.cfg.vocab_size), bool)
         for r, j in zip(reqs, rows):
+            if r.constraint is not None:
+                mask[j] = r.constraint.mask(self.cfg.vocab_size)
             if len(r.output_ids) < r.sampling.min_new_tokens:
                 for eos in r.eos_ids:
                     if 0 <= eos < self.cfg.vocab_size:
@@ -1315,8 +1455,118 @@ class ServeEngine:
             req.output_logprobs.append(logprob)
             req.output_top_logprobs.append(
                 [(int(i), float(v)) for i, v in zip(top_ids, top_lp)])
+        if req.constraint is not None:
+            req.constraint.advance(tok)
+            if req.constraint.finished:
+                req.finished = FinishReason.EOS
         req.check_finished()
         self._check_stop_strs(req)
+
+    # -- jump-forward (constrained requests) ----------------------------------
+
+    def _jump_forwards(self) -> None:
+        """Jump-forward decoding (sglang's jump_forward.py): where a
+        request's constraint allows exactly one token, the forced stretch
+        is written through one extend call instead of a decode step a
+        token. Repeats, since the token sampled after a jump may open
+        another forced stretch. Requests that want logprobs are skipped
+        (forced tokens have none)."""
+        while True:
+            fired = False
+            for req in self.row_reqs:
+                if (req is None or req.finished is not None
+                        or req.constraint is None or req.logprobs
+                        or not hasattr(req.constraint, "forced_run")
+                        or not req.output_ids):
+                    continue
+                if self._maybe_jump(req):
+                    fired = True
+            if not fired:
+                return
+
+    def _heal_tokens(self, new_out: List[int]) -> Optional[List[int]]:
+        """Token healing: the output re-tokenized from its text, so that the
+        KV holds the canonical tokenization (forced ids come one FSM step
+        at a time, and a non-canonical split changes every later logit);
+        None where that changes nothing, where the healed ids do not decode
+        back to the same text, or where the tokenizer fails."""
+        if self.tokenizer is None:
+            return None
+        try:
+            text = self.tokenizer.decode(
+                new_out, skip_special_tokens=False,
+                clean_up_tokenization_spaces=False)
+            re_ids = list(self.tokenizer.encode(text,
+                                                add_special_tokens=False))
+            if re_ids == new_out:
+                return None
+            if self.tokenizer.decode(
+                    re_ids, skip_special_tokens=False,
+                    clean_up_tokenization_spaces=False) != text:
+                return None
+            return re_ids
+        except Exception:  # noqa: BLE001 - healing is best effort
+            return None
+
+    def _maybe_jump(self, req: Request) -> bool:
+        """One jump of `req`: take its constraint's forced run (within its
+        token budget and the largest bucket), heal the output, rewind to
+        the first token that differs from what the row holds (d == 0
+        re-extends from the prompt's last token), fold the new tokens into
+        the penalty histograms, extend them from that position, and sample
+        the next token. → whether it jumped."""
+        budget = min(req.max_new_tokens - len(req.output_ids) - 1,
+                     max(self.ecfg.prefill_buckets) - 1)
+        if budget <= 0:
+            return False
+        forced = req.constraint.forced_run(budget)
+        if not forced:
+            return False
+        row = req.batch_row
+        P = len(req.input_ids)
+        old_out = list(req.output_ids)
+        new_out = old_out + forced
+        healed = self._heal_tokens(new_out)
+        if healed is None:
+            final = new_out
+            d = len(old_out)             # append only
+        else:
+            final = healed[:req.max_new_tokens]
+            # the first position where the row's tokens change; the DFA
+            # state follows the text, so it holds across the re-tokenizing
+            d = 0
+            for a, b in zip(final, old_out):
+                if a != b:
+                    break
+                d += 1
+        self._gen_total += max(0, len(final) - len(req.output_ids))
+        req.output_ids = list(final)
+        if healed is None:
+            self.runner.count_tokens(row, forced)
+        else:   # another multiset of tokens: rebuild the row's histograms
+            self.runner.reset_row_stats(row, self._prompt_seen(req))
+            self.runner.count_tokens(row, final)
+        if req.constraint.finished:
+            req.finished = FinishReason.EOS
+        req.check_finished()
+        self._check_stop_strs(req)
+        if req.finished is not None:
+            return True
+        # rows at positions >= the first written one are overwritten
+        if d == 0:
+            toks, off = [req.input_ids[-1]] + list(final), P - 1
+        else:
+            toks, off = list(final[d - 1:]), P + d - 1
+        bucket = max(self.ecfg.prefill_buckets)
+        for start in range(0, len(toks), bucket):
+            part = toks[start:start + bucket]
+            ids = np.zeros((1, self._bucket(len(part))), np.int64)
+            ids[0, :len(part)] = np.clip(part, 0, self.cfg.vocab_size - 1)
+            logits = self.runner.extend(
+                self.runner.embed(ids).to(self.ecfg.kv_dtype), [row],
+                [off + start], [off + start + len(part)])
+        self._emit([req], logits, np.asarray([row], np.int32))
+        return True
 
     def _check_stop_strs(self, req: Request) -> None:
         """Finish a request whose output holds one of its stop strings
@@ -1388,10 +1638,18 @@ class ServeEngine:
         row = req.batch_row
         if 0 <= row < len(self.row_reqs) and self.row_reqs[row] is req:
             self.row_reqs[row] = None
+        partial = req.prefill_active
+        if partial:   # aborted mid-prefill: the row holds part of a prompt
+            if req in self.prefilling:
+                self.prefilling.remove(req)
+            req.prefill_active = False
+            req.prefill_embeds = None
         try:
             # a request aborted while waiting, or whose admission failed,
-            # holds no lock and extended nothing
-            if req.prefix_locked and row >= 0 and self.pool is not None:
+            # holds no lock and extended nothing; a partly prefilled one
+            # must not enter the tree
+            if req.prefix_locked and row >= 0 and self.pool is not None \
+                    and not partial:
                 self._cache_prompt(req, row)
         finally:
             self._unlock(req)

@@ -3,8 +3,8 @@
 The offline and batch entry of the reference's benchmark and judge
 scripts (sglang's `Runtime`, srt/server.py:501-640): submit N prompts to
 a `ServeEngine`, step it until every request is done, and return the
-texts in input order; continuous batching, the prefix cache and stop
-strings included. Constrained decoding (`regex=`) is not ported.
+texts in input order; continuous batching, the prefix cache, stop strings
+and regex-constrained decoding with jump-forward (`regex=`) included.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from aurora_tpu_torch.models.convert import (_read_config,
                                              llama_params_from_hf,
                                              load_torch_state_dict)
 from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+from aurora_tpu_torch.serve.fsm import RegexConstraint
 from aurora_tpu_torch.serve.scheduler import Request
 
 
@@ -57,10 +58,9 @@ class Runtime:
                  ) -> Union[Dict[str, Any], List[Dict[str, Any]]]:
         """Batch generation → [{"text", "output_ids", "finish_reason"}]
         in input order (a single-string prompt returns one dict). A text
-        that a stop string ended is cut just before the stop."""
-        if regex is not None:
-            raise NotImplementedError("constrained decoding (regex=) is not "
-                                      "ported yet")
+        that a stop string ended is cut just before the stop. regex: every
+        output is held to the pattern (serve/fsm.py RegexConstraint; a
+        malformed or over-complex pattern raises ValueError)."""
         single = isinstance(prompts, str)
         if prompts is not None:
             if single:
@@ -73,11 +73,19 @@ class Runtime:
         sampling = sampling or SamplingParams()
         eos = (tuple({self.tokenizer.eos_token_id} - {None})
                if self.tokenizer is not None else ()) or (2,)
+        reqs = []     # every constraint built before any request is queued
         for i, ids in enumerate(input_ids):
-            self.engine.add_request(Request(
+            constraint = None
+            if regex is not None:
+                constraint = RegexConstraint(regex, self.tokenizer,
+                                             self.engine.cfg.vocab_size,
+                                             eos_ids=eos)
+            reqs.append(Request(
                 rid=f"rt{i}", input_ids=[int(t) for t in ids],
                 sampling=sampling, max_new_tokens=max_new_tokens,
-                eos_ids=eos, stop_strs=tuple(stop)))
+                eos_ids=eos, stop_strs=tuple(stop), constraint=constraint))
+        for r in reqs:
+            self.engine.add_request(r)
         done: Dict[str, Request] = {}
         for _ in range(max_steps):
             for r in self.engine.step():

@@ -44,6 +44,7 @@ class Request:
     max_new_tokens: int = 128
     eos_ids: tuple = (2,)
     stop_strs: tuple = ()
+    # serve/constrained.py ChoiceConstraint or serve/fsm.py RegexConstraint
     constraint: Any = None
     stream: bool = False
     logprobs: bool = False
@@ -59,6 +60,12 @@ class Request:
     prefix_locked: bool = False    # the LPM pre-match takes no lock
     n_cached: int = 0              # prefix length at admission
     extend_len_pending: int = 0    # new prompt tokens at admission
+    # interleaved chunked prefill (a prompt past the largest bucket): its
+    # embeddings on the engine's device and the tokens extended so far;
+    # prefill_active keeps a partly written row out of the radix cache
+    prefill_embeds: Any = None     # torch.Tensor [n_new, D] or None
+    prefill_done: int = 0
+    prefill_active: bool = False
     batch_row: int = -1
     finished: Optional[FinishReason] = None
     error: Optional[str] = None

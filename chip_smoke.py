@@ -151,11 +151,34 @@ Phases, one line each; any failure raises and exits non-zero:
                    decode step's wall with 8 chats plain and with the same
                    8 streamed beside two new clips' ViT (plain, streamed,
                    streamed, plain); the kernels launch, no twin
+                   a 3,000-token prompt (chunked prefill); /generate
+                   under the VDC judge's regex, a chat under choices, a
+                   bad pattern (400); a lang.py judge program (regex gen,
+                   yes/no select) through RuntimeEndpoint, run_batch of 8
     serve-http-update — /update_weights on a second server at Vicuna-7B
                    widths and 2 layers from two HF directories written
                    here: other tokens after the swap, equal to a fresh
                    engine's on the new weights; every live tensor at its
                    address; a missing directory 400, the tokens kept
+    serve-chunked  — the same W4 weights, int8 KV, 8 lanes, the engine's
+                   default buckets, radix on, at inference.py's kept ratio
+                   0.8: two 8x360x640 .npy videos (read_video, the card's
+                   resize-crop) whose ~4.9k-token prompts prefill in 3
+                   chunks of 2048 while 6 text prompts decode, each of
+                   which gains a token every step of a chunk; their tokens
+                   against the same requests in one wave (bucket 5120) up
+                   to a near tie; 32 extend launches at q_offsets > 0 a
+                   later chunk; a second question on a video hits its
+                   prefix; a third video aborted after its first chunk
+                   adds nothing to the tree and leaks nothing
+    serve-constrained — the same weights at 16 lanes, ByteTokenizer: the
+                   judge regex's token table at V = 32000 (build s); 8
+                   requests under it alone, every text full-matching, in
+                   fewer decode steps than half a request's tokens
+                   (jump-forward); then 8 regex, 4 choice (VDC's aspects)
+                   and 4 free requests in one batch, the free lanes equal
+                   to their run alone up to a near tie; decode ms a step
+                   with masks and without; no leak, no twin
     serve-mistral-bf16 / -kv8 / -kv4 — the AuroraCap weights freed,
                    Mistral-7B (32 layers, GQA 32/8, window 4096, random
                    bf16 weights) serves 4 prompts of 5,000-6,100 random
@@ -165,6 +188,11 @@ Phases, one line each; any failure raises and exits non-zero:
                    decode step, the plain twins' 0
     logits-mistral-* — as 10 (extend wave and one decode step), with
                    its bound's reason
+    serve-chunked-mistral — serve-mistral-kv8's prompts at the engine's
+                   default buckets: 3 chunks each, the window reaching
+                   keys of earlier chunks; 32 windowed extend launches a
+                   chunk step (those at q_offsets > 0 counted); tokens
+                   against the one-wave run up to a near tie
 17. kernels flash — the flash forward, dK/dV and dQ kernels vs the fp32
                    twin (out, lse, dQ/dK/dV from one seeded dO) at the
                    training shape (B 4, T 2048, H 32, D 128, causal),
@@ -354,6 +382,25 @@ HTTP_LANES = 8            # chats plain, then streamed beside 2 videos
 HTTP_ABORT_MAX_NEW = 1500
 HTTP_UPDATE_LAYERS = 2
 HTTP_UPDATE_MAX_NEW = 32
+# [serve-chunked]: AuroraCap at inference.py's default kept ratio (8 frames
+# of 605 visual tokens: ~4.9k-token prompts, 3 chunks of the engine's
+# largest bucket, 2048), 2 videos of 8 x 360 x 640 admitted beside 6 text
+# prompts already decoding, then one more video aborted after its first
+# chunk; the one-wave run's bucket; the pool holds both videos' prompts
+CHUNKED_KEPT_RATIO = 0.8
+CHUNKED_VIDEO_SHAPE = (8, 360, 640, 3)
+CHUNKED_INCUMBENTS = 6
+CHUNKED_MAX_NEW = 64
+CHUNKED_ONE_WAVE = 5120
+CHUNKED_SLOTS = 16384
+# [serve-constrained]: the VDC judge's answer (aurora_tpu/eval/judge.py's
+# dict) as a regex, VDC's five caption aspects as choices
+JUDGE_REGEX = r"\{'pred': '(yes|no)', 'score': [0-5]\}"
+ASPECTS = ("detailed", "background", "short", "main object", "camera")
+CONSTRAINED_MAX_NEW = 48
+CONSTRAINED_FREE_MAX_NEW = 32
+# [serve-http]: the long prompt's characters (one ByteTokenizer id each)
+HTTP_LONG_PROMPT = 3000
 # the radix run's tokens against the radix-off run's: equal until the first
 # flip, which must sit on a top-2 logprob gap below this (the near-tie
 # contract of tests/test_torch_engine_quant.py)
@@ -1513,9 +1560,12 @@ def mistral_phase(torch, engine_mod, ra, dev, card, plains):
                     (ra.ragged_attention, counter),
                     (ra.ragged_decode_attention, counter)] + plains
         reqs = [Request(rid=f"m{i}", input_ids=list(p),
-                        max_new_tokens=max_new, eos_ids=())
+                        max_new_tokens=max_new, eos_ids=(),
+                        logprobs=run == "kv8")
                 for i, p in enumerate(prompts)]
         wall, counts = serve(torch, engine, reqs, counters, max_new)
+        if run == "kv8":
+            one_wave = {r.rid: r for r in reqs}
         ext_w, dec_w, ext_n, dec_n = (counts[f"{f.__name__}.{a}"]
                                       for f, a in counters[:4])
         steps = engine._steps
@@ -1548,10 +1598,71 @@ def mistral_phase(torch, engine_mod, ra, dev, card, plains):
         out[run] = (ext_w, dec_w)
         del engine, counted_wave
         gc.collect()
+    out["chunked"] = mistral_chunked(torch, ra, llm, cfg, prompts, one_wave,
+                                     dev, card, plains)
     del llm
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def mistral_chunked(torch, ra, llm, cfg, prompts, one_wave, dev, card,
+                    plains):
+    """[serve-chunked-mistral]: [serve-mistral-kv8]'s prompts at the
+    engine's default buckets, so that each prefills in 3 chunks of at most
+    2048 and the 4096-token window of the later chunks reaches keys that
+    earlier chunks wrote: windowed extend launches 32 a chunk step, those
+    at q_offsets > 0 counted; tokens against the one-wave run (bucket
+    6144) under the near-tie rule → (windowed extend launches, windowed
+    decode launches)."""
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    L, max_new = cfg.num_hidden_layers, 64
+    ecfg = EngineConfig(max_batch=N_REQUESTS, max_seq_len=6400,
+                        kv_chunk=1024, decode_steps=16, kv_quant="int8",
+                        disable_radix_cache=True)
+    engine = ServeEngine(llm, cfg, ecfg, device=dev, seed=SEED)
+    offsets = offset_extends(engine, ra.ragged_attention, "launches_window")
+    chunk_s = timed_chunks(torch, engine)
+    counters = [(ra.ragged_attention, "launches_window"),
+                (ra.ragged_decode_attention, "launches_window"),
+                (ra.ragged_attention, "launches_int8"),
+                (ra.ragged_decode_attention, "launches_int8")] + plains
+    reqs = [Request(rid=f"m{i}", input_ids=list(p), max_new_tokens=max_new,
+                    eos_ids=(), logprobs=True)
+            for i, p in enumerate(prompts)]
+    wall, counts = serve(torch, engine, reqs, counters, max_new)
+    ext_w, dec_w, ext_n, dec_n = (counts[f"{f.__name__}.{a}"]
+                                  for f, a in counters[:4])
+    at_offset = [n for off, n in offsets if off > 0]
+    flips, gap, lp = near_tie({r.rid: r for r in reqs}, one_wave)
+    steps = engine._steps
+    phase("serve-chunked-mistral", card=repr(card),
+          config=f"mistral-7b/L{L}/window{cfg.sliding_window}/bf16-weights/"
+                 "kv-int8",
+          buckets="/".join(map(str, ecfg.prefill_buckets)),
+          prompt_tokens=",".join(str(len(p)) for p in prompts),
+          new_tokens=max_new,
+          chunk_extend_s=",".join(f"{t:.4f}" for t in chunk_s),
+          decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+          decode_steps=steps, wall_s=f"{wall:.2f}",
+          windowed_extend_launches=ext_w,
+          windowed_extend_launches_at_offset=",".join(map(str, at_offset)),
+          flips=flips, worst_flip_gap=f"{gap:.3e}", near_tie=NEAR_TIE,
+          worst_top1_logprob_diff=f"{lp:.3e}",
+          launches=json.dumps(counts).replace(" ", ""))
+    check(len(chunk_s) == 3, f"{len(chunk_s)} chunk steps")
+    check(ext_w == ext_n == 3 * L and at_offset == [L, L],
+          f"windowed extend launches {ext_w} / {ext_n}, at q_offsets > 0 "
+          f"{at_offset}")
+    check(dec_w == dec_n == L * steps,
+          f"windowed decode launches {dec_w} / {dec_n}, steps {steps}")
+    check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+          f"plain twins ran: {counts}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ext_w, dec_w
 
 
 def near_tie(got, want):
@@ -1577,16 +1688,15 @@ def near_tie(got, want):
     return flips, worst_gap, worst_lp
 
 
-def write_videos(tmp, n):
-    """The first n of the synthetic .npy videos (bench.py's shape) from
-    one seeded stream → their paths; [infer] reads the first of
-    [resize-crop]'s."""
-    host = np.random.default_rng(SEED + 8)
+def write_videos(tmp, n, shape=PREFIX_VIDEO_SHAPE, seed=SEED + 8):
+    """The first n of the synthetic .npy videos (bench.py's shape unless
+    given) from one seeded stream → their paths; [infer] reads the first
+    of [resize-crop]'s."""
+    host = np.random.default_rng(seed)
     paths = []
     for i in range(n):
         paths.append(os.path.join(tmp, f"v{i}.npy"))
-        np.save(paths[-1], host.integers(0, 255, size=PREFIX_VIDEO_SHAPE,
-                                         dtype=np.uint8))
+        np.save(paths[-1], host.integers(0, 255, size=shape, dtype=np.uint8))
     return paths
 
 
@@ -1756,6 +1866,389 @@ def prefix_phase(torch, engine_mod, mm, llm, llm_cfg, dev, card, kernels,
           vit_repeat_max_diff=vit_diff, flips=flips,
           worst_flip_gap=f"{gap:.3e}", near_tie=NEAR_TIE,
           worst_top1_logprob_diff=f"{lp:.3e}")
+
+
+def offset_extends(engine, kernel, counter):
+    """Wrap engine.runner.extend → the list it fills: for each extend call
+    of the engine, (its lanes' largest q_offset, the rise of the extend
+    kernel's `counter` during the call)."""
+    calls, real = [], engine.runner.extend
+
+    def extend(embeds, row_ids, q_offsets, kv_lens):
+        n0 = getattr(kernel, counter)
+        out = real(embeds, row_ids, q_offsets, kv_lens)
+        calls.append((int(np.max(q_offsets)), getattr(kernel, counter) - n0))
+        return out
+
+    engine.runner.extend = extend
+    return calls
+
+
+def timed_chunks(torch, engine):
+    """Wrap engine._prefill_chunk → the list of its calls' seconds (the
+    card synchronized on both sides)."""
+    times, real = [], engine._prefill_chunk
+
+    def chunk(work):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real(work)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+
+    engine._prefill_chunk = chunk
+    return times
+
+
+def chunked_phase(torch, ra, mm, llm, llm_cfg, dev, card, kernels, plains):
+    """[serve-chunked]: AuroraCap-7B (W4 stripes + int8 KV, 8 lanes, the
+    engine's default buckets, radix on) at inference.py's kept ratio 0.8:
+    two synthetic videos read by read_video and resized on the card, whose
+    ~4.9k-token prompts take 3 chunks each, admitted while 6 text prompts
+    decode; the incumbents gain a token every step of a chunk; the videos'
+    tokens against the same requests in one wave (bucket 5120) under the
+    near-tie rule; a second question on a finished video hits its prefix;
+    a third video aborted after its first chunk adds nothing to the tree
+    and leaks nothing. kernels: the (function, counter) pairs the run must
+    launch, the int8 extend first; plains: those that must stay 0."""
+    import tempfile
+    from aurora_tpu_torch.data.preprocess import clip_resize_crop_device
+    from aurora_tpu_torch.data.video import read_video
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.multimodal import \
+        _PLACEHOLDER_BASE as placeholder_base
+    from aurora_tpu_torch.serve.scheduler import Request
+    tok = ByteTokenizer()
+    size = mm.image_size
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_videos(tmp, 3, CHUNKED_VIDEO_SHAPE, SEED + 9)
+        clips = []
+        for path in paths:
+            v = torch.as_tensor(read_video(path, N_FRAMES), device=dev)
+            clips.append(clip_resize_crop_device(v, size, size).to(
+                torch.uint8).cpu().numpy())
+    images = " ".join(["<image>"] * N_FRAMES)
+
+    def video_req(rid, v, q, logprobs=True):
+        return mm.build_request(
+            rid, f"USER: {images}\n{VDC_PROMPTS[q]} ASSISTANT:", clips[v],
+            kept_ratio=CHUNKED_KEPT_RATIO, max_new_tokens=CHUNKED_MAX_NEW,
+            eos_ids=(), logprobs=logprobs)
+
+    def videos():
+        return [video_req(f"video{v}", v, 0) for v in range(2)]
+
+    # the longest prompt served: the videos, the second question, the abort
+    P = max(len(r.input_ids) for r in videos() + [
+        video_req("x", 0, 1), video_req("x", 2, 0)])
+    bucket = max(EngineConfig().prefill_buckets)
+    check(2 * bucket < P <= CHUNKED_ONE_WAVE,
+          f"video prompts of {P} tokens: not 3 chunks of {bucket}")
+    incumbents = [Request(
+        rid=f"text{i}", input_ids=tok.encode(
+            f"USER: {VDC_PROMPTS[i % len(VDC_PROMPTS)]} ({i}) ASSISTANT:"),
+        max_new_tokens=CHUNKED_MAX_NEW, eos_ids=())
+        for i in range(CHUNKED_INCUMBENTS)]
+    common = dict(weight_quant="int4", kv_quant="int8",
+                  max_seq_len=P + CHUNKED_MAX_NEW)
+    ecfg = EngineConfig(num_slots=CHUNKED_SLOTS, **common)
+    vit_s = []
+
+    def timed_embed_fn(req):
+        """mm.embed_fn, its seconds kept (the ViT runs at admission)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = mm.embed_fn(req)
+        torch.cuda.synchronize()
+        vit_s.append(time.perf_counter() - t)
+        return out
+
+    engine = ServeEngine(llm, llm_cfg, ecfg, embed_fn=timed_embed_fn,
+                         device=dev, seed=SEED)
+    check(engine.runner.model is llm, "serve-chunked: the model was not "
+                                      "served as given")
+    for obj, attr in kernels + plains:
+        setattr(obj, attr, 0)
+    offsets = offset_extends(engine, *kernels[0])
+    chunk_s = timed_chunks(torch, engine)
+    done = {}
+
+    def step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = len(chunk_s)
+        for r in engine.step():
+            done[r.rid] = r
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, len(chunk_s) > n
+
+    t0 = time.perf_counter()
+    for r in incumbents:
+        engine.add_request(r)
+    step()
+    step()                          # the 6 decode
+    vids = videos()
+    for r in vids:
+        engine.add_request(r)
+    with_chunk, without, interleaved = [], [], 0
+    while engine.has_work():
+        before = {r.rid: len(r.output_ids) for r in incumbents}
+        wall, chunked = step()
+        if chunked:
+            with_chunk.append(wall)
+            for r in incumbents:
+                gained = len(r.output_ids) - before[r.rid]
+                check(gained == 1 or r.finished is not None,
+                      f"{r.rid} gained {gained} tokens in a step with a "
+                      "chunk")
+            interleaved += 1
+        elif all(r.output_ids for r in vids):
+            without.append(wall)
+    wall = time.perf_counter() - t0
+    counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+              for obj, attr in kernels + plains}
+    check(len(chunk_s) == 3 and interleaved == 3,
+          f"{len(chunk_s)} chunk calls, {interleaved} steps with a chunk")
+    video_chunks, video_vit_s = list(chunk_s), list(vit_s)
+    for r in incumbents + vids:
+        check(done[r.rid].finished.value == "length"
+              and len(r.output_ids) == CHUNKED_MAX_NEW,
+              f"{r.rid}: {r.finished} {len(r.output_ids)} tokens")
+    check(all(r.n_cached == 0 for r in vids), "the videos hit a prefix")
+    chunk_offsets = [n for off, n in offsets if off > 0]
+    check(len(chunk_offsets) == 2 and all(
+        n == llm_cfg.num_hidden_layers for n in chunk_offsets),
+        f"extends at q_offsets > 0: {offsets}")
+    mem1 = engine.check_memory()
+    check(mem1["leaked"] == 0, f"serve-chunked: {mem1}")
+    # a second question on video 0: its prefix is cached
+    q2 = video_req("video0q2", 0, 1)
+    shared = len(os.path.commonprefix([q2.input_ids, vids[0].input_ids]))
+    engine.add_request(q2)
+    while "video0q2" not in done:
+        step()
+    check(q2.n_cached >= shared and q2.extend_len_pending <= bucket,
+          f"the second question cached {q2.n_cached} of {shared} shared "
+          "tokens")
+    # a third video aborted after its first chunk
+    cached = engine.radix.total_cached_tokens()
+    x = video_req("abort", 2, 0)
+    engine.add_request(x)
+    step()
+    check(x.prefill_active and x.prefill_done == bucket,
+          f"after one step: prefill_active {x.prefill_active}, "
+          f"{x.prefill_done} done")
+    check(engine.abort("abort"), "abort refused")
+    step()
+    mem = engine.check_memory()
+    hit = len(engine.radix.match_prefix(x.input_ids)[0])
+    text_head = next(i for i, t in enumerate(x.input_ids)
+                     if t >= placeholder_base)
+    check(done["abort"].finished.value == "abort" and not x.output_ids
+          and x.prefill_embeds is None and not x.prefix_locked,
+          f"abort: {x.finished} {len(x.output_ids)} tokens")
+    check(mem["leaked"] == 0 and engine.radix.total_cached_tokens() == cached
+          and hit <= text_head,
+          f"abort: {mem}, {engine.radix.total_cached_tokens()} cached "
+          f"against {cached}, its prompt hits {hit}")
+    decode_ms = engine.t_decode_s / max(engine._steps, 1) * 1e3
+    steps = engine._steps
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same two videos in one wave
+    one = ServeEngine(llm, llm_cfg, EngineConfig(
+        prefill_buckets=(CHUNKED_ONE_WAVE,), disable_radix_cache=True,
+        **common), embed_fn=mm.embed_fn, device=dev, seed=SEED)
+    ref = videos()
+    one_wall, one_counts = serve(torch, one, ref, kernels + plains,
+                                 CHUNKED_MAX_NEW)
+    flips, gap, lp = near_tie({r.rid: r for r in vids},
+                              {r.rid: r for r in ref})
+    phase("serve-chunked", card=repr(card),
+          config="auroracap-7b/w4-stripes/kv-int8/8-lanes/radix",
+          kept_ratio=CHUNKED_KEPT_RATIO,
+          video=f"{CHUNKED_VIDEO_SHAPE[0]}x{CHUNKED_VIDEO_SHAPE[1]}x"
+                f"{CHUNKED_VIDEO_SHAPE[2]}",
+          prompt_tokens=",".join(str(len(r.input_ids)) for r in vids),
+          max_seq_len=ecfg.max_seq_len, num_slots=ecfg.num_slots,
+          buckets="/".join(map(str, ecfg.prefill_buckets)),
+          incumbents=CHUNKED_INCUMBENTS, new_tokens=CHUNKED_MAX_NEW,
+          chunk_extend_s=",".join(f"{t:.4f}" for t in video_chunks),
+          abort_chunk_s=f"{chunk_s[-1]:.4f}",
+          admission_embed_s=",".join(f"{t:.4f}" for t in video_vit_s),
+          step_ms_with_chunk=",".join(f"{t * 1e3:.3f}" for t in with_chunk),
+          step_ms_without_chunk=f"{np.mean(without) * 1e3:.3f}",
+          decode_ms_per_step=f"{decode_ms:.3f}", decode_steps=steps,
+          wall_s=f"{wall:.2f}", one_wave_wall_s=f"{one_wall:.2f}",
+          extend_launches_at_offset=",".join(map(str, chunk_offsets)),
+          second_question_cached=f"{q2.n_cached}/{len(q2.input_ids)}",
+          abort_check_memory=json.dumps(mem).replace(" ", ""),
+          flips=flips, worst_flip_gap=f"{gap:.3e}", near_tie=NEAR_TIE,
+          worst_top1_logprob_diff=f"{lp:.3e}",
+          launches=json.dumps(counts).replace(" ", ""),
+          launches_one_wave=json.dumps(one_counts).replace(" ", ""))
+    for c in (counts, one_counts):
+        check(all(c[f"{f.__name__}.{a}"] > 0 for f, a in kernels),
+              f"serve-chunked: launches {c}")
+        check(all(c[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"serve-chunked: plain twins ran: {c}")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def constrained_phase(torch, ra, llm, llm_cfg, dev, card, kernels, plains):
+    """[serve-constrained]: AuroraCap-7B's LLM (W4 stripes + int8 KV) at
+    EngineConfig's defaults but 16 lanes, ByteTokenizer: the TokenFSM of
+    the judge's regex built at V = 32000; 8 requests under it alone (every
+    text full-matches, decode steps fewer than half a request's tokens:
+    jump-forward); then 8 regex, 4 choice (VDC's five aspects) and 4 free
+    requests in one batch (every constrained text inside its constraint;
+    the free lanes' tokens equal to their run alone up to a near tie);
+    decode ms a step with masks against without; the jump extends."""
+    from aurora_tpu_torch.serve import fsm
+    from aurora_tpu_torch.serve.constrained import ChoiceConstraint
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    import re
+    tok = ByteTokenizer()
+    V = llm_cfg.vocab_size
+    fsm._FSM_CACHE.clear()
+    t0 = time.perf_counter()
+    table = fsm.get_token_fsm(JUDGE_REGEX, tok, V)
+    build_s = time.perf_counter() - t0
+    ecfg = EngineConfig(weight_quant="int4", kv_quant="int8", max_batch=16)
+    engine = ServeEngine(llm, llm_cfg, ecfg, tokenizer=tok, device=dev,
+                         seed=SEED)
+    check(engine.runner.model is llm, "serve-constrained: the model was "
+                                      "not served as given")
+    decode_ms = {True: [], False: []}
+    real_block = engine.runner.decode_block
+
+    def decode_block(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_block(*a, **k)
+        decode_ms[a[5] is not None].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    engine.runner.decode_block = decode_block
+    jumps = {"calls": 0, "extends": 0, "launches": 0}
+    extends = offset_extends(engine, *kernels[0])
+    real_jump = engine._maybe_jump
+
+    def maybe_jump(req):
+        n = len(extends)
+        fired = real_jump(req)
+        jumps["calls"] += fired
+        jumps["extends"] += len(extends) - n
+        jumps["launches"] += sum(k for _, k in extends[n:])
+        return fired
+
+    engine._maybe_jump = maybe_jump
+
+    def prompt(i, what):
+        return tok.encode(f"USER: {what} ({i}) ASSISTANT:")
+
+    def regex_reqs():
+        return [Request(rid=f"judge{i}", input_ids=prompt(
+            i, "Is the caption right? Answer as a dict."),
+            max_new_tokens=CONSTRAINED_MAX_NEW, eos_ids=(2,),
+            constraint=fsm.RegexConstraint(JUDGE_REGEX, tok, V,
+                                           eos_ids=(2,)))
+            for i in range(8)]
+
+    def free_reqs():
+        return [Request(rid=f"free{i}", input_ids=prompt(i, VDC_PROMPTS[i]),
+                        max_new_tokens=CONSTRAINED_FREE_MAX_NEW,
+                        eos_ids=(), logprobs=True) for i in range(4)]
+
+    def drive(reqs):
+        for obj, attr in kernels + plains:
+            setattr(obj, attr, 0)
+        steps, done = engine._steps, {}
+        for r in reqs:
+            engine.add_request(r)
+        while engine.has_work():
+            done.update({r.rid: r for r in engine.step()})
+        check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} done")
+        return done, engine._steps - steps, {
+            f"{obj.__name__}.{attr}": getattr(obj, attr)
+            for obj, attr in kernels + plains}
+
+    def text(r):
+        return tok.decode([t for t in r.output_ids if t != 2])
+
+    # 1. the regex alone: jump-forward
+    judged, steps1, counts1 = drive(regex_reqs())
+    for r in judged.values():
+        check(re.fullmatch(JUDGE_REGEX, text(r)) is not None
+              and r.finished.value == "stop", f"{r.rid}: {text(r)!r}")
+    fewest = min(len(r.output_ids) for r in judged.values())
+    check(steps1 < fewest / 2, f"{steps1} decode steps for outputs of "
+                               f"{fewest} tokens or more")
+    jumps1 = dict(jumps)
+    engine.flush_cache()
+    # 2. regex, choices and free lanes in one batch
+    masked_before = len(decode_ms[True])
+    choice_reqs = [Request(rid=f"aspect{i}", input_ids=prompt(
+        i, "Which aspect does this caption describe?"),
+        max_new_tokens=CONSTRAINED_MAX_NEW, eos_ids=(2,),
+        constraint=ChoiceConstraint.from_strings(tok, ASPECTS))
+        for i in range(4)]
+    mixed, steps2, counts2 = drive(regex_reqs() + choice_reqs + free_reqs())
+    engine.flush_cache()
+    for r in mixed.values():
+        if r.rid.startswith("judge"):
+            check(re.fullmatch(JUDGE_REGEX, text(r)) is not None,
+                  f"{r.rid}: {text(r)!r}")
+        elif r.rid.startswith("aspect"):
+            check(text(r) in ASPECTS, f"{r.rid}: {text(r)!r}")
+    # 3. the free lanes alone
+    alone, steps3, counts3 = drive(free_reqs())
+    flips, gap, lp = near_tie({k: v for k, v in mixed.items()
+                               if k.startswith("free")}, alone)
+    mem = engine.check_memory()
+    phase("serve-constrained", card=repr(card),
+          config="auroracap-7b-llm/w4-stripes/kv-int8/16-lanes",
+          regex=json.dumps(JUDGE_REGEX), vocab=V,
+          token_fsm_build_s=f"{build_s:.3f}",
+          dfa_states=table.dfa.trans.shape[0],
+          regex_tokens=",".join(str(len(r.output_ids))
+                                for r in judged.values()),
+          regex_decode_steps=steps1, regex_jumps=jumps1["calls"],
+          regex_jump_extends=jumps1["extends"],
+          jump_extends=jumps["extends"],
+          jump_extend_launches=jumps["launches"],
+          mixed_decode_steps=steps2, alone_decode_steps=steps3,
+          masked_decode_steps=len(decode_ms[True]) - masked_before,
+          decode_ms_masked=f"{np.mean(decode_ms[True]):.3f}",
+          decode_ms_unmasked=f"{np.mean(decode_ms[False]):.3f}",
+          aspects=",".join(text(mixed[f"aspect{i}"]) for i in range(4)),
+          answer0=json.dumps(text(judged["judge0"])),
+          free_flips=flips, worst_flip_gap=f"{gap:.3e}", near_tie=NEAR_TIE,
+          worst_top1_logprob_diff=f"{lp:.3e}",
+          check_memory=json.dumps(mem).replace(" ", ""),
+          launches=json.dumps(counts2).replace(" ", ""))
+    check(mem["leaked"] == 0, f"serve-constrained: {mem}")
+    check(decode_ms[True] and decode_ms[False], "no masked or no unmasked "
+                                                "decode step")
+    # the regex-only run may decode no step at all: its extends (the
+    # jumps' among them) must launch
+    f, a = kernels[0]
+    check(counts1[f"{f.__name__}.{a}"] > 0, f"serve-constrained: {counts1}")
+    for c in (counts2, counts3):
+        check(all(c[f"{f.__name__}.{a}"] > 0 for f, a in kernels),
+              f"serve-constrained: launches {c}")
+    for c in (counts1, counts2, counts3):
+        check(all(c[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"serve-constrained: plain twins ran: {c}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts2
 
 
 def _write_safetensors(torch, path, tensors):
@@ -2248,15 +2741,23 @@ def http_phase(torch, llm, llm_cfg, mm, dev, card, kernels, plains,
     which hits its prefix; an abort in mid-decode; the decode step's wall
     with 8 chats plain and with the same 8 streamed beside two videos'
     ViT (the GIL's cost); the ops endpoints; /v1/embeddings refused on
-    W4. The int8 attention and W4A8 kernels launch, no plain twin does."""
+    W4; a prompt of 3,000 tokens, past the largest bucket (chunked
+    prefill); /generate under the judge's regex, a chat under choices, a
+    bad pattern (400); a lang.py judge program (a gen under the regex, a
+    yes/no select) through RuntimeEndpoint, run_batch of 8. The engine
+    takes the serve CLI's max_seq_len, 4096. The int8 attention and W4A8
+    kernels launch, no plain twin does."""
+    import re
     import shutil
     from concurrent.futures import ThreadPoolExecutor
+    from aurora_tpu_torch import lang
     from aurora_tpu_torch.cli import bench_serving
     from aurora_tpu_torch.serve.api import ServerThread, ServingLoop
     from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
     tok = ByteTokenizer()
     engine = ServeEngine(llm, llm_cfg, EngineConfig(weight_quant="int4",
-                                                    kv_quant="int8"),
+                                                    kv_quant="int8",
+                                                    max_seq_len=4096),
                          embed_fn=mm.embed_fn, tokenizer=tok)
     check(engine.runner.model is llm, "serve-http: the model was not "
                                       "served as given")
@@ -2412,13 +2913,62 @@ def http_phase(torch, llm, llm_cfg, mm, dev, card, kernels, plains,
         status, body = http_call(url, "POST", "/v1/embeddings",
                                  {"input": "hello"})
         check(status == 400, f"/v1/embeddings on W4: {status} {body}")
+        # 8. a prompt past the largest bucket: prefilled in chunks
+        long_text = (" ".join(VDC_PROMPTS) * 8)[:HTTP_LONG_PROMPT - 1]
+        t0 = time.perf_counter()
+        status, body = http_call(url, "POST", "/generate", {
+            "text": long_text, "max_new_tokens": 16, "temperature": 0.0})
+        check(status == 200 and body["meta_info"]["prompt_tokens"]
+              == HTTP_LONG_PROMPT and body["output_ids"],
+              f"long prompt: {status} {body}")
+        out.update(long_prompt_tokens=body["meta_info"]["prompt_tokens"],
+                   long_prompt_s=f"{time.perf_counter() - t0:.3f}")
+        # 9. constrained: a regex, choices, a bad pattern
+        status, body = http_call(url, "POST", "/generate", {
+            "text": "USER: Is the caption right? ASSISTANT:",
+            "max_new_tokens": 48, "temperature": 0.0, "regex": JUDGE_REGEX})
+        check(status == 200 and re.fullmatch(JUDGE_REGEX, body["text"]),
+              f"regex /generate: {status} {body}")
+        out["regex_answer"] = json.dumps(body["text"])
+        status, body = http_call(url, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Which aspect?"}],
+            "max_tokens": 16, "temperature": 0.0,
+            "choices_constraint": list(ASPECTS)})
+        check(status == 200 and body["choices"][0]["message"]["content"]
+              in ASPECTS, f"choices chat: {status} {body}")
+        out["choice_answer"] = body["choices"][0]["message"]["content"]
+        status, body = http_call(url, "POST", "/generate", {
+            "text": "x", "max_new_tokens": 4, "regex": "a{99999}"})
+        check(status == 400, f"bad pattern: {status} {body}")
+        # 10. a lang.py judge program, 8 at once
+
+        @lang.function
+        def judge(s, caption):
+            s += lang.user(f"Caption: {caption}. Is it right?")
+            s += lang.assistant(lang.gen("verdict", max_tokens=48,
+                                         regex=JUDGE_REGEX))
+            s += lang.user("Are you sure?")
+            s += lang.assistant(lang.select("sure", ["yes", "no"]))
+
+        t0 = time.perf_counter()
+        states = judge.run_batch(
+            [{"caption": VDC_PROMPTS[i % len(VDC_PROMPTS)][:60]}
+             for i in range(8)], backend=lang.RuntimeEndpoint(url),
+            num_threads=8)
+        for st in states:
+            check(re.fullmatch(JUDGE_REGEX, st["verdict"])
+                  and st["sure"] in ("yes", "no"), f"lang: {st.captured}")
+        out.update(lang_programs=len(states),
+                   lang_s=f"{time.perf_counter() - t0:.3f}",
+                   lang_sure=",".join(st["sure"] for st in states))
     finally:
         srv.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
               for obj, attr in kernels + plains}
     phase("serve-http", card=repr(card),
-          config="auroracap-7b-llm/w4-stripes/kv-int8/engine-defaults",
+          config="auroracap-7b-llm/w4-stripes/kv-int8/engine-defaults/"
+                 "max-seq-4096",
           seconds=f"{time.perf_counter() - t_phase:.1f}",
           requests=load["num_requests"], concurrency=load["concurrency"],
           max_tokens=HTTP_LOAD["max_tokens"], wall_s=load["wall_s"],
@@ -2887,6 +3437,14 @@ def main():
     http_phase(torch, llm_w4, cfg.llm, mm, dev, card, kernels["w4kv8"],
                plains, rt_prompts, rt_first)
     http_update_phase(torch, dev, card, plains)
+
+    # ---- chunked prefill of ~4.9k-token videos beside running decodes ----
+    chunked_phase(torch, ra, mm, llm_w4, cfg.llm, dev, card,
+                  kernels["w4kv8"], plains)
+
+    # ---- regex and choice constraints, jump-forward -----------------------
+    constrained_phase(torch, ra, llm_w4, cfg.llm, dev, card,
+                      kernels["w4kv8"], plains)
 
     # ---- Mistral-7B: the sliding window on the serving path -------------
     del llm_w4, model, mm

@@ -6,7 +6,8 @@ disabled on both. Greedy tokens must be equal exactly: text requests of
 different lengths in one batched extend wave plus a rolling admission,
 with decode_steps 1 and 4, and multimodal requests through both
 AuroraCapServing front ends. Options the port has not ported must raise
-NotImplementedError instead of being ignored.
+NotImplementedError instead of being ignored, and requests the engine
+cannot honour must be refused at add_request.
 """
 
 import dataclasses
@@ -191,12 +192,26 @@ def test_unported_engine_options_raise(field, value):
 
 @pytest.mark.parametrize("kind", ["constraint", "chunked"])
 def test_unported_request_features_raise(tiny, kind):
+    """What the engine cannot honour raises at add_request instead of
+    being ignored. Both features are ported now (tests/
+    test_torch_constrained.py, tests/test_torch_chunked_prefill.py), so
+    each case holds the check that stays: a constraint without the
+    mask / advance / finished interface (TypeError), and a prompt of 65
+    tokens, past the largest bucket, whose 64 new tokens overflow
+    max_seq_len 128 (ValueError); the same prompt with 63 new tokens is
+    accepted and prefilled in two chunks."""
     _, _, model = tiny
     eng = ServeEngine(model.llm, model.cfg.llm, EngineConfig(
         max_batch=2, max_seq_len=128, prefill_buckets=BUCKETS,
         kv_dtype=torch.float32, kv_chunk=64))
     kw = {"constraint": dict(constraint=object()),
-          "chunked": dict(input_ids=list(range(3, 3 + 65)))}[kind]
+          "chunked": dict(input_ids=list(range(3, 3 + 65)),
+                          max_new_tokens=64)}[kind]
     req = Request(**{"rid": "r", "input_ids": [5, 6, 7], **kw})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError if kind == "constraint" else ValueError):
         eng.add_request(req)
+    assert not eng.has_work()
+    if kind == "chunked":
+        done = drain_engine(eng, [Request(rid="ok", input_ids=req.input_ids,
+                                          max_new_tokens=63, eos_ids=())])
+        assert len(done["ok"].output_ids) == 63

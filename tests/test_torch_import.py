@@ -4,7 +4,9 @@ models.convert, generate.engine / generate.beam and the HTTP server
 serve.api with its CLIs named among them),
 serving a tiny multimodal request, generating greedy and beam captions,
 starting the HTTP server (serve/api.py) and having /health and /generate
-answer 200, running the Runtime with a stop string, and taking one
+answer 200, running the Runtime with a stop string, a regex and a prompt
+past the largest bucket (chunked prefill), running a lang.py program over
+the server (a regex gen and a select), and taking one
 multimodal train step on the CPU loads neither JAX nor the JAX package,
 nor aiohttp, which the script blocks (the GPU host has none). Runs in a
 fresh interpreter (this test process has JAX)."""
@@ -26,7 +28,8 @@ for m in pkgutil.walk_packages(aurora_tpu_torch.__path__, "aurora_tpu_torch."):
 for name in ("cli.infer", "serve.runtime", "apis", "__main__",
              "models.convert", "generate.engine", "generate.beam",
              "serve.api", "cli.serve", "cli.chat", "cli.bench_latency",
-             "cli.bench_serving", "utils.http"):
+             "cli.bench_serving", "utils.http", "lang", "serve.fsm",
+             "serve.constrained"):
     importlib.import_module("aurora_tpu_torch." + name)
 
 from aurora_tpu_torch.models.aurora import AuroraConfig, init_aurora
@@ -84,6 +87,20 @@ with ServerThread(ServingLoop(engine, Tok())) as srv:
         assert r.status == 200, (path, r.status, r.read())
         r.read()
         conn.close()
+    from aurora_tpu_torch import lang
+
+    @lang.function
+    def judge(s):
+        s += lang.user("ok?")
+        s += lang.assistant(lang.gen("a", max_tokens=4,
+                                     regex="[\u4e05-\u4e08]{2,3}"))
+        s += lang.assistant(lang.select("b", ["yes", "no"]))
+
+    st = judge.run(lang.RuntimeEndpoint(srv.url))
+    # Tok's decode is not its encode's inverse: compare the choices' ids
+    assert 2 <= len(st["a"]) <= 3 and st["b"] in (
+        Tok().decode(Tok().encode(c, False)) for c in ("yes", "no")), \
+        st.captured
 rt = Runtime(model.llm, cfg.llm, Tok(), engine_config=EngineConfig(
     max_batch=2, max_seq_len=96, prefill_buckets=(64,),
     kv_dtype=torch.float32, kv_chunk=32))
@@ -91,6 +108,10 @@ out = rt.generate(["ab", "cd"], max_new_tokens=6)
 stop = out[0]["text"][1:3]
 assert rt.generate(["ab", "cd"], max_new_tokens=6,
                    stop=[stop])[0]["finish_reason"] == "stop"
+out = rt.generate(["ab"], max_new_tokens=6, regex="[\u4e05-\u4e08]{2,3}")
+assert 2 <= len(out[0]["text"]) <= 3, out
+assert len(rt.generate(input_ids=[[5] * 80],
+                       max_new_tokens=6)[0]["output_ids"]) == 6
 from aurora_tpu_torch.train.trainer import (TrainConfig, init_train_state,
                                             make_train_step)
 tcfg = TrainConfig(lr=1e-3, max_steps=10, kept_ratio=0.5)

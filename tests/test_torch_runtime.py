@@ -6,10 +6,14 @@ with the radix cache on (both on their Python trees): texts, output_ids and
 finish_reason must be equal, without stop strings and with one taken from
 inside a first run's text (the same trim, the same early finish), at
 decode_steps 1 and 4 (a stop inside a decode block cuts the output
-there). `max_steps` exhaustion raises RuntimeError; `Runtime(model_path=)`
-on a tiny HF llama directory gives the JAX runtime's tokens; `regex=`
-raises NotImplementedError.
+there). `regex=` (constrained decoding with jump-forward) gives the JAX
+runtime's outputs, each full-matching its pattern, and a malformed pattern
+raises ValueError. `max_steps` exhaustion raises RuntimeError;
+`Runtime(model_path=)` on a tiny HF llama directory gives the JAX
+runtime's tokens.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -97,9 +101,28 @@ def test_max_steps_exhaustion_raises(tiny):
 
 
 def test_regex_raises(tiny):
-    _, trt = _runtimes(tiny)
-    with pytest.raises(NotImplementedError):
-        trt.generate(PROMPTS, regex="[ab]+")
+    """regex= is ported: a pattern the regex engine cannot parse raises
+    ValueError before any request is queued, as the JAX runtime does."""
+    jrt, trt = _runtimes(tiny)
+    for rt in (jrt, trt):
+        with pytest.raises(ValueError):
+            rt.generate(PROMPTS, regex="[ab")
+    assert not trt.engine.has_work()
+
+
+@pytest.mark.parametrize("pattern", [r"\{'pred': '(yes|no)', 'score': [0-5]\}",
+                                     r"[a-c]{2,5}"])
+def test_regex_matches_jax_runtime(tiny, pattern):
+    tok = tiny[0]
+    jrt, trt = _runtimes(tiny)
+    want = jrt.generate(PROMPTS, max_new_tokens=40, regex=pattern)
+    got = trt.generate(PROMPTS, max_new_tokens=40, regex=pattern)
+    assert got == want
+    for o in got:
+        # the tiny WordLevel tokenizer joins its tokens with spaces
+        text = "".join(tok.decode([t], skip_special_tokens=True)
+                       for t in o["output_ids"])
+        assert re.fullmatch(pattern, text) and o["finish_reason"] == "stop"
 
 
 def test_runtime_from_model_path_matches_jax(tmp_path):

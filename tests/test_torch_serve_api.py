@@ -12,15 +12,20 @@ texts and status codes equal; completion logprobs within 1e-4; embeddings
 within rtol 1e-5 / atol 1e-5; /v1/classify within 1e-5 of JAX's logits
 and 5e-4 of HF's (tests/test_serve_api.py's bound); 8 concurrent clients
 equal or within the near-tie rule of tests/test_torch_engine_quant.py
-(their waves may batch differently). Then the port alone: 501 for what it
-has not ported, without hanging; StreamDetok (tests/test_serve_api.py's
-two cases); the engine surface the server calls (auto_engine_config,
-update_weights in every weight layout, a failed admission).
-tests/test_torch_import.py starts the server with aiohttp blocked.
+(their waves may batch differently). Constrained decoding (`regex`,
+`choices_constraint`) on /generate, completions and chat, a prompt past
+the largest bucket (chunked prefill), 400 for a bad pattern, and a
+lang.py judge program (the port's lang over the port's server against
+the reference's lang over the JAX server): equal answers. Then the port
+alone: StreamDetok (tests/test_serve_api.py's two cases); the engine
+surface the server calls (auto_engine_config, update_weights in every
+weight layout, a failed admission). tests/test_torch_import.py starts the
+server with aiohttp blocked.
 """
 
 import asyncio
 import json
+import re
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -614,23 +619,116 @@ def test_failed_step_fails_only_the_running_batch(servers):
 # the port alone
 # ---------------------------------------------------------------------------
 
+def _surfaces(tok, ids):
+    """The tiny WordLevel tokenizer joins its tokens with spaces: the text
+    of ids is their surfaces joined."""
+    return "".join(tok.decode([t], skip_special_tokens=True) for t in ids)
+
+
 @pytest.mark.parametrize("body", [{"regex": "[ab]+"},
                                   {"choices_constraint": ["a", "b"]}])
-def test_constrained_decoding_answers_501(servers, body):
-    status, b = post(servers.ports[1], "/generate",
-                     {"text": "x", "max_new_tokens": 2, **body})
-    assert status == 501 and "queue 1 item 6" in b["error"]
+def test_constrained_decoding_answers_501(servers, tiny, body):
+    """Named for the 501 the port answered before constrained decoding was
+    ported: /generate with a regex or choices now answers 200, the JAX
+    server's tokens and text, inside the constraint."""
+    req = {"text": "x", "max_new_tokens": 2, "temperature": 0.0, **body}
+    (js, jb), (ts, tb) = both(servers, lambda p: post(p, "/generate", req))
+    assert js == ts == 200
+    assert tb == jb
+    text = _surfaces(tiny.tok, tb["output_ids"])
+    if "regex" in body:
+        assert re.fullmatch("[ab]+", text), text
+    else:
+        assert text in ("a", "b") and tb["meta_info"]["finish_reason"] \
+            == "stop"
 
 
 @pytest.mark.parametrize("stream", [False, True])
 def test_prompt_past_largest_bucket_answers_501(servers, stream):
-    """The engine refuses a prompt longer than its largest bucket (chunked
-    prefill is not ported): the client gets 501 at once, not a hang."""
-    status, b = post(servers.ports[1], "/generate",
-                     {"text": "y" * 200, "max_new_tokens": 4,
-                      "stream": stream}, timeout=30)
-    assert status == 501 and "chunked prefill" in b["error"]
+    """Named for the 501 the port answered before chunked prefill was
+    ported: a 200-token prompt, past the largest bucket (192), is
+    prefilled in two chunks and answered with the JAX server's text,
+    streamed or not."""
+    req = {"text": "y" * 200, "max_new_tokens": 4, "temperature": 0.0,
+           "stream": stream}
+    (js, jb), (ts, tb) = both(servers, lambda p: call(p, "POST", "/generate",
+                                                      req, timeout=60))
+    assert js == ts == 200
+    if stream:
+        assert stream_text(tb) == stream_text(jb)
+    else:
+        assert json.loads(tb) == json.loads(jb)
+        assert json.loads(tb)["meta_info"]["prompt_tokens"] == 200
     assert get(servers.ports[1], "/health")[0] == 200
+    assert servers.tengine.check_memory()["leaked"] == 0
+
+
+JUDGE = r"\{'pred': '(yes|no)', 'score': [0-5]\}"
+
+
+@pytest.mark.parametrize("path", ["/v1/completions", "/v1/chat/completions"])
+@pytest.mark.parametrize("constraint", [
+    {"regex": JUDGE}, {"choices_constraint": ["camera", "background",
+                                              "main object"]}])
+def test_openai_constrained_matches_jax(servers, tiny, path, constraint):
+    body = {"max_tokens": 40, "temperature": 0.0, **constraint}
+    if path == "/v1/completions":
+        body["prompt"] = "Is the caption right?"
+    else:
+        body["messages"] = [{"role": "user",
+                             "content": "Is the caption right?"}]
+    (js, jb), (ts, tb) = both(servers, lambda p: post(p, path, body))
+    assert js == ts == 200
+    jc, tc = jb["choices"][0], tb["choices"][0]
+    assert tc == jc and tb["usage"] == jb["usage"]
+    text = tc["text"] if "text" in tc else tc["message"]["content"]
+    words = text.replace(" ", "")   # the tokenizer's joining spaces
+    if "regex" in constraint:
+        assert re.fullmatch(JUDGE, words.replace("'pred':'", "'pred': '")
+                            .replace("','score':", "', 'score': ")), text
+    else:
+        assert words in ("camera", "background", "mainobject"), text
+    assert tc["finish_reason"] == "stop"
+
+
+@pytest.mark.parametrize("pattern", ["[ab", "a{99999}", "(a|b"])
+def test_bad_pattern_answers_400(servers, pattern):
+    got = both(servers, lambda p: post(p, "/generate", {
+        "text": "x", "max_new_tokens": 4, "regex": pattern}))
+    assert [s for s, _ in got] == [400, 400]
+    assert "invalid constraint" in got[1][1]["error"]
+    assert get(servers.ports[1], "/health")[0] == 200
+
+
+def test_lang_judge_program_matches_jax(servers, tiny):
+    """A VDC judge program (an answer under the judge's regex, then a
+    yes/no select) in the port's lang.py over the port's server and in
+    the reference's lang.py over the JAX server, run_batch of 4: the same
+    captured answers, each inside its constraint."""
+    from aurora_tpu import lang as jlang
+    from aurora_tpu_torch import lang as tlang
+
+    def judge(lang):
+        @lang.function
+        def program(s, caption):
+            s += lang.user(f"caption: {caption}. Right?")
+            s += lang.assistant(lang.gen("verdict", max_tokens=40,
+                                         regex=JUDGE))
+            s += lang.user("Sure?")
+            s += lang.assistant(lang.select("sure", ["yes", "no"]))
+        return program
+
+    batch = [{"caption": c} for c in ("a cat", "two dogs", "rain", "a car")]
+    out = []
+    for lang, port in ((jlang, servers.ports[0]), (tlang, servers.ports[1])):
+        states = judge(lang).run_batch(
+            batch, backend=lang.RuntimeEndpoint(f"http://127.0.0.1:{port}"),
+            num_threads=4)
+        out.append([(st["verdict"], st["sure"]) for st in states])
+    assert out[1] == out[0]
+    for verdict, sure in out[1]:
+        assert sure.replace(" ", "") in ("yes", "no")
+        assert verdict.replace(" ", "").startswith("{'pred':'")
 
 
 @pytest.mark.parametrize("case", ["unknown", "method", "gui", "bad_json",
