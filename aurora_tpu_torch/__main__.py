@@ -3,9 +3,10 @@
 
     python -m aurora_tpu_torch MODE [MODE_ARGS...]
 
-`infer`, `serve`, `chat`, `bench-latency` and `bench-serving` are ported;
-every other mode of the reference exits non-zero with the ROADMAP item
-that will port it.
+`infer`, `serve`, `chat`, `bench-latency`, `bench-serving`, `test` and
+`eval` (the eval CLI), `post-eval` and `mmbench` are ported; every other
+mode of the reference exits non-zero with the ROADMAP item that will port
+it.
 """
 
 from __future__ import annotations
@@ -14,21 +15,27 @@ import importlib
 import sys
 
 _TRAINING = "queue 1 item 7 (the rest of training)"
-_EVAL = "queue 1 item 10 (the eval adapter)"
 _NOT_PORTED = {
     "train": _TRAINING, "preprocess": _TRAINING, "list-cfg": _TRAINING,
     "copy-cfg": _TRAINING, "log-dataset": _TRAINING,
     "check-custom-dataset": _TRAINING,
-    "test": _EVAL, "eval": _EVAL, "post-eval": _EVAL, "mmbench": _EVAL,
     "convert": "queue 1 item 12 (the converters' export half)",
     "bench-kernels": "queue 1, not to port (aurora_tpu_torch/tools/"
                      "time_ragged.py and time_weights.py time the kernels)",
 }
 
 
-# mode → the module under aurora_tpu_torch.cli whose main(argv) runs it
-_PORTED = {"infer": "infer", "serve": "serve", "chat": "chat",
-           "bench-latency": "bench_latency", "bench-serving": "bench_serving"}
+# mode → the module whose main(argv) runs it
+_PORTED = {"infer": "aurora_tpu_torch.cli.infer",
+           "serve": "aurora_tpu_torch.cli.serve",
+           "chat": "aurora_tpu_torch.cli.chat",
+           "bench-latency": "aurora_tpu_torch.cli.bench_latency",
+           "bench-serving": "aurora_tpu_torch.cli.bench_serving",
+           # xtuner's `test` is the eval CLI, as in the reference
+           "test": "aurora_tpu_torch.eval.__main__",
+           "eval": "aurora_tpu_torch.eval.__main__",
+           "post-eval": "aurora_tpu_torch.eval.post_eval",
+           "mmbench": "aurora_tpu_torch.cli.mmbench"}
 
 
 def _help() -> str:
@@ -47,8 +54,7 @@ def main(argv=None) -> int:
         return 0
     mode, rest = argv[0], argv[1:]
     if mode in _PORTED:
-        module = importlib.import_module("aurora_tpu_torch.cli."
-                                         + _PORTED[mode])
+        module = importlib.import_module(_PORTED[mode])
         return module.main(rest) or 0
     if mode in _NOT_PORTED:
         print(f"mode {mode!r} is not ported yet: ROADMAP.md "

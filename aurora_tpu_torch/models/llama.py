@@ -36,10 +36,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.attention import SDPBackend, sdpa_kernel
+from torch.nn.attention import sdpa_kernel
 
 from aurora_tpu_torch.models.remat import remat_call
-from aurora_tpu_torch.ops.attention import mha
+from aurora_tpu_torch.ops.attention import REPEATABLE_SDPA, mha
 from aurora_tpu_torch.ops.norms import family_act, family_norm
 from aurora_tpu_torch.ops.pallas.quant_matmul import (MAX_TOKENS,
                                                       fused_mlp_w4,
@@ -331,14 +331,6 @@ def _head_logits(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, -1)
 
 
-# SDPA's backends that repeat bit for bit on the card. A dense KV-cache
-# decode keeps to them: PyTorch 2.11 picks cuDNN attention for masked
-# calls on an H100, and there a 7B greedy decode gave other tokens on its
-# second run, where XLA's attention and SDPA's other backends repeat.
-_REPEATABLE_SDPA = [SDPBackend.FLASH_ATTENTION,
-                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
-
-
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
     """A dense KV cache {"k", "v"}: [L, batch, max_len, Hkv, hd] zeros."""
@@ -371,7 +363,7 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
     sequences attend within their segment (not with a cache). kv_cache:
     from `init_kv_cache`; the step's K/V are written in place at slots
     [cache_len, cache_len + T) and the queries sit at those slots for the
-    causal mask; attention then keeps SDPA off cuDNN (`_REPEATABLE_SDPA`).
+    causal mask; attention then keeps SDPA off cuDNN (`REPEATABLE_SDPA`).
     remat: False, True/"full" or a policy name (models/remat.py), per
     layer. use_flash: None lets `mha` decide. A sliding window (a key mask on (query - key) slot, as in the
     reference) or a logit softcap keeps attention off the flash kernels,
@@ -409,7 +401,7 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
             x = remat_call(_layer, remat, cfg, lp, x, cos, sin, mask,
                            segment_ids, use_flash)
     else:
-        with sdpa_kernel(_REPEATABLE_SDPA):
+        with sdpa_kernel(REPEATABLE_SDPA):
             for i, lp in enumerate(model.layers):
                 x = _layer(cfg, lp, x, cos, sin, mask, None, use_flash,
                            (kv_cache["k"][i], kv_cache["v"][i]), cache_len)

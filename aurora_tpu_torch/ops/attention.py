@@ -17,10 +17,19 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend
 
 from aurora_tpu_torch.ops.pallas.flash_attention import flash_attention
 
 _MASK_VALUE = -2.3819763e38  # the reference's finite mask value
+
+# SDPA's backends that repeat bit for bit on the card. PyTorch 2.11 picks
+# cuDNN attention for masked calls on an H100, and its results did not
+# repeat: a 7B greedy dense decode gave other tokens on its second run,
+# and the ViT (masked by ToMe's size bias) other embeddings in another
+# process. The dense KV-cache decode and the ViT keep to these.
+REPEATABLE_SDPA = [SDPBackend.FLASH_ATTENTION,
+                   SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -91,6 +91,25 @@ def w4_dequantize(packed: torch.Tensor, scale: torch.Tensor,
     return (q * scale[:, :, None]).reshape(N, -1).to(dtype)
 
 
+# cs = max_g s · 8/127: the per-channel int8 step that covers the W4
+# group scales' whole range (the reference's constant, as XLA folds it)
+A8_CHANNEL_SCALE = float(np.float32(8.0 / 127.0))
+
+
+def w4_requantize_int8(packed: torch.Tensor, scale: torch.Tensor):
+    """[N, K/2] packed + [N, G] scales → (int8 [N, K], fp32 per-output-
+    channel scales cs [N]): the reference's AURORA_W4_PREFILL=a8
+    requantization, cs = max_g s · (8/127), m = s / cs, w8 = clip(round(q
+    · m), ±127), so that w8 · cs approximates q · s within cs/2."""
+    lo, hi = w4_unpack(packed)
+    N, G = scale.shape
+    q = torch.stack([lo, hi], dim=-1).reshape(N, G, -1).float()
+    cs = scale.amax(dim=1) * A8_CHANNEL_SCALE
+    m = scale / cs[:, None]
+    w8 = torch.clamp(torch.round(q * m[:, :, None]), -127, 127)
+    return w8.to(torch.int8).reshape(N, -1), cs
+
+
 def w4_from_flat(pk: np.ndarray, s_w: np.ndarray):
     """The reference's flat W4 layout, one layer as numpy arrays
     ([G, g/2, N] packed int8, [G, 1, N] fp32 scales) → the port's

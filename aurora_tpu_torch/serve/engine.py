@@ -24,6 +24,12 @@ The module splits
 A config's sliding window (Mistral: the same width in every layer) and
 attention logit softcap go into both attention kernels.
 
+The reference's two measurement knobs are EngineConfig fields:
+`w4_prefill="a8"` (its AURORA_W4_PREFILL=a8: a W4 extend's products on
+per-token int8 activations and per-channel int8 weights) and
+`kv_grid_bits=4` (its AURORA_KV_BITS=4: int8 KV rows on the int4 grid,
+`EngineConfig.kv_maxq`, in every extend write and decode step).
+
 Prefix caching, the reference's default: finished prompts' KV is copied
 from the rows into a token-granular slot pool (serve/kv_pool.py) and
 indexed by a radix tree over their token ids (the C++ tree of
@@ -68,6 +74,7 @@ windows).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import subprocess
@@ -91,6 +98,7 @@ from aurora_tpu_torch.ops.pallas.quant_matmul import (INV127, MAX_TOKENS,
                                                       w4_mlp_tile,
                                                       w4_mlp_tile_layout,
                                                       w4_pack, w4_to_flat,
+                                                      w4_requantize_int8,
                                                       w4a8_matmul,
                                                       w4a8_matmul_tiled,
                                                       w8a8_matmul)
@@ -166,6 +174,15 @@ class EngineConfig:
     # the default
     w4_fused_mlp: bool = False
     w4_tiled: bool = True
+    # the reference's AURORA_W4_PREFILL: "a8" runs a W4 extend's products
+    # on per-token int8 activations against the weights requantized to
+    # per-output-channel int8 (torch._int_mm), "bf16" on the weights
+    # dequantized to the activations' dtype
+    w4_prefill: str = "bf16"
+    # the reference's AURORA_KV_BITS: 4 keeps int8 KV rows but rounds
+    # every cached K/V to the 16-level grid (maxq 7) that packed int4 rows
+    # hold, to measure int4's quality apart from its packing
+    kv_grid_bits: int = 8
 
     def __post_init__(self):
         if self.kv_quant not in ("none", "int8", "int4"):
@@ -181,6 +198,24 @@ class EngineConfig:
                                             or not self.w4_tiled):
             raise ValueError("w4_fused_mlp and w4_tiled are W4 layouts: "
                              "they need weight_quant='int4'")
+        if self.w4_prefill not in ("bf16", "a8"):
+            raise ValueError(f"w4_prefill={self.w4_prefill!r}: bf16 or a8")
+        if self.w4_prefill == "a8" and self.weight_quant != "int4":
+            raise ValueError("w4_prefill='a8' is a W4 prefill: it needs "
+                             "weight_quant='int4'")
+        if self.kv_grid_bits not in (8, 4):
+            raise ValueError(f"kv_grid_bits={self.kv_grid_bits}: 8 or 4")
+        if self.kv_grid_bits == 4 and self.kv_quant != "int8":
+            raise ValueError("kv_grid_bits=4 rounds int8 KV rows to the "
+                             "int4 grid: it needs kv_quant='int8'")
+
+    @property
+    def kv_maxq(self) -> float:
+        """The grid of the quantized KV rows (the reference's `_kv_maxq`):
+        7 for packed int4 rows and for int8 rows at kv_grid_bits=4, else
+        127."""
+        return 7.0 if self.kv_quant == "int4" or self.kv_grid_bits == 4 \
+            else 127.0
 
     @property
     def s_row(self) -> int:
@@ -458,34 +493,53 @@ def fuse_serving_weights(model: LlamaModel) -> LlamaModel:
 _W4_GROUPED_MAX_TOKENS = MAX_TOKENS
 
 
-def _w4dot(h, w: W4Linear):
+def _w4_requantized(w: W4Linear):
+    """The A8 prefill's weights: (int8 [N, K], per-output-channel fp32
+    scales [N]) from either W4 layout; the flat layout's bytes are
+    transposed into stripes first (the same [G, 2·gh, N] planes)."""
+    packed, scale = w.packed, w.scale
+    if w.flat:
+        G, _, N = packed.shape
+        packed, scale = packed.reshape(-1, N).t(), scale.reshape(G, N).t()
+    return w4_requantize_int8(packed, scale)
+
+
+def _w4dot(h, w: W4Linear, a8_prefill: bool = False):
     """h [..., K] @ W4 → [..., N] in h's dtype. Few tokens (decode): the
     W4A8 kernel of the module's layout (stripes: w4a8_matmul_tiled; flat:
     w4a8_matmul), with per-token int8 activations. Many tokens (extend):
     the weights dequantized to h's dtype, a dense matmul, no activation
-    quantization. The two branches differ numerically, as the
-    reference's do."""
+    quantization; with a8_prefill (the reference's AURORA_W4_PREFILL=a8)
+    the weights requantized to per-output-channel int8
+    (`w4_requantize_int8`), per-token int8 activations and their exact
+    int32 product (torch._int_mm: the reference's is an XLA dot too, in
+    no kernel of its own), then acc · s_a · cs. The branches differ
+    numerically, as the reference's do."""
     lead, K = h.shape[:-1], h.shape[-1]
     if math.prod(lead) <= _W4_GROUPED_MAX_TOKENS:
         kernel = w4a8_matmul if w.flat else w4a8_matmul_tiled
         out = kernel(h.reshape(-1, K), w.packed, w.scale)
         return out.reshape(*lead, -1)
+    if a8_prefill:
+        out = _int8_linear(*quantize_activations(h.reshape(-1, K)),
+                           *_w4_requantized(w))
+        return out.to(h.dtype).reshape(*lead, -1)
     if w.flat:
         return h @ w4_flat_dequantize(w.packed, w.scale, h.dtype)
     return torch.nn.functional.linear(
         h, w4_dequantize(w.packed, w.scale, h.dtype))
 
 
-def _int8_linear(x8, s_a, w: W8Linear) -> torch.Tensor:
-    """Per-token int8 rows x8 [n, K] (scales s_a [n, 1]) @ W8 → fp32
-    [n, N]: the int32 product by torch._int_mm, whose card version needs
-    more than 16 rows (the rows are zero-padded to at least 32), then
-    acc · s_a · s_w."""
+def _int8_linear(x8, s_a, weight, scale) -> torch.Tensor:
+    """Per-token int8 rows x8 [n, K] (scales s_a [n, 1]) @ int8 weight
+    [N, K] (per-output-channel scales [N]) → fp32 [n, N]: the int32
+    product by torch._int_mm, whose card version needs more than 16 rows
+    (the rows are zero-padded to at least 32), then acc · s_a · scale."""
     n = x8.shape[0]
     pad = max(32, -(-n // 8) * 8) - n
     acc = torch._int_mm(torch.nn.functional.pad(x8, (0, 0, 0, pad)),
-                        w.weight.t())[:n]
-    return acc.float() * s_a * w.scale
+                        weight.t())[:n]
+    return acc.float() * s_a * scale
 
 
 def _w8dot(h, w: W8Linear):
@@ -500,15 +554,16 @@ def _w8dot(h, w: W8Linear):
         h8, s_a = quantize_rows(h2.contiguous())
         out = w8a8_matmul(h8, s_a, w.weight, w.scale, out_dtype=h.dtype)
     else:
-        out = _int8_linear(*quantize_activations(h2), w).to(h.dtype)
+        out = _int8_linear(*quantize_activations(h2), w.weight,
+                           w.scale).to(h.dtype)
     return out.reshape(*lead, -1)
 
 
-def _wdot(h, proj):
-    """h @ W for one projection module: W4 (_w4dot), W8 (_w8dot) or
-    dense."""
+def _wdot(h, proj, a8_prefill: bool = False):
+    """h @ W for one projection module: W4 (_w4dot, with its A8 prefill
+    if asked), W8 (_w8dot) or dense."""
     if isinstance(proj, W4Linear):
-        return _w4dot(h, proj)
+        return _w4dot(h, proj, a8_prefill)
     if isinstance(proj, W8Linear):
         return _w8dot(h, proj)
     return proj(h)
@@ -678,7 +733,8 @@ def _store_prompt(pool, rows, row: int, start: int, slots):
 
 def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
                   row_ids, q_offsets, kv_lens, layer_ids,
-                  kv_write: Optional[KVWriteIndex] = None):
+                  kv_write: Optional[KVWriteIndex] = None, *,
+                  kv_maxq: float = 127.0, a8_prefill: bool = False):
     """Shared EXTEND/DECODE forward over row-contiguous KV.
 
     embeds [Bk, T, D]; rows {"k", "v": [L, B, Hkv, S, hd]} (+ "ks", "vs"
@@ -689,10 +745,13 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
     length AFTER the new tokens, 0 for a padded lane); layer_ids [L] int32
     device tensor (each kernel reads its layer index from it). EXTEND
     (T > 1) writes the new K/V through `kv_write` (int8/int4: quantized
-    first, to maxq 127/7, and the extend attends over the quantized rows,
-    new tokens included), then attends; DECODE (T == 1) writes (quantizing
-    the token in the kernel) and attends in one kernel. Each projection
-    dispatches on its module: W4, W8 or dense. Both kernels take every
+    first, to the grid of kv_maxq — 7 for packed rows, 127 or 7 for int8
+    ones (EngineConfig.kv_maxq) — and the extend attends over the
+    quantized rows, new tokens included), then attends; DECODE (T == 1)
+    writes (quantizing the token in the kernel, to the same grid) and
+    attends in one kernel. Each projection dispatches on its module: W4
+    (an extend's through the A8 prefill with a8_prefill), W8 or dense.
+    Both kernels take every
     layer's sliding window (cfg.sliding_window; Gemma2's alternating
     layers are not ported) and cfg.attn_logit_softcap, as the reference's
     `_window(l)` and kernel calls do. Returns the last valid token's final
@@ -703,7 +762,8 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
     hd = cfg.head_dim
     quant = "ks" in rows
     kv_pack = _is_packed(rows)
-    maxq = 7.0 if kv_pack else 127.0
+    maxq = 7.0 if kv_pack else kv_maxq
+    dot = functools.partial(_wdot, a8_prefill=a8_prefill)
     scales = dict(k_scales=rows.get("ks"), v_scales=rows.get("vs"),
                   kv_pack=kv_pack, window=cfg.sliding_window,
                   logit_cap=cfg.attn_logit_softcap)
@@ -712,7 +772,7 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
                             cfg.rope_linear_scaling)
     for l, lp in enumerate(model.layers):
         h = _norm(cfg, x, lp.input_norm)
-        q, k, v = layer_qkv(cfg, lp, h, _wdot)
+        q, k, v = layer_qkv(cfg, lp, h, dot)
         q, k = apply_rope(q, k, cos, sin)
         layer = layer_ids[l:l + 1]
         if T == 1:
@@ -730,8 +790,8 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
             attn = ragged_attention(q, rows["k"], rows["v"], kv_lens,
                                     q_offsets, row_ids, layer=layer,
                                     scale=cfg.attn_scale, **scales)
-        x = x + _wdot(attn.reshape(Bk, T, -1).to(x.dtype), lp.o)
-        x = x + layer_mlp(cfg, lp, _norm(cfg, x, lp.post_attn_norm), _wdot)
+        x = x + dot(attn.reshape(Bk, T, -1).to(x.dtype), lp.o)
+        x = x + layer_mlp(cfg, lp, _norm(cfg, x, lp.post_attn_norm), dot)
     x = _norm(cfg, x, model.final_norm)
     last = (kv_lens.long() - q_offsets.long() - 1).clamp(0, T - 1)
     return x[torch.arange(Bk, device=x.device), last]
@@ -744,7 +804,7 @@ def _lm_head(model: LlamaModel, x) -> torch.Tensor:
     head = model.lm_head
     if not isinstance(head, W8Linear):
         return torch.nn.functional.linear(x, head.weight).float()
-    return _int8_linear(*quantize_activations(x), head)
+    return _int8_linear(*quantize_activations(x), head.weight, head.scale)
 
 
 def _sample_core(logits, counts, seen, samp, allowed, generator,
@@ -883,7 +943,9 @@ class DeviceRunner:
                                pack=self.ecfg.kv_quant == "int4")
         x = _forward_rows(self.model, self.cfg, embeds, self.rows,
                           self._idx(row_ids), self._idx(q_offsets),
-                          self._idx(kv_lens), self.layer_ids, widx)
+                          self._idx(kv_lens), self.layer_ids, widx,
+                          kv_maxq=self.ecfg.kv_maxq,
+                          a8_prefill=self.ecfg.w4_prefill == "a8")
         return _lm_head(self.model, x)
 
     @torch.no_grad()
@@ -950,7 +1012,8 @@ class DeviceRunner:
             kv_lens = torch.where(act, pos_j + 1, 0).to(torch.int32)
             embeds = self.model.embed_tokens[tok][:, None]
             x = _forward_rows(self.model, self.cfg, embeds, self.rows,
-                              row_ids, pos_j, kv_lens, self.layer_ids)
+                              row_ids, pos_j, kv_lens, self.layer_ids,
+                              kv_maxq=self.ecfg.kv_maxq)
             sampled, raw_lp = _sample_core(
                 _lm_head(self.model, x), self.counts, self.seen, samp,
                 allowed_t, self.generator, all_greedy=all_greedy)

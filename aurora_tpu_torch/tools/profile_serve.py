@@ -7,6 +7,7 @@ K-step decode block of the port's DeviceRunner, on one GPU.
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv4  # W4, packed int4 KV
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8-fused  # W4 fused MLP
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8-flat   # W4 flat layout
+    python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8-a8     # W4, A8 prefill
     python3 -m aurora_tpu_torch.tools.profile_serve --mistral  # sliding window
     python3 -m aurora_tpu_torch.tools.profile_serve --tiny --device cpu  # logic check
 
@@ -16,7 +17,8 @@ chip_smoke.py (4 rows, kv_chunk 256, 1536 bucket, KV rows of prompt +
 256; with --w4kv8 / --w8kv8 / --w4kv4 the LLM quantized on the device to
 W4 or W8 weights with an int8 LM head, and int8 or packed int4 KV;
 --w4kv8-fused / --w4kv8-flat lay the W4 weights out as
-`EngineConfig(w4_fused_mlp=True)` / `(w4_tiled=False)` do; --mistral
+`EngineConfig(w4_fused_mlp=True)` / `(w4_tiled=False)` do, --w4kv8-a8
+extends through the A8 prefill, `EngineConfig(w4_prefill="a8")`; --mistral
 builds Mistral-7B instead, GQA 32/8 with its 4096-token sliding window,
 bf16 weights and KV, a prompt of 6000 tokens in a 6144 bucket and rows
 of 7168, so that both attention kernels run windowed), fills
@@ -41,8 +43,9 @@ Two busy shares are printed for the decode block: device time /
 unprofiled wall (kernels of one stream do not overlap, so this is the
 share of an unprofiled step the device computes), and trace union /
 profiled wall (lower: the profiler slows the host, not the kernels).
-The decode block's device time is also split by kernel family, in ms
-per step: attention (the ragged decode kernel), W4A8 (either layout),
+The extend wave's and the decode block's device time are also split by
+kernel family, in ms per wave and per step: attention (the ragged
+kernels), W4A8 (either layout),
 the fused MLP (its tile kernel and its reduction), the activation
 quantizer that W4A8, the fused MLP and the W8A8 path launch, and the
 rest (W8A8's kernel is in the rest and in the per-kernel table); the
@@ -68,7 +71,8 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _QUANT_MODES = {"w4kv8": ("int4", "int8", {}), "w8kv8": ("int8", "int8", {}),
                 "w4kv4": ("int4", "int4", {}),
                 "w4kv8-fused": ("int4", "int8", {"w4_fused_mlp": True}),
-                "w4kv8-flat": ("int4", "int8", {"w4_tiled": False})}
+                "w4kv8-flat": ("int4", "int8", {"w4_tiled": False}),
+                "w4kv8-a8": ("int4", "int8", {"w4_prefill": "a8"})}
 # decode kernel families: name → substrings of the device kernels' names
 _FAMILIES = {"attention": ("decode_kernel", "extend_kernel"),
              "w4a8": ("w4a8_kernel",),
@@ -128,6 +132,21 @@ def matmul_ms(events, per: int) -> float:
                if any(k in name for k in _MATMUL)
                and not any(k in name for keys in _FAMILIES.values()
                            for k in keys)) / 1e3 / per
+
+
+def trace_device(fn, path, sync, activities):
+    """Run fn once under torch.profiler, synchronized before and after,
+    and export its Chrome trace to `path` → (profiled wall ms, the
+    trace's device events)."""
+    from torch.profiler import profile
+    sync()
+    with profile(activities=activities) as prof:
+        t = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t) * 1e3
+    prof.export_chrome_trace(path)
+    return wall, device_events(path)
 
 
 def main(argv=None) -> int:
@@ -282,7 +301,7 @@ def main(argv=None) -> int:
             pos[0] += K
 
     # trace
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_gpu
                                      else [])
     res = {"card": card, "model": "mistral-7b" if args.mistral else
@@ -297,24 +316,19 @@ def main(argv=None) -> int:
     if on_gpu:
         res["issue_device_span_ms_per_step"] = device_span_ms / K
     for name, fn, per in (("extend", extend, 1), ("decode", decode, K)):
-        sync()
-        with profile(activities=acts) as prof:
-            t = time.perf_counter()
-            fn()
-            sync()
-            wall = (time.perf_counter() - t) * 1e3
-        path = os.path.join(args.out, f"{name}_trace.json")
-        prof.export_chrome_trace(path)
-        evs = device_events(path)
+        wall, evs = trace_device(fn, os.path.join(args.out,
+                                                  f"{name}_trace.json"),
+                                 sync, acts)
         dev_ms = sum(d for _, _, d in evs) / 1e3
         uni_ms = union_us(evs) / 1e3
         res[f"{name}_profiled_wall_ms"] = wall
         res[f"{name}_device_ms"] = dev_ms
         res[f"{name}_device_union_ms"] = uni_ms
         res[f"{name}_kernels"] = kernel_table(evs, per)
+        unit = "wave" if name == "extend" else "step"
+        res[f"{name}_ms_per_{unit}_by_family"] = family_ms(evs, per)
+        res[f"{name}_ms_per_{unit}_dense_matmul"] = matmul_ms(evs, per)
         if name == "decode":
-            res["decode_ms_per_step_by_family"] = family_ms(evs, per)
-            res["decode_ms_per_step_dense_matmul"] = matmul_ms(evs, per)
             res["decode_device_events_per_step"] = len(evs) / per
         print(f"{name}: {len(evs)} device events, device {dev_ms:.3f} ms, "
               f"union {uni_ms:.3f} ms, profiled wall {wall:.3f} ms",

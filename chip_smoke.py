@@ -32,7 +32,9 @@ Phases, one line each; any failure raises and exits non-zero:
 3. kernels       — each kernel and mode vs its plain PyTorch twin at the
                    slice's shapes: both attention kernels with bf16, int8
                    and packed int4 KV (bf16 in, fp32 reference; decode row
-                   and scale writes exact, int4 mate nibbles included),
+                   and scale writes exact, int4 mate nibbles included) and
+                   int8 KV on the int4 grid (kv_maxq 7, EngineConfig(
+                   kv_grid_bits=4)) at the serving shapes,
                    then in every mode with a window of 512, a logit cap
                    of 50 and both, and at Mistral-7B's shapes (rows of
                    7168, Hkv 8, a 6144-token extend, decode past the
@@ -64,7 +66,19 @@ Phases, one line each; any failure raises and exits non-zero:
                    loaded onto the card in bf16 by
                    models.convert.load_auroracap_dir: every tensor equal to
                    the written one after the same cast; bytes, seconds,
-                   GB/s; the directory is deleted
+                   GB/s
+    eval           — eval.models.AuroraCapEval built on the card from that
+                   directory (ByteTokenizer for its missing tokenizer
+                   files), kept ratio 0.2; simple_evaluate over VDC's five
+                   built-in tasks on 8 synthetic 8 x 360 x 640 .npy videos
+                   (40 docs through generate_batch, 64 tokens): every
+                   prediction a non-empty string, results.json written;
+                   then post_eval.score_captions over the detailed
+                   subset's 8 captions, one QA each, the judge the port's
+                   HTTP server in a thread on the same LLM (48 tokens a
+                   call): n = 8; docs/s, judge answers/s, parsed judge
+                   outputs (random weights: no gate), the ragged bf16
+                   kernels' launches; the directory is deleted
 4. serve         — bf16: 4 requests of 8 frames each to 256 tokens; the
                    bf16 kernels' launch counts must rise and the plain
                    twins' stay 0
@@ -112,6 +126,22 @@ Phases, one line each; any failure raises and exits non-zero:
                    W4A8 launch count must rise, the stripe W4A8's stay 0,
                    every plain twin's stay 0
 16. logits-w4kv8-flat — as 10, on the flat-layout engine
+    serve-kv4grid  — the stripe W4 weights, int8 KV rows on the int4 grid
+                   (kv_grid_bits=4), 4 new clips, 64 tokens with logprobs:
+                   every K/V row value in [-7, 7] with both ends hit; the
+                   tokens against the same requests at grid 8 (flips and
+                   their top-2 gaps, matched prefix, |dlogprob|; grids
+                   differ, so no near-tie gate); extend s, decode ms a
+                   step, launches (int8 attention, W4A8), no twin
+    serve-a8-prefill — the same requests through the A8 prefill (w4_prefill
+                   ="a8"), as serve-kv4grid against the bf16 prefill;
+                   _w4dot's A8 branch within 3% rel L2 of its bf16 branch
+                   (and above 1e-6) at a 7B layer's four projections, 256
+                   rows; one extend wave of 4 x 1536 rows each way, timed
+                   alternating (bf16, a8, a8, bf16, twice) and traced once
+                   (tools/profile_serve.trace_device): device ms split into
+                   attention, dense matmuls (cuBLAS, torch._int_mm) and the
+                   rest (the dequantizing / requantizing elementwise chain)
     resize-crop    — 4 synthetic videos (16 frames of 360x640 uint8, as
                    bench.py writes them) saved as .npy, read by the port's
                    read_video (8 frames), resized and center-cropped on the
@@ -219,6 +249,7 @@ convolutions, so they are true fp32.
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -401,6 +432,30 @@ CONSTRAINED_MAX_NEW = 48
 CONSTRAINED_FREE_MAX_NEW = 32
 # [serve-http]: the long prompt's characters (one ByteTokenizer id each)
 HTTP_LONG_PROMPT = 3000
+# [serve-kv4grid] / [serve-a8-prefill]: 4 new clips of 8 frames served with
+# W4 stripes + int8 KV at the int4 grid (EngineConfig(kv_grid_bits=4), the
+# reference's AURORA_KV_BITS=4) and through the A8 prefill (w4_prefill=
+# "a8", its AURORA_W4_PREFILL=a8), against the same requests at grid 8 with
+# the bf16 prefill; tokens each (depth cut from MAX_NEW: the runs compare
+# prefixes); the A8 branch's rel L2 from the bf16 branch at a 7B layer's
+# four projections (tests/test_w4_prefill_a8.py:48's gate, and above
+# 1e-6: the branch ran), over this many token rows (> MAX_TOKENS: the
+# prefill branch); extend-wave timings a mode, alternating
+SURFACE_MAX_NEW = 64
+A8_REL_TOL = 0.03
+A8_ROWS = 256
+SURFACE_WAVE_REPS = 2
+# [eval]: AuroraCapEval on [infer-load]'s directory at the eval CLI's
+# kept ratio (its docstring's example), VDC's five subsets over this many
+# synthetic 8-frame videos (one doc each a subset), tokens a doc; the
+# judge's generated tokens a call (depth cut from JudgeClient's 256: random
+# weights), one QA a video
+EVAL_KEPT_RATIO = 0.2
+EVAL_VIDEOS = 8
+EVAL_MAX_NEW = 64
+JUDGE_MAX_TOKENS = 48
+EVAL_QA = ({"question": "What is the camera doing?",
+            "answer": "It pans slowly to the left."},)
 # the radix run's tokens against the radix-off run's: equal until the first
 # flip, which must sit on a top-2 logprob gap below this (the near-tie
 # contract of tests/test_torch_engine_quant.py)
@@ -537,8 +592,9 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
                    q_gain=1.0):
     """Both attention kernels vs their plain twins at the serving shapes
     (L = 32, S = 1792, hd = 128) or at Mistral's (S = 7168), with bf16 KV,
-    int8 KV on the kv_quantize grid or nibble-packed int4 KV on its
-    maxq-7 grid (`mode`), with GQA, permuted rows, a query offset > 0 and
+    int8 KV on the kv_quantize grid, int8 KV on the maxq-7 grid
+    ("int4grid": EngineConfig(kv_grid_bits=4), kv_maxq 7 into the decode
+    kernel) or nibble-packed int4 KV on that grid (`mode`), with GQA, permuted rows, a query offset > 0 and
     a padded / inactive lane, optionally with a sliding window and a
     logit cap (q scaled by q_gain so that scores reach the cap) →
     {"extend"|"decode": {err, ms, plain_ms, library_ms, bound_ms,
@@ -559,7 +615,7 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     v = torch.randn((L, B, hkv, S, hd), generator=g, **bf)
     kv, dkv = {}, {}            # the extend's and the decode's KV options
     if mode != "bf16":
-        maxq = 127.0 if mode == "int8" else 7.0
+        maxq = 127.0 if mode == "int8" else 7.0     # int4, int4grid
         (k, ks), (v, vs) = ra.kv_quantize(k, maxq), ra.kv_quantize(v, maxq)
         kv = dict(k_scales=ks, v_scales=vs)
         if mode == "int4":
@@ -576,7 +632,8 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     rows = torch.tensor(rows_l, **i32)
     # bytes of one key (K and V, with their scales when quantized) of one
     # KV head
-    key_bytes = {"bf16": 4 * hd, "int8": 2 * hd + 8, "int4": hd + 8}[mode]
+    key_bytes = {"bf16": 4 * hd, "int8": 2 * hd + 8, "int4grid": 2 * hd + 8,
+                 "int4": hd + 8}[mode]
     library = mode == "bf16" and not logit_cap
     if library:     # the lanes' rows, for the library call
         krow = torch.stack([k[lay, r] for r in rows_l])   # [B, Hkv, S, hd]
@@ -1665,11 +1722,12 @@ def mistral_chunked(torch, ra, llm, cfg, prompts, one_wave, dev, card,
     return ext_w, dec_w
 
 
-def near_tie(got, want):
+def near_tie(got, want, strict=True):
     """got / want: {rid: Request} run greedy with logprobs. Tokens must be
     equal up to the first step where they differ, whose top-2 logprob gap
-    in `want` must be below NEAR_TIE → (flips, the largest gap at a flip,
-    the worst top-1 logprob difference before a flip)."""
+    in `want` must be below NEAR_TIE (strict=False: counted, not checked,
+    for two configurations that differ by design) → (flips, the largest
+    gap at a flip, the worst top-1 logprob difference before a flip)."""
     flips, worst_gap, worst_lp = 0, 0.0, 0.0
     for rid, w in want.items():
         g = got[rid]
@@ -1680,12 +1738,30 @@ def near_tie(got, want):
             if gt != wt:
                 top = w.output_top_logprobs[j]
                 gap = top[0][1] - top[1][1]
-                check(gap < NEAR_TIE, f"{rid}: token {j} flipped on a top-2 "
-                                      f"gap of {gap}")
+                check(not strict or gap < NEAR_TIE,
+                      f"{rid}: token {j} flipped on a top-2 gap of {gap}")
                 flips += 1
                 worst_gap = max(worst_gap, gap)
                 break
     return flips, worst_gap, worst_lp
+
+
+def matched_prefix(got, want):
+    """tests/test_quant_quality.py's `_divergence`: (the share of tokens
+    equal before each request's first difference, the mean |Δ logprob| of
+    the chosen tokens over that prefix)."""
+    match = total = 0
+    dlp = []
+    for rid, w in want.items():
+        g = got[rid]
+        total += min(len(g.output_ids), len(w.output_ids))
+        for a, b, la, lb in zip(w.output_ids, g.output_ids,
+                                w.output_logprobs, g.output_logprobs):
+            if a != b:
+                break
+            match += 1
+            dlp.append(abs(la - lb))
+    return match / max(total, 1), float(np.mean(dlp)) if dlp else 0.0
 
 
 def write_videos(tmp, n, shape=PREFIX_VIDEO_SHAPE, seed=SEED + 8):
@@ -2251,6 +2327,158 @@ def constrained_phase(torch, ra, llm, llm_cfg, dev, card, kernels, plains):
     return counts2
 
 
+def engine_surface_phase(torch, engine_mod, qm, mm, llm, llm_cfg, dev, card,
+                         kernels, plains):
+    """[serve-kv4grid] and [serve-a8-prefill] (module docstring) → the
+    kernels' launches of each run, {run: [counts in `kernels` order]}.
+    kernels: the (function, counter) pairs the runs must launch (the int8
+    attention kernels and the stripe W4A8, in that order); plains: those
+    that must stay 0."""
+    from aurora_tpu_torch.serve.engine import (DeviceRunner, EngineConfig,
+                                               ServeEngine)
+    from aurora_tpu_torch.tools import profile_serve
+    size = mm.image_size
+    rng = np.random.default_rng(SEED + 11)
+    clips = [rng.integers(0, 256, size=(N_FRAMES, size, size, 3),
+                          dtype=np.uint8) for _ in range(N_REQUESTS)]
+    prompt = " ".join(["<image>"] * N_FRAMES) + "\n" + INFER_PROMPT
+
+    def requests():
+        return [mm.build_request(f"s{i}", prompt, c,
+                                 max_new_tokens=SURFACE_MAX_NEW, eos_ids=(),
+                                 logprobs=True) for i, c in enumerate(clips)]
+
+    for r in requests():        # the ViT outside every run's extend
+        mm.prewarm(r)
+    P = len(requests()[0].input_ids)
+    base = dict(max_batch=N_REQUESTS, kv_chunk=256, prefill_buckets=(1536,),
+                decode_steps=16, disable_radix_cache=True,
+                max_seq_len=P + SURFACE_MAX_NEW, weight_quant="int4",
+                kv_quant="int8")
+    runs = (("grid8", {}), ("serve-kv4grid", dict(kv_grid_bits=4)),
+            ("serve-a8-prefill", dict(w4_prefill="a8")))
+    out, launches = {}, {}
+    for run, knob in runs:
+        ecfg = EngineConfig(**base, **knob)
+        engine = ServeEngine(llm, llm_cfg, ecfg, embed_fn=mm.embed_fn,
+                             device=dev, seed=SEED)
+        reqs = requests()
+        wall, counts = serve(torch, engine, reqs, kernels + plains,
+                             SURFACE_MAX_NEW)
+        launches[run] = [counts[f"{f.__name__}.{a}"] for f, a in kernels]
+        check(all(n > 0 for n in launches[run]), f"{run}: {counts}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"{run}: plain twins ran: {counts}")
+        out[run] = dict(
+            done={r.rid: r for r in reqs}, wall=wall, counts=counts,
+            extend_s=engine.t_extend_s,
+            decode_ms=engine.t_decode_s / max(engine._steps, 1) * 1e3)
+        if run == "serve-kv4grid":
+            # every K/V value written: on the 16-level grid, its ends hit
+            rows = engine.runner.rows
+            lo = min(int(rows[n].min()) for n in ("k", "v"))
+            hi = max(int(rows[n].max()) for n in ("k", "v"))
+            out[run]["rows_range"] = (lo, hi)
+            check(lo == -7 and hi == 7, f"{run}: KV rows span [{lo}, {hi}]")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def report(run):
+        o = out[run]
+        flips, gap, lp = near_tie(o["done"], out["grid8"]["done"],
+                                  strict=False)
+        match, dlp = matched_prefix(o["done"], out["grid8"]["done"])
+        return dict(
+            card=repr(card), requests=N_REQUESTS, prompt_tokens=P,
+            new_tokens=SURFACE_MAX_NEW,
+            extend_s=f"{o['extend_s']:.4f}",
+            extend_s_grid8_bf16_prefill=f"{out['grid8']['extend_s']:.4f}",
+            decode_ms_per_step=f"{o['decode_ms']:.3f}",
+            decode_ms_per_step_grid8=f"{out['grid8']['decode_ms']:.3f}",
+            wall_s=f"{o['wall']:.2f}",
+            flips_vs_grid8_bf16_prefill=f"{flips}/{N_REQUESTS}",
+            worst_flip_gap=f"{gap:.3e}", near_tie=NEAR_TIE,
+            matched_prefix=f"{match:.3f}", mean_abs_dlogprob=f"{dlp:.3e}",
+            worst_top1_logprob_diff=f"{lp:.3e}",
+            launches=json.dumps(o["counts"]).replace(" ", ""))
+
+    lo, hi = out["serve-kv4grid"]["rows_range"]
+    phase("serve-kv4grid", **report("serve-kv4grid"),
+          config="auroracap-7b/w4-stripes/kv-int8-rows-at-int4-grid",
+          kv_rows_min=lo, kv_rows_max=hi)
+
+    # the A8 branch against the bf16 branch at a 7B layer's four
+    # projections, on A8_ROWS random bf16 token rows
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    lp0 = llm.layers[0]
+    rel = {}
+    for name in ("qkv", "o", "gateup", "down"):
+        w = getattr(lp0, name)
+        h = torch.randn((A8_ROWS, w.packed.shape[1] * 2), generator=g,
+                        device=dev).to(torch.bfloat16)
+        ref = engine_mod._w4dot(h, w).double()
+        a8 = engine_mod._w4dot(h, w, a8_prefill=True).double()
+        rel[name] = ((a8 - ref).norm() / ref.norm()).item()
+    check(all(1e-6 < r < A8_REL_TOL for r in rel.values()),
+          f"A8 prefill rel L2 {rel}, bound (1e-6, {A8_REL_TOL})")
+
+    # one extend wave of N_REQUESTS × P tokens, each prefill mode on its
+    # own rows: timed alternating, then one traced wave each, its device
+    # time split by kernel family (tools/profile_serve.py)
+    embeds = (0.02 * torch.randn((N_REQUESTS, 1536, llm_cfg.hidden_size),
+                                 generator=g, device=dev)).to(torch.bfloat16)
+    lanes = np.arange(N_REQUESTS, dtype=np.int32)
+    zeros = np.zeros(N_REQUESTS, np.int32)
+    lens = np.full(N_REQUESTS, P, np.int32)
+    runners = {m: DeviceRunner(llm, llm_cfg, EngineConfig(
+        **base, w4_prefill=m), dev, SEED) for m in ("bf16", "a8")}
+
+    def wave(m):
+        return runners[m].extend(embeds, lanes, zeros, lens).cpu()
+
+    logits = {m: wave(m) for m in runners}          # warm both
+    wave_s = {m: [] for m in runners}
+    for _ in range(SURFACE_WAVE_REPS):
+        for m in ("bf16", "a8", "a8", "bf16"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            wave(m)
+            wave_s[m].append(time.perf_counter() - t)
+    split = {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "profile_a8")
+    os.makedirs(trace_dir, exist_ok=True)
+    for m in runners:
+        _, evs = profile_serve.trace_device(
+            lambda: wave(m), os.path.join(trace_dir, f"extend_{m}.json"),
+            torch.cuda.synchronize, acts)
+        fam = profile_serve.family_ms(evs, 1)
+        dense = profile_serve.matmul_ms(evs, 1)
+        split[m] = {"device": sum(d for _, _, d in evs) / 1e3,
+                    "attention": fam["attention"], "dense_matmul": dense,
+                    "rest": fam["other"] - dense}
+    lg = {m: logits[m].float() for m in logits}
+    logit_rel = ((lg["a8"] - lg["bf16"]).norm() / lg["bf16"].norm()).item()
+    del runners, logits, embeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    med = {m: float(np.median(v)) for m, v in wave_s.items()}
+    phase("serve-a8-prefill", **report("serve-a8-prefill"),
+          config="auroracap-7b/w4-stripes/kv-int8/a8-prefill",
+          w4dot_rel_l2=",".join(f"{k}:{v:.3e}" for k, v in rel.items()),
+          tol=f"(1e-6,{A8_REL_TOL})",
+          wave=f"{N_REQUESTS}x{P}/bucket-1536",
+          wave_ms_bf16=f"{med['bf16'] * 1e3:.1f}",
+          wave_ms_a8=f"{med['a8'] * 1e3:.1f}",
+          wave_logits_rel_l2_a8_vs_bf16=f"{logit_rel:.3e}",
+          **{f"wave_device_ms_{m}_{k}": f"{v:.2f}"
+             for m, d in split.items() for k, v in d.items()})
+    return launches
+
+
 def _write_safetensors(torch, path, tensors):
     """{name: CPU tensor} → one .safetensors file, written here without
     the port's reader: an 8-byte little-endian header length, the JSON
@@ -2341,7 +2569,8 @@ def infer_load_phase(torch, dev, card):
     """[infer-load]: an xtuner-format directory at AuroraCap-7B's widths
     (the LLM cut to INFER_LOAD_LAYERS layers) written by this script, read
     by the port's load_auroracap_dir onto the card in bf16; every tensor
-    must equal the written one after the same cast, bit for bit."""
+    must equal the written one after the same cast, bit for bit. → the
+    directory, which [eval] reads and then deletes."""
     import dataclasses
     import shutil
     from aurora_tpu_torch.models.convert import load_auroracap_dir
@@ -2437,7 +2666,6 @@ def infer_load_phase(torch, dev, card):
                   f"{part}.{name}: {t.device} {t.dtype}")
             mismatched += not torch.equal(
                 t, want[part][name].to(dev).to(torch.bfloat16))
-    shutil.rmtree(root)
     phase("infer-load", card=repr(card),
           layout="xtuner:llm-2-bf16-shards+vit-fp16+projector-fp32-bin",
           llm=f"vicuna-7b-widths/{INFER_LOAD_LAYERS}-layers",
@@ -2448,6 +2676,133 @@ def infer_load_phase(torch, dev, card):
     del loaded, mods
     gc.collect()
     torch.cuda.empty_cache()
+    return root
+
+
+def eval_phase(torch, ra, root, dev, card, plains):
+    """[eval] (module docstring): AuroraCapEval from [infer-load]'s
+    xtuner directory on the card, simple_evaluate over VDC's five subsets
+    on synthetic videos through generate_batch, then VDCScore
+    (post_eval.score_captions) against the port's HTTP server in a
+    thread serving the same LLM. The directory holds no tokenizer files:
+    ByteTokenizer stands in for AutoTokenizer."""
+    import dataclasses
+    import tempfile
+    from aurora_tpu_torch.cli import infer as infer_mod
+    from aurora_tpu_torch.eval import api as eval_api
+    from aurora_tpu_torch.eval import post_eval
+    from aurora_tpu_torch.eval.evaluator import simple_evaluate
+    from aurora_tpu_torch.eval.judge import JudgeClient
+    from aurora_tpu_torch.eval.models import AuroraCapEval
+    from aurora_tpu_torch.eval.tasks.vdc import SUBSETS
+    from aurora_tpu_torch.serve.api import ServerThread, ServingLoop
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+
+    class CountingJudge(JudgeClient):
+        """JudgeClient counting its chat calls and its parsed scores."""
+        calls = parsed = 0
+
+        def chat(self, *a, **k):
+            self.calls += 1
+            return super().chat(*a, **k)
+
+        def score_qa(self, *a):
+            out = super().score_qa(*a)
+            self.parsed += 1
+            return out
+
+    tok = ByteTokenizer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(infer_mod, "auto_tokenizer",
+                           lambda *a, **k: tok):
+        ev = AuroraCapEval(root, token_merge_ratio=EVAL_KEPT_RATIO,
+                           num_frames=N_FRAMES, max_new_tokens=EVAL_MAX_NEW)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(ev.model.llm.embed_tokens.device == dev, "AuroraCapEval not on "
+                                                   "the card")
+    counters = [(ra.ragged_attention, "launches"),
+                (ra.ragged_decode_attention, "launches")]
+    tasks = [f"vdc_{s}_test" for s in SUBSETS]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_videos(tmp, EVAL_VIDEOS, shape=CHUNKED_VIDEO_SHAPE,
+                             seed=SEED + 13)
+        names = [os.path.basename(p)[:-4] for p in paths]
+        for subset, name in zip(SUBSETS, tasks):
+            path = os.path.join(tmp, f"{subset}.jsonl")
+            with open(path, "w") as f:
+                for n in names:
+                    f.write(json.dumps({"video_name": n, "caption": "c",
+                                        "qa_list": list(EVAL_QA),
+                                        "_root": tmp}) + "\n")
+            # the built-in task (its hooks as registered) on these docs
+            eval_api.register_task(dataclasses.replace(
+                eval_api.get_task(name).cfg, dataset_path=path,
+                generation_kwargs={"max_new_tokens": EVAL_MAX_NEW,
+                                   "temperature": 0.0}))
+        for obj, attr in counters + plains:
+            setattr(obj, attr, 0)
+        out_dir = os.path.join(tmp, "results")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simple_evaluate(ev, tasks, log_samples=True,
+                              output_dir=out_dir)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        counts = {f"{o.__name__}.{a}": getattr(o, a)
+                  for o, a in counters + plains}
+        wrote = os.path.exists(os.path.join(out_dir, "results.json"))
+    preds = [s_["pred"] for t in tasks for s_ in res["samples"][t]]
+    n_docs = len(preds)
+    check(wrote, "results.json not written")
+    check(n_docs == EVAL_VIDEOS * len(tasks), f"{n_docs} predictions")
+    check(all(isinstance(p_, str) and p_ for p_ in preds),
+          "an empty or non-string prediction")
+    check(all(counts[f"{o.__name__}.{a}"] > 0 for o, a in counters),
+          f"eval launches {counts}")
+    check(all(counts[f"{o.__name__}.{a}"] == 0 for o, a in plains),
+          f"eval: plain twins ran: {counts}")
+
+    # VDCScore of one subset's captions, the judge over HTTP
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    # the serve CLI's --max-seq-len (a judge prompt is ~2k ByteTokenizer ids)
+    engine = ServeEngine(ev.model.llm, ev.cfg.llm, EngineConfig(
+        max_seq_len=4096, kv_dtype=ev.model.llm.embed_tokens.dtype),
+        device=dev, tokenizer=tok)
+    captions = [{"video_name": n, "pred": s_["pred"]} for n, s_ in
+                zip(names, res["samples"]["vdc_detailed_test"])]
+    gt = [{"video_name": n, "qa_list": list(EVAL_QA)} for n in names]
+    with ServerThread(ServingLoop(engine, tok)) as srv:
+        judge = CountingJudge(srv.url, max_tokens=JUDGE_MAX_TOKENS)
+        t0 = time.perf_counter()
+        scores = post_eval.score_captions(captions, gt, judge)
+        judge_s = time.perf_counter() - t0
+    judge_counts = {f"{o.__name__}.{a}": getattr(o, a) for o, a in counters}
+    phase("eval", card=repr(card),
+          config="auroracap-7b-widths/llm-2-layers/bf16",
+          tasks=",".join(tasks), videos=EVAL_VIDEOS,
+          video="x".join(map(str, CHUNKED_VIDEO_SHAPE)),
+          kept_ratio=EVAL_KEPT_RATIO, new_tokens=EVAL_MAX_NEW,
+          load_s=f"{load_s:.2f}", docs=n_docs, eval_s=f"{eval_s:.2f}",
+          docs_per_s=f"{n_docs / eval_s:.3f}",
+          launches=json.dumps(counts).replace(" ", ""),
+          judge_calls=judge.calls, judge_s=f"{judge_s:.2f}",
+          judge_answers_per_s=f"{judge.calls / judge_s:.3f}",
+          judge_parsed=f"{judge.parsed}/{len(captions) * len(EVAL_QA)}",
+          judge_max_tokens=JUDGE_MAX_TOKENS, vdcscore_n=scores["n"],
+          vdcscore_acc=f"{scores['acc']:.1f}",
+          vdcscore_score=f"{scores['score']:.3f}",
+          judge_launches=json.dumps(judge_counts).replace(" ", ""))
+    check(scores["n"] == EVAL_VIDEOS, f"score_captions n={scores['n']}")
+    check(all(judge_counts[f"{o.__name__}.{a}"] > 0 for o, a in counters),
+          f"judge launches {judge_counts}")
+    del engine, ev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [counts[f"{o.__name__}.{a}"] + judge_counts[f"{o.__name__}.{a}"]
+            for o, a in counters]
 
 
 def _timed_llama_apply(torch, times):
@@ -3142,6 +3497,12 @@ def main():
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     kres = {(mode, hkv): attention_case(torch, ra, dev, g, hkv, mode)
             for mode in ("bf16", "int8", "int4") for hkv in (32, 8)}
+    # int8 rows on the int4 grid, from a generator of their own (the
+    # later phases' inputs stay)
+    gq = torch.Generator(device=dev).manual_seed(SEED + 10)
+    for hkv in (32, 8):
+        kres[("int4grid", hkv)] = attention_case(torch, ra, dev, gq, hkv,
+                                                 "int4grid")
     # the sliding window and the logit cap (Gemma2's 50) at the serving
     # shapes, then the window at Mistral-7B's (from a generator of their
     # own, so the later phases' inputs stay)
@@ -3173,7 +3534,14 @@ def main():
 
     # ---- checkpoint loading from an xtuner-format directory --------------
     torch.cuda.empty_cache()
-    infer_load_phase(torch, dev, card)
+    root = infer_load_phase(torch, dev, card)
+    try:
+        eval_launches = eval_phase(
+            torch, ra, root, dev, card,
+            [(ra.ragged_attention_plain, "calls"),
+             (ra.ragged_decode_attention_plain, "calls")])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     # ---- main path at full width, bf16 ------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -3424,6 +3792,11 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
 
+    # ---- the int4-grid KV rows and the A8 prefill on the same W4 weights ---
+    torch.cuda.reset_peak_memory_stats()
+    surface = engine_surface_phase(torch, engine_mod, qm, mm, llm_w4, cfg.llm,
+                                   dev, card, kernels["w4kv8"], plains)
+
     # ---- from video files, at the reference engine's defaults --------------
     torch.cuda.reset_peak_memory_stats()
     prefix_phase(torch, engine_mod, mm, llm_w4, cfg.llm, dev, card,
@@ -3487,12 +3860,12 @@ def main():
                      eager_ms=acc["eager_ms"],
                      library_eager_ms=acc["library_eager_ms"], **extra)
 
-    def attn_entry(name, source, replaces, launches, mode, kind):
+    def attn_entry(name, source, replaces, launches, mode, kind, **extra):
         r = kres[(mode, 32)][kind]   # the Vicuna shape: Hq = Hkv = 32
         err = max(kres[(mode, h)][kind]["err"] for h in (32, 8))
         return entry(name, source, replaces, launches, err, r["ms"],
                      r["plain_ms"], (r["bound_ms"], r["bound_by"]),
-                     r["library_ms"])
+                     r["library_ms"], **extra)
 
     def window_entry(name, source, replaces, launches, mode, kind):
         r = mres[mode][kind]        # Mistral-7B's shapes, window 4096
@@ -3504,18 +3877,29 @@ def main():
         return max(res[n] for res in flash_res for n in names)
 
     kernels = [
+        # launches_eval: [eval]'s (generate_batch and the judge server)
         attn_entry("ragged_attention[bf16]", "ragged_extend.cu",
                    "ragged_attention.py:287", launches["bf16"][0], "bf16",
-                   "extend"),
+                   "extend", launches_eval=eval_launches[0]),
         attn_entry("ragged_decode_attention[bf16]", "ragged_decode.cu",
                    "ragged_attention.py:645", launches["bf16"][1], "bf16",
-                   "decode"),
+                   "decode", launches_eval=eval_launches[1]),
         attn_entry("ragged_attention[int8]", "ragged_extend.cu",
                    "ragged_attention.py:287", launches["w4kv8"][0], "int8",
-                   "extend"),
+                   "extend", launches_serve_a8_prefill=surface[
+                       "serve-a8-prefill"][0]),
         attn_entry("ragged_decode_attention[int8]", "ragged_decode.cu",
                    "ragged_attention.py:645", launches["w4kv8"][1], "int8",
-                   "decode"),
+                   "decode", launches_serve_a8_prefill=surface[
+                       "serve-a8-prefill"][1]),
+        # int8 rows at the int4 grid (kv_maxq 7); launches from
+        # [serve-kv4grid]
+        attn_entry("ragged_attention[int4grid]", "ragged_extend.cu",
+                   "ragged_attention.py:287",
+                   surface["serve-kv4grid"][0], "int4grid", "extend"),
+        attn_entry("ragged_decode_attention[int4grid]", "ragged_decode.cu",
+                   "ragged_attention.py:645",
+                   surface["serve-kv4grid"][1], "int4grid", "decode"),
         attn_entry("ragged_attention[int4]", "ragged_extend.cu",
                    "ragged_attention.py:287", launches["w4kv4"][0], "int4",
                    "extend"),
@@ -3536,7 +3920,10 @@ def main():
         # as CUDA-graph replays; launches from the W4 + int8-KV run
         weight_entry("w4a8_matmul_tiled", "w4a8_matmul.cu",
                      "quant_matmul.py:305", launches["w4kv8"][2], w4res[4],
-                     w4res[64]),
+                     w4res[64],
+                     launches_serve_kv4grid=surface["serve-kv4grid"][2],
+                     launches_serve_a8_prefill=surface[
+                         "serve-a8-prefill"][2]),
         # the same four projections in the flat layout (and at B 64);
         # launches from the flat-layout run
         weight_entry("w4a8_matmul", "w4a8_matmul.cu",

@@ -989,7 +989,7 @@ def test_dense_generate_repeats_on_card(cuda_device):
     tokens and logprobs, bit for bit. SDPA's cuDNN backend, which PyTorch
     picks for these masked calls on an H100, did not repeat (chip_smoke
     `[infer-beam]`); `llama_apply` keeps it off over a KV cache
-    (models/llama.py `_REPEATABLE_SDPA`). 7B widths and the
+    (ops/attention.py `REPEATABLE_SDPA`). 7B widths and the
     caption's 1,423-token prompt at 8 layers: with cuDNN allowed the
     decode failed to repeat here, at 2 layers it repeated."""
     from aurora_tpu_torch.generate.engine import generate
@@ -1010,6 +1010,48 @@ def test_dense_generate_repeats_on_card(cuda_device):
     for r in runs[1:]:
         assert torch.equal(r.tokens, runs[0].tokens)
         assert torch.equal(r.logprobs, runs[0].logprobs)
+
+
+_VIT_REPEAT = r'''
+import hashlib, sys
+import torch
+from aurora_tpu_torch.models.init import build
+from aurora_tpu_torch.models.vit import ViTConfig, VisionTransformer, vit_encode
+dev = torch.device("cuda", 0)
+if sys.argv[1] == "sdpa-first":   # another masked SDPA call first
+    q = torch.randn((4, 32, 300, 128), device=dev, dtype=torch.bfloat16)
+    torch.nn.functional.scaled_dot_product_attention(
+        q, q, q, attn_mask=torch.ones((300, 300), dtype=torch.bool,
+                                      device=dev).tril())
+cfg = ViTConfig.dfn5b_vit_h_378()
+vit = build(VisionTransformer, cfg, device=dev, dtype=torch.bfloat16,
+            generator=torch.Generator(dev).manual_seed(0))
+px = torch.randn((8, 3, 378, 378), device=dev,
+                 generator=torch.Generator(dev).manual_seed(1))
+with torch.no_grad():
+    out = vit_encode(vit, px.to(torch.bfloat16), kept_ratio=0.2)
+print(hashlib.md5(out.float().cpu().numpy().tobytes()).hexdigest())
+'''
+
+
+@pytest.mark.cuda
+def test_vit_encode_repeats_across_processes_on_card(cuda_device):
+    """ViT-H/14-378 with ToMe at kept ratio 0.2 on 8 frames, encoded in
+    three fresh processes (one after another masked SDPA call): the same
+    bits. Its attention carries ToMe's size bias, a masked SDPA call, for
+    which PyTorch picks cuDNN attention on an H100; there the embeddings
+    differed from one process to the next (chip_smoke's bf16 serving and
+    caption numbers with them), so the ViT keeps to `REPEATABLE_SDPA`."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    outs = [subprocess.run([sys.executable, "-c", _VIT_REPEAT, arg], env=env,
+                           capture_output=True, text=True, timeout=300,
+                           check=True).stdout.strip()
+            for arg in ("fresh", "fresh", "sdpa-first")]
+    assert len(outs[0]) == 32 and len(set(outs)) == 1, outs
 
 
 @pytest.mark.cuda

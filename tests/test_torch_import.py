@@ -6,14 +6,21 @@ serving a tiny multimodal request, generating greedy and beam captions,
 starting the HTTP server (serve/api.py) and having /health and /generate
 answer 200, running the Runtime with a stop string, a regex and a prompt
 past the largest bucket (chunked prefill), running a lang.py program over
-the server (a regex gen and a select), and taking one
-multimodal train step on the CPU loads neither JAX nor the JAX package,
+the server (a regex gen and a select), taking one
+multimodal train step, and running the eval adapter's simple_evaluate
+on the built-in VDC task (its hooks named by dotted strings that resolve
+at run time) on the CPU loads neither JAX nor the JAX package,
 nor aiohttp, which the script blocks (the GPU host has none). Runs in a
 fresh interpreter (this test process has JAX)."""
 
+import json
 import os
 import subprocess
 import sys
+
+import numpy as np
+
+from utils import make_tiny_xtuner_dir
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -121,6 +128,21 @@ state, m = make_train_step(cfg, tcfg)(state, {
     "input_ids": ids, "labels": ids,
     "pixel_values": torch.rand((2, 1, 3, 56, 56))})
 assert torch.isfinite(m["loss"]) and state.step == 1
+import dataclasses, os
+from aurora_tpu_torch.eval import api as eval_api
+from aurora_tpu_torch.eval.evaluator import simple_evaluate
+from aurora_tpu_torch.eval.models import AuroraCapEval
+# the built-in VDC task as registered (its dotted hook strings resolve
+# at run time), on AURORA_VDC_DIR's two videos, 4 tokens
+eval_api.register_task(dataclasses.replace(
+    eval_api._REGISTRY["vdc_short_test"],
+    generation_kwargs={"max_new_tokens": 4, "temperature": 0.0}))
+ev = AuroraCapEval(os.environ["AURORA_TEST_XTUNER_DIR"], num_frames=2,
+                   image_size=56, device="cpu", dtype=torch.float32)
+res = simple_evaluate(ev, ["vdc_short_test"], log_samples=True)
+assert res["results"]["vdc_short_test"]["_n"] == 2, res
+assert all(isinstance(s["pred"], str)
+           for s in res["samples"]["vdc_short_test"])
 assert "jax" not in sys.modules, "jax was imported"
 assert not any(m == "aurora_tpu" or m.startswith("aurora_tpu.")
                for m in sys.modules), "aurora_tpu was imported"
@@ -131,8 +153,19 @@ print("OK")
 '''
 
 
-def test_port_imports_and_serves_without_jax():
-    env = dict(os.environ, PYTHONPATH=REPO)
+def test_port_imports_and_serves_without_jax(tmp_path):
+    root, *_ = make_tiny_xtuner_dir(tmp_path / "model")
+    vdc = tmp_path / "vdc"
+    vdc.mkdir()
+    rng = np.random.default_rng(0)
+    with open(vdc / "short.jsonl", "w") as f:
+        for i in range(2):
+            np.save(vdc / f"v{i}.npy",
+                    rng.integers(0, 256, (2, 56, 56, 3)).astype(np.uint8))
+            f.write(json.dumps({"video_name": f"v{i}", "caption": "c",
+                                "qa_list": []}) + "\n")
+    env = dict(os.environ, PYTHONPATH=REPO, AURORA_VDC_DIR=str(vdc),
+               AURORA_TEST_XTUNER_DIR=root)
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
