@@ -3,10 +3,11 @@
 
     python -m aurora_tpu_torch MODE [MODE_ARGS...]
 
-`infer`, `serve`, `chat`, `bench-latency`, `bench-serving`, `test` and
-`eval` (the eval CLI), `post-eval` and `mmbench` are ported; every other
-mode of the reference exits non-zero with the ROADMAP item that will port
-it.
+`train`, `preprocess`, `list-cfg`, `copy-cfg`, `log-dataset`,
+`check-custom-dataset`, `infer`, `serve`, `chat`, `bench-latency`,
+`bench-serving`, `test` and `eval` (the eval CLI), `post-eval` and
+`mmbench` are ported; every other mode of the reference exits 2 with the
+ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -14,19 +15,22 @@ from __future__ import annotations
 import importlib
 import sys
 
-_TRAINING = "queue 1 item 7 (the rest of training)"
 _NOT_PORTED = {
-    "train": _TRAINING, "preprocess": _TRAINING, "list-cfg": _TRAINING,
-    "copy-cfg": _TRAINING, "log-dataset": _TRAINING,
-    "check-custom-dataset": _TRAINING,
     "convert": "queue 1 item 12 (the converters' export half)",
     "bench-kernels": "queue 1, not to port (aurora_tpu_torch/tools/"
                      "time_ragged.py and time_weights.py time the kernels)",
 }
 
 
-# mode → the module whose main(argv) runs it
-_PORTED = {"infer": "aurora_tpu_torch.cli.infer",
+# mode → "module" whose main(argv) runs it, or "module:function"
+_CFG_TOOLS = "aurora_tpu_torch.cli.cfg_tools:"
+_PORTED = {"train": "aurora_tpu_torch.cli.train",
+           "preprocess": "aurora_tpu_torch.cli.preprocess",
+           "list-cfg": _CFG_TOOLS + "list_cfg",
+           "copy-cfg": _CFG_TOOLS + "copy_cfg",
+           "log-dataset": _CFG_TOOLS + "log_dataset",
+           "check-custom-dataset": _CFG_TOOLS + "check_custom_dataset",
+           "infer": "aurora_tpu_torch.cli.infer",
            "serve": "aurora_tpu_torch.cli.serve",
            "chat": "aurora_tpu_torch.cli.chat",
            "bench-latency": "aurora_tpu_torch.cli.bench_latency",
@@ -42,9 +46,12 @@ def _help() -> str:
     return ("usage: python -m aurora_tpu_torch MODE [ARGS...]\n"
             f"  ported modes: {', '.join(_PORTED)}\n"
             f"  not ported yet: {', '.join(sorted(_NOT_PORTED))}\n"
-            "  example:\n"
+            "  examples:\n"
             "    python -m aurora_tpu_torch infer --model_path M "
-            "--visual_input v.npy\n")
+            "--visual_input v.npy\n"
+            "    python -m aurora_tpu_torch copy-cfg vision my_cfg.json\n"
+            "    python -m aurora_tpu_torch train --stage vision "
+            "--config my_cfg.json --model_path M --data d.json\n")
 
 
 def main(argv=None) -> int:
@@ -54,8 +61,9 @@ def main(argv=None) -> int:
         return 0
     mode, rest = argv[0], argv[1:]
     if mode in _PORTED:
-        module = importlib.import_module(_PORTED[mode])
-        return module.main(rest) or 0
+        module, _, fn = _PORTED[mode].partition(":")
+        return getattr(importlib.import_module(module), fn or "main")(
+            rest) or 0
     if mode in _NOT_PORTED:
         print(f"mode {mode!r} is not ported yet: ROADMAP.md "
               f"{_NOT_PORTED[mode]}", file=sys.stderr)

@@ -245,3 +245,22 @@ def aurora_from_params(tree, cfg: AuroraConfig, device=None, dtype=None):
     """The composite {"visual_encoder", "projector", "llm"} tree."""
     return _load(AuroraModel(cfg, device="meta", dtype=dtype),
                  aurora_state_dict(tree, cfg), device)
+
+
+def lora_adapters_from(adapters, device=None, dtype=None):
+    """The reference's LoRA adapters ({"llm/layers/q": {"a": [L, in, r],
+    "b": [L, r, out]}}, train/lora.py's stacked factors, numpy leaves) →
+    the port's, one entry per layer ({"llm.layers.<l>.q": {"a": [in, r],
+    "b": [r, out]}}), leaf tensors that require grad, on the card unless
+    `device` says otherwise; dtype default: the arrays'."""
+    out = {}
+    for path, ab in adapters.items():
+        parts = path.split("/")
+        at = parts.index("layers") + 1
+        a, b = np.asarray(ab["a"]), np.asarray(ab["b"])
+        for l in range(a.shape[0]):
+            name = ".".join(parts[:at] + [str(l)] + parts[at:])
+            out[name] = {k: torch.tensor(v[l], device=device or "cuda",
+                                         dtype=dtype).requires_grad_()
+                         for k, v in (("a", a), ("b", b))}
+    return out

@@ -3,10 +3,9 @@
 Ported: the configuration, the static visual token count, the visual
 encode (frames folded into the batch, select layer −2, CLS dropped,
 projected) and the multimodal fusion that splices the visual embeddings
-over the prompt's image markers, and the composite forward
-`aurora_forward` (modes "loss", "tensor"/"predict" and "inference").
-Packed batches (segment_ids) raise NotImplementedError: the fusion carries
-no segment ids yet.
+over the prompt's image markers, carrying packed batches' segment ids
+over the fused sequence, and the composite forward `aurora_forward`
+(modes "loss", "tensor"/"predict" and "inference").
 """
 
 from __future__ import annotations
@@ -115,17 +114,23 @@ def encode_visual_slowfast(model: AuroraModel, pixel_values: torch.Tensor,
 def fuse_multimodal(embed_table: torch.Tensor, input_ids: torch.Tensor,
                     visual_groups: Sequence[torch.Tensor],
                     attention_mask: Optional[torch.Tensor] = None,
-                    labels: Optional[torch.Tensor] = None
+                    labels: Optional[torch.Tensor] = None,
+                    segment_ids: Optional[torch.Tensor] = None
                     ) -> Dict[str, Optional[torch.Tensor]]:
     """Splice visual embeddings over the IMAGE_TOKEN_INDEX markers.
 
     input_ids [B, T] with markers; visual_groups: [B, F_g, N_g, D] tensors
     in marker order. Returns inputs_embeds [B, T_out, D], attention_mask
-    [B, T_out] bool, position_ids [B, T_out] and labels (IGNORE_INDEX
-    under visual spans) with T_out = T - F_total + Σ F_g·N_g. Writes that
-    would land at or past T_out are dropped, as the reference's scatters
-    drop them; rows with fewer markers than F_total leave the missing
-    frames unwritten.
+    [B, T_out] bool, position_ids [B, T_out], labels (IGNORE_INDEX
+    under visual spans) and segment_ids with T_out = T - F_total +
+    Σ F_g·N_g. Writes that would land at or past T_out are dropped, as the
+    reference's scatters drop them; rows with fewer markers than F_total
+    leave the missing frames unwritten.
+
+    segment_ids [B, T] (packed batches, data/collate.py SoftPackerMM):
+    each live token keeps its segment, each visual span takes its
+    marker's, and every position past a row's live length is padding
+    (-1), as the reference's aurora_tpu/models/aurora.py does.
     """
     B, T = input_ids.shape
     dev = input_ids.device
@@ -153,23 +158,39 @@ def fuse_multimodal(embed_table: torch.Tensor, input_ids: torch.Tensor,
     bi, ti = text.nonzero(as_tuple=True)
     out[bi, base_pos[bi, ti]] = embed_table[input_ids[bi, ti]]
 
+    out_segments = None
+    if segment_ids is not None:
+        # live tokens, image markers included, keep their segment
+        out_segments = torch.full((B, T_out), -1, dtype=segment_ids.dtype,
+                                  device=dev)
+        live = attention_mask & (base_pos < T_out)
+        bs, ts = live.nonzero(as_tuple=True)
+        out_segments[bs, base_pos[bs, ts]] = segment_ids[bs, ts]
+
     bm, tm = is_img.nonzero(as_tuple=True)
     marker_k = before[bm, tm]                    # ordinal of each marker
     marker_start = base_pos[bm, tm]
+    marker_seg = (segment_ids[bm, tm] if segment_ids is not None
+                  else torch.zeros_like(bm))
     k0 = 0
     for g in visual_groups:
         Fg, Ng = g.shape[1], g.shape[2]
         sel = (marker_k >= k0) & (marker_k < k0 + Fg)
-        for b, k, start in zip(bm[sel].tolist(), marker_k[sel].tolist(),
-                               marker_start[sel].tolist()):
+        for b, k, start, seg in zip(
+                bm[sel].tolist(), marker_k[sel].tolist(),
+                marker_start[sel].tolist(), marker_seg[sel].tolist()):
             n = max(0, min(Ng, T_out - start))
             out[b, start:start + n] = g[b, k - k0, :n].to(out.dtype)
+            if out_segments is not None:
+                out_segments[b, start:start + n] = seg
         k0 += Fg
 
     n_markers = is_img.sum(dim=1)
     new_len = attention_mask.sum(dim=1) + exp[n_markers.clamp(0, F_total)]
     out_mask = torch.arange(T_out, device=dev)[None, :] < new_len[:, None]
     position_ids = torch.arange(T_out, device=dev)[None, :] * out_mask
+    if out_segments is not None:
+        out_segments = torch.where(out_mask, out_segments, -1)
 
     out_labels = None
     if labels is not None:
@@ -177,7 +198,8 @@ def fuse_multimodal(embed_table: torch.Tensor, input_ids: torch.Tensor,
                                 dtype=labels.dtype, device=dev)
         out_labels[bi, base_pos[bi, ti]] = labels[bi, ti]
     return {"inputs_embeds": out, "attention_mask": out_mask,
-            "position_ids": position_ids, "labels": out_labels}
+            "position_ids": position_ids, "labels": out_labels,
+            "segment_ids": out_segments}
 
 
 def aurora_forward(model: AuroraModel, input_ids: torch.Tensor,
@@ -191,14 +213,12 @@ def aurora_forward(model: AuroraModel, input_ids: torch.Tensor,
 
     pixel_values [B, F, C, H, W] (or [B, C, H, W], one frame) splice the
     visual embeddings over the IMAGE_TOKEN_INDEX markers (frame 0 un-merged
-    with cfg.slowfast); without them the batch is text. remat applies to
-    the ViT and the LLM layers alike. Attention takes the flash kernels
-    for CUDA tensors without an attention mask (`mha`'s rule).
+    with cfg.slowfast); without them the batch is text. segment_ids [B, T]
+    (packed batches): attention stays within each segment, carried over
+    the visual spans by `fuse_multimodal`. remat applies to the ViT and
+    the LLM layers alike. Attention takes the flash kernels for CUDA
+    tensors without an attention mask (`mha`'s rule).
     """
-    if segment_ids is not None:
-        raise NotImplementedError("packed batches (segment_ids) are not "
-                                  "ported: fuse_multimodal has no segment "
-                                  "ids yet")
     cfg = model.cfg
     if pixel_values is not None:
         if pixel_values.dim() == 4:     # one image → a one-frame video
@@ -209,17 +229,18 @@ def aurora_forward(model: AuroraModel, input_ids: torch.Tensor,
         else:
             groups = [encode_visual(model, pixel_values, kept_ratio, remat)]
         fused = fuse_multimodal(model.llm.embed_tokens, input_ids, groups,
-                                attention_mask, labels)
+                                attention_mask, labels, segment_ids)
     else:
         fused = {"inputs_embeds": model.llm.embed_tokens[input_ids],
                  "attention_mask": attention_mask, "position_ids": None,
-                 "labels": labels}
+                 "labels": labels, "segment_ids": segment_ids}
     if mode == "inference":
         return fused
     logits = llama_apply(model.llm, cfg.llm,
                          inputs_embeds=fused["inputs_embeds"],
                          attention_mask=fused["attention_mask"],
-                         position_ids=fused["position_ids"], remat=remat)
+                         position_ids=fused["position_ids"],
+                         segment_ids=fused["segment_ids"], remat=remat)
     if mode in ("tensor", "predict"):
         return logits
     if mode == "loss":

@@ -23,8 +23,13 @@ offline forward `llama_apply`, the training and scoring path and, over a
 dense KV cache (`init_kv_cache`), the offline generation path of
 generate/: attention through `ops.attention.mha` (the flash kernels on
 the card for unmasked calls), per-layer remat (models/remat.py), fp32
-logits. `llama_lm_loss` is the shifted cross-entropy. Dense bf16/fp32
-layers only; W4/W8 layers raise NotImplementedError there.
+logits. `llama_lm_loss` is the shifted cross-entropy. There a
+projection is any module that maps h to h @ W: an `nn.Linear`, or the
+training modules that stand in for one, train/lora.py's `LoraLinear` (W
+plus the adapter's delta) and train/quant.py's `QuantLinear` (a frozen
+int8/int4 weight dequantized when the layer runs, so one projection's
+float weight exists at a time, plus the LoRA delta); the serving W4/W8
+layouts raise NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -241,6 +246,10 @@ class LlamaModel(nn.Module):
             self.score = nn.Linear(d, num_labels, bias=False, **kw)
 
 
+# the serving engine's weight layouts, which only serve/engine.py computes
+_SERVING_LAYOUTS = (W4Linear, W8Linear, W4FusedMLP)
+
+
 def _dense(h, proj):
     return proj(h)
 
@@ -372,11 +381,13 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
     if kv_cache is not None and segment_ids is not None:
         raise ValueError("packed segments over a KV cache are unsupported: "
                          "the cache tracks no segment ids")
-    if any(not isinstance(m, nn.Linear) for lp in model.layers
+    if any(isinstance(m, _SERVING_LAYOUTS) for lp in model.layers
            for m in lp.children()) or not isinstance(model.lm_head,
                                                      nn.Linear):
-        raise NotImplementedError("llama_apply runs dense layers only; "
-                                  "W4/W8 (QLoRA) layers are not ported")
+        raise NotImplementedError(
+            "llama_apply runs dense, (Q)LoRA or quantized-base layers "
+            "(train/lora.py, train/quant.py) under a float LM head; the "
+            "serving engine's W4/W8 layouts run in serve/engine.py")
     x = model.embed_tokens[input_ids] if inputs_embeds is None \
         else inputs_embeds
     B, T, _ = x.shape

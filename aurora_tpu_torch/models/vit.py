@@ -17,10 +17,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.attention import sdpa_kernel
 
 from aurora_tpu_torch.models.remat import remat_call
-from aurora_tpu_torch.ops.attention import REPEATABLE_SDPA, mha_reference
+from aurora_tpu_torch.ops.attention import mha_reference, repeatable_sdpa
 from aurora_tpu_torch.ops.norms import layer_norm, quick_gelu
 from aurora_tpu_torch.ops.tome import (bipartite_soft_matching, merge_wavg,
                                        tome_r, tome_schedule)
@@ -106,7 +105,7 @@ class EncoderLayer(nn.Module):
         bias = None
         if size is not None and self.cfg.proportional_attention == "key":
             bias = size.log()[:, None, None, :, 0]           # [B,1,1,T]
-        with sdpa_kernel(REPEATABLE_SDPA):     # off cuDNN: repeatable
+        with repeatable_sdpa():                # off cuDNN: repeatable
             out = mha_reference(q, k, v, bias=bias, scale=hd ** -0.5)
         return self.o(out.reshape(B, T, D)), metric
 

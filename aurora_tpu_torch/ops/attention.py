@@ -17,19 +17,36 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.nn.attention import SDPBackend
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from aurora_tpu_torch.ops.pallas.flash_attention import flash_attention
 
 _MASK_VALUE = -2.3819763e38  # the reference's finite mask value
 
-# SDPA's backends that repeat bit for bit on the card. PyTorch 2.11 picks
-# cuDNN attention for masked calls on an H100, and its results did not
-# repeat: a 7B greedy dense decode gave other tokens on its second run,
-# and the ViT (masked by ToMe's size bias) other embeddings in another
-# process. The dense KV-cache decode and the ViT keep to these.
+# SDPA's backends whose forward repeats bit for bit on the card. PyTorch
+# 2.11 picks cuDNN attention for masked calls on an H100, and its results
+# did not repeat: a 7B greedy dense decode gave other tokens on its second
+# run, and the ViT (masked by ToMe's size bias) other embeddings in
+# another process. The dense KV-cache decode and the ViT keep to these.
 REPEATABLE_SDPA = [SDPBackend.FLASH_ATTENTION,
                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
+# A train step's backward too must repeat (an exact resume): the default
+# backends' masked backward did not (cuDNN on the H100; the
+# memory-efficient backward splits keys with atomic adds). The math
+# backend (fp32 products and softmax, no atomics) does;
+# train/trainer.py `repeatable_step` narrows SDPA to it.
+TRAINING_SDPA = [SDPBackend.MATH]
+_ENABLED = {SDPBackend.FLASH_ATTENTION: torch.backends.cuda.flash_sdp_enabled,
+            SDPBackend.EFFICIENT_ATTENTION:
+                torch.backends.cuda.mem_efficient_sdp_enabled,
+            SDPBackend.MATH: torch.backends.cuda.math_sdp_enabled}
+
+
+def repeatable_sdpa():
+    """sdpa_kernel over the REPEATABLE_SDPA backends enabled now: all
+    three, or those a caller narrowed SDPA to (a train step: math)."""
+    return sdpa_kernel([b for b in REPEATABLE_SDPA if _ENABLED[b]()]
+                       or REPEATABLE_SDPA)
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -19,24 +19,34 @@ code, written to match one optax step to fp32 rounding (not
     gradients, one update every k steps, the schedule advancing once per
     window.
 The step updates the model's parameters in place: `TrainState.params` is
-the model itself. Sums of squares for the norms run in fp32 (optax sums
-in the leaf dtype; the same for fp32 parameters).
+the model itself. Its forward and backward run under `repeatable_step`
+(SDPA's math backend, deterministic algorithms), so that a step repeats
+bit for bit on the card. Sums of squares for the norms run in fp32 (optax sums
+in the leaf dtype; the same for fp32 parameters). The (Q)LoRA steps
+(train/lora.py, train/quant.py) take `lora_optimizer`: the reference's
+`optax.chain(clip_by_global_norm(grad_clip), adamw(lr_schedule))` over
+the adapters, with optax.adamw's defaults (betas 0.9 / 0.999, weight
+decay 1e-4, not the config's) and no MultiSteps (grad_accum is ignored).
 
 Not ported (NotImplementedError): sequence parallelism (`sp_mode`,
 `hybrid_ulysses`, `ring_layout`, `heads_k_stride` off their defaults, a
-mesh), packed batches (`segment_ids`, see models/aurora.py).
+mesh).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.deterministic
+from torch.nn.attention import sdpa_kernel
 
 from aurora_tpu_torch.models.aurora import (AuroraConfig, AuroraModel,
                                             aurora_forward)
+from aurora_tpu_torch.ops.attention import TRAINING_SDPA
 
 _F32 = np.float32
 
@@ -103,6 +113,28 @@ def lr_schedule(cfg: TrainConfig):
     return schedule
 
 
+@contextlib.contextmanager
+def repeatable_step():
+    """Run a train step's forward and backward so that it repeats bit for
+    bit on the card, as the reference's step does (an exact resume needs
+    it): SDPA narrowed to TRAINING_SDPA (ops/attention.py; the ViT's
+    attention follows), and torch's deterministic algorithms (warn only,
+    uninitialized memory not filled), which make the embedding
+    backward's index_put accumulate without atomic adds. The previous
+    settings come back on exit."""
+    det = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with sdpa_kernel(TRAINING_SDPA):
+            yield
+    finally:
+        torch.use_deterministic_algorithms(det, warn_only=warn)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
 def _frozen(cfg: TrainConfig) -> Dict[str, bool]:
     return {"llm": cfg.freeze_llm,
             "visual_encoder": cfg.freeze_visual_encoder,
@@ -116,36 +148,51 @@ def _global_norm(tensors) -> torch.Tensor:
 
 class Optimizer:
     """clip_by_global_norm → AdamW over the trainable parameters, inside
-    MultiSteps when grad_accum > 1 (see the module docstring)."""
+    MultiSteps when grad_accum > 1 (see the module docstring).
 
-    def __init__(self, model: AuroraModel, cfg: TrainConfig):
-        frozen = _frozen(cfg)
+    With a model, the parameters are the model's not frozen by `cfg`
+    (looked up by name at each call); with model=None, the callers pass
+    the list of tensors itself. weight_decay and betas default to the
+    config's; accumulate=False ignores grad_accum."""
+
+    def __init__(self, model: Optional[AuroraModel], cfg: TrainConfig, *,
+                 weight_decay: Optional[float] = None,
+                 betas: Optional[Tuple[float, float]] = None,
+                 accumulate: bool = True):
         self.cfg = cfg
         self.schedule = lr_schedule(cfg)
-        self.names = [n for n, _ in model.named_parameters()
-                      if not frozen.get(n.split(".")[0], False)]
+        self.weight_decay = (cfg.weight_decay if weight_decay is None
+                             else weight_decay)
+        self.betas = cfg.betas if betas is None else betas
+        self.grad_accum = cfg.grad_accum if accumulate else 1
+        self.names = None
+        if model is not None:
+            frozen = _frozen(cfg)
+            self.names = [n for n, _ in model.named_parameters()
+                          if not frozen.get(n.split(".")[0], False)]
 
-    def params(self, model: AuroraModel) -> List[torch.Tensor]:
+    def params(self, model) -> List[torch.Tensor]:
+        if self.names is None:
+            return list(model)
         named = dict(model.named_parameters())
         return [named[n] for n in self.names]
 
-    def init(self, model: AuroraModel) -> Dict[str, Any]:
+    def init(self, model) -> Dict[str, Any]:
         ps = self.params(model)
         state = {"count": 0, "mu": [torch.zeros_like(p) for p in ps],
                  "nu": [torch.zeros_like(p) for p in ps]}
-        if self.cfg.grad_accum > 1:
+        if self.grad_accum > 1:
             state.update(mini_step=0, gradient_step=0,
                          acc=[torch.zeros_like(p) for p in ps])
         return state
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
-               model: AuroraModel,
-               gnorm: Optional[torch.Tensor] = None) -> None:
-        """Apply one step's gradients (in self.names order) in place.
+               model, gnorm: Optional[torch.Tensor] = None) -> None:
+        """Apply one step's gradients (in self.params order) in place.
         gnorm: their global norm, where the caller has it already; with
         grad_accum > 1 the clip takes the norm of the window's mean."""
-        k = self.cfg.grad_accum
+        k = self.grad_accum
         if k > 1:
             n = state["mini_step"]
             for acc, g in zip(state["acc"], grads):
@@ -164,7 +211,7 @@ class Optimizer:
 
     def _adamw(self, grads, gnorm, state, params) -> None:
         cfg = self.cfg
-        b1, b2 = cfg.betas
+        b1, b2 = self.betas
         clip = not bool(gnorm < cfg.grad_clip)
         step_size = -self.schedule(state["count"])
         state["count"] += 1
@@ -178,14 +225,22 @@ class Optimizer:
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
             u = (mu / bc1.to(mu.device, mu.dtype)) / (
                 torch.sqrt(nu / bc2.to(nu.device, nu.dtype)) + 1e-8)
-            if cfg.weight_decay:
-                u = u + cfg.weight_decay * p
+            if self.weight_decay:
+                u = u + self.weight_decay * p
             p.add_(torch.tensor(step_size, dtype=u.dtype,
                                 device=u.device) * u)
 
 
 def make_optimizer(params: AuroraModel, cfg: TrainConfig) -> Optimizer:
     return Optimizer(params, cfg)
+
+
+def lora_optimizer(cfg: TrainConfig) -> Optimizer:
+    """The (Q)LoRA steps' optimizer over a list of adapter tensors:
+    clip_by_global_norm(cfg.grad_clip) → optax.adamw(lr_schedule(cfg))
+    with adamw's defaults (weight decay 1e-4, betas 0.9 / 0.999)."""
+    return Optimizer(None, cfg, weight_decay=1e-4, betas=(0.9, 0.999),
+                     accumulate=False)
 
 
 def init_train_state(params: AuroraModel, cfg: TrainConfig) -> TrainState:
@@ -221,15 +276,17 @@ def make_train_step(acfg: AuroraConfig, tcfg: TrainConfig,
         if model.cfg != acfg:
             raise ValueError("the state's model was built for another "
                              "AuroraConfig")
-        loss, ntok = aurora_forward(
-            model, batch["input_ids"], batch.get("pixel_values"),
-            attention_mask=batch.get("attention_mask"),
-            labels=batch["labels"], kept_ratio=tcfg.kept_ratio,
-            mode="loss", remat=remat, segment_ids=batch.get("segment_ids"))
         params = o.params(model)
         live = [p for p in params if p.requires_grad]
-        got = (torch.autograd.grad(loss, live, allow_unused=True)
-               if live and loss.requires_grad else [None] * len(live))
+        with repeatable_step():
+            loss, ntok = aurora_forward(
+                model, batch["input_ids"], batch.get("pixel_values"),
+                attention_mask=batch.get("attention_mask"),
+                labels=batch["labels"], kept_ratio=tcfg.kept_ratio,
+                mode="loss", remat=remat,
+                segment_ids=batch.get("segment_ids"))
+            got = (torch.autograd.grad(loss, live, allow_unused=True)
+                   if live and loss.requires_grad else [None] * len(live))
         found = dict(zip(map(id, live), got))
         grads = [found.get(id(p)) for p in params]
         grads = [torch.zeros_like(p) if g is None else g

@@ -1,5 +1,6 @@
 """Framework-wide constants (same values as aurora_tpu/utils/constants.py)."""
 
 IGNORE_INDEX = -100
+DEFAULT_PAD_TOKEN_INDEX = 0
 IMAGE_TOKEN_INDEX = -200
 DEFAULT_IMAGE_TOKEN = "<image>"

@@ -78,7 +78,34 @@ Phases, one line each; any failure raises and exits non-zero:
                    HTTP server in a thread on the same LLM (48 tokens a
                    call): n = 8; docs/s, judge answers/s, parsed judge
                    outputs (random weights: no gate), the ragged bf16
-                   kernels' launches; the directory is deleted
+                   kernels' launches
+    train-cli      — cli/train.run (the training CLI, in-process) over that
+                   directory, bf16: synthetic 480x640 PNGs written here
+                   (their rows use all five PNG filters) and llava-format
+                   jsons; the pretrain stage at batch 4 (the stage's 16,
+                   cut), 6 steps, checkpoints at 3 and 6; a second run
+                   resumed from a copy of the step-3 checkpoint must log
+                   the first run's losses and grad norms at steps 4-6 and
+                   end with its projector, bit for bit; the LLM and the
+                   ViT unchanged bit for bit; the flash kernels launch 0
+                   times (every batch is masked, as in the reference) and
+                   no plain twin runs (in every train-cli phase); step ms,
+                   tgs, TFLOP/s, exposed data wait, peak GB, checkpoint GB
+                   and s, restore s
+    train-cli-vision — copy-cfg's vision stage with grad_accum 2 through
+                   --config: 4 steps of one 4-frame sample (slowfast, kept
+                   ratio 0.1): 2 updates, the ViT moved, the LLM unchanged
+    train-cli-packed — the language stage packed to 4096 (kept ratio 0.1):
+                   3 steps, every batch with segment ids, a pack of at
+                   least 2 documents; one pack's loss within
+                   PACKED_LOSS_TOL of the same documents unpacked; one
+                   batch's forward and backward under repeatable_step and
+                   under SDPA's default backends, timed in turns
+    train-cli-qlora — the language stage with --lora_r 64 --quant int4: 3
+                   steps; the quantized and float base GB; the whole base
+                   (int4 codes, scales, the float rest) unchanged bit for
+                   bit, every adapter moved, lora.json written; then the
+                   directory is deleted
 4. serve         — bf16: 4 requests of 8 frames each to 256 tokens; the
                    bf16 kernels' launch counts must rise and the plain
                    twins' stay 0
@@ -239,13 +266,18 @@ Phases, one line each; any failure raises and exits non-zero:
                    attention_mask), same weights: loss, grad norm and each
                    layer's q/k/v/o weight gradients
 20. the kernels' JSON line (each kernel's bound and library time
-   included; the windowed entries from Mistral's shapes and runs), then
+   included; the windowed entries from Mistral's shapes and runs; the
+   flash entries' launches_train_cli from the train-cli phases), then
    {"ok": true, "device": {...}} last.
+
+`python3 chip_smoke.py --only train-cli` runs infer-load and the four
+train-cli phases alone (no kernel JSON line, no final line).
 
 float32 references run with TF32 disabled for matmuls and cuDNN
 convolutions, so they are true fp32.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -466,6 +498,27 @@ NEAR_TIE = 2e-2
 BEAM_SCORE_TOL = NEAR_TIE / 2
 # the card's resize-crop against the CPU's, levels of 0-255 after rounding
 RESIZE_TOL = 1.0
+# [train-cli*]: the train CLI (cli/train.run) over [infer-load]'s xtuner
+# directory at full width (Vicuna-7B widths at INFER_LOAD_LAYERS layers,
+# ViT-H/14-378 whole), bf16, from a llava-format json of synthetic PNGs
+# written here; ByteTokenizer for the directory's missing tokenizer files
+TRAIN_CLI_IMAGES = 16
+TRAIN_CLI_IMAGE_SHAPE = (480, 640, 3)
+TRAIN_CLI_BATCH = 4        # the pretrain stage's batch of 16, cut to 4
+TRAIN_CLI_STEPS = 6        # [train-cli]: checkpoints at 3 and 6
+TRAIN_CLI_CKPT = 3
+TRAIN_CLI_VISION_STEPS = 4     # grad_accum 2: two updates
+TRAIN_CLI_VISION_FRAMES = 4
+TRAIN_CLI_PACK = 4096
+TRAIN_CLI_PACKED_STEPS = 3
+TRAIN_CLI_QLORA_STEPS = 3
+TRAIN_CLI_LORA_R = 64
+# one packed batch's loss against the same documents unpacked, relative,
+# bf16: the reference's mean over the valid tokens counts the same tokens
+# either way (each document starts with ignored labels), so they differ
+# only by rounding: RoPE at other absolute positions and other matmul
+# shapes in bf16, through 2 layers
+PACKED_LOSS_TOL = 1e-2
 # H100 SXM5 data sheet: dense bf16 tensor-core peak, int8 peak, HBM rate
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
@@ -567,6 +620,7 @@ class ByteTokenizer:
     character), so that any 32000-token output reads as text and a stop
     string of C characters spans exactly C tokens."""
 
+    bos_token_id = 1
     eos_token_id = 2
 
     def encode(self, text, add_special_tokens=True):
@@ -3451,7 +3505,349 @@ def http_update_phase(torch, dev, card, plains):
     torch.cuda.empty_cache()
 
 
-def main():
+def write_png(path, rgb):
+    """[H, W, 3] uint8 → an 8-bit RGB PNG: rows Sub-filtered but for every
+    60th row from row 3 on, which takes Average, Paeth, None and Up in
+    turn, so that the reader meets all five filters."""
+    import struct
+    import zlib
+    h, w, c = rgb.shape
+    raw = rgb.reshape(h, w * c).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * c), np.int16), raw[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int16), raw[:, :-c]])
+    ul = np.hstack([np.zeros((h, c), np.int16), up[:, :-c]])
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, ul))
+    preds = np.stack([np.zeros_like(raw), left, up, (left + up) // 2, paeth])
+    ftype = np.ones(h, np.int64)
+    for k, f in enumerate((3, 4, 0, 2)):
+        ftype[3 + k::60] = f
+    filt = ((raw - preds[ftype, np.arange(h)]) % 256).astype(np.uint8)
+    body = np.hstack([ftype[:, None].astype(np.uint8), filt]).tobytes()
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(body, 1)) + chunk(b"IEND", b""))
+
+
+def write_train_data(root):
+    """[train-cli*]'s data under `root`: TRAIN_CLI_IMAGES synthetic PNGs
+    (smooth color fields with a little noise, from a seeded stream) and
+    three llava-format jsons: one image a record with short captions
+    (pretrain, QLoRA), TRAIN_CLI_VISION_FRAMES images a record (vision),
+    one image a record with long captions (language, packed) → paths."""
+    rng = np.random.default_rng(SEED + 14)
+    imgs = os.path.join(root, "images")
+    os.makedirs(imgs)
+    h, w, _ = TRAIN_CLI_IMAGE_SHAPE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(TRAIN_CLI_IMAGES):
+        ph = rng.uniform(0, 6.3, size=3)
+        sc = rng.uniform(20, 90, size=3)
+        img = np.stack([127 + 110 * np.sin(xx / sc[k] + ph[k])
+                        * np.cos(yy / sc[(k + 1) % 3]) for k in range(3)], -1)
+        img += rng.normal(0, 3, size=img.shape)
+        write_png(os.path.join(imgs, f"img{i}.png"),
+                  np.clip(np.round(img), 0, 255).astype(np.uint8))
+    words = ("a", "red", "car", "moves", "slowly", "past", "the", "old",
+             "bridge", "while", "two", "people", "watch", "from", "river",
+             "bank", "under", "grey", "sky", "camera", "pans", "left")
+
+    def caption(n):
+        return " ".join(rng.choice(words, size=n)) + "."
+
+    def record(images, n_words):
+        marks = " ".join(["<image>"] * len(images))
+        return {"image": images if len(images) > 1 else images[0],
+                "conversations": [
+                    {"from": "human", "value": marks + "\nDescribe it."},
+                    {"from": "gpt", "value": caption(n_words)}]}
+
+    def img(i):
+        return f"img{i % TRAIN_CLI_IMAGES}.png"
+
+    sets = {
+        "pretrain": [record([img(i)], 40)
+                     for i in range(TRAIN_CLI_STEPS * TRAIN_CLI_BATCH)],
+        "vision": [record([img(i * TRAIN_CLI_VISION_FRAMES + k) for k in
+                           range(TRAIN_CLI_VISION_FRAMES)], 40)
+                   for i in range(TRAIN_CLI_VISION_STEPS)],
+        "language": [record([img(i)], 130) for i in range(72)]}
+    paths = {"images": imgs}
+    for name, recs in sets.items():
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(recs, f)
+    return paths
+
+
+def train_cli_phases(torch, model_dir, dev, card, counters, plains):
+    """[train-cli], [train-cli-vision], [train-cli-packed] and
+    [train-cli-qlora] (module docstring): cli/train.run in-process over
+    [infer-load]'s directory → the flash kernels' launches over the four
+    (0: every step is masked, so attention runs mha_reference, as in the
+    reference)."""
+    from aurora_tpu_torch.cli import infer as infer_mod
+    from aurora_tpu_torch.cli import train as train_cli
+    from aurora_tpu_torch.cli.cfg_tools import copy_cfg
+    from aurora_tpu_torch.data.collate import (SoftPackerMM,
+                                               default_collate_fn,
+                                               packed_collate_mm)
+    from aurora_tpu_torch.data.dataset import AuroraDataset
+    from aurora_tpu_torch.models.aurora import (aurora_forward,
+                                                num_visual_tokens)
+    from aurora_tpu_torch.train.quant import quantize_base
+    from aurora_tpu_torch.train.trainer import repeatable_step
+    from aurora_tpu_torch.utils.templates import PROMPT_TEMPLATE
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    data = write_train_data(root)
+    write_s = time.perf_counter() - t0
+    tok = ByteTokenizer()
+    launches = {f"{o.__name__}.{a}": 0 for o, a in counters}
+    no_tok = mock.patch.object(infer_mod, "auto_tokenizer",
+                               lambda *a, **k: tok)
+
+    def run_cli(name, *argv):
+        work = os.path.join(root, name)
+        for obj, attr in counters + plains:
+            setattr(obj, attr, 0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with no_tok:
+            t = time.perf_counter()
+            res = train_cli.run(train_cli.parse_args([
+                "--model_path", model_dir, "--image_folder",
+                data["images"], "--work_dir", work, "--log_interval", "1",
+                "--device", str(dev), *argv]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = {f"{o.__name__}.{a}": getattr(o, a)
+                  for o, a in counters + plains}
+        check(all(v == 0 for v in counts.values()),
+              f"{name}: flash launched or a plain twin ran: {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        timed = res.history[1:] or res.history
+        fields = dict(
+            card=repr(card), steps=len(res.history),
+            step_ms=f"{np.median([h['step_s'] for h in timed]) * 1e3:.1f}",
+            tgs=f"{np.median([h['tgs'] for h in timed]):.1f}",
+            tflops=f"{np.median([h['tflops'] for h in timed]):.2f}",
+            data_wait_ms=f"{np.mean([h['data_s'] for h in timed]) * 1e3:.2f}",
+            first_step_ms=f"{res.history[0]['step_s'] * 1e3:.1f}",
+            loss=f"{res.history[-1]['loss']:.5f}", wall_s=f"{wall:.1f}",
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            ckpt=",".join(f"{c['step']}:{c['gb']:.3f}GB/{c['s']:.2f}s"
+                          for c in res.saves),
+            launches=json.dumps(counts).replace(" ", ""))
+        check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                  for h in res.history), f"{name}: a loss is not finite")
+        return res, work, fields
+
+    def fresh():
+        with no_tok:
+            return infer_mod.load_model(model_dir, torch.bfloat16, dev)[0]
+
+    def same(a, b, prefix=""):
+        sa, sb = a.state_dict(), b.state_dict()
+        return sorted(sa) == sorted(sb) and all(
+            torch.equal(sa[k], sb[k]) for k in sa if k.startswith(prefix))
+
+    config = (f"auroracap-7b-widths/llm-{INFER_LOAD_LAYERS}-layers/"
+              f"vit-h-14-378/bf16")
+    # ---- pretrain, checkpoints at 3 and 6, then resumed from 3 ----------
+    common = ("--stage", "pretrain", "--data", data["pretrain"],
+              "--batch_size", str(TRAIN_CLI_BATCH), "--max_steps",
+              str(TRAIN_CLI_STEPS), "--checkpoint_interval",
+              str(TRAIN_CLI_CKPT))
+    first, work, fields = run_cli("pretrain", *common)
+    ckpts = os.path.join(work, "checkpoints")
+    check(sorted(os.listdir(ckpts), key=int) == [str(TRAIN_CLI_CKPT),
+                                                  str(TRAIN_CLI_STEPS)],
+          f"checkpoints {os.listdir(ckpts)}")
+    shutil.copytree(os.path.join(ckpts, str(TRAIN_CLI_CKPT)),
+                    os.path.join(root, "resumed", "checkpoints",
+                                 str(TRAIN_CLI_CKPT)))
+    shutil.rmtree(work)
+    second, _, rfields = run_cli("resumed", *common, "--resume")
+    check(second.start == TRAIN_CLI_CKPT, f"resumed at {second.start}")
+    want = [(h["step"], h["loss"], h["grad_norm"])
+            for h in first.history[TRAIN_CLI_CKPT:]]
+    got = [(h["step"], h["loss"], h["grad_norm"]) for h in second.history]
+    ref = fresh()
+    frozen = same(first.model.llm, ref.llm) and same(
+        first.model.visual_encoder, ref.visual_encoder)
+    moved = not same(first.model.projector, ref.projector)
+    proj_equal = same(first.model.projector, second.model.projector)
+    phase("train-cli", config=config + f"/pretrain/b{TRAIN_CLI_BATCH}",
+          data_write_s=f"{write_s:.2f}", **fields,
+          restore_s=f"{second.restore_s:.2f}",
+          resumed_losses=json.dumps([g[1] for g in got]).replace(" ", ""),
+          resumed_equal=got == want, projector_equal=proj_equal,
+          frozen_equal=frozen, projector_moved=moved,
+          resumed_step_ms=rfields["step_ms"])
+    check(got == want, f"resumed {got} != uninterrupted {want}")
+    check(proj_equal, "the resumed run's projector differs")
+    check(frozen, "the frozen LLM or ViT moved")
+    check(moved, "the projector did not move")
+    del first, second, ref
+    gc.collect()
+
+    # ---- vision: copy-cfg, grad_accum 2, ViT trainable, slowfast ---------
+    cfg_path = os.path.join(root, "vision_stage.json")
+    check(copy_cfg(["vision", cfg_path]) == 0, "copy-cfg vision failed")
+    with open(cfg_path) as f:
+        raw = json.load(f)
+    raw["train"]["grad_accum"] = 2
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    res, work, fields = run_cli(
+        "vision", "--stage", "vision", "--config", cfg_path, "--data",
+        data["vision"], "--max_steps", str(TRAIN_CLI_VISION_STEPS))
+    ref = fresh()
+    updates = res.state.opt_state["count"]
+    vit_moved = not same(res.model.visual_encoder, ref.visual_encoder)
+    llm_equal = same(res.model.llm, ref.llm)
+    phase("train-cli-vision", config=config + "/vision/b1/grad-accum-2/"
+          f"frames-{TRAIN_CLI_VISION_FRAMES}", **fields, updates=updates,
+          slowfast=res.model.cfg.slowfast, kept_ratio=raw["train"][
+              "kept_ratio"], vit_moved=vit_moved, llm_equal=llm_equal)
+    check(updates == TRAIN_CLI_VISION_STEPS // 2, f"{updates} updates")
+    check(res.model.cfg.slowfast, "slowfast is off")
+    check(vit_moved, "the ViT did not move")
+    check(llm_equal, "the frozen LLM moved")
+    shutil.rmtree(work)
+    del res, ref
+    gc.collect()
+
+    # ---- language, packed to 4096 ------------------------------------------
+    seen = []
+    to_device = train_cli._batch_to_device
+
+    def spy(batch, device, dtype):
+        seen.append(batch["segment_ids"].max(axis=1).tolist()
+                    if "segment_ids" in batch else None)
+        return to_device(batch, device, dtype)
+
+    with mock.patch.object(train_cli, "_batch_to_device", spy):
+        res, work, fields = run_cli(
+            "packed", "--stage", "language", "--data", data["language"],
+            "--pack_max_length", str(TRAIN_CLI_PACK), "--max_steps",
+            str(TRAIN_CLI_PACKED_STEPS))
+    shutil.rmtree(work)
+    check(all(s is not None for s in seen), "a batch without segment_ids")
+    docs = max(max(s) for s in seen) + 1
+    # one pack against the same documents unpacked, on the trained model
+    n_vis = num_visual_tokens(res.model.cfg, 0.1, 378, 378)
+    ds = AuroraDataset(data["language"], tok, image_folder=data["images"],
+                       template=PROMPT_TEMPLATE.vicuna, device=dev)
+    packer = SoftPackerMM(ds.text_data, TRAIN_CLI_PACK, n_visual_tokens=n_vis,
+                          dataset=ds)
+    members = next(p for p in packer.packs if len(p) >= 2)
+    losses = []
+    with torch.no_grad():
+        for batch in (packed_collate_mm([packer[packer.packs.index(members)]]),
+                      default_collate_fn([ds[i] for i in members])):
+            b = to_device(batch, dev, res.model.llm.embed_tokens.dtype)
+            loss, n = aurora_forward(
+                res.model, b["input_ids"], b["pixel_values"],
+                attention_mask=b["attention_mask"], labels=b["labels"],
+                kept_ratio=0.1, mode="loss",
+                segment_ids=b.get("segment_ids"))
+            losses.append((float(loss), int(n)))
+    rel = abs(losses[0][0] - losses[1][0]) / abs(losses[1][0])
+    # what repeatability costs: the forward and backward of one batch of 4
+    # packs under repeatable_step (SDPA's math backend, deterministic
+    # algorithms) and under SDPA's default backends, in turns
+    batch = to_device(packed_collate_mm(
+        [packer[i] for i in range(TRAIN_CLI_BATCH)]), dev,
+        res.model.llm.embed_tokens.dtype)
+    live = [p for p in res.model.parameters() if p.requires_grad]
+
+    def fwd_bwd():
+        loss, _ = aurora_forward(
+            res.model, batch["input_ids"], batch["pixel_values"],
+            attention_mask=batch["attention_mask"], labels=batch["labels"],
+            kept_ratio=0.1, mode="loss", remat=True,
+            segment_ids=batch["segment_ids"])
+        torch.autograd.grad(loss, live, allow_unused=True)
+
+    sdpa_ms = {"repeatable": [], "default": []}
+    for mode in ("default", "repeatable", "repeatable", "default"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with (repeatable_step() if mode == "repeatable"
+              else contextlib.nullcontext()):
+            fwd_bwd()
+        torch.cuda.synchronize()
+        sdpa_ms[mode].append((time.perf_counter() - t) * 1e3)
+    phase("train-cli-packed", config=config + f"/language/b{TRAIN_CLI_BATCH}/"
+          f"pack-{TRAIN_CLI_PACK}", **fields,
+          fwd_bwd_ms_repeatable=",".join(f"{t:.1f}"
+                                         for t in sdpa_ms["repeatable"]),
+          fwd_bwd_ms_default_sdpa=",".join(f"{t:.1f}"
+                                           for t in sdpa_ms["default"]),
+          docs_in_a_pack_max=docs, packs=len(packer),
+          packed_loss=f"{losses[0][0]:.6f}", unpacked_loss=f"{losses[1][0]:.6f}",
+          loss_tokens=losses[0][1], packed_vs_unpacked_rel=f"{rel:.3e}",
+          tol=PACKED_LOSS_TOL, compared_docs=len(members))
+    check(docs >= 2, f"no pack holds two documents: {seen}")
+    check(losses[0][1] == losses[1][1], f"token counts {losses}")
+    check(rel <= PACKED_LOSS_TOL, f"packed loss {losses[0][0]} vs unpacked "
+                                  f"{losses[1][0]}")
+    del res, ds, packer, batch, live
+    gc.collect()
+
+    # ---- language, QLoRA over an int4 base -----------------------------------
+    res, work, fields = run_cli(
+        "qlora", "--stage", "language", "--data", data["pretrain"],
+        "--batch_size", str(TRAIN_CLI_BATCH), "--max_steps",
+        str(TRAIN_CLI_QLORA_STEPS), "--lora_r", str(TRAIN_CLI_LORA_R),
+        "--quant", "int4")
+    with open(os.path.join(work, "lora.json")) as f:
+        marker = json.load(f)
+    ref = quantize_base(fresh(), bits=4)
+    base_equal = same(res.model, ref)
+    moved = sum(bool(ab["b"].abs().max() > 0)
+                for ab in res.state["adapters"].values())
+    phase("train-cli-qlora", config=config + f"/language/b{TRAIN_CLI_BATCH}/"
+          f"lora-r{TRAIN_CLI_LORA_R}/int4", **fields,
+          quantized_base_gb=f"{res.base_bytes['quantized'] / 1e9:.3f}",
+          float_gb=f"{res.base_bytes['float'] / 1e9:.3f}",
+          base_equal=base_equal,
+          adapters_moved=f"{moved}/{len(res.state['adapters'])}",
+          lora_json=json.dumps(marker).replace(" ", ""))
+    check(base_equal, "the quantized base changed")
+    check(moved == len(res.state["adapters"]), "an adapter did not move")
+    check(marker == {"r": TRAIN_CLI_LORA_R, "alpha": 16, "quant": "int4"},
+          f"lora.json {marker}")
+    del res, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port's main paths "
+                                 "on one NVIDIA GPU (module docstring)")
+    ap.add_argument("--only", choices=["train-cli"], default=None,
+                    help="run [infer-load] and these phases alone (no "
+                         "kernel JSON line, no final line)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on "
@@ -3477,6 +3873,27 @@ def main():
     phase("device", card=repr(card), torch=torch.__version__,
           cuda=torch.version.cuda, count=torch.cuda.device_count())
     print(card, flush=True)
+
+    flash_counters = [(fa.flash_attention, "launches_fwd"),
+                      (fa.flash_attention, "launches_dkv"),
+                      (fa.flash_attention, "launches_dq")]
+    # every plain twin: none may run on a path that launches kernels
+    all_plains = [(ra.ragged_attention_plain, "calls"),
+                  (ra.ragged_decode_attention_plain, "calls"),
+                  (qm.w4a8_matmul_tiled_plain, "calls"),
+                  (qm.w8a8_matmul_plain, "calls"),
+                  (qm.w4a8_matmul_plain, "calls"),
+                  (qm.w4a16_matmul_plain, "calls"),
+                  (qm.fused_mlp_w4_plain, "calls"),
+                  (fa.flash_attention_plain, "calls")]
+    if args.only == "train-cli":
+        root = infer_load_phase(torch, dev, card)
+        try:
+            train_cli_phases(torch, root, dev, card, flash_counters,
+                             all_plains)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        return 0
 
     t0 = time.perf_counter()
     cuda_build.load_library()
@@ -3540,6 +3957,9 @@ def main():
             torch, ra, root, dev, card,
             [(ra.ragged_attention_plain, "calls"),
              (ra.ragged_decode_attention_plain, "calls")])
+        # ---- the training CLI over the same directory ---------------------
+        train_cli_launches = train_cli_phases(torch, root, dev, card,
+                                              flash_counters, all_plains)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3826,9 +4246,6 @@ def main():
     mistral = mistral_phase(torch, engine_mod, ra, dev, card, plains)
 
     # ---- training at 7B widths (bench.py's training stage) --------------
-    flash_counters = [(fa.flash_attention, "launches_fwd"),
-                      (fa.flash_attention, "launches_dkv"),
-                      (fa.flash_attention, "launches_dq")]
     launches_fwd, launches_dkv, launches_dq = train_phase(
         torch, bench_stage, dev, card, flash_counters,
         plains + [(fa.flash_attention_plain, "calls")])
@@ -3956,20 +4373,26 @@ def main():
                      "quant_matmul.py:527", launches["w8kv8"][3], qres),
         # flash at B 4, T 2048, H 32, D 128, causal; the two backward
         # kernels share the twin's and SDPA's backward times
+        # launches_train_cli: over the four [train-cli*] runs (masked
+        # batches: 0, as in the reference)
         entry("flash_attention_fwd", "flash_attention.cu",
               "flash_attention.py:121", launches_fwd,
               flash_err("out_err"), flash_t["fwd_ms"],
               flash_t["plain_fwd_ms"], flash_t["fwd_bound"],
-              flash_t["library_fwd_ms"]),
+              flash_t["library_fwd_ms"], launches_train_cli=
+              train_cli_launches["flash_attention.launches_fwd"]),
         entry("flash_attention_bwd_dkv", "flash_attention.cu",
               "flash_attention.py:176", launches_dkv,
               flash_err("dk_err", "dv_err"), flash_t["dkv_ms"],
               flash_t["plain_bwd_ms"], flash_t["dkv_bound"],
-              flash_t["library_bwd_ms"]),
+              flash_t["library_bwd_ms"], launches_train_cli=
+              train_cli_launches["flash_attention.launches_dkv"]),
         entry("flash_attention_bwd_dq", "flash_attention.cu",
               "flash_attention.py:237", launches_dq, flash_err("dq_err"),
               flash_t["dq_ms"], flash_t["plain_bwd_ms"],
-              flash_t["dq_bound"], flash_t["library_bwd_ms"]),
+              flash_t["dq_bound"], flash_t["library_bwd_ms"],
+              launches_train_cli=train_cli_launches[
+                  "flash_attention.launches_dq"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

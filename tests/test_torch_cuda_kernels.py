@@ -1055,6 +1055,52 @@ def test_vit_encode_repeats_across_processes_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_train_step_repeats_on_card(cuda_device):
+    """A masked, packed multimodal train step with everything trainable
+    (the language stage: ViT-H/14-378 at 4 layers, Vicuna-7B widths at 2
+    layers, kept ratio 0.2, bf16), taken twice from the same weights: the
+    same loss, grad norm and updated weights, bit for bit. With SDPA's
+    default backends the backward did not repeat on an H100 (chip_smoke
+    `[train-cli]`'s resumed grad norms differed in the 7th digit); the
+    step runs under `train.trainer.repeatable_step`."""
+    import dataclasses
+    from aurora_tpu_torch.models.aurora import AuroraConfig, init_aurora
+    from aurora_tpu_torch.train.trainer import (TrainConfig,
+                                                init_train_state,
+                                                make_train_step)
+    base = AuroraConfig.auroracap_7b()
+    cfg = dataclasses.replace(
+        base, vit=dataclasses.replace(base.vit, num_hidden_layers=4),
+        llm=dataclasses.replace(base.llm, num_hidden_layers=2))
+    tcfg = TrainConfig(lr=2e-5, max_steps=10, kept_ratio=0.2)
+    g = torch.Generator(cuda_device).manual_seed(2)
+    T = 600
+    ids = torch.randint(3, 32000, (2, T), device=cuda_device, generator=g)
+    ids[:, 1] = ids[:, 300] = -200
+    segs = torch.zeros((2, T), dtype=torch.int64, device=cuda_device)
+    segs[:, 300:] = 1
+    mask = torch.ones((2, T), dtype=torch.bool, device=cuda_device)
+    mask[1, 500:] = False
+    segs[1, 500:] = -1
+    labels = torch.where(mask & (ids >= 0), ids, -100)
+    px = torch.randn((2, 2, 3, 378, 378), device=cuda_device, generator=g)
+    batch = {"input_ids": ids, "labels": labels, "attention_mask": mask,
+             "segment_ids": segs, "pixel_values": px.to(torch.bfloat16)}
+    runs = []
+    for _ in range(2):
+        model = init_aurora(cfg, device=cuda_device, dtype=torch.bfloat16,
+                            generator=torch.Generator(
+                                cuda_device).manual_seed(0))
+        state = init_train_state(model, tcfg)
+        state, m = make_train_step(cfg, tcfg)(state, batch)
+        runs.append((m["loss"].item(), m["grad_norm"].item(),
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+        del model, state
+    assert runs[0][:2] == runs[1][:2], (runs[0][:2], runs[1][:2])
+    assert all(torch.equal(v, runs[1][2][k]) for k, v in runs[0][2].items())
+
+
+@pytest.mark.cuda
 def test_http_server_streams_what_it_answers_on_card(cuda_device):
     """The port's HTTP server (serve/api.py) on the card at 8 layers of 7B
     widths, W4 stripes + int8 KV: a streamed /generate and the same

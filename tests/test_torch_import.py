@@ -7,9 +7,10 @@ starting the HTTP server (serve/api.py) and having /health and /generate
 answer 200, running the Runtime with a stop string, a regex and a prompt
 past the largest bucket (chunked prefill), running a lang.py program over
 the server (a regex gen and a select), taking one
-multimodal train step, and running the eval adapter's simple_evaluate
+multimodal train step, running the eval adapter's simple_evaluate
 on the built-in VDC task (its hooks named by dotted strings that resolve
-at run time) on the CPU loads neither JAX nor the JAX package,
+at run time) and two steps of the training CLI from PNG images on the
+CPU loads neither JAX nor the JAX package,
 nor aiohttp, which the script blocks (the GPU host has none). Runs in a
 fresh interpreter (this test process has JAX)."""
 
@@ -143,6 +144,15 @@ res = simple_evaluate(ev, ["vdc_short_test"], log_samples=True)
 assert res["results"]["vdc_short_test"]["_n"] == 2, res
 assert all(isinstance(s["pred"], str)
            for s in res["samples"]["vdc_short_test"])
+# the training CLI: 2 pretrain steps from a PNG dataset, a checkpoint
+from aurora_tpu_torch.cli import train as train_cli
+run = train_cli.run(train_cli.parse_args([
+    "--model_path", os.environ["AURORA_TEST_XTUNER_DIR"],
+    "--data", os.environ["AURORA_TEST_TRAIN_DATA"], "--work_dir",
+    os.environ["AURORA_TEST_TRAIN_DIR"], "--max_steps", "2",
+    "--batch_size", "2", "--image_size", "56", "--max_length", "64",
+    "--float32", "--device", "cpu"]))
+assert len(run.history) == 2 and run.saves[-1]["step"] == 2
 assert "jax" not in sys.modules, "jax was imported"
 assert not any(m == "aurora_tpu" or m.startswith("aurora_tpu.")
                for m in sys.modules), "aurora_tpu was imported"
@@ -164,8 +174,20 @@ def test_port_imports_and_serves_without_jax(tmp_path):
                     rng.integers(0, 256, (2, 56, 56, 3)).astype(np.uint8))
             f.write(json.dumps({"video_name": f"v{i}", "caption": "c",
                                 "qa_list": []}) + "\n")
+    from PIL import Image
+    recs = []
+    for i in range(2):
+        Image.fromarray(rng.integers(0, 256, (56, 56, 3), dtype=np.uint8)
+                        ).save(vdc / f"i{i}.png")
+        recs.append({"image": str(vdc / f"i{i}.png"), "conversations": [
+            {"from": "human", "value": "<image> what?"},
+            {"from": "gpt", "value": f"image {i}"}]})
+    with open(tmp_path / "train.json", "w") as f:
+        json.dump(recs, f)
     env = dict(os.environ, PYTHONPATH=REPO, AURORA_VDC_DIR=str(vdc),
-               AURORA_TEST_XTUNER_DIR=root)
+               AURORA_TEST_XTUNER_DIR=root,
+               AURORA_TEST_TRAIN_DATA=str(tmp_path / "train.json"),
+               AURORA_TEST_TRAIN_DIR=str(tmp_path / "run"))
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr

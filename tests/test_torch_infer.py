@@ -91,6 +91,6 @@ def test_module_entry_infer_help():
 
 
 def test_module_entry_unported_mode_fails():
-    res = _module("train", "--max_steps", "1")
-    assert res.returncode != 0
+    res = _module("convert", "--src", "x", "--dst", "y")
+    assert res.returncode == 2
     assert "not ported yet" in res.stderr and "ROADMAP" in res.stderr

@@ -321,9 +321,12 @@ def test_unported_options_raise(tiny):
         ttrainer.TrainConfig(ring_layout="zigzag")
     model = _model(cfg, tree)
     b = _torch(_batch("text"))
+    # packed batches are ported (tests/test_torch_data.py); the serving
+    # engine's W4/W8 layouts are not llama_apply's
+    w4 = tllama.LlamaModel(model.cfg.llm, device="cpu", dtype=torch.float32,
+                           weight_quant="int4")
     with pytest.raises(NotImplementedError):
-        taurora.aurora_forward(model, b["input_ids"], labels=b["labels"],
-                               segment_ids=torch.zeros_like(b["input_ids"]))
+        tllama.llama_apply(w4, model.cfg.llm, input_ids=b["input_ids"])
     with pytest.raises(NotImplementedError):
         ttrainer.make_train_step(model.cfg, ttrainer.TrainConfig(),
                                  mesh=object())
