@@ -6,8 +6,11 @@ unfold kernel [p·p·C, D]. The functions here take such a tree with numpy
 leaves (e.g. `jax.device_get(params)`) and return the port's modules:
 transposed into `nn.Linear` weights [out, in], the LLM layers unstacked,
 the patch kernel reshaped into a conv weight [D, C, p, p]. Configs cross
-by field name from any object with the same attributes; reference
-settings the port does not carry raise NotImplementedError. The modules
+by field name from any object with the same attributes (every dense
+family knob of the reference's LlamaConfig); its MoE, MLA and YaRN
+settings raise NotImplementedError. A dense family's extra parameters
+(biases, q/k norms, norm biases, Gemma-2's output norms, `wpe`) cross by
+their reference names, and a tied tree has no `lm_head`. The modules
 are built on the card unless the caller passes a device (the CPU tests
 pass device="cpu").
 
@@ -32,29 +35,24 @@ import numpy as np
 import torch
 
 from aurora_tpu_torch.models.aurora import AuroraConfig, AuroraModel
-from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
+from aurora_tpu_torch.models.llama import (LAYER_EXTRAS, TOP_EXTRAS,
+                                           LlamaConfig, LlamaModel,
                                            projection_shapes)
 from aurora_tpu_torch.models.projector import Projector, ProjectorConfig
 from aurora_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from aurora_tpu_torch.ops.pallas.quant_matmul import (
     w4_from_flat, w4_mlp_untile_reference)
 
-# reference LlamaConfig knobs of other families, with the value at which
-# they are off; the port's decoder is the llama case with Mistral's
-# sliding window and the attention logit softcap (LlamaConfig's fields)
-_LLAMA_FAMILY_OFF = {
-    "qkv_bias": False, "qk_norm": False, "norm_type": "rmsnorm",
-    "partial_rotary_factor": 1.0, "rope_interleaved": False,
-    "clip_qkv": None, "mlp_style": "gated",
-    "num_experts": 0, "head_dim_override": None,
-    "final_logit_softcap": 0.0,
-    "scale_embeddings": False, "hidden_act": "silu",
-    "query_pre_attn_scalar": None, "swa_every_other": False,
-    "norm_upcast_mul": False, "mla_kv_lora_rank": None,
-    "parallel_block": False, "logit_scale": None, "learned_pos": False,
-    "embed_scale": None, "residual_scale": None, "first_k_dense": 0,
-    "rope_inv_freq": None,
+# reference LlamaConfig knobs the port does not carry, with the value at
+# which they are off: the MoE and MLA families and YaRN's explicit
+# frequencies (every dense knob crosses by name into LlamaConfig)
+_LLAMA_NOT_PORTED = {
+    "num_experts": 0, "first_k_dense": 0, "moe_router_logit_softcap": 0.0,
+    "moe_router_mode": "mixtral", "mla_kv_lora_rank": None,
+    "mla_q_lora_rank": None, "mla_first_k_dense": 0,
+    "rope_inv_freq": None, "rope_attention_scaling": 1.0,
 }
+NOT_PORTED = "ROADMAP.md queue 1 item 8 (MoE, MLA)"
 
 
 def _config_from(ref, cls):
@@ -63,15 +61,11 @@ def _config_from(ref, cls):
 
 
 def llama_config_from(ref) -> LlamaConfig:
-    for name, off in _LLAMA_FAMILY_OFF.items():
+    for name, off in _LLAMA_NOT_PORTED.items():
         val = getattr(ref, name, off)
-        if name == "head_dim_override" and val == (
-                ref.hidden_size // ref.num_attention_heads):
-            continue    # HF configs name the llama head_dim explicitly
         if val != off:
             raise NotImplementedError(
-                f"{name}={val!r}: the port serves the llama family only "
-                "(MLA, MoE, Gemma2, Qwen, ... are not ported yet)")
+                f"{name}={val!r}: not ported yet, {NOT_PORTED}")
     return _config_from(ref, LlamaConfig)
 
 
@@ -166,20 +160,36 @@ def llama_layout(tree: Dict[str, Any]):
     return quant, "qkv" in layers
 
 
+def llama_extras(tree: Dict[str, Any]):
+    """The family parameters (models/llama.py LAYER_EXTRAS, TOP_EXTRAS) a
+    reference llama tree holds."""
+    return tuple(n for n in LAYER_EXTRAS if n in tree["layers"]) + tuple(
+        n for n in TOP_EXTRAS if n in tree)
+
+
 def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
     layers = tree["layers"]
     quant, fused = llama_layout(tree)
     sd = {"embed_tokens": _t(tree["embed_tokens"]),
-          "final_norm": _t(tree["final_norm"]),
-          "lm_head.weight": _t(tree["lm_head"]).T}
-    if quant != "none":
-        sd["lm_head.scale"] = _t(tree["lm_head_scale"]).reshape(-1)
+          "final_norm": _t(tree["final_norm"])}
+    if not cfg.tie_word_embeddings:
+        sd["lm_head.weight"] = _t(tree["lm_head"]).T
+        if quant != "none":
+            sd["lm_head.scale"] = _t(tree["lm_head_scale"]).reshape(-1)
     if "score" in tree:         # the classification head, [D, num_labels]
         sd["score.weight"] = _t(tree["score"]).T
+    extras = llama_extras(tree)
+    for name in extras:
+        if name in TOP_EXTRAS:
+            sd[name] = _t(tree[name])
     for l in range(cfg.num_hidden_layers):
         pre = f"layers.{l}."
         sd[pre + "input_norm"] = _t(layers["input_norm"][l])
-        sd[pre + "post_attn_norm"] = _t(layers["post_attn_norm"][l])
+        if not cfg.parallel_block:
+            sd[pre + "post_attn_norm"] = _t(layers["post_attn_norm"][l])
+        for name in extras:
+            if name in LAYER_EXTRAS:
+                sd[pre + name] = _t(layers[name][l])
         mlp = {}
         if "mlp_gu" in layers:      # AURORA_W4_FUSED_MLP=1 tiles
             tiles = (torch.from_numpy(np.array(layers[k][l]))
@@ -223,8 +233,31 @@ def llama_from_params(tree, cfg: LlamaConfig, device=None, dtype=None):
     num_labels = np.shape(tree["score"])[1] if "score" in tree else 0
     return _load(LlamaModel(cfg, device="meta", dtype=dtype,
                             weight_quant=quant, fused=fused,
-                            num_labels=num_labels),
+                            num_labels=num_labels,
+                            extras=llama_extras(tree)),
                  llama_state_dict(tree, cfg), device)
+
+
+def gemma2_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """A reference Gemma-2 tree (models/gemma2.py: stacked [L, in, out]
+    kernels, the HF norm weights, per-layer `sliding` flags, which the
+    port derives from the layer index) → Gemma2Model's state dict."""
+    layers = tree["layers"]
+    sd = {"embed_tokens": _t(tree["embed_tokens"]),
+          "final_norm": _t(tree["final_norm"])}
+    for l in range(cfg.num_hidden_layers):
+        for name in ("input_norm", "post_attn_norm", "pre_ffw_norm",
+                     "post_ffw_norm"):
+            sd[f"layers.{l}.{name}"] = _t(layers[name][l])
+        for name in ("q", "k", "v", "o", "gate", "up", "down"):
+            sd[f"layers.{l}.{name}.weight"] = _t(layers[name][l]).T
+    return sd
+
+
+def gemma2_from_params(tree, cfg, device=None, dtype=None):
+    from aurora_tpu_torch.models.gemma2 import Gemma2Model
+    return _load(Gemma2Model(cfg, device="meta", dtype=dtype),
+                 gemma2_state_dict(tree, cfg), device)
 
 
 def aurora_state_dict(tree, cfg: AuroraConfig) -> Dict[str, torch.Tensor]:

@@ -7,13 +7,14 @@ serve/api.py over one ServeEngine on the card.
 The reference's flags (its launch_server_auroracap and launch_server
 surface), plus --device (default cuda). --aurora loads an xtuner-format
 AuroraCap directory (models/convert.py `load_auroracap_dir`) and serves
-/generate with videos; otherwise a HF llama or mistral directory. The
+/generate with videos; otherwise a HF directory of a dense decoder family
+(models/convert.py DENSE_TYPES) or Gemma-2 (`load_serving_dir`). The
 checkpoint's tokenizer loads through transformers. --max-batch 0 or
 --num-slots 0 sizes the engine from the free device memory
 (`auto_engine_config`). Requests may take `regex` or
 `choices_constraint` (constrained decoding) and prompts up to
 --max-seq-len. Not ported, each exits 2 naming its ROADMAP.md item: --dp
-or --tp above 1, and Gemma2 or DeepseekV2 checkpoints.
+or --tp above 1, and MoE or MLA (DeepseekV2) checkpoints.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ import torch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _PARALLEL = "ROADMAP.md queue 1 item 9 (data and tensor parallelism)"
-_FAMILIES = "ROADMAP.md queue 1 item 8 (the other model families)"
 
 
 def parse_args(argv=None):
@@ -33,7 +33,7 @@ def parse_args(argv=None):
                                 formatter_class=argparse.
                                 RawDescriptionHelpFormatter)
     p.add_argument("--model_path", required=True,
-                   help="HF llama dir or xtuner-format AuroraCap dir")
+                   help="HF decoder dir or xtuner-format AuroraCap dir")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=30000)
     p.add_argument("--max-batch", type=int, default=8,
@@ -89,10 +89,7 @@ def main(argv=None) -> int:
         return 2
 
     from aurora_tpu_torch.data.text import auto_tokenizer
-    from aurora_tpu_torch.models.convert import (_read_config,
-                                                 llama_config_from_hf,
-                                                 llama_params_from_hf,
-                                                 load_torch_state_dict)
+    from aurora_tpu_torch.models.convert import load_serving_dir
     from aurora_tpu_torch.serve.api import launch_server
     from aurora_tpu_torch.serve.engine import (EngineConfig,
                                                auto_engine_config,
@@ -113,14 +110,12 @@ def main(argv=None) -> int:
                               kept_ratio=args.token_kept_ratio,
                               image_size=args.image_size)
     else:
-        hf_cfg = _read_config(args.model_path)
-        archs = " ".join(hf_cfg.get("architectures") or [])
-        if "Gemma2" in archs or "DeepseekV2" in archs:
-            print(f"{archs}: not ported yet: {_FAMILIES}", file=sys.stderr)
+        try:
+            model, cfg = load_serving_dir(args.model_path, dtype,
+                                          args.device)
+        except NotImplementedError as e:
+            print(f"{e}", file=sys.stderr)
             return 2
-        cfg = llama_config_from_hf(hf_cfg)
-        model = llama_params_from_hf(load_torch_state_dict(args.model_path),
-                                     cfg, dtype, args.device)
         tokenizer = auto_tokenizer(args.model_path)
 
     # quantize and fuse before the engine, dropping each dense source as it

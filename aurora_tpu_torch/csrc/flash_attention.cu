@@ -608,9 +608,296 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+
+// ------------------------------------------------------ D 256 (mma.sync)
+// The wgmma kernels above hold a head of at most 128 columns. D = 256
+// (Gemma's heads) runs the same contract on warp-level mma.sync tiles
+// (hopper_common.cuh, MmaTile<256>: 8 warps, a pair of warps per 16 rows,
+// each summing 128 of the 256 output columns): plain row-major shared
+// tiles loaded by all threads with 16-byte reads, one tile at a time.
+// Forward: a block per (64 q rows, b h), key tiles of 64. dK/dV: a block
+// per (64 keys, b h), each warp pair 16 keys, looping over q tiles of 32
+// rows that can see them (S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO
+// and dK += dS^T Q). dQ: a block per (64 q rows, b h), key tiles of 64
+// (S = Q K^T, dP = dO V^T, dQ += dS K). No atomics: every output element
+// has one writer.
+
+constexpr int MD = 256;           // the head width of these kernels
+using MT = hopper::MmaTile<MD>;
+constexpr int MP = MT::P;
+constexpr int MND = MT::DS / 8;  // output 8-column blocks a warp
+constexpr int MBQ_DKV = 32;      // q rows a dK/dV step
+
+constexpr size_t SMEM_FWD_MMA = size_t(3 * 64) * MP * 2 + 64 * 4;
+constexpr size_t SMEM_DKV_MMA =
+    size_t(2 * 64 + 2 * MBQ_DKV) * MP * 2 + (3 * MBQ_DKV + 64) * 4;
+constexpr size_t SMEM_DQ_MMA = size_t(4 * 64) * MP * 2 + 3 * 64 * 4;
+
+// segment ids of rows [row0, row0 + n) (0 past `live` or without ids)
+__device__ __forceinline__ void load_seg(int* dst, const int* seg, int b,
+                                         int len, int row0, int n,
+                                         bool use) {
+  for (int r = threadIdx.x; r < n; r += blockDim.x)
+    dst[r] = use && row0 + r < len ? seg[size_t(b) * len + row0 + r] : 0;
+}
+
+__global__ void __launch_bounds__(MT::NT, 1)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int* __restrict__ q_seg,
+                     const int* __restrict__ kv_seg, bf16* __restrict__ out,
+                     float* __restrict__ lse, Shape sh) {
+  extern __shared__ __align__(16) uint8_t smem_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sK = sQ + 64 * MP;
+  bf16* sV = sK + 64 * MP;
+  int* sKs = reinterpret_cast<int*>(sV + 64 * MP);
+  const int bh = blockIdx.y, b = bh / sh.H, head = bh % sh.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = warp % 4, sl = warp / 4;
+  const size_t rs = size_t(sh.H) * MD;
+  const int kend = key_end(sh, q0, 64);
+  hopper::load_rows<MD>(sQ, q + size_t(b) * sh.T * rs + head * MD, rs, q0,
+                        64, sh.T, tid, MT::NT);
+  int t[2], qs[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    t[h] = q0 + rg * 16 + lane / 4 + 8 * h;
+    if (sh.use_seg && t[h] < sh.T) qs[h] = q_seg[size_t(b) * sh.T + t[h]];
+  }
+  const float c = sh.scale * LOG2E;
+  float o[MND][4];
+#pragma unroll
+  for (int n = 0; n < MND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int kb = 0; kb < kend; kb += 64) {
+    __syncthreads();
+    hopper::load_rows<MD>(sK, k + size_t(b) * sh.S * rs + head * MD, rs, kb,
+                          64, sh.S, tid, MT::NT);
+    hopper::load_rows<MD>(sV, v + size_t(b) * sh.S * rs + head * MD, rs, kb,
+                          64, sh.S, tid, MT::NT);
+    load_seg(sKs, kv_seg, b, sh.S, kb, 64, sh.use_seg);
+    __syncthreads();
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+    hopper::mma_xyt<MD, 8>(s, sQ, rg * 16, sK, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 8 * n + 2 * (lane % 4) + (i & 1), key = kb + col;
+        const int h = i >> 1;
+        const bool vis = key < sh.S &&
+                         (!sh.causal || t[h] + sh.q_offset >= key) &&
+                         (!sh.use_seg || qs[h] == sKs[col]);
+        s[n][i] = vis ? s[n][i] * c : -INFINITY;
+      }
+    hopper::softmax_step<8, MND>(s, m, l, o);
+    hopper::mma_wz<MD, 4, MND>(o, s, sV, sl * MT::DS, lane);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (t[h] < sh.T) {
+      const float lc = fmaxf(l[h], 1e-30f);
+      hopper::store_c_row<MND>(
+          out + (size_t(b) * sh.T + t[h]) * rs + head * MD + sl * MT::DS, o,
+          h, lane, 1.f / lc);
+      if (sl == 0 && lane % 4 == 0)
+        lse[size_t(bh) * sh.T + t[h]] =
+            m[h] == NEG_INF ? NEG_INF : m[h] * LN2 + logf(lc);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(MT::NT, 1)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ q_seg,
+                         const int* __restrict__ kv_seg,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         Shape sh) {
+  extern __shared__ __align__(16) uint8_t smem_mma[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sV = sK + 64 * MP;
+  bf16* sQ = sV + 64 * MP;
+  bf16* sO = sQ + MBQ_DKV * MP;  // dO
+  float* sL = reinterpret_cast<float*>(sO + MBQ_DKV * MP);
+  float* sD = sL + MBQ_DKV;
+  int* sQs = reinterpret_cast<int*>(sD + MBQ_DKV);
+  int* sKs = sQs + MBQ_DKV;
+  const int bh = blockIdx.y, b = bh / sh.H, head = bh % sh.H;
+  const int k0 = blockIdx.x * 64;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kg = warp % 4, sl = warp / 4;
+  const size_t rs = size_t(sh.H) * MD;
+  hopper::load_rows<MD>(sK, k + size_t(b) * sh.S * rs + head * MD, rs, k0,
+                        64, sh.S, tid, MT::NT);
+  hopper::load_rows<MD>(sV, v + size_t(b) * sh.S * rs + head * MD, rs, k0,
+                        64, sh.S, tid, MT::NT);
+  load_seg(sKs, kv_seg, b, sh.S, k0, 64, sh.use_seg);
+  int kl[2];  // the thread's keys, block-relative (C rows g and g + 8)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) kl[h] = kg * 16 + lane / 4 + 8 * h;
+  const float c = sh.scale * LOG2E;
+  float dva[MND][4], dka[MND][4];
+#pragma unroll
+  for (int n = 0; n < MND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dva[n][i] = dka[n][i] = 0.f;
+
+  const int qstart =
+      sh.causal ? max(0, k0 - sh.q_offset) / MBQ_DKV * MBQ_DKV : 0;
+  for (int qb = qstart; qb < sh.T; qb += MBQ_DKV) {
+    __syncthreads();
+    hopper::load_rows<MD>(sQ, q + size_t(b) * sh.T * rs + head * MD, rs, qb,
+                          MBQ_DKV, sh.T, tid, MT::NT);
+    hopper::load_rows<MD>(sO, dout + size_t(b) * sh.T * rs + head * MD, rs,
+                          qb, MBQ_DKV, sh.T, tid, MT::NT);
+    for (int r = tid; r < MBQ_DKV; r += MT::NT) {
+      const bool live = qb + r < sh.T;
+      sL[r] = live ? lse[size_t(bh) * sh.T + qb + r] * LOG2E : 0.f;
+      sD[r] = live ? delta[size_t(bh) * sh.T + qb + r] : 0.f;
+    }
+    load_seg(sQs, q_seg, b, sh.T, qb, MBQ_DKV, sh.use_seg);
+    __syncthreads();
+    float pt[4][4], dpt[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pt[n][i] = dpt[n][i] = 0.f;
+    hopper::mma_xyt<MD, 4>(pt, sK, kg * 16, sQ, lane);
+    hopper::mma_xyt<MD, 4>(dpt, sV, kg * 16, sO, lane);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 8 * n + 2 * (lane % 4) + (i & 1), tq = qb + col;
+        const int kr = kl[i >> 1], key = k0 + kr;
+        const bool vis = tq < sh.T && key < sh.S &&
+                         (!sh.causal || tq + sh.q_offset >= key) &&
+                         (!sh.use_seg || sQs[col] == sKs[kr]);
+        const float p = vis ? exp2f(pt[n][i] * c - sL[col]) : 0.f;
+        pt[n][i] = p;
+        dpt[n][i] = p * (dpt[n][i] - sD[col]);
+      }
+    hopper::mma_wz<MD, MBQ_DKV / 16, MND>(dva, pt, sO, sl * MT::DS, lane);
+    hopper::mma_wz<MD, MBQ_DKV / 16, MND>(dka, dpt, sQ, sl * MT::DS, lane);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + kl[h];
+    if (key < sh.S) {
+      const size_t at = (size_t(b) * sh.S + key) * rs + head * MD + sl * MT::DS;
+      hopper::store_c_row<MND>(dv + at, dva, h, lane, 1.f);
+      hopper::store_c_row<MND>(dk + at, dka, h, lane, sh.scale);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(MT::NT, 1)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ q_seg,
+                        const int* __restrict__ kv_seg,
+                        bf16* __restrict__ dq, Shape sh) {
+  extern __shared__ __align__(16) uint8_t smem_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sO = sQ + 64 * MP;  // dO
+  bf16* sK = sO + 64 * MP;
+  bf16* sV = sK + 64 * MP;
+  float* sL = reinterpret_cast<float*>(sV + 64 * MP);
+  float* sD = sL + 64;
+  int* sKs = reinterpret_cast<int*>(sD + 64);
+  const int bh = blockIdx.y, b = bh / sh.H, head = bh % sh.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = warp % 4, sl = warp / 4;
+  const size_t rs = size_t(sh.H) * MD;
+  const int kend = key_end(sh, q0, 64);
+  hopper::load_rows<MD>(sQ, q + size_t(b) * sh.T * rs + head * MD, rs, q0,
+                        64, sh.T, tid, MT::NT);
+  hopper::load_rows<MD>(sO, dout + size_t(b) * sh.T * rs + head * MD, rs,
+                        q0, 64, sh.T, tid, MT::NT);
+  for (int r = tid; r < 64; r += MT::NT) {
+    const bool live = q0 + r < sh.T;
+    sL[r] = live ? lse[size_t(bh) * sh.T + q0 + r] * LOG2E : 0.f;
+    sD[r] = live ? delta[size_t(bh) * sh.T + q0 + r] : 0.f;
+  }
+  int rl[2], qs[2] = {0, 0};  // the thread's rows, block-relative
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rl[h] = rg * 16 + lane / 4 + 8 * h;
+    if (sh.use_seg && q0 + rl[h] < sh.T)
+      qs[h] = q_seg[size_t(b) * sh.T + q0 + rl[h]];
+  }
+  const float c = sh.scale * LOG2E;
+  float dqa[MND][4];
+#pragma unroll
+  for (int n = 0; n < MND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dqa[n][i] = 0.f;
+
+  for (int kb = 0; kb < kend; kb += 64) {
+    __syncthreads();
+    hopper::load_rows<MD>(sK, k + size_t(b) * sh.S * rs + head * MD, rs, kb,
+                          64, sh.S, tid, MT::NT);
+    hopper::load_rows<MD>(sV, v + size_t(b) * sh.S * rs + head * MD, rs, kb,
+                          64, sh.S, tid, MT::NT);
+    load_seg(sKs, kv_seg, b, sh.S, kb, 64, sh.use_seg);
+    __syncthreads();
+    float p[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[n][i] = dp[n][i] = 0.f;
+    hopper::mma_xyt<MD, 8>(p, sQ, rg * 16, sK, lane);
+    hopper::mma_xyt<MD, 8>(dp, sO, rg * 16, sV, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 8 * n + 2 * (lane % 4) + (i & 1), key = kb + col;
+        const int r = rl[i >> 1], tq = q0 + r;
+        const bool vis = tq < sh.T && key < sh.S &&
+                         (!sh.causal || tq + sh.q_offset >= key) &&
+                         (!sh.use_seg || qs[i >> 1] == sKs[col]);
+        const float pr = vis ? exp2f(p[n][i] * c - sL[r]) : 0.f;
+        p[n][i] = pr * (dp[n][i] - sD[r]);
+      }
+    hopper::mma_wz<MD, 4, MND>(dqa, p, sK, sl * MT::DS, lane);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int tq = q0 + rl[h];
+    if (tq < sh.T)
+      hopper::store_c_row<MND>(
+          dq + (size_t(b) * sh.T + tq) * rs + head * MD + sl * MT::DS, dqa, h,
+          lane, sh.scale);
+  }
+}
+
 bool bad_shape(int B, int T, int S, int H, int D) {
-  return B <= 0 || T <= 0 || S <= 0 || H <= 0 || D <= 0 || D > HD ||
-         D % 16 != 0 || size_t(B) * H > 65535u;
+  return B <= 0 || T <= 0 || S <= 0 || H <= 0 || D <= 0 ||
+         (D > HD && D != MD) || D % 16 != 0 || size_t(B) * H > 65535u;
 }
 
 template <typename Kernel>
@@ -631,6 +918,18 @@ extern "C" int aurora_flash_fwd(const void* q, const void* k, const void* v,
                                 float scale, void* stream) {
   if (bad_shape(B, T, S, H, D) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return int(cudaErrorInvalidValue);
+  const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
+  if (D == MD) {
+    cudaError_t err = allow_smem(flash_fwd_mma_kernel, SMEM_FWD_MMA);
+    if (err != cudaSuccess) return int(err);
+    flash_fwd_mma_kernel<<<dim3((T + 63) / 64, B * H), MT::NT, SMEM_FWD_MMA,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const int*>(q_seg),
+        static_cast<const int*>(kv_seg), static_cast<bf16*>(out),
+        static_cast<float*>(lse), sh);
+    return int(cudaGetLastError());
+  }
   CUtensorMap mq, mk, mv;
   if (!hopper::map_blhd(&mq, q, B, T, H, D, 128) ||
       !hopper::map_blhd(&mk, k, B, S, H, D, 128) ||
@@ -638,7 +937,6 @@ extern "C" int aurora_flash_fwd(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(flash_fwd_kernel, SMEM_FWD);
   if (err != cudaSuccess) return int(err);
-  const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
   dim3 grid((T + 127) / 128, B * H);
   flash_fwd_kernel<<<grid, NTHREADS, SMEM_FWD, static_cast<cudaStream_t>(stream)>>>(
       mq, mk, mv, static_cast<const int*>(q_seg),
@@ -657,6 +955,20 @@ extern "C" int aurora_flash_bwd_dkv(const void* q, const void* k,
                                     float scale, void* stream) {
   if (bad_shape(B, T, S, H, D) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return int(cudaErrorInvalidValue);
+  const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
+  if (D == MD) {
+    cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel, SMEM_DKV_MMA);
+    if (err != cudaSuccess) return int(err);
+    flash_bwd_dkv_mma_kernel<<<dim3((S + 63) / 64, B * H), MT::NT,
+                               SMEM_DKV_MMA,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), sh);
+    return int(cudaGetLastError());
+  }
   CUtensorMap mq, mk, mv, mdo;
   if (!hopper::map_blhd(&mq, q, B, T, H, D, 64) ||
       !hopper::map_blhd(&mk, k, B, S, H, D, 128) ||
@@ -665,7 +977,6 @@ extern "C" int aurora_flash_bwd_dkv(const void* q, const void* k,
     return int(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(flash_bwd_dkv_kernel, SMEM_DKV);
   if (err != cudaSuccess) return int(err);
-  const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
   dim3 grid((S + 127) / 128, B * H);
   flash_bwd_dkv_kernel<<<grid, NTHREADS, SMEM_DKV,
                    static_cast<cudaStream_t>(stream)>>>(
@@ -686,6 +997,20 @@ extern "C" int aurora_flash_bwd_dq(const void* q, const void* k,
                                    float scale, void* stream) {
   if (bad_shape(B, T, S, H, D) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return int(cudaErrorInvalidValue);
+  const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
+  if (D == MD) {
+    cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel, SMEM_DQ_MMA);
+    if (err != cudaSuccess) return int(err);
+    flash_bwd_dq_mma_kernel<<<dim3((T + 63) / 64, B * H), MT::NT,
+                              SMEM_DQ_MMA,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+        static_cast<bf16*>(dq), sh);
+    return int(cudaGetLastError());
+  }
   CUtensorMap mq, mk, mv, mdo;
   if (!hopper::map_blhd(&mq, q, B, T, H, D, 128) ||
       !hopper::map_blhd(&mk, k, B, S, H, D, 64) ||
@@ -694,7 +1019,6 @@ extern "C" int aurora_flash_bwd_dq(const void* q, const void* k,
     return int(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(flash_bwd_dq_kernel, SMEM_DQ);
   if (err != cudaSuccess) return int(err);
-  const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
   dim3 grid((T + 127) / 128, B * H);
   flash_bwd_dq_kernel<<<grid, NTHREADS, SMEM_DQ,
                   static_cast<cudaStream_t>(stream)>>>(
@@ -705,7 +1029,7 @@ extern "C" int aurora_flash_bwd_dq(const void* q, const void* k,
 }
 
 // the ragged attention kernels (ragged_decode.cu, ragged_extend.cu)
-extern "C" int aurora_ragged_decode_kernel(const char* mode, int gm,
+extern "C" int aurora_ragged_decode_kernel(const char* mode, int gm, int hd,
                                            const void** fn, int* smem);
 extern "C" int aurora_ragged_extend_kernel(const char* mode, const void** fn,
                                            int* smem);
@@ -723,8 +1047,10 @@ extern "C" int aurora_fused_mlp_kernel(int rows, const void** fn, int* smem);
 
 // registers a thread, local (spill) bytes a thread and shared bytes a block
 // (static and dynamic) of one kernel of the library: "flash_fwd",
-// "flash_bwd_dkv", "flash_bwd_dq", "ragged_extend_<mode>",
-// "ragged_decode_<mode>_g<1|2|4|8>" (mode bf16, int8 or int4),
+// "flash_bwd_dkv", "flash_bwd_dq" (each also "_d256"),
+// "ragged_extend_<mode>[_hd<64|96|256>]",
+// "ragged_decode_<mode>_g<1|2|4|8>[_hd<64|96|128|256>]" (mode bf16, int8 or
+// int4),
 // "w8a8_b<rows>", "w4a16_b<rows>", "w4a8_b<rows>", "w4a8_flat_b<rows>"
 // (groups of 128) or "fused_mlp_b<rows>" (rows 8, 16, 32, 64)
 extern "C" int aurora_kernel_attrs(const char* name, int* regs,
@@ -732,8 +1058,8 @@ extern "C" int aurora_kernel_attrs(const char* name, int* regs,
   const void* fn = nullptr;
   int dynamic = 0;
   int err_name = 0;
-  char mode[8] = {0};
-  int gm = 0, blocks = 0;
+  char mode[16] = {0};
+  int gm = 0, hd = 128, blocks = 0;
   if (strcmp(name, "flash_fwd") == 0) {
     fn = reinterpret_cast<const void*>(flash_fwd_kernel);
     dynamic = int(SMEM_FWD);
@@ -746,9 +1072,18 @@ extern "C" int aurora_kernel_attrs(const char* name, int* regs,
   } else if (strncmp(name, "ragged_extend_", 14) == 0 &&
              strlen(name + 14) < sizeof(mode)) {
     err_name = aurora_ragged_extend_kernel(name + 14, &fn, &dynamic);
+  } else if (strcmp(name, "flash_fwd_d256") == 0) {
+    fn = reinterpret_cast<const void*>(flash_fwd_mma_kernel);
+    dynamic = int(SMEM_FWD_MMA);
+  } else if (strcmp(name, "flash_bwd_dkv_d256") == 0) {
+    fn = reinterpret_cast<const void*>(flash_bwd_dkv_mma_kernel);
+    dynamic = int(SMEM_DKV_MMA);
+  } else if (strcmp(name, "flash_bwd_dq_d256") == 0) {
+    fn = reinterpret_cast<const void*>(flash_bwd_dq_mma_kernel);
+    dynamic = int(SMEM_DQ_MMA);
   } else if (strncmp(name, "ragged_decode_", 14) == 0 &&
-             sscanf(name + 14, "%4[a-z0-9]_g%d", mode, &gm) == 2) {
-    err_name = aurora_ragged_decode_kernel(mode, gm, &fn, &dynamic);
+             sscanf(name + 14, "%4[a-z0-9]_g%d_hd%d", mode, &gm, &hd) >= 2) {
+    err_name = aurora_ragged_decode_kernel(mode, gm, hd, &fn, &dynamic);
   } else if (sscanf(name, "w8a8_b%d", &gm) == 1) {
     err_name = aurora_w8a8_kernel(gm, &fn, &dynamic, &blocks);
   } else if (sscanf(name, "w4a16_b%d", &gm) == 1) {

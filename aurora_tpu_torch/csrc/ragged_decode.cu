@@ -62,15 +62,23 @@
 // scale; int4: the merged byte, its mate nibble taken from the landed
 // copy) into shared memory, so the copy needs no ordering against the
 // write. A block with more than one split per (lane, KV head) writes its
-// partial (m, l, acc[G][128], fp32) to a scratch; the last block of the
+// partial (m, l, acc[G][hd], fp32) to a scratch; the last block of the
 // (lane, KV head) to finish (an atomic ticket after a __threadfence)
 // merges the partials in split order and resets the ticket, so results
 // are bitwise repeatable whichever block merges. A lane's single split
 // writes its output directly. Only the block that holds the new token
 // writes its (lane, head) stripe, so the read-modify-write of its bytes
 // needs no atomics. Row ids must be distinct per lane (each lane owns its
-// row). The kernel is templated on GM, the query heads per KV head rounded
-// up to 1, 2, 4 or 8, which sizes the registers.
+// row). head_dim is 64, 96, 128 or 256 (a shared row is hd elements): a
+// half-warp lane holds 8 dims of each 128-column half of the head, those
+// below hd. The kernel is templated on GM, the query heads a block takes
+// (the group rounded up to 1, 2, 4 or 8; at most 4 at head_dim 256, which
+// holds 16 dims a lane), which sizes the registers, and on HDC, the head
+// width fixed at compile time for 128 (the others read it at run time):
+// a larger group (9, 16,
+// 48) is split over ceil(G / GM) blocks per (split, KV head, lane), each
+// reading the same K/V; all of them patch the new token into their shared
+// copy, and only the group's first block writes it to global memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,31 +91,38 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int HD = 128;
 constexpr int SEG = 256;  // the packing segment; splits are its multiples
 constexpr int NT = 256;
 constexpr int WARPS = NT / 32;
 constexpr int HALVES = NT / 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// keys a chunk covers, bytes of one shared K (or V) row, rows a chunk
+// keys a chunk covers and rows a chunk (a shared row is hd * sizeof(KV)
+// bytes: hd bf16, hd int8 or hd packed bytes)
 template <typename KV, bool PACK>
 struct Mode {
-  static constexpr int CH = 128, ROWB = 256, ROWS = 128;  // bf16
+  static constexpr int CH = 128, ROWS = 128;  // bf16
 };
 template <>
 struct Mode<int8_t, false> {
-  static constexpr int CH = 256, ROWB = 128, ROWS = 256;
+  static constexpr int CH = 256, ROWS = 256;
 };
 template <>
 struct Mode<int8_t, true> {
-  static constexpr int CH = 256, ROWB = 128, ROWS = 128;  // packed rows
+  static constexpr int CH = 256, ROWS = 128;  // packed rows
 };
 
 template <typename KV, bool PACK>
-constexpr size_t smem_bytes() {
-  return 2 * size_t(Mode<KV, PACK>::ROWS) * Mode<KV, PACK>::ROWB +
+size_t smem_bytes(int hd) {
+  return 2 * size_t(Mode<KV, PACK>::ROWS) * hd * sizeof(KV) +
          (sizeof(KV) == 1 ? 2 * Mode<KV, PACK>::CH * sizeof(float) : 0);
+}
+
+// the query heads a block takes (GM) and the dims a half-warp lane holds
+// (8 * NC: dims c * 128 + 8 * l16 + [0, 8) for c < NC, those below hd)
+int group_heads(int G, int hd) {
+  const int cap = hd > 128 ? 4 : 8;
+  return G <= 1 ? 1 : G <= 2 ? 2 : (G <= 4 || cap == 4) ? 4 : 8;
 }
 
 // int8 → float without a conversion instruction: the byte, biased to
@@ -161,46 +176,36 @@ __device__ __forceinline__ void load_q8(const bf16* p, float* f) {
   row8(reinterpret_cast<const uint8_t*>(p), f, static_cast<bf16*>(nullptr));
 }
 
-// int8 / int4 mode: one warp quantizes one new hd = 128 vector (4 values
-// a lane) and writes it and its scale to global memory (dst, dst_scale)
-// and to the chunk's shared copy (sdst, sdst_scale): whole bytes
-// (plane < 0), or the low (plane 0) or high (plane 1) nibbles of the
-// packed row, the other nibbles taken from the shared copy (the row as the
-// bulk copy brought it, before this write)
+// int8 / int4 mode: one warp quantizes one new hd-vector (element d in
+// lane d % 32) and writes it and its scale to the chunk's shared copy
+// (sdst, sdst_scale) and, with dst non-null, to global memory (dst,
+// dst_scale): whole bytes (plane < 0), or the low (plane 0) or high (plane
+// 1) nibbles of the packed row, the other nibbles taken from the shared
+// copy (the row as the bulk copy brought it, before this write)
 __device__ __forceinline__ void write_quantized(const bf16* src, int8_t* dst,
                                                 float* dst_scale,
                                                 uint8_t* sdst,
                                                 float* sdst_scale, int lane,
-                                                float kv_maxq,
+                                                int hd, float kv_maxq,
                                                 float inv_maxq, int plane) {
-  float x[4];
   float m = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[i] = __bfloat162float(src[lane * 4 + i]);
-    m = fmaxf(m, fabsf(x[i]));
-  }
+  for (int d = lane; d < hd; d += 32)
+    m = fmaxf(m, fabsf(__bfloat162float(src[d])));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   const float s = fmaxf(m, 1e-8f) * inv_maxq;
-  char4 q;
-  q.x = int8_t(fminf(fmaxf(rintf(x[0] / s), -kv_maxq), kv_maxq));
-  q.y = int8_t(fminf(fmaxf(rintf(x[1] / s), -kv_maxq), kv_maxq));
-  q.z = int8_t(fminf(fmaxf(rintf(x[2] / s), -kv_maxq), kv_maxq));
-  q.w = int8_t(fminf(fmaxf(rintf(x[3] / s), -kv_maxq), kv_maxq));
-  if (plane >= 0) {
-    const char4 old = reinterpret_cast<const char4*>(sdst)[lane];
-    const int keep = plane ? 0x0F : 0xF0, sh = plane ? 4 : 0;
-    q.x = int8_t((old.x & keep) | ((q.x & 0xF) << sh));
-    q.y = int8_t((old.y & keep) | ((q.y & 0xF) << sh));
-    q.z = int8_t((old.z & keep) | ((q.z & 0xF) << sh));
-    q.w = int8_t((old.w & keep) | ((q.w & 0xF) << sh));
+  const int keep = plane ? 0x0F : 0xF0, sh = plane ? 4 : 0;
+  for (int d = lane; d < hd; d += 32) {
+    int8_t q = int8_t(fminf(
+        fmaxf(rintf(__bfloat162float(src[d]) / s), -kv_maxq), kv_maxq));
+    if (plane >= 0)
+      q = int8_t((int8_t(sdst[d]) & keep) | ((q & 0xF) << sh));
+    if (dst != nullptr) dst[d] = q;
+    sdst[d] = uint8_t(q);
   }
-  reinterpret_cast<char4*>(dst)[lane] = q;
-  reinterpret_cast<char4*>(sdst)[lane] = q;
   if (lane == 0) {
-    *dst_scale = s;
+    if (dst != nullptr) *dst_scale = s;
     *sdst_scale = s;
   }
 }
@@ -215,8 +220,8 @@ __device__ __forceinline__ int2 chunk_rows(int clo, int chi, bool pack) {
   return make_int2(0, 128);
 }
 
-template <typename KV, bool PACK, int GM>
-__global__ void __launch_bounds__(NT, GM <= 4 ? 2 : 1)
+template <typename KV, bool PACK, int GM, int NC, int HDC>
+__global__ void __launch_bounds__(NT, GM * NC <= 4 ? 2 : 1)
 decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
               const bf16* __restrict__ v_new, KV* k_rows, KV* v_rows,
               float* k_scales, float* v_scales, bf16* __restrict__ out,
@@ -224,14 +229,19 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
               const int* __restrict__ kv_lens,
               const int* __restrict__ row_ids,
               const int* __restrict__ layer_ptr, int Hq, int Hkv, int B,
-              int S, int split, float scale, int window, float cap,
-              float inv_cap, float kv_maxq, float inv_maxq) {
+              int S, int hd_arg, int ngrp, int split, float scale,
+              int window, float cap, float inv_cap, float kv_maxq,
+              float inv_maxq) {
   using M = Mode<KV, PACK>;
+  // HDC > 0: the head width fixed at compile time (128, the serving
+  // shapes); 0: read from hd_arg
+  const int hd = HDC > 0 ? HDC : hd_arg;
   constexpr bool QUANT = sizeof(KV) == 1;
-  constexpr int CH = M::CH, ROWB = M::ROWB;
-  constexpr uint32_t TILEB = uint32_t(M::ROWS) * ROWB;
+  constexpr int CH = M::CH;
+  constexpr int DL = 8 * NC;  // dims a half-warp lane holds
   static_assert(!PACK || CH == SEG, "an int4 chunk is one segment");
-  static_assert(WARPS * GM * HD * 4 <= 2 * TILEB, "merge area");
+  const int ROWB = hd * int(sizeof(KV));
+  const size_t TILEB = size_t(M::ROWS) * ROWB;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* sK = smem;
   uint8_t* sV = smem + TILEB;
@@ -241,9 +251,11 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   __shared__ float sM[WARPS][GM], sL[WARPS][GM];
   __shared__ int s_last;
 
-  const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int sp = blockIdx.x, b = blockIdx.z;
+  const int kvh = blockIdx.y / ngrp, grp = blockIdx.y % ngrp;
   const int nsplit = gridDim.x;
   const int G = Hq / Hkv;
+  const int g0 = grp * GM;  // the block's first query head of the group
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int l16 = lane & 15;
 
@@ -259,7 +271,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   const int row = row_ids[b];
   const int layer = *layer_ptr;
   const size_t stripe = (size_t(layer) * B + row) * Hkv + kvh;
-  const size_t row_elems = size_t(PACK ? S / 2 : S) * HD;
+  const size_t row_elems = size_t(PACK ? S / 2 : S) * hd;
   KV* Kp = k_rows + stripe * row_elems;
   KV* Vp = v_rows + stripe * row_elems;
   float* Ks = QUANT ? k_scales + stripe * size_t(S) : nullptr;
@@ -283,35 +295,43 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
     const int s0 = clo & ~3, s1 = (chi + 3) & ~3;
     const uint32_t sb = QUANT ? uint32_t(s1 - s0) * 4u : 0u;
     hopper::mbar_expect_tx(&bar[0], rb + sb);
-    hopper::bulk_copy_1d(sK + size_t(r.x) * ROWB, Kp + (grow + r.x) * HD, rb,
+    hopper::bulk_copy_1d(sK + size_t(r.x) * ROWB, Kp + (grow + r.x) * hd, rb,
                          &bar[0]);
     if (QUANT) hopper::bulk_copy_1d(sKs + s0, Ks + cb + s0, sb, &bar[0]);
     hopper::mbar_expect_tx(&bar[1], rb + sb);
-    hopper::bulk_copy_1d(sV + size_t(r.x) * ROWB, Vp + (grow + r.x) * HD, rb,
+    hopper::bulk_copy_1d(sV + size_t(r.x) * ROWB, Vp + (grow + r.x) * hd, rb,
                          &bar[1]);
     if (QUANT) hopper::bulk_copy_1d(sVs + s0, Vs + cb + s0, sb, &bar[1]);
   };
   const int c_first = lo / CH, c_last = (hi - 1) / CH;
   if (tid == 0 && lo < hi) issue(c_first * CH);
 
-  // this lane's 8 query dims for every head of the group
-  float qf[GM][8];
+  // this lane's dims: 8 from c * 128 + 8 * l16 for each c < NC below hd
+  bool dl[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) dl[c] = c * 128 + l16 * 8 < hd;
+  float qf[GM][DL];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    if (g < G) {
-      load_q8(q + (size_t(b) * Hq + kvh * G + g) * HD + l16 * 8, qf[g]);
-    } else {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) qf[g][i] = 0.f;
+    for (int c = 0; c < NC; ++c) {
+      if (g0 + g < G && dl[c]) {
+        load_q8(q + (size_t(b) * Hq + kvh * G + g0 + g) * hd + c * 128 +
+                    l16 * 8,
+                qf[g] + 8 * c);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) qf[g][8 * c + i] = 0.f;
+      }
     }
   }
-  float m[GM], l[GM], acc[GM][8];
+  float m[GM], l[GM], acc[GM][DL];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < DL; ++i) acc[g][i] = 0.f;
   }
   const float c2 = QUANT || cap > 0.f ? scale : scale * LOG2E;
 
@@ -320,33 +340,40 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
     const int clo = max(lo, cb) - cb, chi = min(hi, cb + CH) - cb;
     hopper::mbar_wait(&bar[0], ph);
     if (pos >= cb + clo && pos < cb + chi) {  // block-uniform
-      // the new token: to global memory and into the landed chunk
+      // the new token into the landed chunk, and (the group's first block
+      // only) to global memory
       hopper::mbar_wait(&bar[1], ph);
       const int t = pos - cb;
-      const size_t src = (size_t(b) * Hkv + kvh) * HD;
+      const size_t src = (size_t(b) * Hkv + kvh) * hd;
       const int srow = PACK ? (t & 127) : t;
       const size_t grow =
           PACK ? size_t(cb / SEG) * (SEG / 2) + srow : size_t(pos);
+      const bool owner = grp == 0;
       if constexpr (QUANT) {
         const int plane = PACK ? int(t >= 128) : -1;
         if (warp == 0)
           write_quantized(k_new + src,
-                          reinterpret_cast<int8_t*>(Kp + grow * HD), Ks + pos,
-                          sK + srow * ROWB, sKs + t, lane, kv_maxq, inv_maxq,
-                          plane);
+                          owner ? reinterpret_cast<int8_t*>(Kp + grow * hd)
+                                : nullptr,
+                          Ks + pos, sK + srow * ROWB, sKs + t, lane, hd,
+                          kv_maxq, inv_maxq, plane);
         else if (warp == 1)
           write_quantized(v_new + src,
-                          reinterpret_cast<int8_t*>(Vp + grow * HD), Vs + pos,
-                          sV + srow * ROWB, sVs + t, lane, kv_maxq, inv_maxq,
-                          plane);
+                          owner ? reinterpret_cast<int8_t*>(Vp + grow * hd)
+                                : nullptr,
+                          Vs + pos, sV + srow * ROWB, sVs + t, lane, hd,
+                          kv_maxq, inv_maxq, plane);
       } else {
-        if (warp < 2 && lane < HD / 8) {
-          const uint4 x = reinterpret_cast<const uint4*>(
-              (warp == 0 ? k_new : v_new) + src)[lane];
-          reinterpret_cast<uint4*>((warp == 0 ? Kp : Vp) + grow * HD)[lane] =
-              x;
-          reinterpret_cast<uint4*>((warp == 0 ? sK : sV) + srow * ROWB)[lane] =
-              x;
+        if (warp < 2) {
+          for (int e = lane; e < hd / 8; e += 32) {
+            const uint4 x = reinterpret_cast<const uint4*>(
+                (warp == 0 ? k_new : v_new) + src)[e];
+            if (owner)
+              reinterpret_cast<uint4*>((warp == 0 ? Kp : Vp) + grow * hd)[e] =
+                  x;
+            reinterpret_cast<uint4*>((warp == 0 ? sK : sV) + srow * ROWB)[e] =
+                x;
+          }
         }
       }
       __syncthreads();
@@ -363,20 +390,25 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
       const bool ok = j < j1;
       int kl[2];
       bool live[2];
-      float kf[2][8] = {};
+      float kf[2][DL] = {};
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         kl[u] = PACK ? j + 128 * u : 2 * j + u;
         live[u] = ok && kl[u] >= clo && kl[u] < chi;
       }
       if (ok) {
-        if constexpr (PACK) {
-          row8_int4(sK + j * ROWB + l16 * 8, kf[0], kf[1]);
-        } else {
 #pragma unroll
-          for (int u = 0; u < 2; ++u)
-            row8(sK + kl[u] * ROWB + l16 * 8 * sizeof(KV), kf[u],
-                 static_cast<KV*>(nullptr));
+        for (int c = 0; c < NC; ++c) {
+          if (!dl[c]) continue;
+          const int d0 = (c * 128 + l16 * 8) * int(sizeof(KV));
+          if constexpr (PACK) {
+            row8_int4(sK + j * ROWB + d0, kf[0] + 8 * c, kf[1] + 8 * c);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              row8(sK + kl[u] * ROWB + d0, kf[u] + 8 * c,
+                   static_cast<KV*>(nullptr));
+          }
         }
       }
       float s[GM][2];
@@ -385,9 +417,9 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           float x = 0.f;
-          if (g < G) {
+          if (g0 + g < G) {
 #pragma unroll
-            for (int i = 0; i < 8; ++i) x += qf[g][i] * kf[u][i];
+            for (int i = 0; i < DL; ++i) x += qf[g][i] * kf[u][i];
 #pragma unroll
             for (int off = 8; off > 0; off >>= 1)
               x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -402,15 +434,20 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
 
       // P·V: the same keys' V rows (dead keys read as zeros)
       hopper::mbar_wait(&bar[1], ph);
-      float vf[2][8] = {};
+      float vf[2][DL] = {};
       if (ok) {
-        if constexpr (PACK) {
-          row8_int4(sV + j * ROWB + l16 * 8, vf[0], vf[1]);
-        } else {
 #pragma unroll
-          for (int u = 0; u < 2; ++u)
-            row8(sV + kl[u] * ROWB + l16 * 8 * sizeof(KV), vf[u],
-                 static_cast<KV*>(nullptr));
+        for (int c = 0; c < NC; ++c) {
+          if (!dl[c]) continue;
+          const int d0 = (c * 128 + l16 * 8) * int(sizeof(KV));
+          if constexpr (PACK) {
+            row8_int4(sV + j * ROWB + d0, vf[0] + 8 * c, vf[1] + 8 * c);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              row8(sV + kl[u] * ROWB + d0, vf[u] + 8 * c,
+                   static_cast<KV*>(nullptr));
+          }
         }
       }
       float vs[2] = {1.f, 1.f};
@@ -419,12 +456,12 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
         if (QUANT) vs[u] = live[u] ? sVs[kl[u]] : 0.f;
         if (!live[u]) {
 #pragma unroll
-          for (int i = 0; i < 8; ++i) vf[u][i] = 0.f;
+          for (int i = 0; i < DL; ++i) vf[u][i] = 0.f;
         }
       }
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        if (g < G) {
+        if (g0 + g < G) {
           const float mn = fmaxf(m[g], fmaxf(s[g][0], s[g][1]));
           const float mr = mn == -INFINITY ? 0.f : mn;
           const float alpha = exp2f(m[g] - mr);
@@ -433,7 +470,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
           m[g] = mn;
           const float w0 = p0 * vs[0], w1 = p1 * vs[1];
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+          for (int i = 0; i < DL; ++i)
             acc[g][i] = acc[g][i] * alpha + w0 * vf[0][i] + w1 * vf[1][i];
         }
       }
@@ -449,7 +486,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   // same dims), then the warps, in order
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    if (g < G) {
+    if (g0 + g < G) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[g], 16);
       const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], 16);
       const float mn = fmaxf(m[g], mo);
@@ -458,21 +495,26 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
       l[g] = l[g] * a + lo_ * o;
       m[g] = mn;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < DL; ++i) {
         const float other = __shfl_xor_sync(0xffffffffu, acc[g][i], 16);
         acc[g][i] = acc[g][i] * a + other * o;
       }
     }
   }
   __syncthreads();  // the chunk area becomes the merge area
-  float* red = reinterpret_cast<float*>(smem);  // [WARPS][GM][HD]
+  float* red = reinterpret_cast<float*>(smem);  // [WARPS][GM][hd]
   if (lane < 16) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      if (g < G) {
+      if (g0 + g < G) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          red[(warp * GM + g) * HD + l16 * 8 + i] = acc[g][i];
+        for (int c = 0; c < NC; ++c) {
+          if (!dl[c]) continue;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            red[(warp * GM + g) * hd + c * 128 + l16 * 8 + i] =
+                acc[g][8 * c + i];
+        }
         if (l16 == 0) {
           sM[warp][g] = m[g];
           sL[warp][g] = l[g];
@@ -482,11 +524,13 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   }
   __syncthreads();
 
+  // the group's heads [g0, gend) of this (lane, KV head)
+  const int gend = min(G, g0 + GM);
   const size_t pair = size_t(b) * Hkv + kvh;
-  float* part_acc = part;                                   // [.][ns][G][HD]
-  float* part_ml = part + size_t(gridDim.y) * gridDim.z * nsplit * G * HD;
-  for (int e = tid; e < G * HD; e += NT) {
-    const int g = e / HD, d = e % HD;
+  float* part_acc = part;                                // [.][ns][G][hd]
+  float* part_ml = part + size_t(Hkv) * gridDim.z * nsplit * G * hd;
+  for (int e = tid; e < (gend - g0) * hd; e += NT) {
+    const int g = e / hd, d = e % hd;
     float mx = -INFINITY;
     for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sM[w][g]);
     const float mr = mx == -INFINITY ? 0.f : mx;
@@ -494,14 +538,14 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
     for (int w = 0; w < WARPS; ++w) {
       const float f = exp2f(sM[w][g] - mr);
       L += sL[w][g] * f;
-      A += red[(w * GM + g) * HD + d] * f;
+      A += red[(w * GM + g) * hd + d] * f;
     }
     if (nsplit == 1) {
-      out[(size_t(b) * Hq + kvh * G + g) * HD + d] =
+      out[(size_t(b) * Hq + kvh * G + g0 + g) * hd + d] =
           __float2bfloat16(A / fmaxf(L, 1e-30f));
     } else {
-      const size_t at = (pair * nsplit + sp) * G + g;
-      part_acc[at * HD + d] = A;
+      const size_t at = (pair * nsplit + sp) * G + g0 + g;
+      part_acc[at * hd + d] = A;
       if (d == 0) {
         part_ml[2 * at] = mx;
         part_ml[2 * at + 1] = L;
@@ -510,15 +554,17 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   }
   if (nsplit == 1) return;
 
-  // the last block of this (lane, KV head) merges the splits in order
+  // the last block of this (lane, KV head, group) merges the splits in
+  // order
+  const size_t ticket = pair * ngrp + grp;
   __threadfence();
   __syncthreads();
-  if (tid == 0) s_last = atomicAdd(&tickets[pair], 1) == nsplit - 1;
+  if (tid == 0) s_last = atomicAdd(&tickets[ticket], 1) == nsplit - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  for (int e = tid; e < G * HD; e += NT) {
-    const int g = e / HD, d = e % HD;
+  for (int e = tid; e < (gend - g0) * hd; e += NT) {
+    const int g = g0 + e / hd, d = e % hd;
     float mx = -INFINITY;
     for (int s = 0; s < nsplit; ++s)
       mx = fmaxf(mx, __ldcg(part_ml + 2 * ((pair * nsplit + s) * G + g)));
@@ -528,48 +574,54 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
       const size_t at = (pair * nsplit + s) * G + g;
       const float f = exp2f(__ldcg(part_ml + 2 * at) - mr);
       L += __ldcg(part_ml + 2 * at + 1) * f;
-      A += __ldcg(part_acc + at * HD + d) * f;
+      A += __ldcg(part_acc + at * hd + d) * f;
     }
-    out[(size_t(b) * Hq + kvh * G + g) * HD + d] =
+    out[(size_t(b) * Hq + kvh * G + g) * hd + d] =
         __float2bfloat16(A / fmaxf(L, 1e-30f));
   }
-  if (tid == 0) tickets[pair] = 0;
+  if (tid == 0) tickets[ticket] = 0;
 }
 
 // S % 4: a quantized row's scale planes are copied in 16-byte units
 bool bad_shape(bool quant, int Bq, int Hq, int Hkv, int S, int head_dim,
                int split, int nsplit, float cap, const void* part,
                const void* tickets) {
-  return head_dim != HD || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 8 ||
-         Bq <= 0 || cap < 0.f || (quant && S % 4 != 0) || split <= 0 ||
+  return (head_dim != 64 && head_dim != 96 && head_dim != 128 &&
+          head_dim != 256) ||
+         Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 64 || Bq <= 0 ||
+         cap < 0.f || (quant && S % 4 != 0) || split <= 0 ||
          split % SEG != 0 || nsplit <= 0 || nsplit > 65535 ||
          (nsplit > 1 && (part == nullptr || tickets == nullptr));
 }
 
-template <typename KV, bool PACK, int GM>
+template <typename KV, bool PACK, int GM, int NC, int HDC>
 int launch_g(const void* q, const void* k_new, const void* v_new,
              void* k_rows, void* v_rows, void* k_scales, void* v_scales,
              void* out, void* part, void* tickets, const void* kv_lens,
              const void* row_ids, const void* layer, int Bq, int Hq, int Hkv,
-             int B, int S, int split, int nsplit, float scale, int window,
-             float cap, float inv_cap, float kv_maxq, float inv_maxq,
-             void* stream) {
-  constexpr size_t SMEM = smem_bytes<KV, PACK>();
+             int B, int S, int hd, int split, int nsplit, float scale,
+             int window, float cap, float inv_cap, float kv_maxq,
+             float inv_maxq, void* stream) {
+  const size_t smem = smem_bytes<KV, PACK>(hd);
+  // the chunk area holds the warps' partial outputs at the end
+  if (size_t(WARPS) * GM * hd * 4 > smem) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<KV, PACK, GM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+      decode_kernel<KV, PACK, GM, NC, HDC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid(nsplit, Hkv, Bq);
-  decode_kernel<KV, PACK, GM>
-      <<<grid, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
+  const int G = Hq / Hkv, ngrp = (G + GM - 1) / GM;
+  if (size_t(Hkv) * ngrp > 65535u) return int(cudaErrorInvalidValue);
+  dim3 grid(nsplit, Hkv * ngrp, Bq);
+  decode_kernel<KV, PACK, GM, NC, HDC>
+      <<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
           static_cast<const bf16*>(v_new), static_cast<KV*>(k_rows),
           static_cast<KV*>(v_rows), static_cast<float*>(k_scales),
           static_cast<float*>(v_scales), static_cast<bf16*>(out),
           static_cast<float*>(part), static_cast<int*>(tickets),
           static_cast<const int*>(kv_lens), static_cast<const int*>(row_ids),
-          static_cast<const int*>(layer), Hq, Hkv, B, S, split, scale,
-          window, cap, inv_cap, kv_maxq, inv_maxq);
+          static_cast<const int*>(layer), Hq, Hkv, B, S, hd, ngrp, split,
+          scale, window, cap, inv_cap, kv_maxq, inv_maxq);
   return int(cudaGetLastError());
 }
 
@@ -585,25 +637,37 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_rows,
                 cap, part, tickets) ||
       (PACK && S % SEG != 0))
     return int(cudaErrorInvalidValue);
-  const int G = Hq / Hkv;
-#define AURORA_DECODE_G(GM)                                                  \
-  return launch_g<KV, PACK, GM>(q, k_new, v_new, k_rows, v_rows, k_scales,   \
-                                v_scales, out, part, tickets, kv_lens,       \
-                                row_ids, layer, Bq, Hq, Hkv, B, S, split,    \
-                                nsplit, scale, window, cap, inv_cap,         \
-                                kv_maxq, inv_maxq, stream)
-  if (G <= 1) AURORA_DECODE_G(1);
-  if (G <= 2) AURORA_DECODE_G(2);
-  if (G <= 4) AURORA_DECODE_G(4);
-  AURORA_DECODE_G(8);
+  const int gm = group_heads(Hq / Hkv, head_dim);
+#define AURORA_DECODE_G(GM, NC, HDC)                                         \
+  return launch_g<KV, PACK, GM, NC, HDC>(q, k_new, v_new, k_rows, v_rows,         \
+                                    k_scales, v_scales, out, part, tickets,  \
+                                    kv_lens, row_ids, layer, Bq, Hq, Hkv, B, \
+                                    S, head_dim, split, nsplit, scale,       \
+                                    window, cap, inv_cap, kv_maxq, inv_maxq, \
+                                    stream)
+  if (head_dim > 128) {
+    if (gm == 1) AURORA_DECODE_G(1, 2, 0);
+    if (gm == 2) AURORA_DECODE_G(2, 2, 0);
+    AURORA_DECODE_G(4, 2, 0);
+  }
+  if (head_dim == 128) {
+    if (gm == 1) AURORA_DECODE_G(1, 1, 128);
+    if (gm == 2) AURORA_DECODE_G(2, 1, 128);
+    if (gm == 4) AURORA_DECODE_G(4, 1, 128);
+    AURORA_DECODE_G(8, 1, 128);
+  }
+  if (gm == 1) AURORA_DECODE_G(1, 1, 0);
+  if (gm == 2) AURORA_DECODE_G(2, 1, 0);
+  if (gm == 4) AURORA_DECODE_G(4, 1, 0);
+  AURORA_DECODE_G(8, 1, 0);
 #undef AURORA_DECODE_G
 }
 
 }  // namespace
 
-// bf16 rows [L, B, Hkv, S, hd]; part: fp32 scratch of Bq * Hkv * nsplit *
-// G * (hd + 2) floats and tickets: Bq * Hkv int32 zeros (both may be null
-// with nsplit 1); split, nsplit: decode_plan's
+// bf16 rows [L, B, Hkv, S, hd] (hd 64, 96, 128 or 256); part: fp32 scratch
+// of Bq * Hkv * nsplit * G * (hd + 2) floats and tickets: Bq * Hq int32
+// zeros (both may be null with nsplit 1); split, nsplit: decode_plan's
 extern "C" int aurora_ragged_decode_bf16(
     const void* q, const void* k_new, const void* v_new, void* k_rows,
     void* v_rows, void* out, void* part, void* tickets, const void* kv_lens,
@@ -651,27 +715,45 @@ extern "C" int aurora_ragged_decode_int4(
                               inv_maxq, stream);
 }
 
-// the kernel of a mode ("bf16", "int8", "int4") for GM query heads a KV
-// head (1, 2, 4, 8) and its dynamic shared bytes, for aurora_kernel_attrs
-extern "C" int aurora_ragged_decode_kernel(const char* mode, int gm,
+// the kernel of a mode ("bf16", "int8", "int4") for GM query heads a block
+// (1, 2, 4, 8; 1, 2, 4 at hd 256) at head_dim hd and its dynamic shared
+// bytes, for aurora_kernel_attrs
+extern "C" int aurora_ragged_decode_kernel(const char* mode, int gm, int hd,
                                            const void** fn, int* smem) {
+  const int nc = hd > 128 ? 2 : 1;
+  if ((hd != 64 && hd != 96 && hd != 128 && hd != 256) ||
+      (nc == 2 && gm == 8))
+    return int(cudaErrorInvalidValue);
+#define AURORA_DECODE_GM(KV, PACK, NC, HDC)                            \
+  if (gm == 1) *fn = reinterpret_cast<const void*>(                    \
+      decode_kernel<KV, PACK, 1, NC, HDC>);                            \
+  else if (gm == 2) *fn = reinterpret_cast<const void*>(               \
+      decode_kernel<KV, PACK, 2, NC, HDC>);                            \
+  else if (gm == 4) *fn = reinterpret_cast<const void*>(               \
+      decode_kernel<KV, PACK, 4, NC, HDC>);
 #define AURORA_DECODE_FN(KV, PACK)                                     \
   do {                                                                 \
-    *smem = int(smem_bytes<KV, PACK>());                               \
-    if (gm == 1) *fn = reinterpret_cast<const void*>(                  \
-        decode_kernel<KV, PACK, 1>);                                   \
-    else if (gm == 2) *fn = reinterpret_cast<const void*>(             \
-        decode_kernel<KV, PACK, 2>);                                   \
-    else if (gm == 4) *fn = reinterpret_cast<const void*>(             \
-        decode_kernel<KV, PACK, 4>);                                   \
-    else if (gm == 8) *fn = reinterpret_cast<const void*>(             \
-        decode_kernel<KV, PACK, 8>);                                   \
-    else return int(cudaErrorInvalidValue);                            \
+    *smem = int(smem_bytes<KV, PACK>(hd));                             \
+    if (nc == 2) {                                                     \
+      AURORA_DECODE_GM(KV, PACK, 2, 0)                                 \
+      else return int(cudaErrorInvalidValue);                          \
+    } else if (hd == 128) {                                            \
+      AURORA_DECODE_GM(KV, PACK, 1, 128)                               \
+      else if (gm == 8) *fn = reinterpret_cast<const void*>(           \
+          decode_kernel<KV, PACK, 8, 1, 128>);                         \
+      else return int(cudaErrorInvalidValue);                          \
+    } else {                                                           \
+      AURORA_DECODE_GM(KV, PACK, 1, 0)                                 \
+      else if (gm == 8) *fn = reinterpret_cast<const void*>(           \
+          decode_kernel<KV, PACK, 8, 1, 0>);                           \
+      else return int(cudaErrorInvalidValue);                          \
+    }                                                                  \
     return 0;                                                          \
   } while (0)
   if (strcmp(mode, "bf16") == 0) AURORA_DECODE_FN(bf16, false);
   if (strcmp(mode, "int8") == 0) AURORA_DECODE_FN(int8_t, false);
   if (strcmp(mode, "int4") == 0) AURORA_DECODE_FN(int8_t, true);
 #undef AURORA_DECODE_FN
+#undef AURORA_DECODE_GM
   return int(cudaErrorInvalidValue);
 }

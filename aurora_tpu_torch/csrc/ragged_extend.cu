@@ -482,6 +482,208 @@ extend_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
+
+// ------------------------------------------------ other head widths (mma)
+// head_dim 64, 96 and 256: the same contract on warp-level mma.sync tiles
+// (hopper_common.cuh, MmaTile): a block of MmaTile<HD>::NT threads per (64
+// folded query rows, KV head, lane), the heaviest first; key tiles of 64
+// loaded by all threads with 16-byte reads into plain shared tiles, int8
+// and int4 bytes converted to bf16 on the way (exact), zeros at and past
+// kv_len, the tile's scales beside it; one tile at a time (two block
+// barriers a tile). A 64-token tile at a multiple of 64 is one nibble
+// plane of 64 consecutive packed rows, so int4 needs no pairing. The
+// scores, the scale, the key scale, the cap, the mask and the value scale
+// are applied in the same order as above.
+
+constexpr int MBQ = 64, MBK = 64;  // folded query rows a block, keys a tile
+
+template <int HD>
+__host__ __device__ constexpr size_t mma_smem_bytes() {
+  return size_t(MBQ + 2 * MBK) * (HD + 8) * 2 + 2 * MBK * 4;
+}
+
+// 16 bytes of a KV row → 16 bf16 values at dst: int8 bytes (plane < 0), or
+// the low (plane 0) or high (plane 1) signed nibbles of packed bytes
+__device__ __forceinline__ void expand16(uint4 x, int plane, bf16* dst) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int byte = 2 * i + e;
+      const unsigned u = (w[byte / 4] >> (8 * (byte % 4))) & 0xFFu;
+      const int b = int(int8_t(uint8_t(u)));
+      v[e] = float(plane < 0    ? b
+                   : plane == 0 ? int(int8_t(uint8_t(u << 4))) >> 4
+                                : b >> 4);
+    }
+    o[i] = hopper::pack_bf16(v[0], v[1]);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+template <int HD, typename KV, bool PACK>
+__global__ void __launch_bounds__(hopper::MmaTile<HD>::NT, 1)
+extend_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
+                  const KV* __restrict__ v_rows,
+                  const float* __restrict__ k_scales,
+                  const float* __restrict__ v_scales, bf16* __restrict__ out,
+                  const int* __restrict__ kv_lens,
+                  const int* __restrict__ q_offsets,
+                  const int* __restrict__ row_ids,
+                  const int* __restrict__ layer_ptr, Shape sh) {
+  using TL = hopper::MmaTile<HD>;
+  constexpr int P = TL::P, NB = MBK / 8, ND = TL::DS / 8;
+  constexpr bool QUANT = sizeof(KV) == 1;
+  extern __shared__ __align__(16) uint8_t smem_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sK = sQ + MBQ * P;
+  bf16* sV = sK + MBK * P;
+  float* sKs = reinterpret_cast<float*>(sV + MBK * P);
+  float* sVs = sKs + MBK;
+
+  const int kvh = blockIdx.y, lb = blockIdx.z;
+  const int G = sh.G, rows_total = G * sh.T;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * MBQ;  // heaviest first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = warp % 4, sl = warp / 4;
+  const int kv_len = min(kv_lens[lb], sh.S);
+  const int q_off = q_offsets[lb];
+  const size_t stripe =
+      (size_t(*layer_ptr) * sh.B + row_ids[lb]) * sh.Hkv + kvh;
+  const size_t row_elems = size_t(PACK ? sh.S / 2 : sh.S) * HD;
+  const KV* Kp = k_rows + stripe * row_elems;
+  const KV* Vp = v_rows + stripe * row_elems;
+  const float* Ks = QUANT ? k_scales + stripe * sh.S : nullptr;
+  const float* Vs = QUANT ? v_scales + stripe * sh.S : nullptr;
+
+  const int last_rr = min(r0 + MBQ, rows_total) - 1;
+  const int kend = min(kv_len, q_off + last_rr / G + 1);
+  const int kstart =
+      sh.window > 0 ? max(0, q_off + r0 / G - sh.window + 1) : 0;
+
+  for (int e = tid; e < MBQ * (HD / 8); e += TL::NT) {
+    const int r = e / (HD / 8), c = e % (HD / 8), rr = r0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (rr < rows_total)
+      v = *reinterpret_cast<const uint4*>(
+          q + ((size_t(lb) * sh.T + rr / G) * sh.Hq + kvh * G + rr % G) * HD +
+          c * 8);
+    *reinterpret_cast<uint4*>(sQ + r * P + c * 8) = v;
+  }
+  int qp[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    qp[h] = q_off + (r0 + rg * 16 + lane / 4 + 8 * h) / G;
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int kb = kstart / MBK * MBK; kb < kend; kb += MBK) {
+    __syncthreads();  // the last tile's products are done everywhere
+    if constexpr (!QUANT) {
+      hopper::load_rows<HD>(sK, Kp, HD, kb, MBK, kv_len, tid, TL::NT);
+      hopper::load_rows<HD>(sV, Vp, HD, kb, MBK, kv_len, tid, TL::NT);
+    } else {
+      const int off = kb % 256;
+      const int plane = PACK ? int(off >= 128) : -1;
+      const size_t prow0 = PACK ? size_t(kb / 256) * 128 + (off & 127) : kb;
+      const uint8_t* kr = reinterpret_cast<const uint8_t*>(Kp);
+      const uint8_t* vr = reinterpret_cast<const uint8_t*>(Vp);
+      for (int e = tid; e < MBK * (HD / 16); e += TL::NT) {
+        const int r = e / (HD / 16), c = e % (HD / 16);
+        uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
+        if (kb + r < kv_len) {
+          kx = *reinterpret_cast<const uint4*>(kr + (prow0 + r) * HD + c * 16);
+          vx = *reinterpret_cast<const uint4*>(vr + (prow0 + r) * HD + c * 16);
+        }
+        expand16(kx, plane, sK + r * P + c * 16);
+        expand16(vx, plane, sV + r * P + c * 16);
+      }
+      for (int r = tid; r < MBK; r += TL::NT) {
+        const bool live = kb + r < kv_len;
+        sKs[r] = live ? Ks[kb + r] : 0.f;
+        sVs[r] = live ? Vs[kb + r] : 0.f;
+      }
+    }
+    __syncthreads();
+
+    float s[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+    hopper::mma_xyt<HD, NB>(s, sQ, rg * 16, sK, lane);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 8 * n + 2 * (lane % 4) + (i & 1);
+        const int key = kb + col, p = qp[i >> 1];
+        float x = s[n][i] * sh.scale;
+        if (QUANT) x *= sKs[col];
+        if (sh.cap > 0.f) x = sh.cap * tanhf(x * sh.inv_cap);
+        const bool vis = key < kv_len && key <= p &&
+                         (sh.window <= 0 || key > p - sh.window);
+        s[n][i] = vis ? x * LOG2E : -INFINITY;
+      }
+    hopper::softmax_step<NB, ND>(s, m, l, o);
+    if constexpr (QUANT) {
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] *= sVs[8 * n + 2 * (lane % 4) + (i & 1)];
+    }
+    hopper::mma_wz<HD, MBK / 16, ND>(o, s, sV, sl * TL::DS, lane);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int rr = r0 + rg * 16 + lane / 4 + 8 * h;
+    if (rr < rows_total)
+      hopper::store_c_row<ND>(
+          out + ((size_t(lb) * sh.T + rr / G) * sh.Hq + kvh * G + rr % G) *
+                    HD + sl * TL::DS,
+          o, h, lane, 1.f / fmaxf(l[h], 1e-30f));
+  }
+}
+
+template <int HD, typename KV, bool PACK>
+int launch_mma(const void* q, const void* k_rows, const void* v_rows,
+               const void* k_scales, const void* v_scales, void* out,
+               const void* kv_lens, const void* q_offsets,
+               const void* row_ids, const void* layer, const Shape& sh,
+               int Bk, void* stream) {
+  constexpr size_t SMEM = mma_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      extend_mma_kernel<HD, KV, PACK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid((sh.G * sh.T + MBQ - 1) / MBQ, sh.Hkv, Bk);
+  extend_mma_kernel<HD, KV, PACK>
+      <<<grid, hopper::MmaTile<HD>::NT, SMEM,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const KV*>(k_rows),
+          static_cast<const KV*>(v_rows),
+          static_cast<const float*>(k_scales),
+          static_cast<const float*>(v_scales), static_cast<bf16*>(out),
+          static_cast<const int*>(kv_lens),
+          static_cast<const int*>(q_offsets),
+          static_cast<const int*>(row_ids), static_cast<const int*>(layer),
+          sh);
+  return int(cudaGetLastError());
+}
+
 template <typename KV, bool PACK>
 int launch(const void* q, const void* k_rows, const void* v_rows,
            const void* k_scales, const void* v_scales, void* out,
@@ -490,11 +692,25 @@ int launch(const void* q, const void* k_rows, const void* v_rows,
            int S, int head_dim, float scale, int window, float cap,
            float inv_cap, void* stream) {
   constexpr bool QUANT = sizeof(KV) == 1;
-  if (head_dim != HD || Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
+  if ((head_dim != 64 && head_dim != 96 && head_dim != HD &&
+       head_dim != 256) ||
+      Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
       Bk <= 0 || Bk > 65535 || T <= 0 || L <= 0 || B <= 0 || S <= 0 ||
       (PACK && S % 256 != 0) || (QUANT && S % 4 != 0) || cap < 0.f)
     return int(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
+  if (head_dim != HD) {
+    const Shape sh{T, Hq, Hkv, B, S, G, window, scale, cap, inv_cap};
+#define AURORA_EXTEND_MMA(W)                                               \
+  if (head_dim == W)                                                       \
+    return launch_mma<W, KV, PACK>(q, k_rows, v_rows, k_scales, v_scales,  \
+                                   out, kv_lens, q_offsets, row_ids, layer, \
+                                   sh, Bk, stream);
+    AURORA_EXTEND_MMA(64)
+    AURORA_EXTEND_MMA(96)
+    AURORA_EXTEND_MMA(256)
+#undef AURORA_EXTEND_MMA
+  }
   const long long stripes = (long long)L * B * Hkv;
   CUtensorMap mk, mv;
   const bool ok =
@@ -571,10 +787,26 @@ extern "C" int aurora_ragged_extend_int4(
                               inv_cap, stream);
 }
 
-// the kernel of a mode ("bf16", "int8", "int4") and its dynamic shared
-// bytes, for aurora_kernel_attrs
+// the kernel of a mode ("bf16", "int8", "int4"; head_dim 128, or with
+// "_hd64", "_hd96" or "_hd256" the mma.sync kernel of that width) and its
+// dynamic shared bytes, for aurora_kernel_attrs
 extern "C" int aurora_ragged_extend_kernel(const char* mode, const void** fn,
                                            int* smem) {
+#define AURORA_EXTEND_MMA_FN(M, W, KV, PACK)                              \
+  if (strcmp(mode, M "_hd" #W) == 0) {                                    \
+    *fn = reinterpret_cast<const void*>(extend_mma_kernel<W, KV, PACK>);  \
+    *smem = int(mma_smem_bytes<W>());                                     \
+    return 0;                                                             \
+  }
+#define AURORA_EXTEND_MMA_MODES(W)                                        \
+  AURORA_EXTEND_MMA_FN("bf16", W, bf16, false)                            \
+  AURORA_EXTEND_MMA_FN("int8", W, int8_t, false)                          \
+  AURORA_EXTEND_MMA_FN("int4", W, int8_t, true)
+  AURORA_EXTEND_MMA_MODES(64)
+  AURORA_EXTEND_MMA_MODES(96)
+  AURORA_EXTEND_MMA_MODES(256)
+#undef AURORA_EXTEND_MMA_MODES
+#undef AURORA_EXTEND_MMA_FN
   if (strcmp(mode, "bf16") == 0) {
     *fn = reinterpret_cast<const void*>(extend_kernel<bf16, false>);
     *smem = int(smem_bytes<bf16, false>());

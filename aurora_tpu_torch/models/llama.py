@@ -1,25 +1,38 @@
 """Llama-family decoder configuration and parameter layout
-(aurora_tpu/models/llama.py). Vicuna-7B-v1.5-16k is the AuroraCap LLM.
+(aurora_tpu/models/llama.py), the universal dense decoder of the model
+zoo. Vicuna-7B-v1.5-16k is the AuroraCap LLM.
 
-Only the llama case is ported (RMSNorm, SiLU-gated MLP, rotary with
-optional linear scaling, GQA, no biases), with two attention options of
-other members of the family: Mistral's sliding window (`sliding_window`,
-the same width in every layer) and the tanh softcap of the attention
-logits (`attn_logit_softcap`). The reference stacks layers as
-[L, ...] arrays with dense kernels [in, out]; here each layer is a module
-of `nn.Linear`s ([out, in] weights), or, for W4 serving, of `W4Linear`s
-(nibble-packed int4 + group scales, the port's layout of
-ops/pallas/quant_matmul.py), or, for W8 serving, of `W8Linear`s (int8 +
-per-output-channel scales); both quantized models have an int8
-`W8Linear` LM head. A layer
-holds either the per-name projections (q, k, v, o, gate, up, down) or the
-fused serving streams (qkv, o, gateup, down); a W4 layer may hold its
-gateup and down as one `W4FusedMLP` (`mlp`). A sequence-classification
-checkpoint adds a `score` head [num_labels, D] (the /v1/classify endpoint
-of serve/api.py reads it over `llama_apply(..., return_hidden=True)`).
+`LlamaConfig` carries every dense knob of the reference's config: qkv
+biases (Qwen2), per-head q/k norms (Qwen3, Cohere), the norm kind
+(RMSNorm, LayerNorm with or without a bias, Cohere's), partial and
+interleaved rotary (StableLM, GLM), OLMo's qkv clamp, the non-gated MLP
+(StarCoder2, GPT-BigCode), a head_dim decoupled from hidden / heads,
+Gemma's GeGLU, (1 + w) norms, embedding scale, query_pre_attn_scalar,
+alternating sliding windows and logit softcaps, Cohere's parallel block
+and logit scale, GPT-BigCode's learned positions, MiniCPM's embedding,
+residual and logit scales, and tied embeddings. The reference's MoE and
+MLA knobs are not fields here (bridge.py refuses them).
 
-The serving forward over KV rows lives in serve/engine.py. Here is the
-offline forward `llama_apply`, the training and scoring path and, over a
+The reference stacks layers as [L, ...] arrays with dense kernels [in,
+out]; here each layer is a module of `nn.Linear`s ([out, in] weights),
+or, for W4 serving, of `W4Linear`s (nibble-packed int4 + group scales,
+the port's layout of ops/pallas/quant_matmul.py), or, for W8 serving, of
+`W8Linear`s (int8 + per-output-channel scales); both quantized models
+have an int8 `W8Linear` LM head unless the head is tied to the
+embeddings. A layer holds either the per-name projections (q, k, v, o,
+gate, up, down; no gate for a non-gated MLP) or the fused serving streams
+(qkv, o, gateup, down); a W4 layer may hold its gateup and down as one
+`W4FusedMLP` (`mlp`). The family's extra parameters carry the
+reference's names (`LAYER_EXTRAS`, `TOP_EXTRAS`: biases, q/k norms, norm
+biases, Gemma-2's `post_attn_out_norm` and `post_ffw_norm`, `wpe`) and
+stay in the model's dtype whatever the weights' quantization. A
+sequence-classification checkpoint adds a `score` head [num_labels, D]
+(the /v1/classify endpoint of serve/api.py reads it over
+`llama_apply(..., return_hidden=True)`).
+
+The serving forward over KV rows lives in serve/engine.py; it shares
+`layer_qkv`, `layer_attn_out`, `layer_mlp` and `dnorm` with the offline
+forward here, `llama_apply`, the training and scoring path and, over a
 dense KV cache (`init_kv_cache`), the offline generation path of
 generate/: attention through `ops.attention.mha` (the flash kernels on
 the card for unmasked calls), per-layer remat (models/remat.py), fp32
@@ -45,7 +58,8 @@ from torch.nn.attention import sdpa_kernel
 
 from aurora_tpu_torch.models.remat import remat_call
 from aurora_tpu_torch.ops.attention import REPEATABLE_SDPA, mha
-from aurora_tpu_torch.ops.norms import family_act, family_norm
+from aurora_tpu_torch.ops.norms import (cohere_layer_norm, family_act,
+                                       family_norm, rms_norm)
 from aurora_tpu_torch.ops.pallas.quant_matmul import (MAX_TOKENS,
                                                       fused_mlp_w4,
                                                       w4_mlp_untile_layout)
@@ -66,24 +80,64 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rope_linear_scaling: Optional[float] = None
     tie_word_embeddings: bool = False
+    qkv_bias: bool = False          # Qwen2: q/k/v projection biases
+    qk_norm: bool = False           # Qwen3 / Cohere: per-head q/k norm
+    # "rmsnorm"; "layernorm": torch LayerNorm with a `<norm>_bias` param
+    # (OLMo's non-parametric LN holds ones and zeros); "cohere"
+    norm_type: str = "rmsnorm"
+    partial_rotary_factor: float = 1.0  # rotate the first rd dims only
+    rope_interleaved: bool = False      # GLM / Cohere adjacent-pair lanes
+    clip_qkv: Optional[float] = None    # OLMo: q, k, v clamped to ±c
+    mlp_style: str = "gated"            # "mlp": up → act → down
     # Mistral's sliding window: a query at position p attends to the keys
     # in (p - w, p]; None or 0 is full causal attention
     sliding_window: Optional[int] = None
+    head_dim_override: Optional[int] = None  # head_dim ≠ hidden / heads
     # c > 0: each attention score s becomes c * tanh(s / c) before the mask
     attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0    # the same on the LM head's logits
+    scale_embeddings: bool = False      # Gemma: embeds * sqrt(hidden)
+    hidden_act: str = "silu"            # "gelu_tanh" (GeGLU), "gelu"
+    query_pre_attn_scalar: Optional[float] = None  # scale = this ** -0.5
+    swa_every_other: bool = False       # Gemma-2: even layers slide
+    norm_upcast_mul: bool = False       # RMSNorm weight multiply in fp32
+    parallel_block: bool = False        # Cohere: x + attn(h) + mlp(h)
+    logit_scale: Optional[float] = None  # Cohere / MiniCPM logit scale
+    learned_pos: bool = False           # GPT-BigCode: wpe, no rotary
+    embed_scale: Optional[float] = None     # MiniCPM scale_emb
+    residual_scale: Optional[float] = None  # MiniCPM scale_depth/sqrt(L)
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
         return self.hidden_size // self.num_attention_heads
 
     @property
+    def rotary_dim(self) -> int:
+        return int(self.head_dim * self.partial_rotary_factor)
+
+    @property
     def attn_scale(self) -> float:
-        return float(self.head_dim) ** -0.5
+        base = (self.query_pre_attn_scalar
+                if self.query_pre_attn_scalar is not None
+                else self.head_dim)
+        return float(base) ** -0.5
 
     @classmethod
     def vicuna_7b_v15_16k(cls) -> "LlamaConfig":
         """lmsys/vicuna-7b-v1.5-16k, the AuroraCap-7B decoder."""
         return cls(rope_linear_scaling=4.0)
+
+    @classmethod
+    def qwen2_7b(cls) -> "LlamaConfig":
+        """Qwen/Qwen2-7B-Instruct: the llama decoder with qkv biases and
+        GQA 28/4 (G 7), rope theta 1e6."""
+        return cls(vocab_size=152064, hidden_size=3584,
+                   intermediate_size=18944, num_hidden_layers=28,
+                   num_attention_heads=28, num_key_value_heads=4,
+                   max_position_embeddings=32768, rms_norm_eps=1e-6,
+                   rope_theta=1e6, qkv_bias=True)
 
     @classmethod
     def mistral_7b(cls) -> "LlamaConfig":
@@ -186,24 +240,92 @@ def projection_shapes(cfg: LlamaConfig,
                       fused: bool) -> Dict[str, Tuple[int, int]]:
     """(in, out) of each projection of a layer: per name, or the fused
     serving streams (qkv = q ‖ k ‖ v, gateup = gate ‖ up on the output
-    axis)."""
+    axis); a non-gated MLP has up and down only."""
     d, i, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
     nq, nkv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+    gated = cfg.mlp_style == "gated"
     if fused:
-        return {"qkv": (d, nq + 2 * nkv), "o": (nq, d),
-                "gateup": (d, 2 * i), "down": (i, d)}
+        mlp = {"gateup": (d, 2 * i)} if gated else {"up": (d, i)}
+        return {"qkv": (d, nq + 2 * nkv), "o": (nq, d), **mlp,
+                "down": (i, d)}
+    mlp = {"gate": (d, i), "up": (d, i)} if gated else {"up": (d, i)}
     return {"q": (d, nq), "k": (d, nkv), "v": (d, nkv), "o": (nq, d),
-            "gate": (d, i), "up": (d, i), "down": (i, d)}
+            **mlp, "down": (i, d)}
+
+
+def extra_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of the family parameters a layer (LAYER_EXTRAS) or the model
+    (TOP_EXTRAS) may hold, by the reference's names."""
+    d, i, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    H, Hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    per_head = cfg.norm_type == "cohere"
+    return {"q_bias": (H * hd,), "k_bias": (Hkv * hd,),
+            "v_bias": (Hkv * hd,), "qkv_bias": ((H + 2 * Hkv) * hd,),
+            "o_bias": (d,), "up_bias": (i,), "down_bias": (d,),
+            "q_norm": (H, hd) if per_head else (hd,),
+            "k_norm": (Hkv, hd) if per_head else (hd,),
+            "input_norm_bias": (d,), "post_attn_norm_bias": (d,),
+            "post_attn_out_norm": (d,), "post_ffw_norm": (d,),
+            "final_norm_bias": (d,),
+            "wpe": (cfg.max_position_embeddings, d)}
+
+
+LAYER_EXTRAS = ("q_bias", "k_bias", "v_bias", "qkv_bias", "o_bias",
+                "up_bias", "down_bias", "q_norm", "k_norm",
+                "input_norm_bias", "post_attn_norm_bias",
+                "post_attn_out_norm", "post_ffw_norm")
+TOP_EXTRAS = ("final_norm_bias", "wpe")
+
+
+def default_extras(cfg: LlamaConfig, fused: bool = False) -> Tuple[str, ...]:
+    """The family parameters the reference's converters give a config:
+    qkv biases; q/k norms; LayerNorm biases; a biased non-gated MLP (o, up
+    and down biases, StarCoder2 / GPT-BigCode); learned positions.
+    Gemma-2's output norms come with its serving mapping
+    (models/gemma2.py `gemma2_serving_params`)."""
+    out = []
+    if cfg.qkv_bias:
+        out += ["qkv_bias"] if fused else ["q_bias", "k_bias", "v_bias"]
+        if cfg.mlp_style == "mlp":
+            out += ["o_bias", "up_bias", "down_bias"]
+    if cfg.qk_norm:
+        out += ["q_norm", "k_norm"]
+    if cfg.norm_type == "layernorm":
+        out += ["input_norm_bias", "final_norm_bias"]
+        if not cfg.parallel_block:
+            out += ["post_attn_norm_bias"]
+    if cfg.learned_pos:
+        out += ["wpe"]
+    return tuple(out)
+
+
+def extras_of(model: nn.Module) -> Tuple[str, ...]:
+    """The family parameters `model` (a LlamaModel) holds."""
+    names = {n for n, _ in model.named_parameters(recurse=False)}
+    names |= {n for n, _ in model.layers[0].named_parameters(recurse=False)}
+    return tuple(n for n in LAYER_EXTRAS + TOP_EXTRAS if n in names)
+
+
+def _extra_param(shape, name, kw) -> nn.Parameter:
+    fill = torch.zeros if name.endswith("bias") or name == "wpe" \
+        else torch.ones
+    return nn.Parameter(fill(shape, **kw))
 
 
 class LlamaLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
-                 weight_quant: str = "none", fused: bool = False):
+                 weight_quant: str = "none", fused: bool = False,
+                 extras: Tuple[str, ...] = ()):
         super().__init__()
         d = cfg.hidden_size
         kw = dict(device=device, dtype=dtype)
         self.input_norm = nn.Parameter(torch.ones(d, **kw))
-        self.post_attn_norm = nn.Parameter(torch.ones(d, **kw))
+        if not cfg.parallel_block:    # Cohere: one norm feeds both
+            self.post_attn_norm = nn.Parameter(torch.ones(d, **kw))
+        shapes = extra_shapes(cfg)
+        for name in extras:
+            if name in LAYER_EXTRAS:
+                setattr(self, name, _extra_param(shapes[name], name, kw))
         for name, (n_in, n_out) in projection_shapes(cfg, fused).items():
             if weight_quant == "int4":
                 proj = W4Linear.empty(n_in, n_out, device=device)
@@ -218,27 +340,37 @@ class LlamaModel(nn.Module):
     """Parameters of the decoder; the forward is the serving engine's.
     weight_quant="int4" lays the layers out as W4Linear projections (per
     name, or fused with fused=True), "int8" as W8Linear ones; both with a
-    W8Linear LM head. num_labels > 0 adds the classification head `score`
+    W8Linear LM head, none with tied embeddings (the head is then
+    `embed_tokens`). extras: the family parameters to hold (LAYER_EXTRAS
+    and TOP_EXTRAS names; default `default_extras(cfg, fused)`).
+    num_labels > 0 adds the classification head `score`
     (LlamaForSequenceClassification's score.weight, [num_labels, D])."""
 
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
                  weight_quant: str = "none", fused: bool = False,
-                 num_labels: int = 0):
+                 num_labels: int = 0, extras=None):
         super().__init__()
-        if cfg.tie_word_embeddings:
-            raise NotImplementedError("tied embeddings are not ported")
         if weight_quant not in ("none", "int4", "int8"):
             raise NotImplementedError(
                 f"weight_quant={weight_quant!r}: none, int4 or int8")
+        extras = default_extras(cfg, fused) if extras is None \
+            else tuple(extras)
         kw = dict(device=device, dtype=dtype)
         d = cfg.hidden_size
         self.cfg = cfg
         self.embed_tokens = nn.Parameter(torch.zeros(cfg.vocab_size, d, **kw))
+        shapes = extra_shapes(cfg)
+        for name in extras:
+            if name in TOP_EXTRAS:
+                setattr(self, name, _extra_param(shapes[name], name, kw))
         self.layers = nn.ModuleList(
-            LlamaLayer(cfg, weight_quant=weight_quant, fused=fused, **kw)
+            LlamaLayer(cfg, weight_quant=weight_quant, fused=fused,
+                       extras=extras, **kw)
             for _ in range(cfg.num_hidden_layers))
         self.final_norm = nn.Parameter(torch.ones(d, **kw))
-        if weight_quant != "none":
+        if cfg.tie_word_embeddings:
+            pass                      # the head is embed_tokens
+        elif weight_quant != "none":
             self.lm_head = W8Linear.empty(d, cfg.vocab_size, device=device)
         else:
             self.lm_head = nn.Linear(d, cfg.vocab_size, bias=False, **kw)
@@ -254,40 +386,109 @@ def _dense(h, proj):
     return proj(h)
 
 
+def dnorm(cfg: LlamaConfig, x, owner, key: str):
+    """The family norm `key` of a layer or the model, with its
+    `<key>_bias` where the family has one (ops/norms.py family_norm)."""
+    return family_norm(cfg, x, getattr(owner, key),
+                       getattr(owner, key + "_bias", None))
+
+
+def _qknorm(cfg: LlamaConfig, x, w):
+    """Per-head q/k norm before rotary: Qwen3's RMSNorm ([hd] weight) or
+    Cohere's LayerNorm ([H, hd] per-head weights)."""
+    if cfg.norm_type == "cohere":
+        return cohere_layer_norm(x, w, cfg.rms_norm_eps)
+    return rms_norm(x, w, cfg.rms_norm_eps)
+
+
 def layer_qkv(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense):
     """h [B, T, D] → q [B, T, H, hd], k, v [B, T, Hkv, hd] through the
-    per-name or the fused (qkv) projections; `dot(h, proj)` computes one
-    projection (the serving engine passes its W4-aware one)."""
+    per-name or the fused (qkv) projections, with the family's biases,
+    clamp and per-head norms; `dot(h, proj)` computes one projection (the
+    serving engine passes its W4-aware one)."""
     B, T, _ = h.shape
     H, Hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
     if hasattr(lp, "qkv"):          # fused stream
-        q, k, v = dot(h, lp.qkv).split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
+        fused = dot(h, lp.qkv)
+        if getattr(lp, "qkv_bias", None) is not None:
+            fused = fused + lp.qkv_bias
+        q, k, v = fused.split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
     else:
         q, k, v = dot(h, lp.q), dot(h, lp.k), dot(h, lp.v)
-    return (q.reshape(B, T, H, hd), k.reshape(B, T, Hkv, hd),
-            v.contiguous().reshape(B, T, Hkv, hd))
+        if getattr(lp, "q_bias", None) is not None:     # Qwen2 family
+            q, k, v = q + lp.q_bias, k + lp.k_bias, v + lp.v_bias
+    if cfg.clip_qkv:                # OLMo's activation clamp
+        c = cfg.clip_qkv
+        q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
+    q = q.reshape(B, T, H, hd)
+    k = k.reshape(B, T, Hkv, hd)
+    v = v.contiguous().reshape(B, T, Hkv, hd)
+    if getattr(lp, "q_norm", None) is not None:
+        q, k = _qknorm(cfg, q, lp.q_norm), _qknorm(cfg, k, lp.k_norm)
+    return q, k, v
+
+
+def layer_attn_out(cfg: LlamaConfig, lp: LlamaLayer, attn, dot=_dense):
+    """The attention output [B, T, H·hd] through o (and its bias), then
+    Gemma-2's output norm and MiniCPM's residual scale: the branch that
+    joins the residual."""
+    out = dot(attn, lp.o)
+    if getattr(lp, "o_bias", None) is not None:
+        out = out + lp.o_bias
+    if getattr(lp, "post_attn_out_norm", None) is not None:
+        out = dnorm(cfg, out, lp, "post_attn_out_norm")
+    if cfg.residual_scale is not None:
+        out = out * cfg.residual_scale
+    return out
 
 
 def layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense):
-    """The SiLU-gated MLP, per-name, fused (gateup) or a W4FusedMLP (the
-    reference's `_mlp`): with a W4FusedMLP, at most MAX_TOKENS tokens
-    run as one `fused_mlp_w4` call; more (prefill) untile the weights and
-    run gateup and down through `dot`, silu(gate)·up in h's dtype between
+    """The MLP branch on the normed input h (the reference's `_mlp`
+    without the residual): gated (SiLU or GeGLU) per-name, fused
+    (gateup) or a W4FusedMLP, or non-gated (up → act → down, with
+    biases); then the down bias, Gemma-2's output norm and MiniCPM's
+    residual scale. With a W4FusedMLP, at most MAX_TOKENS tokens run as
+    one `fused_mlp_w4` call; more (prefill) untile the weights and run
+    gateup and down through `dot`, act(gate)·up in h's dtype between
     them."""
     if hasattr(lp, "mlp"):          # fused-MLP W4 layout
         lead = h.shape[:-1]
         if math.prod(lead) <= MAX_TOKENS:
             out = fused_mlp_w4(h.reshape(-1, h.shape[-1]), *lp.mlp.tensors())
-            return out.reshape(*lead, -1)
-        gateup, down = lp.mlp.untile()
-        gate, up = dot(h, gateup).chunk(2, dim=-1)
-        return dot(family_act(cfg, gate) * up, down)
-    if hasattr(lp, "gateup"):       # fused stream
+            out = out.reshape(*lead, -1)
+        else:
+            gateup, down = lp.mlp.untile()
+            gate, up = dot(h, gateup).chunk(2, dim=-1)
+            out = dot(family_act(cfg, gate) * up, down)
+    elif hasattr(lp, "gateup"):     # fused stream
         gate, up = dot(h, lp.gateup).chunk(2, dim=-1)
-    else:
-        gate, up = dot(h, lp.gate), dot(h, lp.up)
-    return dot(family_act(cfg, gate) * up, lp.down)
+        out = dot(family_act(cfg, gate) * up, lp.down)
+    elif hasattr(lp, "gate"):
+        out = dot(family_act(cfg, dot(h, lp.gate)) * dot(h, lp.up), lp.down)
+    else:                           # non-gated: StarCoder2, GPT-BigCode
+        up = dot(h, lp.up)
+        if getattr(lp, "up_bias", None) is not None:
+            up = up + lp.up_bias
+        out = dot(family_act(cfg, up), lp.down)
+    if getattr(lp, "down_bias", None) is not None:
+        out = out + lp.down_bias
+    if getattr(lp, "post_ffw_norm", None) is not None:
+        out = dnorm(cfg, out, lp, "post_ffw_norm")
+    if cfg.residual_scale is not None:
+        out = out * cfg.residual_scale
+    return out
+
+
+def scale_embeds(cfg: LlamaConfig, x):
+    """Gemma's sqrt(hidden) and MiniCPM's scale_emb, each a scalar
+    rounded to x's dtype first (as HF and the reference do)."""
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    if cfg.embed_scale is not None:
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype, device=x.device)
+    return x
 
 
 def _layer(cfg: LlamaConfig, lp: LlamaLayer, x, cos, sin, mask,
@@ -295,8 +496,10 @@ def _layer(cfg: LlamaConfig, lp: LlamaLayer, x, cos, sin, mask,
     """One decoder layer. kv: this layer's (k, v) cache [B, S, Hkv, hd],
     written in place at [cache_len, cache_len + T) and attended whole."""
     B, T, _ = x.shape
-    q, k, v = layer_qkv(cfg, lp, family_norm(cfg, x, lp.input_norm))
-    q, k = apply_rope(q, k, cos, sin)
+    h = dnorm(cfg, x, lp, "input_norm")
+    q, k, v = layer_qkv(cfg, lp, h)
+    if not cfg.learned_pos:
+        q, k = apply_rope(q, k, cos, sin, interleaved=cfg.rope_interleaved)
     if kv is not None:
         ck, cv = kv
         ck[:, cache_len:cache_len + T] = k.to(ck.dtype)
@@ -306,8 +509,11 @@ def _layer(cfg: LlamaConfig, lp: LlamaLayer, x, cos, sin, mask,
                kv_segment_ids=segment_ids, q_offset=cache_len,
                scale=cfg.attn_scale, logit_cap=cfg.attn_logit_softcap,
                use_flash=use_flash)
-    x = x + lp.o(attn.reshape(B, T, -1))
-    return x + layer_mlp(cfg, lp, family_norm(cfg, x, lp.post_attn_norm))
+    attn = layer_attn_out(cfg, lp, attn.reshape(B, T, -1))
+    if cfg.parallel_block:          # Cohere: the MLP reads the same h
+        return x + attn + layer_mlp(cfg, lp, h)
+    x = x + attn
+    return x + layer_mlp(cfg, lp, dnorm(cfg, x, lp, "post_attn_norm"))
 
 
 class _Fp32Logits(torch.autograd.Function):
@@ -374,28 +580,39 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
     [cache_len, cache_len + T) and the queries sit at those slots for the
     causal mask; attention then keeps SDPA off cuDNN (`REPEATABLE_SDPA`).
     remat: False, True/"full" or a policy name (models/remat.py), per
-    layer. use_flash: None lets `mha` decide. A sliding window (a key mask on (query - key) slot, as in the
-    reference) or a logit softcap keeps attention off the flash kernels,
-    which take neither.
+    layer. use_flash: None lets `mha` decide. A sliding window (a key
+    mask on (query - key) slot, in every layer, as in the reference's
+    llama_apply) or a logit softcap keeps attention off the flash kernels,
+    which take neither. The family knobs act as in the reference's
+    `_layer` and `llama_apply`; like it, this applies no final logit
+    softcap (Gemma-2's offline forward is models/gemma2.py).
     """
     if kv_cache is not None and segment_ids is not None:
         raise ValueError("packed segments over a KV cache are unsupported: "
                          "the cache tracks no segment ids")
+    head = (model.embed_tokens if cfg.tie_word_embeddings
+            else getattr(model.lm_head, "weight", None))
     if any(isinstance(m, _SERVING_LAYOUTS) for lp in model.layers
-           for m in lp.children()) or not isinstance(model.lm_head,
-                                                     nn.Linear):
+           for m in lp.children()) or not (
+               cfg.tie_word_embeddings
+               or isinstance(model.lm_head, nn.Linear)):
         raise NotImplementedError(
             "llama_apply runs dense, (Q)LoRA or quantized-base layers "
             "(train/lora.py, train/quant.py) under a float LM head; the "
             "serving engine's W4/W8 layouts run in serve/engine.py")
     x = model.embed_tokens[input_ids] if inputs_embeds is None \
         else inputs_embeds
+    x = scale_embeds(cfg, x)
     B, T, _ = x.shape
     if position_ids is None:
         position_ids = (torch.arange(T, device=x.device)[None]
                         + cache_len).expand(B, T)
-    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta,
-                            cfg.rope_linear_scaling)
+    cos = sin = None
+    if cfg.learned_pos:             # GPT-BigCode: wpe, no rotary
+        x = x + model.wpe[position_ids]
+    else:
+        cos, sin = rope_cos_sin(position_ids, cfg.rotary_dim,
+                                cfg.rope_theta, cfg.rope_linear_scaling)
     mask = None
     if attention_mask is not None:
         mask = attention_mask.to(torch.bool)[:, None, None, :]
@@ -416,8 +633,13 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
             for i, lp in enumerate(model.layers):
                 x = _layer(cfg, lp, x, cos, sin, mask, None, use_flash,
                            (kv_cache["k"][i], kv_cache["v"][i]), cache_len)
-    x = family_norm(cfg, x, model.final_norm)
-    out = x if return_hidden else _head_logits(x, model.lm_head.weight)
+    x = dnorm(cfg, x, model, "final_norm")
+    if return_hidden:
+        out = x
+    else:
+        out = _head_logits(x, head)
+        if cfg.logit_scale is not None:   # Cohere / MiniCPM
+            out = out * cfg.logit_scale
     return out if kv_cache is None else (out, kv_cache)
 
 

@@ -118,6 +118,16 @@ def _capped_attention(q, k, v, scale, logit_cap, bias, combined):
     return torch.einsum("bhts,bshd->bthd", probs, v)
 
 
+def flash_dispatch(q, bias=None, mask=None, logit_cap: float = 0.0) -> bool:
+    """`mha`'s rule, the reference's: the flash kernels for a CUDA q
+    [B, T, H, D] with no bias, no mask, no logit cap, T >= 128 and
+    D % 128 == 0 (so D 128 and 256: Gemma's heads take the D 256
+    kernels)."""
+    return bool(q.is_cuda and bias is None and mask is None
+                and logit_cap == 0.0 and q.shape[1] >= 128
+                and q.shape[-1] % 128 == 0)
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = False,
         bias: Optional[torch.Tensor] = None,
@@ -137,9 +147,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     as it does (like the reference) for a logit cap.
     """
     if use_flash is None:
-        use_flash = (q.is_cuda and bias is None and mask is None
-                     and logit_cap == 0.0 and q.shape[1] >= 128
-                     and q.shape[-1] % 128 == 0)
+        use_flash = flash_dispatch(q, bias, mask, logit_cap)
     if use_flash:
         if bias is not None or mask is not None or logit_cap > 0:
             raise ValueError("the flash path takes no bias, mask or logit "

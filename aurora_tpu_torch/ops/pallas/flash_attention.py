@@ -209,9 +209,9 @@ def _card_inputs(q, k, v, q_segment_ids, kv_segment_ids):
     if k.shape[0] != B or k.shape[3] != D or T == 0 or k.shape[1] == 0:
         raise ValueError(f"{name}: shapes {tuple(q.shape)} / "
                          f"{tuple(k.shape)} do not match")
-    if D % 16 or D > 128:
+    if D % 16 or (D > 128 and D != 256):
         raise ValueError(f"{name}: the CUDA kernels take head_dim % 16 == 0 "
-                         f"and <= 128, got {D}")
+                         f"up to 128, or 256, got {D}")
     for label, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: {label} must be bfloat16 on the card, "

@@ -370,16 +370,23 @@ def _int_args(name, dev, n, **idx):
     return out
 
 
-def _validate(name, q, k_rows, v_rows, hd_expected=128):
+# head widths the CUDA kernels take: 128 on the wgmma tiles, the others on
+# mma.sync tiles (extend) or wider lanes (decode)
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)
+# query heads a KV head the decode kernel takes (GPT-BigCode's MQA: 48)
+DECODE_MAX_GROUP = 64
+
+
+def _validate(name, q, k_rows, v_rows):
     if k_rows.dim() != 5 or v_rows.shape != k_rows.shape:
         raise ValueError(f"{name}: k_rows/v_rows must be one [L, B, Hkv, S, "
                          f"hd] shape, got {tuple(k_rows.shape)} / "
                          f"{tuple(v_rows.shape)}")
     Hq, hd = q.shape[2], q.shape[3]
     Hkv = k_rows.shape[2]
-    if hd != hd_expected or k_rows.shape[4] != hd:
-        raise ValueError(f"{name}: the CUDA kernel takes head_dim "
-                         f"{hd_expected}, got {hd}")
+    if hd not in KERNEL_HEAD_DIMS or k_rows.shape[4] != hd:
+        raise ValueError(f"{name}: the CUDA kernels take head_dim "
+                         f"{KERNEL_HEAD_DIMS}, got {hd}")
     if Hq % Hkv:
         raise ValueError(f"{name}: Hq={Hq} is not a multiple of Hkv={Hkv}")
 
@@ -519,9 +526,10 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
     Bq, _, Hq, hd = q.shape
     L, B, Hkv, S, _ = k_rows.shape
     S *= 2 if kv_pack else 1          # the kernels take token-space S
-    if Hq // Hkv > 8:
-        raise ValueError(f"{name}: the CUDA kernel takes at most 8 query "
-                         f"heads per KV head, got {Hq // Hkv}")
+    if Hq // Hkv > DECODE_MAX_GROUP:
+        raise ValueError(f"{name}: the CUDA kernel takes at most "
+                         f"{DECODE_MAX_GROUP} query heads per KV head, got "
+                         f"{Hq // Hkv}")
     if k_new.shape != (Bq, Hkv, hd) or v_new.shape != (Bq, Hkv, hd):
         raise ValueError(f"{name}: k_new/v_new must be [{Bq}, {Hkv}, {hd}]")
     idx = _int_args(name, q.device, Bq, kv_lens=kv_lens, row_ids=row_ids,
@@ -542,7 +550,8 @@ def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,
     if nsplit > 1:    # partials of the splits, merged by the last block
         part = torch.empty(Bq * Hkv * nsplit * G * (hd + 2),
                            dtype=torch.float32, device=q.device)
-        tickets = _decode_tickets(q.device, Bq * Hkv)
+        # one ticket per (lane, KV head, block of heads): at most Bq * Hq
+        tickets = _decode_tickets(q.device, Bq * Hq)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_rows.data_ptr(), v_rows.data_ptr())

@@ -1,6 +1,7 @@
-"""Rotary position embeddings, HF-Llama half-split layout
-(aurora_tpu/ops/rope.py), with optional linear position scaling
-(Vicuna-7B-v1.5-16k uses factor 4.0)."""
+"""Rotary position embeddings (aurora_tpu/ops/rope.py): the HF-Llama
+half-split layout or GLM's interleaved pairs, partial rotary (the first
+rd features), and optional linear position scaling (Vicuna-7B-v1.5-16k
+uses factor 4.0)."""
 
 from __future__ import annotations
 
@@ -34,16 +35,38 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+def rotate_interleaved(x: torch.Tensor) -> torch.Tensor:
+    """GLM's pairwise rotation: (x0, x1, x2, x3, ...) → (-x1, x0, -x3, x2,
+    ...)."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    return torch.stack([-x2, x1], dim=-1).reshape(x.shape)
+
+
 def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q, k [B, T, H, D]; cos/sin [B, T, D] or [T, D]. The rotation runs
-    in cos's dtype (fp32) and is cast back to each input's dtype."""
+               sin: torch.Tensor, interleaved: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k [B, T, H, D]; cos/sin [B, T, rd] or [T, rd]. rd < D rotates the
+    first rd features only (partial rotary); interleaved uses GLM's
+    adjacent-pair lanes with the first half of the table repeated
+    pairwise. The rotation runs in cos's dtype (fp32) and is cast back to
+    each input's dtype."""
     if cos.dim() == 2:
         cos, sin = cos[None], sin[None]
     cos = cos[:, :, None, :]
     sin = sin[:, :, None, :]
+    rot = rotate_half
+    if interleaved:
+        half = cos.shape[-1] // 2
+        cos = cos[..., :half].repeat_interleave(2, dim=-1)
+        sin = sin[..., :half].repeat_interleave(2, dim=-1)
+        rot = rotate_interleaved
+    rd = cos.shape[-1]
 
     def one(x):
-        return (x * cos + rotate_half(x) * sin).to(x.dtype)
+        if rd == x.shape[-1]:
+            return (x * cos + rot(x) * sin).to(x.dtype)
+        xr, xp = x[..., :rd], x[..., rd:]
+        return torch.cat([xr * cos + rot(xr) * sin, xp.to(cos.dtype)],
+                         dim=-1).to(x.dtype)
 
     return one(q), one(k)

@@ -66,9 +66,11 @@ extend call, re-tokenized first (token healing: the row is rewound to the
 first token that the canonical tokenization changes); requests that want
 logprobs are not jumped.
 
-Not ported yet (each raises NotImplementedError when asked for): tensor
-parallelism and the other model families (MLA, MoE, Gemma2's alternating
-windows).
+The decoder is the universal dense one (models/llama.py): every dense
+family's knobs act at their sites in `_forward_rows` and `_lm_head`,
+Gemma-2's alternating windows through `layer_window`. Not ported yet
+(each raises NotImplementedError when asked for): tensor parallelism and
+the MoE and MLA families.
 """
 
 from __future__ import annotations
@@ -87,9 +89,10 @@ from torch import nn
 
 from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
                                            W4FusedMLP, W4Linear, W8Linear,
+                                           dnorm, extras_of, layer_attn_out,
                                            layer_mlp, layer_qkv,
-                                           projection_shapes, w4_group)
-from aurora_tpu_torch.ops.norms import family_norm as _norm
+                                           projection_shapes, scale_embeds,
+                                           w4_group)
 from aurora_tpu_torch.ops.pallas.quant_matmul import (INV127, MAX_TOKENS,
                                                       quantize_activations,
                                                       quantize_rows,
@@ -326,26 +329,32 @@ def _w4(w: torch.Tensor):
     return w4_pack(q.reshape(O, D)), s
 
 
+def _share_params(src: nn.Module, dst: nn.Module) -> None:
+    """dst's own parameters (norms, biases, embeddings: not its
+    projections) become src's, shared, not copied."""
+    for name, p in src.named_parameters(recurse=False):
+        setattr(dst, name, p)
+
+
 def _quantize_model(model: LlamaModel, weight_quant: str, quantize,
                     free_source: bool) -> LlamaModel:
     cfg = model.cfg
     fused = hasattr(model.layers[0], "qkv")
     out = LlamaModel(cfg, device="meta", weight_quant=weight_quant,
-                     fused=fused)
-    out.embed_tokens = model.embed_tokens
-    out.final_norm = model.final_norm
+                     fused=fused, extras=extras_of(model))
+    _share_params(model, out)
     for src, dst in zip(model.layers, out.layers):
-        dst.input_norm = src.input_norm
-        dst.post_attn_norm = src.post_attn_norm
+        _share_params(src, dst)
         for name in projection_shapes(cfg, fused):
             setattr(dst, name, quantize(getattr(src, name).weight.detach()))
             if free_source:
                 setattr(src, name, None)
-    out.lm_head = W8Linear(*_w8(model.lm_head.weight.detach()))
+    if not cfg.tie_word_embeddings:     # a tied head stays the embedding
+        out.lm_head = W8Linear(*_w8(model.lm_head.weight.detach()))
+        if free_source:
+            model.lm_head = None
     if hasattr(model, "score"):
         out.score = model.score
-    if free_source:
-        model.lm_head = None
     return out
 
 
@@ -427,13 +436,13 @@ def w4_decode_layout(model: LlamaModel, cfg: LlamaConfig,
            for layer, (mlp, projs) in zip(model.layers, plan)):
         return model
     out = LlamaModel(cfg, device="meta", weight_quant="int4",
-                     fused=hasattr(model.layers[0], "qkv"))
-    out.embed_tokens = model.embed_tokens
-    out.final_norm = model.final_norm
-    out.lm_head = model.lm_head
+                     fused=hasattr(model.layers[0], "qkv"),
+                     extras=extras_of(model))
+    _share_params(model, out)
+    if hasattr(model, "lm_head"):
+        out.lm_head = model.lm_head
     for src, dst, (mlp, projs) in zip(model.layers, out.layers, plan):
-        dst.input_norm = src.input_norm
-        dst.post_attn_norm = src.post_attn_norm
+        _share_params(src, dst)
         for name in [n for n, _ in dst.named_children()]:
             delattr(dst, name)
         for name, proj in projs.items():
@@ -467,9 +476,10 @@ def _cat_out(parts):
 
 
 def fuse_serving_weights(model: LlamaModel) -> LlamaModel:
-    """q/k/v → qkv and gate/up → gateup in every layer, IN PLACE (each
-    layer's sources are dropped as its fused stream is built, so peak
-    memory stays about one model). Returns `model`."""
+    """q/k/v → qkv (their biases → qkv_bias) and gate/up → gateup in
+    every layer, IN PLACE (each layer's sources are dropped as its fused
+    stream is built, so peak memory stays about one model). Returns
+    `model`."""
     for layer in model.layers:
         for fused, names in (("qkv", ("q", "k", "v")),
                              ("gateup", ("gate", "up"))):
@@ -478,6 +488,12 @@ def fuse_serving_weights(model: LlamaModel) -> LlamaModel:
             setattr(layer, fused, _cat_out([getattr(layer, n)
                                             for n in names]))
             for n in names:
+                delattr(layer, n)
+        if getattr(layer, "q_bias", None) is not None:
+            layer.qkv_bias = nn.Parameter(torch.cat(
+                [layer.q_bias, layer.k_bias, layer.v_bias]).detach(),
+                requires_grad=False)
+            for n in ("q_bias", "k_bias", "v_bias"):
                 delattr(layer, n)
     return model
 
@@ -751,35 +767,42 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
     writes (quantizing the token in the kernel, to the same grid) and
     attends in one kernel. Each projection dispatches on its module: W4
     (an extend's through the A8 prefill with a8_prefill), W8 or dense.
-    Both kernels take every
-    layer's sliding window (cfg.sliding_window; Gemma2's alternating
-    layers are not ported) and cfg.attn_logit_softcap, as the reference's
-    `_window(l)` and kernel calls do. Returns the last valid token's final
-    hidden state per lane, [Bk, D].
+    The family knobs act as at the reference's sites (embedding scales,
+    learned positions, biases, q/k norms, partial / interleaved rotary,
+    the output norms, the parallel block, residual scale, norm biases);
+    both kernels take each layer's sliding window (`layer_window`),
+    cfg.attn_scale and cfg.attn_logit_softcap. Returns the last valid
+    token's final hidden state per lane, [Bk, D].
     """
-    x = embeds
+    x = scale_embeds(cfg, embeds)
     Bk, T, _ = x.shape
-    hd = cfg.head_dim
     quant = "ks" in rows
     kv_pack = _is_packed(rows)
     maxq = 7.0 if kv_pack else kv_maxq
     dot = functools.partial(_wdot, a8_prefill=a8_prefill)
     scales = dict(k_scales=rows.get("ks"), v_scales=rows.get("vs"),
-                  kv_pack=kv_pack, window=cfg.sliding_window,
-                  logit_cap=cfg.attn_logit_softcap)
+                  kv_pack=kv_pack, logit_cap=cfg.attn_logit_softcap)
     positions = q_offsets[:, None].long() + torch.arange(T, device=x.device)
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta,
-                            cfg.rope_linear_scaling)
+    cos = sin = None
+    if cfg.learned_pos:             # GPT-BigCode: wpe, no rotary
+        safe = positions.clamp(0, model.wpe.shape[0] - 1)
+        x = x + model.wpe[safe].to(x.dtype)
+    else:
+        cos, sin = rope_cos_sin(positions, cfg.rotary_dim, cfg.rope_theta,
+                                cfg.rope_linear_scaling)
     for l, lp in enumerate(model.layers):
-        h = _norm(cfg, x, lp.input_norm)
+        h = dnorm(cfg, x, lp, "input_norm")
         q, k, v = layer_qkv(cfg, lp, h, dot)
-        q, k = apply_rope(q, k, cos, sin)
+        if not cfg.learned_pos:
+            q, k = apply_rope(q, k, cos, sin,
+                              interleaved=cfg.rope_interleaved)
         layer = layer_ids[l:l + 1]
+        window = layer_window(cfg, l)
         if T == 1:
             attn = ragged_decode_attention(
                 q, k[:, 0], v[:, 0], rows["k"], rows["v"], kv_lens, row_ids,
                 layer=layer, scale=cfg.attn_scale, kv_maxq=maxq,
-                **scales)[0]
+                window=window, **scales)[0]
         else:
             if quant:
                 (k, ks), (v, vs) = (_kv_quantize(k, maxq),
@@ -789,22 +812,51 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
                 _write_kv_window(rows, l, k, v, kv_write)
             attn = ragged_attention(q, rows["k"], rows["v"], kv_lens,
                                     q_offsets, row_ids, layer=layer,
-                                    scale=cfg.attn_scale, **scales)
-        x = x + dot(attn.reshape(Bk, T, -1).to(x.dtype), lp.o)
-        x = x + layer_mlp(cfg, lp, _norm(cfg, x, lp.post_attn_norm), dot)
-    x = _norm(cfg, x, model.final_norm)
+                                    scale=cfg.attn_scale, window=window,
+                                    **scales)
+        attn = layer_attn_out(cfg, lp, attn.reshape(Bk, T, -1).to(x.dtype),
+                              dot)
+        if cfg.parallel_block:      # Cohere: x + attn + mlp(the same h)
+            x = x + attn + layer_mlp(cfg, lp, h, dot)
+        else:
+            x = x + attn
+            x = x + layer_mlp(cfg, lp, dnorm(cfg, x, lp, "post_attn_norm"),
+                              dot)
+    x = dnorm(cfg, x, model, "final_norm")
     last = (kv_lens.long() - q_offsets.long() - 1).clamp(0, T - 1)
     return x[torch.arange(Bk, device=x.device), last]
 
 
+def layer_window(cfg: LlamaConfig, l: int) -> int:
+    """Layer l's sliding window for both kernels (0: off): Gemma-2's
+    alternate (even layers slide, odd ones are global), Mistral's is in
+    every layer (the reference's `_window(l)`)."""
+    if cfg.swa_every_other:
+        return (cfg.sliding_window or 0) if l % 2 == 0 else 0
+    return cfg.sliding_window or 0
+
+
 def _lm_head(model: LlamaModel, x) -> torch.Tensor:
-    """Logits in fp32. A dense head runs in the weights' dtype; the int8
-    head (W4 and W8 models) runs W8A8: per-token int8 activations, an
-    int32 matmul (torch._int_mm), then both scales."""
-    head = model.lm_head
-    if not isinstance(head, W8Linear):
-        return torch.nn.functional.linear(x, head.weight).float()
-    return _int8_linear(*quantize_activations(x), head.weight, head.scale)
+    """Logits in fp32. A dense or tied head runs in the weights' dtype;
+    the int8 head (W4 and W8 models) runs W8A8: per-token int8
+    activations, an int32 matmul (torch._int_mm), then both scales. Then
+    Gemma-2's final softcap c · tanh(logits · fp32(1 / c)) and the
+    Cohere / MiniCPM logit scale."""
+    cfg = model.cfg
+    if cfg.tie_word_embeddings:
+        logits = torch.nn.functional.linear(x, model.embed_tokens).float()
+    elif isinstance(model.lm_head, W8Linear):
+        head = model.lm_head
+        logits = _int8_linear(*quantize_activations(x), head.weight,
+                              head.scale)
+    else:
+        logits = torch.nn.functional.linear(x, model.lm_head.weight).float()
+    if cfg.final_logit_softcap > 0:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits * float(np.float32(1) / np.float32(c)))
+    if cfg.logit_scale is not None:
+        logits = logits * cfg.logit_scale
+    return logits
 
 
 def _sample_core(logits, counts, seen, samp, allowed, generator,

@@ -15,10 +15,7 @@ import torch
 
 from aurora_tpu_torch.data.text import auto_tokenizer
 from aurora_tpu_torch.generate.sampler import SamplingParams
-from aurora_tpu_torch.models.convert import (_read_config,
-                                             llama_config_from_hf,
-                                             llama_params_from_hf,
-                                             load_torch_state_dict)
+from aurora_tpu_torch.models.convert import load_serving_dir
 from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
 from aurora_tpu_torch.serve.fsm import RegexConstraint
 from aurora_tpu_torch.serve.scheduler import Request
@@ -27,19 +24,17 @@ from aurora_tpu_torch.serve.scheduler import Request
 class Runtime:
     """Synchronous in-process generation over the serving engine.
 
-    model_path: a HF llama directory, loaded on the card unless `device`
-    says otherwise (models/convert.py), with its tokenizer through
-    transformers."""
+    model_path: a HF directory of a dense family or Gemma-2, loaded on the
+    card unless `device` says otherwise (models/convert.py
+    `load_serving_dir`), with its tokenizer through transformers."""
 
     def __init__(self, model=None, cfg=None, tokenizer=None, *,
                  model_path: Optional[str] = None,
                  engine_config: Optional[EngineConfig] = None,
                  dtype=None, embed_fn=None, device=None):
         if model_path is not None:
-            cfg = llama_config_from_hf(_read_config(model_path))
-            model = llama_params_from_hf(load_torch_state_dict(model_path),
-                                         cfg, dtype or torch.bfloat16,
-                                         device)
+            model, cfg = load_serving_dir(model_path,
+                                          dtype or torch.bfloat16, device)
             tokenizer = auto_tokenizer(model_path)
         if model is None or cfg is None:
             raise ValueError("Runtime needs a model and its config, or "

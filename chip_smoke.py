@@ -3,16 +3,16 @@
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-AuroraCap-7B caption serving at full published widths with random bf16
-weights (seeded): uint8 frames → CLIP normalize → ViT-H/14 with ToMe →
+AuroraCap-7B caption serving at full published widths (AURORA_LAYERS of
+the LLM's 32 layers) with random bf16 weights (seeded): uint8 frames → CLIP normalize → ViT-H/14 with ToMe →
 projector → fusion → one batched extend → 256-token greedy decode via
 `aurora_tpu_torch.serve.engine.ServeEngine`, first with bf16 weights and
 bf16 KV, then with the LLM quantized on the card to W8 weights and int8
 KV, to W4 weights and int8 KV, and (the same W4 weights) nibble-packed
 int4 KV, then int8 KV again with the W4 weights in the fused-MLP and in
 the flat layout; both quantized models keep an int8 LM head. Then
-Mistral-7B at full widths and depth (random bf16 weights) serving prompts
-longer than its 4096-token sliding window with bf16, int8 and packed int4
+Mistral-7B at full widths (MISTRAL_LAYERS layers; random bf16 weights)
+serving prompts longer than its 4096-token sliding window with bf16, int8 and packed int4
 KV, so that the window runs through both attention kernels. Then the
 training step of bench.py's training stage
 (`aurora_tpu_torch.train.trainer.make_train_step`): Vicuna-7B widths at
@@ -237,11 +237,12 @@ Phases, one line each; any failure raises and exits non-zero:
                    to their run alone up to a near tie; decode ms a step
                    with masks and without; no leak, no twin
     serve-mistral-bf16 / -kv8 / -kv4 — the AuroraCap weights freed,
-                   Mistral-7B (32 layers, GQA 32/8, window 4096, random
-                   bf16 weights) serves 4 prompts of 5,000-6,100 random
-                   token ids in one extend wave, then 256 (bf16 KV) or
-                   64 (int8, packed int4 KV) greedy tokens each; the
-                   windowed launch counts must be 32 a wave and 32 a
+                   Mistral-7B (MISTRAL_LAYERS of its 32 layers, GQA 32/8,
+                   window 4096, random bf16 weights) serves 4 prompts of
+                   5,000-6,100 random token ids in one extend wave, then
+                   256 (bf16 KV) or 64 (int8, packed int4 KV) greedy
+                   tokens each; the windowed launch counts must be one a
+                   layer a wave and one a layer a
                    decode step, the plain twins' 0
     logits-mistral-* — as 10 (extend wave and one decode step), with
                    its bound's reason
@@ -270,14 +271,35 @@ Phases, one line each; any failure raises and exits non-zero:
    flash entries' launches_train_cli from the train-cli phases), then
    {"ok": true, "device": {...}} last.
 
+Then the dense zoo: `[kernels]` also holds both attention
+kernels at the zoo's published (head_dim, G) in every KV mode
+(FAMILY_SHAPES: Gemma-2-9B 256/2, Phi-3-mini 96/1, MiniCPM-2B 64/1,
+StarCoder2-7B 128/9, GLM-4-9B 128/16, StarCoder 128/48) and flash
+forward and backward at D 256 (gemma-7b's 16 heads, T 2048) against
+their twins, timed beside SDPA; after the Mistral runs,
+`[serve-gemma2-*]` serves Gemma-2-9B at full width and depth (random
+bf16 weights, 4 prompts of 5,000-6,000 ids, 64 greedy tokens) with bf16
+KV twice (bit for bit), int8 KV, packed int4 KV and W4 weights + int8
+KV, each with its launch counts and a logits check of one extend wave
+and one decode step against the twins, and `[serve-qwen2-*]` Qwen2-7B
+(4 layers, qkv biases, G 7) with W8 and W4 weights + int8 KV; after
+`[train-parity]`, `[train-dpo]` takes 3 DPO steps (train/preference.py)
+at Vicuna-7B widths (2 layers, 4 unmasked pairs of 2048 tokens) twice,
+losses bit for bit, and `[train-dpo-gemma]` 2 steps at gemma-7b's widths
+(head_dim 256, 1 layer), both through the flash kernels. Every phase
+line ends with at_s, the seconds since the script started.
+
 `python3 chip_smoke.py --only train-cli` runs infer-load and the four
-train-cli phases alone (no kernel JSON line, no final line).
+train-cli phases alone; `--only kernels`, `--only serve-gemma2` (the
+Gemma-2 and Qwen2 runs) and `--only train-dpo` the new phases (no kernel
+JSON line, no final line); `--only` repeats.
 
 float32 references run with TF32 disabled for matmuls and cuDNN
 convolutions, so they are true fp32.
 """
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -290,6 +312,11 @@ from unittest import mock
 import numpy as np
 
 SEED = 0
+# LLM depth of the AuroraCap-7B serving path and of Mistral-7B: 16 of
+# their 32 layers at full width, so that the script, the zoo's runs
+# included, stays within about 500 s on an H100
+AURORA_LAYERS = 16
+MISTRAL_LAYERS = 16
 KEPT_RATIO = 0.2          # the bench's AuroraCap-7B setting: 171 tokens/frame
 N_FRAMES = 8
 N_REQUESTS = 4
@@ -361,7 +388,7 @@ MISTRAL_RUNS = (("bf16", "none", "launches", 256),
 # 3.98e-2 / 3.23e-2; the bound sits at 2.3-2.8x the extend readings
 MISTRAL_LOGITS_TOL = {"bf16": 1.5e-1, "kv8": 1.5e-1, "kv4": 1.5e-1}
 MISTRAL_LOGITS_REASON = {
-    "bf16": "32 random bf16 layers amplify single bf16 roundings",
+    "bf16": "random bf16 layers amplify single bf16 roundings",
     "kv8": "as bf16, and a rounding can flip an int8 KV code",
     "kv4": "as bf16, and a rounding can flip an int4 KV code (15 levels)"}
 # window and cap cases of the attention kernels at the serving shapes: a
@@ -374,6 +401,48 @@ SERVING_OPTIONS = (dict(window=512), dict(logit_cap=50.0, q_gain=8.0),
 MISTRAL_CASE = dict(S=7168, T=6144, offs=(0, 0, 0, 0),
                     lens=(6144, 6100, 5000, 0), dlens=(7168, 4097, 0, 5000),
                     window=4096)
+# the dense zoo's (head_dim, Hq, Hkv) at their published configs, for
+# both attention kernels in every KV mode beside the serving shapes
+# (L 4 layers of rows: the kernels read one layer)
+FAMILY_SHAPES = (("gemma2-9b", 256, 16, 8), ("phi3-mini", 96, 32, 32),
+                 ("minicpm-2b", 64, 36, 36), ("starcoder2-7b", 128, 36, 4),
+                 ("glm-4-9b", 128, 32, 2), ("starcoder", 128, 48, 1))
+FAMILY_L = 4
+# flash at D 256: google/gemma-7b's 16 heads at T 2048
+FLASH_D256 = dict(B=2, T=2048, H=16, Hkv=16, D=256)
+# Gemma-2-9B served at full width and depth: prompts past its window of
+# 4096 (so that the alternation of windowed and global layers matters)
+GEMMA2_PROMPT = (5000, 6000)
+GEMMA2_MAX_NEW = 64
+GEMMA2_RUNS = (("bf16", "none", "none", "launches"),
+               ("bf16-again", "none", "none", "launches"),
+               ("kv8", "none", "int8", "launches_int8"),
+               ("kv4", "none", "int4", "launches_int4"),
+               ("w4kv8", "int4", "int8", "launches_int8"))
+GEMMA2_LOGITS_TOL = 1.5e-1    # Mistral's bound; 42 layers and two caps
+GEMMA2_LOGITS_REASON = ("42 random bf16 layers amplify single bf16 "
+                        "roundings (Mistral's bound)")
+# Qwen2-7B at its widths, 4 layers: qkv biases drawn N(0, 1) so that they
+# act, G 7, rope theta 1e6
+QWEN2_LAYERS = 4
+QWEN2_RUNS = (("w8kv8", "int8", "int8"), ("w4kv8", "int4", "int8"))
+# the AuroraCap runs' bounds: the same per-token requantization
+QWEN2_LOGITS_TOL = {"w8kv8": LOGITS_W8_REL_TOL, "w4kv8": LOGITS_W4_REL_TOL}
+# DPO at Vicuna-7B widths, 2 layers: 4 unmasked pairs of 2048 tokens (the
+# first 512 of each the prompt), 3 steps, twice from the same weights
+DPO_LAYERS = 2
+DPO_PAIRS = 4
+DPO_SEQ = 2048
+DPO_PROMPT = 512
+DPO_STEPS = 3
+# the same step over google/gemma-7b's widths (head_dim 256: the D 256
+# flash kernels), one layer, one pair, one step
+GEMMA7B = dict(vocab_size=256000, hidden_size=3072, intermediate_size=24576,
+               num_attention_heads=16, num_key_value_heads=16,
+               head_dim_override=256, rms_norm_eps=1e-6,
+               max_position_embeddings=8192, tie_word_embeddings=True,
+               hidden_act="gelu_tanh", scale_embeddings=True,
+               norm_upcast_mul=True)
 KV_MODES = ("bf16", "int8", "int4")
 # decode lengths on the decode kernel's split boundaries (splits of 256
 # keys) at the serving shape, lane 2 inactive as in every case: the new
@@ -530,7 +599,13 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name, **fields):
+    """One line of a phase; at_s: seconds since the script started (where
+    the run's time goes)."""
+    fields["at_s"] = f"{time.perf_counter() - _T0:.1f}"
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -643,7 +718,7 @@ class ByteTokenizer:
 def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
                    offs=(0, 256, 0, 0), lens=(1392, 256 + 1400, 1536, 0),
                    dlens=(1648, 700, 0, 1), window=None, logit_cap=0.0,
-                   q_gain=1.0):
+                   q_gain=1.0, hd=128, Hq=32, family=None):
     """Both attention kernels vs their plain twins at the serving shapes
     (L = 32, S = 1792, hd = 128) or at Mistral's (S = 7168), with bf16 KV,
     int8 KV on the kv_quantize grid, int8 KV on the maxq-7 grid
@@ -658,9 +733,10 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     changes. The library call (bf16 KV, no cap) is one
     F.scaled_dot_product_attention over the lanes' rows, gathered (and
     for GQA repeated to Hq heads) beforehand, with a boolean mask; for a
-    windowed decode over each lane's last `window` keys only."""
+    windowed decode over each lane's last `window` keys only. hd, Hq:
+    the zoo's other head widths and groups (FAMILY_SHAPES)."""
     import torch.nn.functional as F
-    B, hd, Hq = 4, 128, 32
+    B = 4
     w = window or 0
     opts = dict(window=window, logit_cap=logit_cap)
     bf = dict(device=dev, dtype=torch.bfloat16)
@@ -698,6 +774,8 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     spos = torch.arange(S, device=dev)
     tag = dict(kv=mode, hkv=hkv, S=S, T=T, window=w, cap=logit_cap,
                dlens=",".join(map(str, dlens)))
+    if family:
+        tag.update(family=family, hd=hd, Hq=Hq)
 
     q = q_gain * torch.randn((B, T, Hq, hd), generator=g, **bf)
     offs_t = torch.tensor(offs, **i32)
@@ -770,7 +848,7 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     qd = q_gain * torch.randn((B, 1, Hq, hd), generator=g, **bf)
     kn = torch.randn((B, hkv, hd), generator=g, **bf)
     vn = torch.randn((B, hkv, hd), generator=g, **bf)
-    vn[3, 1] = 0                          # an all-zero token: the 1e-8 floor
+    vn[3, min(1, hkv - 1)] = 0        # an all-zero token: the 1e-8 floor
     dlens_t = torch.tensor(dlens, **i32)
     state = [k, v] + [kv[n] for n in ("k_scales", "v_scales") if n in kv]
     plain = [t.clone() for t in state]
@@ -1249,14 +1327,15 @@ def quantize_phase(torch, qm, dev, shapes=W4_SHAPES, B=4):
 
 
 def flash_case(torch, fa, dev, g, B, T, H, Hkv, q_offset=0,
-               segments=False, with_lse=False, timed=False):
+               segments=False, with_lse=False, timed=False, D=128):
     """The flash kernels vs the fp32 twin on one seeded case (causal, D =
-    128): out, lse, and dQ/dK/dV from one backward with a random dO (and
-    a random lse cotangent with with_lse); a second backward must agree
-    bitwise → errors, and with timed (H == Hkv, no segments) the kernels',
-    the twin's and SDPA's times and the three kernels' bounds."""
+    128, or 256: the mma.sync kernels): out, lse, and dQ/dK/dV from one
+    backward with a random dO (and a random lse cotangent with
+    with_lse); a second backward must agree bitwise → errors, and with
+    timed (H == Hkv, no segments) the kernels', the twin's and SDPA's
+    times and the three kernels' bounds."""
     import torch.nn.functional as F
-    D, S = 128, T + q_offset
+    S = T + q_offset
     bf = dict(device=dev, dtype=torch.bfloat16)
     q = torch.randn((B, T, H, D), generator=g, **bf)
     k = torch.randn((B, S, Hkv, D), generator=g, **bf)
@@ -1616,7 +1695,8 @@ def logits_check(torch, engine_mod, runner, embed, reqs, tol, name, plain,
 
 
 def mistral_phase(torch, engine_mod, ra, dev, card, plains):
-    """Mistral-7B at its published widths and depth, random bf16 weights
+    """Mistral-7B at its published widths (MISTRAL_LAYERS of its 32
+    layers), random bf16 weights
     from the seed, serving N_REQUESTS prompts of MISTRAL_PROMPT random
     token ids (all longer than the 4096-token window, so the window masks
     real keys in every extend wave and decode step) through ServeEngine
@@ -1627,7 +1707,8 @@ def mistral_phase(torch, engine_mod, ra, dev, card, plains):
     from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
     from aurora_tpu_torch.serve.scheduler import Request
-    cfg = LlamaConfig.mistral_7b()
+    cfg = dataclasses.replace(LlamaConfig.mistral_7b(),
+                              num_hidden_layers=MISTRAL_LAYERS)
     L, w = cfg.num_hidden_layers, cfg.sliding_window
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     torch.cuda.synchronize()
@@ -3840,13 +3921,334 @@ def train_cli_phases(torch, model_dir, dev, card, counters, plains):
     return launches
 
 
+def family_kernel_phase(torch, ra, fa, dev):
+    """[kernels] at the zoo's published shapes (FAMILY_SHAPES): both
+    attention kernels in every KV mode against their twins, timed beside
+    SDPA (bf16); then flash forward and backward at D 256 (google/
+    gemma-7b's heads) timed, and a D 256 case with GQA, segments and a
+    q_offset → ({(family, mode): attention_case's result}, flash timed
+    result, flash errors)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    res = {}
+    for fam, hd, Hq, hkv in FAMILY_SHAPES:
+        for mode in KV_MODES:
+            res[(fam, mode)] = attention_case(torch, ra, dev, g, hkv, mode,
+                                              L=FAMILY_L, hd=hd, Hq=Hq,
+                                              family=fam)
+    fl = FLASH_D256
+    timed = flash_case(torch, fa, dev, g, fl["B"], fl["T"], fl["H"],
+                       fl["Hkv"], timed=True, D=fl["D"])
+    other = flash_case(torch, fa, dev, g, 2, 384, 8, 4, q_offset=128,
+                       segments=True, D=fl["D"])
+    return res, timed, [timed, other]
+
+
+def gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains):
+    """Gemma-2-9B at full width and depth (models/gemma2.py's preset, a
+    copy of google/gemma-2-9b's config), random bf16 weights from the
+    seed, through `gemma2_serving_config` / `gemma2_serving_params` and
+    ServeEngine: N_REQUESTS prompts of GEMMA2_PROMPT random ids in one
+    wave, GEMMA2_MAX_NEW greedy tokens, with bf16 KV (twice: the second
+    run's tokens and logprobs must equal the first's bit for bit), int8
+    KV, packed int4 KV, and W4 weights + int8 KV. Each run: the ragged
+    kernels' launch counts (every layer a wave and a decode step; the
+    twins 0), the W4 run's W4A8 launches (4 a layer a decode step), and
+    the logits of one extend wave and one decode step against the same
+    engine on the plain twins → {run: launch counts}."""
+    from aurora_tpu_torch.models.gemma2 import (Gemma2Config,
+                                                gemma2_serving_params,
+                                                init_gemma2)
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    gcfg = Gemma2Config.gemma2_9b()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    llm = gemma2_serving_params(init_gemma2(gcfg, gen, device=dev,
+                                            dtype=torch.bfloat16),
+                                free_source=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = llm.cfg
+    L = cfg.num_hidden_layers
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in llm.parameters()) / 1e9
+    rng = np.random.default_rng(SEED + 12)
+    plens = rng.integers(GEMMA2_PROMPT[0], GEMMA2_PROMPT[1] + 1,
+                         size=N_REQUESTS)
+    check(plens.min() > cfg.sliding_window,
+          f"prompts {plens} within the window {cfg.sliding_window}")
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in plens]
+    attn_plain = {"ragged_attention": ra.ragged_attention_plain,
+                  "ragged_decode_attention": ra.ragged_decode_attention_plain}
+    out, first = {}, None
+    models = {"none": llm}
+    for run, weight_quant, kv_quant, counter in GEMMA2_RUNS:
+        if weight_quant not in models:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            models[weight_quant] = engine_mod.fuse_serving_weights(
+                engine_mod.quantize_weights_int4(llm))
+            torch.cuda.synchronize()
+            phase("quantize-gemma2", seconds=f"{time.perf_counter() - t0:.2f}")
+        model = models[weight_quant]
+        ecfg = EngineConfig(max_batch=N_REQUESTS, max_seq_len=6200,
+                            kv_chunk=1024, prefill_buckets=(6144,),
+                            decode_steps=16, kv_quant=kv_quant,
+                            weight_quant=weight_quant,
+                            disable_radix_cache=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(model, cfg, ecfg, device=dev, seed=SEED)
+        counters = [(ra.ragged_attention, counter),
+                    (ra.ragged_decode_attention, counter),
+                    (ra.ragged_attention, "launches_window"),
+                    (ra.ragged_decode_attention, "launches_window"),
+                    (qm.w4a8_matmul_tiled, "launches")] + plains
+        reqs = [Request(rid=f"g{i}", input_ids=list(p),
+                        max_new_tokens=GEMMA2_MAX_NEW, eos_ids=(),
+                        logprobs=True)
+                for i, p in enumerate(prompts)]
+        wall, counts = serve(torch, engine, reqs, counters, GEMMA2_MAX_NEW)
+        ext, dec, ext_w, dec_w, w4 = (counts[f"{f.__name__}.{a}"]
+                                      for f, a in counters[:5])
+        steps = engine._steps
+        phase("serve-gemma2-" + run, card=repr(card),
+              config=f"gemma-2-9b/L{L}/hd{cfg.head_dim}/window"
+                     f"{cfg.sliding_window}-even-layers/caps"
+                     f"{cfg.attn_logit_softcap:g},{cfg.final_logit_softcap:g}"
+                     f"/weights-{weight_quant}/kv-{kv_quant}",
+              requests=N_REQUESTS,
+              prompt_tokens=",".join(str(int(n)) for n in plens),
+              new_tokens=GEMMA2_MAX_NEW, init_s=f"{init_s:.1f}",
+              weight_gb=f"{weight_gb:.2f}",
+              extend_s=f"{engine.t_extend_s:.4f}",
+              decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+              decode_steps=steps,
+              tokens_per_s=f"{N_REQUESTS * GEMMA2_MAX_NEW / wall:.1f}",
+              wall_s=f"{wall:.2f}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              launches=json.dumps(counts).replace(" ", ""))
+        # the cap is on in every layer, so every launch counts as windowed
+        check(ext > 0 and dec > 0 and ext == ext_w and dec == dec_w
+              and ext % L == 0 and dec == L * steps,
+              f"{run}: ragged launches {counts}, steps {steps}")
+        check((w4 == 4 * L * steps) if weight_quant == "int4" else w4 == 0,
+              f"{run}: W4A8 launches {w4}, steps {steps}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"plain twins ran: {counts}")
+        got = [(r.output_ids, [lp for lp in r.output_logprobs])
+               for r in reqs]
+        if run == "bf16":
+            first = got
+        elif run == "bf16-again":
+            check(got == first, "two bf16 Gemma-2 runs differ")
+            phase("serve-gemma2-repeat", bitwise_equal=True,
+                  tokens=N_REQUESTS * GEMMA2_MAX_NEW)
+        if run != "bf16-again":
+            plain = dict(attn_plain)
+            if weight_quant == "int4":
+                plain["w4a8_matmul_tiled"] = qm.w4a8_matmul_tiled_plain
+            logits_check(torch, engine_mod, engine.runner,
+                         lambda r: model.embed_tokens[
+                             torch.tensor(r.input_ids, device=dev)],
+                         reqs, GEMMA2_LOGITS_TOL, "logits-gemma2-" + run,
+                         plain, decode=True, decode_tol=GEMMA2_LOGITS_TOL,
+                         reason=GEMMA2_LOGITS_REASON)
+        out[run] = (ext, dec, w4)
+        del engine
+        gc.collect()
+    del llm, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen2_phase(torch, engine_mod, ra, qm, dev, card, plains):
+    """Qwen2-7B (LlamaConfig.qwen2_7b, Qwen/Qwen2-7B-Instruct's config) at
+    its widths and QWEN2_LAYERS layers, random bf16 weights and qkv
+    biases from the seed: W8 weights + int8 KV, then W4 weights + int8
+    KV, N_REQUESTS prompts of GEMMA2_PROMPT random ids, GEMMA2_MAX_NEW
+    greedy tokens; launch counts and the logits of one extend wave and
+    one decode step against the plain twins → {run: launch counts}."""
+    import dataclasses as dc
+
+    from aurora_tpu_torch.models.init import build
+    from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    cfg = dc.replace(LlamaConfig.qwen2_7b(), num_hidden_layers=QWEN2_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    llm = build(LlamaModel, cfg, device=dev, dtype=torch.bfloat16,
+                generator=gen)
+    with torch.no_grad():
+        for n, p in llm.named_parameters():
+            if n.endswith(("q_bias", "k_bias", "v_bias")):
+                p.normal_(0.0, 1.0, generator=gen)
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED + 13)
+    plens = rng.integers(GEMMA2_PROMPT[0], GEMMA2_PROMPT[1] + 1,
+                         size=N_REQUESTS)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in plens]
+    kernel = {"int8": (qm.w8a8_matmul, qm.w8a8_matmul_plain, "w8a8_matmul"),
+              "int4": (qm.w4a8_matmul_tiled, qm.w4a8_matmul_tiled_plain,
+                       "w4a8_matmul_tiled")}
+    out = {}
+    for run, weight_quant, kv_quant in QWEN2_RUNS:
+        quant = (engine_mod.quantize_weights_int8 if weight_quant == "int8"
+                 else engine_mod.quantize_weights_int4)
+        model = engine_mod.fuse_serving_weights(quant(llm))
+        wk, wplain, wname = kernel[weight_quant]
+        ecfg = EngineConfig(max_batch=N_REQUESTS, max_seq_len=6200,
+                            kv_chunk=1024, prefill_buckets=(6144,),
+                            decode_steps=16, kv_quant=kv_quant,
+                            weight_quant=weight_quant,
+                            disable_radix_cache=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(model, cfg, ecfg, device=dev, seed=SEED)
+        counters = [(ra.ragged_attention, "launches_int8"),
+                    (ra.ragged_decode_attention, "launches_int8"),
+                    (wk, "launches")] + plains
+        reqs = [Request(rid=f"q{i}", input_ids=list(p),
+                        max_new_tokens=GEMMA2_MAX_NEW, eos_ids=())
+                for i, p in enumerate(prompts)]
+        wall, counts = serve(torch, engine, reqs, counters, GEMMA2_MAX_NEW)
+        ext, dec, wl = (counts[f"{f.__name__}.{a}"] for f, a in counters[:3])
+        steps = engine._steps
+        phase("serve-qwen2-" + run, card=repr(card),
+              config=f"qwen2-7b/L{L}/G{cfg.num_attention_heads // cfg.num_key_value_heads}"
+                     f"/qkv-bias/theta{cfg.rope_theta:g}"
+                     f"/weights-{weight_quant}/kv-{kv_quant}",
+              requests=N_REQUESTS,
+              prompt_tokens=",".join(str(int(n)) for n in plens),
+              new_tokens=GEMMA2_MAX_NEW, extend_s=f"{engine.t_extend_s:.4f}",
+              decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+              decode_steps=steps, wall_s=f"{wall:.2f}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              launches=json.dumps(counts).replace(" ", ""))
+        check(ext == L and dec == L * steps and wl > 0,
+              f"{run}: launches {counts}, steps {steps}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"plain twins ran: {counts}")
+        logits_check(torch, engine_mod, engine.runner,
+                     lambda r: model.embed_tokens[
+                         torch.tensor(r.input_ids, device=dev)],
+                     reqs, QWEN2_LOGITS_TOL[run], "logits-qwen2-" + run,
+                     {"ragged_attention": ra.ragged_attention_plain,
+                      "ragged_decode_attention":
+                          ra.ragged_decode_attention_plain, wname: wplain},
+                     decode=True)
+        out[run] = (ext, dec, wl)
+        del engine, model
+        gc.collect()
+    del llm
+    torch.cuda.empty_cache()
+    return out
+
+
+def dpo_phase(torch, fa, dev, card, counters, plains, gemma=False):
+    """train/preference.py's `make_dpo_step` at Vicuna-7B widths and
+    DPO_LAYERS layers, policy and reference (a copy of the policy's
+    initial weights) on the card: DPO_PAIRS unmasked pairs of DPO_SEQ
+    tokens, DPO_STEPS steps with the port's Optimizer (clip → AdamW),
+    twice from the same weights; the losses repeat bit for bit, the
+    flash kernels' forward and backward launch, the twins do not →
+    (fwd, dkv, dq) launches of the first run. gemma: google/gemma-7b's
+    widths instead (GEMMA7B: head_dim 256, the D 256 kernels), one layer,
+    one pair, two steps ([train-dpo-gemma])."""
+    import dataclasses as dc
+
+    from aurora_tpu_torch.models.init import build
+    from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from aurora_tpu_torch.train.preference import make_dpo_step
+    from aurora_tpu_torch.train.trainer import Optimizer, TrainConfig
+    pairs, steps, name = DPO_PAIRS, DPO_STEPS, "train-dpo"
+    cfg = dc.replace(LlamaConfig.vicuna_7b_v15_16k(),
+                     num_hidden_layers=DPO_LAYERS)
+    if gemma:
+        pairs, steps, name = 1, 2, "train-dpo-gemma"
+        cfg = LlamaConfig(num_hidden_layers=1, **GEMMA7B)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    policy = build(LlamaModel, cfg, device=dev, dtype=torch.bfloat16,
+                   generator=gen)
+    init = {k: v.clone() for k, v in policy.state_dict().items()}
+    ref = build(LlamaModel, cfg, device=dev, dtype=torch.bfloat16,
+                generator=gen)
+    ref.load_state_dict(init)
+    ref.requires_grad_(False)
+    rng = np.random.default_rng(SEED + 14)
+    batch = {}
+    for side in ("chosen", "rejected"):
+        ids = rng.integers(3, cfg.vocab_size, size=(pairs, DPO_SEQ))
+        labels = ids.copy()
+        labels[:, :DPO_PROMPT] = -100
+        batch[side + "_ids"] = torch.tensor(ids, device=dev)
+        batch[side + "_labels"] = torch.tensor(labels, device=dev)
+    # lr 1e-7: one AdamW step moves the log-probs of 1,536 scored tokens
+    # enough that lr 1e-5 drove the loss to 4e-14 at the second step
+    tcfg = TrainConfig(lr=1e-7, max_steps=10, warmup_ratio=0.0,
+                       freeze_llm=False)
+    runs = []
+    for rep in range(2):
+        policy.load_state_dict(init)
+        opt = Optimizer(policy, tcfg)
+        state = opt.init(policy)
+        step = make_dpo_step(cfg, ref, opt, beta=0.1)
+        torch.cuda.reset_peak_memory_stats()
+        for obj, attr in counters + plains:
+            setattr(obj, attr, 0)
+        losses, times = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = step(policy, state, batch)
+            losses.append(m["loss"].item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(np.isfinite(losses[-1]), f"dpo loss {losses[-1]}")
+        counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+                  for obj, attr in counters + plains}
+        runs.append((losses, counts))
+        phase(name, card=repr(card), run=rep,
+              config=("gemma-7b" if gemma else "vicuna-7b")
+              + f"-widths/L{cfg.num_hidden_layers}/hd{cfg.head_dim}/"
+                f"pairs{pairs}/seq{DPO_SEQ}/bf16/adamw/unmasked",
+              step_ms=",".join(f"{t * 1e3:.1f}" for t in times),
+              losses=",".join(repr(x) for x in losses),
+              reward_acc=f"{m['reward_acc'].item():.3f}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              launches=json.dumps(counts).replace(" ", ""))
+        fwd, dkv, dq = (counts[f"{obj.__name__}.{attr}"]
+                        for obj, attr in counters)
+        check(fwd > 0 and dkv > 0 and dq > 0,
+              f"{name} flash launches {counts}")
+        check(all(counts[f"{obj.__name__}.{attr}"] == 0
+                  for obj, attr in plains), f"plain twins ran: {counts}")
+    check(runs[0][0] == runs[1][0],
+          f"{name} losses do not repeat: {runs[0][0]} / {runs[1][0]}")
+    del policy, ref, init, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tuple(runs[0][1][f"{obj.__name__}.{attr}"]
+                 for obj, attr in counters)
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port's main paths "
                                  "on one NVIDIA GPU (module docstring)")
-    ap.add_argument("--only", choices=["train-cli"], default=None,
-                    help="run [infer-load] and these phases alone (no "
-                         "kernel JSON line, no final line)")
+    ap.add_argument("--only", action="append",
+                    choices=["train-cli", "kernels", "serve-gemma2",
+                             "train-dpo"],
+                    help="run these phases alone, in the script's order "
+                         "(train-cli: [infer-load] and the four train-cli "
+                         "phases; kernels: [build] and every [kernels] "
+                         "case; serve-gemma2: the Gemma-2-9B and Qwen2-7B "
+                         "runs; train-dpo: both DPO phases); no kernel "
+                         "JSON line, no final line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3886,13 +4288,27 @@ def main(argv=None):
                   (qm.w4a16_matmul_plain, "calls"),
                   (qm.fused_mlp_w4_plain, "calls"),
                   (fa.flash_attention_plain, "calls")]
-    if args.only == "train-cli":
+    only = set(args.only or ())
+    if "train-cli" in only:
         root = infer_load_phase(torch, dev, card)
         try:
             train_cli_phases(torch, root, dev, card, flash_counters,
                              all_plains)
         finally:
             shutil.rmtree(root, ignore_errors=True)
+    if only - {"train-cli"}:
+        plains = all_plains[:-1]
+        if "kernels" in only:
+            cuda_build.load_library()
+            family_kernel_phase(torch, ra, fa, dev)
+        if "serve-gemma2" in only:
+            gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains)
+            qwen2_phase(torch, engine_mod, ra, qm, dev, card, plains)
+        if "train-dpo" in only:
+            dpo_phase(torch, fa, dev, card, flash_counters, all_plains)
+            dpo_phase(torch, fa, dev, card, flash_counters, all_plains,
+                      gemma=True)
+    if only:
         return 0
 
     t0 = time.perf_counter()
@@ -3902,6 +4318,13 @@ def main(argv=None):
                        *(f"ragged_extend_{m}" for m in KV_MODES),
                        *(f"ragged_decode_{m}_g{g}" for m in KV_MODES
                          for g in (1, 4)),
+                       "flash_fwd_d256", "flash_bwd_dkv_d256",
+                       "flash_bwd_dq_d256",
+                       *(f"ragged_extend_{m}_hd{h}" for m in KV_MODES
+                         for h in (64, 96, 256)),
+                       *(f"ragged_decode_{m}_g{g}_hd{h}" for m in KV_MODES
+                         for g, h in ((1, 64), (1, 96), (2, 256),
+                                      (8, 128))),
                        *(f"{k}_b{b}" for k in ("w8a8", "w4a16", "w4a8",
                                                 "w4a8_flat", "fused_mlp")
                          for b in (8, 64)))}
@@ -3948,6 +4371,9 @@ def main(argv=None):
                    segments=True),
         flash_case(torch, fa, dev, g, 2, 1024, 32, 8, with_lse=True)]
     flash_t = flash_res[0]
+    # the zoo's head widths and groups, and flash at D 256
+    fam_res, flash256_t, flash256_res = family_kernel_phase(torch, ra, fa,
+                                                            dev)
 
     # ---- checkpoint loading from an xtuner-format directory --------------
     torch.cuda.empty_cache()
@@ -3967,6 +4393,8 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = AuroraConfig.auroracap_7b()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_hidden_layers=AURORA_LAYERS))
     t0 = time.perf_counter()
     model = init_aurora(cfg, device=dev, dtype=torch.bfloat16, generator=gen)
     torch.cuda.synchronize()
@@ -4245,12 +4673,22 @@ def main(argv=None):
     torch.cuda.empty_cache()
     mistral = mistral_phase(torch, engine_mod, ra, dev, card, plains)
 
+    # ---- the dense zoo: Gemma-2-9B at full width, Qwen2-7B ---------------
+    gemma2 = gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains)
+    qwen2 = qwen2_phase(torch, engine_mod, ra, qm, dev, card, plains)
+
     # ---- training at 7B widths (bench.py's training stage) --------------
     launches_fwd, launches_dkv, launches_dq = train_phase(
         torch, bench_stage, dev, card, flash_counters,
         plains + [(fa.flash_attention_plain, "calls")])
     torch.cuda.empty_cache()
     train_parity(torch, bench_stage, fa, dev)
+
+    # ---- DPO through the flash kernels: D 128 and D 256 -------------------
+    dpo = dpo_phase(torch, fa, dev, card, flash_counters, plains + [
+        (fa.flash_attention_plain, "calls")])
+    dpo256 = dpo_phase(torch, fa, dev, card, flash_counters, plains + [
+        (fa.flash_attention_plain, "calls")], gemma=True)
 
     def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
               bound_ms, library_ms, **extra):
@@ -4394,6 +4832,51 @@ def main(argv=None):
               launches_train_cli=train_cli_launches[
                   "flash_attention.launches_dq"]),
     ]
+    # the Qwen2-7B runs (head_dim 128, G 7) launch the int8 kernels
+    for e in kernels:
+        if e["name"] in ("ragged_attention[int8]",
+                         "ragged_decode_attention[int8]"):
+            i = int(e["name"].startswith("ragged_decode"))
+            e["launches_serve_qwen2"] = qwen2["w8kv8"][i] + qwen2["w4kv8"][i]
+    # the zoo's head widths and groups (FAMILY_SHAPES, 4 layers of rows);
+    # launches: the kernel's in that KV mode over the Gemma-2-9B run
+    # (head_dim 256, G 2: the first family's shape; the others are held
+    # to their twins in [kernels] only)
+    gemma_run = {"bf16": "bf16", "int8": "kv8", "int4": "kv4"}
+    for fam, hd, Hq, hkv in FAMILY_SHAPES:
+        for mode in KV_MODES:
+            for i, (name, source, line, step) in enumerate((
+                    ("ragged_attention", "ragged_extend.cu", "287",
+                     "extend"),
+                    ("ragged_decode_attention", "ragged_decode.cu", "645",
+                     "decode"))):
+                r = fam_res[(fam, mode)][step]
+                kernels.append(entry(
+                    f"{name}[{mode},{fam}]", source,
+                    "ragged_attention.py:" + line,
+                    gemma2[gemma_run[mode]][i], r["err"], r["ms"],
+                    r["plain_ms"], (r["bound_ms"], r["bound_by"]),
+                    r["library_ms"], head_dim=hd, q_heads=Hq, kv_heads=hkv))
+    # flash at D 256 (google/gemma-7b: B 2, T 2048, H 16); launches from
+    # [train-dpo-gemma], whose attention runs them; [train-dpo]'s (D 128)
+    # beside the D 128 entries above
+    for k_, src_line, ms, bound, plain_k, lib_k, errs, n in (
+            ("fwd", "121", "fwd_ms", "fwd_bound", "plain_fwd_ms",
+             "library_fwd_ms", ("out_err",), dpo256[0]),
+            ("bwd_dkv", "176", "dkv_ms", "dkv_bound", "plain_bwd_ms",
+             "library_bwd_ms", ("dk_err", "dv_err"), dpo256[1]),
+            ("bwd_dq", "237", "dq_ms", "dq_bound", "plain_bwd_ms",
+             "library_bwd_ms", ("dq_err",), dpo256[2])):
+        kernels.append(entry(
+            f"flash_attention_{k_}[d256]", "flash_attention.cu",
+            "flash_attention.py:" + src_line, n,
+            max(res[e] for res in flash256_res for e in errs),
+            flash256_t[ms], flash256_t[plain_k], flash256_t[bound],
+            flash256_t[lib_k]))
+    for e in kernels:
+        if e["name"].startswith("flash_attention_") and "[" not in e["name"]:
+            e["launches_train_dpo"] = dpo[("fwd", "bwd_dkv", "bwd_dq").index(
+                e["name"][len("flash_attention_"):])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,7 +9,7 @@ twice; `.bin` files load through torch.load, one or sharded. The port's
 `load_auroracap_dir` and `load_llava_hf_dir` must give, on tiny random HF
 checkpoints, exactly the parameters that the JAX loaders give after the
 bridge (fp32, bit for bit), and a bf16 checkpoint loads as bf16 without a
-widening copy. Families the port does not carry raise NotImplementedError.
+widening copy. The MoE and MLA families raise NotImplementedError.
 """
 
 import json
@@ -193,14 +193,19 @@ def _base_llama():
             "num_attention_heads": 4}
 
 
+# the dense families are ported (tests/test_torch_zoo.py); the MoE and
+# MLA types raise naming their ROADMAP item, as do other rope scalings
 @pytest.mark.parametrize("change", [
-    {"model_type": "qwen2"}, {"model_type": "gemma"},
-    {"tie_word_embeddings": True}, {"attention_bias": True},
-    {"hidden_act": "gelu"}, {"head_dim": 16},
+    {"model_type": "mixtral", "num_local_experts": 4},
+    {"model_type": "qwen2_moe"}, {"model_type": "qwen3_moe"},
+    {"model_type": "dbrx"}, {"model_type": "grok-1"},
+    {"model_type": "deepseek"}, {"model_type": "deepseek_v2"},
     {"rope_scaling": {"type": "dynamic", "factor": 2.0}}],
-    ids=["qwen2", "gemma", "tied", "bias", "act", "head_dim", "rope"])
+    ids=["mixtral", "qwen2_moe", "qwen3_moe", "dbrx", "grok", "deepseek",
+         "deepseek_v2", "rope"])
 def test_unported_llm_configs_raise(change):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match="item 8" if "model_type" in change else "rope"):
         tconvert.llama_config_from_hf({**_base_llama(), **change})
 
 

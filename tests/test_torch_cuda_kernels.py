@@ -576,18 +576,18 @@ def test_int4_decode_kernel_matches_plain_on_card(cuda_device, G):
     assert bool((out[1] == 0).all())
 
 
-def _mode_rows(gen, dev, mode, hkv, Sr=512):
+def _mode_rows(gen, dev, mode, hkv, Sr=512, hd=128):
     """bf16, int8 or packed int4 rows of Sr tokens → (k, v, the KV
     keyword arguments of both functions' extend call)."""
     if mode == "bf16":
         kw = dict(device=dev, dtype=torch.bfloat16)
-        k = torch.randn((2, 4, hkv, Sr, 128), generator=gen, **kw)
-        v = torch.randn((2, 4, hkv, Sr, 128), generator=gen, **kw)
+        k = torch.randn((2, 4, hkv, Sr, hd), generator=gen, **kw)
+        v = torch.randn((2, 4, hkv, Sr, hd), generator=gen, **kw)
         return k, v, {}
     if mode == "int8":
-        k, v, ks, vs = _int8_rows(gen, dev, hkv, Sr)
+        k, v, ks, vs = _int8_rows(gen, dev, hkv, Sr, hd)
         return k, v, dict(k_scales=ks, v_scales=vs)
-    k, v, ks, vs = _int4_rows(gen, dev, hkv, Sr)
+    k, v, ks, vs = _int4_rows(gen, dev, hkv, Sr, hd)
     return k, v, dict(k_scales=ks, v_scales=vs, kv_pack=True)
 
 
@@ -687,18 +687,19 @@ SPLIT_EDGES = {"edges": (dict(), (1, 255, 256, 257)),
                "window-inside": (dict(window=300), (900, 301, 1000, 1))}
 
 
-def _decode_case(dev, seed, mode, hkv, G, lens, Sr, opts, q_gain=1.0):
+def _decode_case(dev, seed, mode, hkv, G, lens, Sr, opts, q_gain=1.0,
+                 hd=128):
     """One decode call through the kernel and through the twin on copies
     of the same rows → (out, want, state, plain): the state tensors (rows
     and scales) as the kernel left them and as the twin did."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    k, v, kv = _mode_rows(gen, dev, mode, hkv, Sr)
+    k, v, kv = _mode_rows(gen, dev, mode, hkv, Sr, hd)
     if mode != "bf16":
         kv = dict(kv, kv_maxq=7.0 if mode == "int4" else 127.0)
     bf = dict(device=dev, dtype=torch.bfloat16)
-    q = q_gain * torch.randn((4, 1, hkv * G, 128), generator=gen, **bf)
-    kn = torch.randn((4, hkv, 128), generator=gen, **bf)
-    vn = torch.randn((4, hkv, 128), generator=gen, **bf)
+    q = q_gain * torch.randn((4, 1, hkv * G, hd), generator=gen, **bf)
+    kn = torch.randn((4, hkv, hd), generator=gen, **bf)
+    vn = torch.randn((4, hkv, hd), generator=gen, **bf)
     i32 = dict(dtype=torch.int32, device=dev)
     lens_t = torch.tensor(lens, **i32)
     rows = torch.tensor([2, 0, 3, 1], **i32)
@@ -936,6 +937,135 @@ def test_flash_rejects_what_the_kernels_do_not_take(cuda_device):
     q72, k72, v72, _ = _flash_inputs(cuda_device, 7, 1, 128, 128, 2, 2, 72)
     with pytest.raises(ValueError):          # head_dim % 16 != 0
         tfa.flash_attention(q72, k72, v72)
+
+
+# (head_dim, G) of the dense families the engine serves beside 128 x {1,
+# 4, 8}: Gemma-2-9B (256, 2), Phi-3-mini (96, 1), MiniCPM-2B (64, 1),
+# StarCoder2-7B (128, 9), GLM-4-9B (128, 16), StarCoder's MQA (128, 48)
+FAMILY_SHAPES = [(256, 2), (96, 1), (64, 1), (128, 9), (128, 16), (128, 48)]
+FAMILY_IDS = [f"hd{h}-g{g}" for h, g in FAMILY_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [{}] + WINDOW_CAP,
+                         ids=["plain", "window", "cap", "both"])
+@pytest.mark.parametrize("hd,G", FAMILY_SHAPES, ids=FAMILY_IDS)
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_family_shapes_extend_kernel_matches_plain_on_card(cuda_device, mode,
+                                                           hd, G, opts):
+    """The extend kernel at every head width and group the zoo needs, in
+    every KV mode, with and without the window and the cap: the extend
+    bounds, padded lane zeros, and with an option the off-control."""
+    gen = torch.Generator(device=cuda_device).manual_seed(hd + G)
+    hkv, T = 2, 200 if G < 16 else 60
+    k, v, kv = _mode_rows(gen, cuda_device, mode, hkv, hd=hd)
+    gain = 8.0 if opts else 1.0
+    q = gain * torch.randn((4, T, hkv * G, hd), generator=gen,
+                           device=cuda_device, dtype=torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    offs = torch.tensor([0, 150, 3, 0], **i32)
+    lens = torch.tensor([T, 150 + T, 3 + T - 9, 0], **i32)
+    rows = torch.tensor([3, 1, 0, 2], **i32)
+    launches = tra.ragged_attention.launches + \
+        tra.ragged_attention.launches_int8 + tra.ragged_attention.launches_int4
+    got = tra.ragged_attention(q, k, v, lens, offs, rows,
+                               layer=torch.tensor([1], **i32), **kv, **opts)
+    want = tra.ragged_attention_plain(q.float(), k.float() if mode == "bf16"
+                                      else k, v.float() if mode == "bf16"
+                                      else v, lens, offs, rows, layer=1,
+                                      **kv, **opts)
+    torch.cuda.synchronize()
+    assert tra.ragged_attention.launches + \
+        tra.ragged_attention.launches_int8 + \
+        tra.ragged_attention.launches_int4 == launches + 1
+    diff = (got.float() - want).abs()
+    assert bool((diff <= 2e-2 + RND * want.abs()).all())
+    assert _lane_rel(got, want, (0, 1, 2)) <= 1e-2
+    assert bool((got[3] == 0).all())
+    if opts:
+        off = tra.ragged_attention_plain(
+            q.float(), k.float() if mode == "bf16" else k,
+            v.float() if mode == "bf16" else v, lens, offs, rows, layer=1,
+            **kv)
+        assert (got.float() - off).abs().max().item() > \
+            10 * diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [{}] + WINDOW_CAP,
+                         ids=["plain", "window", "cap", "both"])
+@pytest.mark.parametrize("hd,G", FAMILY_SHAPES, ids=FAMILY_IDS)
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_family_shapes_decode_kernel_matches_plain_on_card(cuda_device, mode,
+                                                           hd, G, opts):
+    """The decode kernel at every head width and group the zoo needs
+    (G 48 over blocks of 8 heads), every KV mode, the window and the cap:
+    row writes exact (packed bytes and scales too), the decode bounds,
+    and two calls on the same inputs agree bitwise."""
+    lens = (300, 0, 201, 512)
+    out, want, state, plain, args = _decode_case(
+        cuda_device, 7 * hd + G, mode, 2, G, lens, 512, opts,
+        q_gain=8.0 if opts else 1.0, hd=hd)
+    for got_t, want_t in zip(state, plain):
+        assert torch.equal(got_t, want_t)
+    diff = (out.float() - want).abs()
+    assert bool((diff <= 3e-3 + RND * want.abs()).all())
+    assert _lane_rel(out, want, (0, 2, 3)) <= 8e-3
+    assert bool((out[1] == 0).all())
+    q, kn, vn, lens_t, rows, kv = args
+    again = tra.ragged_decode_attention(
+        q, kn, vn, *state[:2], lens_t, rows,
+        layer=torch.tensor([1], dtype=torch.int32, device=cuda_device),
+        **dict(kv, **dict(zip(("k_scales", "v_scales"), state[2:]))),
+        **opts)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
+@pytest.mark.cuda
+def test_flash_takes_head_dim_256_on_card(cuda_device):
+    """A head_dim-256 model's unmasked batch of T >= 128 (Gemma v1
+    offline, DPO over a Gemma policy) goes to the flash kernels by `mha`'s
+    rule (head_dim % 128 == 0): forward and backward at D 256 against the
+    fp32 twin (before the D 256 kernels this raised)."""
+    from aurora_tpu_torch.ops.attention import mha
+    q, k, v, g = _flash_inputs(cuda_device, 256, 2, 256, 256, 4, 2, 256)
+    counters = ("launches_fwd", "launches_dkv", "launches_dq")
+    launches = [getattr(tfa.flash_attention, c) for c in counters]
+    (got,), got_g = _grads(lambda *a: mha(*a, causal=True), q, k, v, g)
+    (want,), want_g = _grads(
+        lambda *a: tfa.flash_attention_plain(*a, causal=True)[0],
+        q.float(), k.float(), v.float(), g.float())
+    torch.cuda.synchronize()
+    assert [getattr(tfa.flash_attention, c) for c in counters] == [
+        n + 1 for n in launches]
+    assert (got.float() - want).abs().max().item() <= 2e-2
+    for name, a, b in zip("qkv", got_g, want_g):
+        assert _grad_rel(a, b) <= 1.5e-2, name
+
+
+# D 256 off the tiles: T and S off 64, the diagonal across tiles, GQA,
+# segments with rows that see no key, non-causal with S != T; and
+# google/gemma-7b's training shape (16 heads, T 2048)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,H,Hkv,causal,q_offset,segments", [
+    (2, 300, 300, 4, 4, True, 0, False), (2, 300, 364, 4, 2, True, 64, True),
+    (2, 200, 330, 4, 4, False, 0, False), (2, 300, 300, 4, 1, False, 0, True),
+    (1, 2048, 2048, 16, 16, True, 0, False)])
+def test_flash_d256_kernels_match_plain_on_card(cuda_device, B, T, S, H, Hkv,
+                                                causal, q_offset, segments):
+    _flash_check(cuda_device, 256 + T + Hkv, B, T, S, H, Hkv, 256, causal,
+                 q_offset, segments)
+
+
+@pytest.mark.cuda
+def test_flash_d256_backward_is_deterministic_on_card(cuda_device):
+    q, k, v, g = _flash_inputs(cuda_device, 9, 2, 300, 300, 4, 4, 256)
+    runs = [_grads(lambda *a: tfa.flash_attention(*a, causal=True),
+                   q, k, v, g)[1] for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
 
 
 @pytest.mark.cuda

@@ -196,3 +196,20 @@ def test_mha_dispatch_on_cpu():
         tattn.mha(q, k, v, causal=True, mask=mask, use_flash=True)
     with pytest.raises(ValueError):
         tfa.flash_attention(q, k, v, q_segment_ids=torch.zeros(2, 128))
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_mha_dispatch_sends_head_dim_128_and_256_to_flash(D):
+    """The reference's rule (head_dim % 128 == 0), not narrowed: a CUDA q
+    of head_dim 256 (Gemma) goes to the flash kernels, which take D 256
+    on the card (test_flash_takes_head_dim_256_on_card); 64 and 96, a
+    mask, a cap, T < 128 or a CPU q do not."""
+    from types import SimpleNamespace
+    cuda_q = SimpleNamespace(is_cuda=True, shape=(2, 256, 4, D))
+    assert tattn.flash_dispatch(cuda_q)
+    for other in ((2, 256, 4, 64), (2, 256, 4, 96), (2, 64, 4, D)):
+        assert not tattn.flash_dispatch(SimpleNamespace(is_cuda=True,
+                                                        shape=other))
+    assert not tattn.flash_dispatch(cuda_q, mask=object())
+    assert not tattn.flash_dispatch(cuda_q, logit_cap=30.0)
+    assert not tattn.flash_dispatch(torch.zeros((2, 256, 4, D)))

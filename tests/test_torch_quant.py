@@ -210,6 +210,7 @@ def test_activation_quantization_and_int8_head_match_jax():
                                                          jnp.asarray(x))
 
     class Head:
+        cfg = bridge.llama_config_from(CFG)     # _lm_head reads its knobs
         lm_head = teng.W8Linear(*teng._w8(torch.from_numpy(w.T.copy())))
 
     got = teng._lm_head(Head, torch.from_numpy(x))

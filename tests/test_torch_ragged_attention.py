@@ -9,7 +9,9 @@ Row writes, packed bytes and scales are compared exactly. The sliding
 window and the logit softcap run in every KV mode; there the JAX kernels
 are jitted with the window as a traced scalar (as the JAX engine passes
 it), so each (mode, G, cap) compiles once.
-The CUDA kernels themselves are held against these twins on the card by
+The zoo's head widths (64, 96, 256) and groups (9, 16, 48) are compared
+too (`test_family_shapes_*`). The CUDA kernels
+themselves are held against these twins on the card by
 tests/test_torch_cuda_kernels.py.
 """
 
@@ -374,3 +376,64 @@ def test_window_cap_change_the_twins():
         assert moved[:3].max().item() > 1e-2, kw
     with pytest.raises(ValueError):
         tra.ragged_attention(*args, layer=1, logit_cap=-1.0)
+
+
+# (head_dim, G) of the dense zoo's families beside the llama shapes:
+# MiniCPM-2B (64, 1), Phi-3-mini (96, 1), Gemma-2-9B (256, 2),
+# StarCoder2-7B (128, 9), GLM-4-9B (128, 16), StarCoder (128, 48, MQA)
+FAMILY_SHAPES = [(64, 1), (96, 1), (256, 2), (128, 9), (128, 16), (128, 48)]
+
+
+def _family_rows(rng, hd):
+    k = rng.standard_normal((2, 4, 1, 256, hd)).astype(np.float32)
+    v = rng.standard_normal((2, 4, 1, 256, hd)).astype(np.float32)
+    return k, v
+
+
+@pytest.mark.parametrize("hd,G", FAMILY_SHAPES)
+def test_family_shapes_extend_plain_matches_jax(hd, G):
+    """The extend twin at the zoo's head widths and groups (one KV head,
+    G query heads) against the Pallas kernel: a lane from scratch, one
+    after a prefix, one partially padded, one padded lane."""
+    rng = np.random.default_rng(hd + G)
+    k, v = _family_rows(rng, hd)
+    T = 12
+    q = rng.standard_normal((4, T, G, hd)).astype(np.float32)
+    offs = np.array([0, 100, 7, 0], np.int32)
+    lens = np.array([T, 100 + T, 7 + T - 5, 0], np.int32)
+    rows = np.array([2, 0, 3, 1], np.int32)
+    want = jra.ragged_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+        jnp.asarray(offs), jnp.asarray(rows), layer=1, chunk=128)
+    got = tra.ragged_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lens), torch.from_numpy(offs),
+        torch.from_numpy(rows), layer=1)
+    np.testing.assert_allclose(got.numpy()[:3], np.asarray(want)[:3], **TOL)
+    np.testing.assert_array_equal(got.numpy()[3], 0.0)
+
+
+@pytest.mark.parametrize("hd,G", FAMILY_SHAPES)
+def test_family_shapes_decode_plain_matches_jax(hd, G):
+    """The fused decode twin at the zoo's head widths and groups: row
+    writes exact, outputs within TOL, an inactive lane's zeros."""
+    rng = np.random.default_rng(100 + hd + G)
+    k, v = _family_rows(rng, hd)
+    q = rng.standard_normal((4, 1, G, hd)).astype(np.float32)
+    k_new = rng.standard_normal((4, 1, hd)).astype(np.float32)
+    v_new = rng.standard_normal((4, 1, hd)).astype(np.float32)
+    lens = np.array([5, 130, 0, 256], np.int32)
+    rows = np.array([1, 3, 0, 2], np.int32)
+    w_out, w_k, w_v = jra.ragged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new),
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens), jnp.asarray(rows),
+        layer=1, chunk=128)
+    tk, tv = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
+    g_out = tra.ragged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k_new), torch.from_numpy(v_new),
+        tk, tv, torch.from_numpy(lens), torch.from_numpy(rows), layer=1)[0]
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(w_k))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(w_v))
+    np.testing.assert_allclose(g_out.numpy()[[0, 1, 3]],
+                               np.asarray(w_out)[[0, 1, 3]], **TOL)
+    np.testing.assert_array_equal(g_out.numpy()[2], 0.0)

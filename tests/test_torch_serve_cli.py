@@ -2,8 +2,9 @@
 bench-latency | bench-serving`) on the CPU.
 
 Each mode's --help exits 0; serve exits
-2 naming its ROADMAP item for --dp / --tp above 1 and for Gemma2 and
-DeepseekV2 checkpoints; chat over stdin on a tiny xtuner directory and a
+2 naming its ROADMAP item for --dp / --tp above 1 and for MoE (Mixtral)
+and MLA (DeepseekV2) checkpoints (Gemma-2 is served:
+tests/test_torch_gemma2.py); chat over stdin on a tiny xtuner directory and a
 video prints the JAX cli/chat.py's two answers, fp32 and greedy, text for
 text, and encodes the video once for both turns (a video that needs a
 resize too); bench-latency on the tiny
@@ -41,7 +42,7 @@ def test_mode_help_exits_0(capsys, mode, flags):
     assert e.value.code == 0 and all(f in out for f in flags)
 
 
-@pytest.mark.parametrize("case", ["dp", "tp", "Gemma2ForCausalLM",
+@pytest.mark.parametrize("case", ["dp", "tp", "MixtralForCausalLM",
                                   "DeepseekV2ForCausalLM"])
 def test_serve_refuses_what_is_not_ported(tmp_path, capsys, case):
     argv = ["--model_path", str(tmp_path)]

@@ -74,16 +74,20 @@ def test_bridge_layouts(tiny):
 
 
 def test_bridge_rejects_other_families():
-    # Mistral (llama with GQA and a sliding window) crosses since the
-    # window was ported; Qwen2's biases and Gemma2's alternating windows
+    # Mistral's window, Qwen2's biases and Gemma2's alternating windows
+    # cross since the dense zoo was ported; the MoE and MLA families
     # still raise
     assert bridge.llama_config_from(
         JLlamaConfig.mistral_7b()).sliding_window == 4096
-    with pytest.raises(NotImplementedError):
-        bridge.llama_config_from(JLlamaConfig.qwen2_7b())
+    assert bridge.llama_config_from(JLlamaConfig.qwen2_7b()).qkv_bias
+    assert bridge.llama_config_from(dataclasses.replace(
+        JLlamaConfig.mistral_7b(), swa_every_other=True)).swa_every_other
     with pytest.raises(NotImplementedError):
         bridge.llama_config_from(dataclasses.replace(
-            JLlamaConfig.mistral_7b(), swa_every_other=True))
+            JLlamaConfig.mistral_7b(), num_experts=8))
+    with pytest.raises(NotImplementedError):
+        bridge.llama_config_from(dataclasses.replace(
+            JLlamaConfig.mistral_7b(), mla_kv_lora_rank=512))
     assert bridge.llama_config_from(
         JLlamaConfig.vicuna_7b_v15_16k()).rope_linear_scaling == 4.0
 
