@@ -6,13 +6,20 @@ unfold kernel [p·p·C, D]. The functions here take such a tree with numpy
 leaves (e.g. `jax.device_get(params)`) and return the port's modules:
 transposed into `nn.Linear` weights [out, in], the LLM layers unstacked,
 the patch kernel reshaped into a conv weight [D, C, p, p]. Configs cross
-by field name from any object with the same attributes (every dense
-family knob of the reference's LlamaConfig); its MoE, MLA and YaRN
-settings raise NotImplementedError. A dense family's extra parameters
-(biases, q/k norms, norm biases, Gemma-2's output norms, `wpe`) cross by
-their reference names, and a tied tree has no `lm_head`. The modules
-are built on the card unless the caller passes a device (the CPU tests
-pass device="cpu").
+by field name from any object with the same attributes (every knob of
+the reference's LlamaConfig: the dense families', the MoE and MLA ones
+and YaRN's frequencies). A dense family's extra parameters (biases, q/k
+norms, norm biases, Gemma-2's output norms, `wpe`) cross by their
+reference names, and a tied tree has no `lm_head`. A MoE tree's router
+`moe_router` [L, D, E], expert stacks `moe_gate`/`moe_up` [L, E, D, F]
+and `moe_down` [L, E, F, D] (int8 with `<name>_scale` [L, E, 1, F] in
+the W8 and W4 trees), shared expert `moe_shared_*` [L, in, out] and
+scalar gate `moe_shared_gate_w` cross into the MoE layers (ops/moe.py
+ExpertStack), and DeepSeek v1's unstacked `dense_layers` into the first
+layers of the port's one stack. DeepSeek-V2's per-layer tree
+(models/deepseek_v2.py) crosses with `deepseek_v2_from_params`. The
+modules are built on the card unless the caller passes a device (the
+CPU tests pass device="cpu").
 
 The reference's W4 trees (quantize_weights_int4, optionally
 fuse_serving_weights and w4_decode_layout_params) cross with their bytes
@@ -43,16 +50,8 @@ from aurora_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from aurora_tpu_torch.ops.pallas.quant_matmul import (
     w4_from_flat, w4_mlp_untile_reference)
 
-# reference LlamaConfig knobs the port does not carry, with the value at
-# which they are off: the MoE and MLA families and YaRN's explicit
-# frequencies (every dense knob crosses by name into LlamaConfig)
-_LLAMA_NOT_PORTED = {
-    "num_experts": 0, "first_k_dense": 0, "moe_router_logit_softcap": 0.0,
-    "moe_router_mode": "mixtral", "mla_kv_lora_rank": None,
-    "mla_q_lora_rank": None, "mla_first_k_dense": 0,
-    "rope_inv_freq": None, "rope_attention_scaling": 1.0,
-}
-NOT_PORTED = "ROADMAP.md queue 1 item 8 (MoE, MLA)"
+NOT_PORTED = ("ROADMAP.md queue 1 item 8 (the non-CLIP towers, the Yi-VL "
+              "projector norms, InternVL)")
 
 
 def _config_from(ref, cls):
@@ -61,11 +60,6 @@ def _config_from(ref, cls):
 
 
 def llama_config_from(ref) -> LlamaConfig:
-    for name, off in _LLAMA_NOT_PORTED.items():
-        val = getattr(ref, name, off)
-        if val != off:
-            raise NotImplementedError(
-                f"{name}={val!r}: not ported yet, {NOT_PORTED}")
     return _config_from(ref, LlamaConfig)
 
 
@@ -129,7 +123,7 @@ def projector_state_dict(tree: Dict[str, Any]):
     for i, lp in enumerate(tree["layers"]):
         if "ln_scale" in lp:
             raise NotImplementedError("projector LayerNorms (Yi-VL) are "
-                                      "not ported")
+                                      f"not ported yet, {NOT_PORTED}")
         _linear(sd, f"layers.{i}", lp)
     return sd
 
@@ -167,9 +161,45 @@ def llama_extras(tree: Dict[str, Any]):
         n for n in TOP_EXTRAS if n in tree)
 
 
-def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
+def llama_moe_layout(tree: Dict[str, Any]) -> Dict[str, int]:
+    """LlamaModel's MoE widths (models/llama.py `moe_layout`) of a
+    reference llama tree; {} for a dense one."""
     layers = tree["layers"]
+    if "moe_gate" not in layers:
+        return {}
+    shared = layers.get("moe_shared_gate")
+    return {"moe_inter": np.shape(layers["moe_gate"])[-1],
+            "shared_inter": 0 if shared is None else np.shape(shared)[-1],
+            "shared_gate": "moe_shared_gate_w" in layers}
+
+
+_MOE_STACKS = ("moe_gate", "moe_up", "moe_down", "moe_shared_gate",
+               "moe_shared_up", "moe_shared_down")
+
+
+def _moe_layer(sd, pre, lp):
+    """One MoE layer of a reference tree (lp: name → that layer's array)
+    into sd: the router and scalar gate as they are, each expert stack
+    [E, in, out] (a shared expert's [in, out] as one expert) with its int8
+    scales [E, out]."""
+    sd[pre + "moe_router"] = _t(lp["moe_router"])
+    if "moe_shared_gate_w" in lp:
+        sd[pre + "moe_shared_gate_w"] = _t(lp["moe_shared_gate_w"])
+    for name in _MOE_STACKS:
+        if name not in lp:
+            continue
+        w = _t(lp[name])
+        if w.dim() == 2:            # the shared expert: one expert
+            w = w[None]
+        sd[pre + name + ".weight"] = w
+        if name + "_scale" in lp:
+            sd[pre + name + ".scale"] = _t(lp[name + "_scale"]).reshape(
+                w.shape[0], w.shape[2])
+
+
+def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
     quant, fused = llama_layout(tree)
+    first_k = len(tree.get("dense_layers", ()))
     sd = {"embed_tokens": _t(tree["embed_tokens"]),
           "final_norm": _t(tree["final_norm"])}
     if not cfg.tie_word_embeddings:
@@ -184,33 +214,44 @@ def llama_state_dict(tree: Dict[str, Any], cfg: LlamaConfig):
             sd[name] = _t(tree[name])
     for l in range(cfg.num_hidden_layers):
         pre = f"layers.{l}."
-        sd[pre + "input_norm"] = _t(layers["input_norm"][l])
+        if l < first_k:             # DeepSeek v1's dense prefix: float,
+            dl = tree["dense_layers"][l]    # per-name, unstacked
+            for name in ("input_norm", "post_attn_norm"):
+                sd[pre + name] = _t(dl[name])
+            for name in projection_shapes(cfg, False):
+                sd[pre + name + ".weight"] = _t(dl[name]).T
+            continue
+        layers = {k: v[l - first_k] for k, v in tree["layers"].items()}
+        sd[pre + "input_norm"] = _t(layers["input_norm"])
         if not cfg.parallel_block:
-            sd[pre + "post_attn_norm"] = _t(layers["post_attn_norm"][l])
+            sd[pre + "post_attn_norm"] = _t(layers["post_attn_norm"])
         for name in extras:
             if name in LAYER_EXTRAS:
-                sd[pre + name] = _t(layers[name][l])
+                sd[pre + name] = _t(layers[name])
+        moe = "moe_router" in layers
+        if moe:
+            _moe_layer(sd, pre, layers)
         mlp = {}
         if "mlp_gu" in layers:      # AURORA_W4_FUSED_MLP=1 tiles
-            tiles = (torch.from_numpy(np.array(layers[k][l]))
+            tiles = (torch.from_numpy(np.array(layers[k]))
                      for k in ("mlp_gu", "mlp_gs", "mlp_dw", "mlp_ds"))
             gu_pk, gu_s, dn_pk, dn_s = (
                 t.numpy() for t in w4_mlp_untile_reference(*tiles))
             mlp = {"gateup": w4_from_flat(gu_pk, gu_s),
                    "down": w4_from_flat(dn_pk, dn_s)}
-        for name in projection_shapes(cfg, fused):
+        for name in projection_shapes(cfg, fused, moe):
             if name in mlp:
                 sd[pre + name + ".packed"], sd[pre + name + ".scale"] = \
                     mlp[name]
             elif quant == "int4":
                 sd[pre + name + ".packed"], sd[pre + name + ".scale"] = \
-                    _w4_layer(layers[name][l], layers[name + "_scale4"][l])
+                    _w4_layer(layers[name], layers[name + "_scale4"])
             elif quant == "int8":
-                sd[pre + name + ".weight"] = _t(layers[name][l]).T
+                sd[pre + name + ".weight"] = _t(layers[name]).T
                 sd[pre + name + ".scale"] = _t(
-                    layers[name + "_scale"][l]).reshape(-1)
+                    layers[name + "_scale"]).reshape(-1)
             else:
-                sd[pre + name + ".weight"] = _t(layers[name][l]).T
+                sd[pre + name + ".weight"] = _t(layers[name]).T
     return sd
 
 
@@ -228,13 +269,15 @@ def projector_from_params(tree, cfg: ProjectorConfig, device=None,
 def llama_from_params(tree, cfg: LlamaConfig, device=None, dtype=None):
     """Dense, W4 (flat, tiled or fused-MLP) or W8 reference trees,
     per-name or fused, with the classification head `score` where the tree
-    has one; dtype applies to the dense weights, embeddings and norms."""
+    has one, MoE trees (with DeepSeek v1's dense prefix); dtype applies to
+    the float weights, embeddings and norms."""
     quant, fused = llama_layout(tree)
     num_labels = np.shape(tree["score"])[1] if "score" in tree else 0
     return _load(LlamaModel(cfg, device="meta", dtype=dtype,
                             weight_quant=quant, fused=fused,
                             num_labels=num_labels,
-                            extras=llama_extras(tree)),
+                            extras=llama_extras(tree),
+                            **llama_moe_layout(tree)),
                  llama_state_dict(tree, cfg), device)
 
 
@@ -258,6 +301,43 @@ def gemma2_from_params(tree, cfg, device=None, dtype=None):
     from aurora_tpu_torch.models.gemma2 import Gemma2Model
     return _load(Gemma2Model(cfg, device="meta", dtype=dtype),
                  gemma2_state_dict(tree, cfg), device)
+
+
+def deepseek_v2_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A reference DeepSeek-V2 tree (models/deepseek_v2.py: a per-layer
+    list of [in, out] kernels, `gate_weight` [E, D], `experts` a list of
+    per-expert MLPs, `shared` and dense `mlp` dicts) → DeepseekV2Model's
+    state dict."""
+    sd = {"embed_tokens": _t(tree["embed_tokens"]),
+          "final_norm": _t(tree["final_norm"]),
+          "lm_head.weight": _t(tree["lm_head"]).T}
+    for i, lp in enumerate(tree["layers"]):
+        pre = f"layers.{i}."
+        for name in ("input_norm", "post_attn_norm", "kv_a_norm",
+                     "q_a_norm"):
+            if name in lp:
+                sd[pre + name] = _t(lp[name])
+        for name in ("q", "q_a", "q_b", "kv_a", "kv_b", "o"):
+            if name in lp:
+                sd[pre + name + ".weight"] = _t(lp[name]).T
+        if "mlp" in lp:
+            for name in ("gate", "up", "down"):
+                sd[pre + name + ".weight"] = _t(lp["mlp"][name]).T
+            continue
+        sd[pre + "moe_gate_w"] = _t(lp["gate_weight"])
+        for name in ("gate", "up", "down"):
+            sd[pre + "moe_" + name + ".weight"] = torch.stack(
+                [_t(ep[name]) for ep in lp["experts"]])
+            sd[pre + "shared_" + name + ".weight"] = _t(lp["shared"][name]).T
+    return sd
+
+
+def deepseek_v2_from_params(tree, cfg, device=None, dtype=None):
+    """A reference DeepSeek-V2 tree → DeepseekV2Model (cfg: the port's
+    DeepseekV2Config, e.g. `DeepseekV2Config(**asdict(reference_cfg))`)."""
+    from aurora_tpu_torch.models.deepseek_v2 import DeepseekV2Model
+    return _load(DeepseekV2Model(cfg, device="meta", dtype=dtype),
+                 deepseek_v2_state_dict(tree), device)
 
 
 def aurora_state_dict(tree, cfg: AuroraConfig) -> Dict[str, torch.Tensor]:

@@ -7,14 +7,18 @@ serve/api.py over one ServeEngine on the card.
 The reference's flags (its launch_server_auroracap and launch_server
 surface), plus --device (default cuda). --aurora loads an xtuner-format
 AuroraCap directory (models/convert.py `load_auroracap_dir`) and serves
-/generate with videos; otherwise a HF directory of a dense decoder family
-(models/convert.py DENSE_TYPES) or Gemma-2 (`load_serving_dir`). The
-checkpoint's tokenizer loads through transformers. --max-batch 0 or
---num-slots 0 sizes the engine from the free device memory
-(`auto_engine_config`). Requests may take `regex` or
+/generate with videos; otherwise a HF directory of a dense or sparse-MoE
+decoder family (models/convert.py DENSE_TYPES, MOE_TYPES: Mixtral,
+Qwen-MoE, DBRX, Grok-1, DeepSeek v1), Gemma-2 or DeepSeek-V2 (MLA,
+bf16 only) (`load_serving_dir`). --weight-quant int8|int4 quantizes each
+layer as it reaches the card, so Mixtral-8x7B, 93 GB in bf16, loads as
+W8 or W4. The checkpoint's tokenizer loads through transformers.
+--max-batch 0 or --num-slots 0 sizes the engine from the free device
+memory (`auto_engine_config`). Requests may take `regex` or
 `choices_constraint` (constrained decoding) and prompts up to
 --max-seq-len. Not ported, each exits 2 naming its ROADMAP.md item: --dp
-or --tp above 1, and MoE or MLA (DeepseekV2) checkpoints.
+or --tp above 1; what a model does not take (DeepSeek-V2 with
+--weight-quant or --kv-quant, as in the reference) exits 2 too.
 """
 
 from __future__ import annotations
@@ -26,6 +30,14 @@ import torch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _PARALLEL = "ROADMAP.md queue 1 item 9 (data and tensor parallelism)"
+
+
+def _is_mla(model_path: str) -> bool:
+    """A DeepSeek-V2 (MLA) checkpoint directory."""
+    from aurora_tpu_torch.models.convert import _read_config
+    hf = _read_config(model_path)
+    return ("DeepseekV2" in " ".join(hf.get("architectures") or [])
+            or hf.get("model_type") == "deepseek_v2")
 
 
 def parse_args(argv=None):
@@ -91,11 +103,10 @@ def main(argv=None) -> int:
     from aurora_tpu_torch.data.text import auto_tokenizer
     from aurora_tpu_torch.models.convert import load_serving_dir
     from aurora_tpu_torch.serve.api import launch_server
-    from aurora_tpu_torch.serve.engine import (EngineConfig,
+    from aurora_tpu_torch.serve.engine import (_QUANTIZE, EngineConfig,
                                                auto_engine_config,
                                                fuse_serving_weights,
-                                               quantize_weights_int4,
-                                               quantize_weights_int8)
+                                               weight_quant_of)
     from aurora_tpu_torch.serve.scheduler import SchedulePolicy
 
     dtype = _DTYPES[args.dtype]
@@ -110,20 +121,23 @@ def main(argv=None) -> int:
                               kept_ratio=args.token_kept_ratio,
                               image_size=args.image_size)
     else:
+        if args.kv_quant != "none" and _is_mla(args.model_path):
+            print(f"--kv-quant {args.kv_quant}: MLA (DeepSeek-V2) serves "
+                  "bf16 latents, as in the reference", file=sys.stderr)
+            return 2
         try:
             model, cfg = load_serving_dir(args.model_path, dtype,
-                                          args.device)
+                                          args.device, args.weight_quant)
         except NotImplementedError as e:
             print(f"{e}", file=sys.stderr)
             return 2
         tokenizer = auto_tokenizer(args.model_path)
 
-    # quantize and fuse before the engine, dropping each dense source as it
-    # goes, so that the peak stays about one model
-    if args.weight_quant == "int8":
-        model = quantize_weights_int8(model, free_source=True)
-    elif args.weight_quant == "int4":
-        model = quantize_weights_int4(model, free_source=True)
+    # quantize (where the loader has not, layer by layer) and fuse before
+    # the engine, dropping each dense source as it goes, so that the peak
+    # stays about one model
+    if weight_quant_of(model) != args.weight_quant:
+        model = _QUANTIZE[args.weight_quant](model, free_source=True)
     if args.weight_quant != "none":
         model = fuse_serving_weights(model)
 

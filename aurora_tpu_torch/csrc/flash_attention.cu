@@ -1044,6 +1044,9 @@ extern "C" int aurora_w4a8_kernel(int rows, int group, const void** fn,
 extern "C" int aurora_w4a8_flat_kernel(int rows, int group, const void** fn,
                                        int* smem, int* blocks);
 extern "C" int aurora_fused_mlp_kernel(int rows, const void** fn, int* smem);
+// the grouped-expert matmul (moe_grouped_mm.cu)
+extern "C" int aurora_moe_grouped_mm_kernel(const char* mode, const void** fn,
+                                            int* smem);
 
 // registers a thread, local (spill) bytes a thread and shared bytes a block
 // (static and dynamic) of one kernel of the library: "flash_fwd",
@@ -1052,7 +1055,8 @@ extern "C" int aurora_fused_mlp_kernel(int rows, const void** fn, int* smem);
 // "ragged_decode_<mode>_g<1|2|4|8>[_hd<64|96|128|256>]" (mode bf16, int8 or
 // int4),
 // "w8a8_b<rows>", "w4a16_b<rows>", "w4a8_b<rows>", "w4a8_flat_b<rows>"
-// (groups of 128) or "fused_mlp_b<rows>" (rows 8, 16, 32, 64)
+// (groups of 128), "fused_mlp_b<rows>" (rows 8, 16, 32, 64) or
+// "moe_grouped_mm_<bf16|int8>"
 extern "C" int aurora_kernel_attrs(const char* name, int* regs,
                                    int* local_bytes, int* smem) {
   const void* fn = nullptr;
@@ -1094,6 +1098,8 @@ extern "C" int aurora_kernel_attrs(const char* name, int* regs,
     err_name = aurora_w4a8_kernel(gm, 128, &fn, &dynamic, &blocks);
   } else if (sscanf(name, "fused_mlp_b%d", &gm) == 1) {
     err_name = aurora_fused_mlp_kernel(gm, &fn, &dynamic);
+  } else if (strncmp(name, "moe_grouped_mm_", 15) == 0) {
+    err_name = aurora_moe_grouped_mm_kernel(name + 15, &fn, &dynamic);
   } else {
     return int(cudaErrorInvalidValue);
   }

@@ -17,16 +17,26 @@ the file's dtype until `load_state_dict` copies it into the module, which
 is the one cast to the model's dtype (a bf16 7B checkpoint is never
 widened to fp32 on the host).
 
-The dense decoder families of the reference's converter are mapped
-(`DENSE_TYPES`: llama, mistral, qwen2, qwen3, gemma, phi3, internlm2,
-stablelm, olmo, glm, starcoder2, cohere, gpt_bigcode, qwen v1, exaone,
-chatglm, minicpm), with its fused-weight remaps (Phi-3's qkv and
-gate_up, InternLM2's group-interleaved wqkv, Qwen v1's c_attn, ChatGLM's
-query_key_value, GPT-BigCode's c_attn and wpe), Gemma's (1 + w) norms
-absorbed, OLMo's non-parametric norms synthesized and tied heads; and the
-CLIP tower. MoE and MLA model types (`NOT_PORTED_TYPES`), rope scalings
-other than linear and the Yi-VL projector LayerNorms raise
+The decoder families of the reference's converter are mapped: the dense
+ones (`DENSE_TYPES`: llama, mistral, qwen2, qwen3, gemma, phi3,
+internlm2, stablelm, olmo, glm, starcoder2, cohere, gpt_bigcode, qwen
+v1, exaone, chatglm, minicpm), with its fused-weight remaps (Phi-3's qkv
+and gate_up, InternLM2's group-interleaved wqkv, Qwen v1's c_attn,
+ChatGLM's query_key_value, GPT-BigCode's c_attn and wpe), Gemma's
+(1 + w) norms absorbed, OLMo's non-parametric norms synthesized and tied
+heads; the sparse-MoE ones (`MOE_TYPES`: Mixtral's block_sparse_moe
+experts, Qwen2-MoE's and Qwen3-MoE's mlp.experts with the singular
+gated or plural ungated shared expert, DBRX's fused Wqkv and w1/v1/w2
+expert slabs, Grok-1's four norms and softcaps, DeepSeek v1's dense
+prefix); and the CLIP tower. DeepSeek-V2 loads through
+models/deepseek_v2.py (`load_serving_dir`). What the reference refuses
+(a Qwen-MoE with dense layers between its sparse ones, DeepSeek v1 with
+moe_layer_freq > 1, DBRX's expert-weight norms other than 1), rope
+scalings other than linear and the Yi-VL projector LayerNorms raise
 NotImplementedError. Gemma-2 has its own module (models/gemma2.py).
+`llama_params_from_hf(..., weight_quant=)` quantizes each layer as it
+reaches the device (serve/engine.py `build_quantized`), so a checkpoint
+larger than the card in bf16 (Mixtral-8x7B, 93 GB) loads as W8 or W4.
 Modules are built on the card unless the caller passes a device.
 """
 
@@ -40,7 +50,8 @@ import torch
 
 from aurora_tpu_torch.bridge import NOT_PORTED, _load
 from aurora_tpu_torch.models.llama import (LAYER_EXTRAS, TOP_EXTRAS,
-                                           LlamaConfig, LlamaModel)
+                                           LlamaConfig, LlamaLayer,
+                                           LlamaModel, is_moe_layer)
 from aurora_tpu_torch.models.projector import Projector, ProjectorConfig
 from aurora_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
@@ -56,9 +67,9 @@ DENSE_TYPES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "phi3",
                "internlm2", "stablelm", "olmo", "glm", "starcoder2",
                "cohere", "gpt_bigcode", "qwen", "exaone", "chatglm",
                "minicpm")
-# MoE and MLA families of the reference, not ported yet
-NOT_PORTED_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "dbrx", "grok-1",
-                    "grok1", "grok", "deepseek", "deepseek_v2")
+# the sparse-MoE families of the universal decoder
+MOE_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "dbrx", "deepseek",
+             "grok-1", "grok1", "grok")
 
 
 # ---------------------------------------------------------------------------
@@ -150,24 +161,68 @@ def vit_config_from_hf(cfg: Dict[str, Any]) -> ViTConfig:
 
 
 def llama_config_from_hf(cfg: Dict[str, Any]) -> LlamaConfig:
-    """A HF config of a dense family → LlamaConfig, the reference's
-    llama_config_from_hf (convert.py:112-320) on its dense branches, with
-    its defaults for absent fields. MoE and MLA types and rope scalings
-    other than linear raise NotImplementedError."""
+    """A HF config of a dense or sparse-MoE family → LlamaConfig, the
+    reference's llama_config_from_hf (convert.py:112-320), with its
+    defaults for absent fields. What the reference refuses, DeepSeek-V2
+    (models/deepseek_v2.py) and rope scalings other than linear raise
+    NotImplementedError."""
     mt = cfg.get("model_type")
-    if mt in NOT_PORTED_TYPES or (cfg.get("num_local_experts")
-                                  or cfg.get("num_experts")):
-        raise NotImplementedError(f"model_type={mt!r}: not ported yet, "
-                                  f"{NOT_PORTED}")
-    if mt not in DENSE_TYPES:
+    if mt == "deepseek_v2":
         raise NotImplementedError(
-            f"model_type={mt!r}: the port's dense families are "
-            f"{', '.join(DENSE_TYPES)}")
+            "model_type='deepseek_v2' is MLA: models/deepseek_v2.py "
+            "`deepseek_v2_config_from_hf` (load_serving_dir loads it)")
+    if mt not in DENSE_TYPES + MOE_TYPES:
+        raise NotImplementedError(
+            f"model_type={mt!r}: the port's families are "
+            f"{', '.join(DENSE_TYPES + MOE_TYPES)}")
     scaling = cfg.get("rope_scaling") or {}
     kind = scaling.get("type", scaling.get("rope_type"))
     if scaling and kind != "linear":
         raise NotImplementedError(f"rope_scaling {kind!r}: only linear "
                                   "scaling is ported")
+    if mt == "dbrx":        # nested attention / ffn knobs, fused experts
+        a, f = cfg["attn_config"], cfg["ffn_config"]
+        norm_w = f.get("moe_normalize_expert_weights")
+        if norm_w not in (None, 1, 1.0):
+            raise NotImplementedError(
+                f"dbrx moe_normalize_expert_weights={norm_w}: only 1 (as "
+                "in the reference)")
+        cfg = dict(cfg,
+                   hidden_size=cfg["d_model"],
+                   num_attention_heads=cfg["n_heads"],
+                   num_hidden_layers=cfg["n_layers"],
+                   max_position_embeddings=cfg["max_seq_len"],
+                   intermediate_size=f["ffn_hidden_size"],
+                   num_key_value_heads=a["kv_n_heads"],
+                   clip_qkv=a["clip_qkv"],
+                   rope_theta=a.get("rope_theta", 10000.0),
+                   num_experts=f["moe_num_experts"],
+                   num_experts_per_tok=f["moe_top_k"],
+                   norm_topk_prob=norm_w is not None)
+    if mt == "deepseek":    # v1: a dense prefix, ungated shared experts
+        if cfg.get("moe_layer_freq", 1) != 1:
+            raise NotImplementedError("deepseek v1 with dense layers "
+                                      "between its MoE ones (as in the "
+                                      "reference)")
+        cfg = dict(cfg,
+                   num_experts=cfg.get("n_routed_experts") or 0,
+                   first_k_dense=(cfg.get("first_k_dense_replace", 0)
+                                  if cfg.get("n_routed_experts") else 0))
+    if mt in ("grok-1", "grok1", "grok"):   # caps 30 on attention and
+        cfg = dict(cfg,                     # router, scaled embeds/logits
+                   model_type="grok",
+                   attn_logit_softcap=30.0,
+                   moe_router_logit_softcap=30.0,
+                   embed_scale=float(
+                       cfg.get("embedding_multiplier_scale", 1.0)),
+                   logit_scale=float(
+                       cfg.get("output_multiplier_scale", 1.0)),
+                   head_dim=cfg.get("head_dim", 128))
+    if mt in ("qwen2_moe", "qwen3_moe") and (
+            cfg.get("decoder_sparse_step", 1) != 1
+            or cfg.get("mlp_only_layers")):
+        raise NotImplementedError("a Qwen-MoE with dense layers between "
+                                  "its sparse ones (as in the reference)")
     if mt == "exaone":      # llama under renamed fields
         cfg = dict(cfg, num_hidden_layers=cfg["num_layers"],
                    rms_norm_eps=cfg.get("layer_norm_epsilon", 1e-5),
@@ -228,19 +283,20 @@ def llama_config_from_hf(cfg: Dict[str, Any]) -> LlamaConfig:
     act_map = {"gelu_pytorch_tanh": "gelu_tanh", "gelu_new": "gelu_tanh",
                "gelu_tanh": "gelu_tanh", "gelu": "gelu"}
     return LlamaConfig(
-        qkv_bias=(mt == "qwen2"
+        qkv_bias=(mt in ("qwen2", "qwen2_moe")
                   or cfg.get("attention_bias", False)
                   or (mt == "stablelm" and cfg.get("use_qkv_bias",
                                                    False))
                   or (mt == "starcoder2" and cfg.get("use_bias", True))
                   or mt == "gpt_bigcode"),
         learned_pos=mt == "gpt_bigcode",
-        qk_norm=(mt == "qwen3"
+        qk_norm=(mt in ("qwen3", "qwen3_moe")
                  or (mt == "cohere" and cfg.get("use_qk_norm", False))),
         parallel_block=mt == "cohere",
         logit_scale=(cfg.get("logit_scale")
-                     if mt in ("cohere", "minicpm") else None),
+                     if mt in ("cohere", "minicpm", "grok") else None),
         attn_logit_softcap=cfg.get("attn_logit_softcap", 0.0),
+        moe_router_logit_softcap=cfg.get("moe_router_logit_softcap", 0.0),
         embed_scale=cfg.get("embed_scale"),
         residual_scale=cfg.get("residual_scale"),
         scale_embeddings=gemma,
@@ -249,13 +305,22 @@ def llama_config_from_hf(cfg: Dict[str, Any]) -> LlamaConfig:
                                 "silu")),
         norm_upcast_mul=gemma,
         norm_type=("cohere" if mt == "cohere"
-                   else "layernorm" if layernorm else "rmsnorm"),
+                   else "layernorm" if (layernorm or mt == "dbrx")
+                   else "rmsnorm"),
         partial_rotary_factor=cfg.get("partial_rotary_factor", 1.0),
         rope_interleaved=mt in ("glm", "cohere"),
         clip_qkv=cfg.get("clip_qkv"),
         mlp_style=("mlp" if mt in ("starcoder2", "gpt_bigcode")
                    else "gated"),
         head_dim_override=cfg.get("head_dim"),
+        num_experts=cfg.get("num_local_experts",
+                            cfg.get("num_experts", 0)) or 0,
+        num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
+        moe_router_mode=("softmax_topk"
+                         if mt in ("qwen2_moe", "qwen3_moe", "dbrx",
+                                   "deepseek", "grok") else "mixtral"),
+        first_k_dense=cfg.get("first_k_dense", 0),
+        moe_norm_topk=cfg.get("norm_topk_prob", False),
         vocab_size=cfg["vocab_size"],
         hidden_size=cfg["hidden_size"],
         intermediate_size=cfg["intermediate_size"],
@@ -330,6 +395,44 @@ def _canonical(sd: StateDict, cfg: LlamaConfig) -> StateDict:
     hq, hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
     nq, nkv = hq * hd, hkv * hd
+
+    if "transformer.blocks.0.norm_attn_norm.attn.Wqkv.weight" in sd:
+        # DBRX: fused Wqkv, bias-free LayerNorms, the experts as slabs
+        # w1 / v1 / w2 [E·F, D] (w2 applied as x @ w2_e)
+        E, F_ = cfg.num_experts, cfg.intermediate_size
+        out = {"embed_tokens.weight": sd["transformer.wte.weight"],
+               "norm.weight": sd["transformer.norm_f.weight"],
+               "lm_head.weight": sd["lm_head.weight"]}
+        for i in range(L):
+            b, o = f"transformer.blocks.{i}", f"layers.{i}."
+            for a, c in (("norm_attn_norm.attn.Wqkv",
+                          "self_attn.qkv_proj"),
+                         ("norm_attn_norm.attn.out_proj",
+                          "self_attn.o_proj"),
+                         ("norm_attn_norm.norm_1", "input_layernorm"),
+                         ("norm_attn_norm.norm_2",
+                          "post_attention_layernorm"),
+                         ("ffn.router.layer", "mlp.gate")):
+                out[f"{o}{c}.weight"] = sd[f"{b}.{a}.weight"]
+            w1, v1, w2 = (sd[f"{b}.ffn.experts.mlp.{n}"].reshape(E, F_, -1)
+                          for n in ("w1", "v1", "w2"))
+            for e in range(E):
+                x = f"{o}mlp.experts.{e}."
+                out[x + "gate_proj.weight"] = w1[e]
+                out[x + "up_proj.weight"] = v1[e]
+                out[x + "down_proj.weight"] = w2[e].t()
+        sd = out
+
+    if "layers.0.pre_moe_norm.weight" in sd:
+        # Grok-1's four norms: the pre-norms in the input / MLP slots, the
+        # output norms in Gemma-2's post_attn_out_norm / post_ffw_norm
+        for i in range(L):
+            for a, b in (("pre_attn_norm", "input_layernorm"),
+                         ("post_attn_norm", "post_attn_out_norm"),
+                         ("pre_moe_norm", "post_attention_layernorm"),
+                         ("post_moe_norm", "post_ffw_norm")):
+                sd[f"layers.{i}.{b}.weight"] = \
+                    sd.pop(f"layers.{i}.{a}.weight")
 
     def split3(out, i, fused, suf, n_k):
         out[f"layers.{i}.self_attn.q_proj.{suf}"] = fused[:nq]
@@ -471,15 +574,50 @@ def _plus_one(w: torch.Tensor, dtype) -> torch.Tensor:
     return (w.to(dtype).float() + 1.0).to(dtype)
 
 
+def _moe_params(out, sd, pre, src, cfg):
+    """A MoE layer's HF weights → LlamaLayer names: Qwen's / DeepSeek's
+    mlp.gate router and mlp.experts.{e}.*_proj with the singular
+    (Qwen2-MoE, with its scalar shared_expert_gate) or plural (DeepSeek)
+    shared expert, or Mixtral's / Grok's block_sparse_moe gate and
+    experts.{e}.w1 (gate) / w3 (up) / w2 (down); [out, in] weights become
+    [E, in, out] stacks (the shared expert one expert)."""
+    E = cfg.num_experts
+    if src + "mlp.gate.weight" in sd:
+        out[pre + "moe_router"] = sd[src + "mlp.gate.weight"].t()
+        names = (("moe_gate", "gate_proj"), ("moe_up", "up_proj"),
+                 ("moe_down", "down_proj"))
+        expert = src + "mlp.experts.{}.{}.weight"
+        shared = next((p for p in ("mlp.shared_expert.",
+                                   "mlp.shared_experts.")
+                       if f"{src}{p}gate_proj.weight" in sd), None)
+    else:
+        out[pre + "moe_router"] = sd[src + "block_sparse_moe.gate.weight"].t()
+        names = (("moe_gate", "w1"), ("moe_up", "w3"), ("moe_down", "w2"))
+        expert = src + "block_sparse_moe.experts.{}.{}.weight"
+        shared = None
+    for ours, theirs in names:
+        out[pre + ours + ".weight"] = torch.stack(
+            [sd[expert.format(e, theirs)].t() for e in range(E)])
+        if shared:
+            out[pre + "moe_shared_" + ours[4:] + ".weight"] = \
+                sd[f"{src}{shared}{theirs}.weight"].t()[None]
+    if shared and src + "mlp.shared_expert_gate.weight" in sd:
+        out[pre + "moe_shared_gate_w"] = \
+            sd[src + "mlp.shared_expert_gate.weight"].t()
+
+
 def llama_params_from_hf(sd: StateDict, cfg: LlamaConfig,
-                         dtype=torch.bfloat16, device=None) -> LlamaModel:
-    """A dense family's HF names → LlamaModel (the reference's
-    llama_params_from_hf, convert.py:393-750, on the dense families). A
+                         dtype=torch.bfloat16, device=None,
+                         weight_quant: str = "none") -> LlamaModel:
+    """A dense or MoE family's HF names → LlamaModel (the reference's
+    llama_params_from_hf, convert.py:393-806). A
     LlamaForSequenceClassification checkpoint's `score.weight` becomes the
     `score` head; such a checkpoint has no lm_head, and its embedding is
     copied into the LM head (the reference's tied fallback, convert.py:
     748-749), so that it still loads for generation. A tied head (Gemma,
-    Cohere, GPT-BigCode) is the embedding itself."""
+    Cohere, GPT-BigCode) is the embedding itself. weight_quant "int8" or
+    "int4": the model in that layout (unfused), each layer quantized as it
+    reaches the device (serve/engine.py `build_quantized`)."""
     sd = _canonical(sd, cfg)
     L, d = cfg.num_hidden_layers, cfg.hidden_size
     out = {"embed_tokens": sd["embed_tokens.weight"],
@@ -519,6 +657,11 @@ def llama_params_from_hf(sd: StateDict, cfg: LlamaConfig,
         if src + "self_attn.q_norm.weight" in sd:      # Qwen3, Cohere
             out[pre + "q_norm"] = sd[src + "self_attn.q_norm.weight"]
             out[pre + "k_norm"] = sd[src + "self_attn.k_norm.weight"]
+        for name in ("post_attn_out_norm", "post_ffw_norm"):   # Grok-1
+            if src + name + ".weight" in sd:
+                out[pre + name] = sd[src + name + ".weight"]
+        if is_moe_layer(cfg, i):
+            _moe_params(out, sd, pre, src, cfg)
     if cfg.norm_type == "layernorm":
         out["final_norm_bias"] = sd.get("norm.bias", torch.zeros(d))
     if cfg.norm_upcast_mul:         # Gemma's (1 + w): absorb the 1
@@ -526,10 +669,32 @@ def llama_params_from_hf(sd: StateDict, cfg: LlamaConfig,
                   and not k.endswith(("q_norm", "k_norm"))]:
             out[k] = _plus_one(out[k], dtype)
     extras = {k.rsplit(".", 1)[-1] for k in out} | set(out)
-    return _load(LlamaModel(cfg, device="meta", dtype=dtype,
-                            num_labels=num_labels,
-                            extras=[n for n in LAYER_EXTRAS + TOP_EXTRAS
-                                    if n in extras]), out, device)
+    kw = dict(extras=[n for n in LAYER_EXTRAS + TOP_EXTRAS if n in extras])
+    last = f"layers.{L - 1}."
+    if last + "moe_gate.weight" in out:
+        shared = out.get(last + "moe_shared_gate.weight")
+        kw.update(moe_inter=out[last + "moe_gate.weight"].shape[2],
+                  shared_inter=0 if shared is None else shared.shape[2],
+                  shared_gate=last + "moe_shared_gate_w" in out)
+    if weight_quant == "none":
+        return _load(LlamaModel(cfg, device="meta", dtype=dtype,
+                                num_labels=num_labels, **kw), out, device)
+    from aurora_tpu_torch.serve.engine import build_quantized
+    device = device or "cuda"
+
+    def dense_layer(l):
+        pre = f"layers.{l}."
+        layer = LlamaLayer(cfg, device="meta", dtype=dtype,
+                           extras=tuple(kw["extras"]),
+                           moe=is_moe_layer(cfg, l),
+                           **{k: v for k, v in kw.items() if k != "extras"})
+        return _load(layer, {k[len(pre):]: v for k, v in out.items()
+                             if k.startswith(pre)}, device)
+
+    return build_quantized(cfg, weight_quant, dense_layer,
+                           {k: v for k, v in out.items()
+                            if not k.startswith("layers.")}, device, dtype,
+                           num_labels=num_labels, **kw)
 
 
 def projector_params_from_hf(sd: StateDict, cfg: ProjectorConfig,
@@ -548,16 +713,32 @@ def projector_params_from_hf(sd: StateDict, cfg: ProjectorConfig,
 # Directory loaders
 # ---------------------------------------------------------------------------
 
-def load_serving_dir(model_path: str, dtype=torch.bfloat16, device=None):
-    """A HF decoder directory → (LlamaModel, LlamaConfig) as the serving
-    engine runs it: Gemma2ForCausalLM through models/gemma2.py and its
-    serving mapping (the reference's cli/serve.py:94-104), every dense
-    model_type through `llama_config_from_hf`. DeepseekV2 (MLA) raises
-    NotImplementedError naming its ROADMAP item."""
+def load_serving_dir(model_path: str, dtype=torch.bfloat16, device=None,
+                     weight_quant: str = "none"):
+    """A HF decoder directory → (model, serving LlamaConfig) as the
+    serving engine runs it (the reference's cli/serve.py:94-131):
+    Gemma2ForCausalLM through models/gemma2.py and its serving mapping;
+    DeepseekV2ForCausalLM through models/deepseek_v2.py and serve/mla.py
+    (an MLAServingModel; bf16 only, so weight_quant other than "none"
+    raises NotImplementedError); every other model_type through
+    `llama_config_from_hf` and `llama_params_from_hf`, with weight_quant
+    "int8" / "int4" quantizing each layer as it reaches the device (the
+    caller fuses the streams). Gemma-2 loads in dtype and is quantized by
+    the caller."""
     hf_cfg = _read_config(model_path)
     archs = " ".join(hf_cfg.get("architectures") or [])
-    if "DeepseekV2" in archs:
-        raise NotImplementedError(f"{archs}: not ported yet, {NOT_PORTED}")
+    if "DeepseekV2" in archs or hf_cfg.get("model_type") == "deepseek_v2":
+        if weight_quant != "none":
+            raise NotImplementedError(
+                f"weight_quant={weight_quant!r}: MLA (DeepSeek-V2) serves "
+                "bf16 weights and latents, as in the reference")
+        from aurora_tpu_torch.models.deepseek_v2 import (
+            deepseek_v2_config_from_hf, deepseek_v2_params_from_hf)
+        from aurora_tpu_torch.serve.mla import deepseek_serving_params
+        dcfg = deepseek_v2_config_from_hf(hf_cfg)
+        model = deepseek_serving_params(deepseek_v2_params_from_hf(
+            load_torch_state_dict(model_path), dcfg, dtype, device), dcfg)
+        return model, model.cfg
     if "Gemma2" in archs or hf_cfg.get("model_type") == "gemma2":
         from aurora_tpu_torch.models.gemma2 import (gemma2_config_from_hf,
                                                     gemma2_params_from_hf,
@@ -568,7 +749,7 @@ def load_serving_dir(model_path: str, dtype=torch.bfloat16, device=None):
         return model, model.cfg
     cfg = llama_config_from_hf(hf_cfg)
     return llama_params_from_hf(load_torch_state_dict(model_path), cfg,
-                                dtype, device), cfg
+                                dtype, device, weight_quant), cfg
 
 
 Loaded = Tuple[LlamaModel, LlamaConfig, VisionTransformer, ViTConfig,
@@ -601,7 +782,7 @@ def load_llava_hf_dir(model_dir: str, llm_dtype=torch.bfloat16,
     proj_sd = split("multi_modal_projector.")
     if any(k.startswith("ln_") for k in proj_sd):
         raise NotImplementedError("projector LayerNorms (Yi-VL) are not "
-                                  "ported")
+                                  f"ported yet, {NOT_PORTED}")
     llm_sd = split("language_model.")
     if "lm_head.weight" in sd:      # 4.52+ layout: the head at top level
         llm_sd["lm_head.weight"] = sd["lm_head.weight"]

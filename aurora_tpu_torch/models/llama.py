@@ -10,8 +10,21 @@ interleaved rotary (StableLM, GLM), OLMo's qkv clamp, the non-gated MLP
 Gemma's GeGLU, (1 + w) norms, embedding scale, query_pre_attn_scalar,
 alternating sliding windows and logit softcaps, Cohere's parallel block
 and logit scale, GPT-BigCode's learned positions, MiniCPM's embedding,
-residual and logit scales, and tied embeddings. The reference's MoE and
-MLA knobs are not fields here (bridge.py refuses them).
+residual and logit scales, and tied embeddings; the sparse-MoE knobs
+(experts, top-k, the router's mode, renormalization and softcap, the
+dense prefix of DeepSeek v1); and the MLA and YaRN knobs of DeepSeek-V2's
+serving config (serve/mla.py runs those models).
+
+A MoE layer (every layer from `first_k_dense` on when num_experts > 0)
+holds, in place of gate/up/down, the router `moe_router` [D, E] and the
+expert stacks `moe_gate`, `moe_up` [E, D, F] and `moe_down` [E, F, D]
+(ops/moe.py `ExpertStack`: float, or int8 with per-(expert, channel)
+scales in both quantized layouts), and, where the family has one, the
+shared expert as one-expert stacks `moe_shared_gate`/`_up`/`_down` with
+Qwen2-MoE's scalar gate `moe_shared_gate_w` [D, 1]; the router and that
+gate stay float. The expert width F and the shared width come from the
+checkpoint (`moe_layout`), by default the config's intermediate_size and
+no shared expert, as the reference's initializer makes them.
 
 The reference stacks layers as [L, ...] arrays with dense kernels [in,
 out]; here each layer is a module of `nn.Linear`s ([out, in] weights),
@@ -58,6 +71,8 @@ from torch.nn.attention import sdpa_kernel
 
 from aurora_tpu_torch.models.remat import remat_call
 from aurora_tpu_torch.ops.attention import REPEATABLE_SDPA, mha
+from aurora_tpu_torch.ops.moe import (ExpertStack, moe_mlp, moe_mlp_grouped,
+                                     shared_expert_mlp)
 from aurora_tpu_torch.ops.norms import (cohere_layer_norm, family_act,
                                        family_norm, rms_norm)
 from aurora_tpu_torch.ops.pallas.quant_matmul import (MAX_TOKENS,
@@ -106,6 +121,34 @@ class LlamaConfig:
     learned_pos: bool = False           # GPT-BigCode: wpe, no rotary
     embed_scale: Optional[float] = None     # MiniCPM scale_emb
     residual_scale: Optional[float] = None  # MiniCPM scale_depth/sqrt(L)
+    # --- sparse MoE (Mixtral, Qwen-MoE, DBRX, Grok-1, DeepSeek v1) ---
+    num_experts: int = 0                # > 0: the layers' MLP is routed
+    num_experts_per_tok: int = 2
+    # "mixtral": top-k of the logits, softmax over them; "softmax_topk":
+    # fp32 softmax over every expert, then top-k; "deepseek": the MLA
+    # serving config's routing (serve/mla.py)
+    moe_router_mode: str = "mixtral"
+    moe_routed_scaling: float = 1.0     # DeepSeek: routed weights × this
+    moe_norm_topk: bool = False         # renormalize the top-k weights
+    moe_topk_method: str = "greedy"     # or "group_limited_greedy"
+    moe_n_group: int = 1
+    moe_topk_group: int = 1
+    first_k_dense: int = 0              # DeepSeek v1: dense leading layers
+    moe_router_logit_softcap: float = 0.0   # Grok-1: c·tanh(l/c) routing
+    # --- DeepSeek-V2's multi-head latent attention (serve/mla.py maps a
+    # DeepseekV2Config here): with mla_kv_lora_rank set the engine caches
+    # one latent + rope vector a token (num_key_value_heads 1, head_dim
+    # rank + rope) and runs the absorbed attention ---
+    mla_kv_lora_rank: Optional[int] = None
+    mla_q_lora_rank: Optional[int] = None
+    mla_qk_nope_head_dim: int = 0
+    mla_qk_rope_head_dim: int = 0
+    mla_v_head_dim: int = 0
+    mla_first_k_dense: int = 0
+    # YaRN: explicit rotary frequencies and the cos/sin scale
+    # (ops/rope.py `yarn_inv_freq`); MLA's interleaved rotary reads them
+    rope_inv_freq: Optional[tuple] = None
+    rope_attention_scaling: float = 1.0
 
     @property
     def head_dim(self) -> int:
@@ -236,14 +279,18 @@ class W8Linear(nn.Module):
                                device=device))
 
 
-def projection_shapes(cfg: LlamaConfig,
-                      fused: bool) -> Dict[str, Tuple[int, int]]:
+def projection_shapes(cfg: LlamaConfig, fused: bool,
+                      moe: bool = False) -> Dict[str, Tuple[int, int]]:
     """(in, out) of each projection of a layer: per name, or the fused
     serving streams (qkv = q ‖ k ‖ v, gateup = gate ‖ up on the output
-    axis); a non-gated MLP has up and down only."""
+    axis); a non-gated MLP has up and down only, a MoE layer (moe) the
+    attention's alone (its experts are ExpertStacks)."""
     d, i, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
     nq, nkv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
     gated = cfg.mlp_style == "gated"
+    if moe:
+        return ({"qkv": (d, nq + 2 * nkv), "o": (nq, d)} if fused else
+                {"q": (d, nq), "k": (d, nkv), "v": (d, nkv), "o": (nq, d)})
     if fused:
         mlp = {"gateup": (d, 2 * i)} if gated else {"up": (d, i)}
         return {"qkv": (d, nq + 2 * nkv), "o": (nq, d), **mlp,
@@ -302,8 +349,28 @@ def default_extras(cfg: LlamaConfig, fused: bool = False) -> Tuple[str, ...]:
 def extras_of(model: nn.Module) -> Tuple[str, ...]:
     """The family parameters `model` (a LlamaModel) holds."""
     names = {n for n, _ in model.named_parameters(recurse=False)}
-    names |= {n for n, _ in model.layers[0].named_parameters(recurse=False)}
+    for lp in (model.layers[0], model.layers[-1]):
+        names |= {n for n, _ in lp.named_parameters(recurse=False)}
     return tuple(n for n in LAYER_EXTRAS + TOP_EXTRAS if n in names)
+
+
+def is_moe_layer(cfg: LlamaConfig, l: int) -> bool:
+    """Layer l routes its MLP: every layer past the dense prefix of a
+    config with experts."""
+    return cfg.num_experts > 0 and l >= cfg.first_k_dense
+
+
+def moe_layout(model: nn.Module) -> Dict[str, int]:
+    """The MoE widths of `model` (LlamaModel's moe_inter, shared_inter and
+    shared_gate), read from its last layer; {} for a dense model."""
+    lp = model.layers[-1]
+    if not hasattr(lp, "moe_router"):
+        return {}
+    shared = getattr(lp, "moe_shared_gate", None)
+    return {"moe_inter": lp.moe_gate.weight.shape[2],
+            "shared_inter": 0 if shared is None else
+            shared.weight.shape[2],
+            "shared_gate": hasattr(lp, "moe_shared_gate_w")}
 
 
 def _extra_param(shape, name, kw) -> nn.Parameter:
@@ -313,9 +380,16 @@ def _extra_param(shape, name, kw) -> nn.Parameter:
 
 
 class LlamaLayer(nn.Module):
+    """One decoder layer's parameters. moe: the routed layout (router,
+    expert stacks of width moe_inter, the shared expert of width
+    shared_inter > 0 with its scalar gate if shared_gate); its experts are
+    int8 under either weight_quant."""
+
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
                  weight_quant: str = "none", fused: bool = False,
-                 extras: Tuple[str, ...] = ()):
+                 extras: Tuple[str, ...] = (), moe: bool = False,
+                 moe_inter: Optional[int] = None, shared_inter: int = 0,
+                 shared_gate: bool = False):
         super().__init__()
         d = cfg.hidden_size
         kw = dict(device=device, dtype=dtype)
@@ -326,7 +400,25 @@ class LlamaLayer(nn.Module):
         for name in extras:
             if name in LAYER_EXTRAS:
                 setattr(self, name, _extra_param(shapes[name], name, kw))
-        for name, (n_in, n_out) in projection_shapes(cfg, fused).items():
+        if moe:
+            E, F_ = cfg.num_experts, moe_inter or cfg.intermediate_size
+            q = weight_quant != "none"
+            self.moe_router = nn.Parameter(torch.zeros(d, E, **kw))
+            self.moe_gate = ExpertStack.empty(E, d, F_, q, **kw)
+            self.moe_up = ExpertStack.empty(E, d, F_, q, **kw)
+            self.moe_down = ExpertStack.empty(E, F_, d, q, **kw)
+            if shared_inter:
+                self.moe_shared_gate = ExpertStack.empty(1, d, shared_inter,
+                                                         q, **kw)
+                self.moe_shared_up = ExpertStack.empty(1, d, shared_inter,
+                                                       q, **kw)
+                self.moe_shared_down = ExpertStack.empty(1, shared_inter, d,
+                                                         q, **kw)
+                if shared_gate:
+                    self.moe_shared_gate_w = nn.Parameter(
+                        torch.zeros(d, 1, **kw))
+        for name, (n_in, n_out) in projection_shapes(cfg, fused,
+                                                     moe).items():
             if weight_quant == "int4":
                 proj = W4Linear.empty(n_in, n_out, device=device)
             elif weight_quant == "int8":
@@ -344,11 +436,17 @@ class LlamaModel(nn.Module):
     `embed_tokens`). extras: the family parameters to hold (LAYER_EXTRAS
     and TOP_EXTRAS names; default `default_extras(cfg, fused)`).
     num_labels > 0 adds the classification head `score`
-    (LlamaForSequenceClassification's score.weight, [num_labels, D])."""
+    (LlamaForSequenceClassification's score.weight, [num_labels, D]).
+    With experts, layers from cfg.first_k_dense on are MoE layers
+    (moe_inter, shared_inter, shared_gate: see LlamaLayer); the dense
+    prefix before them (`dense_layers`) stays float and per-name under
+    any weight_quant, as the reference leaves its `dense_layers`."""
 
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
                  weight_quant: str = "none", fused: bool = False,
-                 num_labels: int = 0, extras=None):
+                 num_labels: int = 0, extras=None,
+                 moe_inter: Optional[int] = None, shared_inter: int = 0,
+                 shared_gate: bool = False):
         super().__init__()
         if weight_quant not in ("none", "int4", "int8"):
             raise NotImplementedError(
@@ -363,10 +461,14 @@ class LlamaModel(nn.Module):
         for name in extras:
             if name in TOP_EXTRAS:
                 setattr(self, name, _extra_param(shapes[name], name, kw))
+        prefix = cfg.first_k_dense if cfg.num_experts > 0 else 0
         self.layers = nn.ModuleList(
-            LlamaLayer(cfg, weight_quant=weight_quant, fused=fused,
-                       extras=extras, **kw)
-            for _ in range(cfg.num_hidden_layers))
+            LlamaLayer(cfg, weight_quant=weight_quant if l >= prefix
+                       else "none", fused=fused and l >= prefix,
+                       extras=extras, moe=is_moe_layer(cfg, l),
+                       moe_inter=moe_inter, shared_inter=shared_inter,
+                       shared_gate=shared_gate, **kw)
+            for l in range(cfg.num_hidden_layers))
         self.final_norm = nn.Parameter(torch.ones(d, **kw))
         if cfg.tie_word_embeddings:
             pass                      # the head is embed_tokens
@@ -376,6 +478,14 @@ class LlamaModel(nn.Module):
             self.lm_head = nn.Linear(d, cfg.vocab_size, bias=False, **kw)
         if num_labels > 0:
             self.score = nn.Linear(d, num_labels, bias=False, **kw)
+
+    @property
+    def dense_layers(self):
+        """DeepSeek v1's dense leading layers (the reference's
+        `dense_layers`): the first cfg.first_k_dense of `layers`, which
+        keep their absolute indexes there."""
+        k = self.cfg.first_k_dense if self.cfg.num_experts > 0 else 0
+        return self.layers[:k]
 
 
 # the serving engine's weight layouts, which only serve/engine.py computes
@@ -443,16 +553,41 @@ def layer_attn_out(cfg: LlamaConfig, lp: LlamaLayer, attn, dot=_dense):
     return out
 
 
-def layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense):
+def moe_layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h,
+                  grouped: bool = False):
+    """A MoE layer's MLP on the normed input h: the routed experts in the
+    config's router mode (a "deepseek" router routes as Mixtral's here,
+    as in the reference's llama path) through the grouped form (grouped)
+    or the dense one, plus the shared expert where the layer has one, in
+    h's dtype."""
+    fn = moe_mlp_grouped if grouped else moe_mlp
+    out = fn({"router": lp.moe_router, "gate": lp.moe_gate,
+              "up": lp.moe_up, "down": lp.moe_down}, h,
+             cfg.num_experts_per_tok,
+             router_mode=("softmax_topk"
+                          if cfg.moe_router_mode == "softmax_topk"
+                          else "mixtral"),
+             norm_topk=cfg.moe_norm_topk,
+             router_logit_softcap=cfg.moe_router_logit_softcap)
+    if hasattr(lp, "moe_shared_gate"):
+        out = out + shared_expert_mlp(lp, h)
+    return out
+
+
+def layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense,
+              moe_grouped: bool = False):
     """The MLP branch on the normed input h (the reference's `_mlp`
-    without the residual): gated (SiLU or GeGLU) per-name, fused
-    (gateup) or a W4FusedMLP, or non-gated (up → act → down, with
-    biases); then the down bias, Gemma-2's output norm and MiniCPM's
-    residual scale. With a W4FusedMLP, at most MAX_TOKENS tokens run as
-    one `fused_mlp_w4` call; more (prefill) untile the weights and run
-    gateup and down through `dot`, act(gate)·up in h's dtype between
-    them."""
-    if hasattr(lp, "mlp"):          # fused-MLP W4 layout
+    without the residual): a MoE layer's experts (`moe_layer_mlp`, the
+    grouped form with moe_grouped, else the dense one); gated (SiLU or
+    GeGLU) per-name, fused (gateup) or a W4FusedMLP, or non-gated (up →
+    act → down, with biases); then the down bias, Gemma-2's output norm
+    and MiniCPM's residual scale. With a W4FusedMLP, at most MAX_TOKENS
+    tokens run as one `fused_mlp_w4` call; more (prefill) untile the
+    weights and run gateup and down through `dot`, act(gate)·up in h's
+    dtype between them."""
+    if hasattr(lp, "moe_router"):   # Mixtral / Qwen-MoE / DeepSeek v1
+        out = moe_layer_mlp(cfg, lp, h, moe_grouped)
+    elif hasattr(lp, "mlp"):        # fused-MLP W4 layout
         lead = h.shape[:-1]
         if math.prod(lead) <= MAX_TOKENS:
             out = fused_mlp_w4(h.reshape(-1, h.shape[-1]), *lp.mlp.tensors())

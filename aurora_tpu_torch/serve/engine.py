@@ -66,11 +66,22 @@ extend call, re-tokenized first (token healing: the row is rewound to the
 first token that the canonical tokenization changes); requests that want
 logprobs are not jumped.
 
-The decoder is the universal dense one (models/llama.py): every dense
+The decoder is the universal one (models/llama.py): every dense
 family's knobs act at their sites in `_forward_rows` and `_lm_head`,
-Gemma-2's alternating windows through `layer_window`. Not ported yet
-(each raises NotImplementedError when asked for): tensor parallelism and
-the MoE and MLA families.
+Gemma-2's alternating windows through `layer_window`. A MoE layer's MLP
+(Mixtral, Qwen-MoE, DBRX, Grok-1, DeepSeek v1 after its dense prefix)
+runs the sort-by-expert form over the grouped-expert kernel
+(ops/moe.py) for extend and decode on the card; on the CPU, as in the
+reference, extend runs the grouped form (its plain twin) and decode the
+dense all-expert form. Its experts are int8 in both quantized layouts
+(one scale per expert and output channel; the router and Qwen's shared
+gate stay float), and DeepSeek v1's dense prefix stays float and
+unfused, as the reference leaves its `dense_layers`. A DeepSeek-V2
+serving config (mla_kv_lora_rank set) runs serve/mla.py over latent rows
+[L, B, 1, S, rank + rope] and a latent pool, in bf16 on one device: its
+engine refuses kv_quant and weight_quant, as the reference does. Not
+ported yet (each raises NotImplementedError when asked for): tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -90,9 +101,10 @@ from torch import nn
 from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
                                            W4FusedMLP, W4Linear, W8Linear,
                                            dnorm, extras_of, layer_attn_out,
-                                           layer_mlp, layer_qkv,
+                                           layer_mlp, layer_qkv, moe_layout,
                                            projection_shapes, scale_embeds,
                                            w4_group)
+from aurora_tpu_torch.ops.moe import ExpertStack
 from aurora_tpu_torch.ops.pallas.quant_matmul import (INV127, MAX_TOKENS,
                                                       quantize_activations,
                                                       quantize_rows,
@@ -233,14 +245,32 @@ class EngineConfig:
 def kv_bytes_per_token_layer(cfg: LlamaConfig, kv_quant: str,
                              kv_dtype) -> int:
     """K + V bytes of one token in one layer (int8: values plus the fp32
-    scale of each head; int4: nibble-packed values plus the scales)."""
+    scale of each head; int4: nibble-packed values plus the scales). An
+    MLA config caches one latent plane (rank + rope wide) and no V."""
     hkv, hd = cfg.num_key_value_heads, cfg.head_dim
+    planes = 1 if cfg.mla_kv_lora_rank else 2
     if kv_quant == "int8":
-        return 2 * hkv * (hd + 4)
+        return planes * hkv * (hd + 4)
     if kv_quant == "int4":
-        return 2 * hkv * (hd // 2 + 4)
+        return planes * hkv * (hd // 2 + 4)
     itemsize = torch.empty((), dtype=kv_dtype).element_size()
-    return 2 * hkv * hd * itemsize
+    return planes * hkv * hd * itemsize
+
+
+def moe_workspace_bytes(cfg: LlamaConfig, ecfg: "EngineConfig") -> int:
+    """Device bytes one MoE layer's grouped form holds at the largest
+    extend wave (lanes × the largest bucket tokens, k copies each): the
+    sorted rows, gate, up and their product in bf16, the fp32 down
+    output, its weighted copy and the gathered per-token parts; 0 without
+    experts."""
+    if not cfg.num_experts:
+        return 0
+    tokens = min(ecfg.max_batch, ecfg.max_extend_lanes) * max(
+        ecfg.prefill_buckets)
+    D = cfg.hidden_size
+    F_ = max(cfg.intermediate_size, 1)
+    copies = tokens * cfg.num_experts_per_tok
+    return copies * (2 * D + 3 * 2 * F_ + 3 * 4 * D)
 
 
 def row_buffer_bytes(cfg: LlamaConfig, ecfg: EngineConfig) -> int:
@@ -274,11 +304,16 @@ def auto_engine_config(cfg: LlamaConfig, base: EngineConfig, *,
     stays for the radix pool and the work space), up to 256; num_slots
     takes what the rows leave, at least a full batch of rows plus one.
     budget_bytes defaults to mem_fraction of free_hbm_bytes(device), or of
-    4.7e9 where the device reports none (the CPU)."""
+    4.7e9 where the device reports none (the CPU). A MoE config first
+    sets aside its extend workspace (`moe_workspace_bytes`, at the base's
+    max_batch or, when that is auto, at max_extend_lanes lanes)."""
     if budget_bytes is None:
         free = free_hbm_bytes(device)
         budget_bytes = int((free if free is not None else 4.7e9)
                            * mem_fraction)
+    budget_bytes -= moe_workspace_bytes(cfg, dataclasses.replace(
+        base, max_batch=base.max_batch if base.max_batch > 0
+        else base.max_extend_lanes))
     out = base
     if out.max_batch <= 0:
         b = 1
@@ -317,6 +352,24 @@ def _w8(w: torch.Tensor):
                        127).to(torch.int8), s
 
 
+# an [out, in] projection weight → its W4 / W8 module
+_QUANTIZE_PROJ = {"int4": lambda w: W4Linear(*_w4(w)),
+                  "int8": lambda w: W8Linear(*_w8(w))}
+
+
+def _w8_experts(stack: ExpertStack) -> ExpertStack:
+    """A float expert stack [E, in, out] → int8 with one fp32 scale per
+    (expert, output channel) [E, out]: the reference's `_w8` over the
+    input axis, one expert at a time (one expert's fp32 transient)."""
+    w = stack.weight.detach()
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32,
+                    device=w.device)
+    for e in range(w.shape[0]):
+        q[e], s[e] = (t.t() for t in _w8(w[e].t()))
+    return ExpertStack(q, s)
+
+
 def _w4(w: torch.Tensor):
     """[out, in] weight → (packed int8 [out, in/2], fp32 scales [out, G]):
     symmetric absmax per (output channel, group of min(128, in) input
@@ -336,19 +389,79 @@ def _share_params(src: nn.Module, dst: nn.Module) -> None:
         setattr(dst, name, p)
 
 
+def quantize_layer(cfg: LlamaConfig, src: nn.Module, dst: nn.Module,
+                   quantize, free_source: bool = False) -> nn.Module:
+    """Layer `src` (dense) quantized into `dst` (a layer of the quantized
+    layout, on any device): its norms and extras, router and shared gate
+    shared, each projection through `quantize` ([out, in] weight → a
+    W4Linear/W8Linear), each expert stack to int8 (`_w8_experts`).
+    free_source drops each source projection and stack as it goes.
+    Returns dst."""
+    _share_params(src, dst)
+    fused = hasattr(src, "qkv")
+    for name in projection_shapes(cfg, fused, hasattr(src, "moe_router")):
+        setattr(dst, name, quantize(getattr(src, name).weight.detach()))
+        if free_source:
+            setattr(src, name, None)
+    for name, mod in list(src.named_children()):
+        if isinstance(mod, ExpertStack):
+            setattr(dst, name, _w8_experts(mod) if mod.scale is None
+                    else mod)
+            if free_source:
+                setattr(src, name, None)
+    return dst
+
+
+def build_quantized(cfg: LlamaConfig, weight_quant: str, dense_layer,
+                    top: Dict[str, torch.Tensor], device, dtype,
+                    **model_kw) -> LlamaModel:
+    """A W8 ("int8") or W4 ("int4") LlamaModel assembled one layer at a
+    time, so that the float model never exists whole on the device (a
+    Mixtral-8x7B in bf16 is more than the card holds): `dense_layer(l)`
+    gives float layer l on the device, which `quantize_layer` turns into
+    the quantized layout and which is then dropped (a dense prefix layer
+    is kept as it is); `top` holds the model's own tensors by state-dict
+    name (embed_tokens, final_norm, the top extras, lm_head.weight,
+    score.weight), the head quantized to int8 unless the embeddings are
+    tied. model_kw: LlamaModel's extras and MoE widths. Unfused."""
+    quantize = _QUANTIZE_PROJ[weight_quant]
+    out = LlamaModel(cfg, device="meta", dtype=dtype,
+                     weight_quant=weight_quant, **model_kw)
+    for name, p in list(out.named_parameters(recurse=False)):
+        setattr(out, name, nn.Parameter(
+            top[name].to(device=device, dtype=p.dtype), requires_grad=False))
+    if not cfg.tie_word_embeddings:
+        out.lm_head = W8Linear(*_w8(top["lm_head.weight"].to(
+            device=device, dtype=dtype)))
+    if hasattr(out, "score"):
+        out.score = nn.Linear(cfg.hidden_size, out.score.out_features,
+                              bias=False, device=device, dtype=dtype)
+        out.score.weight.data.copy_(top["score.weight"])
+    for l in range(cfg.num_hidden_layers):
+        src = dense_layer(l)
+        if l < len(out.dense_layers):
+            out.layers[l] = src
+        else:
+            out.layers[l] = quantize_layer(cfg, src, out.layers[l],
+                                           quantize, free_source=True)
+        del src
+    return out
+
+
 def _quantize_model(model: LlamaModel, weight_quant: str, quantize,
                     free_source: bool) -> LlamaModel:
     cfg = model.cfg
-    fused = hasattr(model.layers[0], "qkv")
+    fused = hasattr(model.layers[-1], "qkv")
     out = LlamaModel(cfg, device="meta", weight_quant=weight_quant,
-                     fused=fused, extras=extras_of(model))
+                     fused=fused, extras=extras_of(model),
+                     **moe_layout(model))
     _share_params(model, out)
-    for src, dst in zip(model.layers, out.layers):
-        _share_params(src, dst)
-        for name in projection_shapes(cfg, fused):
-            setattr(dst, name, quantize(getattr(src, name).weight.detach()))
-            if free_source:
-                setattr(src, name, None)
+    prefix = len(model.dense_layers)
+    for l, (src, dst) in enumerate(zip(model.layers, out.layers)):
+        if l < prefix:      # DeepSeek v1's dense prefix stays as it is
+            out.layers[l] = src
+            continue
+        quantize_layer(cfg, src, dst, quantize, free_source)
     if not cfg.tie_word_embeddings:     # a tied head stays the embedding
         out.lm_head = W8Linear(*_w8(model.lm_head.weight.detach()))
         if free_source:
@@ -365,8 +478,10 @@ def quantize_weights_int4(model: LlamaModel,
     norms are shared with `model`, not copied. Quantizes one projection
     at a time. free_source=True drops each source nn.Linear from `model`
     as it is quantized, so peak memory stays about the dense model plus
-    one projection's fp32 transient; `model` is then left without them."""
-    return _quantize_model(model, "int4", lambda w: W4Linear(*_w4(w)),
+    one projection's fp32 transient; `model` is then left without them.
+    MoE expert stacks become int8 (`_w8_experts`), as the reference's W4
+    tree holds them; DeepSeek v1's dense prefix stays as it is."""
+    return _quantize_model(model, "int4", _QUANTIZE_PROJ["int4"],
                            free_source)
 
 
@@ -374,9 +489,9 @@ def quantize_weights_int8(model: LlamaModel,
                           free_source: bool = False) -> LlamaModel:
     """A W8 model from a dense one: every layer projection and the LM
     head → W8Linear (int8, one fp32 scale per output channel), as
-    quantize_weights_int4 does it (shared embeddings and norms,
-    free_source)."""
-    return _quantize_model(model, "int8", lambda w: W8Linear(*_w8(w)),
+    quantize_weights_int4 does it (shared embeddings and norms, int8
+    experts, the dense prefix kept, free_source)."""
+    return _quantize_model(model, "int8", _QUANTIZE_PROJ["int8"],
                            free_source)
 
 
@@ -436,12 +551,16 @@ def w4_decode_layout(model: LlamaModel, cfg: LlamaConfig,
            for layer, (mlp, projs) in zip(model.layers, plan)):
         return model
     out = LlamaModel(cfg, device="meta", weight_quant="int4",
-                     fused=hasattr(model.layers[0], "qkv"),
-                     extras=extras_of(model))
+                     fused=hasattr(model.layers[-1], "qkv"),
+                     extras=extras_of(model), **moe_layout(model))
     _share_params(model, out)
     if hasattr(model, "lm_head"):
         out.lm_head = model.lm_head
-    for src, dst, (mlp, projs) in zip(model.layers, out.layers, plan):
+    for l, (src, dst, (mlp, projs)) in enumerate(zip(model.layers,
+                                                     out.layers, plan)):
+        if l < len(model.dense_layers):     # float, untouched
+            out.layers[l] = src
+            continue
         _share_params(src, dst)
         for name in [n for n, _ in dst.named_children()]:
             delattr(dst, name)
@@ -453,8 +572,9 @@ def w4_decode_layout(model: LlamaModel, cfg: LlamaConfig,
 
 
 def weight_quant_of(model: LlamaModel) -> str:
-    """"int4", "int8" or "none": how `model`'s layer weights are stored."""
-    proj = model.layers[0].o
+    """"int4", "int8" or "none": how `model`'s layer weights are stored
+    (read from the last layer: a dense prefix stays float)."""
+    proj = model.layers[-1].o
     if isinstance(proj, W4Linear):
         return "int4"
     return "int8" if isinstance(proj, W8Linear) else "none"
@@ -477,10 +597,10 @@ def _cat_out(parts):
 
 def fuse_serving_weights(model: LlamaModel) -> LlamaModel:
     """q/k/v → qkv (their biases → qkv_bias) and gate/up → gateup in
-    every layer, IN PLACE (each layer's sources are dropped as its fused
-    stream is built, so peak memory stays about one model). Returns
-    `model`."""
-    for layer in model.layers:
+    every layer past a dense prefix (which the reference leaves per-name),
+    IN PLACE (each layer's sources are dropped as its fused stream is
+    built, so peak memory stays about one model). Returns `model`."""
+    for layer in model.layers[len(model.dense_layers):]:
         for fused, names in (("qkv", ("q", "k", "v")),
                              ("gateup", ("gate", "up"))):
             if not all(hasattr(layer, n) for n in names):
@@ -772,11 +892,22 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
     the output norms, the parallel block, residual scale, norm biases);
     both kernels take each layer's sliding window (`layer_window`),
     cfg.attn_scale and cfg.attn_logit_softcap. Returns the last valid
-    token's final hidden state per lane, [Bk, D].
+    token's final hidden state per lane, [Bk, D]. A MoE layer's MLP runs
+    the grouped form on the card and, on the CPU, for extend (the dense
+    form for a CPU decode, as in the reference); the layers of a dense
+    prefix keep their absolute index l into the rows. An MLA config goes
+    to serve/mla.py `forward_rows_mla` (the same contract).
     """
+    if cfg.mla_kv_lora_rank:        # DeepSeek-V2: latent rows (serve/mla.py)
+        from aurora_tpu_torch.serve.mla import forward_rows_mla
+        return forward_rows_mla(model, cfg, embeds, rows, row_ids,
+                                q_offsets, kv_lens, kv_write)
     x = scale_embeds(cfg, embeds)
     Bk, T, _ = x.shape
     quant = "ks" in rows
+    # on the card a MoE layer always runs the grouped form (its kernel);
+    # on the CPU the reference's choice, grouped for extend only
+    moe_grouped = x.is_cuda or T > 1
     kv_pack = _is_packed(rows)
     maxq = 7.0 if kv_pack else kv_maxq
     dot = functools.partial(_wdot, a8_prefill=a8_prefill)
@@ -817,11 +948,11 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
         attn = layer_attn_out(cfg, lp, attn.reshape(Bk, T, -1).to(x.dtype),
                               dot)
         if cfg.parallel_block:      # Cohere: x + attn + mlp(the same h)
-            x = x + attn + layer_mlp(cfg, lp, h, dot)
+            x = x + attn + layer_mlp(cfg, lp, h, dot, moe_grouped)
         else:
             x = x + attn
             x = x + layer_mlp(cfg, lp, dnorm(cfg, x, lp, "post_attn_norm"),
-                              dot)
+                              dot, moe_grouped)
     x = dnorm(cfg, x, model, "final_norm")
     last = (kv_lens.long() - q_offsets.long() - 1).clamp(0, T - 1)
     return x[torch.arange(Bk, device=x.device), last]
@@ -954,10 +1085,11 @@ class DeviceRunner:
         store = torch.int8 if quant else ecfg.kv_dtype
         # int4: S/2 nibble-packed rows beside full-S scale planes
         Sv = S // 2 if ecfg.kv_quant == "int4" else S
-        self.rows = {"k": torch.zeros((L, B, Hkv, Sv, hd), dtype=store,
-                                      device=self.device),
-                     "v": torch.zeros((L, B, Hkv, Sv, hd), dtype=store,
-                                      device=self.device)}
+        # MLA: one latent plane (rank + rope wide), a dummy head axis
+        planes = ("k",) if cfg.mla_kv_lora_rank else ("k", "v")
+        self.rows = {name: torch.zeros((L, B, Hkv, Sv, hd), dtype=store,
+                                       device=self.device)
+                     for name in planes}
         if quant:       # per-token fp32 scales of the int8/int4 rows
             for name in ("ks", "vs"):
                 self.rows[name] = torch.zeros((L, B, Hkv, S),
@@ -1101,6 +1233,11 @@ class ServeEngine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.tokenizer = tokenizer
+        if cfg.mla_kv_lora_rank and (ecfg.kv_quant != "none"
+                                     or ecfg.weight_quant != "none"):
+            raise NotImplementedError(
+                "MLA serving takes bf16 latents and weights on one device "
+                "(kv_quant and weight_quant 'none'), as the reference's")
         have = weight_quant_of(model)
         if have != ecfg.weight_quant:
             if have != "none":
@@ -1246,7 +1383,7 @@ class ServeEngine:
                                  f"weights of a {self.ecfg.weight_quant!r} "
                                  "engine")
             model = _QUANTIZE[self.ecfg.weight_quant](model)
-        if hasattr(self.runner.model.layers[0], "qkv"):
+        if hasattr(self.runner.model.layers[-1], "qkv"):
             model = fuse_serving_weights(model)
         return w4_decode_layout(model, self.cfg, self.ecfg)
 

@@ -12,6 +12,10 @@ int8 and int4 KV store int8 values beside fp32 per-token scale planes
 ks/vs [L, num_slots, Hkv]. The int4 pool stays token-granular, as the
 reference's does: its slots hold the 16-level grid values in an int8
 container, and the rows pack and unpack at the pool boundary.
+
+An MLA config (DeepSeek-V2, mla_kv_lora_rank set) caches one latent
+vector a token: a single plane "k" [L, num_slots, 1, rank + rope] and no
+"v" (the reference's latent pool).
 """
 
 from __future__ import annotations
@@ -49,21 +53,20 @@ class SlotAllocator:
 class KVPool:
     """Device KV slot buffers: {"k", "v"} [L, num_slots, Hkv, hd] in
     `dtype`, or int8 with fp32 {"ks", "vs"} [L, num_slots, Hkv] when
-    quant is set (int8 and int4 KV)."""
+    quant is set (int8 and int4 KV); MLA: {"k"} [L, num_slots, 1, hd]."""
 
     def __init__(self, cfg: LlamaConfig, num_slots: int,
                  dtype=torch.bfloat16, quant: bool = False, device=None):
-        if getattr(cfg, "mla_kv_lora_rank", None):
-            raise NotImplementedError("MLA's latent KV pool is not ported")
         self.cfg = cfg
         self.num_slots = num_slots
         self.quant = quant
-        shape = (cfg.num_hidden_layers, num_slots, cfg.num_key_value_heads,
-                 cfg.head_dim)
+        self.mla = bool(getattr(cfg, "mla_kv_lora_rank", None))
+        heads = 1 if self.mla else cfg.num_key_value_heads
+        shape = (cfg.num_hidden_layers, num_slots, heads, cfg.head_dim)
         store = torch.int8 if quant else dtype
         self.planes: Dict[str, torch.Tensor] = {
             name: torch.zeros(shape, dtype=store, device=device)
-            for name in ("k", "v")}
+            for name in (("k",) if self.mla else ("k", "v"))}
         if quant:
             for name in ("ks", "vs"):
                 self.planes[name] = torch.zeros(shape[:3],

@@ -24,17 +24,20 @@ from aurora_tpu_torch.serve.scheduler import Request
 class Runtime:
     """Synchronous in-process generation over the serving engine.
 
-    model_path: a HF directory of a dense family or Gemma-2, loaded on the
-    card unless `device` says otherwise (models/convert.py
-    `load_serving_dir`), with its tokenizer through transformers."""
+    model_path: a HF directory of a dense or MoE family, Gemma-2 or
+    DeepSeek-V2, loaded on the card unless `device` says otherwise
+    (models/convert.py `load_serving_dir`; a W8 or W4 engine_config
+    quantizes each layer as it loads), with its tokenizer through
+    transformers."""
 
     def __init__(self, model=None, cfg=None, tokenizer=None, *,
                  model_path: Optional[str] = None,
                  engine_config: Optional[EngineConfig] = None,
                  dtype=None, embed_fn=None, device=None):
         if model_path is not None:
-            model, cfg = load_serving_dir(model_path,
-                                          dtype or torch.bfloat16, device)
+            model, cfg = load_serving_dir(
+                model_path, dtype or torch.bfloat16, device,
+                (engine_config or EngineConfig()).weight_quant)
             tokenizer = auto_tokenizer(model_path)
         if model is None or cfg is None:
             raise ValueError("Runtime needs a model and its config, or "

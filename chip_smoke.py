@@ -289,10 +289,28 @@ losses bit for bit, and `[train-dpo-gemma]` 2 steps at gemma-7b's widths
 (head_dim 256, 1 layer), both through the flash kernels. Every phase
 line ends with at_s, the seconds since the script started.
 
+The MoE and MLA families: `[kernels-moe]` holds the grouped-expert
+kernel (csrc/moe_grouped_mm.cu, the counterpart of the reference's
+`lax.ragged_dot`) against its plain twin at Mixtral-8x7B's, Qwen3-30B-
+A3B's and DeepSeek-V2-Lite's expert shapes, at 4 tokens and 4 x 2048,
+with bf16 and int8 experts, timed beside torch._grouped_mm; after the
+Qwen2 runs `[serve-mixtral-w8kv8]` (twice, bit for bit) and
+`[serve-mixtral-w4kv8]` serve Mixtral-8x7B whole (32 layers, 8 experts
+top-2; random bf16 weights quantized a layer at a time, int8 experts,
+int8 KV), `[serve-qwen3moe]` Qwen3-30B-A3B's widths at 8 layers (128
+experts top-8, bf16, int8 KV) and `[serve-deepseek-v2-lite]` DeepSeek-
+V2-Lite whole (27 layers, MLA over latent rows, YaRN, the radix cache
+on; twice, bit for bit, then a wave of prefix hits), 4 prompts of
+1,500-2,000 ids and 64 tokens each, with their launch counts, the
+distinct experts a decode step touches, and the logits of a wave and a
+decode step against the twins; `[mla-moe-fp32]` holds DeepSeek's fp32
+expert path on the kernel against its fp32 twin.
+
 `python3 chip_smoke.py --only train-cli` runs infer-load and the four
 train-cli phases alone; `--only kernels`, `--only serve-gemma2` (the
-Gemma-2 and Qwen2 runs) and `--only train-dpo` the new phases (no kernel
-JSON line, no final line); `--only` repeats.
+Gemma-2 and Qwen2 runs), `--only train-dpo` and `--only serve-moe` (the
+MoE and MLA phases above) the newer phases (no kernel JSON line, no final
+line); `--only` repeats.
 
 float32 references run with TF32 disabled for matmuls and cuDNN
 convolutions, so they are true fp32.
@@ -424,6 +442,72 @@ GEMMA2_LOGITS_REASON = ("42 random bf16 layers amplify single bf16 "
                         "roundings (Mistral's bound)")
 # Qwen2-7B at its widths, 4 layers: qkv biases drawn N(0, 1) so that they
 # act, G 7, rope theta 1e6
+# The MoE and MLA families: the grouped-expert kernel at each family's
+# expert shape (name, D, F, E, k), at a decode's 4 tokens and a wave of
+# 4 x 2048; Mixtral-8x7B whole at W8 and W4 (int8 experts), Qwen3-30B-A3B
+# at QWEN3MOE_LAYERS of its 48 layers, DeepSeek-V2-Lite whole, each
+# serving N_REQUESTS prompts of MOE_PROMPT random ids, MOE_MAX_NEW tokens
+MOE_SHAPES = (("mixtral-8x7b", 4096, 14336, 8, 2),
+              ("qwen3-30b-a3b", 2048, 768, 128, 8),
+              ("deepseek-v2-lite", 2048, 1408, 64, 6))
+MOE_TOKENS = (4, 4 * 2048)
+MOE_PROMPT = (1500, 2000)
+MOE_MAX_NEW = 64
+MOE_SEQ = 2112            # prompt + new tokens a row holds (2304 a row)
+QWEN3MOE_LAYERS = 8
+# mistralai/Mixtral-8x7B-v0.1's config.json
+MIXTRAL_8X7B = dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    max_position_embeddings=32768, rope_theta=1e6,
+                    rms_norm_eps=1e-5, num_experts=8, num_experts_per_tok=2)
+# Qwen/Qwen3-30B-A3B's config.json (its dense intermediate_size, 6144,
+# serves no layer: every layer is sparse, moe_intermediate_size 768)
+QWEN3_30B_A3B = dict(vocab_size=151936, hidden_size=2048,
+                     intermediate_size=768, num_hidden_layers=48,
+                     num_attention_heads=32, num_key_value_heads=4,
+                     head_dim_override=128, qk_norm=True,
+                     max_position_embeddings=40960, rope_theta=1e6,
+                     rms_norm_eps=1e-6, num_experts=128,
+                     num_experts_per_tok=8, moe_router_mode="softmax_topk",
+                     moe_norm_topk=True)
+# deepseek-ai/DeepSeek-V2-Lite's config.json (the fields the converter
+# reads), YaRN as it ships
+DEEPSEEK_V2_LITE = {
+    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408,
+    "num_hidden_layers": 27, "num_attention_heads": 16,
+    "n_shared_experts": 2, "n_routed_experts": 64,
+    "routed_scaling_factor": 1.0, "kv_lora_rank": 512, "q_lora_rank": None,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "qk_nope_head_dim": 128,
+    "topk_method": "greedy", "n_group": 1, "topk_group": 1,
+    "num_experts_per_tok": 6, "moe_layer_freq": 1,
+    "first_k_dense_replace": 1, "norm_topk_prob": False,
+    "rms_norm_eps": 1e-6, "max_position_embeddings": 163840,
+    "rope_theta": 10000,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                     "mscale": 0.707, "mscale_all_dim": 0.707,
+                     "original_max_position_embeddings": 4096,
+                     "type": "yarn"}}
+# the grouped kernel against its twin: fp32 sums in another order, then
+# one bf16 rounding of the same value: |Δ| <= 2^-8 |want| + MOE_ABS_TOL
+# max |want|
+MOE_ABS_TOL = 1e-5
+# logits of a wave and a decode step, kernels against twins, the twins'
+# pass on the kernels' routing (logits_check's replay): without it a
+# token whose router sits on a near tie routes apart and moves its whole
+# MLP output, and 32 random layers of that gave a rel err of 1.02 and
+# 0/4 argmax agreement (PERF.md §6). With it: Mistral's bound for
+# bf16 and W4 weights (measured on an H100 5.79e-2 Mixtral W4, 6.5e-3
+# Qwen3-MoE, 1.66e-2 DeepSeek-V2-Lite), the W8 engines' for W8 (its
+# per-token activation codes flip; measured 1.20e-1 Mixtral W8)
+MOE_LOGITS_TOL = {"none": 1.5e-1, "int4": 1.5e-1, "int8": LOGITS_W8_REL_TOL}
+MOE_LOGITS_REASON = ("random bf16 layers amplify single bf16 roundings; "
+                     "routing replayed from the kernels' pass")
+# DeepSeek's fp32 expert path on the card (bf16 high + low parts of the
+# fp32 activation into the down product) against the fp32 twin at one
+# MoE layer: max |Δ| / max |want| of the bf16 output
+MLA_MOE_TOL = 1e-2
 QWEN2_LAYERS = 4
 QWEN2_RUNS = (("w8kv8", "int8", "int8"), ("w4kv8", "int4", "int8"))
 # the AuroraCap runs' bounds: the same per-token requantization
@@ -1619,23 +1703,56 @@ def serve(torch, engine, reqs, counters, max_new=MAX_NEW):
     return wall, counts
 
 
+class RoutingTape:
+    """Records what the functions it wraps return (a MoE router's
+    weights and experts) on one pass and hands the same results back, in
+    the same order, on the next."""
+
+    def __init__(self, targets):
+        self.targets, self.tape, self.at = targets, [], None
+
+    def _wrap(self, fn):
+        def inner(*a, **k):
+            if self.at is None:
+                out = fn(*a, **k)
+                self.tape.append(out)
+                return out
+            self.at += 1
+            return self.tape[self.at - 1]
+        return inner
+
+    def patched(self, replay: bool):
+        stack = contextlib.ExitStack()
+        self.at = 0 if replay else None
+        if not replay:
+            self.tape = []
+        for mod, attr in self.targets:
+            stack.enter_context(mock.patch.object(
+                mod, attr, self._wrap(getattr(mod, attr))))
+        return stack
+
+
 def logits_check(torch, engine_mod, runner, embed, reqs, tol, name, plain,
                  decode=False, decode_tol=LOGITS_DECODE_REL_TOL,
-                 reason=None):
+                 reason=None, replay=()):
     """One extend wave's logits (each request's prompt embeds, `embed(r)`
     [n_i, D], in a lane of the smallest bucket that holds them all)
     through the kernels and through the plain twins (patched into the
-    engine module, and into models/llama.py for the fused MLP, for that
-    call only); with `decode`, then one decode step of every lane (the
+    engine module, into models/llama.py for the fused MLP and into
+    ops/moe.py for the grouped-expert product, for that call only); with `decode`, then one decode step of every lane (the
     kernels' greedy token at the position after its prompt) both ways.
     Each decode forward writes its own token's K/V before it attends, so
-    the second overwrites the first's."""
-    import contextlib
+    the second overwrites the first's. replay: (module, name) of MoE
+    routing functions whose results the twins' pass takes from the
+    kernels' pass (RoutingTape), so that a router decision on a near tie,
+    which moves its token's whole MLP output, cannot route the two
+    passes apart and the check holds the arithmetic."""
     from aurora_tpu_torch.models import llama as llama_mod
+    from aurora_tpu_torch.ops import moe as moe_mod
 
     def plain_twins():
         stack = contextlib.ExitStack()
-        for mod in (engine_mod, llama_mod):
+        for mod in (engine_mod, llama_mod, moe_mod):
             names = {k: v for k, v in plain.items() if hasattr(mod, k)}
             if names:
                 stack.enter_context(mock.patch.multiple(mod, **names))
@@ -1652,8 +1769,10 @@ def logits_check(torch, engine_mod, runner, embed, reqs, tol, name, plain,
     row_ids = np.arange(n, dtype=np.int32)
     offs = np.zeros(n, np.int32)
     lens = np.asarray(plens, np.int32)
-    logits_k = runner.extend(embeds, row_ids, offs, lens)
-    with plain_twins():
+    tape = RoutingTape(replay)
+    with tape.patched(False):
+        logits_k = runner.extend(embeds, row_ids, offs, lens)
+    with plain_twins(), tape.patched(True):
         logits_p = runner.extend(embeds, row_ids, offs, lens)
     fields = {}
     if decode:
@@ -1668,8 +1787,9 @@ def logits_check(torch, engine_mod, runner, embed, reqs, tol, name, plain,
                                              runner.layer_ids)
                 return engine_mod._lm_head(runner.model, h)
 
-        dec_k = step()
-        with plain_twins():
+        with tape.patched(False):
+            dec_k = step()
+        with plain_twins(), tape.patched(True):
             dec_p = step()
         check(bool(torch.isfinite(dec_k).all()),
               f"{name} decode logits not finite")
@@ -4236,19 +4356,471 @@ def dpo_phase(torch, fa, dev, card, counters, plains, gemma=False):
                  for obj, attr in counters)
 
 
+def moe_kernel_phase(torch, engine_mod, moe, dev):
+    """[kernels-moe]: the grouped-expert kernel (csrc/moe_grouped_mm.cu)
+    at each family's gate/up shape (xs [N·k, D] x [E, D, F]), the rows
+    routed by a random router (softmax top-k, sorted by expert), at
+    MOE_TOKENS tokens, with bf16 and int8 experts: against its plain twin
+    (every output within one bf16 rounding plus MOE_ABS_TOL of max
+    |want|), graph and eager ms beside the twin's and torch._grouped_mm's
+    on the same bf16 weights (int8 experts dequantized once, outside the
+    timing; null where the call is refused), the bound from the bytes of
+    the rows, the experts touched and the output, or 2·M·D·F operations
+    → {(family, experts, tokens): numbers}."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    out = {}
+    for fam, D, F, E, k in MOE_SHAPES:
+        w16 = (torch.randn((E, D, F), generator=g, device=dev)
+               * 0.02).to(torch.bfloat16)
+        router = (torch.randn((D, E), generator=g, device=dev)
+                  * 0.02).to(torch.bfloat16)
+        q8 = engine_mod._w8_experts(moe.ExpertStack(w16))
+        for experts, w, scale in (("bf16", w16, None),
+                                  ("int8", q8.weight, q8.scale)):
+            wl = w16 if scale is None else q8.dequantized(torch.bfloat16)
+            for tokens in MOE_TOKENS:
+                x = torch.randn((tokens, D), generator=g,
+                                device=dev).to(torch.bfloat16)
+                _, idx = moe.routing_weights(moe.dot_f32(x, router), k,
+                                             "softmax_topk")
+                order, offs = moe.sort_by_expert(idx, E)
+                xs = x.index_select(0, order // k)
+                M = xs.shape[0]
+
+                def kernel():
+                    return moe.moe_grouped_mm(xs, w, offs, scale,
+                                              out_dtype=torch.bfloat16)
+
+                def plain():
+                    return moe.moe_grouped_mm_reference(
+                        xs, w, offs, scale, out_dtype=torch.float32)
+
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs()
+                check(bool((err <= 2.0 ** -8 * want.abs() + MOE_ABS_TOL
+                            * want.abs().max()).all()),
+                      f"moe_grouped_mm {fam} {experts} {tokens}: max err "
+                      f"{err.max().item()}")
+                lib_ms, lib_note = None, "ok"
+                if hasattr(torch, "_grouped_mm"):
+                    ends = offs[1:].contiguous()
+                    for wb in (wl, wl.transpose(1, 2).contiguous()
+                               .transpose(1, 2)):
+                        try:
+                            lib = torch._grouped_mm(xs, wb, offs=ends)
+                            torch.cuda.synchronize()
+                        except (RuntimeError, TypeError,
+                                ValueError) as e:
+                            lib_note = repr(str(e).splitlines()[0][:80])
+                            continue
+                        check(((lib.float() - want).abs().max()
+                               <= 2e-2 * want.abs().max()).item(),
+                              f"torch._grouped_mm {fam} disagrees")
+                        lib_ms = graph_ms(lambda: torch._grouped_mm(
+                            xs, wb, offs=ends))
+                        lib_note = "ok"
+                        break
+                else:
+                    lib_note = "absent"
+                counts = (offs[1:] - offs[:-1]).tolist()
+                touched = sum(c > 0 for c in counts)
+                wbytes = touched * D * F * (1 if scale is not None else 2)
+                if scale is not None:
+                    wbytes += touched * F * 4
+                nbytes = M * D * 2 + wbytes + M * F * 2 + (E + 1) * 4
+                bound = least_ms(2.0 * M * D * F, nbytes)
+                r = dict(err=err.max().item(), ms=graph_ms(kernel),
+                         eager_ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                         library_ms=lib_ms, bound=bound, touched=touched,
+                         rows=M)
+                out[(fam, experts, tokens)] = r
+                phase("kernels-moe", family=fam, shape=f"{M}x{D}x{F}/E{E}",
+                      experts=experts, tokens=tokens,
+                      experts_touched=touched,
+                      max_abs_err=f"{r['err']:.3e}",
+                      graph_ms=f"{r['ms']:.4f}",
+                      eager_ms=f"{r['eager_ms']:.4f}",
+                      plain_ms=f"{r['plain_ms']:.3f}",
+                      library_ms=("null" if lib_ms is None
+                                  else f"{lib_ms:.4f}"),
+                      library=lib_note, bound_ms=f"{bound[0]:.4f}",
+                      bound_by=bound[1])
+        del w16, q8, wl
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_prompts(vocab, seed):
+    rng = np.random.default_rng(seed)
+    plens = rng.integers(MOE_PROMPT[0], MOE_PROMPT[1] + 1, size=N_REQUESTS)
+    return plens, [rng.integers(3, vocab, size=n).tolist() for n in plens]
+
+
+def moe_llama(torch, engine_mod, cfg, weight_quant, dev, seed):
+    """A MoE LlamaModel of cfg with random bf16 weights from `seed`
+    (models/init.py's scheme), built a layer at a time and, for W8 / W4,
+    quantized before the next (serve/engine.py build_quantized: the bf16
+    model never exists whole); the streams fused."""
+    from aurora_tpu_torch.models.init import build
+    from aurora_tpu_torch.models.llama import (LlamaLayer, LlamaModel,
+                                               default_extras, is_moe_layer)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    extras = default_extras(cfg)
+    if weight_quant == "none":
+        model = build(LlamaModel, cfg, device=dev, dtype=torch.bfloat16,
+                      generator=gen)
+    else:
+        def layer(l):
+            return build(lambda c, device, dtype: LlamaLayer(
+                c, device=device, dtype=dtype, extras=extras,
+                moe=is_moe_layer(c, l)), cfg, device=dev,
+                dtype=torch.bfloat16, generator=gen)
+
+        V, D = cfg.vocab_size, cfg.hidden_size
+        top = {"embed_tokens": torch.randn((V, D), generator=gen,
+                                           device=dev) * 0.02,
+               "final_norm": torch.ones(D, device=dev),
+               "lm_head.weight": torch.randn((V, D), generator=gen,
+                                             device=dev) * 0.02}
+        model = engine_mod.build_quantized(cfg, weight_quant, layer, top,
+                                           dev, torch.bfloat16,
+                                           extras=extras)
+    return engine_mod.fuse_serving_weights(model)
+
+
+def experts_touched(torch, engine_mod, moe, runner, n):
+    """Distinct experts one decode step of n lanes routes to, per MoE
+    layer → (mean, max): each lane's next token fed at its row's end."""
+    seen = []
+    real = moe.sort_by_expert
+
+    def spy(idx, E):
+        order, offs = real(idx, E)
+        seen.append(offs)
+        return order, offs
+
+    dev = runner.device
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    pos = torch.full((n,), 8, dtype=torch.int32, device=dev)
+    x = runner.model.embed_tokens[torch.full((n,), 7, device=dev)][:, None]
+    with torch.no_grad(), mock.patch.object(moe, "sort_by_expert", spy):
+        engine_mod._forward_rows(runner.model, runner.cfg, x, runner.rows,
+                                 ids, pos, pos + 1, runner.layer_ids)
+    counts = [int(((o[1:] - o[:-1]) > 0).sum()) for o in seen]
+    return sum(counts) / max(len(counts), 1), max(counts, default=0)
+
+
+def moe_serve_phase(torch, engine_mod, ra, qm, moe, dev, card, plains):
+    """The sparse-MoE families through ServeEngine on the card:
+    `[serve-mixtral-w8kv8]` (twice, bit for bit) and
+    `[serve-mixtral-w4kv8]`, Mixtral-8x7B at full width and depth
+    (MIXTRAL_8X7B) with random bf16 weights quantized a layer at a time,
+    int8 experts through the grouped kernel, W8A8 or W4A8 attention
+    projections, int8 KV; then `[serve-qwen3moe]`, Qwen3-30B-A3B's widths
+    (E 128, k 8, q/k norms) at QWEN3MOE_LAYERS layers in bf16 with int8
+    KV. N_REQUESTS prompts of MOE_PROMPT random ids in one wave,
+    MOE_MAX_NEW greedy tokens. Each run: extend s, decode ms a step, peak
+    GB, the launch counts (the ragged kernels every layer a wave and a
+    step, the grouped kernel 3 a layer a wave and a step, the weight
+    kernel > 0, the twins 0), the distinct experts one decode step
+    touches, and the logits of a wave and a decode step against the
+    engine on the plain twins → {run: launch counts}."""
+    import dataclasses as dc
+
+    from aurora_tpu_torch.models.llama import LlamaConfig
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    runs = (("mixtral-w8kv8", MIXTRAL_8X7B, "int8", SEED + 21, 2),
+            ("mixtral-w4kv8", MIXTRAL_8X7B, "int4", SEED + 21, 1),
+            ("qwen3moe", dict(QWEN3_30B_A3B,
+                              num_hidden_layers=QWEN3MOE_LAYERS),
+             "none", SEED + 22, 1))
+    weight_kernel = {"int8": (qm.w8a8_matmul, "w8a8_matmul",
+                              qm.w8a8_matmul_plain),
+                     "int4": (qm.w4a8_matmul_tiled, "w4a8_matmul_tiled",
+                              qm.w4a8_matmul_tiled_plain),
+                     "none": (None, None, None)}
+    out = {}
+    for run, fields, weight_quant, seed, repeats in runs:
+        cfg = LlamaConfig(**fields)
+        L = cfg.num_hidden_layers
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = moe_llama(torch, engine_mod, cfg, weight_quant, dev, seed)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weight_gb = sum(t.numel() * t.element_size() for t in
+                        model.state_dict().values()) / 1e9
+        expert_gb = sum(t.numel() * t.element_size() for n, t in
+                        model.state_dict().items() if ".moe_" in n
+                        and "router" not in n) / 1e9
+        plens, prompts = moe_prompts(cfg.vocab_size, seed)
+        wk, wname, wplain = weight_kernel[weight_quant]
+        first = None
+        for rep in range(repeats):
+            ecfg = EngineConfig(max_batch=N_REQUESTS, max_seq_len=MOE_SEQ,
+                                kv_chunk=256, prefill_buckets=(2048,),
+                                decode_steps=16, kv_quant="int8",
+                                weight_quant=weight_quant,
+                                disable_radix_cache=True)
+            torch.cuda.reset_peak_memory_stats()
+            engine = ServeEngine(model, cfg, ecfg, device=dev, seed=SEED)
+            counters = [(ra.ragged_attention, "launches_int8"),
+                        (ra.ragged_decode_attention, "launches_int8"),
+                        (moe.moe_grouped_mm, "launches")]
+            if wk is not None:
+                counters.append((wk, "launches"))
+            counters += plains
+            reqs = [Request(rid=f"m{i}", input_ids=list(p),
+                            max_new_tokens=MOE_MAX_NEW, eos_ids=(),
+                            logprobs=True)
+                    for i, p in enumerate(prompts)]
+            wall, counts = serve(torch, engine, reqs, counters, MOE_MAX_NEW)
+            ext, dec, gmm = (counts[f"{f.__name__}.{a}"]
+                             for f, a in counters[:3])
+            wl = counts[f"{wk.__name__}.launches"] if wk is not None else 0
+            steps = engine._steps
+            name = run if rep == 0 else run + "-again"
+            mean_t, max_t = experts_touched(torch, engine_mod, moe,
+                                            engine.runner, N_REQUESTS)
+            phase("serve-" + name, card=repr(card),
+                  config=f"{run.split('-')[0]}/L{L}/D{cfg.hidden_size}"
+                         f"/E{cfg.num_experts}/k{cfg.num_experts_per_tok}"
+                         f"/F{cfg.intermediate_size}/weights-{weight_quant}"
+                         f"/experts-{'bf16' if weight_quant == 'none' else 'int8'}"
+                         f"/kv-int8",
+                  requests=N_REQUESTS,
+                  prompt_tokens=",".join(str(int(n)) for n in plens),
+                  new_tokens=MOE_MAX_NEW, build_s=f"{build_s:.1f}",
+                  weight_gb=f"{weight_gb:.2f}", expert_gb=f"{expert_gb:.2f}",
+                  extend_s=f"{engine.t_extend_s:.4f}",
+                  decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+                  decode_steps=steps,
+                  experts_touched_per_layer_step=f"{mean_t:.2f}",
+                  experts_touched_max=max_t,
+                  tokens_per_s=f"{N_REQUESTS * MOE_MAX_NEW / wall:.1f}",
+                  wall_s=f"{wall:.2f}",
+                  peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+                  launches=json.dumps(counts).replace(" ", ""))
+            check(ext == L and dec == L * steps,
+                  f"{name}: ragged launches {counts}, steps {steps}")
+            check(gmm == 3 * L * (1 + steps),
+                  f"{name}: grouped launches {gmm}, steps {steps}")
+            check(wk is None or wl > 0, f"{name}: {wname} launches {wl}")
+            check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+                  f"plain twins ran: {counts}")
+            got = [(r.output_ids, list(r.output_logprobs)) for r in reqs]
+            if rep == 0:
+                first = got
+                plain = {"ragged_attention": ra.ragged_attention_plain,
+                         "ragged_decode_attention":
+                             ra.ragged_decode_attention_plain,
+                         "moe_grouped_mm": moe.moe_grouped_mm_reference}
+                if wk is not None:
+                    plain[wname] = wplain
+                logits_check(torch, engine_mod, engine.runner,
+                             lambda r: model.embed_tokens[
+                                 torch.tensor(r.input_ids, device=dev)],
+                             reqs, MOE_LOGITS_TOL[weight_quant],
+                             "logits-" + run, plain, decode=True,
+                             decode_tol=MOE_LOGITS_TOL[weight_quant],
+                             reason=MOE_LOGITS_REASON,
+                             replay=[(moe, "routing_weights")])
+            else:
+                check(got == first, f"two {run} runs differ")
+                phase(f"serve-{run}-repeat", bitwise_equal=True,
+                      tokens=N_REQUESTS * MOE_MAX_NEW)
+            out[name] = (ext, dec, gmm, wl)
+            del engine
+            gc.collect()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mla_serve_phase(torch, engine_mod, ra, moe, dev, card, plains):
+    """`[serve-deepseek-v2-lite]`: DeepSeek-V2-Lite at full width and depth
+    (its config.json, YaRN included, through deepseek_v2_config_from_hf),
+    random bf16 weights from the seed, through deepseek_serving_params
+    and ServeEngine over latent rows with the radix cache on: N_REQUESTS
+    prompts of MOE_PROMPT ids, MOE_MAX_NEW greedy tokens, twice on fresh
+    engines (bit for bit); then on the second engine the same prompts
+    plus 16 ids, which hit the cached prefixes. Launch counts (the
+    grouped kernel 4 a MoE layer a wave and a step: gate, up and the
+    down product's two parts; the ragged kernels none), extend s, decode
+    ms a step, peak GB, the logits of a wave and a decode step against the
+    engine on the plain twin, and one MoE layer's fp32 expert path on the
+    kernel against the fp32 twin (`ds_moe_dense`) → launch counts."""
+    from aurora_tpu_torch.models.deepseek_v2 import (
+        deepseek_v2_config_from_hf, init_deepseek_v2)
+    from aurora_tpu_torch.serve import mla
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "MLA's fp32 einsums need TF32 off")
+    d = deepseek_v2_config_from_hf(DEEPSEEK_V2_LITE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = mla.deepseek_serving_params(
+        init_deepseek_v2(d, gen, dev, torch.bfloat16), d)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    n_moe = L - cfg.mla_first_k_dense
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in model.state_dict().values()) / 1e9
+    plens, prompts = moe_prompts(cfg.vocab_size, SEED + 23)
+    counters = [(ra.ragged_attention, "launches"),
+                (ra.ragged_decode_attention, "launches"),
+                (moe.moe_grouped_mm, "launches")] + plains
+    first, out = None, {}
+    for rep in range(2):
+        ecfg = EngineConfig(max_batch=N_REQUESTS, max_seq_len=MOE_SEQ,
+                            kv_chunk=256, prefill_buckets=(2048,),
+                            decode_steps=16, num_slots=4 * MOE_SEQ + 1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(model, cfg, ecfg, device=dev, seed=SEED)
+        reqs = [Request(rid=f"d{i}", input_ids=list(p),
+                        max_new_tokens=MOE_MAX_NEW, eos_ids=(),
+                        logprobs=True)
+                for i, p in enumerate(prompts)]
+        wall, counts = serve(torch, engine, reqs, counters, MOE_MAX_NEW)
+        ext, dec, gmm = (counts[f"{f.__name__}.{a}"] for f, a in
+                         counters[:3])
+        steps = engine._steps
+        name = "serve-deepseek-v2-lite" + ("-again" if rep else "")
+        phase(name, card=repr(card),
+              config=f"deepseek-v2-lite/L{L}/dense{cfg.mla_first_k_dense}"
+                     f"/E{cfg.num_experts}/k{cfg.num_experts_per_tok}"
+                     f"/rank{cfg.mla_kv_lora_rank}"
+                     f"/rope{cfg.mla_qk_rope_head_dim}/yarn"
+                     f"{cfg.rope_attention_scaling:.4f}/bf16-latents",
+              requests=N_REQUESTS,
+              prompt_tokens=",".join(str(int(n)) for n in plens),
+              new_tokens=MOE_MAX_NEW, build_s=f"{build_s:.1f}",
+              weight_gb=f"{weight_gb:.2f}",
+              latent_bytes_per_token_layer=engine_mod.kv_bytes_per_token_layer(
+                  cfg, "none", torch.bfloat16),
+              extend_s=f"{engine.t_extend_s:.4f}",
+              decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+              decode_steps=steps, radix=engine.radix_impl,
+              tokens_per_s=f"{N_REQUESTS * MOE_MAX_NEW / wall:.1f}",
+              wall_s=f"{wall:.2f}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              launches=json.dumps(counts).replace(" ", ""))
+        check(ext == 0 and dec == 0, f"MLA ran ragged kernels: {counts}")
+        check(gmm == 4 * n_moe * (1 + steps),
+              f"grouped launches {gmm}, steps {steps}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"plain twins ran: {counts}")
+        got = [(r.output_ids, list(r.output_logprobs)) for r in reqs]
+        if rep == 0:
+            first = got
+            out["deepseek"] = gmm
+            logits_check(torch, engine_mod, engine.runner,
+                         lambda r: model.embed_tokens[
+                             torch.tensor(r.input_ids, device=dev)],
+                         reqs, MOE_LOGITS_TOL["none"],
+                         "logits-deepseek-v2-lite",
+                         {"moe_grouped_mm": moe.moe_grouped_mm_reference},
+                         decode=True, decode_tol=MOE_LOGITS_TOL["none"],
+                         reason=MOE_LOGITS_REASON,
+                         replay=[(mla, "_routing")])
+            del engine
+            gc.collect()
+            continue
+        check(got == first, "two DeepSeek-V2-Lite runs differ")
+        phase("serve-deepseek-v2-lite-repeat", bitwise_equal=True,
+              tokens=N_REQUESTS * MOE_MAX_NEW)
+        # a second wave over the cached prompts
+        hits = [Request(rid=f"h{i}", input_ids=list(p) + list(range(
+            5, 21)), max_new_tokens=16, eos_ids=())
+            for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        wall2, counts2 = serve(torch, engine, hits, counters, 16)
+        mem = engine.check_memory()
+        phase("serve-deepseek-v2-lite-prefix",
+              cached_tokens=",".join(str(r.n_cached) for r in hits),
+              extend_s=f"{engine.t_extend_s:.4f}", wall_s=f"{wall2:.2f}",
+              leaked=mem["leaked"])
+        check(all(r.n_cached > 0 for r in hits),
+              f"prefix hits {[r.n_cached for r in hits]}")
+        check(mem["leaked"] == 0, f"leaked slots {mem}")
+        out["deepseek-prefix"] = counts2["moe_grouped_mm.launches"]
+        del engine
+        gc.collect()
+    # one MoE layer's fp32 expert path: the kernel's two-part down product
+    # against the reference's fp32 twin
+    lp = model.layers[cfg.mla_first_k_dense]
+    x = (torch.randn((N_REQUESTS, 512, cfg.hidden_size), generator=gen,
+                     device=dev)).to(torch.bfloat16)
+    with torch.no_grad():
+        got = mla.ds_moe_grouped(cfg, lp, x).float()
+        want = mla.ds_moe_dense(cfg, lp, x).float()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    phase("mla-moe-fp32", rows=N_REQUESTS * 512, rel_err=f"{rel:.3e}",
+          tol=MLA_MOE_TOL)
+    check(rel <= MLA_MOE_TOL, f"ds_moe grouped vs fp32 twin {rel}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_entries(kres, serve_counts, mla_counts):
+    """The grouped kernel's entries of the kernels line: per family and
+    expert type at 4 tokens (ms, plain_ms, library_ms: graph, eager,
+    graph), the wave of 4 x 2048 beside them; launches from that
+    family's runs with those experts."""
+    launches = {("mixtral-8x7b", "int8"): sum(
+                    serve_counts[r][2] for r in serve_counts
+                    if r.startswith("mixtral")),
+                ("qwen3-30b-a3b", "bf16"): serve_counts["qwen3moe"][2],
+                ("deepseek-v2-lite", "bf16"): mla_counts["deepseek"]}
+    out = []
+    for fam, D, F, E, k in MOE_SHAPES:
+        for experts in ("bf16", "int8"):
+            r, w = (kres[(fam, experts, t)] for t in MOE_TOKENS)
+            out.append({
+                "name": f"moe_grouped_mm[{experts},{fam}]", "route": "cuda",
+                "source": "aurora_tpu_torch/csrc/moe_grouped_mm.cu",
+                "replaces": "aurora_tpu/ops/moe.py:148",
+                "launches": launches.get((fam, experts), 0),
+                "max_abs_err": max(r["err"], w["err"]), "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+                "eager_ms": r["eager_ms"], "rows": r["rows"],
+                "experts_touched": r["touched"],
+                "shape": f"D{D}/F{F}/E{E}/k{k}",
+                f"ms_t{MOE_TOKENS[1]}": w["ms"],
+                f"plain_ms_t{MOE_TOKENS[1]}": w["plain_ms"],
+                f"library_ms_t{MOE_TOKENS[1]}": w["library_ms"],
+                f"bound_ms_t{MOE_TOKENS[1]}": w["bound"][0],
+                f"bound_by_t{MOE_TOKENS[1]}": w["bound"][1]})
+    return out
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port's main paths "
                                  "on one NVIDIA GPU (module docstring)")
     ap.add_argument("--only", action="append",
                     choices=["train-cli", "kernels", "serve-gemma2",
-                             "train-dpo"],
+                             "train-dpo", "serve-moe"],
                     help="run these phases alone, in the script's order "
                          "(train-cli: [infer-load] and the four train-cli "
                          "phases; kernels: [build] and every [kernels] "
                          "case; serve-gemma2: the Gemma-2-9B and Qwen2-7B "
-                         "runs; train-dpo: both DPO phases); no kernel "
-                         "JSON line, no final line")
+                         "runs; train-dpo: both DPO phases; serve-moe: "
+                         "[kernels-moe] and the Mixtral, Qwen3-MoE and "
+                         "DeepSeek-V2-Lite runs); no kernel JSON line, no "
+                         "final line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4258,6 +4830,7 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from aurora_tpu_torch.models.aurora import AuroraConfig, init_aurora
     from aurora_tpu_torch.ops import cuda_build
+    from aurora_tpu_torch.ops import moe
     from aurora_tpu_torch.ops.pallas import flash_attention as fa
     from aurora_tpu_torch.ops.pallas import quant_matmul as qm
     from aurora_tpu_torch.ops.pallas import ragged_attention as ra
@@ -4287,6 +4860,7 @@ def main(argv=None):
                   (qm.w4a8_matmul_plain, "calls"),
                   (qm.w4a16_matmul_plain, "calls"),
                   (qm.fused_mlp_w4_plain, "calls"),
+                  (moe.moe_grouped_mm_reference, "calls"),
                   (fa.flash_attention_plain, "calls")]
     only = set(args.only or ())
     if "train-cli" in only:
@@ -4308,6 +4882,12 @@ def main(argv=None):
             dpo_phase(torch, fa, dev, card, flash_counters, all_plains)
             dpo_phase(torch, fa, dev, card, flash_counters, all_plains,
                       gemma=True)
+        if "serve-moe" in only:
+            cuda_build.load_library()
+            moe_kernel_phase(torch, engine_mod, moe, dev)
+            moe_serve_phase(torch, engine_mod, ra, qm, moe, dev, card,
+                            plains)
+            mla_serve_phase(torch, engine_mod, ra, moe, dev, card, plains)
     if only:
         return 0
 
@@ -4327,7 +4907,8 @@ def main(argv=None):
                                       (8, 128))),
                        *(f"{k}_b{b}" for k in ("w8a8", "w4a16", "w4a8",
                                                 "w4a8_flat", "fused_mlp")
-                         for b in (8, 64)))}
+                         for b in (8, 64)),
+                       "moe_grouped_mm_bf16", "moe_grouped_mm_int8")}
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
           nvcc_seconds=f"{cuda_build.build_seconds:.1f}",
           library=cuda_build.library_path().name,
@@ -4374,6 +4955,8 @@ def main(argv=None):
     # the zoo's head widths and groups, and flash at D 256
     fam_res, flash256_t, flash256_res = family_kernel_phase(torch, ra, fa,
                                                             dev)
+    # the grouped-expert kernel at the MoE families' expert shapes
+    moe_res = moe_kernel_phase(torch, engine_mod, moe, dev)
 
     # ---- checkpoint loading from an xtuner-format directory --------------
     torch.cuda.empty_cache()
@@ -4677,6 +5260,11 @@ def main(argv=None):
     gemma2 = gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains)
     qwen2 = qwen2_phase(torch, engine_mod, ra, qm, dev, card, plains)
 
+    # ---- the MoE and MLA families: Mixtral-8x7B, Qwen3-MoE, V2-Lite ------
+    moe_runs = moe_serve_phase(torch, engine_mod, ra, qm, moe, dev, card,
+                               plains)
+    mla_runs = mla_serve_phase(torch, engine_mod, ra, moe, dev, card, plains)
+
     # ---- training at 7B widths (bench.py's training stage) --------------
     launches_fwd, launches_dkv, launches_dq = train_phase(
         torch, bench_stage, dev, card, flash_counters,
@@ -4832,12 +5420,20 @@ def main(argv=None):
               launches_train_cli=train_cli_launches[
                   "flash_attention.launches_dq"]),
     ]
-    # the Qwen2-7B runs (head_dim 128, G 7) launch the int8 kernels
+    # the Qwen2-7B runs (head_dim 128, G 7) launch the int8 kernels, and
+    # so do the MoE runs (Mixtral G 4, Qwen3-MoE G 8)
     for e in kernels:
         if e["name"] in ("ragged_attention[int8]",
                          "ragged_decode_attention[int8]"):
             i = int(e["name"].startswith("ragged_decode"))
             e["launches_serve_qwen2"] = qwen2["w8kv8"][i] + qwen2["w4kv8"][i]
+            for run, c in moe_runs.items():
+                e[f"launches_serve_{run.replace('-', '_')}"] = c[i]
+        if e["name"] == "w8a8_matmul":
+            e["launches_serve_mixtral_w8kv8"] = moe_runs["mixtral-w8kv8"][3]
+        if e["name"] == "w4a8_matmul_tiled":
+            e["launches_serve_mixtral_w4kv8"] = moe_runs["mixtral-w4kv8"][3]
+    kernels += moe_entries(moe_res, moe_runs, mla_runs)
     # the zoo's head widths and groups (FAMILY_SHAPES, 4 layers of rows);
     # launches: the kernel's in that KV mode over the Gemma-2-9B run
     # (head_dim 256, G 2: the first family's shape; the others are held

@@ -9,7 +9,9 @@ twice; `.bin` files load through torch.load, one or sharded. The port's
 `load_auroracap_dir` and `load_llava_hf_dir` must give, on tiny random HF
 checkpoints, exactly the parameters that the JAX loaders give after the
 bridge (fp32, bit for bit), and a bf16 checkpoint loads as bf16 without a
-widening copy. The MoE and MLA families raise NotImplementedError.
+widening copy. The MoE families convert (tests/test_torch_moe.py) and
+DeepSeek-V2 loads through models/deepseek_v2.py (tests/test_torch_mla.py);
+what the reference refuses of them raises NotImplementedError.
 """
 
 import json
@@ -193,19 +195,30 @@ def _base_llama():
             "num_attention_heads": 4}
 
 
-# the dense families are ported (tests/test_torch_zoo.py); the MoE and
-# MLA types raise naming their ROADMAP item, as do other rope scalings
+# the dense and MoE families are ported (tests/test_torch_zoo.py,
+# tests/test_torch_moe.py); what the reference refuses of the MoE ones
+# (it asserts) raises, as do DeepSeek-V2 on the llama path (MLA loads
+# through models/deepseek_v2.py) and rope scalings other than linear
+_DBRX = {"model_type": "dbrx", "d_model": 32, "n_heads": 4, "n_layers": 1,
+         "max_seq_len": 64, "vocab_size": 64,
+         "attn_config": {"kv_n_heads": 2, "clip_qkv": 8.0},
+         "ffn_config": {"ffn_hidden_size": 64, "moe_num_experts": 4,
+                        "moe_top_k": 2, "moe_normalize_expert_weights": 2}}
+
+
 @pytest.mark.parametrize("change", [
-    {"model_type": "mixtral", "num_local_experts": 4},
-    {"model_type": "qwen2_moe"}, {"model_type": "qwen3_moe"},
-    {"model_type": "dbrx"}, {"model_type": "grok-1"},
-    {"model_type": "deepseek"}, {"model_type": "deepseek_v2"},
+    {"model_type": "qwen2_moe", "num_experts": 4, "decoder_sparse_step": 2},
+    {"model_type": "qwen3_moe", "num_experts": 4, "mlp_only_layers": [0]},
+    _DBRX,
+    {"model_type": "deepseek", "n_routed_experts": 4, "moe_layer_freq": 2},
+    {"model_type": "deepseek_v2"},
     {"rope_scaling": {"type": "dynamic", "factor": 2.0}}],
-    ids=["mixtral", "qwen2_moe", "qwen3_moe", "dbrx", "grok", "deepseek",
-         "deepseek_v2", "rope"])
+    ids=["qwen2_moe", "qwen3_moe", "dbrx", "deepseek", "deepseek_v2",
+         "rope"])
 def test_unported_llm_configs_raise(change):
-    with pytest.raises(NotImplementedError,
-                       match="item 8" if "model_type" in change else "rope"):
+    match = {"deepseek_v2": "deepseek_v2", None: "rope"}.get(
+        change.get("model_type"), "reference")
+    with pytest.raises(NotImplementedError, match=match):
         tconvert.llama_config_from_hf({**_base_llama(), **change})
 
 

@@ -49,7 +49,14 @@ the same loss and grad norm (1e-5) and keep or recompute the flash
 forward as their names say. The dense greedy decode of the caption path
 repeats bit for bit. The HTTP server (serve/api.py) at 8 layers of 7B
 widths, W4 + int8 KV, streams the text it answers plain, through the
-kernels and never their twins.
+kernels and never their twins. The grouped-expert kernel of the MoE
+layers at Mixtral's, Qwen3-MoE's and DeepSeek-V2-Lite's shapes, bf16 and
+int8 experts, with an expert that gets no rows and one that gets every
+row: fp32 output within 1e-5 of max |want|, bf16 output within one bf16
+rounding of the twin's fp32 result, repeats bitwise; it refuses what it
+does not take (no fallback); a MoE layer's forward makes no host sync
+(`torch.cuda.set_sync_debug_mode("error")`); Mixtral's (W8, 2 layers)
+and DeepSeek-V2-Lite's (3 layers) engines repeat bit for bit.
 """
 
 
@@ -1298,3 +1305,191 @@ def test_http_server_streams_what_it_answers_on_card(cuda_device):
     assert streamed == json.loads(plain)["text"] and streamed
     assert all(getattr(obj, attr) > 0 for obj, attr in kernels)
     assert all(getattr(obj, attr) == 0 for obj, attr in plains)
+
+
+def _gmm_inputs(dev, seed, M, K, N, E, layout, int8):
+    """Sorted rows xs [M, K] bf16, experts [E, K, N] (bf16, or int8 with
+    fp32 scales) and offsets by `layout`: "spread" (random sizes, some 0),
+    "one" (expert 1 takes every row, the others none)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    if int8:
+        w = torch.randint(-127, 128, (E, K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand((E, N), generator=gen, device=dev) * 1e-3 + 1e-4
+    else:
+        w = (torch.randn((E, K, N), generator=gen, device=dev)
+             * 0.05).to(torch.bfloat16)
+        scale = None
+    if layout == "one":
+        sizes = torch.zeros(E, dtype=torch.int64)
+        sizes[1] = M
+    else:
+        cuts = torch.sort(torch.randint(0, M + 1, (E - 1,),
+                                        generator=torch.Generator()
+                                        .manual_seed(seed))).values
+        edges = torch.cat([torch.zeros(1, dtype=torch.int64), cuts,
+                           torch.full((1,), M)])
+        sizes = edges[1:] - edges[:-1]
+        sizes[0] = 0                        # an expert with no rows
+        sizes[-1] = M - sizes[:-1].sum()
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         sizes.cumsum(0)]).to(torch.int32).to(dev)
+    return xs, w, scale, offsets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["spread", "one"])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("M,K,N,E", [(8, 4096, 1024, 8),
+                                     (4096, 4096, 1024, 8),
+                                     (48, 2048, 768, 128),
+                                     (777, 2048, 1408, 64),
+                                     (37, 1408, 2048, 64)])
+def test_moe_grouped_mm_kernel_matches_plain_on_card(cuda_device, M, K, N, E,
+                                                     int8, layout):
+    """The grouped-expert kernel against its plain twin (the same bf16
+    rows, the same dequantized experts bf16(q)·bf16(s)): fp32 output
+    within 1e-5 of max |want| (only the fp32 order of the sum differs),
+    bf16 output within one bf16 rounding of the twin's fp32 result;
+    an expert with no rows and one with every row; repeated launches
+    bitwise equal."""
+    from aurora_tpu_torch.ops import moe as tmoe
+    xs, w, scale, offs = _gmm_inputs(cuda_device, M + E, M, K, N, E, layout,
+                                     int8)
+    want = tmoe.moe_grouped_mm_reference(xs, w, offs, scale,
+                                         out_dtype=torch.float32)
+    before = tmoe.moe_grouped_mm.launches
+    got = tmoe.moe_grouped_mm(xs, w, offs, scale, out_dtype=torch.float32)
+    again = tmoe.moe_grouped_mm(xs, w, offs, scale, out_dtype=torch.float32)
+    got16 = tmoe.moe_grouped_mm(xs, w, offs, scale, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tmoe.moe_grouped_mm.launches == before + 3
+    assert torch.equal(got, again)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert ((got16.float() - want).abs()
+            <= 2.0 ** -8 * want.abs() + 1e-5 * want.abs().max()).all()
+
+
+@pytest.mark.cuda
+def test_moe_grouped_mm_rejects_what_the_kernel_does_not_take(cuda_device):
+    """No fallback: fp32 rows, a K off the 32-step, a scale without int8
+    weights and CPU offsets raise instead of running the twin."""
+    from aurora_tpu_torch.ops import moe as tmoe
+    xs, w, _, offs = _gmm_inputs(cuda_device, 0, 16, 64, 32, 4, "spread",
+                                 False)
+    for args in ((xs.float(), w, offs, None),
+                 (xs[:, :48].contiguous(), w[:, :48].contiguous(), offs,
+                  None),
+                 (xs, w, offs.cpu(), None)):
+        with pytest.raises((TypeError, ValueError)):
+            tmoe.moe_grouped_mm(*args)
+    with pytest.raises(TypeError):
+        tmoe.moe_grouped_mm(xs, w, offs, torch.ones((4, 32),
+                                                    device=cuda_device))
+
+
+def _moe_layer(dev, int8, shared=True):
+    from aurora_tpu_torch.models.init import build
+    from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from aurora_tpu_torch.serve import engine as teng
+    cfg = LlamaConfig(vocab_size=512, hidden_size=1024,
+                      intermediate_size=1536, num_hidden_layers=1,
+                      num_attention_heads=8, num_key_value_heads=2,
+                      num_experts=8, num_experts_per_tok=2)
+    model = build(lambda c, device, dtype: LlamaModel(
+        c, device=device, dtype=dtype, shared_inter=512 if shared else 0,
+        shared_gate=shared), cfg, device=dev, dtype=torch.bfloat16,
+        generator=torch.Generator(dev).manual_seed(0))
+    if int8:
+        model = teng.quantize_weights_int8(model)
+    return cfg, model.layers[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_moe_layer_makes_no_host_sync_on_card(cuda_device, int8):
+    """A MoE layer's MLP (routing, the sort, the offsets, three grouped
+    products, the combine, the gated shared expert) at 4 decode rows and
+    at a 2 x 300 extend, under torch.cuda.set_sync_debug_mode("error"):
+    nothing waits on the card."""
+    from aurora_tpu_torch.models.llama import moe_layer_mlp
+    from aurora_tpu_torch.ops import moe as tmoe
+    cfg, lp = _moe_layer(cuda_device, int8)
+    xs = [torch.randn(shape, device=cuda_device).to(torch.bfloat16)
+          for shape in ((4, 1, 1024), (2, 300, 1024))]
+    with torch.no_grad():
+        for x in xs:                    # build and warm up first
+            moe_layer_mlp(cfg, lp, x, grouped=True)
+        torch.cuda.synchronize()
+        before = tmoe.moe_grouped_mm.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [moe_layer_mlp(cfg, lp, x, grouped=True) for x in xs]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tmoe.moe_grouped_mm.launches == before + 12
+    for x, out in zip(xs, outs):
+        want = moe_layer_mlp(cfg, lp, x, grouped=False)
+        assert torch.isfinite(out).all()
+        assert ((out.float() - want.float()).abs().max()
+                <= 2e-2 * want.float().abs().max())
+
+
+def _serve_twice(model, cfg, prompts, **ecfg):
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    outs = []
+    for _ in range(2):
+        eng = ServeEngine(model, cfg, EngineConfig(
+            max_batch=len(prompts), max_seq_len=1024, kv_chunk=512,
+            prefill_buckets=(512,), decode_steps=4, **ecfg), seed=0)
+        for i, p in enumerate(prompts):
+            eng.add_request(Request(rid=str(i), input_ids=list(p),
+                                    max_new_tokens=16, eos_ids=(),
+                                    logprobs=True))
+        done = {}
+        while eng.has_work():
+            done.update({r.rid: r for r in eng.step()})
+        outs.append({k: (r.output_ids, r.output_logprobs)
+                     for k, r in done.items()})
+        del eng
+    return outs
+
+
+@pytest.mark.cuda
+def test_moe_engines_repeat_on_card(cuda_device):
+    """Mixtral-8x7B's widths at 2 layers (W8, int8 KV: the grouped kernel
+    on int8 experts) and DeepSeek-V2-Lite's at 3 layers (bf16 latents,
+    the fp32 expert path's two-part down product), 4 prompts of 400-500
+    ids, 16 greedy tokens: two engines over the same weights give the
+    same tokens and logprobs, bit for bit."""
+    import dataclasses
+
+    from aurora_tpu_torch.models.deepseek_v2 import (DeepseekV2Config,
+                                                     init_deepseek_v2)
+    from aurora_tpu_torch.models.init import build
+    from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from aurora_tpu_torch.serve import engine as teng
+    from aurora_tpu_torch.serve.mla import deepseek_serving_params
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    rng = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(3, 32000, (int(n),), generator=rng).tolist()
+               for n in torch.randint(400, 500, (4,), generator=rng)]
+    cfg = dataclasses.replace(LlamaConfig.mistral_7b(), num_hidden_layers=2,
+                              sliding_window=None, rope_theta=1e6,
+                              num_experts=8, num_experts_per_tok=2)
+    model = teng.fuse_serving_weights(teng.quantize_weights_int8(build(
+        LlamaModel, cfg, device=cuda_device, dtype=torch.bfloat16,
+        generator=gen)))
+    a, b = _serve_twice(model, cfg, prompts, weight_quant="int8",
+                        kv_quant="int8")
+    assert a == b
+    del model
+    d = dataclasses.replace(DeepseekV2Config.v2_lite(), num_hidden_layers=3)
+    ds = deepseek_serving_params(init_deepseek_v2(d, gen, cuda_device,
+                                                  torch.bfloat16), d)
+    a, b = _serve_twice(ds, ds.cfg, [[t % d.vocab_size for t in p]
+                                     for p in prompts])
+    assert a == b

@@ -143,8 +143,15 @@ def test_kv_pool_bytes_match_jax_and_the_engine_sizing(kv_quant):
     per_token = tengine.kv_bytes_per_token_layer(
         tc, "int8" if quant else "none", torch.float32)
     assert pool.hbm_bytes() == 96 * tc.num_hidden_layers * per_token
-    with pytest.raises(NotImplementedError):
-        KVPool(dataclasses.replace(jc, mla_kv_lora_rank=8), 4)
+    # an MLA config's latent pool: one plane of one "head", no V
+    jm = dataclasses.replace(jc, mla_kv_lora_rank=8, num_key_value_heads=1,
+                             head_dim_override=12)
+    mpool = KVPool(bridge.llama_config_from(jm), 4, torch.float32,
+                   quant=quant, device="cpu")
+    jmpool = JKVPool(jm, 4, jnp.float32, quant=quant)
+    assert {n: tuple(t.shape) for n, t in mpool.planes.items()} == \
+        {n: tuple(a.shape) for n, a in jmpool.as_dict().items()}
+    assert mpool.hbm_bytes() == jmpool.hbm_bytes()
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 bench-latency | bench-serving`) on the CPU.
 
 Each mode's --help exits 0; serve exits
-2 naming its ROADMAP item for --dp / --tp above 1 and for MoE (Mixtral)
-and MLA (DeepseekV2) checkpoints (Gemma-2 is served:
+2 naming its ROADMAP item for --dp / --tp above 1 (a Mixtral checkpoint
+too) and for what MLA does not take (DeepseekV2 with --kv-quant), and
+loads MoE and MLA directories (Gemma-2 is served:
 tests/test_torch_gemma2.py); chat over stdin on a tiny xtuner directory and a
 video prints the JAX cli/chat.py's two answers, fp32 and greedy, text for
 text, and encodes the video once for both turns (a video that needs a
@@ -50,11 +51,53 @@ def test_serve_refuses_what_is_not_ported(tmp_path, capsys, case):
         argv += [f"--{case}", "2"]
         item = "queue 1 item 9"
     else:
+        # MoE and MLA checkpoints are served (test_serve_loads_moe_and_mla_
+        # dirs); a Mixtral one still takes no tensor parallelism, and MLA
+        # no KV quantization, as in the reference
         (tmp_path / "config.json").write_text(json.dumps(
             {"architectures": [case], "model_type": case[:-11].lower()}))
-        item = "queue 1 item 8"
+        argv += ["--tp", "2"] if case.startswith("Mixtral") \
+            else ["--kv-quant", "int8"]
+        item = "queue 1 item 9" if case.startswith("Mixtral") else "MLA"
     assert tserve.main(argv) == 2
     assert item in capsys.readouterr().err
+
+
+def test_serve_loads_moe_and_mla_dirs(tmp_path, monkeypatch):
+    """A Mixtral directory with --weight-quant int8 (each layer quantized
+    as it loads: int8 experts, W8 attention, fused streams) and a
+    DeepseekV2 one (bf16-only MLA, here fp32 on the CPU) reach the HTTP
+    server's launch with their serving config."""
+    from safetensors.numpy import save_file
+
+    import test_torch_mla as mla
+    import test_torch_moe as moe
+    from aurora_tpu_torch.data import text
+    from aurora_tpu_torch.serve import api
+
+    launched = {}
+    monkeypatch.setattr(api, "launch_server",
+                        lambda model, cfg, tok, **kw: launched.update(
+                            model=model, cfg=cfg))
+    monkeypatch.setattr(text, "auto_tokenizer", lambda path: object())
+    hf_cfg, sd = moe._mixtral(np.random.default_rng(0))
+    mix = tmp_path / "mixtral"
+    mix.mkdir()
+    save_file(moe._scaled(sd), str(mix / "model.safetensors"))
+    (mix / "config.json").write_text(json.dumps(
+        dict(hf_cfg, architectures=["MixtralForCausalLM"])))
+    common = ["--device", "cpu", "--dtype", "float32", "--max-batch", "2",
+              "--num-slots", "64"]
+    assert tserve.main(["--model_path", str(mix), "--weight-quant", "int8",
+                        *common]) == 0
+    last = launched["model"].layers[-1]
+    assert launched["cfg"].num_experts == moe.E
+    assert last.moe_gate.weight.dtype == torch.int8 and hasattr(last, "qkv")
+    _, tree, tcfg, _ = mla.pair("lite")
+    mla._write_dir(str(tmp_path / "ds"), tree,
+                   dict(mla.HF_BASE, max_position_embeddings=256))
+    assert tserve.main(["--model_path", str(tmp_path / "ds"), *common]) == 0
+    assert launched["cfg"].mla_kv_lora_rank == tcfg.kv_lora_rank
 
 
 def _chat_lines(out):

@@ -75,19 +75,18 @@ def test_bridge_layouts(tiny):
 
 def test_bridge_rejects_other_families():
     # Mistral's window, Qwen2's biases and Gemma2's alternating windows
-    # cross since the dense zoo was ported; the MoE and MLA families
-    # still raise
+    # cross since the dense zoo was ported, the MoE and MLA knobs since
+    # those families were
     assert bridge.llama_config_from(
         JLlamaConfig.mistral_7b()).sliding_window == 4096
     assert bridge.llama_config_from(JLlamaConfig.qwen2_7b()).qkv_bias
     assert bridge.llama_config_from(dataclasses.replace(
         JLlamaConfig.mistral_7b(), swa_every_other=True)).swa_every_other
-    with pytest.raises(NotImplementedError):
-        bridge.llama_config_from(dataclasses.replace(
-            JLlamaConfig.mistral_7b(), num_experts=8))
-    with pytest.raises(NotImplementedError):
-        bridge.llama_config_from(dataclasses.replace(
-            JLlamaConfig.mistral_7b(), mla_kv_lora_rank=512))
+    assert bridge.llama_config_from(dataclasses.replace(
+        JLlamaConfig.mistral_7b(), num_experts=8)).num_experts == 8
+    assert bridge.llama_config_from(dataclasses.replace(
+        JLlamaConfig.mistral_7b(), mla_kv_lora_rank=512)
+        ).mla_kv_lora_rank == 512
     assert bridge.llama_config_from(
         JLlamaConfig.vicuna_7b_v15_16k()).rope_linear_scaling == 4.0
 

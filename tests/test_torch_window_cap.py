@@ -71,16 +71,16 @@ def test_bridge_carries_mistral_and_the_cap():
     assert bridge.llama_config_from(_cfg(**CAPPED)).attn_logit_softcap == 30.
 
 
-# the dense family knobs cross (tests/test_torch_zoo.py); the MoE, MLA
-# and YaRN ones are still refused, naming their ROADMAP item
+# the dense family knobs cross (tests/test_torch_zoo.py), and so do the
+# MoE, MLA and YaRN ones (tests/test_torch_moe.py, test_torch_mla.py)
 @pytest.mark.parametrize("knob,value", [
     ("num_experts", 4), ("first_k_dense", 1),
     ("moe_router_logit_softcap", 30.0), ("moe_router_mode", "softmax_topk"),
     ("mla_kv_lora_rank", 16), ("rope_inv_freq", (1.0, 0.5)),
     ("rope_attention_scaling", 1.5)])
 def test_bridge_still_refuses_other_family_knobs(knob, value):
-    with pytest.raises(NotImplementedError, match=f"{knob}.*item 8"):
-        bridge.llama_config_from(_cfg(**WINDOWED, **{knob: value}))
+    got = bridge.llama_config_from(_cfg(**WINDOWED, **{knob: value}))
+    assert getattr(got, knob) == value and got.sliding_window
 
 
 @pytest.mark.parametrize("knobs", [WINDOWED, CAPPED,
