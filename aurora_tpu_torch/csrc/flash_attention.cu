@@ -175,20 +175,22 @@ __device__ __forceinline__ bool release(int* done, int st) {
   return __shfl_sync(0xffffffffu, last, 0);
 }
 
-// the scores of key tile [k0, k0 + 128) → probabilities in place (exp2 of
-// s c - m, 0 off the visible pairs), the running max m and sum l of the
-// thread's two rows updated, alpha = the factor that rescales their O; a
-// row's 4 threads agree on its max through the quad shuffles
+// the scores of key tile [k0, k0 + 2 NE) (an m64n(2 NE) accumulator) →
+// probabilities in place (exp2 of s c - m, 0 off the visible pairs), the
+// running max m and sum l of the thread's two rows updated, alpha = the
+// factor that rescales their O; a row's 4 threads agree on its max through
+// the quad shuffles
+template <int NE>
 __device__ __forceinline__ void online_softmax(
-    float (&s)[64], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    float (&s)[NE], float (&m)[2], float (&l)[2], float (&alpha)[2],
     const Shape& sh, float c, int q0w, int t0, int k0, int lane,
     const int (&qs)[2], const int* kv_seg, int b) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] *= c;
-  if (sh.use_seg || k0 + 128 > sh.S ||
-      (sh.causal && k0 + 127 > q0w + sh.q_offset)) {
+  for (int i = 0; i < NE; ++i) s[i] *= c;
+  if (sh.use_seg || k0 + 2 * NE > sh.S ||
+      (sh.causal && k0 + 2 * NE - 1 > q0w + sh.q_offset)) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NE; ++i) {
       const int t = t0 + 8 * acc_half(i);
       const int key = k0 + acc_col(i, lane);
       const bool vis =
@@ -199,7 +201,7 @@ __device__ __forceinline__ void online_softmax(
   }
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) mx[acc_half(i)] = fmaxf(mx[acc_half(i)], s[i]);
+  for (int i = 0; i < NE; ++i) mx[acc_half(i)] = fmaxf(mx[acc_half(i)], s[i]);
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
@@ -209,7 +211,7 @@ __device__ __forceinline__ void online_softmax(
     l[hf] *= alpha[hf];
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NE; ++i) {
     s[i] = exp2f(s[i] - m[acc_half(i)]);
     l[acc_half(i)] += s[i];
   }
@@ -609,26 +611,176 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 
-// ------------------------------------------------------ D 256 (mma.sync)
-// The wgmma kernels above hold a head of at most 128 columns. D = 256
-// (Gemma's heads) runs the same contract on warp-level mma.sync tiles
-// (hopper_common.cuh, MmaTile<256>: 8 warps, a pair of warps per 16 rows,
-// each summing 128 of the 256 output columns): plain row-major shared
-// tiles loaded by all threads with 16-byte reads, one tile at a time.
-// Forward: a block per (64 q rows, b h), key tiles of 64. dK/dV: a block
-// per (64 keys, b h), each warp pair 16 keys, looping over q tiles of 32
-// rows that can see them (S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO
-// and dK += dS^T Q). dQ: a block per (64 q rows, b h), key tiles of 64
-// (S = Q K^T, dP = dO V^T, dQ += dS K). No atomics: every output element
-// has one writer.
+// ----------------------------------------------------------------- D 256
+// The kernels above hold a head of at most 128 columns. D = 256 (Gemma's
+// heads):
+// Forward (`flash_fwd_d256_kernel`): the D <= 128 forward's design at a
+// 256-column head. 256 threads as two warpgroups of 64 q rows (no producer
+// warpgroup, so a thread may hold 255 registers); Q loaded once by TMA as
+// four boxes of 64 columns (64 KB); key tiles of 64 keys in a ring of 2
+// stages of K and V (4 boxes each, 64 KB a stage), refilled by the last
+// warp done with a stage. S = Q K^T is one wgmma m64n64 group of 16 k16
+// steps into 32 registers; O, 64 x 256 a warpgroup, stays in registers
+// as two m64n128 accumulators (128 floats a thread), and P, converted to
+// bf16 in registers, is the A operand of both halves of P V, the V stage
+// read MN-major. Masks are decided per tile as at D <= 128, and key tiles
+// past the causal limit are never loaded. Bound: at google/gemma-7b's
+// training shape (B 2, T 2048, H 16, causal) 6.87e10 FLOPs, 0.0695 ms at
+// 989 TFLOP/s (compute-bound, as at D 128). It replaced a first cut
+// on warp-level mma.sync with plain row-major tiles loaded by every
+// thread between two barriers (`load_rows`): 1.0054 ms on an H100 SXM
+// at 700 W, B 2, T 2048, H 16 (69 TFLOP/s).
+// Backward, on warp-level mma.sync tiles (hopper_common.cuh, MmaTile<256>:
+// 8 warps, a pair of warps per 16 rows, each summing 128 of the 256 output
+// columns; plain row-major shared tiles loaded by all threads with 16-byte
+// reads, one tile at a time). dK/dV: a block per (64 keys, b h), each warp
+// pair 16 keys, looping over q tiles of 32 rows that can see them (S^T =
+// K Q^T and dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q). dQ: a
+// block per (64 q rows, b h), key tiles of 64 (S = Q K^T, dP = dO V^T, dQ
+// += dS K). No atomics: every output element has one writer.
 
-constexpr int MD = 256;           // the head width of these kernels
+constexpr int MD = 256;  // the head width of these kernels
+constexpr int D256_STAGES = 2;
+constexpr size_t SMEM_FWD_D256 =
+    1024 + 4 * BOX128 + D256_STAGES * 8 * BOX64 + RING;
+
+// the four 64-column boxes of a 256-wide tile of rows [row0, row0 + box
+// rows)
+__device__ __forceinline__ void load_tile4(uint8_t* dst,
+                                           const CUtensorMap* map,
+                                           uint64_t* bar, int head, int row0,
+                                           int b, uint32_t box_bytes) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    hopper::tma_load_4d(dst + i * box_bytes, map, bar, 64 * i, head, row0,
+                        b);
+}
+
+// key tile j (keys [64 j, 64 j + 64)) of K and V into ring stage st; one
+// thread
+__device__ __forceinline__ void fill_kv256(uint8_t* ring, uint64_t* full,
+                                           int st, int j,
+                                           const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v, int head,
+                                           int b) {
+  uint8_t* dst = ring + st * 8 * BOX64;
+  hopper::mbar_expect_tx(&full[st], 8 * BOX64);
+  load_tile4(dst, tm_k, &full[st], head, 64 * j, b, BOX64);
+  load_tile4(dst + 4 * BOX64, tm_v, &full[st], head, 64 * j, b, BOX64);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const int* __restrict__ q_seg,
+                      const int* __restrict__ kv_seg, bf16* __restrict__ out,
+                      float* __restrict__ lse, Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = hopper::align1024(smem_raw);
+  uint8_t* sKV = sQ + 4 * BOX128;  // stage st: K, then V, 4 boxes each
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(sKV + D256_STAGES * 8 * BOX64);
+  uint64_t* full = bar + 1;
+  int* done = reinterpret_cast<int*>(bar + 1 + STAGES);
+
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H, head = bh % sh.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 128;  // heaviest tiles first
+  const int ntiles = (key_end(sh, q0, 128) + 63) / 64;
+  init_ring(bar, done, 1);
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(bar, 4 * BOX128);
+    load_tile4(sQ, &tm_q, bar, head, q0, b, BOX128);
+    for (int j = 0; j < min(D256_STAGES, ntiles); ++j)
+      fill_kv256(sKV, full, j, j, &tm_k, &tm_v, head, b);
+  }
+
+  const int cw = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int q0w = q0 + 64 * cw;
+  const int t0 = q0w + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+  const float c = sh.scale * LOG2E;
+  int qs[2] = {0, 0};
+  if (sh.use_seg) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (t0 + 8 * hf < sh.T) qs[hf] = q_seg[size_t(b) * sh.T + t0 + 8 * hf];
+  }
+  float o0[64], o1[64], s[32];  // O's columns [0, 128) and [128, 256)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o0[i] = o1[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  hopper::mbar_wait(bar, 0);
+  const uint64_t dq = hopper::desc_k(sQ + cw * 64 * 128);
+  uint32_t pa[4][4];  // P as bf16 register operands
+  float alpha[2];
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % D256_STAGES;
+    uint8_t* sK = sKV + st * 8 * BOX64;
+    hopper::mbar_wait(&full[st], (j / D256_STAGES) & 1);
+
+    // S = Q K^T, the warpgroup's 64 rows x 64 keys
+    const uint64_t dk = hopper::desc_k(sK);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < MD / 16; ++kk)
+      hopper::mma_64x64_ss(s, hopper::desc_add(dq, k_step(kk, BOX128)),
+                           hopper::desc_add(dk, k_step(kk, BOX64)), kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    online_softmax(s, m, l, alpha, sh, c, q0w, t0, j * 64, lane, qs, kv_seg,
+                   b);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      o0[i] *= alpha[acc_half(i)];
+      o1[i] *= alpha[acc_half(i)];
+    }
+
+    // O += P V, each half of the head from two of V's boxes
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(s, kk, pa[kk]);
+    const uint64_t dv0 = hopper::desc_mn(sK + 4 * BOX64, BOX64);
+    const uint64_t dv1 = hopper::desc_mn(sK + 6 * BOX64, BOX64);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper::mma_64x128_rs(o0, pa[kk], hopper::desc_add(dv0, kk * 2048));
+      hopper::mma_64x128_rs(o1, pa[kk], hopper::desc_add(dv1, kk * 2048));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o0);
+    hopper::fence_regs(o1);
+    if (release(done, st) && lane == 0 && j + D256_STAGES < ntiles)
+      fill_kv256(sKV, full, st, j + D256_STAGES, &tm_k, &tm_v, head, b);
+  }
+
+  const int rs = sh.H * MD;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    const int t = t0 + 8 * hf;
+    if (t < sh.T) {
+      const float lc = fmaxf(l[hf], 1e-30f);
+      bf16* dst = out + (size_t(b) * sh.T + t) * rs + size_t(head) * MD;
+      store_row(dst, o0, hf, lane, 128, 1.f / lc);
+      store_row(dst + 128, o1, hf, lane, 128, 1.f / lc);
+      if (lane % 4 == 0)
+        lse[size_t(bh) * sh.T + t] =
+            m[hf] == NEG_INF ? NEG_INF : m[hf] * LN2 + logf(lc);
+    }
+  }
+}
+
 using MT = hopper::MmaTile<MD>;
 constexpr int MP = MT::P;
 constexpr int MND = MT::DS / 8;  // output 8-column blocks a warp
 constexpr int MBQ_DKV = 32;      // q rows a dK/dV step
 
-constexpr size_t SMEM_FWD_MMA = size_t(3 * 64) * MP * 2 + 64 * 4;
 constexpr size_t SMEM_DKV_MMA =
     size_t(2 * 64 + 2 * MBQ_DKV) * MP * 2 + (3 * MBQ_DKV + 64) * 4;
 constexpr size_t SMEM_DQ_MMA = size_t(4 * 64) * MP * 2 + 3 * 64 * 4;
@@ -639,83 +791,6 @@ __device__ __forceinline__ void load_seg(int* dst, const int* seg, int b,
                                          bool use) {
   for (int r = threadIdx.x; r < n; r += blockDim.x)
     dst[r] = use && row0 + r < len ? seg[size_t(b) * len + row0 + r] : 0;
-}
-
-__global__ void __launch_bounds__(MT::NT, 1)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const int* __restrict__ q_seg,
-                     const int* __restrict__ kv_seg, bf16* __restrict__ out,
-                     float* __restrict__ lse, Shape sh) {
-  extern __shared__ __align__(16) uint8_t smem_mma[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sK = sQ + 64 * MP;
-  bf16* sV = sK + 64 * MP;
-  int* sKs = reinterpret_cast<int*>(sV + 64 * MP);
-  const int bh = blockIdx.y, b = bh / sh.H, head = bh % sh.H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest first
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rg = warp % 4, sl = warp / 4;
-  const size_t rs = size_t(sh.H) * MD;
-  const int kend = key_end(sh, q0, 64);
-  hopper::load_rows<MD>(sQ, q + size_t(b) * sh.T * rs + head * MD, rs, q0,
-                        64, sh.T, tid, MT::NT);
-  int t[2], qs[2] = {0, 0};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    t[h] = q0 + rg * 16 + lane / 4 + 8 * h;
-    if (sh.use_seg && t[h] < sh.T) qs[h] = q_seg[size_t(b) * sh.T + t[h]];
-  }
-  const float c = sh.scale * LOG2E;
-  float o[MND][4];
-#pragma unroll
-  for (int n = 0; n < MND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-
-  for (int kb = 0; kb < kend; kb += 64) {
-    __syncthreads();
-    hopper::load_rows<MD>(sK, k + size_t(b) * sh.S * rs + head * MD, rs, kb,
-                          64, sh.S, tid, MT::NT);
-    hopper::load_rows<MD>(sV, v + size_t(b) * sh.S * rs + head * MD, rs, kb,
-                          64, sh.S, tid, MT::NT);
-    load_seg(sKs, kv_seg, b, sh.S, kb, 64, sh.use_seg);
-    __syncthreads();
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-    hopper::mma_xyt<MD, 8>(s, sQ, rg * 16, sK, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = 8 * n + 2 * (lane % 4) + (i & 1), key = kb + col;
-        const int h = i >> 1;
-        const bool vis = key < sh.S &&
-                         (!sh.causal || t[h] + sh.q_offset >= key) &&
-                         (!sh.use_seg || qs[h] == sKs[col]);
-        s[n][i] = vis ? s[n][i] * c : -INFINITY;
-      }
-    hopper::softmax_step<8, MND>(s, m, l, o);
-    hopper::mma_wz<MD, 4, MND>(o, s, sV, sl * MT::DS, lane);
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    if (t[h] < sh.T) {
-      const float lc = fmaxf(l[h], 1e-30f);
-      hopper::store_c_row<MND>(
-          out + (size_t(b) * sh.T + t[h]) * rs + head * MD + sl * MT::DS, o,
-          h, lane, 1.f / lc);
-      if (sl == 0 && lane % 4 == 0)
-        lse[size_t(bh) * sh.T + t[h]] =
-            m[h] == NEG_INF ? NEG_INF : m[h] * LN2 + logf(lc);
-    }
-  }
 }
 
 __global__ void __launch_bounds__(MT::NT, 1)
@@ -919,22 +994,23 @@ extern "C" int aurora_flash_fwd(const void* q, const void* k, const void* v,
   if (bad_shape(B, T, S, H, D) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return int(cudaErrorInvalidValue);
   const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
+  const int krows = D == MD ? 64 : 128;  // rows of a key tile
+  CUtensorMap mq, mk, mv;
+  if (!hopper::map_blhd(&mq, q, B, T, H, D, 128) ||
+      !hopper::map_blhd(&mk, k, B, S, H, D, krows) ||
+      !hopper::map_blhd(&mv, v, B, S, H, D, krows))
+    return int(cudaErrorInvalidValue);
   if (D == MD) {
-    cudaError_t err = allow_smem(flash_fwd_mma_kernel, SMEM_FWD_MMA);
+    cudaError_t err = allow_smem(flash_fwd_d256_kernel, SMEM_FWD_D256);
     if (err != cudaSuccess) return int(err);
-    flash_fwd_mma_kernel<<<dim3((T + 63) / 64, B * H), MT::NT, SMEM_FWD_MMA,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const int*>(q_seg),
+    flash_fwd_d256_kernel<<<dim3((T + 127) / 128, B * H), NTHREADS,
+                            SMEM_FWD_D256,
+                            static_cast<cudaStream_t>(stream)>>>(
+        mq, mk, mv, static_cast<const int*>(q_seg),
         static_cast<const int*>(kv_seg), static_cast<bf16*>(out),
         static_cast<float*>(lse), sh);
     return int(cudaGetLastError());
   }
-  CUtensorMap mq, mk, mv;
-  if (!hopper::map_blhd(&mq, q, B, T, H, D, 128) ||
-      !hopper::map_blhd(&mk, k, B, S, H, D, 128) ||
-      !hopper::map_blhd(&mv, v, B, S, H, D, 128))
-    return int(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(flash_fwd_kernel, SMEM_FWD);
   if (err != cudaSuccess) return int(err);
   dim3 grid((T + 127) / 128, B * H);
@@ -1077,8 +1153,8 @@ extern "C" int aurora_kernel_attrs(const char* name, int* regs,
              strlen(name + 14) < sizeof(mode)) {
     err_name = aurora_ragged_extend_kernel(name + 14, &fn, &dynamic);
   } else if (strcmp(name, "flash_fwd_d256") == 0) {
-    fn = reinterpret_cast<const void*>(flash_fwd_mma_kernel);
-    dynamic = int(SMEM_FWD_MMA);
+    fn = reinterpret_cast<const void*>(flash_fwd_d256_kernel);
+    dynamic = int(SMEM_FWD_D256);
   } else if (strcmp(name, "flash_bwd_dkv_d256") == 0) {
     fn = reinterpret_cast<const void*>(flash_bwd_dkv_mma_kernel);
     dynamic = int(SMEM_DKV_MMA);

@@ -206,6 +206,59 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of `map` at (c0, c1, c2) into dst at the same shared offset in
+// every CTA of the cluster named by cta_mask; completes on the mbarrier at
+// bar's offset in each of them
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, int c2,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "h"(cta_mask)
+      : "memory");
+}
+
+// this CTA's rank in its cluster, the cluster's index and the number of
+// clusters (1-D grids)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster: the shared-memory writes
+// (barrier inits included) before it are visible cluster-wide after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// arrive once on the mbarrier at bar's offset in cluster CTA `rank`
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(remote)
+               : "memory");
+}
+
 // one box of `map` at (c0, c1, c2, c3) into dst; completes on bar
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
@@ -266,6 +319,29 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// int8 to bf16 without a conversion instruction. A word of four int8 with
+// each byte's top bit flipped (w ^ 0x80808080) holds q + 128; byte i set
+// under the exponent of 2^23 is the float 2^23 + q + 128, and one add
+// leaves q, exactly.
+__device__ __forceinline__ float i8_float(uint32_t flipped, int i) {
+  return __int_as_float(int(__byte_perm(flipped, 0x4B000000u, 0x7440 | i))) -
+         8388736.f;
+}
+
+// two integer-valued floats of at most 8 significant bits as a bf16 pair
+// (lo, hi): their top 16 bits, exactly
+__device__ __forceinline__ uint32_t bf16_pair_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// a * b on bf16 pairs, each product rounded once to nearest even: for bf16
+// inputs, bf16(float(a) * float(b))
+__device__ __forceinline__ uint32_t bf16_mul2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                             *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
 // columns [16k, 16k + 16) of an m64nN accumulator as a bf16 register A
 // operand
 template <int N>
@@ -287,6 +363,11 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N], int k,
   HOPPER_ACC32(d), HOPPER_ACC8(d, 32), HOPPER_ACC8(d, 40),                \
       HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56)
 
+#define HOPPER_ACC128(d)                                                  \
+  HOPPER_ACC64(d), HOPPER_ACC8(d, 64), HOPPER_ACC8(d, 72),                \
+      HOPPER_ACC8(d, 80), HOPPER_ACC8(d, 88), HOPPER_ACC8(d, 96),         \
+      HOPPER_ACC8(d, 104), HOPPER_ACC8(d, 112), HOPPER_ACC8(d, 120)
+
 #define HOPPER_D32                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
@@ -297,6 +378,19 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N], int k,
   "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
   "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
   "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define HOPPER_D128                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "    \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "    \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "    \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "    \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "    \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "    \
+  "%127}"
 
 // D[64][64] (+)= A[64][16] . B[16][64], both K-major in shared memory;
 // accumulate = 0 overwrites D
@@ -319,6 +413,31 @@ __device__ __forceinline__ void mma_64x128_ss(float (&d)[64], uint64_t a,
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_ACC64(d)
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64][256] (+)= A[64][16] (K-major) . B[16][256] (MN-major), both in
+// shared memory
+__device__ __forceinline__ void mma_64x256_ss_mn(float (&d)[128], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_D128
+      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_ACC128(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64][256] += A[64][16] (registers) . B[16][256] (K-major in shared
+// memory)
+__device__ __forceinline__ void mma_64x256_rs_k(float (&d)[128],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_D128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : HOPPER_ACC128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // D[64][128] += A[64][16] (registers) . B[16][128] (MN-major in shared

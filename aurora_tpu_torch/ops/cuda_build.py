@@ -69,9 +69,10 @@ SIGNATURES = {
     # B, D, ti, Ib, group, down group, int* cluster size, int* channels
     "aurora_fused_mlp_cluster":
         [_I] * 6 + [_P, _P],
-    # xs, w, scale, offsets, out, M, K, N, E, w_int8, out_f32, stream
+    # xs, w, scale, offsets, out, M, K, N, E, w_int8, out_f32, decode,
+    # tokens, blocks (moe_plan), stream
     "aurora_moe_grouped_mm":
-        [_P] * 5 + [_I] * 6 + [_P],
+        [_P] * 5 + [_I] * 9 + [_P],
     "aurora_quantize_rows":
         [_P] * 3 + [_I] * 3 + [_P],
     "aurora_flash_fwd":

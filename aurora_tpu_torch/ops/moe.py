@@ -30,7 +30,8 @@ kernel of csrc/moe_grouped_mm.cu (bf16 rows, bf16 or int8 experts
 dequantized in the kernel as the reference's `_deq` rounds them, group
 offsets read on the device); CPU tensors take its plain twin,
 `moe_grouped_mm_reference`, a loop over the experts. `.launches` and
-`_reference.calls` count each path.
+`_reference.calls` count each path, `.launches_extend` and
+`.launches_decode` the kernel's two plans (`moe_plan`).
 
 Expert weights keep the reference's [E, in, out] layout in an
 `ExpertStack`: a float Parameter, or int8 with one fp32 scale per
@@ -39,7 +40,7 @@ Expert weights keep the reference's [E, in, out] layout in an
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -318,6 +319,56 @@ def moe_grouped_mm_reference(xs, w, offsets, scale=None, *, out_dtype=None):
 moe_grouped_mm_reference.calls = 0
 
 
+# The grouped kernel's two plans (csrc/moe_grouped_mm.cu). Extend: blocks
+# of EXTEND_CLUSTER x EXTEND_ROWS rows of one expert x EXTEND_COLS output
+# columns on wgmma, each taken by a cluster of EXTEND_CLUSTER CTAs (bf16
+# experts: EXTEND_ROWS rows a CTA; int8: half the columns a CTA), walked
+# by persistent clusters in bands of EXTEND_BAND blocks. Decode: stripes
+# of DECODE_COLS output columns of one expert, its rows as token tiles of
+# 8 or 16.
+EXTEND_ROWS = 128
+EXTEND_COLS = 256
+EXTEND_BAND = 8
+EXTEND_CLUSTER = 2
+DECODE_COLS = 128
+DECODE_ROWS_PER_EXPERT = 4     # decode while M <= this x E
+
+
+class MoePlan(NamedTuple):
+    """How `moe_grouped_mm` launches: `kind` "extend" or "decode"; `grid`
+    the launch's blocks (extend: (persistent blocks,); decode: (column
+    stripes, expert slots)); `tokens` a decode block's token tile (8 or
+    16; 0 for extend)."""
+    kind: str
+    grid: tuple
+    tokens: int
+
+
+def moe_plan(M: int, K: int, N: int, E: int, int8: bool,
+             sm_count: int = 132) -> MoePlan:
+    """The grouped kernel's plan from what the host knows (M rows, K, N,
+    E experts; never the rows an expert got, which stay on the device).
+    At most DECODE_ROWS_PER_EXPERT rows an expert on average the weights
+    are the wide operand: the decode plan streams each expert that has
+    rows once, a block a stripe of DECODE_COLS columns, with min(E, M)
+    expert slots (no more experts than rows can have any), the rows as
+    token tiles of 8 (at most 2 rows an expert on average) or 16. Past
+    that the extend plan: blocks of EXTEND_CLUSTER x EXTEND_ROWS rows of
+    one expert x EXTEND_COLS columns on the tensor cores, a cluster of
+    EXTEND_CLUSTER CTAs a block, one persistent CTA an SM at most and no
+    more clusters than the most blocks any split of M rows over E experts
+    can give. int8 experts take the same grid as bf16 ones (the kernel
+    splits a block between the CTAs by columns instead of rows)."""
+    del K, int8
+    if M <= DECODE_ROWS_PER_EXPERT * E:
+        return MoePlan("decode", (-(-N // DECODE_COLS), min(E, M)),
+                       8 if M <= 2 * E else 16)
+    rows = EXTEND_CLUSTER * EXTEND_ROWS
+    blocks = (-(-N // EXTEND_COLS)) * (-(-M // rows) + E)
+    return MoePlan("extend", (EXTEND_CLUSTER * min(
+        sm_count // EXTEND_CLUSTER, blocks),), 0)
+
+
 def moe_grouped_mm(xs, w, offsets, scale=None, *, out_dtype=None):
     """xs [M, K] (rows sorted by expert) × w [E, K, N] over the groups of
     offsets [E + 1] int32 → [M, N] in out_dtype (default xs's): expert e's
@@ -326,8 +377,9 @@ def moe_grouped_mm(xs, w, offsets, scale=None, *, out_dtype=None):
     reference rounds it (bf16(q)·bf16(s), before the product). On the
     card: bf16 xs, bf16 or int8 w, bf16 or fp32 out, K % 32 == 0,
     N % 16 == 0, all on one device and contiguous; the offsets stay on the
-    device, and rows outside [offsets[0], offsets[E]) are not written. CPU
-    tensors take `moe_grouped_mm_reference`."""
+    device, and rows outside [offsets[0], offsets[E]) are not written. The
+    launch follows `moe_plan`. CPU tensors take
+    `moe_grouped_mm_reference`."""
     name = "moe_grouped_mm"
     if xs.dim() != 2 or w.dim() != 3 or xs.shape[1] != w.shape[1] \
             or offsets.shape != (w.shape[0] + 1,) \
@@ -374,15 +426,24 @@ def moe_grouped_mm(xs, w, offsets, scale=None, *, out_dtype=None):
     if M == 0:
         return out
     from aurora_tpu_torch.ops.cuda_build import load_library
+    plan = moe_plan(M, K, N, E, quant, torch.cuda.get_device_properties(
+        xs.device).multi_processor_count)
     err = load_library().aurora_moe_grouped_mm(
         xs.data_ptr(), w.data_ptr(), 0 if scale is None else
         scale.data_ptr(), offsets.data_ptr(), out.data_ptr(), M, K, N, E,
         int(quant), int(out_dtype == torch.float32),
+        int(plan.kind == "decode"), plan.tokens, plan.grid[0],
         torch.cuda.current_stream(xs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     moe_grouped_mm.launches += 1
+    if plan.kind == "decode":
+        moe_grouped_mm.launches_decode += 1
+    else:
+        moe_grouped_mm.launches_extend += 1
     return out
 
 
-moe_grouped_mm.launches = 0
+moe_grouped_mm.launches = 0          # every launch
+moe_grouped_mm.launches_extend = 0   # launches of the extend plan
+moe_grouped_mm.launches_decode = 0   # and of the decode plan

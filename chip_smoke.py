@@ -293,16 +293,18 @@ The MoE and MLA families: `[kernels-moe]` holds the grouped-expert
 kernel (csrc/moe_grouped_mm.cu, the counterpart of the reference's
 `lax.ragged_dot`) against its plain twin at Mixtral-8x7B's, Qwen3-30B-
 A3B's and DeepSeek-V2-Lite's expert shapes, at 4 tokens and 4 x 2048,
-with bf16 and int8 experts, timed beside torch._grouped_mm; after the
-Qwen2 runs `[serve-mixtral-w8kv8]` (twice, bit for bit) and
+with bf16 and int8 experts, timed beside torch._grouped_mm, each case
+with the plan it took (decode at 4 tokens, extend at 4 x 2048) and its
+share of the bound; after the Qwen2 runs `[serve-mixtral-w8kv8]` (twice, bit for bit) and
 `[serve-mixtral-w4kv8]` serve Mixtral-8x7B whole (32 layers, 8 experts
 top-2; random bf16 weights quantized a layer at a time, int8 experts,
 int8 KV), `[serve-qwen3moe]` Qwen3-30B-A3B's widths at 8 layers (128
 experts top-8, bf16, int8 KV) and `[serve-deepseek-v2-lite]` DeepSeek-
 V2-Lite whole (27 layers, MLA over latent rows, YaRN, the radix cache
 on; twice, bit for bit, then a wave of prefix hits), 4 prompts of
-1,500-2,000 ids and 64 tokens each, with their launch counts, the
-distinct experts a decode step touches, and the logits of a wave and a
+1,500-2,000 ids and 64 tokens each, with their launch counts (the
+grouped kernel's wave on its extend plan, every decode step on its
+decode plan), the distinct experts a decode step touches, and the logits of a wave and a
 decode step against the twins; `[mla-moe-fp32]` holds DeepSeek's fp32
 expert path on the kernel against its fp32 twin.
 
@@ -4365,9 +4367,12 @@ def moe_kernel_phase(torch, engine_mod, moe, dev):
     |want|), graph and eager ms beside the twin's and torch._grouped_mm's
     on the same bf16 weights (int8 experts dequantized once, outside the
     timing; null where the call is refused), the bound from the bytes of
-    the rows, the experts touched and the output, or 2·M·D·F operations
-    → {(family, experts, tokens): numbers}."""
+    the rows, the experts touched and the output, or 2·M·D·F operations,
+    the plan the kernel took (`moe_plan`: decode at 4 tokens, extend at
+    4 x 2048) and its share of the bound → {(family, experts, tokens):
+    numbers}."""
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
     for fam, D, F, E, k in MOE_SHAPES:
         w16 = (torch.randn((E, D, F), generator=g, device=dev)
@@ -4430,13 +4435,16 @@ def moe_kernel_phase(torch, engine_mod, moe, dev):
                     wbytes += touched * F * 4
                 nbytes = M * D * 2 + wbytes + M * F * 2 + (E + 1) * 4
                 bound = least_ms(2.0 * M * D * F, nbytes)
+                plan = moe.moe_plan(M, D, F, E, scale is not None, sms)
                 r = dict(err=err.max().item(), ms=graph_ms(kernel),
                          eager_ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
                          library_ms=lib_ms, bound=bound, touched=touched,
-                         rows=M)
+                         rows=M, plan=plan.kind)
+                r["pct_of_bound"] = 100.0 * bound[0] / r["ms"]
                 out[(fam, experts, tokens)] = r
                 phase("kernels-moe", family=fam, shape=f"{M}x{D}x{F}/E{E}",
-                      experts=experts, tokens=tokens,
+                      experts=experts, tokens=tokens, plan=plan.kind,
+                      grid="x".join(map(str, plan.grid)),
                       experts_touched=touched,
                       max_abs_err=f"{r['err']:.3e}",
                       graph_ms=f"{r['ms']:.4f}",
@@ -4445,7 +4453,8 @@ def moe_kernel_phase(torch, engine_mod, moe, dev):
                       library_ms=("null" if lib_ms is None
                                   else f"{lib_ms:.4f}"),
                       library=lib_note, bound_ms=f"{bound[0]:.4f}",
-                      bound_by=bound[1])
+                      bound_by=bound[1],
+                      pct_of_bound=f"{r['pct_of_bound']:.1f}")
         del w16, q8, wl
         torch.cuda.empty_cache()
     return out
@@ -4569,7 +4578,9 @@ def moe_serve_phase(torch, engine_mod, ra, qm, moe, dev, card, plains):
             engine = ServeEngine(model, cfg, ecfg, device=dev, seed=SEED)
             counters = [(ra.ragged_attention, "launches_int8"),
                         (ra.ragged_decode_attention, "launches_int8"),
-                        (moe.moe_grouped_mm, "launches")]
+                        (moe.moe_grouped_mm, "launches"),
+                        (moe.moe_grouped_mm, "launches_extend"),
+                        (moe.moe_grouped_mm, "launches_decode")]
             if wk is not None:
                 counters.append((wk, "launches"))
             counters += plains
@@ -4578,8 +4589,8 @@ def moe_serve_phase(torch, engine_mod, ra, qm, moe, dev, card, plains):
                             logprobs=True)
                     for i, p in enumerate(prompts)]
             wall, counts = serve(torch, engine, reqs, counters, MOE_MAX_NEW)
-            ext, dec, gmm = (counts[f"{f.__name__}.{a}"]
-                             for f, a in counters[:3])
+            ext, dec, gmm, gext, gdec = (counts[f"{f.__name__}.{a}"]
+                                         for f, a in counters[:5])
             wl = counts[f"{wk.__name__}.launches"] if wk is not None else 0
             steps = engine._steps
             name = run if rep == 0 else run + "-again"
@@ -4608,6 +4619,10 @@ def moe_serve_phase(torch, engine_mod, ra, qm, moe, dev, card, plains):
                   f"{name}: ragged launches {counts}, steps {steps}")
             check(gmm == 3 * L * (1 + steps),
                   f"{name}: grouped launches {gmm}, steps {steps}")
+            # the wave on the extend plan, every decode step on the decode
+            # plan
+            check(gext == 3 * L and gdec == 3 * L * steps,
+                  f"{name}: grouped plans {gext} / {gdec}, steps {steps}")
             check(wk is None or wl > 0, f"{name}: {wname} launches {wl}")
             check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
                   f"plain twins ran: {counts}")
@@ -4632,7 +4647,7 @@ def moe_serve_phase(torch, engine_mod, ra, qm, moe, dev, card, plains):
                 check(got == first, f"two {run} runs differ")
                 phase(f"serve-{run}-repeat", bitwise_equal=True,
                       tokens=N_REQUESTS * MOE_MAX_NEW)
-            out[name] = (ext, dec, gmm, wl)
+            out[name] = (ext, dec, gmm, wl, gext, gdec)
             del engine
             gc.collect()
         del model
@@ -4677,7 +4692,9 @@ def mla_serve_phase(torch, engine_mod, ra, moe, dev, card, plains):
     plens, prompts = moe_prompts(cfg.vocab_size, SEED + 23)
     counters = [(ra.ragged_attention, "launches"),
                 (ra.ragged_decode_attention, "launches"),
-                (moe.moe_grouped_mm, "launches")] + plains
+                (moe.moe_grouped_mm, "launches"),
+                (moe.moe_grouped_mm, "launches_extend"),
+                (moe.moe_grouped_mm, "launches_decode")] + plains
     first, out = None, {}
     for rep in range(2):
         ecfg = EngineConfig(max_batch=N_REQUESTS, max_seq_len=MOE_SEQ,
@@ -4691,8 +4708,8 @@ def mla_serve_phase(torch, engine_mod, ra, moe, dev, card, plains):
                         logprobs=True)
                 for i, p in enumerate(prompts)]
         wall, counts = serve(torch, engine, reqs, counters, MOE_MAX_NEW)
-        ext, dec, gmm = (counts[f"{f.__name__}.{a}"] for f, a in
-                         counters[:3])
+        ext, dec, gmm, gext, gdec = (counts[f"{f.__name__}.{a}"]
+                                     for f, a in counters[:5])
         steps = engine._steps
         name = "serve-deepseek-v2-lite" + ("-again" if rep else "")
         phase(name, card=repr(card),
@@ -4717,12 +4734,14 @@ def mla_serve_phase(torch, engine_mod, ra, moe, dev, card, plains):
         check(ext == 0 and dec == 0, f"MLA ran ragged kernels: {counts}")
         check(gmm == 4 * n_moe * (1 + steps),
               f"grouped launches {gmm}, steps {steps}")
+        check(gext == 4 * n_moe and gdec == 4 * n_moe * steps,
+              f"grouped plans {gext} / {gdec}, steps {steps}")
         check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
               f"plain twins ran: {counts}")
         got = [(r.output_ids, list(r.output_logprobs)) for r in reqs]
         if rep == 0:
             first = got
-            out["deepseek"] = gmm
+            out["deepseek"] = (gmm, gext, gdec)
             logits_check(torch, engine_mod, engine.runner,
                          lambda r: model.embed_tokens[
                              torch.tensor(r.input_ids, device=dev)],
@@ -4774,35 +4793,34 @@ def mla_serve_phase(torch, engine_mod, ra, moe, dev, card, plains):
 
 
 def moe_entries(kres, serve_counts, mla_counts):
-    """The grouped kernel's entries of the kernels line: per family and
-    expert type at 4 tokens (ms, plain_ms, library_ms: graph, eager,
-    graph), the wave of 4 x 2048 beside them; launches from that
-    family's runs with those experts."""
-    launches = {("mixtral-8x7b", "int8"): sum(
-                    serve_counts[r][2] for r in serve_counts
-                    if r.startswith("mixtral")),
-                ("qwen3-30b-a3b", "bf16"): serve_counts["qwen3moe"][2],
-                ("deepseek-v2-lite", "bf16"): mla_counts["deepseek"]}
+    """The grouped kernel's entries of the kernels line, one per plan,
+    family and expert type: the decode plan at 4 tokens, the extend plan
+    at 4 x 2048 (ms, plain_ms, library_ms: graph, eager, graph); launches
+    of that plan from that family's runs with those experts."""
+    mixtral = [c for r, c in serve_counts.items() if r.startswith("mixtral")]
+    launches = {("mixtral-8x7b", "int8"): (sum(c[4] for c in mixtral),
+                                           sum(c[5] for c in mixtral)),
+                ("qwen3-30b-a3b", "bf16"): serve_counts["qwen3moe"][4:6],
+                ("deepseek-v2-lite", "bf16"): mla_counts["deepseek"][1:3]}
     out = []
     for fam, D, F, E, k in MOE_SHAPES:
         for experts in ("bf16", "int8"):
-            r, w = (kres[(fam, experts, t)] for t in MOE_TOKENS)
-            out.append({
-                "name": f"moe_grouped_mm[{experts},{fam}]", "route": "cuda",
-                "source": "aurora_tpu_torch/csrc/moe_grouped_mm.cu",
-                "replaces": "aurora_tpu/ops/moe.py:148",
-                "launches": launches.get((fam, experts), 0),
-                "max_abs_err": max(r["err"], w["err"]), "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-                "eager_ms": r["eager_ms"], "rows": r["rows"],
-                "experts_touched": r["touched"],
-                "shape": f"D{D}/F{F}/E{E}/k{k}",
-                f"ms_t{MOE_TOKENS[1]}": w["ms"],
-                f"plain_ms_t{MOE_TOKENS[1]}": w["plain_ms"],
-                f"library_ms_t{MOE_TOKENS[1]}": w["library_ms"],
-                f"bound_ms_t{MOE_TOKENS[1]}": w["bound"][0],
-                f"bound_by_t{MOE_TOKENS[1]}": w["bound"][1]})
+            for tokens in MOE_TOKENS:
+                r = kres[(fam, experts, tokens)]
+                n = launches.get((fam, experts), (0, 0))
+                out.append({
+                    "name": f"moe_grouped_mm[{r['plan']},{experts},{fam}]",
+                    "route": "cuda",
+                    "source": "aurora_tpu_torch/csrc/moe_grouped_mm.cu",
+                    "replaces": "aurora_tpu/ops/moe.py:148",
+                    "launches": n[r["plan"] == "decode"],
+                    "max_abs_err": r["err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                    "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+                    "eager_ms": r["eager_ms"], "rows": r["rows"],
+                    "tokens": tokens, "experts_touched": r["touched"],
+                    "pct_of_bound": r["pct_of_bound"],
+                    "shape": f"D{D}/F{F}/E{E}/k{k}"})
     return out
 
 
@@ -4908,7 +4926,10 @@ def main(argv=None):
                        *(f"{k}_b{b}" for k in ("w8a8", "w4a16", "w4a8",
                                                 "w4a8_flat", "fused_mlp")
                          for b in (8, 64)),
-                       "moe_grouped_mm_bf16", "moe_grouped_mm_int8")}
+                       *(f"moe_grouped_mm_{p}" for p in (
+                           "extend_bf16", "extend_int8", "decode_bf16_t8",
+                           "decode_bf16_t16", "decode_int8_t8",
+                           "decode_int8_t16")))}
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
           nvcc_seconds=f"{cuda_build.build_seconds:.1f}",
           library=cuda_build.library_path().name,

@@ -44,7 +44,8 @@ out within 2e-2 max abs and, per query row, 1.5e-2 of that row's max
 |out|; lse within 1e-4 (fp32 on both sides from the same bf16 scores);
 each of dQ, dK, dV within 1.5e-2 of its max |want| (bf16 P and dS in the
 tensor-core products) — chip_smoke.py's bounds; repeated backward passes
-agree bitwise. The remat policies of a bf16 train step on the card give
+agree bitwise; at D 256 the forward repeats bit for bit and a query row
+that sees no key gives out 0 and lse -2.3819763e38. The remat policies of a bf16 train step on the card give
 the same loss and grad norm (1e-5) and keep or recompute the flash
 forward as their names say. The dense greedy decode of the caption path
 repeats bit for bit. The HTTP server (serve/api.py) at 8 layers of 7B
@@ -52,8 +53,10 @@ widths, W4 + int8 KV, streams the text it answers plain, through the
 kernels and never their twins. The grouped-expert kernel of the MoE
 layers at Mixtral's, Qwen3-MoE's and DeepSeek-V2-Lite's shapes, bf16 and
 int8 experts, with an expert that gets no rows and one that gets every
-row: fp32 output within 1e-5 of max |want|, bf16 output within one bf16
-rounding of the twin's fp32 result, repeats bitwise; it refuses what it
+row, in both plans of `moe_plan` (decode and extend, M at their edge, K
+and N off the tiles): fp32 output within 1e-5 of max |want|, bf16 output
+within one bf16 rounding of the twin's fp32 result, repeats bitwise;
+rows outside [offsets[0], offsets[E]) stay as they were; it refuses what it
 does not take (no fallback); a MoE layer's forward makes no host sync
 (`torch.cuda.set_sync_debug_mode("error")`); Mixtral's (W8, 2 layers)
 and DeepSeek-V2-Lite's (3 layers) engines repeat bit for bit.
@@ -1058,11 +1061,53 @@ def test_flash_takes_head_dim_256_on_card(cuda_device):
 @pytest.mark.parametrize("B,T,S,H,Hkv,causal,q_offset,segments", [
     (2, 300, 300, 4, 4, True, 0, False), (2, 300, 364, 4, 2, True, 64, True),
     (2, 200, 330, 4, 4, False, 0, False), (2, 300, 300, 4, 1, False, 0, True),
-    (1, 2048, 2048, 16, 16, True, 0, False)])
+    (1, 2048, 2048, 16, 16, True, 0, False), (2, 77, 77, 4, 4, True, 0, False),
+    (1, 130, 200, 4, 2, True, 70, False), (2, 64, 100, 4, 4, False, 0, False),
+    (1, 129, 129, 2, 2, True, 0, True)])
 def test_flash_d256_kernels_match_plain_on_card(cuda_device, B, T, S, H, Hkv,
                                                 causal, q_offset, segments):
     _flash_check(cuda_device, 256 + T + Hkv, B, T, S, H, Hkv, 256, causal,
                  q_offset, segments)
+
+
+def _flash_fwd_op(q, k, v, causal=True, q_offset=0, segs=(None, None)):
+    qf, kf, vf, qs, ks = tfa._card_inputs(q, k, v, *segs)
+    return torch.ops.aurora_tpu_torch.flash_fwd(
+        qf, kf, vf, qs, ks, causal, q.shape[-1] ** -0.5, q_offset)
+
+
+@pytest.mark.cuda
+def test_flash_d256_forward_masks_whole_rows_on_card(cuda_device):
+    """Query rows whose segment id no key carries see nothing: out 0 and
+    lse -2.3819763e38 (the reference's mask value), at T off the 128-row
+    q tiles and S off the 64-key tiles; the other rows' lse within 1e-4
+    of the fp32 twin's."""
+    q, k, v, _ = _flash_inputs(cuda_device, 31, 2, 203, 203, 4, 2, 256)
+    seg = torch.zeros((2, 203), dtype=torch.int32, device=cuda_device)
+    seg[:, 90:] = 1
+    qseg = seg.clone()
+    qseg[1, 150:] = 7
+    qseg[0, :5] = 7
+    out, lse = _flash_fwd_op(q, k, v, segs=(qseg, seg))
+    _, want = tfa.flash_attention_plain(
+        q.float(), k.float(), v.float(), causal=True, q_segment_ids=qseg,
+        kv_segment_ids=seg)
+    torch.cuda.synchronize()
+    dead = (qseg == 7)                              # [B, T]
+    assert bool((out[dead] == 0).all())
+    assert bool((lse.transpose(1, 2)[dead] == -2.3819763e38).all())
+    live = ~dead
+    assert (lse.transpose(1, 2)[live]
+            - want.transpose(1, 2)[live]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_d256_forward_is_bitwise_repeatable_on_card(cuda_device):
+    q, k, v, _ = _flash_inputs(cuda_device, 12, 2, 333, 333, 4, 4, 256)
+    runs = [_flash_fwd_op(q, k, v) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out, lse in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
 
 
 @pytest.mark.cuda
@@ -1345,7 +1390,11 @@ def _gmm_inputs(dev, seed, M, K, N, E, layout, int8):
                                      (4096, 4096, 1024, 8),
                                      (48, 2048, 768, 128),
                                      (777, 2048, 1408, 64),
-                                     (37, 1408, 2048, 64)])
+                                     (37, 1408, 2048, 64),
+                                     (32, 2048, 768, 8),
+                                     (33, 2048, 768, 8),
+                                     (24, 1440, 784, 8),
+                                     (600, 1440, 784, 8)])
 def test_moe_grouped_mm_kernel_matches_plain_on_card(cuda_device, M, K, N, E,
                                                      int8, layout):
     """The grouped-expert kernel against its plain twin (the same bf16
@@ -1353,22 +1402,75 @@ def test_moe_grouped_mm_kernel_matches_plain_on_card(cuda_device, M, K, N, E,
     within 1e-5 of max |want| (only the fp32 order of the sum differs),
     bf16 output within one bf16 rounding of the twin's fp32 result;
     an expert with no rows and one with every row; repeated launches
-    bitwise equal."""
+    bitwise equal. Both plans of `moe_plan`: decode at up to 4 rows an
+    expert (M 32 at E 8, its edge, with token tiles of 16), extend past
+    it (M 33); K 1440 off the 64-k stages, N 784 off the column tiles."""
     from aurora_tpu_torch.ops import moe as tmoe
     xs, w, scale, offs = _gmm_inputs(cuda_device, M + E, M, K, N, E, layout,
                                      int8)
     want = tmoe.moe_grouped_mm_reference(xs, w, offs, scale,
                                          out_dtype=torch.float32)
+    plan = tmoe.moe_plan(M, K, N, E, int8)
     before = tmoe.moe_grouped_mm.launches
+    by_plan = getattr(tmoe.moe_grouped_mm, "launches_" + plan.kind)
     got = tmoe.moe_grouped_mm(xs, w, offs, scale, out_dtype=torch.float32)
     again = tmoe.moe_grouped_mm(xs, w, offs, scale, out_dtype=torch.float32)
     got16 = tmoe.moe_grouped_mm(xs, w, offs, scale, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert tmoe.moe_grouped_mm.launches == before + 3
+    assert getattr(tmoe.moe_grouped_mm, "launches_" + plan.kind) \
+        == by_plan + 3
     assert torch.equal(got, again)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
     assert ((got16.float() - want).abs()
             <= 2.0 ** -8 * want.abs() + 1e-5 * want.abs().max()).all()
+
+
+def _gmm_into(out, xs, w, scale, offs):
+    """The kernel's C entry point by `moe_plan`, into a given output
+    (the wrapper allocates its own) → the plan."""
+    from aurora_tpu_torch.ops import moe as tmoe
+    from aurora_tpu_torch.ops.cuda_build import load_library
+    (M, K), (E, _, N) = xs.shape, w.shape
+    quant = w.dtype == torch.int8
+    plan = tmoe.moe_plan(M, K, N, E, quant, torch.cuda.get_device_properties(
+        xs.device).multi_processor_count)
+    err = load_library().aurora_moe_grouped_mm(
+        xs.data_ptr(), w.data_ptr(), scale.data_ptr() if quant else 0,
+        offs.data_ptr(), out.data_ptr(), M, K, N, E, int(quant),
+        int(out.dtype == torch.float32), int(plan.kind == "decode"),
+        plan.tokens, plan.grid[0],
+        torch.cuda.current_stream(xs.device).cuda_stream)
+    assert err == 0
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,kind", [(20, "decode"), (700, "extend")])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_moe_grouped_mm_leaves_rows_outside_the_groups_on_card(
+        cuda_device, M, kind, int8):
+    """Rows before offsets[0] and past offsets[E] (an output filled with
+    NaN): the kernel leaves them NaN in both plans, and the rows inside
+    are the wrapper's, bit for bit."""
+    from aurora_tpu_torch.ops import moe as tmoe
+    E, K, N = 8, 1024, 1024
+    xs, w, scale, _ = _gmm_inputs(cuda_device, M, M, K, N, E, "spread",
+                                  int8)
+    lo, hi = 5, M - 7
+    cuts = torch.sort(torch.randint(lo, hi + 1, (E - 1,), generator=torch
+                                    .Generator().manual_seed(M))).values
+    offs = torch.cat([torch.tensor([lo]), cuts, torch.tensor([hi])]).to(
+        torch.int32).to(cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = torch.full((M, N), float("nan"), dtype=dtype,
+                         device=cuda_device)
+        assert _gmm_into(out, xs, w, scale, offs).kind == kind
+        want = tmoe.moe_grouped_mm(xs, w, offs, scale, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert torch.isnan(out[:lo]).all() and torch.isnan(out[hi:]).all()
+        assert torch.equal(out[lo:hi], want[lo:hi])
+        assert not torch.isnan(out[lo:hi]).any()
 
 
 @pytest.mark.cuda
