@@ -12,8 +12,7 @@ log-dataset / check-custom-dataset` equivalents (aurora_tpu/cli/cfg_tools.py).
                (data/text.py auto_tokenizer), the frames on --device;
   * check-custom-dataset validates llava-format records structurally
                (keys, role alternation, <image>/<video> placeholders).
-The model presets are the port's: Qwen2 is not (ROADMAP.md queue 1 item
-8).
+The model presets are the reference's, in its order.
 """
 
 from __future__ import annotations
@@ -42,6 +41,7 @@ def _model_presets():
         "auroracap_7b": AuroraConfig.auroracap_7b,
         "auroracap_tiny": AuroraConfig.tiny,
         "vicuna_7b_v15_16k": LlamaConfig.vicuna_7b_v15_16k,
+        "qwen2_7b": LlamaConfig.qwen2_7b,
         "mistral_7b": LlamaConfig.mistral_7b,
         "llama_tiny": LlamaConfig.tiny,
         "dfn5b_vit_h_378": ViTConfig.dfn5b_vit_h_378,

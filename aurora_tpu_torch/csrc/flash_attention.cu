@@ -13,6 +13,9 @@
 // recomputes p = exp(s - lse) on visible pairs (0 elsewhere) and takes
 // delta = rowsum(dO * O) (minus the lse cotangent) from the caller:
 // dV = p^T dO, dS = p (dO V^T - delta) scale, dK = dS^T q, dQ = dS k.
+// Head widths: a multiple of 16 up to 128 (the TMA boxes read zeros past
+// D), 256 and 512; the launcher pads any other width up to 512 with zero
+// columns.
 //
 // What bounds it on the H100: at the training shape (B 4, T 2048, H 32,
 // D 128, causal) there are 2.69e8 visible (query, key) pairs; the forward
@@ -318,7 +321,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // q tile j of the dK/dV loop (rows [qb, qb + 64)) into ring stage st, by
 // one whole warp: its lanes write the tile's lse * log2(e), delta and q
-// segment ids (0 past T) and arrive, lane 0 loads Q and dO
+// segment ids (0 past T) and arrive, lane 0 loads Q and dO (NBOX boxes of
+// 64 columns each)
+template <int NBOX>
 __device__ __forceinline__ void fill_q_tile(
     uint8_t* ring, float* rows, uint64_t* full, int st, int qb,
     const CUtensorMap* tm_q, const CUtensorMap* tm_do, const float* lse,
@@ -334,10 +339,15 @@ __device__ __forceinline__ void fill_q_tile(
         live && sh.use_seg ? q_seg[size_t(b) * sh.T + qb + r] : 0;
   }
   if (lane == 0) {
-    uint8_t* dst = ring + st * 4 * BOX64;
-    hopper::mbar_expect_tx(&full[st], 4 * BOX64);
-    load_tile(dst, tm_q, &full[st], head, qb, b, BOX64);
-    load_tile(dst + 2 * BOX64, tm_do, &full[st], head, qb, b, BOX64);
+    uint8_t* dst = ring + st * 2 * NBOX * BOX64;
+    hopper::mbar_expect_tx(&full[st], 2 * NBOX * BOX64);
+#pragma unroll
+    for (int i = 0; i < NBOX; ++i) {
+      hopper::tma_load_4d(dst + i * BOX64, tm_q, &full[st], 64 * i, head, qb,
+                          b);
+      hopper::tma_load_4d(dst + (NBOX + i) * BOX64, tm_do, &full[st], 64 * i,
+                          head, qb, b);
+    }
   } else {
     hopper::mbar_arrive(&full[st]);
   }
@@ -376,8 +386,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       load_tile(sV, &tm_v, bar, head, k0, b, BOX128);
     }
     for (int j = 0; j < min(STAGES, ntiles); ++j)
-      fill_q_tile(sQd, rows, full, j, qstart + 64 * j, &tm_q, &tm_do, lse,
-                  delta, q_seg, b, bh, head, sh);
+      fill_q_tile<2>(sQd, rows, full, j, qstart + 64 * j, &tm_q, &tm_do, lse,
+                     delta, q_seg, b, bh, head, sh);
   }
 
   const int cw = threadIdx.x / 128;
@@ -469,8 +479,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     hopper::fence_regs(dv_acc);
     hopper::fence_regs(dk_acc);
     if (release(done, st) && j + STAGES < ntiles)
-      fill_q_tile(sQd, rows, full, st, qb + 64 * STAGES, &tm_q, &tm_do, lse,
-                  delta, q_seg, b, bh, head, sh);
+      fill_q_tile<2>(sQd, rows, full, st, qb + 64 * STAGES, &tm_q, &tm_do,
+                     lse, delta, q_seg, b, bh, head, sh);
   }
 
   const int rs = sh.H * sh.D;
@@ -630,14 +640,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 // on warp-level mma.sync with plain row-major tiles loaded by every
 // thread between two barriers (`load_rows`): 1.0054 ms on an H100 SXM
 // at 700 W, B 2, T 2048, H 16 (69 TFLOP/s).
-// Backward, on warp-level mma.sync tiles (hopper_common.cuh, MmaTile<256>:
-// 8 warps, a pair of warps per 16 rows, each summing 128 of the 256 output
-// columns; plain row-major shared tiles loaded by all threads with 16-byte
-// reads, one tile at a time). dK/dV: a block per (64 keys, b h), each warp
-// pair 16 keys, looping over q tiles of 32 rows that can see them (S^T =
-// K Q^T and dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q). dQ: a
-// block per (64 q rows, b h), key tiles of 64 (S = Q K^T, dP = dO V^T, dQ
-// += dS K). No atomics: every output element has one writer.
+// The backward is described below, before its kernels.
 
 constexpr int MD = 256;  // the head width of these kernels
 constexpr int D256_STAGES = 2;
@@ -776,14 +779,396 @@ flash_fwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-using MT = hopper::MmaTile<MD>;
-constexpr int MP = MT::P;
-constexpr int MND = MT::DS / 8;  // output 8-column blocks a warp
-constexpr int MBQ_DKV = 32;      // q rows a dK/dV step
+// Backward at D 256 (`flash_bwd_dkv_d256_kernel`, `flash_bwd_dq_d256_kernel`):
+// the D <= 128 backward's design at a 256-column head. Registers bound it: dK
+// and dV of 64 keys x 256 columns are 2 x 128 floats a thread in one warpgroup,
+// past 255, and a producer warpgroup would cap every thread at 168. So 256
+// threads as two consumer warpgroups that split the head's columns, and no
+// producer warpgroup. Per q tile (dK/dV) or key tile (dQ) warpgroup 0 computes
+// the scores S (Q K^T, or S^T = K Q^T) and warpgroup 1 dP (dO V^T, or V dO^T),
+// each one wgmma m64n64 group of 16 k16 steps over all 256 columns; warpgroup 0
+// hands P (fp32) to warpgroup 1 through shared memory, warpgroup 1 forms dS = P
+// (dP - delta) scale and hands it back as bf16 A fragments, two named barriers
+// ordering the exchange (thread t of one warpgroup holds the same accumulator
+// elements as thread t of the other, so each value crosses as word [i][t]).
+// Then warpgroup w accumulates its 128 columns: dV += P^T dO and dK += dS^T Q,
+// or dQ += dS K, the operands read MN-major from the stage, 64 + 64 (dK/dV) or
+// 64 (dQ) accumulator floats a thread. dK/dV: a block per (64 keys, b h), K and
+// V loaded once (4 boxes each), the q tiles that can see the keys in a ring of
+// 2 stages of Q and dO (64 KB a stage) with their lse, delta and segment ids
+// beside them. dQ: a block per (64 q rows, b h), the heaviest causal tiles
+// first, Q and dO loaded once, 64-key tiles of K and V in a ring of 2 stages.
+// Bound at google/gemma-7b's training shape (B 2, T 2048, H 16, causal): dK/dV
+// 1.375e11 FLOPs, dQ 1.031e11, 0.139 and 0.104 ms at 989 TFLOP/s
+// (compute-bound). They replaced the first cut on mma.sync tiles loaded by
+// every thread between two barriers, now the D 512 kernels below: 1.5865 and
+// 1.3187 ms on an H100 SXM at 700 W.
 
-constexpr size_t SMEM_DKV_MMA =
-    size_t(2 * 64 + 2 * MBQ_DKV) * MP * 2 + (3 * MBQ_DKV + 64) * 4;
-constexpr size_t SMEM_DQ_MMA = size_t(4 * 64) * MP * 2 + 3 * 64 * 4;
+constexpr size_t XCHG = 32 * 128 * 4 + 16 * 128 * 4;  // P fp32, dS bf16
+constexpr size_t SMEM_DKV_D256 = 1024 + 8 * BOX64 + D256_STAGES * 8 * BOX64 +
+                                 XCHG + D256_STAGES * 192 * 4 + RING;
+constexpr size_t SMEM_DQ_D256 =
+    1024 + 8 * BOX64 + D256_STAGES * 8 * BOX64 + XCHG + RING;
+constexpr int BAR_P = 1, BAR_DS = 2;  // named barriers of the exchange
+
+// an m64n64 accumulator (32 floats) to / from the exchange, thread t of its
+// warpgroup
+__device__ __forceinline__ void put_acc(float* x, const float (&v)[32],
+                                        int t) {
+  float4* x4 = reinterpret_cast<float4*>(x);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    x4[i * 128 + t] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                                  v[4 * i + 3]);
+}
+__device__ __forceinline__ void get_acc(const float* x, float (&v)[32],
+                                        int t) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 f = x4[i * 128 + t];
+    v[4 * i] = f.x;
+    v[4 * i + 1] = f.y;
+    v[4 * i + 2] = f.z;
+    v[4 * i + 3] = f.w;
+  }
+}
+
+// the four bf16 A operands of 16 columns each (an m64n64 accumulator) to /
+// from the exchange
+__device__ __forceinline__ void put_frags(uint32_t* x,
+                                          const uint32_t (&a)[4][4], int t) {
+  uint4* x4 = reinterpret_cast<uint4*>(x);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    x4[kk * 128 + t] = make_uint4(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
+}
+__device__ __forceinline__ void get_frags(const uint32_t* x,
+                                          uint32_t (&a)[4][4], int t) {
+  const uint4* x4 = reinterpret_cast<const uint4*>(x);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint4 u = x4[kk * 128 + t];
+    a[kk][0] = u.x;
+    a[kk][1] = u.y;
+    a[kk][2] = u.z;
+    a[kk][3] = u.w;
+  }
+}
+
+// acc (+)= A[64][256] . B[64][256]^T, both four K-major boxes of 64 rows
+__device__ __forceinline__ void mma_rows256(float (&acc)[32], uint64_t a,
+                                            uint64_t b) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < MD / 16; ++kk)
+    hopper::mma_64x64_ss(acc, hopper::desc_add(a, k_step(kk, BOX64)),
+                         hopper::desc_add(b, k_step(kk, BOX64)), kk);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ q_seg,
+                          const int* __restrict__ kv_seg,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = hopper::align1024(smem_raw);
+  uint8_t* sV = sK + 4 * BOX64;
+  uint8_t* sQd = sV + 4 * BOX64;  // stage st: Q, then dO, 4 boxes each
+  float* xp = reinterpret_cast<float*>(sQd + D256_STAGES * 8 * BOX64);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(xp + 32 * 128);
+  float* rows = reinterpret_cast<float*>(xs + 16 * 128);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(rows + D256_STAGES * 192);
+  uint64_t* full = bar + 1;
+  int* done = reinterpret_cast<int*>(bar + 1 + STAGES);
+
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H, head = bh % sh.H;
+  const int k0 = blockIdx.x * 64;
+  // the first 64-row q tile with a row that can see key k0
+  const int qstart = sh.causal ? max(0, k0 - sh.q_offset) / 64 * 64 : 0;
+  const int ntiles = qstart < sh.T ? (sh.T - qstart + 63) / 64 : 0;
+  init_ring(bar, done, 32);
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(bar, 8 * BOX64);
+      load_tile4(sK, &tm_k, bar, head, k0, b, BOX64);
+      load_tile4(sV, &tm_v, bar, head, k0, b, BOX64);
+    }
+    for (int j = 0; j < min(D256_STAGES, ntiles); ++j)
+      fill_q_tile<4>(sQd, rows, full, j, qstart + 64 * j, &tm_q, &tm_do, lse,
+                     delta, q_seg, b, bh, head, sh);
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int s0 = k0 + 16 * (t / 32) + lane / 4;  // keys s0 and s0 + 8
+  const float c = sh.scale * LOG2E;
+  int ks[2] = {0, 0};
+  if (sh.use_seg) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (s0 + 8 * hf < sh.S) ks[hf] = kv_seg[size_t(b) * sh.S + s0 + 8 * hf];
+  }
+  // dK and dV of the warpgroup's 128 columns; S^T (warpgroup 0) or dP^T
+  float dk_acc[64], dv_acc[64], acc[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  hopper::mbar_wait(bar, 0);
+  const uint64_t dA = hopper::desc_k(wg == 0 ? sK : sV);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % D256_STAGES;
+    const int qb = qstart + 64 * j;
+    uint8_t* sQ = sQd + st * 8 * BOX64;
+    uint8_t* sdO = sQ + 4 * BOX64;
+    const float* rv = rows + st * 192;
+    hopper::mbar_wait(&full[st], (j / D256_STAGES) & 1);
+
+    // S^T = K Q^T (warpgroup 0) and dP^T = V dO^T (warpgroup 1), 64 keys
+    // x 64 rows
+    mma_rows256(acc, dA, hopper::desc_k(wg == 0 ? sQ : sdO));
+
+    uint32_t pa[4][4], da[4][4];  // P^T and dS^T as bf16 A operands
+    if (wg == 0) {
+      // P^T = exp2(S^T c - lse log2 e), 0 off the visible pairs
+      const bool masked = sh.use_seg || qb + 64 > sh.T || k0 + 64 > sh.S ||
+                          (sh.causal && qb + sh.q_offset < k0 + 63);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = acc_col(i, lane);
+        float p = exp2f(acc[i] * c - rv[col]);
+        if (masked) {
+          const int tq = qb + col, key = s0 + 8 * acc_half(i);
+          const bool vis =
+              tq < sh.T && key < sh.S &&
+              (!sh.causal || tq + sh.q_offset >= key) &&
+              (!sh.use_seg ||
+               reinterpret_cast<const int*>(rv)[128 + col] ==
+                   ks[acc_half(i)]);
+          if (!vis) p = 0.f;
+        }
+        acc[i] = p;
+      }
+      put_acc(xp, acc, t);
+      hopper::bar_arrive(BAR_P, NTHREADS);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(acc, kk, pa[kk]);
+      hopper::bar_sync(BAR_DS, NTHREADS);
+      get_frags(xs, da, t);
+    } else {
+      // dS^T = P^T (dP^T - delta) scale
+      float p[32];
+      hopper::bar_sync(BAR_P, NTHREADS);
+      get_acc(xp, p, t);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[i] = p[i] * (acc[i] - rv[64 + acc_col(i, lane)]) * sh.scale;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(acc, kk, da[kk]);
+      put_frags(xs, da, t);
+      hopper::bar_arrive(BAR_DS, NTHREADS);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(p, kk, pa[kk]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q over the warpgroup's 128 columns
+    const uint64_t mdO = hopper::desc_mn(sdO + 2 * wg * BOX64, BOX64);
+    const uint64_t mQ = hopper::desc_mn(sQ + 2 * wg * BOX64, BOX64);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::mma_64x128_rs(dv_acc, pa[kk], hopper::desc_add(mdO, kk * 2048));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::mma_64x128_rs(dk_acc, da[kk], hopper::desc_add(mQ, kk * 2048));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    if (release(done, st) && j + D256_STAGES < ntiles)
+      fill_q_tile<4>(sQd, rows, full, st, qb + 64 * D256_STAGES, &tm_q,
+                     &tm_do, lse, delta, q_seg, b, bh, head, sh);
+  }
+
+  const int rs = sh.H * MD;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = s0 + 8 * hf;
+    if (key < sh.S) {
+      const size_t at =
+          (size_t(b) * sh.S + key) * rs + size_t(head) * MD + 128 * wg;
+      store_row(dk + at, dk_acc, hf, lane, 128, 1.f);
+      store_row(dv + at, dv_acc, hf, lane, 128, 1.f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ q_seg,
+                         const int* __restrict__ kv_seg,
+                         bf16* __restrict__ dq, Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = hopper::align1024(smem_raw);
+  uint8_t* sdO = sQ + 4 * BOX64;
+  uint8_t* sKV = sdO + 4 * BOX64;  // stage st: K, then V, 4 boxes each
+  float* xp = reinterpret_cast<float*>(sKV + D256_STAGES * 8 * BOX64);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(xp + 32 * 128);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xs + 16 * 128);
+  uint64_t* full = bar + 1;
+  int* done = reinterpret_cast<int*>(bar + 1 + STAGES);
+
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H, head = bh % sh.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest tiles first
+  const int ntiles = (key_end(sh, q0, 64) + 63) / 64;
+  init_ring(bar, done, 1);
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(bar, 8 * BOX64);
+    load_tile4(sQ, &tm_q, bar, head, q0, b, BOX64);
+    load_tile4(sdO, &tm_do, bar, head, q0, b, BOX64);
+    for (int j = 0; j < min(D256_STAGES, ntiles); ++j)
+      fill_kv256(sKV, full, j, j, &tm_k, &tm_v, head, b);
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int t0 = q0 + 16 * (t / 32) + lane / 4;  // rows t0 and t0 + 8
+  const float c = sh.scale * LOG2E;
+  float lse2[2] = {0.f, 0.f}, del[2] = {0.f, 0.f};
+  int qs[2] = {0, 0};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int tq = t0 + 8 * hf;
+    if (tq < sh.T) {
+      lse2[hf] = lse[size_t(bh) * sh.T + tq] * LOG2E;
+      del[hf] = delta[size_t(bh) * sh.T + tq];
+      if (sh.use_seg) qs[hf] = q_seg[size_t(b) * sh.T + tq];
+    }
+  }
+  float dq_acc[64], acc[32];  // dQ of the warpgroup's 128 columns; S or dP
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+
+  hopper::mbar_wait(bar, 0);
+  const uint64_t dA = hopper::desc_k(wg == 0 ? sQ : sdO);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % D256_STAGES;
+    const int kb = 64 * j;
+    uint8_t* sK = sKV + st * 8 * BOX64;
+    hopper::mbar_wait(&full[st], (j / D256_STAGES) & 1);
+
+    // S = Q K^T (warpgroup 0) and dP = dO V^T (warpgroup 1), 64 rows x 64
+    // keys
+    mma_rows256(acc, dA, hopper::desc_k(wg == 0 ? sK : sK + 4 * BOX64));
+
+    uint32_t da[4][4];  // dS as bf16 A operands
+    if (wg == 0) {
+      const bool masked = sh.use_seg || kb + 64 > sh.S ||
+                          (sh.causal && kb + 63 > q0 + sh.q_offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hf = acc_half(i);
+        float p = exp2f(acc[i] * c - lse2[hf]);
+        if (masked) {
+          const int tq = t0 + 8 * hf, key = kb + acc_col(i, lane);
+          const bool vis =
+              key < sh.S && (!sh.causal || tq + sh.q_offset >= key) &&
+              (!sh.use_seg || qs[hf] == kv_seg[size_t(b) * sh.S + key]);
+          if (!vis) p = 0.f;
+        }
+        acc[i] = p;
+      }
+      put_acc(xp, acc, t);
+      hopper::bar_arrive(BAR_P, NTHREADS);
+      hopper::bar_sync(BAR_DS, NTHREADS);
+      get_frags(xs, da, t);
+    } else {
+      // dS = P (dP - delta) scale
+      float p[32];
+      hopper::bar_sync(BAR_P, NTHREADS);
+      get_acc(xp, p, t);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[i] = p[i] * (acc[i] - del[acc_half(i)]) * sh.scale;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(acc, kk, da[kk]);
+      put_frags(xs, da, t);
+      hopper::bar_arrive(BAR_DS, NTHREADS);
+    }
+
+    // dQ += dS K over the warpgroup's 128 columns
+    const uint64_t mK = hopper::desc_mn(sK + 2 * wg * BOX64, BOX64);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::mma_64x128_rs(dq_acc, da[kk], hopper::desc_add(mK, kk * 2048));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq_acc);
+    if (release(done, st) && lane == 0 && j + D256_STAGES < ntiles)
+      fill_kv256(sKV, full, st, j + D256_STAGES, &tm_k, &tm_v, head, b);
+  }
+
+  const int rs = sh.H * MD;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int tq = t0 + 8 * hf;
+    if (tq < sh.T)
+      store_row(dq + (size_t(b) * sh.T + tq) * rs + size_t(head) * MD +
+                    128 * wg,
+                dq_acc, hf, lane, 128, 1.f);
+  }
+}
+
+
+// ------------------------------------------------ D 512 (mma.sync tiles)
+// The widest heads the port takes (384 pads to 512; no family of the zoo
+// has one) run on warp-level mma.sync tiles (hopper_common.cuh,
+// MmaTile<512>: 16 warps, four warps per 16 rows, each summing 128 of the
+// 512 output columns; plain row-major shared tiles of pitch 520 loaded by
+// all threads with 16-byte reads, one tile at a time). Forward: a block
+// per (64 q rows, b h), key tiles of 64. dK/dV: a block per (64 keys,
+// b h), each row group 16 keys, looping over q tiles of 32 rows that can
+// see them (S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and dK +=
+// dS^T Q). dQ: a block per (64 q rows, b h), key tiles of 32 (four of 64
+// rows would need 266 KB of shared memory) (S = Q K^T, dP = dO V^T, dQ +=
+// dS K). A block of 512 threads holds at most 128 registers a thread. No
+// atomics: every output element has one writer.
+
+template <int HD>
+struct MmaFlash {
+  using MT = hopper::MmaTile<HD>;
+  static constexpr int P = MT::P;        // shared row pitch (bf16)
+  static constexpr int ND = MT::DS / 8;  // output 8-column blocks a warp
+  static constexpr int KT_FWD = 64;      // keys a forward tile
+  static constexpr int BQ_DKV = 32;      // q rows a dK/dV step
+  static constexpr int KT_DQ = 32;      // keys a dQ tile
+  static constexpr size_t SMEM_FWD =
+      size_t(64 + 2 * KT_FWD) * P * 2 + KT_FWD * 4;
+  static constexpr size_t SMEM_DKV =
+      size_t(2 * 64 + 2 * BQ_DKV) * P * 2 + (3 * BQ_DKV + 64) * 4;
+  static constexpr size_t SMEM_DQ =
+      size_t(2 * 64 + 2 * KT_DQ) * P * 2 + (2 * 64 + KT_DQ) * 4;
+};
+
+constexpr int WD = 512;  // the widest head the kernels take
+using MF = MmaFlash<WD>;
 
 // segment ids of rows [row0, row0 + n) (0 past `live` or without ids)
 __device__ __forceinline__ void load_seg(int* dst, const int* seg, int b,
@@ -793,7 +1178,89 @@ __device__ __forceinline__ void load_seg(int* dst, const int* seg, int b,
     dst[r] = use && row0 + r < len ? seg[size_t(b) * len + row0 + r] : 0;
 }
 
-__global__ void __launch_bounds__(MT::NT, 1)
+template <int HD>
+__global__ void __launch_bounds__(hopper::MmaTile<HD>::NT, 1)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int* __restrict__ q_seg,
+                     const int* __restrict__ kv_seg, bf16* __restrict__ out,
+                     float* __restrict__ lse, Shape sh) {
+  using F = MmaFlash<HD>;
+  using TL = typename F::MT;
+  constexpr int P = F::P, ND = F::ND, KT = F::KT_FWD;
+  extern __shared__ __align__(16) uint8_t smem_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sK = sQ + 64 * P;
+  bf16* sV = sK + KT * P;
+  int* sKs = reinterpret_cast<int*>(sV + KT * P);
+  const int bh = blockIdx.y, b = bh / sh.H, head = bh % sh.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = warp % 4, sl = warp / 4;
+  const size_t rs = size_t(sh.H) * HD;
+  const int kend = key_end(sh, q0, 64);
+  hopper::load_rows<HD>(sQ, q + size_t(b) * sh.T * rs + head * HD, rs, q0,
+                        64, sh.T, tid, TL::NT);
+  int t[2], qs[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    t[h] = q0 + rg * 16 + lane / 4 + 8 * h;
+    if (sh.use_seg && t[h] < sh.T) qs[h] = q_seg[size_t(b) * sh.T + t[h]];
+  }
+  const float c = sh.scale * LOG2E;
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int kb = 0; kb < kend; kb += KT) {
+    __syncthreads();
+    hopper::load_rows<HD>(sK, k + size_t(b) * sh.S * rs + head * HD, rs, kb,
+                          KT, sh.S, tid, TL::NT);
+    hopper::load_rows<HD>(sV, v + size_t(b) * sh.S * rs + head * HD, rs, kb,
+                          KT, sh.S, tid, TL::NT);
+    load_seg(sKs, kv_seg, b, sh.S, kb, KT, sh.use_seg);
+    __syncthreads();
+    float s[KT / 8][4];
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+    hopper::mma_xyt<HD, KT / 8>(s, sQ, rg * 16, sK, lane);
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 8 * n + 2 * (lane % 4) + (i & 1), key = kb + col;
+        const int h = i >> 1;
+        const bool vis = key < sh.S &&
+                         (!sh.causal || t[h] + sh.q_offset >= key) &&
+                         (!sh.use_seg || qs[h] == sKs[col]);
+        s[n][i] = vis ? s[n][i] * c : -INFINITY;
+      }
+    hopper::softmax_step<KT / 8, ND>(s, m, l, o);
+    hopper::mma_wz<HD, KT / 16, ND>(o, s, sV, sl * TL::DS, lane);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (t[h] < sh.T) {
+      const float lc = fmaxf(l[h], 1e-30f);
+      hopper::store_c_row<ND>(
+          out + (size_t(b) * sh.T + t[h]) * rs + head * HD + sl * TL::DS, o,
+          h, lane, 1.f / lc);
+      if (sl == 0 && lane % 4 == 0)
+        lse[size_t(bh) * sh.T + t[h]] =
+            m[h] == NEG_INF ? NEG_INF : m[h] * LN2 + logf(lc);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(hopper::MmaTile<HD>::NT, 1)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -804,59 +1271,61 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const int* __restrict__ kv_seg,
                          bf16* __restrict__ dk, bf16* __restrict__ dv,
                          Shape sh) {
+  using F = MmaFlash<HD>;
+  using TL = typename F::MT;
+  constexpr int P = F::P, ND = F::ND, BQ = F::BQ_DKV;
   extern __shared__ __align__(16) uint8_t smem_mma[];
   bf16* sK = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sV = sK + 64 * MP;
-  bf16* sQ = sV + 64 * MP;
-  bf16* sO = sQ + MBQ_DKV * MP;  // dO
-  float* sL = reinterpret_cast<float*>(sO + MBQ_DKV * MP);
-  float* sD = sL + MBQ_DKV;
-  int* sQs = reinterpret_cast<int*>(sD + MBQ_DKV);
-  int* sKs = sQs + MBQ_DKV;
+  bf16* sV = sK + 64 * P;
+  bf16* sQ = sV + 64 * P;
+  bf16* sO = sQ + BQ * P;  // dO
+  float* sL = reinterpret_cast<float*>(sO + BQ * P);
+  float* sD = sL + BQ;
+  int* sQs = reinterpret_cast<int*>(sD + BQ);
+  int* sKs = sQs + BQ;
   const int bh = blockIdx.y, b = bh / sh.H, head = bh % sh.H;
   const int k0 = blockIdx.x * 64;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int kg = warp % 4, sl = warp / 4;
-  const size_t rs = size_t(sh.H) * MD;
-  hopper::load_rows<MD>(sK, k + size_t(b) * sh.S * rs + head * MD, rs, k0,
-                        64, sh.S, tid, MT::NT);
-  hopper::load_rows<MD>(sV, v + size_t(b) * sh.S * rs + head * MD, rs, k0,
-                        64, sh.S, tid, MT::NT);
+  const size_t rs = size_t(sh.H) * HD;
+  hopper::load_rows<HD>(sK, k + size_t(b) * sh.S * rs + head * HD, rs, k0,
+                        64, sh.S, tid, TL::NT);
+  hopper::load_rows<HD>(sV, v + size_t(b) * sh.S * rs + head * HD, rs, k0,
+                        64, sh.S, tid, TL::NT);
   load_seg(sKs, kv_seg, b, sh.S, k0, 64, sh.use_seg);
   int kl[2];  // the thread's keys, block-relative (C rows g and g + 8)
 #pragma unroll
   for (int h = 0; h < 2; ++h) kl[h] = kg * 16 + lane / 4 + 8 * h;
   const float c = sh.scale * LOG2E;
-  float dva[MND][4], dka[MND][4];
+  float dva[ND][4], dka[ND][4];
 #pragma unroll
-  for (int n = 0; n < MND; ++n)
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dva[n][i] = dka[n][i] = 0.f;
 
-  const int qstart =
-      sh.causal ? max(0, k0 - sh.q_offset) / MBQ_DKV * MBQ_DKV : 0;
-  for (int qb = qstart; qb < sh.T; qb += MBQ_DKV) {
+  const int qstart = sh.causal ? max(0, k0 - sh.q_offset) / BQ * BQ : 0;
+  for (int qb = qstart; qb < sh.T; qb += BQ) {
     __syncthreads();
-    hopper::load_rows<MD>(sQ, q + size_t(b) * sh.T * rs + head * MD, rs, qb,
-                          MBQ_DKV, sh.T, tid, MT::NT);
-    hopper::load_rows<MD>(sO, dout + size_t(b) * sh.T * rs + head * MD, rs,
-                          qb, MBQ_DKV, sh.T, tid, MT::NT);
-    for (int r = tid; r < MBQ_DKV; r += MT::NT) {
+    hopper::load_rows<HD>(sQ, q + size_t(b) * sh.T * rs + head * HD, rs, qb,
+                          BQ, sh.T, tid, TL::NT);
+    hopper::load_rows<HD>(sO, dout + size_t(b) * sh.T * rs + head * HD, rs,
+                          qb, BQ, sh.T, tid, TL::NT);
+    for (int r = tid; r < BQ; r += TL::NT) {
       const bool live = qb + r < sh.T;
       sL[r] = live ? lse[size_t(bh) * sh.T + qb + r] * LOG2E : 0.f;
       sD[r] = live ? delta[size_t(bh) * sh.T + qb + r] : 0.f;
     }
-    load_seg(sQs, q_seg, b, sh.T, qb, MBQ_DKV, sh.use_seg);
+    load_seg(sQs, q_seg, b, sh.T, qb, BQ, sh.use_seg);
     __syncthreads();
-    float pt[4][4], dpt[4][4];
+    float pt[BQ / 8][4], dpt[BQ / 8][4];
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < BQ / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) pt[n][i] = dpt[n][i] = 0.f;
-    hopper::mma_xyt<MD, 4>(pt, sK, kg * 16, sQ, lane);
-    hopper::mma_xyt<MD, 4>(dpt, sV, kg * 16, sO, lane);
+    hopper::mma_xyt<HD, BQ / 8>(pt, sK, kg * 16, sQ, lane);
+    hopper::mma_xyt<HD, BQ / 8>(dpt, sV, kg * 16, sO, lane);
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < BQ / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = 8 * n + 2 * (lane % 4) + (i & 1), tq = qb + col;
@@ -868,22 +1337,23 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
         pt[n][i] = p;
         dpt[n][i] = p * (dpt[n][i] - sD[col]);
       }
-    hopper::mma_wz<MD, MBQ_DKV / 16, MND>(dva, pt, sO, sl * MT::DS, lane);
-    hopper::mma_wz<MD, MBQ_DKV / 16, MND>(dka, dpt, sQ, sl * MT::DS, lane);
+    hopper::mma_wz<HD, BQ / 16, ND>(dva, pt, sO, sl * TL::DS, lane);
+    hopper::mma_wz<HD, BQ / 16, ND>(dka, dpt, sQ, sl * TL::DS, lane);
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = k0 + kl[h];
     if (key < sh.S) {
-      const size_t at = (size_t(b) * sh.S + key) * rs + head * MD + sl * MT::DS;
-      hopper::store_c_row<MND>(dv + at, dva, h, lane, 1.f);
-      hopper::store_c_row<MND>(dk + at, dka, h, lane, sh.scale);
+      const size_t at = (size_t(b) * sh.S + key) * rs + head * HD + sl * TL::DS;
+      hopper::store_c_row<ND>(dv + at, dva, h, lane, 1.f);
+      hopper::store_c_row<ND>(dk + at, dka, h, lane, sh.scale);
     }
   }
 }
 
-__global__ void __launch_bounds__(MT::NT, 1)
+template <int HD>
+__global__ void __launch_bounds__(hopper::MmaTile<HD>::NT, 1)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
@@ -893,25 +1363,28 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const int* __restrict__ q_seg,
                         const int* __restrict__ kv_seg,
                         bf16* __restrict__ dq, Shape sh) {
+  using F = MmaFlash<HD>;
+  using TL = typename F::MT;
+  constexpr int P = F::P, ND = F::ND, KT = F::KT_DQ;
   extern __shared__ __align__(16) uint8_t smem_mma[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sO = sQ + 64 * MP;  // dO
-  bf16* sK = sO + 64 * MP;
-  bf16* sV = sK + 64 * MP;
-  float* sL = reinterpret_cast<float*>(sV + 64 * MP);
+  bf16* sO = sQ + 64 * P;  // dO
+  bf16* sK = sO + 64 * P;
+  bf16* sV = sK + KT * P;
+  float* sL = reinterpret_cast<float*>(sV + KT * P);
   float* sD = sL + 64;
   int* sKs = reinterpret_cast<int*>(sD + 64);
   const int bh = blockIdx.y, b = bh / sh.H, head = bh % sh.H;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest first
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rg = warp % 4, sl = warp / 4;
-  const size_t rs = size_t(sh.H) * MD;
+  const size_t rs = size_t(sh.H) * HD;
   const int kend = key_end(sh, q0, 64);
-  hopper::load_rows<MD>(sQ, q + size_t(b) * sh.T * rs + head * MD, rs, q0,
-                        64, sh.T, tid, MT::NT);
-  hopper::load_rows<MD>(sO, dout + size_t(b) * sh.T * rs + head * MD, rs,
-                        q0, 64, sh.T, tid, MT::NT);
-  for (int r = tid; r < 64; r += MT::NT) {
+  hopper::load_rows<HD>(sQ, q + size_t(b) * sh.T * rs + head * HD, rs, q0,
+                        64, sh.T, tid, TL::NT);
+  hopper::load_rows<HD>(sO, dout + size_t(b) * sh.T * rs + head * HD, rs,
+                        q0, 64, sh.T, tid, TL::NT);
+  for (int r = tid; r < 64; r += TL::NT) {
     const bool live = q0 + r < sh.T;
     sL[r] = live ? lse[size_t(bh) * sh.T + q0 + r] * LOG2E : 0.f;
     sD[r] = live ? delta[size_t(bh) * sh.T + q0 + r] : 0.f;
@@ -924,29 +1397,29 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
       qs[h] = q_seg[size_t(b) * sh.T + q0 + rl[h]];
   }
   const float c = sh.scale * LOG2E;
-  float dqa[MND][4];
+  float dqa[ND][4];
 #pragma unroll
-  for (int n = 0; n < MND; ++n)
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dqa[n][i] = 0.f;
 
-  for (int kb = 0; kb < kend; kb += 64) {
+  for (int kb = 0; kb < kend; kb += KT) {
     __syncthreads();
-    hopper::load_rows<MD>(sK, k + size_t(b) * sh.S * rs + head * MD, rs, kb,
-                          64, sh.S, tid, MT::NT);
-    hopper::load_rows<MD>(sV, v + size_t(b) * sh.S * rs + head * MD, rs, kb,
-                          64, sh.S, tid, MT::NT);
-    load_seg(sKs, kv_seg, b, sh.S, kb, 64, sh.use_seg);
+    hopper::load_rows<HD>(sK, k + size_t(b) * sh.S * rs + head * HD, rs, kb,
+                          KT, sh.S, tid, TL::NT);
+    hopper::load_rows<HD>(sV, v + size_t(b) * sh.S * rs + head * HD, rs, kb,
+                          KT, sh.S, tid, TL::NT);
+    load_seg(sKs, kv_seg, b, sh.S, kb, KT, sh.use_seg);
     __syncthreads();
-    float p[8][4], dp[8][4];
+    float p[KT / 8][4], dp[KT / 8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[n][i] = dp[n][i] = 0.f;
-    hopper::mma_xyt<MD, 8>(p, sQ, rg * 16, sK, lane);
-    hopper::mma_xyt<MD, 8>(dp, sO, rg * 16, sV, lane);
+    hopper::mma_xyt<HD, KT / 8>(p, sQ, rg * 16, sK, lane);
+    hopper::mma_xyt<HD, KT / 8>(dp, sO, rg * 16, sV, lane);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = 8 * n + 2 * (lane % 4) + (i & 1), key = kb + col;
@@ -957,22 +1430,22 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
         const float pr = vis ? exp2f(p[n][i] * c - sL[r]) : 0.f;
         p[n][i] = pr * (dp[n][i] - sD[r]);
       }
-    hopper::mma_wz<MD, 4, MND>(dqa, p, sK, sl * MT::DS, lane);
+    hopper::mma_wz<HD, KT / 16, ND>(dqa, p, sK, sl * TL::DS, lane);
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int tq = q0 + rl[h];
     if (tq < sh.T)
-      hopper::store_c_row<MND>(
-          dq + (size_t(b) * sh.T + tq) * rs + head * MD + sl * MT::DS, dqa, h,
+      hopper::store_c_row<ND>(
+          dq + (size_t(b) * sh.T + tq) * rs + head * HD + sl * TL::DS, dqa, h,
           lane, sh.scale);
   }
 }
 
 bool bad_shape(int B, int T, int S, int H, int D) {
-  return B <= 0 || T <= 0 || S <= 0 || H <= 0 || D <= 0 ||
-         (D > HD && D != MD) || D % 16 != 0 || size_t(B) * H > 65535u;
+  return B <= 0 || T <= 0 || S <= 0 || H <= 0 || D <= 0 || D % 16 != 0 ||
+         (D > HD && D != MD && D != WD) || size_t(B) * H > 65535u;
 }
 
 template <typename Kernel>
@@ -994,6 +1467,18 @@ extern "C" int aurora_flash_fwd(const void* q, const void* k, const void* v,
   if (bad_shape(B, T, S, H, D) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return int(cudaErrorInvalidValue);
   const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == WD) {
+    cudaError_t err = allow_smem(flash_fwd_mma_kernel<WD>, MF::SMEM_FWD);
+    if (err != cudaSuccess) return int(err);
+    flash_fwd_mma_kernel<WD><<<dim3((T + 63) / 64, B * H), MF::MT::NT,
+                               MF::SMEM_FWD, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const int*>(q_seg),
+        static_cast<const int*>(kv_seg), static_cast<bf16*>(out),
+        static_cast<float*>(lse), sh);
+    return int(cudaGetLastError());
+  }
   const int krows = D == MD ? 64 : 128;  // rows of a key tile
   CUtensorMap mq, mk, mv;
   if (!hopper::map_blhd(&mq, q, B, T, H, D, 128) ||
@@ -1004,8 +1489,7 @@ extern "C" int aurora_flash_fwd(const void* q, const void* k, const void* v,
     cudaError_t err = allow_smem(flash_fwd_d256_kernel, SMEM_FWD_D256);
     if (err != cudaSuccess) return int(err);
     flash_fwd_d256_kernel<<<dim3((T + 127) / 128, B * H), NTHREADS,
-                            SMEM_FWD_D256,
-                            static_cast<cudaStream_t>(stream)>>>(
+                            SMEM_FWD_D256, st>>>(
         mq, mk, mv, static_cast<const int*>(q_seg),
         static_cast<const int*>(kv_seg), static_cast<bf16*>(out),
         static_cast<float*>(lse), sh);
@@ -1014,7 +1498,7 @@ extern "C" int aurora_flash_fwd(const void* q, const void* k, const void* v,
   cudaError_t err = allow_smem(flash_fwd_kernel, SMEM_FWD);
   if (err != cudaSuccess) return int(err);
   dim3 grid((T + 127) / 128, B * H);
-  flash_fwd_kernel<<<grid, NTHREADS, SMEM_FWD, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<<<grid, NTHREADS, SMEM_FWD, st>>>(
       mq, mk, mv, static_cast<const int*>(q_seg),
       static_cast<const int*>(kv_seg), static_cast<bf16*>(out),
       static_cast<float*>(lse), sh);
@@ -1032,12 +1516,12 @@ extern "C" int aurora_flash_bwd_dkv(const void* q, const void* k,
   if (bad_shape(B, T, S, H, D) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return int(cudaErrorInvalidValue);
   const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
-  if (D == MD) {
-    cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel, SMEM_DKV_MMA);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == WD) {
+    cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel<WD>, MF::SMEM_DKV);
     if (err != cudaSuccess) return int(err);
-    flash_bwd_dkv_mma_kernel<<<dim3((S + 63) / 64, B * H), MT::NT,
-                               SMEM_DKV_MMA,
-                               static_cast<cudaStream_t>(stream)>>>(
+    flash_bwd_dkv_mma_kernel<WD><<<dim3((S + 63) / 64, B * H), MF::MT::NT,
+                                   MF::SMEM_DKV, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1045,20 +1529,30 @@ extern "C" int aurora_flash_bwd_dkv(const void* q, const void* k,
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), sh);
     return int(cudaGetLastError());
   }
+  const int krows = D == MD ? 64 : 128;  // keys a block
   CUtensorMap mq, mk, mv, mdo;
   if (!hopper::map_blhd(&mq, q, B, T, H, D, 64) ||
-      !hopper::map_blhd(&mk, k, B, S, H, D, 128) ||
-      !hopper::map_blhd(&mv, v, B, S, H, D, 128) ||
+      !hopper::map_blhd(&mk, k, B, S, H, D, krows) ||
+      !hopper::map_blhd(&mv, v, B, S, H, D, krows) ||
       !hopper::map_blhd(&mdo, dout, B, T, H, D, 64))
     return int(cudaErrorInvalidValue);
+  const dim3 grid((S + krows - 1) / krows, B * H);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const int* qs = static_cast<const int*>(q_seg);
+  const int* ks = static_cast<const int*>(kv_seg);
+  if (D == MD) {
+    cudaError_t err = allow_smem(flash_bwd_dkv_d256_kernel, SMEM_DKV_D256);
+    if (err != cudaSuccess) return int(err);
+    flash_bwd_dkv_d256_kernel<<<grid, NTHREADS, SMEM_DKV_D256, st>>>(
+        mq, mk, mv, mdo, l, dl, qs, ks, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), sh);
+    return int(cudaGetLastError());
+  }
   cudaError_t err = allow_smem(flash_bwd_dkv_kernel, SMEM_DKV);
   if (err != cudaSuccess) return int(err);
-  dim3 grid((S + 127) / 128, B * H);
-  flash_bwd_dkv_kernel<<<grid, NTHREADS, SMEM_DKV,
-                   static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, mdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(q_seg),
-      static_cast<const int*>(kv_seg), static_cast<bf16*>(dk),
+  flash_bwd_dkv_kernel<<<grid, NTHREADS, SMEM_DKV, st>>>(
+      mq, mk, mv, mdo, l, dl, qs, ks, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), sh);
   return int(cudaGetLastError());
 }
@@ -1074,12 +1568,12 @@ extern "C" int aurora_flash_bwd_dq(const void* q, const void* k,
   if (bad_shape(B, T, S, H, D) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return int(cudaErrorInvalidValue);
   const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
-  if (D == MD) {
-    cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel, SMEM_DQ_MMA);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == WD) {
+    cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel<WD>, MF::SMEM_DQ);
     if (err != cudaSuccess) return int(err);
-    flash_bwd_dq_mma_kernel<<<dim3((T + 63) / 64, B * H), MT::NT,
-                              SMEM_DQ_MMA,
-                              static_cast<cudaStream_t>(stream)>>>(
+    flash_bwd_dq_mma_kernel<WD><<<dim3((T + 63) / 64, B * H), MF::MT::NT,
+                                  MF::SMEM_DQ, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1087,20 +1581,29 @@ extern "C" int aurora_flash_bwd_dq(const void* q, const void* k,
         static_cast<bf16*>(dq), sh);
     return int(cudaGetLastError());
   }
+  const int qrows = D == MD ? 64 : 128;  // q rows a block
   CUtensorMap mq, mk, mv, mdo;
-  if (!hopper::map_blhd(&mq, q, B, T, H, D, 128) ||
+  if (!hopper::map_blhd(&mq, q, B, T, H, D, qrows) ||
       !hopper::map_blhd(&mk, k, B, S, H, D, 64) ||
       !hopper::map_blhd(&mv, v, B, S, H, D, 64) ||
-      !hopper::map_blhd(&mdo, dout, B, T, H, D, 128))
+      !hopper::map_blhd(&mdo, dout, B, T, H, D, qrows))
     return int(cudaErrorInvalidValue);
+  const dim3 grid((T + qrows - 1) / qrows, B * H);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const int* qs = static_cast<const int*>(q_seg);
+  const int* ks = static_cast<const int*>(kv_seg);
+  if (D == MD) {
+    cudaError_t err = allow_smem(flash_bwd_dq_d256_kernel, SMEM_DQ_D256);
+    if (err != cudaSuccess) return int(err);
+    flash_bwd_dq_d256_kernel<<<grid, NTHREADS, SMEM_DQ_D256, st>>>(
+        mq, mk, mv, mdo, l, dl, qs, ks, static_cast<bf16*>(dq), sh);
+    return int(cudaGetLastError());
+  }
   cudaError_t err = allow_smem(flash_bwd_dq_kernel, SMEM_DQ);
   if (err != cudaSuccess) return int(err);
-  dim3 grid((T + 127) / 128, B * H);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, SMEM_DQ,
-                  static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, mdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(q_seg),
-      static_cast<const int*>(kv_seg), static_cast<bf16*>(dq), sh);
+  flash_bwd_dq_kernel<<<grid, NTHREADS, SMEM_DQ, st>>>(
+      mq, mk, mv, mdo, l, dl, qs, ks, static_cast<bf16*>(dq), sh);
   return int(cudaGetLastError());
 }
 
@@ -1126,7 +1629,7 @@ extern "C" int aurora_moe_grouped_mm_kernel(const char* mode, const void** fn,
 
 // registers a thread, local (spill) bytes a thread and shared bytes a block
 // (static and dynamic) of one kernel of the library: "flash_fwd",
-// "flash_bwd_dkv", "flash_bwd_dq" (each also "_d256"),
+// "flash_bwd_dkv", "flash_bwd_dq" (each also "_d256" and "_d512"),
 // "ragged_extend_<mode>[_hd<64|96|256>]",
 // "ragged_decode_<mode>_g<1|2|4|8>[_hd<64|96|128|256>]" (mode bf16, int8 or
 // int4),
@@ -1156,11 +1659,20 @@ extern "C" int aurora_kernel_attrs(const char* name, int* regs,
     fn = reinterpret_cast<const void*>(flash_fwd_d256_kernel);
     dynamic = int(SMEM_FWD_D256);
   } else if (strcmp(name, "flash_bwd_dkv_d256") == 0) {
-    fn = reinterpret_cast<const void*>(flash_bwd_dkv_mma_kernel);
-    dynamic = int(SMEM_DKV_MMA);
+    fn = reinterpret_cast<const void*>(flash_bwd_dkv_d256_kernel);
+    dynamic = int(SMEM_DKV_D256);
   } else if (strcmp(name, "flash_bwd_dq_d256") == 0) {
-    fn = reinterpret_cast<const void*>(flash_bwd_dq_mma_kernel);
-    dynamic = int(SMEM_DQ_MMA);
+    fn = reinterpret_cast<const void*>(flash_bwd_dq_d256_kernel);
+    dynamic = int(SMEM_DQ_D256);
+  } else if (strcmp(name, "flash_fwd_d512") == 0) {
+    fn = reinterpret_cast<const void*>(flash_fwd_mma_kernel<WD>);
+    dynamic = int(MF::SMEM_FWD);
+  } else if (strcmp(name, "flash_bwd_dkv_d512") == 0) {
+    fn = reinterpret_cast<const void*>(flash_bwd_dkv_mma_kernel<WD>);
+    dynamic = int(MF::SMEM_DKV);
+  } else if (strcmp(name, "flash_bwd_dq_d512") == 0) {
+    fn = reinterpret_cast<const void*>(flash_bwd_dq_mma_kernel<WD>);
+    dynamic = int(MF::SMEM_DQ);
   } else if (strncmp(name, "ragged_decode_", 14) == 0 &&
              sscanf(name + 14, "%4[a-z0-9]_g%d_hd%d", mode, &gm, &hd) >= 2) {
     err_name = aurora_ragged_decode_kernel(mode, gm, hd, &fn, &dynamic);

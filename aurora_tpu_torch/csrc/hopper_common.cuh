@@ -164,6 +164,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// named barrier `id` (1-15; 0 is __syncthreads') over `threads` threads
+// of the block: arrive and go on, or arrive and wait until all have
+// arrived; the shared-memory writes of the arriving threads before it are
+// visible to the waiting ones after it
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // programmatic dependent launch: a kernel launched with the
 // programmatic stream serialization attribute may start while the kernel
 // before it on the stream still runs, once every block of that one has
@@ -456,7 +467,7 @@ __device__ __forceinline__ void mma_64x128_rs(float (&d)[64],
 
 // ------------------------------------------ mma.sync attention (any width)
 // The attention kernels at the head widths that the wgmma tiles above do
-// not take (64, 96 and 256 in ragged_extend.cu, 256 in flash_attention.cu)
+// not take (64, 96 and 256 in ragged_extend.cu, 512 in flash_attention.cu)
 // run warp-level mma.sync.m16n8k16 (bf16 -> fp32) on plain row-major
 // shared tiles of pitch HD + 8 bf16: consecutive rows start 16 bytes apart
 // modulo 128, so a warp's fragment loads hit 32 distinct banks.
@@ -472,17 +483,18 @@ __device__ __forceinline__ void mma_64x128_rs(float (&d)[64],
 // (P in P V) without leaving registers.
 
 // warps and widths of a tile of 64 rows: four groups of 16 rows; above 128
-// columns two warps share a row group, each summing half of the output
-// columns (the scores are computed by both), so a thread's accumulator
+// columns HD / 128 warps share a row group, each summing 128 of the output
+// columns (the scores are computed by each), so a thread's accumulator
 // stays at 64 floats
 template <int HD>
 struct MmaTile {
-  static constexpr int NSL = HD > 128 ? 2 : 1;  // warps sharing 16 rows
-  static constexpr int DS = HD / NSL;           // output columns a warp
+  static constexpr int NSL = HD > 128 ? HD / 128 : 1;  // warps a row group
+  static constexpr int DS = HD / NSL;  // output columns a warp
   static constexpr int WARPS = 4 * NSL;
   static constexpr int NT = 32 * WARPS;
   static constexpr int P = HD + 8;              // shared row pitch (bf16)
-  static_assert(HD % 16 == 0 && DS % 16 == 0, "k16 steps, x4 loads");
+  static_assert(HD % 16 == 0 && DS % 16 == 0 && (HD <= 128 || HD % 128 == 0),
+                "k16 steps, x4 loads, 128-column slices");
 };
 
 __device__ __forceinline__ void mma16816(float (&d)[4],

@@ -176,7 +176,7 @@ def llama_config_from_hf(cfg: Dict[str, Any]) -> LlamaConfig:
             f"model_type={mt!r}: the port's families are "
             f"{', '.join(DENSE_TYPES + MOE_TYPES)}")
     scaling = cfg.get("rope_scaling") or {}
-    kind = scaling.get("type", scaling.get("rope_type"))
+    kind = scaling.get("rope_type", scaling.get("type"))
     if scaling and kind != "linear":
         raise NotImplementedError(f"rope_scaling {kind!r}: only linear "
                                   "scaling is ported")

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from aurora_tpu_torch.ops.pallas.flash_attention import flash_attention
+from aurora_tpu_torch.ops.pallas.flash_attention import (MAX_HEAD_DIM,
+                                                        flash_attention)
 
 _MASK_VALUE = -2.3819763e38  # the reference's finite mask value
 
@@ -121,11 +122,13 @@ def _capped_attention(q, k, v, scale, logit_cap, bias, combined):
 def flash_dispatch(q, bias=None, mask=None, logit_cap: float = 0.0) -> bool:
     """`mha`'s rule, the reference's: the flash kernels for a CUDA q
     [B, T, H, D] with no bias, no mask, no logit cap, T >= 128 and
-    D % 128 == 0 (so D 128 and 256: Gemma's heads take the D 256
-    kernels)."""
+    D % 128 == 0 (D 128, 256, 384 and 512; Gemma's heads take the D 256
+    kernels), and D <= 512, the widest head the kernels take (the
+    reference has no ceiling)."""
     return bool(q.is_cuda and bias is None and mask is None
                 and logit_cap == 0.0 and q.shape[1] >= 128
-                and q.shape[-1] % 128 == 0)
+                and q.shape[-1] % 128 == 0
+                and q.shape[-1] <= MAX_HEAD_DIM)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -141,7 +144,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Dispatching attention entry point.
 
     use_flash None → flash for CUDA tensors with no bias, no mask, no
-    logit cap, T >= 128 and head_dim % 128 == 0; `mha_reference`
+    logit cap, T >= 128 and head_dim % 128 == 0 up to 512; `mha_reference`
     otherwise. True/False force either path. The reference's forced flash
     path drops `bias` and `mask` without a word; here it raises instead,
     as it does (like the reference) for a logit cap.

@@ -17,13 +17,19 @@ csrc/flash_attention.cu through `_FlashFunction`: the forward saves `out`
 and `lse`; the backward computes Δ = rowsum(dO∘O) in fp32 (minus the lse
 cotangent, for `flash_attention_lse`), as the reference does outside its
 kernels, then launches the dK/dV and the dQ kernels. The kernels take bf16
-with D % 16 == 0 and D <= 128 and raise on anything else; there is no
-fallback from a kernel to the twin. The forward launch is the custom op
-`aurora_tpu_torch::flash_fwd`, so that a selective-checkpoint policy can
-keep its output (models/remat.py).
+heads of 16, 32, ..., 128, 256 or 512 columns; a head of another width up
+to 512 is padded with zero columns to the next of them (`_kernel_width`,
+`_pad_head`: Q·Kᵀ is unchanged and the padded columns of O, dQ, dK and dV
+are zero, so the result is exact) and sliced back, with the scale of the
+caller's width. Wider heads, and anything else the kernels do not take,
+raise; there is no fallback from a kernel to the twin. The forward launch
+is the custom op `aurora_tpu_torch::flash_fwd`, so that a
+selective-checkpoint policy can keep its output (models/remat.py).
 
 Counters, each raised by the launcher of its kernel:
-`flash_attention.launches_fwd`, `.launches_dkv` and `.launches_dq`;
+`flash_attention.launches_fwd`, `.launches_dkv` and `.launches_dq` count
+every launch; `.launches_fwd_d512`, `.launches_dkv_d512` and
+`.launches_dq_d512` count those at kernel width 512 among them;
 `flash_attention_plain.calls` counts the twin's calls.
 """
 
@@ -32,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 _NEG_INF = -2.3819763e38   # the reference's mask value
+MAX_HEAD_DIM = 512         # the widest head the kernels take
 
 
 def _repeat_kv(k: torch.Tensor, H: int) -> torch.Tensor:
@@ -120,6 +127,8 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention: forward launch failed "
                            f"(cudaError {err})")
     flash_attention.launches_fwd += 1
+    if D == MAX_HEAD_DIM:
+        flash_attention.launches_fwd_d512 += 1
     return out, lse
 
 
@@ -149,6 +158,8 @@ def bwd_dkv(q, k, v, g, lse, delta, q_seg, kv_seg, causal, scale,
         raise RuntimeError(f"flash_attention: dK/dV launch failed "
                            f"(cudaError {err})")
     flash_attention.launches_dkv += 1
+    if q.shape[-1] == MAX_HEAD_DIM:
+        flash_attention.launches_dkv_d512 += 1
     return dk, dv
 
 
@@ -165,6 +176,8 @@ def bwd_dq(q, k, v, g, lse, delta, q_seg, kv_seg, causal, scale, q_offset):
         raise RuntimeError(f"flash_attention: dQ launch failed "
                            f"(cudaError {err})")
     flash_attention.launches_dq += 1
+    if q.shape[-1] == MAX_HEAD_DIM:
+        flash_attention.launches_dq_d512 += 1
     return dq
 
 
@@ -197,9 +210,30 @@ class _FlashFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def _kernel_width(D: int) -> int:
+    """The head width a kernel takes for a head of D columns: D itself
+    for a multiple of 16 up to 128 (the TMA boxes read zeros past it),
+    the next multiple of 16 below that, then 256, then 512; wider heads
+    raise."""
+    if D <= 0 or D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the CUDA kernels take head_dim "
+                         f"1 to {MAX_HEAD_DIM}, got {D}")
+    if D <= 128:
+        return -(-D // 16) * 16
+    return 256 if D <= 256 else MAX_HEAD_DIM
+
+
+def _pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x [..., D] with zero columns appended up to `width` (x itself when
+    D == width)."""
+    D = x.shape[-1]
+    return x if D == width else torch.nn.functional.pad(x, (0, width - D))
+
+
 def _card_inputs(q, k, v, q_segment_ids, kv_segment_ids):
     """Check what the kernels take; → contiguous q, k, v with the KV heads
-    repeated, and int32 segment planes (or None)."""
+    repeated and the head padded to the kernels' width (`_kernel_width`),
+    and int32 segment planes (or None)."""
     name = "flash_attention"
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: q [B, T, H, D] and k = v [B, S, Hkv, D] "
@@ -209,9 +243,7 @@ def _card_inputs(q, k, v, q_segment_ids, kv_segment_ids):
     if k.shape[0] != B or k.shape[3] != D or T == 0 or k.shape[1] == 0:
         raise ValueError(f"{name}: shapes {tuple(q.shape)} / "
                          f"{tuple(k.shape)} do not match")
-    if D % 16 or (D > 128 and D != 256):
-        raise ValueError(f"{name}: the CUDA kernels take head_dim % 16 == 0 "
-                         f"up to 128, or 256, got {D}")
+    W = _kernel_width(D)
     for label, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: {label} must be bfloat16 on the card, "
@@ -219,8 +251,8 @@ def _card_inputs(q, k, v, q_segment_ids, kv_segment_ids):
         if t.device != q.device:
             raise ValueError(f"{name}: {label} is on {t.device}, expected "
                              f"{q.device}")
-    q = q.contiguous()
-    k, v = _repeat_kv(k, H).contiguous(), _repeat_kv(v, H).contiguous()
+    q = _pad_head(q.contiguous(), W)
+    k, v = (_pad_head(_repeat_kv(x, H).contiguous(), W) for x in (k, v))
     segs = [None, None]
     for i, (label, s, n) in enumerate((("q_segment_ids", q_segment_ids, T),
                                        ("kv_segment_ids", kv_segment_ids,
@@ -244,11 +276,13 @@ def _flash(q, k, v, causal, scale, q_segment_ids, kv_segment_ids, q_offset):
             kv_segment_ids=kv_segment_ids, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    q, k, v, qs, ks = _card_inputs(q, k, v, q_segment_ids, kv_segment_ids)
+    D = q.shape[-1]
     if scale is None:
-        scale = q.shape[-1] ** -0.5
-    return _FlashFunction.apply(q, k, v, qs, ks, bool(causal), float(scale),
-                                int(q_offset))
+        scale = D ** -0.5
+    q, k, v, qs, ks = _card_inputs(q, k, v, q_segment_ids, kv_segment_ids)
+    out, lse = _FlashFunction.apply(q, k, v, qs, ks, bool(causal),
+                                    float(scale), int(q_offset))
+    return (out if out.shape[-1] == D else out[..., :D]), lse
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -263,6 +297,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
 flash_attention.launches_fwd = 0
 flash_attention.launches_dkv = 0
 flash_attention.launches_dq = 0
+flash_attention.launches_fwd_d512 = 0
+flash_attention.launches_dkv_d512 = 0
+flash_attention.launches_dq_d512 = 0
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = False,

@@ -275,8 +275,10 @@ Then the dense zoo: `[kernels]` also holds both attention
 kernels at the zoo's published (head_dim, G) in every KV mode
 (FAMILY_SHAPES: Gemma-2-9B 256/2, Phi-3-mini 96/1, MiniCPM-2B 64/1,
 StarCoder2-7B 128/9, GLM-4-9B 128/16, StarCoder 128/48) and flash
-forward and backward at D 256 (gemma-7b's 16 heads, T 2048) against
-their twins, timed beside SDPA; after the Mistral runs,
+forward and backward at D 256 (gemma-7b's 16 heads, T 2048) and at D
+512 (the widest head the kernels take) against their twins, timed beside
+SDPA (with the backend SDPA picks), and D 384 (padded to 512) and D 512
+with GQA, segments and a q_offset; after the Mistral runs,
 `[serve-gemma2-*]` serves Gemma-2-9B at full width and depth (random
 bf16 weights, 4 prompts of 5,000-6,000 ids, 64 greedy tokens) with bf16
 KV twice (bit for bit), int8 KV, packed int4 KV and W4 weights + int8
@@ -430,6 +432,9 @@ FAMILY_SHAPES = (("gemma2-9b", 256, 16, 8), ("phi3-mini", 96, 32, 32),
 FAMILY_L = 4
 # flash at D 256: google/gemma-7b's 16 heads at T 2048
 FLASH_D256 = dict(B=2, T=2048, H=16, Hkv=16, D=256)
+# flash at D 512, the widest head the kernels take (no family of the zoo
+# has a head past 256): 8 heads at T 2048
+FLASH_D512 = dict(B=1, T=2048, H=8, Hkv=8, D=512)
 # Gemma-2-9B served at full width and depth: prompts past its window of
 # 4096 (so that the alternation of windowed and global layers matters)
 GEMMA2_PROMPT = (5000, 6000)
@@ -1415,7 +1420,8 @@ def quantize_phase(torch, qm, dev, shapes=W4_SHAPES, B=4):
 def flash_case(torch, fa, dev, g, B, T, H, Hkv, q_offset=0,
                segments=False, with_lse=False, timed=False, D=128):
     """The flash kernels vs the fp32 twin on one seeded case (causal, D =
-    128, or 256: the mma.sync kernels): out, lse, and dQ/dK/dV from one
+    128, 256, 512, or a width the launcher pads): out, lse, and dQ/dK/dV
+    from one
     backward with a random dO (and a random lse cotangent with
     with_lse); a second backward must agree bitwise → errors, and with
     timed (H == Hkv, no segments) the kernels', the twin's and SDPA's
@@ -1509,7 +1515,8 @@ def flash_times(torch, F, fa, q, k, v, dout):
     """Each flash kernel alone, the wrapper forward + backward, the fp32
     twin's and SDPA's (is_causal) forward, backward and forward +
     backward — CUDA-event medians — with the three kernels' bounds at
-    these inputs."""
+    these inputs, and the backend SDPA picks for them."""
+    from torch.nn.attention import SDPBackend
     B, T, H, D = q.shape
     scale = D ** -0.5
     out, lse = torch.ops.aurora_tpu_torch.flash_fwd(q, k, v, None, None,
@@ -1536,6 +1543,8 @@ def flash_times(torch, F, fa, q, k, v, dout):
     del w_out, fleaves
     torch.cuda.empty_cache()
     qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+    t["library_backend"] = SDPBackend(torch._fused_sdp_choice(
+        qt, kt, vt, None, 0.0, True)).name
     with torch.no_grad():
         t["library_fwd_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
@@ -4048,8 +4057,10 @@ def family_kernel_phase(torch, ra, fa, dev):
     attention kernels in every KV mode against their twins, timed beside
     SDPA (bf16); then flash forward and backward at D 256 (google/
     gemma-7b's heads) timed, and a D 256 case with GQA, segments and a
-    q_offset → ({(family, mode): attention_case's result}, flash timed
-    result, flash errors)."""
+    q_offset; then at D 512 (FLASH_D512) timed, and D 384 (padded to 512)
+    and D 512 cases with GQA, segments and a q_offset → ({(family,
+    mode): attention_case's result}, {width: (flash timed result, flash
+    results)})."""
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     res = {}
     for fam, hd, Hq, hkv in FAMILY_SHAPES:
@@ -4062,7 +4073,13 @@ def family_kernel_phase(torch, ra, fa, dev):
                        fl["Hkv"], timed=True, D=fl["D"])
     other = flash_case(torch, fa, dev, g, 2, 384, 8, 4, q_offset=128,
                        segments=True, D=fl["D"])
-    return res, timed, [timed, other]
+    fw = FLASH_D512
+    timed512 = flash_case(torch, fa, dev, g, fw["B"], fw["T"], fw["H"],
+                          fw["Hkv"], timed=True, D=fw["D"])
+    wide = [flash_case(torch, fa, dev, g, 1, 384, 4, 2, q_offset=128,
+                       segments=True, D=d) for d in (384, 512)]
+    return res, {"d256": (timed, [timed, other]),
+                 "d512": (timed512, [timed512, *wide])}
 
 
 def gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains):
@@ -4916,8 +4933,8 @@ def main(argv=None):
                        *(f"ragged_extend_{m}" for m in KV_MODES),
                        *(f"ragged_decode_{m}_g{g}" for m in KV_MODES
                          for g in (1, 4)),
-                       "flash_fwd_d256", "flash_bwd_dkv_d256",
-                       "flash_bwd_dq_d256",
+                       *(f"flash_{k}_d{w}" for w in (256, 512)
+                         for k in ("fwd", "bwd_dkv", "bwd_dq")),
                        *(f"ragged_extend_{m}_hd{h}" for m in KV_MODES
                          for h in (64, 96, 256)),
                        *(f"ragged_decode_{m}_g{g}_hd{h}" for m in KV_MODES
@@ -4973,11 +4990,17 @@ def main(argv=None):
                    segments=True),
         flash_case(torch, fa, dev, g, 2, 1024, 32, 8, with_lse=True)]
     flash_t = flash_res[0]
-    # the zoo's head widths and groups, and flash at D 256
-    fam_res, flash256_t, flash256_res = family_kernel_phase(torch, ra, fa,
-                                                            dev)
+    # the zoo's head widths and groups, and flash at D 256 and 512
+    fam_res, flash_wide = family_kernel_phase(torch, ra, fa, dev)
     # the grouped-expert kernel at the MoE families' expert shapes
     moe_res = moe_kernel_phase(torch, engine_mod, moe, dev)
+    # the flash launches at kernel width 512, over every run of the main
+    # path from here to [train-dpo-gemma] (the phases above compared the
+    # kernels with their twins; those launches do not count)
+    d512_counters = [(fa.flash_attention, f"launches_{k_}_d512")
+                     for k_ in ("fwd", "dkv", "dq")]
+    for obj, attr in d512_counters:
+        setattr(obj, attr, 0)
 
     # ---- checkpoint loading from an xtuner-format directory --------------
     torch.cuda.empty_cache()
@@ -5298,6 +5321,10 @@ def main(argv=None):
         (fa.flash_attention_plain, "calls")])
     dpo256 = dpo_phase(torch, fa, dev, card, flash_counters, plains + [
         (fa.flash_attention_plain, "calls")], gemma=True)
+    launches512 = tuple(getattr(obj, attr) for obj, attr in d512_counters)
+    phase("flash-d512", launches=json.dumps(dict(zip(
+        ("fwd", "bwd_dkv", "bwd_dq"), launches512))).replace(" ", ""),
+          runs="eval..train-dpo-gemma")
 
     def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
               bound_ms, library_ms, **extra):
@@ -5476,20 +5503,25 @@ def main(argv=None):
                     r["library_ms"], head_dim=hd, q_heads=Hq, kv_heads=hkv))
     # flash at D 256 (google/gemma-7b: B 2, T 2048, H 16); launches from
     # [train-dpo-gemma], whose attention runs them; [train-dpo]'s (D 128)
-    # beside the D 128 entries above
-    for k_, src_line, ms, bound, plain_k, lib_k, errs, n in (
-            ("fwd", "121", "fwd_ms", "fwd_bound", "plain_fwd_ms",
-             "library_fwd_ms", ("out_err",), dpo256[0]),
-            ("bwd_dkv", "176", "dkv_ms", "dkv_bound", "plain_bwd_ms",
-             "library_bwd_ms", ("dk_err", "dv_err"), dpo256[1]),
-            ("bwd_dq", "237", "dq_ms", "dq_bound", "plain_bwd_ms",
-             "library_bwd_ms", ("dq_err",), dpo256[2])):
-        kernels.append(entry(
-            f"flash_attention_{k_}[d256]", "flash_attention.cu",
-            "flash_attention.py:" + src_line, n,
-            max(res[e] for res in flash256_res for e in errs),
-            flash256_t[ms], flash256_t[plain_k], flash256_t[bound],
-            flash256_t[lib_k]))
+    # beside the D 128 entries above. D 512 (FLASH_D512; its errors also
+    # over the D 384 case, padded to 512): the launcher's width-512
+    # counters over the whole main path (no model of the zoo has such a
+    # head)
+    for width, launches_w in (("d256", dpo256), ("d512", launches512)):
+        t_w, res_w = flash_wide[width]
+        for k_, src_line, ms, bound, plain_k, lib_k, errs, n in (
+                ("fwd", "121", "fwd_ms", "fwd_bound", "plain_fwd_ms",
+                 "library_fwd_ms", ("out_err",), launches_w[0]),
+                ("bwd_dkv", "176", "dkv_ms", "dkv_bound", "plain_bwd_ms",
+                 "library_bwd_ms", ("dk_err", "dv_err"), launches_w[1]),
+                ("bwd_dq", "237", "dq_ms", "dq_bound", "plain_bwd_ms",
+                 "library_bwd_ms", ("dq_err",), launches_w[2])):
+            kernels.append(entry(
+                f"flash_attention_{k_}[{width}]", "flash_attention.cu",
+                "flash_attention.py:" + src_line, n,
+                max(res[e] for res in res_w for e in errs), t_w[ms],
+                t_w[plain_k], t_w[bound], t_w[lib_k],
+                library_backend=t_w["library_backend"]))
     for e in kernels:
         if e["name"].startswith("flash_attention_") and "[" not in e["name"]:
             e["launches_train_dpo"] = dpo[("fwd", "bwd_dkv", "bwd_dq").index(

@@ -223,14 +223,30 @@ def test_unported_llm_configs_raise(change):
 
 
 def test_ported_llm_configs_match_jax():
+    """Configs whose rope_scaling spells its kind `type` read as the
+    reference reads them. `rope_type` comes first, as transformers reads
+    it (the reference reads `type` only): a config that spells only
+    `rope_type` equals the reference's reading of the same config spelled
+    `type`, and where the two keys differ the port follows `rope_type`."""
+    linear = {"type": "linear", "factor": 4.0}
     for cfg in (_base_llama(),
-                {**_base_llama(), "rope_scaling": {"type": "linear",
-                                                   "factor": 4.0}},
+                {**_base_llama(), "rope_scaling": linear},
                 {**_base_llama(), "model_type": "mistral",
                  "num_key_value_heads": 2, "sliding_window": 8}):
         got = tconvert.llama_config_from_hf(cfg)
         assert got == bridge.llama_config_from(
             jconvert.llama_config_from_hf(cfg))
+    want = bridge.llama_config_from(jconvert.llama_config_from_hf(
+        {**_base_llama(), "rope_scaling": linear}))
+    assert want.rope_linear_scaling == 4.0
+    for scaling in ({"rope_type": "linear", "factor": 4.0},
+                    {"rope_type": "linear", "type": "dynamic",
+                     "factor": 4.0}):
+        assert tconvert.llama_config_from_hf(
+            {**_base_llama(), "rope_scaling": scaling}) == want
+    with pytest.raises(NotImplementedError, match="dynamic"):
+        tconvert.llama_config_from_hf({**_base_llama(), "rope_scaling": {
+            "rope_type": "dynamic", "type": "linear", "factor": 4.0}})
 
 
 def test_siglip_tower_raises():

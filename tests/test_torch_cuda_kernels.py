@@ -854,7 +854,7 @@ def _grad_rel(got, want):
 
 def _flash_check(dev, seed, B, T, S, H, Hkv, D, causal, q_offset, segments):
     """The kernels vs the fp32 twin: out, the per-row error, q/k/v grads
-    and the launch counts; with segments (S = T + q_offset) three
+    and the launch counts (those at width 512 too); with segments (S = T + q_offset) three
     documents whose boundaries fall inside tiles, and rows 200.. of the
     last batch row carry an id no key has."""
     q, k, v, g = _flash_inputs(dev, seed, B, T, S, H, Hkv, D)
@@ -866,7 +866,8 @@ def _flash_check(dev, seed, B, T, S, H, Hkv, D, causal, q_offset, segments):
         qseg = seg[:, q_offset:].clone()
         qseg[-1, 200:] = 9                   # rows that see no key
         kw.update(q_segment_ids=qseg, kv_segment_ids=seg)
-    counters = ("launches_fwd", "launches_dkv", "launches_dq")
+    counters = [f"launches_{k_}{w}" for w in ("", "_d512")
+                for k_ in ("fwd", "dkv", "dq")]
     launches = [getattr(tfa.flash_attention, c) for c in counters]
     (got,), got_g = _grads(
         lambda *a: tfa.flash_attention(*a, **kw), q, k, v, g)
@@ -874,8 +875,10 @@ def _flash_check(dev, seed, B, T, S, H, Hkv, D, causal, q_offset, segments):
         lambda *a: tfa.flash_attention_plain(*a, **kw)[0],
         q.float(), k.float(), v.float(), g.float())
     torch.cuda.synchronize()
+    # the width-512 counters rise only where the head pads to 512
     assert [getattr(tfa.flash_attention, c) for c in counters] == [
-        n + 1 for n in launches]
+        n + 1 for n in launches[:3]] + [n + int(D > 256)
+                                        for n in launches[3:]]
     diff = (got.float() - want).abs()
     assert diff.max().item() <= 2e-2
     row_max = want.abs().amax(-1).clamp_min(1e-6)
@@ -941,12 +944,36 @@ def test_flash_backward_is_deterministic_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_rejects_what_the_kernels_do_not_take(cuda_device):
+    """fp32 inputs and heads past 512 columns raise; a head of 72 columns
+    (not a multiple of 16) is padded to 80 and matches the twin."""
     q, k, v, _ = _flash_inputs(cuda_device, 6, 1, 128, 128, 2, 2, 128)
     with pytest.raises(TypeError):
         tfa.flash_attention(q.float(), k.float(), v.float())
     q72, k72, v72, _ = _flash_inputs(cuda_device, 7, 1, 128, 128, 2, 2, 72)
-    with pytest.raises(ValueError):          # head_dim % 16 != 0
-        tfa.flash_attention(q72, k72, v72)
+    got = tfa.flash_attention(q72, k72, v72)
+    want = tfa.flash_attention_plain(q72.float(), k72.float(), v72.float())[0]
+    torch.cuda.synchronize()
+    assert got.shape == q72.shape
+    assert (got.float() - want).abs().max().item() <= 2e-2
+    q640, k640, v640, _ = _flash_inputs(cuda_device, 8, 1, 128, 128, 2, 2,
+                                        640)
+    with pytest.raises(ValueError, match="512"):
+        tfa.flash_attention(q640, k640, v640)
+
+
+# heads the kernels take after padding (72 → 80 on the wgmma kernels, 200
+# → 256, 384 → 512) and D 512's mma.sync kernels: T and S off the tiles,
+# GQA, segments with rows that see no key, a q_offset, non-causal S != T
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,T,S,Hkv,causal,q_offset,segments", [
+    (72, 300, 364, 2, True, 64, True), (200, 300, 300, 2, True, 0, False),
+    (200, 300, 364, 4, True, 64, True), (384, 300, 364, 2, True, 64, True),
+    (384, 200, 330, 4, False, 0, False), (512, 300, 364, 2, True, 64, True),
+    (512, 300, 300, 4, True, 0, False), (512, 200, 330, 1, False, 0, False)])
+def test_flash_takes_every_head_dim_up_to_512_on_card(
+        cuda_device, D, T, S, Hkv, causal, q_offset, segments):
+    _flash_check(cuda_device, D + T + Hkv, 2, T, S, 4, Hkv, D, causal,
+                 q_offset, segments)
 
 
 # (head_dim, G) of the dense families the engine serves beside 128 x {1,

@@ -3,8 +3,9 @@ JAX package's Pallas `flash_attention` / `flash_attention_lse` (interpret
 mode on the CPU, blocks of 128), float32, inputs made with numpy from a
 seed. Tolerances as the JAX package's own flash tests: 2e-5 for the
 forward (out, lse), 1e-4 for the q/k/v gradients (fp32 summation order
-over up to 500 keys). Also the dispatch `mha` and `mha_reference` with
-segment ids."""
+over up to 500 keys). Also the launcher's head padding (the width table,
+the padded twin at head_dim 72, 200 and 384), the dispatch `mha` and
+`mha_reference` with segment ids."""
 
 import jax
 import jax.numpy as jnp
@@ -154,6 +155,89 @@ def test_flash_lse_matches_jax(case):
                                    err_msg=name, **TOL_GRAD)
 
 
+# head widths the CUDA kernels do not take as they are: the launcher pads
+# the head with zero columns to the next width a kernel takes (72 → 80,
+# 200 → 256, 384 → 512), keeps the caller's width's scale and slices the
+# result back. That path (`_kernel_width`, `_pad_head`, the slice) on the
+# twin against the Pallas kernel at the original width.
+# D: (T, S, H, Hkv, causal, q_offset, segments)
+PAD_CASES = {72: (160, 160, 2, 1, True, 0, False),
+             200: (128, 256, 2, 2, True, 128, False),
+             384: (160, 160, 2, 2, True, 0, True)}
+
+
+def _padded_twin(q, k, v, **kw):
+    D = q.shape[-1]
+    W = tfa._kernel_width(D)
+    out, _ = tfa.flash_attention_plain(
+        *(tfa._pad_head(x, W) for x in (q, k, v)), scale=D ** -0.5, **kw)
+    return out[..., :D]
+
+
+@pytest.mark.parametrize("D", list(PAD_CASES))
+def test_padded_head_matches_jax(D):
+    T, S, H, Hkv, causal, off, segs = PAD_CASES[D]
+    rng = np.random.default_rng(D)
+    q, g = (rng.standard_normal((1, T, H, D)).astype(np.float32)
+            for _ in "qg")
+    k, v = (rng.standard_normal((1, S, Hkv, D)).astype(np.float32)
+            for _ in "kv")
+    kw = dict(causal=causal, q_offset=off)
+    if segs:
+        # queries 150.. carry an id no key has, so they see nothing
+        seg = np.zeros((1, T), np.int32)
+        seg[:, 70:130] = 1
+        seg[:, 130:] = 2
+        qseg = seg.copy()
+        qseg[:, 150:] = 7
+        kw.update(q_segment_ids=qseg, kv_segment_ids=seg)
+    jkw = _jax_kw(kw)
+
+    def loss(q, k, v):
+        out = jfa.flash_attention(q, k, v, **jkw, **BLOCKS)
+        return jnp.sum(out * jnp.asarray(g)), out
+
+    (_, want), want_g = jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True)(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = _leaves(q, k, v)
+    out = _padded_twin(tq, tk, tv, **_torch_kw(kw))
+    assert out.shape == (1, T, H, D)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               **TOL_FWD)
+    (out * torch.from_numpy(g)).sum().backward()
+    for name, got, ref in zip("qkv", (tq, tk, tv), want_g):
+        assert got.grad.shape == got.shape
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
+                                   err_msg=name, **TOL_GRAD)
+
+
+def test_kernel_width_table():
+    """The widths the kernels take: multiples of 16 up to 128 as they are
+    (no copy), else the next multiple of 16, then 256, then 512; 0 and
+    past 512 raise. `_pad_head` appends zero columns, and returns its
+    input when the width is already the kernel's."""
+    widths = {1: 16, 8: 16, 16: 16, 64: 64, 72: 80, 96: 96, 100: 112,
+              128: 128, 129: 256, 200: 256, 256: 256, 257: 512, 384: 512,
+              500: 512, 512: 512}
+    assert {d: tfa._kernel_width(d) for d in widths} == widths
+    for d in (0, 513, 640):
+        with pytest.raises(ValueError, match="512"):
+            tfa._kernel_width(d)
+    x = torch.randn(2, 3, 4, 72)
+    padded = tfa._pad_head(x, 80)
+    assert padded.shape == (2, 3, 4, 80)
+    assert torch.equal(padded[..., :72], x)
+    assert not padded[..., 72:].any()
+    assert tfa._pad_head(x, 72) is x
+    # the launcher's inputs: KV heads repeated, every head padded
+    q, k = (torch.randn(1, 16, h, 72).bfloat16() for h in (4, 2))
+    qp, kp, vp, _, _ = tfa._card_inputs(q, k, k, None, None)
+    assert qp.shape == (1, 16, 4, 80) and kp.shape == vp.shape == qp.shape
+    assert torch.equal(qp[..., :72], q) and not qp[..., 72:].any()
+    assert torch.equal(kp[:, :, 1, :72], k[:, :, 0])
+
+
 def test_rows_that_see_no_key():
     """q_offset < 0 under causal leaves the first rows with no key: out 0,
     lse at the mask value, zero gradients (the kernels' contract)."""
@@ -198,16 +282,19 @@ def test_mha_dispatch_on_cpu():
         tfa.flash_attention(q, k, v, q_segment_ids=torch.zeros(2, 128))
 
 
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 256, 384, 512])
 def test_mha_dispatch_sends_head_dim_128_and_256_to_flash(D):
-    """The reference's rule (head_dim % 128 == 0), not narrowed: a CUDA q
-    of head_dim 256 (Gemma) goes to the flash kernels, which take D 256
-    on the card (test_flash_takes_head_dim_256_on_card); 64 and 96, a
-    mask, a cap, T < 128 or a CPU q do not."""
+    """The reference's rule (head_dim % 128 == 0) up to the kernels'
+    ceiling of 512: a CUDA q of head_dim 256 (Gemma), 384 or 512 goes to
+    the flash kernels, which take them on the card
+    (test_flash_takes_head_dim_256_on_card,
+    test_flash_takes_every_head_dim_up_to_512_on_card); 64 and 96, 640,
+    a mask, a cap, T < 128 or a CPU q do not."""
     from types import SimpleNamespace
     cuda_q = SimpleNamespace(is_cuda=True, shape=(2, 256, 4, D))
     assert tattn.flash_dispatch(cuda_q)
-    for other in ((2, 256, 4, 64), (2, 256, 4, 96), (2, 64, 4, D)):
+    for other in ((2, 256, 4, 64), (2, 256, 4, 96), (2, 256, 4, 640),
+                  (2, 64, 4, D)):
         assert not tattn.flash_dispatch(SimpleNamespace(is_cuda=True,
                                                         shape=other))
     assert not tattn.flash_dispatch(cuda_q, mask=object())

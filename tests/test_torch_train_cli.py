@@ -424,8 +424,7 @@ def test_list_cfg_matches_reference(capsys, monkeypatch):
         want = capsys.readouterr().out
         assert tcfg_tools.list_cfg(argv) == 0
         got = capsys.readouterr().out
-        # Qwen2 is not among the port's presets (ROADMAP queue 1 item 8)
-        assert got == _port_text(want).replace("  qwen2_7b\n", "")
+        assert got == _port_text(want)
 
 
 @pytest.mark.parametrize("stage", ["pretrain", "vision", "language"])

@@ -19,8 +19,8 @@ weights included, so that each knob acts). For each family:
   tests/test_torch_engine_quant.py (`assert_near_tie_parity`) with int8
   and packed int4 KV. The JAX kernels run in interpret mode.
 
-The MoE and MLA families raise NotImplementedError naming their ROADMAP
-item (tests/test_torch_convert.py).
+The MoE and MLA families are tested in tests/test_torch_moe.py and
+tests/test_torch_mla.py.
 """
 
 import functools
