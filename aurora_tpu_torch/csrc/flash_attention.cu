@@ -1631,7 +1631,7 @@ extern "C" int aurora_moe_grouped_mm_kernel(const char* mode, const void** fn,
 // (static and dynamic) of one kernel of the library: "flash_fwd",
 // "flash_bwd_dkv", "flash_bwd_dq" (each also "_d256" and "_d512"),
 // "ragged_extend_<mode>[_hd<64|96|256>]",
-// "ragged_decode_<mode>_g<1|2|4|8>[_hd<64|96|128|256>]" (mode bf16, int8 or
+// "ragged_decode_<mode>_g<1|2|4|8>[_hd<16|32|...|256>]" (mode bf16, int8 or
 // int4),
 // "w8a8_b<rows>", "w4a16_b<rows>", "w4a8_b<rows>", "w4a8_flat_b<rows>"
 // (groups of 128), "fused_mlp_b<rows>" (rows 8, 16, 32, 64) or

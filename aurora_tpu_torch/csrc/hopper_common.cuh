@@ -467,7 +467,7 @@ __device__ __forceinline__ void mma_64x128_rs(float (&d)[64],
 
 // ------------------------------------------ mma.sync attention (any width)
 // The attention kernels at the head widths that the wgmma tiles above do
-// not take (64, 96 and 256 in ragged_extend.cu, 512 in flash_attention.cu)
+// not take (up to 96 in ragged_extend.cu, 512 in flash_attention.cu)
 // run warp-level mma.sync.m16n8k16 (bf16 -> fp32) on plain row-major
 // shared tiles of pitch HD + 8 bf16: consecutive rows start 16 bytes apart
 // modulo 128, so a warp's fragment loads hit 32 distinct banks.
@@ -607,30 +607,35 @@ __device__ __forceinline__ void softmax_step(float (&s)[NB][4], float (&m)[2],
 }
 
 // the thread's half (h) of an output row of C tiles, times mul, as bf16
-// to dst (the row's first column of the warp's slice)
+// to dst (the row's first column of the warp's slice); only the columns
+// below `cols` (a head narrower than the tile's)
 template <int ND>
 __device__ __forceinline__ void store_c_row(__nv_bfloat16* dst,
                                             const float (&o)[ND][4], int h,
-                                            int lane, float mul) {
+                                            int lane, float mul,
+                                            int cols = 8 * ND) {
 #pragma unroll
   for (int n = 0; n < ND; ++n)
-    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * (lane % 4)) =
-        __floats2bfloat162_rn(o[n][2 * h] * mul, o[n][2 * h + 1] * mul);
+    if (8 * n + 2 * (lane % 4) < cols)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(o[n][2 * h] * mul, o[n][2 * h + 1] * mul);
 }
 
 // rows [row0, row0 + rows) of a row-major bf16 source (row r at
-// src + r * stride elements, HD columns; rows at or past `live` read as
-// zeros) into a shared tile of pitch HD + 8, 16 bytes a thread
+// src + r * stride elements, `cols` columns, a multiple of 8; rows at or
+// past `live` and the columns from `cols` to HD read as zeros) into a
+// shared tile of pitch HD + 8, 16 bytes a thread
 template <int HD>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           size_t stride, int row0, int rows,
-                                          int live, int tid, int nthreads) {
+                                          int live, int tid, int nthreads,
+                                          int cols = HD) {
   constexpr int C = HD / 8;
   for (int e = tid; e < rows * C; e += nthreads) {
     const int r = e / C, c = e % C;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < live)
+    if (row0 + r < live && c * 8 < cols)
       v = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * stride +
                                           c * 8);
     *reinterpret_cast<uint4*>(dst + r * (HD + 8) + c * 8) = v;

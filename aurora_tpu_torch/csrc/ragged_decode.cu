@@ -69,12 +69,13 @@
 // writes its output directly. Only the block that holds the new token
 // writes its (lane, head) stripe, so the read-modify-write of its bytes
 // needs no atomics. Row ids must be distinct per lane (each lane owns its
-// row). head_dim is 64, 96, 128 or 256 (a shared row is hd elements): a
-// half-warp lane holds 8 dims of each 128-column half of the head, those
-// below hd. The kernel is templated on GM, the query heads a block takes
-// (the group rounded up to 1, 2, 4 or 8; at most 4 at head_dim 256, which
-// holds 16 dims a lane), which sizes the registers, and on HDC, the head
-// width fixed at compile time for 128 (the others read it at run time):
+// row). head_dim is any multiple of 16 from 16 to 256 (a shared row is
+// hd elements, a multiple of 16 bytes in every mode): a half-warp lane
+// holds 8 dims of each 128-column half of the head, those below hd. The
+// kernel is templated on GM, the query heads a block takes (the group
+// rounded up to 1, 2, 4 or 8; at most 4 above 128 columns, where a lane
+// holds 16 dims), which sizes the registers, and on HDC, the head width
+// fixed at compile time for 128 (the others read it at run time):
 // a larger group (9, 16,
 // 48) is split over ceil(G / GM) blocks per (split, KV head, lane), each
 // reading the same K/V; all of them patch the new token into their shared
@@ -583,11 +584,13 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
 }
 
 // S % 4: a quantized row's scale planes are copied in 16-byte units
+// head_dim % 16: an int8 row is a run of 16-byte bulk copies
+bool bad_head_dim(int hd) { return hd < 16 || hd > 256 || hd % 16 != 0; }
+
 bool bad_shape(bool quant, int Bq, int Hq, int Hkv, int S, int head_dim,
                int split, int nsplit, float cap, const void* part,
                const void* tickets) {
-  return (head_dim != 64 && head_dim != 96 && head_dim != 128 &&
-          head_dim != 256) ||
+  return bad_head_dim(head_dim) ||
          Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 64 || Bq <= 0 ||
          cap < 0.f || (quant && S % 4 != 0) || split <= 0 ||
          split % SEG != 0 || nsplit <= 0 || nsplit > 65535 ||
@@ -665,7 +668,7 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_rows,
 
 }  // namespace
 
-// bf16 rows [L, B, Hkv, S, hd] (hd 64, 96, 128 or 256); part: fp32 scratch
+// bf16 rows [L, B, Hkv, S, hd] (hd 16, 32, ..., 256); part: fp32 scratch
 // of Bq * Hkv * nsplit * G * (hd + 2) floats and tickets: Bq * Hq int32
 // zeros (both may be null with nsplit 1); split, nsplit: decode_plan's
 extern "C" int aurora_ragged_decode_bf16(
@@ -716,13 +719,12 @@ extern "C" int aurora_ragged_decode_int4(
 }
 
 // the kernel of a mode ("bf16", "int8", "int4") for GM query heads a block
-// (1, 2, 4, 8; 1, 2, 4 at hd 256) at head_dim hd and its dynamic shared
+// (1, 2, 4, 8; 1, 2, 4 above hd 128) at head_dim hd and its dynamic shared
 // bytes, for aurora_kernel_attrs
 extern "C" int aurora_ragged_decode_kernel(const char* mode, int gm, int hd,
                                            const void** fn, int* smem) {
   const int nc = hd > 128 ? 2 : 1;
-  if ((hd != 64 && hd != 96 && hd != 128 && hd != 256) ||
-      (nc == 2 && gm == 8))
+  if (bad_head_dim(hd) || (nc == 2 && gm == 8))
     return int(cudaErrorInvalidValue);
 #define AURORA_DECODE_GM(KV, PACK, NC, HDC)                            \
   if (gm == 1) *fn = reinterpret_cast<const void*>(                    \

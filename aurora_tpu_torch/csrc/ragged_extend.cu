@@ -62,6 +62,17 @@
 // per tile and warpgroup: only a tile that crosses the causal diagonal,
 // kv_len or the window's lower edge of one of the warpgroup's rows tests
 // its elements.
+//
+// Head widths: any multiple of 16 from 16 to 256, each run by the kernel
+// of the next compile-time width up: 64 and 96 on mma.sync tiles
+// (`extend_mma_kernel`, below), 128 on the design above (`extend_kernel`),
+// 256 on its 64-key-tile variant (`extend_d256_kernel`). The columns from
+// hd to the kernel's width read as zeros (TMA fills a box past the rows'
+// inner extent hd with zeros, the 16-byte loads of Q and of the mma.sync
+// tiles write zeros there), add nothing to Q K^T, and give output columns
+// that are never stored; the scale is the caller's (by default that of the
+// real hd). So a padded width is exact, and the KV rows are never padded
+// in memory: they are the cache.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,7 +85,7 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int HD = 128;        // head_dim taken by this kernel
+constexpr int HD = 128;        // the head width of extend_kernel
 constexpr int BQ = 128;        // folded query rows a block, 64 a warpgroup
 constexpr int BK = 128;        // keys a tile
 constexpr int NTHREADS = 256;  // two warpgroups
@@ -104,7 +115,7 @@ __host__ __device__ constexpr size_t smem_bytes() {
 }
 
 struct Shape {
-  int T, Hq, Hkv, B, S, G, window;
+  int T, Hq, Hkv, B, S, G, window, hd;  // hd: the rows' head_dim
   float scale, cap, inv_cap;
 };
 
@@ -164,6 +175,18 @@ __device__ __forceinline__ void bf16x4(unsigned biased, float mul,
   w[1] = __byte_perm(s8_to_f_bits(biased, 2, mul),
                      s8_to_f_bits(biased, 3, mul), 0x7632);
 }
+// eight bf16 pairs (cols 16c .. 16c + 15 of row r) → row r of a swizzled
+// bf16 head tile whose 64-column boxes are box_bytes apart
+__device__ __forceinline__ void store_words(uint8_t* tile, int r, int c,
+                                            const unsigned (&w)[8],
+                                            uint32_t box_bytes) {
+  uint8_t* box = tile + (c >> 2) * box_bytes;
+  const int ch = (c & 3) * 2;
+  *reinterpret_cast<uint4*>(box + hopper::swz128(r, ch)) =
+      make_uint4(w[0], w[1], w[2], w[3]);
+  *reinterpret_cast<uint4*>(box + hopper::swz128(r, ch + 1)) =
+      make_uint4(w[4], w[5], w[6], w[7]);
+}
 // 16 biased bytes (cols 16c .. 16c + 15 of row r) → row r of a swizzled
 // bf16 head tile
 __device__ __forceinline__ void store16(uint8_t* tile, int r, int c,
@@ -171,12 +194,7 @@ __device__ __forceinline__ void store16(uint8_t* tile, int r, int c,
   unsigned w[8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) bf16x4(b[i], mul, w + 2 * i);
-  uint8_t* box = tile + (c >> 2) * BOX;
-  const int ch = (c & 3) * 2;
-  *reinterpret_cast<uint4*>(box + hopper::swz128(r, ch)) =
-      make_uint4(w[0], w[1], w[2], w[3]);
-  *reinterpret_cast<uint4*>(box + hopper::swz128(r, ch + 1)) =
-      make_uint4(w[4], w[5], w[6], w[7]);
+  store_words(tile, r, c, w, BOX);
 }
 
 // a raw int8 / int4 K or V tile → its swizzled bf16 tile, and the
@@ -210,14 +228,38 @@ __device__ __forceinline__ void dequantize(const uint8_t* raw, uint8_t* dst,
   hopper::fence_proxy_async();  // the products read dst through TMA's proxy
 }
 
-// bf16 row of an m64n128 accumulator (the thread's columns) to dst
+// bf16 row of an m64n128 accumulator (the thread's columns below cols)
+// to dst
 __device__ __forceinline__ void store_row(bf16* dst, const float (&acc)[64],
-                                          int half, int lane, float mul) {
+                                          int half, int lane, float mul,
+                                          int cols) {
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int col = 8 * j + 2 * (lane % 4);
-    *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
-        acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
+    if (col < cols)
+      *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
+  }
+}
+
+// the block's 128 folded query rows [r0, r0 + 128) of head kvh's group
+// into `tiles` 64-column swizzled boxes of 128 rows, 16-byte loads; zeros
+// past the last row and from column hd on; all threads
+__device__ __forceinline__ void load_q(uint8_t* sQ, const bf16* q,
+                                       const Shape& sh, int lb, int kvh,
+                                       int r0, int tiles) {
+  const int rows_total = sh.G * sh.T, chunks = tiles * 8;
+  for (int c = threadIdx.x; c < BQ * chunks; c += NTHREADS) {
+    const int r = c / chunks, ch = c % chunks, rr = r0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (rr < rows_total && ch * 8 < sh.hd) {
+      const int t = rr / sh.G, g = rr % sh.G;
+      val = *reinterpret_cast<const uint4*>(
+          q + ((size_t(lb) * sh.T + t) * sh.Hq + kvh * sh.G + g) * sh.hd +
+          ch * 8);
+    }
+    *reinterpret_cast<uint4*>(sQ + (ch >> 3) * BOX +
+                              hopper::swz128(r, ch & 7)) = val;
   }
 }
 
@@ -319,17 +361,7 @@ extend_kernel(const __grid_constant__ CUtensorMap tm_k,
   if (QUANT)
     for (int i = tid; i < STAGES * 2 * BK; i += NTHREADS) sSc[i] = 0.f;
   // Q: the block's 128 folded rows, zeros past the last one
-  for (int c = tid; c < BQ * (HD / 8); c += NTHREADS) {
-    const int r = c >> 4, ch = c & 15, rr = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (rr < rows_total) {
-      const int t = rr / G, g = rr % G;
-      val = *reinterpret_cast<const uint4*>(
-          q + ((size_t(lb) * sh.T + t) * sh.Hq + kvh * G + g) * HD + ch * 8);
-    }
-    *reinterpret_cast<uint4*>(sQ + (ch >> 3) * BOX + hopper::swz128(r, ch & 7)) =
-        val;
-  }
+  load_q(sQ, q, sh, lb, kvh, r0, HD / 64);
   hopper::fence_proxy_async();
   __syncthreads();
   if (tid == 0)
@@ -476,24 +508,385 @@ extend_kernel(const __grid_constant__ CUtensorMap tm_k,
     const int rr = rr0 + 8 * h;
     if (rr < rows_total) {
       const int t = rr / G, g = rr % G;
-      store_row(out + ((size_t(lb) * sh.T + t) * sh.Hq + kvh * G + g) * HD,
-                o, h, lane, 1.f / fmaxf(l[h], 1e-30f));
+      store_row(out + ((size_t(lb) * sh.T + t) * sh.Hq + kvh * G + g) * sh.hd,
+                o, h, lane, 1.f / fmaxf(l[h], 1e-30f), sh.hd);
     }
   }
 }
 
 
-// ------------------------------------------------ other head widths (mma)
-// head_dim 64, 96 and 256: the same contract on warp-level mma.sync tiles
-// (hopper_common.cuh, MmaTile): a block of MmaTile<HD>::NT threads per (64
-// folded query rows, KV head, lane), the heaviest first; key tiles of 64
-// loaded by all threads with 16-byte reads into plain shared tiles, int8
-// and int4 bytes converted to bf16 on the way (exact), zeros at and past
-// kv_len, the tile's scales beside it; one tile at a time (two block
-// barriers a tile). A 64-token tile at a multiple of 64 is one nibble
-// plane of 64 consecutive packed rows, so int4 needs no pairing. The
-// scores, the scale, the key scale, the cap, the mask and the value scale
-// are applied in the same order as above.
+// ------------------------------------------------------------- head_dim 256
+// Kernel width 256 (head_dim 144-256; Gemma's heads): `extend_kernel`'s
+// contract and walk at a 256-column head, on the design of flash_attention
+// .cu's `flash_fwd_d256_kernel`. 256 threads as two warpgroups of 64
+// folded rows and no producer warpgroup (a producer warp caps every thread
+// at 168 registers); Q, 128 folded rows, loaded once with 16-byte loads
+// into four swizzled boxes of 64 columns (64 KB). Key tiles of 64 keys:
+// bf16 K and V arrive by TMA as four boxes each (64 KB a stage, boxes
+// wholly past hd zeroed once and never loaded) in a ring of 2 stages,
+// refilled by the last warp done with a stage; int8 tiles land raw (64
+// keys x 256 B) and int4 ones as 64 packed rows x 256 B, which hold two
+// tiles, keys base + [0, 64) in the low nibbles and base + 128 + [0, 64)
+// in the high ones, so no byte is read twice. All threads convert a raw
+// tile (int4: one nibble plane) into swizzled bf16 K and V tiles of four
+// boxes, V while Q K^T runs and the next K while P V runs, as at 128; the
+// scales ride in the ring beside the raw tiles. S = Q K^T is one wgmma
+// m64n64 group of 16 k16 steps (32 floats a thread); the scale, the key
+// scale, the cap, the mask and exp2 in registers as above; O, 64 x 256 a
+// warpgroup, is two m64n128 accumulators (128 floats a thread) fed by P
+// as bf16 register operands and V read MN-major. Shared memory: ~193 KB
+// (bf16) and ~196 KB (int8 / int4).
+
+constexpr int DW = 256;                // the head width of this kernel
+constexpr int DK = 64;                 // keys a tile
+constexpr int D_STAGES = 2;
+constexpr uint32_t BOX64 = 64 * 128;   // bytes of a [64][64] bf16 box
+constexpr uint32_t D_TILE = 4 * BOX64;  // a [64][256] bf16 K or V tile
+constexpr int D_SC = 2 * 128;          // scale floats a stage: K, then V
+
+// bytes of a raw K (or V) tile as TMA brings it
+template <typename KV>
+__host__ __device__ constexpr uint32_t d_raw_bytes() {
+  return sizeof(KV) == 2 ? D_TILE : 64u * 256u;
+}
+
+// 1024 bytes of alignment slack, Q, the ring (K then V a stage), [int8 /
+// int4: the dequantized K and V tiles, the scales a stage and the scales
+// of the tile in use (K then V, 64 each)], the full barriers, the counters
+template <typename KV>
+__host__ __device__ constexpr size_t d_smem_bytes() {
+  return 1024 + 4 * size_t(BOX) + D_STAGES * 2 * size_t(d_raw_bytes<KV>()) +
+         (sizeof(KV) == 1 ? 2 * D_TILE + (D_STAGES * D_SC + 2 * DK) * 4 : 0) +
+         8 * D_STAGES + 4 * D_STAGES;
+}
+
+// the four nibbles of plane h (0: low, 1: high) of a packed word → two
+// bf16 pairs, the lower-addressed value in the low half of each, with no
+// conversion instruction: the signed nibble n, its top bit flipped, is
+// n + 8, which under bf16 128's exponent (0x43) is 136 + n, from which a
+// bf16x2 subtraction takes 136 (exact: integers below 256). At int4 this
+// takes ~1.5 instructions a value against bf16x4's ~3.5.
+__device__ __forceinline__ void s4x4_bf16(unsigned w, int h, unsigned* out) {
+  const unsigned u = ((h ? w >> 4 : w) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const unsigned k136 = 0x43084308u;  // bf16 136.0 twice
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const unsigned m = __byte_perm(u, 0x43u, i ? 0x4342 : 0x4140);
+    const __nv_bfloat162 r =
+        __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                *reinterpret_cast<const __nv_bfloat162*>(&k136));
+    out[i] = *reinterpret_cast<const unsigned*>(&r);
+  }
+}
+
+// a raw int8 tile (PACK false) or the nibble plane h of a raw int4 tile →
+// its swizzled bf16 [64][256] tile, and the tile's 64 scales from the
+// stage into `scales`; all threads
+template <bool PACK>
+__device__ __forceinline__ void dequantize256(const uint8_t* raw, int h,
+                                              uint8_t* dst,
+                                              const float* stage_scales,
+                                              float* scales) {
+  for (int e = threadIdx.x; e < DK * 16; e += NTHREADS) {
+    const int r = e >> 4, c = e & 15;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * 256 + c * 16);
+    const unsigned in[4] = {v.x, v.y, v.z, v.w};
+    unsigned w[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (PACK)
+        s4x4_bf16(in[i], h, w + 2 * i);
+      else
+        bf16x4(in[i] ^ 0x80808080u, 1.f, w + 2 * i);
+    }
+    store_words(dst, r, c, w, BOX64);
+  }
+  if (threadIdx.x < DK) scales[threadIdx.x] = stage_scales[threadIdx.x];
+  hopper::fence_proxy_async();  // the products read dst through TMA's proxy
+}
+
+template <typename KV, bool PACK>
+__global__ void __launch_bounds__(NTHREADS, 1)
+extend_d256_kernel(const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const bf16* __restrict__ q,
+                   const float* __restrict__ k_scales,
+                   const float* __restrict__ v_scales, bf16* __restrict__ out,
+                   const int* __restrict__ kv_lens,
+                   const int* __restrict__ q_offsets,
+                   const int* __restrict__ row_ids,
+                   const int* __restrict__ layer_ptr, Shape sh) {
+  constexpr bool QUANT = sizeof(KV) == 1;
+  constexpr uint32_t RAW = d_raw_bytes<KV>();
+  static_assert(!PACK || QUANT, "packed rows are int8 bytes");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = hopper::align1024(smem_raw);
+  uint8_t* ring = sQ + 4 * BOX;  // stage st: K, then V
+  uint8_t* sKc = ring + D_STAGES * 2 * RAW;  // int8 / int4: dequantized
+  uint8_t* sVc = sKc + D_TILE;
+  float* sSc = reinterpret_cast<float*>(QUANT ? sVc + D_TILE : sKc);
+  float* sScT = sSc + D_STAGES * D_SC;  // the scales of the tile in use
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(sSc) +
+      (QUANT ? (D_STAGES * D_SC + 2 * DK) * 4 : 0));
+  int* done = reinterpret_cast<int*>(full + D_STAGES);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int kvh = blockIdx.y, lb = blockIdx.z;
+  const int G = sh.G, rows_total = G * sh.T, r0 = qt * BQ;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int kv_len = min(kv_lens[lb], sh.S);
+  const int q_off = q_offsets[lb];
+  const int stripe = (*layer_ptr * sh.B + row_ids[lb]) * sh.Hkv + kvh;
+  const float* Ks = QUANT ? k_scales + size_t(stripe) * sh.S : nullptr;
+  const float* Vs = QUANT ? v_scales + size_t(stripe) * sh.S : nullptr;
+  const int nbox = (sh.hd + 63) / 64;  // bf16 boxes that hold columns < hd
+
+  // key tiles: from the one that holds the block's first visible key to
+  // the causal limit of its last row. Raw tiles: bf16 / int8 one tile
+  // each; int4 the packed rows (rt / 2) * 128 + (rt % 2) * 64 + [0, 64),
+  // tiles 2 * rt (low nibbles) and 2 * rt + 1 (high), the pairing of
+  // extend_kernel's tile_base
+  const int last_rr = min(r0 + BQ, rows_total) - 1;
+  const int kend = min(kv_len, q_off + last_rr / G + 1);
+  const int kstart =
+      sh.window > 0 ? max(0, q_off + r0 / G - sh.window + 1) : 0;
+  const int rt0 = PACK ? first_tile(kstart, true) : kstart / DK;
+  const int nraw = max(0, (PACK ? tile_count(kend, true)
+                                : (kend + DK - 1) / DK) - rt0);
+  const int ntiles = PACK ? 2 * nraw : nraw;
+
+  // raw tile rt into ring stage st (K, V and their scales); one thread
+  auto fill = [&](int st, int rt) {
+    uint8_t* dst = ring + st * 2 * RAW;
+    if constexpr (!QUANT) {
+      const int kb = rt * DK;
+      hopper::mbar_expect_tx(&full[st], 2 * nbox * BOX64);
+      for (int i = 0; i < nbox; ++i) {
+        hopper::tma_load_3d(dst + i * BOX64, &tm_k, &full[st], 64 * i, kb,
+                            stripe);
+        hopper::tma_load_3d(dst + RAW + i * BOX64, &tm_v, &full[st], 64 * i,
+                            kb, stripe);
+      }
+    } else {
+      const int kb = PACK ? tile_base(rt, true) : rt * DK;
+      const int prow = PACK ? (rt >> 1) * 128 + (rt & 1) * 64 : kb;
+      const uint32_t sbytes = PACK ? 4 * 256 : 2 * 4 * min(DK, sh.S - kb);
+      hopper::mbar_expect_tx(&full[st], 2 * RAW + sbytes);
+      hopper::tma_load_3d(dst, &tm_k, &full[st], 0, prow, stripe);
+      hopper::tma_load_3d(dst + RAW, &tm_v, &full[st], 0, prow, stripe);
+      float* sc = sSc + st * D_SC;
+      if (PACK) {
+        hopper::bulk_copy_1d(sc, Ks + kb, 256, &full[st]);
+        hopper::bulk_copy_1d(sc + 64, Ks + kb + 128, 256, &full[st]);
+        hopper::bulk_copy_1d(sc + 128, Vs + kb, 256, &full[st]);
+        hopper::bulk_copy_1d(sc + 192, Vs + kb + 128, 256, &full[st]);
+      } else {
+        hopper::bulk_copy_1d(sc, Ks + kb, sbytes / 2, &full[st]);
+        hopper::bulk_copy_1d(sc + 128, Vs + kb, sbytes / 2, &full[st]);
+      }
+    }
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < D_STAGES; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      done[st] = 0;
+    }
+    hopper::fence_barrier_init();
+  }
+  if constexpr (QUANT) {  // scales past S stay finite (zeros)
+    for (int i = tid; i < D_STAGES * D_SC; i += NTHREADS) sSc[i] = 0.f;
+  } else {  // the ring's boxes past hd stay zeros
+    for (int e = tid; e < D_STAGES * 2 * (4 - nbox) * int(BOX64 / 16);
+         e += NTHREADS) {
+      const int per = (4 - nbox) * int(BOX64 / 16), t = e / per;
+      reinterpret_cast<uint4*>(ring + t * D_TILE + nbox * BOX64)[e % per] =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  load_q(sQ, q, sh, lb, kvh, r0, 4);
+  hopper::fence_proxy_async();
+  __syncthreads();
+  if (tid == 0)
+    for (int j = 0; j < min(D_STAGES, nraw); ++j) fill(j, rt0 + j);
+
+  const int cw = tid / 128;
+  const int r0w = r0 + 64 * cw;
+  const int rr0 = r0w + 16 * ((tid / 32) % 4) + lane / 4;  // rows rr0, +8
+  int qp[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qp[h] = q_off + (rr0 + 8 * h) / G;
+  // the warpgroup's first and last query positions
+  const int pmin = q_off + r0w / G;
+  const int pmax = q_off + max(min(r0w + 63, rows_total - 1), r0w) / G;
+  const bool plain_scores = !QUANT && !(sh.cap > 0.f);
+  const float c_plain = sh.scale * LOG2E;
+
+  float o0[64], o1[64], s[32];  // O's columns [0, 128) and [128, 256)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o0[i] = o1[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const uint64_t dq = hopper::desc_k(sQ + cw * 64 * 128);
+  uint32_t pa[4][4];
+
+  // int8 / int4: tile j's K is converted while tile j - 1's P V runs (tile
+  // 0's here), its V while its own Q K^T runs; two block barriers a tile
+  // order the conversions against the products
+  if constexpr (QUANT) {
+    if (ntiles > 0) {
+      hopper::mbar_wait(&full[0], 0);
+      dequantize256<PACK>(ring, 0, sKc, sSc, sScT);
+    }
+  }
+  for (int j = 0; j < ntiles; ++j) {
+    const int rj = PACK ? j >> 1 : j, h = PACK ? j & 1 : 0;
+    const int st = rj % D_STAGES;
+    const int kb = PACK ? tile_base(rt0 + rj, true) + 128 * h
+                        : (rt0 + rj) * DK;
+    uint8_t* raw = ring + st * 2 * RAW;
+    const uint8_t* tK = raw;
+    const uint8_t* tV = raw + RAW;
+    if constexpr (QUANT) {
+      // K(j) is converted and tile j - 1's products are done everywhere
+      __syncthreads();
+      tK = sKc;
+      tV = sVc;
+    } else {
+      hopper::mbar_wait(&full[st], (rj / D_STAGES) & 1);
+    }
+
+    // S = Q K^T, the warpgroup's 64 rows x 64 keys
+    const uint64_t dk = hopper::desc_k(tK);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DW / 16; ++kk)
+      hopper::mma_64x64_ss(s, hopper::desc_add(dq, k_step(kk)),
+                           hopper::desc_add(dk, (kk / 4) * BOX64 +
+                                                    (kk % 4) * 32),
+                           kk);
+    hopper::wgmma_commit();
+    if constexpr (QUANT)
+      dequantize256<PACK>(raw + RAW, h, sVc, sSc + st * D_SC + 128 + 64 * h,
+                          sScT + DK);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    // logits (log2 units): scale, key scale, cap; the mask where a key of
+    // the tile is past kv_len, above a row's position or below its window
+    const int kmax = kb + DK - 1;
+    const bool masked = kmax >= kv_len || kmax > pmin ||
+                        (sh.window > 0 && kb <= pmax - sh.window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = acc_col(i, lane);
+      float x;
+      if (plain_scores) {
+        x = s[i] * c_plain;
+      } else {
+        x = s[i] * sh.scale;
+        if (QUANT) x *= sScT[col];
+        if (sh.cap > 0.f) x = sh.cap * tanhf(x * sh.inv_cap);
+        x *= LOG2E;
+      }
+      if (masked) {
+        const int key = kb + col;
+        const int p = qp[acc_half(i)];
+        const bool vis = key < kv_len && key <= p &&
+                         (sh.window <= 0 || key > p - sh.window);
+        if (!vis) x = -INFINITY;
+      }
+      s[i] = x;
+    }
+    float mx[2] = {m[0], m[1]}, alpha[2];
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      mx[acc_half(i)] = fmaxf(mx[acc_half(i)], s[i]);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+      alpha[hf] = exp2f(m[hf] - mx[hf]);
+      m[hf] = mx[hf];
+      l[hf] *= alpha[hf];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = exp2f(s[i] - m[acc_half(i)]);
+      l[acc_half(i)] += s[i];
+    }
+    if constexpr (QUANT) {
+      // V(j) is converted everywhere; the raw stage is free once its last
+      // tile's V is (int4: the high plane)
+      __syncthreads();
+      if (tid == 0 && (!PACK || h == 1) && rj + D_STAGES < nraw)
+        fill(st, rt0 + rj + D_STAGES);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= sScT[DK + acc_col(i, lane)];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      o0[i] *= alpha[acc_half(i)];
+      o1[i] *= alpha[acc_half(i)];
+    }
+
+    // O += P V, each half of the head from two of V's boxes
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(s, kk, pa[kk]);
+    const uint64_t dv0 = hopper::desc_mn(tV, BOX64);
+    const uint64_t dv1 = hopper::desc_mn(tV + 2 * BOX64, BOX64);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      hopper::mma_64x128_rs(o0, pa[kk], hopper::desc_add(dv0, kk * 2048));
+      hopper::mma_64x128_rs(o1, pa[kk], hopper::desc_add(dv1, kk * 2048));
+    }
+    hopper::wgmma_commit();
+    if constexpr (QUANT) {
+      if (j + 1 < ntiles) {  // every warpgroup is past its Q K^T of tile j
+        const int r1 = PACK ? (j + 1) >> 1 : j + 1, h1 = PACK ? (j + 1) & 1 : 0;
+        const int st1 = r1 % D_STAGES;
+        if (r1 != rj) hopper::mbar_wait(&full[st1], (r1 / D_STAGES) & 1);
+        dequantize256<PACK>(ring + st1 * 2 * RAW, h1, sKc,
+                            sSc + st1 * D_SC + 64 * h1, sScT);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o0);
+    hopper::fence_regs(o1);
+    if constexpr (!QUANT) {
+      if (release(done, st) && lane == 0 && rj + D_STAGES < nraw)
+        fill(st, rt0 + rj + D_STAGES);
+    }
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    const int rr = rr0 + 8 * hf;
+    if (rr < rows_total) {
+      const int t = rr / G, g = rr % G;
+      bf16* dst = out + ((size_t(lb) * sh.T + t) * sh.Hq + kvh * G + g) * sh.hd;
+      const float mul = 1.f / fmaxf(l[hf], 1e-30f);
+      store_row(dst, o0, hf, lane, mul, sh.hd);
+      store_row(dst + 128, o1, hf, lane, mul, sh.hd - 128);
+    }
+  }
+}
+
+// --------------------------------------- head widths up to 96 (mma.sync)
+// Kernel widths 64 and 96 (head_dim 16-64 and 80-96): the same contract
+// on warp-level mma.sync tiles (hopper_common.cuh, MmaTile): a block of
+// MmaTile<HD>::NT threads per (64 folded query rows, KV head, lane), the
+// heaviest first; key tiles of 64 loaded by all threads with 16-byte reads
+// into plain shared tiles, int8 and int4 bytes converted to bf16 on the
+// way (exact), zeros at and past kv_len and from column hd on, the tile's
+// scales beside it; one tile at a time (two block barriers a tile). A
+// 64-token tile at a multiple of 64 is one nibble plane of 64 consecutive
+// packed rows, so int4 needs no pairing. The scores, the scale, the key
+// scale, the cap, the mask and the value scale are applied in the same
+// order as above.
 
 constexpr int MBQ = 64, MBK = 64;  // folded query rows a block, keys a tile
 
@@ -536,6 +929,7 @@ extend_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
                   const int* __restrict__ row_ids,
                   const int* __restrict__ layer_ptr, Shape sh) {
   using TL = hopper::MmaTile<HD>;
+  static_assert(TL::NSL == 1, "one warp a row group: widths up to 128");
   constexpr int P = TL::P, NB = MBK / 8, ND = TL::DS / 8;
   constexpr bool QUANT = sizeof(KV) == 1;
   extern __shared__ __align__(16) uint8_t smem_mma[];
@@ -549,12 +943,12 @@ extend_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
   const int G = sh.G, rows_total = G * sh.T;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * MBQ;  // heaviest first
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rg = warp % 4, sl = warp / 4;
   const int kv_len = min(kv_lens[lb], sh.S);
   const int q_off = q_offsets[lb];
   const size_t stripe =
       (size_t(*layer_ptr) * sh.B + row_ids[lb]) * sh.Hkv + kvh;
-  const size_t row_elems = size_t(PACK ? sh.S / 2 : sh.S) * HD;
+  const int hd = sh.hd;
+  const size_t row_elems = size_t(PACK ? sh.S / 2 : sh.S) * hd;
   const KV* Kp = k_rows + stripe * row_elems;
   const KV* Vp = v_rows + stripe * row_elems;
   const float* Ks = QUANT ? k_scales + stripe * sh.S : nullptr;
@@ -568,16 +962,16 @@ extend_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
   for (int e = tid; e < MBQ * (HD / 8); e += TL::NT) {
     const int r = e / (HD / 8), c = e % (HD / 8), rr = r0 + r;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (rr < rows_total)
+    if (rr < rows_total && c * 8 < hd)
       v = *reinterpret_cast<const uint4*>(
-          q + ((size_t(lb) * sh.T + rr / G) * sh.Hq + kvh * G + rr % G) * HD +
+          q + ((size_t(lb) * sh.T + rr / G) * sh.Hq + kvh * G + rr % G) * hd +
           c * 8);
     *reinterpret_cast<uint4*>(sQ + r * P + c * 8) = v;
   }
   int qp[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    qp[h] = q_off + (r0 + rg * 16 + lane / 4 + 8 * h) / G;
+    qp[h] = q_off + (r0 + warp * 16 + lane / 4 + 8 * h) / G;
 
   float o[ND][4];
 #pragma unroll
@@ -589,8 +983,8 @@ extend_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
   for (int kb = kstart / MBK * MBK; kb < kend; kb += MBK) {
     __syncthreads();  // the last tile's products are done everywhere
     if constexpr (!QUANT) {
-      hopper::load_rows<HD>(sK, Kp, HD, kb, MBK, kv_len, tid, TL::NT);
-      hopper::load_rows<HD>(sV, Vp, HD, kb, MBK, kv_len, tid, TL::NT);
+      hopper::load_rows<HD>(sK, Kp, hd, kb, MBK, kv_len, tid, TL::NT, hd);
+      hopper::load_rows<HD>(sV, Vp, hd, kb, MBK, kv_len, tid, TL::NT, hd);
     } else {
       const int off = kb % 256;
       const int plane = PACK ? int(off >= 128) : -1;
@@ -600,9 +994,9 @@ extend_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
       for (int e = tid; e < MBK * (HD / 16); e += TL::NT) {
         const int r = e / (HD / 16), c = e % (HD / 16);
         uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-        if (kb + r < kv_len) {
-          kx = *reinterpret_cast<const uint4*>(kr + (prow0 + r) * HD + c * 16);
-          vx = *reinterpret_cast<const uint4*>(vr + (prow0 + r) * HD + c * 16);
+        if (kb + r < kv_len && c * 16 < hd) {
+          kx = *reinterpret_cast<const uint4*>(kr + (prow0 + r) * hd + c * 16);
+          vx = *reinterpret_cast<const uint4*>(vr + (prow0 + r) * hd + c * 16);
         }
         expand16(kx, plane, sK + r * P + c * 16);
         expand16(vx, plane, sV + r * P + c * 16);
@@ -620,7 +1014,7 @@ extend_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-    hopper::mma_xyt<HD, NB>(s, sQ, rg * 16, sK, lane);
+    hopper::mma_xyt<HD, NB>(s, sQ, warp * 16, sK, lane);
 #pragma unroll
     for (int n = 0; n < NB; ++n)
 #pragma unroll
@@ -642,19 +1036,19 @@ extend_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
         for (int i = 0; i < 4; ++i)
           s[n][i] *= sVs[8 * n + 2 * (lane % 4) + (i & 1)];
     }
-    hopper::mma_wz<HD, MBK / 16, ND>(o, s, sV, sl * TL::DS, lane);
+    hopper::mma_wz<HD, MBK / 16, ND>(o, s, sV, 0, lane);
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int rr = r0 + rg * 16 + lane / 4 + 8 * h;
+    const int rr = r0 + warp * 16 + lane / 4 + 8 * h;
     if (rr < rows_total)
       hopper::store_c_row<ND>(
           out + ((size_t(lb) * sh.T + rr / G) * sh.Hq + kvh * G + rr % G) *
-                    HD + sl * TL::DS,
-          o, h, lane, 1.f / fmaxf(l[h], 1e-30f));
+                    hd,
+          o, h, lane, 1.f / fmaxf(l[h], 1e-30f), hd);
   }
 }
 
@@ -692,53 +1086,68 @@ int launch(const void* q, const void* k_rows, const void* v_rows,
            int S, int head_dim, float scale, int window, float cap,
            float inv_cap, void* stream) {
   constexpr bool QUANT = sizeof(KV) == 1;
-  if ((head_dim != 64 && head_dim != 96 && head_dim != HD &&
-       head_dim != 256) ||
+  // head_dim % 16: an int8 row of head_dim bytes is a TMA stride and a run
+  // of 16-byte loads
+  if (head_dim < 16 || head_dim > 256 || head_dim % 16 != 0 ||
       Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
       Bk <= 0 || Bk > 65535 || T <= 0 || L <= 0 || B <= 0 || S <= 0 ||
       (PACK && S % 256 != 0) || (QUANT && S % 4 != 0) || cap < 0.f)
     return int(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
-  if (head_dim != HD) {
-    const Shape sh{T, Hq, Hkv, B, S, G, window, scale, cap, inv_cap};
-#define AURORA_EXTEND_MMA(W)                                               \
-  if (head_dim == W)                                                       \
-    return launch_mma<W, KV, PACK>(q, k_rows, v_rows, k_scales, v_scales,  \
-                                   out, kv_lens, q_offsets, row_ids, layer, \
-                                   sh, Bk, stream);
-    AURORA_EXTEND_MMA(64)
-    AURORA_EXTEND_MMA(96)
-    AURORA_EXTEND_MMA(256)
-#undef AURORA_EXTEND_MMA
-  }
+  const Shape sh{T,      Hq,    Hkv, B,   S,      G,
+                 window, head_dim, scale, cap, inv_cap};
+  if (head_dim <= 64)
+    return launch_mma<64, KV, PACK>(q, k_rows, v_rows, k_scales, v_scales,
+                                    out, kv_lens, q_offsets, row_ids, layer,
+                                    sh, Bk, stream);
+  if (head_dim <= 96)
+    return launch_mma<96, KV, PACK>(q, k_rows, v_rows, k_scales, v_scales,
+                                    out, kv_lens, q_offsets, row_ids, layer,
+                                    sh, Bk, stream);
+  // the rows as the 3-D map (head_dim, rows, L * B * Hkv): bf16 boxes of 64
+  // columns x `keys` rows (128-byte swizzle), int8 / int4 boxes of the
+  // kernel's width in bytes x `keys` rows; columns past head_dim read as
+  // zeros
+  const bool wide = head_dim > HD;
+  const int keys = wide ? DK : (PACK ? 64 : BK);
+  const int width = wide ? DW : HD;
   const long long stripes = (long long)L * B * Hkv;
+  const int rows = PACK ? S / 2 : S;
   CUtensorMap mk, mv;
   const bool ok =
-      QUANT ? hopper::map_stripes(&mk, k_rows, 1, HD, PACK ? S / 2 : S,
-                                  stripes, HD, PACK ? 64 : BK, false) &&
-                  hopper::map_stripes(&mv, v_rows, 1, HD, PACK ? S / 2 : S,
-                                      stripes, HD, PACK ? 64 : BK, false)
-            : hopper::map_stripes(&mk, k_rows, 2, 2 * HD, S, stripes, 64, BK,
-                                  true) &&
-                  hopper::map_stripes(&mv, v_rows, 2, 2 * HD, S, stripes, 64,
-                                      BK, true);
+      QUANT ? hopper::map_stripes(&mk, k_rows, 1, head_dim, rows, stripes,
+                                  width, keys, false) &&
+                  hopper::map_stripes(&mv, v_rows, 1, head_dim, rows,
+                                      stripes, width, keys, false)
+            : hopper::map_stripes(&mk, k_rows, 2, 2 * head_dim, S, stripes,
+                                  64, keys, true) &&
+                  hopper::map_stripes(&mv, v_rows, 2, 2 * head_dim, S,
+                                      stripes, 64, keys, true);
   if (!ok) return int(cudaErrorInvalidValue);
-  constexpr size_t SMEM = smem_bytes<KV, PACK>();
+  const void* fn = wide ? reinterpret_cast<const void*>(
+                              extend_d256_kernel<KV, PACK>)
+                        : reinterpret_cast<const void*>(
+                              extend_kernel<KV, PACK>);
+  const size_t smem = wide ? d_smem_bytes<KV>() : smem_bytes<KV, PACK>();
   cudaError_t err = cudaFuncSetAttribute(
-      extend_kernel<KV, PACK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(SMEM));
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const Shape sh{T, Hq, Hkv, B, S, G, window, scale, cap, inv_cap};
   dim3 grid((G * T + BQ - 1) / BQ, Hkv, Bk);
-  extend_kernel<KV, PACK>
-      <<<grid, NTHREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-          mk, mv, static_cast<const bf16*>(q),
-          static_cast<const float*>(k_scales),
-          static_cast<const float*>(v_scales), static_cast<bf16*>(out),
-          static_cast<const int*>(kv_lens),
-          static_cast<const int*>(q_offsets),
-          static_cast<const int*>(row_ids), static_cast<const int*>(layer),
-          sh);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  bf16* o = static_cast<bf16*>(out);
+  const int* lens = static_cast<const int*>(kv_lens);
+  const int* offs = static_cast<const int*>(q_offsets);
+  const int* rids = static_cast<const int*>(row_ids);
+  const int* lay = static_cast<const int*>(layer);
+  if (wide)
+    extend_d256_kernel<KV, PACK><<<grid, NTHREADS, smem, st>>>(
+        mk, mv, qp, ks, vs, o, lens, offs, rids, lay, sh);
+  else
+    extend_kernel<KV, PACK><<<grid, NTHREADS, smem, st>>>(
+        mk, mv, qp, ks, vs, o, lens, offs, rids, lay, sh);
   return int(cudaGetLastError());
 }
 
@@ -787,37 +1196,40 @@ extern "C" int aurora_ragged_extend_int4(
                               inv_cap, stream);
 }
 
-// the kernel of a mode ("bf16", "int8", "int4"; head_dim 128, or with
-// "_hd64", "_hd96" or "_hd256" the mma.sync kernel of that width) and its
-// dynamic shared bytes, for aurora_kernel_attrs
+// the kernel of a mode ("bf16", "int8", "int4"; kernel width 128, or with
+// "_hd64" or "_hd96" the mma.sync kernel of that width, with "_hd256"
+// extend_d256_kernel) and its dynamic shared bytes, for
+// aurora_kernel_attrs
 extern "C" int aurora_ragged_extend_kernel(const char* mode, const void** fn,
                                            int* smem) {
-#define AURORA_EXTEND_MMA_FN(M, W, KV, PACK)                              \
-  if (strcmp(mode, M "_hd" #W) == 0) {                                    \
-    *fn = reinterpret_cast<const void*>(extend_mma_kernel<W, KV, PACK>);  \
-    *smem = int(mma_smem_bytes<W>());                                     \
-    return 0;                                                             \
+#define AURORA_EXTEND_FN(M, KERNEL, SMEM)        \
+  if (strcmp(mode, M) == 0) {                    \
+    *fn = reinterpret_cast<const void*>(KERNEL); \
+    *smem = int(SMEM);                           \
+    return 0;                                    \
   }
-#define AURORA_EXTEND_MMA_MODES(W)                                        \
-  AURORA_EXTEND_MMA_FN("bf16", W, bf16, false)                            \
-  AURORA_EXTEND_MMA_FN("int8", W, int8_t, false)                          \
-  AURORA_EXTEND_MMA_FN("int4", W, int8_t, true)
+#define AURORA_EXTEND_MMA_MODES(W)                                      \
+  AURORA_EXTEND_FN("bf16_hd" #W, (extend_mma_kernel<W, bf16, false>),    \
+                   mma_smem_bytes<W>())                                  \
+  AURORA_EXTEND_FN("int8_hd" #W, (extend_mma_kernel<W, int8_t, false>),  \
+                   mma_smem_bytes<W>())                                  \
+  AURORA_EXTEND_FN("int4_hd" #W, (extend_mma_kernel<W, int8_t, true>),   \
+                   mma_smem_bytes<W>())
   AURORA_EXTEND_MMA_MODES(64)
   AURORA_EXTEND_MMA_MODES(96)
-  AURORA_EXTEND_MMA_MODES(256)
+  AURORA_EXTEND_FN("bf16_hd256", (extend_d256_kernel<bf16, false>),
+                   d_smem_bytes<bf16>())
+  AURORA_EXTEND_FN("int8_hd256", (extend_d256_kernel<int8_t, false>),
+                   d_smem_bytes<int8_t>())
+  AURORA_EXTEND_FN("int4_hd256", (extend_d256_kernel<int8_t, true>),
+                   d_smem_bytes<int8_t>())
+  AURORA_EXTEND_FN("bf16", (extend_kernel<bf16, false>),
+                   (smem_bytes<bf16, false>()))
+  AURORA_EXTEND_FN("int8", (extend_kernel<int8_t, false>),
+                   (smem_bytes<int8_t, false>()))
+  AURORA_EXTEND_FN("int4", (extend_kernel<int8_t, true>),
+                   (smem_bytes<int8_t, true>()))
 #undef AURORA_EXTEND_MMA_MODES
-#undef AURORA_EXTEND_MMA_FN
-  if (strcmp(mode, "bf16") == 0) {
-    *fn = reinterpret_cast<const void*>(extend_kernel<bf16, false>);
-    *smem = int(smem_bytes<bf16, false>());
-  } else if (strcmp(mode, "int8") == 0) {
-    *fn = reinterpret_cast<const void*>(extend_kernel<int8_t, false>);
-    *smem = int(smem_bytes<int8_t, false>());
-  } else if (strcmp(mode, "int4") == 0) {
-    *fn = reinterpret_cast<const void*>(extend_kernel<int8_t, true>);
-    *smem = int(smem_bytes<int8_t, true>());
-  } else {
-    return int(cudaErrorInvalidValue);
-  }
-  return 0;
+#undef AURORA_EXTEND_FN
+  return int(cudaErrorInvalidValue);
 }

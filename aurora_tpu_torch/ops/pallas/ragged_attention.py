@@ -370,11 +370,23 @@ def _int_args(name, dev, n, **idx):
     return out
 
 
-# head widths the CUDA kernels take: 128 on the wgmma tiles, the others on
-# mma.sync tiles (extend) or wider lanes (decode)
-KERNEL_HEAD_DIMS = (64, 96, 128, 256)
+# the extend kernel's compile-time head widths: 64 and 96 on mma.sync
+# tiles, 128 and 256 on wgmma (csrc/ragged_extend.cu)
+KERNEL_WIDTHS = (64, 96, 128, 256)
 # query heads a KV head the decode kernel takes (GPT-BigCode's MQA: 48)
 DECODE_MAX_GROUP = 64
+
+
+def kernel_head_width(hd: int) -> int:
+    """The compile-time width of the extend kernel that runs head_dim hd:
+    the narrowest of KERNEL_WIDTHS that holds it, its columns past hd read
+    as zeros and never stored (exact). Both kernels take every multiple of
+    16 from 16 to 256 (an int8 row of hd bytes is a TMA stride and a run of
+    16-byte loads); any other hd raises ValueError."""
+    if not (16 <= hd <= 256 and hd % 16 == 0):
+        raise ValueError(f"the CUDA kernels take a head_dim that is a "
+                         f"multiple of 16 from 16 to 256, got {hd}")
+    return next(w for w in KERNEL_WIDTHS if w >= hd)
 
 
 def _validate(name, q, k_rows, v_rows):
@@ -384,9 +396,13 @@ def _validate(name, q, k_rows, v_rows):
                          f"{tuple(v_rows.shape)}")
     Hq, hd = q.shape[2], q.shape[3]
     Hkv = k_rows.shape[2]
-    if hd not in KERNEL_HEAD_DIMS or k_rows.shape[4] != hd:
-        raise ValueError(f"{name}: the CUDA kernels take head_dim "
-                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    try:
+        kernel_head_width(hd)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if k_rows.shape[4] != hd:
+        raise ValueError(f"{name}: q has head_dim {hd}, the rows "
+                         f"{k_rows.shape[4]}")
     if Hq % Hkv:
         raise ValueError(f"{name}: Hq={Hq} is not a multiple of Hkv={Hkv}")
 

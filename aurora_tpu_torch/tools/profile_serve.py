@@ -9,7 +9,9 @@ K-step decode block of the port's DeviceRunner, on one GPU.
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8-flat   # W4 flat layout
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8-a8     # W4, A8 prefill
     python3 -m aurora_tpu_torch.tools.profile_serve --mistral  # sliding window
+    python3 -m aurora_tpu_torch.tools.profile_serve --gemma2   # Gemma-2-9B
     python3 -m aurora_tpu_torch.tools.profile_serve --tiny --device cpu  # logic check
+    python3 aurora_tpu_torch/tools/profile_serve.py --tree T --gemma2  # T's package
 
 Builds Vicuna-7B-v1.5-16k (the AuroraCap-7B decoder) at full width with
 random bf16 weights from a seed and the engine configuration of
@@ -21,7 +23,12 @@ W4 or W8 weights with an int8 LM head, and int8 or packed int4 KV;
 extends through the A8 prefill, `EngineConfig(w4_prefill="a8")`; --mistral
 builds Mistral-7B instead, GQA 32/8 with its 4096-token sliding window,
 bf16 weights and KV, a prompt of 6000 tokens in a 6144 bucket and rows
-of 7168, so that both attention kernels run windowed), fills
+of 7168, so that both attention kernels run windowed; --gemma2 builds
+Gemma-2-9B at full width and depth (`Gemma2Config.gemma2_9b`, head_dim
+256, the window on even layers, both caps) through
+`gemma2_serving_params`, bf16 weights and KV, at chip_smoke's
+`[serve-gemma2-*]` engine settings: a prompt of 6000 tokens in a 6144
+bucket, rows of prompt + 256, kv_chunk 1024), fills
 the rows with one extend wave of text embeddings (the ViT is not run
 here; chip_smoke.py times it), then reads:
 
@@ -51,7 +58,11 @@ quantizer that W4A8, the fused MLP and the W8A8 path launch, and the
 rest (W8A8's kernel is in the rest and in the per-kernel table); the
 cuBLAS matmuls within the rest (the bf16 weight stream) are also summed
 on their own, and the device events (kernels, copies, sets) a step are
-counted. The trace and a per-kernel table go to --out.
+counted. The extend wave's device ms are also split three ways
+(`extend_split_ms`): the ragged attention kernels, the dense cuBLAS /
+CUTLASS matmuls, and the rest. The trace and a per-kernel table go to
+--out. With --tree (run this file as a script) the package of another
+source tree is profiled, so that two trees compare in one call.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ import dataclasses
 import json
 import os
 import subprocess
+import sys
 import time
 from collections import defaultdict
 
@@ -74,7 +86,8 @@ _QUANT_MODES = {"w4kv8": ("int4", "int8", {}), "w8kv8": ("int8", "int8", {}),
                 "w4kv8-flat": ("int4", "int8", {"w4_tiled": False}),
                 "w4kv8-a8": ("int4", "int8", {"w4_prefill": "a8"})}
 # decode kernel families: name → substrings of the device kernels' names
-_FAMILIES = {"attention": ("decode_kernel", "extend_kernel"),
+_FAMILIES = {"attention": ("decode_kernel", "extend_kernel",
+                           "extend_mma_kernel", "extend_d256_kernel"),
              "w4a8": ("w4a8_kernel",),
              "fused_mlp": ("mlp_tile_kernel", "mlp_reduce"),
              "quantizer": ("quantize_rows",)}
@@ -169,9 +182,23 @@ def main(argv=None) -> int:
     ap.add_argument("--mistral", action="store_true",
                     help="Mistral-7B with its sliding window, bf16 weights "
                          "and KV")
+    ap.add_argument("--gemma2", action="store_true",
+                    help="Gemma-2-9B (window on even layers, caps), bf16 "
+                         "weights and KV")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="build/profile_serve")
+    ap.add_argument("--tree", default=None,
+                    help="root of a source tree whose aurora_tpu_torch is "
+                         "profiled (run this file as a script)")
     args = ap.parse_args(argv)
+    if args.tree:
+        tree = os.path.abspath(args.tree)
+        sys.path.insert(0, tree)
+        from aurora_tpu_torch.models import llama
+        if not llama.__file__.startswith(tree + os.sep):
+            print(f"profile_serve: imported {llama.__file__}, not from "
+                  f"{tree}", file=sys.stderr)
+            return 1
 
     import torch
     from aurora_tpu_torch.models.init import build
@@ -188,27 +215,40 @@ def main(argv=None) -> int:
     if on_gpu and not torch.cuda.is_available():
         print("profile_serve: CUDA is not available")
         return 1
-    if args.tiny:       # --mistral: a window shorter than the prompt
-        cfg = LlamaConfig.tiny()
-        if args.mistral:
-            cfg = dataclasses.replace(cfg, sliding_window=8)
-    elif args.mistral:
-        cfg = LlamaConfig.mistral_7b()
-    else:
-        cfg = LlamaConfig.vicuna_7b_v15_16k()
-    P = 20 if args.tiny else args.prompt or (6000 if args.mistral else 1406)
-    bucket = 32 if args.tiny else 6144 if args.mistral else 1536
-    kv_chunk = 1024 if args.mistral and not args.tiny else 256
+    modes = [m for m in _QUANT_MODES if getattr(args, m.replace("-", "_"))]
+    if len(modes) + args.mistral + args.gemma2 > 1:
+        ap.error("at most one of --mistral, --gemma2, --"
+                 + ", --".join(_QUANT_MODES))
+    long_prompt = args.mistral or args.gemma2
     dtype = torch.bfloat16 if on_gpu else torch.float32
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = build(LlamaModel, cfg, device=dev, dtype=dtype, generator=gen)
+    if args.gemma2:
+        from aurora_tpu_torch.models.gemma2 import (Gemma2Config,
+                                                    gemma2_serving_params,
+                                                    init_gemma2)
+        gcfg = Gemma2Config.tiny() if args.tiny else Gemma2Config.gemma2_9b()
+        model = gemma2_serving_params(init_gemma2(gcfg, gen, device=dev,
+                                                  dtype=dtype),
+                                      free_source=True)
+        cfg = model.cfg
+    else:
+        if args.tiny:       # --mistral: a window shorter than the prompt
+            cfg = LlamaConfig.tiny()
+            if args.mistral:
+                cfg = dataclasses.replace(cfg, sliding_window=8)
+        elif args.mistral:
+            cfg = LlamaConfig.mistral_7b()
+        else:
+            cfg = LlamaConfig.vicuna_7b_v15_16k()
+        model = build(LlamaModel, cfg, device=dev, dtype=dtype,
+                      generator=gen)
+    P = 20 if args.tiny else args.prompt or (6000 if long_prompt else 1406)
+    bucket = 32 if args.tiny else 6144 if long_prompt else 1536
+    kv_chunk = 1024 if long_prompt and not args.tiny else 256
     K, B = args.steps, args.batch
     if K * (args.reps + 3) > 256:
         ap.error("steps × (reps + 3) decode positions must fit the 256 "
                  "generated tokens of a row")
-    modes = [m for m in _QUANT_MODES if getattr(args, m.replace("-", "_"))]
-    if len(modes) > 1 or (modes and args.mistral):
-        ap.error("at most one of --mistral, --" + ", --".join(_QUANT_MODES))
     wq, kq, layout = _QUANT_MODES[modes[0]] if modes else (None, None, {})
     quant = {}
     if modes:
@@ -305,7 +345,8 @@ def main(argv=None) -> int:
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_gpu
                                      else [])
     res = {"card": card, "model": "mistral-7b" if args.mistral else
-           "vicuna-7b-v1.5-16k", "window": cfg.sliding_window,
+           "gemma-2-9b" if args.gemma2 else "vicuna-7b-v1.5-16k",
+           "window": cfg.sliding_window,
            "K": K, "batch": B, "prompt": P,
            "weights": wq or str(dtype).split(".")[-1],
            "mode": modes[0] if modes else None,
@@ -330,6 +371,11 @@ def main(argv=None) -> int:
         res[f"{name}_ms_per_{unit}_dense_matmul"] = matmul_ms(evs, per)
         if name == "decode":
             res["decode_device_events_per_step"] = len(evs) / per
+        else:
+            attn = res["extend_ms_per_wave_by_family"]["attention"]
+            mm = res["extend_ms_per_wave_dense_matmul"]
+            res["extend_split_ms"] = {"attention": attn, "cublas": mm,
+                                      "rest": dev_ms - attn - mm}
         print(f"{name}: {len(evs)} device events, device {dev_ms:.3f} ms, "
               f"union {uni_ms:.3f} ms, profiled wall {wall:.3f} ms",
               flush=True)

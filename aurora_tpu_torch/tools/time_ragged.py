@@ -9,13 +9,21 @@ The cases and the timing are chip_smoke.py's own (`attention_case`,
 loaded from this checkout whatever the tree): the serving shapes (rows of
 1792, extend of 1536, 32 and 8 KV heads) in every KV mode, from
 chip_smoke's generator, then Mistral-7B's (rows of 7168, Hkv 8, window
-4096). Each case holds the tree's kernels against the tree's plain twins
-at chip_smoke's bounds and prints chip_smoke's `[kernels]` line: `*_ms`
-are CUDA-graph replays (device time), `*_eager_ms` one call between two
-CUDA events (the host's issue time included). The Mistral cases draw
-their inputs from a generator of their own (same shapes and lengths as
-chip_smoke's, other values).
+4096), then Gemma-2-9B's (head_dim 256, Hq 16, Hkv 8): chip_smoke's
+`[kernels]` family shape and its served extend (the [serve-gemma2-*]
+runs' four prompts in one 6144 wave, rows of 6144) with the even layers'
+window 4096 and cap 50 and with neither, both from chip_smoke's own
+generators. `--cases` picks some of the three. Each case holds the tree's
+kernels against the tree's plain twins at chip_smoke's bounds and prints
+chip_smoke's `[kernels]` line: `*_ms` are CUDA-graph replays (device
+time), `*_eager_ms` one call between two CUDA events (the host's issue
+time included). The Mistral cases draw their inputs from a generator of
+their own (same shapes and lengths as chip_smoke's, other values).
+
+    python3 aurora_tpu_torch/tools/time_ragged.py --cases gemma2
 """
+
+CASES = ("serving", "mistral", "gemma2")
 
 import argparse
 import importlib.util
@@ -32,7 +40,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=REPO,
                     help="root of the source tree whose aurora_tpu_torch "
                          "is timed (default: this checkout)")
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help="comma-separated subset of " + ", ".join(CASES))
     args = ap.parse_args(argv)
+    cases = args.cases.split(",")
+    if not set(cases) <= set(CASES):
+        ap.error(f"--cases takes {', '.join(CASES)}, got {args.cases}")
     import torch
     if not torch.cuda.is_available():
         print("time_ragged: CUDA is not available", file=sys.stderr)
@@ -57,14 +70,27 @@ def main(argv=None) -> int:
     smoke.phase("tree", path=tree, commit=head.stdout.strip() or None,
                 card=repr(smoke.card_line()))
     cuda_build.load_library()
-    g = torch.Generator(device=dev).manual_seed(smoke.SEED + 1)
-    for mode in smoke.KV_MODES:
-        for hkv in (32, 8):
-            smoke.attention_case(torch, ra, dev, g, hkv, mode)
-    gw = torch.Generator(device=dev).manual_seed(smoke.SEED + 6)
-    for mode in smoke.KV_MODES:
-        smoke.attention_case(torch, ra, dev, gw, 8, mode,
-                             **smoke.MISTRAL_CASE)
+    if "serving" in cases:
+        g = torch.Generator(device=dev).manual_seed(smoke.SEED + 1)
+        for mode in smoke.KV_MODES:
+            for hkv in (32, 8):
+                smoke.attention_case(torch, ra, dev, g, hkv, mode)
+    if "mistral" in cases:
+        gw = torch.Generator(device=dev).manual_seed(smoke.SEED + 6)
+        for mode in smoke.KV_MODES:
+            smoke.attention_case(torch, ra, dev, gw, 8, mode,
+                                 **smoke.MISTRAL_CASE)
+    if "gemma2" in cases:
+        fam, hd, Hq, hkv = smoke.FAMILY_SHAPES[0]     # gemma2-9b
+        gf = torch.Generator(device=dev).manual_seed(smoke.SEED + 11)
+        for mode in smoke.KV_MODES:
+            smoke.attention_case(torch, ra, dev, gf, hkv, mode,
+                                 L=smoke.FAMILY_L, hd=hd, Hq=Hq, family=fam)
+        gs = torch.Generator(device=dev).manual_seed(smoke.SEED + 14)
+        for mode in smoke.KV_MODES:
+            for opts in smoke.GEMMA2_SERVED_OPTIONS:
+                smoke.attention_case(torch, ra, dev, gs, 8, mode,
+                                     **smoke.gemma2_served_case(), **opts)
     return 0
 
 

@@ -274,7 +274,11 @@ Phases, one line each; any failure raises and exits non-zero:
 Then the dense zoo: `[kernels]` also holds both attention
 kernels at the zoo's published (head_dim, G) in every KV mode
 (FAMILY_SHAPES: Gemma-2-9B 256/2, Phi-3-mini 96/1, MiniCPM-2B 64/1,
-StarCoder2-7B 128/9, GLM-4-9B 128/16, StarCoder 128/48) and flash
+StarCoder2-7B 128/9, GLM-4-9B 128/16, StarCoder 128/48), the extend
+kernel at Gemma-2-9B's served extend (the `[serve-gemma2-*]` prompts in
+one 6144 wave, rows of 6144, hd 256: `extend_d256_kernel`) with the even
+layers' window 4096 and cap 50 and with neither, timed beside SDPA, and
+flash
 forward and backward at D 256 (gemma-7b's 16 heads, T 2048) and at D
 512 (the widest head the kernels take) against their twins, timed beside
 SDPA (with the backend SDPA picks), and D 384 (padded to 512) and D 512
@@ -283,8 +287,13 @@ with GQA, segments and a q_offset; after the Mistral runs,
 bf16 weights, 4 prompts of 5,000-6,000 ids, 64 greedy tokens) with bf16
 KV twice (bit for bit), int8 KV, packed int4 KV and W4 weights + int8
 KV, each with its launch counts and a logits check of one extend wave
-and one decode step against the twins, and `[serve-qwen2-*]` Qwen2-7B
-(4 layers, qkv biases, G 7) with W8 and W4 weights + int8 KV; after
+and one decode step against the twins, `[serve-qwen2-*]` Qwen2-7B
+(4 layers, qkv biases, G 7) with W8 and W4 weights + int8 KV, and
+`[serve-stablelm-*]` StableLM-3B-4E1T (STABLELM_3B through the port's
+converter: head_dim 80, which both ragged kernels run padded to 96;
+4 layers, 4 prompts of 1,000-2,000 ids, 32 tokens) with bf16, int8 and
+packed int4 KV, each with its launch counts and the logits of a wave and
+a decode step against the twins; after
 `[train-parity]`, `[train-dpo]` takes 3 DPO steps (train/preference.py)
 at Vicuna-7B widths (2 layers, 4 unmasked pairs of 2048 tokens) twice,
 losses bit for bit, and `[train-dpo-gemma]` 2 steps at gemma-7b's widths
@@ -312,7 +321,8 @@ expert path on the kernel against its fp32 twin.
 
 `python3 chip_smoke.py --only train-cli` runs infer-load and the four
 train-cli phases alone; `--only kernels`, `--only serve-gemma2` (the
-Gemma-2 and Qwen2 runs), `--only train-dpo` and `--only serve-moe` (the
+Gemma-2, Qwen2 and StableLM runs), `--only train-dpo` and `--only
+serve-moe` (the
 MoE and MLA phases above) the newer phases (no kernel JSON line, no final
 line); `--only` repeats.
 
@@ -447,6 +457,36 @@ GEMMA2_RUNS = (("bf16", "none", "none", "launches"),
 GEMMA2_LOGITS_TOL = 1.5e-1    # Mistral's bound; 42 layers and two caps
 GEMMA2_LOGITS_REASON = ("42 random bf16 layers amplify single bf16 "
                         "roundings (Mistral's bound)")
+# Gemma-2-9B's served extend in [kernels]: one wave of the [serve-gemma2-*]
+# runs' 4 prompt lengths (their own draw, gemma2_prompt_lens) at the
+# engine's bucket of 6144 from position 0, in rows of 6144 tokens, Hq 16,
+# Hkv 8, hd 256 (extend_d256_kernel); with the even layers' window 4096
+# and cap 50, then with neither (which gives SDPA's time)
+GEMMA2_SERVED_OPTIONS = (dict(window=4096, logit_cap=50.0), {})
+# stabilityai/stablelm-3b-4e1t's config.json (transformers.StableLmConfig's
+# defaults), read through the port's converter: head_dim 2560 / 32 = 80,
+# which the ragged kernels run padded to 96; served at STABLELM_LAYERS of
+# its 32 layers, random bf16 weights, 4 prompts of STABLELM_PROMPT ids,
+# STABLELM_MAX_NEW greedy tokens, in every KV mode
+STABLELM_3B = dict(model_type="stablelm", vocab_size=50304, hidden_size=2560,
+                   intermediate_size=6912, num_hidden_layers=32,
+                   num_attention_heads=32, num_key_value_heads=32,
+                   hidden_act="silu", max_position_embeddings=4096,
+                   layer_norm_eps=1e-5, rope_theta=10000, rope_scaling=None,
+                   use_qkv_bias=False, qk_layernorm=False,
+                   use_parallel_residual=False, partial_rotary_factor=0.25,
+                   tie_word_embeddings=False)
+STABLELM_LAYERS = 4
+STABLELM_PROMPT = (1000, 2000)
+STABLELM_MAX_NEW = 32
+STABLELM_RUNS = (("bf16", "none", "launches"),
+                 ("kv8", "int8", "launches_int8"),
+                 ("kv4", "int4", "launches_int4"))
+# an extend wave's and a decode step's logits against the twins after 4
+# random bf16 layers: AuroraCap's bf16 bound, and the int4 KV one (a
+# rounding can flip one of 15 levels)
+STABLELM_LOGITS_TOL = {"bf16": LOGITS_REL_TOL, "kv8": LOGITS_REL_TOL,
+                       "kv4": LOGITS_W4KV4_REL_TOL}
 # Qwen2-7B at its widths, 4 layers: qkv biases drawn N(0, 1) so that they
 # act, G 7, rope theta 1e6
 # The MoE and MLA families: the grouped-expert kernel at each family's
@@ -815,7 +855,8 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     int8 KV on the kv_quantize grid, int8 KV on the maxq-7 grid
     ("int4grid": EngineConfig(kv_grid_bits=4), kv_maxq 7 into the decode
     kernel) or nibble-packed int4 KV on that grid (`mode`), with GQA, permuted rows, a query offset > 0 and
-    a padded / inactive lane, optionally with a sliding window and a
+    a padded / inactive lane (where lens / dlens hold a 0), optionally
+    with a sliding window and a
     logit cap (q scaled by q_gain so that scores reach the cap) →
     {"extend"|"decode": {err, ms, plain_ms, library_ms, bound_ms,
     bound_by}}. With an option on, the kernel's result must differ from
@@ -878,9 +919,10 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
     torch.cuda.synchronize()
     diff = (got.float() - want).abs()
     err_e = diff.max().item()
-    rel_e = lane_rel_err(got, want, (0, 1, 2))
+    rel_e = lane_rel_err(got, want, [i for i, n in enumerate(lens) if n > 0])
     check(bool(torch.isfinite(got).all()), "extend output not finite")
-    check(bool((got[3] == 0).all()), "padded extend lane not zero")
+    check(all(bool((got[i] == 0).all()) for i, n in enumerate(lens)
+              if n <= 0), "padded extend lane not zero")
     check(bool((diff <= EXTEND_ABS_TOL + rnd * want.abs()).all()),
           f"extend {tag} err {err_e}")
     check(rel_e <= EXTEND_REL_TOL, f"extend {tag} rel {rel_e}")
@@ -955,8 +997,9 @@ def attention_case(torch, ra, dev, g, hkv, mode, L=32, S=1792, T=1536,
           f"decode {tag} row/scale writes differ from the plain twin")
     diff = (out.float() - want).abs()
     err_d = diff.max().item()
-    rel_d = lane_rel_err(out, want, (0, 1, 3))
-    check(bool((out[2] == 0).all()), "inactive decode lane not zero")
+    rel_d = lane_rel_err(out, want, [i for i, n in enumerate(dlens) if n > 0])
+    check(all(bool((out[i] == 0).all()) for i, n in enumerate(dlens)
+              if n <= 0), "inactive decode lane not zero")
     check(bool((diff <= DECODE_ABS_TOL + rnd * want.abs()).all()),
           f"decode {tag} err {err_d}")
     check(rel_d <= DECODE_REL_TOL, f"decode {tag} rel {rel_d}")
@@ -4055,7 +4098,9 @@ def train_cli_phases(torch, model_dir, dev, card, counters, plains):
 def family_kernel_phase(torch, ra, fa, dev):
     """[kernels] at the zoo's published shapes (FAMILY_SHAPES): both
     attention kernels in every KV mode against their twins, timed beside
-    SDPA (bf16); then flash forward and backward at D 256 (google/
+    SDPA (bf16), and at Gemma-2-9B's served extend (gemma2_served_case,
+    GEMMA2_SERVED_OPTIONS; keys ("gemma2-9b-served", mode, served_tag));
+    then flash forward and backward at D 256 (google/
     gemma-7b's heads) timed, and a D 256 case with GQA, segments and a
     q_offset; then at D 512 (FLASH_D512) timed, and D 384 (padded to 512)
     and D 512 cases with GQA, segments and a q_offset → ({(family,
@@ -4068,6 +4113,14 @@ def family_kernel_phase(torch, ra, fa, dev):
             res[(fam, mode)] = attention_case(torch, ra, dev, g, hkv, mode,
                                               L=FAMILY_L, hd=hd, Hq=Hq,
                                               family=fam)
+    # Gemma-2-9B's served extend (from a generator of its own, so that the
+    # flash cases' inputs stay)
+    gs = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for mode in KV_MODES:
+        for opts in GEMMA2_SERVED_OPTIONS:
+            res[("gemma2-9b-served", mode, served_tag(opts))] = \
+                attention_case(torch, ra, dev, gs, 8, mode,
+                               **gemma2_served_case(), **opts)
     fl = FLASH_D256
     timed = flash_case(torch, fa, dev, g, fl["B"], fl["T"], fl["H"],
                        fl["Hkv"], timed=True, D=fl["D"])
@@ -4080,6 +4133,35 @@ def family_kernel_phase(torch, ra, fa, dev):
                        segments=True, D=d) for d in (384, 512)]
     return res, {"d256": (timed, [timed, other]),
                  "d512": (timed512, [timed512, *wide])}
+
+
+def gemma2_prompt_lens(rng=None):
+    """The [serve-gemma2-*] runs' prompt lengths: the first draw of their
+    generator (SEED + 12)."""
+    rng = np.random.default_rng(SEED + 12) if rng is None else rng
+    return rng.integers(GEMMA2_PROMPT[0], GEMMA2_PROMPT[1] + 1,
+                        size=N_REQUESTS)
+
+
+def gemma2_served_case():
+    """attention_case's arguments at Gemma-2-9B's served extend: the
+    runs' 4 prompts in one wave of the 6144 bucket from position 0, rows
+    of 6144 tokens, Hq 16, hd 256 (Hkv 8 is the caller's); decode one
+    token past each prompt."""
+    plens = tuple(int(n) for n in gemma2_prompt_lens())
+    return dict(L=FAMILY_L, S=6144, T=6144, offs=(0,) * N_REQUESTS,
+                lens=plens, dlens=tuple(n + 1 for n in plens), hd=256,
+                Hq=16, family="gemma2-9b-served")
+
+
+def served_tag(opts):
+    return "window-cap" if opts else "none"
+
+
+def extend_kernel_name(hd):
+    """The csrc/ragged_extend.cu kernel that runs head_dim hd."""
+    return ("extend_mma_kernel" if hd <= 96 else
+            "extend_kernel" if hd <= 128 else "extend_d256_kernel")
 
 
 def gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains):
@@ -4113,8 +4195,7 @@ def gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains):
     weight_gb = sum(p.numel() * p.element_size()
                     for p in llm.parameters()) / 1e9
     rng = np.random.default_rng(SEED + 12)
-    plens = rng.integers(GEMMA2_PROMPT[0], GEMMA2_PROMPT[1] + 1,
-                         size=N_REQUESTS)
+    plens = gemma2_prompt_lens(rng)
     check(plens.min() > cfg.sliding_window,
           f"prompts {plens} within the window {cfg.sliding_window}")
     prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
@@ -4282,6 +4363,89 @@ def qwen2_phase(torch, engine_mod, ra, qm, dev, card, plains):
                      decode=True)
         out[run] = (ext, dec, wl)
         del engine, model
+        gc.collect()
+    del llm
+    torch.cuda.empty_cache()
+    return out
+
+
+def stablelm_phase(torch, engine_mod, ra, dev, card, plains):
+    """StableLM-3B-4E1T (STABLELM_3B through the port's converter, head_dim
+    80) at STABLELM_LAYERS layers, random bf16 weights from the seed:
+    N_REQUESTS prompts of STABLELM_PROMPT random ids, STABLELM_MAX_NEW
+    greedy tokens, with bf16, int8 and packed int4 KV. Each run: the
+    ragged kernels' launch counts (every layer a wave and a decode step,
+    no window or cap, the twins 0), and the logits of one extend wave and
+    one decode step against the same engine on the plain twins → {run:
+    (extend launches, decode launches)}."""
+    import dataclasses as dc
+
+    from aurora_tpu_torch.models.convert import llama_config_from_hf
+    from aurora_tpu_torch.models.init import build
+    from aurora_tpu_torch.models.llama import LlamaModel
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    cfg = dc.replace(llama_config_from_hf(STABLELM_3B),
+                     num_hidden_layers=STABLELM_LAYERS)
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    check(hd == 80 and ra.kernel_head_width(hd) == 96,
+          f"stablelm head_dim {hd}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    llm = build(LlamaModel, cfg, device=dev, dtype=torch.bfloat16,
+                generator=gen)
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED + 15)
+    plens = rng.integers(STABLELM_PROMPT[0], STABLELM_PROMPT[1] + 1,
+                         size=N_REQUESTS)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in plens]
+    out = {}
+    for run, kv_quant, counter in STABLELM_RUNS:
+        ecfg = EngineConfig(max_batch=N_REQUESTS,
+                            max_seq_len=2048 + STABLELM_MAX_NEW,
+                            kv_chunk=256, prefill_buckets=(2048,),
+                            decode_steps=16, kv_quant=kv_quant,
+                            disable_radix_cache=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(llm, cfg, ecfg, device=dev, seed=SEED)
+        counters = [(ra.ragged_attention, counter),
+                    (ra.ragged_decode_attention, counter),
+                    (ra.ragged_attention, "launches_window"),
+                    (ra.ragged_decode_attention, "launches_window")] + plains
+        reqs = [Request(rid=f"s{i}", input_ids=list(p),
+                        max_new_tokens=STABLELM_MAX_NEW, eos_ids=())
+                for i, p in enumerate(prompts)]
+        wall, counts = serve(torch, engine, reqs, counters, STABLELM_MAX_NEW)
+        ext, dec, ext_w, dec_w = (counts[f"{f.__name__}.{a}"]
+                                  for f, a in counters[:4])
+        steps = engine._steps
+        phase("serve-stablelm-" + run, card=repr(card),
+              config=f"stablelm-3b-4e1t/L{L}/hd{hd}/rotary"
+                     f"{cfg.partial_rotary_factor:g}/{cfg.norm_type}"
+                     f"/kv-{kv_quant}",
+              requests=N_REQUESTS,
+              prompt_tokens=",".join(str(int(n)) for n in plens),
+              new_tokens=STABLELM_MAX_NEW,
+              extend_s=f"{engine.t_extend_s:.4f}",
+              decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+              decode_steps=steps, wall_s=f"{wall:.2f}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              launches=json.dumps(counts).replace(" ", ""))
+        check(ext == L and dec == L * steps and ext_w == 0 and dec_w == 0,
+              f"{run}: ragged launches {counts}, steps {steps}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"plain twins ran: {counts}")
+        logits_check(torch, engine_mod, engine.runner,
+                     lambda r: llm.embed_tokens[
+                         torch.tensor(r.input_ids, device=dev)],
+                     reqs, STABLELM_LOGITS_TOL[run], "logits-stablelm-" + run,
+                     {"ragged_attention": ra.ragged_attention_plain,
+                      "ragged_decode_attention":
+                          ra.ragged_decode_attention_plain},
+                     decode=True)
+        out[run] = (ext, dec)
+        del engine
         gc.collect()
     del llm
     torch.cuda.empty_cache()
@@ -4851,8 +5015,9 @@ def main(argv=None):
                     help="run these phases alone, in the script's order "
                          "(train-cli: [infer-load] and the four train-cli "
                          "phases; kernels: [build] and every [kernels] "
-                         "case; serve-gemma2: the Gemma-2-9B and Qwen2-7B "
-                         "runs; train-dpo: both DPO phases; serve-moe: "
+                         "case; serve-gemma2: the Gemma-2-9B, Qwen2-7B "
+                         "and StableLM-3B runs; train-dpo: both DPO "
+                         "phases; serve-moe: "
                          "[kernels-moe] and the Mixtral, Qwen3-MoE and "
                          "DeepSeek-V2-Lite runs); no kernel JSON line, no "
                          "final line")
@@ -4913,6 +5078,7 @@ def main(argv=None):
         if "serve-gemma2" in only:
             gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains)
             qwen2_phase(torch, engine_mod, ra, qm, dev, card, plains)
+            stablelm_phase(torch, engine_mod, ra, dev, card, plains)
         if "train-dpo" in only:
             dpo_phase(torch, fa, dev, card, flash_counters, all_plains)
             dpo_phase(torch, fa, dev, card, flash_counters, all_plains,
@@ -5303,6 +5469,7 @@ def main(argv=None):
     # ---- the dense zoo: Gemma-2-9B at full width, Qwen2-7B ---------------
     gemma2 = gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains)
     qwen2 = qwen2_phase(torch, engine_mod, ra, qm, dev, card, plains)
+    stablelm = stablelm_phase(torch, engine_mod, ra, dev, card, plains)
 
     # ---- the MoE and MLA families: Mixtral-8x7B, Qwen3-MoE, V2-Lite ------
     moe_runs = moe_serve_phase(torch, engine_mod, ra, qm, moe, dev, card,
@@ -5477,6 +5644,13 @@ def main(argv=None):
             e["launches_serve_qwen2"] = qwen2["w8kv8"][i] + qwen2["w4kv8"][i]
             for run, c in moe_runs.items():
                 e[f"launches_serve_{run.replace('-', '_')}"] = c[i]
+    # the StableLM-3B runs (head_dim 80, padded to the kernels' 96)
+    for e in kernels:
+        for mode, run in (("bf16", "bf16"), ("int8", "kv8"), ("int4", "kv4")):
+            if e["name"] in (f"ragged_attention[{mode}]",
+                             f"ragged_decode_attention[{mode}]"):
+                i = int(e["name"].startswith("ragged_decode"))
+                e["launches_serve_stablelm"] = stablelm[run][i]
         if e["name"] == "w8a8_matmul":
             e["launches_serve_mixtral_w8kv8"] = moe_runs["mixtral-w8kv8"][3]
         if e["name"] == "w4a8_matmul_tiled":
@@ -5500,7 +5674,23 @@ def main(argv=None):
                     "ragged_attention.py:" + line,
                     gemma2[gemma_run[mode]][i], r["err"], r["ms"],
                     r["plain_ms"], (r["bound_ms"], r["bound_by"]),
-                    r["library_ms"], head_dim=hd, q_heads=Hq, kv_heads=hkv))
+                    r["library_ms"], head_dim=hd, q_heads=Hq, kv_heads=hkv,
+                    kernel=extend_kernel_name(hd) if step == "extend"
+                    else "decode_kernel"))
+    # extend_d256_kernel at Gemma-2-9B's served extend, with the even
+    # layers' window and cap and with neither; launches: the Gemma-2 run's
+    # in that KV mode
+    for mode in KV_MODES:
+        for opts in GEMMA2_SERVED_OPTIONS:
+            tag = served_tag(opts)
+            r = fam_res[("gemma2-9b-served", mode, tag)]["extend"]
+            kernels.append(entry(
+                f"ragged_attention[{mode},gemma2-9b,served,{tag}]",
+                "ragged_extend.cu", "ragged_attention.py:287",
+                gemma2[gemma_run[mode]][0], r["err"], r["ms"],
+                r["plain_ms"], (r["bound_ms"], r["bound_by"]),
+                r["library_ms"], head_dim=256, q_heads=16, kv_heads=8,
+                kernel="extend_d256_kernel"))
     # flash at D 256 (google/gemma-7b: B 2, T 2048, H 16); launches from
     # [train-dpo-gemma], whose attention runs them; [train-dpo]'s (D 128)
     # beside the D 128 entries above. D 512 (FLASH_D512; its errors also

@@ -23,7 +23,12 @@ boundaries, windows whose edge falls on or inside a split, G 1, 4, 8)
 under the decode bounds, and two decode calls on the same inputs agree
 bitwise; the extend kernel at its tile edges (T off the tile, q_offset
 with a window, an int4 tile's high half partly past kv_len) under the
-extend bounds. W4A8 matmul: max |Δ| /
+extend bounds; the extend kernel at head_dim 256 (extend_d256_kernel,
+G 1 and 2, T 700 over rows of 1024, offsets and lengths off its 64-key
+tiles, a window cutting tiles inside blocks, the cap) under the extend
+bounds and bitwise repeatable; both kernels at head_dims 16, 48, 80,
+112, 160 and 208 (padded to their kernel's width) with the window and
+the cap, and head_dims 72 and 264 refused. W4A8 matmul: max |Δ| /
 max |want| ≤ 1e-5 with fp32 output (only
 the fp32 order of the group sum differs), and bf16 output within one bf16
 rounding of the twin's; repeated launches agree bitwise. W8A8 matmul:
@@ -1057,6 +1062,151 @@ def test_family_shapes_decode_kernel_matches_plain_on_card(cuda_device, mode,
         **opts)[0]
     torch.cuda.synchronize()
     assert torch.equal(again, out)
+
+
+def _extend_case(dev, seed, mode, hd, G, T, Sr, lanes, opts, gain=1.0,
+                 hkv=2):
+    """One extend call through the kernel and through the twin on the
+    same rows of Sr tokens; lanes: (q_offset, tokens), kv_len = q_offset +
+    tokens (0 tokens: a padded lane) → (got, want, call, twin), call()
+    and twin(**options) repeating them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k, v, kv = _mode_rows(gen, dev, mode, hkv, Sr, hd)
+    q = gain * torch.randn((4, T, hkv * G, hd), generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=dev)
+    offs = torch.tensor([o for o, _ in lanes], **i32)
+    lens = torch.tensor([o + n if n else 0 for o, n in lanes], **i32)
+    rows = torch.tensor([3, 1, 0, 2], **i32)
+    layer = torch.tensor([1], **i32)
+
+    def call():
+        return tra.ragged_attention(q, k, v, lens, offs, rows, layer=layer,
+                                    **kv, **opts)
+
+    def twin(**options):
+        return tra.ragged_attention_plain(
+            q.float(), k.float() if mode == "bf16" else k,
+            v.float() if mode == "bf16" else v, lens, offs, rows, layer=1,
+            **kv, **options)
+    got, want = call(), twin(**opts)
+    torch.cuda.synchronize()
+    return got, want, call, twin
+
+
+def _extend_bounds(got, want, lanes, opts, twin):
+    """The extend bounds (bf16 rounding of the output on top), lane rel
+    1e-2, padded lanes zero, and with an option the off-control."""
+    diff = (got.float() - want).abs()
+    assert bool((diff <= 2e-2 + RND * want.abs()).all()), diff.max().item()
+    live = [i for i, (_, n) in enumerate(lanes) if n]
+    assert _lane_rel(got, want, live) <= 1e-2
+    for i, (_, n) in enumerate(lanes):
+        if not n:
+            assert bool((got[i] == 0).all())
+    if opts:
+        assert (got.float() - twin()).abs().max().item() > \
+            10 * diff.max().item()
+
+
+# extend_d256_kernel (head_dim 256): rows of 1024, T 700, so that a block
+# walks many 64-key tiles; a q_offset off the tile (300), kv_lens off the
+# tile (700, 1000, 687), int4 walks across 256-token segments, a padded
+# lane; a window of 300 whose lower edge cuts tiles inside blocks, the cap
+D256_LANES = ((0, 700), (300, 700), (37, 650), (0, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [{}] + [dict(window=300), dict(
+    logit_cap=50.0), dict(window=300, logit_cap=50.0)],
+    ids=["plain", "window", "cap", "both"])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_extend_d256_kernel_matches_plain_on_card(cuda_device, mode, G,
+                                                  opts):
+    """gemma-7b's MHA (G 1) and Gemma-2-9B's G 2 at head_dim 256: the
+    extend bounds against the twin in every KV mode, with and without the
+    window and the cap (q scaled by 8 with an option)."""
+    got, want, _, twin = _extend_case(
+        cuda_device, 256 + G, mode, 256, G, 700, 1024, D256_LANES, opts,
+        gain=8.0 if opts else 1.0)
+    _extend_bounds(got, want, D256_LANES, opts, twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_extend_d256_kernel_is_bitwise_repeatable_on_card(cuda_device,
+                                                          mode):
+    """Two calls of extend_d256_kernel on the same inputs agree bitwise
+    (no atomics in its reduction), with the window and the cap."""
+    got, _, call, _ = _extend_case(cuda_device, 7, mode, 256, 2, 700, 1024,
+                                   D256_LANES,
+                                   dict(window=300, logit_cap=50.0))
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+# head widths off the kernels' compile-time ones, one for each route:
+# 16 and 48 (the 64 kernel), 80 (96), 112 (the wgmma 128 kernel), 160 and
+# 208 (extend_d256_kernel); StableLM-3B's heads are 80 wide
+PADDED_HEAD_DIMS = [16, 48, 80, 112, 160, 208]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", PADDED_HEAD_DIMS)
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_ragged_kernels_take_every_head_dim_on_card(cuda_device, mode, hd):
+    """Both kernels at head_dims that are multiples of 16 off the kernels'
+    widths (the columns up to the kernel's width read as zeros), every KV
+    mode, the window and the cap (q scaled by 8), G 2: the extend bounds
+    with the off-control; decode row writes exact, the decode bounds, the
+    off-control."""
+    lanes = ((0, 200), (150, 200), (3, 191), (0, 0))
+    opts = dict(window=100, logit_cap=50.0)
+    got, want, _, twin = _extend_case(cuda_device, hd, mode, hd, 2, 200, 512,
+                                      lanes, opts, gain=8.0)
+    _extend_bounds(got, want, lanes, opts, twin)
+    out, want, state, plain, args = _decode_case(
+        cuda_device, 3 * hd, mode, 2, 2, (300, 0, 201, 512), 512, opts,
+        q_gain=8.0, hd=hd)
+    for got_t, want_t in zip(state, plain):
+        assert torch.equal(got_t, want_t)
+    diff = (out.float() - want).abs()
+    assert bool((diff <= 3e-3 + RND * want.abs()).all()), diff.max().item()
+    assert _lane_rel(out, want, (0, 2, 3)) <= 8e-3
+    assert bool((out[1] == 0).all())
+    q, kn, vn, lens_t, rows, kv = args
+    off = tra.ragged_decode_attention_plain(
+        q.float(), kn, vn, *[t.clone() for t in plain[:2]], lens_t, rows,
+        layer=1, **dict(kv, **dict(zip(("k_scales", "v_scales"),
+                                       [t.clone() for t in plain[2:]]))))[0]
+    assert (out.float() - off).abs().max().item() > 10 * diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [72, 264])
+def test_ragged_kernels_refuse_head_dims_off_the_rule_on_card(cuda_device,
+                                                              hd):
+    """A head_dim that is not a multiple of 16, or is above 256, raises in
+    both kernels with a message that names the rule (no fallback to the
+    twins)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(hd)
+    k, v, _ = _mode_rows(gen, cuda_device, "bf16", 2, 256, hd)
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    q = torch.randn((4, 8, 4, hd), **bf)
+    lens = torch.tensor([8, 8, 8, 0], **i32)
+    rows = torch.tensor([0, 1, 2, 3], **i32)
+    calls = tra.ragged_attention_plain.calls
+    with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
+        tra.ragged_attention(q, k, v, lens, torch.zeros(4, **i32), rows,
+                             layer=1)
+    with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
+        tra.ragged_decode_attention(
+            q[:, :1], torch.randn((4, 2, hd), **bf),
+            torch.randn((4, 2, hd), **bf), k, v, lens, rows, layer=1)
+    assert tra.ragged_attention_plain.calls == calls
 
 
 @pytest.mark.cuda

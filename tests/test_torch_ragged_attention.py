@@ -380,8 +380,11 @@ def test_window_cap_change_the_twins():
 
 # (head_dim, G) of the dense zoo's families beside the llama shapes:
 # MiniCPM-2B (64, 1), Phi-3-mini (96, 1), Gemma-2-9B (256, 2),
-# StarCoder2-7B (128, 9), GLM-4-9B (128, 16), StarCoder (128, 48, MQA)
-FAMILY_SHAPES = [(64, 1), (96, 1), (256, 2), (128, 9), (128, 16), (128, 48)]
+# StarCoder2-7B (128, 9), GLM-4-9B (128, 16), StarCoder (128, 48, MQA);
+# and head widths off the kernels' compile-time ones, which they run
+# padded with zero columns: StableLM-3B's 80 (MHA), 160 with G 2
+FAMILY_SHAPES = [(64, 1), (96, 1), (256, 2), (128, 9), (128, 16), (128, 48),
+                 (80, 1), (160, 2)]
 
 
 def _family_rows(rng, hd):

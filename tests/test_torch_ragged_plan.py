@@ -72,3 +72,19 @@ def test_decode_plan_lengthens_splits_past_four_blocks_an_sm():
     assert nsplit * split >= 32768
     assert nsplit * 512 <= 4 * H100_SMS * 2
     assert tra.decode_plan(128, 0, 4, H100_SMS) == (SEG, 1)
+
+
+# the kernels' head-width rule (csrc/ragged_extend.cu, csrc/ragged_decode.cu):
+# every multiple of 16 from 16 to 256 runs on the narrowest compile-time
+# width that holds it; anything else raises, naming the rule
+@pytest.mark.parametrize("hd", range(16, 257, 16))
+def test_kernel_head_width_takes_every_multiple_of_16(hd):
+    w = tra.kernel_head_width(hd)
+    assert w in tra.KERNEL_WIDTHS and w >= hd
+    assert all(x < hd for x in tra.KERNEL_WIDTHS if x < w)
+
+
+@pytest.mark.parametrize("hd", [8, 72, 100, 272])
+def test_kernel_head_width_refuses_what_the_kernels_do_not_take(hd):
+    with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
+        tra.kernel_head_width(hd)

@@ -20,3 +20,13 @@ def test_time_ragged_refuses_without_a_card(tmp_path):
     assert res.returncode == 1
     assert "CUDA is not available" in res.stderr
     assert "[kernels]" not in res.stdout
+
+
+def test_time_ragged_refuses_unknown_cases(tmp_path):
+    """--cases names a subset of serving, mistral and gemma2 (checked
+    before the card is looked for)."""
+    res = subprocess.run([sys.executable, SCRIPT, "--cases", "gemma2,llama"],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=tmp_path)
+    assert res.returncode == 2
+    assert "--cases takes serving, mistral, gemma2" in res.stderr

@@ -199,3 +199,31 @@ def test_profile_serve_mistral_runs_on_cpu(tmp_path, capsys):
     events = [("gemvx_kernel", 0, 6.0), ("decode_kernel<bf16>", 0, 8.0),
               ("nvjet_tst_64x8", 0, 2.0), ("elementwise", 0, 4.0)]
     assert profile_serve.matmul_ms(events, 2) == 0.004
+
+
+def test_profile_serve_gemma2_runs_on_cpu(tmp_path, capsys):
+    """The profile's --gemma2 mode on Gemma2Config.tiny (window 8 on the
+    even layers, both caps; no device events on the CPU, so the extend
+    split reads 0), and every ragged extend kernel's name in the attention
+    family."""
+    import json
+
+    from aurora_tpu_torch.tools import profile_serve
+    calls = (tra.ragged_attention_plain.calls,
+             tra.ragged_decode_attention_plain.calls)
+    assert profile_serve.main(["--tiny", "--gemma2", "--device", "cpu",
+                               "--reps", "1", "--steps", "4", "--batch", "2",
+                               "--out", str(tmp_path)]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (res["model"], res["window"], res["kv"]) == ("gemma-2-9b", 8,
+                                                       "float32")
+    assert res["extend_split_ms"] == {"attention": 0.0, "cublas": 0.0,
+                                      "rest": 0.0}
+    assert tra.ragged_attention_plain.calls > calls[0]
+    assert tra.ragged_decode_attention_plain.calls > calls[1]
+    events = [("void extend_kernel<bf16, false>", 0, 1.0),
+              ("void extend_mma_kernel<96, bf16, false>", 0, 2.0),
+              ("void extend_d256_kernel<bf16, false>", 0, 4.0),
+              ("nvjet_tst_64x8", 0, 8.0)]
+    fam = profile_serve.family_ms(events, 1)
+    assert (fam["attention"], fam["other"]) == (0.007, 0.008)

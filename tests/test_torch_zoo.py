@@ -298,3 +298,28 @@ def test_family_weight_quantizers_match_jax(family, bits):
         p = getattr(tq, name, None) if name in tllama.TOP_EXTRAS \
             else getattr(tq.layers[0], name)
         assert p.dtype == torch.float32, name
+
+
+def test_stablelm_3b_head_dim_is_one_the_kernels_take():
+    """stabilityai/stablelm-3b-4e1t's config (transformers.StableLmConfig's
+    defaults) converts to head_dim 80, which the ragged kernels run on
+    their 96-wide kernel; chip_smoke.py serves that config as written out
+    in STABLELM_3B, which holds the same values."""
+    import importlib.util
+    import os
+
+    import transformers
+
+    from aurora_tpu_torch.ops.pallas import ragged_attention as tra
+    hf = transformers.StableLmConfig().to_dict()
+    cfg = tconvert.llama_config_from_hf(hf)
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    assert (hd, cfg.head_dim) == (80, 80)
+    assert tra.kernel_head_width(hd) == 96
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert {k: hf[k] for k in smoke.STABLELM_3B} == smoke.STABLELM_3B
+    assert tconvert.llama_config_from_hf(smoke.STABLELM_3B) == cfg
