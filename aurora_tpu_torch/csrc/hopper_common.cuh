@@ -13,6 +13,11 @@
 //   MN-major (the reduction runs along the rows, the 64 columns are the
 //     output's N): desc_mn(box bytes), LBO = the box's size (the next 64
 //     columns), SBO = 1024; a k16 step adds 16 rows = 2048 bytes.
+// A box may also be 32 columns wide, rows of 64 bytes under the 64-byte
+// swizzle (CU_TENSOR_MAP_SWIZZLE_64B: chunk c of row r at c ^ ((r / 2) %
+// 4)); its descriptors take SBO = 512 and the 64-byte layout type
+// (desc_k<64>, desc_mn<64>), and a k16 step of an MN-major read adds 16
+// rows = 1024 bytes.
 // Accumulators of m64nN (fp32, per warpgroup of 128 threads): thread
 // (warp w, lane l) holds d[4j + 2h + e] = D[16w + l/4 + 8h][8j + 2(l%4) + e]
 // for j < N/8, h, e in {0, 1}; that is also the layout of a register A
@@ -86,7 +91,8 @@ inline bool map_blhd(CUtensorMap* map, const void* base, int B, int L, int H,
 // within each stripe. row_bytes % 16 == 0.
 inline bool map_stripes(CUtensorMap* map, const void* base, int elem_bytes,
                         int row_bytes, int rows, long long stripes,
-                        int box_cols, int box_rows, bool swizzle128) {
+                        int box_cols, int box_rows,
+                        CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {cuuint64_t(row_bytes / elem_bytes),
@@ -99,11 +105,17 @@ inline bool map_stripes(CUtensorMap* map, const void* base, int elem_bytes,
             elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                             : CU_TENSOR_MAP_DATA_TYPE_UINT8,
             3, const_cast<void*>(base), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                       : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+inline bool map_stripes(CUtensorMap* map, const void* base, int elem_bytes,
+                        int row_bytes, int rows, long long stripes,
+                        int box_cols, int box_rows, bool swizzle128) {
+  return map_stripes(map, base, elem_bytes, row_bytes, rows, stripes,
+                     box_cols, box_rows,
+                     swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // ---------------------------------------------------------------- device
@@ -116,6 +128,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // box with the 128-byte swizzle
 __device__ __forceinline__ uint32_t swz128(int r, int chunk) {
   return uint32_t(r) * 128u + uint32_t((chunk ^ (r & 7)) * 16);
+}
+
+// byte offset of 16-byte chunk `chunk` of row r in a box of SPAN-byte
+// rows with the SPAN-byte swizzle (128 or 64): address bits [4, 4 +
+// log2(SPAN / 16)) take an xor of bits [7, ...)
+template <int SPAN>
+__device__ __forceinline__ uint32_t swz(int r, int chunk) {
+  return uint32_t(r) * SPAN +
+         uint32_t((chunk ^ ((r * SPAN >> 7) & (SPAN / 16 - 1))) * 16);
 }
 
 // the first 1024-byte boundary at or after p, in shared memory
@@ -303,26 +324,40 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// shared-memory matrix descriptor, 128-byte swizzle
+// shared-memory matrix descriptor; layout 1: the 128-byte swizzle, 2: the
+// 64-byte one
 __device__ __forceinline__ uint64_t make_desc(const void* tile, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint32_t layout = 1) {
   return uint64_t((smem_u32(tile) & 0x3FFFFu) >> 4) |
          (uint64_t((lbo >> 4) & 0x3FFFu) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFFu) << 32) | (uint64_t(1) << 62);
+         (uint64_t((sbo >> 4) & 0x3FFFu) << 32) | (uint64_t(layout) << 62);
 }
 
+// descriptors of boxes of SPAN-byte rows (128 or 64) under that swizzle
+template <int SPAN = 128>
 __device__ __forceinline__ uint64_t desc_k(const void* tile) {
-  return make_desc(tile, 16, 1024);
+  return make_desc(tile, 16, 8 * SPAN, SPAN == 128 ? 1 : 2);
 }
 
+template <int SPAN = 128>
 __device__ __forceinline__ uint64_t desc_mn(const void* tile,
                                             uint32_t box_bytes) {
-  return make_desc(tile, box_bytes, 1024);
+  return make_desc(tile, box_bytes, 8 * SPAN, SPAN == 128 ? 1 : 2);
 }
 
 // a descriptor moved by `bytes` (the address field counts 16-byte units)
 __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
   return desc + (bytes >> 4);
+}
+
+// 2^x as one MUFU.EX2 (flushing subnormal results to zero), where exp2f
+// adds a range test and two multiplies around it: in a softmax x <= 0,
+// and a probability below 2^-126 of the row's largest is 0 either way
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -370,6 +405,8 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N], int k,
 #define HOPPER_ACC32(d)                                                   \
   HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16),               \
       HOPPER_ACC8(d, 24)
+#define HOPPER_ACC48(d)                                                   \
+  HOPPER_ACC32(d), HOPPER_ACC8(d, 32), HOPPER_ACC8(d, 40)
 #define HOPPER_ACC64(d)                                                   \
   HOPPER_ACC32(d), HOPPER_ACC8(d, 32), HOPPER_ACC8(d, 40),                \
       HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56)
@@ -383,6 +420,11 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N], int k,
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
   "%28, %29, %30, %31}"
+#define HOPPER_D48                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
+  "%41, %42, %43, %44, %45, %46, %47}"
 #define HOPPER_D64                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
@@ -464,11 +506,35 @@ __device__ __forceinline__ void mma_64x128_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D[64][64] += A[64][16] (registers) . B[16][64] (MN-major in shared
+// memory)
+__device__ __forceinline__ void mma_64x64_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOPPER_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64][96] += A[64][16] (registers) . B[16][96] (MN-major in shared
+// memory: three 32-column atoms of the 64-byte swizzle)
+__device__ __forceinline__ void mma_64x96_rs(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " HOPPER_D48
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : HOPPER_ACC48(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 
 // ------------------------------------------ mma.sync attention (any width)
 // The attention kernels at the head widths that the wgmma tiles above do
-// not take (up to 96 in ragged_extend.cu, 512 in flash_attention.cu)
-// run warp-level mma.sync.m16n8k16 (bf16 -> fp32) on plain row-major
+// not take (512 in flash_attention.cu) run warp-level mma.sync.m16n8k16 (bf16 -> fp32) on plain row-major
 // shared tiles of pitch HD + 8 bf16: consecutive rows start 16 bytes apart
 // modulo 128, so a warp's fragment loads hit 32 distinct banks.
 // Fragments (g = lane / 4, t = lane % 4):
@@ -607,35 +673,30 @@ __device__ __forceinline__ void softmax_step(float (&s)[NB][4], float (&m)[2],
 }
 
 // the thread's half (h) of an output row of C tiles, times mul, as bf16
-// to dst (the row's first column of the warp's slice); only the columns
-// below `cols` (a head narrower than the tile's)
+// to dst (the row's first column of the warp's slice)
 template <int ND>
 __device__ __forceinline__ void store_c_row(__nv_bfloat16* dst,
                                             const float (&o)[ND][4], int h,
-                                            int lane, float mul,
-                                            int cols = 8 * ND) {
+                                            int lane, float mul) {
 #pragma unroll
   for (int n = 0; n < ND; ++n)
-    if (8 * n + 2 * (lane % 4) < cols)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * (lane % 4)) =
-          __floats2bfloat162_rn(o[n][2 * h] * mul, o[n][2 * h + 1] * mul);
+    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * (lane % 4)) =
+        __floats2bfloat162_rn(o[n][2 * h] * mul, o[n][2 * h + 1] * mul);
 }
 
 // rows [row0, row0 + rows) of a row-major bf16 source (row r at
-// src + r * stride elements, `cols` columns, a multiple of 8; rows at or
-// past `live` and the columns from `cols` to HD read as zeros) into a
+// src + r * stride elements; rows at or past `live` read as zeros) into a
 // shared tile of pitch HD + 8, 16 bytes a thread
 template <int HD>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           size_t stride, int row0, int rows,
-                                          int live, int tid, int nthreads,
-                                          int cols = HD) {
+                                          int live, int tid, int nthreads) {
   constexpr int C = HD / 8;
   for (int e = tid; e < rows * C; e += nthreads) {
     const int r = e / C, c = e % C;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < live && c * 8 < cols)
+    if (row0 + r < live)
       v = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * stride +
                                           c * 8);
     *reinterpret_cast<uint4*>(dst + r * (HD + 8) + c * 8) = v;

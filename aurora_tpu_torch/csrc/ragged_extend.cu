@@ -27,52 +27,62 @@
 // What bounds it on the H100: at the serving shape (T = 1536 new tokens
 // against ~1.4k keys, hd = 128) every K/V tile is reused by 128 query
 // rows, so the kernel does ~128 FLOP per KV byte it stages and is
-// compute-bound: only wgmma reaches the tensor cores' full rate.
+// compute-bound: only wgmma reaches the tensor cores' full rate. At the
+// narrower heads (64, 96) the exponentials of a tile cost about as many
+// cycles as its products, so a smaller share of the bound is reachable.
 //
 // Design: flash_fwd_kernel's (flash_attention.cu; hopper_common.cuh holds
 // the building blocks) with a row indirection, GQA folding, dequantized
-// tiles, the window and the cap. One block of 256 threads (two
+// tiles, the window and the cap, compiled at head widths W = 64, 96 and
+// 128 (`extend_kernel<W, ...>`). One block of 256 threads (two
 // warpgroups of 64 rows) per (128 folded query rows, KV head, lane), the
 // heaviest query tiles first. GQA folds the G query heads of a KV head
 // into the row axis as row = t * G + g (query head kvh * G + g at position
 // q_offsets[lane] + t), so one K/V tile serves all G heads and the causal
 // bound of a tile stays tight; Q is loaded once with 16-byte loads into
-// the swizzled layout. K/V tiles of 128 keys arrive by TMA through the 3-D
+// the swizzled layout. A head of W columns lies in shared memory as
+// boxes of 128 rows (`Head<W>`): 64 columns under the 128-byte swizzle at
+// W = 64 and 128, and 32 columns under the 64-byte swizzle at W = 96, so
+// that the 96 columns are three whole swizzle atoms and P V is one
+// m64n96 product. K/V tiles of 128 keys arrive by TMA through the 3-D
 // map (hd, S, L * B * Hkv) of the rows, at the stripe (layer * B +
 // row_ids[lane]) * Hkv + kvh that the block computes from the device
 // tensors, so TMA zero-fills past S within each stripe; they land in a
 // ring of 3 stages on mbarriers. bf16 tiles are the wgmma operands
-// themselves (two boxes of 64 columns, 128-byte swizzle), and the last of
-// the 8 warps to finish with a stage refills it. int8 tiles land raw (one
-// 128-byte box row per key) and int4 tiles as 64 packed rows, whose low
-// nibbles are keys base + [0, 64) and high nibbles base + 128 + [0, 64);
-// all 256 threads convert a raw tile into one swizzled bf16 K and V tile
-// (exact: int8 and int4 values are bf16 numbers), fence the async proxy
-// and sync before the products read it, and thread 0 refills the raw stage
-// at once; the tile's key and value scales ride in the ring beside it
-// (1-D bulk copies from the scale planes). S = Q K^T and O += P V are
-// wgmma bf16 -> fp32 with O, the row max and the row sum in registers, P
-// the register A operand and V read MN-major. In registers the key scale
-// multiplies the scores after `scale`, then the cap, then the mask; the
-// value scale multiplies p after the row sum; exponentials are exp2 with
-// log2(e) folded in. The tile loop runs from the tile of the block's first
-// visible key, max(0, first query position - w + 1) (int4: its segment's
-// first tile), to min(kv_len, last query position + 1): tiles wholly below
-// every row's window are neither loaded nor computed. Masking is decided
-// per tile and warpgroup: only a tile that crosses the causal diagonal,
-// kv_len or the window's lower edge of one of the warpgroup's rows tests
-// its elements.
+// themselves (one box per 64 or 32 columns), and the last of the 8 warps
+// to finish with a stage refills it. int8 tiles land raw (one W-byte box
+// row per key) and int4 tiles as 64 packed rows, whose low nibbles are
+// keys base + [0, 64) and high nibbles base + 128 + [0, 64); all 256
+// threads convert a raw tile into one swizzled bf16 K and V tile (exact:
+// int8 and int4 values are bf16 numbers), fence the async proxy and sync
+// before the products read it, and thread 0 refills the raw stage at
+// once; the tile's key and value scales ride in the ring beside it (1-D
+// bulk copies from the scale planes). At 128 the K and V of the next
+// tile are converted while this tile's products run, into one buffer,
+// under two block barriers a tile; below 128 into a second buffer
+// (dq_bufs), under one. S = Q K^T (W / 16 k16 steps) and O += P V (N = W)
+// are wgmma bf16 -> fp32 with O, the row max and the row sum in
+// registers, P the register A operand and V read MN-major. In registers
+// the key scale multiplies the scores after `scale`, then the cap, then
+// the mask (without a cap, scale, key scale and log2(e) are one
+// multiply); the value scale multiplies p after the row sum; each
+// exponential is one ex2.approx.ftz, log2(e) folded in. The tile loop
+// runs from the tile of the block's first visible key, max(0, first query
+// position - w + 1) (int4: its segment's first tile), to min(kv_len, last
+// query position + 1): tiles wholly below every row's window are neither
+// loaded nor computed. Masking is decided per tile and warpgroup: only a
+// tile that crosses the causal diagonal, kv_len or the window's lower edge
+// of one of the warpgroup's rows tests its elements.
 //
 // Head widths: any multiple of 16 from 16 to 256, each run by the kernel
-// of the next compile-time width up: 64 and 96 on mma.sync tiles
-// (`extend_mma_kernel`, below), 128 on the design above (`extend_kernel`),
-// 256 on its 64-key-tile variant (`extend_d256_kernel`). The columns from
-// hd to the kernel's width read as zeros (TMA fills a box past the rows'
-// inner extent hd with zeros, the 16-byte loads of Q and of the mma.sync
-// tiles write zeros there), add nothing to Q K^T, and give output columns
-// that are never stored; the scale is the caller's (by default that of the
-// real hd). So a padded width is exact, and the KV rows are never padded
-// in memory: they are the cache.
+// of the next compile-time width up: 64, 96 and 128 on the design above
+// (`extend_kernel`), 256 on its 64-key-tile variant
+// (`extend_d256_kernel`). The columns from hd to the kernel's width read
+// as zeros (TMA fills a box past the rows' inner extent hd with zeros, the
+// 16-byte loads of Q write zeros there), add nothing to Q K^T, and give
+// output columns that are never stored; the scale is the caller's (by
+// default that of the real hd). So a padded width is exact, and the KV
+// rows are never padded in memory: they are the cache.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,32 +95,58 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int HD = 128;        // the head width of extend_kernel
 constexpr int BQ = 128;        // folded query rows a block, 64 a warpgroup
 constexpr int BK = 128;        // keys a tile
 constexpr int NTHREADS = 256;  // two warpgroups
 constexpr int WARPS = NTHREADS / 32;
 constexpr int STAGES = 3;
 constexpr uint32_t BOX = 128 * 128;      // bytes of a [128][64] bf16 box
-constexpr uint32_t HEAD_TILE = 2 * BOX;  // [128][128] bf16: Q, K or V
 constexpr float NEG_INF = -2.3819763e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// a bf16 head of W columns (64, 96, 128, 256) over 128 rows in shared
+// memory: NB boxes of BC columns, rows of SPAN = 2 * BC bytes under the
+// SPAN-byte swizzle (hopper_common.cuh)
+template <int W>
+struct Head {
+  static constexpr int BC = W == 96 ? 32 : 64;
+  static constexpr int NB = W / BC;
+  static constexpr int SPAN = 2 * BC;
+  static constexpr uint32_t BOXB = 128u * SPAN;  // a box of 128 rows
+  static constexpr uint32_t TILE = NB * BOXB;    // [128][W]: Q, K or V
+  static constexpr int KB = BC / 16;             // k16 steps a box
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      SPAN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
 // bytes of one K (or V) tile as TMA brings it: a bf16 tile is the wgmma
-// operand itself; int8 [128 keys][128 B]; int4 [64 packed rows][128 B]
-template <typename KV, bool PACK>
+// operand itself; int8 [128 keys][W B]; int4 [64 packed rows][W B]
+template <int W, typename KV, bool PACK>
 __host__ __device__ constexpr uint32_t raw_bytes() {
-  return sizeof(KV) == 2 ? HEAD_TILE : (PACK ? 64u * 128u : 128u * 128u);
+  return sizeof(KV) == 2 ? Head<W>::TILE : (PACK ? 64u : 128u) * W;
+}
+
+// int8 / int4 below width 128: the dequantized K and V tiles and the
+// scales of the tile in use are double-buffered, so that tile j + 1's
+// conversion runs beside tile j's products under one block barrier a
+// tile; at 128 a second buffer does not fit beside the 3-stage ring (one
+// buffer, two barriers a tile)
+template <int W, typename KV>
+__host__ __device__ constexpr int dq_bufs() {
+  return sizeof(KV) == 1 && W < 128 ? 2 : 1;
 }
 
 // 1024 bytes of alignment slack, Q, the ring (K then V a stage), [int8 /
-// int4: the dequantized K and V tiles, the scales a stage (K then V, BK
-// floats each) and the scales of the tile in use], the full barriers and
-// the counters
-template <typename KV, bool PACK>
+// int4: the dequantized K and V tiles (dq_bufs each), the scales a stage
+// (K then V, BK floats each) and the scales of the tiles in use (dq_bufs
+// times K then V)], the full barriers and the counters
+template <int W, typename KV, bool PACK>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return 1024 + HEAD_TILE + STAGES * 2 * size_t(raw_bytes<KV, PACK>()) +
-         (sizeof(KV) == 1 ? 2 * HEAD_TILE + (STAGES + 1) * 2 * BK * 4 : 0) +
+  constexpr size_t TILE = Head<W>::TILE;
+  constexpr int NDQ = dq_bufs<W, KV>();
+  return 1024 + TILE + STAGES * 2 * size_t(raw_bytes<W, KV, PACK>()) +
+         (sizeof(KV) == 1 ? 2 * NDQ * TILE + (STAGES + NDQ) * 2 * BK * 4
+                          : 0) +
          8 * STAGES + 4 * STAGES;
 }
 
@@ -144,9 +180,10 @@ __device__ __forceinline__ int tile_pos(int base, int c, bool pack) {
   return base + c + (pack && c >= 64 ? 64 : 0);
 }
 
-// offset of k16 step kk of a head-wide K-major operand
+// offset of k16 step kk of a K-major operand laid out as Head<W>
+template <int W>
 __device__ __forceinline__ uint32_t k_step(int kk) {
-  return (kk / 4) * BOX + (kk % 4) * 32;
+  return (kk / Head<W>::KB) * Head<W>::BOXB + (kk % Head<W>::KB) * 32;
 }
 
 // element i of an m64nN accumulator: row half and column
@@ -159,82 +196,102 @@ __device__ __forceinline__ int acc_col(int i, int lane) {
 // b + 128 (xor 0x80), goes into the low mantissa bits of 2^23 and
 // 2^23 + 128 is subtracted; exact for every int8. Such a float has at
 // most 8 significant bits, so its high 16 bits are its exact bf16.
-// `mul` rescales it exactly (a power of two).
-__device__ __forceinline__ unsigned s8_to_f_bits(unsigned biased, int i,
-                                                 float mul) {
+__device__ __forceinline__ unsigned s8_to_f_bits(unsigned biased, int i) {
   return __float_as_uint(
-      (__int_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + i)) -
-       8388736.f) * mul);
+      __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + i)) -
+      8388736.f);
 }
 // four biased bytes → two bf16 pairs, the lower-addressed value in the low
 // half of each
-__device__ __forceinline__ void bf16x4(unsigned biased, float mul,
-                                       unsigned* w) {
-  w[0] = __byte_perm(s8_to_f_bits(biased, 0, mul),
-                     s8_to_f_bits(biased, 1, mul), 0x7632);
-  w[1] = __byte_perm(s8_to_f_bits(biased, 2, mul),
-                     s8_to_f_bits(biased, 3, mul), 0x7632);
+__device__ __forceinline__ void bf16x4(unsigned biased, unsigned* w) {
+  w[0] = __byte_perm(s8_to_f_bits(biased, 0), s8_to_f_bits(biased, 1),
+                     0x7632);
+  w[1] = __byte_perm(s8_to_f_bits(biased, 2), s8_to_f_bits(biased, 3),
+                     0x7632);
 }
 // eight bf16 pairs (cols 16c .. 16c + 15 of row r) → row r of a swizzled
-// bf16 head tile whose 64-column boxes are box_bytes apart
+// bf16 head tile laid out as Head<W>, over ROWS rows
+template <int W, int ROWS = 128>
 __device__ __forceinline__ void store_words(uint8_t* tile, int r, int c,
-                                            const unsigned (&w)[8],
-                                            uint32_t box_bytes) {
-  uint8_t* box = tile + (c >> 2) * box_bytes;
-  const int ch = (c & 3) * 2;
-  *reinterpret_cast<uint4*>(box + hopper::swz128(r, ch)) =
+                                            const unsigned (&w)[8]) {
+  using H = Head<W>;
+  constexpr int GB = H::BC / 16;  // groups of 16 columns a box
+  uint8_t* box = tile + (c / GB) * (ROWS * H::SPAN);
+  const int ch = (c % GB) * 2;
+  *reinterpret_cast<uint4*>(box + hopper::swz<H::SPAN>(r, ch)) =
       make_uint4(w[0], w[1], w[2], w[3]);
-  *reinterpret_cast<uint4*>(box + hopper::swz128(r, ch + 1)) =
+  *reinterpret_cast<uint4*>(box + hopper::swz<H::SPAN>(r, ch + 1)) =
       make_uint4(w[4], w[5], w[6], w[7]);
 }
 // 16 biased bytes (cols 16c .. 16c + 15 of row r) → row r of a swizzled
 // bf16 head tile
+template <int W>
 __device__ __forceinline__ void store16(uint8_t* tile, int r, int c,
-                                        const unsigned (&b)[4], float mul) {
+                                        const unsigned (&b)[4]) {
   unsigned w[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) bf16x4(b[i], mul, w + 2 * i);
-  store_words(tile, r, c, w, BOX);
+  for (int i = 0; i < 4; ++i) bf16x4(b[i], w + 2 * i);
+  store_words<W>(tile, r, c, w);
 }
 
-// a raw int8 / int4 K or V tile → its swizzled bf16 tile, and the
-// tile's BK scales from the stage into `scales`; all threads
-template <bool PACK>
+// the four nibbles of plane h (0: low, 1: high) of a packed word → two
+// bf16 pairs, the lower-addressed value in the low half of each, with no
+// conversion instruction: the signed nibble n, its top bit flipped, is
+// n + 8, which under bf16 128's exponent (0x43) is 136 + n, from which a
+// bf16x2 subtraction takes 136 (exact: integers below 256). At int4 this
+// takes ~1.5 instructions a value against bf16x4's ~3.5.
+__device__ __forceinline__ void s4x4_bf16(unsigned w, int h, unsigned* out) {
+  const unsigned u = ((h ? w >> 4 : w) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const unsigned k136 = 0x43084308u;  // bf16 136.0 twice
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const unsigned m = __byte_perm(u, 0x43u, i ? 0x4342 : 0x4140);
+    const __nv_bfloat162 r =
+        __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                *reinterpret_cast<const __nv_bfloat162*>(&k136));
+    out[i] = *reinterpret_cast<const unsigned*>(&r);
+  }
+}
+
+// a raw int8 / int4 K or V tile (rows of W bytes) → its swizzled bf16
+// tile, and the tile's BK scales from the stage into `scales`; all threads
+template <int W, bool PACK>
 __device__ __forceinline__ void dequantize(const uint8_t* raw, uint8_t* dst,
                                            const float* stage_scales,
                                            float* scales) {
-  constexpr int ROWS = PACK ? 64 : 128;
-  for (int e = threadIdx.x; e < ROWS * 8; e += NTHREADS) {
-    const int r = e >> 3, c = e & 7;
-    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * 128 + c * 16);
+  constexpr int ROWS = PACK ? 64 : 128, C = W / 16;
+  for (int e = threadIdx.x; e < ROWS * C; e += NTHREADS) {
+    const int r = e / C, c = e % C;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * W + c * 16);
     const unsigned in[4] = {v.x, v.y, v.z, v.w};
     if constexpr (PACK) {
-      unsigned lo[4], hi[4];
+      unsigned lo[8], hi[8];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        lo[i] = ((in[i] << 4) & 0xF0F0F0F0u) ^ 0x80808080u;
-        hi[i] = (in[i] & 0xF0F0F0F0u) ^ 0x80808080u;
+        s4x4_bf16(in[i], 0, lo + 2 * i);
+        s4x4_bf16(in[i], 1, hi + 2 * i);
       }
-      store16(dst, r, c, lo, 0.0625f);
-      store16(dst, 64 + r, c, hi, 0.0625f);
+      store_words<W>(dst, r, c, lo);
+      store_words<W>(dst, 64 + r, c, hi);
     } else {
       unsigned b[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) b[i] = in[i] ^ 0x80808080u;
-      store16(dst, r, c, b, 1.f);
+      store16<W>(dst, r, c, b);
     }
   }
   if (threadIdx.x < BK) scales[threadIdx.x] = stage_scales[threadIdx.x];
   hopper::fence_proxy_async();  // the products read dst through TMA's proxy
 }
 
-// bf16 row of an m64n128 accumulator (the thread's columns below cols)
-// to dst
-__device__ __forceinline__ void store_row(bf16* dst, const float (&acc)[64],
+// bf16 row of an m64nN accumulator (the thread's columns below cols) to
+// dst
+template <int A>
+__device__ __forceinline__ void store_row(bf16* dst, const float (&acc)[A],
                                           int half, int lane, float mul,
                                           int cols) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < A / 4; ++j) {
     const int col = 8 * j + 2 * (lane % 4);
     if (col < cols)
       *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
@@ -243,14 +300,17 @@ __device__ __forceinline__ void store_row(bf16* dst, const float (&acc)[64],
 }
 
 // the block's 128 folded query rows [r0, r0 + 128) of head kvh's group
-// into `tiles` 64-column swizzled boxes of 128 rows, 16-byte loads; zeros
-// past the last row and from column hd on; all threads
+// into a swizzled head of W columns laid out as Head<W>, 16-byte loads;
+// zeros past the last row and from column hd on; all threads
+template <int W>
 __device__ __forceinline__ void load_q(uint8_t* sQ, const bf16* q,
                                        const Shape& sh, int lb, int kvh,
-                                       int r0, int tiles) {
-  const int rows_total = sh.G * sh.T, chunks = tiles * 8;
-  for (int c = threadIdx.x; c < BQ * chunks; c += NTHREADS) {
-    const int r = c / chunks, ch = c % chunks, rr = r0 + r;
+                                       int r0) {
+  using H = Head<W>;
+  constexpr int CH = W / 8, CB = H::BC / 8;  // chunks a row, a box row
+  const int rows_total = sh.G * sh.T;
+  for (int c = threadIdx.x; c < BQ * CH; c += NTHREADS) {
+    const int r = c / CH, ch = c % CH, rr = r0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (rr < rows_total && ch * 8 < sh.hd) {
       const int t = rr / sh.G, g = rr % sh.G;
@@ -258,9 +318,21 @@ __device__ __forceinline__ void load_q(uint8_t* sQ, const bf16* q,
           q + ((size_t(lb) * sh.T + t) * sh.Hq + kvh * sh.G + g) * sh.hd +
           ch * 8);
     }
-    *reinterpret_cast<uint4*>(sQ + (ch >> 3) * BOX +
-                              hopper::swz128(r, ch & 7)) = val;
+    *reinterpret_cast<uint4*>(sQ + (ch / CB) * H::BOXB +
+                              hopper::swz<H::SPAN>(r, ch % CB)) = val;
   }
+}
+
+// O (+)= P V at N = W columns, V MN-major laid out as Head<W>
+template <int W>
+__device__ __forceinline__ void mma_pv(float (&o)[W / 2],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (W == 64)
+    hopper::mma_64x64_rs(o, a, b);
+  else if constexpr (W == 96)
+    hopper::mma_64x96_rs(o, a, b);
+  else
+    hopper::mma_64x128_rs(o, a, b);
 }
 
 // a warp is done with stage st (its products on it have completed) → true
@@ -277,7 +349,7 @@ __device__ __forceinline__ bool release(int* done, int st) {
   return __shfl_sync(0xffffffffu, last, 0);
 }
 
-template <typename KV, bool PACK>
+template <int W, typename KV, bool PACK>
 __global__ void __launch_bounds__(NTHREADS, 1)
 extend_kernel(const __grid_constant__ CUtensorMap tm_k,
               const __grid_constant__ CUtensorMap tm_v,
@@ -287,19 +359,23 @@ extend_kernel(const __grid_constant__ CUtensorMap tm_k,
               const int* __restrict__ q_offsets,
               const int* __restrict__ row_ids,
               const int* __restrict__ layer_ptr, Shape sh) {
+  using H = Head<W>;
   constexpr bool QUANT = sizeof(KV) == 1;
-  constexpr uint32_t RAW = raw_bytes<KV, PACK>();
+  constexpr uint32_t RAW = raw_bytes<W, KV, PACK>();
+  constexpr int NDQ = dq_bufs<W, KV>();
+  constexpr bool ONE_BAR = NDQ == 2;
   static_assert(!PACK || QUANT, "packed rows are int8 bytes");
+  static_assert(W == 64 || W == 96 || W == 128, "head widths 64, 96, 128");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = hopper::align1024(smem_raw);
-  uint8_t* ring = sQ + HEAD_TILE;  // stage st: K, then V
+  uint8_t* ring = sQ + H::TILE;  // stage st: K, then V
   uint8_t* sKc = ring + STAGES * 2 * RAW;  // int8 / int4: dequantized
-  uint8_t* sVc = sKc + HEAD_TILE;
-  float* sSc = reinterpret_cast<float*>(QUANT ? sVc + HEAD_TILE : sKc);
-  float* sScT = sSc + STAGES * 2 * BK;  // the scales of the tile in use
+  uint8_t* sVc = sKc + NDQ * H::TILE;
+  float* sSc = reinterpret_cast<float*>(QUANT ? sVc + NDQ * H::TILE : sKc);
+  float* sScT = sSc + STAGES * 2 * BK;  // the scales of the tiles in use
   uint64_t* full = reinterpret_cast<uint64_t*>(
       reinterpret_cast<uint8_t*>(sSc) +
-      (QUANT ? (STAGES + 1) * 2 * BK * 4 : 0));
+      (QUANT ? (STAGES + NDQ) * 2 * BK * 4 : 0));
   int* done = reinterpret_cast<int*>(full + STAGES);
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
@@ -329,10 +405,12 @@ extend_kernel(const __grid_constant__ CUtensorMap tm_k,
     if (QUANT) sbytes = PACK ? 4 * 256 : 2 * 4 * min(BK, sh.S - kb);
     hopper::mbar_expect_tx(&full[st], 2 * RAW + sbytes);
     if constexpr (!QUANT) {
-      hopper::tma_load_3d(dst, &tm_k, &full[st], 0, kb, stripe);
-      hopper::tma_load_3d(dst + BOX, &tm_k, &full[st], 64, kb, stripe);
-      hopper::tma_load_3d(dst + RAW, &tm_v, &full[st], 0, kb, stripe);
-      hopper::tma_load_3d(dst + RAW + BOX, &tm_v, &full[st], 64, kb, stripe);
+      for (int i = 0; i < H::NB; ++i) {
+        hopper::tma_load_3d(dst + i * H::BOXB, &tm_k, &full[st], i * H::BC,
+                            kb, stripe);
+        hopper::tma_load_3d(dst + RAW + i * H::BOXB, &tm_v, &full[st],
+                            i * H::BC, kb, stripe);
+      }
     } else {
       const int prow = PACK ? (it >> 1) * 128 + (it & 1) * 64 : kb;
       hopper::tma_load_3d(dst, &tm_k, &full[st], 0, prow, stripe);
@@ -361,7 +439,7 @@ extend_kernel(const __grid_constant__ CUtensorMap tm_k,
   if (QUANT)
     for (int i = tid; i < STAGES * 2 * BK; i += NTHREADS) sSc[i] = 0.f;
   // Q: the block's 128 folded rows, zeros past the last one
-  load_q(sQ, q, sh, lb, kvh, r0, HD / 64);
+  load_q<W>(sQ, q, sh, lb, kvh, r0);
   hopper::fence_proxy_async();
   __syncthreads();
   if (tid == 0)
@@ -379,47 +457,66 @@ extend_kernel(const __grid_constant__ CUtensorMap tm_k,
   const bool plain_scores = !QUANT && !(sh.cap > 0.f);
   const float c_plain = sh.scale * LOG2E;
 
-  float o[64], s[64];
+  float o[W / 2], s[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  const uint64_t dq = hopper::desc_k(sQ + cw * 64 * 128);
+  const uint64_t dq = hopper::desc_k<H::SPAN>(sQ + cw * 64 * H::SPAN);
   uint32_t pa[8][4];
 
-  // int8 / int4: tile j's K is converted while tile j - 1's P V runs (tile
-  // 0's here), its V while its own Q K^T runs; two block barriers a tile
-  // order the conversions against the products
+  // int8 / int4, one buffer: tile j's K is converted while tile j - 1's
+  // P V runs (tile 0's here), its V while its own Q K^T runs; two block
+  // barriers a tile order the conversions against the products. Two
+  // buffers (ONE_BAR): tile j + 1's K is converted into the other buffer
+  // while tile j's Q K^T runs, its V while tile j's P V runs, and one
+  // block barrier a tile orders them (tile 0's both here)
   if constexpr (QUANT) {
     if (ntiles > 0) {
       hopper::mbar_wait(&full[0], 0);
-      dequantize<PACK>(ring, sKc, sSc, sScT);
+      dequantize<W, PACK>(ring, sKc, sSc, sScT);
+      if constexpr (ONE_BAR)
+        dequantize<W, PACK>(ring + RAW, sVc, sSc + BK, sScT + BK);
     }
   }
   for (int j = 0; j < ntiles; ++j) {
-    const int st = j % STAGES;
+    const int st = j % STAGES, buf = ONE_BAR ? j & 1 : 0;
     const int kb = tile_base(it0 + j, PACK);
     uint8_t* raw = ring + st * 2 * RAW;
     const uint8_t* tK = raw;
     const uint8_t* tV = raw + RAW;
+    const float* scT = sScT + buf * 2 * BK;  // tile j's K, then V scales
     if constexpr (QUANT) {
-      // K(j) is converted and tile j - 1's products are done everywhere
+      // K(j) (ONE_BAR: and V(j)) is converted and tile j - 1's products
+      // are done everywhere
       __syncthreads();
-      tK = sKc;
-      tV = sVc;
+      // ONE_BAR: tile j's raw stage was converted in iteration j - 1
+      if (ONE_BAR && tid == 0 && j + STAGES < ntiles)
+        fill(st, it0 + j + STAGES);
+      tK = sKc + buf * H::TILE;
+      tV = sVc + buf * H::TILE;
     } else {
       hopper::mbar_wait(&full[st], (j / STAGES) & 1);
     }
 
     // S = Q K^T, the warpgroup's 64 rows x 128 keys
-    const uint64_t dk = hopper::desc_k(tK);
+    const uint64_t dk = hopper::desc_k<H::SPAN>(tK);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      hopper::mma_64x128_ss(s, hopper::desc_add(dq, k_step(kk)),
-                            hopper::desc_add(dk, k_step(kk)), kk);
+    for (int kk = 0; kk < W / 16; ++kk)
+      hopper::mma_64x128_ss(s, hopper::desc_add(dq, k_step<W>(kk)),
+                            hopper::desc_add(dk, k_step<W>(kk)), kk);
     hopper::wgmma_commit();
-    if constexpr (QUANT)
-      dequantize<PACK>(raw + RAW, sVc, sSc + st * 2 * BK + BK, sScT + BK);
+    if constexpr (ONE_BAR) {
+      if (j + 1 < ntiles) {
+        const int st1 = (j + 1) % STAGES;
+        hopper::mbar_wait(&full[st1], ((j + 1) / STAGES) & 1);
+        dequantize<W, PACK>(ring + st1 * 2 * RAW, sKc + (buf ^ 1) * H::TILE,
+                            sSc + st1 * 2 * BK, sScT + (buf ^ 1) * 2 * BK);
+      }
+    } else if constexpr (QUANT) {
+      dequantize<W, PACK>(raw + RAW, sVc, sSc + st * 2 * BK + BK,
+                          sScT + BK);
+    }
     hopper::wgmma_wait<0>();
     hopper::fence_regs(s);
 
@@ -434,9 +531,11 @@ extend_kernel(const __grid_constant__ CUtensorMap tm_k,
       float x;
       if (plain_scores) {
         x = s[i] * c_plain;
+      } else if (!(sh.cap > 0.f)) {  // int8 / int4: one multiply a score
+        x = s[i] * (scT[col] * c_plain);
       } else {
         x = s[i] * sh.scale;
-        if (QUANT) x *= sScT[col];
+        if (QUANT) x *= scT[col];
         if (sh.cap > 0.f) x = sh.cap * tanhf(x * sh.inv_cap);
         x *= LOG2E;
       }
@@ -457,40 +556,49 @@ extend_kernel(const __grid_constant__ CUtensorMap tm_k,
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = exp2f(m[h] - mx[h]);
+      alpha[h] = hopper::ex2(m[h] - mx[h]);
       m[h] = mx[h];
       l[h] *= alpha[h];
     }
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
-      s[i] = exp2f(s[i] - m[acc_half(i)]);
+      s[i] = hopper::ex2(s[i] - m[acc_half(i)]);
       l[acc_half(i)] += s[i];
     }
     if constexpr (QUANT) {
-      // V(j) is converted everywhere, and the raw stage is free
-      __syncthreads();
-      if (tid == 0 && j + STAGES < ntiles) fill(st, it0 + j + STAGES);
+      if constexpr (!ONE_BAR) {
+        // V(j) is converted everywhere, and the raw stage is free
+        __syncthreads();
+        if (tid == 0 && j + STAGES < ntiles) fill(st, it0 + j + STAGES);
+      }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] *= sScT[BK + acc_col(i, lane)];
+      for (int i = 0; i < 64; ++i) s[i] *= scT[BK + acc_col(i, lane)];
     }
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] *= alpha[acc_half(i)];
+    for (int i = 0; i < W / 2; ++i) o[i] *= alpha[acc_half(i)];
 
     // O += P V
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) hopper::acc_to_a(s, kk, pa[kk]);
-    const uint64_t dv = hopper::desc_mn(tV, BOX);
+    const uint64_t dv = hopper::desc_mn<H::SPAN>(tV, H::BOXB);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      hopper::mma_64x128_rs(o, pa[kk], hopper::desc_add(dv, kk * 2048));
+      mma_pv<W>(o, pa[kk], hopper::desc_add(dv, kk * 16 * H::SPAN));
     hopper::wgmma_commit();
     if constexpr (QUANT) {
-      if (j + 1 < ntiles) {  // every warpgroup is past its Q K^T of tile j
+      if (j + 1 < ntiles) {
         const int st1 = (j + 1) % STAGES;
-        hopper::mbar_wait(&full[st1], ((j + 1) / STAGES) & 1);
-        dequantize<PACK>(ring + st1 * 2 * RAW, sKc, sSc + st1 * 2 * BK,
-                         sScT);
+        if constexpr (ONE_BAR) {
+          dequantize<W, PACK>(ring + st1 * 2 * RAW + RAW,
+                              sVc + (buf ^ 1) * H::TILE,
+                              sSc + st1 * 2 * BK + BK,
+                              sScT + (buf ^ 1) * 2 * BK + BK);
+        } else {  // every warpgroup is past its Q K^T of tile j
+          hopper::mbar_wait(&full[st1], ((j + 1) / STAGES) & 1);
+          dequantize<W, PACK>(ring + st1 * 2 * RAW, sKc, sSc + st1 * 2 * BK,
+                              sScT);
+        }
       }
     }
     hopper::wgmma_wait<0>();
@@ -560,25 +668,6 @@ __host__ __device__ constexpr size_t d_smem_bytes() {
          8 * D_STAGES + 4 * D_STAGES;
 }
 
-// the four nibbles of plane h (0: low, 1: high) of a packed word → two
-// bf16 pairs, the lower-addressed value in the low half of each, with no
-// conversion instruction: the signed nibble n, its top bit flipped, is
-// n + 8, which under bf16 128's exponent (0x43) is 136 + n, from which a
-// bf16x2 subtraction takes 136 (exact: integers below 256). At int4 this
-// takes ~1.5 instructions a value against bf16x4's ~3.5.
-__device__ __forceinline__ void s4x4_bf16(unsigned w, int h, unsigned* out) {
-  const unsigned u = ((h ? w >> 4 : w) & 0x0F0F0F0Fu) ^ 0x08080808u;
-  const unsigned k136 = 0x43084308u;  // bf16 136.0 twice
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const unsigned m = __byte_perm(u, 0x43u, i ? 0x4342 : 0x4140);
-    const __nv_bfloat162 r =
-        __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
-                *reinterpret_cast<const __nv_bfloat162*>(&k136));
-    out[i] = *reinterpret_cast<const unsigned*>(&r);
-  }
-}
-
 // a raw int8 tile (PACK false) or the nibble plane h of a raw int4 tile →
 // its swizzled bf16 [64][256] tile, and the tile's 64 scales from the
 // stage into `scales`; all threads
@@ -597,9 +686,9 @@ __device__ __forceinline__ void dequantize256(const uint8_t* raw, int h,
       if constexpr (PACK)
         s4x4_bf16(in[i], h, w + 2 * i);
       else
-        bf16x4(in[i] ^ 0x80808080u, 1.f, w + 2 * i);
+        bf16x4(in[i] ^ 0x80808080u, w + 2 * i);
     }
-    store_words(dst, r, c, w, BOX64);
+    store_words<DW, DK>(dst, r, c, w);
   }
   if (threadIdx.x < DK) scales[threadIdx.x] = stage_scales[threadIdx.x];
   hopper::fence_proxy_async();  // the products read dst through TMA's proxy
@@ -705,7 +794,7 @@ extend_d256_kernel(const __grid_constant__ CUtensorMap tm_k,
           make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  load_q(sQ, q, sh, lb, kvh, r0, 4);
+  load_q<DW>(sQ, q, sh, lb, kvh, r0);
   hopper::fence_proxy_async();
   __syncthreads();
   if (tid == 0)
@@ -761,7 +850,7 @@ extend_d256_kernel(const __grid_constant__ CUtensorMap tm_k,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DW / 16; ++kk)
-      hopper::mma_64x64_ss(s, hopper::desc_add(dq, k_step(kk)),
+      hopper::mma_64x64_ss(s, hopper::desc_add(dq, k_step<DW>(kk)),
                            hopper::desc_add(dk, (kk / 4) * BOX64 +
                                                     (kk % 4) * 32),
                            kk);
@@ -875,206 +964,61 @@ extend_d256_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-// --------------------------------------- head widths up to 96 (mma.sync)
-// Kernel widths 64 and 96 (head_dim 16-64 and 80-96): the same contract
-// on warp-level mma.sync tiles (hopper_common.cuh, MmaTile): a block of
-// MmaTile<HD>::NT threads per (64 folded query rows, KV head, lane), the
-// heaviest first; key tiles of 64 loaded by all threads with 16-byte reads
-// into plain shared tiles, int8 and int4 bytes converted to bf16 on the
-// way (exact), zeros at and past kv_len and from column hd on, the tile's
-// scales beside it; one tile at a time (two block barriers a tile). A
-// 64-token tile at a multiple of 64 is one nibble plane of 64 consecutive
-// packed rows, so int4 needs no pairing. The scores, the scale, the key
-// scale, the cap, the mask and the value scale are applied in the same
-// order as above.
-
-constexpr int MBQ = 64, MBK = 64;  // folded query rows a block, keys a tile
-
-template <int HD>
-__host__ __device__ constexpr size_t mma_smem_bytes() {
-  return size_t(MBQ + 2 * MBK) * (HD + 8) * 2 + 2 * MBK * 4;
-}
-
-// 16 bytes of a KV row → 16 bf16 values at dst: int8 bytes (plane < 0), or
-// the low (plane 0) or high (plane 1) signed nibbles of packed bytes
-__device__ __forceinline__ void expand16(uint4 x, int plane, bf16* dst) {
-  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-  uint32_t o[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float v[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int byte = 2 * i + e;
-      const unsigned u = (w[byte / 4] >> (8 * (byte % 4))) & 0xFFu;
-      const int b = int(int8_t(uint8_t(u)));
-      v[e] = float(plane < 0    ? b
-                   : plane == 0 ? int(int8_t(uint8_t(u << 4))) >> 4
-                                : b >> 4);
-    }
-    o[i] = hopper::pack_bf16(v[0], v[1]);
+// the kernel of width W (64, 96, 128: extend_kernel; 256:
+// extend_d256_kernel) over (G * T / BQ, Hkv, Bk), the rows as the 3-D map
+// (head_dim, rows, L * B * Hkv): bf16 boxes of Head<W>'s columns x `keys`
+// rows under its swizzle, int8 / int4 boxes of W bytes x `keys` rows;
+// columns past head_dim read as zeros
+template <int W, typename KV, bool PACK>
+int launch_at(const void* q, const void* k_rows, const void* v_rows,
+              const void* k_scales, const void* v_scales, void* out,
+              const void* kv_lens, const void* q_offsets,
+              const void* row_ids, const void* layer, int Bk, int L,
+              const Shape& sh, void* stream) {
+  using H = Head<W>;
+  constexpr bool QUANT = sizeof(KV) == 1, WIDE = W == DW;
+  const int keys = WIDE ? DK : (PACK ? 64 : BK);
+  const long long stripes = (long long)L * sh.B * sh.Hkv;
+  const int rows = PACK ? sh.S / 2 : sh.S;
+  CUtensorMap mk, mv;
+  const bool ok =
+      QUANT ? hopper::map_stripes(&mk, k_rows, 1, sh.hd, rows, stripes, W,
+                                  keys, false) &&
+                  hopper::map_stripes(&mv, v_rows, 1, sh.hd, rows, stripes,
+                                      W, keys, false)
+            : hopper::map_stripes(&mk, k_rows, 2, 2 * sh.hd, sh.S, stripes,
+                                  H::BC, keys, H::SWIZZLE) &&
+                  hopper::map_stripes(&mv, v_rows, 2, 2 * sh.hd, sh.S,
+                                      stripes, H::BC, keys, H::SWIZZLE);
+  if (!ok) return int(cudaErrorInvalidValue);
+  const void* fn;
+  size_t smem;
+  if constexpr (WIDE) {
+    fn = reinterpret_cast<const void*>(extend_d256_kernel<KV, PACK>);
+    smem = d_smem_bytes<KV>();
+  } else {
+    fn = reinterpret_cast<const void*>(extend_kernel<W, KV, PACK>);
+    smem = smem_bytes<W, KV, PACK>();
   }
-  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
-  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
-}
-
-template <int HD, typename KV, bool PACK>
-__global__ void __launch_bounds__(hopper::MmaTile<HD>::NT, 1)
-extend_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_rows,
-                  const KV* __restrict__ v_rows,
-                  const float* __restrict__ k_scales,
-                  const float* __restrict__ v_scales, bf16* __restrict__ out,
-                  const int* __restrict__ kv_lens,
-                  const int* __restrict__ q_offsets,
-                  const int* __restrict__ row_ids,
-                  const int* __restrict__ layer_ptr, Shape sh) {
-  using TL = hopper::MmaTile<HD>;
-  static_assert(TL::NSL == 1, "one warp a row group: widths up to 128");
-  constexpr int P = TL::P, NB = MBK / 8, ND = TL::DS / 8;
-  constexpr bool QUANT = sizeof(KV) == 1;
-  extern __shared__ __align__(16) uint8_t smem_mma[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sK = sQ + MBQ * P;
-  bf16* sV = sK + MBK * P;
-  float* sKs = reinterpret_cast<float*>(sV + MBK * P);
-  float* sVs = sKs + MBK;
-
-  const int kvh = blockIdx.y, lb = blockIdx.z;
-  const int G = sh.G, rows_total = G * sh.T;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * MBQ;  // heaviest first
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kv_len = min(kv_lens[lb], sh.S);
-  const int q_off = q_offsets[lb];
-  const size_t stripe =
-      (size_t(*layer_ptr) * sh.B + row_ids[lb]) * sh.Hkv + kvh;
-  const int hd = sh.hd;
-  const size_t row_elems = size_t(PACK ? sh.S / 2 : sh.S) * hd;
-  const KV* Kp = k_rows + stripe * row_elems;
-  const KV* Vp = v_rows + stripe * row_elems;
-  const float* Ks = QUANT ? k_scales + stripe * sh.S : nullptr;
-  const float* Vs = QUANT ? v_scales + stripe * sh.S : nullptr;
-
-  const int last_rr = min(r0 + MBQ, rows_total) - 1;
-  const int kend = min(kv_len, q_off + last_rr / G + 1);
-  const int kstart =
-      sh.window > 0 ? max(0, q_off + r0 / G - sh.window + 1) : 0;
-
-  for (int e = tid; e < MBQ * (HD / 8); e += TL::NT) {
-    const int r = e / (HD / 8), c = e % (HD / 8), rr = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (rr < rows_total && c * 8 < hd)
-      v = *reinterpret_cast<const uint4*>(
-          q + ((size_t(lb) * sh.T + rr / G) * sh.Hq + kvh * G + rr % G) * hd +
-          c * 8);
-    *reinterpret_cast<uint4*>(sQ + r * P + c * 8) = v;
-  }
-  int qp[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    qp[h] = q_off + (r0 + warp * 16 + lane / 4 + 8 * h) / G;
-
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-
-  for (int kb = kstart / MBK * MBK; kb < kend; kb += MBK) {
-    __syncthreads();  // the last tile's products are done everywhere
-    if constexpr (!QUANT) {
-      hopper::load_rows<HD>(sK, Kp, hd, kb, MBK, kv_len, tid, TL::NT, hd);
-      hopper::load_rows<HD>(sV, Vp, hd, kb, MBK, kv_len, tid, TL::NT, hd);
-    } else {
-      const int off = kb % 256;
-      const int plane = PACK ? int(off >= 128) : -1;
-      const size_t prow0 = PACK ? size_t(kb / 256) * 128 + (off & 127) : kb;
-      const uint8_t* kr = reinterpret_cast<const uint8_t*>(Kp);
-      const uint8_t* vr = reinterpret_cast<const uint8_t*>(Vp);
-      for (int e = tid; e < MBK * (HD / 16); e += TL::NT) {
-        const int r = e / (HD / 16), c = e % (HD / 16);
-        uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-        if (kb + r < kv_len && c * 16 < hd) {
-          kx = *reinterpret_cast<const uint4*>(kr + (prow0 + r) * hd + c * 16);
-          vx = *reinterpret_cast<const uint4*>(vr + (prow0 + r) * hd + c * 16);
-        }
-        expand16(kx, plane, sK + r * P + c * 16);
-        expand16(vx, plane, sV + r * P + c * 16);
-      }
-      for (int r = tid; r < MBK; r += TL::NT) {
-        const bool live = kb + r < kv_len;
-        sKs[r] = live ? Ks[kb + r] : 0.f;
-        sVs[r] = live ? Vs[kb + r] : 0.f;
-      }
-    }
-    __syncthreads();
-
-    float s[NB][4];
-#pragma unroll
-    for (int n = 0; n < NB; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-    hopper::mma_xyt<HD, NB>(s, sQ, warp * 16, sK, lane);
-#pragma unroll
-    for (int n = 0; n < NB; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = 8 * n + 2 * (lane % 4) + (i & 1);
-        const int key = kb + col, p = qp[i >> 1];
-        float x = s[n][i] * sh.scale;
-        if (QUANT) x *= sKs[col];
-        if (sh.cap > 0.f) x = sh.cap * tanhf(x * sh.inv_cap);
-        const bool vis = key < kv_len && key <= p &&
-                         (sh.window <= 0 || key > p - sh.window);
-        s[n][i] = vis ? x * LOG2E : -INFINITY;
-      }
-    hopper::softmax_step<NB, ND>(s, m, l, o);
-    if constexpr (QUANT) {
-#pragma unroll
-      for (int n = 0; n < NB; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          s[n][i] *= sVs[8 * n + 2 * (lane % 4) + (i & 1)];
-    }
-    hopper::mma_wz<HD, MBK / 16, ND>(o, s, sV, 0, lane);
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int rr = r0 + warp * 16 + lane / 4 + 8 * h;
-    if (rr < rows_total)
-      hopper::store_c_row<ND>(
-          out + ((size_t(lb) * sh.T + rr / G) * sh.Hq + kvh * G + rr % G) *
-                    hd,
-          o, h, lane, 1.f / fmaxf(l[h], 1e-30f), hd);
-  }
-}
-
-template <int HD, typename KV, bool PACK>
-int launch_mma(const void* q, const void* k_rows, const void* v_rows,
-               const void* k_scales, const void* v_scales, void* out,
-               const void* kv_lens, const void* q_offsets,
-               const void* row_ids, const void* layer, const Shape& sh,
-               int Bk, void* stream) {
-  constexpr size_t SMEM = mma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      extend_mma_kernel<HD, KV, PACK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid((sh.G * sh.T + MBQ - 1) / MBQ, sh.Hkv, Bk);
-  extend_mma_kernel<HD, KV, PACK>
-      <<<grid, hopper::MmaTile<HD>::NT, SMEM,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q), static_cast<const KV*>(k_rows),
-          static_cast<const KV*>(v_rows),
-          static_cast<const float*>(k_scales),
-          static_cast<const float*>(v_scales), static_cast<bf16*>(out),
-          static_cast<const int*>(kv_lens),
-          static_cast<const int*>(q_offsets),
-          static_cast<const int*>(row_ids), static_cast<const int*>(layer),
-          sh);
+  dim3 grid((sh.G * sh.T + BQ - 1) / BQ, sh.Hkv, Bk);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  bf16* o = static_cast<bf16*>(out);
+  const int* lens = static_cast<const int*>(kv_lens);
+  const int* offs = static_cast<const int*>(q_offsets);
+  const int* rids = static_cast<const int*>(row_ids);
+  const int* lay = static_cast<const int*>(layer);
+  if constexpr (WIDE)
+    extend_d256_kernel<KV, PACK><<<grid, NTHREADS, smem, st>>>(
+        mk, mv, qp, ks, vs, o, lens, offs, rids, lay, sh);
+  else
+    extend_kernel<W, KV, PACK><<<grid, NTHREADS, smem, st>>>(
+        mk, mv, qp, ks, vs, o, lens, offs, rids, lay, sh);
   return int(cudaGetLastError());
 }
 
@@ -1086,8 +1030,7 @@ int launch(const void* q, const void* k_rows, const void* v_rows,
            int S, int head_dim, float scale, int window, float cap,
            float inv_cap, void* stream) {
   constexpr bool QUANT = sizeof(KV) == 1;
-  // head_dim % 16: an int8 row of head_dim bytes is a TMA stride and a run
-  // of 16-byte loads
+  // head_dim % 16: an int8 row of head_dim bytes is a TMA stride
   if (head_dim < 16 || head_dim > 256 || head_dim % 16 != 0 ||
       Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
       Bk <= 0 || Bk > 65535 || T <= 0 || L <= 0 || B <= 0 || S <= 0 ||
@@ -1096,59 +1039,14 @@ int launch(const void* q, const void* k_rows, const void* v_rows,
   const int G = Hq / Hkv;
   const Shape sh{T,      Hq,    Hkv, B,   S,      G,
                  window, head_dim, scale, cap, inv_cap};
-  if (head_dim <= 64)
-    return launch_mma<64, KV, PACK>(q, k_rows, v_rows, k_scales, v_scales,
-                                    out, kv_lens, q_offsets, row_ids, layer,
-                                    sh, Bk, stream);
-  if (head_dim <= 96)
-    return launch_mma<96, KV, PACK>(q, k_rows, v_rows, k_scales, v_scales,
-                                    out, kv_lens, q_offsets, row_ids, layer,
-                                    sh, Bk, stream);
-  // the rows as the 3-D map (head_dim, rows, L * B * Hkv): bf16 boxes of 64
-  // columns x `keys` rows (128-byte swizzle), int8 / int4 boxes of the
-  // kernel's width in bytes x `keys` rows; columns past head_dim read as
-  // zeros
-  const bool wide = head_dim > HD;
-  const int keys = wide ? DK : (PACK ? 64 : BK);
-  const int width = wide ? DW : HD;
-  const long long stripes = (long long)L * B * Hkv;
-  const int rows = PACK ? S / 2 : S;
-  CUtensorMap mk, mv;
-  const bool ok =
-      QUANT ? hopper::map_stripes(&mk, k_rows, 1, head_dim, rows, stripes,
-                                  width, keys, false) &&
-                  hopper::map_stripes(&mv, v_rows, 1, head_dim, rows,
-                                      stripes, width, keys, false)
-            : hopper::map_stripes(&mk, k_rows, 2, 2 * head_dim, S, stripes,
-                                  64, keys, true) &&
-                  hopper::map_stripes(&mv, v_rows, 2, 2 * head_dim, S,
-                                      stripes, 64, keys, true);
-  if (!ok) return int(cudaErrorInvalidValue);
-  const void* fn = wide ? reinterpret_cast<const void*>(
-                              extend_d256_kernel<KV, PACK>)
-                        : reinterpret_cast<const void*>(
-                              extend_kernel<KV, PACK>);
-  const size_t smem = wide ? d_smem_bytes<KV>() : smem_bytes<KV, PACK>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid((G * T + BQ - 1) / BQ, Hkv, Bk);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const float* ks = static_cast<const float*>(k_scales);
-  const float* vs = static_cast<const float*>(v_scales);
-  bf16* o = static_cast<bf16*>(out);
-  const int* lens = static_cast<const int*>(kv_lens);
-  const int* offs = static_cast<const int*>(q_offsets);
-  const int* rids = static_cast<const int*>(row_ids);
-  const int* lay = static_cast<const int*>(layer);
-  if (wide)
-    extend_d256_kernel<KV, PACK><<<grid, NTHREADS, smem, st>>>(
-        mk, mv, qp, ks, vs, o, lens, offs, rids, lay, sh);
-  else
-    extend_kernel<KV, PACK><<<grid, NTHREADS, smem, st>>>(
-        mk, mv, qp, ks, vs, o, lens, offs, rids, lay, sh);
-  return int(cudaGetLastError());
+#define AURORA_EXTEND_ARGS                                                 \
+  q, k_rows, v_rows, k_scales, v_scales, out, kv_lens, q_offsets, row_ids, \
+      layer, Bk, L, sh, stream
+  if (head_dim <= 64) return launch_at<64, KV, PACK>(AURORA_EXTEND_ARGS);
+  if (head_dim <= 96) return launch_at<96, KV, PACK>(AURORA_EXTEND_ARGS);
+  if (head_dim <= 128) return launch_at<128, KV, PACK>(AURORA_EXTEND_ARGS);
+  return launch_at<DW, KV, PACK>(AURORA_EXTEND_ARGS);
+#undef AURORA_EXTEND_ARGS
 }
 
 }  // namespace
@@ -1197,7 +1095,7 @@ extern "C" int aurora_ragged_extend_int4(
 }
 
 // the kernel of a mode ("bf16", "int8", "int4"; kernel width 128, or with
-// "_hd64" or "_hd96" the mma.sync kernel of that width, with "_hd256"
+// "_hd64" or "_hd96" extend_kernel at that width, with "_hd256"
 // extend_d256_kernel) and its dynamic shared bytes, for
 // aurora_kernel_attrs
 extern "C" int aurora_ragged_extend_kernel(const char* mode, const void** fn,
@@ -1208,28 +1106,23 @@ extern "C" int aurora_ragged_extend_kernel(const char* mode, const void** fn,
     *smem = int(SMEM);                           \
     return 0;                                    \
   }
-#define AURORA_EXTEND_MMA_MODES(W)                                      \
-  AURORA_EXTEND_FN("bf16_hd" #W, (extend_mma_kernel<W, bf16, false>),    \
-                   mma_smem_bytes<W>())                                  \
-  AURORA_EXTEND_FN("int8_hd" #W, (extend_mma_kernel<W, int8_t, false>),  \
-                   mma_smem_bytes<W>())                                  \
-  AURORA_EXTEND_FN("int4_hd" #W, (extend_mma_kernel<W, int8_t, true>),   \
-                   mma_smem_bytes<W>())
-  AURORA_EXTEND_MMA_MODES(64)
-  AURORA_EXTEND_MMA_MODES(96)
+#define AURORA_EXTEND_MODES(S, W)                                          \
+  AURORA_EXTEND_FN("bf16" S, (extend_kernel<W, bf16, false>),             \
+                   (smem_bytes<W, bf16, false>()))                         \
+  AURORA_EXTEND_FN("int8" S, (extend_kernel<W, int8_t, false>),           \
+                   (smem_bytes<W, int8_t, false>()))                       \
+  AURORA_EXTEND_FN("int4" S, (extend_kernel<W, int8_t, true>),            \
+                   (smem_bytes<W, int8_t, true>()))
+  AURORA_EXTEND_MODES("_hd64", 64)
+  AURORA_EXTEND_MODES("_hd96", 96)
+  AURORA_EXTEND_MODES("", 128)
   AURORA_EXTEND_FN("bf16_hd256", (extend_d256_kernel<bf16, false>),
                    d_smem_bytes<bf16>())
   AURORA_EXTEND_FN("int8_hd256", (extend_d256_kernel<int8_t, false>),
                    d_smem_bytes<int8_t>())
   AURORA_EXTEND_FN("int4_hd256", (extend_d256_kernel<int8_t, true>),
                    d_smem_bytes<int8_t>())
-  AURORA_EXTEND_FN("bf16", (extend_kernel<bf16, false>),
-                   (smem_bytes<bf16, false>()))
-  AURORA_EXTEND_FN("int8", (extend_kernel<int8_t, false>),
-                   (smem_bytes<int8_t, false>()))
-  AURORA_EXTEND_FN("int4", (extend_kernel<int8_t, true>),
-                   (smem_bytes<int8_t, true>()))
-#undef AURORA_EXTEND_MMA_MODES
+#undef AURORA_EXTEND_MODES
 #undef AURORA_EXTEND_FN
   return int(cudaErrorInvalidValue);
 }

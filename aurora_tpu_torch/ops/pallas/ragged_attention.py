@@ -25,7 +25,9 @@ falls back from one to the other. `*.launches` (bf16 kernels),
 `*.launches_int8` (int8 kernels), `*.launches_int4` (packed int4 kernels)
 and `*_plain.calls` (twins, any mode) count how often each path ran;
 `*.launches_window` counts, beside them, the launches of any mode that ran
-with a sliding window or a logit softcap. The decode kernel's split-KV
+with a sliding window or a logit softcap, and `ragged_attention
+.launches_w<W>` (W in KERNEL_WIDTHS) the extend launches of any mode on
+the kernel of compile-time width W. The decode kernel's split-KV
 grid is planned on the host by `decode_plan`. Its splits merge through
 one buffer of tickets per device, so decode launches on one device must
 run one at a time: on one stream, or ordered between streams (two graph
@@ -370,8 +372,9 @@ def _int_args(name, dev, n, **idx):
     return out
 
 
-# the extend kernel's compile-time head widths: 64 and 96 on mma.sync
-# tiles, 128 and 256 on wgmma (csrc/ragged_extend.cu)
+# the extend kernel's compile-time head widths, all on wgmma fed by TMA
+# (csrc/ragged_extend.cu): 64, 96 and 128 `extend_kernel`, 256
+# `extend_d256_kernel`
 KERNEL_WIDTHS = (64, 96, 128, 256)
 # query heads a KV head the decode kernel takes (GPT-BigCode's MQA: 48)
 DECODE_MAX_GROUP = 64
@@ -492,6 +495,8 @@ def ragged_attention(q, k_rows, v_rows, kv_lens, q_offsets, row_ids, *,
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     _count(ragged_attention, counter, window, logit_cap)
+    width = f"launches_w{kernel_head_width(hd)}"
+    setattr(ragged_attention, width, getattr(ragged_attention, width) + 1)
     return out
 
 
@@ -499,6 +504,9 @@ ragged_attention.launches = 0
 ragged_attention.launches_int8 = 0
 ragged_attention.launches_int4 = 0
 ragged_attention.launches_window = 0
+for _w in KERNEL_WIDTHS:
+    setattr(ragged_attention, f"launches_w{_w}", 0)
+del _w
 
 
 def ragged_decode_attention(q, k_new, v_new, k_rows, v_rows, kv_lens,

@@ -10,6 +10,7 @@ K-step decode block of the port's DeviceRunner, on one GPU.
     python3 -m aurora_tpu_torch.tools.profile_serve --w4kv8-a8     # W4, A8 prefill
     python3 -m aurora_tpu_torch.tools.profile_serve --mistral  # sliding window
     python3 -m aurora_tpu_torch.tools.profile_serve --gemma2   # Gemma-2-9B
+    python3 -m aurora_tpu_torch.tools.profile_serve --phi3     # Phi-3-mini
     python3 -m aurora_tpu_torch.tools.profile_serve --tiny --device cpu  # logic check
     python3 aurora_tpu_torch/tools/profile_serve.py --tree T --gemma2  # T's package
 
@@ -28,7 +29,12 @@ Gemma-2-9B at full width and depth (`Gemma2Config.gemma2_9b`, head_dim
 256, the window on even layers, both caps) through
 `gemma2_serving_params`, bf16 weights and KV, at chip_smoke's
 `[serve-gemma2-*]` engine settings: a prompt of 6000 tokens in a 6144
-bucket, rows of prompt + 256, kv_chunk 1024), fills
+bucket, rows of prompt + 256, kv_chunk 1024); --phi3 builds Phi-3-mini-4k
+at full width and depth (chip_smoke.py's PHI3_MINI through the port's
+converter: head_dim 96, MHA, the window of 2047 on every layer), bf16
+weights and KV, at chip_smoke's `[serve-phi3-mini-*]` engine settings: a
+prompt of 3500 tokens (the middle of its 3,000-4,000) in a 4096 bucket,
+rows of prompt + 256, kv_chunk 256), fills
 the rows with one extend wave of text embeddings (the ViT is not run
 here; chip_smoke.py times it), then reads:
 
@@ -86,8 +92,9 @@ _QUANT_MODES = {"w4kv8": ("int4", "int8", {}), "w8kv8": ("int8", "int8", {}),
                 "w4kv8-flat": ("int4", "int8", {"w4_tiled": False}),
                 "w4kv8-a8": ("int4", "int8", {"w4_prefill": "a8"})}
 # decode kernel families: name → substrings of the device kernels' names
-_FAMILIES = {"attention": ("decode_kernel", "extend_kernel",
-                           "extend_mma_kernel", "extend_d256_kernel"),
+# ("extend_": every ragged extend kernel, also those of another tree's
+# package under --tree)
+_FAMILIES = {"attention": ("decode_kernel", "extend_"),
              "w4a8": ("w4a8_kernel",),
              "fused_mlp": ("mlp_tile_kernel", "mlp_reduce"),
              "quantizer": ("quantize_rows",)}
@@ -147,6 +154,21 @@ def matmul_ms(events, per: int) -> float:
                            for k in keys)) / 1e3 / per
 
 
+def _phi3_config():
+    """Phi-3-mini-4k's LlamaConfig: chip_smoke.py's PHI3_MINI (this
+    checkout's, whatever tree is profiled) through the port's converter."""
+    import importlib.util
+
+    from aurora_tpu_torch.models.convert import llama_config_from_hf
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return llama_config_from_hf(smoke.PHI3_MINI)
+
+
 def trace_device(fn, path, sync, activities):
     """Run fn once under torch.profiler, synchronized before and after,
     and export its Chrome trace to `path` → (profiled wall ms, the
@@ -185,6 +207,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gemma2", action="store_true",
                     help="Gemma-2-9B (window on even layers, caps), bf16 "
                          "weights and KV")
+    ap.add_argument("--phi3", action="store_true",
+                    help="Phi-3-mini-4k (head_dim 96, window 2047), bf16 "
+                         "weights and KV")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="build/profile_serve")
     ap.add_argument("--tree", default=None,
@@ -216,8 +241,8 @@ def main(argv=None) -> int:
         print("profile_serve: CUDA is not available")
         return 1
     modes = [m for m in _QUANT_MODES if getattr(args, m.replace("-", "_"))]
-    if len(modes) + args.mistral + args.gemma2 > 1:
-        ap.error("at most one of --mistral, --gemma2, --"
+    if len(modes) + args.mistral + args.gemma2 + args.phi3 > 1:
+        ap.error("at most one of --mistral, --gemma2, --phi3, --"
                  + ", --".join(_QUANT_MODES))
     long_prompt = args.mistral or args.gemma2
     dtype = torch.bfloat16 if on_gpu else torch.float32
@@ -232,18 +257,22 @@ def main(argv=None) -> int:
                                       free_source=True)
         cfg = model.cfg
     else:
-        if args.tiny:       # --mistral: a window shorter than the prompt
+        if args.tiny:       # a window shorter than the prompt
             cfg = LlamaConfig.tiny()
-            if args.mistral:
+            if args.mistral or args.phi3:
                 cfg = dataclasses.replace(cfg, sliding_window=8)
         elif args.mistral:
             cfg = LlamaConfig.mistral_7b()
+        elif args.phi3:
+            cfg = _phi3_config()
         else:
             cfg = LlamaConfig.vicuna_7b_v15_16k()
         model = build(LlamaModel, cfg, device=dev, dtype=dtype,
                       generator=gen)
-    P = 20 if args.tiny else args.prompt or (6000 if long_prompt else 1406)
-    bucket = 32 if args.tiny else 6144 if long_prompt else 1536
+    P = 20 if args.tiny else args.prompt or (
+        6000 if long_prompt else 3500 if args.phi3 else 1406)
+    bucket = 32 if args.tiny else 6144 if long_prompt else \
+        4096 if args.phi3 else 1536
     kv_chunk = 1024 if long_prompt and not args.tiny else 256
     K, B = args.steps, args.batch
     if K * (args.reps + 3) > 256:
@@ -345,7 +374,8 @@ def main(argv=None) -> int:
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_gpu
                                      else [])
     res = {"card": card, "model": "mistral-7b" if args.mistral else
-           "gemma-2-9b" if args.gemma2 else "vicuna-7b-v1.5-16k",
+           "gemma-2-9b" if args.gemma2 else
+           "phi-3-mini-4k" if args.phi3 else "vicuna-7b-v1.5-16k",
            "window": cfg.sliding_window,
            "K": K, "batch": B, "prompt": P,
            "weights": wq or str(dtype).split(".")[-1],

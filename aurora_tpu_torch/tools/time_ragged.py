@@ -13,7 +13,13 @@ chip_smoke's generator, then Mistral-7B's (rows of 7168, Hkv 8, window
 `[kernels]` family shape and its served extend (the [serve-gemma2-*]
 runs' four prompts in one 6144 wave, rows of 6144) with the even layers'
 window 4096 and cap 50 and with neither, both from chip_smoke's own
-generators. `--cases` picks some of the three. Each case holds the tree's
+generators; then the narrow heads ("narrow"): chip_smoke's `[kernels]`
+family shapes whose head is 96 wide or narrower (Phi-3-mini, MiniCPM-2B,
+Qwen2-0.5B) and its served extends of Phi-3-mini (window 2047) and
+StableLM-3B (hd 80); then "pad128", the other route for a head of 65-96:
+the width-128 kernel at Phi-3-mini's heads and lengths (its family shape
+and its served extend) on rows 128 wide. `--cases` picks some of the
+five. Each case holds the tree's
 kernels against the tree's plain twins at chip_smoke's bounds and prints
 chip_smoke's `[kernels]` line: `*_ms` are CUDA-graph replays (device
 time), `*_eager_ms` one call between two CUDA events (the host's issue
@@ -21,9 +27,10 @@ time included). The Mistral cases draw their inputs from a generator of
 their own (same shapes and lengths as chip_smoke's, other values).
 
     python3 aurora_tpu_torch/tools/time_ragged.py --cases gemma2
+    python3 aurora_tpu_torch/tools/time_ragged.py --cases narrow,pad128
 """
 
-CASES = ("serving", "mistral", "gemma2")
+CASES = ("serving", "mistral", "gemma2", "narrow", "pad128")
 
 import argparse
 import importlib.util
@@ -91,6 +98,28 @@ def main(argv=None) -> int:
             for opts in smoke.GEMMA2_SERVED_OPTIONS:
                 smoke.attention_case(torch, ra, dev, gs, 8, mode,
                                      **smoke.gemma2_served_case(), **opts)
+    if "narrow" in cases:
+        gf = torch.Generator(device=dev).manual_seed(smoke.SEED + 11)
+        for fam, hd, Hq, hkv in smoke.FAMILY_SHAPES:
+            if hd <= 96:
+                for mode in smoke.KV_MODES:
+                    smoke.attention_case(torch, ra, dev, gf, hkv, mode,
+                                         L=smoke.FAMILY_L, hd=hd, Hq=Hq,
+                                         family=fam)
+        gn = torch.Generator(device=dev).manual_seed(smoke.SEED + 17)
+        for fam, hkv, case in smoke.SERVED_CASES:
+            for mode in smoke.KV_MODES:
+                smoke.attention_case(torch, ra, dev, gn, hkv, mode, **case())
+    if "pad128" in cases:
+        gp = torch.Generator(device=dev).manual_seed(smoke.SEED + 18)
+        phi3 = next(f for f in smoke.FAMILY_SHAPES if f[0] == "phi3-mini")
+        for mode in smoke.KV_MODES:
+            smoke.attention_case(torch, ra, dev, gp, phi3[3], mode,
+                                 L=smoke.FAMILY_L, hd=128, Hq=phi3[2],
+                                 family="phi3-mini-pad128")
+            smoke.attention_case(torch, ra, dev, gp, 32, mode,
+                                 **dict(smoke.phi3_served_case(), hd=128,
+                                        family="phi3-mini-served-pad128"))
     return 0
 
 

@@ -274,10 +274,15 @@ Phases, one line each; any failure raises and exits non-zero:
 Then the dense zoo: `[kernels]` also holds both attention
 kernels at the zoo's published (head_dim, G) in every KV mode
 (FAMILY_SHAPES: Gemma-2-9B 256/2, Phi-3-mini 96/1, MiniCPM-2B 64/1,
-StarCoder2-7B 128/9, GLM-4-9B 128/16, StarCoder 128/48), the extend
+StarCoder2-7B 128/9, GLM-4-9B 128/16, StarCoder 128/48, Qwen2-0.5B
+64/7), the extend
 kernel at Gemma-2-9B's served extend (the `[serve-gemma2-*]` prompts in
 one 6144 wave, rows of 6144, hd 256: `extend_d256_kernel`) with the even
-layers' window 4096 and cap 50 and with neither, timed beside SDPA, and
+layers' window 4096 and cap 50 and with neither, timed beside SDPA, at
+Phi-3-mini's (the `[serve-phi3-mini-*]` prompts in one 4096 wave, rows of
+4096, hd 96, window 2047: `extend_kernel<96>`) and at StableLM-3B's (the
+`[serve-stablelm-*]` prompts in one 2048 wave, rows of 2304, hd 80), timed
+beside SDPA (Phi-3's with the band mask), and
 flash
 forward and backward at D 256 (gemma-7b's 16 heads, T 2048) and at D
 512 (the widest head the kernels take) against their twins, timed beside
@@ -293,7 +298,13 @@ and one decode step against the twins, `[serve-qwen2-*]` Qwen2-7B
 converter: head_dim 80, which both ragged kernels run padded to 96;
 4 layers, 4 prompts of 1,000-2,000 ids, 32 tokens) with bf16, int8 and
 packed int4 KV, each with its launch counts and the logits of a wave and
-a decode step against the twins; after
+a decode step against the twins, and `[serve-phi3-mini-*]` Phi-3-mini-4k
+whole (PHI3_MINI, microsoft/Phi-3-mini-4k-instruct's config, through the
+port's converter from a fused random checkpoint tree: head_dim 96, MHA,
+window 2047; 4 prompts of 3,000-4,000 ids in one wave, 32 tokens) with
+bf16 KV twice (bit for bit), int8 and packed int4 KV: every extend launch
+on `extend_kernel<96>` and windowed, the logits of a wave and a decode
+step against the twins; after
 `[train-parity]`, `[train-dpo]` takes 3 DPO steps (train/preference.py)
 at Vicuna-7B widths (2 layers, 4 unmasked pairs of 2048 tokens) twice,
 losses bit for bit, and `[train-dpo-gemma]` 2 steps at gemma-7b's widths
@@ -321,7 +332,8 @@ expert path on the kernel against its fp32 twin.
 
 `python3 chip_smoke.py --only train-cli` runs infer-load and the four
 train-cli phases alone; `--only kernels`, `--only serve-gemma2` (the
-Gemma-2, Qwen2 and StableLM runs), `--only train-dpo` and `--only
+Gemma-2, Qwen2 and StableLM runs), `--only serve-phi3` (the Phi-3-mini
+runs), `--only train-dpo` and `--only
 serve-moe` (the
 MoE and MLA phases above) the newer phases (no kernel JSON line, no final
 line); `--only` repeats.
@@ -438,7 +450,8 @@ MISTRAL_CASE = dict(S=7168, T=6144, offs=(0, 0, 0, 0),
 # (L 4 layers of rows: the kernels read one layer)
 FAMILY_SHAPES = (("gemma2-9b", 256, 16, 8), ("phi3-mini", 96, 32, 32),
                  ("minicpm-2b", 64, 36, 36), ("starcoder2-7b", 128, 36, 4),
-                 ("glm-4-9b", 128, 32, 2), ("starcoder", 128, 48, 1))
+                 ("glm-4-9b", 128, 32, 2), ("starcoder", 128, 48, 1),
+                 ("qwen2-0.5b", 64, 14, 2))
 FAMILY_L = 4
 # flash at D 256: google/gemma-7b's 16 heads at T 2048
 FLASH_D256 = dict(B=2, T=2048, H=16, Hkv=16, D=256)
@@ -487,6 +500,30 @@ STABLELM_RUNS = (("bf16", "none", "launches"),
 # rounding can flip one of 15 levels)
 STABLELM_LOGITS_TOL = {"bf16": LOGITS_REL_TOL, "kv8": LOGITS_REL_TOL,
                        "kv4": LOGITS_W4KV4_REL_TOL}
+# microsoft/Phi-3-mini-4k-instruct's config.json (the fields the port's
+# converter reads): head_dim 3072 / 32 = 96, MHA, a sliding window of 2047
+# on every layer. Served whole (32 layers), random bf16 weights written as
+# the checkpoint's fused tree (qkv_proj, gate_up_proj) and converted by
+# `llama_params_from_hf`: 4 prompts of PHI3_PROMPT ids in one wave of the
+# PHI3_BUCKET bucket (rows of PHI3_BUCKET), PHI3_MAX_NEW greedy tokens,
+# bf16 KV twice (bit for bit), int8 KV, packed int4 KV
+PHI3_MINI = dict(model_type="phi3", vocab_size=32064, hidden_size=3072,
+                 intermediate_size=8192, num_hidden_layers=32,
+                 num_attention_heads=32, num_key_value_heads=32,
+                 hidden_act="silu", max_position_embeddings=4096,
+                 rms_norm_eps=1e-5, rope_theta=10000.0, rope_scaling=None,
+                 sliding_window=2047, attention_bias=False,
+                 tie_word_embeddings=False)
+PHI3_PROMPT = (3000, 4000)
+PHI3_BUCKET = 4096
+PHI3_MAX_NEW = 32
+PHI3_RUNS = (("bf16", "none", "launches"),
+             ("bf16-again", "none", "launches"),
+             ("kv8", "int8", "launches_int8"),
+             ("kv4", "int4", "launches_int4"))
+PHI3_LOGITS_TOL = 1.5e-1    # Mistral's bound: 32 random bf16 layers
+PHI3_LOGITS_REASON = ("32 random bf16 layers amplify single bf16 roundings "
+                      "(Mistral's bound)")
 # Qwen2-7B at its widths, 4 layers: qkv biases drawn N(0, 1) so that they
 # act, G 7, rope theta 1e6
 # The MoE and MLA families: the grouped-expert kernel at each family's
@@ -4099,7 +4136,9 @@ def family_kernel_phase(torch, ra, fa, dev):
     """[kernels] at the zoo's published shapes (FAMILY_SHAPES): both
     attention kernels in every KV mode against their twins, timed beside
     SDPA (bf16), and at Gemma-2-9B's served extend (gemma2_served_case,
-    GEMMA2_SERVED_OPTIONS; keys ("gemma2-9b-served", mode, served_tag));
+    GEMMA2_SERVED_OPTIONS; keys ("gemma2-9b-served", mode, served_tag)),
+    at Phi-3-mini's (window 2047, SDPA with the band mask) and
+    StableLM-3B's (hd 80) (SERVED_CASES; keys (family, mode));
     then flash forward and backward at D 256 (google/
     gemma-7b's heads) timed, and a D 256 case with GQA, segments and a
     q_offset; then at D 512 (FLASH_D512) timed, and D 384 (padded to 512)
@@ -4121,6 +4160,13 @@ def family_kernel_phase(torch, ra, fa, dev):
             res[("gemma2-9b-served", mode, served_tag(opts))] = \
                 attention_case(torch, ra, dev, gs, 8, mode,
                                **gemma2_served_case(), **opts)
+    # Phi-3-mini's windowed and StableLM-3B's served extends (a generator
+    # of their own)
+    gn = torch.Generator(device=dev).manual_seed(SEED + 17)
+    for fam, hkv, case in SERVED_CASES:
+        for mode in KV_MODES:
+            res[(fam, mode)] = attention_case(torch, ra, dev, gn, hkv, mode,
+                                              **case())
     fl = FLASH_D256
     timed = flash_case(torch, fa, dev, g, fl["B"], fl["T"], fl["H"],
                        fl["Hkv"], timed=True, D=fl["D"])
@@ -4154,14 +4200,56 @@ def gemma2_served_case():
                 Hq=16, family="gemma2-9b-served")
 
 
+def phi3_prompt_lens(rng=None):
+    """The [serve-phi3-mini-*] runs' prompt lengths: the first draw of
+    their generator (SEED + 16)."""
+    rng = np.random.default_rng(SEED + 16) if rng is None else rng
+    return rng.integers(PHI3_PROMPT[0], PHI3_PROMPT[1] + 1, size=N_REQUESTS)
+
+
+def phi3_served_case():
+    """attention_case's arguments at Phi-3-mini's served extend: the
+    [serve-phi3-mini-*] runs' 4 prompts in one wave of the PHI3_BUCKET
+    bucket from position 0, rows of PHI3_BUCKET tokens, Hq 32, hd 96, the
+    window of 2047 (Hkv 32 is the caller's); decode one token past each
+    prompt."""
+    plens = tuple(int(n) for n in phi3_prompt_lens())
+    return dict(L=FAMILY_L, S=PHI3_BUCKET, T=PHI3_BUCKET,
+                offs=(0,) * N_REQUESTS, lens=plens,
+                dlens=tuple(n + 1 for n in plens), hd=96, Hq=32,
+                window=PHI3_MINI["sliding_window"], family="phi3-mini-served")
+
+
+def stablelm_served_case():
+    """attention_case's arguments at StableLM-3B's served extend: the
+    [serve-stablelm-*] runs' 4 prompts (the first draw of their generator,
+    SEED + 15) in one wave of their 2048 bucket from position 0, rows of
+    2304 tokens (their engine's 2080, rounded up to kv_chunk 256), Hq 32,
+    hd 80 (Hkv 32 is the caller's)."""
+    plens = tuple(int(n) for n in np.random.default_rng(SEED + 15).integers(
+        STABLELM_PROMPT[0], STABLELM_PROMPT[1] + 1, size=N_REQUESTS))
+    return dict(L=FAMILY_L, S=2304, T=2048, offs=(0,) * N_REQUESTS,
+                lens=plens, dlens=tuple(n + 1 for n in plens), hd=80, Hq=32,
+                family="stablelm-3b-served")
+
+
+# the served extends that [kernels] times beside the family shapes:
+# (family, Hkv, case)
+SERVED_CASES = (("phi3-mini-served", 32, phi3_served_case),
+                ("stablelm-3b-served", 32, stablelm_served_case))
+
+
 def served_tag(opts):
     return "window-cap" if opts else "none"
 
 
 def extend_kernel_name(hd):
-    """The csrc/ragged_extend.cu kernel that runs head_dim hd."""
-    return ("extend_mma_kernel" if hd <= 96 else
-            "extend_kernel" if hd <= 128 else "extend_d256_kernel")
+    """The csrc/ragged_extend.cu kernel that runs head_dim hd (a multiple
+    of 16 up to 256), as the profiler names it: extend_kernel at the
+    narrowest of its widths 64, 96 and 128 that holds hd, else
+    extend_d256_kernel."""
+    w = next((w for w in (64, 96, 128) if w >= hd), None)
+    return f"extend_kernel<{w}>" if w else "extend_d256_kernel"
 
 
 def gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains):
@@ -4412,13 +4500,14 @@ def stablelm_phase(torch, engine_mod, ra, dev, card, plains):
         counters = [(ra.ragged_attention, counter),
                     (ra.ragged_decode_attention, counter),
                     (ra.ragged_attention, "launches_window"),
-                    (ra.ragged_decode_attention, "launches_window")] + plains
+                    (ra.ragged_decode_attention, "launches_window"),
+                    (ra.ragged_attention, "launches_w96")] + plains
         reqs = [Request(rid=f"s{i}", input_ids=list(p),
                         max_new_tokens=STABLELM_MAX_NEW, eos_ids=())
                 for i, p in enumerate(prompts)]
         wall, counts = serve(torch, engine, reqs, counters, STABLELM_MAX_NEW)
-        ext, dec, ext_w, dec_w = (counts[f"{f.__name__}.{a}"]
-                                  for f, a in counters[:4])
+        ext, dec, ext_w, dec_w, w96 = (counts[f"{f.__name__}.{a}"]
+                                       for f, a in counters[:5])
         steps = engine._steps
         phase("serve-stablelm-" + run, card=repr(card),
               config=f"stablelm-3b-4e1t/L{L}/hd{hd}/rotary"
@@ -4432,8 +4521,9 @@ def stablelm_phase(torch, engine_mod, ra, dev, card, plains):
               decode_steps=steps, wall_s=f"{wall:.2f}",
               peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
               launches=json.dumps(counts).replace(" ", ""))
-        check(ext == L and dec == L * steps and ext_w == 0 and dec_w == 0,
-              f"{run}: ragged launches {counts}, steps {steps}")
+        check(ext == L and w96 == L and dec == L * steps and ext_w == 0
+              and dec_w == 0, f"{run}: ragged launches {counts}, steps "
+              f"{steps}")
         check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
               f"plain twins ran: {counts}")
         logits_check(torch, engine_mod, engine.runner,
@@ -4448,6 +4538,142 @@ def stablelm_phase(torch, engine_mod, ra, dev, card, plains):
         del engine
         gc.collect()
     del llm
+    torch.cuda.empty_cache()
+    return out
+
+
+def phi3_hf_tree(torch, cfg, dev, gen):
+    """Random bf16 weights of a Phi-3 checkpoint in its own key layout
+    (the fused qkv_proj and gate_up_proj), drawn as models/init.py draws
+    them: matrices N(0, 0.02^2), norm scales one."""
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    hd, H, Hkv = cfg.head_dim, cfg.num_attention_heads, \
+        cfg.num_key_value_heads
+
+    def mat(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.bfloat16).normal_(
+            0.0, 0.02, generator=gen)
+
+    def ones(n):
+        return torch.ones(n, device=dev, dtype=torch.bfloat16)
+    sd = {"model.embed_tokens.weight": mat(V, D),
+          "model.norm.weight": ones(D), "lm_head.weight": mat(V, D)}
+    for i in range(cfg.num_hidden_layers):
+        b = f"model.layers.{i}."
+        sd[b + "self_attn.qkv_proj.weight"] = mat((H + 2 * Hkv) * hd, D)
+        sd[b + "self_attn.o_proj.weight"] = mat(D, H * hd)
+        sd[b + "mlp.gate_up_proj.weight"] = mat(2 * I, D)
+        sd[b + "mlp.down_proj.weight"] = mat(D, I)
+        sd[b + "input_layernorm.weight"] = ones(D)
+        sd[b + "post_attention_layernorm.weight"] = ones(D)
+    return sd
+
+
+def phi3_phase(torch, engine_mod, ra, dev, card, plains):
+    """Phi-3-mini-4k at full width and depth (PHI3_MINI through the
+    port's converter: head_dim 96, MHA, window 2047 on every layer),
+    random bf16 weights from the seed written as the checkpoint's fused
+    tree and converted by `llama_params_from_hf`: N_REQUESTS prompts of
+    PHI3_PROMPT random ids in one wave, PHI3_MAX_NEW greedy tokens, with
+    bf16 KV (twice: the second run's tokens and logprobs must equal the
+    first's bit for bit), int8 KV and packed int4 KV. Each run: the
+    ragged kernels' launch counts (every layer a wave and a decode step,
+    every launch windowed, every extend launch on the width-96 kernel and
+    none on another width, the twins 0), and the logits of one extend
+    wave and one decode step against the same engine on the plain twins
+    → {run: (extend launches, decode launches)}."""
+    from aurora_tpu_torch.models.convert import (llama_config_from_hf,
+                                                 llama_params_from_hf)
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    cfg = llama_config_from_hf(PHI3_MINI)
+    hd, L = cfg.head_dim, cfg.num_hidden_layers
+    check(hd == 96 and ra.kernel_head_width(hd) == 96
+          and cfg.num_key_value_heads == cfg.num_attention_heads
+          and cfg.sliding_window == 2047, f"phi3 config {cfg}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = phi3_hf_tree(torch, cfg, dev, gen)
+    llm = llama_params_from_hf(sd, cfg, dtype=torch.bfloat16, device=dev)
+    del sd
+    gc.collect()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in llm.parameters()) / 1e9
+    rng = np.random.default_rng(SEED + 16)
+    plens = phi3_prompt_lens(rng)
+    check(plens.min() > cfg.sliding_window,
+          f"prompts {plens} within the window {cfg.sliding_window}")
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in plens]
+    widths = [(ra.ragged_attention, f"launches_w{w}")
+              for w in ra.KERNEL_WIDTHS]
+    out, first = {}, None
+    for run, kv_quant, counter in PHI3_RUNS:
+        ecfg = EngineConfig(max_batch=N_REQUESTS, max_seq_len=PHI3_BUCKET,
+                            kv_chunk=256, prefill_buckets=(PHI3_BUCKET,),
+                            decode_steps=16, kv_quant=kv_quant,
+                            disable_radix_cache=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(llm, cfg, ecfg, device=dev, seed=SEED)
+        counters = [(ra.ragged_attention, counter),
+                    (ra.ragged_decode_attention, counter),
+                    (ra.ragged_attention, "launches_window"),
+                    (ra.ragged_decode_attention, "launches_window"),
+                    *widths] + plains
+        reqs = [Request(rid=f"p{i}", input_ids=list(p),
+                        max_new_tokens=PHI3_MAX_NEW, eos_ids=(),
+                        logprobs=True)
+                for i, p in enumerate(prompts)]
+        wall, counts = serve(torch, engine, reqs, counters, PHI3_MAX_NEW)
+        ext, dec, ext_w, dec_w = (counts[f"{f.__name__}.{a}"]
+                                  for f, a in counters[:4])
+        by_width = {a: counts[f"{f.__name__}.{a}"] for f, a in widths}
+        steps = engine._steps
+        phase("serve-phi3-mini-" + run, card=repr(card),
+              config=f"phi-3-mini-4k/L{L}/hd{hd}/window"
+                     f"{cfg.sliding_window}/kv-{kv_quant}",
+              requests=N_REQUESTS,
+              prompt_tokens=",".join(str(int(n)) for n in plens),
+              new_tokens=PHI3_MAX_NEW, init_s=f"{init_s:.1f}",
+              weight_gb=f"{weight_gb:.2f}",
+              extend_s=f"{engine.t_extend_s:.4f}",
+              decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+              decode_steps=steps, wall_s=f"{wall:.2f}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              launches=json.dumps(counts).replace(" ", ""))
+        # one wave: every layer once on the width-96 kernel, windowed
+        check(ext == L and ext_w == L and dec == L * steps and dec_w == dec
+              and by_width["launches_w96"] == L
+              and sum(by_width.values()) == L,
+              f"{run}: ragged launches {counts}, steps {steps}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"plain twins ran: {counts}")
+        got = [(r.output_ids, list(r.output_logprobs)) for r in reqs]
+        if run == "bf16":
+            first = got
+        elif run == "bf16-again":
+            check(got == first, "two bf16 Phi-3-mini runs differ")
+            phase("serve-phi3-mini-repeat", bitwise_equal=True,
+                  tokens=N_REQUESTS * PHI3_MAX_NEW)
+        if run != "bf16-again":
+            logits_check(torch, engine_mod, engine.runner,
+                         lambda r: llm.embed_tokens[
+                             torch.tensor(r.input_ids, device=dev)],
+                         reqs, PHI3_LOGITS_TOL, "logits-phi3-mini-" + run,
+                         {"ragged_attention": ra.ragged_attention_plain,
+                          "ragged_decode_attention":
+                              ra.ragged_decode_attention_plain},
+                         decode=True, decode_tol=PHI3_LOGITS_TOL,
+                         reason=PHI3_LOGITS_REASON)
+        out[run] = (ext, dec)
+        del engine
+        gc.collect()
+    del llm
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -5011,12 +5237,13 @@ def main(argv=None):
                                  "on one NVIDIA GPU (module docstring)")
     ap.add_argument("--only", action="append",
                     choices=["train-cli", "kernels", "serve-gemma2",
-                             "train-dpo", "serve-moe"],
+                             "serve-phi3", "train-dpo", "serve-moe"],
                     help="run these phases alone, in the script's order "
                          "(train-cli: [infer-load] and the four train-cli "
                          "phases; kernels: [build] and every [kernels] "
                          "case; serve-gemma2: the Gemma-2-9B, Qwen2-7B "
-                         "and StableLM-3B runs; train-dpo: both DPO "
+                         "and StableLM-3B runs; serve-phi3: the "
+                         "Phi-3-mini runs; train-dpo: both DPO "
                          "phases; serve-moe: "
                          "[kernels-moe] and the Mixtral, Qwen3-MoE and "
                          "DeepSeek-V2-Lite runs); no kernel JSON line, no "
@@ -5079,6 +5306,8 @@ def main(argv=None):
             gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains)
             qwen2_phase(torch, engine_mod, ra, qm, dev, card, plains)
             stablelm_phase(torch, engine_mod, ra, dev, card, plains)
+        if "serve-phi3" in only:
+            phi3_phase(torch, engine_mod, ra, dev, card, plains)
         if "train-dpo" in only:
             dpo_phase(torch, fa, dev, card, flash_counters, all_plains)
             dpo_phase(torch, fa, dev, card, flash_counters, all_plains,
@@ -5470,6 +5699,7 @@ def main(argv=None):
     gemma2 = gemma2_phase(torch, engine_mod, ra, qm, dev, card, plains)
     qwen2 = qwen2_phase(torch, engine_mod, ra, qm, dev, card, plains)
     stablelm = stablelm_phase(torch, engine_mod, ra, dev, card, plains)
+    phi3 = phi3_phase(torch, engine_mod, ra, dev, card, plains)
 
     # ---- the MoE and MLA families: Mixtral-8x7B, Qwen3-MoE, V2-Lite ------
     moe_runs = moe_serve_phase(torch, engine_mod, ra, qm, moe, dev, card,
@@ -5644,13 +5874,16 @@ def main(argv=None):
             e["launches_serve_qwen2"] = qwen2["w8kv8"][i] + qwen2["w4kv8"][i]
             for run, c in moe_runs.items():
                 e[f"launches_serve_{run.replace('-', '_')}"] = c[i]
-    # the StableLM-3B runs (head_dim 80, padded to the kernels' 96)
+    # the StableLM-3B runs (head_dim 80, padded to the kernels' 96) and
+    # the Phi-3-mini runs (head_dim 96; both bf16 runs)
     for e in kernels:
         for mode, run in (("bf16", "bf16"), ("int8", "kv8"), ("int4", "kv4")):
             if e["name"] in (f"ragged_attention[{mode}]",
                              f"ragged_decode_attention[{mode}]"):
                 i = int(e["name"].startswith("ragged_decode"))
                 e["launches_serve_stablelm"] = stablelm[run][i]
+                e["launches_serve_phi3_mini"] = phi3[run][i] + (
+                    phi3["bf16-again"][i] if run == "bf16" else 0)
         if e["name"] == "w8a8_matmul":
             e["launches_serve_mixtral_w8kv8"] = moe_runs["mixtral-w8kv8"][3]
         if e["name"] == "w4a8_matmul_tiled":
@@ -5691,6 +5924,26 @@ def main(argv=None):
                 r["plain_ms"], (r["bound_ms"], r["bound_by"]),
                 r["library_ms"], head_dim=256, q_heads=16, kv_heads=8,
                 kernel="extend_d256_kernel"))
+    # extend_kernel at its width 96 at Phi-3-mini's served extend (window
+    # 2047) and StableLM-3B's (hd 80); launches: that model's run in that
+    # KV mode (Phi-3: both bf16 runs)
+    served_runs = {"phi3-mini-served": phi3, "stablelm-3b-served": stablelm}
+    for fam, hkv, case in SERVED_CASES:
+        c = case()
+        for mode in KV_MODES:
+            r = fam_res[(fam, mode)]["extend"]
+            runs = served_runs[fam]
+            n = runs[gemma_run[mode]][0] + (
+                runs["bf16-again"][0] if mode == "bf16" and
+                "bf16-again" in runs else 0)
+            kernels.append(entry(
+                f"ragged_attention[{mode},{fam.replace('-served', '')},"
+                f"served]", "ragged_extend.cu", "ragged_attention.py:287",
+                n, r["err"], r["ms"], r["plain_ms"],
+                (r["bound_ms"], r["bound_by"]), r["library_ms"],
+                head_dim=c["hd"], q_heads=c["Hq"], kv_heads=hkv,
+                window=c.get("window", 0),
+                kernel=extend_kernel_name(c["hd"])))
     # flash at D 256 (google/gemma-7b: B 2, T 2048, H 16); launches from
     # [train-dpo-gemma], whose attention runs them; [train-dpo]'s (D 128)
     # beside the D 128 entries above. D 512 (FLASH_D512; its errors also

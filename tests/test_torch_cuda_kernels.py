@@ -26,9 +26,12 @@ with a window, an int4 tile's high half partly past kv_len) under the
 extend bounds; the extend kernel at head_dim 256 (extend_d256_kernel,
 G 1 and 2, T 700 over rows of 1024, offsets and lengths off its 64-key
 tiles, a window cutting tiles inside blocks, the cap) under the extend
-bounds and bitwise repeatable; both kernels at head_dims 16, 48, 80,
-112, 160 and 208 (padded to their kernel's width) with the window and
-the cap, and head_dims 72 and 264 refused. W4A8 matmul: max |Δ| /
+bounds and bitwise repeatable; both kernels at head_dims 16, 48, 64, 80,
+96, 112, 160 and 208 (padded to their kernel's width) with and without
+the window and the cap, and head_dims 72 and 264 refused; the extend
+kernel at widths 64 and 96 over rows of 1024 with prefix hits, G 1 and 7,
+bitwise repeatable, and every route's profiler name extend_kernel<W> or
+extend_d256_kernel (no mma.sync kernel). W4A8 matmul: max |Δ| /
 max |want| ≤ 1e-5 with fp32 output (only
 the fp32 order of the group sum differs), and bf16 output within one bf16
 rounding of the twin's; repeated launches agree bitwise. W8A8 matmul:
@@ -1147,41 +1150,116 @@ def test_extend_d256_kernel_is_bitwise_repeatable_on_card(cuda_device,
     assert torch.equal(again, got)
 
 
-# head widths off the kernels' compile-time ones, one for each route:
-# 16 and 48 (the 64 kernel), 80 (96), 112 (the wgmma 128 kernel), 160 and
-# 208 (extend_d256_kernel); StableLM-3B's heads are 80 wide
-PADDED_HEAD_DIMS = [16, 48, 80, 112, 160, 208]
+# head widths on and off the kernels' compile-time ones, one or more for
+# each route: 16, 48 and 64 (extend_kernel<64>), 80 and 96
+# (extend_kernel<96>: three 32-column boxes under the 64-byte swizzle),
+# 112 (extend_kernel<128>), 160 and 208 (extend_d256_kernel); StableLM-3B's
+# heads are 80 wide, Phi-3-mini's 96, MiniCPM-2B's 64
+PADDED_HEAD_DIMS = [16, 48, 64, 80, 96, 112, 160, 208]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("opts", [dict(window=100, logit_cap=50.0), {}],
+                         ids=["window-cap", "plain"])
 @pytest.mark.parametrize("hd", PADDED_HEAD_DIMS)
 @pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
-def test_ragged_kernels_take_every_head_dim_on_card(cuda_device, mode, hd):
-    """Both kernels at head_dims that are multiples of 16 off the kernels'
-    widths (the columns up to the kernel's width read as zeros), every KV
-    mode, the window and the cap (q scaled by 8), G 2: the extend bounds
-    with the off-control; decode row writes exact, the decode bounds, the
-    off-control."""
+def test_ragged_kernels_take_every_head_dim_on_card(cuda_device, mode, hd,
+                                                    opts):
+    """Both kernels at head_dims that are multiples of 16 on and off the
+    kernels' widths (the columns up to the kernel's width read as zeros),
+    every KV mode, with the window and the cap (q scaled by 8) and
+    without, G 2, lanes at q_offsets 150 and 3 (prefix hits): the extend
+    bounds with the off-control; decode row writes exact, the decode
+    bounds, the off-control."""
     lanes = ((0, 200), (150, 200), (3, 191), (0, 0))
-    opts = dict(window=100, logit_cap=50.0)
+    gain = 8.0 if opts else 1.0
     got, want, _, twin = _extend_case(cuda_device, hd, mode, hd, 2, 200, 512,
-                                      lanes, opts, gain=8.0)
+                                      lanes, opts, gain=gain)
     _extend_bounds(got, want, lanes, opts, twin)
     out, want, state, plain, args = _decode_case(
         cuda_device, 3 * hd, mode, 2, 2, (300, 0, 201, 512), 512, opts,
-        q_gain=8.0, hd=hd)
+        q_gain=gain, hd=hd)
     for got_t, want_t in zip(state, plain):
         assert torch.equal(got_t, want_t)
     diff = (out.float() - want).abs()
     assert bool((diff <= 3e-3 + RND * want.abs()).all()), diff.max().item()
     assert _lane_rel(out, want, (0, 2, 3)) <= 8e-3
     assert bool((out[1] == 0).all())
+    if not opts:
+        return
     q, kn, vn, lens_t, rows, kv = args
     off = tra.ragged_decode_attention_plain(
         q.float(), kn, vn, *[t.clone() for t in plain[:2]], lens_t, rows,
         layer=1, **dict(kv, **dict(zip(("k_scales", "v_scales"),
                                        [t.clone() for t in plain[2:]]))))[0]
     assert (out.float() - off).abs().max().item() > 10 * diff.max().item()
+
+
+# extend_kernel at its narrow widths over rows of 1024, T 700, so that a
+# block walks many 128-key tiles: lanes at q_offsets 300 and 37 (prefix
+# hits; kv_lens 1000 and 687 off the tiles, int4 across 256-token
+# segments) and a padded lane; MiniCPM-2B (64, G 1), Qwen2-0.5B's 14 query
+# heads over 2 KV heads (64, G 7), StableLM-3B (80, G 1), Phi-3-mini
+# (96, G 1); the window of 300 cuts tiles inside blocks
+NARROW_SHAPES = [(64, 1), (64, 7), (80, 1), (96, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [{}, dict(window=300),
+                                  dict(window=300, logit_cap=50.0)],
+                         ids=["plain", "window", "both"])
+@pytest.mark.parametrize("hd,G", NARROW_SHAPES,
+                         ids=[f"hd{h}-g{g}" for h, g in NARROW_SHAPES])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_extend_narrow_kernel_prefix_hits_on_card(cuda_device, mode, hd, G,
+                                                  opts):
+    """extend_kernel<64> and <96> against the twin in every KV mode, at
+    lanes that extend a cached prefix, with G 1 and 7, with and without
+    the window and the cap (q scaled by 8 with an option): the extend
+    bounds and the off-control."""
+    got, want, _, twin = _extend_case(
+        cuda_device, 64 * hd + G, mode, hd, G, 700, 1024, D256_LANES, opts,
+        gain=8.0 if opts else 1.0)
+    _extend_bounds(got, want, D256_LANES, opts, twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 96])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_extend_narrow_kernel_is_bitwise_repeatable_on_card(cuda_device,
+                                                            mode, hd):
+    """Two calls of extend_kernel<64> / <96> on the same inputs agree
+    bitwise (no atomics in its reduction), with the window and the cap."""
+    got, _, call, _ = _extend_case(cuda_device, 11, mode, hd, 1, 700, 1024,
+                                   D256_LANES,
+                                   dict(window=300, logit_cap=50.0))
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_extend_routes_name_no_mma_kernel_on_card(cuda_device):
+    """The profiler's names of the extend launches at every route's head
+    widths (16 to 256) and every KV mode: extend_kernel at the width
+    kernel_head_width gives (<= 128), extend_d256_kernel above, and no
+    extend_mma_kernel anywhere; one launch a call on launches_w<width>."""
+    from torch.profiler import ProfilerActivity, profile
+    lanes = ((0, 60), (40, 60), (0, 0), (5, 30))
+    for hd in (16, 48, 64, 80, 96, 112, 128, 208, 256):
+        w = tra.kernel_head_width(hd)
+        want = f"extend_kernel<{w}," if w <= 128 else "extend_d256_kernel<"
+        for mode in ("bf16", "int8", "int4"):
+            before = getattr(tra.ragged_attention, f"launches_w{w}")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _extend_case(cuda_device, hd, mode, hd, 2, 60, 256, lanes,
+                             {})
+            names = [e.key for e in prof.key_averages()
+                     if "extend" in e.key]
+            assert names and all(want in n for n in names), (hd, names)
+            assert not any("mma" in n for n in names), (hd, names)
+            assert getattr(tra.ragged_attention,
+                           f"launches_w{w}") == before + 1
 
 
 @pytest.mark.cuda

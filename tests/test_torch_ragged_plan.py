@@ -88,3 +88,25 @@ def test_kernel_head_width_takes_every_multiple_of_16(hd):
 def test_kernel_head_width_refuses_what_the_kernels_do_not_take(hd):
     with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
         tra.kernel_head_width(hd)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """chip_smoke.py of this checkout, as a module (no JAX, no compile)."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# chip_smoke names the extend kernel of each head_dim in its JSON line;
+# the name must carry the width the wrapper routes that head_dim to
+@pytest.mark.parametrize("hd", range(16, 257, 16))
+def test_extend_kernel_name_agrees_with_kernel_head_width(smoke, hd):
+    w = tra.kernel_head_width(hd)
+    want = f"extend_kernel<{w}>" if w <= 128 else "extend_d256_kernel"
+    assert smoke.extend_kernel_name(hd) == want

@@ -221,8 +221,8 @@ def test_profile_serve_gemma2_runs_on_cpu(tmp_path, capsys):
                                       "rest": 0.0}
     assert tra.ragged_attention_plain.calls > calls[0]
     assert tra.ragged_decode_attention_plain.calls > calls[1]
-    events = [("void extend_kernel<bf16, false>", 0, 1.0),
-              ("void extend_mma_kernel<96, bf16, false>", 0, 2.0),
+    events = [("void extend_kernel<128, bf16, false>", 0, 1.0),
+              ("void extend_kernel<96, bf16, false>", 0, 2.0),
               ("void extend_d256_kernel<bf16, false>", 0, 4.0),
               ("nvjet_tst_64x8", 0, 8.0)]
     fam = profile_serve.family_ms(events, 1)

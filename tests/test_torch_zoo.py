@@ -323,3 +323,36 @@ def test_stablelm_3b_head_dim_is_one_the_kernels_take():
     spec.loader.exec_module(smoke)
     assert {k: hf[k] for k in smoke.STABLELM_3B} == smoke.STABLELM_3B
     assert tconvert.llama_config_from_hf(smoke.STABLELM_3B) == cfg
+
+
+def test_phi3_mini_config_reads_alike_in_both_packages():
+    """chip_smoke.py's PHI3_MINI (microsoft/Phi-3-mini-4k-instruct's
+    config, which `[serve-phi3-mini-*]` serves whole) through both
+    packages' llama_config_from_hf: head_dim 96 (the ragged kernels'
+    width 96, unpadded), MHA, the window of 2047, and every field the
+    two configs share equal. No weights, no compile."""
+    import dataclasses
+    import importlib.util
+    import os
+
+    from aurora_tpu_torch.ops.pallas import ragged_attention as tra
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    tcfg = tconvert.llama_config_from_hf(dict(smoke.PHI3_MINI))
+    jcfg = jconvert.llama_config_from_hf(dict(smoke.PHI3_MINI))
+    hd = tcfg.hidden_size // tcfg.num_attention_heads
+    assert (hd, tcfg.head_dim, tra.kernel_head_width(hd)) == (96, 96, 96)
+    assert tcfg.num_attention_heads == tcfg.num_key_value_heads == 32
+    assert tcfg.sliding_window == 2047
+    assert (tcfg.hidden_size, tcfg.num_hidden_layers,
+            tcfg.intermediate_size, tcfg.vocab_size) == (3072, 32, 8192,
+                                                         32064)
+    shared = {f.name for f in dataclasses.fields(jcfg)} & {
+        f.name for f in dataclasses.fields(tcfg)}
+    assert {"hidden_size", "num_attention_heads", "num_key_value_heads",
+            "sliding_window", "rms_norm_eps", "rope_theta"} <= shared
+    for name in shared:
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
