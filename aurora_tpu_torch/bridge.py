@@ -19,7 +19,11 @@ ExpertStack), and DeepSeek v1's unstacked `dense_layers` into the first
 layers of the port's one stack. DeepSeek-V2's per-layer tree
 (models/deepseek_v2.py) crosses with `deepseek_v2_from_params`. The
 modules are built on the card unless the caller passes a device (the
-CPU tests pass device="cpu").
+CPU tests pass device="cpu"). The ViT tree may be CLIP's (class
+embedding, pre-LayerNorm) or SigLIP's (patch bias), the projector's
+layers may carry Yi-VL's LayerNorms (`ln_scale`, `ln_bias`), and an
+InternVL tree ({"vision", "projector", "text"}) crosses with
+`internvl_from_params`.
 
 The reference's W4 trees (quantize_weights_int4, optionally
 fuse_serving_weights and w4_decode_layout_params) cross with their bytes
@@ -49,10 +53,6 @@ from aurora_tpu_torch.models.projector import Projector, ProjectorConfig
 from aurora_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from aurora_tpu_torch.ops.pallas.quant_matmul import (
     w4_from_flat, w4_mlp_untile_reference)
-
-NOT_PORTED = ("ROADMAP.md queue 1 item 8 (the non-CLIP towers, the Yi-VL "
-              "projector norms, InternVL)")
-
 
 def _config_from(ref, cls):
     return cls(**{f.name: getattr(ref, f.name)
@@ -97,16 +97,21 @@ def _load(module, sd, device):
 
 
 def vit_state_dict(tree: Dict[str, Any], cfg: ViTConfig):
+    """A CLIP tree (class_embedding, pre_layernorm) or a SigLIP one
+    (patch_bias, neither of those)."""
     emb = tree["embeddings"]
     ps, C, D = cfg.patch_size, cfg.num_channels, cfg.hidden_size
     sd = {
         # unfold rows are (c, i, j) channel-major → conv weight [D, C, p, p]
         "patch_embed.weight": _t(emb["patch_kernel"]).T.reshape(D, C, ps,
                                                                  ps),
-        "class_embedding": _t(emb["class_embedding"]),
         "position_embedding": _t(emb["position_embedding"]),
     }
-    _ln(sd, "pre_layernorm", tree["pre_layernorm"])
+    if not cfg.class_token:
+        sd["patch_embed.bias"] = _t(emb["patch_bias"])
+    else:
+        sd["class_embedding"] = _t(emb["class_embedding"])
+        _ln(sd, "pre_layernorm", tree["pre_layernorm"])
     for i, lp in enumerate(tree["layers"]):
         pre = f"layers.{i}."
         _ln(sd, pre + "ln1", lp["ln1"])
@@ -119,12 +124,14 @@ def vit_state_dict(tree: Dict[str, Any], cfg: ViTConfig):
 
 
 def projector_state_dict(tree: Dict[str, Any]):
+    """Layers {kernel, bias} and, after a linear, Yi-VL's LayerNorm
+    {ln_scale, ln_bias} where the layer carries it."""
     sd = {}
     for i, lp in enumerate(tree["layers"]):
-        if "ln_scale" in lp:
-            raise NotImplementedError("projector LayerNorms (Yi-VL) are "
-                                      f"not ported yet, {NOT_PORTED}")
         _linear(sd, f"layers.{i}", lp)
+        if "ln_scale" in lp:
+            sd[f"norms.ln{i}.weight"] = _t(lp["ln_scale"])
+            sd[f"norms.ln{i}.bias"] = _t(lp["ln_bias"])
     return sd
 
 
@@ -262,7 +269,9 @@ def vit_from_params(tree, cfg: ViTConfig, device=None, dtype=None):
 
 def projector_from_params(tree, cfg: ProjectorConfig, device=None,
                           dtype=None):
-    return _load(Projector(cfg, device="meta", dtype=dtype),
+    norms = [i for i, lp in enumerate(tree["layers"]) if "ln_scale" in lp]
+    return _load(Projector(cfg, device="meta", dtype=dtype,
+                           norm_layers=norms),
                  projector_state_dict(tree), device)
 
 
@@ -358,6 +367,71 @@ def aurora_from_params(tree, cfg: AuroraConfig, device=None, dtype=None):
     """The composite {"visual_encoder", "projector", "llm"} tree."""
     return _load(AuroraModel(cfg, device="meta", dtype=dtype),
                  aurora_state_dict(tree, cfg), device)
+
+
+def internvl_config_from(ref):
+    """The reference's InternVLConfig → the port's."""
+    from aurora_tpu_torch.models.internvl import (InternViTConfig,
+                                                  InternVLConfig)
+    return InternVLConfig(vision=_config_from(ref.vision, InternViTConfig),
+                          text=llama_config_from(ref.text),
+                          downsample_ratio=ref.downsample_ratio,
+                          projector_hidden_act=ref.projector_hidden_act)
+
+
+def internvl_state_dict(tree, cfg) -> Dict[str, torch.Tensor]:
+    """The reference's InternVL tree (models/internvl.py: {"vision",
+    "projector", "text"}, kernels [in, out], the patch convolution OIHW)
+    → InternVLModel's vision and projector entries."""
+    v, pj = tree["vision"], tree["projector"]
+    sd = {"vision.patch_embed.weight": _t(v["patch_embed"]),
+          "vision.patch_embed.bias": _t(v["patch_bias"]),
+          "vision.cls_token": _t(v["cls_token"]).reshape(-1)}
+    if "pos_embed" in v:
+        sd["vision.pos_embed"] = _t(v["pos_embed"])
+    if "final_norm_w" in v:
+        sd["vision.final_norm.weight"] = _t(v["final_norm_w"])
+        sd["vision.final_norm.bias"] = _t(v["final_norm_b"])
+    plain = {"norm1_w": "norm1.weight", "norm1_b": "norm1.bias",
+             "norm2_w": "norm2.weight", "norm2_b": "norm2.bias",
+             "q_bias": "q.bias", "k_bias": "k.bias", "v_bias": "v.bias",
+             "q_norm": "q_norm", "k_norm": "k_norm", "proj_b": "proj.bias",
+             "fc1_b": "fc1.bias", "fc2_b": "fc2.bias", "lambda1": "lambda1",
+             "lambda2": "lambda2"}
+    for i, lp in enumerate(v["layers"]):
+        pre = f"vision.layers.{i}."
+        for theirs, x in lp.items():
+            if theirs in plain:
+                sd[pre + plain[theirs]] = _t(x)
+            else:           # the kernels q, k, v, proj, fc1, fc2
+                sd[pre + theirs + ".weight"] = _t(x).T
+    for ours, theirs in (("norm.weight", "ln_w"), ("norm.bias", "ln_b"),
+                         ("fc1.bias", "fc1_b"), ("fc2.bias", "fc2_b")):
+        sd["projector." + ours] = _t(pj[theirs])
+    for name in ("fc1", "fc2"):
+        sd[f"projector.{name}.weight"] = _t(pj[name]).T
+    return sd
+
+
+def internvl_from_params(tree, cfg, device=None, dtype=None):
+    """The reference's InternVL tree (numpy leaves) → InternVLModel; cfg:
+    the port's InternVLConfig (`internvl_config_from`)."""
+    from aurora_tpu_torch.models.internvl import (InternViT,
+                                                  InternVLModel,
+                                                  InternVLProjector)
+    sd = internvl_state_dict(tree, cfg)
+
+    def part(prefix):
+        return {k[len(prefix):]: x for k, x in sd.items()
+                if k.startswith(prefix)}
+
+    return InternVLModel(
+        cfg,
+        _load(InternViT(cfg.vision, device="meta", dtype=dtype),
+              part("vision."), device),
+        _load(InternVLProjector(cfg, device="meta", dtype=dtype),
+              part("projector."), device),
+        llama_from_params(tree["text"], cfg.text, device, dtype))
 
 
 def lora_adapters_from(adapters, device=None, dtype=None):

@@ -1,11 +1,12 @@
 """AuroraModel: ViT → projector → LLM (aurora_tpu/models/aurora.py).
 
 Ported: the configuration, the static visual token count, the visual
-encode (frames folded into the batch, select layer −2, CLS dropped,
-projected) and the multimodal fusion that splices the visual embeddings
-over the prompt's image markers, carrying packed batches' segment ids
-over the fused sequence, and the composite forward `aurora_forward`
-(modes "loss", "tensor"/"predict" and "inference").
+encode (frames folded into the batch, select layer −2, token 0 dropped,
+projected; a CLIP or a SigLIP tower) and the multimodal fusion that
+splices the visual embeddings over the prompt's image markers, carrying
+packed batches' segment ids over the fused sequence, and the composite
+forward `aurora_forward` (modes "loss", "tensor"/"predict" and
+"inference").
 """
 
 from __future__ import annotations
@@ -76,12 +77,14 @@ def init_aurora(cfg: AuroraConfig, *, device, dtype,
 def num_visual_tokens(cfg: AuroraConfig, kept_ratio: float,
                       h: Optional[int] = None,
                       w: Optional[int] = None) -> int:
-    """Visual tokens per frame at the selected hidden layer (CLS
-    dropped), from the static ToMe schedule."""
+    """Visual tokens per frame at the selected hidden layer, from the
+    static ToMe schedule: CLIP's patches plus its CLS, SigLIP's patches,
+    less token 0, which vit_encode drops for both towers."""
     h = h or cfg.vit.image_size
     w = w or cfg.vit.image_size
     r = vit_tome_r(cfg.vit, kept_ratio, h, w)
-    n0 = (h // cfg.vit.patch_size) * (w // cfg.vit.patch_size) + 1
+    n0 = (h // cfg.vit.patch_size) * (w // cfg.vit.patch_size)
+    n0 += 1 if cfg.vit.class_token else 0
     sched = tome_schedule(n0, r, cfg.vit.num_hidden_layers, 1)
     L = cfg.vit.num_hidden_layers
     idx = cfg.visual_select_layer % (L + 1)

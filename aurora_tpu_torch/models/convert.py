@@ -2,11 +2,11 @@
 (aurora_tpu/models/convert.py, its load half).
 
 An xtuner-format AuroraCap directory (the reference's inference.py:42-57)
-holds the HF Llama at its root plus `visual_encoder/` (a CLIPVisionModel)
-and `projector/` (xtuner's ProjectorModel); a llava-hf directory holds
-LlavaForConditionalGeneration. HF names map straight onto
-`VisionTransformer`, `LlamaModel` and `Projector`, whose weights share
-HF's [out, in] layout, so nothing is transposed.
+holds the HF Llama at its root plus `visual_encoder/` (a CLIPVisionModel
+or a SiglipVisionModel) and `projector/` (xtuner's ProjectorModel); a
+llava-hf directory holds LlavaForConditionalGeneration. HF names map
+straight onto `VisionTransformer`, `LlamaModel` and `Projector`, whose
+weights share HF's [out, in] layout, so nothing is transposed.
 
 Weights are read without the safetensors or transformers packages:
 `.safetensors` by `read_safetensors` (an 8-byte little-endian header
@@ -28,12 +28,13 @@ heads; the sparse-MoE ones (`MOE_TYPES`: Mixtral's block_sparse_moe
 experts, Qwen2-MoE's and Qwen3-MoE's mlp.experts with the singular
 gated or plural ungated shared expert, DBRX's fused Wqkv and w1/v1/w2
 expert slabs, Grok-1's four norms and softcaps, DeepSeek v1's dense
-prefix); and the CLIP tower. DeepSeek-V2 loads through
-models/deepseek_v2.py (`load_serving_dir`). What the reference refuses
-(a Qwen-MoE with dense layers between its sparse ones, DeepSeek v1 with
-moe_layer_freq > 1, DBRX's expert-weight norms other than 1), rope
-scalings other than linear and the Yi-VL projector LayerNorms raise
-NotImplementedError. Gemma-2 has its own module (models/gemma2.py).
+prefix); the CLIP and SigLIP towers, and Yi-VL's projector LayerNorms.
+DeepSeek-V2 loads through models/deepseek_v2.py (`load_serving_dir`),
+InternVL through models/internvl.py. What the reference refuses (a
+Qwen-MoE with dense layers between its sparse ones, DeepSeek v1 with
+moe_layer_freq > 1, DBRX's expert-weight norms other than 1) and rope
+scalings other than linear raise NotImplementedError. Gemma-2 has its
+own module (models/gemma2.py).
 `llama_params_from_hf(..., weight_quant=)` quantizes each layer as it
 reaches the device (serve/engine.py `build_quantized`), so a checkpoint
 larger than the card in bf16 (Mixtral-8x7B, 93 GB) loads as W8 or W4.
@@ -48,7 +49,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from aurora_tpu_torch.bridge import NOT_PORTED, _load
+from aurora_tpu_torch.bridge import _load
 from aurora_tpu_torch.models.llama import (LAYER_EXTRAS, TOP_EXTRAS,
                                            LlamaConfig, LlamaLayer,
                                            LlamaModel, is_moe_layer)
@@ -142,8 +143,8 @@ def _read_config(model_dir: str) -> Dict[str, Any]:
 
 
 def vit_config_from_hf(cfg: Dict[str, Any]) -> ViTConfig:
-    """A CLIP vision config (top level or under `vision_config`). Other
-    towers raise NotImplementedError in ViTConfig."""
+    """A CLIP or SigLIP vision config (top level or under
+    `vision_config`)."""
     v = cfg.get("vision_config", cfg)
     model_type = cfg.get("model_type", "clip")
     return ViTConfig(
@@ -359,19 +360,22 @@ def _strip_prefix(sd: StateDict, prefixes=("model.", "vision_model.",
 
 def vit_params_from_hf(sd: StateDict, cfg: ViTConfig, dtype=torch.float32,
                        device=None) -> VisionTransformer:
-    """CLIPVisionModel names → VisionTransformer (the unused
-    post_layernorm is dropped; so is HF's position_ids buffer)."""
+    """CLIPVisionModel or SiglipVisionModel names → VisionTransformer
+    (the unused post_layernorm, SigLIP's pooling head and HF's
+    position_ids buffer are dropped)."""
     sd = _strip_prefix(sd)
-    if "embeddings.patch_embedding.bias" in sd:
-        raise NotImplementedError("a patch-embedding bias is not ported")
-    pre = ("pre_layrnorm" if "pre_layrnorm.weight" in sd
-           else "pre_layernorm")
     out = {"patch_embed.weight": sd["embeddings.patch_embedding.weight"],
-           "class_embedding": sd["embeddings.class_embedding"].reshape(-1),
            "position_embedding":
-               sd["embeddings.position_embedding.weight"],
-           "pre_layernorm.weight": sd[f"{pre}.weight"],
-           "pre_layernorm.bias": sd[f"{pre}.bias"]}
+               sd["embeddings.position_embedding.weight"]}
+    if not cfg.class_token:
+        out["patch_embed.bias"] = sd["embeddings.patch_embedding.bias"]
+    else:
+        pre = ("pre_layrnorm" if "pre_layrnorm.weight" in sd
+               else "pre_layernorm")
+        out.update({"class_embedding":
+                        sd["embeddings.class_embedding"].reshape(-1),
+                    "pre_layernorm.weight": sd[f"{pre}.weight"],
+                    "pre_layernorm.bias": sd[f"{pre}.bias"]})
     names = (("ln1", "layer_norm1"), ("ln2", "layer_norm2"),
              ("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
              ("v", "self_attn.v_proj"), ("o", "self_attn.out_proj"),
@@ -759,7 +763,8 @@ Loaded = Tuple[LlamaModel, LlamaConfig, VisionTransformer, ViTConfig,
 def load_llava_hf_dir(model_dir: str, llm_dtype=torch.bfloat16,
                       vit_dtype=torch.float32, device=None) -> Loaded:
     """A llava-hf directory (LlavaForConditionalGeneration, the 4.52+ key
-    layout or the legacy one) → the same tuple as load_auroracap_dir; at
+    layout or the legacy one; Yi-VL's projector LayerNorms `ln_1`/`ln_2`
+    where present) → the same tuple as load_auroracap_dir; at
     token_kept_ratio 1.0 the AuroraCap pipeline is LLaVA-1.5's."""
     cfg = _read_config(model_dir)
     if cfg.get("model_type") not in ("llava", "llava_next"):
@@ -780,9 +785,6 @@ def load_llava_hf_dir(model_dir: str, llm_dtype=torch.bfloat16,
                 if marker in k}
 
     proj_sd = split("multi_modal_projector.")
-    if any(k.startswith("ln_") for k in proj_sd):
-        raise NotImplementedError("projector LayerNorms (Yi-VL) are not "
-                                  f"ported yet, {NOT_PORTED}")
     llm_sd = split("language_model.")
     if "lm_head.weight" in sd:      # 4.52+ layout: the head at top level
         llm_sd["lm_head.weight"] = sd["lm_head.weight"]
@@ -791,16 +793,22 @@ def load_llava_hf_dir(model_dir: str, llm_dtype=torch.bfloat16,
                              device)
     pj_cfg = ProjectorConfig(visual_hidden_size=vit_cfg.hidden_size,
                              llm_hidden_size=llm_cfg.hidden_size, depth=2)
-    pj = _load(Projector(pj_cfg, device="meta", dtype=vit_dtype),
-               {f"layers.{i - 1}.{suf}": proj_sd[f"linear_{i}.{suf}"]
-                for i in (1, 2) for suf in ("weight", "bias")}, device)
+    pj_sd = {f"layers.{i - 1}.{suf}": proj_sd[f"linear_{i}.{suf}"]
+             for i in (1, 2) for suf in ("weight", "bias")}
+    # Yi-VL: a LayerNorm after each linear (ln_1, ln_2)
+    norms = [i - 1 for i in (1, 2) if f"ln_{i}.weight" in proj_sd]
+    pj_sd.update({f"norms.ln{i}.{suf}": proj_sd[f"ln_{i + 1}.{suf}"]
+                  for i in norms for suf in ("weight", "bias")})
+    pj = _load(Projector(pj_cfg, device="meta", dtype=vit_dtype,
+                         norm_layers=norms), pj_sd, device)
     return llm, llm_cfg, vit, vit_cfg, pj, pj_cfg
 
 
 def load_auroracap_dir(model_dir: str, llm_dtype=torch.bfloat16,
                        vit_dtype=torch.float32, device=None) -> Loaded:
     """An xtuner-format AuroraCap directory: the HF llama at the root,
-    `visual_encoder/` and `projector/` (inference.py:42-57)."""
+    `visual_encoder/` (CLIP or SigLIP) and `projector/`
+    (inference.py:42-57)."""
     llm_cfg = llama_config_from_hf(_read_config(model_dir))
     llm = llama_params_from_hf(load_torch_state_dict(model_dir), llm_cfg,
                                llm_dtype, device)

@@ -9,13 +9,21 @@ a stable descending sort, so merge indices equal the reference's exactly
 for the same metric. The merge adds the tokens into their targets in
 a fixed order, on every device: on the card scatter_add's atomics add
 them in any order, and the bf16 sums then differ from run to run, which
-later layers' rankings turn into other merges. Only the bipartite
-variant is ported.
+later layers' rankings turn into other merges. A merge takes a mode:
+"sum" (merge_wavg's), "amax" (merge_source's provenance) or "mean".
+
+The off-path matchers of the reference are here too: `merge_source`,
+`kth_bipartite_soft_matching` (sets: every k-th token and the rest) and
+`random_bipartite_soft_matching` (r random tokens and the rest). The
+random one draws its split from a torch.Generator, where the reference
+draws from a JAX key, so the two draw different splits from one seed;
+`random_split` is the draw and `split_soft_matching` the matching given
+a split, which takes the reference's split as it is.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -85,27 +93,51 @@ def _merge_add(b: torch.Tensor, idx: torch.Tensor,
     return (b.float() + onehot.transpose(1, 2) @ src.float()).to(b.dtype)
 
 
+def _scatter_rows(b: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
+                  mode: str) -> torch.Tensor:
+    """Merge the rows src [B, r, C] into b [B, tB, C] at idx [B, r]: "sum"
+    (`_merge_add`), "amax", or "mean" (the sum over 1 + the rows merged
+    into each target)."""
+    if mode == "sum":
+        return _merge_add(b, idx, src)
+    if mode == "amax":
+        return b.scatter_reduce(1, idx[..., None].expand(-1, -1, b.shape[2]),
+                                src, reduce="amax", include_self=True)
+    if mode == "mean":
+        cnt = torch.zeros(b.shape[:2], dtype=torch.float32,
+                          device=b.device).scatter_add_(
+            1, idx, torch.ones(idx.shape, dtype=torch.float32,
+                               device=b.device))
+        return _merge_add(b, idx, src) / (1.0 + cnt.to(b.dtype))[..., None]
+    raise ValueError(f"unknown merge mode {mode!r}")
+
+
 def apply_merge(x: torch.Tensor, unm_idx: torch.Tensor,
-                src_idx: torch.Tensor, dst_idx: torch.Tensor
-                ) -> torch.Tensor:
-    """Sum-merge token rows: x [B, T, C] → [B, T - r, C]."""
+                src_idx: torch.Tensor, dst_idx: torch.Tensor,
+                mode: str = "sum") -> torch.Tensor:
+    """Merge token rows: x [B, T, C] → [B, T - r, C]."""
     a, b = x[:, 0::2], x[:, 1::2]
     unm = _gather_tokens(a, unm_idx)
     src = _gather_tokens(a, src_idx).to(b.dtype)
-    return torch.cat([unm, _merge_add(b, dst_idx, src)], dim=1)
+    return torch.cat([unm, _scatter_rows(b, dst_idx, src, mode)], dim=1)
+
+
+def _identity(x, mode="mean"):
+    return x
 
 
 def bipartite_soft_matching(metric: torch.Tensor, r: int,
                             class_token: bool = True):
-    """Returns `merge(x)`, a sum-merge over the matched tokens; identity
+    """Returns `merge(x, mode="mean")` over the matched tokens; identity
     when the clamped r is 0."""
     protected = 1 if class_token else 0
     r = max(0, min(r, (metric.shape[1] - protected) // 2))
     if r <= 0:
-        return lambda x: x
+        return _identity
     unm_idx, src_idx, dst_idx = compute_merge_indices(
         metric, r, class_token=class_token)
-    return lambda x: apply_merge(x, unm_idx, src_idx, dst_idx)
+    return lambda x, mode="mean": apply_merge(x, unm_idx, src_idx, dst_idx,
+                                              mode)
 
 
 def merge_wavg(merge, x: torch.Tensor, size: torch.Tensor = None):
@@ -113,6 +145,85 @@ def merge_wavg(merge, x: torch.Tensor, size: torch.Tensor = None):
     starting at ones."""
     if size is None:
         size = torch.ones_like(x[..., :1])
-    x = merge(x * size)
-    size = merge(size)
+    x = merge(x * size, mode="sum")
+    size = merge(size, mode="sum")
     return x / size, size
+
+
+def merge_source(merge, x: torch.Tensor, source: torch.Tensor = None):
+    """Provenance: which original tokens each merged token holds, an
+    adjacency [B, T_merged, T] (the identity before any merge)."""
+    if source is None:
+        n, t, _ = x.shape
+        source = torch.eye(t, dtype=x.dtype, device=x.device)[None].expand(
+            n, t, t)
+    return merge(source, mode="amax")
+
+
+def _normalized(metric: torch.Tensor) -> torch.Tensor:
+    m = metric.to(torch.float32)
+    return m / m.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def kth_bipartite_soft_matching(metric: torch.Tensor, k: int):
+    """Sets: every k-th token (B) and the rest (A); each A token merges
+    into its most similar B token, so the output has T // k tokens.
+    Raises ValueError unless k divides T (trailing tokens would vanish)."""
+    if k <= 1:
+        return _identity
+    T = metric.shape[1]
+    if T % k != 0:
+        raise ValueError(
+            f"kth matching needs k | T (T={T}, k={k}); trailing tokens "
+            "would silently vanish otherwise")
+
+    def split(x):
+        xr = x.reshape(x.shape[0], -1, k, x.shape[-1])
+        return (xr[:, :, :k - 1].reshape(x.shape[0], -1, x.shape[-1]),
+                xr[:, :, k - 1])
+
+    a, b = split(_normalized(metric))
+    dst_idx = (a @ b.transpose(1, 2)).argmax(dim=-1)
+
+    def merge(x: torch.Tensor, mode: str = "mean") -> torch.Tensor:
+        xa, xb = split(x)
+        return _scatter_rows(xb, dst_idx, xa.to(xb.dtype), mode)
+
+    return merge
+
+
+def random_split(metric: torch.Tensor, r: int,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The draw of `random_bipartite_soft_matching`: a random permutation
+    of each row's T tokens from `generator` → (a_idx [B, r], b_idx
+    [B, T - r])."""
+    B, N = metric.shape[:2]
+    perm = torch.argsort(torch.rand((B, N), generator=generator,
+                                    device=metric.device), dim=1)
+    return perm[:, :r], perm[:, r:]
+
+
+def split_soft_matching(metric: torch.Tensor, a_idx: torch.Tensor,
+                        b_idx: torch.Tensor):
+    """The matching given a split: each token of a_idx merges into its
+    most similar token of b_idx → merge(x, mode="mean"), [B, T - r, C]."""
+    m = _normalized(metric)
+    a, b = _gather_tokens(m, a_idx), _gather_tokens(m, b_idx)
+    dst_idx = (a @ b.transpose(1, 2)).argmax(dim=-1)
+
+    def merge(x: torch.Tensor, mode: str = "mean") -> torch.Tensor:
+        dst = _gather_tokens(x, b_idx)
+        return _scatter_rows(dst, dst_idx, _gather_tokens(x, a_idx).to(
+            dst.dtype), mode)
+
+    return merge
+
+
+def random_bipartite_soft_matching(metric: torch.Tensor, r: int,
+                                   generator: Optional[torch.Generator]
+                                   = None):
+    """Sets: r random tokens (A) and the rest (B); identity for r ≤ 0."""
+    if r <= 0:
+        return _identity
+    return split_soft_matching(metric, *random_split(metric, r, generator))

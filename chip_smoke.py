@@ -330,12 +330,32 @@ decode plan), the distinct experts a decode step touches, and the logits of a wa
 decode step against the twins; `[mla-moe-fp32]` holds DeepSeek's fp32
 expert path on the kernel against its fp32 twin.
 
+The vision zoo, after the Phi-3-mini runs: `[serve-internvl-*]` serves
+InternVL3-8B whole (INTERNVL3_8B, OpenGVLab/InternVL3-8B-hf's config:
+InternViT-300M at 448 px, the pixel shuffle to 256 tokens a tile, the
+Qwen2.5-7B decoder, hd 128, G 7) from random bf16 weights in the -hf key
+names through `internvl_params_from_hf` and `InternVLServing`, radix
+cache on: 4 requests of 1 or 2 tiles and ~40 text ids in two waves of
+two (the third repeats the first one's tile and must hit its prefix), 64
+tokens, bf16 KV twice (bit for bit) and int8 KV, every extend launch on
+`extend_kernel<128>`, the logits of a wave and a decode step against the
+twins; `[internvl-vision]` holds InternViT + projector against their fp32
+twin and times them a tile. `[serve-siglip]` writes an xtuner directory
+with google/siglip-so400m-patch14-384's tower (SigLIP names, a patch
+bias, no CLS) beside Vicuna-7B's widths at 4 layers, loads it with
+`load_auroracap_dir` and serves 4 clips of 8 frames through
+AuroraCapServing at kept ratio 0.2, int8 KV: the visual token count (no
+CLS) spans each request's fused placeholders, one extend launch a
+layer; `[siglip-vision]` holds one clip's visual groups against their
+fp32 twin under the bf16 pass's ToMe merges.
+
 `python3 chip_smoke.py --only train-cli` runs infer-load and the four
 train-cli phases alone; `--only kernels`, `--only serve-gemma2` (the
 Gemma-2, Qwen2 and StableLM runs), `--only serve-phi3` (the Phi-3-mini
-runs), `--only train-dpo` and `--only
+runs), `--only train-dpo`, `--only
 serve-moe` (the
-MoE and MLA phases above) the newer phases (no kernel JSON line, no final
+MoE and MLA phases above), `--only serve-internvl` and `--only
+serve-siglip` the newer phases (no kernel JSON line, no final
 line); `--only` repeats.
 
 float32 references run with TF32 disabled for matmuls and cuDNN
@@ -524,6 +544,61 @@ PHI3_RUNS = (("bf16", "none", "launches"),
 PHI3_LOGITS_TOL = 1.5e-1    # Mistral's bound: 32 random bf16 layers
 PHI3_LOGITS_REASON = ("32 random bf16 layers amplify single bf16 roundings "
                       "(Mistral's bound)")
+# OpenGVLab/InternVL3-8B-hf's config.json, written inline (the fields the
+# port's converters read): InternViT-300M (448 px, patch 14, 24 layers,
+# q/k/v biases, LayerScale, mean pooling), the pixel shuffle at 0.5 (256
+# visual tokens a tile), and Qwen2.5-7B (the port's qwen2_7b widths, G 7,
+# hd 128, qkv biases, rope theta 1e6; the -hf config's vocab). Served
+# whole from random bf16 weights in the -hf key names through
+# `internvl_params_from_hf`: 4 requests of 1 or 2 tiles and ~40 text ids,
+# INTERNVL_MAX_NEW greedy tokens, two waves of two (the third request
+# repeats the first one's tile, so the second wave hits its prefix), bf16
+# KV twice (bit for bit) and int8 KV
+INTERNVL3_8B = {
+    "vision_config": dict(hidden_size=1024, intermediate_size=4096,
+                          num_hidden_layers=24, num_attention_heads=16,
+                          image_size=[448, 448], patch_size=[14, 14],
+                          layer_norm_eps=1e-6, norm_type="layer_norm",
+                          use_qk_norm=False, attention_bias=True,
+                          layer_scale_init_value=0.1, use_mean_pooling=True,
+                          use_absolute_position_embeddings=True,
+                          hidden_act="gelu"),
+    "text_config": dict(model_type="qwen2", vocab_size=151674,
+                        hidden_size=3584, intermediate_size=18944,
+                        num_hidden_layers=28, num_attention_heads=28,
+                        num_key_value_heads=4, hidden_act="silu",
+                        max_position_embeddings=32768, rms_norm_eps=1e-6,
+                        rope_theta=1000000.0, use_sliding_window=False,
+                        tie_word_embeddings=False),
+    "downsample_ratio": 0.5, "projector_hidden_act": "gelu"}
+INTERNVL_PROMPTS = (
+    (1, "Describe this image in detail, including its colours."),
+    (2, "What differs between these two pictures? Answer briefly."),
+    (1, "List every object you can see in the image, one per line."),
+    (2, "Which of the two images looks brighter, and why do you think so?"))
+INTERNVL_MAX_NEW = 64
+INTERNVL_BUCKET = 1024
+INTERNVL_RUNS = (("bf16", "none", "launches"),
+                 ("bf16-again", "none", "launches"),
+                 ("kv8", "int8", "launches_int8"))
+# the logits of a wave against the twins at the 5e-2 that the Qwen2
+# phase's W4 run and the bf16 engines hold (measured on an H100
+# 2.50-2.73e-2 over 28 layers); a decode step at logits_check's default,
+# as in the Qwen2 phase (measured 1.92e-2)
+INTERNVL_LOGITS_TOL = LOGITS_REL_TOL
+# InternViT + projector (bf16, SDPA) against the same modules in fp32
+# (max |Δ| / max |want| over a request's tiles)
+VISUAL_REL_TOL = 5e-2
+# google/siglip-so400m-patch14-384's vision config as an xtuner
+# directory's visual_encoder/, beside Vicuna-7B-v1.5-16k's widths cut to
+# SIGLIP_LLM_LAYERS layers; AuroraCap serving at kept ratio 0.2, 4 clips
+# of 8 frames, bf16 weights, int8 KV, SIGLIP_MAX_NEW greedy tokens
+SIGLIP_SO400M = dict(model_type="siglip", hidden_size=1152,
+                     intermediate_size=4304, num_hidden_layers=27,
+                     num_attention_heads=16, image_size=384, patch_size=14,
+                     layer_norm_eps=1e-6, hidden_act="gelu_pytorch_tanh")
+SIGLIP_LLM_LAYERS = 4
+SIGLIP_MAX_NEW = 64
 # Qwen2-7B at its widths, 4 layers: qkv biases drawn N(0, 1) so that they
 # act, G 7, rope theta 1e6
 # The MoE and MLA families: the grouped-expert kernel at each family's
@@ -2885,16 +2960,23 @@ def hf_llm_config(cfg):
 
 
 def hf_vit_names(cfg):
-    """(HF CLIPVisionModel name, the port's VisionTransformer name or None
-    for the unused post_layernorm, shape)."""
+    """(HF CLIPVisionModel or SiglipVisionModel name, the port's
+    VisionTransformer name or None for the unused post_layernorm,
+    shape): CLIP's class embedding and pre-LayerNorm, or SigLIP's patch
+    bias."""
     D, I, p = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size
     e = "vision_model.embeddings."
-    yield e + "class_embedding", "class_embedding", (D,)
+    if cfg.class_token:
+        yield e + "class_embedding", "class_embedding", (D,)
     yield e + "patch_embedding.weight", "patch_embed.weight", (D, 3, p, p)
+    if not cfg.class_token:
+        yield e + "patch_embedding.bias", "patch_embed.bias", (D,)
     yield (e + "position_embedding.weight", "position_embedding",
            (cfg.num_positions, D))
     for suf in ("weight", "bias"):
-        yield f"vision_model.pre_layrnorm.{suf}", f"pre_layernorm.{suf}", (D,)
+        if cfg.class_token:
+            yield (f"vision_model.pre_layrnorm.{suf}",
+                   f"pre_layernorm.{suf}", (D,))
         yield f"vision_model.post_layernorm.{suf}", None, (D,)
     for i in range(cfg.num_hidden_layers):
         hf, ours = f"vision_model.encoder.layers.{i}.", f"layers.{i}."
@@ -2911,35 +2993,29 @@ def hf_vit_names(cfg):
             yield hf + theirs + ".bias", ours + name + ".bias", (out,)
 
 
-def infer_load_phase(torch, dev, card):
-    """[infer-load]: an xtuner-format directory at AuroraCap-7B's widths
-    (the LLM cut to INFER_LOAD_LAYERS layers) written by this script, read
-    by the port's load_auroracap_dir onto the card in bf16; every tensor
-    must equal the written one after the same cast, bit for bit. → the
-    directory, which [eval] reads and then deletes."""
-    import dataclasses
-    import shutil
-    from aurora_tpu_torch.models.convert import load_auroracap_dir
-    from aurora_tpu_torch.models.llama import LlamaConfig
-    from aurora_tpu_torch.models.vit import ViTConfig
-    llm_cfg = dataclasses.replace(LlamaConfig.vicuna_7b_v15_16k(),
-                                  num_hidden_layers=INFER_LOAD_LAYERS)
-    vit_cfg = ViTConfig.dfn5b_vit_h_378()
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "infer_load")
+def write_xtuner_dir(torch, root, llm_cfg, vit_cfg, g, model_init=False):
+    """An xtuner-format directory under `root`: the LLM in two bf16
+    safetensors shards and their index, the vision tower (CLIP or SigLIP
+    names) in one fp16 file, the projector as an fp32 torch.save .bin,
+    each with its config.json. Weights N(0, 0.02²) from `g`; model_init:
+    norm scales one and biases zero instead, as models/init.py draws a
+    model. → ({part: {the port's name: the tensor as written}}, bytes)."""
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(os.path.join(root, "visual_encoder"))
     os.makedirs(os.path.join(root, "projector"))
-    g = torch.Generator(device=dev).manual_seed(SEED + 9)
 
-    def rand(shape, dtype):
-        return (torch.randn(shape, generator=g, device=dev) * 0.02).to(
+    def rand(shape, dtype, name=""):
+        last = name.rsplit(".", 2)
+        if model_init and name.endswith("bias"):
+            return torch.zeros(shape, dtype=dtype)
+        if model_init and len(shape) == 1 and "norm" in "".join(last[-2:]):
+            return torch.ones(shape, dtype=dtype)
+        return (torch.randn(shape, generator=g, device=g.device) * 0.02).to(
             dtype).cpu()
 
     want = {}       # part → {the port's name: the tensor as written}
-    t0 = time.perf_counter()
     # the LLM: bf16, two shards and their index
-    llm = {hf: rand(shape, torch.bfloat16)
+    llm = {hf: rand(shape, torch.bfloat16, hf)
            for hf, _, shape in hf_llm_names(llm_cfg)}
     want["llm"] = {ours: llm[hf] for hf, ours, _ in hf_llm_names(llm_cfg)}
     names = list(llm)
@@ -2956,14 +3032,15 @@ def infer_load_phase(torch, dev, card):
         json.dump(hf_llm_config(llm_cfg), f)
     del llm
     # the vision tower: fp16, one file
-    vit = {hf: rand(shape, torch.float16)
+    vit = {hf: rand(shape, torch.float16, hf)
            for hf, _, shape in hf_vit_names(vit_cfg)}
     want["vit"] = {ours: vit[hf] for hf, ours, _ in hf_vit_names(vit_cfg)
                    if ours is not None}
     ve = os.path.join(root, "visual_encoder")
-    nbytes += _write_safetensors(torch, os.path.join(ve, "model.safetensors"), vit)
+    nbytes += _write_safetensors(torch, os.path.join(ve, "model.safetensors"),
+                                 vit)
     with open(os.path.join(ve, "config.json"), "w") as f:
-        json.dump({"model_type": "clip_vision_model",
+        json.dump({"model_type": f"{vit_cfg.model_type}_vision_model",
                    "hidden_size": vit_cfg.hidden_size,
                    "intermediate_size": vit_cfg.intermediate_size,
                    "num_hidden_layers": vit_cfg.num_hidden_layers,
@@ -2971,14 +3048,14 @@ def infer_load_phase(torch, dev, card):
                    "image_size": vit_cfg.image_size,
                    "patch_size": vit_cfg.patch_size,
                    "layer_norm_eps": vit_cfg.layer_norm_eps,
-                   "hidden_act": "quick_gelu", "torch_dtype": "float16"}, f)
+                   "hidden_act": vit_cfg.hidden_act,
+                   "torch_dtype": "float16"}, f)
     del vit
     # the projector: fp32, torch.save
     Dv, D = vit_cfg.hidden_size, llm_cfg.hidden_size
-    pj = {"model.0.weight": rand((D, Dv), torch.float32),
-          "model.0.bias": rand((D,), torch.float32),
-          "model.2.weight": rand((D, D), torch.float32),
-          "model.2.bias": rand((D,), torch.float32)}
+    pj = {k: rand(shape, torch.float32, k) for k, shape in (
+        ("model.0.weight", (D, Dv)), ("model.0.bias", (D,)),
+        ("model.2.weight", (D, D)), ("model.2.bias", (D,)))}
     want["pj"] = {f"layers.{int(k[6]) // 2}.{k.split('.')[-1]}": v
                   for k, v in pj.items()}
     pj_dir = os.path.join(root, "projector")
@@ -2988,8 +3065,28 @@ def infer_load_phase(torch, dev, card):
         json.dump({"model_type": "projector", "visual_hidden_size": Dv,
                    "llm_hidden_size": D, "depth": 2, "hidden_act": "gelu",
                    "bias": True}, f)
+    return want, nbytes
+
+
+def infer_load_phase(torch, dev, card):
+    """[infer-load]: an xtuner-format directory at AuroraCap-7B's widths
+    (the LLM cut to INFER_LOAD_LAYERS layers) written by this script, read
+    by the port's load_auroracap_dir onto the card in bf16; every tensor
+    must equal the written one after the same cast, bit for bit. → the
+    directory, which [eval] reads and then deletes."""
+    import dataclasses
+    from aurora_tpu_torch.models.convert import load_auroracap_dir
+    from aurora_tpu_torch.models.llama import LlamaConfig
+    from aurora_tpu_torch.models.vit import ViTConfig
+    llm_cfg = dataclasses.replace(LlamaConfig.vicuna_7b_v15_16k(),
+                                  num_hidden_layers=INFER_LOAD_LAYERS)
+    vit_cfg = ViTConfig.dfn5b_vit_h_378()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "infer_load")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    t0 = time.perf_counter()
+    want, nbytes = write_xtuner_dir(torch, root, llm_cfg, vit_cfg, g)
     write_s = time.perf_counter() - t0
-    del pj
     gc.collect()
 
     torch.cuda.synchronize()
@@ -4678,6 +4775,393 @@ def phi3_phase(torch, engine_mod, ra, dev, card, plains):
     return out
 
 
+def internvl_hf_tree(torch, cfg, dev, gen):
+    """Random bf16 weights of an InternVLForConditionalGeneration
+    checkpoint in its key names, drawn as models/init.py draws a model
+    (matrices, embeddings and the CLS / position tables N(0, 0.02²), norm
+    scales one, biases zero), with LayerScale at its init value, the
+    tower's q/k/v biases N(0, 0.02²) and the decoder's N(0, 1), as the
+    Qwen2 runs draw them, so that they act."""
+    v, t = cfg.vision, cfg.text
+    Dv, Iv, p = v.hidden_size, v.intermediate_size, v.patch_size
+    D, I, V = t.hidden_size, t.intermediate_size, t.vocab_size
+    H, Hkv, hd = t.num_attention_heads, t.num_key_value_heads, t.head_dim
+
+    def mat(*shape, std=0.02):
+        return torch.empty(shape, device=dev, dtype=torch.bfloat16).normal_(
+            0.0, std, generator=gen)
+
+    def full(n, x):
+        return torch.full((n,), x, device=dev, dtype=torch.bfloat16)
+
+    e = "model.vision_tower.embeddings."
+    sd = {e + "patch_embeddings.projection.weight": mat(Dv, 3, p, p),
+          e + "patch_embeddings.projection.bias": full(Dv, 0.0),
+          e + "cls_token": mat(1, 1, Dv),
+          e + "position_embeddings": mat(1, v.num_patches + 1, Dv)}
+    for i in range(v.num_hidden_layers):
+        b = f"model.vision_tower.encoder.layer.{i}."
+        for n in ("layernorm_before", "layernorm_after"):
+            sd[b + n + ".weight"] = full(Dv, 1.0)
+            sd[b + n + ".bias"] = full(Dv, 0.0)
+        for n in "qkv":
+            sd[b + f"attention.{n}_proj.weight"] = mat(Dv, Dv)
+            sd[b + f"attention.{n}_proj.bias"] = mat(Dv)
+        for n, shape in (("attention.projection_layer", (Dv, Dv)),
+                         ("mlp.fc1", (Iv, Dv)), ("mlp.fc2", (Dv, Iv))):
+            sd[b + n + ".weight"] = mat(*shape)
+            sd[b + n + ".bias"] = full(shape[0], 0.0)
+        for n in ("lambda_1", "lambda_2"):
+            sd[b + n] = full(Dv, v.layer_scale_init_value)
+    pj, Din = "model.multi_modal_projector.", cfg.projector_in
+    sd.update({pj + "layer_norm.weight": full(Din, 1.0),
+               pj + "layer_norm.bias": full(Din, 0.0),
+               pj + "linear_1.weight": mat(D, Din),
+               pj + "linear_1.bias": full(D, 0.0),
+               pj + "linear_2.weight": mat(D, D),
+               pj + "linear_2.bias": full(D, 0.0)})
+    lm = "model.language_model."
+    sd.update({lm + "embed_tokens.weight": mat(V, D),
+               lm + "norm.weight": full(D, 1.0), "lm_head.weight": mat(V, D)})
+    for i in range(t.num_hidden_layers):
+        b = f"{lm}layers.{i}."
+        for n in ("input_layernorm", "post_attention_layernorm"):
+            sd[b + n + ".weight"] = full(D, 1.0)
+        for n, out in (("q", H * hd), ("k", Hkv * hd), ("v", Hkv * hd)):
+            sd[b + f"self_attn.{n}_proj.weight"] = mat(out, D)
+            sd[b + f"self_attn.{n}_proj.bias"] = mat(out, std=1.0)
+        sd[b + "self_attn.o_proj.weight"] = mat(D, H * hd)
+        for n, shape in (("gate", (I, D)), ("up", (I, D)), ("down", (D, I))):
+            sd[b + f"mlp.{n}_proj.weight"] = mat(*shape)
+    return sd
+
+
+def visual_twin_err(torch, fn, modules, px, cfg, tape=None):
+    """fn(model-like, px) on the card in bf16 against the same modules
+    copied to fp32 on the same input (upcast), under TF32 off: → (max |Δ|
+    / max |want|, the bf16 result). modules: {attribute: module}; tape: a
+    RoutingTape whose pass on the bf16 modules the fp32 pass replays (the
+    ToMe merges, whose rankings bf16 may order otherwise)."""
+    import copy
+    import types
+    tape = tape or RoutingTape(())
+    with torch.no_grad():
+        with tape.patched(False):
+            got = fn(types.SimpleNamespace(cfg=cfg, **modules), px)
+        twin = {k: copy.deepcopy(m).float() for k, m in modules.items()}
+        with tape.patched(True):
+            want = fn(types.SimpleNamespace(cfg=cfg, **twin), px.float())
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "visual features not finite")
+    return ((got.float() - want).abs().max() / want.abs().max()).item(), got
+
+
+def internvl_phase(torch, engine_mod, ra, dev, card, plains):
+    """InternVL3-8B whole (INTERNVL3_8B: InternViT-300M, the pixel-shuffle
+    projector, Qwen2.5-7B's decoder), random bf16 weights from the seed in
+    the -hf key names, converted on the card by `internvl_params_from_hf`
+    and served through `InternVLServing` and ServeEngine with the radix
+    cache on: INTERNVL_PROMPTS (1 or 2 448 x 448 tiles and ~40 text ids
+    each) in two waves of two, INTERNVL_MAX_NEW greedy tokens, bf16 KV
+    twice (a fresh front end each time: tokens and logprobs bit for bit)
+    and int8 KV. Each run: extend_kernel<128> once a layer a wave and no
+    other width, the decode kernel once a layer a step, the twins 0, the
+    repeated tile's request hits its prefix, and the logits of a wave and
+    a decode step against the twins; InternViT + projector against their
+    fp32 twin → {run: (extend launches, decode launches)}."""
+    from aurora_tpu_torch.models.convert import llama_config_from_hf
+    from aurora_tpu_torch.models.internvl import (InternVLConfig,
+                                                  internvit_config_from_hf,
+                                                  internvl_image_features,
+                                                  internvl_params_from_hf)
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.multimodal import (_PLACEHOLDER_BASE,
+                                                   InternVLServing)
+    cfg = InternVLConfig(
+        vision=internvit_config_from_hf(INTERNVL3_8B["vision_config"]),
+        text=llama_config_from_hf(INTERNVL3_8B["text_config"]),
+        downsample_ratio=INTERNVL3_8B["downsample_ratio"],
+        projector_hidden_act=INTERNVL3_8B["projector_hidden_act"])
+    t = cfg.text
+    L, hd, G = (t.num_hidden_layers, t.head_dim,
+                t.num_attention_heads // t.num_key_value_heads)
+    n_vis = cfg.n_visual_tokens
+    check(hd == 128 and G == 7 and t.qkv_bias and n_vis == 256
+          and cfg.projector_in == 4096, f"internvl config {cfg}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = internvl_hf_tree(torch, cfg, dev, gen)
+    model = internvl_params_from_hf(sd, cfg, dtype=torch.bfloat16,
+                                    device=dev)
+    del sd
+    gc.collect()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    rng = np.random.default_rng(SEED + 17)
+    size = cfg.vision.image_size
+    uniq = [rng.standard_normal((n, 3, size, size)).astype(np.float32)
+            for n in (1, 2, 2)]
+    # the third request repeats the first one's tile
+    tiles = [uniq[0], uniq[1], uniq[0], uniq[2]]
+    with torch.no_grad():       # warm InternViT (cuBLAS set-up) off the runs
+        internvl_image_features(model, torch.zeros(
+            (1, 3, size, size), device=dev, dtype=torch.bfloat16))
+    prompts = [("<image>" * n) + "\n" + q for n, q in INTERNVL_PROMPTS]
+    widths = [(ra.ragged_attention, f"launches_w{w}")
+              for w in ra.KERNEL_WIDTHS]
+    out, first = {}, None
+    for run, kv_quant, counter in INTERNVL_RUNS:
+        mm = InternVLServing(model, ByteTokenizer())
+        embed_times = []
+
+        def timed_embed_fn(req, mm=mm, embed_times=embed_times):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x = mm.embed_fn(req)
+            torch.cuda.synchronize()
+            embed_times.append(time.perf_counter() - t1)
+            return x
+
+        reqs = [mm.build_request(f"v{i}", p, px,
+                                 max_new_tokens=INTERNVL_MAX_NEW,
+                                 eos_ids=(), logprobs=True)
+                for i, (p, px) in enumerate(zip(prompts, tiles))]
+        for r, (n, _) in zip(reqs, INTERNVL_PROMPTS):
+            n_ph = sum(x >= _PLACEHOLDER_BASE for x in r.input_ids)
+            check(n_ph == n * n_vis, f"{r.rid}: {n_ph} visual tokens")
+        plens = [len(r.input_ids) for r in reqs]
+        ecfg = EngineConfig(max_batch=len(reqs), max_seq_len=INTERNVL_BUCKET,
+                            kv_chunk=256, prefill_buckets=(INTERNVL_BUCKET,),
+                            decode_steps=16, kv_quant=kv_quant)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(mm.llm_params, mm.llm_cfg, ecfg,
+                             embed_fn=timed_embed_fn, device=dev, seed=SEED)
+        counters = [(ra.ragged_attention, counter),
+                    (ra.ragged_decode_attention, counter),
+                    (ra.ragged_attention, "launches_window"),
+                    *widths] + plains
+        # two waves of two: the second finds the first's prompts cached
+        wall, counts = serve(torch, engine, reqs[:2], counters,
+                             INTERNVL_MAX_NEW)
+        wall2, counts2 = serve(torch, engine, reqs[2:], counters,
+                               INTERNVL_MAX_NEW)
+        wall += wall2
+        counts = {k: counts[k] + counts2[k] for k in counts}
+        ext, dec, ext_win = (counts[f"{f.__name__}.{a}"]
+                             for f, a in counters[:3])
+        by_width = {a: counts[f"{f.__name__}.{a}"] for f, a in widths}
+        steps = engine._steps
+        hit = reqs[2].n_cached
+        wave_s = (engine.t_extend_s - sum(embed_times)) / 2
+        phase("serve-internvl-" + run, card=repr(card),
+              config=f"internvl3-8b/vit-L{cfg.vision.num_hidden_layers}"
+                     f"/text-L{L}/hd{hd}/G{G}/qkv-bias/kv-{kv_quant}",
+              requests=len(reqs),
+              tiles=",".join(str(n) for n, _ in INTERNVL_PROMPTS),
+              prompt_tokens=",".join(str(n) for n in plens),
+              new_tokens=INTERNVL_MAX_NEW, init_s=f"{init_s:.1f}",
+              weight_gb=f"{weight_gb:.2f}",
+              vit_proj_embed_s=",".join(f"{x:.4f}" for x in embed_times),
+              extend_s_per_wave=f"{wave_s:.4f}",
+              decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+              decode_steps=steps, wall_s=f"{wall:.2f}",
+              prefix_hit=f"{sum(r.n_cached for r in reqs)}/{sum(plens)}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              launches=json.dumps(counts).replace(" ", ""))
+        # two waves: every layer once a wave on the width-128 kernel
+        check(ext == 2 * L and by_width["launches_w128"] == 2 * L
+              and sum(by_width.values()) == 2 * L and ext_win == 0
+              and dec == L * steps,
+              f"{run}: ragged launches {counts}, steps {steps}")
+        check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+              f"plain twins ran: {counts}")
+        check(hit >= 1 + n_vis and all(r.n_cached == 0 for r in reqs[:2]),
+              f"{run}: prefix hits {[r.n_cached for r in reqs]}")
+        got = [(r.output_ids, list(r.output_logprobs)) for r in reqs]
+        if run == "bf16":
+            first = got
+        elif run == "bf16-again":
+            check(got == first, "two bf16 InternVL3-8B runs differ")
+            phase("serve-internvl-repeat", bitwise_equal=True,
+                  tokens=len(reqs) * INTERNVL_MAX_NEW)
+        if run != "bf16-again":
+            logits_check(torch, engine_mod, engine.runner, mm.embed_fn,
+                         reqs, INTERNVL_LOGITS_TOL, "logits-internvl-" + run,
+                         {"ragged_attention": ra.ragged_attention_plain,
+                          "ragged_decode_attention":
+                              ra.ragged_decode_attention_plain},
+                         decode=True)
+        out[run] = (ext, dec)
+        del engine, mm
+        gc.collect()
+    # InternViT + projector on two tiles (warm) against their fp32 twin
+    px = torch.as_tensor(uniq[1], device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        internvl_image_features(model, px)
+    torch.cuda.synchronize()
+    tile_s = (time.perf_counter() - t0) / px.shape[0]
+    err, feats = visual_twin_err(
+        torch, internvl_image_features,
+        {"vision": model.vision, "projector": model.projector}, px, cfg)
+    phase("internvl-vision", card=repr(card), tiles=px.shape[0],
+          vit_proj_s_per_tile=f"{tile_s:.4f}",
+          features=json.dumps(list(feats.shape)).replace(" ", ""),
+          rel_err=f"{err:.3e}", tol=VISUAL_REL_TOL)
+    check(tuple(feats.shape) == (2, n_vis, t.hidden_size)
+          and err <= VISUAL_REL_TOL, f"InternViT twin rel err {err}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def siglip_phase(torch, engine_mod, ra, dev, card, plains):
+    """AuroraCap with a SigLIP tower: an xtuner directory written by this
+    script (SIGLIP_SO400M's visual_encoder/ in SigLIP's names, fp16;
+    Vicuna-7B-v1.5-16k's widths cut to SIGLIP_LLM_LAYERS layers, bf16;
+    the projector fp32; weights drawn as models/init.py draws a model),
+    read by `load_auroracap_dir` onto the card in bf16 and served through
+    AuroraCapServing at kept ratio KEPT_RATIO: N_REQUESTS clips of
+    N_FRAMES 384 x 384 frames, int8 KV, SIGLIP_MAX_NEW greedy tokens. The
+    visual token count (no CLS) must equal each request's fused span, the
+    extend kernel launch once a layer (width 128) and the decode kernel
+    once a layer a step, the twins 0, and one clip's visual groups
+    (SigLIP + ToMe + projector) hold to their fp32 twin under the bf16
+    pass's merges → (extend launches, decode launches)."""
+    import dataclasses as dc
+    from aurora_tpu_torch.data.preprocess import clip_normalize_device
+    from aurora_tpu_torch.models.aurora import (AuroraConfig, AuroraModel,
+                                                encode_visual,
+                                                num_visual_tokens)
+    from aurora_tpu_torch.models.convert import load_auroracap_dir
+    from aurora_tpu_torch.models.llama import LlamaConfig
+    from aurora_tpu_torch.models.vit import ViTConfig
+    from aurora_tpu_torch.ops import tome as tome_mod
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.multimodal import (_PLACEHOLDER_BASE,
+                                                   AuroraCapServing)
+    llm_cfg = dc.replace(LlamaConfig.vicuna_7b_v15_16k(),
+                         num_hidden_layers=SIGLIP_LLM_LAYERS)
+    vit_cfg = ViTConfig(**SIGLIP_SO400M)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "siglip")
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    try:
+        t0 = time.perf_counter()
+        _, nbytes = write_xtuner_dir(torch, root, llm_cfg, vit_cfg, g,
+                                     model_init=True)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm, lcfg, vit, vcfg, pj, pcfg = load_auroracap_dir(
+            root, llm_dtype=torch.bfloat16, vit_dtype=torch.bfloat16,
+            device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(vcfg == vit_cfg and not vcfg.class_token, f"ViT config {vcfg}")
+    names = set(vit.state_dict())
+    check("patch_embed.bias" in names and "class_embedding" not in names
+          and not any(n.startswith("pre_layernorm") for n in names),
+          "the SigLIP tower's parameters")
+    cfg = AuroraConfig(vit=vcfg, llm=lcfg, projector=pcfg)
+    model = AuroraModel(cfg, device="meta", dtype=torch.bfloat16)
+    model.visual_encoder, model.projector, model.llm = vit, pj, llm
+    mm = AuroraCapServing(model, ByteTokenizer(), kept_ratio=KEPT_RATIO,
+                          image_size=vcfg.image_size)
+    n_vis = mm.n_visual_tokens()
+    side = vcfg.image_size // vcfg.patch_size
+    r = int(vcfg.image_size ** 2 / vcfg.patch_size ** 2 * (1 - KEPT_RATIO)
+            / vcfg.num_hidden_layers)
+    # no CLS: the patches less one merge step a layer but the last, less
+    # the dropped token 0
+    check(n_vis == side * side - r * (vcfg.num_hidden_layers - 1) - 1
+          == num_visual_tokens(cfg, KEPT_RATIO), f"visual tokens {n_vis}")
+    rng = np.random.default_rng(SEED + 18)
+    size = vcfg.image_size
+    clips = [rng.integers(0, 256, size=(N_FRAMES, size, size, 3),
+                          dtype=np.uint8) for _ in range(N_REQUESTS + 1)]
+    prompt = " ".join(["<image>"] * N_FRAMES) + \
+        "\nDescribe the video in detail."
+    reqs = [mm.build_request(f"s{i}", prompt, clips[i],
+                             max_new_tokens=SIGLIP_MAX_NEW, eos_ids=())
+            for i in range(N_REQUESTS)]
+    for req in reqs:
+        n_ph = sum(x >= _PLACEHOLDER_BASE for x in req.input_ids)
+        check(n_ph == N_FRAMES * n_vis, f"{req.rid}: {n_ph} visual tokens")
+    P = len(reqs[0].input_ids)
+    mm._visual_groups(mm.build_request("warm", prompt, clips[-1]))
+    vit_times = []
+
+    def timed_embed_fn(req):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x = mm.embed_fn(req)        # raises unless it spans the prompt
+        torch.cuda.synchronize()
+        vit_times.append(time.perf_counter() - t1)
+        return x
+
+    L = lcfg.num_hidden_layers
+    ecfg = EngineConfig(max_batch=N_REQUESTS, kv_chunk=256,
+                        prefill_buckets=(1536,), decode_steps=16,
+                        disable_radix_cache=True, kv_quant="int8",
+                        max_seq_len=P + SIGLIP_MAX_NEW)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(llm, lcfg, ecfg, embed_fn=timed_embed_fn,
+                         device=dev, seed=SEED)
+    counters = [(ra.ragged_attention, "launches_int8"),
+                (ra.ragged_decode_attention, "launches_int8"),
+                (ra.ragged_attention, "launches_w128")] + plains
+    wall, counts = serve(torch, engine, reqs, counters, SIGLIP_MAX_NEW)
+    ext, dec, w128 = (counts[f"{f.__name__}.{a}"] for f, a in counters[:3])
+    steps = engine._steps
+    phase("serve-siglip", card=repr(card),
+          config=f"siglip-so400m-14-384/L{vcfg.num_hidden_layers}"
+                 f"+vicuna-7b-widths/L{L}(cut from 32)/kv-int8",
+          write_s=f"{write_s:.2f}", load_s=f"{load_s:.3f}", bytes=nbytes,
+          requests=N_REQUESTS, frames=N_FRAMES, kept_ratio=KEPT_RATIO,
+          visual_tokens_per_frame=n_vis, prompt_tokens=P,
+          vit_proj_s_per_clip=f"{float(np.mean(vit_times)):.4f}",
+          extend_s=f"{engine.t_extend_s - sum(vit_times):.4f}",
+          decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+          decode_steps=steps, wall_s=f"{wall:.2f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          launches=json.dumps(counts).replace(" ", ""))
+    check(ext == L and w128 == L and dec == L * steps,
+          f"siglip: ragged launches {counts}, steps {steps}")
+    check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+          f"plain twins ran: {counts}")
+    del engine
+    # one clip's visual groups against the fp32 twin, under the bf16
+    # pass's ToMe merges; the served groups are the bf16 pass's bits
+    px = clip_normalize_device(torch.as_tensor(clips[0], device=dev)).to(
+        torch.bfloat16)[None]
+    err, groups = visual_twin_err(
+        torch, lambda m, x: encode_visual(m, x, KEPT_RATIO),
+        {"visual_encoder": vit, "projector": pj}, px, cfg,
+        RoutingTape([(tome_mod, "compute_merge_indices")]))
+    served = mm._visual_groups(reqs[0])[0]
+    phase("siglip-vision", card=repr(card),
+          groups=json.dumps(list(groups.shape)).replace(" ", ""),
+          rel_err=f"{err:.3e}", tol=VISUAL_REL_TOL,
+          served_bitwise=bool(torch.equal(served, groups)))
+    check(tuple(groups.shape) == (1, N_FRAMES, n_vis, lcfg.hidden_size)
+          and err <= VISUAL_REL_TOL and torch.equal(served, groups),
+          f"SigLIP twin rel err {err}")
+    del model, mm, llm, vit, pj
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ext, dec
+
+
 def dpo_phase(torch, fa, dev, card, counters, plains, gemma=False):
     """train/preference.py's `make_dpo_step` at Vicuna-7B widths and
     DPO_LAYERS layers, policy and reference (a copy of the policy's
@@ -5237,7 +5721,8 @@ def main(argv=None):
                                  "on one NVIDIA GPU (module docstring)")
     ap.add_argument("--only", action="append",
                     choices=["train-cli", "kernels", "serve-gemma2",
-                             "serve-phi3", "train-dpo", "serve-moe"],
+                             "serve-phi3", "train-dpo", "serve-moe",
+                             "serve-internvl", "serve-siglip"],
                     help="run these phases alone, in the script's order "
                          "(train-cli: [infer-load] and the four train-cli "
                          "phases; kernels: [build] and every [kernels] "
@@ -5246,8 +5731,10 @@ def main(argv=None):
                          "Phi-3-mini runs; train-dpo: both DPO "
                          "phases; serve-moe: "
                          "[kernels-moe] and the Mixtral, Qwen3-MoE and "
-                         "DeepSeek-V2-Lite runs); no kernel JSON line, no "
-                         "final line")
+                         "DeepSeek-V2-Lite runs; serve-internvl: the "
+                         "InternVL3-8B runs; serve-siglip: AuroraCap with "
+                         "a SigLIP tower); no kernel JSON line, no final "
+                         "line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5308,6 +5795,12 @@ def main(argv=None):
             stablelm_phase(torch, engine_mod, ra, dev, card, plains)
         if "serve-phi3" in only:
             phi3_phase(torch, engine_mod, ra, dev, card, plains)
+        if only & {"serve-internvl", "serve-siglip"}:
+            cuda_build.load_library()   # the build stays out of the waves
+        if "serve-internvl" in only:
+            internvl_phase(torch, engine_mod, ra, dev, card, plains)
+        if "serve-siglip" in only:
+            siglip_phase(torch, engine_mod, ra, dev, card, plains)
         if "train-dpo" in only:
             dpo_phase(torch, fa, dev, card, flash_counters, all_plains)
             dpo_phase(torch, fa, dev, card, flash_counters, all_plains,
@@ -5701,6 +6194,10 @@ def main(argv=None):
     stablelm = stablelm_phase(torch, engine_mod, ra, dev, card, plains)
     phi3 = phi3_phase(torch, engine_mod, ra, dev, card, plains)
 
+    # ---- the vision zoo: InternVL3-8B whole, AuroraCap with SigLIP -------
+    internvl = internvl_phase(torch, engine_mod, ra, dev, card, plains)
+    siglip = siglip_phase(torch, engine_mod, ra, dev, card, plains)
+
     # ---- the MoE and MLA families: Mixtral-8x7B, Qwen3-MoE, V2-Lite ------
     moe_runs = moe_serve_phase(torch, engine_mod, ra, qm, moe, dev, card,
                                plains)
@@ -5884,6 +6381,17 @@ def main(argv=None):
                 e["launches_serve_stablelm"] = stablelm[run][i]
                 e["launches_serve_phi3_mini"] = phi3[run][i] + (
                     phi3["bf16-again"][i] if run == "bf16" else 0)
+        # InternVL3-8B (hd 128, G 7: bf16 KV twice, int8 KV) and AuroraCap
+        # with a SigLIP tower (int8 KV)
+        for mode, runs in (("bf16", ("bf16", "bf16-again")),
+                           ("int8", ("kv8",))):
+            if e["name"] in (f"ragged_attention[{mode}]",
+                             f"ragged_decode_attention[{mode}]"):
+                i = int(e["name"].startswith("ragged_decode"))
+                e["launches_serve_internvl"] = sum(internvl[r][i]
+                                                   for r in runs)
+                if mode == "int8":
+                    e["launches_serve_siglip"] = siglip[i]
         if e["name"] == "w8a8_matmul":
             e["launches_serve_mixtral_w8kv8"] = moe_runs["mixtral-w8kv8"][3]
         if e["name"] == "w4a8_matmul_tiled":

@@ -9,9 +9,11 @@ twice; `.bin` files load through torch.load, one or sharded. The port's
 `load_auroracap_dir` and `load_llava_hf_dir` must give, on tiny random HF
 checkpoints, exactly the parameters that the JAX loaders give after the
 bridge (fp32, bit for bit), and a bf16 checkpoint loads as bf16 without a
-widening copy. The MoE families convert (tests/test_torch_moe.py) and
-DeepSeek-V2 loads through models/deepseek_v2.py (tests/test_torch_mla.py);
-what the reference refuses of them raises NotImplementedError.
+widening copy; a SigLIP vision config and Yi-VL's projector LayerNorms
+read as the reference reads them. The MoE families convert
+(tests/test_torch_moe.py) and DeepSeek-V2 loads through
+models/deepseek_v2.py (tests/test_torch_mla.py); what the reference
+refuses of them raises NotImplementedError.
 """
 
 import json
@@ -249,24 +251,49 @@ def test_ported_llm_configs_match_jax():
             "rope_type": "dynamic", "type": "linear", "factor": 4.0}})
 
 
-def test_siglip_tower_raises():
-    with pytest.raises(NotImplementedError):
-        tconvert.vit_config_from_hf({
-            "model_type": "siglip_vision_model", "hidden_size": 32,
-            "intermediate_size": 64, "num_hidden_layers": 1,
-            "num_attention_heads": 4})
+def test_siglip_tower_config_matches_jax():
+    """A SigLIP vision config reads as the reference reads it (no class
+    token; its own GELU where the config names none)."""
+    hf = {"model_type": "siglip_vision_model", "hidden_size": 32,
+          "intermediate_size": 64, "num_hidden_layers": 1,
+          "num_attention_heads": 4}
+    got = tconvert.vit_config_from_hf(hf)
+    assert got == bridge._config_from(jconvert.vit_config_from_hf(hf),
+                                      tconvert.ViTConfig)
+    assert got.model_type == "siglip" and not got.class_token
+    assert got.hidden_act == "gelu_pytorch_tanh"
 
 
-def test_yi_vl_projector_layernorms_raise(tmp_path):
+def test_yi_vl_projector_layernorms_match_jax(tmp_path):
+    """The tiny llava directory with Yi-VL's projector LayerNorms (ln_1,
+    ln_2) added: both packages' load_llava_hf_dir give the same
+    parameters, and the projectors' outputs agree within 1e-5."""
     src = _tiny_llava(str(tmp_path / "llava"))
     root = str(tmp_path / "yivl")
     os.makedirs(root)
     shutil.copy(os.path.join(src, "config.json"), root)
     sd = tconvert.load_torch_state_dict(src)
-    proj = next(k for k in sd if "multi_modal_projector.linear_1.weight"
-                in k).replace("linear_1.weight", "ln_1.weight")
-    sd[proj] = torch.ones(64)
+    g = torch.Generator().manual_seed(1)
+    for i in (1, 2):
+        w = next(k for k in sd if f"multi_modal_projector.linear_{i}.weight"
+                 in k)
+        sd[w.replace(f"linear_{i}", f"ln_{i}")] = 1 + 0.1 * torch.randn(
+            64, generator=g)
+        sd[w.replace(f"linear_{i}.weight", f"ln_{i}.bias")] = \
+            0.1 * torch.randn(64, generator=g)
     save_file({k: v.contiguous() for k, v in sd.items()},
               os.path.join(root, "model.safetensors"))
-    with pytest.raises(NotImplementedError):
-        tconvert.load_llava_hf_dir(root, device="cpu")
+    got = tconvert.load_llava_hf_dir(root, llm_dtype=torch.float32,
+                                     vit_dtype=torch.float32, device="cpu")
+    jloaded = jconvert.load_llava_hf_dir(root, llm_dtype=jnp.float32,
+                                         vit_dtype=jnp.float32)
+    want = _jax_modules(jloaded)
+    _assert_modules_equal(got, want)
+    assert sorted(got[4].norms) == ["ln0", "ln1"]
+    from aurora_tpu.models.projector import apply_projector
+    x = np.random.default_rng(2).standard_normal((2, 5, 32)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        got[4](torch.from_numpy(x)).detach().numpy(),
+        np.asarray(apply_projector(jloaded[4], jnp.asarray(x), jloaded[5])),
+        rtol=1e-5, atol=1e-5)

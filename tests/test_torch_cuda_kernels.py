@@ -1850,3 +1850,125 @@ def test_moe_engines_repeat_on_card(cuda_device):
     a, b = _serve_twice(ds, ds.cfg, [[t % d.vocab_size for t in p]
                                      for p in prompts])
     assert a == b
+
+
+_INTERNVIT_REPEAT = r'''
+import hashlib, sys
+import torch
+from aurora_tpu_torch.models.init import build
+from aurora_tpu_torch.models.internvl import (InternViT, InternViTConfig,
+                                              internvit_encode)
+dev = torch.device("cuda", 0)
+if sys.argv[1] == "sdpa-first":   # another masked SDPA call first
+    q = torch.randn((4, 32, 300, 128), device=dev, dtype=torch.bfloat16)
+    torch.nn.functional.scaled_dot_product_attention(
+        q, q, q, attn_mask=torch.ones((300, 300), dtype=torch.bool,
+                                      device=dev).tril())
+cfg = InternViTConfig(attention_bias=True)
+vit = build(InternViT, cfg, device=dev, dtype=torch.bfloat16,
+            generator=torch.Generator(dev).manual_seed(0))
+px = torch.randn((2, 3, 448, 448), device=dev,
+                 generator=torch.Generator(dev).manual_seed(1))
+with torch.no_grad():
+    outs = [internvit_encode(vit, px.to(torch.bfloat16)) for _ in range(2)]
+assert torch.equal(outs[0], outs[1])
+print(hashlib.md5(outs[0].float().cpu().numpy().tobytes()).hexdigest())
+'''
+
+
+@pytest.mark.cuda
+def test_internvit_encode_repeats_on_card(cuda_device):
+    """InternViT-300M (InternVL3-8B's tower: 24 layers, hidden 1024, 448
+    px, q/k/v biases) on 2 tiles, encoded twice in each of three fresh
+    processes (one after another masked SDPA call): the same bits. Its
+    attention keeps to `REPEATABLE_SDPA`, as the CLIP tower's does."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    outs = [subprocess.run([sys.executable, "-c", _INTERNVIT_REPEAT, arg],
+                           env=env, capture_output=True, text=True,
+                           timeout=300, check=True).stdout.strip()
+            for arg in ("fresh", "fresh", "sdpa-first")]
+    assert len(outs[0]) == 32 and len(set(outs)) == 1, outs
+
+
+@pytest.mark.cuda
+def test_internvl_serving_wave_on_card(cuda_device):
+    """InternVLServing at a small config whose decoder has head_dim 128
+    (hidden 512, GQA 4/2, 2 layers; InternViT 2 layers at 448 px, 256
+    visual tokens a tile): 2 requests of 1 and 2 tiles, 8 greedy tokens,
+    bf16 KV. The extend wave runs extend_kernel<128> (one launch a
+    layer, none at another width), the decode kernel one a layer and a
+    step, and the tokens equal those of the same engine on the plain
+    twins."""
+    from unittest import mock
+
+    import numpy as np
+
+    from aurora_tpu_torch.models.init import build
+    from aurora_tpu_torch.models.internvl import (InternViT,
+                                                  InternViTConfig,
+                                                  InternVLConfig,
+                                                  InternVLModel,
+                                                  InternVLProjector)
+    from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from aurora_tpu_torch.serve import engine as teng
+    from aurora_tpu_torch.serve.multimodal import InternVLServing
+
+    class Tok:
+        def encode(self, text, add_special_tokens=True):
+            ids = [3 + b % 200 for b in text.encode()]
+            return [1] + ids if add_special_tokens else ids
+
+    cfg = InternVLConfig(
+        vision=InternViTConfig(hidden_size=256, intermediate_size=512,
+                               num_hidden_layers=2, num_attention_heads=4,
+                               attention_bias=True),
+        text=LlamaConfig(vocab_size=256, hidden_size=512,
+                         intermediate_size=1024, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2))
+    kw = dict(device=cuda_device, dtype=torch.bfloat16,
+              generator=torch.Generator(cuda_device).manual_seed(0))
+    model = InternVLModel(cfg, build(InternViT, cfg.vision, **kw),
+                          build(InternVLProjector, cfg, **kw),
+                          build(LlamaModel, cfg.text, **kw))
+    with torch.no_grad():       # wide logit gaps: no near ties
+        model.text.lm_head.weight.mul_(10.0)
+    rng = np.random.default_rng(0)
+    tiles = [rng.standard_normal((n, 3, 448, 448)).astype(np.float32)
+             for n in (1, 2)]
+    prompts = ["<image> Describe the picture.", "<image><image> Compare."]
+    L = cfg.text.num_hidden_layers
+
+    def serve():
+        mm = InternVLServing(model, Tok())
+        eng = teng.ServeEngine(mm.llm_params, mm.llm_cfg, teng.EngineConfig(
+            max_batch=2, max_seq_len=640, kv_chunk=128,
+            prefill_buckets=(640,), decode_steps=4,
+            disable_radix_cache=True), embed_fn=mm.embed_fn, seed=0)
+        for i, (text, px) in enumerate(zip(prompts, tiles)):
+            eng.add_request(mm.build_request(str(i), text, px,
+                                             max_new_tokens=8, eos_ids=()))
+        done = {}
+        while eng.has_work():
+            done.update({r.rid: r.output_ids for r in eng.step()})
+        return done, eng._steps
+
+    for name in ("launches", *(f"launches_w{w}" for w in
+                               tra.KERNEL_WIDTHS)):
+        setattr(tra.ragged_attention, name, 0)
+    tra.ragged_decode_attention.launches = 0
+    got, steps = serve()
+    assert tra.ragged_attention.launches == L
+    assert tra.ragged_attention.launches_w128 == L
+    assert sum(getattr(tra.ragged_attention, f"launches_w{w}")
+               for w in tra.KERNEL_WIDTHS) == L
+    assert tra.ragged_decode_attention.launches == L * steps
+    with mock.patch.multiple(
+            teng, ragged_attention=tra.ragged_attention_plain,
+            ragged_decode_attention=tra.ragged_decode_attention_plain):
+        want, _ = serve()
+    assert sorted(got) == ["0", "1"]
+    assert got == want

@@ -1,7 +1,9 @@
 """Port ops vs the JAX reference ops, on the same numpy inputs in float32
 on the CPU. Tolerance: 1e-5 relative (and absolute) for every float op —
 both sides compute in fp32 and differ only in summation order. ToMe merge
-indices must be equal exactly."""
+indices and merge_source's provenance must be equal exactly; the merges
+of every mode and matcher (bipartite, kth, random given the reference's
+split) are float ops."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -136,3 +138,103 @@ def test_tome_merge_sums_in_fp32(dtype):
         got = ttome._merge_add(b, idx, src)
         assert got.dtype == dtype
         torch.testing.assert_close(got.double(), exact, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mode", ["sum", "amax", "mean"])
+def test_tome_apply_merge_modes(mode):
+    """apply_merge in each mode vs the reference's, at indices from the
+    same metric (several proposals to one target included)."""
+    rng = np.random.default_rng(6)
+    metric = rng.standard_normal((2, 25, 8)).astype(np.float32)
+    x = rng.standard_normal((2, 25, 12)).astype(np.float32)
+    idx = jtome.compute_merge_indices(jnp.asarray(metric), 9)
+    want = jtome.apply_merge(jnp.asarray(x), *idx, mode=mode)
+    got = ttome.apply_merge(torch.from_numpy(x),
+                            *(torch.from_numpy(np.asarray(i, np.int64))
+                              for i in idx), mode=mode)
+    assert tuple(got.shape) == (2, 16, 12)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    # the returned merge's default mode is the reference's ("mean")
+    if mode == "mean":
+        tm = ttome.bipartite_soft_matching(torch.from_numpy(metric), 9)
+        np.testing.assert_allclose(_np(tm(torch.from_numpy(x))), _np(want),
+                                   **TOL)
+
+
+def test_tome_merge_source():
+    """Provenance after two merges: the amax of the one-hot rows."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 17, 8)).astype(np.float32)
+    m2 = rng.standard_normal((2, 12, 8)).astype(np.float32)
+    jm1 = jtome.bipartite_soft_matching(jnp.asarray(x), 5)
+    tm1 = ttome.bipartite_soft_matching(torch.from_numpy(x), 5)
+    want = jtome.merge_source(jm1, jnp.asarray(x))
+    got = ttome.merge_source(tm1, torch.from_numpy(x))
+    np.testing.assert_array_equal(_np(got), _np(want))
+    jm2 = jtome.bipartite_soft_matching(jnp.asarray(m2), 3,
+                                        class_token=False)
+    tm2 = ttome.bipartite_soft_matching(torch.from_numpy(m2), 3,
+                                        class_token=False)
+    want = jtome.merge_source(jm2, jnp.asarray(m2), want)
+    got = ttome.merge_source(tm2, torch.from_numpy(m2), got)
+    assert tuple(got.shape) == (2, 9, 17)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("k,mode", [(3, "mean"), (4, "sum"), (3, "amax"),
+                                    (1, "mean")])
+def test_tome_kth_matching(k, mode):
+    rng = np.random.default_rng(8)
+    metric = rng.standard_normal((2, 24, 8)).astype(np.float32)
+    x = rng.standard_normal((2, 24, 6)).astype(np.float32)
+    want = jtome.kth_bipartite_soft_matching(jnp.asarray(metric), k)(
+        jnp.asarray(x), mode=mode)
+    got = ttome.kth_bipartite_soft_matching(torch.from_numpy(metric), k)(
+        torch.from_numpy(x), mode=mode)
+    assert tuple(got.shape) == (2, 24 // k, 6)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_tome_kth_matching_refuses_t_not_divisible():
+    metric = torch.zeros((1, 25, 4))
+    with pytest.raises(ValueError, match="k | T"):
+        ttome.kth_bipartite_soft_matching(metric, 4)
+    with pytest.raises(ValueError, match="k | T"):
+        jtome.kth_bipartite_soft_matching(jnp.zeros((1, 25, 4)), 4)
+
+
+@pytest.mark.parametrize("mode", ["mean", "sum", "amax"])
+def test_tome_random_matching_given_the_reference_split(mode):
+    """The reference draws its split from a JAX key (PRNGKey(0) by
+    default), the port from a torch.Generator: given the reference's
+    split, the port's matching gives the reference's merge."""
+    import jax
+    rng = np.random.default_rng(9)
+    metric = rng.standard_normal((2, 20, 8)).astype(np.float32)
+    x = rng.standard_normal((2, 20, 5)).astype(np.float32)
+    r = 7
+    want = jtome.random_bipartite_soft_matching(jnp.asarray(metric), r)(
+        jnp.asarray(x), mode=mode)
+    perm = np.asarray(jnp.argsort(jax.random.uniform(
+        jax.random.PRNGKey(0), (2, 20)), axis=1)).astype(np.int64)
+    got = ttome.split_soft_matching(
+        torch.from_numpy(metric), torch.from_numpy(perm[:, :r]),
+        torch.from_numpy(perm[:, r:]))(torch.from_numpy(x), mode=mode)
+    assert tuple(got.shape) == (2, 13, 5)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    # the port's own draw: a permutation from the generator, the same
+    # split for the same seed
+    a, b = ttome.random_split(torch.from_numpy(metric), r,
+                              torch.Generator().manual_seed(3))
+    a2, _ = ttome.random_split(torch.from_numpy(metric), r,
+                               torch.Generator().manual_seed(3))
+    assert torch.equal(a, a2)
+    assert torch.equal(torch.cat([a, b], 1).sort(1).values,
+                       torch.arange(20).expand(2, 20))
+    out = ttome.random_bipartite_soft_matching(
+        torch.from_numpy(metric), r, torch.Generator().manual_seed(3))(
+        torch.from_numpy(x), mode=mode)
+    assert tuple(out.shape) == (2, 13, 5)
+    xt = torch.from_numpy(x)
+    assert ttome.random_bipartite_soft_matching(
+        torch.from_numpy(metric), 0)(xt) is xt
