@@ -4,10 +4,10 @@
     python -m aurora_tpu_torch MODE [MODE_ARGS...]
 
 `train`, `preprocess`, `list-cfg`, `copy-cfg`, `log-dataset`,
-`check-custom-dataset`, `infer`, `serve`, `chat`, `bench-latency`,
-`bench-serving`, `test` and `eval` (the eval CLI), `post-eval` and
-`mmbench` are ported; every other mode of the reference exits 2 with the
-ROADMAP item that will port it.
+`check-custom-dataset`, `infer`, `serve`, `chat`, `convert`,
+`bench-latency`, `bench-serving`, `test` and `eval` (the eval CLI),
+`post-eval` and `mmbench` are ported; `bench-kernels`, which the port does
+not need, exits 2 naming its ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ import importlib
 import sys
 
 _NOT_PORTED = {
-    "convert": "queue 1 item 12 (the converters' export half)",
     "bench-kernels": "queue 1, not to port (aurora_tpu_torch/tools/"
                      "time_ragged.py and time_weights.py time the kernels)",
 }
@@ -33,6 +32,7 @@ _PORTED = {"train": "aurora_tpu_torch.cli.train",
            "infer": "aurora_tpu_torch.cli.infer",
            "serve": "aurora_tpu_torch.cli.serve",
            "chat": "aurora_tpu_torch.cli.chat",
+           "convert": "aurora_tpu_torch.cli.convert",
            "bench-latency": "aurora_tpu_torch.cli.bench_latency",
            "bench-serving": "aurora_tpu_torch.cli.bench_serving",
            # xtuner's `test` is the eval CLI, as in the reference

@@ -16,9 +16,12 @@ W8 or W4. The checkpoint's tokenizer loads through transformers.
 --max-batch 0 or --num-slots 0 sizes the engine from the free device
 memory (`auto_engine_config`). Requests may take `regex` or
 `choices_constraint` (constrained decoding) and prompts up to
---max-seq-len. Not ported, each exits 2 naming its ROADMAP.md item: --dp
-or --tp above 1; what a model does not take (DeepSeek-V2 with
---weight-quant or --kv-quant, as in the reference) exits 2 too.
+--max-seq-len. --tp N cuts each engine's model into N shards on N cards
+(serve/tp.py; the streams of W8 weights are fused per shard, after the
+cut), --dp N serves N replicas behind --dispatch (serve/controller.py).
+What a model does not take exits 2, as the reference stops it:
+DeepSeek-V2 (MLA) with --weight-quant, --kv-quant or --tp above 1, and W4
+weights or packed int4 KV with --tp above 1.
 """
 
 from __future__ import annotations
@@ -29,7 +32,6 @@ import sys
 import torch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_PARALLEL = "ROADMAP.md queue 1 item 9 (data and tensor parallelism)"
 
 
 def _is_mla(model_path: str) -> bool:
@@ -59,11 +61,11 @@ def parse_args(argv=None):
                         "--mem-fraction")
     p.add_argument("--mem-fraction", type=float, default=0.8)
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel replicas (not ported: above 1 "
-                        "exits 2)")
+                   help="data-parallel replicas, one a card (or a group of "
+                        "--tp cards)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel devices per replica (not ported: "
-                        "above 1 exits 2)")
+                   help="tensor-parallel cards per replica; must divide "
+                        "the KV heads (W8 or bf16 weights)")
     p.add_argument("--dispatch", default="shortest_queue",
                    choices=["shortest_queue", "round_robin"])
     p.add_argument("--decode-steps", type=int, default=1,
@@ -95,39 +97,49 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.dp > 1 or args.tp > 1:
-        print(f"--dp {args.dp} --tp {args.tp}: not ported yet: {_PARALLEL}",
-              file=sys.stderr)
+    if args.tp > 1 and "int4" in (args.weight_quant, args.kv_quant):
+        print("W4 packed layout and packed int4 KV are single-device (use "
+              "W8 with --tp>1)", file=sys.stderr)
         return 2
 
     from aurora_tpu_torch.data.text import auto_tokenizer
     from aurora_tpu_torch.models.convert import load_serving_dir
-    from aurora_tpu_torch.serve.api import launch_server
+    from aurora_tpu_torch.serve.api import build_engine, serve_engine
     from aurora_tpu_torch.serve.engine import (_QUANTIZE, EngineConfig,
                                                auto_engine_config,
                                                fuse_serving_weights,
                                                weight_quant_of)
     from aurora_tpu_torch.serve.scheduler import SchedulePolicy
+    from aurora_tpu_torch.serve.tp import shard_bytes, visible_devices
 
     dtype = _DTYPES[args.dtype]
-    mm = None
+    # under --tp the checkpoint loads to the host and each engine cuts it
+    # onto its cards, so no card holds more than its shard; the host copy
+    # goes once the engines are built
+    devices = visible_devices(args.device, args.dp * args.tp)
+    load_device = "cpu" if args.tp > 1 else args.device
+    mm = aurora = None
     if args.aurora:
         from aurora_tpu_torch.cli.infer import load_model
         from aurora_tpu_torch.serve.multimodal import AuroraCapServing
         aurora, acfg, tokenizer = load_model(args.model_path, dtype,
-                                             args.device)
+                                             load_device)
+        aurora.visual_encoder.to(devices[0])
+        aurora.projector.to(devices[0])
         model, cfg = aurora.llm, acfg.llm
         mm = AuroraCapServing(aurora, tokenizer,
                               kept_ratio=args.token_kept_ratio,
                               image_size=args.image_size)
     else:
-        if args.kv_quant != "none" and _is_mla(args.model_path):
-            print(f"--kv-quant {args.kv_quant}: MLA (DeepSeek-V2) serves "
-                  "bf16 latents, as in the reference", file=sys.stderr)
+        if (args.kv_quant != "none" or args.tp > 1) \
+                and _is_mla(args.model_path):
+            print(f"--kv-quant {args.kv_quant} --tp {args.tp}: MLA "
+                  "(DeepSeek-V2) serves bf16 latents on one device, as in "
+                  "the reference", file=sys.stderr)
             return 2
         try:
             model, cfg = load_serving_dir(args.model_path, dtype,
-                                          args.device, args.weight_quant)
+                                          load_device, args.weight_quant)
         except NotImplementedError as e:
             print(f"{e}", file=sys.stderr)
             return 2
@@ -135,10 +147,11 @@ def main(argv=None) -> int:
 
     # quantize (where the loader has not, layer by layer) and fuse before
     # the engine, dropping each dense source as it goes, so that the peak
-    # stays about one model
+    # stays about one model; under --tp the engine cuts the model first
+    # and fuses each shard
     if weight_quant_of(model) != args.weight_quant:
         model = _QUANTIZE[args.weight_quant](model, free_source=True)
-    if args.weight_quant != "none":
+    if args.weight_quant != "none" and args.tp == 1:
         model = fuse_serving_weights(model)
 
     ecfg = EngineConfig(max_batch=args.max_batch,
@@ -148,15 +161,27 @@ def main(argv=None) -> int:
                         kv_dtype=dtype, kv_quant=args.kv_quant,
                         weight_quant=args.weight_quant,
                         decode_steps=args.decode_steps,
-                        disable_radix_cache=args.disable_radix_cache)
+                        disable_radix_cache=args.disable_radix_cache,
+                        tp=args.tp)
     if args.max_batch <= 0 or args.num_slots <= 0:
-        # the weights are resident, so the free memory excludes them
-        ecfg = auto_engine_config(cfg, ecfg, mem_fraction=args.mem_fraction,
-                                  device=args.device)
+        # at tp 1 the weights are resident, so the free memory excludes
+        # them; under --tp the shard that each card will hold is set aside
+        ecfg = auto_engine_config(
+            cfg, ecfg, mem_fraction=args.mem_fraction, device=devices[0],
+            pending_bytes=shard_bytes(model, args.tp) if args.tp > 1 else 0)
         print(f"[serve] auto-sized from free memory: max_batch="
               f"{ecfg.max_batch} num_slots={ecfg.num_slots}", flush=True)
-    launch_server(model, cfg, tokenizer, host=args.host, port=args.port,
-                  engine_cfg=ecfg, mm=mm, dp=args.dp, dispatch=args.dispatch)
+    engine = build_engine(model, cfg, ecfg,
+                          devices=devices,
+                          dp=args.dp, dispatch=args.dispatch,
+                          embed_fn=mm.embed_fn if mm else None,
+                          tokenizer=tokenizer)
+    del model
+    if aurora is not None and args.tp > 1:
+        # the text embeddings of the prompts: the first shard's replica
+        first = engine.engines[0] if args.dp > 1 else engine
+        aurora.llm = first.runner.model
+    serve_engine(engine, tokenizer, host=args.host, port=args.port, mm=mm)
     return 0
 
 

@@ -88,7 +88,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.mesh:
         p.error("sharded training (--mesh) is not ported: ROADMAP.md "
-                "queue 1 items 9 and 11")
+                "queue 1 item 11")
     if args.quant != "none" and args.lora_r <= 0:
         p.error("--quant requires --lora_r (quantized base is frozen; "
                 "full-parameter training needs a float base)")

@@ -610,6 +610,16 @@ def _moe_params(out, sd, pre, src, cfg):
             sd[src + "mlp.shared_expert_gate.weight"].t()
 
 
+# a llama layer's names in the port ↔ in HF checkpoints (the module, its
+# `.weight` / `.bias` after it); models/export.py writes by the same table
+HF_LAYER_NORMS = (("input_norm", "input_layernorm"),
+                  ("post_attn_norm", "post_attention_layernorm"))
+HF_LAYER_PROJS = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                  ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+                  ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+                  ("down", "mlp.down_proj"))
+
+
 def llama_params_from_hf(sd: StateDict, cfg: LlamaConfig,
                          dtype=torch.bfloat16, device=None,
                          weight_quant: str = "none") -> LlamaModel:
@@ -635,8 +645,7 @@ def llama_params_from_hf(sd: StateDict, cfg: LlamaConfig,
         num_labels = sd["score.weight"].shape[0]
     if "wpe.weight" in sd:
         out["wpe"] = sd["wpe.weight"]
-    norms = (("input_norm", "input_layernorm"),
-             ("post_attn_norm", "post_attention_layernorm"))
+    norms = HF_LAYER_NORMS
     if cfg.parallel_block:          # Cohere: one norm a layer
         norms = norms[:1]
     for i in range(L):
@@ -647,10 +656,7 @@ def llama_params_from_hf(sd: StateDict, cfg: LlamaConfig,
             if cfg.norm_type == "layernorm":   # OLMo: zeros synthesized
                 out[pre + ours + "_bias"] = sd.get(
                     src + theirs + ".bias", torch.zeros(d))
-        for name, key in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
-                          ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
-                          ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
-                          ("down", "mlp.down_proj")):
+        for name, key in HF_LAYER_PROJS:
             if src + key + ".weight" not in sd:
                 continue        # a non-gated MLP has no gate
             out[pre + name + ".weight"] = sd[src + key + ".weight"]

@@ -543,7 +543,13 @@ def layer_attn_out(cfg: LlamaConfig, lp: LlamaLayer, attn, dot=_dense):
     """The attention output [B, T, H·hd] through o (and its bias), then
     Gemma-2's output norm and MiniCPM's residual scale: the branch that
     joins the residual."""
-    out = dot(attn, lp.o)
+    return attn_out_tail(cfg, lp, dot(attn, lp.o))
+
+
+def attn_out_tail(cfg: LlamaConfig, lp: LlamaLayer, out):
+    """What follows the o product: its bias, Gemma-2's output norm and
+    MiniCPM's residual scale. Under tensor parallelism (serve/tp.py) `out`
+    is the sum of the shards' partial products, so the bias adds once."""
     if getattr(lp, "o_bias", None) is not None:
         out = out + lp.o_bias
     if getattr(lp, "post_attn_out_norm", None) is not None:
@@ -577,14 +583,22 @@ def moe_layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h,
 def layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense,
               moe_grouped: bool = False):
     """The MLP branch on the normed input h (the reference's `_mlp`
-    without the residual): a MoE layer's experts (`moe_layer_mlp`, the
-    grouped form with moe_grouped, else the dense one); gated (SiLU or
-    GeGLU) per-name, fused (gateup) or a W4FusedMLP, or non-gated (up →
-    act → down, with biases); then the down bias, Gemma-2's output norm
-    and MiniCPM's residual scale. With a W4FusedMLP, at most MAX_TOKENS
-    tokens run as one `fused_mlp_w4` call; more (prefill) untile the
-    weights and run gateup and down through `dot`, act(gate)·up in h's
-    dtype between them."""
+    without the residual): `mlp_product`, then `mlp_tail`."""
+    return mlp_tail(cfg, lp, mlp_product(cfg, lp, h, dot, moe_grouped))
+
+
+def mlp_product(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense,
+                moe_grouped: bool = False, down_dot=None):
+    """The MLP up to its down product: a MoE layer's experts
+    (`moe_layer_mlp`, the grouped form with moe_grouped, else the dense
+    one); gated (SiLU or GeGLU) per-name, fused (gateup) or a W4FusedMLP,
+    or non-gated (up → act → down, the up bias). With a W4FusedMLP, at
+    most MAX_TOKENS tokens run as one `fused_mlp_w4` call; more (prefill)
+    untile the weights and run gateup and down through `dot`, act(gate)·up
+    in h's dtype between them. Under tensor parallelism each shard's is a
+    partial sum over its slice of the MLP width, its down product through
+    `down_dot` (default `dot`)."""
+    ddot = down_dot or dot
     if hasattr(lp, "moe_router"):   # Mixtral / Qwen-MoE / DeepSeek v1
         out = moe_layer_mlp(cfg, lp, h, moe_grouped)
     elif hasattr(lp, "mlp"):        # fused-MLP W4 layout
@@ -595,17 +609,25 @@ def layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h, dot=_dense,
         else:
             gateup, down = lp.mlp.untile()
             gate, up = dot(h, gateup).chunk(2, dim=-1)
-            out = dot(family_act(cfg, gate) * up, down)
+            out = ddot(family_act(cfg, gate) * up, down)
     elif hasattr(lp, "gateup"):     # fused stream
         gate, up = dot(h, lp.gateup).chunk(2, dim=-1)
-        out = dot(family_act(cfg, gate) * up, lp.down)
+        out = ddot(family_act(cfg, gate) * up, lp.down)
     elif hasattr(lp, "gate"):
-        out = dot(family_act(cfg, dot(h, lp.gate)) * dot(h, lp.up), lp.down)
+        out = ddot(family_act(cfg, dot(h, lp.gate)) * dot(h, lp.up),
+                   lp.down)
     else:                           # non-gated: StarCoder2, GPT-BigCode
         up = dot(h, lp.up)
         if getattr(lp, "up_bias", None) is not None:
             up = up + lp.up_bias
-        out = dot(family_act(cfg, up), lp.down)
+        out = ddot(family_act(cfg, up), lp.down)
+    return out
+
+
+def mlp_tail(cfg: LlamaConfig, lp: LlamaLayer, out):
+    """What follows the down product: its bias (once, after the shards'
+    sum under tensor parallelism), Gemma-2's output norm and MiniCPM's
+    residual scale."""
     if getattr(lp, "down_bias", None) is not None:
         out = out + lp.down_bias
     if getattr(lp, "post_ffw_norm", None) is not None:

@@ -51,7 +51,9 @@ Where the port differs from the reference:
   `build_request`, where the reference runs PIL's geometry on the host
   (api.py:409, :425): the two agree within 2 levels (tests/test_data.py),
   and the GPU host has no PIL.
-- `dp > 1` raises NotImplementedError (ROADMAP.md queue 1 item 9).
+- /v1/embeddings and /v1/classify answer 501 on a tensor-parallel
+  deployment (`EngineConfig(tp > 1)`): its shards hold parts of each
+  layer, and the offline forward runs one whole model.
 - A request that the engine refuses at admission answers with the
   engine's reason (400 for a ValueError, 500 otherwise); the reference's
   engine refuses none.
@@ -67,7 +69,6 @@ from __future__ import annotations
 import asyncio
 import base64
 import collections
-import contextlib
 import email.parser
 import email.policy
 import http
@@ -97,7 +98,7 @@ from aurora_tpu_torch.models.convert import (llama_params_from_hf,
 from aurora_tpu_torch.models.llama import llama_apply
 from aurora_tpu_torch.serve.constrained import ChoiceConstraint
 from aurora_tpu_torch.serve.engine import (BUSY, EngineConfig, ServeEngine,
-                                           weight_quant_of)
+                                           device_scope, weight_quant_of)
 from aurora_tpu_torch.serve.fsm import RegexConstraint
 from aurora_tpu_torch.serve.scheduler import Request
 from aurora_tpu_torch.utils.templates import (PROMPT_TEMPLATE,
@@ -107,14 +108,6 @@ log = logging.getLogger(__name__)
 
 _MAX_BODY = 1 << 30          # bytes of one request body
 _MAX_HEADERS = 100
-
-
-def device_scope(device):
-    """`device` as the thread's current CUDA device (a worker thread
-    starts on device 0); nothing on the CPU."""
-    device = torch.device(device)
-    return (torch.cuda.device(device) if device.type == "cuda"
-            else contextlib.nullcontext())
 
 
 # ---------------------------------------------------------------------------
@@ -986,6 +979,10 @@ def build_app(loop_: ServingLoop, model_name: str = "auroracap") -> App:
 
     def _offline(what, need_score=False):
         """The engine's model if the offline forward can run on it."""
+        if loop_.engine.ecfg.tp > 1:
+            raise _error(501, f"{what} are unavailable on tensor-parallel "
+                              "deployments (the offline forward runs one "
+                              "whole model)")
         model = loop_.engine.runner.model
         if need_score and not hasattr(model, "score"):
             raise _error(400, "this checkpoint has no classification head "
@@ -1187,23 +1184,35 @@ class ServerThread:
         self.stop()
 
 
-def launch_server(model, cfg, tokenizer, *, host="0.0.0.0", port=30000,
-                  engine_cfg: Optional[EngineConfig] = None,
-                  model_name="auroracap", mm=None, dp=1,
-                  dispatch="shortest_queue"):
-    """Blocking server entry (launch_server parity, srt/server.py:282):
-    one ServeEngine on `model`'s device. Pass mm=AuroraCapServing(...)
-    for multimodal deployments. tokenizer: any object with encode, decode
-    and eos_token_id (a checkpoint's through transformers in
-    cli/serve.py). dp > 1 (data-parallel replicas with a dispatch policy)
-    is not ported."""
+def build_engine(model, cfg, ecfg: EngineConfig, *, devices=None, dp=1,
+                 dispatch="shortest_queue", embed_fn=None, tokenizer=None):
+    """launch_server's engine: one ServeEngine on `model`'s device, its
+    shards on `devices` with ecfg.tp > 1; with dp > 1 a
+    MultiReplicaController (serve/controller.py) of replicas over
+    `devices`, requests dispatched by `dispatch` (round_robin or
+    shortest_queue). devices default to the first dp × tp cards for a
+    model on the card, the CPU dp × tp times for one there (serve/tp.py
+    `visible_devices`). At tp > 1 each engine holds only the shards it
+    cut, so `model` (which may live on the host) is not referenced once
+    this returns."""
+    from aurora_tpu_torch.serve.tp import visible_devices
+    if devices is None and (dp > 1 or ecfg.tp > 1):
+        devices = visible_devices(model.embed_tokens.device, dp * ecfg.tp)
     if dp > 1:
-        raise NotImplementedError(
-            f"dp={dp} ({dispatch}): data-parallel replicas are not ported "
-            "yet: ROADMAP.md queue 1 item 9")
-    engine = ServeEngine(model, cfg, engine_cfg or EngineConfig(),
-                         embed_fn=mm.embed_fn if mm else None,
-                         tokenizer=tokenizer)
+        from aurora_tpu_torch.serve.controller import MultiReplicaController
+        engine = MultiReplicaController(
+            model, cfg, ecfg, devices=devices, dispatch=dispatch,
+            embed_fn=embed_fn, tokenizer=tokenizer)
+        print(f"[serve] {len(engine.engines)} replicas ({dispatch})",
+              flush=True)
+        return engine
+    return ServeEngine(model, cfg, ecfg, embed_fn=embed_fn,
+                       tokenizer=tokenizer, devices=devices)
+
+
+def serve_engine(engine, tokenizer, *, host="0.0.0.0", port=30000,
+                 model_name="auroracap", mm=None):
+    """Blocking HTTP server over a built engine or controller."""
     loop_ = ServingLoop(engine, tokenizer, mm=mm)
 
     def started(bound):
@@ -1211,3 +1220,23 @@ def launch_server(model, cfg, tokenizer, *, host="0.0.0.0", port=30000,
 
     asyncio.run(serve(build_app(loop_, model_name), host, port,
                       started=started))
+
+
+def launch_server(model, cfg, tokenizer, *, host="0.0.0.0", port=30000,
+                  engine_cfg: Optional[EngineConfig] = None,
+                  model_name="auroracap", mm=None, dp=1,
+                  dispatch="shortest_queue"):
+    """Blocking server entry (launch_server parity, srt/server.py:282):
+    `build_engine` (one ServeEngine, tp shards with engine_cfg.tp > 1,
+    dp replicas with dp > 1), then `serve_engine`; this frame drops
+    `model` in between, so that at tp > 1 only the caller's reference
+    keeps it. Pass mm=AuroraCapServing(...) for multimodal deployments.
+    tokenizer: any object with encode, decode and eos_token_id (a
+    checkpoint's through transformers in cli/serve.py)."""
+    engine = build_engine(model, cfg, engine_cfg or EngineConfig(), dp=dp,
+                          dispatch=dispatch,
+                          embed_fn=mm.embed_fn if mm else None,
+                          tokenizer=tokenizer)
+    del model
+    serve_engine(engine, tokenizer, host=host, port=port,
+                 model_name=model_name, mm=mm)

@@ -79,13 +79,20 @@ gate stay float), and DeepSeek v1's dense prefix stays float and
 unfused, as the reference leaves its `dense_layers`. A DeepSeek-V2
 serving config (mla_kv_lora_rank set) runs serve/mla.py over latent rows
 [L, B, 1, S, rank + rope] and a latent pool, in bf16 on one device: its
-engine refuses kv_quant and weight_quant, as the reference does. Not
-ported yet (each raises NotImplementedError when asked for): tensor
-parallelism.
+engine refuses kv_quant, weight_quant and tensor parallelism, as the
+reference does.
+
+Tensor parallelism (`EngineConfig(tp > 1)`, serve/tp.py): `ServeEngine(...,
+devices=)` cuts the model into tp shards (heads and MLP width; KV rows and
+the radix pool on heads) and a `TPRunner` drives them from this thread,
+the partial sums of o and down summed across the shards in
+`_forward_rows`. W4 weights, packed int4 KV, MLA, a dense prefix and a
+pre-fused model are single-device, as in the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -100,8 +107,10 @@ from torch import nn
 
 from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
                                            W4FusedMLP, W4Linear, W8Linear,
+                                           _head_logits, attn_out_tail,
                                            dnorm, extras_of, layer_attn_out,
-                                           layer_mlp, layer_qkv, moe_layout,
+                                           layer_mlp, layer_qkv, mlp_product,
+                                           mlp_tail, moe_layout,
                                            projection_shapes, scale_embeds,
                                            w4_group)
 from aurora_tpu_torch.ops.moe import ExpertStack
@@ -131,6 +140,15 @@ _TOPK_LOGPROBS = 5  # top alternatives returned per sampled token
 _MAX_TOPK = 256     # sampling candidate bound (see _sample_core)
 # update_weights' answer while requests run (the caller may retry)
 BUSY = "requests in flight; retry when idle"
+
+
+def device_scope(device):
+    """`device` as the thread's current CUDA device while work for it is
+    issued (the kernels launch on the current device, and a worker thread
+    starts on device 0); nothing on the CPU."""
+    device = torch.device(device)
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def _is_system_error(e: BaseException) -> bool:
@@ -206,9 +224,13 @@ class EngineConfig:
         if self.weight_quant not in ("none", "int4", "int8"):
             raise NotImplementedError(
                 f"weight_quant={self.weight_quant!r}: none, int4 or int8")
-        if self.tp != 1:
-            raise NotImplementedError(
-                f"tp={self.tp}: tensor-parallel serving is not ported yet")
+        if self.tp < 1:
+            raise ValueError(f"tp={self.tp}: at least 1")
+        if self.tp > 1 and self.weight_quant == "int4":
+            raise ValueError("W4 packed layout is single-device (use W8 "
+                             "with tp>1)")
+        if self.tp > 1 and self.kv_quant == "int4":
+            raise ValueError("packed int4 KV is single-device")
         if self.weight_quant != "int4" and (self.w4_fused_mlp
                                             or not self.w4_tiled):
             raise ValueError("w4_fused_mlp and w4_tiled are W4 layouts: "
@@ -274,9 +296,12 @@ def moe_workspace_bytes(cfg: LlamaConfig, ecfg: "EngineConfig") -> int:
 
 
 def row_buffer_bytes(cfg: LlamaConfig, ecfg: EngineConfig) -> int:
-    """Device bytes of the KV rows plus the sampler histograms."""
+    """Device bytes of the KV rows plus the sampler histograms; under
+    tensor parallelism one shard's rows (1/tp of the heads: what one
+    device holds) beside the histograms, which live on the first."""
     rows = (cfg.num_hidden_layers * ecfg.max_batch * ecfg.s_row
-            * kv_bytes_per_token_layer(cfg, ecfg.kv_quant, ecfg.kv_dtype))
+            * kv_bytes_per_token_layer(cfg, ecfg.kv_quant, ecfg.kv_dtype)
+            // ecfg.tp)
     hist = ecfg.max_batch * cfg.vocab_size * 5     # counts i32 + seen b8
     return rows + hist
 
@@ -297,20 +322,25 @@ def free_hbm_bytes(device=None) -> Optional[int]:
 def auto_engine_config(cfg: LlamaConfig, base: EngineConfig, *,
                        budget_bytes: Optional[int] = None,
                        mem_fraction: float = 0.85,
-                       device=None) -> EngineConfig:
+                       device=None, pending_bytes: int = 0) -> EngineConfig:
     """Fill in max_batch (if <= 0) and num_slots (if <= 0) from the free
     device memory (the reference's rule): max_batch doubles from 1 while
     the KV rows of twice as many take at most 88% of the budget (the rest
     stays for the radix pool and the work space), up to 256; num_slots
     takes what the rows leave, at least a full batch of rows plus one.
+    Under tensor parallelism rows and slots count one shard's heads (the
+    budget is one device's).
     budget_bytes defaults to mem_fraction of free_hbm_bytes(device), or of
-    4.7e9 where the device reports none (the CPU). A MoE config first
+    4.7e9 where the device reports none (the CPU), less pending_bytes:
+    weights that are not on the device yet (one shard's, serve/tp.py
+    `shard_bytes`, when the engine will cut a model held on the host onto
+    it). A MoE config first
     sets aside its extend workspace (`moe_workspace_bytes`, at the base's
     max_batch or, when that is auto, at max_extend_lanes lanes)."""
     if budget_bytes is None:
         free = free_hbm_bytes(device)
-        budget_bytes = int((free if free is not None else 4.7e9)
-                           * mem_fraction)
+        budget_bytes = int(((free if free is not None else 4.7e9)
+                            - pending_bytes) * mem_fraction)
     budget_bytes -= moe_workspace_bytes(cfg, dataclasses.replace(
         base, max_batch=base.max_batch if base.max_batch > 0
         else base.max_extend_lanes))
@@ -327,7 +357,7 @@ def auto_engine_config(cfg: LlamaConfig, base: EngineConfig, *,
         left = budget_bytes - row_buffer_bytes(cfg, out)
         per_slot = (cfg.num_hidden_layers
                     * kv_bytes_per_token_layer(cfg, out.kv_quant,
-                                               out.kv_dtype))
+                                               out.kv_dtype) // out.tp)
         out = dataclasses.replace(
             out, num_slots=int(max(out.max_batch * out.s_row + 1,
                                    left // per_slot)))
@@ -678,30 +708,36 @@ def _int8_linear(x8, s_a, weight, scale) -> torch.Tensor:
     return acc.float() * s_a * scale
 
 
-def _w8dot(h, w: W8Linear):
-    """h [..., K] @ W8 → [..., N] in h's dtype (the reference's W8A8
-    `_wdot` branch): per-token int8 activations, the exact int32 product,
-    then acc · s_a · s_w in fp32. Few tokens (decode): the quantizer in
-    one launch (quantize_rows) and the W8A8 kernel; many (extend):
-    quantize_activations and torch._int_mm. Both give the same numbers."""
+def _w8dot(h, w: W8Linear, out_dtype=None):
+    """h [..., K] @ W8 → [..., N] in out_dtype (default h's; the reference's
+    W8A8 `_wdot` branch): per-token int8 activations, the exact int32
+    product, then acc · s_a · s_w in fp32. Few tokens (decode): the
+    quantizer in one launch (quantize_rows) and the W8A8 kernel; many
+    (extend): quantize_activations and torch._int_mm. Both give the same
+    numbers."""
     lead, K = h.shape[:-1], h.shape[-1]
     h2 = h.reshape(-1, K)
+    out_dtype = out_dtype or h.dtype
     if math.prod(lead) <= _W4_GROUPED_MAX_TOKENS:
         h8, s_a = quantize_rows(h2.contiguous())
-        out = w8a8_matmul(h8, s_a, w.weight, w.scale, out_dtype=h.dtype)
+        out = w8a8_matmul(h8, s_a, w.weight, w.scale, out_dtype=out_dtype)
     else:
         out = _int8_linear(*quantize_activations(h2), w.weight,
-                           w.scale).to(h.dtype)
+                           w.scale).to(out_dtype)
     return out.reshape(*lead, -1)
 
 
-def _wdot(h, proj, a8_prefill: bool = False):
+def _wdot(h, proj, a8_prefill: bool = False, f32: bool = False):
     """h @ W for one projection module: W4 (_w4dot, with its A8 prefill
-    if asked), W8 (_w8dot) or dense."""
+    if asked), W8 (_w8dot) or dense. f32: a W8 or dense product's output
+    in fp32, unrounded (a tensor-parallel partial, which the shards sum
+    before its one rounding; W4 is single-device)."""
     if isinstance(proj, W4Linear):
         return _w4dot(h, proj, a8_prefill)
     if isinstance(proj, W8Linear):
-        return _w8dot(h, proj)
+        return _w8dot(h, proj, torch.float32 if f32 else None)
+    if f32:
+        return _head_logits(h, proj.weight)
     return proj(h)
 
 
@@ -867,10 +903,29 @@ def _store_prompt(pool, rows, row: int, start: int, slots):
     return pool
 
 
+@dataclasses.dataclass
+class Shard:
+    """One tensor-parallel shard's part of a forward (the whole model
+    when there is one): its layers (`model`, a LlamaModel of the local
+    config `cfg`: heads divided, head_dim pinned), its KV rows, and the
+    wave's index tensors and rotary tables on its device."""
+    model: LlamaModel
+    cfg: LlamaConfig
+    rows: Dict[str, torch.Tensor]
+    layer_ids: torch.Tensor
+    row_ids: torch.Tensor
+    q_offsets: torch.Tensor
+    kv_lens: torch.Tensor
+    kv_write: Optional[KVWriteIndex]
+    cos: Optional[torch.Tensor]
+    sin: Optional[torch.Tensor]
+
+
 def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
                   row_ids, q_offsets, kv_lens, layer_ids,
                   kv_write: Optional[KVWriteIndex] = None, *,
-                  kv_maxq: float = 127.0, a8_prefill: bool = False):
+                  kv_maxq: float = 127.0, a8_prefill: bool = False,
+                  tp=None):
     """Shared EXTEND/DECODE forward over row-contiguous KV.
 
     embeds [Bk, T, D]; rows {"k", "v": [L, B, Hkv, S, hd]} (+ "ks", "vs"
@@ -897,6 +952,21 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
     form for a CPU decode, as in the reference); the layers of a dense
     prefix keep their absolute index l into the rows. An MLA config goes
     to serve/mla.py `forward_rows_mla` (the same contract).
+
+    tp: the reference's `tp_axis`. None runs the model on one device. A
+    `serve/tp.py` TPGroup runs every layer's heads and MLP width on its
+    shards in lockstep: `model` is then the first shard's (its replicated
+    embeddings, norms, o/down biases and head), `rows`, `layer_ids` and
+    `kv_write` are ignored for the shards' own, the residual stream stays
+    on the first shard's device, and the o and down partial products are
+    summed across the shards (TPGroup.all_reduce) before their biases
+    add, two sums a layer (Cohere's parallel block too, as the
+    reference's two psums). Those partials are fp32 (a W8 or dense
+    product's unrounded accumulation; a MoE layer's combined experts in
+    the activations' dtype), rounded to the activations' dtype once after
+    the sum, so that tp shards round where one device does; the reference
+    sums partials in the activations' dtype. A MoE layer on the CPU then
+    runs the dense form, as the reference's sharded experts do.
     """
     if cfg.mla_kv_lora_rank:        # DeepSeek-V2: latent rows (serve/mla.py)
         from aurora_tpu_torch.serve.mla import forward_rows_mla
@@ -904,15 +974,10 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
                                 q_offsets, kv_lens, kv_write)
     x = scale_embeds(cfg, embeds)
     Bk, T, _ = x.shape
-    quant = "ks" in rows
     # on the card a MoE layer always runs the grouped form (its kernel);
-    # on the CPU the reference's choice, grouped for extend only
-    moe_grouped = x.is_cuda or T > 1
-    kv_pack = _is_packed(rows)
-    maxq = 7.0 if kv_pack else kv_maxq
+    # on the CPU the reference's choice, grouped for an unsharded extend
+    moe_grouped = x.is_cuda or (T > 1 and tp is None)
     dot = functools.partial(_wdot, a8_prefill=a8_prefill)
-    scales = dict(k_scales=rows.get("ks"), v_scales=rows.get("vs"),
-                  kv_pack=kv_pack, logit_cap=cfg.attn_logit_softcap)
     positions = q_offsets[:, None].long() + torch.arange(T, device=x.device)
     cos = sin = None
     if cfg.learned_pos:             # GPT-BigCode: wpe, no rotary
@@ -921,38 +986,80 @@ def _forward_rows(model: LlamaModel, cfg: LlamaConfig, embeds, rows,
     else:
         cos, sin = rope_cos_sin(positions, cfg.rotary_dim, cfg.rope_theta,
                                 cfg.rope_linear_scaling)
-    for l, lp in enumerate(model.layers):
-        h = dnorm(cfg, x, lp, "input_norm")
-        q, k, v = layer_qkv(cfg, lp, h, dot)
+    if tp is None:
+        shards = [Shard(model, cfg, rows, layer_ids, row_ids, q_offsets,
+                        kv_lens, kv_write, cos, sin)]
+    else:
+        shards = tp.shards(row_ids, q_offsets, kv_lens, kv_write, cos, sin)
+    quant = "ks" in shards[0].rows
+    kv_pack = _is_packed(shards[0].rows)
+    maxq = 7.0 if kv_pack else kv_maxq
+    dt = x.dtype
+    # each shard's kernel arguments that hold for the whole forward
+    scales = [dict(k_scales=s.rows.get("ks"), v_scales=s.rows.get("vs"),
+                   kv_pack=kv_pack, logit_cap=cfg.attn_logit_softcap)
+              for s in shards]
+
+    def attend(s: Shard, sc, l: int, h):
+        """One shard's attention in layer l → [Bk, T, its heads · hd]."""
+        lp, r = s.model.layers[l], s.rows
+        q, k, v = layer_qkv(s.cfg, lp, h, dot)
         if not cfg.learned_pos:
-            q, k = apply_rope(q, k, cos, sin,
+            q, k = apply_rope(q, k, s.cos, s.sin,
                               interleaved=cfg.rope_interleaved)
-        layer = layer_ids[l:l + 1]
+        layer = s.layer_ids[l:l + 1]
         window = layer_window(cfg, l)
         if T == 1:
             attn = ragged_decode_attention(
-                q, k[:, 0], v[:, 0], rows["k"], rows["v"], kv_lens, row_ids,
+                q, k[:, 0], v[:, 0], r["k"], r["v"], s.kv_lens, s.row_ids,
                 layer=layer, scale=cfg.attn_scale, kv_maxq=maxq,
-                window=window, **scales)[0]
+                window=window, **sc)[0]
         else:
             if quant:
                 (k, ks), (v, vs) = (_kv_quantize(k, maxq),
                                     _kv_quantize(v, maxq))
-                _write_kv_window(rows, l, k, v, kv_write, (ks, vs))
+                _write_kv_window(r, l, k, v, s.kv_write, (ks, vs))
             else:
-                _write_kv_window(rows, l, k, v, kv_write)
-            attn = ragged_attention(q, rows["k"], rows["v"], kv_lens,
-                                    q_offsets, row_ids, layer=layer,
+                _write_kv_window(r, l, k, v, s.kv_write)
+            attn = ragged_attention(q, r["k"], r["v"], s.kv_lens,
+                                    s.q_offsets, s.row_ids, layer=layer,
                                     scale=cfg.attn_scale, window=window,
-                                    **scales)
-        attn = layer_attn_out(cfg, lp, attn.reshape(Bk, T, -1).to(x.dtype),
-                              dot)
+                                    **sc)
+        return attn.reshape(Bk, T, -1).to(dt)
+
+    if tp is None:
+        one, sc = shards[0], scales[0]
+
+        def attn_branch(l, lp, h):
+            return layer_attn_out(cfg, lp, attend(one, sc, l, h), dot)
+
+        def mlp_branch(l, lp, h):
+            return layer_mlp(cfg, lp, h, dot, moe_grouped)
+    else:
+        # each shard's o / down product is an fp32 partial; one sum, then
+        # the tail (bias, output norm, residual scale) on the first device
+        part = functools.partial(dot, f32=True)
+
+        def attn_branch(l, lp, h):
+            return attn_out_tail(cfg, lp, tp.all_reduce(
+                [part(attend(s, c, l, h_s), s.model.layers[l].o)
+                 for (s, h_s), c in zip(tp.scatter(shards, h), scales)]
+            ).to(dt))
+
+        def mlp_branch(l, lp, h):
+            return mlp_tail(cfg, lp, tp.all_reduce(
+                [mlp_product(s.cfg, s.model.layers[l], h_s, dot,
+                             moe_grouped, down_dot=part)
+                 for s, h_s in tp.scatter(shards, h)]).to(dt))
+
+    for l, lp in enumerate(model.layers):
+        h = dnorm(cfg, x, lp, "input_norm")
+        attn = attn_branch(l, lp, h)
         if cfg.parallel_block:      # Cohere: x + attn + mlp(the same h)
-            x = x + attn + layer_mlp(cfg, lp, h, dot, moe_grouped)
+            x = x + attn + mlp_branch(l, lp, h)
         else:
             x = x + attn
-            x = x + layer_mlp(cfg, lp, dnorm(cfg, x, lp, "post_attn_norm"),
-                              dot, moe_grouped)
+            x = x + mlp_branch(l, lp, dnorm(cfg, x, lp, "post_attn_norm"))
     x = dnorm(cfg, x, model, "final_norm")
     last = (kv_lens.long() - q_offsets.long() - 1).clamp(0, T - 1)
     return x[torch.arange(Bk, device=x.device), last]
@@ -1067,34 +1174,63 @@ def _samp_arrays(reqs, n, rows=None) -> Dict[str, np.ndarray]:
     return out
 
 
+def _weight_pairs(live: Dict[str, torch.Tensor],
+                  new: Dict[str, torch.Tensor]):
+    """[(live tensor, new tensor)] by state-dict name, or ValueError at
+    the first difference of names, shapes or dtypes."""
+    if new.keys() != live.keys():
+        missing = sorted(live.keys() - new.keys())[:4]
+        extra = sorted(new.keys() - live.keys())[:4]
+        raise ValueError(f"parameter names differ: missing {missing}, "
+                         f"unexpected {extra}")
+    for name, t in live.items():
+        if new[name].shape != t.shape or new[name].dtype != t.dtype:
+            raise ValueError(f"{name}: {tuple(new[name].shape)} "
+                             f"{new[name].dtype} where the live weights "
+                             f"hold {tuple(t.shape)} {t.dtype}")
+    return [(t, new[name]) for name, t in live.items()]
+
+
+def alloc_rows(cfg: LlamaConfig, ecfg: EngineConfig,
+               device) -> Dict[str, torch.Tensor]:
+    """Zeroed KV rows {"k", "v"} [L, B, Hkv, S, hd] in the KV storage
+    type, with int8 / int4 KV the fp32 scale planes {"ks", "vs"} [L, B,
+    Hkv, S] (int4: S/2 nibble-packed value rows); MLA: one latent plane
+    "k" and a dummy head axis."""
+    B, S = ecfg.max_batch, ecfg.s_row
+    L, Hkv, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    quant = ecfg.kv_quant in ("int8", "int4")
+    store = torch.int8 if quant else ecfg.kv_dtype
+    Sv = S // 2 if ecfg.kv_quant == "int4" else S
+    planes = ("k",) if cfg.mla_kv_lora_rank else ("k", "v")
+    rows = {name: torch.zeros((L, B, Hkv, Sv, hd), dtype=store,
+                              device=device)
+            for name in planes}
+    if quant:
+        for name in ("ks", "vs"):
+            rows[name] = torch.zeros((L, B, Hkv, S), dtype=torch.float32,
+                                     device=device)
+    return rows
+
+
 class DeviceRunner:
     """The device half of the engine: weights, KV rows, per-row sampler
     histograms and the sampling generator, with the extend, first-token
     sampling and K-step decode programs over them. Host code passes numpy
     arrays in and gets numpy arrays back; everything between stays on the
-    device."""
+    device. `tp` is the forward's tensor-parallel group (None: one
+    device; serve/tp.py TPRunner sets it)."""
+
+    tp = None
 
     def __init__(self, model: LlamaModel, cfg: LlamaConfig,
-                 ecfg: EngineConfig, device, seed: int = 0):
+                 ecfg: EngineConfig, device, seed: int = 0, rows=None):
         self.model, self.cfg, self.ecfg = model, cfg, ecfg
         self.device = torch.device(device)
-        B, S = ecfg.max_batch, ecfg.s_row
-        L, Hkv, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
-                      cfg.head_dim)
-        quant = ecfg.kv_quant in ("int8", "int4")
-        store = torch.int8 if quant else ecfg.kv_dtype
-        # int4: S/2 nibble-packed rows beside full-S scale planes
-        Sv = S // 2 if ecfg.kv_quant == "int4" else S
-        # MLA: one latent plane (rank + rope wide), a dummy head axis
-        planes = ("k",) if cfg.mla_kv_lora_rank else ("k", "v")
-        self.rows = {name: torch.zeros((L, B, Hkv, Sv, hd), dtype=store,
-                                       device=self.device)
-                     for name in planes}
-        if quant:       # per-token fp32 scales of the int8/int4 rows
-            for name in ("ks", "vs"):
-                self.rows[name] = torch.zeros((L, B, Hkv, S),
-                                              dtype=torch.float32,
-                                              device=self.device)
+        B, L = ecfg.max_batch, cfg.num_hidden_layers
+        self.rows = rows if rows is not None else alloc_rows(cfg, ecfg,
+                                                             self.device)
         self.counts = torch.zeros((B, cfg.vocab_size), dtype=torch.int32,
                                   device=self.device)
         self.seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool,
@@ -1103,6 +1239,26 @@ class DeviceRunner:
                                       device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+
+    def make_pool(self, num_slots: int):
+        """The radix cache's slot pool on the runner's device."""
+        return KVPool(self.cfg, num_slots, self.ecfg.kv_dtype,
+                      quant=self.ecfg.kv_quant in ("int8", "int4"),
+                      device=self.device)
+
+    def load_prefix(self, pool, slots, row: int, start: int, n: int):
+        """`_load_prefix` of pool slots into row `row`."""
+        _load_prefix(self.rows, pool.planes, slots, row, start, n)
+
+    def store_prompt(self, pool, row: int, start: int, slots):
+        """`_store_prompt` of row `row`'s positions into pool slots."""
+        _store_prompt(pool.planes, self.rows, row, start, slots)
+
+    def weight_pairs(self, model: LlamaModel):
+        """[(live tensor, its new value)] for serving `model` (in the
+        live layout already), or ValueError naming the first mismatch of
+        names, shapes or dtypes."""
+        return _weight_pairs(self.model.state_dict(), model.state_dict())
 
     def _idx(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.int32,
@@ -1129,7 +1285,8 @@ class DeviceRunner:
                           self._idx(row_ids), self._idx(q_offsets),
                           self._idx(kv_lens), self.layer_ids, widx,
                           kv_maxq=self.ecfg.kv_maxq,
-                          a8_prefill=self.ecfg.w4_prefill == "a8")
+                          a8_prefill=self.ecfg.w4_prefill == "a8",
+                          tp=self.tp)
         return _lm_head(self.model, x)
 
     @torch.no_grad()
@@ -1197,7 +1354,7 @@ class DeviceRunner:
             embeds = self.model.embed_tokens[tok][:, None]
             x = _forward_rows(self.model, self.cfg, embeds, self.rows,
                               row_ids, pos_j, kv_lens, self.layer_ids,
-                              kv_maxq=self.ecfg.kv_maxq)
+                              kv_maxq=self.ecfg.kv_maxq, tp=self.tp)
             sampled, raw_lp = _sample_core(
                 _lm_head(self.model, x), self.counts, self.seen, samp,
                 allowed_t, self.generator, all_greedy=all_greedy)
@@ -1229,26 +1386,38 @@ class ServeEngine:
 
     def __init__(self, model: LlamaModel, cfg: LlamaConfig,
                  ecfg: EngineConfig = EngineConfig(), embed_fn=None,
-                 device=None, seed: int = 0, tokenizer=None):
+                 device=None, seed: int = 0, tokenizer=None, devices=None):
         self.cfg = cfg
         self.ecfg = ecfg
         self.tokenizer = tokenizer
         if cfg.mla_kv_lora_rank and (ecfg.kv_quant != "none"
-                                     or ecfg.weight_quant != "none"):
+                                     or ecfg.weight_quant != "none"
+                                     or ecfg.tp != 1):
             raise NotImplementedError(
-                "MLA serving takes bf16 latents and weights on one device "
-                "(kv_quant and weight_quant 'none'), as the reference's")
+                "MLA serving supports bf16 latents on one device only "
+                "(kv_quant and weight_quant 'none', tp 1), as the "
+                "reference's")
+        if ecfg.tp > 1:
+            from aurora_tpu_torch.serve.tp import check_tp
+            check_tp(model, cfg, ecfg.tp)
         have = weight_quant_of(model)
         if have != ecfg.weight_quant:
             if have != "none":
                 raise ValueError(f"a {have} model cannot be served with "
                                  f"weight_quant={ecfg.weight_quant!r}")
-            model = fuse_serving_weights(_QUANTIZE[ecfg.weight_quant](model))
+            model = _QUANTIZE[ecfg.weight_quant](model)
+            if ecfg.tp == 1:    # under tp each shard fuses after the cut
+                model = fuse_serving_weights(model)
         model = w4_decode_layout(model, cfg, ecfg)
         self.embed_fn = embed_fn  # multimodal hook: req → [T, D] embeds
         device = device if device is not None else \
             model.embed_tokens.device
-        self.runner = DeviceRunner(model, cfg, ecfg, device, seed)
+        if ecfg.tp > 1:
+            from aurora_tpu_torch.serve.tp import TPRunner, visible_devices
+            self.runner = TPRunner(model, cfg, ecfg, devices
+                                   or visible_devices(device, ecfg.tp), seed)
+        else:
+            self.runner = DeviceRunner(model, cfg, ecfg, device, seed)
         self.alloc = SlotAllocator(ecfg.num_slots)
         self.radix_error = None
         if ecfg.disable_radix_cache:
@@ -1258,9 +1427,7 @@ class ServeEngine:
         else:
             # int8 and int4 KV: an int8 pool with scale planes (int4 rows
             # unpack into it: slots are token-granular, packing positional)
-            self.pool = KVPool(cfg, ecfg.num_slots, ecfg.kv_dtype,
-                               quant=ecfg.kv_quant in ("int8", "int4"),
-                               device=self.runner.device)
+            self.pool = self.runner.make_pool(ecfg.num_slots)
             self.radix, self.radix_impl, self.radix_error = make_radix(
                 self.alloc.free)
         self.sched = Scheduler(ecfg.max_batch,
@@ -1349,26 +1516,27 @@ class ServeEngine:
         their KV would mix two models."""
         if self.sched.running:
             return False, BUSY
+        ok, msg, pairs = self.stage_weights(model)
+        if ok:
+            self.commit_weights(pairs)
+        return ok, msg
+
+    def stage_weights(self, model: LlamaModel):
+        """The check half of update_weights → (ok, message, [(live
+        tensor, new value)]); nothing changes."""
         try:
-            new = self._live_layout(model).state_dict()
+            return True, "weights updated", self.runner.weight_pairs(
+                self._live_layout(model))
         except (ValueError, NotImplementedError) as e:
-            return False, str(e)
-        live = self.runner.model.state_dict()
-        if new.keys() != live.keys():
-            missing = sorted(live.keys() - new.keys())[:4]
-            extra = sorted(new.keys() - live.keys())[:4]
-            return False, (f"parameter names differ: missing {missing}, "
-                           f"unexpected {extra}")
-        for name, t in live.items():
-            if new[name].shape != t.shape or new[name].dtype != t.dtype:
-                return False, (f"{name}: {tuple(new[name].shape)} "
-                               f"{new[name].dtype} where the live weights "
-                               f"hold {tuple(t.shape)} {t.dtype}")
+            return False, str(e), []
+
+    def commit_weights(self, pairs) -> None:
+        """Copy staged weights into the live tensors, then flush the
+        radix cache."""
         with torch.no_grad():
-            for name, t in live.items():
-                t.copy_(new[name])
+            for live, new in pairs:
+                live.copy_(new)
         self.flush_cache()
-        return True, "weights updated"
 
     def _live_layout(self, model: LlamaModel) -> LlamaModel:
         """`model` as the engine serves its own: quantized as the engine
@@ -1383,7 +1551,8 @@ class ServeEngine:
                                  f"weights of a {self.ecfg.weight_quant!r} "
                                  "engine")
             model = _QUANTIZE[self.ecfg.weight_quant](model)
-        if hasattr(self.runner.model.layers[-1], "qkv"):
+        if self.ecfg.tp == 1 and hasattr(self.runner.model.layers[-1],
+                                         "qkv"):
             model = fuse_serving_weights(model)
         return w4_decode_layout(model, self.cfg, self.ecfg)
 
@@ -1556,8 +1725,9 @@ class ServeEngine:
         chunk = max(self.ecfg.prefill_buckets)
         for start in range(0, n_cached, chunk):
             n = min(chunk, n_cached - start)
-            _load_prefix(self.runner.rows, self.pool.planes,
-                         req.prefix_slots[start:start + n], row, start, n)
+            self.runner.load_prefix(self.pool,
+                                    req.prefix_slots[start:start + n], row,
+                                    start, n)
         self.runner.reset_row_stats(row, self._prompt_seen(req))
 
     def _prompt_seen(self, req: Request) -> np.ndarray:
@@ -1922,8 +2092,8 @@ class ServeEngine:
             return
         chunk = max(self.ecfg.prefill_buckets)
         for start in range(0, n_new, chunk):
-            _store_prompt(self.pool.planes, self.runner.rows, row,
-                          n_cached + start, slots[start:start + chunk])
+            self.runner.store_prompt(self.pool, row, n_cached + start,
+                                     slots[start:start + chunk])
         full = np.concatenate([
             np.asarray(req.prefix_slots[:n_cached], np.int32), slots])
         dup = self.radix.insert(ids, full)

@@ -158,7 +158,8 @@ def make_lora_train_step(acfg, tcfg, base_params: AuroraModel,
     adapters enter the base (`apply_lora`; train/quant.py passes
     `inject_lora`)."""
     if mesh is not None:
-        raise NotImplementedError("sharded training (a mesh) is not ported")
+        raise NotImplementedError("sharded training (a mesh) is not "
+                                  "ported: ROADMAP.md queue 1 item 11")
     remat = (tcfg.remat_policy or True) if tcfg.remat else False
 
     def step_with_base(adapters: Adapters, opt_state, batch,

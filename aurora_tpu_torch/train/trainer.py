@@ -80,7 +80,8 @@ class TrainConfig:
                 or self.heads_k_stride != 0):
             raise NotImplementedError(
                 "sequence parallelism (sp_mode, hybrid_ulysses, ring_layout, "
-                "heads_k_stride) is not ported yet")
+                "heads_k_stride) is not ported yet: ROADMAP.md queue 1 "
+                "item 11")
 
 
 @dataclasses.dataclass
@@ -263,7 +264,8 @@ def make_train_step(acfg: AuroraConfig, tcfg: TrainConfig,
     norm of all gradients, before clipping) and lr at step // grad_accum.
     """
     if mesh is not None:
-        raise NotImplementedError("sharded training (a mesh) is not ported")
+        raise NotImplementedError("sharded training (a mesh) is not "
+                                  "ported: ROADMAP.md queue 1 item 11")
     remat = (tcfg.remat_policy or True) if tcfg.remat else False
     schedule = lr_schedule(tcfg)
     holder = [opt]

@@ -349,13 +349,36 @@ CLS) spans each request's fused placeholders, one extend launch a
 layer; `[siglip-vision]` holds one clip's visual groups against their
 fp32 twin under the bf16 pass's ToMe merges.
 
+Serving across devices, after [infer] on the [serve] phases' weights:
+`[serve-tp2]` / `[serve-tp2-w8kv8]` serve the 4 clips on
+EngineConfig(tp=2) with both shards on this card, bf16 and W8 + int8 KV,
+TP_MAX_NEW tokens, beside the tp 1 engine on the same requests: a
+wave's logits against tp 1's and against the twins at the [serve]
+phases' bounds, TP_FORCED_STEPS decode forwards fed tp 1's tokens held
+to tp 1's logits a step at LOGITS_DECODE_REL_TOL (and the same forwards
+without the second shard's partials, a planted fault, beyond it), the
+tokens' near-tie contract reported (`[tp2-vs-tp1-*]`), every extend and
+decode launch twice tp 1's at half the heads, W8A8 at the shards'
+widths. `[serve-tp2-mixtral]`: Mixtral-8x7B at full width,
+TP_MIXTRAL_LAYERS layers, W8 + int8 KV, tp 2 against tp 1 with tp 1's
+routing replayed into both shards: a wave's logits at TP_MIXTRAL_TOL
+(a wave without the second shard's MLP partials beyond it) and the fed
+decode forwards at LOGITS_DECODE_REL_TOL, the grouped kernel at N =
+7,168. `[serve-dp2]`:
+MultiReplicaController with two bf16 replicas on this card sharing the
+weights, DP_REQUESTS clips under shortest_queue and round_robin, each
+replica bit for bit one engine on its requests; no slot leaks. `[export]` / `[export-huggingface]`: the
+weights with EXPORT_LAYERS LLM layers written by models/export.py in bf16
+and loaded back bit for bit.
+
 `python3 chip_smoke.py --only train-cli` runs infer-load and the four
 train-cli phases alone; `--only kernels`, `--only serve-gemma2` (the
 Gemma-2, Qwen2 and StableLM runs), `--only serve-phi3` (the Phi-3-mini
 runs), `--only train-dpo`, `--only
 serve-moe` (the
-MoE and MLA phases above), `--only serve-internvl` and `--only
-serve-siglip` the newer phases (no kernel JSON line, no final
+MoE and MLA phases above), `--only serve-internvl`, `--only
+serve-siglip` and `--only serve-parallel` (the serving-across-devices
+and export phases) the newer phases (no kernel JSON line, no final
 line); `--only` repeats.
 
 float32 references run with TF32 disabled for matmuls and cuDNN
@@ -804,6 +827,23 @@ EVAL_QA = ({"question": "What is the camera doing?",
 # flip, which must sit on a top-2 logprob gap below this (the near-tie
 # contract of tests/test_torch_engine_quant.py)
 NEAR_TIE = 2e-2
+# [serve-tp2], [serve-tp2-w8kv8], [serve-dp2]: new tokens a request; the
+# Mixtral depth of [serve-tp2-mixtral] (of its 32 layers, full width);
+# [serve-dp2]'s clips and each replica's radix pool (4 prompts of 1,406
+# tokens); the LLM layers [export] writes beside the whole tower
+TP_MAX_NEW = 64
+TP_MIXTRAL_LAYERS = 4
+# tp 2 against tp 1 after a wave: decode forwards fed tp 1's tokens
+# (teacher forcing), each step's logits held at LOGITS_DECODE_REL_TOL
+TP_FORCED_STEPS = 8
+# [tp2-vs-tp1-mixtral]: its own bound on a wave's logits (tp 1's routing
+# replayed into both shards), between the sound reading (4.88e-2, PR 25)
+# and what one shard's MLP partial zeroed in every layer reads; each tp
+# bound is checked against such a planted fault in the same call
+TP_MIXTRAL_TOL = 1e-1
+DP_REQUESTS = 8
+DP_SLOTS = 6144
+EXPORT_LAYERS = 4
 # [infer-beam]: the beam's mean token log-probability against greedy's, both
 # from one bf16 forward each: half the near-tie gap, the drift between two
 # decode paths' top-1 log-probabilities that NEAR_TIE allows
@@ -1950,7 +1990,7 @@ def logits_check(torch, engine_mod, runner, embed, reqs, tol, name, plain,
             with torch.no_grad():
                 h = engine_mod._forward_rows(runner.model, runner.cfg, x,
                                              runner.rows, ids, pos, pos + 1,
-                                             runner.layer_ids)
+                                             runner.layer_ids, tp=runner.tp)
                 return engine_mod._lm_head(runner.model, h)
 
         with tape.patched(False):
@@ -2900,171 +2940,86 @@ def engine_surface_phase(torch, engine_mod, qm, mm, llm, llm_cfg, dev, card,
     return launches
 
 
-def _write_safetensors(torch, path, tensors):
-    """{name: CPU tensor} → one .safetensors file, written here without
-    the port's reader: an 8-byte little-endian header length, the JSON
-    header (padded to 8 bytes), then each tensor's raw bytes."""
-    codes = {torch.bfloat16: "BF16", torch.float16: "F16",
-             torch.float32: "F32"}
-    header, off = {}, 0
-    for k, t in tensors.items():
-        n = t.numel() * t.element_size()
-        header[k] = {"dtype": codes[t.dtype], "shape": list(t.shape),
-                     "data_offsets": [off, off + n]}
-        off += n
-    raw = json.dumps(header).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(len(raw).to_bytes(8, "little"))
-        f.write(raw)
-        for t in tensors.values():
-            f.write(t.contiguous().view(-1).view(torch.uint8).numpy())
-    return 8 + len(raw) + off
+def random_module(torch, module, g, dtype, model_init=False):
+    """`module`, built on the meta device, with each tensor of its state
+    dict drawn N(0, 0.02²) from `g` on g's device in `dtype`, in state-dict
+    order; model_init: norm scales one and biases zero instead, as
+    models/init.py draws a model → the module."""
+    sd = {}
+    for name, t in module.state_dict().items():
+        norm = t.dim() == 1 and ("norm" in name or ".ln" in name)
+        if model_init and name.endswith("bias"):
+            x = torch.zeros(t.shape, dtype=dtype, device=g.device)
+        elif model_init and norm:
+            x = torch.ones(t.shape, dtype=dtype, device=g.device)
+        else:
+            x = (torch.randn(t.shape, generator=g, device=g.device)
+                 * 0.02).to(dtype)
+        sd[name] = x
+    module.load_state_dict(sd, assign=True)
+    return module
 
 
-def hf_llm_names(cfg):
-    """(HF name, the port's LlamaModel name, shape) of a llama checkpoint."""
-    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    yield "model.embed_tokens.weight", "embed_tokens", (V, D)
-    yield "model.norm.weight", "final_norm", (D,)
-    yield "lm_head.weight", "lm_head.weight", (V, D)
-    for i in range(cfg.num_hidden_layers):
-        hf, ours = f"model.layers.{i}.", f"layers.{i}."
-        yield hf + "input_layernorm.weight", ours + "input_norm", (D,)
-        yield (hf + "post_attention_layernorm.weight",
-               ours + "post_attn_norm", (D,))
-        for theirs, name, shape in (
-                ("self_attn.q_proj", "q", (D, D)),
-                ("self_attn.k_proj", "k", (D, D)),
-                ("self_attn.v_proj", "v", (D, D)),
-                ("self_attn.o_proj", "o", (D, D)),
-                ("mlp.gate_proj", "gate", (I, D)),
-                ("mlp.up_proj", "up", (I, D)),
-                ("mlp.down_proj", "down", (D, I))):
-            yield hf + theirs + ".weight", ours + name + ".weight", shape
-
-
-def hf_llm_config(cfg):
-    """The config.json of a Vicuna-7B-v1.5-16k-like llama checkpoint."""
-    return {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
-            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
-            "intermediate_size": cfg.intermediate_size,
-            "num_hidden_layers": cfg.num_hidden_layers,
-            "num_attention_heads": cfg.num_attention_heads,
-            "num_key_value_heads": cfg.num_key_value_heads,
-            "max_position_embeddings": cfg.max_position_embeddings,
-            "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
-            "rope_scaling": {"type": "linear", "factor": 4.0},
-            "hidden_act": "silu", "tie_word_embeddings": False,
-            "torch_dtype": "bfloat16"}
-
-
-def hf_vit_names(cfg):
-    """(HF CLIPVisionModel or SiglipVisionModel name, the port's
-    VisionTransformer name or None for the unused post_layernorm,
-    shape): CLIP's class embedding and pre-LayerNorm, or SigLIP's patch
-    bias."""
-    D, I, p = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size
-    e = "vision_model.embeddings."
-    if cfg.class_token:
-        yield e + "class_embedding", "class_embedding", (D,)
-    yield e + "patch_embedding.weight", "patch_embed.weight", (D, 3, p, p)
-    if not cfg.class_token:
-        yield e + "patch_embedding.bias", "patch_embed.bias", (D,)
-    yield (e + "position_embedding.weight", "position_embedding",
-           (cfg.num_positions, D))
-    for suf in ("weight", "bias"):
-        if cfg.class_token:
-            yield (f"vision_model.pre_layrnorm.{suf}",
-                   f"pre_layernorm.{suf}", (D,))
-        yield f"vision_model.post_layernorm.{suf}", None, (D,)
-    for i in range(cfg.num_hidden_layers):
-        hf, ours = f"vision_model.encoder.layers.{i}.", f"layers.{i}."
-        for theirs, name, shape in (
-                ("layer_norm1", "ln1", None), ("layer_norm2", "ln2", None),
-                ("self_attn.q_proj", "q", (D, D)),
-                ("self_attn.k_proj", "k", (D, D)),
-                ("self_attn.v_proj", "v", (D, D)),
-                ("self_attn.out_proj", "o", (D, D)),
-                ("mlp.fc1", "fc1", (I, D)), ("mlp.fc2", "fc2", (D, I))):
-            out = shape[0] if shape else D
-            yield hf + theirs + ".weight", ours + name + ".weight", \
-                shape or (D,)
-            yield hf + theirs + ".bias", ours + name + ".bias", (out,)
+def write_llm_dir(torch, root, cfg, g, max_shard_bytes=5 * 1024 ** 3,
+                  model_init=False):
+    """A HF llama directory written by models/export.py (the LLM drawn by
+    `random_module` in bf16, `llama_state_dict`, `llama_config_dict`,
+    `_write`) → (the model, bytes)."""
+    from aurora_tpu_torch.models import export
+    from aurora_tpu_torch.models.llama import LlamaModel
+    llm = random_module(torch, LlamaModel(cfg, device="meta"), g,
+                        torch.bfloat16, model_init)
+    return llm, export._write(export.llama_state_dict(llm, cfg,
+                                                      torch.bfloat16),
+                              export.llama_config_dict(cfg), root,
+                              max_shard_bytes)
 
 
 def write_xtuner_dir(torch, root, llm_cfg, vit_cfg, g, model_init=False):
-    """An xtuner-format directory under `root`: the LLM in two bf16
-    safetensors shards and their index, the vision tower (CLIP or SigLIP
-    names) in one fp16 file, the projector as an fp32 torch.save .bin,
-    each with its config.json. Weights N(0, 0.02²) from `g`; model_init:
-    norm scales one and biases zero instead, as models/init.py draws a
-    model. → ({part: {the port's name: the tensor as written}}, bytes)."""
+    """An xtuner-format directory under `root`, written by models/export.py:
+    the LLM in two bf16 safetensors shards and their index
+    (`write_llm_dir`), the vision tower (CLIP or SigLIP names,
+    `vit_state_dict`) in one fp16 file, the projector
+    (`projector_state_dict`) as an fp32 torch.save .bin, each with its
+    config.json. Weights from `g` by `random_module` (model_init: norm
+    scales one, biases zero). → ({part: {the port's name: the tensor as
+    written}}, bytes)."""
+    from aurora_tpu_torch.models import export
+    from aurora_tpu_torch.models.llama import LlamaModel
+    from aurora_tpu_torch.models.projector import Projector, ProjectorConfig
+    from aurora_tpu_torch.models.vit import VisionTransformer
     shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(os.path.join(root, "visual_encoder"))
-    os.makedirs(os.path.join(root, "projector"))
-
-    def rand(shape, dtype, name=""):
-        last = name.rsplit(".", 2)
-        if model_init and name.endswith("bias"):
-            return torch.zeros(shape, dtype=dtype)
-        if model_init and len(shape) == 1 and "norm" in "".join(last[-2:]):
-            return torch.ones(shape, dtype=dtype)
-        return (torch.randn(shape, generator=g, device=g.device) * 0.02).to(
-            dtype).cpu()
-
     want = {}       # part → {the port's name: the tensor as written}
-    # the LLM: bf16, two shards and their index
-    llm = {hf: rand(shape, torch.bfloat16, hf)
-           for hf, _, shape in hf_llm_names(llm_cfg)}
-    want["llm"] = {ours: llm[hf] for hf, ours, _ in hf_llm_names(llm_cfg)}
-    names = list(llm)
-    shards = {"model-00001-of-00002.safetensors": names[:len(names) // 2],
-              "model-00002-of-00002.safetensors": names[len(names) // 2:]}
-    nbytes = 0
-    for fn, keys in shards.items():
-        nbytes += _write_safetensors(torch, os.path.join(root, fn),
-                                     {k: llm[k] for k in keys})
-    with open(os.path.join(root, "model.safetensors.index.json"), "w") as f:
-        json.dump({"metadata": {}, "weight_map": {
-            k: fn for fn, keys in shards.items() for k in keys}}, f)
-    with open(os.path.join(root, "config.json"), "w") as f:
-        json.dump(hf_llm_config(llm_cfg), f)
-    del llm
+    # the LLM: bf16, half the bytes plus the largest tensor a shard:
+    # exactly two shards
+    sizes = [t.numel() * 2 for t in LlamaModel(llm_cfg, device="meta")
+             .state_dict().values()]
+    llm, nbytes = write_llm_dir(torch, root, llm_cfg, g,
+                                sum(sizes) // 2 + max(sizes), model_init)
+    check(os.path.exists(os.path.join(root, "model-00002-of-00002."
+                                            "safetensors")),
+          "the LLM is not in two shards")
+    want["llm"] = llm.state_dict()
     # the vision tower: fp16, one file
-    vit = {hf: rand(shape, torch.float16, hf)
-           for hf, _, shape in hf_vit_names(vit_cfg)}
-    want["vit"] = {ours: vit[hf] for hf, ours, _ in hf_vit_names(vit_cfg)
-                   if ours is not None}
-    ve = os.path.join(root, "visual_encoder")
-    nbytes += _write_safetensors(torch, os.path.join(ve, "model.safetensors"),
-                                 vit)
-    with open(os.path.join(ve, "config.json"), "w") as f:
-        json.dump({"model_type": f"{vit_cfg.model_type}_vision_model",
-                   "hidden_size": vit_cfg.hidden_size,
-                   "intermediate_size": vit_cfg.intermediate_size,
-                   "num_hidden_layers": vit_cfg.num_hidden_layers,
-                   "num_attention_heads": vit_cfg.num_attention_heads,
-                   "image_size": vit_cfg.image_size,
-                   "patch_size": vit_cfg.patch_size,
-                   "layer_norm_eps": vit_cfg.layer_norm_eps,
-                   "hidden_act": vit_cfg.hidden_act,
-                   "torch_dtype": "float16"}, f)
-    del vit
+    vit = random_module(torch, VisionTransformer(vit_cfg, device="meta"), g,
+                        torch.float16, model_init)
+    want["vit"] = vit.state_dict()
+    nbytes += export._write(
+        export.vit_state_dict(vit, vit_cfg, torch.float16),
+        export.vit_config_dict(vit_cfg), os.path.join(root, "visual_encoder"))
     # the projector: fp32, torch.save
-    Dv, D = vit_cfg.hidden_size, llm_cfg.hidden_size
-    pj = {k: rand(shape, torch.float32, k) for k, shape in (
-        ("model.0.weight", (D, Dv)), ("model.0.bias", (D,)),
-        ("model.2.weight", (D, D)), ("model.2.bias", (D,)))}
-    want["pj"] = {f"layers.{int(k[6]) // 2}.{k.split('.')[-1]}": v
-                  for k, v in pj.items()}
+    pj_cfg = ProjectorConfig(visual_hidden_size=vit_cfg.hidden_size,
+                             llm_hidden_size=llm_cfg.hidden_size)
+    pj = random_module(torch, Projector(pj_cfg, device="meta"), g,
+                       torch.float32, model_init)
+    want["pj"] = pj.state_dict()
     pj_dir = os.path.join(root, "projector")
-    torch.save(pj, os.path.join(pj_dir, "pytorch_model.bin"))
+    os.makedirs(pj_dir)
+    torch.save(export.projector_state_dict(pj),
+               os.path.join(pj_dir, "pytorch_model.bin"))
     nbytes += os.path.getsize(os.path.join(pj_dir, "pytorch_model.bin"))
     with open(os.path.join(pj_dir, "config.json"), "w") as f:
-        json.dump({"model_type": "projector", "visual_hidden_size": Dv,
-                   "llm_hidden_size": D, "depth": 2, "hidden_act": "gelu",
-                   "bias": True}, f)
+        json.dump(export.projector_config_dict(pj_cfg), f)
     return want, nbytes
 
 
@@ -3811,18 +3766,8 @@ def http_update_phase(torch, dev, card, plains):
     t_phase = t0 = time.perf_counter()
     for k in range(2):
         g = torch.Generator(device=dev).manual_seed(SEED + 20 + k)
-        tensors = {hf: (torch.ones(shape, dtype=torch.bfloat16)
-                        if len(shape) == 1 else
-                        (torch.randn(shape, generator=g, device=dev) * 0.02)
-                        .to(torch.bfloat16).cpu())
-                   for hf, _, shape in hf_llm_names(cfg)}
         dirs.append(os.path.join(root, f"w{k}"))
-        os.makedirs(dirs[-1])
-        nbytes += _write_safetensors(torch, os.path.join(
-            dirs[-1], "model.safetensors"), tensors)
-        with open(os.path.join(dirs[-1], "config.json"), "w") as f:
-            json.dump(hf_llm_config(cfg), f)
-        del tensors
+        nbytes += write_llm_dir(torch, dirs[-1], cfg, g, model_init=True)[1]
     write_s = time.perf_counter() - t0
 
     def load(d):
@@ -5357,11 +5302,12 @@ def moe_prompts(vocab, seed):
     return plens, [rng.integers(3, vocab, size=n).tolist() for n in plens]
 
 
-def moe_llama(torch, engine_mod, cfg, weight_quant, dev, seed):
+def moe_llama(torch, engine_mod, cfg, weight_quant, dev, seed, fuse=True):
     """A MoE LlamaModel of cfg with random bf16 weights from `seed`
     (models/init.py's scheme), built a layer at a time and, for W8 / W4,
     quantized before the next (serve/engine.py build_quantized: the bf16
-    model never exists whole); the streams fused."""
+    model never exists whole); the streams fused unless fuse is False (a
+    tensor-parallel engine cuts the model before it fuses)."""
     from aurora_tpu_torch.models.init import build
     from aurora_tpu_torch.models.llama import (LlamaLayer, LlamaModel,
                                                default_extras, is_moe_layer)
@@ -5386,7 +5332,7 @@ def moe_llama(torch, engine_mod, cfg, weight_quant, dev, seed):
         model = engine_mod.build_quantized(cfg, weight_quant, layer, top,
                                            dev, torch.bfloat16,
                                            extras=extras)
-    return engine_mod.fuse_serving_weights(model)
+    return engine_mod.fuse_serving_weights(model) if fuse else model
 
 
 def experts_touched(torch, engine_mod, moe, runner, n):
@@ -5715,6 +5661,627 @@ def moe_entries(kres, serve_counts, mla_counts):
     return out
 
 
+class _Spy:
+    """A kernel wrapper's stand-in that records the shapes of some of its
+    arguments; every other attribute (its launch counters, its name) is
+    the wrapper's own, so the counts it keeps still rise."""
+
+    def __init__(self, fn, idx, seen):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_idx", idx)
+        object.__setattr__(self, "_seen", seen)
+
+    def __call__(self, *a, **k):
+        self._seen.add(tuple(tuple(a[i].shape) for i in self._idx))
+        return self._fn(*a, **k)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+def shape_spy(targets):
+    """Patch each (module, name, argument indexes) to record the shapes of
+    those arguments at every call → (the patch context, {name: set of
+    shape tuples})."""
+    seen = {name: set() for _, name, _ in targets}
+    stack = contextlib.ExitStack()
+    for mod, name, idx in targets:
+        stack.enter_context(mock.patch.object(
+            mod, name, _Spy(getattr(mod, name), idx, seen[name])))
+    return stack, seen
+
+
+def wave_logits(torch, runner, embed, reqs):
+    """One extend wave's logits [n, V] of `reqs` (each request's prompt
+    embeds `embed(r)` in a lane of the smallest bucket that holds them
+    all), written into rows 0..n-1."""
+    plens = [len(r.input_ids) for r in reqs]
+    T = min(b for b in runner.ecfg.prefill_buckets if b >= max(plens))
+    embeds = torch.zeros((len(reqs), T, runner.cfg.hidden_size),
+                         dtype=runner.ecfg.kv_dtype, device=runner.device)
+    for i, r in enumerate(reqs):
+        embeds[i, :plens[i]] = embed(r)
+    n = len(reqs)
+    return runner.extend(embeds, np.arange(n, dtype=np.int32),
+                         np.zeros(n, np.int32), np.asarray(plens, np.int32))
+
+
+def shapes_field(seen):
+    return json.dumps({k: sorted(v) for k, v in seen.items()}).replace(
+        " ", "")
+
+
+def forced_decode(torch, engine_mod, runner, reqs, tokens, steps):
+    """`steps` decode forwards of every lane after `wave_logits` filled
+    its rows (lane i holds reqs[i]'s prompt), lane i fed tokens[i][j] at
+    step j, so that two runs of a comparison read the same tokens →
+    logits [steps, n, V] in fp32."""
+    dev = runner.device
+    ids = torch.arange(len(reqs), dtype=torch.int32, device=dev)
+    pos = torch.tensor([len(r.input_ids) for r in reqs], dtype=torch.int32,
+                       device=dev)
+    out = []
+    with torch.no_grad():
+        for j in range(steps):
+            tok = torch.tensor([t[j] for t in tokens], device=dev)
+            h = engine_mod._forward_rows(
+                runner.model, runner.cfg,
+                runner.model.embed_tokens[tok][:, None], runner.rows, ids,
+                pos, pos + 1, runner.layer_ids,
+                kv_maxq=runner.ecfg.kv_maxq, tp=runner.tp)
+            out.append(engine_mod._lm_head(runner.model, h).float())
+            pos = pos + 1
+    return torch.stack(out)
+
+
+def step_rel(got, want):
+    """The worst step's max |got - want| over max |want| ([steps, n, V])."""
+    return max(((g - w).abs().max() / w.abs().max()).item()
+               for g, w in zip(got, want))
+
+
+def dropped_shard(when):
+    """TPGroup.all_reduce with the last shard's partial zeroed in the sums
+    where when(call index, parts) holds: a planted fault that a tp
+    check's bound must see."""
+    from aurora_tpu_torch.serve import tp as tp_mod
+    real, calls = tp_mod.TPGroup.all_reduce, iter(range(1 << 62))
+
+    def faulty(self, parts):
+        if when(next(calls), parts):
+            parts = [*parts[:-1], parts[-1].new_zeros(parts[-1].shape)]
+        return real(self, parts)
+    return mock.patch.object(tp_mod.TPGroup, "all_reduce", faulty)
+
+
+def contract_held(flips, gap, lp):
+    """The near-tie contract of tests/test_torch_engine_quant.py on what
+    `near_tie(strict=False)` counted: every compared step's top-1 logprob
+    within NEAR_TIE / 2, a flip only on a top-2 gap below NEAR_TIE."""
+    return lp <= NEAR_TIE / 2 and (not flips or gap < NEAR_TIE)
+
+
+def tp_runs(torch, engine_mod, ra, qm, mm, llm, llm_cfg, clips, prompt, P,
+            dev, card, plains, failures):
+    """[serve-tp2] / [serve-tp2-w8kv8]: AuroraCap-7B (the [serve] phases'
+    weights) on EngineConfig(tp=2) with both shards on this card, bf16
+    and W8 + int8 KV, against the tp 1 engine in the same call: 4 clips ×
+    8 frames, TP_MAX_NEW greedy tokens with logprobs: a wave's logits
+    against tp 1's and the kernels' against the twins at the [serve]
+    phases' bounds, TP_FORCED_STEPS decode forwards fed tp 1's tokens
+    against tp 1's (`forced_decode`) at LOGITS_DECODE_REL_TOL, which the
+    same forwards with the second shard's partials dropped must exceed,
+    the tokens' near-tie contract against tp 1's reported, launches a
+    wave and a step twice tp 1's at the shards' shapes (half the heads,
+    half the W8 rows or inputs). A broken bound is appended to
+    `failures` (checked once every parallel phase has printed) → {run:
+    launch counts}."""
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    L = llm_cfg.num_hidden_layers
+    reqs_of = {}
+
+    def requests(tag):
+        return [mm.build_request(f"{tag}{i}", prompt, clips[i],
+                                 max_new_tokens=TP_MAX_NEW, eos_ids=(),
+                                 logprobs=True)
+                for i in range(N_REQUESTS)]
+
+    for r in requests("warm"):      # the ViT once: both runs fuse cached
+        mm._visual_groups(r)        # visual groups
+    runs = (("bf16", dict(), [(ra.ragged_attention, "launches"),
+                              (ra.ragged_decode_attention, "launches")],
+             LOGITS_REL_TOL, {"ragged_attention": ra.ragged_attention_plain}),
+            ("w8kv8", dict(weight_quant="int8", kv_quant="int8"),
+             [(ra.ragged_attention, "launches_int8"),
+              (ra.ragged_decode_attention, "launches_int8"),
+              (qm.w8a8_matmul, "launches")], LOGITS_W8_REL_TOL,
+             {"ragged_attention": ra.ragged_attention_plain,
+              "w8a8_matmul": qm.w8a8_matmul_plain}))
+    out = {}
+    for run, quant, counters, tol, plain in runs:
+        res, logits, forced = {}, {}, {}
+        for tp in (1, 2):
+            ecfg = EngineConfig(max_batch=N_REQUESTS, kv_chunk=256,
+                                prefill_buckets=(1536,), decode_steps=16,
+                                disable_radix_cache=True,
+                                max_seq_len=P + TP_MAX_NEW, tp=tp, **quant)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            engine = ServeEngine(llm, llm_cfg, ecfg, embed_fn=mm.embed_fn,
+                                 device=dev, seed=SEED,
+                                 devices=[dev] * tp)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            check(tp == 1 or len(engine.runner.group.models) == tp,
+                  f"{run}: tp {tp} engine without its shards")
+            reqs = requests(f"tp{tp}-")
+            spy, seen = shape_spy(
+                [(engine_mod, "ragged_attention", (0, 1)),
+                 (engine_mod, "ragged_decode_attention", (0, 3)),
+                 (engine_mod, "w8a8_matmul", (0, 2))])
+            with spy:
+                wall, counts = serve(torch, engine, reqs,
+                                     counters + plains, TP_MAX_NEW)
+            steps = engine._steps
+            res[tp] = dict(
+                done={r.rid.split("-", 1)[1]: r for r in reqs},
+                counts=counts, steps=steps,
+                extend_s=engine.t_extend_s,
+                decode_ms=engine.t_decode_s / steps * 1e3)
+            phase(f"serve-tp{tp}-{run}" if tp == 1 else
+                  ("serve-tp2" if run == "bf16" else "serve-tp2-" + run),
+                  card=repr(card), devices=f"[{dev}]x{tp}",
+                  config=f"auroracap-7b/L{L}/weights-{quant.get('weight_quant', 'bf16')}"
+                         f"/kv-{quant.get('kv_quant', 'bf16')}/tp{tp}",
+                  requests=N_REQUESTS, prompt_tokens=P,
+                  new_tokens=TP_MAX_NEW, init_s=f"{init_s:.2f}",
+                  extend_s_per_wave=f"{engine.t_extend_s:.4f}",
+                  decode_ms_per_step=f"{res[tp]['decode_ms']:.3f}",
+                  decode_steps=steps, wall_s=f"{wall:.2f}",
+                  peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+                  launches=json.dumps(counts).replace(" ", ""),
+                  shapes=shapes_field(seen))
+            check(all(counts[f"{f.__name__}.{a}"] == 0 for f, a in plains),
+                  f"{run} tp {tp}: plain twins ran: {counts}")
+            ext, dec = (counts[f"{f.__name__}.{a}"] for f, a in counters[:2])
+            check(ext == tp * L and dec == tp * L * steps,
+                  f"{run} tp {tp}: ragged launches {ext} / {dec}, {steps} "
+                  "steps")
+            q_heads = {s[0][2] for s in seen["ragged_attention"]}
+            kv_heads = {s[1][2] for s in seen["ragged_attention"]}
+            check(q_heads == {llm_cfg.num_attention_heads // tp}
+                  and kv_heads == {llm_cfg.num_key_value_heads // tp},
+                  f"{run} tp {tp}: extend at heads {q_heads} / {kv_heads}")
+            if quant:
+                w8 = counts["w8a8_matmul.launches"]
+                check(w8 == 4 * tp * L * steps,
+                      f"{run} tp {tp}: {w8} W8A8 launches, {steps} steps")
+                D, I = llm_cfg.hidden_size, llm_cfg.intermediate_size
+                H, Hkv = (llm_cfg.num_attention_heads,
+                          llm_cfg.num_key_value_heads)
+                hd = llm_cfg.head_dim
+                want = {((H + 2 * Hkv) * hd // tp, D), (D, H * hd // tp),
+                        (2 * I // tp, D), (D, I // tp)}
+                got = {s[1] for s in seen["w8a8_matmul"]}
+                check(got == want, f"{run} tp {tp}: W8A8 weights {got}")
+            logits[tp] = wave_logits(torch, engine.runner, mm.embed_fn,
+                                     reqs)
+            fed = [res[1]["done"][str(i)].output_ids
+                   for i in range(N_REQUESTS)]
+            forced[tp] = forced_decode(torch, engine_mod, engine.runner,
+                                       reqs, fed, TP_FORCED_STEPS)
+            if tp == 2:
+                # the planted fault: the decode forwards without the
+                # second shard's partials (both sums at T == 1); each
+                # step rewrites the K/V its position held
+                with dropped_shard(lambda i, parts: parts[0].shape[1] == 1):
+                    planted = forced_decode(torch, engine_mod, engine.runner,
+                                            reqs, fed, TP_FORCED_STEPS)
+                logits_check(torch, engine_mod, engine.runner, mm.embed_fn,
+                             reqs, tol, f"logits-tp2-{run}", plain)
+            del engine
+            gc.collect()
+        flips, gap, lp = near_tie(res[2]["done"], res[1]["done"],
+                                  strict=False)
+        held = contract_held(flips, gap, lp)
+        rel = ((logits[2] - logits[1]).abs().max()
+               / logits[1].abs().max()).item()
+        # tp 2 rounds where tp 1 does not (the shards' products, their
+        # fp32 sum; with W8 each shard's own activation codes of o / down,
+        # as the reference's shard_map body has them), and random bf16
+        # layers amplify a single rounding: the same drift shows between
+        # two engines that share all code at two batch shapes
+        # ([serve-dp2]'s batch8_*). So the logits of a wave are held at
+        # the [serve] phases' bound, and the tokens' near-tie contract is
+        # reported
+        agree = int((logits[2].argmax(-1) == logits[1].argmax(-1)).sum())
+        dec_rel = step_rel(forced[2], forced[1])
+        dec_planted = step_rel(planted, forced[1])
+        dec_agree = int((forced[2].argmax(-1) == forced[1].argmax(-1)).sum())
+        if rel > tol:
+            failures.append(f"tp2 vs tp1 {run}: wave logits rel {rel}")
+        if not dec_rel <= LOGITS_DECODE_REL_TOL < dec_planted:
+            failures.append(f"tp2 vs tp1 {run}: forced decode rel {dec_rel}"
+                            f", with a dropped shard {dec_planted} (bound "
+                            f"{LOGITS_DECODE_REL_TOL})")
+        phase(f"tp2-vs-tp1-{run}", card=repr(card),
+              wave_logits_rel_err=f"{rel:.3e}", tol=tol,
+              wave_argmax_agree=f"{agree}/{N_REQUESTS}",
+              forced_decode_steps=TP_FORCED_STEPS,
+              forced_decode_rel_err=f"{dec_rel:.3e}",
+              forced_decode_tol=LOGITS_DECODE_REL_TOL,
+              forced_decode_argmax_agree=f"{dec_agree}/"
+                                         f"{TP_FORCED_STEPS * N_REQUESTS}",
+              planted_dropped_shard_rel_err=f"{dec_planted:.3e}",
+              token_contract_held=held, flips=flips,
+              flip_gap=f"{gap:.3e}", worst_top1_logprob=f"{lp:.3e}",
+              near_tie=NEAR_TIE,
+              extend_s_tp1=f"{res[1]['extend_s']:.4f}",
+              extend_s_tp2=f"{res[2]['extend_s']:.4f}",
+              decode_ms_tp1=f"{res[1]['decode_ms']:.3f}",
+              decode_ms_tp2=f"{res[2]['decode_ms']:.3f}")
+        out[run] = res[2]["counts"]
+    return out
+
+
+def tp_mixtral_phase(torch, engine_mod, ra, qm, moe, dev, card, plains,
+                     failures):
+    """[serve-tp2-mixtral]: Mixtral-8x7B at full width, TP_MIXTRAL_LAYERS
+    of its 32 layers, W8 + int8 KV (int8 experts through the grouped
+    kernel at half the MLP width, N = F/2 = 7,168), tp 2 with both shards
+    on this card against tp 1 on the same weights: N_REQUESTS prompts of
+    MOE_PROMPT ids, MOE_MAX_NEW tokens; one wave's logits and
+    TP_FORCED_STEPS fed decode forwards of tp 2 against tp 1's with tp
+    1's routing replayed into both shards (a near-tie router would route
+    the two apart; `RoutingTape`), the wave at TP_MIXTRAL_TOL, which the
+    wave without the second shard's MLP partials must exceed, the
+    decode at LOGITS_DECODE_REL_TOL; the tokens' matched prefix reported
+    → launch counts. A broken bound is appended to `failures`."""
+    from aurora_tpu_torch.models.llama import LlamaConfig
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from aurora_tpu_torch.serve.scheduler import Request
+    cfg = LlamaConfig(**dict(MIXTRAL_8X7B,
+                             num_hidden_layers=TP_MIXTRAL_LAYERS))
+    L, F_ = cfg.num_hidden_layers, cfg.intermediate_size
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = moe_llama(torch, engine_mod, cfg, "int8", dev, SEED + 21,
+                      fuse=False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plens, prompts = moe_prompts(cfg.vocab_size, SEED + 21)
+    counters = [(ra.ragged_attention, "launches_int8"),
+                (ra.ragged_decode_attention, "launches_int8"),
+                (moe.moe_grouped_mm, "launches"),
+                (qm.w8a8_matmul, "launches")] + plains
+    res, runners = {}, {}
+    for tp in (1, 2):
+        ecfg = EngineConfig(max_batch=N_REQUESTS, max_seq_len=MOE_SEQ,
+                            kv_chunk=256, prefill_buckets=(2048,),
+                            decode_steps=16, kv_quant="int8",
+                            weight_quant="int8", disable_radix_cache=True,
+                            tp=tp)
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(model, cfg, ecfg, device=dev, seed=SEED,
+                             devices=[dev] * tp)
+        reqs = [Request(rid=f"m{i}", input_ids=list(p),
+                        max_new_tokens=MOE_MAX_NEW, eos_ids=(),
+                        logprobs=True) for i, p in enumerate(prompts)]
+        spy, seen = shape_spy([(moe, "moe_grouped_mm", (0, 1))])
+        with spy:
+            wall, counts = serve(torch, engine, reqs, counters, MOE_MAX_NEW)
+        steps = engine._steps
+        ext, dec, gmm, w8 = (counts[f"{f.__name__}.{a}"]
+                             for f, a in counters[:4])
+        widths = sorted({s[1][2] for s in seen["moe_grouped_mm"]})
+        phase("serve-tp2-mixtral" if tp == 2 else "serve-tp1-mixtral",
+              card=repr(card), devices=f"[{dev}]x{tp}",
+              config=f"mixtral-8x7b/L{L}/weights-int8/experts-int8/kv-int8"
+                     f"/tp{tp}",
+              requests=N_REQUESTS,
+              prompt_tokens=",".join(str(int(n)) for n in plens),
+              new_tokens=MOE_MAX_NEW, build_s=f"{build_s:.1f}",
+              extend_s=f"{engine.t_extend_s:.4f}",
+              decode_ms_per_step=f"{engine.t_decode_s / steps * 1e3:.3f}",
+              decode_steps=steps, wall_s=f"{wall:.2f}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              grouped_n=widths, launches=json.dumps(counts).replace(" ", ""),
+              shapes=shapes_field(seen))
+        check(ext == tp * L and dec == tp * L * steps,
+              f"mixtral tp {tp}: ragged launches {counts}")
+        check(gmm == 3 * tp * L * (1 + steps),
+              f"mixtral tp {tp}: grouped launches {gmm}, {steps} steps")
+        check(w8 > 0 and all(counts[f"{f.__name__}.{a}"] == 0
+                             for f, a in plains),
+              f"mixtral tp {tp}: {counts}")
+        check(widths == sorted({F_ // tp, cfg.hidden_size}),
+              f"mixtral tp {tp}: grouped products of widths {widths}")
+        res[tp] = {r.rid: r for r in reqs}
+        runners[tp] = engine.runner
+        del engine
+    # one wave of both runners: tp 1 records its routing, both shards of
+    # tp 2 replay it (each shard routes its own copy of the layer's input)
+    reqs = list(res[1].values())
+
+    def embed(r):
+        return model.embed_tokens[torch.tensor(r.input_ids, device=dev)]
+
+    fed = [res[1][r.rid].output_ids for r in reqs]
+
+    def wave_and_decode(runner):
+        return (wave_logits(torch, runner, embed, reqs),
+                forced_decode(torch, engine_mod, runner, reqs, fed,
+                              TP_FORCED_STEPS))
+
+    tape = RoutingTape([(moe, "routing_weights")])
+    with tape.patched(False):
+        want, want_dec = wave_and_decode(runners[1])
+    tape.tape = [t for t in tape.tape for _ in range(2)]
+    with tape.patched(True):
+        got, got_dec = wave_and_decode(runners[2])
+    torch.cuda.synchronize()
+    check(tape.at == len(tape.tape), f"routing replayed {tape.at} of "
+                                     f"{len(tape.tape)}")
+    # the planted fault: the wave without the second shard's MLP partial
+    # (each layer's second sum)
+    with tape.patched(True), dropped_shard(lambda i, parts: i % 2 == 1):
+        planted = wave_logits(torch, runners[2], embed, reqs)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    rel_planted = ((planted - want).abs().max() / want.abs().max()).item()
+    dec_rel = step_rel(got_dec, want_dec)
+    match, dlp = matched_prefix(res[2], res[1])
+    phase("tp2-vs-tp1-mixtral", card=repr(card), logits_rel_err=f"{rel:.3e}",
+          tol=TP_MIXTRAL_TOL,
+          argmax_agree=f"{int((got.argmax(-1) == want.argmax(-1)).sum())}"
+                       f"/{N_REQUESTS}",
+          planted_dropped_mlp_partial_rel_err=f"{rel_planted:.3e}",
+          forced_decode_steps=TP_FORCED_STEPS,
+          forced_decode_rel_err=f"{dec_rel:.3e}",
+          forced_decode_tol=LOGITS_DECODE_REL_TOL,
+          tokens_matched_prefix=f"{match:.3f}", prefix_dlogprob=f"{dlp:.3e}",
+          reason=repr(MOE_LOGITS_REASON))
+    check(bool(torch.isfinite(got).all()), "mixtral tp 2 logits not finite")
+    if not rel <= TP_MIXTRAL_TOL < rel_planted:
+        failures.append(f"mixtral tp2 vs tp1: wave logits rel {rel}, with "
+                        f"a dropped MLP partial {rel_planted} (bound "
+                        f"{TP_MIXTRAL_TOL})")
+    if dec_rel > LOGITS_DECODE_REL_TOL:
+        failures.append(f"mixtral tp2 vs tp1: forced decode rel {dec_rel}")
+    del runners, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dp_phase(torch, mm, llm, llm_cfg, clips, prompt, P, dev, card,
+             kernels, plains, failures):
+    """[serve-dp2]: MultiReplicaController with two AuroraCap-7B bf16
+    replicas on this card (one set of weights, two sets of KV rows and
+    radix pools), DP_REQUESTS clips, shortest_queue then round_robin,
+    TP_MAX_NEW tokens: every replica gets work, every request is
+    answered, each replica's tokens and logprobs equal those of one
+    engine serving the same requests in the same order (bit for bit),
+    no slot leaks, flush_cache leaves 0. Beside them one engine of batch
+    DP_REQUESTS serves all of them: its tokens/s, and how far its tokens
+    drift from the replicas' (the same code at another batch shape)
+    → {dispatch: launch counts}."""
+    from aurora_tpu_torch.serve.controller import MultiReplicaController
+    from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
+
+    def ecfg(batch):
+        return EngineConfig(max_batch=batch, kv_chunk=256,
+                            prefill_buckets=(1536,), decode_steps=16,
+                            num_slots=DP_SLOTS, max_seq_len=P + TP_MAX_NEW)
+
+    def requests(tag, which=range(DP_REQUESTS)):
+        return [mm.build_request(f"{tag}{i}", prompt, clips[i],
+                                 max_new_tokens=TP_MAX_NEW, eos_ids=(),
+                                 logprobs=True)
+                for i in which]
+
+    def tokens(done):
+        return {r.rid.split("-", 1)[1]: (r.output_ids, r.output_logprobs)
+                for r in done}
+
+    for r in requests("warm"):
+        mm._visual_groups(r)
+    one = ServeEngine(llm, llm_cfg, ecfg(DP_REQUESTS), embed_fn=mm.embed_fn,
+                      device=dev, seed=SEED)
+    reqs = requests("one-")
+    one_wall, _ = serve(torch, one, reqs, kernels + plains, TP_MAX_NEW)
+    batch8 = {r.rid.split("-", 1)[1]: r for r in reqs}
+    del one
+    gc.collect()
+    alone = {}      # a replica's requests → one engine's answers to them
+    out = {}
+    for dispatch in ("shortest_queue", "round_robin"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ctl = MultiReplicaController(llm, llm_cfg, ecfg(N_REQUESTS),
+                                     devices=[dev, dev], dispatch=dispatch,
+                                     embed_fn=mm.embed_fn, seed=SEED)
+        check(all(e.runner.model is llm for e in ctl.engines),
+              "replicas on one card must share the weights")
+        reqs = requests(f"{dispatch}-")
+        for r in reqs:
+            ctl.add_request(r)
+        groups = [tuple(int(r.rid.split("-", 1)[1]) for r in e.sched.waiting)
+                  for e in ctl.engines]
+        check(all(groups), f"{dispatch}: replicas got {groups}")
+        for obj, attr in kernels + plains:
+            setattr(obj, attr, 0)
+        t0 = time.perf_counter()
+        done = []
+        while ctl.has_work():
+            done.extend(ctl.step())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {f"{o.__name__}.{a}": getattr(o, a)
+                  for o, a in kernels + plains}
+        check(len(done) == DP_REQUESTS and all(
+            len(r.output_ids) == TP_MAX_NEW and r.error is None
+            for r in done), f"{dispatch}: {len(done)} answered")
+        mem = ctl.check_memory()
+        flushed = ctl.flush_cache()
+        del ctl
+        gc.collect()
+        got = tokens(done)
+        for grp in groups:
+            if grp not in alone:
+                eng = ServeEngine(llm, llm_cfg, ecfg(N_REQUESTS),
+                                  embed_fn=mm.embed_fn, device=dev,
+                                  seed=SEED)
+                ref = requests("alone-", grp)
+                serve(torch, eng, ref, [], TP_MAX_NEW)
+                alone[grp] = tokens(ref)
+                del eng
+            same = all(got[str(i)] == alone[grp][str(i)] for i in grp)
+            if not same:
+                failures.append(f"dp2 {dispatch}: replica of {grp} differs "
+                                "from one engine on its requests")
+        flips, gap, lp = near_tie({k: r for k, r in zip(
+            (r.rid.split("-", 1)[1] for r in done), done)}, batch8,
+            strict=False)
+        phase("serve-dp2" + ("" if dispatch == "shortest_queue"
+                             else "-round-robin"),
+              card=repr(card), devices=f"[{dev}]x2", dispatch=dispatch,
+              requests=DP_REQUESTS, per_replica=[len(g) for g in groups],
+              replica_equals_one_engine=all(
+                  got[str(i)] == alone[g][str(i)]
+                  for g in groups for i in g),
+              prompt_tokens=P, new_tokens=TP_MAX_NEW, wall_s=f"{wall:.2f}",
+              tokens_per_s=f"{DP_REQUESTS * TP_MAX_NEW / wall:.1f}",
+              batch8_tokens_per_s=f"{DP_REQUESTS * TP_MAX_NEW / one_wall:.1f}",
+              batch8_flips=flips, batch8_worst_top1_logprob=f"{lp:.3e}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              leaked=mem["leaked"], cached_after_flush=flushed,
+              launches=json.dumps(counts).replace(" ", ""))
+        check(mem["leaked"] == 0 and flushed == 0, f"{dispatch}: {mem}, "
+                                                   f"{flushed} cached")
+        check(all(counts[f"{o.__name__}.{a}"] > 0 for o, a in kernels)
+              and all(counts[f"{o.__name__}.{a}"] == 0 for o, a in plains),
+              f"{dispatch}: {counts}")
+        out[dispatch] = counts
+    return out
+
+
+def export_phase(torch, model, dev, card):
+    """[export]: the AuroraCap-7B weights at full width with EXPORT_LAYERS
+    LLM layers (the first of the [serve] model's, shared), written by
+    models/export.py in the xtuner and huggingface layouts in bf16 and
+    loaded back by load_auroracap_dir / load_llava_hf_dir onto the card:
+    every parameter bit for bit (Vicuna's 32,000 rows are a multiple of
+    64: nothing is padded). GB written, write s, load s."""
+    from aurora_tpu_torch.models import export
+    from aurora_tpu_torch.models.aurora import AuroraModel
+    from aurora_tpu_torch.models.convert import (load_auroracap_dir,
+                                                 load_llava_hf_dir)
+    from aurora_tpu_torch.models.llama import LlamaModel
+    cfg = dataclasses.replace(model.cfg, llm=dataclasses.replace(
+        model.cfg.llm, num_hidden_layers=EXPORT_LAYERS))
+    sub = AuroraModel(cfg, device="meta")
+    sub.visual_encoder, sub.projector = model.visual_encoder, model.projector
+    sub.llm = LlamaModel(cfg.llm, device="meta")
+    sub.llm.load_state_dict(
+        {k: v for k, v in model.llm.state_dict().items()
+         if not k.startswith("layers.") or int(k.split(".")[1])
+         < EXPORT_LAYERS}, assign=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "export")
+    loaders = {"xtuner": load_auroracap_dir, "huggingface": load_llava_hf_dir}
+    for layout, load in loaders.items():
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = export.EXPORTERS[layout](sub, root, dtype=torch.bfloat16)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm, llm_cfg, vit, vit_cfg, pj, _ = load(
+            root, llm_dtype=torch.bfloat16, vit_dtype=torch.bfloat16,
+            device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n = bad = 0
+        for got, want in ((llm, sub.llm), (vit, sub.visual_encoder),
+                          (pj, sub.projector)):
+            sd = got.state_dict()
+            for k, t in want.state_dict().items():
+                n += 1
+                bad += not (sd[k].shape == t.shape
+                            and torch.equal(sd[k], t.to(sd[k].dtype)))
+        phase("export-" + layout if layout != "xtuner" else "export",
+              card=repr(card), layout=layout,
+              llm=f"vicuna-7b-widths/{EXPORT_LAYERS}-layers",
+              vit="vit-h-14-378/32-layers", dtype="bf16",
+              gb_written=f"{nbytes / 1e9:.3f}", write_s=f"{write_s:.2f}",
+              load_s=f"{load_s:.2f}", tensors=n, mismatched=bad)
+        check(llm_cfg == cfg.llm and vit_cfg == cfg.vit,
+              f"{layout}: configs {llm_cfg} / {vit_cfg}")
+        check(bad == 0, f"{layout}: {bad} of {n} tensors differ")
+        del llm, vit, pj
+        gc.collect()
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def serve_parallel_phases(torch, engine_mod, ra, qm, moe, model, mm, clips,
+                          prompt, P, dev, card, plains):
+    """[serve-tp2], [serve-tp2-w8kv8], [serve-tp2-mixtral], [serve-dp2]
+    and [export]; the bounds and equalities checked once all have printed
+    → {run: launch counts}."""
+    llm, llm_cfg = model.llm, model.cfg.llm
+    failures = []
+    out = tp_runs(torch, engine_mod, ra, qm, mm, llm, llm_cfg, clips, prompt,
+                  P, dev, card, plains, failures)
+    out["mixtral"] = tp_mixtral_phase(torch, engine_mod, ra, qm, moe, dev,
+                                      card, plains, failures)
+    out["dp2"] = dp_phase(torch, mm, llm, llm_cfg, clips, prompt, P, dev,
+                          card, [(ra.ragged_attention, "launches"),
+                                 (ra.ragged_decode_attention, "launches")],
+                          plains, failures)
+    export_phase(torch, model, dev, card)
+    # [serve-dp2] encoded later runs' clips: those runs time their ViT
+    mm._cache.clear()
+    check(not failures, "; ".join(failures))
+    return out
+
+
+def aurora_serving(torch, dev, n_runs):
+    """The main path's AuroraCap-7B (AURORA_LAYERS LLM layers, random bf16
+    weights from SEED) and its AuroraCapServing; N_REQUESTS clips for each
+    of n_runs served configurations (the embed cache would skip the ViT on
+    a repeated clip) and one more to warm the ViT; the prompt → (cfg,
+    model, mm, clips, prompt, init s)."""
+    from aurora_tpu_torch.models.aurora import AuroraConfig, init_aurora
+    from aurora_tpu_torch.serve.multimodal import AuroraCapServing
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cfg = AuroraConfig.auroracap_7b()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_hidden_layers=AURORA_LAYERS))
+    t0 = time.perf_counter()
+    model = init_aurora(cfg, device=dev, dtype=torch.bfloat16, generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mm = AuroraCapServing(model, ByteTokenizer(), kept_ratio=KEPT_RATIO,
+                          image_size=cfg.vit.image_size)
+    n_vis = mm.n_visual_tokens()
+    check(n_vis == 171, f"visual tokens per frame {n_vis} != 171")
+    rng = np.random.default_rng(SEED)
+    size = cfg.vit.image_size
+    clips = [rng.integers(0, 256, size=(N_FRAMES, size, size, 3),
+                          dtype=np.uint8)
+             for _ in range(n_runs * N_REQUESTS + 1)]
+    prompt = " ".join(["<image>"] * N_FRAMES) + \
+        "\nDescribe the video in detail."
+    return cfg, model, mm, clips, prompt, init_s
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port's main paths "
@@ -5722,7 +6289,8 @@ def main(argv=None):
     ap.add_argument("--only", action="append",
                     choices=["train-cli", "kernels", "serve-gemma2",
                              "serve-phi3", "train-dpo", "serve-moe",
-                             "serve-internvl", "serve-siglip"],
+                             "serve-internvl", "serve-siglip",
+                             "serve-parallel"],
                     help="run these phases alone, in the script's order "
                          "(train-cli: [infer-load] and the four train-cli "
                          "phases; kernels: [build] and every [kernels] "
@@ -5733,8 +6301,9 @@ def main(argv=None):
                          "[kernels-moe] and the Mixtral, Qwen3-MoE and "
                          "DeepSeek-V2-Lite runs; serve-internvl: the "
                          "InternVL3-8B runs; serve-siglip: AuroraCap with "
-                         "a SigLIP tower); no kernel JSON line, no final "
-                         "line")
+                         "a SigLIP tower; serve-parallel: the tp 2, dp 2 "
+                         "and export phases); no kernel JSON line, no "
+                         "final line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5742,7 +6311,6 @@ def main(argv=None):
               "an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from aurora_tpu_torch.models.aurora import AuroraConfig, init_aurora
     from aurora_tpu_torch.ops import cuda_build
     from aurora_tpu_torch.ops import moe
     from aurora_tpu_torch.ops.pallas import flash_attention as fa
@@ -5750,8 +6318,7 @@ def main(argv=None):
     from aurora_tpu_torch.ops.pallas import ragged_attention as ra
     from aurora_tpu_torch.serve import engine as engine_mod
     from aurora_tpu_torch.serve.engine import EngineConfig, ServeEngine
-    from aurora_tpu_torch.serve.multimodal import (_PLACEHOLDER_BASE,
-                                                   AuroraCapServing)
+    from aurora_tpu_torch.serve.multimodal import _PLACEHOLDER_BASE
     from aurora_tpu_torch.train import bench_stage
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5805,6 +6372,15 @@ def main(argv=None):
             dpo_phase(torch, fa, dev, card, flash_counters, all_plains)
             dpo_phase(torch, fa, dev, card, flash_counters, all_plains,
                       gemma=True)
+        if "serve-parallel" in only:
+            cuda_build.load_library()
+            _, model, mm, clips, prompt, _ = aurora_serving(torch, dev, 2)
+            P = len(mm.build_request("p", prompt, clips[0]).input_ids)
+            serve_parallel_phases(torch, engine_mod, ra, qm, moe, model, mm,
+                                  clips, prompt, P, dev, card, all_plains[:7])
+            del model, mm
+            gc.collect()
+            torch.cuda.empty_cache()
         if "serve-moe" in only:
             cuda_build.load_library()
             moe_kernel_phase(torch, engine_mod, moe, dev)
@@ -5906,28 +6482,10 @@ def main(argv=None):
 
     # ---- main path at full width, bf16 ------------------------------------
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    cfg = AuroraConfig.auroracap_7b()
-    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
-        cfg.llm, num_hidden_layers=AURORA_LAYERS))
-    t0 = time.perf_counter()
-    model = init_aurora(cfg, device=dev, dtype=torch.bfloat16, generator=gen)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    mm = AuroraCapServing(model, ByteTokenizer(), kept_ratio=KEPT_RATIO,
-                          image_size=cfg.vit.image_size)
-    n_vis = mm.n_visual_tokens()
-    check(n_vis == 171, f"visual tokens per frame {n_vis} != 171")
-    rng = np.random.default_rng(SEED)
-    size = cfg.vit.image_size
-    # four clips for each served configuration (the embed cache would skip
-    # the ViT on a repeated clip), one more to warm the ViT
     runs = ("bf16", "w8kv8", "w4kv8", "w4kv4", "w4kv8-fused", "w4kv8-flat")
-    clips = [rng.integers(0, 256, size=(N_FRAMES, size, size, 3),
-                          dtype=np.uint8)
-             for _ in range(len(runs) * N_REQUESTS + 1)]
-    prompt = " ".join(["<image>"] * N_FRAMES) + \
-        "\nDescribe the video in detail."
+    cfg, model, mm, clips, prompt, init_s = aurora_serving(torch, dev,
+                                                           len(runs))
+    n_vis = mm.n_visual_tokens()
 
     def requests(run):
         first = runs.index(run) * N_REQUESTS
@@ -6098,6 +6656,11 @@ def main(argv=None):
     # ---- the inference.py caption path on the same bf16 model -------------
     torch.cuda.reset_peak_memory_stats()
     infer_phase(torch, model, cfg, mm, engine_config(), dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- serving across devices on one card (tp 2, dp 2), export ---------
+    serve_parallel_phases(torch, engine_mod, ra, qm, moe, model, mm, clips,
+                          prompt, P, dev, card, plains)
     torch.cuda.empty_cache()
 
     # ---- W8 weights + int8 KV (the bf16 source kept) ------------------------

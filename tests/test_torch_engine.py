@@ -5,8 +5,9 @@ bridged into the port), float32 weights and KV on the CPU, prefix caching
 disabled on both. Greedy tokens must be equal exactly: text requests of
 different lengths in one batched extend wave plus a rolling admission,
 with decode_steps 1 and 4, and multimodal requests through both
-AuroraCapServing front ends. Options the port has not ported must raise
-NotImplementedError instead of being ignored, and requests the engine
+AuroraCapServing front ends. Options the engine does not take must raise
+instead of being ignored (tensor parallelism is ported: what the
+reference keeps single-device at tp > 1 raises), and requests the engine
 cannot honour must be refused at add_request.
 """
 
@@ -186,8 +187,15 @@ def test_multimodal_greedy_matches_jax_engine(tiny, tmp_path):
 
 @pytest.mark.parametrize("field,value", [("tp", 2)])
 def test_unported_engine_options_raise(field, value):
+    """tp > 1 is ported (tests/test_torch_tp.py); at tp 2 the W4 layout
+    and packed int4 KV raise, in the reference's words, and a KV mode the
+    port has not got raises NotImplementedError."""
+    assert EngineConfig(**{field: value}).tp == value
+    for kw in (dict(weight_quant="int4"), dict(kv_quant="int4")):
+        with pytest.raises(ValueError, match="single-device"):
+            EngineConfig(**{field: value}, **kw)
     with pytest.raises(NotImplementedError):
-        EngineConfig(**{field: value})
+        EngineConfig(**{field: value}, kv_quant="int2")
 
 
 @pytest.mark.parametrize("kind", ["constraint", "chunked"])

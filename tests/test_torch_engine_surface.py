@@ -52,6 +52,16 @@ MM_TOL = dict(rtol=1e-5, atol=1e-6)
 PROJ = ("q", "k", "v", "o", "gate", "up", "down")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch's CPU ops on one thread: the suite runs several workers at
+    once, and their intra-op pools would contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @jax.jit
 def _jax_a8_weights(pk, s):
     """The reference's A8 requantization (serve/engine.py:304-323), one

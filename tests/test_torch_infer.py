@@ -91,6 +91,6 @@ def test_module_entry_infer_help():
 
 
 def test_module_entry_unported_mode_fails():
-    res = _module("convert", "--src", "x", "--dst", "y")
+    res = _module("bench-kernels")
     assert res.returncode == 2
     assert "not ported yet" in res.stderr and "ROADMAP" in res.stderr

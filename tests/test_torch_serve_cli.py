@@ -1,10 +1,11 @@
 """The port's serving CLIs (`python -m aurora_tpu_torch serve | chat |
 bench-latency | bench-serving`) on the CPU.
 
-Each mode's --help exits 0; serve exits
-2 naming its ROADMAP item for --dp / --tp above 1 (a Mixtral checkpoint
-too) and for what MLA does not take (DeepseekV2 with --kv-quant), and
-loads MoE and MLA directories (Gemma-2 is served:
+Each mode's --help exits 0; serve takes --dp / --tp above 1 (they reach
+the server with their engine built), exits 2 for what stays single-device at --tp above
+1 (W4 weights, packed int4 KV, a Mixtral checkpoint at W4) and for what
+MLA does not take (DeepseekV2 with --kv-quant or --tp), and loads MoE and
+MLA directories (Gemma-2 is served:
 tests/test_torch_gemma2.py); chat over stdin on a tiny xtuner directory and a
 video prints the JAX cli/chat.py's two answers, fp32 and greedy, text for
 text, and encodes the video once for both turns (a video that needs a
@@ -45,29 +46,80 @@ def test_mode_help_exits_0(capsys, mode, flags):
 
 @pytest.mark.parametrize("case", ["dp", "tp", "MixtralForCausalLM",
                                   "DeepseekV2ForCausalLM"])
-def test_serve_refuses_what_is_not_ported(tmp_path, capsys, case):
+def test_serve_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch,
+                                          case):
+    """--dp and --tp are ported: each reaches the server with its engine
+    built (two replicas, or one engine of two shards; under --tp the
+    model loaded on the host is no longer referenced once the engine is
+    built), and with --tp 2 the W4 layout exits 2 (the reference's
+    assert); a Mixtral checkpoint at W4 with --tp 2 exits 2 the same way,
+    DeepseekV2 with --kv-quant or --tp exits 2 naming MLA."""
+    import gc
+    import weakref
+    from aurora_tpu_torch.data import text
+    from aurora_tpu_torch.serve import api
     argv = ["--model_path", str(tmp_path)]
     if case in ("dp", "tp"):
-        argv += [f"--{case}", "2"]
-        item = "queue 1 item 9"
+        from aurora_tpu_torch.models import export
+        from aurora_tpu_torch.models.init import build
+        from aurora_tpu_torch.models.llama import LlamaConfig, LlamaModel
+        cfg = LlamaConfig.tiny(vocab_size=128)
+        model = build(LlamaModel, cfg, device="cpu", dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(0))
+        export._write(export.llama_state_dict(model, cfg),
+                      export.llama_config_dict(cfg), str(tmp_path))
+        from aurora_tpu_torch.models import convert
+        loaded, launched = [], {}
+        load_dir = convert.load_serving_dir
+
+        def load(*a):
+            model, cfg = load_dir(*a)
+            loaded.append(weakref.ref(model))
+            return model, cfg
+
+        def serve(engine, tok, **kw):
+            gc.collect()
+            launched.update(engine=engine, source_alive=loaded[-1]() is not
+                            None)
+        monkeypatch.setattr(convert, "load_serving_dir", load)
+        monkeypatch.setattr(api, "serve_engine", serve)
+        monkeypatch.setattr(text, "auto_tokenizer", lambda path: object())
+        common = ["--device", "cpu", "--dtype", "float32", "--max-batch",
+                  "2", "--num-slots", "64", f"--{case}", "2"]
+        assert tserve.main(argv + common) == 0
+        engine = launched["engine"]
+        if case == "dp":
+            assert len(engine.engines) == 2
+        else:
+            assert engine.ecfg.tp == 2 and len(engine.runner.group.models) == 2
+            assert not launched["source_alive"]
+        assert tserve.main(argv + common + ["--tp", "2", "--weight-quant",
+                                            "int4"]) == 2
+        assert "single-device" in capsys.readouterr().err
+        return
+    # MoE and MLA checkpoints are served (test_serve_loads_moe_and_mla_
+    # dirs); a Mixtral one takes no W4 at tp 2, and MLA no KV quantization
+    # or tp, as in the reference
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"architectures": [case], "model_type": case[:-11].lower()}))
+    if case.startswith("Mixtral"):
+        argv += ["--tp", "2", "--weight-quant", "int4"]
+        item = "single-device"
     else:
-        # MoE and MLA checkpoints are served (test_serve_loads_moe_and_mla_
-        # dirs); a Mixtral one still takes no tensor parallelism, and MLA
-        # no KV quantization, as in the reference
-        (tmp_path / "config.json").write_text(json.dumps(
-            {"architectures": [case], "model_type": case[:-11].lower()}))
-        argv += ["--tp", "2"] if case.startswith("Mixtral") \
-            else ["--kv-quant", "int8"]
-        item = "queue 1 item 9" if case.startswith("Mixtral") else "MLA"
+        argv += ["--kv-quant", "int8"]
+        item = "MLA"
     assert tserve.main(argv) == 2
     assert item in capsys.readouterr().err
+    if not case.startswith("Mixtral"):
+        assert tserve.main(argv[:2] + ["--tp", "2"]) == 2
+        assert "MLA" in capsys.readouterr().err
 
 
 def test_serve_loads_moe_and_mla_dirs(tmp_path, monkeypatch):
     """A Mixtral directory with --weight-quant int8 (each layer quantized
     as it loads: int8 experts, W8 attention, fused streams) and a
     DeepseekV2 one (bf16-only MLA, here fp32 on the CPU) reach the HTTP
-    server's launch with their serving config."""
+    server with an engine built on their serving config."""
     from safetensors.numpy import save_file
 
     import test_torch_mla as mla
@@ -76,9 +128,9 @@ def test_serve_loads_moe_and_mla_dirs(tmp_path, monkeypatch):
     from aurora_tpu_torch.serve import api
 
     launched = {}
-    monkeypatch.setattr(api, "launch_server",
-                        lambda model, cfg, tok, **kw: launched.update(
-                            model=model, cfg=cfg))
+    monkeypatch.setattr(api, "serve_engine",
+                        lambda engine, tok, **kw: launched.update(
+                            model=engine.runner.model, cfg=engine.cfg))
     monkeypatch.setattr(text, "auto_tokenizer", lambda path: object())
     hf_cfg, sd = moe._mixtral(np.random.default_rng(0))
     mix = tmp_path / "mixtral"

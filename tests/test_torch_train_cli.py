@@ -393,7 +393,7 @@ def test_quant_without_lora_is_rejected(workdir, capsys):
     assert e.value.code == 2 and "--lora_r" in capsys.readouterr().err
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(_argv(workdir, "bad", "--mesh", "dp=2"))
-    assert e.value.code == 2 and "queue 1 items 9 and 11" in \
+    assert e.value.code == 2 and "queue 1 item 11" in \
         capsys.readouterr().err
 
 
