@@ -15,14 +15,28 @@ and collate the next batches (data/prefetch.py), checkpoints every
 --resume from the latest, (Q)LoRA with --lora_r / --quant
 (train/lora.py, train/quant.py; lora.json marks the run), and the log
 record {step, loss, grad_norm, lr, tgs, tflops, eta_s} printed and
-appended to train_log.jsonl. Throughput counts one device. The exposed
-data wait (the time `next()` on the prefetcher blocks) is printed at the
-end.
+appended to train_log.jsonl. Throughput counts every rank's device. The
+exposed data wait (the time `next()` on the prefetcher blocks) is printed
+at the end.
 
---mesh (sharded training) is not ported: any value but "" exits 2.
-`run(parse_args(argv))` is `main` that also returns the run (per-step
-losses and grad norms unrounded, timings, the trained state) for
-in-process callers.
+--mesh dp=…,fsdp=…,sp=…,tp=… trains on a mesh of that many ranks, one
+process each, as torchrun starts them:
+
+    torchrun --nproc_per_node 4 -m aurora_tpu_torch train --mesh sp=4 ...
+
+Each rank joins the group (parallel/distributed.py `init_distributed`;
+NCCL on cards, gloo with --device cpu), takes card LOCAL_RANK, loads the
+same weights, builds the same global batches (the same sampler and
+seed), pads their sequence to a multiple of sp and keeps its rows of
+them (parallel/mesh.py `local_rows`); the step is train/trainer.py's on
+the mesh (a mesh with sp > 1 and a stage without sp_mode takes
+"ulysses"; (Q)LoRA takes dp, fsdp and sp). Only rank 0 prints the log,
+writes train_log.jsonl and writes checkpoints, in the one-process layout
+(`trainer.gathered_state`), so that a run resumes on any mesh or in one
+process. --mesh with a product above 1 and no torchrun environment
+exits 2. `run(parse_args(argv))` is `main` that also returns the run
+(per-step losses and grad norms unrounded, timings, the trained state)
+for in-process callers.
 """
 
 from __future__ import annotations
@@ -56,7 +70,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_length", type=int, default=None)
     p.add_argument("--image_size", type=int, default=None)
     p.add_argument("--mesh", default="",
-                   help="not ported: any value but '' exits 2")
+                   help="e.g. dp=2,fsdp=2,sp=1,tp=2: one rank each, "
+                        "started by torchrun")
     p.add_argument("--checkpoint_interval", type=int, default=500)
     p.add_argument("--log_interval", type=int, default=10)
     p.add_argument("--pack_max_length", type=int, default=0,
@@ -87,8 +102,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if args.mesh:
-        p.error("sharded training (--mesh) is not ported: ROADMAP.md "
-                "queue 1 item 11")
+        from aurora_tpu_torch.parallel.mesh import parse_mesh
+        try:
+            n = parse_mesh(args.mesh).num_devices
+        except (ValueError, TypeError) as e:
+            p.error(f"--mesh {args.mesh!r}: {e}")
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if n > 1 and world == 1:
+            p.error(f"--mesh {args.mesh} asks for {n} ranks: start them with "
+                    f"torchrun --nproc_per_node {n} -m aurora_tpu_torch "
+                    "train ...")
+        if world not in (1, n):
+            p.error(f"--mesh {args.mesh} needs {n} ranks; torchrun started "
+                    f"{world}")
     if args.quant != "none" and args.lora_r <= 0:
         p.error("--quant requires --lora_r (quantized base is frozen; "
                 "full-parameter training needs a float base)")
@@ -138,14 +164,24 @@ def run(args: argparse.Namespace) -> TrainRun:
                                                    save_checkpoint)
     from aurora_tpu_torch.train.configs import STAGES
     from aurora_tpu_torch.train.metrics import Throughput
-    from aurora_tpu_torch.train.trainer import (init_train_state,
+    from aurora_tpu_torch.train.trainer import (gathered_state,
+                                                init_train_state,
                                                 make_optimizer,
-                                                make_train_step)
+                                                make_train_step, shard_state)
     from aurora_tpu_torch.utils.constants import IMAGE_TOKEN_INDEX
     from aurora_tpu_torch.utils.loggers import MetricsLogger
     from aurora_tpu_torch.utils.templates import PROMPT_TEMPLATE
+    from aurora_tpu_torch.parallel import distributed
+    from aurora_tpu_torch.parallel.mesh import (create_mesh, local_rows,
+                                                parse_mesh)
 
     device = torch.device(args.device)
+    mesh = None
+    if args.mesh and distributed.init_distributed(device_type=device.type):
+        device = distributed.rank_device(device.type)
+        mesh = create_mesh(parse_mesh(args.mesh), device.type)
+    lead = distributed.rank() == 0          # logs and checkpoints
+    sp = mesh.cfg.sp if mesh is not None else 1
     dtype = torch.float32 if args.float32 else torch.bfloat16
     stage = STAGES[args.stage]()
     if args.config:
@@ -197,6 +233,10 @@ def run(args: argparse.Namespace) -> TrainRun:
     tcfg = stage.train
     if args.remat_policy:
         tcfg = dataclasses.replace(tcfg, remat_policy=args.remat_policy)
+    if sp > 1 and tcfg.sp_mode is None:
+        tcfg = dataclasses.replace(tcfg, sp_mode="ulysses")
+        if lead:
+            print(f"--mesh sp={sp}: the stage names no sp_mode; Ulysses")
     ckpt_dir = os.path.join(args.work_dir, "checkpoints")
     start, restore_s, base_bytes = 0, None, None
     use_lora = args.lora_r > 0
@@ -220,12 +260,13 @@ def run(args: argparse.Namespace) -> TrainRun:
             quantize_base(model, bits=bits)
             base_bytes = {"quantized": tree_nbytes(model),
                           "float": float_bytes}
-            print(f"quantized base: {base_bytes['quantized'] / 1e9:.2f} GB "
-                  f"(int{bits}) vs {float_bytes / 1e9:.2f} GB")
+            if lead:
+                print(f"quantized base: {base_bytes['quantized'] / 1e9:.2f} "
+                      f"GB (int{bits}) vs {float_bytes / 1e9:.2f} GB")
         opt = lora_optimizer(tcfg)
         make = (make_qlora_train_step if args.quant != "none"
                 else make_lora_train_step)
-        raw = make(acfg, tcfg, model, lcfg, opt)
+        raw = make(acfg, tcfg, model, lcfg, opt, mesh=mesh)
         state = {"adapters": adapters,
                  "opt_state": opt.init(adapter_tensors(adapters))}
         if resume:
@@ -239,24 +280,28 @@ def run(args: argparse.Namespace) -> TrainRun:
                                        batch, model)
             return {"adapters": ad, "opt_state": ost}, m
     else:
-        opt = make_optimizer(model, tcfg)
         state = init_train_state(model, tcfg)
         if resume:
             t0 = time.perf_counter()
             state = restore_checkpoint(ckpt_dir, state)
             restore_s = time.perf_counter() - t0
             start = int(state.step)
-        step_fn = make_train_step(acfg, tcfg, opt)
-    if resume:
+        if mesh is not None:
+            state = shard_state(state, mesh)
+        opt = make_optimizer(state.params, tcfg)
+        step_fn = make_train_step(acfg, tcfg, opt, mesh=mesh)
+    if resume and lead:
         print(f"resumed from step {start} (restored in {restore_s:.2f} s)")
     thr = Throughput(acfg.llm.hidden_size, acfg.llm.num_hidden_layers,
-                     acfg.llm.vocab_size, num_devices=1,
+                     acfg.llm.vocab_size,
+                     num_devices=distributed.world_size(),
                      intermediate=acfg.llm.intermediate_size)
 
     os.makedirs(args.work_dir, exist_ok=True)
     logger = MetricsLogger(
-        jsonl_path=os.path.join(args.work_dir, "train_log.jsonl"),
-        wandb_project=args.wandb_project,
+        jsonl_path=(os.path.join(args.work_dir, "train_log.jsonl") if lead
+                    else None),
+        wandb_project=args.wandb_project if lead else None,
         run_name=f"{args.stage}-{os.path.basename(args.work_dir)}",
         config=vars(args))
 
@@ -268,7 +313,7 @@ def run(args: argparse.Namespace) -> TrainRun:
         fetch = packer.__getitem__
 
         def collate(items):
-            return _batch_to_device(packed_collate_mm(items), device, dtype)
+            return rows(packed_collate_mm(items))
     else:
         fetch = ds.__getitem__
 
@@ -276,9 +321,14 @@ def run(args: argparse.Namespace) -> TrainRun:
             # bucket the pad length: a handful of shapes, not one a batch
             longest = max(len(s["input_ids"]) for s in samples)
             bucket = min(max_length, ((longest + 63) // 64) * 64)
-            return _batch_to_device(
-                default_collate_fn(samples, max_length=bucket), device,
-                dtype)
+            return rows(default_collate_fn(samples, max_length=bucket,
+                                           sequence_parallel_size=sp))
+
+    def rows(batch):
+        """This rank's rows of the global batch, on its device."""
+        if mesh is not None:
+            batch = local_rows(mesh, batch)
+        return _batch_to_device(batch, device, dtype)
 
     saves: List[Dict[str, float]] = []
 
@@ -286,7 +336,9 @@ def run(args: argparse.Namespace) -> TrainRun:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        if save_checkpoint(ckpt_dir, state, step):
+        tree = (gathered_state(state)
+                if mesh is not None and not use_lora else state)
+        if lead and save_checkpoint(ckpt_dir, tree, step):
             gb = os.path.getsize(checkpoint_path(ckpt_dir, step)) / 1e9
             saves.append({"step": step, "gb": gb,
                           "s": time.perf_counter() - t0})
@@ -309,7 +361,8 @@ def run(args: argparse.Namespace) -> TrainRun:
             thr.data_tock()
             state, metrics = step_fn(state, batch)
             history.append({"step": step_i + 1, **metrics})
-            if (step_i + 1) % args.log_interval == 0 or step_i == start:
+            if lead and ((step_i + 1) % args.log_interval == 0
+                         or step_i == start):
                 loss = float(metrics["loss"])
                 ntok = int(metrics["ntokens"])
                 window = (step_i + 1) - last_logged
@@ -333,7 +386,7 @@ def run(args: argparse.Namespace) -> TrainRun:
     finally:
         prefetcher.close()
     save(tcfg.max_steps)
-    if use_lora:
+    if use_lora and lead:
         # the merge recipe for export
         with open(os.path.join(args.work_dir, "lora.json"), "w") as f:
             json.dump({"r": args.lora_r, "alpha": args.lora_alpha,
@@ -344,9 +397,10 @@ def run(args: argparse.Namespace) -> TrainRun:
             if k in h:
                 h[k] = float(h[k])
     n = max(len(history), 1)
-    print(f"exposed data wait: {data_wait / n * 1e3:.3f} ms a step over "
-          f"{len(history)} steps")
-    print(f"done; checkpoints at {ckpt_dir}")
+    if lead:
+        print(f"exposed data wait: {data_wait / n * 1e3:.3f} ms a step "
+              f"over {len(history)} steps")
+        print(f"done; checkpoints at {ckpt_dir}")
     return TrainRun(start=start, history=history, model=model, state=state,
                     saves=saves, restore_s=restore_s, base_bytes=base_bytes)
 

@@ -5,8 +5,9 @@ encode (frames folded into the batch, select layer −2, token 0 dropped,
 projected; a CLIP or a SigLIP tower) and the multimodal fusion that
 splices the visual embeddings over the prompt's image markers, carrying
 packed batches' segment ids over the fused sequence, and the composite
-forward `aurora_forward` (modes "loss", "tensor"/"predict" and
-"inference").
+forward `aurora_forward` (modes "loss", "loss_sum", "tensor"/"predict"
+and "inference"), with sequence-parallel attention and this rank's block
+of the fused sequence under a training mesh (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from torch import nn
 
 from aurora_tpu_torch.models.init import build
 from aurora_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
-                                           llama_apply, llama_lm_loss)
+                                           llama_apply, llama_lm_loss,
+                                           token_losses)
 from aurora_tpu_torch.models.projector import (Projector, ProjectorConfig,
                                                apply_projector)
 from aurora_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
@@ -205,14 +207,60 @@ def fuse_multimodal(embed_table: torch.Tensor, input_ids: torch.Tensor,
             "segment_ids": out_segments}
 
 
+def sequence_block(fused: Dict, index: int, size: int) -> Dict:
+    """Rank `index` of `size`'s block of a fused batch (xtuner's
+    split_for_sequence_parallel): the labels shifted first (each block's
+    last position keeps its target, the first token of the next block),
+    the sequence padded at its end to a multiple of `size` (zero
+    embeddings, no target, segment −1, positions running on), then cut.
+    → inputs_embeds, position_ids (global), targets, segment_ids."""
+    x = fused["inputs_embeds"]
+    B, T = x.shape[:2]
+    dev = x.device
+    pos = fused["position_ids"]
+    if pos is None:
+        pos = torch.arange(T, device=dev)[None].expand(B, T)
+    labels = fused["labels"]
+    targets = None
+    if labels is not None:
+        targets = torch.cat([labels[:, 1:], labels.new_full(
+            (B, 1), IGNORE_INDEX)], dim=1)
+    seg = fused["segment_ids"]
+    pad = (-T) % size
+    if pad:
+        x = torch.cat([x, x.new_zeros((B, pad) + tuple(x.shape[2:]))], 1)
+        pos = torch.cat([pos, torch.arange(T, T + pad, device=dev)[None]
+                         .expand(B, pad).to(pos.dtype)], 1)
+        if targets is not None:
+            targets = torch.cat([targets, targets.new_full(
+                (B, pad), IGNORE_INDEX)], 1)
+        if seg is not None:
+            seg = torch.cat([seg, seg.new_full((B, pad), -1)], 1)
+    n = (T + pad) // size
+    cut = slice(index * n, (index + 1) * n)
+    return {"inputs_embeds": x[:, cut], "position_ids": pos[:, cut],
+            "targets": None if targets is None else targets[:, cut],
+            "segment_ids": None if seg is None else seg[:, cut]}
+
+
 def aurora_forward(model: AuroraModel, input_ids: torch.Tensor,
                    pixel_values: Optional[torch.Tensor] = None,
                    attention_mask: Optional[torch.Tensor] = None,
                    labels: Optional[torch.Tensor] = None,
                    kept_ratio: float = 1.0, mode: str = "loss",
-                   remat=False, segment_ids: Optional[torch.Tensor] = None):
-    """mode "loss" → (mean loss, valid-token count); "tensor"/"predict" →
-    logits [B, T_out, V] fp32; "inference" → the fused-input dict.
+                   remat=False, segment_ids: Optional[torch.Tensor] = None,
+                   sp_attn=None, seq_shard: Optional[Tuple[int, int]] = None,
+                   tp=None):
+    """mode "loss" → (mean loss, valid-token count); "loss_sum" → (sum of
+    the token losses, valid-token count); "tensor"/"predict" → logits
+    [B, T_out, V] fp32; "inference" → the fused-input dict.
+
+    On a training mesh: sp_attn (models/llama.py `llama_apply`) attends
+    over the sequence-parallel group; seq_shard (index, size) runs this
+    rank's block of the fused sequence (`sequence_block`: the ViT, the
+    projector and the fusion run whole first; modes "loss_sum" and
+    "tensor" only, the logits are the block's); tp the tensor-parallel
+    hooks of a model whose cfg.llm is its tp-local view.
 
     pixel_values [B, F, C, H, W] (or [B, C, H, W], one frame) splice the
     visual embeddings over the IMAGE_TOKEN_INDEX markers (frame 0 un-merged
@@ -239,13 +287,31 @@ def aurora_forward(model: AuroraModel, input_ids: torch.Tensor,
                  "labels": labels, "segment_ids": segment_ids}
     if mode == "inference":
         return fused
+    if seq_shard is not None:
+        if mode not in ("loss_sum", "tensor", "predict"):
+            raise ValueError(f"mode {mode!r} under seq_shard: a block's "
+                             "mean is not the loss; take 'loss_sum'")
+        block = sequence_block(fused, *seq_shard)
+        logits = llama_apply(model.llm, cfg.llm,
+                             inputs_embeds=block["inputs_embeds"],
+                             position_ids=block["position_ids"],
+                             segment_ids=block["segment_ids"], remat=remat,
+                             sp_attn=sp_attn, tp=tp)
+        if mode != "loss_sum":
+            return logits
+        losses, n = token_losses(logits, block["targets"])
+        return losses.sum(), n
     logits = llama_apply(model.llm, cfg.llm,
                          inputs_embeds=fused["inputs_embeds"],
                          attention_mask=fused["attention_mask"],
                          position_ids=fused["position_ids"],
-                         segment_ids=fused["segment_ids"], remat=remat)
+                         segment_ids=fused["segment_ids"], remat=remat,
+                         sp_attn=sp_attn, tp=tp)
     if mode in ("tensor", "predict"):
         return logits
     if mode == "loss":
         return llama_lm_loss(logits, fused["labels"])
+    if mode == "loss_sum":
+        losses, n = llama_lm_loss(logits, fused["labels"], reduce=False)
+        return losses.sum(), n
     raise ValueError(f"unknown mode {mode!r}")

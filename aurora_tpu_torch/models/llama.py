@@ -61,6 +61,7 @@ layouts raise NotImplementedError there.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -560,12 +561,12 @@ def attn_out_tail(cfg: LlamaConfig, lp: LlamaLayer, out):
 
 
 def moe_layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h,
-                  grouped: bool = False):
+                  grouped: bool = False, shared: bool = True, **kw):
     """A MoE layer's MLP on the normed input h: the routed experts in the
     config's router mode (a "deepseek" router routes as Mixtral's here,
     as in the reference's llama path) through the grouped form (grouped)
-    or the dense one, plus the shared expert where the layer has one, in
-    h's dtype."""
+    or the dense one, plus (shared) the shared expert where the layer has
+    one, in h's dtype. kw: moe_mlp's expert_offset (tensor parallelism)."""
     fn = moe_mlp_grouped if grouped else moe_mlp
     out = fn({"router": lp.moe_router, "gate": lp.moe_gate,
               "up": lp.moe_up, "down": lp.moe_down}, h,
@@ -574,8 +575,8 @@ def moe_layer_mlp(cfg: LlamaConfig, lp: LlamaLayer, h,
                           if cfg.moe_router_mode == "softmax_topk"
                           else "mixtral"),
              norm_topk=cfg.moe_norm_topk,
-             router_logit_softcap=cfg.moe_router_logit_softcap)
-    if hasattr(lp, "moe_shared_gate"):
+             router_logit_softcap=cfg.moe_router_logit_softcap, **kw)
+    if shared and hasattr(lp, "moe_shared_gate"):
         out = out + shared_expert_mlp(lp, h)
     return out
 
@@ -648,13 +649,54 @@ def scale_embeds(cfg: LlamaConfig, x):
     return x
 
 
-def _layer(cfg: LlamaConfig, lp: LlamaLayer, x, cos, sin, mask,
-           segment_ids, use_flash, kv=None, cache_len: int = 0):
-    """One decoder layer. kv: this layer's (k, v) cache [B, S, Hkv, hd],
-    written in place at [cache_len, cache_len + T) and attended whole."""
+def _tp_mlp(cfg: LlamaConfig, lp: LlamaLayer, h, tp):
+    """The MLP branch under tensor parallelism: this rank's slice of the
+    MLP width (or its experts, with the routing over all of them), the
+    partial products summed over tp before `mlp_tail`; a shared expert
+    runs whole on h, outside the sum."""
+    hp = tp.enter(h)
+    if hasattr(lp, "moe_router"):
+        local = lp.moe_gate.weight.shape[0]
+        out = tp.reduce(moe_layer_mlp(cfg, lp, hp, shared=False,
+                                      expert_offset=tp.axis.index * local))
+        if hasattr(lp, "moe_shared_gate"):
+            out = out + shared_expert_mlp(lp, h)
+    else:
+        out = tp.reduce(mlp_product(cfg, lp, hp))
+    return mlp_tail(cfg, lp, out)
+
+
+def _layer(cfg: LlamaConfig, lp: LlamaLayer, *args, **kw):
+    """One decoder layer (`_layer_body`). A layer laid out over fsdp
+    (parallel/mesh.py `FlatUnit`) gathers its parameters first and drops
+    them when it ends, also where a remat recompute stops early inside it:
+    the autograd graph (or, under remat, the recompute) holds what the
+    backward needs, so one layer's whole parameters are live at a time."""
+    unit = getattr(lp, "flat_unit", None)
+    if unit is None:
+        return _layer_body(cfg, lp, *args, **kw)
+    unit.gather()
+    try:
+        return _layer_body(cfg, lp, *args, **kw)
+    finally:
+        unit.release()
+
+
+def _layer_body(cfg: LlamaConfig, lp: LlamaLayer, x, cos, sin, mask,
+                segment_ids, use_flash, kv=None, cache_len: int = 0,
+                sp_attn=None, tp=None):
+    """kv: this layer's (k, v) cache [B, S, Hkv, hd], written in place at
+    [cache_len, cache_len + T) and attended whole. sp_attn(q, k, v,
+    segment_ids, scale): sequence-parallel attention over this rank's
+    block (training, no cache; the mask is not needed: right padding sits
+    after every valid query). tp: the tensor-parallel hooks
+    (parallel/collectives.py `TensorParallel`) of a layer whose branches
+    `tp.cut` names are cut over tp (cfg its local view); the others run
+    whole on every tp rank."""
+    tpa = tp if tp is not None and "attn" in tp.cut else None
     B, T, _ = x.shape
     h = dnorm(cfg, x, lp, "input_norm")
-    q, k, v = layer_qkv(cfg, lp, h)
+    q, k, v = layer_qkv(cfg, lp, h if tpa is None else tpa.enter(h))
     if not cfg.learned_pos:
         q, k = apply_rope(q, k, cos, sin, interleaved=cfg.rope_interleaved)
     if kv is not None:
@@ -662,15 +704,26 @@ def _layer(cfg: LlamaConfig, lp: LlamaLayer, x, cos, sin, mask,
         ck[:, cache_len:cache_len + T] = k.to(ck.dtype)
         cv[:, cache_len:cache_len + T] = v.to(cv.dtype)
         k, v = ck.to(k.dtype), cv.to(v.dtype)
-    attn = mha(q, k, v, causal=True, mask=mask, q_segment_ids=segment_ids,
-               kv_segment_ids=segment_ids, q_offset=cache_len,
-               scale=cfg.attn_scale, logit_cap=cfg.attn_logit_softcap,
-               use_flash=use_flash)
-    attn = layer_attn_out(cfg, lp, attn.reshape(B, T, -1))
+    if sp_attn is not None and kv is None:
+        attn = sp_attn(q, k, v, segment_ids, scale=cfg.attn_scale)
+    else:
+        attn = mha(q, k, v, causal=True, mask=mask,
+                   q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+                   q_offset=cache_len, scale=cfg.attn_scale,
+                   logit_cap=cfg.attn_logit_softcap, use_flash=use_flash)
+    if tpa is None:
+        attn = layer_attn_out(cfg, lp, attn.reshape(B, T, -1))
+    else:
+        attn = attn_out_tail(cfg, lp, tpa.reduce(_dense(
+            attn.reshape(B, T, -1), lp.o)))
+    mlp = layer_mlp
+    if tp is not None and ("experts" if hasattr(lp, "moe_router")
+                           else "mlp") in tp.cut:
+        mlp = functools.partial(_tp_mlp, tp=tp)
     if cfg.parallel_block:          # Cohere: the MLP reads the same h
-        return x + attn + layer_mlp(cfg, lp, h)
+        return x + attn + mlp(cfg, lp, h)
     x = x + attn
-    return x + layer_mlp(cfg, lp, dnorm(cfg, x, lp, "post_attn_norm"))
+    return x + mlp(cfg, lp, dnorm(cfg, x, lp, "post_attn_norm"))
 
 
 class _Fp32Logits(torch.autograd.Function):
@@ -712,6 +765,14 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+_SP_WINDOW_CAP = (
+    "sequence-parallel attention (sp_attn: ring, Ulysses, hybrid) takes "
+    "neither a sliding window nor an attention logit softcap, and a model "
+    "with either would train on other attention than its own; the "
+    "reference's step drops both silently (ROADMAP queue 3). Train such a "
+    "model without sp_mode")
+
+
 def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
                 input_ids: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
@@ -722,7 +783,8 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
                 cache_len: int = 0,
                 remat=False,
                 use_flash: Optional[bool] = None,
-                return_hidden: bool = False):
+                return_hidden: bool = False,
+                sp_attn=None, tp=None):
     """Forward pass → logits [B, T, V] fp32; with `kv_cache`, (logits,
     kv_cache). return_hidden=True skips the LM head and returns the hidden
     states after the final norm [B, T, D] in their place (the embedding
@@ -743,6 +805,14 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
     which take neither. The family knobs act as in the reference's
     `_layer` and `llama_apply`; like it, this applies no final logit
     softcap (Gemma-2's offline forward is models/gemma2.py).
+
+    Training on a mesh (parallel/mesh.py): sp_attn(q, k, v, segment_ids,
+    scale) replaces `mha` without a KV cache, as in the reference (x is
+    then this rank's block of the sequence and position_ids its global
+    positions), and raises NotImplementedError for a sliding window or an
+    attention softcap, which it does not apply (the reference drops them);
+    tp (`TensorParallel`) runs the decoder layers cut over tp, cfg their
+    local view.
     """
     if kv_cache is not None and segment_ids is not None:
         raise ValueError("packed segments over a KV cache are unsupported: "
@@ -780,10 +850,14 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
         wmask = ((qpos - kpos) < cfg.sliding_window)[None, None]
         mask = wmask if mask is None else mask & wmask
     if cfg.sliding_window or cfg.attn_logit_softcap > 0:
+        if sp_attn is not None and kv_cache is None:
+            raise NotImplementedError(_SP_WINDOW_CAP)
         use_flash = False
     if kv_cache is None:
+        layer = (_layer if sp_attn is None and tp is None else
+                 functools.partial(_layer, sp_attn=sp_attn, tp=tp))
         for lp in model.layers:
-            x = remat_call(_layer, remat, cfg, lp, x, cos, sin, mask,
+            x = remat_call(layer, remat, cfg, lp, x, cos, sin, mask,
                            segment_ids, use_flash)
     else:
         with sdpa_kernel(REPEATABLE_SDPA):
@@ -800,19 +874,23 @@ def llama_apply(model: LlamaModel, cfg: LlamaConfig, *,
     return out if kv_cache is None else (out, kv_cache)
 
 
+def token_losses(logits: torch.Tensor, targets: torch.Tensor):
+    """Cross-entropy of each position's logits [B, T, V] against its
+    target [B, T] (no shift), 0 where the target is IGNORE_INDEX → (the
+    per-token losses [B, T] fp32, the count of valid targets)."""
+    valid = targets != IGNORE_INDEX
+    safe = torch.where(valid, targets, 0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    token_ll = logp.gather(-1, safe[..., None])[..., 0]
+    return torch.where(valid, -token_ll, 0.0), valid.sum()
+
+
 def llama_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
                   reduce: bool = True):
     """Shifted next-token cross-entropy with IGNORE_INDEX (-100) masking →
     (mean loss over the valid tokens, their count); reduce=False gives the
     per-token losses [B, T-1] instead of the mean."""
-    shift_logits = logits[:, :-1].float()
-    shift_labels = labels[:, 1:]
-    valid = shift_labels != IGNORE_INDEX
-    safe = torch.where(valid, shift_labels, 0)
-    logp = torch.log_softmax(shift_logits, dim=-1)
-    token_ll = logp.gather(-1, safe[..., None])[..., 0]
-    token_loss = torch.where(valid, -token_ll, 0.0)
-    n = valid.sum()
+    token_loss, n = token_losses(logits[:, :-1], labels[:, 1:])
     if reduce:
         return token_loss.sum() / n.clamp_min(1), n
     return token_loss, n

@@ -158,12 +158,15 @@ def routing_weights(logits: torch.Tensor, top_k_: int,
 
 def moe_mlp(params: Params, x: torch.Tensor, top_k_: int,
             return_router_logits: bool = False, router_mode: str = "mixtral",
-            norm_topk: bool = False, router_logit_softcap: float = 0.0):
+            norm_topk: bool = False, router_logit_softcap: float = 0.0,
+            expert_offset: int = 0):
     """x [B, T, D] → [B, T, D]: every expert on every token, each output
     weighted by its routing weight (0 where not picked) and summed in
     fp32. params: "router" [D, E] and "gate", "up", "down" expert stacks
     (ExpertStack or float [E, in, out] tensors; int8 stacks dequantized
-    to x's dtype first). return_router_logits also returns the raw
+    to x's dtype first). The stacks may hold experts [expert_offset,
+    expert_offset + E') of the router's E (a tensor-parallel rank's; the
+    routing is over all E). return_router_logits also returns the raw
     (pre-softcap) router logits [B, T, E] fp32."""
     logits = dot_f32(x, params["router"])
     vals, idx = routing_weights(logits, top_k_, router_mode, norm_topk,
@@ -171,6 +174,8 @@ def moe_mlp(params: Params, x: torch.Tensor, top_k_: int,
     probs = torch.zeros_like(logits).scatter(-1, idx, vals)
     wg, wu, wd = (_w(params[n]).dequantized(x.dtype).float()
                   for n in ("gate", "up", "down"))
+    if wg.shape[0] != probs.shape[-1]:
+        probs = probs[..., expert_offset:expert_offset + wg.shape[0]]
     xf = x.float()
     gate = torch.einsum("btd,edi->btei", xf, wg).to(x.dtype)
     up = torch.einsum("btd,edi->btei", xf, wu).to(x.dtype)

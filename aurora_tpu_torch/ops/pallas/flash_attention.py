@@ -30,6 +30,8 @@ Counters, each raised by the launcher of its kernel:
 `flash_attention.launches_fwd`, `.launches_dkv` and `.launches_dq` count
 every launch; `.launches_fwd_d512`, `.launches_dkv_d512` and
 `.launches_dq_d512` count those at kernel width 512 among them;
+`flash_attention_lse.launches` counts the forwards launched through
+`flash_attention_lse` (ring attention's blocks);
 `flash_attention_plain.calls` counts the twin's calls.
 """
 
@@ -306,5 +308,12 @@ def flash_attention_lse(q, k, v, *, causal: bool = False,
                         scale: Optional[float] = None, q_offset: int = 0):
     """Flash attention returning (out [B, T, H, D], lse [B, H, T] fp32),
     with a differentiable lse (its cotangent folds into Δ of the backward
-    kernels): the building block of ring attention's online merge."""
+    kernels): the building block of ring attention's online merge
+    (parallel/ring.py). `flash_attention_lse.launches` counts its forward
+    launches on the card."""
+    if q.device.type == "cuda":
+        flash_attention_lse.launches += 1
     return _flash(q, k, v, causal, scale, None, None, q_offset)
+
+
+flash_attention_lse.launches = 0

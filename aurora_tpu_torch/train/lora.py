@@ -22,8 +22,10 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from aurora_tpu_torch.models.aurora import AuroraModel, aurora_forward
-from aurora_tpu_torch.train.trainer import _global_norm, repeatable_step
+from aurora_tpu_torch.models.aurora import AuroraModel
+from aurora_tpu_torch.parallel.collectives import all_reduce_list
+from aurora_tpu_torch.train.trainer import (_build_sp_attn, _global_norm,
+                                            loss_and_grads)
 
 Adapters = Dict[str, Dict[str, torch.Tensor]]
 
@@ -156,32 +158,33 @@ def make_lora_train_step(acfg, tcfg, base_params: AuroraModel,
     norm, before clipping); no lr, as in the reference. The forward and
     backward run under `trainer.repeatable_step`. attach: how the
     adapters enter the base (`apply_lora`; train/quant.py passes
-    `inject_lora`)."""
-    if mesh is not None:
-        raise NotImplementedError("sharded training (a mesh) is not "
-                                  "ported: ROADMAP.md queue 1 item 11")
-    remat = (tcfg.remat_policy or True) if tcfg.remat else False
+    `inject_lora`).
+
+    mesh (parallel/mesh.py, dp / fsdp / sp; tp 1): the batch is this
+    rank's rows, the sequence is cut over sp with `sp_mode`'s attention
+    (`trainer._build_sp_attn`, as the reference's step builds it), and
+    the adapters' gradients are summed over the ranks; the base and the
+    adapters are whole on every rank."""
+    if mesh is not None and mesh.cfg.tp > 1:
+        raise NotImplementedError(
+            "a (Q)LoRA step on a mesh takes dp, fsdp and sp; tp > 1 "
+            "(cutting the base and its adapters) is not ported")
+    sp_attn = _build_sp_attn(tcfg, mesh)
 
     def step_with_base(adapters: Adapters, opt_state, batch,
                        base: AuroraModel):
         base.requires_grad_(False)
         model = attach(base, adapters, lora_cfg)
         params = adapter_tensors(adapters)
-        with repeatable_step():
-            loss, ntok = aurora_forward(
-                model, batch["input_ids"], batch.get("pixel_values"),
-                attention_mask=batch.get("attention_mask"),
-                labels=batch["labels"], kept_ratio=tcfg.kept_ratio,
-                mode="loss", remat=remat,
-                segment_ids=batch.get("segment_ids"))
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
+        loss, ntok, grads = loss_and_grads(model, batch, tcfg, params, mesh,
+                                           sp_attn)
+        if mesh is not None:
+            grads = all_reduce_list(grads, mesh.axis(("dp", "fsdp", "sp")))
         if attach is not apply_lora:
             attach(base, None, lora_cfg)   # drop this step's graph
         gnorm = _global_norm(grads)
         opt.update(grads, opt_state, params, gnorm)
-        return adapters, opt_state, {"loss": loss.detach(), "ntokens": ntok,
+        return adapters, opt_state, {"loss": loss, "ntokens": ntok,
                                      "grad_norm": gnorm}
 
     def step(adapters, opt_state, batch):

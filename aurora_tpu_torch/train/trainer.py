@@ -28,9 +28,21 @@ in the leaf dtype; the same for fp32 parameters). The (Q)LoRA steps
 the adapters, with optax.adamw's defaults (betas 0.9 / 0.999, weight
 decay 1e-4, not the config's) and no MultiSteps (grad_accum is ignored).
 
-Not ported (NotImplementedError): sequence parallelism (`sp_mode`,
-`hybrid_ulysses`, `ring_layout`, `heads_k_stride` off their defaults, a
-mesh).
+On a mesh (parallel/mesh.py; `make_train_step(mesh=)` with the state of
+`init_train_state(shard_model(...))`) the step is the same step: each
+rank runs its rows of the global batch and its block of the fused
+sequence (`aurora_forward(seq_shard=)`, the attention of `sp_mode` through
+`_build_sp_attn`) with its part of the model; the loss sum and the token
+count are summed over the ranks, so the loss is the global batch's; each
+shard's gradient is summed over its replicas (dp, sp; over fsdp by the
+all-gather's transpose); the grad norm is the global one, each element
+counted once over fsdp and tp; the optimizer updates the local shards.
+`sp_mode` is None (a mesh with sp > 1 then raises), "ulysses", "ring" or
+"hybrid" (`hybrid_ulysses` ranks of Ulysses inside each ring step);
+packed batches (segment ids) take the llama3 ring (`heads_k_stride`).
+`ring_layout` "zigzag" and "stripe" are refused in the step (see
+`_build_sp_attn`); they run in parallel/ring.py and hybrid.py on
+sequences reordered beforehand.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ from torch.nn.attention import sdpa_kernel
 from aurora_tpu_torch.models.aurora import (AuroraConfig, AuroraModel,
                                             aurora_forward)
 from aurora_tpu_torch.ops.attention import TRAINING_SDPA
+from aurora_tpu_torch.parallel.mesh import ShardedModel
 
 _F32 = np.float32
 
@@ -68,20 +81,22 @@ class TrainConfig:
     # optional remat policy applied when remat=True (models/remat.py);
     # None = full remat
     remat_policy: Optional[str] = None
-    # sequence parallelism: accepted at the defaults only
+    # explicit SP attention for the LLM: None | 'ulysses' | 'ring' |
+    # 'hybrid' (with a mesh passed to make_train_step)
     sp_mode: Optional[str] = None
     hybrid_ulysses: int = 1
+    # ring options: 'contiguous' | 'zigzag' | 'stripe'; heads_k_stride
+    # bounds the llama3 varlen ring's all-gather (0: all KV heads at once)
     ring_layout: str = "contiguous"
     heads_k_stride: int = 0
 
     def __post_init__(self):
-        if (self.sp_mode is not None or self.hybrid_ulysses != 1
-                or self.ring_layout != "contiguous"
-                or self.heads_k_stride != 0):
-            raise NotImplementedError(
-                "sequence parallelism (sp_mode, hybrid_ulysses, ring_layout, "
-                "heads_k_stride) is not ported yet: ROADMAP.md queue 1 "
-                "item 11")
+        if self.sp_mode not in (None, "ulysses", "ring", "hybrid"):
+            raise ValueError(f"unknown sp_mode {self.sp_mode!r}")
+        if self.ring_layout not in ("contiguous", "zigzag", "stripe"):
+            raise ValueError(f"unknown ring_layout {self.ring_layout!r}")
+        if self.hybrid_ulysses < 1 or self.heads_k_stride < 0:
+            raise ValueError("hybrid_ulysses >= 1 and heads_k_stride >= 0")
 
 
 @dataclasses.dataclass
@@ -173,7 +188,9 @@ class Optimizer:
                           if not frozen.get(n.split(".")[0], False)]
 
     def params(self, model) -> List[torch.Tensor]:
-        if self.names is None:
+        """The parameters in this optimizer's order: a model's trainable
+        ones by name, or the list given."""
+        if self.names is None or isinstance(model, list):
             return list(model)
         named = dict(model.named_parameters())
         return [named[n] for n in self.names]
@@ -189,10 +206,13 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
-               model, gnorm: Optional[torch.Tensor] = None) -> None:
+               model, gnorm: Optional[torch.Tensor] = None,
+               norm=None) -> None:
         """Apply one step's gradients (in self.params order) in place.
         gnorm: their global norm, where the caller has it already; with
-        grad_accum > 1 the clip takes the norm of the window's mean."""
+        grad_accum > 1 the clip takes the norm of the window's mean.
+        norm: the global norm of a list of gradients (default
+        `_global_norm`; a mesh's `ShardedModel.grad_norm`)."""
         k = self.grad_accum
         if k > 1:
             n = state["mini_step"]
@@ -204,7 +224,7 @@ class Optimizer:
             state["gradient_step"] += 1
             grads, gnorm = state["acc"], None
         if gnorm is None:
-            gnorm = _global_norm(grads)
+            gnorm = (norm or _global_norm)(grads)
         self._adamw(grads, gnorm, state, self.params(model))
         if k > 1:
             for acc in state["acc"]:
@@ -233,6 +253,10 @@ class Optimizer:
 
 
 def make_optimizer(params: AuroraModel, cfg: TrainConfig) -> Optimizer:
+    """Over a model's trainable parameters, or over a ShardedModel's
+    local shards (parallel/mesh.py)."""
+    if isinstance(params, ShardedModel):
+        return Optimizer(None, cfg)
     return Optimizer(params, cfg)
 
 
@@ -244,14 +268,188 @@ def lora_optimizer(cfg: TrainConfig) -> Optimizer:
                      accumulate=False)
 
 
-def init_train_state(params: AuroraModel, cfg: TrainConfig) -> TrainState:
-    """Freeze the configured modules (requires_grad_(False)) and set up
-    the optimizer state; the model becomes the state's params."""
+def apply_freeze(model: AuroraModel, cfg: TrainConfig) -> AuroraModel:
+    """requires_grad_(False) on the modules the config freezes (and True
+    on the others), in place."""
     for name, frozen in _frozen(cfg).items():
-        getattr(params, name).requires_grad_(not frozen)
+        getattr(model, name).requires_grad_(not frozen)
+    return model
+
+
+def init_train_state(params, cfg: TrainConfig) -> TrainState:
+    """Freeze the configured modules and set up the optimizer state; the
+    model becomes the state's params. A ShardedModel (parallel/mesh.py,
+    made from a model `apply_freeze` froze) keeps its layout; its
+    optimizer state lies over its local shards."""
+    if isinstance(params, ShardedModel):
+        return TrainState(params=params, step=0, opt_state=Optimizer(
+            None, cfg).init(params.params()))
+    apply_freeze(params, cfg)
     return TrainState(params=params,
                       opt_state=make_optimizer(params, cfg).init(params),
                       step=0)
+
+
+_SHARDED_LISTS = ("mu", "nu", "acc")
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """A one-process TrainState (a fresh one, or one restored from a
+    checkpoint) → this rank's state on `mesh`: the model laid out by
+    `shard_model`, the optimizer's moments (and MultiSteps' running mean)
+    cut as its parameters are."""
+    from aurora_tpu_torch.parallel.mesh import shard_model
+    plan = shard_model(state.params, mesh)
+    o = dict(state.opt_state)
+    for key in _SHARDED_LISTS:
+        if key in o:
+            o[key] = plan.shard(dict(zip(plan.names, o[key])))
+    return TrainState(params=plan, opt_state=o, step=state.step)
+
+
+def gathered_state(state: TrainState) -> Dict[str, Any]:
+    """A mesh state → the one-process checkpoint tree (train/checkpoint.py
+    `_tree` of a TrainState: the whole model's state dict, the optimizer
+    state over the one-process parameter order, the step), on every rank
+    (collective): a checkpoint any mesh, or one process, resumes from."""
+    plan = state.params
+    o = dict(state.opt_state)
+    for key in _SHARDED_LISTS:
+        if key in o:
+            whole = plan.unshard(o[key])
+            o[key] = [whole[n] for n in plan.names]
+    return {"params": plan.state_dict(), "opt_state": o,
+            "step": int(state.step)}
+
+
+_LAYOUT_FAULT = (
+    "ring_layout {layout!r} with sp_mode {mode!r} is refused in the train "
+    "step: the step keeps sequences in their natural order, and the zigzag "
+    "and stripe rings expect a sequence reordered by zigzag_split / "
+    "stripe_split first. The reference's train step runs them on "
+    "sequences it does not reorder, and its attention is wrong there (max "
+    "abs 1.70 for zigzag, 3.27 for stripe against plain attention; "
+    "ROADMAP queue 3). The layouts run in parallel.ring.ring_mha / "
+    "parallel.hybrid.hybrid_mha on inputs split beforehand")
+
+
+def _build_sp_attn(tcfg: TrainConfig, mesh):
+    """Ulysses / ring / hybrid attention over the mesh's sp axis,
+    sp_attn(q, k, v, segment_ids, scale) on this rank's blocks (the
+    reference's splice, aurora_tpu/train/trainer.py:110-159; the model's
+    attention scale passed through, where the reference's takes D^-0.5);
+    None without sp_mode or a mesh. Packed batches (segment ids) take the llama3 ring under "ring"
+    and "hybrid". A non-contiguous ring_layout raises when the attention
+    runs: ValueError for a packed batch (the reference's check),
+    NotImplementedError otherwise (`_LAYOUT_FAULT`)."""
+    if tcfg.sp_mode is None or mesh is None:
+        return None
+    from aurora_tpu_torch.parallel.hybrid import hybrid_attention_local
+    from aurora_tpu_torch.parallel.ring import (ring_attention_local,
+                                                ring_varlen_local)
+    from aurora_tpu_torch.parallel.ulysses import ulysses_attention_local
+    axis = mesh.axis("sp")
+    mode, layout = tcfg.sp_mode, tcfg.ring_layout
+
+    if mode == "ulysses":
+        def sp_attn(q, k, v, segment_ids=None, scale=None):
+            return ulysses_attention_local(q, k, v, axis=axis, causal=True,
+                                           q_segment_ids=segment_ids,
+                                           kv_segment_ids=segment_ids,
+                                           scale=scale)
+        return sp_attn
+
+    def sp_attn(q, k, v, segment_ids=None, scale=None):
+        if layout != "contiguous":
+            if segment_ids is not None:
+                raise ValueError(
+                    "packed varlen batches (segment_ids) require "
+                    f"ring_layout='contiguous' — {layout!r} reorders "
+                    "tokens and the all-gather-KV varlen ring would "
+                    "compute wrong causal masks")
+            raise NotImplementedError(_LAYOUT_FAULT.format(layout=layout,
+                                                           mode=mode))
+        if mode == "hybrid":
+            return hybrid_attention_local(
+                q, k, v, axis=axis, ulysses=tcfg.hybrid_ulysses, causal=True,
+                scale=scale, segment_ids=segment_ids,
+                heads_k_stride=tcfg.heads_k_stride)
+        if segment_ids is not None:
+            return ring_varlen_local(q, k, v, segment_ids, axis=axis,
+                                     heads_k_stride=tcfg.heads_k_stride,
+                                     scale=scale)
+        return ring_attention_local(q, k, v, axis=axis, causal=True,
+                                    scale=scale)
+    return sp_attn
+
+
+def loss_and_grads(model, batch, tcfg: TrainConfig, params, mesh=None,
+                   sp_attn=None, tp=None, before=None):
+    """The forward and backward of a step, under `repeatable_step` →
+    (the global batch's mean loss, its token count, the gradients of
+    `params` (zeros where one takes no part): this rank's contribution to
+    the global mean, not yet summed over ranks). On a mesh the batch is
+    this rank's rows and the forward its block of the fused sequence; the
+    loss sum and the count are summed over dp × fsdp × sp. before(): run
+    inside the autograd region first (a ShardedModel's root gather)."""
+    from aurora_tpu_torch.parallel.collectives import all_reduce_
+    from aurora_tpu_torch.parallel.mesh import seq_shard
+    if mesh is not None and mesh.cfg.sp > 1 and sp_attn is None:
+        raise ValueError(f"a mesh with sp={mesh.cfg.sp} needs "
+                         "TrainConfig.sp_mode ('ulysses', 'ring' or "
+                         "'hybrid')")
+    remat = (tcfg.remat_policy or True) if tcfg.remat else False
+    live = [p for p in params if p.requires_grad]
+    with repeatable_step():
+        if before is not None:
+            before()
+        loss_sum, ntok = aurora_forward(
+            model, batch["input_ids"], batch.get("pixel_values"),
+            attention_mask=batch.get("attention_mask"),
+            labels=batch["labels"], kept_ratio=tcfg.kept_ratio,
+            mode="loss_sum", remat=remat,
+            segment_ids=batch.get("segment_ids"), sp_attn=sp_attn,
+            seq_shard=None if mesh is None else seq_shard(mesh), tp=tp)
+        n_all, loss = ntok.detach().clone(), loss_sum.detach().float()
+        if mesh is not None:
+            data = mesh.axis(("dp", "fsdp", "sp"))
+            n_all = all_reduce_(n_all, data)
+            loss = all_reduce_(loss.clone(), data)
+        denom = n_all.clamp_min(1)
+        got = (torch.autograd.grad(loss_sum / denom, live,
+                                   allow_unused=True)
+               if live and loss_sum.requires_grad else [None] * len(live))
+    found = dict(zip(map(id, live), got))
+    grads = [found.get(id(p)) for p in params]
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, params)]
+    return loss / denom, n_all, grads
+
+
+class _Whole:
+    """A model on one process as the step sees a ShardedModel: its
+    trainable parameters whole, nothing to gather, sum or cut."""
+
+    tp = None
+
+    def __init__(self, model, params: List[torch.Tensor]):
+        self.model = model
+        self._params = params
+
+    def params(self) -> List[torch.Tensor]:
+        return self._params
+
+    def gather_root(self) -> None:
+        pass
+
+    def release(self) -> None:
+        pass
+
+    def reduce_grads(self, grads):
+        return grads
+
+    def grad_norm(self, grads) -> torch.Tensor:
+        return _global_norm(grads)
 
 
 def make_train_step(acfg: AuroraConfig, tcfg: TrainConfig,
@@ -262,41 +460,42 @@ def make_train_step(acfg: AuroraConfig, tcfg: TrainConfig,
     and pixel_values [B, F, C, H, W] (text-only batches skip the ViT).
     metrics (0-d tensors but lr): loss, ntokens, grad_norm (the global
     norm of all gradients, before clipping) and lr at step // grad_accum.
+    mesh (parallel/mesh.py): the state's params are a ShardedModel laid
+    out on it and the batch this rank's rows (`local_rows`); one process
+    runs the same step on the whole model (`_Whole`).
     """
-    if mesh is not None:
-        raise NotImplementedError("sharded training (a mesh) is not "
-                                  "ported: ROADMAP.md queue 1 item 11")
-    remat = (tcfg.remat_policy or True) if tcfg.remat else False
+    sp_attn = _build_sp_attn(tcfg, mesh)
     schedule = lr_schedule(tcfg)
     holder = [opt]
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        model = state.params
-        if holder[0] is None:
-            holder[0] = make_optimizer(model, tcfg)
-        o = holder[0]
-        if model.cfg != acfg:
+        plan = state.params
+        if mesh is None:
+            if isinstance(plan, ShardedModel) or plan.cfg != acfg:
+                raise ValueError("the state's model was built for another "
+                                 "AuroraConfig (or laid out on a mesh)")
+        elif not isinstance(plan, ShardedModel) or plan.mesh is not mesh:
+            raise ValueError("on a mesh the state's params are the "
+                             "ShardedModel shard_model made on it")
+        elif plan.global_cfg != acfg:
             raise ValueError("the state's model was built for another "
                              "AuroraConfig")
-        params = o.params(model)
-        live = [p for p in params if p.requires_grad]
-        with repeatable_step():
-            loss, ntok = aurora_forward(
-                model, batch["input_ids"], batch.get("pixel_values"),
-                attention_mask=batch.get("attention_mask"),
-                labels=batch["labels"], kept_ratio=tcfg.kept_ratio,
-                mode="loss", remat=remat,
-                segment_ids=batch.get("segment_ids"))
-            got = (torch.autograd.grad(loss, live, allow_unused=True)
-                   if live and loss.requires_grad else [None] * len(live))
-        found = dict(zip(map(id, live), got))
-        grads = [found.get(id(p)) for p in params]
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
-        gnorm = _global_norm(grads)
-        o.update(grads, state.opt_state, model, gnorm)
-        metrics = {"loss": loss.detach(), "ntokens": ntok,
-                   "grad_norm": gnorm,
+        if holder[0] is None:
+            holder[0] = make_optimizer(plan, tcfg)
+        o = holder[0]
+        if mesh is None:
+            plan = _Whole(plan, o.params(plan))
+        params = plan.params()
+        try:
+            loss, ntok, grads = loss_and_grads(
+                plan.model, batch, tcfg, params, mesh, sp_attn, plan.tp,
+                before=plan.gather_root)
+        finally:
+            plan.release()
+        grads = plan.reduce_grads(grads)
+        gnorm = plan.grad_norm(grads)
+        o.update(grads, state.opt_state, params, gnorm, norm=plan.grad_norm)
+        metrics = {"loss": loss, "ntokens": ntok, "grad_norm": gnorm,
                    "lr": schedule(state.step // max(tcfg.grad_accum, 1))}
         state.step += 1
         return state, metrics

@@ -371,8 +371,33 @@ replica bit for bit one engine on its requests; no slot leaks. `[export]` / `[ex
 weights with EXPORT_LAYERS LLM layers written by models/export.py in bf16
 and loaded back bit for bit.
 
+Sequence parallelism and the training mesh, after `[flash-d512]`: every
+rank a process on this card (`run_ranks` starts `chip_smoke.py
+--rank-phase NAME DIR` under a torchrun environment, the kernels built
+once first), the collectives over gloo through host memory, so these
+phases measure correctness, launches and peak memory a rank, not NCCL,
+NVLink or distinct cards. `[kernels]` flash_lse holds
+`flash_attention_lse` at one ring block (B 1, T 4,096, H 32, D 128;
+causal, and at q_offset -1, the stripe layout's, whose first row sees no
+key) against its fp32 twin with an lse cotangent, timed beside the twin
+and SDPA; `[sp-attn]` runs ring (contiguous, zigzag and stripe on
+pre-split sequences, GQA with Hkv 8), Ulysses, hybrid u 2 × r 2 and the
+varlen ring (4 segments) on 4 ranks at B 1, T 16,384, H 32, D 128, bf16:
+each rank's out and dQ/dK/dV against the one-process kernels on the
+whole sequence (SP_OUT_TOL / SP_GRAD_TOL, beside a planted dropped K/V
+block), each rank's flash and flash_attention_lse launches equal to the
+ring's case rules; `[train-sp]` takes one step of train/bench_stage.py's
+model at 7B widths, 2 layers, 1 × 16,384 tokens, full remat, on sp 4
+(ring) and sp 2 × tp 2 (Ulysses): loss and grad norm against the
+one-process step on the card (beside planted faults: a dropped K/V
+block, the second tp shard's partials dropped), launches a rank by the
+rules, step ms and peak GB a rank; `[train-dp2]` (2 steps, the ranks'
+parameters bit for bit) and `[train-fsdp2]` (each rank half the
+trainable bytes) at seq 2048, 2 rows, against the one-process loss.
+
 `python3 chip_smoke.py --only train-cli` runs infer-load and the four
-train-cli phases alone; `--only kernels`, `--only serve-gemma2` (the
+train-cli phases alone; `--only train-parallel` the multi-rank phases
+above; `--only kernels`, `--only serve-gemma2` (the
 Gemma-2, Qwen2 and StableLM runs), `--only serve-phi3` (the Phi-3-mini
 runs), `--only train-dpo`, `--only
 serve-moe` (the
@@ -739,6 +764,51 @@ TRAIN_PARITY_TOL = 1e-3
 TRAIN_GRAD_TOL = 4e-2
 # steps of bench.py's training stage (train/bench_stage.py)
 TRAIN_STEPS = 6
+# Sequence parallelism and the training mesh, on this one card: every rank
+# a process on cuda:0, the collectives over gloo through host memory
+# (parallel/collectives.py); NCCL, NVLink and distinct cards are not
+# exercised. [sp-attn]: Vicuna-7B's attention widths, B 1, T 16,384 over
+# 4 ranks, bf16; each rank's out and dQ/dK/dV against the one-process
+# flash kernels on the whole sequence, max |Δ| / max |want| (measured on
+# an H100, PERF.md: out 4.6e-3 to 6.1e-3, grads up to 9.2e-3;
+# Ulysses 0; the planted dropped K/V block 0.934)
+SP_RANKS = 4
+SP_T, SP_H, SP_D = 16384, 32, 128
+SP_ULYSSES = 2                      # hybrid: u 2 × r 2
+SP_SEGMENTS = (0, 3000, 7500, 12000, 16384)   # the varlen ring's packing
+SP_CASES = {"ring": dict(mode="ring"),
+            "ring-zigzag": dict(mode="ring", layout="zigzag"),
+            "ring-stripe": dict(mode="ring", layout="stripe"),
+            "ring-gqa": dict(mode="ring", Hkv=8),
+            "ulysses": dict(mode="ulysses"),
+            "hybrid": dict(mode="hybrid"),
+            "ring-varlen": dict(mode="ring", segments=True)}
+SP_OUT_TOL = 1.5e-2
+SP_GRAD_TOL = 2e-2
+# [train-sp]: the AuroraCap step of train/bench_stage.py at 7B widths,
+# TRAIN_SP_LAYERS layers, text batch 1 x TRAIN_SP_SEQ, full remat; loss
+# and grad norm relative to the one-process step on the card (measured
+# 5.1e-6 / 1.1e-5 on the sp 4 ring, 8.5e-7 / 1.8e-5 on sp 2 x tp 2; the
+# planted faults move the loss 1.2e-3 and 4.6e-4)
+TRAIN_SP_LAYERS = 2
+TRAIN_SP_SEQ = 16384
+TRAIN_SP_MESHES = {"sp4-ring": (dict(sp=4), dict(sp_mode="ring")),
+                   "sp2-tp2-ulysses": (dict(sp=2, tp=2),
+                                       dict(sp_mode="ulysses"))}
+TRAIN_SP_LOSS_TOL = 1e-4
+TRAIN_SP_GNORM_TOL = 2e-4
+# [train-dp2] / [train-fsdp2]: 2 ranks, 7B widths, 2 layers, 2 rows of
+# TRAIN_DP_SEQ (one a rank), TRAIN_DP_STEPS steps, each step's loss and
+# grad norm against the one-process steps at the [train-sp] bounds; the
+# planted faults skip the dp sum or the fsdp gather's transpose (its
+# sum). fsdp's memory: a rank's peak at TRAIN_FSDP_DEEP layers less its
+# peak at TRAIN_SP_LAYERS, a layer, at most ZeRO-3's (its shard, the
+# two moments and the shard's gradient: 4 shards) and half a whole
+# layer; a layer's whole parameters kept past its end (the planted
+# fault) add a whole layer
+TRAIN_DP_SEQ = 2048
+TRAIN_DP_STEPS = 2
+TRAIN_FSDP_DEEP = 6
 # [serve-prefix]: VDC asks each video for five captions; the first prompt of
 # each of its pools (lmms-eval's tasks/vdc/utils.py, copied verbatim into
 # aurora_tpu/eval/tasks/vdc_prompts.py): detailed, background, short, main
@@ -1839,10 +1909,10 @@ def train_parity(torch, bs, fa, dev):
     class Recording(Optimizer):
         """The step's optimizer, keeping the attention weights' grads."""
 
-        def update(self, grads, state, model, gnorm=None):
+        def update(self, grads, state, model, gnorm=None, norm=None):
             self.grads = {n: g.clone() for n, g in zip(self.names, grads)
                           if n.split(".")[-2] in ("q", "k", "v", "o")}
-            super().update(grads, state, model, gnorm)
+            super().update(grads, state, model, gnorm, norm)
 
     cfg = bs.aurora_config(layers=2)
     model = bs.init_model(cfg, dev, SEED + 4)
@@ -6282,7 +6352,653 @@ def aurora_serving(torch, dev, n_runs):
     return cfg, model, mm, clips, prompt, init_s
 
 
+# ---------------------------------------------------------------------------
+# Sequence parallelism and the training mesh: ranks as processes on cuda:0
+# ---------------------------------------------------------------------------
+
+def run_ranks(name, world, outdir, timeout=900):
+    """Start `world` ranks of this script on rank phase `name` under a
+    torchrun environment (every rank on this card: gloo), wait for them,
+    and return each rank's JSON result; a rank that fails or hangs fails
+    the phase (the others are killed)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+               OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-phase", name,
+         outdir], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"[{name}] rank {r} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"{name}_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def rank_main(name, outdir):
+    """One rank of a multi-rank phase (`run_ranks` starts it)."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from aurora_tpu_torch.parallel import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(distributed.init_distributed(backend="gloo", device_type="cuda",
+                                       log=lambda *_: None),
+          "no process group")
+    dev = distributed.rank_device("cuda")
+    res = RANK_PHASES[name](torch, dev)
+    res.update(rank=distributed.rank(),
+               backend=torch.distributed.get_backend(), device=str(dev))
+    with open(os.path.join(outdir, f"{name}_rank{res['rank']}.json"),
+              "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _counters():
+    from aurora_tpu_torch.ops.pallas import flash_attention as fa
+    return [(fa.flash_attention, "launches_fwd"),
+            (fa.flash_attention, "launches_dkv"),
+            (fa.flash_attention, "launches_dq"),
+            (fa.flash_attention_lse, "launches"),
+            (fa.flash_attention_plain, "calls")]
+
+
+def _zero(counters):
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+
+
+def _read(counters):
+    return {f"{obj.__name__}.{attr}": getattr(obj, attr)
+            for obj, attr in counters}
+
+
+def _order(case, sp):
+    """The global positions a case's layout puts in sequence order."""
+    c = SP_CASES[case]
+    idx = np.arange(SP_T)
+    if c.get("layout") == "stripe":
+        return idx.reshape(SP_T // sp, sp).T.reshape(-1)
+    if c.get("layout") == "zigzag":
+        chunks = np.split(idx, 2 * sp)
+        order = []
+        for r in range(sp):
+            order += [r, 2 * sp - 1 - r]
+        return np.concatenate([chunks[i] for i in order])
+    return idx
+
+
+def sp_launch_rule(case, rank, sp=SP_RANKS):
+    """Flash launches (forward = dK/dV = dQ) of one rank's forward and
+    backward by the ring's case rules: a contiguous causal ring skips the
+    later ranks' blocks; zigzag's diagonal takes two calls; Ulysses one
+    flash call on its heads; the varlen ring one call a head chunk."""
+    c = SP_CASES[case]
+    if c["mode"] == "ulysses" or c.get("segments"):
+        return 1
+    if c["mode"] == "hybrid":
+        return rank // SP_ULYSSES + 1
+    if c.get("layout") == "zigzag":
+        return 2 + (sp - 1)
+    if c.get("layout") == "stripe":
+        return sp
+    return rank + 1
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def sp_attn_rank(torch, dev):
+    """[sp-attn] on one rank: each case's out and dQ/dK/dV (this rank's
+    block) against the one-process flash kernels on the whole sequence,
+    the flash launches of the sp call alone, its ms; a planted fault (one
+    K/V block of the ring zeroed) on the contiguous ring."""
+    from unittest import mock as _mock
+    from aurora_tpu_torch.ops.pallas import flash_attention as fa
+    from aurora_tpu_torch.parallel import collectives, hybrid, ring, ulysses
+    from aurora_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    mesh = create_mesh(MeshConfig(sp=SP_RANKS), "cuda")
+    rank = mesh.axis("sp").index
+    n = SP_T // SP_RANKS
+    blk = slice(rank * n, (rank + 1) * n)
+    counters = _counters()
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    out = {"cases": {}}
+    for i, (case, c) in enumerate(SP_CASES.items()):
+        g = torch.Generator(device=dev).manual_seed(SEED + 40 + i)
+        hkv = c.get("Hkv", SP_H)
+        q = torch.randn((1, SP_T, SP_H, SP_D), generator=g, **bf)
+        k = torch.randn((1, SP_T, hkv, SP_D), generator=g, **bf)
+        v = torch.randn((1, SP_T, hkv, SP_D), generator=g, **bf)
+        dout = torch.randn((1, SP_T, SP_H, SP_D), generator=g, **bf)
+        seg = None
+        if c.get("segments"):
+            seg = torch.zeros((1, SP_T), dtype=torch.int32, device=dev)
+            for j, a in enumerate(SP_SEGMENTS[1:-1]):
+                seg[:, a:] = j + 1
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = fa.flash_attention(*leaves, causal=True, q_segment_ids=seg,
+                                  kv_segment_ids=seg)
+        wants = [want, *torch.autograd.grad(want, leaves, dout)]
+        order = torch.as_tensor(_order(case, SP_RANKS), device=dev)
+        local = [t.index_select(1, order)[:, blk] for t in (q, k, v, dout)]
+        wants = [t.index_select(1, order)[:, blk] for t in wants]
+        segl = None if seg is None else seg[:, blk].contiguous()
+
+        def call(ql, kl, vl):
+            if c["mode"] == "ulysses":
+                return ulysses.ulysses_mha(ql, kl, vl, mesh, causal=True)
+            if c["mode"] == "hybrid":
+                return hybrid.hybrid_mha(ql, kl, vl, mesh,
+                                         ulysses=SP_ULYSSES, causal=True)
+            if segl is not None:
+                return ring.ring_varlen_mha(ql, kl, vl, segl, mesh)
+            return ring.ring_mha(ql, kl, vl, mesh, causal=True,
+                                 layout=c.get("layout", "contiguous"))
+        ls = [t.contiguous().requires_grad_() for t in local[:3]]
+        torch.cuda.synchronize()
+        _zero(counters)
+        staged = collectives.host_staged
+        t0 = time.perf_counter()
+        got = call(*ls)
+        got = [got, *torch.autograd.grad(got, ls, local[3])]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _read(counters)
+        r = {name: _rel(a, b) for name, a, b in
+             zip(("out", "dq", "dk", "dv"), got, wants)}
+        r.update(ms=ms, launches=counts,
+                 host_staged=collectives.host_staged - staged,
+                 finite=all(bool(torch.isfinite(t).all()) for t in got))
+        if case == "ring":
+            # planted: the block of the rank one place back zeroed
+            orig = ring.ring_pass
+
+            def dropped(x, axis):
+                blocks = orig(x, axis)
+                return [torch.zeros_like(b) if j == 1 else b
+                        for j, b in enumerate(blocks)]
+            with _mock.patch.object(ring, "ring_pass", dropped), \
+                    torch.no_grad():
+                r["planted_out"] = _rel(call(*[t.detach() for t in ls]),
+                                        wants[0])
+        out["cases"][case] = r
+        del q, k, v, dout, leaves, want, wants, local, ls, got
+        torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def _sp_batch(torch, cfg, dev, rows, seq, seed):
+    ids = np.random.default_rng(seed).integers(
+        10, min(30000, cfg.llm.vocab_size), size=(rows, seq))
+    t = torch.from_numpy(ids).to(dev)
+    return {"input_ids": t, "labels": t}
+
+
+def one_process_step(torch, bs, dev, rows, seq, seed, steps=1):
+    """The one-process steps on this card (train/bench_stage.py's model
+    at TRAIN_SP_LAYERS layers) → [(loss, grad norm)] of each step."""
+    from aurora_tpu_torch.train.trainer import (init_train_state,
+                                                make_train_step)
+    cfg = bs.aurora_config(layers=TRAIN_SP_LAYERS)
+    model = bs.init_model(cfg, dev, SEED + 30)
+    tcfg = bs.train_config()
+    state = init_train_state(model, tcfg)
+    step = make_train_step(cfg, tcfg)
+    batch = _sp_batch(torch, cfg, dev, rows, seq, seed)
+    res = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        res.append((m["loss"].item(), m["grad_norm"].item()))
+    del model, state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_step(torch, dev, mesh_kw, train_kw, rows, seq, seed, steps=1,
+               planted=None, layers=TRAIN_SP_LAYERS):
+    """One rank's steps on a mesh from the one-process step's model (at
+    `layers` layers) and batch → dict of its metrics, launches, step ms,
+    peak GB, shard bytes and, planted: the global loss of a forward with
+    the fault before the steps ("ring" zeroes one K/V block of the ring,
+    "tp" drops the second tp shard's partials), the grad norm of a
+    forward and backward with it ("dp" skips the dp sum, "fsdp" the sum
+    in the fsdp gather's transpose), or ("keep") the steps run with each
+    layer's whole parameters kept to the step's end."""
+    import hashlib
+    from unittest import mock as _mock
+    from aurora_tpu_torch.models.aurora import aurora_forward
+    from aurora_tpu_torch.parallel import collectives, ring
+    from aurora_tpu_torch.parallel.mesh import (FlatUnit, MeshConfig,
+                                                ShardedModel, create_mesh,
+                                                local_rows, seq_shard,
+                                                shard_model)
+    from aurora_tpu_torch.train import bench_stage as bs
+    from aurora_tpu_torch.train import trainer
+    cfg = bs.aurora_config(layers=layers)
+    model = bs.init_model(cfg, dev, SEED + 30)
+    tcfg = dataclasses.replace(bs.train_config(), **train_kw)
+    mesh = create_mesh(MeshConfig(**mesh_kw), "cuda")
+    trainer.apply_freeze(model, tcfg)
+    full_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters() if p.requires_grad)
+    plan = shard_model(model, mesh)
+    state = trainer.init_train_state(plan, tcfg)
+    step = trainer.make_train_step(cfg, tcfg, mesh=mesh)
+    batch = local_rows(mesh, _sp_batch(torch, cfg, dev, rows, seq, seed))
+    res = {"full_bytes": full_bytes,
+           "shard_bytes": sum(t.numel() * t.element_size()
+                              for t in plan.params()),
+           "layer_shard_bytes": plan.layer_units[0].shard.numel()
+           * plan.layer_units[0].shard.element_size(),
+           "layer_full_bytes": plan.layer_units[0].numel
+           * plan.layer_units[0].shard.element_size()}
+    keep = contextlib.nullcontext()
+    if planted == "keep":
+        keep = _mock.patch.object(FlatUnit, "release", lambda self: None)
+    elif planted in ("dp", "fsdp"):
+        if planted == "dp":
+            patch = _mock.patch.object(ShardedModel, "reduce_grads",
+                                       lambda self, grads: grads)
+        else:
+            def no_sum(ctx, g):
+                axis, dim, n = ctx.args
+                return g.narrow(dim, axis.index * n, n), None, None
+            patch = _mock.patch.object(collectives._AllGather, "backward",
+                                       staticmethod(no_sum))
+        with patch:
+            _, _, grads = trainer.loss_and_grads(
+                plan.model, batch, tcfg, plan.params(), mesh,
+                trainer._build_sp_attn(tcfg, mesh), plan.tp,
+                before=plan.gather_root)
+            plan.release()
+            res["planted_grad_norm"] = plan.grad_norm(
+                plan.reduce_grads(grads)).item()
+        del grads
+    elif planted is not None:
+        if planted == "ring":
+            orig = ring.ring_pass
+
+            def fault(x, axis):
+                return [torch.zeros_like(b) if j == 1 else b
+                        for j, b in enumerate(orig(x, axis))]
+            patch = _mock.patch.object(ring, "ring_pass", fault)
+        else:
+            def fault(self, x):
+                part = x if self.axis.index == 0 else torch.zeros_like(x)
+                return collectives.reduce_sum(part, self.axis)
+            patch = _mock.patch.object(collectives.TensorParallel, "reduce",
+                                       fault)
+        data = mesh.axis(("dp", "fsdp", "sp"))
+        with patch, torch.no_grad():
+            plan.gather_root()
+            s_, n_ = aurora_forward(
+                plan.model, batch["input_ids"], labels=batch["labels"],
+                mode="loss_sum", remat=False,
+                sp_attn=trainer._build_sp_attn(tcfg, mesh),
+                seq_shard=seq_shard(mesh), tp=plan.tp)
+            plan.release()
+            n_all = collectives.all_reduce_(n_.clone(), data)
+            res["planted_loss"] = (collectives.all_reduce_(
+                s_.float().clone(), data) / n_all).item()
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    staged = collectives.host_staged
+    res["steps"] = []
+    with keep:
+        for i in range(steps):
+            torch.cuda.synchronize()
+            _zero(counters)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+            torch.cuda.synchronize()
+            res["steps"].append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                     loss=loss, grad_norm=gnorm,
+                                     launches=_read(counters)))
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["host_staged"] = collectives.host_staged - staged
+    digest = hashlib.sha256()
+    for t in plan.params():
+        digest.update(t.detach().view(torch.uint8).cpu().numpy().tobytes())
+    res["checksum"] = digest.hexdigest()
+    del plan, state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_sp_rank(torch, dev):
+    """[train-sp] on one rank: each mesh of TRAIN_SP_MESHES, one step (a
+    planted forward first)."""
+    out = {}
+    for name, (mesh_kw, train_kw) in TRAIN_SP_MESHES.items():
+        out[name] = _mesh_step(torch, dev, mesh_kw, train_kw, 1,
+                               TRAIN_SP_SEQ, SEED + 31,
+                               planted="ring" if "ring" in name else "tp")
+    return out
+
+
+def train_dp_rank(torch, dev):
+    """[train-dp2] and [train-fsdp2] on one rank, each rank its row: dp 2
+    and fsdp 2 (TRAIN_DP_STEPS steps, a planted grad-norm fault first),
+    and fsdp 2 at TRAIN_FSDP_DEEP layers (one step, and one with each
+    layer's whole parameters kept)."""
+    out = {name: _mesh_step(torch, dev, {name[:-1]: 2}, {}, 2,
+                            TRAIN_DP_SEQ, SEED + 32, steps=TRAIN_DP_STEPS,
+                            planted=name[:-1])
+           for name in ("dp2", "fsdp2")}
+    for name, planted in (("fsdp2-deep", None), ("fsdp2-deep-kept", "keep")):
+        out[name] = _mesh_step(torch, dev, dict(fsdp=2), {}, 2,
+                               TRAIN_DP_SEQ, SEED + 32, planted=planted,
+                               layers=TRAIN_FSDP_DEEP)
+    return out
+
+
+RANK_PHASES = {"sp-attn": sp_attn_rank, "train-sp": train_sp_rank,
+               "train-dp": train_dp_rank}
+
+
+def lse_case(torch, fa, dev, g):
+    """flash_attention_lse at one ring block (B 1, T 4096, H 32, D 128):
+    causal, and causal at q_offset −1 (the stripe layout's later blocks,
+    whose first row sees no key), against the fp32 twin (out, lse, dQ/dK/dV
+    with a random dO and lse cotangent); its forward timed beside the twin
+    and SDPA, with its bound."""
+    import torch.nn.functional as F
+    T = SP_T // SP_RANKS
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q, k, v, dout = (torch.randn((1, T, SP_H, SP_D), generator=g, **bf)
+                     for _ in range(4))
+    dlse = torch.randn((1, SP_H, T), generator=g, device=dev)
+    res = {}
+    for off in (0, -1):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out, lse = fa.flash_attention_lse(*leaves, causal=True, q_offset=off)
+        grads = torch.autograd.grad((out, lse), leaves, (dout, dlse))
+        fl = [t.float().requires_grad_() for t in (q, k, v)]
+        w_out, w_lse = fa.flash_attention_plain(*fl, causal=True,
+                                                q_offset=off)
+        w_grads = torch.autograd.grad((w_out, w_lse), fl,
+                                      (dout.float(), dlse))
+        tag = "stripe" if off else "causal"
+        res[f"{tag}_out_err"] = (out.float() - w_out).abs().max().item()
+        live = w_lse > -1e30
+        res[f"{tag}_lse_err"] = (lse - w_lse)[live].abs().max().item()
+        for name, a, b in zip(("dq", "dk", "dv"), grads, w_grads):
+            res[f"{tag}_{name}_rel"] = _rel(a, b)
+        check(bool(torch.isfinite(out).all()) and all(
+            bool(torch.isfinite(t).all()) for t in grads),
+            f"flash_attention_lse q_offset {off}: not finite")
+        if off:
+            check(bool((out[:, 0] == 0).all()) and bool(
+                (lse[:, :, 0] <= -1e30).all()),
+                "q_offset -1: the first row saw a key")
+        del leaves, out, lse, grads, fl, w_out, w_lse, w_grads
+        torch.cuda.empty_cache()
+    check(max(res["causal_out_err"], res["stripe_out_err"]) <= FLASH_ABS_TOL
+          and max(res["causal_lse_err"], res["stripe_lse_err"])
+          <= FLASH_LSE_TOL
+          and max(v_ for k_, v_ in res.items() if k_.endswith("_rel"))
+          <= FLASH_GRAD_TOL, f"flash_attention_lse vs twin {res}")
+    res["ms"] = cuda_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True),
+                        reps=10)
+    with torch.no_grad():
+        fq = [t.float() for t in (q, k, v)]
+        res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+            *fq, causal=True), reps=3)
+        del fq
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=10)
+    pairs = SP_H * T * (T + 1) // 2
+    res["bound"] = least_ms(pairs * 4 * SP_D,
+                            4 * q.numel() * 2 + SP_H * T * 4)
+    torch.cuda.empty_cache()
+    return res
+
+
+def parallel_train_phases(torch, fa, bs, dev, card):
+    """[sp-attn], [train-sp], [train-dp2], [train-fsdp2]: ranks as
+    processes on this card over gloo (correctness, launches, peak memory
+    a rank; NCCL, NVLink and distinct cards are not measured) → the
+    flash launch counts for the kernels' JSON line."""
+    import tempfile
+    from aurora_tpu_torch.ops import cuda_build
+    cuda_build.load_library()            # built once, before the ranks
+    gc.collect()
+    torch.cuda.empty_cache()             # the card's memory for the ranks
+    g = torch.Generator(device=dev).manual_seed(SEED + 39)
+    lse = lse_case(torch, fa, dev, g)
+    phase("kernels", flash_lse=f"B1/T{SP_T // SP_RANKS}/H{SP_H}/D{SP_D}",
+          **{k_: (f"{x:.4g}" if isinstance(x, float) else x)
+             for k_, x in lse.items() if k_ != "bound"},
+          bound_ms=f"{lse['bound'][0]:.4f}", bound_by=lse["bound"][1])
+    found = {"lse": lse}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        # ---- [sp-attn] ------------------------------------------------------
+        ranks = run_ranks("sp-attn", SP_RANKS, tmp)
+        lse_launches = 0
+        for case in SP_CASES:
+            rs = [r["cases"][case] for r in ranks]
+            errs = {n: max(r[n] for r in rs)
+                    for n in ("out", "dq", "dk", "dv")}
+            launches = [r["launches"] for r in rs]
+            rule = [sp_launch_rule(case, r) for r in range(SP_RANKS)]
+            via_lse = SP_CASES[case]["mode"] != "ulysses" and not \
+                SP_CASES[case].get("segments")
+            phase("sp-attn", case=case, card=repr(card),
+                  shape=f"B1/T{SP_T}/H{SP_H}/Hkv"
+                        f"{SP_CASES[case].get('Hkv', SP_H)}/D{SP_D}/bf16",
+                  ranks=SP_RANKS, backend=ranks[0]["backend"],
+                  host_staged=str(all(r["host_staged"] > 0
+                                      for r in rs)).lower(),
+                  **{f"{n}_rel": f"{e:.3e}" for n, e in errs.items()},
+                  tol=f"{SP_OUT_TOL}/{SP_GRAD_TOL}",
+                  planted_out_rel=(f"{max(r['planted_out'] for r in rs):.3e}"
+                                   if "planted_out" in rs[0] else "-"),
+                  ms_per_rank="/".join(f"{r['ms']:.1f}" for r in rs),
+                  fwd_per_rank="/".join(
+                      str(x["flash_attention.launches_fwd"])
+                      for x in launches),
+                  lse_per_rank="/".join(
+                      str(x["flash_attention_lse.launches"])
+                      for x in launches),
+                  rule="/".join(map(str, rule)))
+            check(all(r["finite"] for r in rs), f"[sp-attn] {case}: not finite")
+            check(errs["out"] <= SP_OUT_TOL and max(
+                errs[n] for n in ("dq", "dk", "dv")) <= SP_GRAD_TOL,
+                f"[sp-attn] {case}: {errs}")
+            if "planted_out" in rs[0]:
+                check(max(r["planted_out"] for r in rs) > SP_OUT_TOL,
+                      f"[sp-attn] {case}: the planted fault reads within "
+                      "the bound")
+            for r, x in enumerate(launches):
+                want = {"flash_attention.launches_fwd": rule[r],
+                        "flash_attention.launches_dkv": rule[r],
+                        "flash_attention.launches_dq": rule[r],
+                        "flash_attention_lse.launches":
+                            rule[r] if via_lse else 0,
+                        "flash_attention_plain.calls": 0}
+                check(x == want, f"[sp-attn] {case} rank {r}: launches {x}, "
+                                 f"the case rules give {want}")
+            lse_launches += sum(x["flash_attention_lse.launches"]
+                                for x in launches)
+        found["sp_attn_lse"] = lse_launches
+        phase("sp-attn", peak_gb_per_rank="/".join(
+            f"{r['peak_gb']:.2f}" for r in ranks))
+
+        # ---- [train-sp] -----------------------------------------------------
+        (want_loss, want_gn), = one_process_step(torch, bs, dev, 1,
+                                                 TRAIN_SP_SEQ, SEED + 31)
+        ranks = run_ranks("train-sp", SP_RANKS, tmp)
+        found["train_sp"] = {}
+        for name in TRAIN_SP_MESHES:
+            rs = [r[name] for r in ranks]
+            st = [r["steps"][0] for r in rs]
+            loss, gn = st[0]["loss"], st[0]["grad_norm"]
+            rel_loss = abs(loss - want_loss) / abs(want_loss)
+            rel_gn = abs(gn - want_gn) / want_gn
+            planted = abs(rs[0]["planted_loss"] - want_loss) / abs(want_loss)
+            sums = {k_: sum(s["launches"][k_] for s in st)
+                    for k_ in st[0]["launches"]}
+            found["train_sp"][name] = sums
+            phase("train-sp", mesh=name, card=repr(card),
+                  config=f"vicuna-7b-widths/L{TRAIN_SP_LAYERS}/seq"
+                         f"{TRAIN_SP_SEQ}/b1/bf16/adamw/remat-full",
+                  backend=ranks[0]["backend"],
+                  loss=f"{loss:.6f}", loss_one_process=f"{want_loss:.6f}",
+                  rel_loss=f"{rel_loss:.3e}", grad_norm=f"{gn:.6f}",
+                  grad_norm_one_process=f"{want_gn:.6f}",
+                  rel_grad_norm=f"{rel_gn:.3e}",
+                  tol=f"{TRAIN_SP_LOSS_TOL}/{TRAIN_SP_GNORM_TOL}",
+                  planted_rel_loss=f"{planted:.3e}",
+                  step_ms_per_rank="/".join(f"{s['ms']:.1f}" for s in st),
+                  peak_gb_per_rank="/".join(f"{r['peak_gb']:.2f}"
+                                            for r in rs),
+                  lse_per_rank="/".join(
+                      str(s["launches"]["flash_attention_lse.launches"])
+                      for s in st),
+                  fwd_per_rank="/".join(
+                      str(s["launches"]["flash_attention.launches_fwd"])
+                      for s in st),
+                  host_staged=str(all(r["host_staged"] > 0
+                                      for r in rs)).lower())
+            check(all(s["loss"] == loss and s["grad_norm"] == gn
+                      for s in st), f"[train-sp] {name}: ranks disagree")
+            check(rel_loss <= TRAIN_SP_LOSS_TOL
+                  and rel_gn <= TRAIN_SP_GNORM_TOL,
+                  f"[train-sp] {name}: {rel_loss} / {rel_gn}")
+            check(planted > TRAIN_SP_LOSS_TOL, f"[train-sp] {name}: the "
+                  f"planted fault reads {planted}, within the bound")
+            check(sums["flash_attention_plain.calls"] == 0,
+                  f"[train-sp] {name}: a plain twin ran")
+            L = TRAIN_SP_LAYERS
+            for r, s in enumerate(st):
+                # full remat: each layer's attention runs twice forward
+                ring_calls = (r + 1) if "ring" in name else 1
+                want = {"flash_attention.launches_fwd": 2 * L * ring_calls,
+                        "flash_attention.launches_dkv": L * ring_calls,
+                        "flash_attention.launches_dq": L * ring_calls,
+                        "flash_attention_lse.launches":
+                            2 * L * ring_calls if "ring" in name else 0,
+                        "flash_attention_plain.calls": 0}
+                check(s["launches"] == want,
+                      f"[train-sp] {name} rank {r}: {s['launches']} != "
+                      f"{want}")
+
+        # ---- [train-dp2] / [train-fsdp2] ------------------------------------
+        want = one_process_step(torch, bs, dev, 2, TRAIN_DP_SEQ, SEED + 32,
+                                steps=TRAIN_DP_STEPS)
+        ranks = run_ranks("train-dp", 2, tmp)
+        for name in ("dp2", "fsdp2"):
+            rs = [r[name] for r in ranks]
+            st = rs[0]["steps"]
+            rel = [(abs(s["loss"] - w[0]) / abs(w[0]),
+                    abs(s["grad_norm"] - w[1]) / w[1])
+                   for s, w in zip(st, want)]
+            planted = abs(rs[0]["planted_grad_norm"] - want[0][1]) / want[0][1]
+            half = [r["shard_bytes"] / r["full_bytes"] for r in rs]
+            phase(f"train-{name}", card=repr(card),
+                  config=f"vicuna-7b-widths/L{TRAIN_SP_LAYERS}/seq"
+                         f"{TRAIN_DP_SEQ}/b2/bf16/adamw/remat-full",
+                  steps=len(st),
+                  loss="/".join(f"{s['loss']:.6f}" for s in st),
+                  loss_one_process="/".join(f"{w[0]:.6f}" for w in want),
+                  grad_norm="/".join(f"{s['grad_norm']:.6f}" for s in st),
+                  grad_norm_one_process="/".join(f"{w[1]:.6f}"
+                                                 for w in want),
+                  rel_loss="/".join(f"{x[0]:.3e}" for x in rel),
+                  rel_grad_norm="/".join(f"{x[1]:.3e}" for x in rel),
+                  tol=f"{TRAIN_SP_LOSS_TOL}/{TRAIN_SP_GNORM_TOL}",
+                  planted_rel_grad_norm=f"{planted:.3e}",
+                  params_equal=str(rs[0]["checksum"] ==
+                                   rs[1]["checksum"]).lower(),
+                  shard_share="/".join(f"{h:.4f}" for h in half),
+                  step_ms_per_rank="/".join(
+                      f"{r['steps'][-1]['ms']:.1f}" for r in rs),
+                  peak_gb_per_rank="/".join(f"{r['peak_gb']:.2f}"
+                                            for r in rs))
+            check(len(st) == len(want) and all(
+                a <= TRAIN_SP_LOSS_TOL and b <= TRAIN_SP_GNORM_TOL
+                for a, b in rel), f"[train-{name}] {rel} against the "
+                f"one-process steps {want}")
+            check(planted > TRAIN_SP_GNORM_TOL, f"[train-{name}] the "
+                  f"planted fault reads {planted}, within the bound")
+            check(all(a["loss"] == b["loss"]
+                      and a["grad_norm"] == b["grad_norm"] for a, b in
+                      zip(rs[0]["steps"], rs[1]["steps"])),
+                  f"[train-{name}] the ranks' metrics differ")
+            check(all(s["launches"]["flash_attention.launches_fwd"] > 0
+                      for r in rs for s in r["steps"]),
+                  f"[train-{name}] no flash launch")
+            if name == "dp2":
+                check(rs[0]["checksum"] == rs[1]["checksum"],
+                      "[train-dp2] the ranks' parameters differ")
+            else:
+                check(all(0.5 <= h <= 0.5001 for h in half),
+                      f"[train-fsdp2] shard shares {half}")
+        # fsdp's memory a layer: ZeRO-3 holds one layer's whole
+        # parameters at a time
+        deep = TRAIN_FSDP_DEEP - TRAIN_SP_LAYERS
+        for r, rank in enumerate(ranks):
+            zero3 = 4 * rank["fsdp2-deep"]["layer_shard_bytes"] / 1e9
+            whole = rank["fsdp2-deep"]["layer_full_bytes"] / 1e9
+            bound = zero3 + whole / 2
+            per_layer, kept = ((rank[n]["peak_gb"] - rank["fsdp2"]["peak_gb"])
+                               / deep for n in ("fsdp2-deep",
+                                                "fsdp2-deep-kept"))
+            phase("train-fsdp2", rank=r, card=repr(card),
+                  memory=f"L{TRAIN_SP_LAYERS}-vs-L{TRAIN_FSDP_DEEP}",
+                  peak_gb=f"{rank['fsdp2']['peak_gb']:.3f}/"
+                          f"{rank['fsdp2-deep']['peak_gb']:.3f}",
+                  gb_per_layer=f"{per_layer:.4f}",
+                  zero3_gb_per_layer=f"{zero3:.4f}",
+                  whole_layer_gb=f"{whole:.4f}", bound_gb=f"{bound:.4f}",
+                  planted_kept_gb_per_layer=f"{kept:.4f}",
+                  loss_deep=f"{rank['fsdp2-deep']['steps'][0]['loss']:.6f}")
+            check(per_layer <= bound, f"[train-fsdp2] rank {r}: "
+                  f"{per_layer} GB a layer, above {bound}")
+            check(kept > bound, f"[train-fsdp2] rank {r}: the planted "
+                  f"fault reads {kept} GB a layer, within {bound}")
+        found["train_dp"] = {n: sum(s["launches"][
+            "flash_attention.launches_fwd"] for r in ranks
+            for s in r[n]["steps"]) for n in ("dp2", "fsdp2")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return found
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank-phase"]:
+        return rank_main(argv[1], argv[2])
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port's main paths "
                                  "on one NVIDIA GPU (module docstring)")
@@ -6290,7 +7006,7 @@ def main(argv=None):
                     choices=["train-cli", "kernels", "serve-gemma2",
                              "serve-phi3", "train-dpo", "serve-moe",
                              "serve-internvl", "serve-siglip",
-                             "serve-parallel"],
+                             "serve-parallel", "train-parallel"],
                     help="run these phases alone, in the script's order "
                          "(train-cli: [infer-load] and the four train-cli "
                          "phases; kernels: [build] and every [kernels] "
@@ -6302,8 +7018,9 @@ def main(argv=None):
                          "DeepSeek-V2-Lite runs; serve-internvl: the "
                          "InternVL3-8B runs; serve-siglip: AuroraCap with "
                          "a SigLIP tower; serve-parallel: the tp 2, dp 2 "
-                         "and export phases); no kernel JSON line, no "
-                         "final line")
+                         "and export phases; train-parallel: [sp-attn], "
+                         "[train-sp], [train-dp2], [train-fsdp2]); no "
+                         "kernel JSON line, no final line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6381,6 +7098,8 @@ def main(argv=None):
             del model, mm
             gc.collect()
             torch.cuda.empty_cache()
+        if "train-parallel" in only:
+            parallel_train_phases(torch, fa, bench_stage, dev, card)
         if "serve-moe" in only:
             cuda_build.load_library()
             moe_kernel_phase(torch, engine_mod, moe, dev)
@@ -6783,6 +7502,9 @@ def main(argv=None):
         ("fwd", "bwd_dkv", "bwd_dq"), launches512))).replace(" ", ""),
           runs="eval..train-dpo-gemma")
 
+    # ---- sequence parallelism and the training mesh: ranks on this card ---
+    par = parallel_train_phases(torch, fa, bench_stage, dev, card)
+
     def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
               bound_ms, library_ms, **extra):
         return {"name": name, "route": "cuda",
@@ -7038,8 +7760,28 @@ def main(argv=None):
                 library_backend=t_w["library_backend"]))
     for e in kernels:
         if e["name"].startswith("flash_attention_") and "[" not in e["name"]:
-            e["launches_train_dpo"] = dpo[("fwd", "bwd_dkv", "bwd_dq").index(
-                e["name"][len("flash_attention_"):])]
+            i = ("fwd", "bwd_dkv", "bwd_dq").index(
+                e["name"][len("flash_attention_"):])
+            e["launches_train_dpo"] = dpo[i]
+            # over every rank of both [train-sp] meshes, and [train-dp2] /
+            # [train-fsdp2]'s forwards
+            e["launches_train_sp"] = sum(
+                c["flash_attention.launches_" + ("fwd", "dkv", "dq")[i]]
+                for c in par["train_sp"].values())
+            if i == 0:
+                e["launches_train_dp"] = sum(par["train_dp"].values())
+    # flash_attention_lse: the same kernels at one ring block (B 1, T 4096,
+    # H 32, D 128, causal; errors also at q_offset -1); launches: its
+    # forwards over every rank of [train-sp] (the sp 4 ring), and in
+    # [sp-attn]'s ring and hybrid cases
+    lse = par["lse"]
+    kernels.append(entry(
+        "flash_attention_lse", "flash_attention.cu", "flash_attention.py:463",
+        sum(c["flash_attention_lse.launches"]
+            for c in par["train_sp"].values()),
+        max(lse["causal_out_err"], lse["stripe_out_err"]), lse["ms"],
+        lse["plain_ms"], lse["bound"], lse["library_ms"],
+        launches_sp_attn=par["sp_attn_lse"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

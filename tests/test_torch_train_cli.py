@@ -391,10 +391,10 @@ def test_quant_without_lora_is_rejected(workdir, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(_argv(workdir, "bad", "--quant", "int8"))
     assert e.value.code == 2 and "--lora_r" in capsys.readouterr().err
+    # a mesh of more than one rank needs the ranks torchrun starts
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(_argv(workdir, "bad", "--mesh", "dp=2"))
-    assert e.value.code == 2 and "queue 1 item 11" in \
-        capsys.readouterr().err
+    assert e.value.code == 2 and "torchrun" in capsys.readouterr().err
 
 
 # --------------------------------------------------------------------------
