@@ -319,33 +319,34 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// q tile j of the dK/dV loop (rows [qb, qb + 64)) into ring stage st, by
+// q tile j of the dK/dV loop (rows [qb, qb + QR)) into ring stage st, by
 // one whole warp: its lanes write the tile's lse * log2(e), delta and q
-// segment ids (0 past T) and arrive, lane 0 loads Q and dO (NBOX boxes of
-// 64 columns each)
-template <int NBOX>
+// segment ids (0 past T; 3 QR words a stage) and arrive, lane 0 loads Q and
+// dO (NBOX boxes of QR rows x 64 columns each)
+template <int NBOX, int QR = 64>
 __device__ __forceinline__ void fill_q_tile(
     uint8_t* ring, float* rows, uint64_t* full, int st, int qb,
     const CUtensorMap* tm_q, const CUtensorMap* tm_do, const float* lse,
     const float* delta, const int* q_seg, int b, int bh, int head,
     const Shape& sh) {
+  constexpr uint32_t BOX = QR * 128;
   const int lane = threadIdx.x % 32;
-  float* rv = rows + st * 192;
-  for (int r = lane; r < 64; r += 32) {
+  float* rv = rows + st * 3 * QR;
+  for (int r = lane; r < QR; r += 32) {
     const bool live = qb + r < sh.T;
     rv[r] = live ? lse[size_t(bh) * sh.T + qb + r] * LOG2E : 0.f;
-    rv[64 + r] = live ? delta[size_t(bh) * sh.T + qb + r] : 0.f;
-    reinterpret_cast<int*>(rv)[128 + r] =
+    rv[QR + r] = live ? delta[size_t(bh) * sh.T + qb + r] : 0.f;
+    reinterpret_cast<int*>(rv)[2 * QR + r] =
         live && sh.use_seg ? q_seg[size_t(b) * sh.T + qb + r] : 0;
   }
   if (lane == 0) {
-    uint8_t* dst = ring + st * 2 * NBOX * BOX64;
-    hopper::mbar_expect_tx(&full[st], 2 * NBOX * BOX64);
+    uint8_t* dst = ring + st * 2 * NBOX * BOX;
+    hopper::mbar_expect_tx(&full[st], 2 * NBOX * BOX);
 #pragma unroll
     for (int i = 0; i < NBOX; ++i) {
-      hopper::tma_load_4d(dst + i * BOX64, tm_q, &full[st], 64 * i, head, qb,
+      hopper::tma_load_4d(dst + i * BOX, tm_q, &full[st], 64 * i, head, qb,
                           b);
-      hopper::tma_load_4d(dst + (NBOX + i) * BOX64, tm_do, &full[st], 64 * i,
+      hopper::tma_load_4d(dst + (NBOX + i) * BOX, tm_do, &full[st], 64 * i,
                           head, qb, b);
     }
   } else {
@@ -638,8 +639,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 // training shape (B 2, T 2048, H 16, causal) 6.87e10 FLOPs, 0.0695 ms at
 // 989 TFLOP/s (compute-bound, as at D 128). It replaced a first cut
 // on warp-level mma.sync with plain row-major tiles loaded by every
-// thread between two barriers (`load_rows`): 1.0054 ms on an H100 SXM
-// at 700 W, B 2, T 2048, H 16 (69 TFLOP/s).
+// thread between two barriers: 1.0054 ms on an H100 SXM at 700 W, B 2,
+// T 2048, H 16 (69 TFLOP/s).
 // The backward is described below, before its kernels.
 
 constexpr int MD = 256;  // the head width of these kernels
@@ -801,8 +802,8 @@ flash_fwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
 // Bound at google/gemma-7b's training shape (B 2, T 2048, H 16, causal): dK/dV
 // 1.375e11 FLOPs, dQ 1.031e11, 0.139 and 0.104 ms at 989 TFLOP/s
 // (compute-bound). They replaced the first cut on mma.sync tiles loaded by
-// every thread between two barriers, now the D 512 kernels below: 1.5865 and
-// 1.3187 ms on an H100 SXM at 700 W.
+// every thread between two barriers: 1.5865 and 1.3187 ms on an H100 SXM at
+// 700 W.
 
 constexpr size_t XCHG = 32 * 128 * 4 + 16 * 128 * 4;  // P fp32, dS bf16
 constexpr size_t SMEM_DKV_D256 = 1024 + 8 * BOX64 + D256_STAGES * 8 * BOX64 +
@@ -811,21 +812,23 @@ constexpr size_t SMEM_DQ_D256 =
     1024 + 8 * BOX64 + D256_STAGES * 8 * BOX64 + XCHG + RING;
 constexpr int BAR_P = 1, BAR_DS = 2;  // named barriers of the exchange
 
-// an m64n64 accumulator (32 floats) to / from the exchange, thread t of its
-// warpgroup
-__device__ __forceinline__ void put_acc(float* x, const float (&v)[32],
+// an m64nN accumulator (N / 2 floats) to / from the exchange, thread t of
+// its warpgroup
+template <int N>
+__device__ __forceinline__ void put_acc(float* x, const float (&v)[N],
                                         int t) {
   float4* x4 = reinterpret_cast<float4*>(x);
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < N / 4; ++i)
     x4[i * 128 + t] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
                                   v[4 * i + 3]);
 }
-__device__ __forceinline__ void get_acc(const float* x, float (&v)[32],
+template <int N>
+__device__ __forceinline__ void get_acc(const float* x, float (&v)[N],
                                         int t) {
   const float4* x4 = reinterpret_cast<const float4*>(x);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < N / 4; ++i) {
     const float4 f = x4[i * 128 + t];
     v[4 * i] = f.x;
     v[4 * i + 1] = f.y;
@@ -834,20 +837,22 @@ __device__ __forceinline__ void get_acc(const float* x, float (&v)[32],
   }
 }
 
-// the four bf16 A operands of 16 columns each (an m64n64 accumulator) to /
-// from the exchange
+// the KS bf16 A operands of 16 columns each (an m64n(16 KS) accumulator)
+// to / from the exchange
+template <int KS>
 __device__ __forceinline__ void put_frags(uint32_t* x,
-                                          const uint32_t (&a)[4][4], int t) {
+                                          const uint32_t (&a)[KS][4], int t) {
   uint4* x4 = reinterpret_cast<uint4*>(x);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
     x4[kk * 128 + t] = make_uint4(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
 }
+template <int KS>
 __device__ __forceinline__ void get_frags(const uint32_t* x,
-                                          uint32_t (&a)[4][4], int t) {
+                                          uint32_t (&a)[KS][4], int t) {
   const uint4* x4 = reinterpret_cast<const uint4*>(x);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const uint4 u = x4[kk * 128 + t];
     a[kk][0] = u.x;
     a[kk][1] = u.y;
@@ -1137,309 +1142,493 @@ flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 
-// ------------------------------------------------ D 512 (mma.sync tiles)
+// ----------------------------------------------------------------- D 512
 // The widest heads the port takes (384 pads to 512; no family of the zoo
-// has one) run on warp-level mma.sync tiles (hopper_common.cuh,
-// MmaTile<512>: 16 warps, four warps per 16 rows, each summing 128 of the
-// 512 output columns; plain row-major shared tiles of pitch 520 loaded by
-// all threads with 16-byte reads, one tile at a time). Forward: a block
-// per (64 q rows, b h), key tiles of 64. dK/dV: a block per (64 keys,
-// b h), each row group 16 keys, looping over q tiles of 32 rows that can
-// see them (S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and dK +=
-// dS^T Q). dQ: a block per (64 q rows, b h), key tiles of 32 (four of 64
-// rows would need 266 KB of shared memory) (S = Q K^T, dP = dO V^T, dQ +=
-// dS K). A block of 512 threads holds at most 128 registers a thread. No
-// atomics: every output element has one writer.
+// has one). The D 256 kernels' design at twice the width, where a 64-row
+// tile of 512 columns is 64 KB of shared memory and, in fp32, 256
+// registers a thread of one warpgroup: past the 255 a thread may hold. So
+// every kernel is 256 threads as two consumer warpgroups on the same 64
+// rows that split the head's columns (128 accumulator floats a thread), no
+// producer warpgroup (it would cap every thread at 168 registers), tiles
+// by TMA (4-D maps, 64-column boxes under the 128-byte swizzle) into a
+// ring of 2 stages, and wgmma bf16 -> fp32 with the accumulators in
+// registers. Shared bytes a block: 230,444 (forward), 204,204 (dK/dV) and
+// 203,820 (dQ) of the 232,448 a block may use.
+// Forward (`flash_fwd_d512_kernel`): a block per (64 q rows, b h), the
+// heaviest causal tiles first; Q resident (8 boxes, 64 KB), key tiles of
+// 32 keys (K and V, 64 KB a stage). Warpgroup w forms the partial scores
+// S_w = Q[:, 256w, +256) K[:, 256w, +256)^T (m64n32, 16 k16 steps); the
+// two partials cross through shared memory (double-buffered by the tile's
+// parity, one named barrier a tile) and each warpgroup adds the other's to
+// its own: S_0 + S_1 and S_1 + S_0 are the same bits, so both run the same
+// online softmax and hold the same P, which is the register A operand of
+// P V into the warpgroup's 256 output columns (two m64n128 accumulators).
+// Bound at FLASH_D512 (B 1, T 2048, H 8, causal): 3.44e10 FLOPs, 0.0348 ms
+// at 989 TFLOP/s (compute-bound).
+// Backward: dK and dV of 64 keys x 512 columns are 65,536 fp32 values, the
+// SM's whole register file, so no block holds both whole. A block per (64
+// keys, half of the head's columns, b h) recomputes S^T = K Q^T and dP^T =
+// V dO^T over the full 512-deep product and accumulates its 256 columns of
+// dK and dV: 6 products of a (key, q) tile where the minimal backward has
+// 4, a work factor of 1.5 (a 2-CTA cluster trading P and dS through
+// distributed shared memory would avoid it). As at D 256, warpgroup 0
+// computes S^T, warpgroup 1 dP^T (m64n16, 32 k16 steps each), P and dS
+// cross through shared memory, and warpgroup w accumulates dV += P^T dO and
+// dK += dS^T Q over its 128 columns. K and V resident (128 KB), q tiles of
+// 16 rows (Q and dO, 32 KB a stage) with their lse, delta and segment ids.
+// dQ: a block per (64 q rows, b h), heaviest first; Q and dO resident
+// (128 KB), key tiles of 16 keys (K and V, 32 KB a stage); S = Q K^T
+// (warpgroup 0) and dP = dO V^T (warpgroup 1), the same exchange, then dQ
+// += dS K into the warpgroup's 256 columns (two m64n128 accumulators).
+// Bounds at FLASH_D512: dK/dV 6.87e10 FLOPs (the minimal work), dQ
+// 5.15e10, 0.0695 and 0.0521 ms at 989 TFLOP/s. No atomics: every output
+// element has one writer.
+// They replace a first cut on warp-level mma.sync (16 warps, 128 registers
+// a thread, plain row-major tiles loaded by every thread between two
+// barriers): 0.7326, 1.992 and 1.182 ms on an H100 SXM at 700 W at
+// FLASH_D512.
 
-template <int HD>
-struct MmaFlash {
-  using MT = hopper::MmaTile<HD>;
-  static constexpr int P = MT::P;        // shared row pitch (bf16)
-  static constexpr int ND = MT::DS / 8;  // output 8-column blocks a warp
-  static constexpr int KT_FWD = 64;      // keys a forward tile
-  static constexpr int BQ_DKV = 32;      // q rows a dK/dV step
-  static constexpr int KT_DQ = 32;      // keys a dQ tile
-  static constexpr size_t SMEM_FWD =
-      size_t(64 + 2 * KT_FWD) * P * 2 + KT_FWD * 4;
-  static constexpr size_t SMEM_DKV =
-      size_t(2 * 64 + 2 * BQ_DKV) * P * 2 + (3 * BQ_DKV + 64) * 4;
-  static constexpr size_t SMEM_DQ =
-      size_t(2 * 64 + 2 * KT_DQ) * P * 2 + (2 * 64 + KT_DQ) * 4;
-};
+constexpr int WD = 512;  // the head width of these kernels
+constexpr int D512_STAGES = 2;
+constexpr int FK = 32;               // keys a forward tile
+constexpr int BR = 16;               // rows of a backward ring tile
+constexpr uint32_t BOXF = FK * 128;  // bytes of a [32][64] box
+constexpr uint32_t BOXB = BR * 128;  // bytes of a [16][64] box
+// the forward's partial scores: 2 tiles' parity x 2 warpgroups x m64n32
+constexpr size_t XS_FWD = 2 * 2 * 16 * 128 * 4;
+// the backward's exchange: P (m64n16, fp32) and dS (one bf16 A operand)
+constexpr size_t XCHG512 = 8 * 128 * 4 + 4 * 128 * 4;
+constexpr size_t SMEM_FWD_D512 =
+    1024 + 8 * BOX64 + D512_STAGES * 16 * BOXF + XS_FWD + RING;
+constexpr size_t SMEM_DKV_D512 = 1024 + 16 * BOX64 +
+                                 D512_STAGES * 16 * BOXB + XCHG512 +
+                                 D512_STAGES * 3 * BR * 4 + RING;
+constexpr size_t SMEM_DQ_D512 =
+    1024 + 16 * BOX64 + D512_STAGES * 16 * BOXB + XCHG512 + RING;
+static_assert(SMEM_FWD_D512 <= 232448 && SMEM_DKV_D512 <= 232448 &&
+                  SMEM_DQ_D512 <= 232448,
+              "a block may use 227 KB of shared memory");
 
-constexpr int WD = 512;  // the widest head the kernels take
-using MF = MmaFlash<WD>;
-
-// segment ids of rows [row0, row0 + n) (0 past `live` or without ids)
-__device__ __forceinline__ void load_seg(int* dst, const int* seg, int b,
-                                         int len, int row0, int n,
-                                         bool use) {
-  for (int r = threadIdx.x; r < n; r += blockDim.x)
-    dst[r] = use && row0 + r < len ? seg[size_t(b) * len + row0 + r] : 0;
+// the eight 64-column boxes of a 512-wide tile of rows [row0, row0 + box
+// rows)
+__device__ __forceinline__ void load_tile8(uint8_t* dst,
+                                           const CUtensorMap* map,
+                                           uint64_t* bar, int head, int row0,
+                                           int b, uint32_t box_bytes) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    hopper::tma_load_4d(dst + i * box_bytes, map, bar, 64 * i, head, row0,
+                        b);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(hopper::MmaTile<HD>::NT, 1)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const int* __restrict__ q_seg,
-                     const int* __restrict__ kv_seg, bf16* __restrict__ out,
-                     float* __restrict__ lse, Shape sh) {
-  using F = MmaFlash<HD>;
-  using TL = typename F::MT;
-  constexpr int P = F::P, ND = F::ND, KT = F::KT_FWD;
-  extern __shared__ __align__(16) uint8_t smem_mma[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sK = sQ + 64 * P;
-  bf16* sV = sK + KT * P;
-  int* sKs = reinterpret_cast<int*>(sV + KT * P);
-  const int bh = blockIdx.y, b = bh / sh.H, head = bh % sh.H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest first
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rg = warp % 4, sl = warp / 4;
-  const size_t rs = size_t(sh.H) * HD;
-  const int kend = key_end(sh, q0, 64);
-  hopper::load_rows<HD>(sQ, q + size_t(b) * sh.T * rs + head * HD, rs, q0,
-                        64, sh.T, tid, TL::NT);
-  int t[2], qs[2] = {0, 0};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    t[h] = q0 + rg * 16 + lane / 4 + 8 * h;
-    if (sh.use_seg && t[h] < sh.T) qs[h] = q_seg[size_t(b) * sh.T + t[h]];
+// key tile j (keys [rows j, rows j + rows)) of K and V into ring stage st;
+// one thread
+__device__ __forceinline__ void fill_kv512(uint8_t* ring, uint64_t* full,
+                                           int st, int j, int rows,
+                                           const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v, int head,
+                                           int b) {
+  const uint32_t box = rows * 128;
+  uint8_t* dst = ring + st * 16 * box;
+  hopper::mbar_expect_tx(&full[st], 16 * box);
+  load_tile8(dst, tm_k, &full[st], head, rows * j, b, box);
+  load_tile8(dst + 8 * box, tm_v, &full[st], head, rows * j, b, box);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const int* __restrict__ q_seg,
+                      const int* __restrict__ kv_seg, bf16* __restrict__ out,
+                      float* __restrict__ lse, Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = hopper::align1024(smem_raw);
+  uint8_t* sKV = sQ + 8 * BOX64;  // stage st: K, then V, 8 boxes each
+  float* xs = reinterpret_cast<float*>(sKV + D512_STAGES * 16 * BOXF);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xs + XS_FWD / 4);
+  uint64_t* full = bar + 1;
+  int* done = reinterpret_cast<int*>(bar + 1 + STAGES);
+
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H, head = bh % sh.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest tiles first
+  const int ntiles = (key_end(sh, q0, 64) + FK - 1) / FK;
+  init_ring(bar, done, 1);
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(bar, 8 * BOX64);
+    load_tile8(sQ, &tm_q, bar, head, q0, b, BOX64);
+    for (int j = 0; j < min(D512_STAGES, ntiles); ++j)
+      fill_kv512(sKV, full, j, j, FK, &tm_k, &tm_v, head, b);
   }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int t0 = q0 + 16 * (t / 32) + lane / 4;  // rows t0 and t0 + 8
   const float c = sh.scale * LOG2E;
-  float o[ND][4];
+  int qs[2] = {0, 0};
+  if (sh.use_seg) {
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+    for (int hf = 0; hf < 2; ++hf)
+      if (t0 + 8 * hf < sh.T) qs[hf] = q_seg[size_t(b) * sh.T + t0 + 8 * hf];
+  }
+  // O's columns [256 wg, + 128) and [256 wg + 128, + 128)
+  float o0[64], o1[64], s[16];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  for (int i = 0; i < 64; ++i) o0[i] = o1[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  for (int kb = 0; kb < kend; kb += KT) {
-    __syncthreads();
-    hopper::load_rows<HD>(sK, k + size_t(b) * sh.S * rs + head * HD, rs, kb,
-                          KT, sh.S, tid, TL::NT);
-    hopper::load_rows<HD>(sV, v + size_t(b) * sh.S * rs + head * HD, rs, kb,
-                          KT, sh.S, tid, TL::NT);
-    load_seg(sKs, kv_seg, b, sh.S, kb, KT, sh.use_seg);
-    __syncthreads();
-    float s[KT / 8][4];
+  hopper::mbar_wait(bar, 0);
+  const uint64_t dq = hopper::desc_k(sQ + 4 * wg * BOX64);
+  uint32_t pa[2][4];  // P as bf16 register operands
+  float alpha[2];
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % D512_STAGES;
+    uint8_t* sK = sKV + st * 16 * BOXF;
+    hopper::mbar_wait(&full[st], (j / D512_STAGES) & 1);
+
+    // the partial S over this warpgroup's 256 columns of the depth
+    const uint64_t dk = hopper::desc_k(sK + 4 * wg * BOXF);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < KT / 8; ++n)
+    for (int kk = 0; kk < 16; ++kk)
+      hopper::mma_64x32_ss(s, hopper::desc_add(dq, k_step(kk, BOX64)),
+                           hopper::desc_add(dk, k_step(kk, BOXF)), kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    // S = S_0 + S_1 in both warpgroups, bit for bit
+    float* x = xs + (j & 1) * 2 * 16 * 128;
+    put_acc(x + wg * 16 * 128, s, t);
+    hopper::bar_sync(BAR_P, NTHREADS);
+    {
+      float other[16];
+      get_acc(x + (1 - wg) * 16 * 128, other, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-    hopper::mma_xyt<HD, KT / 8>(s, sQ, rg * 16, sK, lane);
+      for (int i = 0; i < 16; ++i) s[i] += other[i];
+    }
+    online_softmax(s, m, l, alpha, sh, c, q0, t0, j * FK, lane, qs, kv_seg,
+                   b);
 #pragma unroll
-    for (int n = 0; n < KT / 8; ++n)
+    for (int i = 0; i < 64; ++i) {
+      o0[i] *= alpha[acc_half(i)];
+      o1[i] *= alpha[acc_half(i)];
+    }
+
+    // O += P V over the warpgroup's 256 columns, two of V's boxes a half
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = 8 * n + 2 * (lane % 4) + (i & 1), key = kb + col;
-        const int h = i >> 1;
-        const bool vis = key < sh.S &&
-                         (!sh.causal || t[h] + sh.q_offset >= key) &&
-                         (!sh.use_seg || qs[h] == sKs[col]);
-        s[n][i] = vis ? s[n][i] * c : -INFINITY;
-      }
-    hopper::softmax_step<KT / 8, ND>(s, m, l, o);
-    hopper::mma_wz<HD, KT / 16, ND>(o, s, sV, sl * TL::DS, lane);
+    for (int kk = 0; kk < 2; ++kk) hopper::acc_to_a(s, kk, pa[kk]);
+    const uint64_t dv0 = hopper::desc_mn(sK + (8 + 4 * wg) * BOXF, BOXF);
+    const uint64_t dv1 = hopper::desc_mn(sK + (10 + 4 * wg) * BOXF, BOXF);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      hopper::mma_64x128_rs(o0, pa[kk], hopper::desc_add(dv0, kk * 2048));
+      hopper::mma_64x128_rs(o1, pa[kk], hopper::desc_add(dv1, kk * 2048));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o0);
+    hopper::fence_regs(o1);
+    if (release(done, st) && lane == 0 && j + D512_STAGES < ntiles)
+      fill_kv512(sKV, full, st, j + D512_STAGES, FK, &tm_k, &tm_v, head, b);
   }
 
+  const int rs = sh.H * WD;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    if (t[h] < sh.T) {
-      const float lc = fmaxf(l[h], 1e-30f);
-      hopper::store_c_row<ND>(
-          out + (size_t(b) * sh.T + t[h]) * rs + head * HD + sl * TL::DS, o,
-          h, lane, 1.f / lc);
-      if (sl == 0 && lane % 4 == 0)
-        lse[size_t(bh) * sh.T + t[h]] =
-            m[h] == NEG_INF ? NEG_INF : m[h] * LN2 + logf(lc);
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    const int tq = t0 + 8 * hf;
+    if (tq < sh.T) {
+      const float lc = fmaxf(l[hf], 1e-30f);
+      bf16* dst =
+          out + (size_t(b) * sh.T + tq) * rs + size_t(head) * WD + 256 * wg;
+      store_row(dst, o0, hf, lane, 128, 1.f / lc);
+      store_row(dst + 128, o1, hf, lane, 128, 1.f / lc);
+      if (wg == 0 && lane % 4 == 0)
+        lse[size_t(bh) * sh.T + tq] =
+            m[hf] == NEG_INF ? NEG_INF : m[hf] * LN2 + logf(lc);
     }
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(hopper::MmaTile<HD>::NT, 1)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
+// acc = A[64][512] . B[16][512]^T, A eight K-major boxes of 64 rows, B
+// eight of 16 rows
+__device__ __forceinline__ void mma_rows512(float (&acc)[8], uint64_t a,
+                                            uint64_t b) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WD / 16; ++kk)
+    hopper::mma_64x16_ss(acc, hopper::desc_add(a, k_step(kk, BOX64)),
+                         hopper::desc_add(b, k_step(kk, BOXB)), kk);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_d512_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ q_seg,
+                          const int* __restrict__ kv_seg,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = hopper::align1024(smem_raw);
+  uint8_t* sV = sK + 8 * BOX64;
+  uint8_t* sQd = sV + 8 * BOX64;  // stage st: Q, then dO, 8 boxes each
+  float* xp = reinterpret_cast<float*>(sQd + D512_STAGES * 16 * BOXB);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(xp + 8 * 128);
+  float* rows = reinterpret_cast<float*>(xs + 4 * 128);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(rows + D512_STAGES * 3 * BR);
+  uint64_t* full = bar + 1;
+  int* done = reinterpret_cast<int*>(bar + 1 + STAGES);
+
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H, head = bh % sh.H;
+  const int k0 = (blockIdx.x / 2) * 64;
+  const int half = blockIdx.x % 2;  // dK / dV columns [256 half, + 256)
+  // the first q tile with a row that can see key k0
+  const int qstart = sh.causal ? max(0, k0 - sh.q_offset) / BR * BR : 0;
+  const int ntiles = qstart < sh.T ? (sh.T - qstart + BR - 1) / BR : 0;
+  init_ring(bar, done, 32);
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(bar, 16 * BOX64);
+      load_tile8(sK, &tm_k, bar, head, k0, b, BOX64);
+      load_tile8(sV, &tm_v, bar, head, k0, b, BOX64);
+    }
+    for (int j = 0; j < min(D512_STAGES, ntiles); ++j)
+      fill_q_tile<8, BR>(sQd, rows, full, j, qstart + BR * j, &tm_q, &tm_do,
+                         lse, delta, q_seg, b, bh, head, sh);
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int s0 = k0 + 16 * (t / 32) + lane / 4;  // keys s0 and s0 + 8
+  const int col0 = 256 * half + 128 * wg;        // the warpgroup's columns
+  const float c = sh.scale * LOG2E;
+  int ks[2] = {0, 0};
+  if (sh.use_seg) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (s0 + 8 * hf < sh.S) ks[hf] = kv_seg[size_t(b) * sh.S + s0 + 8 * hf];
+  }
+  // dK and dV of the warpgroup's 128 columns; S^T (warpgroup 0) or dP^T
+  float dk_acc[64], dv_acc[64], acc[8];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  hopper::mbar_wait(bar, 0);
+  const uint64_t dA = hopper::desc_k(wg == 0 ? sK : sV);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % D512_STAGES;
+    const int qb = qstart + BR * j;
+    uint8_t* sQ = sQd + st * 16 * BOXB;
+    uint8_t* sdO = sQ + 8 * BOXB;
+    const float* rv = rows + st * 3 * BR;
+    hopper::mbar_wait(&full[st], (j / D512_STAGES) & 1);
+
+    // S^T = K Q^T (warpgroup 0) and dP^T = V dO^T (warpgroup 1), 64 keys
+    // x 16 rows
+    mma_rows512(acc, dA, hopper::desc_k(wg == 0 ? sQ : sdO));
+
+    uint32_t pa[1][4], da[1][4];  // P^T and dS^T as bf16 A operands
+    if (wg == 0) {
+      // P^T = exp2(S^T c - lse log2 e), 0 off the visible pairs
+      const bool masked = sh.use_seg || qb + BR > sh.T || k0 + 64 > sh.S ||
+                          (sh.causal && qb + sh.q_offset < k0 + 63);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = acc_col(i, lane);
+        float p = exp2f(acc[i] * c - rv[col]);
+        if (masked) {
+          const int tq = qb + col, key = s0 + 8 * acc_half(i);
+          const bool vis =
+              tq < sh.T && key < sh.S &&
+              (!sh.causal || tq + sh.q_offset >= key) &&
+              (!sh.use_seg ||
+               reinterpret_cast<const int*>(rv)[2 * BR + col] ==
+                   ks[acc_half(i)]);
+          if (!vis) p = 0.f;
+        }
+        acc[i] = p;
+      }
+      put_acc(xp, acc, t);
+      hopper::bar_arrive(BAR_P, NTHREADS);
+      hopper::acc_to_a(acc, 0, pa[0]);
+      hopper::bar_sync(BAR_DS, NTHREADS);
+      get_frags(xs, da, t);
+    } else {
+      // dS^T = P^T (dP^T - delta) scale
+      float p[8];
+      hopper::bar_sync(BAR_P, NTHREADS);
+      get_acc(xp, p, t);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        acc[i] = p[i] * (acc[i] - rv[BR + acc_col(i, lane)]) * sh.scale;
+      hopper::acc_to_a(acc, 0, da[0]);
+      put_frags(xs, da, t);
+      hopper::bar_arrive(BAR_DS, NTHREADS);
+      hopper::acc_to_a(p, 0, pa[0]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q over the warpgroup's 128 columns
+    const uint64_t mdO = hopper::desc_mn(sdO + (col0 / 64) * BOXB, BOXB);
+    const uint64_t mQ = hopper::desc_mn(sQ + (col0 / 64) * BOXB, BOXB);
+    hopper::wgmma_fence();
+    hopper::mma_64x128_rs(dv_acc, pa[0], mdO);
+    hopper::mma_64x128_rs(dk_acc, da[0], mQ);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    if (release(done, st) && j + D512_STAGES < ntiles)
+      fill_q_tile<8, BR>(sQd, rows, full, st, qb + BR * D512_STAGES, &tm_q,
+                         &tm_do, lse, delta, q_seg, b, bh, head, sh);
+  }
+
+  const int rs = sh.H * WD;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = s0 + 8 * hf;
+    if (key < sh.S) {
+      const size_t at =
+          (size_t(b) * sh.S + key) * rs + size_t(head) * WD + col0;
+      store_row(dk + at, dk_acc, hf, lane, 128, 1.f);
+      store_row(dv + at, dv_acc, hf, lane, 128, 1.f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_d512_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const int* __restrict__ q_seg,
                          const int* __restrict__ kv_seg,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         Shape sh) {
-  using F = MmaFlash<HD>;
-  using TL = typename F::MT;
-  constexpr int P = F::P, ND = F::ND, BQ = F::BQ_DKV;
-  extern __shared__ __align__(16) uint8_t smem_mma[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sV = sK + 64 * P;
-  bf16* sQ = sV + 64 * P;
-  bf16* sO = sQ + BQ * P;  // dO
-  float* sL = reinterpret_cast<float*>(sO + BQ * P);
-  float* sD = sL + BQ;
-  int* sQs = reinterpret_cast<int*>(sD + BQ);
-  int* sKs = sQs + BQ;
-  const int bh = blockIdx.y, b = bh / sh.H, head = bh % sh.H;
-  const int k0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kg = warp % 4, sl = warp / 4;
-  const size_t rs = size_t(sh.H) * HD;
-  hopper::load_rows<HD>(sK, k + size_t(b) * sh.S * rs + head * HD, rs, k0,
-                        64, sh.S, tid, TL::NT);
-  hopper::load_rows<HD>(sV, v + size_t(b) * sh.S * rs + head * HD, rs, k0,
-                        64, sh.S, tid, TL::NT);
-  load_seg(sKs, kv_seg, b, sh.S, k0, 64, sh.use_seg);
-  int kl[2];  // the thread's keys, block-relative (C rows g and g + 8)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) kl[h] = kg * 16 + lane / 4 + 8 * h;
-  const float c = sh.scale * LOG2E;
-  float dva[ND][4], dka[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dva[n][i] = dka[n][i] = 0.f;
+                         bf16* __restrict__ dq, Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = hopper::align1024(smem_raw);
+  uint8_t* sdO = sQ + 8 * BOX64;
+  uint8_t* sKV = sdO + 8 * BOX64;  // stage st: K, then V, 8 boxes each
+  float* xp = reinterpret_cast<float*>(sKV + D512_STAGES * 16 * BOXB);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(xp + 8 * 128);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xs + 4 * 128);
+  uint64_t* full = bar + 1;
+  int* done = reinterpret_cast<int*>(bar + 1 + STAGES);
 
-  const int qstart = sh.causal ? max(0, k0 - sh.q_offset) / BQ * BQ : 0;
-  for (int qb = qstart; qb < sh.T; qb += BQ) {
-    __syncthreads();
-    hopper::load_rows<HD>(sQ, q + size_t(b) * sh.T * rs + head * HD, rs, qb,
-                          BQ, sh.T, tid, TL::NT);
-    hopper::load_rows<HD>(sO, dout + size_t(b) * sh.T * rs + head * HD, rs,
-                          qb, BQ, sh.T, tid, TL::NT);
-    for (int r = tid; r < BQ; r += TL::NT) {
-      const bool live = qb + r < sh.T;
-      sL[r] = live ? lse[size_t(bh) * sh.T + qb + r] * LOG2E : 0.f;
-      sD[r] = live ? delta[size_t(bh) * sh.T + qb + r] : 0.f;
-    }
-    load_seg(sQs, q_seg, b, sh.T, qb, BQ, sh.use_seg);
-    __syncthreads();
-    float pt[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pt[n][i] = dpt[n][i] = 0.f;
-    hopper::mma_xyt<HD, BQ / 8>(pt, sK, kg * 16, sQ, lane);
-    hopper::mma_xyt<HD, BQ / 8>(dpt, sV, kg * 16, sO, lane);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = 8 * n + 2 * (lane % 4) + (i & 1), tq = qb + col;
-        const int kr = kl[i >> 1], key = k0 + kr;
-        const bool vis = tq < sh.T && key < sh.S &&
-                         (!sh.causal || tq + sh.q_offset >= key) &&
-                         (!sh.use_seg || sQs[col] == sKs[kr]);
-        const float p = vis ? exp2f(pt[n][i] * c - sL[col]) : 0.f;
-        pt[n][i] = p;
-        dpt[n][i] = p * (dpt[n][i] - sD[col]);
-      }
-    hopper::mma_wz<HD, BQ / 16, ND>(dva, pt, sO, sl * TL::DS, lane);
-    hopper::mma_wz<HD, BQ / 16, ND>(dka, dpt, sQ, sl * TL::DS, lane);
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H, head = bh % sh.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest tiles first
+  const int ntiles = (key_end(sh, q0, 64) + BR - 1) / BR;
+  init_ring(bar, done, 1);
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(bar, 16 * BOX64);
+    load_tile8(sQ, &tm_q, bar, head, q0, b, BOX64);
+    load_tile8(sdO, &tm_do, bar, head, q0, b, BOX64);
+    for (int j = 0; j < min(D512_STAGES, ntiles); ++j)
+      fill_kv512(sKV, full, j, j, BR, &tm_k, &tm_v, head, b);
   }
 
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int t0 = q0 + 16 * (t / 32) + lane / 4;  // rows t0 and t0 + 8
+  const float c = sh.scale * LOG2E;
+  float lse2[2] = {0.f, 0.f}, del[2] = {0.f, 0.f};
+  int qs[2] = {0, 0};
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + kl[h];
-    if (key < sh.S) {
-      const size_t at = (size_t(b) * sh.S + key) * rs + head * HD + sl * TL::DS;
-      hopper::store_c_row<ND>(dv + at, dva, h, lane, 1.f);
-      hopper::store_c_row<ND>(dk + at, dka, h, lane, sh.scale);
+  for (int hf = 0; hf < 2; ++hf) {
+    const int tq = t0 + 8 * hf;
+    if (tq < sh.T) {
+      lse2[hf] = lse[size_t(bh) * sh.T + tq] * LOG2E;
+      del[hf] = delta[size_t(bh) * sh.T + tq];
+      if (sh.use_seg) qs[hf] = q_seg[size_t(b) * sh.T + tq];
     }
   }
-}
+  // dQ's columns [256 wg, + 128) and [256 wg + 128, + 128); S or dP
+  float dq0[64], dq1[64], acc[8];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq0[i] = dq1[i] = 0.f;
 
-template <int HD>
-__global__ void __launch_bounds__(hopper::MmaTile<HD>::NT, 1)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const int* __restrict__ q_seg,
-                        const int* __restrict__ kv_seg,
-                        bf16* __restrict__ dq, Shape sh) {
-  using F = MmaFlash<HD>;
-  using TL = typename F::MT;
-  constexpr int P = F::P, ND = F::ND, KT = F::KT_DQ;
-  extern __shared__ __align__(16) uint8_t smem_mma[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sO = sQ + 64 * P;  // dO
-  bf16* sK = sO + 64 * P;
-  bf16* sV = sK + KT * P;
-  float* sL = reinterpret_cast<float*>(sV + KT * P);
-  float* sD = sL + 64;
-  int* sKs = reinterpret_cast<int*>(sD + 64);
-  const int bh = blockIdx.y, b = bh / sh.H, head = bh % sh.H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest first
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rg = warp % 4, sl = warp / 4;
-  const size_t rs = size_t(sh.H) * HD;
-  const int kend = key_end(sh, q0, 64);
-  hopper::load_rows<HD>(sQ, q + size_t(b) * sh.T * rs + head * HD, rs, q0,
-                        64, sh.T, tid, TL::NT);
-  hopper::load_rows<HD>(sO, dout + size_t(b) * sh.T * rs + head * HD, rs,
-                        q0, 64, sh.T, tid, TL::NT);
-  for (int r = tid; r < 64; r += TL::NT) {
-    const bool live = q0 + r < sh.T;
-    sL[r] = live ? lse[size_t(bh) * sh.T + q0 + r] * LOG2E : 0.f;
-    sD[r] = live ? delta[size_t(bh) * sh.T + q0 + r] : 0.f;
-  }
-  int rl[2], qs[2] = {0, 0};  // the thread's rows, block-relative
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    rl[h] = rg * 16 + lane / 4 + 8 * h;
-    if (sh.use_seg && q0 + rl[h] < sh.T)
-      qs[h] = q_seg[size_t(b) * sh.T + q0 + rl[h]];
-  }
-  const float c = sh.scale * LOG2E;
-  float dqa[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dqa[n][i] = 0.f;
+  hopper::mbar_wait(bar, 0);
+  const uint64_t dA = hopper::desc_k(wg == 0 ? sQ : sdO);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % D512_STAGES;
+    const int kb = BR * j;
+    uint8_t* sK = sKV + st * 16 * BOXB;
+    hopper::mbar_wait(&full[st], (j / D512_STAGES) & 1);
 
-  for (int kb = 0; kb < kend; kb += KT) {
-    __syncthreads();
-    hopper::load_rows<HD>(sK, k + size_t(b) * sh.S * rs + head * HD, rs, kb,
-                          KT, sh.S, tid, TL::NT);
-    hopper::load_rows<HD>(sV, v + size_t(b) * sh.S * rs + head * HD, rs, kb,
-                          KT, sh.S, tid, TL::NT);
-    load_seg(sKs, kv_seg, b, sh.S, kb, KT, sh.use_seg);
-    __syncthreads();
-    float p[KT / 8][4], dp[KT / 8][4];
+    // S = Q K^T (warpgroup 0) and dP = dO V^T (warpgroup 1), 64 rows x 16
+    // keys
+    mma_rows512(acc, dA, hopper::desc_k(wg == 0 ? sK : sK + 8 * BOXB));
+
+    uint32_t da[1][4];  // dS as a bf16 A operand
+    if (wg == 0) {
+      const bool masked = sh.use_seg || kb + BR > sh.S ||
+                          (sh.causal && kb + BR - 1 > q0 + sh.q_offset);
 #pragma unroll
-    for (int n = 0; n < KT / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[n][i] = dp[n][i] = 0.f;
-    hopper::mma_xyt<HD, KT / 8>(p, sQ, rg * 16, sK, lane);
-    hopper::mma_xyt<HD, KT / 8>(dp, sO, rg * 16, sV, lane);
-#pragma unroll
-    for (int n = 0; n < KT / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = 8 * n + 2 * (lane % 4) + (i & 1), key = kb + col;
-        const int r = rl[i >> 1], tq = q0 + r;
-        const bool vis = tq < sh.T && key < sh.S &&
-                         (!sh.causal || tq + sh.q_offset >= key) &&
-                         (!sh.use_seg || qs[i >> 1] == sKs[col]);
-        const float pr = vis ? exp2f(p[n][i] * c - sL[r]) : 0.f;
-        p[n][i] = pr * (dp[n][i] - sD[r]);
+      for (int i = 0; i < 8; ++i) {
+        const int hf = acc_half(i);
+        float p = exp2f(acc[i] * c - lse2[hf]);
+        if (masked) {
+          const int tq = t0 + 8 * hf, key = kb + acc_col(i, lane);
+          const bool vis =
+              key < sh.S && (!sh.causal || tq + sh.q_offset >= key) &&
+              (!sh.use_seg || qs[hf] == kv_seg[size_t(b) * sh.S + key]);
+          if (!vis) p = 0.f;
+        }
+        acc[i] = p;
       }
-    hopper::mma_wz<HD, KT / 16, ND>(dqa, p, sK, sl * TL::DS, lane);
+      put_acc(xp, acc, t);
+      hopper::bar_arrive(BAR_P, NTHREADS);
+      hopper::bar_sync(BAR_DS, NTHREADS);
+      get_frags(xs, da, t);
+    } else {
+      // dS = P (dP - delta) scale
+      float p[8];
+      hopper::bar_sync(BAR_P, NTHREADS);
+      get_acc(xp, p, t);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        acc[i] = p[i] * (acc[i] - del[acc_half(i)]) * sh.scale;
+      hopper::acc_to_a(acc, 0, da[0]);
+      put_frags(xs, da, t);
+      hopper::bar_arrive(BAR_DS, NTHREADS);
+    }
+
+    // dQ += dS K over the warpgroup's 256 columns
+    const uint64_t mK0 = hopper::desc_mn(sK + 4 * wg * BOXB, BOXB);
+    const uint64_t mK1 = hopper::desc_mn(sK + (4 * wg + 2) * BOXB, BOXB);
+    hopper::wgmma_fence();
+    hopper::mma_64x128_rs(dq0, da[0], mK0);
+    hopper::mma_64x128_rs(dq1, da[0], mK1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq0);
+    hopper::fence_regs(dq1);
+    if (release(done, st) && lane == 0 && j + D512_STAGES < ntiles)
+      fill_kv512(sKV, full, st, j + D512_STAGES, BR, &tm_k, &tm_v, head, b);
   }
 
+  const int rs = sh.H * WD;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int tq = q0 + rl[h];
-    if (tq < sh.T)
-      hopper::store_c_row<ND>(
-          dq + (size_t(b) * sh.T + tq) * rs + head * HD + sl * TL::DS, dqa, h,
-          lane, sh.scale);
+  for (int hf = 0; hf < 2; ++hf) {
+    const int tq = t0 + 8 * hf;
+    if (tq < sh.T) {
+      bf16* dst =
+          dq + (size_t(b) * sh.T + tq) * rs + size_t(head) * WD + 256 * wg;
+      store_row(dst, dq0, hf, lane, 128, 1.f);
+      store_row(dst + 128, dq1, hf, lane, 128, 1.f);
+    }
   }
 }
 
@@ -1468,23 +1657,24 @@ extern "C" int aurora_flash_fwd(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // rows of a q tile and of a key tile
+  const int qrows = D == WD ? 64 : 128;
+  const int krows = D == WD ? FK : D == MD ? 64 : 128;
+  CUtensorMap mq, mk, mv;
+  if (!hopper::map_blhd(&mq, q, B, T, H, D, qrows) ||
+      !hopper::map_blhd(&mk, k, B, S, H, D, krows) ||
+      !hopper::map_blhd(&mv, v, B, S, H, D, krows))
+    return int(cudaErrorInvalidValue);
   if (D == WD) {
-    cudaError_t err = allow_smem(flash_fwd_mma_kernel<WD>, MF::SMEM_FWD);
+    cudaError_t err = allow_smem(flash_fwd_d512_kernel, SMEM_FWD_D512);
     if (err != cudaSuccess) return int(err);
-    flash_fwd_mma_kernel<WD><<<dim3((T + 63) / 64, B * H), MF::MT::NT,
-                               MF::SMEM_FWD, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const int*>(q_seg),
+    flash_fwd_d512_kernel<<<dim3((T + 63) / 64, B * H), NTHREADS,
+                            SMEM_FWD_D512, st>>>(
+        mq, mk, mv, static_cast<const int*>(q_seg),
         static_cast<const int*>(kv_seg), static_cast<bf16*>(out),
         static_cast<float*>(lse), sh);
     return int(cudaGetLastError());
   }
-  const int krows = D == MD ? 64 : 128;  // rows of a key tile
-  CUtensorMap mq, mk, mv;
-  if (!hopper::map_blhd(&mq, q, B, T, H, D, 128) ||
-      !hopper::map_blhd(&mk, k, B, S, H, D, krows) ||
-      !hopper::map_blhd(&mv, v, B, S, H, D, krows))
-    return int(cudaErrorInvalidValue);
   if (D == MD) {
     cudaError_t err = allow_smem(flash_fwd_d256_kernel, SMEM_FWD_D256);
     if (err != cudaSuccess) return int(err);
@@ -1517,30 +1707,28 @@ extern "C" int aurora_flash_bwd_dkv(const void* q, const void* k,
     return int(cudaErrorInvalidValue);
   const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == WD) {
-    cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel<WD>, MF::SMEM_DKV);
-    if (err != cudaSuccess) return int(err);
-    flash_bwd_dkv_mma_kernel<WD><<<dim3((S + 63) / 64, B * H), MF::MT::NT,
-                                   MF::SMEM_DKV, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), sh);
-    return int(cudaGetLastError());
-  }
-  const int krows = D == MD ? 64 : 128;  // keys a block
+  const int krows = D <= HD ? 128 : 64;  // keys a block
+  const int qrows = D == WD ? BR : 64;    // rows of a q tile
   CUtensorMap mq, mk, mv, mdo;
-  if (!hopper::map_blhd(&mq, q, B, T, H, D, 64) ||
+  if (!hopper::map_blhd(&mq, q, B, T, H, D, qrows) ||
       !hopper::map_blhd(&mk, k, B, S, H, D, krows) ||
       !hopper::map_blhd(&mv, v, B, S, H, D, krows) ||
-      !hopper::map_blhd(&mdo, dout, B, T, H, D, 64))
+      !hopper::map_blhd(&mdo, dout, B, T, H, D, qrows))
     return int(cudaErrorInvalidValue);
   const dim3 grid((S + krows - 1) / krows, B * H);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const int* qs = static_cast<const int*>(q_seg);
   const int* ks = static_cast<const int*>(kv_seg);
+  if (D == WD) {  // a block per (64 keys, half of the columns)
+    cudaError_t err = allow_smem(flash_bwd_dkv_d512_kernel, SMEM_DKV_D512);
+    if (err != cudaSuccess) return int(err);
+    flash_bwd_dkv_d512_kernel<<<dim3(2 * grid.x, grid.y), NTHREADS,
+                                SMEM_DKV_D512, st>>>(
+        mq, mk, mv, mdo, l, dl, qs, ks, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), sh);
+    return int(cudaGetLastError());
+  }
   if (D == MD) {
     cudaError_t err = allow_smem(flash_bwd_dkv_d256_kernel, SMEM_DKV_D256);
     if (err != cudaSuccess) return int(err);
@@ -1569,23 +1757,12 @@ extern "C" int aurora_flash_bwd_dq(const void* q, const void* k,
     return int(cudaErrorInvalidValue);
   const Shape sh{T, S, H, D, causal, q_offset, q_seg != nullptr, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == WD) {
-    cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel<WD>, MF::SMEM_DQ);
-    if (err != cudaSuccess) return int(err);
-    flash_bwd_dq_mma_kernel<WD><<<dim3((T + 63) / 64, B * H), MF::MT::NT,
-                                  MF::SMEM_DQ, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
-        static_cast<bf16*>(dq), sh);
-    return int(cudaGetLastError());
-  }
-  const int qrows = D == MD ? 64 : 128;  // q rows a block
+  const int qrows = D <= HD ? 128 : 64;  // q rows a block
+  const int krows = D == WD ? BR : 64;    // rows of a key tile
   CUtensorMap mq, mk, mv, mdo;
   if (!hopper::map_blhd(&mq, q, B, T, H, D, qrows) ||
-      !hopper::map_blhd(&mk, k, B, S, H, D, 64) ||
-      !hopper::map_blhd(&mv, v, B, S, H, D, 64) ||
+      !hopper::map_blhd(&mk, k, B, S, H, D, krows) ||
+      !hopper::map_blhd(&mv, v, B, S, H, D, krows) ||
       !hopper::map_blhd(&mdo, dout, B, T, H, D, qrows))
     return int(cudaErrorInvalidValue);
   const dim3 grid((T + qrows - 1) / qrows, B * H);
@@ -1593,6 +1770,13 @@ extern "C" int aurora_flash_bwd_dq(const void* q, const void* k,
   const float* dl = static_cast<const float*>(delta);
   const int* qs = static_cast<const int*>(q_seg);
   const int* ks = static_cast<const int*>(kv_seg);
+  if (D == WD) {
+    cudaError_t err = allow_smem(flash_bwd_dq_d512_kernel, SMEM_DQ_D512);
+    if (err != cudaSuccess) return int(err);
+    flash_bwd_dq_d512_kernel<<<grid, NTHREADS, SMEM_DQ_D512, st>>>(
+        mq, mk, mv, mdo, l, dl, qs, ks, static_cast<bf16*>(dq), sh);
+    return int(cudaGetLastError());
+  }
   if (D == MD) {
     cudaError_t err = allow_smem(flash_bwd_dq_d256_kernel, SMEM_DQ_D256);
     if (err != cudaSuccess) return int(err);
@@ -1665,14 +1849,14 @@ extern "C" int aurora_kernel_attrs(const char* name, int* regs,
     fn = reinterpret_cast<const void*>(flash_bwd_dq_d256_kernel);
     dynamic = int(SMEM_DQ_D256);
   } else if (strcmp(name, "flash_fwd_d512") == 0) {
-    fn = reinterpret_cast<const void*>(flash_fwd_mma_kernel<WD>);
-    dynamic = int(MF::SMEM_FWD);
+    fn = reinterpret_cast<const void*>(flash_fwd_d512_kernel);
+    dynamic = int(SMEM_FWD_D512);
   } else if (strcmp(name, "flash_bwd_dkv_d512") == 0) {
-    fn = reinterpret_cast<const void*>(flash_bwd_dkv_mma_kernel<WD>);
-    dynamic = int(MF::SMEM_DKV);
+    fn = reinterpret_cast<const void*>(flash_bwd_dkv_d512_kernel);
+    dynamic = int(SMEM_DKV_D512);
   } else if (strcmp(name, "flash_bwd_dq_d512") == 0) {
-    fn = reinterpret_cast<const void*>(flash_bwd_dq_mma_kernel<WD>);
-    dynamic = int(MF::SMEM_DQ);
+    fn = reinterpret_cast<const void*>(flash_bwd_dq_d512_kernel);
+    dynamic = int(SMEM_DQ_D512);
   } else if (strncmp(name, "ragged_decode_", 14) == 0 &&
              sscanf(name + 14, "%4[a-z0-9]_g%d_hd%d", mode, &gm, &hd) >= 2) {
     err_name = aurora_ragged_decode_kernel(mode, gm, hd, &fn, &dynamic);

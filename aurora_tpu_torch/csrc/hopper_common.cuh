@@ -416,6 +416,10 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N], int k,
       HOPPER_ACC8(d, 80), HOPPER_ACC8(d, 88), HOPPER_ACC8(d, 96),         \
       HOPPER_ACC8(d, 104), HOPPER_ACC8(d, 112), HOPPER_ACC8(d, 120)
 
+#define HOPPER_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HOPPER_D16                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15}"
 #define HOPPER_D32                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
@@ -444,6 +448,28 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N], int k,
   "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "    \
   "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "    \
   "%127}"
+
+// D[64][16] and D[64][32] (+)= A[64][16] . B[16][N], both K-major in shared
+// memory; accumulate = 0 overwrites D
+__device__ __forceinline__ void mma_64x16_ss(float (&d)[8], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " HOPPER_D8
+      ", %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_ACC8(d, 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_64x32_ss(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 // D[64][64] (+)= A[64][16] . B[16][64], both K-major in shared memory;
 // accumulate = 0 overwrites D
@@ -532,37 +558,13 @@ __device__ __forceinline__ void mma_64x96_rs(float (&d)[48],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// ------------------------------------------ mma.sync attention (any width)
-// The attention kernels at the head widths that the wgmma tiles above do
-// not take (512 in flash_attention.cu) run warp-level mma.sync.m16n8k16 (bf16 -> fp32) on plain row-major
-// shared tiles of pitch HD + 8 bf16: consecutive rows start 16 bytes apart
-// modulo 128, so a warp's fragment loads hit 32 distinct banks.
-// Fragments (g = lane / 4, t = lane % 4):
+// ------------------------------------------------------------- mma.sync
+// Warp-level mma.sync.m16n8k16 (bf16 -> fp32), for the MoE decode tiles
+// (moe_grouped_mm.cu). Fragments (g = lane / 4, t = lane % 4):
 //   A (16 rows x 16 k): a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..),
 //     a3 (g + 8, 2t + 8..);
 //   B (16 k x 8 cols): b0 (2t..2t+1, g), b1 (2t + 8.., g);
 //   C (16 x 8, fp32): c0, c1 (g, 2t..2t+1), c2, c3 (g + 8, 2t..2t+1).
-// An operand whose k runs along a shared row (Q, or K for S = Q K^T) is
-// therefore read with 32-bit loads; a B operand whose k runs down the rows
-// (V in O += P V) with ldmatrix.trans; and the C tiles of two adjacent
-// 8-column blocks are, packed to bf16, the A operand of the next product
-// (P in P V) without leaving registers.
-
-// warps and widths of a tile of 64 rows: four groups of 16 rows; above 128
-// columns HD / 128 warps share a row group, each summing 128 of the output
-// columns (the scores are computed by each), so a thread's accumulator
-// stays at 64 floats
-template <int HD>
-struct MmaTile {
-  static constexpr int NSL = HD > 128 ? HD / 128 : 1;  // warps a row group
-  static constexpr int DS = HD / NSL;  // output columns a warp
-  static constexpr int WARPS = 4 * NSL;
-  static constexpr int NT = 32 * WARPS;
-  static constexpr int P = HD + 8;              // shared row pitch (bf16)
-  static_assert(HD % 16 == 0 && DS % 16 == 0 && (HD <= 128 || HD % 128 == 0),
-                "k16 steps, x4 loads, 128-column slices");
-};
-
 __device__ __forceinline__ void mma16816(float (&d)[4],
                                          const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -571,136 +573,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four transposed 8x8 bf16 matrices; lane l gives the row address of
-// matrix l / 8
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// acc[n] += X[row0 + 16 rows] . Y[8n + 8 rows]^T over HD columns, for the
-// NB blocks of 8 rows of Y; X and Y row-major of pitch HD + 8
-template <int HD, int NB>
-__device__ __forceinline__ void mma_xyt(float (&acc)[NB][4],
-                                        const __nv_bfloat16* x, int row0,
-                                        const __nv_bfloat16* y, int lane) {
-  constexpr int P = HD + 8;
-  const __nv_bfloat16* xa = x + (row0 + lane / 4) * P + 2 * (lane % 4);
-  const __nv_bfloat16* yb = y + (lane / 4) * P + 2 * (lane % 4);
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t a[4] = {ld32(xa + 16 * kk), ld32(xa + 8 * P + 16 * kk),
-                           ld32(xa + 16 * kk + 8),
-                           ld32(xa + 8 * P + 16 * kk + 8)};
-#pragma unroll
-    for (int n = 0; n < NB; ++n)
-      mma16816(acc[n], a, ld32(yb + 8 * n * P + 16 * kk),
-               ld32(yb + 8 * n * P + 16 * kk + 8));
-  }
-}
-
-// acc[n] += W . Z[0 : 16 KB rows, col0 + 8n + 8 columns] for the ND blocks
-// of 8 output columns, W the 16 x 16 KB bf16 rounding of the C tiles
-// w[2 KB] (rows: the thread's rows; k: w's columns); Z row-major of pitch
-// HD + 8
-template <int HD, int KB, int ND>
-__device__ __forceinline__ void mma_wz(float (&acc)[ND][4],
-                                       const float (&w)[2 * KB][4],
-                                       const __nv_bfloat16* z, int col0,
-                                       int lane) {
-  constexpr int P = HD + 8;
-  static_assert(ND % 2 == 0, "x4 loads cover 16 columns");
-  const __nv_bfloat16* zb = z + (lane & 15) * P + col0 + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KB; ++kk) {
-    const uint32_t a[4] = {pack_bf16(w[2 * kk][0], w[2 * kk][1]),
-                           pack_bf16(w[2 * kk][2], w[2 * kk][3]),
-                           pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]),
-                           pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < ND / 2; ++np) {
-      uint32_t r[4];
-      ldsm_x4_t(r, zb + 16 * kk * P + 16 * np);
-      mma16816(acc[2 * np], a, r[0], r[1]);
-      mma16816(acc[2 * np + 1], a, r[2], r[3]);
-    }
-  }
-}
-
-// one key tile's logits s (log2 units, -inf off the visible pairs) →
-// probabilities in place; m and l, the running max and sum of the thread's
-// two rows (C rows g and g + 8), and the output o rescaled by the change
-// of max. The four threads of a row agree on its max through shuffles; m
-// starts at a finite floor, so a row that has seen no key keeps
-// probability 0 and alpha 1.
-template <int NB, int ND>
-__device__ __forceinline__ void softmax_step(float (&s)[NB][4], float (&m)[2],
-                                             float (&l)[2],
-                                             float (&o)[ND][4]) {
-  float mx[2] = {m[0], m[1]}, alpha[2];
-#pragma unroll
-  for (int n = 0; n < NB; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    alpha[h] = exp2f(m[h] - mx[h]);
-    m[h] = mx[h];
-    l[h] *= alpha[h];
-  }
-#pragma unroll
-  for (int n = 0; n < NB; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      s[n][i] = exp2f(s[n][i] - m[i >> 1]);
-      l[i >> 1] += s[n][i];
-    }
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
-}
-
-// the thread's half (h) of an output row of C tiles, times mul, as bf16
-// to dst (the row's first column of the warp's slice)
-template <int ND>
-__device__ __forceinline__ void store_c_row(__nv_bfloat16* dst,
-                                            const float (&o)[ND][4], int h,
-                                            int lane, float mul) {
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n + 2 * (lane % 4)) =
-        __floats2bfloat162_rn(o[n][2 * h] * mul, o[n][2 * h + 1] * mul);
-}
-
-// rows [row0, row0 + rows) of a row-major bf16 source (row r at
-// src + r * stride elements; rows at or past `live` read as zeros) into a
-// shared tile of pitch HD + 8, 16 bytes a thread
-template <int HD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          size_t stride, int row0, int rows,
-                                          int live, int tid, int nthreads) {
-  constexpr int C = HD / 8;
-  for (int e = tid; e < rows * C; e += nthreads) {
-    const int r = e / C, c = e % C;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < live)
-      v = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * stride +
-                                          c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (HD + 8) + c * 8) = v;
-  }
 }
 
 }  // namespace hopper

@@ -10,6 +10,10 @@ Environment (torchrun's): MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE and
 LOCAL_RANK. A single process (no WORLD_SIZE, or WORLD_SIZE 1) returns
 False, so every entry point can call it unconditionally.
 
+Device: the card unless the caller passes device_type="cpu". With no
+card visible the default raises, in a single process too: a rank never
+carries on on the CPU on its own.
+
 Backend: NCCL for ranks on distinct cards, gloo on the CPU. NCCL refuses
 two ranks on one card, so when a host starts more ranks than it has
 cards `init_distributed` raises unless gloo was asked for by name; it
@@ -49,23 +53,30 @@ def rank_device(device_type: str = "cuda") -> torch.device:
     return torch.device("cuda", local % max(torch.cuda.device_count(), 1))
 
 
+def require_card(device_type: str, what: str) -> None:
+    """Raise when device_type is "cuda" and no card is visible: the ranks
+    never carry on on the CPU unless the caller asks for it."""
+    if device_type == "cuda" and torch.cuda.device_count() == 0:
+        raise RuntimeError(f"{what}: device_type 'cuda' but no card is "
+                           "visible; pass device_type='cpu' to run on the "
+                           "CPU")
+
+
 def init_distributed(backend: Optional[str] = None,
-                     device_type: Optional[str] = None,
-                     log=print) -> bool:
+                     device_type: str = "cuda", log=print) -> bool:
     """Join the process group the environment describes; True when this
     is a multi-process run (also when it was joined already).
 
-    device_type: "cuda" (default when a card is visible) or "cpu".
-    backend: None picks NCCL for "cuda" and gloo for "cpu"; "gloo" on
-    "cuda" lets several ranks share a card (the collectives then copy
+    device_type: "cuda" (the default; raises when no card is visible) or
+    "cpu". backend: None picks NCCL for "cuda" and gloo for "cpu"; "gloo"
+    on "cuda" lets several ranks share a card (the collectives then copy
     through host memory, parallel/collectives.py)."""
+    require_card(device_type, "init_distributed")
     if dist.is_initialized():
         return True
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1:
         return False
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
     if backend is None:
         backend = "nccl" if device_type == "cuda" else "gloo"
     rank_ = int(os.environ.get("RANK", "0"))
@@ -79,8 +90,6 @@ def init_distributed(backend: Optional[str] = None,
     if device_type == "cuda":
         n_cards = torch.cuda.device_count()
         local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-        if n_cards == 0:
-            raise RuntimeError("device_type 'cuda' but no card is visible")
         if backend == "nccl" and local_world > n_cards:
             raise RuntimeError(
                 f"{local_world} ranks on a host with {n_cards} card(s): NCCL "

@@ -56,6 +56,7 @@ import torch.distributed as dist
 from aurora_tpu_torch.parallel.collectives import (Axis, TensorParallel,
                                                    _axis_of, _gather,
                                                    all_gather, all_reduce_)
+from aurora_tpu_torch.parallel.distributed import require_card
 
 AXES = ("dp", "fsdp", "sp", "tp")
 # the axes (and products of axes) a train step reduces over, made once
@@ -123,17 +124,18 @@ class Mesh:
         return self._axes[key]
 
 
-def create_mesh(cfg: MeshConfig, device_type: Optional[str] = None) -> Mesh:
+def create_mesh(cfg: MeshConfig, device_type: str = "cuda") -> Mesh:
     """The mesh of a process group of cfg.num_devices ranks
-    (parallel/distributed.py `init_distributed` first)."""
+    (parallel/distributed.py `init_distributed` first) on device_type's
+    devices: "cuda" (the default; raises when no card is visible) or
+    "cpu"."""
+    require_card(device_type, "create_mesh")
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs torch.distributed initialized "
                            "(parallel.distributed.init_distributed)")
     if dist.get_world_size() != cfg.num_devices:
         raise ValueError(f"need {cfg.num_devices} ranks, have "
                          f"{dist.get_world_size()}")
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
     return Mesh(cfg, device_type)
 
 

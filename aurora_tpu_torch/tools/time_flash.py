@@ -12,7 +12,8 @@ T 2048), 512 FLASH_D512, 128 chip_smoke's training shape (B 4, T 2048,
 H 32). Each case holds the tree's kernels against the tree's plain twin
 at chip_smoke's tolerances (with a random lse cotangent, so that the
 case runs on trees whose launcher predates the head padding) and prints
-chip_smoke's `[kernels]` line: `*_ms` are CUDA-event medians, `*_bound`
+the tree's kernels' registers, spill and shared bytes (a `[build]` line)
+and chip_smoke's `[kernels]` line: `*_ms` are CUDA-event medians, `*_bound`
 the least time at 989 TFLOP/s or 3.35 TB/s, `library_*` SDPA's.
 """
 
@@ -68,6 +69,12 @@ def main(argv=None) -> int:
     smoke.phase("tree", path=tree, commit=head.stdout.strip() or None,
                 card=repr(smoke.card_line()))
     cuda_build.load_library()
+    # registers, spill and shared bytes of the tree's kernels at each width
+    smoke.phase("build", **{
+        name: "regs={regs}/local={local_bytes}/smem={smem}".format(
+            **cuda_build.kernel_attrs(name))
+        for w in widths for k in ("fwd", "bwd_dkv", "bwd_dq")
+        for name in [f"flash_{k}" + ("" if w == 128 else f"_d{w}")]})
     g = torch.Generator(device=dev).manual_seed(smoke.SEED + 11)
     for w in widths:
         B, T, H = shapes[w]

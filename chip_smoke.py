@@ -7135,6 +7135,10 @@ def main(argv=None):
           library=cuda_build.library_path().name,
           **{n: "regs={regs}/local={local_bytes}/smem={smem}".format(**a)
              for n, a in attrs.items()})
+    # the D 512 flash kernels hold their accumulators in registers whole
+    check(all(attrs[f"flash_{k}_d512"]["local_bytes"] == 0
+              for k in ("fwd", "bwd_dkv", "bwd_dq")),
+          "a D 512 flash kernel spills to local memory")
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     kres = {(mode, hkv): attention_case(torch, ra, dev, g, hkv, mode)

@@ -52,7 +52,7 @@ out within 2e-2 max abs and, per query row, 1.5e-2 of that row's max
 |out|; lse within 1e-4 (fp32 on both sides from the same bf16 scores);
 each of dQ, dK, dV within 1.5e-2 of its max |want| (bf16 P and dS in the
 tensor-core products) — chip_smoke.py's bounds; repeated backward passes
-agree bitwise; at D 256 the forward repeats bit for bit and a query row
+agree bitwise; at D 256 and 512 the forward repeats bit for bit and a query row
 that sees no key gives out 0 and lse -2.3819763e38. The remat policies of a bf16 train step on the card give
 the same loss and grad norm (1e-5) and keep or recompute the flash
 forward as their names say. The dense greedy decode of the caption path
@@ -970,7 +970,7 @@ def test_flash_rejects_what_the_kernels_do_not_take(cuda_device):
 
 
 # heads the kernels take after padding (72 → 80 on the wgmma kernels, 200
-# → 256, 384 → 512) and D 512's mma.sync kernels: T and S off the tiles,
+# → 256, 384 → 512) and the D 512 kernels: T and S off the tiles,
 # GQA, segments with rows that see no key, a q_offset, non-causal S != T
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,T,S,Hkv,causal,q_offset,segments", [
@@ -1309,20 +1309,26 @@ def test_flash_takes_head_dim_256_on_card(cuda_device):
         assert _grad_rel(a, b) <= 1.5e-2, name
 
 
-# D 256 off the tiles: T and S off 64, the diagonal across tiles, GQA,
-# segments with rows that see no key, non-causal with S != T; and
-# google/gemma-7b's training shape (16 heads, T 2048)
+# The D 256 and D 512 kernels (two warpgroups splitting the head's
+# columns) off their tiles: T and S off 16, 32 and 64, the diagonal
+# across tiles, GQA, segments with rows that see no key, non-causal with
+# S != T; and google/gemma-7b's training shape (16 heads, T 2048)
+WIDE_WIDTHS = [256, 512]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", WIDE_WIDTHS)
 @pytest.mark.parametrize("B,T,S,H,Hkv,causal,q_offset,segments", [
     (2, 300, 300, 4, 4, True, 0, False), (2, 300, 364, 4, 2, True, 64, True),
     (2, 200, 330, 4, 4, False, 0, False), (2, 300, 300, 4, 1, False, 0, True),
     (1, 2048, 2048, 16, 16, True, 0, False), (2, 77, 77, 4, 4, True, 0, False),
     (1, 130, 200, 4, 2, True, 70, False), (2, 64, 100, 4, 4, False, 0, False),
     (1, 129, 129, 2, 2, True, 0, True)])
-def test_flash_d256_kernels_match_plain_on_card(cuda_device, B, T, S, H, Hkv,
-                                                causal, q_offset, segments):
-    _flash_check(cuda_device, 256 + T + Hkv, B, T, S, H, Hkv, 256, causal,
-                 q_offset, segments)
+def test_flash_wide_kernels_match_plain_on_card(cuda_device, B, T, S, H, Hkv,
+                                                causal, q_offset, segments,
+                                                width):
+    _flash_check(cuda_device, width + T + Hkv, B, T, S, H, Hkv, width,
+                 causal, q_offset, segments)
 
 
 def _flash_fwd_op(q, k, v, causal=True, q_offset=0, segs=(None, None)):
@@ -1332,12 +1338,13 @@ def _flash_fwd_op(q, k, v, causal=True, q_offset=0, segs=(None, None)):
 
 
 @pytest.mark.cuda
-def test_flash_d256_forward_masks_whole_rows_on_card(cuda_device):
+@pytest.mark.parametrize("width", WIDE_WIDTHS)
+def test_flash_wide_forward_masks_whole_rows_on_card(cuda_device, width):
     """Query rows whose segment id no key carries see nothing: out 0 and
-    lse -2.3819763e38 (the reference's mask value), at T off the 128-row
-    q tiles and S off the 64-key tiles; the other rows' lse within 1e-4
-    of the fp32 twin's."""
-    q, k, v, _ = _flash_inputs(cuda_device, 31, 2, 203, 203, 4, 2, 256)
+    lse -2.3819763e38 (the reference's mask value), at T off the 64- and
+    128-row q tiles and S off the 32- and 64-key tiles; the other rows'
+    lse within 1e-4 of the fp32 twin's."""
+    q, k, v, _ = _flash_inputs(cuda_device, 31, 2, 203, 203, 4, 2, width)
     seg = torch.zeros((2, 203), dtype=torch.int32, device=cuda_device)
     seg[:, 90:] = 1
     qseg = seg.clone()
@@ -1357,8 +1364,10 @@ def test_flash_d256_forward_masks_whole_rows_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_d256_forward_is_bitwise_repeatable_on_card(cuda_device):
-    q, k, v, _ = _flash_inputs(cuda_device, 12, 2, 333, 333, 4, 4, 256)
+@pytest.mark.parametrize("width", WIDE_WIDTHS)
+def test_flash_wide_forward_is_bitwise_repeatable_on_card(cuda_device,
+                                                          width):
+    q, k, v, _ = _flash_inputs(cuda_device, 12, 2, 333, 333, 4, 4, width)
     runs = [_flash_fwd_op(q, k, v) for _ in range(3)]
     torch.cuda.synchronize()
     for out, lse in runs[1:]:
@@ -1366,8 +1375,9 @@ def test_flash_d256_forward_is_bitwise_repeatable_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_d256_backward_is_deterministic_on_card(cuda_device):
-    q, k, v, g = _flash_inputs(cuda_device, 9, 2, 300, 300, 4, 4, 256)
+@pytest.mark.parametrize("width", WIDE_WIDTHS)
+def test_flash_wide_backward_is_deterministic_on_card(cuda_device, width):
+    q, k, v, g = _flash_inputs(cuda_device, 9, 2, 300, 300, 4, 4, width)
     runs = [_grads(lambda *a: tfa.flash_attention(*a, causal=True),
                    q, k, v, g)[1] for _ in range(3)]
     torch.cuda.synchronize()

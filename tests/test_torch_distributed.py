@@ -4,8 +4,8 @@ jax.distributed smoke):
 
   * `parallel.distributed.init_distributed`: a single process is a no-op
     (False); a multi-process environment that cannot form a group raises
-    rather than run as one process; a CUDA rank on a host without a card
-    raises;
+    rather than run as one process; a CUDA rank (the default, also for
+    `parallel.mesh.create_mesh`) on a host without a card raises;
   * 2 ranks started under a torchrun environment (tests/torch_mp_worker.py,
     suite "dp") join through `init_distributed` and take one step on dp 2
     with other rows each: their losses and the checksums of their
@@ -67,6 +67,25 @@ def test_init_distributed_refuses_to_fall_back(clean_env):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no card"):
             distributed.init_distributed(device_type="cuda")
+    assert not torch.distributed.is_initialized()
+
+
+def test_mesh_defaults_to_the_card_and_refuses_without_one(clean_env):
+    """With no device_type, init_distributed and create_mesh take the
+    card; where none is visible they raise, in one process or under a
+    multi-process environment, rather than carry on on the CPU."""
+    from aurora_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    clean_env.setattr(torch.cuda, "device_count", lambda: 0)
+    clean_env.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no card is visible"):
+        distributed.init_distributed()
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"),
+                 ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1")):
+        clean_env.setenv(k, v)
+    with pytest.raises(RuntimeError, match="no card is visible"):
+        distributed.init_distributed()
+    with pytest.raises(RuntimeError, match="no card is visible"):
+        create_mesh(MeshConfig(sp=2))
     assert not torch.distributed.is_initialized()
 
 

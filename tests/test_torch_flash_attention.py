@@ -37,6 +37,9 @@ CASES = {
     "t300_q_offset200": (300, 500, 2, 2, True, 200, False),
     "t200_s330": (200, 330, 2, 2, False, 0, False),
     "d64_causal": (160, 160, 2, 2, True, 0, False, 64),
+    # the widest heads the kernels take (384 pads to 512 on the card)
+    "d512_causal": (160, 160, 2, 2, True, 0, False, 512),
+    "d384_segments": (200, 200, 2, 2, True, 0, True, 384),
 }
 
 
@@ -125,7 +128,8 @@ def test_flash_grads_match_jax(case):
         assert np.all(tq.grad.numpy()[1, 150:] == 0)
 
 
-@pytest.mark.parametrize("case", ["t160_causal", "gqa", "q_offset"])
+@pytest.mark.parametrize("case", ["t160_causal", "gqa", "q_offset",
+                                  "d512_causal"])
 def test_flash_lse_matches_jax(case):
     """out, lse and the gradients of a loss that uses both."""
     q, k, v, g, kw = _inputs(case, seed=2)
